@@ -1,0 +1,318 @@
+"""`.m` model-file format: reader and writer.
+
+Byte-compatible with the reference's custom model format so models converted
+for the reference engine load here unchanged, and fixtures written here load
+in the reference:
+
+  * header: legacy fixed struct (magic 0xABCD00/01, ref:
+    src/transformer.hpp:59-69, transformer.cpp:198-213) or KV-pair format
+    (magic 0xA00ABCD, ref: src/transformer.cpp:214-243, converter/writer.py:110-139)
+  * tensor walk order: embedding; per layer q,k,v,wo, then dense w1,w2,w3 or
+    MoE router + per-expert up,gate,down; rms weights; final rms; wcls
+    (ref: src/transformer.cpp:623-683)
+
+Unlike the reference — which mmaps and pushes byte-slices over sockets — we
+return tensors as numpy arrays (dense f32/f16) or host Q40/Q80 struct-of-array
+pairs ready for device upload (models/loader.py moves them onto the card).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+from typing import Iterator
+
+import numpy as np
+
+from ..models.spec import ArchType, HiddenAct, ModelSpec
+from ..quants.types import BLOCK_SIZE, FloatType, batch_bytes
+from ..quants.numpy_codec import (
+    dequantize_q40,
+    dequantize_q80,
+    q40_bytes_to_arrays,
+    q40_arrays_to_bytes,
+    q80_bytes_to_arrays,
+    q80_arrays_to_bytes,
+    quantize_q40,
+    quantize_q80,
+)
+
+MAGIC_KV = 0xA00ABCD  # ref: src/transformer.cpp:214
+LEGACY_MAGICS = (0xABCD00, 0xABCD01)  # ref: src/transformer.cpp:198
+
+# header KV keys, ref: src/transformer.hpp:42-57
+_KEYS = {
+    "version": 0,
+    "arch_type": 1,
+    "dim": 2,
+    "hidden_dim": 3,
+    "n_layers": 4,
+    "n_heads": 5,
+    "n_kv_heads": 6,
+    "n_experts": 7,
+    "n_active_experts": 8,
+    "vocab_size": 9,
+    "max_seq_len": 10,
+    "hidden_act": 11,
+    "rope_theta": 12,
+    "weights_float_type": 13,
+}
+
+
+@dataclasses.dataclass
+class HostTensor:
+    """A tensor as stored on file: dense numpy or quantized struct-of-arrays.
+
+    Logical shape is (d, n): d output rows of n values, matching the
+    reference's matmul convention (W @ x, ref: src/funcs.cpp:413-454).
+    """
+
+    name: str
+    ftype: FloatType
+    shape: tuple[int, ...]
+    data: np.ndarray | None = None       # dense f32 (or f16) payload
+    scales: np.ndarray | None = None     # (d, nb) f16 for Q40/Q80
+    packed: np.ndarray | None = None     # (d, nb, 16) u8 for Q40 / (d, nb, 32) i8 for Q80
+
+    def to_f32(self) -> np.ndarray:
+        if self.ftype == FloatType.F32:
+            return self.data
+        if self.ftype == FloatType.F16:
+            return self.data.astype(np.float32)
+        if self.ftype == FloatType.Q40:
+            return dequantize_q40(self.scales, self.packed).reshape(self.shape)
+        if self.ftype == FloatType.Q80:
+            return dequantize_q80(self.scales, self.packed).reshape(self.shape)
+        raise ValueError(self.ftype)
+
+
+def model_tensor_plan(spec: ModelSpec) -> Iterator[tuple[str, tuple[int, ...], FloatType]]:
+    """Yield (name, shape, ftype) in exact file order (ref: src/transformer.cpp:623-683).
+
+    Shapes are (d, n) = (out_dim, in_dim) for matmul weights.
+    """
+    wt = spec.weights_float_type
+    yield "tok_emb", (spec.vocab_size, spec.dim), FloatType.F32
+    for l in range(spec.n_layers):
+        p = f"layers.{l}."
+        yield p + "wq", (spec.dim, spec.dim), wt
+        yield p + "wk", (spec.kv_dim, spec.dim), wt
+        yield p + "wv", (spec.kv_dim, spec.dim), wt
+        yield p + "wo", (spec.dim, spec.dim), wt
+        if spec.is_moe:
+            yield p + "moe_router", (spec.n_experts, spec.dim), wt
+            for e in range(spec.n_experts):
+                yield p + f"experts.{e}.up", (spec.hidden_dim, spec.dim), wt
+                yield p + f"experts.{e}.gate", (spec.hidden_dim, spec.dim), wt
+                yield p + f"experts.{e}.down", (spec.dim, spec.hidden_dim), wt
+        else:
+            yield p + "w1", (spec.hidden_dim, spec.dim), wt
+            yield p + "w2", (spec.dim, spec.hidden_dim), wt
+            yield p + "w3", (spec.hidden_dim, spec.dim), wt
+        yield p + "rms_att", (spec.dim,), FloatType.F32
+        yield p + "rms_ffn", (spec.dim,), FloatType.F32
+        if spec.arch == ArchType.GROK1:
+            yield p + "rms_moe", (spec.dim,), FloatType.F32
+            yield p + "rms_ffn2", (spec.dim,), FloatType.F32
+    yield "rms_final", (spec.dim,), FloatType.F32
+    yield "wcls", (spec.vocab_size, spec.dim), wt
+
+
+def _tensor_bytes(shape: tuple[int, ...], ftype: FloatType) -> int:
+    n = shape[-1]
+    d = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    return batch_bytes(ftype, n, d)
+
+
+def read_spec(path: str, weights_float_type: FloatType | None = None) -> ModelSpec:
+    """Parse the `.m` header (ref: src/transformer.cpp:183-291)."""
+    with open(path, "rb") as f:
+        magic = struct.unpack("<i", f.read(4))[0]
+        fields: dict[str, int] = {}
+        if magic in LEGACY_MAGICS:
+            names = ["dim", "hidden_dim", "n_layers", "n_heads", "n_kv_heads",
+                     "n_experts", "n_active_experts", "vocab_size", "max_seq_len"]
+            vals = struct.unpack("<9i", f.read(36))
+            fields = dict(zip(names, vals))
+            fields["arch_type"] = magic
+            header_size = 4 + 36
+            rope_theta = 10000.0
+            hidden_act = HiddenAct.SILU
+            version = 0
+            file_wt = None
+        elif magic == MAGIC_KV:
+            header_size = struct.unpack("<i", f.read(4))[0]
+            data = f.read(header_size - 8)
+            n_kv = len(data) // 8
+            inv = {v: k for k, v in _KEYS.items()}
+            for i in range(n_kv):
+                k, v = struct.unpack_from("<ii", data, i * 8)
+                fields[inv[k]] = v
+            rope_theta = float(fields.pop("rope_theta", 10000))
+            hidden_act = HiddenAct(fields.pop("hidden_act", int(HiddenAct.SILU)))
+            version = fields.pop("version", 0)
+            file_wt = fields.pop("weights_float_type", None)
+        else:
+            raise ValueError(f"unsupported model file magic {magic:#x}")
+
+    wt = weights_float_type
+    if wt is None:
+        wt = FloatType(file_wt) if file_wt is not None else FloatType.F32
+    elif file_wt is not None and int(wt) != file_wt:
+        # the reference requires the flag to match the file (ref: app.cpp:47-48)
+        # but fails mid-load; fail fast with a clear message instead
+        raise ValueError(
+            f"--weights-float-type {wt.name} does not match the model file "
+            f"header ({FloatType(file_wt).name})")
+    spec = ModelSpec(
+        arch=ArchType(fields["arch_type"]),
+        dim=fields["dim"],
+        hidden_dim=fields["hidden_dim"],
+        n_layers=fields["n_layers"],
+        n_heads=fields["n_heads"],
+        n_kv_heads=fields["n_kv_heads"],
+        n_experts=fields.get("n_experts", 0),
+        n_active_experts=fields.get("n_active_experts", 0),
+        vocab_size=fields["vocab_size"],
+        seq_len=fields["max_seq_len"],
+        hidden_act=hidden_act,
+        rope_theta=rope_theta,
+        weights_float_type=wt,
+        version=version,
+    )
+    spec.validate()
+    object.__setattr__(spec, "_header_size", header_size)
+    return spec
+
+
+def tensor_from_bytes(name: str, shape: tuple[int, ...], ftype: FloatType,
+                      buf: bytes) -> HostTensor:
+    """Decode one tensor's raw FILE bytes into a HostTensor — the shared
+    tail of the file reader and the multihost root-push receiver
+    (parallel/multihost.bcast_model_tensors), which ships exactly these
+    bytes over the wire like the reference's per-worker weight push
+    (ref: src/transformer.cpp:562-621)."""
+    if ftype == FloatType.F32:
+        return HostTensor(name, ftype, shape, data=np.frombuffer(buf, np.float32).reshape(shape).copy())
+    if ftype == FloatType.F16:
+        return HostTensor(name, ftype, shape, data=np.frombuffer(buf, np.float16).reshape(shape).copy())
+    n = shape[-1]
+    d = int(np.prod(shape[:-1]))
+    nb = n // BLOCK_SIZE
+    if ftype == FloatType.Q40:
+        scales, packed = q40_bytes_to_arrays(buf, d * n)
+        return HostTensor(name, ftype, shape,
+                          scales=scales.reshape(d, nb), packed=packed.reshape(d, nb, 16))
+    if ftype == FloatType.Q80:
+        scales, q = q80_bytes_to_arrays(buf, d * n)
+        return HostTensor(name, ftype, shape,
+                          scales=scales.reshape(d, nb), packed=q.reshape(d, nb, 32))
+    raise ValueError(ftype)
+
+
+def _read_tensor(f, name: str, shape: tuple[int, ...], ftype: FloatType) -> HostTensor:
+    nbytes = _tensor_bytes(shape, ftype)
+    buf = f.read(nbytes)
+    if len(buf) != nbytes:
+        raise EOFError(f"model file truncated at tensor {name}")
+    return tensor_from_bytes(name, shape, ftype, buf)
+
+
+def iter_model_tensors(path: str, spec: ModelSpec) -> Iterator[HostTensor]:
+    """Yield tensors one at a time in file order — the streaming read the
+    70B-scale loader consumes (models/loader.py): only one tensor's host
+    buffer is live per step (the reference streams from mmap the same way,
+    ref: src/transformer.cpp:607-621)."""
+    header_size = getattr(spec, "_header_size", None)
+    if header_size is None:  # spec built independently of this file
+        header_size = getattr(read_spec(path, spec.weights_float_type),
+                              "_header_size")
+    with open(path, "rb") as f:
+        f.seek(header_size)
+        for name, shape, ftype in model_tensor_plan(spec):
+            yield _read_tensor(f, name, shape, ftype)
+        if f.read(1):
+            raise ValueError("model file has trailing bytes — spec/file mismatch")
+
+
+def read_model(path: str, weights_float_type: FloatType | None = None,
+               spec: ModelSpec | None = None) -> tuple[ModelSpec, dict[str, HostTensor]]:
+    """Read header + all tensors into one dict (small/medium models and
+    tests; the sharded streaming path is models/loader.py)."""
+    if spec is None:
+        spec = read_spec(path, weights_float_type)
+    tensors = {t.name: t for t in iter_model_tensors(path, spec)}
+    return spec, tensors
+
+
+def write_header(f, spec: ModelSpec) -> None:
+    """KV header, byte-identical to converter/writer.py:110-139."""
+    params = {
+        "version": spec.version,
+        "arch_type": int(spec.arch),
+        "hidden_act": int(spec.hidden_act),
+        "dim": spec.dim,
+        "hidden_dim": spec.hidden_dim,
+        "n_layers": spec.n_layers,
+        "n_heads": spec.n_heads,
+        "n_kv_heads": spec.n_kv_heads,
+        "weights_float_type": int(spec.weights_float_type),
+        "max_seq_len": spec.seq_len,
+        "vocab_size": spec.vocab_size,
+        "n_experts": spec.n_experts,
+        "n_active_experts": spec.n_active_experts,
+        "rope_theta": int(spec.rope_theta),
+    }
+    data = b""
+    for key, value in params.items():
+        data += struct.pack("<ii", _KEYS[key], value)
+    f.write(struct.pack("<i", MAGIC_KV))
+    f.write(struct.pack("<i", 8 + len(data)))
+    f.write(data)
+
+
+def write_tensor(f, x: np.ndarray, ftype: FloatType) -> None:
+    flat = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
+    if ftype == FloatType.F32:
+        f.write(flat.tobytes())
+    elif ftype == FloatType.F16:
+        f.write(flat.astype(np.float16).tobytes())
+    elif ftype == FloatType.Q40:
+        scales, packed = quantize_q40(flat)
+        f.write(q40_arrays_to_bytes(scales, packed))
+    elif ftype == FloatType.Q80:
+        scales, q = quantize_q80(flat)
+        f.write(q80_arrays_to_bytes(scales, q))
+    else:
+        raise ValueError(ftype)
+
+
+def content_fingerprint(path: str) -> int:
+    """Cheap content hash of a model file: CRC of the size plus 64 KiB
+    sampled at the start, middle and end — catches same-architecture
+    different-weight builds (fine-tunes, requants) without reading a
+    40 GB file. Used by the multihost cluster config check and the
+    KV-session fingerprint (both would otherwise pair a cache/cluster
+    with weights that never produced it)."""
+    import os
+    import zlib
+
+    size = os.path.getsize(path)
+    fp = zlib.crc32(str(size).encode())
+    with open(path, "rb") as f:
+        for off in (0, size // 2, max(size - 65536, 0)):
+            f.seek(off)
+            fp = zlib.crc32(f.read(65536), fp)
+    return fp
+
+
+def write_model(path: str, spec: ModelSpec, tensors: dict[str, np.ndarray]) -> None:
+    """Write a complete `.m` file from dense f32 tensors (quantizing to the
+    spec's weights_float_type where the plan demands)."""
+    spec.validate()  # reject unusable specs at write, not first read
+    with open(path, "wb") as f:
+        write_header(f, spec)
+        for name, shape, ftype in model_tensor_plan(spec):
+            x = tensors[name]
+            assert tuple(x.shape) == tuple(shape), (name, x.shape, shape)
+            write_tensor(f, x, ftype)
