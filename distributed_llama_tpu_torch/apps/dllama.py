@@ -10,9 +10,10 @@ src/apps/dllama/dllama.cpp):
     python -m distributed_llama_tpu_torch.apps.dllama inference \\
         --model m.m --tokenizer t.t --prompt "Hello" --steps 32
 
-Runs on `--device cuda` (the default) or `--device cpu`. Flags of features
-the port does not have yet — the chat/api/worker modes, mesh axes,
---buffer-float-type q80, the f8 cache, clusters — are accepted by the
+Runs Llama, Mixtral and Grok-1 `.m` files on `--device cuda` (the
+default) or `--device cpu`; `--cache-dtype f8` keeps the KV cache in fp8
+(e4m3). Flags of features the port does not have yet — the chat/api/worker
+modes, mesh axes, --buffer-float-type q80, clusters — are accepted by the
 parser only to be refused with a message, never silently ignored.
 """
 
@@ -25,6 +26,7 @@ import time
 import torch
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+CACHE_DTYPES = {**DTYPES, "f8": torch.float8_e4m3fn}
 PORTED_MODES = ("inference", "generate")
 
 
@@ -32,8 +34,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dllama",
         description="distributed-llama on one NVIDIA GPU (PyTorch/CUDA "
-                    "port): run Llama inference from reference-format "
-                    ".m/.t files.")
+                    "port): run Llama-family and MoE inference from "
+                    "reference-format .m/.t files.")
     p.add_argument("mode", choices=["inference", "generate", "chat", "api",
                                     "worker"])
     p.add_argument("--model", help="path to .m model file")
@@ -75,9 +77,6 @@ def refusals(args) -> list[str]:
     if args.buffer_float_type == "q80":
         out.append("--buffer-float-type q80: the Q80 activation round trip "
                    "is not ported yet")
-    if args.cache_dtype == "f8":
-        out.append("--cache-dtype f8: the fp8 cache (K3's fp8 mode) is not "
-                   "ported yet")
     return out
 
 
@@ -104,7 +103,7 @@ def build_engine(args):
           f"{lstats.peak_host_bytes / 1e6:.0f} MB)")
     engine = Engine(spec, params, device=device,
                     max_seq_len=args.max_seq_len, compute_dtype=cdt,
-                    cache_dtype=DTYPES[args.cache_dtype])
+                    cache_dtype=CACHE_DTYPES[args.cache_dtype])
     tokenizer = Tokenizer.from_file(args.tokenizer)
     seed = args.seed if args.seed is not None else int(time.time())
     sampler = Sampler(tokenizer.vocab_size, args.temperature, args.topp, seed)

@@ -9,7 +9,8 @@
 // the position of each row's first query token. Query row r of kv head kh is
 // token r / G, head kh*G + r % G (G = H / KVH) and sees cache slot s iff
 // s <= pos0[b] + r / G. Scale 1/sqrt(hs); softmax state m, l, acc in f32;
-// output (B, T, H, hs) in the cache dtype.
+// output (B, T, H, hs) in q's dtype. q and the cache are both f32 or both
+// bf16, or the cache is fp8 e4m3 under f32 or bf16 q.
 //
 // What bounds it on the H100: the cache bytes read. A decode step at fill p
 // reads 2 * L * p * kv_dim elements, 3.35 TB/s sets the floor; the scores
@@ -30,11 +31,20 @@
 //    block may see (pos0[b] + last token of the tile): bytes read grow with
 //    the fill, not with the preallocated S. This is the Pallas kernel's
 //    dead-read fix (pallas_attention.py:27-33), per block here.
+//  * fp8 (e4m3) cache mode (pallas_attention.py:135-144): the cache stays
+//    one byte per value in device memory, so a tile moves half the bytes of
+//    bf16; each 16-byte load holds 16 values, which the hardware converts
+//    two at a time (cvt e4m3x2 -> f16x2, then f32) as the tile is staged in
+//    shared memory. The conversion is exact. q never narrows to the cache
+//    type (pallas_attention.py:216-219). Writes saturate at +-448, so the
+//    magnitude code 0x7F, which the hardware reads as NaN, never arises.
 // Known slow spot: a decode step at B = 1 gives B * KVH blocks (32 at 7B)
 // for 132 SMs; splitting S across blocks with a merge is later work, as are
-// tensor cores and TMA. The fp8 cache mode is not ported yet.
+// tensor cores and TMA.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,18 +56,27 @@ constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-// 16 loaded bytes -> 4 floats or 8 bf16 as floats
+// 16 loaded bytes -> 4 floats, 8 bf16 or 16 e4m3 (uint8 storage) as floats
 template <int N>
 __device__ __forceinline__ void unpack16(uint4 raw, float (&out)[N]) {
   if constexpr (N == 4) {
     const float* f = reinterpret_cast<const float*>(&raw);
 #pragma unroll
     for (int e = 0; e < 4; ++e) out[e] = f[e];
-  } else {  // 8 bf16
+  } else if constexpr (N == 8) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float2 f = __bfloat1622float2(h[e]);
+      out[2 * e] = f.x;
+      out[2 * e + 1] = f.y;
+    }
+  } else {  // 16 e4m3: the low byte of each pair is the first value
+    const __nv_fp8x2_storage_t* p = reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const __half2 h(__nv_cvt_fp8x2_to_halfraw2(p[e], __NV_E4M3));
+      const float2 f = __half22float2(h);
       out[2 * e] = f.x;
       out[2 * e + 1] = f.y;
     }
@@ -66,11 +85,13 @@ __device__ __forceinline__ void unpack16(uint4 raw, float (&out)[N]) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename T, int HS, int RPW>
+// TQ: q and out (float or bf16); TC: the cache (float, bf16, or uint8
+// holding e4m3 bits)
+template <typename TQ, typename TC, int HS, int RPW>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const int* __restrict__ pos0,
-                       T* __restrict__ out, int t, int h, int kvh, int s_len,
+flash_attention_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
+                       const TC* __restrict__ v, const int* __restrict__ pos0,
+                       TQ* __restrict__ out, int t, int h, int kvh, int s_len,
                        float scale) {
   constexpr int ROWS = kWarps * RPW;
   constexpr int DPL = (HS + 31) / 32;  // output dims per lane
@@ -113,7 +134,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = ((size_t)b * kvh + kh) * (size_t)s_len * HS;
   // K/V tiles move 16 bytes per load; a thread holds the next tile's loads
   // in registers while the block computes on the current one
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / sizeof(TC);
   constexpr int ROW_CHUNKS = HS / VEC;
   constexpr int CHUNKS = kSB * ROW_CHUNKS;
   constexpr int PER_THREAD = (CHUNKS + kWarps * 32 - 1) / (kWarps * 32);
@@ -206,7 +227,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = row0 + warp * RPW + i;
     if (r < rows) {
       const int tok = r / g, head = kh * g + r % g;
-      T* o = out + (((size_t)b * t + tok) * h + head) * HS;
+      TQ* o = out + (((size_t)b * t + tok) * h + head) * HS;
       const float inv = 1.f / l[i];
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
@@ -217,49 +238,53 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HS>
+template <typename TQ, typename TC, int HS>
 cudaError_t launch_hs(const void* q, const void* k, const void* v, const int* pos0, void* out,
                       int b, int t, int h, int kvh, int s_len, cudaStream_t stream) {
   const int rows = t * (h / kvh);
   const float scale = 1.f / sqrtf((float)HS);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(out);
+  const TQ* qp = static_cast<const TQ*>(q);
+  const TC* kp = static_cast<const TC*>(k);
+  const TC* vp = static_cast<const TC*>(v);
+  TQ* op = static_cast<TQ*>(out);
   if (rows <= kWarps) {
     const dim3 grid(1, (unsigned)(b * kvh));
-    flash_attention_kernel<T, HS, 1><<<grid, kWarps * 32, 0, stream>>>(qp, kp, vp, pos0, op, t, h, kvh, s_len, scale);
+    flash_attention_kernel<TQ, TC, HS, 1><<<grid, kWarps * 32, 0, stream>>>(qp, kp, vp, pos0, op, t, h, kvh, s_len, scale);
   } else {
     const dim3 grid((unsigned)((rows + 4 * kWarps - 1) / (4 * kWarps)), (unsigned)(b * kvh));
-    flash_attention_kernel<T, HS, 4><<<grid, kWarps * 32, 0, stream>>>(qp, kp, vp, pos0, op, t, h, kvh, s_len, scale);
+    flash_attention_kernel<TQ, TC, HS, 4><<<grid, kWarps * 32, 0, stream>>>(qp, kp, vp, pos0, op, t, h, kvh, s_len, scale);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename TC>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* pos0, void* out,
                    int b, int t, int h, int kvh, int s_len, int hs, cudaStream_t stream) {
   switch (hs) {
-    case 16: return launch_hs<T, 16>(q, k, v, pos0, out, b, t, h, kvh, s_len, stream);
-    case 32: return launch_hs<T, 32>(q, k, v, pos0, out, b, t, h, kvh, s_len, stream);
-    case 64: return launch_hs<T, 64>(q, k, v, pos0, out, b, t, h, kvh, s_len, stream);
-    case 128: return launch_hs<T, 128>(q, k, v, pos0, out, b, t, h, kvh, s_len, stream);
+    case 16: return launch_hs<TQ, TC, 16>(q, k, v, pos0, out, b, t, h, kvh, s_len, stream);
+    case 32: return launch_hs<TQ, TC, 32>(q, k, v, pos0, out, b, t, h, kvh, s_len, stream);
+    case 64: return launch_hs<TQ, TC, 64>(q, k, v, pos0, out, b, t, h, kvh, s_len, stream);
+    case 128: return launch_hs<TQ, TC, 128>(q, k, v, pos0, out, b, t, h, kvh, s_len, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q: (b, t, h, hs); k, v: (b, kvh, s_len, hs); out: (b, t, h, hs); all of one
-// dtype, f32 (dtype 0) or bf16 (1). pos0: (b,) int32 on the device.
-// Returns the launch's cudaError_t.
+// q: (b, t, h, hs) and out: (b, t, h, hs) of q_dtype, f32 (0) or bf16 (1);
+// k, v: (b, kvh, s_len, hs) of cache_dtype, the same as q_dtype, or e4m3 (2).
+// pos0: (b,) int32 on the device. Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      const void* pos0, void* out, int dtype, int b,
-                                      int t, int h, int kvh, int s_len, int hs,
-                                      void* stream) {
+                                      const void* pos0, void* out, int q_dtype,
+                                      int cache_dtype, int b, int t, int h, int kvh,
+                                      int s_len, int hs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos0);
-  if (dtype == 0) return launch<float>(q, k, v, p, out, b, t, h, kvh, s_len, hs, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, p, out, b, t, h, kvh, s_len, hs, s);
+  if (q_dtype == 0 && cache_dtype == 0) return launch<float, float>(q, k, v, p, out, b, t, h, kvh, s_len, hs, s);
+  if (q_dtype == 1 && cache_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, p, out, b, t, h, kvh, s_len, hs, s);
+  if (q_dtype == 0 && cache_dtype == 2) return launch<float, uint8_t>(q, k, v, p, out, b, t, h, kvh, s_len, hs, s);
+  if (q_dtype == 1 && cache_dtype == 2)
+    return launch<__nv_bfloat16, uint8_t>(q, k, v, p, out, b, t, h, kvh, s_len, hs, s);
   return (int)cudaErrorInvalidValue;
 }

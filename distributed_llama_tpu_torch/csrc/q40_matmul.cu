@@ -42,6 +42,28 @@
 // The TPU kernel's x_lo/x_hi pre-split, lane-tile scale repeat, -8 fold and
 // sub-tiling exist for Mosaic's tiling and VPU; none of them carries over.
 // Not yet here: wgmma, TMA and a pipelined producer warp.
+//
+// K2, the expert-indexed product (q40_expert_matmul_launch below):
+// y_k[t, d] = sum_n x_k[t, n] * W[idx[k], d, n] for the K active experts of
+// a stacked (E, d, n) Q40 weight, the MoE decode step's gate, up and down.
+//
+// Replaces: distributed_llama_tpu/ops/pallas_q40.py q40_expert_matmul (the
+// pallas_call at pallas_q40.py:319, def at :283).
+//
+// It is K1's GEMV path with one more grid dimension: blockIdx.z is the
+// active expert k, and each block reads idx[k] from device memory itself
+// (the TPU kernel's scalar prefetch), so the host never learns the routing
+// and one launch covers all K experts. Only the weight base moves, to
+// packed + idx[k]*d*n/2 and scales + idx[k]*d*n/32: the active experts'
+// bytes are read in place, never gathered. x is one (t, n) shared by the
+// experts (gate, up) or one per expert (down, x_kstride = t*n).
+//
+// What bounds it on the H100: the weight bytes. At Mixtral widths a launch
+// reads 2 experts x 14336 x 4096 x 18/32 bytes = 66.1 MB, 19.7 us at
+// 3.35 TB/s; a decode step's 96 launches read 6.34 GB, 1.89 ms. GEMV path
+// only (t <= 8): the JAX package calls its kernel at t = b = 1 alone. Making
+// it fast (split-K for the 4096-row down projection, wider loads in flight)
+// is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -72,11 +94,17 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+// idx == nullptr: K1, one weight (d, n/2). Otherwise K2: blockIdx.z is the
+// active expert k, the weight is expert idx[k] of an (n_experts, d, n/2)
+// stack (an index out of range is clamped, as the JAX package's dynamic
+// index is), x_k starts x_kstride elements after x_(k-1), and out_k is the
+// k-th (t, d) slab of the output.
 template <typename TI, typename TO, int TT, int U>
 __global__ void __launch_bounds__(kWarps * 32)
 q40_matmul_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
                   const __half* __restrict__ scales, TO* __restrict__ out,
-                  int t, int n, int d) {
+                  int t, int n, int d, const int* __restrict__ idx, int n_experts,
+                  long long x_kstride) {
   constexpr int CB = 32 * U;  // blocks per chunk: U per lane
   __shared__ __align__(16) float xs[TT][CB * kPad];
 
@@ -86,6 +114,14 @@ q40_matmul_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
   const int t0 = blockIdx.x * TT;
   const int nb = n / 32;
   const bool live = row < d;
+  if (idx != nullptr) {
+    const int k = blockIdx.z;
+    const int e = min(max(idx[k], 0), n_experts - 1);
+    x += (size_t)k * x_kstride;
+    out += (size_t)k * t * d;
+    packed += (size_t)e * d * (n / 2);
+    scales += (size_t)e * d * nb;
+  }
   const uint4* prow = reinterpret_cast<const uint4*>(packed) + (size_t)(live ? row : 0) * nb;
   const __half* srow = scales + (size_t)(live ? row : 0) * nb;
 
@@ -304,11 +340,30 @@ q40_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restr
   }
 }
 
+// The GEMV path: k experts along gridDim.z (k = 1 and idx = nullptr for K1).
+template <typename TI, typename TO>
+cudaError_t launch_gemv(const TI* xp, const uint8_t* pp, const __half* sp, TO* op, int t, int n, int d,
+                        const int* idx, int n_experts, long long x_kstride, int k, cudaStream_t stream) {
+  const dim3 block(kWarps * 32);
+  const unsigned rows = (unsigned)((d + kWarps - 1) / kWarps);
+  const unsigned kz = (unsigned)k;
+  if (t == 1) {
+    q40_matmul_kernel<TI, TO, 1, 4><<<dim3(1, rows, kz), block, 0, stream>>>(
+        xp, pp, sp, op, t, n, d, idx, n_experts, x_kstride);
+  } else if (t <= 4) {
+    q40_matmul_kernel<TI, TO, 4, 2><<<dim3(1, rows, kz), block, 0, stream>>>(
+        xp, pp, sp, op, t, n, d, idx, n_experts, x_kstride);
+  } else {
+    const unsigned groups = (unsigned)((t + 7) / 8);
+    q40_matmul_kernel<TI, TO, 8, 1><<<dim3(groups, rows, kz), block, 0, stream>>>(
+        xp, pp, sp, op, t, n, d, idx, n_experts, x_kstride);
+  }
+  return cudaGetLastError();
+}
+
 template <typename TI, typename TO>
 cudaError_t launch(const void* x, const void* packed, const void* scales, void* out,
                    int t, int n, int d, int tc_min_t, cudaStream_t stream) {
-  const dim3 block(kWarps * 32);
-  const unsigned rows = (unsigned)((d + kWarps - 1) / kWarps);
   const TI* xp = static_cast<const TI*>(x);
   const uint8_t* pp = static_cast<const uint8_t*>(packed);
   const __half* sp = static_cast<const __half*>(scales);
@@ -320,15 +375,16 @@ cudaError_t launch(const void* x, const void* packed, const void* scales, void* 
       return cudaGetLastError();
     }
   }
-  if (t == 1) {
-    q40_matmul_kernel<TI, TO, 1, 4><<<dim3(1, rows), block, 0, stream>>>(xp, pp, sp, op, t, n, d);
-  } else if (t <= 4) {
-    q40_matmul_kernel<TI, TO, 4, 2><<<dim3(1, rows), block, 0, stream>>>(xp, pp, sp, op, t, n, d);
-  } else {
-    const unsigned groups = (unsigned)((t + 7) / 8);
-    q40_matmul_kernel<TI, TO, 8, 1><<<dim3(groups, rows), block, 0, stream>>>(xp, pp, sp, op, t, n, d);
-  }
-  return cudaGetLastError();
+  return launch_gemv<TI, TO>(xp, pp, sp, op, t, n, d, nullptr, 1, 0, 1, stream);
+}
+
+template <typename TI, typename TO>
+cudaError_t launch_experts(const void* x, long long x_kstride, const int* idx, int k, int n_experts,
+                           const void* packed, const void* scales, void* out, int t, int n, int d,
+                           cudaStream_t stream) {
+  return launch_gemv<TI, TO>(static_cast<const TI*>(x), static_cast<const uint8_t*>(packed),
+                             static_cast<const __half*>(scales), static_cast<TO*>(out), t, n, d,
+                             idx, n_experts, x_kstride, k, stream);
 }
 
 }  // namespace
@@ -345,5 +401,28 @@ extern "C" int q40_matmul_launch(const void* x, int x_dtype, const void* packed,
   if (x_dtype == 0 && out_dtype == 1) return launch<float, __nv_bfloat16>(x, packed, scales, out, t, n, d, tc_min_t, s);
   if (x_dtype == 1 && out_dtype == 0) return launch<__nv_bfloat16, float>(x, packed, scales, out, t, n, d, tc_min_t, s);
   if (x_dtype == 1 && out_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(x, packed, scales, out, t, n, d, tc_min_t, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2. x: (t, n), shared by the experts (x_kstride 0), or (k, t, n) one per
+// expert (x_kstride t*n), f32 (x_dtype 0) or bf16 (1); idx: (k,) int32 on the
+// device, read by the kernel; packed: (n_experts, d, n/2) u8 block-major;
+// scales: (n_experts, d, n/32) f16; out: (k, t, d) f32 (out_dtype 0) or
+// bf16 (1). t <= 8 (the GEMV path). Returns the launch's cudaError_t.
+extern "C" int q40_expert_matmul_launch(const void* x, int x_dtype, long long x_kstride,
+                                        const void* idx, int k, int n_experts,
+                                        const void* packed, const void* scales, void* out,
+                                        int out_dtype, int t, int n, int d, void* stream) {
+  if (t < 1 || t > 8 || k < 1 || n_experts < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ip = static_cast<const int*>(idx);
+  if (x_dtype == 0 && out_dtype == 0)
+    return launch_experts<float, float>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, s);
+  if (x_dtype == 0 && out_dtype == 1)
+    return launch_experts<float, __nv_bfloat16>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, s);
+  if (x_dtype == 1 && out_dtype == 0)
+    return launch_experts<__nv_bfloat16, float>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, s);
+  if (x_dtype == 1 && out_dtype == 1)
+    return launch_experts<__nv_bfloat16, __nv_bfloat16>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, s);
   return (int)cudaErrorInvalidValue;
 }

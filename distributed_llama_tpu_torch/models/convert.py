@@ -16,7 +16,10 @@ recognised by shape, not by class: any object with `packed` and `scales`.
   * bf16 leaves arrive as numpy's bfloat16 extension type and are moved
     bit for bit;
   * fused (wqkv, w13) and unfused layer dicts are both accepted, and kept
-    as they are.
+    as they are;
+  * MoE leaves: the dense router as it is, each (E, d, m) expert stack
+    converted row by row like a 2D weight (the lane order is per row), so
+    it stays one stack.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..quants.torch_codec import QuantizedTensor
+from ..utils.device import resolve_device
 from .spec import ModelSpec
 
 
@@ -65,11 +69,10 @@ def _leaf(x, device):
     return tensor_from_numpy(x, device)
 
 
-def params_from_jax(np_params: dict, spec: ModelSpec, device="cpu") -> dict:
-    """The JAX package's params tree (numpy leaves) -> the port's params."""
-    if spec.is_moe:
-        raise NotImplementedError(
-            f"{spec.arch.name}: MoE weights are ROADMAP slice 2 of the port")
+def params_from_jax(np_params: dict, spec: ModelSpec, device=None) -> dict:
+    """The JAX package's params tree (numpy leaves) -> the port's params on
+    `device` (`cuda` unless told otherwise)."""
+    device = resolve_device(device)
     if len(np_params["layers"]) != spec.n_layers:
         raise ValueError(f"params hold {len(np_params['layers'])} layers, "
                          f"spec says {spec.n_layers}")

@@ -6,6 +6,12 @@ fusion group are resident on the host). wq|wk|wv and w1|w3 are fused on the
 host before upload (`_fuse_group`/`_concat_host`, JAX loader.py:348-368),
 so the device holds only the fused wqkv / w13. Q40 tensors go to the
 device still packed, never through f32.
+
+MoE experts: each layer's (E, ...) stacks `moe_up`/`moe_gate`/`moe_down`
+are allocated on the device once, when their first expert streams past,
+and each expert's file tensor is copied into its slot as it arrives. No
+host stack of all E experts is ever built (the JAX loader stacks them on
+the host), so the host high-water mark stays near one expert's bytes.
 """
 
 from __future__ import annotations
@@ -16,8 +22,9 @@ import numpy as np
 import torch
 
 from ..io.model_file import HostTensor, iter_model_tensors
+from ..quants.torch_codec import QuantizedTensor
 from ..quants.types import FloatType
-from .params import _to_q40_host, host_dense, host_weight
+from .params import NORMS, as_q40_host, host_dense, host_weight
 from .spec import ModelSpec
 
 
@@ -28,7 +35,11 @@ class LoadStats:
 
 
 def _leaf_key(name: str) -> str:
-    return name.rsplit(".", 1)[-1]
+    """'layers.3.wq' -> 'wq'; 'layers.0.experts.2.up' -> 'moe_up'."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[2] == "experts":
+        return "moe_" + parts[4]
+    return parts[-1]
 
 
 def _fuse_group(key: str) -> str | None:
@@ -47,14 +58,35 @@ def _host_bytes(t: HostTensor) -> int:
 def _concat_host(ts: list[HostTensor], mode: str) -> HostTensor:
     """Concatenate a fusion group along the output dim on the host."""
     if mode == "q40":
-        qs = [t if t.ftype == FloatType.Q40 else _to_q40_host(t.to_f32())
-              for t in ts]
+        qs = [as_q40_host(t) for t in ts]
         return HostTensor("", FloatType.Q40,
                           (sum(t.shape[0] for t in ts), ts[0].shape[1]),
                           scales=np.concatenate([q.scales for q in qs]),
                           packed=np.concatenate([q.packed for q in qs]))
     x = np.concatenate([t.to_f32() for t in ts], axis=0)
     return HostTensor("", FloatType.F32, x.shape, data=x)
+
+
+def _expert_into_stack(dest: dict, key: str, e: int, t: HostTensor,
+                       n_experts: int, mode: str, dtype, device) -> None:
+    """Copy expert e's file tensor into slot e of the layer's (E, ...)
+    stack, allocating the stack on the device at its first expert."""
+    d, n = t.shape
+    if mode == "q40":
+        q = as_q40_host(t)
+        if key not in dest:
+            dest[key] = QuantizedTensor(
+                torch.empty((n_experts, d, n // 2), dtype=torch.uint8,
+                            device=device),
+                torch.empty((n_experts, d, n // 32), dtype=torch.float16,
+                            device=device))
+        w = QuantizedTensor.from_host(q.scales, q.packed, "cpu")
+        dest[key].packed[e].copy_(w.packed)
+        dest[key].scales[e].copy_(w.scales)
+        return
+    if key not in dest:
+        dest[key] = torch.empty((n_experts, d, n), dtype=dtype, device=device)
+    dest[key][e].copy_(torch.from_numpy(t.to_f32()))
 
 
 def load_params_streamed(spec: ModelSpec, path: str, device, *,
@@ -65,13 +97,11 @@ def load_params_streamed(spec: ModelSpec, path: str, device, *,
     mode defaults to q40 for Q40 files and dense otherwise (as the JAX
     CLI's build_engine picks it). Returns (params, LoadStats) with the
     loader's measured high-water mark of resident file-tensor bytes."""
-    if spec.is_moe:
-        raise NotImplementedError(
-            f"{spec.arch.name}: MoE weights are ROADMAP slice 2 of the port")
     if mode is None:
         mode = "q40" if spec.weights_float_type == FloatType.Q40 else "dense"
     p: dict = {"layers": [dict() for _ in range(spec.n_layers)]}
     pending: dict[str, list[HostTensor]] = {}
+    experts_in = 0
     stats = LoadStats()
     live = 0
     for t in iter_model_tensors(path, spec):
@@ -92,13 +122,20 @@ def load_params_streamed(spec: ModelSpec, path: str, device, *,
                                           dtype, device)
                 live -= sum(_host_bytes(x) for x in ts)
             continue
-        if key in ("rms_att", "rms_ffn", "rms_final"):
+        if key in ("moe_up", "moe_gate", "moe_down"):
+            _expert_into_stack(dest, key, int(t.name.split(".")[3]), t,
+                               spec.n_experts, mode, dtype, device)
+            experts_in += 1
+        elif key in NORMS:
             dest[key] = host_dense(t, torch.float32, device)  # norms stay f32
-        elif key == "tok_emb":
+        elif key in ("tok_emb", "moe_router"):
             dest[key] = host_dense(t, dtype, device)
         else:
             dest[key] = host_weight(t, mode, dtype, device)
         live -= b
     if pending:
         raise ValueError(f"incomplete fusion groups: {list(pending)}")
+    if experts_in != 3 * spec.n_experts * spec.n_layers:
+        raise ValueError(f"{experts_in} expert tensors in the file, the spec "
+                         f"wants {3 * spec.n_experts * spec.n_layers}")
     return p, stats

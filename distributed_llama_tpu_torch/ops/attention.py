@@ -18,6 +18,14 @@ import torch
 NEG_INF = -1e30
 
 
+def is_narrow_cache(dtype) -> bool:
+    """True for sub-bf16 KV-cache dtypes (the fp8 e4m3 option). The
+    contract (JAX ops/attention.py:is_narrow_cache): writes saturate then
+    narrow (models/transformer._to_cache_dtype), reads upcast k/v so q and
+    the softmax state never drop below the compute dtype."""
+    return dtype.itemsize < 2
+
+
 def decode_attention(
     q: torch.Tensor,        # (B, T, H, hs) — rotated queries
     k_cache: torch.Tensor,  # (B, KVH, S, hs) — already updated at q_pos
@@ -28,6 +36,8 @@ def decode_attention(
     returns (B, T, H, hs) in q's dtype."""
     b, t, h, hs = q.shape
     kvh, s = k_cache.shape[1], k_cache.shape[2]
+    if is_narrow_cache(k_cache.dtype):   # the whole cache, to q's dtype
+        k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
     qg = q.to(torch.float32).reshape(b, t, kvh, h // kvh, hs)
     kf = k_cache.to(torch.float32)
     vf = v_cache.to(torch.float32)

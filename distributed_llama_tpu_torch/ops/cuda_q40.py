@@ -12,6 +12,12 @@ version.
 
 `q40_matmul.launches` counts kernel launches (plain-version calls do not
 count), so a run can show that its main path went through the kernel.
+
+`q40_expert_matmul(x, w, idx, out_dtype)` is kernel K2, the counterpart of
+the JAX package's q40_expert_matmul: the same product against the K experts
+idx[0..K-1] of a stacked (E, d, n) Q40 weight, in one launch, with the
+indices left on the device (the kernel reads them). Its plain version is
+`q40_expert_matmul_reference`; it counts its own `launches`.
 """
 
 from __future__ import annotations
@@ -33,6 +39,9 @@ MAX_T = 256
 # both). The GEMV path pays one weight pass per 8 tokens, so from t = 9 on
 # it makes two and loses to the tensor-core path.
 TC_MIN_T = 9
+# K2 has only the GEMV path: the MoE decode step calls it at t = 1 (the JAX
+# package's fused expert path runs at t = b = 1 alone)
+EXPERT_MAX_T = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -62,29 +71,51 @@ def _lib():
     return fn
 
 
-def _launch(x2: torch.Tensor, w: QuantizedTensor, out_dtype,
-            tc_min_t: int = TC_MIN_T) -> torch.Tensor:
-    t, n = x2.shape
-    d = w.packed.shape[0]
-    if x2.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"q40_matmul kernel takes f32/bf16, got x "
-                        f"{x2.dtype} -> {out_dtype}")
-    if n % 32 or tuple(w.packed.shape) != (d, n // 2) or \
-            tuple(w.scales.shape) != (d, n // 32):
-        raise ValueError(f"q40_matmul: x {tuple(x2.shape)} does not fit "
-                         f"packed {tuple(w.packed.shape)} / scales "
+@functools.cache
+def _expert_lib():
+    """K2's C entry point, in the same library as K1's."""
+    fn = cuda_build.load("q40_matmul").q40_expert_matmul_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _checked_x(name: str, x: torch.Tensor, w: QuantizedTensor,
+               out_dtype) -> torch.Tensor:
+    """What K1 and K2 take: f32/bf16 in and out; a contiguous, 16-byte
+    aligned Q40 weight (d, n/2) or stack (E, d, n/2) that fits x's n, on
+    x's device. Returns x contiguous and 16-byte aligned (the kernels read
+    x 16 bytes at a time); raises on anything else."""
+    n, lead = x.shape[-1], tuple(w.packed.shape[:-1])
+    if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name} kernel takes f32/bf16, got x {x.dtype} -> "
+                        f"{out_dtype}")
+    if n % 32 or w.packed.shape[-1] != n // 2 or \
+            tuple(w.scales.shape) != (*lead, n // 32):
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not fit packed "
+                         f"{tuple(w.packed.shape)} / scales "
                          f"{tuple(w.scales.shape)}")
     if w.packed.dtype != torch.uint8 or w.scales.dtype != torch.float16:
-        raise TypeError("q40_matmul: packed must be uint8, scales float16")
+        raise TypeError(f"{name}: packed must be uint8, scales float16")
     if not (w.packed.is_contiguous() and w.scales.is_contiguous()):
-        raise ValueError("q40_matmul: weight tensors must be contiguous")
+        raise ValueError(f"{name}: weight tensors must be contiguous")
     if w.packed.data_ptr() % 16:
-        raise ValueError("q40_matmul: packed must be 16-byte aligned")
-    if not (x2.device == w.packed.device == w.scales.device):
-        raise ValueError("q40_matmul: x and weight on different devices")
-    x2 = x2.contiguous()
-    if x2.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
-        x2 = x2.clone()
+        raise ValueError(f"{name}: packed must be 16-byte aligned")
+    if not (x.device == w.packed.device == w.scales.device):
+        raise ValueError(f"{name}: x and weight on different devices")
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _launch(x2: torch.Tensor, w: QuantizedTensor, out_dtype,
+            tc_min_t: int = TC_MIN_T) -> torch.Tensor:
+    x2 = _checked_x("q40_matmul", x2, w, out_dtype)
+    t, n = x2.shape
+    d = w.packed.shape[0]
     out = torch.empty((t, d), dtype=out_dtype, device=x2.device)
     fn = _lib()
     rc = fn(x2.data_ptr(), _DTYPE_CODE[x2.dtype], w.packed.data_ptr(),
@@ -113,3 +144,70 @@ def q40_matmul(x: torch.Tensor, w: QuantizedTensor,
 
 
 q40_matmul.launches = 0
+
+
+def q40_expert_matmul_reference(x: torch.Tensor, w: QuantizedTensor,
+                                idx: torch.Tensor,
+                                out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of K2: gather the K experts' packed bytes and scales
+    on the device (indices clamped into range, as the kernel and the JAX
+    package's dynamic index clamp them), dequantize to f32, one f32
+    product per expert, cast once. x (t, n) or (K, t, n) -> (K, t, d)."""
+    sel = idx.to(device=w.packed.device, dtype=torch.long).clamp(
+        0, w.packed.shape[0] - 1)
+    wd = dequantize_q40_torch(QuantizedTensor(w.packed.index_select(0, sel),
+                                              w.scales.index_select(0, sel)),
+                              torch.float32)                 # (K, d, n)
+    y = torch.matmul(x.to(torch.float32), wd.transpose(-1, -2))
+    return y.to(out_dtype)
+
+
+def _expert_launch(x: torch.Tensor, w: QuantizedTensor, idx: torch.Tensor,
+                   out_dtype) -> torch.Tensor:
+    k = idx.numel()
+    n_e, d, _ = w.packed.shape
+    n = x.shape[-1]
+    if x.dim() == 2:
+        t, stride = x.shape[0], 0
+    elif x.dim() == 3 and x.shape[0] == k:
+        t, stride = x.shape[1], x.shape[1] * n
+    else:
+        raise ValueError(f"q40_expert_matmul: x {tuple(x.shape)} is neither "
+                         f"(t, n) nor ({k}, t, n)")
+    if t > EXPERT_MAX_T:
+        raise ValueError(f"q40_expert_matmul kernel takes t <= "
+                         f"{EXPERT_MAX_T} tokens, got t={t}")
+    x = _checked_x("q40_expert_matmul", x, w, out_dtype)
+    if idx.device != x.device:
+        raise ValueError("q40_expert_matmul: idx and x on different devices")
+    # a cast and a copy on the device: the indices never reach the host
+    idx = idx.reshape(k).to(torch.int32).contiguous()
+    out = torch.empty((k, t, d), dtype=out_dtype, device=x.device)
+    rc = _expert_lib()(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], stride, idx.data_ptr(), k, n_e,
+        w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[out_dtype], t, n, d,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(rc, "q40_expert_matmul")
+    q40_expert_matmul.launches += 1
+    return out
+
+
+def q40_expert_matmul(x: torch.Tensor, w: QuantizedTensor,
+                      idx: torch.Tensor,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """y[k, t, d] = sum_n x[(k,) t, n] * W[idx[k], d, n]: x (t, n) shared by
+    the K experts or (K, t, n) one per expert, W a stacked (E, d, n) Q40
+    weight, idx (K,) expert indices on x's device. Returns (K, t, d)."""
+    if w.packed.dim() != 3:
+        raise ValueError(f"q40_expert_matmul takes a stacked (E, d, n/2) "
+                         f"weight, got packed {tuple(w.packed.shape)}")
+    if x.device.type == "cpu":
+        return q40_expert_matmul_reference(x, w, idx, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"q40_expert_matmul: no kernel for device "
+                         f"{x.device}")
+    return _expert_launch(x, w, idx, out_dtype)
+
+
+q40_expert_matmul.launches = 0

@@ -11,6 +11,9 @@ logical shape (d, n) (d output rows), activations are (..., n), output is
     leaves that product to XLA outside any Pallas kernel too);
   * dense -> torch.matmul in the compute dtype.
 
+`fused_expert_matmul` is the MoE decode step's product against the active
+experts of a stacked (E, d, n) weight: kernel K2 for Q40 stacks.
+
 The Q80 activation round trip and the tensor-parallel weight wrappers are
 not ported yet.
 """
@@ -41,3 +44,19 @@ def matmul(x: torch.Tensor, w: WeightFormat, *,
     else:
         wd = w.to(compute_dtype)
     return torch.matmul(x, wd.t())
+
+
+def fused_expert_matmul(x: torch.Tensor, w: WeightFormat, idx: torch.Tensor,
+                        *, compute_dtype=torch.float32) -> torch.Tensor:
+    """y[k, t, d] = sum_n x[(k,) t, n] * W[idx[k], d, n] in compute_dtype —
+    the JAX package's fused_expert_matmul, for all K active experts at once.
+    x is (t, n), shared by the experts, or (K, t, n); W a stacked (E, d, n)
+    weight; idx (K,) on the device. A Q40 stack goes to kernel K2 (its
+    plain version on the CPU); on the card it launches K2 or raises, and
+    never gathers the experts' bytes instead. A dense stack (the
+    dense-weight mode, which has no kernel) is gathered and multiplied."""
+    x = x.to(compute_dtype)
+    if isinstance(w, QuantizedTensor):
+        return cuda_q40.q40_expert_matmul(x, w, idx, out_dtype=compute_dtype)
+    wd = w.index_select(0, idx.to(torch.long)).to(compute_dtype)  # (K, d, n)
+    return torch.matmul(x, wd.transpose(-1, -2))

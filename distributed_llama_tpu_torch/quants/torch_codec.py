@@ -14,6 +14,10 @@ JAX package. Its layout differs, and is chosen for the Hopper kernel
 (The JAX package stores the TPU lane order m = j*nb + b instead, picked for
 Mosaic's (8,128) tiling; models/convert.py turns one into the other.)
 
+MoE expert weights stay stacked: packed (E, d, n/2), scales (E, d, n/32),
+each expert's slab contiguous. `take_expert` cuts one out as a view; the
+expert kernel K2 (ops/cuda_q40.py) reads the active experts' slabs in place.
+
 Numerics match the reference decoder (ref: src/quants.cpp:166-179):
 value = (nibble - 8) * scale.
 """
@@ -57,6 +61,15 @@ class QuantizedTensor:
         sc = np.ascontiguousarray(scales).astype(np.float16, copy=False)
         return cls(torch.from_numpy(pk).to(device),
                    torch.from_numpy(sc).to(device))
+
+
+def take_expert(w, e: int):
+    """Expert e of a stacked (E, ...) weight, dense or Q40, as a view: no
+    copy. A Q40 slab starts e*d*n/2 bytes in, a multiple of 16, so the Q40
+    kernel takes it as it is. (JAX models/transformer.py:_take_expert.)"""
+    if isinstance(w, QuantizedTensor):
+        return QuantizedTensor(w.packed[e], w.scales[e])
+    return w[e]
 
 
 def dequantize_q40_torch(t: QuantizedTensor,

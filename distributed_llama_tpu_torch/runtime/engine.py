@@ -25,26 +25,19 @@ from ..models.params import fuse_layer_weights
 from ..models.spec import ModelSpec
 from ..models.transformer import KVCache, forward
 from ..sampler import Sampler
+from ..utils.device import resolve_device
 from .stats import RunStats, StepStats
 
-CACHE_DTYPES = (torch.bfloat16, torch.float32)
+# the fp8 (e4m3) cache stores 1 byte per value; writes saturate at +-448
+# and K3 upcasts it in registers (ops/cuda_attention.py)
+CACHE_DTYPES = (torch.bfloat16, torch.float32, torch.float8_e4m3fn)
+
+__all__ = ["CACHE_DTYPES", "Engine", "GenerationResult", "resolve_device"]
 
 
 class GenerationResult(NamedTuple):
     tokens: list[int]
     stats: RunStats
-
-
-def resolve_device(device=None) -> torch.device:
-    """`cuda` unless told otherwise; a CUDA device without a card raises."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; the port runs on the GPU unless "
-            "device='cpu' is asked for explicitly")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 class Engine:
@@ -63,7 +56,7 @@ class Engine:
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(
                 f"cache_dtype {cache_dtype} is not ported: the port's cache "
-                "is bf16 or f32 (the f8 cache comes with K3's fp8 mode)")
+                "is bf16, f32 or float8_e4m3fn")
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"compute_dtype must be bf16 or f32, got "
                              f"{compute_dtype}")

@@ -66,9 +66,15 @@ def test_prefill_chunks_match_one_segment(engines):
     np.testing.assert_allclose(chunked, whole, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("arch", ["LLAMA", "MIXTRAL"])
 @pytest.mark.parametrize("temperature", ["0", "0.8"])
-def test_cli_generate_prints_jax_cli_tokens(tmp_path, capsys, temperature):
-    mpath, tpath = write_fixture(tmp_path, seed=44)
+def test_cli_generate_prints_jax_cli_tokens(tmp_path, capsys, temperature,
+                                            arch):
+    from distributed_llama_tpu.models.spec import ArchType
+
+    moe = dict(arch=ArchType.MIXTRAL, n_experts=4, n_active_experts=2)
+    mpath, tpath = write_fixture(tmp_path, seed=44,
+                                 **(moe if arch == "MIXTRAL" else {}))
     common = ["generate", "--model", mpath, "--tokenizer", tpath,
               "--prompt", "hello world", "--steps", "16", "--seed", "9",
               "--temperature", temperature, "--compute-dtype", "f32",
@@ -103,7 +109,7 @@ def test_cli_inference_prints_benchmark_lines(tmp_path, capsys):
     (["generate", "--tp", "2"], "--tp 2"),
     (["generate", "--pp", "2"], "--pp 2"),
     (["generate", "--buffer-float-type", "q80"], "q80"),
-    (["generate", "--cache-dtype", "f8"], "f8"),
+    (["generate", "--ep", "2"], "--ep 2"),
     (["generate", "--nnodes", "2"], "--nnodes"),
 ])
 def test_cli_refuses_unported_flags(flags, needle):

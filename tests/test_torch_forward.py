@@ -50,7 +50,7 @@ def test_prefill_then_decode_matches_jax(fixture_params, fused):
         fuse_layer_weights(params)
     prompt = np.asarray([[1, 40, 7, 99, 150, 3, 17, 42, 8]], np.int32)
     jcache = JaxKVCache.create(spec, 1, dtype=jnp.float32)
-    cache = KVCache.create(spec, 1, dtype=torch.float32)
+    cache = KVCache.create(spec, 1, dtype=torch.float32, device="cpu")
 
     want, jcache = _jax_run(spec, jparams, prompt, 0, jcache)
     got = forward(params, spec, torch.from_numpy(prompt), 0, cache)
@@ -74,11 +74,11 @@ def test_logits_for_all_and_logit_index(fixture_params):
                           JaxKVCache.create(spec, 1, dtype=jnp.float32),
                           logits_for_all=True)
     got = forward(params, spec, torch.from_numpy(toks), 0,
-                  KVCache.create(spec, 1), logits_for_all=True)
+                  KVCache.create(spec, 1, device="cpu"), logits_for_all=True)
     assert tuple(got.shape) == (1, 4, spec.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
     mid = forward(params, spec, torch.from_numpy(toks), 0,
-                  KVCache.create(spec, 1), logit_index=1)
+                  KVCache.create(spec, 1, device="cpu"), logit_index=1)
     np.testing.assert_allclose(mid.numpy(), np.asarray(want)[:, 1],
                                **LOGIT_TOL)
 
@@ -91,10 +91,10 @@ def test_per_row_pos0_matches_separate_rows(fixture_params):
     prefix = torch.tensor([[4, 8, 15, 16, 23]])
     alone = []
     for p0 in (2, 5):
-        cache = KVCache.create(spec, 1)
+        cache = KVCache.create(spec, 1, device="cpu")
         forward(params, spec, prefix[:, :p0], 0, cache)
         alone.append(forward(params, spec, torch.tensor([[42, 7]]), p0, cache))
-    cache = KVCache.create(spec, 2)
+    cache = KVCache.create(spec, 2, device="cpu")
     for b, p0 in enumerate((2, 5)):
         row = KVCache([k[b:b + 1] for k in cache.k], [v[b:b + 1] for v in cache.v])
         forward(params, spec, prefix[:, :p0], 0, row)
@@ -104,15 +104,34 @@ def test_per_row_pos0_matches_separate_rows(fixture_params):
                                atol=1e-5, rtol=1e-5)
 
 
-def test_moe_archs_not_ported_yet():
+@pytest.mark.parametrize("arch", ["MIXTRAL", "GROK1"])
+def test_moe_archs_reach_the_moe_forward(tmp_path, arch):
+    """MIXTRAL and GROK1 run through the MoE block of every layer and give
+    the JAX package's prompt logits (the dense expert-masked prefill path;
+    tests/test_torch_moe.py covers decode)."""
+    from unittest import mock
+
+    from distributed_llama_tpu_torch.models import transformer
     from distributed_llama_tpu_torch.models.spec import ArchType
 
-    spec = tiny_spec(arch=ArchType.MIXTRAL, n_experts=4, n_active_experts=2)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        forward({}, spec, torch.zeros((1, 1), dtype=torch.long), 0, None)
+    mpath, _ = write_fixture(tmp_path, seed=33, arch=ArchType[arch],
+                             n_experts=4, n_active_experts=2)
+    spec, tensors = read_model(mpath)
+    jparams = load_params(spec, tensors, mode="q40", dtype=jnp.float32)
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                             spec, "cpu")
+    toks = np.asarray([[1, 9, 27, 81, 3]], np.int32)
+    want, _ = _jax_run(spec, jparams, toks, 0,
+                       JaxKVCache.create(spec, 1, dtype=jnp.float32))
+    with mock.patch.object(transformer, "_moe_ffn",
+                           wraps=transformer._moe_ffn) as moe:
+        got = forward(params, spec, torch.from_numpy(toks), 0,
+                      KVCache.create(spec, 1, device="cpu"))
+    assert moe.call_count == spec.n_layers
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch", ["LLAMA", "GROK1"])
+@pytest.mark.parametrize("arch", ["LLAMA", "GROK1", "MIXTRAL"])
 def test_rope_matches_jax(arch):
     """rope_llama (interleaved pairs) and rope_falcon (half rotation)."""
     from distributed_llama_tpu.models.spec import ArchType as JaxArch

@@ -73,6 +73,26 @@ def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_card_by_default_entry_points_raise_without_a_card(monkeypatch):
+    """load_params, params_from_jax and KVCache.create put their tensors on
+    `cuda` unless asked for the CPU: with no card they raise."""
+    from distributed_llama_tpu_torch.models.convert import params_from_jax
+    from distributed_llama_tpu_torch.models.params import (load_params,
+                                                           random_tensors)
+    from distributed_llama_tpu_torch.models.transformer import KVCache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = tiny_spec()
+    host = random_tensors(spec, seed=0)
+    for call in (lambda: load_params(spec, host),
+                 lambda: params_from_jax(
+                     {"layers": [{}] * spec.n_layers}, spec),
+                 lambda: KVCache.create(spec, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert KVCache.create(spec, 1, device="cpu").k[0].device.type == "cpu"
+
+
 def test_kernel_wrappers_raise_off_cpu_instead_of_falling_back():
     """A tensor on a non-CPU device is never handed to the plain version:
     the wrapper launches the kernel or raises."""
@@ -82,12 +102,23 @@ def test_kernel_wrappers_raise_off_cpu_instead_of_falling_back():
     before = cuda_q40.q40_matmul.launches
     with pytest.raises(ValueError, match="no kernel"):
         cuda_q40.q40_matmul(x, w)
+    stack = QuantizedTensor(
+        torch.empty((4, 8, 32), dtype=torch.uint8, device="meta"),
+        torch.empty((4, 8, 2), dtype=torch.float16, device="meta"))
+    idx = torch.zeros((2,), dtype=torch.int32, device="meta")
+    before_k2 = cuda_q40.q40_expert_matmul.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_q40.q40_expert_matmul(x, stack, idx)
     q = torch.empty((1, 1, 2, 16), device="meta")
     kv = torch.empty((1, 2, 8, 16), device="meta")
     pos = torch.zeros((1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         cuda_attention.flash_attention(q, kv, kv, pos)
+    kv8 = torch.empty((1, 2, 8, 16), dtype=torch.float8_e4m3fn, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_attention.flash_attention(q, kv8, kv8, pos)
     assert cuda_q40.q40_matmul.launches == before
+    assert cuda_q40.q40_expert_matmul.launches == before_k2
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -101,6 +132,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_sources_exist_and_export_c_entries():
     for name, entry in (("q40_matmul", "q40_matmul_launch"),
+                        ("q40_matmul", "q40_expert_matmul_launch"),
                         ("flash_attention", "flash_attention_launch")):
         src = (cuda_build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {entry}(' in src
@@ -109,7 +141,7 @@ def test_kernel_sources_exist_and_export_c_entries():
 
 
 @pytest.mark.parametrize("kwargs,needle", [
-    (dict(cache_dtype=torch.float8_e4m3fn), "not ported"),
+    (dict(cache_dtype=torch.float16), "not ported"),
     (dict(compute_dtype=torch.float16), "compute_dtype"),
 ])
 def test_engine_refuses_unported_dtypes(kwargs, needle):

@@ -92,14 +92,15 @@ def test_load_params_matches_converted_jax_params():
     jparams = jax_load_params(spec, jhost, mode="q40", dtype=jnp.float32)
     want = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), spec,
                            "cpu")
-    _same_params(load_params(spec, host, mode="q40"), want)
+    _same_params(load_params(spec, host, mode="q40", device="cpu"), want)
 
 
 def test_params_from_jax_reads_bf16_leaves():
     spec = tiny_spec()
     jparams = jax_load_params(spec, jax_random_tensors(spec, seed=1),
                               mode="q40", dtype=jnp.bfloat16)
-    p = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), spec)
+    p = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), spec,
+                        "cpu")
     assert p["tok_emb"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         p["tok_emb"].float().numpy(),
