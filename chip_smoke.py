@@ -25,6 +25,19 @@ result line):
     {0, 511, 2048 - T}, plus B = 2 with a different pos0 per row, with a
     bf16 cache and with an fp8 (e4m3) cache; library time is
     scaled_dot_product_attention over the filled prefix (in bf16).
+ 4b. The probes: the Q40 decode-GEMV design probes of the JAX repository's
+    tools/, as ported into distributed_llama_tpu_torch/tools, at the tools'
+    full shapes: kernel_ladder (P7, 32 x 11008x4096, stages read/unpack/
+    convert/mul/dot), kernel_experiments (P4 A and B, the same shape, and
+    K1 beside them) and exp_int8_dot (P1, 24 x 11008x4096, and K1). One
+    untimed pass of each tool's passes, counts zeroed just before and read
+    just after, must launch each kernel exactly once per weight (the ladder
+    once per weight and stage); then the tool's timed lines, as its
+    `python -m` entry point prints them. Then each probe kernel against its
+    plain version at that shape (P1, read and unpack bit for bit, the rest
+    within TOL), and the plain versions and the library yardstick (the
+    dequantized bf16 weight through torch.matmul) timed over the same pass
+    of weights.
  5. The main paths at full width, each an Engine on cuda from seeded
     synthetic Q40 weights, greedy generate after a prompt. Launch counts
     are zeroed just before each generate and read just after; every
@@ -65,9 +78,9 @@ from unittest import mock
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-L2_BYTES = 50e6
+from distributed_llama_tpu_torch.tools.timing import (HBM_BYTES_PER_S, bound_ms,
+                                                       pass_rows, rotating, time_ms)
+
 F8 = torch.float8_e4m3fn
 # Llama-2-7B widths (bench.py:101 LLAMA2_7B): dim 4096, hidden 11008,
 # 32 layers, 32/32 heads, vocab 32000, seq 2048
@@ -101,52 +114,6 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def time_ms(fn, budget_ms: float = 60.0, max_iters: int = 100) -> float:
-    """Mean device ms per call. The calls are captured in a CUDA graph and
-    the graph is replayed between CUDA events, so the host's per-launch
-    cost (Python, ctypes, argument checks) does not pad short kernels. An
-    eager call first warms up and sizes the count to fill about budget_ms."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    fn()
-    torch.cuda.synchronize()
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    n = int(min(max_iters, max(3, budget_ms / max(start.elapsed_time(end), 1e-3))))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / n
-
-
-def rotating(make, nbytes: int):
-    """Enough copies of an operand that cycling through them exceeds the L2
-    cache, so every timed call reads its operand from device memory, as the
-    main path does."""
-    copies = [make() for _ in range(max(1, min(8, math.ceil(2 * L2_BYTES / nbytes))))]
-    state = {"i": 0}
-
-    def nxt():
-        state["i"] = (state["i"] + 1) % len(copies)
-        return copies[state["i"]]
-    return nxt
-
-
-def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
-    b = nbytes / HBM_BYTES_PER_S * 1e3
-    o = ops / PEAK_OPS[dtype] * 1e3
-    return (b, "bytes") if b >= o else (o, "operations")
-
-
 def random_q40(gen, *shape: int):
     from distributed_llama_tpu_torch.quants.torch_codec import QuantizedTensor
 
@@ -173,7 +140,7 @@ def phase_build() -> float:
     from distributed_llama_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    libs = cuda_build.build_all()
+    libs = cuda_build.build_all(cuda_build.KERNELS + cuda_build.PROBES)
     dt = time.perf_counter() - t0
     print(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.1f} s")
     return dt
@@ -389,6 +356,113 @@ def phase_k3(gen) -> dict:
     return {"rows": rows}
 
 
+def phase_probes() -> dict:
+    from distributed_llama_tpu_torch.ops import cuda_probes
+    from distributed_llama_tpu_torch.quants.torch_codec import dequantize_q40_torch
+    from distributed_llama_tpu_torch.tools import (exp_int8_dot, kernel_experiments,
+                                                   kernel_ladder)
+
+    # each tool's passes at its shape: one untimed pass of each, with the
+    # counts zeroed just before and read just after, must launch each kernel
+    # once per weight (the ladder once per weight and stage); then the
+    # tool's timed lines, as `python -m ...tools.<name>` prints them
+    cuda = torch.device("cuda")
+    counters = {**_counters(), **_probe_counters()}
+    runs = {}
+    for name, tool, want in (
+            ("kernel_ladder", kernel_ladder, {"P7": len(cuda_probes.STAGES) * kernel_ladder.L}),
+            ("kernel_experiments", kernel_experiments,
+             {"P4a": kernel_experiments.L, "P4b": kernel_experiments.L,
+              "K1": kernel_experiments.L}),
+            ("exp_int8_dot", exp_int8_dot, {"P1": exp_int8_dot.L, "K1": exp_int8_dot.L})):
+        print(f"[probe] python -m distributed_llama_tpu_torch.tools.{name}")
+        ps = tool.passes(cuda)
+        zero_counts()
+        for _, one_pass, _ in ps:
+            one_pass()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in counters.items() if f.launches}
+        if got != want:
+            fail(f"tools.{name}: one pass launched {got}, wanted {want}")
+        runs[name] = dict(launches=got, rows=pass_rows(ps, cuda))
+        del ps
+        torch.cuda.empty_cache()
+    tool_rows = {name: {r["name"]: r for r in res["rows"]} for name, res in runs.items()}
+
+    # the plain versions and the library yardstick over the same passes
+    layers, d, n = kernel_ladder.L, kernel_ladder.H, kernel_ladder.D
+    ws = kernel_ladder.random_weights(layers, d, n, seed=11, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    x32 = torch.randn((1, n), generator=gen, device="cuda")
+    xb = torch.randn((1, n), generator=gen, device="cuda").to(torch.bfloat16)
+    wds = [dequantize_q40_torch(w, torch.bfloat16) for w in ws]
+
+    def library(k):
+        return time_ms(lambda: [torch.matmul(xb, wd.t()) for wd in wds[:k]])
+    lib = {layers: library(layers), exp_int8_dot.L: library(exp_int8_dot.L)}
+    del wds
+    rows = []
+
+    def held(name, label, got, want, exact, plain, tool_row, ops, dtype, n_layers):
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        if exact:
+            ok, tol = torch.equal(got, want), 0.0
+        else:
+            tol = TOL[torch.float32] * want.abs().max().item()
+            ok = err <= tol and bool(torch.isfinite(got).all())
+        bms, by = bound_ms(tool_row["bytes"], ops, dtype)
+        row = dict(name=name, label=label, layers=n_layers, d=d, n=n,
+                   max_abs_err=err, tol=tol, exact=exact, ms=tool_row["ms"],
+                   plain_ms=plain, library_ms=lib[n_layers], bound_ms=bms,
+                   bound_by=by, bytes=tool_row["bytes"], gbps=tool_row["gbps"],
+                   hbm_share=tool_row["hbm_share"])
+        rows.append(row)
+        print("[probe] " + json.dumps(row))
+        if not ok:
+            fail(f"{name} {label}: max err {err:.3g} > tol {tol:.3g} (exact: {exact})")
+
+    ops = 2.0 * layers * d * n
+    for stage in cuda_probes.STAGES:
+        held("q40_ladder", stage, cuda_probes.q40_ladder(stage, x32, ws[0]),
+             cuda_probes.q40_ladder_reference(stage, x32, ws[0]),
+             stage in ("read", "unpack"),
+             time_ms(lambda: [cuda_probes.q40_ladder_reference(stage, x32, w) for w in ws]),
+             tool_rows["kernel_ladder"][stage], ops if stage == "dot" else 0.0,
+             torch.float32, layers)
+    for name, label, fn, ref in (
+            ("q40_matmul_a", "A bf16", cuda_probes.q40_matmul_a,
+             cuda_probes.q40_matmul_a_reference),
+            ("q40_matmul_b", "B bf16+corr", cuda_probes.q40_matmul_b,
+             cuda_probes.q40_matmul_b_reference)):
+        held(name, label, fn(xb, ws[0]), ref(xb, ws[0]), False,
+             time_ms(lambda: [ref(xb, w) for w in ws]),
+             tool_rows["kernel_experiments"][label], ops, torch.bfloat16, layers)
+    del ws
+    torch.cuda.empty_cache()
+
+    layers8 = exp_int8_dot.L
+    ws8, xq = exp_int8_dot.random_int8_weights(layers8, d, n, seed=13, device="cuda")
+    pk, sc = ws8[0]
+    held("int8_gemv", "int8 dp4a", cuda_probes.int8_gemv(xq, pk, sc),
+         cuda_probes.int8_gemv_reference(xq, pk, sc), True,
+         time_ms(lambda: [cuda_probes.int8_gemv_reference(xq, p, s) for p, s in ws8]),
+         tool_rows["exp_int8_dot"]["int8 dp4a"], 2.0 * layers8 * d * n, torch.int8,
+         layers8)
+    del ws8
+    torch.cuda.empty_cache()
+
+    ladder = {r["label"]: r["gbps"] for r in rows if r["name"] == "q40_ladder"}
+    below = next((s for s, g in ladder.items() if g < 0.95 * ladder["read"]), None)
+    print("[probe] ladder GB/s: " + ", ".join(f"{s} {g:.0f}" for s, g in ladder.items())
+          + f"; first stage below 95% of read's rate: {below}")
+    print("[probe] GB/s at 11008x4096, t = 1: " + ", ".join(
+        f"{r['name']} ({tool}) {r['gbps']:.0f}" for tool, res in tool_rows.items()
+        if tool != "kernel_ladder" for r in res.values()))
+    return {"rows": rows, "tools": runs, "first_below_read": below}
+
+
 def _spec(name: str):
     from distributed_llama_tpu_torch.models.spec import ArchType, HiddenAct, ModelSpec
 
@@ -416,8 +490,15 @@ def _counters() -> dict:
             "K3": cuda_attention.flash_attention}
 
 
+def _probe_counters() -> dict:
+    from distributed_llama_tpu_torch.ops import cuda_probes
+
+    return {"P7": cuda_probes.q40_ladder, "P4a": cuda_probes.q40_matmul_a,
+            "P4b": cuda_probes.q40_matmul_b, "P1": cuda_probes.int8_gemv}
+
+
 def zero_counts() -> None:
-    for f in _counters().values():
+    for f in (*_counters().values(), *_probe_counters().values()):
         f.launches = 0
 
 
@@ -762,7 +843,7 @@ def phase_file_path() -> None:
                     fail("CLI inference with --cache-dtype f8 did not complete")
 
 
-def summarize(k1: dict, k2: dict, k3: dict, main: dict) -> dict:
+def summarize(k1: dict, k2: dict, k3: dict, probes: dict, main: dict) -> dict:
     """One entry per kernel (K3's e4m3 mode its own): its time, plain and
     library times and bound for ONE decode step (t = 1, bf16), summed from
     the per-launch measurements above — K1 and K3 of a Llama-2-7B step, K2
@@ -822,17 +903,45 @@ def summarize(k1: dict, k2: dict, k3: dict, main: dict) -> dict:
              library_ms=32 * a8["library_ms"],
              at="one Mixtral decode step: 32 layers, T=1, H=32/KVH=8, fill 512, "
                 "e4m3 cache, bf16 q"),
+        *probe_entries(probes),
     ]}
+
+
+def probe_entries(probes: dict) -> list[dict]:
+    """One entry per probe kernel, each for ONE pass of its tool (the L
+    weights at 11008x4096, t = 1); the ladder's at its dot stage, with every
+    stage under `stages`. Launches from the tools' runs."""
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    rows = probes["rows"]
+    launches = {name: res["launches"] for name, res in probes["tools"].items()}
+    src = "distributed_llama_tpu_torch/csrc/q40_probes.cu"
+
+    def entry(name, label, replaces, tool, counter, at):
+        r = next(r for r in rows if r["name"] == name and r["label"] == label)
+        return dict(name=name, route="cuda", source=src, replaces=replaces,
+                    launches=launches[tool][counter], **{k: r[k] for k in keys},
+                    at=at)
+    ladder = entry("q40_ladder", "dot", "tools/kernel_ladder.py:92", "kernel_ladder",
+                   "P7", "one pass of tools.kernel_ladder: 32 x 11008x4096, f32 "
+                   "scales, t=1; the dot stage (all stages under 'stages')")
+    ladder["stages"] = {r["label"]: {k: r[k] for k in keys + ("gbps",)}
+                        for r in rows if r["name"] == "q40_ladder"}
+    return [
+        ladder,
+        entry("q40_matmul_a", "A bf16", "tools/kernel_experiments.py:80",
+              "kernel_experiments", "P4a", "one pass of tools.kernel_experiments: "
+              "32 x 11008x4096, f32 scales, t=1, bf16 x, f32 out"),
+        entry("q40_matmul_b", "B bf16+corr", "tools/kernel_experiments.py:126",
+              "kernel_experiments", "P4b", "the same as q40_matmul_a"),
+        entry("int8_gemv", "int8 dp4a", "tools/exp_int8_dot.py:56", "exp_int8_dot",
+              "P1", "one pass of tools.exp_int8_dot: 24 x 11008x4096 int4 values, "
+              "f32 row scales, int8 x, f32 out"),
+    ]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    try:
-        import distributed_llama_tpu_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: the port package is missing: {e}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -844,13 +953,14 @@ def main() -> int:
     k1 = phase_k1(gen)
     k2 = phase_k2(gen)
     k3 = phase_k3(gen)
+    probes = phase_probes()
     main_paths = phase_main_paths()
     phase_file_path()
-    kernels = summarize(k1, k2, k3, main_paths)
+    kernels = summarize(k1, k2, k3, probes, main_paths)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, k1=k1["rows"], k1_paths=k1["paths"],
-        k2=k2["rows"], k3=k3["rows"], main_paths=main_paths,
+        k2=k2["rows"], k3=k3["rows"], probes=probes, main_paths=main_paths,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

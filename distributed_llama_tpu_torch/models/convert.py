@@ -20,6 +20,9 @@ recognised by shape, not by class: any object with `packed` and `scales`.
   * MoE leaves: the dense router as it is, each (E, d, m) expert stack
     converted row by row like a 2D weight (the lane order is per row), so
     it stays one stack.
+
+`q40_lane_to_block_major` is the layout move alone, with the scales kept in
+their dtype: the design probes (ops/cuda_probes.py) read f32 scales.
 """
 
 from __future__ import annotations
@@ -36,22 +39,31 @@ def _is_q40(leaf) -> bool:
     return hasattr(leaf, "packed") and hasattr(leaf, "scales")
 
 
-def q40_from_lane_order(packed: np.ndarray, scales: np.ndarray,
-                        device) -> QuantizedTensor:
+def q40_lane_to_block_major(packed: np.ndarray, scales: np.ndarray,
+                            device) -> QuantizedTensor:
     """(..., 16*nb) bytes in lane order m = j*nb + b -> the port's
-    block-major (..., nb*16); scales to float16."""
+    block-major (..., nb*16); the scales move as they are, dtype and all
+    (the design probes keep f32 scales, which float16 would round)."""
     packed = np.asarray(packed, dtype=np.uint8)
-    scales = np.asarray(scales)
+    scales = np.array(scales, copy=True)
     nb = scales.shape[-1]
     lead = packed.shape[:-1]
     blocks = packed.reshape(*lead, 16, nb).swapaxes(-1, -2)   # (..., nb, 16)
     pk = np.ascontiguousarray(blocks).reshape(*lead, nb * 16)
+    return QuantizedTensor(torch.from_numpy(pk).to(device),
+                           torch.from_numpy(scales).to(device))
+
+
+def q40_from_lane_order(packed: np.ndarray, scales: np.ndarray,
+                        device) -> QuantizedTensor:
+    """(..., 16*nb) bytes in lane order m = j*nb + b -> the port's
+    block-major (..., nb*16); scales to float16."""
+    scales = np.asarray(scales)
     if scales.dtype == np.uint16:
-        sc = scales.view(np.float16).copy()
+        sc = scales.view(np.float16)
     else:
         sc = scales.astype(np.float16)
-    return QuantizedTensor(torch.from_numpy(pk).to(device),
-                           torch.from_numpy(sc).to(device))
+    return q40_lane_to_block_major(packed, sc, device)
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:

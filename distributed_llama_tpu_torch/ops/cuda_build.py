@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-KERNELS = ("q40_matmul", "flash_attention")
+KERNELS = ("q40_matmul", "flash_attention")   # the engine's kernels
+PROBES = ("q40_probes",)                      # the design probes (tools/)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -78,12 +79,14 @@ def build_all(names=KERNELS) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building all kernels first if
-    this one is not built yet."""
+    """The loaded library of kernel `name`. An engine kernel not built yet
+    builds all of KERNELS first; a probe source builds alone, so the engine
+    never waits for (or fails on) the probes."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all()[name]))
+            names = KERNELS if name in KERNELS else (name,)
+            lib = ctypes.CDLL(str(build_all(names)[name]))
             _libs[name] = lib
         return lib
 

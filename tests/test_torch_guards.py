@@ -9,7 +9,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from distributed_llama_tpu_torch.ops import cuda_attention, cuda_build, cuda_q40
+from distributed_llama_tpu_torch.ops import (cuda_attention, cuda_build,
+                                             cuda_probes, cuda_q40)
 from distributed_llama_tpu_torch.quants.torch_codec import QuantizedTensor
 from distributed_llama_tpu_torch.runtime.engine import Engine, resolve_device
 from distributed_llama_tpu_torch.testing import tiny_spec
@@ -148,3 +149,83 @@ def test_engine_refuses_unported_dtypes(kwargs, needle):
     params = {"tok_emb": torch.zeros(1), "layers": []}
     with pytest.raises(ValueError, match=needle):
         Engine(tiny_spec(), params, device="cpu", **kwargs)
+
+
+def test_import_guards_cover_the_probes():
+    """The blocked-jax import test and the per-file import scan walk the
+    whole package: the probe tools and their kernel module are in it."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"ops/cuda_probes.py", "tools/__init__.py", "tools/timing.py",
+            "tools/kernel_ladder.py", "tools/kernel_experiments.py",
+            "tools/exp_int8_dot.py"} <= files
+
+
+def test_probe_tool_module_raises_without_a_card():
+    """`python -m ...tools.kernel_ladder` runs on cuda unless told otherwise:
+    with no card it raises instead of running on the CPU."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run(
+        [sys.executable, "-m", "distributed_llama_tpu_torch.tools.kernel_ladder"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert "MB/pass" not in res.stdout
+
+
+@pytest.mark.parametrize("tool,small", [
+    ("kernel_ladder", dict(L=2, H=16, D=64)),
+    ("kernel_experiments", dict(L=2, H=16, D=64)),
+    ("exp_int8_dot", dict(L=2, D=16, K=64)),
+])
+def test_probe_tools_need_a_card_unless_asked_for_the_cpu(tool, small, monkeypatch,
+                                                          capsys):
+    """The tools' shapes are module constants, cut here to a few rows; on
+    the CPU each pass runs its plain versions once, untimed."""
+    import importlib
+
+    mod = importlib.import_module(f"distributed_llama_tpu_torch.tools.{tool}")
+    for name, value in small.items():
+        monkeypatch.setattr(mod, name, value)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
+    rows = mod.main(["--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == len(rows) >= 2
+    assert all("MB/pass" in ln and "cpu" in ln and "TB/s" not in ln
+               for ln in lines)
+    assert all(r["ms"] is None and r["bytes"] > 2 * 16 * 64 // 2 for r in rows)
+
+
+def test_probe_wrappers_raise_off_cpu_instead_of_falling_back():
+    w = QuantizedTensor(torch.empty((8, 32), dtype=torch.uint8, device="meta"),
+                        torch.empty((8, 2), dtype=torch.float32, device="meta"))
+    x = torch.empty((1, 64), device="meta")
+    xb = torch.empty((1, 64), dtype=torch.bfloat16, device="meta")
+    fns = (cuda_probes.q40_ladder, cuda_probes.q40_matmul_a,
+           cuda_probes.q40_matmul_b, cuda_probes.int8_gemv)
+    before = [f.launches for f in fns]
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_probes.q40_ladder("dot", x, w)
+    for fn in (cuda_probes.q40_matmul_a, cuda_probes.q40_matmul_b):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(xb, w)
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_probes.int8_gemv(torch.empty((1, 64), dtype=torch.int8, device="meta"),
+                              w.packed, torch.empty((8, 1), device="meta"))
+    with pytest.raises(ValueError, match="stage"):
+        cuda_probes.q40_ladder("fma", x, w)
+    assert [f.launches for f in fns] == before
+
+
+def test_probe_source_exports_c_entries():
+    # built on their own: the engine's first launch never compiles them
+    assert cuda_build.PROBES == ("q40_probes",)
+    assert "q40_probes" not in cuda_build.KERNELS
+    src = (cuda_build.CSRC / "q40_probes.cu").read_text()
+    for entry in ("q40_ladder_launch", "q40_matmul_a_launch",
+                  "q40_matmul_b_launch", "int8_gemv_launch"):
+        assert f'extern "C" int {entry}(' in src
+    assert "cudaGetLastError()" in src and "__dp4a" in src
