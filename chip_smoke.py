@@ -37,7 +37,17 @@ result line):
     plain version at that shape (P1, read and unpack bit for bit, the rest
     within TOL), and the plain versions and the library yardstick (the
     dequantized bf16 weight through torch.matmul) timed over the same pass
-    of weights.
+    of weights. Then the later probes, each at its tool's shape, each pass
+    counted on its own (counts zeroed just before, read just after, exact):
+    exp_f8_flash (P2: one flash-decode call per cache mode, bf16 / e4m3
+    astype / bits / bitsflush, B 1, KVH 32, S 8192, fill 7680; bits must
+    equal astype bit for bit; library: SDPA on the filled prefix in bf16),
+    exp_pk_decode (P3: base and pk at w1 22016x4096 and attn 4096x4096),
+    exp_scale_f16 (P5: 32 x 22016x4096 with u16 and f32 scales, K1 beside;
+    the kernel's f16 decode checked over all 63,488 finite patterns) and
+    exp_unpack_overlap (P6: 11008x4096, T 256, K1's tensor-core path as
+    `landed` and every (td, n_sub)); each kernel against its plain version
+    (within TOL; P3 pk within 1e-4), then plain and library times.
  5. The main paths at full width, each an Engine on cuda from seeded
     synthetic Q40 weights, greedy generate after a prompt. Launch counts
     are zeroed just before each generate and read just after; every
@@ -463,6 +473,190 @@ def phase_probes() -> dict:
     return {"rows": rows, "tools": runs, "first_below_read": below}
 
 
+def counted_passes(name: str, ps: list, want: dict) -> dict:
+    """Each of a tool's passes once, untimed, with the counts zeroed just
+    before it and read just after: each must launch exactly want[label]."""
+    cuda = torch.device("cuda")
+    counters = {**_counters(), **_probe_counters()}
+    print(f"[probe] python -m distributed_llama_tpu_torch.tools.{name}")
+    got = {}
+    for label, one_pass, _ in ps:
+        zero_counts()
+        one_pass()
+        torch.cuda.synchronize()
+        got[label] = {k: f.launches for k, f in counters.items() if f.launches}
+    if got != want:
+        fail(f"tools.{name}: one pass launched {got}, wanted {want}")
+    return dict(launches=got, rows=pass_rows(ps, cuda))
+
+
+def phase_probes_p2_p6() -> dict:
+    """Phase 4b, its second part: the fp8-cache flash decode (P2), the pk
+    substitution (P3), the f16-bit scales (P5) and the prefill overlap (P6)
+    at their tools' shapes. Per tool: the counted untimed pass, the timed
+    lines, each kernel against its plain version, then plain, library and
+    bound over the same call or pass."""
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops import cuda_probes, cuda_q40
+    from distributed_llama_tpu_torch.quants.torch_codec import (QuantizedTensor,
+                                                                dequantize_q40_torch)
+    from distributed_llama_tpu_torch.tools import (exp_f8_flash, exp_pk_decode,
+                                                   exp_scale_f16, exp_unpack_overlap)
+
+    cuda = torch.device("cuda")
+    rows, tools = [], {}
+
+    def held(name, label, got, want, tol_rel, exact, plain, lib, tool_row, ops, dtype,
+             **at):
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        tol = tol_rel * want.double().abs().max().item()
+        ok = torch.equal(got, want) if exact else \
+            err <= tol and bool(torch.isfinite(got).all())
+        bms, by = bound_ms(tool_row["bytes"], ops, dtype)
+        row = dict(name=name, label=label, **at, max_abs_err=err, tol=tol, exact=exact,
+                   ms=tool_row["ms"], plain_ms=plain, library_ms=lib, bound_ms=bms,
+                   bound_by=by, bytes=tool_row["bytes"], gbps=tool_row["gbps"])
+        rows.append(row)
+        print("[probe] " + json.dumps(row))
+        if not ok:
+            fail(f"{name} {label}: max err {err:.3g} > tol {tol:.3g} (exact: {exact})")
+
+    # P2: four modes of one flash-decode kernel, one call each
+    f8 = exp_f8_flash
+    a = f8.make_inputs(cuda)
+    ps = f8.passes(cuda, a)
+    tools["exp_f8_flash"] = res = counted_passes(
+        "exp_f8_flash", ps, {label: {"P2": 1} for label, _ in f8.VARIANTS})
+    tr = {r["name"]: r for r in res["rows"]}
+    rows_n, seen = f8.B * f8.KVH, f8.FILL + 1
+    qs = a["q"].reshape(f8.B, f8.KVH, 1, f8.HS)
+    outs = {}
+    for label, mode in f8.VARIANTS:
+        k, v = a["bits" if mode == "bitsflush" else mode]
+        outs[mode] = cuda_probes.f8_flash_decode(mode, a["pos"], a["q"], k, v)
+        plain = time_ms(lambda: cuda_probes.f8_flash_decode_reference(
+            mode, a["pos"], a["q"], k, v))
+        ks = cuda_probes.f8_cache_bf16(mode, k[:, :seen]).reshape(f8.B, f8.KVH, seen, f8.HS)
+        vs = cuda_probes.f8_cache_bf16(mode, v[:, :seen]).reshape(f8.B, f8.KVH, seen, f8.HS)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
+        del ks, vs
+        held("f8_flash_decode", label, outs[mode].float(),
+             cuda_probes.f8_flash_decode_reference(mode, a["pos"], a["q"], k, v).float(),
+             TOL[torch.bfloat16], False, plain, lib, tr[label],
+             4.0 * f8.HS * seen * rows_n, torch.bfloat16, mode=mode, rows=rows_n,
+             s=f8.S, fill=f8.FILL)
+    if not torch.equal(outs["bits"], outs["astype"]):
+        fail("f8_flash_decode: bits differs from astype on the card")
+    print("[probe] bits == astype exact: ok")
+    del a, ps, outs
+    torch.cuda.empty_cache()
+
+    # P3: base and pk at w1 and attn, one call each
+    cases = {name: exp_pk_decode.make_case(d, n, 0, cuda)
+             for name, d, n, _ in exp_pk_decode.SHAPES}
+    ps = exp_pk_decode.passes(cuda, cases)
+    tools["exp_pk_decode"] = res = counted_passes(
+        "exp_pk_decode", ps, {label: {"P3": 1} for label, _, _ in ps})
+    tr = {r["name"]: r for r in res["rows"]}
+    pk_err = {}
+    for name, d, n, _ in exp_pk_decode.SHAPES:
+        c = cases[name]
+        wd = rotating(lambda c=c: dequantize_q40_torch(c["w"], torch.bfloat16), d * n * 2)
+        xb = torch.randn((1, n), device="cuda").to(torch.bfloat16)
+        lib = time_ms(lambda: torch.matmul(xb, wd().t()))
+        del wd
+        y = {}
+        for mode in cuda_probes.PK_MODES:
+            args = (mode, c["x1"], c["x2"][mode], c["xs"], c["w"])
+            y[mode] = cuda_probes.q40_pk_gemv(*args)
+            # pk: x1 . pk and x2 . hi are each ~16x the result and cancel, so
+            # the sum order's rounding is amplified about 16x
+            held("q40_pk_gemv", f"{name} {mode}", y[mode],
+                 cuda_probes.q40_pk_gemv_reference(*args),
+                 1e-4 if mode == "pk" else TOL[torch.float32], False,
+                 time_ms(lambda: cuda_probes.q40_pk_gemv_reference(*args)), lib,
+                 tr[f"{name} {mode}"], 2.0 * d * n, torch.float32, shape=name, d=d, n=n)
+        pk_err[name] = ((y["pk"] - y["base"]).abs().max()
+                        / y["base"].abs().max()).item()
+    print(f"[probe] pk vs base, max |diff| / max |base|: {pk_err}")
+    del cases, ps
+    torch.cuda.empty_cache()
+
+    # P5: L weights with u16 and with f32 scales, K1 beside them
+    sf = exp_scale_f16
+    layers, x = made = sf.make_layers(cuda)
+    ps = sf.passes(cuda, made)
+    tools["exp_scale_f16"] = res = counted_passes(
+        "exp_scale_f16", ps, {"u16 scales": {"P5": sf.L}, "f32 scales": {"P5": sf.L},
+                              "K1": {"K1": sf.L}})
+    tr = {r["name"]: r for r in res["rows"]}
+    del ps
+    xb = x.to(torch.bfloat16)
+    wds = [dequantize_q40_torch(QuantizedTensor(p, sc), torch.bfloat16) for p, sc, _ in layers]
+    lib = time_ms(lambda: [torch.matmul(xb, wd.t()) for wd in wds])
+    del wds
+    for label, idx in (("u16 scales", 2), ("f32 scales", 1)):
+        ws = [QuantizedTensor(layer[0], layer[idx]) for layer in layers]
+        held("q40_matmul_scales", label, cuda_probes.q40_matmul_scales(x, ws[0]),
+             cuda_probes.q40_matmul_scales_reference(x, ws[0]), TOL[torch.float32], False,
+             time_ms(lambda: [cuda_probes.q40_matmul_scales_reference(x, w) for w in ws]),
+             lib, tr[label], 2.0 * sf.L * sf.D_OUT * sf.D_IN, torch.float32,
+             layers=sf.L, d=sf.D_OUT, n=sf.D_IN)
+    # the kernel's f16 decode over every finite pattern: one 32-value row
+    # per pattern, nibbles 9 and x = e_0, so y = 9 s - 8 s = s exactly
+    bits = torch.arange(65536, dtype=torch.int32)
+    bits = bits[torch.isfinite(bits.to(torch.int16).view(torch.float16))]
+    su = bits.to(torch.int16).view(torch.uint16).reshape(-1, 1).to("cuda")
+    e0 = torch.zeros((1, 32), device="cuda")
+    e0[0, 0] = 1.0
+    y = cuda_probes.q40_matmul_scales(e0, QuantizedTensor(
+        torch.full((su.shape[0], 16), 0x99, dtype=torch.uint8, device="cuda"), su))
+    want = bits.to(torch.int16).view(torch.float16).to(torch.float32).to("cuda")[None]
+    if not torch.equal(y, want):
+        fail("q40_matmul_scales: the kernel's f16 decode differs from float16")
+    print(f"[probe] the kernel's f16 decode equals float16 over all {su.shape[0]} "
+          "finite patterns")
+    del layers, x, made
+    torch.cuda.empty_cache()
+
+    # P6: landed (K1's tensor-core path) and every (td, n_sub), one call each
+    uo = exp_unpack_overlap
+    ps = uo.passes(cuda)
+    tools["exp_unpack_overlap"] = res = counted_passes(
+        "exp_unpack_overlap", ps,
+        {label: {"K1" if label == "landed" else "P6": 1} for label, _, _ in ps})
+    del ps
+    best = {r["name"]: r["ms"] for r in res["rows"]}
+    print("[probe] " + uo.decision(best))
+    tr = {r["name"]: r for r in res["rows"]}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    w = uo.make_weight(cuda, gen)
+    xb = torch.randn((uo.T, uo.N), generator=gen, device="cuda").to(torch.bfloat16)
+    want = cuda_probes.q40_matmul_sub_reference(xb, w).float()
+    plain = time_ms(lambda: cuda_probes.q40_matmul_sub_reference(xb, w))
+    wd = rotating(lambda: dequantize_q40_torch(uo.make_weight(cuda, gen), torch.bfloat16),
+                  uo.D * uo.N * 2)
+    lib = time_ms(lambda: torch.matmul(xb, wd().t()))
+    del wd
+    at = dict(d=uo.D, n=uo.N, t=uo.T)
+    held("q40_matmul (landed)", "landed", cuda_q40.q40_matmul(xb, w, torch.bfloat16).float(),
+         cuda_q40.q40_matmul_reference(xb, w, torch.bfloat16).float(), TOL[torch.bfloat16],
+         False, time_ms(lambda: cuda_q40.q40_matmul_reference(xb, w, torch.bfloat16)), lib,
+         tr["landed"], uo.flops(), torch.bfloat16, **at)
+    for td, ns in uo.combos():
+        label = f"td={td} n_sub={ns}"
+        held("q40_matmul_sub", label, cuda_probes.q40_matmul_sub(xb, w, ns, td).float(),
+             want, TOL[torch.bfloat16], False, plain, lib, tr[label], uo.flops(),
+             torch.bfloat16, td=td, n_sub=ns, **at)
+    del w, xb, want
+    torch.cuda.empty_cache()
+    return {"rows": rows, "tools": tools, "pk_vs_base": pk_err,
+            "decision": uo.decision(best)}
+
+
 def _spec(name: str):
     from distributed_llama_tpu_torch.models.spec import ArchType, HiddenAct, ModelSpec
 
@@ -494,7 +688,9 @@ def _probe_counters() -> dict:
     from distributed_llama_tpu_torch.ops import cuda_probes
 
     return {"P7": cuda_probes.q40_ladder, "P4a": cuda_probes.q40_matmul_a,
-            "P4b": cuda_probes.q40_matmul_b, "P1": cuda_probes.int8_gemv}
+            "P4b": cuda_probes.q40_matmul_b, "P1": cuda_probes.int8_gemv,
+            "P2": cuda_probes.f8_flash_decode, "P3": cuda_probes.q40_pk_gemv,
+            "P5": cuda_probes.q40_matmul_scales, "P6": cuda_probes.q40_matmul_sub}
 
 
 def zero_counts() -> None:
@@ -843,7 +1039,8 @@ def phase_file_path() -> None:
                     fail("CLI inference with --cache-dtype f8 did not complete")
 
 
-def summarize(k1: dict, k2: dict, k3: dict, probes: dict, main: dict) -> dict:
+def summarize(k1: dict, k2: dict, k3: dict, probes: dict, probes2: dict,
+              main: dict) -> dict:
     """One entry per kernel (K3's e4m3 mode its own): its time, plain and
     library times and bound for ONE decode step (t = 1, bf16), summed from
     the per-launch measurements above — K1 and K3 of a Llama-2-7B step, K2
@@ -904,6 +1101,7 @@ def summarize(k1: dict, k2: dict, k3: dict, probes: dict, main: dict) -> dict:
              at="one Mixtral decode step: 32 layers, T=1, H=32/KVH=8, fill 512, "
                 "e4m3 cache, bf16 q"),
         *probe_entries(probes),
+        *probe_entries_p2_p6(probes2),
     ]}
 
 
@@ -939,6 +1137,48 @@ def probe_entries(probes: dict) -> list[dict]:
     ]
 
 
+def probe_entries_p2_p6(probes2: dict) -> list[dict]:
+    """One entry per kernel or mode of P2, P3, P5 and P6, each for ONE call
+    or pass of its tool at the tool's shape (P3 at w1, attn under `shapes`;
+    P6 at td = 128, td = 64 under `td64`, K1's landed row under `landed`).
+    Launches from the tools' counted untimed passes."""
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    rows, tools = probes2["rows"], probes2["tools"]
+
+    def row(name, label):
+        return next(r for r in rows if r["name"] == name and r["label"] == label)
+
+    def entry(name, src, replaces, tool, label, counter, rname, at, **extra):
+        r = row(rname, label)
+        return dict(name=name, route="cuda", source=f"distributed_llama_tpu_torch/csrc/{src}",
+                    replaces=replaces, launches=tools[tool]["launches"][label][counter],
+                    **{k: r[k] for k in keys}, at=at, **extra)
+    out = [entry(f"f8_flash_decode_{mode}", "f8_flash_probe.cu", "tools/exp_f8_flash.py:117",
+                 "exp_f8_flash", label, "P2", "f8_flash_decode",
+                 "one call of tools.exp_f8_flash: B 1, KVH 32, S 8192, hs 128, fill 7680, t=1")
+           for label, mode in (("bf16", "plain"), ("astype-f8", "astype"),
+                               ("bits-f8", "bits"), ("bitsflush-f8", "bitsflush"))]
+    out += [entry(f"q40_pk_gemv_{mode}", "q40_probes.cu", "tools/exp_pk_decode.py:79",
+                  "exp_pk_decode", f"w1 {mode}", "P3", "q40_pk_gemv",
+                  "one call of tools.exp_pk_decode at w1: 22016x4096, f16 scales, t=1, f32",
+                  shapes={"attn": {k: row("q40_pk_gemv", f"attn {mode}")[k] for k in keys}})
+            for mode in ("base", "pk")]
+    out += [entry(f"q40_matmul_scales_{kind}", "q40_probes.cu", "tools/exp_scale_f16.py:60",
+                  "exp_scale_f16", f"{kind} scales", "P5", "q40_matmul_scales",
+                  f"one pass of tools.exp_scale_f16: 32 x 22016x4096, {kind} scales, t=1, f32")
+            for kind in ("u16", "f32")]
+    landed = {k: row("q40_matmul (landed)", "landed")[k] for k in keys}
+    out += [entry(f"q40_matmul_sub_n{ns}", "q40_prefill_probe.cu",
+                  "tools/exp_unpack_overlap.py:86", "exp_unpack_overlap",
+                  f"td=128 n_sub={ns}", "P6", "q40_matmul_sub",
+                  f"one call of tools.exp_unpack_overlap: 11008x4096, T=256, bf16, td=128, "
+                  f"n_sub={ns}",
+                  td64={k: row("q40_matmul_sub", f"td=64 n_sub={ns}")[k] for k in keys},
+                  landed=landed)
+            for ns in (1, 2, 4, 8)]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -954,13 +1194,17 @@ def main() -> int:
     k2 = phase_k2(gen)
     k3 = phase_k3(gen)
     probes = phase_probes()
+    t_p2 = time.perf_counter()
+    probes2 = phase_probes_p2_p6()
+    probes2["seconds"] = time.perf_counter() - t_p2
+    print(f"[probe] P2, P3, P5, P6 in {probes2['seconds']:.1f} s")
     main_paths = phase_main_paths()
     phase_file_path()
-    kernels = summarize(k1, k2, k3, probes, main_paths)
+    kernels = summarize(k1, k2, k3, probes, probes2, main_paths)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, k1=k1["rows"], k1_paths=k1["paths"],
-        k2=k2["rows"], k3=k3["rows"], probes=probes, main_paths=main_paths,
+        k2=k2["rows"], k3=k3["rows"], probes=probes, probes2=probes2, main_paths=main_paths,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

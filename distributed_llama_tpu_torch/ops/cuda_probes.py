@@ -1,19 +1,31 @@
-"""The Q40 decode-GEMV design probes — counterparts of the Pallas probes in
-the JAX repository's tools/ (kernel_ladder.py, kernel_experiments.py,
-exp_int8_dot.py), as hand-written Hopper kernels in csrc/q40_probes.cu
-(design and bound in the source's header).
+"""The design probes — counterparts of the Pallas probes in the JAX
+repository's tools/ (kernel_ladder.py, kernel_experiments.py,
+exp_int8_dot.py, exp_pk_decode.py, exp_scale_f16.py in csrc/q40_probes.cu;
+exp_f8_flash.py in csrc/f8_flash_probe.cu; exp_unpack_overlap.py in
+csrc/q40_prefill_probe.cu), as hand-written Hopper kernels (design and
+bound in each source's header).
 
-  q40_ladder(stage, x, w)  the cost ladder, one stage of STAGES per launch
-  q40_matmul_a(x, w)       the dequantized weight in bf16, -8 inside
-  q40_matmul_b(x, w)       unsigned nibbles in bf16, -8 as an f32 correction
-  int8_gemv(xq, pk, sc)    int4 widened to int8, integer dot, row scale
+  q40_ladder(stage, x, w)          the cost ladder, one stage of STAGES per launch
+  q40_matmul_a(x, w)               the dequantized weight in bf16, -8 inside
+  q40_matmul_b(x, w)               unsigned nibbles in bf16, -8 as an f32 correction
+  int8_gemv(xq, pk, sc)            int4 widened to int8, integer dot, row scale
+  f8_flash_decode(mode, pos, q, k, v)  flash decode over a bf16 or e4m3 cache,
+                                   one of F8_MODES of converting it
+  q40_pk_gemv(mode, x1, x2, xs, w) the GEMV with or without the `& 0xF`
+                                   (PK_MODES: lo = pk - 16 hi folded into x2)
+  q40_matmul_scales(x, w)          the GEMV with u16 (f16 bits) or f32 scales
+  q40_matmul_sub(x, w, n_sub, td)  a prefill chunk on the tensor cores, the
+                                   dequantize overlapped (n_sub > 1) or not
 
-The Q40 probes take the port's block-major packed bytes (d, n/2) uint8 with
-**f32** scales (d, n/32), as the TPU probes' kernels read them. Each wrapper
-runs its plain PyTorch version (`*_reference`) on a CPU tensor, launches
-its kernel on a CUDA tensor, and raises on any other device: there is no
-fallback from a kernel to its plain version. Each wrapper's `launches`
-counts its kernel launches; plain-version calls do not count.
+The ladder, A, B and the scales probe take the port's block-major packed
+bytes (d, n/2) uint8 with **f32** scales (d, n/32), as the TPU probes'
+kernels read them (the scales probe also u16); the pk and overlap probes
+take float16 scales, as K1 does. Each wrapper runs its plain PyTorch
+version (`*_reference`) on a CPU tensor, launches its kernel on a CUDA
+tensor, and raises on any other device: there is no fallback from a kernel
+to its plain version. Each wrapper's `launches` counts its calls that
+launched the kernel (f8_flash_decode and q40_matmul_sub launch two kernels
+per call, a small pass and the main one); plain-version calls do not count.
 """
 
 from __future__ import annotations
@@ -110,9 +122,9 @@ def int8_gemv_reference(xq: torch.Tensor, pk: torch.Tensor,
 
 
 @functools.cache
-def _fn(entry: str, argtypes: tuple):
-    """A C entry point of the probes' library, loaded and typed once."""
-    fn = getattr(cuda_build.load("q40_probes"), entry)
+def _fn(entry: str, argtypes: tuple, lib: str = "q40_probes"):
+    """A C entry point of a probes' library, loaded and typed once."""
+    fn = getattr(cuda_build.load(lib), entry)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
@@ -144,27 +156,34 @@ def _device_of(name: str, *ts: torch.Tensor) -> str:
 
 
 def _checked_q40(name: str, x: torch.Tensor, w: QuantizedTensor, x_dtype,
-                 max_t: int) -> torch.Tensor:
+                 max_t: int, scale_dtypes=(torch.float32,)) -> torch.Tensor:
     """What the Q40 probes take: x (t, n) of x_dtype with t <= max_t, a
-    block-major (d, n/2) u8 weight with (d, n/32) f32 scales, n % 32 == 0.
-    Returns x contiguous and 16-byte aligned; raises on anything else."""
+    block-major (d, n/2) u8 weight with (d, n/32) scales of scale_dtypes
+    (f32 unless told otherwise), n % 32 == 0. Returns x contiguous and
+    16-byte aligned; raises on anything else."""
     if x.dim() != 2 or not 1 <= x.shape[0] <= max_t:
         raise ValueError(f"{name}: x must be (t, n) with 1 <= t <= {max_t}, "
                          f"got {tuple(x.shape)}")
     if x.dtype != x_dtype:
         raise TypeError(f"{name}: x must be {x_dtype}, got {x.dtype}")
-    n = x.shape[1]
+    _checked_weight(name, w, x.shape[1], scale_dtypes)
+    return _aligned(x)
+
+
+def _checked_weight(name: str, w: QuantizedTensor, n: int, scale_dtypes) -> None:
+    """A contiguous block-major (d, n/2) u8 weight, 16-byte aligned, with
+    (d, n/32) scales of scale_dtypes, n % 32 == 0; raises otherwise."""
     if n % 32 or w.packed.dim() != 2 or w.packed.shape[1] != n // 2 or \
             tuple(w.scales.shape) != (w.packed.shape[0], n // 32):
-        raise ValueError(f"{name}: x {tuple(x.shape)} does not fit packed "
+        raise ValueError(f"{name}: n = {n} does not fit packed "
                          f"{tuple(w.packed.shape)} / scales {tuple(w.scales.shape)}")
-    if w.packed.dtype != torch.uint8 or w.scales.dtype != torch.float32:
-        raise TypeError(f"{name}: packed must be uint8, scales float32")
+    if w.packed.dtype != torch.uint8 or w.scales.dtype not in scale_dtypes:
+        raise TypeError(f"{name}: packed must be uint8, scales one of {scale_dtypes}, "
+                        f"got {w.packed.dtype}, {w.scales.dtype}")
     if not (w.packed.is_contiguous() and w.scales.is_contiguous()):
         raise ValueError(f"{name}: weight tensors must be contiguous")
     if w.packed.data_ptr() % 16:
         raise ValueError(f"{name}: packed must be 16-byte aligned")
-    return _aligned(x)
 
 
 def q40_ladder(stage: str, x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
@@ -259,3 +278,257 @@ def int8_gemv(xq: torch.Tensor, pk: torch.Tensor, sc: torch.Tensor) -> torch.Ten
 
 
 int8_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# P2: flash decode over an fp8 cache (tools/exp_f8_flash.py)
+
+F8_MODES = ("plain", "astype", "bits", "bitsflush")
+F8_HS = 128                 # the kernel's head size
+_F8_SPLIT = 256             # cache slots per block: kSplit in csrc/f8_flash_probe.cu
+_F8_CACHE = {"plain": torch.bfloat16, "astype": torch.float8_e4m3fn,
+             "bits": torch.uint8, "bitsflush": torch.uint8}
+
+
+def f8_bits_to_bf16(u8: torch.Tensor, flush: bool) -> torch.Tensor:
+    """e4m3fn bits (uint8) -> bf16 as the JAX tool's _f8_bits_to_bf16 does,
+    by f32 bit reassembly: normals sign<<31 | (exp+120)<<23 | mant<<20,
+    magnitudes below 8 (subnormals) mant * 2^-9, or signed zero with flush.
+    The NaN magnitude 0x7F comes out as 480."""
+    i = u8.to(torch.int32)
+    sign = (i & 0x80) << 24
+    mag = i & 0x7F
+    normal = (mag << 20) + (120 << 23)
+    if flush:
+        sub = torch.zeros_like(mag)
+    else:
+        sub = (mag.to(torch.float32) * 2.0 ** -9).view(torch.int32)
+    bits = torch.where(mag < 8, sub, normal) | sign
+    return bits.view(torch.float32).to(torch.bfloat16)
+
+
+def f8_cache_bf16(mode: str, c: torch.Tensor) -> torch.Tensor:
+    """A cache of `mode`'s dtype as bf16, by that mode's conversion."""
+    if mode == "plain":
+        return c
+    if mode == "astype":
+        return c.to(torch.bfloat16)
+    return f8_bits_to_bf16(c, mode == "bitsflush")
+
+
+def f8_flash_decode_reference(mode: str, pos: torch.Tensor, q: torch.Tensor,
+                              k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version: the cache in bf16 by the mode's conversion, dense
+    masked scores in f32, p = exp(s - max) rounded to bf16 before P.V, sums
+    in f32, the output in bf16. Row i sees slot s iff s <= pos[i // kvh]."""
+    rows, s_len, hs = k.shape
+    kvh = rows // pos.numel()
+    kf = f8_cache_bf16(mode, k).to(torch.float32)
+    vf = f8_cache_bf16(mode, v).to(torch.float32)
+    scores = torch.matmul(q.to(torch.float32), kf.transpose(1, 2)) * (1.0 / hs ** 0.5)
+    lim = pos.to(torch.long).repeat_interleave(kvh)
+    seen = torch.arange(s_len, device=k.device)[None, None, :] <= lim[:, None, None]
+    scores = torch.where(seen, scores, torch.full_like(scores, -1e30))
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    pv = torch.matmul(p.to(torch.bfloat16).to(torch.float32), vf)
+    return (pv / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+
+
+def f8_flash_decode(mode: str, pos: torch.Tensor, q: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One decode step of attention, q (R, 1, 128) bf16 against k, v
+    (R, S, 128) — bf16 for `plain`, float8_e4m3fn for `astype`, uint8 e4m3
+    bits for `bits` and `bitsflush` — with pos (b,) int32, R = b * kvh.
+    Returns (R, 1, 128) bf16."""
+    if mode not in F8_MODES:
+        raise ValueError(f"f8_flash_decode: mode {mode!r} is not one of {F8_MODES}")
+    if _device_of("f8_flash_decode", pos, q, k, v) == "cpu":
+        return f8_flash_decode_reference(mode, pos, q, k, v)
+    if k.dim() != 3 or k.shape != v.shape or k.shape[2] != F8_HS or \
+            tuple(q.shape) != (k.shape[0], 1, F8_HS) or pos.dim() != 1 or \
+            pos.numel() < 1 or k.shape[0] % pos.numel():
+        raise ValueError(f"f8_flash_decode: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, pos {tuple(pos.shape)} do not fit "
+                         f"(R, 1, {F8_HS}), (R, S, {F8_HS}), (b,) with R % b == 0")
+    want = _F8_CACHE[mode]
+    if k.dtype != want or v.dtype != want or q.dtype != torch.bfloat16 or \
+            pos.dtype != torch.int32:
+        raise TypeError(f"f8_flash_decode {mode}: wants q bf16, k and v {want}, pos "
+                        f"int32; got {q.dtype}, {k.dtype}, {v.dtype}, {pos.dtype}")
+    if not (k.is_contiguous() and v.is_contiguous()) or k.data_ptr() % 16 \
+            or v.data_ptr() % 16:
+        raise ValueError("f8_flash_decode: k and v must be contiguous and 16-byte aligned")
+    rows, s_len, _ = k.shape
+    q, pos = q.contiguous(), pos.contiguous()
+    n_split = -(-s_len // _F8_SPLIT)
+    # the split pass's partial (m, l, acc) per row and block of slots
+    part_m = torch.empty((rows, n_split), dtype=torch.float32, device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((rows, n_split, F8_HS), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    rc = _fn("f8_flash_decode_launch", (_I,) + (_P,) * 8 + (_I, _I, _I, _P),
+             "f8_flash_probe")(
+        F8_MODES.index(mode), q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+        rows, rows // pos.numel(), s_len, _stream(q))
+    cuda_build.check(rc, "f8_flash_decode")
+    f8_flash_decode.launches += 1
+    return out
+
+
+f8_flash_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# P3: the packed-byte substitution (tools/exp_pk_decode.py)
+
+PK_MODES = ("base", "pk")
+
+
+def q40_pk_gemv_reference(mode: str, x1: torch.Tensor, x2: torch.Tensor,
+                          xs: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Plain version: per block b of row d, sum_j x1[b*16+j] A + x2[b*16+j]
+    hi in f32 (A = lo for base, the whole byte pk for pk), times s[d, b],
+    summed over b, minus 8 sum_b xs[b] s[d, b]. -> (1, d) f32."""
+    d, nb = w.scales.shape
+    pk = w.packed.reshape(d, nb, 16).to(torch.int32)
+    a = pk if mode == "pk" else pk & 0xF
+    hi = pk >> 4
+    s = w.scales.to(torch.float32)
+    blk = (a.to(torch.float32) * x1.reshape(nb, 16)).sum(-1) + \
+        (hi.to(torch.float32) * x2.reshape(nb, 16)).sum(-1)      # (d, nb)
+    return ((blk * s).sum(-1) - 8.0 * (s * xs.reshape(nb)).sum(-1))[None, :]
+
+
+def q40_pk_gemv(mode: str, x1: torch.Tensor, x2: torch.Tensor, xs: torch.Tensor,
+                w: QuantizedTensor) -> torch.Tensor:
+    """y (1, d) f32 = sum over the bytes of x1 (A s) + x2 (hi s) - 8 sum_b
+    xs[b] s: x1, x2 (1, n/2) f32 in the weight's byte order (element b*16 +
+    j for byte j of block b), xs (1, n/32) f32, w block-major with float16
+    scales. base: A = lo, x2 = x_hi; pk: A = the byte, x2 = x_hi - 16 x_lo."""
+    if mode not in PK_MODES:
+        raise ValueError(f"q40_pk_gemv: mode {mode!r} is not one of {PK_MODES}")
+    if _device_of("q40_pk_gemv", x1, x2, xs, w.packed, w.scales) == "cpu":
+        return q40_pk_gemv_reference(mode, x1, x2, xs, w)
+    m = x1.shape[-1]
+    if tuple(x1.shape) != (1, m) or x2.shape != x1.shape or \
+            tuple(xs.shape) != (1, m // 16) or m % 16:
+        raise ValueError(f"q40_pk_gemv: x1 {tuple(x1.shape)}, x2 {tuple(x2.shape)}, "
+                         f"xs {tuple(xs.shape)} must be (1, n/2), (1, n/2), (1, n/32)")
+    if not (x1.dtype == x2.dtype == xs.dtype == torch.float32):
+        raise TypeError("q40_pk_gemv: x1, x2 and xs must be float32")
+    _checked_weight("q40_pk_gemv", w, 2 * m, (torch.float16,))
+    x1, x2, xs = _aligned(x1), _aligned(x2), xs.contiguous()
+    d = w.packed.shape[0]
+    out = torch.empty((1, d), dtype=torch.float32, device=x1.device)
+    rc = _fn("q40_pk_gemv_launch", (_I,) + (_P,) * 6 + (_I, _I, _P))(
+        PK_MODES.index(mode), x1.data_ptr(), x2.data_ptr(), xs.data_ptr(),
+        w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(), 2 * m, d, _stream(x1))
+    cuda_build.check(rc, "q40_pk_gemv")
+    q40_pk_gemv.launches += 1
+    return out
+
+
+q40_pk_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# P5: f16-bit scales decoded in the kernel (tools/exp_scale_f16.py)
+
+def f16_bits_to_f32(u: torch.Tensor) -> torch.Tensor:
+    """f16 bit patterns (uint16, or any integer tensor holding them) -> f32
+    with integer ops, as the JAX package's _f16_bits_to_f32 does: exact for
+    every finite pattern, normals and subnormals."""
+    if u.dtype == torch.uint16:
+        u = u.view(torch.int16)
+    u = u.to(torch.int32) & 0xFFFF
+    sign = (u & 0x8000) << 16
+    e = (u >> 10) & 0x1F
+    m = u & 0x3FF
+    normal = (sign | ((e + 112) << 23) | (m << 13)).view(torch.float32)
+    sub = torch.where(sign != 0, -1.0, 1.0) * (m.to(torch.float32) * 2.0 ** -24)
+    return torch.where(e == 0, sub, normal)
+
+
+def q40_matmul_scales_reference(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Plain version: per block, sum_j x nib in f32, times the block's
+    scale (u16 decoded by f16_bits_to_f32, or f32), summed over blocks,
+    minus 8 sum_b s xsum[b] (xsum the f32 sum of block b of x)."""
+    s = f16_bits_to_f32(w.scales) if w.scales.dtype == torch.uint16 \
+        else w.scales.to(torch.float32)
+    lo, hi = _nibbles(w)
+    xb = x.to(torch.float32).reshape(-1, 32)                      # (nb, 32)
+    blk = (lo.to(torch.float32) * xb[:, :16]).sum(-1) + \
+        (hi.to(torch.float32) * xb[:, 16:]).sum(-1)              # (d, nb)
+    return ((blk * s).sum(-1) - 8.0 * (s * xb.sum(-1)).sum(-1))[None, :]
+
+
+def q40_matmul_scales(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """y (1, d) f32 = x (1, n) f32 . W, W a block-major Q40 weight whose
+    (d, n/32) scales are uint16 f16 bits (decoded in the kernel by integer
+    ops) or float32."""
+    if _device_of("q40_matmul_scales", x, w.packed, w.scales) == "cpu":
+        return q40_matmul_scales_reference(x, w)
+    x = _checked_q40("q40_matmul_scales", x, w, torch.float32, 1,
+                     (torch.uint16, torch.float32))
+    d, n = w.packed.shape[0], x.shape[1]
+    out = torch.empty((1, d), dtype=torch.float32, device=x.device)
+    rc = _fn("q40_matmul_scales_launch", (_I,) + (_P,) * 4 + (_I, _I, _P))(
+        int(w.scales.dtype == torch.uint16), x.data_ptr(), w.packed.data_ptr(),
+        w.scales.data_ptr(), out.data_ptr(), n, d, _stream(x))
+    cuda_build.check(rc, "q40_matmul_scales")
+    q40_matmul_scales.launches += 1
+    return out
+
+
+q40_matmul_scales.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# P6: unpack/MMA overlap for a prefill chunk (tools/exp_unpack_overlap.py)
+
+SUB_TDS = (64, 128)         # weight rows per block: 4 warps x 16 or 32 rows
+SUB_NS = (1, 2, 4, 8)       # sub-tiles per 128-value chunk of n
+
+
+def q40_matmul_sub_reference(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Plain version: x (t, n) bf16 . bf16(nib * s) in f32, minus 8 sum_b
+    xsum[t, b] s[d, b] (xsum the f32 block sums of x), cast to bf16 once.
+    n_sub and td change how the kernel walks the product, not its value."""
+    lo, hi = _nibbles(w)
+    s = w.scales.to(torch.float32)
+    wd = (torch.cat([lo, hi], dim=-1).to(torch.float32) * s[..., None]).to(torch.bfloat16)
+    xf = x.to(torch.float32)
+    xsum = xf.reshape(xf.shape[0], -1, 32).sum(-1)               # (t, nb)
+    y = torch.matmul(xf, wd.reshape(w.packed.shape[0], -1).to(torch.float32).t()) \
+        - 8.0 * torch.matmul(xsum, s.t())
+    return y.to(torch.bfloat16)
+
+
+def q40_matmul_sub(x: torch.Tensor, w: QuantizedTensor, n_sub: int, td: int) -> torch.Tensor:
+    """y (t, d) bf16 = bf16 x (t, n) . bf16(nib * s) - 8 xsum . s, f32 sums,
+    on the tensor cores: blocks of td weight rows (SUB_TDS) x 64 tokens,
+    each 128-value chunk of n dequantized in n_sub sub-tiles (SUB_NS),
+    overlapped with the MMAs when n_sub > 1. w has float16 scales; d % td
+    == 0 and n % 256 == 0."""
+    if n_sub not in SUB_NS or td not in SUB_TDS:
+        raise ValueError(f"q40_matmul_sub: n_sub {n_sub} not in {SUB_NS} or td {td} "
+                         f"not in {SUB_TDS}")
+    if _device_of("q40_matmul_sub", x, w.packed, w.scales) == "cpu":
+        return q40_matmul_sub_reference(x, w)
+    x = _checked_q40("q40_matmul_sub", x, w, torch.bfloat16, 1 << 20, (torch.float16,))
+    (t, n), d = x.shape, w.packed.shape[0]
+    if n % 256 or d % td:
+        raise ValueError(f"q40_matmul_sub: n {n} must be a multiple of 256 and d {d} "
+                         f"of td {td}")
+    xsum = torch.empty((t, n // 32), dtype=torch.float32, device=x.device)
+    out = torch.empty((t, d), dtype=torch.bfloat16, device=x.device)
+    rc = _fn("q40_matmul_sub_launch", (_P,) * 5 + (_I,) * 5 + (_P,), "q40_prefill_probe")(
+        x.data_ptr(), w.packed.data_ptr(), w.scales.data_ptr(), xsum.data_ptr(),
+        out.data_ptr(), t, n, d, n_sub, td, _stream(x))
+    cuda_build.check(rc, "q40_matmul_sub")
+    q40_matmul_sub.launches += 1
+    return out
+
+
+q40_matmul_sub.launches = 0

@@ -1,6 +1,7 @@
 """Guards of the port: no JAX inside it, no device fallback."""
 
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -158,7 +159,9 @@ def test_import_guards_cover_the_probes():
              if p.is_relative_to(PORT)}
     assert {"ops/cuda_probes.py", "tools/__init__.py", "tools/timing.py",
             "tools/kernel_ladder.py", "tools/kernel_experiments.py",
-            "tools/exp_int8_dot.py"} <= files
+            "tools/exp_int8_dot.py", "tools/exp_f8_flash.py",
+            "tools/exp_pk_decode.py", "tools/exp_scale_f16.py",
+            "tools/exp_unpack_overlap.py"} <= files
 
 
 def test_probe_tool_module_raises_without_a_card():
@@ -174,10 +177,36 @@ def test_probe_tool_module_raises_without_a_card():
     assert "MB/pass" not in res.stdout
 
 
+@pytest.mark.parametrize("tool", ["exp_f8_flash", "exp_pk_decode", "exp_scale_f16",
+                                  "exp_unpack_overlap"])
+def test_probe_tool_modules_raise_without_a_card(tool):
+    """Each later probe tool runs on cuda unless told otherwise: with no
+    card its `python -m` entry raises instead of running on the CPU."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run(
+        [sys.executable, "-m", f"distributed_llama_tpu_torch.tools.{tool}"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert "MB/pass" not in res.stdout
+
+
+# lines a tool prints beside its pass lines on the CPU: the TPU tools'
+# result lines that need no timing (exactness, relative error), or say
+# that the timed ones were not measured
+RESULT_LINES = {"exp_f8_flash": 5, "exp_pk_decode": 2, "exp_scale_f16": 1,
+                "exp_unpack_overlap": 1}
+
+
 @pytest.mark.parametrize("tool,small", [
     ("kernel_ladder", dict(L=2, H=16, D=64)),
     ("kernel_experiments", dict(L=2, H=16, D=64)),
     ("exp_int8_dot", dict(L=2, D=16, K=64)),
+    ("exp_f8_flash", dict(KVH=2, S=512, FILL=300)),
+    ("exp_pk_decode", dict(SHAPES=(("w1", 64, 256, 256), ("attn", 32, 256, 1024)))),
+    ("exp_scale_f16", dict(L=2, D_OUT=32, D_IN=256)),
+    ("exp_unpack_overlap", dict(D=128, N=256, T=16)),
 ])
 def test_probe_tools_need_a_card_unless_asked_for_the_cpu(tool, small, monkeypatch,
                                                           capsys):
@@ -193,9 +222,11 @@ def test_probe_tools_need_a_card_unless_asked_for_the_cpu(tool, small, monkeypat
         mod.main([])
     rows = mod.main(["--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == len(rows) >= 2
-    assert all("MB/pass" in ln and "cpu" in ln and "TB/s" not in ln
-               for ln in lines)
+    pass_lines = [ln for ln in lines if "MB/pass" in ln]
+    assert len(pass_lines) == len(rows) >= 2
+    assert len(lines) == len(rows) + RESULT_LINES.get(tool, 0)
+    assert all("cpu" in ln for ln in pass_lines)
+    assert all("TB/s" not in ln and "TFLOP/s" not in ln for ln in lines)
     assert all(r["ms"] is None and r["bytes"] > 2 * 16 * 64 // 2 for r in rows)
 
 
@@ -220,12 +251,48 @@ def test_probe_wrappers_raise_off_cpu_instead_of_falling_back():
     assert [f.launches for f in fns] == before
 
 
+def test_later_probe_wrappers_raise_off_cpu_instead_of_falling_back():
+    """P2, P3, P5 and P6 on a non-CPU device: a raise, no plain version, no
+    launch counted; an unknown mode raises too."""
+    meta = functools.partial(torch.empty, device="meta")
+    w16 = QuantizedTensor(meta((8, 128), dtype=torch.uint8), meta((8, 8), dtype=torch.float16))
+    wu = QuantizedTensor(w16.packed, meta((8, 8), dtype=torch.uint16))
+    q = meta((2, 1, 128), dtype=torch.bfloat16)
+    k = meta((2, 64, 128), dtype=torch.uint8)
+    pos = meta((1,), dtype=torch.int32)
+    row = meta((1, 128))
+    fns = (cuda_probes.f8_flash_decode, cuda_probes.q40_pk_gemv,
+           cuda_probes.q40_matmul_scales, cuda_probes.q40_matmul_sub)
+    before = [f.launches for f in fns]
+    calls = [lambda: cuda_probes.f8_flash_decode("bits", pos, q, k, k),
+             lambda: cuda_probes.q40_pk_gemv("pk", row, row, meta((1, 8)), w16),
+             lambda: cuda_probes.q40_matmul_scales(meta((1, 256)), wu),
+             lambda: cuda_probes.q40_matmul_sub(meta((16, 256), dtype=torch.bfloat16),
+                                                w16, 2, 64)]
+    for call in calls:
+        with pytest.raises(ValueError, match="no kernel"):
+            call()
+    with pytest.raises(ValueError, match="mode"):
+        cuda_probes.f8_flash_decode("e5m2", pos, q, k, k)
+    with pytest.raises(ValueError, match="mode"):
+        cuda_probes.q40_pk_gemv("mask", row, row, meta((1, 8)), w16)
+    assert [f.launches for f in fns] == before
+
+
 def test_probe_source_exports_c_entries():
     # built on their own: the engine's first launch never compiles them
-    assert cuda_build.PROBES == ("q40_probes",)
-    assert "q40_probes" not in cuda_build.KERNELS
-    src = (cuda_build.CSRC / "q40_probes.cu").read_text()
-    for entry in ("q40_ladder_launch", "q40_matmul_a_launch",
-                  "q40_matmul_b_launch", "int8_gemv_launch"):
-        assert f'extern "C" int {entry}(' in src
-    assert "cudaGetLastError()" in src and "__dp4a" in src
+    assert cuda_build.PROBES == ("q40_probes", "f8_flash_probe", "q40_prefill_probe")
+    assert not set(cuda_build.PROBES) & set(cuda_build.KERNELS)
+    entries = {"q40_probes": ("q40_ladder_launch", "q40_matmul_a_launch",
+                              "q40_matmul_b_launch", "int8_gemv_launch",
+                              "q40_pk_gemv_launch", "q40_matmul_scales_launch"),
+               "f8_flash_probe": ("f8_flash_decode_launch",),
+               "q40_prefill_probe": ("q40_matmul_sub_launch",)}
+    for name, names in entries.items():
+        src = (cuda_build.CSRC / f"{name}.cu").read_text()
+        for entry in names:
+            assert f'extern "C" int {entry}(' in src
+        assert "cudaGetLastError()" in src
+    assert "__dp4a" in (cuda_build.CSRC / "q40_probes.cu").read_text()
+    assert "__nv_cvt_fp8x2_to_halfraw2" in (cuda_build.CSRC / "f8_flash_probe.cu").read_text()
+    assert "mma.sync" in (cuda_build.CSRC / "q40_prefill_probe.cu").read_text()
