@@ -13,7 +13,14 @@ cache in registers and the output keeps q's dtype (f32 or bf16).
 On a CUDA tensor it launches csrc/flash_attention.cu (design and bound in
 the source's header); on a CPU tensor it runs `flash_attention_reference`,
 the plain PyTorch version; any other device raises. `flash_attention.launches`
-counts kernel launches only.
+counts one per call that launches the kernel, whether its merge of the
+split-S partials is a second launch or not.
+
+The kernel splits the cache's slots across blocks (flash-decoding):
+`split_plan(b, kvh, s, t, g)` fixes the grid from the shapes alone (never
+from a position, so a launch can sit in a CUDA graph), and each block finds
+its slots on the device from pos0 by `split_len`. `split_partials` and
+`merge_partials` are that split-and-merge math in plain PyTorch.
 
 `f8_bits_to` and `saturate_f8_nan_codes` are the JAX package's e4m3 bit
 helpers (pallas_attention.py:_f8_bits_to, saturate_f8_nan_codes): the
@@ -30,12 +37,19 @@ import functools
 import torch
 
 from . import cuda_build
-from .attention import decode_attention, is_narrow_cache
+from .attention import NEG_INF, decode_attention, is_narrow_cache
 
 # cap on T*G query rows per kv head (pallas_attention.py:112): longer
 # prefill segments take the dense path in the engine
 MAX_Q_ROWS = 1024
 HEAD_SIZES = (16, 32, 64, 128)
+# the kernel's split-S plan: splits are whole 64-slot tiles, and a launch
+# fills one wave of two blocks on each of the H100's 132 SMs
+TILE = 64
+N_SM = 132
+# query rows a block: (decode, prefill) of the tensor-core path (bf16 q)
+# and of the exact f32 path
+BLOCK_ROWS = {False: (16, 64), True: (4, 16)}
 F8_DTYPE = torch.float8_e4m3fn
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, F8_DTYPE: 2}
 
@@ -84,17 +98,103 @@ def flash_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     return decode_attention(q, k_cache, v_cache, pos)
 
 
+def split_plan(b: int, kvh: int, s: int, t: int, g: int,
+               exact: bool = False) -> tuple[int, int]:
+    """(query rows a block, n_split) of a launch: a function of the shapes
+    only. `exact` is the f32-q path. Decode (T*G at most a decode block's
+    rows) takes the small row block, prefill the large one; n_split is the
+    most that keeps the blocks within 2 * N_SM (one wave at two blocks an
+    SM: a second, part-filled wave would double the time), at least 1, at
+    most S / TILE."""
+    rows = t * g
+    small, large = BLOCK_ROWS[exact]
+    block_rows = small if rows <= small else large
+    blocks = -(-rows // block_rows) * b * kvh
+    return block_rows, max(1, min(2 * N_SM // blocks, -(-s // TILE)))
+
+
+def split_len(fill, n_split: int):
+    """Slots per split for a row filled to `fill` = min(pos0 + T, S):
+    ceil(fill / n_split) rounded up to TILE (csrc/flash_attention.cu
+    split_len). Works on ints and on integer tensors alike."""
+    per = (fill + n_split - 1) // n_split
+    return (per + TILE - 1) // TILE * TILE
+
+
+def split_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, q_pos: torch.Tensor,
+                   n_split: int):
+    """The kernel's split pass in plain PyTorch, in f32: for each split c
+    the partial softmax state of every query row over the slots of c that
+    the row sees. p enters P.V rounded to the value dtype (bf16 under bf16
+    q), as in the kernel and the JAX kernel (pallas_attention.py:168); l
+    sums it unrounded. Returns (m, l, acc, used): m, l (n_split, B, T, KVH, G),
+    acc (n_split, B, T, KVH, G, hs), m = NEG_INF and l = 0 where a row sees
+    no slot of the split; used (n_split, B, T), the splits the merge reads
+    (c <= the row's last slot // split_len)."""
+    b, t, h, hs = q.shape
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
+    if not is_narrow_cache(k_cache.dtype):
+        q = q.to(k_cache.dtype)
+    kf = k_cache.to(q.dtype).to(torch.float32)
+    vf = v_cache.to(q.dtype).to(torch.float32)
+    qg = q.to(torch.float32).reshape(b, t, kvh, h // kvh, hs)
+    scores = torch.einsum("btkgh,bksh->btkgs", qg, kf) / (hs ** 0.5)
+    pos0 = q_pos[:, 0].to(torch.int64)
+    slots = torch.arange(s, device=q.device)
+    last = torch.clamp(pos0[:, None] + torch.arange(t, device=q.device),
+                       max=s - 1)                                     # (B, T)
+    length = split_len(torch.clamp(pos0 + t, max=s), n_split)         # (B,)
+    split_of = slots[None, :] // length[:, None]                      # (B, S)
+    seen = slots[None, None, :] <= last[:, :, None]                   # (B, T, S)
+    ms, ls, accs = [], [], []
+    for c in range(n_split):
+        inside = (seen & (split_of == c)[:, None, :])[:, :, None, None, :]
+        sc = torch.where(inside, scores, torch.full_like(scores, NEG_INF))
+        m = sc.amax(-1)
+        p = torch.where(inside, torch.exp(sc - m[..., None]), torch.zeros_like(sc))
+        ms.append(m)
+        ls.append(p.sum(-1))
+        pv = p.to(q.dtype).to(torch.float32)     # q.dtype: the value dtype as upcast
+        accs.append(torch.einsum("btkgs,bksh->btkgh", pv, vf))
+    used = (torch.arange(n_split, device=q.device)[:, None, None]
+            <= (last // length[:, None])[None])
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs), used
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                   used: torch.Tensor) -> torch.Tensor:
+    """The kernel's merge: each row's used splits weighed by exp(m_c -
+    max m), acc and l summed, acc / l. Returns (B, T, KVH, G, hs) f32."""
+    u = used[:, :, :, None, None]                                     # (C, B, T, 1, 1)
+    mx = torch.where(u, m, torch.full_like(m, NEG_INF)).amax(0)
+    w = torch.where(u, torch.exp(m - mx), torch.zeros_like(m))
+    return (w[..., None] * acc).sum(0) / (w * l).sum(0)[..., None]
+
+
+def flash_attention_split_reference(q: torch.Tensor, k_cache: torch.Tensor,
+                                    v_cache: torch.Tensor, q_pos: torch.Tensor,
+                                    n_split: int) -> torch.Tensor:
+    """The split-and-merge math end to end, in the output dtype of
+    `flash_attention_reference`."""
+    b, t, h, hs = q.shape
+    out = merge_partials(*split_partials(q, k_cache, v_cache, q_pos, n_split))
+    dtype = q.dtype if is_narrow_cache(k_cache.dtype) else k_cache.dtype
+    return out.reshape(b, t, h, hs).to(dtype)
+
+
 @functools.cache
 def _lib():
     """The C entry point, loaded and typed once at first launch."""
     lib = cuda_build.load("flash_attention")
     fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(q, k_cache, v_cache, q_pos) -> torch.Tensor:
+    """One call of the kernel: the split pass, and the merge if it splits."""
     b, t, h, hs = q.shape
     _, kvh, s, _ = k_cache.shape
     dt = k_cache.dtype
@@ -116,11 +216,21 @@ def _launch(q, k_cache, v_cache, q_pos) -> torch.Tensor:
     q = q.contiguous()
     pos0 = q_pos[:, 0].to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    rows = t * (h // kvh)
+    block_rows, n_split = split_plan(b, kvh, s, t, h // kvh, q.dtype == torch.float32)
+    part_ml = part_acc = None
+    if n_split > 1:     # the split pass's partial (m, l) and acc, f32 scratch
+        part_ml = torch.empty((b * kvh, n_split, rows, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((b * kvh, n_split, rows, hs), dtype=torch.float32,
+                               device=q.device)
     fn = _lib()
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            pos0.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[dt], b, t, h, kvh, s, hs,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            pos0.data_ptr(), out.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            None if part_acc is None else part_acc.data_ptr(),
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[dt], b, t, h, kvh, s, hs,
+            block_rows, n_split, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out
