@@ -11,11 +11,18 @@ result line):
     from csrc/ with nvcc for sm_90a, one process per source, in parallel.
  2. K1, the Q40 matmul, against its plain PyTorch version at the Llama-2-7B
     projection shapes (wqkv, wo, w13, w2, wcls) for t in {1, 16, 256} in
-    bf16 and t = 1 in f32: error against tolerance, kernel / plain / library
-    (dequantized weight through torch.matmul) times and the bound. Then
-    K1's two bf16 paths, GEMV and tensor-core, each checked and timed at
-    t from 4 to 128 on the per-layer shapes: where their times cross is
-    where cuda_q40.TC_MIN_T belongs.
+    bf16 and t = 1 in f32, and at Mixtral's dense-expert prefill shapes
+    (14336x4096, 4096x14336) for t in {44, 256}: error against tolerance,
+    kernel / plain / library (dequantized weight through torch.matmul)
+    times and the bound. The tensor-core path's plan of each shape (tokens
+    a CTA, split of n, CTAs), from the kernel's own plan export, must equal
+    cuda_q40.tc_plan. Then K1's two bf16 paths, GEMV and tensor-core
+    (wgmma), each checked and timed at t from 4 to 256 (44 a ragged chunk)
+    on the per-layer shapes, beside plain, library and bound: where their
+    times cross is where cuda_q40.TC_MIN_T belongs.
+ 2b. The Q80 round trip (csrc/q80_roundtrip.cu) against its plain version,
+    bit for bit, at the 7B and Mixtral matmul input shapes (t 1 and 256;
+    n 4096, 11008, 14336), bf16 and f32 in and out, timed beside it.
  3. K2, the expert-indexed Q40 matmul, against its plain version at the
     Mixtral 8x7B and Grok-1 expert shapes (gate/up and down; 8 experts, 2
     active), t in {1, 4}, bf16 and f32; library time is index_select of the
@@ -62,23 +69,30 @@ result line):
     `landed` and every (td, n_sub)); each kernel against its plain version
     (within TOL; P3 pk within 1e-4), then plain and library times.
  5. The main paths at full width, each an Engine on cuda from seeded
-    synthetic Q40 weights, greedy generate after a prompt. Launch counts
+    synthetic Q40 weights with the Q80 activation round trip on (as the
+    CLI builds it for a Q40 model; the plain side runs the round trip's
+    plain version too), greedy generate after a prompt. Launch counts
     are zeroed just before each generate and read just after; every
     prefill chunk and decode step must launch exactly its kernels' counts.
     Logits must be finite, and the prompt's logits and one decode step's
     logits after it must match the same engine run on the plain versions
     (MoE routing replayed from the kernel run, so a near-tie cannot pick
     other experts; the script prints how many decisions would differ):
-      * Llama-2-7B, 300-token prompt, 32 tokens: per step K1 129, K3 32;
+      * Llama-2-7B, 300-token prompt, 32 tokens: per step and chunk K1
+        129, K3 32, Q80 129;
       * Mixtral 8x7B, 32 layers, the same prompt and count: per step K1 65,
-        K2 96, K3 32, per 256-token chunk K1 833, K2 0, K3 32; its MoE
-        block must run under torch.cuda.set_sync_debug_mode("error"); then
-        the same with an fp8 (e4m3) KV cache;
+        K2 96, K3 32, Q80 193, per 256-token chunk K1 833, K2 0, K3 32, Q80
+        865; its MoE block must run under
+        torch.cuda.set_sync_debug_mode("error"); then the same with an fp8
+        (e4m3) KV cache;
       * Grok-1 widths cut to 2 layers, 40-token prompt, 8 tokens: per step
-        K1 5, K2 6, K3 2.
+        K1 5, K2 6, K3 2, Q80 13; per chunk K1 53, K3 2, Q80 55.
+    Each prints its decode step's cudaLaunchKernel count and idle share.
  6. The file path: tiny fixtures' .m/.t through the port's CLI on cuda
-    (Llama and Mixtral: f32 tokens equal to the CLI on the CPU; the
-    kernels launched; one --cache-dtype f8 run).
+    (Llama and Mixtral: one run at the CLI's defaults, bf16 with Q80
+    activations, whose kernels must launch; f32 tokens with
+    --buffer-float-type f32 equal to the CLI on the CPU; one --cache-dtype
+    f8 run).
 
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}. Library calls are timed as yardsticks only:
@@ -111,6 +125,9 @@ K1_SHAPES = {"wqkv": (12288, 4096), "wo": (4096, 4096),
              "w13": (22016, 4096), "w2": (4096, 11008),
              "wcls": (32000, 4096)}
 K1_PER_STEP = {"wqkv": 32, "wo": 32, "w13": 32, "w2": 32, "wcls": 1}
+# Mixtral 8x7B's dense-expert prefill shapes (every expert of a chunk runs
+# through K1): gate and up 14336x4096, down 4096x14336
+K1_MOE_SHAPES = {"moe_gate_up": (14336, 4096), "moe_down": (4096, 14336)}
 # expert (d, n) shapes: Mixtral 8x7B (mistralai/Mixtral-8x7B-v0.1
 # config.json; bench.py:121 MIXTRAL_MOE) and Grok-1 (bench.py:139
 # GROK1_TRUNC); gate and up share a shape
@@ -129,7 +146,7 @@ LOGITS_REL_L2_TOL = 1e-2
 # token counts at which K1's two bf16 paths (GEMV, tensor-core) are timed
 # side by side to place cuda_q40.TC_MIN_T; the GEMV path's cost steps every
 # 4 then 8 tokens, the tensor-core path's every 64
-K1_PATH_TS = (4, 8, 9, 12, 16, 24, 32, 48, 64, 128)
+K1_PATH_TS = (2, 4, 8, 9, 12, 16, 24, 32, 44, 48, 64, 128, 256)
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
@@ -174,12 +191,14 @@ def phase_k1(gen) -> dict:
     from distributed_llama_tpu_torch.quants.torch_codec import dequantize_q40_torch
 
     rows, paths = [], []
-    for name, (d, n) in K1_SHAPES.items():
+    for name, (d, n) in {**K1_SHAPES, **K1_MOE_SHAPES}.items():
         wbytes = d * n // 2 + d * n // 32 * 2
         ws = rotating(lambda: random_q40(gen, d, n), wbytes)
         w0 = ws()
-        for t, dt in ((1, torch.bfloat16), (16, torch.bfloat16),
-                      (256, torch.bfloat16), (1, torch.float32)):
+        runs = (((44, torch.bfloat16), (256, torch.bfloat16)) if name in K1_MOE_SHAPES else
+                ((1, torch.bfloat16), (16, torch.bfloat16), (256, torch.bfloat16),
+                 (1, torch.float32)))
+        for t, dt in runs:
             x = torch.randn((t, n), generator=gen, device="cuda").to(dt)
             got = cuda_q40.q40_matmul(x, w0, dt)
             want = cuda_q40.q40_matmul_reference(x, w0, dt)
@@ -196,17 +215,21 @@ def phase_k1(gen) -> dict:
             del wd
             nbytes = wbytes + t * n * x.element_size() + t * d * x.element_size()
             bms, by = bound_ms(nbytes, 2.0 * t * d * n, dt)
+            tc = cuda_q40.uses_tc_path(dt, dt, t, n)
             row = dict(shape=name, d=d, n=n, t=t, dtype=str(dt).split(".")[-1],
+                       path="tc" if tc else "gemv",
+                       plan=cuda_q40.tc_plan(t, n, d) if tc else None,
                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
                        library_ms=lib, bound_ms=bms, bound_by=by)
             rows.append(row)
             print("[K1] " + json.dumps(row))
             if not ok:
                 fail(f"K1 {name} t={t} {dt}: max err {err:.3g} > tol {tol:.3g}")
-        if name != "wcls":       # wcls runs at t = 1 only (the last position)
+        if name in K1_PER_STEP and name != "wcls":   # wcls runs at t = 1 only
             paths += k1_paths(gen, name, d, n, ws, w0)
         del ws, w0
         torch.cuda.empty_cache()
+    plans = tc_plans()
     # per layer: wqkv + wo + w13 + w2, each path's time summed at each t
     per_layer = {t: {p: sum(r[p + "_ms"] for r in paths if r["t"] == t)
                      for p in ("gemv", "tc")} for t in K1_PATH_TS}
@@ -216,7 +239,35 @@ def phase_k1(gen) -> dict:
         f"t={t}: {v['gemv']:.4f} / {v['tc']:.4f}" for t, v in per_layer.items()))
     print(f"[K1-path] first t where the tensor-core path is no slower: {cross}; "
           f"TC_MIN_T = {cuda_q40.TC_MIN_T}")
-    return {"rows": rows, "paths": paths, "tc_from": cross}
+    return {"rows": rows, "paths": paths, "tc_from": cross, "plans": plans}
+
+
+def tc_plans() -> dict:
+    """The tensor-core path's plan (tokens a CTA, split of n, CTAs) of every
+    K1 shape at t = 44 and 256, from csrc/q40_matmul.cu's own plan export;
+    it must equal ops/cuda_q40.py tc_plan, the rule the CPU tests pin."""
+    import ctypes
+
+    from distributed_llama_tpu_torch.ops import cuda_build, cuda_q40
+
+    fn = cuda_build.load("q40_matmul").q40_matmul_tc_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    out = {}
+    for name, (d, n) in {**K1_SHAPES, **K1_MOE_SHAPES}.items():
+        if name == "wcls":
+            continue
+        for t in K1_PATH_TS:
+            got = [ctypes.c_int() for _ in range(2)]
+            fn(t, n, d, *(ctypes.byref(v) for v in got))
+            got = tuple(v.value for v in got)
+            if got != cuda_q40.tc_plan(t, n, d):
+                fail(f"K1 plan {name} t={t}: C {got} != python {cuda_q40.tc_plan(t, n, d)}")
+            if t in (44, 256):
+                out[f"{name} t={t}"] = dict(bn=got[0], split=got[1],
+                                            ctas=cuda_q40.tc_ctas(t, n, d))
+    print("[K1-plan] tensor-core tiles (tokens a CTA / split of n / CTAs): " + ", ".join(
+        f"{k}: {v['bn']}/{v['split']}/{v['ctas']}" for k, v in out.items()))
+    return out
 
 
 def k1_paths(gen, name: str, d: int, n: int, ws, w0) -> list[dict]:
@@ -224,14 +275,23 @@ def k1_paths(gen, name: str, d: int, n: int, ws, w0) -> list[dict]:
     against the plain version and timed, at every t of K1_PATH_TS."""
     from distributed_llama_tpu_torch.ops import cuda_q40
 
+    from distributed_llama_tpu_torch.quants.torch_codec import dequantize_q40_torch
+
     dt = torch.bfloat16
     force = {"gemv": cuda_q40.MAX_T + 1, "tc": 1}   # tc_min_t per path
     rows = []
+    wd = rotating(lambda: dequantize_q40_torch(random_q40(gen, d, n), dt), d * n * 2)
     for t in K1_PATH_TS:
         x = torch.randn((t, n), generator=gen, device="cuda").to(dt)
         want = cuda_q40.q40_matmul_reference(x, w0, dt).float()
         tol = TOL[dt] * want.abs().max().item()
-        row = dict(shape=name, d=d, n=n, t=t)
+        bn, split = cuda_q40.tc_plan(t, n, d)
+        nbytes = d * n // 2 + d * n // 32 * 2 + 2 * t * n + 2 * t * d
+        bms, by = bound_ms(nbytes, 2.0 * t * d * n, dt)
+        row = dict(shape=name, d=d, n=n, t=t, tc_bn=bn, tc_split=split,
+                   tc_ctas=cuda_q40.tc_ctas(t, n, d), bound_ms=bms, bound_by=by,
+                   plain_ms=time_ms(lambda: cuda_q40.q40_matmul_reference(x, ws(), dt)),
+                   library_ms=time_ms(lambda: torch.matmul(x, wd().t())))
         for path, tc_min_t in force.items():
             got = cuda_q40._launch(x, w0, dt, tc_min_t=tc_min_t).float()
             err = (got - want).abs().max().item()
@@ -242,6 +302,7 @@ def k1_paths(gen, name: str, d: int, n: int, ws, w0) -> list[dict]:
             row[path + "_err"] = err
         rows.append(row)
         print("[K1-path] " + json.dumps(row))
+    del wd
     return rows
 
 
@@ -302,6 +363,50 @@ def phase_k2(gen) -> dict:
                          f"{tol:.3g}, shape {tuple(got.shape)}")
         del w
         torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+# Q80 round-trip inputs (tokens, width): 7B's and Mixtral's matmul inputs at
+# a decode step and a 256-token chunk (dim 4096; 7B hidden 11008, Mixtral
+# 14336, w2's and the expert down projection's)
+Q80_SHAPES = ((1, 4096), (1, 11008), (1, 14336), (256, 4096), (256, 11008), (256, 14336))
+
+
+def phase_q80(gen) -> dict:
+    """The Q80 round trip against its plain version, bit for bit, at the
+    7B and Mixtral matmul input shapes, f32 and bf16 in and out; timed
+    beside the plain version (no single PyTorch call computes it)."""
+    from distributed_llama_tpu_torch.ops import cuda_q80
+
+    rows = []
+    for t, n in Q80_SHAPES:
+        for dt, odt in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                        (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)):
+            if dt != odt and t != 256:
+                continue
+            # rows of very different sizes, a zero block and exact halves
+            x = torch.randn((t, n), generator=gen, device="cuda")
+            x = x * torch.rand((t, 1), generator=gen, device="cuda") * 30
+            x[0, :32] = 0.0
+            x[-1, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5], device="cuda")
+            x = x.to(dt)
+            got = cuda_q80.q80_roundtrip(x, odt)
+            want = cuda_q80.q80_roundtrip_reference(x, odt)
+            torch.cuda.synchronize()
+            bits = torch.int16 if odt == torch.bfloat16 else torch.int32
+            exact = torch.equal(got.view(bits), want.view(bits))
+            err = (got.float() - want.float()).abs().max().item()
+            ms = time_ms(lambda: cuda_q80.q80_roundtrip(x, odt))
+            plain = time_ms(lambda: cuda_q80.q80_roundtrip_reference(x, odt))
+            bms, by = bound_ms(x.numel() * (x.element_size() + got.element_size()), 0.0, odt)
+            row = dict(t=t, n=n, dtype=str(dt).split(".")[-1], out=str(odt).split(".")[-1],
+                       exact=exact, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                       bound_ms=bms, bound_by=by)
+            rows.append(row)
+            print("[Q80] " + json.dumps(row))
+            if not exact:
+                fail(f"q80_roundtrip t={t} n={n} {dt}->{odt}: not bit-equal to the plain "
+                     f"version (max err {err:.3g})")
     return {"rows": rows}
 
 
@@ -724,7 +829,7 @@ def phase_probes_p2_p6() -> dict:
     del layers, x, made
     torch.cuda.empty_cache()
 
-    # P6: landed (K1's tensor-core path) and every (td, n_sub), one call each
+    # P6: landed (K1's tensor-core path, wgmma) and every (td, n_sub), one call each
     uo = exp_unpack_overlap
     ps = uo.passes(cuda)
     tools["exp_unpack_overlap"] = res = counted_passes(
@@ -745,7 +850,7 @@ def phase_probes_p2_p6() -> dict:
     lib = time_ms(lambda: torch.matmul(xb, wd().t()))
     del wd
     at = dict(d=uo.D, n=uo.N, t=uo.T)
-    held("q40_matmul (landed)", "landed", cuda_q40.q40_matmul(xb, w, torch.bfloat16).float(),
+    held("q40_matmul (landed, wgmma)", "landed", cuda_q40.q40_matmul(xb, w, torch.bfloat16).float(),
          cuda_q40.q40_matmul_reference(xb, w, torch.bfloat16).float(), TOL[torch.bfloat16],
          False, time_ms(lambda: cuda_q40.q40_matmul_reference(xb, w, torch.bfloat16)), lib,
          tr["landed"], uo.flops(), torch.bfloat16, **at)
@@ -781,10 +886,10 @@ def _spec(name: str):
 
 
 def _counters() -> dict:
-    from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
+    from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40, cuda_q80
 
     return {"K1": cuda_q40.q40_matmul, "K2": cuda_q40.q40_expert_matmul,
-            "K3": cuda_attention.flash_attention}
+            "K3": cuda_attention.flash_attention, "Q80": cuda_q80.q80_roundtrip}
 
 
 def _probe_counters() -> dict:
@@ -861,9 +966,10 @@ def profile_decode(engine, token: int, steps: int = 4) -> dict:
 def plain_versions():
     """Route the forward through the kernels' plain versions (on the card)
     — the comparison runs of phase 5; launches there are not counted."""
-    from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40
+    from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40, cuda_q80
 
-    with mock.patch.object(cuda_q40, "q40_matmul", cuda_q40.q40_matmul_reference), \
+    with mock.patch.object(cuda_q80, "q80_roundtrip", cuda_q80.q80_roundtrip_reference), \
+            mock.patch.object(cuda_q40, "q40_matmul", cuda_q40.q40_matmul_reference), \
             mock.patch.object(cuda_q40, "q40_expert_matmul",
                               cuda_q40.q40_expert_matmul_reference), \
             mock.patch.object(cuda_attention, "flash_attention",
@@ -959,7 +1065,7 @@ def check_moe_block_sync_free(engine) -> None:
         torch.cuda.set_sync_debug_mode("error")
         try:
             out = transformer._moe_ffn(xb, engine.params["layers"][0], spec,
-                                       engine.compute_dtype)
+                                       engine.compute_dtype, engine.activation_q80)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -1032,9 +1138,13 @@ def drive_path(label: str, engine, prompt: list[int], n_decode: int,
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms) at {gbps / 1e9:.1f} GB/s "
           f"= {gbps / HBM_BYTES_PER_S:.3f} of 3.35 TB/s")
     busy = profile["device_ms_per_step"]
+    launches = dict(profile["runtime_calls"]).get("cudaLaunchKernel")
+    print(f"[main] {label}: cudaLaunchKernel per decode step {launches} (Llama-2-7B "
+          f"before the Q80 round trip: 1,719)")
     if busy is not None:
         print(f"[main] {label}: device busy {busy:.3f} ms of {decode_ms:.3f} ms per "
-              f"decode token: idle share {1 - busy / decode_ms:.3f}")
+              f"decode token: idle share {1 - busy / decode_ms:.3f} (Llama-2-7B before "
+              f"the Q80 round trip: 0.84)")
     cmp = compare_with_plain(engine, prompt)
     return dict(label=label, launches=counts, per_step=step, chunks=n_chunks,
                 prefill_launches=prefill_counts,
@@ -1043,6 +1153,7 @@ def drive_path(label: str, engine, prompt: list[int], n_decode: int,
                 decode_ms_per_token=decode_ms, decode_device_ms=avg.device_ms,
                 weight_bytes=weight_bytes, hbm_share=gbps / HBM_BYTES_PER_S,
                 idle_share=None if busy is None else 1 - busy / decode_ms,
+                launch_kernel_calls_per_step=launches,
                 logits_vs_plain=cmp)
 
 
@@ -1065,28 +1176,34 @@ def phase_main_paths() -> dict:
     prompt = [1] + rng.integers(3, 32000, 299).tolist()
     out = {}
 
+    # every engine as the CLI builds it for a Q40 model: the Q80 round trip
+    # on every matmul input, one launch a matmul call
+    q80 = dict(activation_q80=True)
     spec = _spec("llama2_7b")
-    engine = _engine(spec, seed=0)
+    engine = _engine(spec, seed=0, **q80)
     out["llama2_7b"] = drive_path(
         "Llama-2-7B", engine, prompt, 32,
-        per_chunk={"K1": 129, "K2": 0, "K3": 32},
-        per_step={"K1": 129, "K2": 0, "K3": 32},
+        per_chunk={"K1": 129, "K2": 0, "K3": 32, "Q80": 129},
+        per_step={"K1": 129, "K2": 0, "K3": 32, "Q80": 129},
         weight_bytes=decode_weight_bytes(spec, engine.params))
     out["llama2_7b"]["logits_vs_plain"].pop("logits")
     del engine
     torch.cuda.empty_cache()
 
     spec = _spec("mixtral_8x7b")
-    engine = _engine(spec, seed=1)
+    engine = _engine(spec, seed=1, **q80)
     wb = decode_weight_bytes(spec, engine.params)
-    moe_counts = dict(per_chunk={"K1": 833, "K2": 0, "K3": 32},
-                      per_step={"K1": 65, "K2": 96, "K3": 32}, weight_bytes=wb)
+    # Q80: a chunk's wqkv, wo, router and 8 x (gate, up, down) a layer, + wcls;
+    # a step's wqkv, wo, router, gate, up, down (K2: one call for both
+    # active experts) a layer, + wcls
+    moe_counts = dict(per_chunk={"K1": 833, "K2": 0, "K3": 32, "Q80": 865},
+                      per_step={"K1": 65, "K2": 96, "K3": 32, "Q80": 193}, weight_bytes=wb)
     check_moe_block_sync_free(engine)
     out["mixtral_8x7b"] = drive_path("Mixtral 8x7B", engine, prompt, 32, **moe_counts)
     params = engine.params
     del engine
     torch.cuda.empty_cache()
-    engine = _engine(spec, seed=1, params=params, cache_dtype=F8)
+    engine = _engine(spec, seed=1, params=params, cache_dtype=F8, **q80)
     out["mixtral_8x7b_f8"] = drive_path("Mixtral 8x7B, f8 cache", engine, prompt,
                                         32, **moe_counts)
     lb = out["mixtral_8x7b"]["logits_vs_plain"].pop("logits")
@@ -1101,12 +1218,12 @@ def phase_main_paths() -> dict:
     torch.cuda.empty_cache()
 
     spec = _spec("grok1_2l")
-    engine = _engine(spec, seed=2)
+    engine = _engine(spec, seed=2, **q80)
     gprompt = [1] + np.random.default_rng(8).integers(3, spec.vocab_size, 39).tolist()
     out["grok1_2l"] = drive_path(
         "Grok-1 (2 layers)", engine, gprompt, 8,
-        per_chunk={"K1": 53, "K2": 0, "K3": 2},
-        per_step={"K1": 5, "K2": 6, "K3": 2},
+        per_chunk={"K1": 53, "K2": 0, "K3": 2, "Q80": 55},
+        per_step={"K1": 5, "K2": 6, "K3": 2, "Q80": 13},
         weight_bytes=decode_weight_bytes(spec, engine.params))
     out["grok1_2l"]["logits_vs_plain"].pop("logits")
     del engine
@@ -1143,10 +1260,13 @@ def phase_file_path() -> None:
             out = run(["inference", *common, "--device", "cuda"])
             counts = read_counts()
             print(f"[file] {name}: " + " | ".join(out.strip().splitlines()[-5:]))
-            need = ("K1", "K2", "K3") if name == "mixtral" else ("K1", "K3")
+            # the CLI at its defaults: bf16, and --buffer-float-type q80 (the
+            # Q80 round trip on every matmul input)
+            need = ("K1", "K2", "K3", "Q80") if name == "mixtral" else ("K1", "K3", "Q80")
             if "Generated tokens:    16" not in out or not all(counts[k] for k in need):
-                fail(f"CLI inference on cuda, {name}: launches {counts}")
-            f32 = ["generate", *common, "--compute-dtype", "f32", "--cache-dtype", "f32"]
+                fail(f"CLI inference on cuda at its defaults, {name}: launches {counts}")
+            f32 = ["generate", *common, "--compute-dtype", "f32", "--cache-dtype", "f32",
+                   "--buffer-float-type", "f32"]
             gpu = run(f32 + ["--device", "cuda"]).splitlines()
             cpu = run(f32 + ["--device", "cpu"]).splitlines()
             print(f"[file] {name}: CLI f32 tokens cuda == cpu: {text(gpu) == text(cpu)}; "
@@ -1161,7 +1281,7 @@ def phase_file_path() -> None:
                     fail("CLI inference with --cache-dtype f8 did not complete")
 
 
-def summarize(k1: dict, k2: dict, k3: dict, probes: dict, probes2: dict,
+def summarize(k1: dict, q80: dict, k2: dict, k3: dict, probes: dict, probes2: dict,
               main: dict) -> dict:
     """One entry per kernel (K3's e4m3 mode its own): its time, plain and
     library times and bound for ONE decode step (t = 1, bf16), summed from
@@ -1182,6 +1302,17 @@ def summarize(k1: dict, k2: dict, k3: dict, probes: dict, probes2: dict,
     pre = {r["shape"]: r for r in k1["rows"] if r["t"] == 256 and r["dtype"] == "bfloat16"}
     agg1p = {key: 32 * sum(pre[sh][key] for sh in ("wqkv", "wo", "w13", "w2"))
              + dec["wcls"][key] for key in keys}
+
+    # Mixtral's dense experts at t = 256: one layer of a chunk, 8 x (gate,
+    # up, down)
+    moe = {r["shape"]: r for r in k1["rows"] if r["t"] == 256 and r["shape"] in K1_MOE_SHAPES}
+    agg_moe = {key: 8 * (2 * moe["moe_gate_up"][key] + moe["moe_down"][key]) for key in keys}
+    # the Q80 round trip of one 7B decode step: 32 x (wqkv, wo, w13 inputs
+    # at 4096, w2's at 11008) + wcls's, bf16
+    qr = {(r["t"], r["n"]): r for r in q80["rows"]
+          if r["dtype"] == "bfloat16" and r["out"] == "bfloat16"}
+    aggq = {key: 32 * (3 * qr[(1, 4096)][key] + qr[(1, 11008)][key]) + qr[(1, 4096)][key]
+            for key in ("ms", "plain_ms", "bound_ms")}
 
     def k3_row(cache, kvh, t, pos0):
         return next(r for r in k3["rows"] if r["cache"] == cache and r["dtype"] == "bfloat16"
@@ -1208,12 +1339,23 @@ def summarize(k1: dict, k2: dict, k3: dict, probes: dict, probes2: dict,
              at="one 7B decode step: 32x(wqkv,wo,w13,w2)+wcls, t=1, bf16"),
         dict(name="q40_matmul_prefill", route="cuda",
              source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
-             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t >= TC_MIN_T, mma.sync)",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t >= TC_MIN_T: wgmma with "
+                      "the weight dequantized into registers, TMA ring)",
              launches=prefill_launches("K1"),
              max_abs_err=max(r["max_abs_err"] for r in k1["rows"] if r["t"] == 256),
              **agg1p, bound_by="operations",
+             mixtral_layer=dict(**agg_moe, bound_by="operations",
+                                at="one Mixtral chunk layer: 8x(gate, up, down) at t=256"),
              at="one 7B prefill chunk: 32x(wqkv,wo,w13,w2) at t=256 + wcls at t=1, bf16; "
                 "launches: counted over the main paths' prompt prefills"),
+        dict(name="q80_roundtrip", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q80_roundtrip.cu",
+             replaces="distributed_llama_tpu/ops/matmul.py:93 (quantize_q80_jax / "
+                      "dequantize_q80_jax before every matmul; no pallas_call)",
+             launches=sum(main[p]["launches"]["Q80"] for p in main),
+             max_abs_err=max(r["max_abs_err"] for r in q80["rows"]),
+             **aggq, bound_by="bytes", library_ms=None,
+             at="one 7B decode step: 32x(wqkv, wo, w13, w2 inputs) + wcls's, t=1, bf16"),
         dict(name="q40_expert_matmul", route="cuda",
              source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
              replaces="distributed_llama_tpu/ops/pallas_q40.py:319",
@@ -1323,7 +1465,7 @@ def probe_entries_p2_p6(probes2: dict) -> list[dict]:
                   "exp_scale_f16", f"{kind} scales", "P5", "q40_matmul_scales",
                   f"one pass of tools.exp_scale_f16: 32 x 22016x4096, {kind} scales, t=1, f32")
             for kind in ("u16", "f32")]
-    landed = {k: row("q40_matmul (landed)", "landed")[k] for k in keys}
+    landed = {k: row("q40_matmul (landed, wgmma)", "landed")[k] for k in keys}
     out += [entry(f"q40_matmul_sub_n{ns}", "q40_prefill_probe.cu",
                   "tools/exp_unpack_overlap.py:86", "exp_unpack_overlap",
                   f"td=128 n_sub={ns}", "P6", "q40_matmul_sub",
@@ -1347,6 +1489,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     k1 = phase_k1(gen)
+    q80 = phase_q80(gen)
     k2 = phase_k2(gen)
     k3 = phase_k3(gen)
     probes = phase_probes()
@@ -1356,10 +1499,11 @@ def main() -> int:
     print(f"[probe] P2, P3, P5, P6 in {probes2['seconds']:.1f} s")
     main_paths = phase_main_paths()
     phase_file_path()
-    kernels = summarize(k1, k2, k3, probes, probes2, main_paths)
+    kernels = summarize(k1, q80, k2, k3, probes, probes2, main_paths)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, k1=k1["rows"], k1_paths=k1["paths"],
+        k1_plans=k1["plans"], q80=q80["rows"],
         k2=k2["rows"], k3=k3["rows"], k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))

@@ -12,9 +12,12 @@ src/apps/dllama/dllama.cpp):
 
 Runs Llama, Mixtral and Grok-1 `.m` files on `--device cuda` (the
 default) or `--device cpu`; `--cache-dtype f8` keeps the KV cache in fp8
-(e4m3). Flags of features the port does not have yet — the chat/api/worker
-modes, mesh axes, --buffer-float-type q80, clusters — are accepted by the
-parser only to be refused with a message, never silently ignored.
+(e4m3). `--buffer-float-type` defaults to q80, as in the JAX CLI: for a
+Q40 model every matmul input goes through the Q80 round trip (the
+reference's quantized activation buffers); `f32` turns it off. Flags of
+features the port does not have yet — the chat/api/worker modes, mesh
+axes, clusters — are accepted by the parser only to be refused with a
+message, never silently ignored.
 """
 
 from __future__ import annotations
@@ -52,8 +55,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["bf16", "f32", "f8"])
     p.add_argument("--max-seq-len", type=int, default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    p.add_argument("--buffer-float-type", default="f32", choices=["f32", "q80"],
-                   help="activation dtype between layers; only f32 is ported")
+    p.add_argument("--buffer-float-type", default="q80", choices=["f32", "q80"],
+                   help="activation buffers: q80 (the default) round-trips "
+                        "every matmul input of a Q40 model through Q80")
     for axis in ("tp", "dp", "sp", "ep", "pp"):
         p.add_argument(f"--{axis}", type=int, default=1,
                        help="mesh axis; only 1 is ported")
@@ -74,9 +78,6 @@ def refusals(args) -> list[str]:
                        "ported yet (one device only)")
     if args.nnodes != 1:
         out.append("--nnodes: multi-host clusters are not ported yet")
-    if args.buffer_float_type == "q80":
-        out.append("--buffer-float-type q80: the Q80 activation round trip "
-                   "is not ported yet")
     return out
 
 
@@ -84,6 +85,7 @@ def build_engine(args):
     """model file -> (engine, tokenizer, sampler)."""
     from ..io.model_file import read_spec
     from ..models.loader import load_params_streamed
+    from ..quants.types import FloatType
     from ..runtime.engine import Engine, resolve_device
     from ..sampler import Sampler
     from ..tokenizer import Tokenizer
@@ -103,7 +105,10 @@ def build_engine(args):
           f"{lstats.peak_host_bytes / 1e6:.0f} MB)")
     engine = Engine(spec, params, device=device,
                     max_seq_len=args.max_seq_len, compute_dtype=cdt,
-                    cache_dtype=CACHE_DTYPES[args.cache_dtype])
+                    cache_dtype=CACHE_DTYPES[args.cache_dtype],
+                    # JAX apps/dllama.py:651: Q80 activations for Q40 weights
+                    activation_q80=(args.buffer_float_type == "q80"
+                                    and spec.weights_float_type == FloatType.Q40))
     tokenizer = Tokenizer.from_file(args.tokenizer)
     seed = args.seed if args.seed is not None else int(time.time())
     sampler = Sampler(tokenizer.vocab_size, args.temperature, args.topp, seed)

@@ -33,15 +33,16 @@
 //    run close together and find it in the 50 MB L2.
 //  * At t = 1 each lane holds U = 4 blocks' loads in flight per chunk.
 //
-// Tensor-core path (bf16 in and out, t >= tc_min_t), for prefill chunks:
-// see q40_matmul_tc_kernel below — dequantize in shared memory, mma.sync.
-// The caller passes tc_min_t, the token count from which this path beats
-// the GEMV path on the card (ops/cuda_q40.py TC_MIN_T, measured by
-// chip_smoke.py).
+// Tensor-core path (bf16 in and out, t >= tc_min_t, n % 256 == 0, 16-byte
+// aligned operands), for prefill chunks: see q40_matmul_wgmma_kernel below
+// — warp-specialised wgmma with the weight dequantized into registers, fed
+// by a TMA ring. The caller passes tc_min_t, the token count from which
+// this path beats the GEMV path on the card (ops/cuda_q40.py TC_MIN_T,
+// measured by chip_smoke.py); a shape that misses the other preconditions
+// takes the GEMV path by the same rule as ops/cuda_q40.py uses_tc_path.
 //
 // The TPU kernel's x_lo/x_hi pre-split, lane-tile scale repeat, -8 fold and
 // sub-tiling exist for Mosaic's tiling and VPU; none of them carries over.
-// Not yet here: wgmma, TMA and a pipelined producer warp.
 //
 // K2, the expert-indexed product (q40_expert_matmul_launch below):
 // y_k[t, d] = sum_n x_k[t, n] * W[idx[k], d, n] for the K active experts of
@@ -65,6 +66,7 @@
 // it fast (split-K for the 4096-row down projection, wider loads in flight)
 // is later work.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -210,134 +212,510 @@ q40_matmul_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path for multi-token chunks: bf16 x, bf16 out and t at least
-// the caller's tc_min_t. A block computes a 128-row x 64-token tile of the
-// output; per Q40 block (k = 32) its 128 threads each dequantize one weight
-// row into shared memory as bf16 ((nibble - 8) * scale, rounded once, as the
-// TPU kernel rounds its dequantized tiles), stage the 64 tokens' 32 x values,
-// and 4 warps issue mma.sync m16n8k16 (bf16 in, f32 accumulate), each warp
-// owning 32 rows x 64 tokens. Rows are padded to 40 bf16 so the fragment
-// loads and the 16-byte stores hit distinct banks. Loads for the next Q40
-// block are issued before the barrier that ends the current one.
+// Tensor-core path for multi-token chunks (bf16 x and out, t >= tc_min_t,
+// n % 256 == 0, x / packed / scales 16-byte aligned): wgmma with the weight
+// dequantized into registers, fed by a TMA ring.
+//
+// A CTA computes a 128-row x BN-token output tile (BN 64, 128 or 256) over
+// its share of the n axis. 384 threads, three warpgroups:
+//  * warpgroup 2, the producer: one thread keeps a ring of up to 8 stages
+//    in flight with TMA (full/empty mbarrier pairs). A stage is 64 values
+//    of the n axis: the x tile, BN tokens x 128 bytes with the 128-byte
+//    swizzle (wgmma's B operand reads it through a descriptor), and the
+//    packed weight tile, 128 rows x 2 Q40 blocks x 16 bytes. Rows of x past
+//    t and rows of the weight past d arrive as zeros (TMA's out-of-bounds
+//    fill). setmaxnreg moves its registers to the consumers.
+//  * warpgroups 0 and 1, the consumers: each owns 64 weight rows (wgmma's
+//    M) and issues one wgmma.mma_async m64nBNk16 (f32 += bf16 x bf16) a
+//    k16 step, A from registers (the RS form), B = x from shared memory;
+//    one instruction as wide as the tile, not BN/64 of width 64, so A
+//    crosses from the registers once a step. A Q40 block
+//    is two k16 steps: step one is its 16 bytes' low nibbles, step two
+//    their high nibbles (byte j holds elements j and j + 16). A thread's A
+//    fragment for rows g and g + 8 of its warp's 16 holds k = 2q, 2q+1,
+//    2q+8, 2q+9: bytes 2q, 2q+1, 2q+8, 2q+9 of each row's block, two
+//    32-bit shared loads a row. Each nibble becomes (nib - 8) * s in f32
+//    without a convert: a mask into 0x4B000000 and one exact FMA (dq2),
+//    then rounded once to bf16 (cvt.rn), as the plain version and the TPU
+//    kernel round their dequantized tiles. Block b + 1
+//    is dequantized while block b's wgmmas run (two register sets,
+//    wgmma.wait_group 1). The f16 scales come straight from device memory,
+//    8 blocks (16 bytes) a row at a time, one group of 256 values ahead
+//    (a TMA box needs 16 bytes a row; the stage's 4 do not make one).
+//  * split K (deterministic, no atomics): for weights with few row tiles a
+//    2-CTA cluster splits the n axis; rank 1 pushes its f32 partial sums
+//    into rank 0's shared memory (distributed shared memory), rank 0 adds
+//    them in a fixed order and writes the tile. One launch a projection
+//    either way.
+//  * epilogue: the accumulators are rows x tokens and out is (t, d), so
+//    each consumer transposes its tile through shared memory and writes
+//    16-byte pieces of each token's rows.
+//
+// The plan (BN, split) comes from the shapes alone, the same integer
+// rule as ops/cuda_q40.py tc_plan: the least modelled time, waves of 132
+// CTAs times a CTA's fixed cost plus its groups' cost, the model fitted to
+// timings of every plan on the H100 (PERF.md).
+//
+// What bounds it: the tensor cores (2*t*d*n flop; a 7B 256-token chunk
+// 3.37 ms at 989 TFLOP/s). Every CTA reads its whole x tile from L2, 128
+// flop per L2 byte, ~7.7 TB/s at the bf16 peak. Tried and slower at every
+// 7B shape (PERF.md): 256-row tiles (two M tiles a consumer), and a pair of
+// row tiles sharing each x tile through a TMA multicast in a 2-CTA cluster.
 
-constexpr int kTcRows = 128;
-constexpr int kTcTokens = 64;
-constexpr int kTcLd = 40;  // bf16 per padded shared-memory row
+constexpr int kTcK = 64;             // n values a stage: 2 Q40 blocks, one 128-byte swizzle row
+constexpr int kTcGroup = 256;        // the n axis is planned in groups of 256 values
+constexpr int kTcThreads = 384;
+constexpr int kTcSms = 132;
+constexpr int kTcSmemMax = 227 * 1024;  // dynamic shared memory a block can have
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+template <int BN>
+struct TcCfg {
+  static constexpr int BM = 128;                   // weight rows a CTA: 64 a consumer warpgroup
+  static constexpr int XBYTES = BN * kTcK * 2;     // x tile, 128-byte swizzled rows
+  static constexpr int WBYTES = BM * kTcK / 2;     // packed weight tile
+  static constexpr int STAGE = XBYTES + WBYTES;
+  static constexpr int STAGES = (kTcSmemMax - 2048) / STAGE < 8 ? (kTcSmemMax - 2048) / STAGE : 8;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int SMEM = RING + 2 * STAGES * 8 + 1024;  // + barriers, + alignment slack
+  static_assert(BN / 2 * 256 * 4 <= RING, "split partials fit the ring");
+  static_assert(2 * BN * 72 * 2 <= RING, "the epilogue's transpose fits the ring");
+};
+
+// The plan's cost model, in units of 10 ns of one wave's time, fitted to
+// the timing of every plan at the 7B shapes on the H100 (PERF.md):
+// a fixed cost a wave, and a cost a 256-value group that grows with the
+// tile.
+constexpr long long kTcWaveFixed = 1360;
+__host__ __device__ inline long long tc_group_cost(int bn) { return 86 + bn * 3 / 4; }
+
+// the plan: tokens a CTA and the split of the n axis, from the shapes
+// alone (ops/cuda_q40.py tc_plan is the same rule)
+__host__ __device__ inline void tc_plan(int t, int n, int d, int* bn_out, int* split_out) {
+  const int groups = n / kTcGroup, row_tiles = (d + 127) / 128;
+  long long best = -1;
+  int best_bn = 256, best_split = 1;
+  for (int split = 1; split <= 2; ++split) {
+    if (split > groups) break;
+    for (int bn = 64; bn <= 256; bn *= 2) {
+      const long long ctas = (long long)((t + bn - 1) / bn) * row_tiles * split;
+      const long long waves = (ctas + kTcSms - 1) / kTcSms;
+      const long long cost = waves * (kTcWaveFixed + (long long)((groups + split - 1) / split) * tc_group_cost(bn));
+      if (best < 0 || cost < best) {
+        best = cost;
+        best_bn = bn;
+        best_split = split;
+      }
+    }
+  }
+  *bn_out = best_bn;
+  *split_out = best_split;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" :: "r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// B descriptor of a K-major bf16 tile written by TMA with the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// d[64 x 64] += A[64 x 16] (registers) * B[16 x 64] (shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] (registers) * B[16 x 128] (shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d[64 x 256] += A[64 x 16] (registers) * B[16 x 256] (shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Nibble -> bf16 without a convert. A byte rotated to bits 8-15 has its
+// low nibble n at bit 8 (mask 0xF00) and its high nibble at bit 12
+// (0xF000); OR'd into 0x4B000000 that is the f32 2^23 + n * 2^p exactly.
+// One FMA with sp = s * 2^-p and cp = -(2^(23-p) + 8) * s, both exact in
+// f32, gives (n - 8) * s exactly (15 significant bits at most), which one
+// cvt.rn rounds to bf16: the plain version's (nib - 8) * s in f32, rounded
+// once. dq2 makes the bf16 pair (element of byte lo, element of byte hi).
+__device__ __forceinline__ uint32_t dq2(uint32_t lo, uint32_t hi, uint32_t mask, float sp, float cp) {
+  const float f0 = __fmaf_rn(__int_as_float(0x4B000000u | (lo & mask)), sp, cp);
+  const float f1 = __fmaf_rn(__int_as_float(0x4B000000u | (hi & mask)), sp, cp);
+  const __nv_bfloat162 v = __floats2bfloat162_rn(f0, f1);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+template <int BN>
+__global__ void __launch_bounds__(kTcThreads, 1)
+q40_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                        const __grid_constant__ CUtensorMap w_map,
+                        const __half* __restrict__ scales, __nv_bfloat16* __restrict__ out,
+                        int t, int n, int d, int split) {
+  using C = TcCfg<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment for the 128-byte swizzle's pattern
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t xs0 = sbase;                               // STAGES x tiles
+  const uint32_t ws0 = sbase + C::STAGES * C::XBYTES;       // STAGES weight tiles
+  const uint32_t full0 = sbase + C::RING, empty0 = full0 + C::STAGES * 8;
+  const uint8_t* ws_gen = smem + C::STAGES * C::XBYTES;
 
-__global__ void __launch_bounds__(128)
-q40_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-                     const __half* __restrict__ scales, __nv_bfloat16* __restrict__ out,
-                     int t, int n, int d) {
-  __shared__ __align__(16) __nv_bfloat16 ws[kTcRows][kTcLd];
-  __shared__ __align__(16) __nv_bfloat16 xs[kTcTokens][kTcLd];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, q = lane & 3;  // mma fragment coordinates
-  const int row0 = blockIdx.y * kTcRows, tok0 = blockIdx.x * kTcTokens;
-  const int nb = n / 32;
-  const int my_row = row0 + threadIdx.x;  // the weight row this thread dequantizes
+  const int tok0 = blockIdx.x * BN, row0 = blockIdx.y * C::BM, rank = blockIdx.z;
+  const int groups = n / kTcGroup, per = (groups + split - 1) / split;
+  const int g0 = rank * per, g1 = min(groups, g0 + per);
+  const int n_stages = (g1 > g0 ? g1 - g0 : 0) * (kTcGroup / kTcK);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  uint4 pk;
-  float sc;
-  uint4 xv[2];  // 64 tokens x 64 bytes = 256 16-byte pieces, 2 per thread
-  auto fetch = [&](int b) {
-    pk = make_uint4(0x88888888u, 0x88888888u, 0x88888888u, 0x88888888u);
-    sc = 0.f;
-    if (my_row < d) {
-      pk = __ldg(reinterpret_cast<const uint4*>(packed) + (size_t)my_row * nb + b);
-      sc = __half2float(scales[(size_t)my_row * nb + b]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);   // one arrival per consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      for (int it = 0; it < n_stages; ++it) {
+        const int s = it % C::STAGES;
+        mbar_wait(empty0 + 8 * s, ((it / C::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, C::XBYTES + C::WBYTES);
+        const int k = g0 * kTcGroup + it * kTcK;  // first n value of the stage
+        tma_load_2d(xs0 + s * C::XBYTES, &x_map, full0 + 8 * s, k, tok0);
+        tma_load_2d(ws0 + s * C::WBYTES, &w_map, full0 + 8 * s, k / 2, row0);
+      }
+    }
+    if (split > 1) {
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows row0 + 64 wg .. + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const int rl = 64 * wg + 16 * warp + g;  // this thread's first row in the tile (second: + 8)
+  // rotations that bring byte 2q (ra) and byte 2q + 1 (rb) of a 32-bit
+  // word to bits 8-15
+  const uint32_t ra = (q & 1) ? 24u : 8u, rb = (q & 1) ? 16u : 0u;
+  const int nb = n / 32;
+
+  float acc[BN / 2];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = threadIdx.x + j * 128, tok = tok0 + (c >> 2);
-      xv[j] = tok < t ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)tok * n + b * 32) + (c & 3))
-                      : make_uint4(0u, 0u, 0u, 0u);
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  // f16 scales of a group's 8 blocks for rows rl and rl + 8, one group ahead
+  auto load_scales = [&](int grp, uint4 (&sc)[2]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + rl + 8 * r;
+      sc[r] = (grp < g1 && row < d)
+                  ? __ldg(reinterpret_cast<const uint4*>(scales + (size_t)row * nb + (size_t)grp * 8))
+                  : make_uint4(0u, 0u, 0u, 0u);
     }
   };
+  uint4 sc_next[2];
+  load_scales(g0, sc_next);
 
-  fetch(0);
-  for (int b = 0; b < nb; ++b) {
-    __syncthreads();  // the previous block's fragments are read
-    {
-      const uint32_t words[4] = {pk.x, pk.y, pk.z, pk.w};
-      uint32_t lo[8], hi[8];  // bf16 pairs: elements (2i, 2i+1) and (16+2i, 17+2i)
+  uint32_t a[2][2][4];  // [register set][k16 step][fragment]
+  int it = 0;           // stage counter
+  for (int grp = g0; grp < g1; ++grp) {
+    uint4 sc[2] = {sc_next[0], sc_next[1]};
+    load_scales(grp + 1, sc_next);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const uint32_t w = words[i >> 1] >> (16 * (i & 1));
-        const int b0 = w & 0xFF, b1 = (w >> 8) & 0xFF;
-        lo[i] = pack_bf16((float)((b0 & 0xF) - 8) * sc, (float)((b1 & 0xF) - 8) * sc);
-        hi[i] = pack_bf16((float)((b0 >> 4) - 8) * sc, (float)((b1 >> 4) - 8) * sc);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(&ws[threadIdx.x][0]);
-      dst[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      dst[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-      dst[2] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      dst[3] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    for (int st = 0; st < kTcGroup / kTcK; ++st, ++it) {
+      const int s = it % C::STAGES;
+      mbar_wait(full0 + 8 * s, (it / C::STAGES) & 1);
+      const uint8_t* wrow = ws_gen + s * C::WBYTES + rl * (kTcK / 2);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = threadIdx.x + j * 128;
-        *reinterpret_cast<uint4*>(&xs[c >> 2][(c & 3) * 8]) = xv[j];
-      }
-    }
-    __syncthreads();
-    if (b + 1 < nb) fetch(b + 1);
-
+      for (int bi = 0; bi < 2; ++bi) {
+        const int blk = 2 * st + bi;  // block within the group: compile-time
+        // rows rl and rl + 8: bytes 2q, 2q+1 ([r][0]) and 2q+8, 2q+9 ([r][1])
+        // of the block, each at bits 8-15 of its own word (lo, hi); the
+        // scale's two FMA operands for each nibble position
+        uint32_t lo[2][2], hi[2][2];
+        float sp[2][2], cp[2][2];
 #pragma unroll
-    for (int kk = 0; kk < 32; kk += 16) {
-      uint32_t a[2][4], bf[8][2];
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t* p = reinterpret_cast<const uint32_t*>(wrow + r * 8 * (kTcK / 2) + bi * 16);
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = warp * 32 + mi * 16 + g;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(&ws[r][kk + q * 2]);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(&ws[r + 8][kk + q * 2]);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(&ws[r][kk + q * 2 + 8]);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(&ws[r + 8][kk + q * 2 + 8]);
-      }
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t word = p[2 * h + (q >> 1)];
+            lo[r][h] = __funnelshift_l(word, word, ra);
+            hi[r][h] = __funnelshift_l(word, word, rb);
+          }
+          const uint32_t sw = (&sc[r].x)[blk / 2];
+          const float s = __half2float(__ushort_as_half((unsigned short)(sw >> (16 * (blk & 1)))));
+          sp[r][0] = s * 0.00390625f;   // 2^-8: the low nibbles, at bit 8
+          cp[r][0] = s * -32776.f;      // -(2^15 + 8)
+          sp[r][1] = s * 0.000244140625f;  // 2^-12: the high nibbles, at bit 12
+          cp[r][1] = s * -2056.f;       // -(2^11 + 8)
+        }
+        // the wgmmas that last read this register set (block b - 2) are
+        // done, and so is the stage before this one: release it
+        wgmma_wait<1>();
+        if (bi == 1 && it >= 1 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % C::STAGES));
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        bf[ni][0] = *reinterpret_cast<const uint32_t*>(&xs[ni * 8 + g][kk + q * 2]);
-        bf[ni][1] = *reinterpret_cast<const uint32_t*>(&xs[ni * 8 + g][kk + q * 2 + 8]);
-      }
+        for (int kk = 0; kk < 2; ++kk) {  // low nibbles, then high nibbles
+          const uint32_t mask = kk ? 0xF000u : 0xF00u;
+          a[bi][kk][0] = dq2(lo[0][0], hi[0][0], mask, sp[0][kk], cp[0][kk]);
+          a[bi][kk][1] = dq2(lo[1][0], hi[1][0], mask, sp[1][kk], cp[1][kk]);
+          a[bi][kk][2] = dq2(lo[0][1], hi[0][1], mask, sp[0][kk], cp[0][kk]);
+          a[bi][kk][3] = dq2(lo[1][1], hi[1][1], mask, sp[1][kk], cp[1][kk]);
+        }
+        wgmma_fence();
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) mma_bf16(acc[mi][ni], a[mi], bf[ni]);
-    }
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int r = row0 + warp * 32 + mi * 16 + g;
-      const int tk = tok0 + ni * 8 + q * 2;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = r + (e >> 1) * 8, tt = tk + (e & 1);
-        if (rr < d && tt < t) out[(size_t)tt * d + rr] = __float2bfloat16(acc[mi][ni][e]);
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_rs(acc, a[bi][kk], b_desc(xs0 + s * C::XBYTES + (bi * 32 + kk * 16) * 2));
+        wgmma_commit();
       }
     }
   }
+  wgmma_wait<0>();
+
+  named_sync(1, 256);  // both consumers are done with the ring
+  if (split > 1) {
+    // rank 1 pushes its partial sums into rank 0's shared memory (remote
+    // 16-byte stores, nothing waits on them); rank 0 adds them, always in
+    // this order. [i / 4][thread][i % 4]: a thread's 4 floats together,
+    // neighbouring threads 16 bytes apart.
+    float4* part = reinterpret_cast<float4*>(smem);
+    const int ctid = threadIdx.x;  // 0..255
+    cluster_sync();                // rank 0's ring is free
+    if (rank == 1) {
+      uint32_t remote;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, 0;\n" : "=r"(remote) : "r"(smem_u32(part)));
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+        asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
+                     :: "r"(remote + 16u * (i * 256 + ctid)), "f"(acc[4 * i]), "f"(acc[4 * i + 1]),
+                        "f"(acc[4 * i + 2]), "f"(acc[4 * i + 3])
+                     : "memory");
+    }
+    cluster_sync();                // the pushes have landed
+    if (rank != 0) return;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const float4 v = part[i * 256 + ctid];
+      acc[4 * i] += v.x;
+      acc[4 * i + 1] += v.y;
+      acc[4 * i + 2] += v.z;
+      acc[4 * i + 3] += v.w;
+    }
+    named_sync(1, 256);            // every partial is read before the transpose reuses it
+  }
+
+  // epilogue: this warpgroup's 64 rows x BN tokens, transposed through
+  // shared memory to [token][64 rows] (72-element rows: no bank conflicts)
+  constexpr int LD = 72;
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(smem) + wg * BN * LD;
+  const int r0 = 16 * warp + g;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int tk = 8 * j + 2 * q;
+    o[tk * LD + r0] = __float2bfloat16_rn(acc[4 * j + 0]);
+    o[(tk + 1) * LD + r0] = __float2bfloat16_rn(acc[4 * j + 1]);
+    o[tk * LD + r0 + 8] = __float2bfloat16_rn(acc[4 * j + 2]);
+    o[(tk + 1) * LD + r0 + 8] = __float2bfloat16_rn(acc[4 * j + 3]);
+  }
+  named_sync(2 + wg, 128);
+  const int piece = tid % 8, rbase = row0 + 64 * wg + piece * 8;
+  for (int tk = tid / 8; tk < BN; tk += 16) {
+    const int tok = tok0 + tk;
+    if (tok >= t) break;
+    const __nv_bfloat16* src = o + tk * LD + piece * 8;
+    __nv_bfloat16* dst = out + (size_t)tok * d + rbase;
+    if (rbase + 8 <= d && (d & 7) == 0) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && rbase + e < d; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, libcuda's entry point, fetched once through the
+// runtime (no -lcuda at link time)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2-D map over a row-major (rows, cols) tensor, box (box_rows, box_cols)
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, int rows,
+              int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+cudaError_t launch_wgmma_tile(const __nv_bfloat16* x, const uint8_t* packed, const __half* scales,
+                              __nv_bfloat16* out, int t, int n, int d, int split, cudaStream_t stream) {
+  using C = TcCfg<BN>;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(q40_matmul_wgmma_kernel<BN>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  CUtensorMap xm, wm;
+  if (!make_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, t, n, BN, kTcK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&wm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed, d, n / 2, C::BM, kTcK / 2,
+                CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((t + BN - 1) / BN), (unsigned)((d + C::BM - 1) / C::BM), (unsigned)split);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 1;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = (unsigned)split;
+  cfg.attrs = at;
+  cfg.numAttrs = split > 1 ? 1 : 0;   // a split runs as one 2-CTA cluster
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, q40_matmul_wgmma_kernel<BN>, xm, wm, scales, out, t, n, d, split);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// the tensor-core path's preconditions; anything else takes the GEMV path
+bool tc_eligible(const void* x, const void* packed, const void* scales, int t, int n, int tc_min_t) {
+  return t >= tc_min_t && n % kTcGroup == 0 && ((uintptr_t)x | (uintptr_t)packed | (uintptr_t)scales) % 16 == 0;
+}
+
+cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* packed, const __half* scales,
+                         __nv_bfloat16* out, int t, int n, int d, cudaStream_t stream, int bn = 0,
+                         int split = 0) {
+  if (bn == 0) tc_plan(t, n, d, &bn, &split);
+  if (split < 1 || split > 2 || split > n / kTcGroup) return cudaErrorInvalidValue;
+  if (bn == 64) return launch_wgmma_tile<64>(x, packed, scales, out, t, n, d, split, stream);
+  if (bn == 128) return launch_wgmma_tile<128>(x, packed, scales, out, t, n, d, split, stream);
+  if (bn == 256) return launch_wgmma_tile<256>(x, packed, scales, out, t, n, d, split, stream);
+  return cudaErrorInvalidValue;
 }
 
 // The GEMV path: k experts along gridDim.z (k = 1 and idx = nullptr for K1).
@@ -369,11 +747,7 @@ cudaError_t launch(const void* x, const void* packed, const void* scales, void* 
   const __half* sp = static_cast<const __half*>(scales);
   TO* op = static_cast<TO*>(out);
   if constexpr (std::is_same<TI, __nv_bfloat16>::value && std::is_same<TO, __nv_bfloat16>::value) {
-    if (t >= tc_min_t) {
-      const dim3 grid((unsigned)((t + kTcTokens - 1) / kTcTokens), (unsigned)((d + kTcRows - 1) / kTcRows));
-      q40_matmul_tc_kernel<<<grid, 128, 0, stream>>>(xp, pp, sp, op, t, n, d);
-      return cudaGetLastError();
-    }
+    if (tc_eligible(x, packed, scales, t, n, tc_min_t)) return launch_wgmma(xp, pp, sp, op, t, n, d, stream);
   }
   return launch_gemv<TI, TO>(xp, pp, sp, op, t, n, d, nullptr, 1, 0, 1, stream);
 }
@@ -391,8 +765,9 @@ cudaError_t launch_experts(const void* x, long long x_kstride, const int* idx, i
 
 // x: (t, n) f32 (x_dtype 0) or bf16 (1); packed: (d, n/2) u8 block-major;
 // scales: (d, n/32) f16; out: (t, d) f32 (out_dtype 0) or bf16 (1).
-// bf16 in and out with t >= tc_min_t takes the tensor-core path.
-// Returns the launch's cudaError_t.
+// bf16 in and out with t >= tc_min_t, n % 256 == 0 and 16-byte aligned x,
+// packed and scales takes the tensor-core path. Returns the launch's
+// cudaError_t.
 extern "C" int q40_matmul_launch(const void* x, int x_dtype, const void* packed,
                                  const void* scales, void* out, int out_dtype,
                                  int t, int n, int d, int tc_min_t, void* stream) {
@@ -425,4 +800,22 @@ extern "C" int q40_expert_matmul_launch(const void* x, int x_dtype, long long x_
   if (x_dtype == 1 && out_dtype == 1)
     return launch_experts<__nv_bfloat16, __nv_bfloat16>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core path's plan for (t, n, d): tokens a CTA (64, 128 or
+// 256) and the split of the n axis (1 or 2). Returns 0.
+extern "C" int q40_matmul_tc_plan(int t, int n, int d, int* bn, int* split) {
+  tc_plan(t, n, d, bn, split);
+  return 0;
+}
+
+// The tensor-core path at a given plan, for timing the plans against each
+// other; bf16 x and out, the same preconditions as the planned path.
+// Returns the launch's cudaError_t.
+extern "C" int q40_matmul_tc_launch(const void* x, const void* packed, const void* scales, void* out,
+                                    int t, int n, int d, int bn, int split, void* stream) {
+  if (!tc_eligible(x, packed, scales, t, n, 1) || bn == 0) return (int)cudaErrorInvalidValue;
+  return launch_wgmma(static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+                      static_cast<const __half*>(scales), static_cast<__nv_bfloat16*>(out), t, n, d,
+                      static_cast<cudaStream_t>(stream), bn, split);
 }

@@ -15,7 +15,9 @@ The per-layer dataflow reproduces the reference's blocks:
 then the final norm and wcls. Every Q40 projection is a kernel launch on
 the card: K1 (ops/cuda_q40.py) for the dense weights and for every expert
 of a prefill chunk, K2 for the active experts of a decode step; every
-attention a flash-kernel launch (ops/cuda_attention.py).
+attention a flash-kernel launch (ops/cuda_attention.py). With
+activation_q80, every matmul input first goes through the Q80 round trip
+(ops/cuda_q80.py), one launch per matmul call.
 
 Unlike the JAX package's functional update of a donated cache, the port
 writes K/V into the cache tensors IN PLACE at the segment's positions.
@@ -87,22 +89,24 @@ def _write_cache(k_cache, v_cache, k, v, pos0: Sequence[int]) -> None:
 
 
 def _attention_block(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos,
-                     angles, pos0: Sequence[int], compute_dtype):
+                     angles, pos0: Sequence[int], compute_dtype,
+                     activation_q80: bool = False):
     """Norm -> QKV -> RoPE -> cache write -> attention -> output proj.
     Returns the wo projection, not yet added to the residual."""
+    mm = dict(compute_dtype=compute_dtype, activation_q80=activation_q80)
     b, t, _ = x.shape
     h, kvh, hs = spec.n_heads, spec.n_kv_heads, spec.head_size
 
     xb = rmsnorm(x, lw["rms_att"])  # ref: llama2-tasks.cpp:10-21
     if "wqkv" in lw:
-        qkv = matmul(xb, lw["wqkv"], compute_dtype=compute_dtype)
+        qkv = matmul(xb, lw["wqkv"], **mm)
         q = qkv[..., : h * hs].reshape(b, t, h, hs)
         k = qkv[..., h * hs: (h + kvh) * hs].reshape(b, t, kvh, hs)
         v = qkv[..., (h + kvh) * hs:].reshape(b, t, kvh, hs)
     else:
-        q = matmul(xb, lw["wq"], compute_dtype=compute_dtype).reshape(b, t, h, hs)
-        k = matmul(xb, lw["wk"], compute_dtype=compute_dtype).reshape(b, t, kvh, hs)
-        v = matmul(xb, lw["wv"], compute_dtype=compute_dtype).reshape(b, t, kvh, hs)
+        q = matmul(xb, lw["wq"], **mm).reshape(b, t, h, hs)
+        k = matmul(xb, lw["wk"], **mm).reshape(b, t, kvh, hs)
+        v = matmul(xb, lw["wv"], **mm).reshape(b, t, kvh, hs)
 
     q = apply_rope(q, angles, spec.arch)
     k = apply_rope(k, angles, spec.arch)
@@ -112,21 +116,22 @@ def _attention_block(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos,
         att = cuda_attention.flash_attention(q, k_cache, v_cache, q_pos)
     else:
         att = decode_attention(q, k_cache, v_cache, q_pos)  # (B, T, H, hs)
-    return matmul(att.reshape(b, t, h * hs), lw["wo"],
-                  compute_dtype=compute_dtype)
+    return matmul(att.reshape(b, t, h * hs), lw["wo"], **mm)
 
 
-def _dense_ffn(xb, lw, spec: ModelSpec, compute_dtype):
+def _dense_ffn(xb, lw, spec: ModelSpec, compute_dtype,
+               activation_q80: bool = False):
     """SwiGLU FFN (ref: src/llama2-tasks.cpp:158-189)."""
+    mm = dict(compute_dtype=compute_dtype, activation_q80=activation_q80)
     if "w13" in lw:
-        h13 = matmul(xb, lw["w13"], compute_dtype=compute_dtype)
+        h13 = matmul(xb, lw["w13"], **mm)
         hd = h13.shape[-1] // 2
         gate, up = h13[..., :hd], h13[..., hd:]
     else:
-        gate = matmul(xb, lw["w1"], compute_dtype=compute_dtype)
-        up = matmul(xb, lw["w3"], compute_dtype=compute_dtype)
+        gate = matmul(xb, lw["w1"], **mm)
+        up = matmul(xb, lw["w3"], **mm)
     hb = apply_hidden_act(gate, spec.hidden_act) * up
-    return matmul(hb, lw["w2"], compute_dtype=compute_dtype)
+    return matmul(hb, lw["w2"], **mm)
 
 
 def moe_route(router_logits: torch.Tensor,
@@ -142,7 +147,8 @@ def moe_route(router_logits: torch.Tensor,
     return top_p / top_p.sum(dim=-1, keepdim=True), top_idx
 
 
-def _moe_ffn(xb, lw, spec: ModelSpec, compute_dtype):
+def _moe_ffn(xb, lw, spec: ModelSpec, compute_dtype,
+             activation_q80: bool = False):
     """Top-k routed expert FFN (ref: src/grok1-tasks.cpp:56-227; JAX
     transformer.py:_moe_ffn, single device). Decode (T = B = 1) computes
     just the K active experts, through K2 with the indices on the device;
@@ -151,19 +157,18 @@ def _moe_ffn(xb, lw, spec: ModelSpec, compute_dtype):
     b, t, d = xb.shape
     k_active = spec.n_active_experts
     act = lambda g: apply_hidden_act(g, spec.hidden_act)  # noqa: E731
+    mm = dict(compute_dtype=compute_dtype, activation_q80=activation_q80)
 
-    router_logits = matmul(xb, lw["moe_router"], compute_dtype=compute_dtype)
+    router_logits = matmul(xb, lw["moe_router"], **mm)
     weights, top_idx = moe_route(router_logits, k_active)    # (B, T, K)
 
     if t == 1 and b == 1:
         idx = top_idx.reshape(k_active).to(torch.int32)   # K2's index type
         x1 = xb.reshape(1, d)
-        gate = fused_expert_matmul(x1, lw["moe_gate"], idx,
-                                   compute_dtype=compute_dtype)  # (K, 1, hd)
-        up = fused_expert_matmul(x1, lw["moe_up"], idx,
-                                 compute_dtype=compute_dtype)
+        gate = fused_expert_matmul(x1, lw["moe_gate"], idx, **mm)  # (K, 1, hd)
+        up = fused_expert_matmul(x1, lw["moe_up"], idx, **mm)
         out = fused_expert_matmul(act(gate) * up, lw["moe_down"], idx,
-                                  compute_dtype=compute_dtype)   # (K, 1, d)
+                                  **mm)   # (K, 1, d)
         # JAX :343-365: experts added in routing order, each weight cast to
         # the output dtype before the multiply (JAX starts the sum from
         # zeros, which adds nothing)
@@ -178,34 +183,31 @@ def _moe_ffn(xb, lw, spec: ModelSpec, compute_dtype):
                             device=xb.device).scatter(-1, top_idx, weights)
     acc = torch.zeros((b, t, d), dtype=xb.dtype, device=xb.device)
     for e in range(spec.n_experts):
-        gate = matmul(xb, take_expert(lw["moe_gate"], e),
-                      compute_dtype=compute_dtype)
-        up = matmul(xb, take_expert(lw["moe_up"], e),
-                    compute_dtype=compute_dtype)
-        out = matmul(act(gate) * up, take_expert(lw["moe_down"], e),
-                     compute_dtype=compute_dtype)
+        gate = matmul(xb, take_expert(lw["moe_gate"], e), **mm)
+        up = matmul(xb, take_expert(lw["moe_up"], e), **mm)
+        out = matmul(act(gate) * up, take_expert(lw["moe_down"], e), **mm)
         acc = acc + e_weights[..., e, None].to(out.dtype) * out
     return acc
 
 
 def _layer(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos, angles,
-           pos0: Sequence[int], compute_dtype):
+           pos0: Sequence[int], compute_dtype, activation_q80: bool = False):
     """One block (JAX transformer.py:_layer): attention, then the dense or
     MoE FFN with the arch's norms and residuals."""
     attn = _attention_block(x, lw, spec, k_cache, v_cache, q_pos, angles,
-                            pos0, compute_dtype)
+                            pos0, compute_dtype, activation_q80)
     if spec.arch == ArchType.GROK1:
         # post-attention norm BEFORE the residual add (ref: grok1-tasks.cpp:16-41)
         x = x + rmsnorm(attn, lw["rms_ffn"]).to(x.dtype)
         xb = rmsnorm(x, lw["rms_moe"])              # ref: grok1-tasks.cpp:43-54
-        moe = rmsnorm(_moe_ffn(xb, lw, spec, compute_dtype),
+        moe = rmsnorm(_moe_ffn(xb, lw, spec, compute_dtype, activation_q80),
                       lw["rms_ffn2"])               # ref: grok1-tasks.cpp:244-256
         return x + moe.to(x.dtype)
     x = x + attn.to(x.dtype)                        # ref: llama2-tasks.cpp:125-131
     xb = rmsnorm(x, lw["rms_ffn"])
     if spec.arch == ArchType.MIXTRAL:
-        return x + _moe_ffn(xb, lw, spec, compute_dtype).to(x.dtype)
-    return x + _dense_ffn(xb, lw, spec, compute_dtype).to(x.dtype)
+        return x + _moe_ffn(xb, lw, spec, compute_dtype, activation_q80).to(x.dtype)
+    return x + _dense_ffn(xb, lw, spec, compute_dtype, activation_q80).to(x.dtype)
 
 
 def forward(
@@ -218,8 +220,11 @@ def forward(
     compute_dtype=torch.float32,
     logits_for_all: bool = False,
     logit_index: int | Sequence[int] | None = None,
+    activation_q80: bool = False,
 ) -> torch.Tensor:
     """Run T tokens through the model, writing their K/V into `cache`.
+    activation_q80 sends every matmul input (router and wcls included)
+    through the Q80 round trip, as the JAX forward's cfg does.
 
     Returns f32 logits (B, vocab) for the last token (or position
     `logit_index`, shared or per row, for a right-padded segment), or
@@ -238,7 +243,7 @@ def forward(
         x = x * GROK_INPUT_SCALE
     for l in range(spec.n_layers):
         x = _layer(x, params["layers"][l], spec, cache.k[l], cache.v[l],
-                   q_pos, angles, pos0, compute_dtype)
+                   q_pos, angles, pos0, compute_dtype, activation_q80)
 
     x = rmsnorm(x, params["rms_final"])         # ref: llama2-tasks.cpp:222-234
     if not logits_for_all:
@@ -247,7 +252,8 @@ def forward(
         else:
             idx = torch.as_tensor(logit_index, device=dev).reshape(-1).expand(b)
             x = x[torch.arange(b, device=dev), idx.long()]
-    logits = matmul(x, params["wcls"], compute_dtype=compute_dtype).to(torch.float32)
+    logits = matmul(x, params["wcls"], compute_dtype=compute_dtype,
+                    activation_q80=activation_q80).to(torch.float32)
     if spec.arch == ArchType.GROK1:
         logits = logits * GROK_LOGIT_SCALE          # ref: grok1-tasks.cpp:269-272
     return logits

@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-KERNELS = ("q40_matmul", "flash_attention")   # the engine's kernels
+KERNELS = ("q40_matmul", "flash_attention",   # the engine's kernels
+           "q80_roundtrip")
 PROBES = ("q40_probes", "f8_flash_probe",     # the design probes (tools/)
           "q40_prefill_probe")
 

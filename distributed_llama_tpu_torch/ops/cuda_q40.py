@@ -36,9 +36,18 @@ MAX_T = 256
 # bf16 launches with at least this many tokens take the kernel's tensor-core
 # path, fewer its GEMV path: where the two paths' times, summed over one
 # Llama-2-7B layer's projections, cross on an H100 (chip_smoke.py times
-# both). The GEMV path pays one weight pass per 8 tokens, so from t = 9 on
-# it makes two and loses to the tensor-core path.
-TC_MIN_T = 9
+# both; PERF.md). The wgmma path costs the same from t = 2 to 64 (one
+# 64-token tile), the GEMV path a weight pass per 1-8 tokens: at t = 2 the
+# layer's sum already favours the tensor cores (wqkv and w13 gain more
+# than wo and w2 lose).
+TC_MIN_T = 2
+# the tensor-core path's geometry (csrc/q40_matmul.cu): 128 weight rows a
+# CTA, 64, 128 or 256 tokens, the n axis in groups of 256 values, one wave
+# = 132 CTAs (one a streaming multiprocessor); the plan's cost model, in
+# 10 ns of one wave's time: a fixed cost a wave and a cost a group growing
+# with the tile (fitted to the timing of every plan on the H100, PERF.md)
+TC_ROWS, TC_TOKENS, TC_GROUP, TC_SMS = 128, (64, 128, 256), 256, 132
+TC_WAVE_FIXED = 1360
 # K2 has only the GEMV path: the MoE decode step calls it at t = 1 (the JAX
 # package's fused expert path runs at t = b = 1 alone)
 EXPERT_MAX_T = 8
@@ -48,6 +57,48 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def supports_kernel(w: QuantizedTensor, t: int) -> bool:
     """Kernel preconditions: a 2D (d, n/2) weight and at most MAX_T tokens."""
     return w.packed.dim() == 2 and t <= MAX_T
+
+
+def _tc_group_cost(bn: int) -> int:
+    return 86 + bn * 3 // 4
+
+
+def tc_plan(t: int, n: int, d: int) -> tuple[int, int]:
+    """The tensor-core path's plan, from the shapes alone: (BN, split),
+    the tokens a CTA and the 2-CTA cluster split of the n axis (1 or 2).
+    The least modelled time: waves of TC_SMS CTAs, each a fixed cost plus
+    its groups' cost; ties to fewer splits, then to the narrower tile.
+    csrc/q40_matmul.cu tc_plan is the same rule."""
+    groups, row_tiles = n // TC_GROUP, -(-d // TC_ROWS)
+    best = None
+    for split in (1, 2):
+        if split > groups:
+            break
+        for bn in TC_TOKENS:
+            ctas = -(-t // bn) * row_tiles * split
+            cost = -(-ctas // TC_SMS) * (
+                TC_WAVE_FIXED + -(-groups // split) * _tc_group_cost(bn))
+            if best is None or cost < best[0]:
+                best = (cost, bn, split)
+    return best[1:]
+
+
+def tc_ctas(t: int, n: int, d: int) -> int:
+    """CTAs of one tensor-core launch under tc_plan."""
+    bn, split = tc_plan(t, n, d)
+    return -(-t // bn) * -(-d // TC_ROWS) * split
+
+
+def uses_tc_path(x_dtype, out_dtype, t: int, n: int, aligned: bool = True,
+                 tc_min_t: int = TC_MIN_T) -> bool:
+    """The rule that sends a launch to the tensor-core path, as the C entry
+    point applies it: bf16 in and out, t >= tc_min_t, n a multiple of
+    TC_GROUP (the scale loads and the TMA maps' 16-byte strides), x,
+    packed and scales 16-byte aligned (the wrapper aligns x; every model
+    width and expert slab keeps the weight aligned). Anything else takes
+    the GEMV path."""
+    return (x_dtype == out_dtype == torch.bfloat16 and t >= tc_min_t
+            and n % TC_GROUP == 0 and aligned)
 
 
 def q40_matmul_reference(x: torch.Tensor, w: QuantizedTensor,

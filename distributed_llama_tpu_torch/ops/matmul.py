@@ -14,8 +14,10 @@ logical shape (d, n) (d output rows), activations are (..., n), output is
 `fused_expert_matmul` is the MoE decode step's product against the active
 experts of a stacked (E, d, n) weight: kernel K2 for Q40 stacks.
 
-The Q80 activation round trip and the tensor-parallel weight wrappers are
-not ported yet.
+Both take `activation_q80`: the input goes through the Q80 round trip
+(ops/cuda_q80.py, one kernel launch) before the product, as the JAX
+package's matmul and fused_expert_matmul do (ops/matmul.py:93-95,
+:165-167). The tensor-parallel weight wrappers are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,17 +27,25 @@ from typing import Union
 import torch
 
 from ..quants.torch_codec import QuantizedTensor, dequantize_q40_torch
-from . import cuda_q40
+from . import cuda_q40, cuda_q80
 
 WeightFormat = Union[torch.Tensor, QuantizedTensor]
 
 
+def _input(x: torch.Tensor, compute_dtype, activation_q80: bool):
+    """x in compute_dtype, through the Q80 round trip if asked."""
+    if activation_q80:
+        return cuda_q80.q80_roundtrip(x, compute_dtype)
+    return x.to(compute_dtype)
+
+
 def matmul(x: torch.Tensor, w: WeightFormat, *,
-           compute_dtype=torch.float32) -> torch.Tensor:
+           compute_dtype=torch.float32,
+           activation_q80: bool = False) -> torch.Tensor:
     """y[..., d] = sum_n x[..., n] * W[d, n] in compute_dtype: the Q40
     kernel when it applies, the dequantize-then-matmul path otherwise (the
     JAX package's local_matmul; the port has no mesh wrappers around it)."""
-    x = x.to(compute_dtype)
+    x = _input(x, compute_dtype, activation_q80)
     if isinstance(w, QuantizedTensor):
         t = x.numel() // x.shape[-1]
         if cuda_q40.supports_kernel(w, t):
@@ -47,7 +57,8 @@ def matmul(x: torch.Tensor, w: WeightFormat, *,
 
 
 def fused_expert_matmul(x: torch.Tensor, w: WeightFormat, idx: torch.Tensor,
-                        *, compute_dtype=torch.float32) -> torch.Tensor:
+                        *, compute_dtype=torch.float32,
+                        activation_q80: bool = False) -> torch.Tensor:
     """y[k, t, d] = sum_n x[(k,) t, n] * W[idx[k], d, n] in compute_dtype —
     the JAX package's fused_expert_matmul, for all K active experts at once.
     x is (t, n), shared by the experts, or (K, t, n); W a stacked (E, d, n)
@@ -55,7 +66,7 @@ def fused_expert_matmul(x: torch.Tensor, w: WeightFormat, idx: torch.Tensor,
     plain version on the CPU); on the card it launches K2 or raises, and
     never gathers the experts' bytes instead. A dense stack (the
     dense-weight mode, which has no kernel) is gathered and multiplied."""
-    x = x.to(compute_dtype)
+    x = _input(x, compute_dtype, activation_q80)
     if isinstance(w, QuantizedTensor):
         return cuda_q40.q40_expert_matmul(x, w, idx, out_dtype=compute_dtype)
     wd = w.index_select(0, idx.to(torch.long)).to(compute_dtype)  # (K, d, n)

@@ -9,7 +9,8 @@ from .numpy_codec import (
     q80_bytes_to_arrays,
     q80_arrays_to_bytes,
 )
-from .torch_codec import QuantizedTensor, dequantize_q40_torch
+from .torch_codec import (QuantizedTensor, dequantize_q40_torch,
+                          dequantize_q80_torch, quantize_q80_torch)
 
 __all__ = [
     "FloatType",
@@ -26,4 +27,6 @@ __all__ = [
     "q80_arrays_to_bytes",
     "QuantizedTensor",
     "dequantize_q40_torch",
+    "quantize_q80_torch",
+    "dequantize_q80_torch",
 ]

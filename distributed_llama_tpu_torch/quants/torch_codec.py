@@ -84,3 +84,31 @@ def dequantize_q40_torch(t: QuantizedTensor,
     vals = torch.cat([lo, hi], dim=-1).to(torch.float32)   # (..., nb, 32)
     out = vals * t.scales.to(torch.float32)[..., None]
     return out.reshape(*out.shape[:-2], nb * BLOCK_SIZE).to(dtype)
+
+
+# f32(1/127): the Q80 scale is absmax times this constant
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_q80_torch(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32/bf16 (..., n) -> (int8 (..., n/32, 32), f16 scales (..., n/32)):
+    the JAX package's quantize_q80_jax (ref: src/quants.cpp:182-263). Per
+    32-value block: scale = absmax * f32(1/127) (XLA compiles the JAX
+    division by the constant 127 into that product, and bit-equality needs
+    the same rounding), q = round-half-even(g * (1/scale)) from the f32
+    scale (q = 0 where the scale is 0), the scale stored as f16. Plain
+    version of csrc/q80_roundtrip.cu's first half."""
+    g = x.to(torch.float32).reshape(*x.shape[:-1], -1, BLOCK_SIZE)
+    scale = g.abs().amax(dim=-1) * INV_127
+    pos = scale > 0
+    inv = torch.where(pos, 1.0 / torch.where(pos, scale, 1.0), 0.0)
+    q = torch.round(g * inv[..., None]).to(torch.int8)
+    return q, scale.to(torch.float16)
+
+
+def dequantize_q80_torch(q: torch.Tensor, scales: torch.Tensor,
+                         dtype=torch.float32) -> torch.Tensor:
+    """(int8 (..., nb, 32), f16 (..., nb)) -> (..., nb*32) in `dtype`:
+    q.to(dtype) * s.to(dtype), one rounding (JAX dequantize_q80_jax)."""
+    out = q.to(dtype) * scales.to(dtype)[..., None]
+    return out.reshape(*out.shape[:-2], -1)

@@ -51,6 +51,7 @@ class Engine:
         compute_dtype=torch.bfloat16,
         cache_dtype=torch.bfloat16,
         prefill_chunk: int = 256,
+        activation_q80: bool = False,
     ):
         self.device = resolve_device(device)
         if cache_dtype not in CACHE_DTYPES:
@@ -68,6 +69,10 @@ class Engine:
         self.compute_dtype = compute_dtype
         self.cache_dtype = cache_dtype
         self.prefill_chunk = prefill_chunk
+        # the reference's Q80 activation buffers: every matmul input through
+        # the Q80 round trip (JAX runtime/engine.py:125; the CLI's default
+        # for Q40 models)
+        self.activation_q80 = activation_q80
         # single-device fast path: fused QKV / w1|w3 launches (in place)
         self.params = fuse_layer_weights(params)
         # one sequence: batched serving comes with the serving slice
@@ -92,7 +97,8 @@ class Engine:
             raise ValueError("context overflow")
         tok = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
         logits = forward(self.params, self.spec, tok, pos0, self.cache,
-                         compute_dtype=self.compute_dtype)
+                         compute_dtype=self.compute_dtype,
+                         activation_q80=self.activation_q80)
         self.pos = pos0 + t
         return logits
 

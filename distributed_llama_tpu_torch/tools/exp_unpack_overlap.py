@@ -7,8 +7,9 @@ T = 256 tokens, random packed bytes and f16 scales in [0, 0.004), x from
 N(0, 1) in bf16. Variants, each one launch per call:
 
   landed           the port's production path: K1 (ops/cuda_q40.py
-                   q40_matmul, bf16 in and out) at t = 256, its mma.sync
-                   tensor-core path
+                   q40_matmul, bf16 in and out) at t = 256, its
+                   tensor-core path (wgmma with the weight dequantized
+                   into registers)
   td=T n_sub=S     ops/cuda_probes.py q40_matmul_sub (csrc/
                    q40_prefill_probe.cu): blocks of T weight rows x 64
                    tokens; each 128-value chunk of N dequantized in S
@@ -90,7 +91,7 @@ def decision(best: dict) -> str:
     """The TPU tool's verdict on ms per call by variant, against landed."""
     winner = min(best, key=best.get)
     if winner == "landed" or best["landed"] <= best[winner] * 1.02:
-        return ("DECISION: the landed path (K1's mma.sync path) is within 2% of the "
+        return ("DECISION: the landed path (K1's wgmma path) is within 2% of the "
                 "best variant — keep it")
     if winner.endswith("n_sub=1"):
         return (f"DECISION: {winner} (no overlap) beats the landed path by "

@@ -81,7 +81,7 @@ def test_cli_generate_prints_jax_cli_tokens(tmp_path, capsys, temperature,
               "--cache-dtype", "f32"]
     jax_dllama.main(common + ["--buffer-float-type", "f32"])
     want = capsys.readouterr().out.splitlines()
-    dllama.main(common + ["--device", "cpu"])
+    dllama.main(common + ["--buffer-float-type", "f32", "--device", "cpu"])
     got = capsys.readouterr().out.splitlines()
 
     def text(lines):
@@ -108,7 +108,7 @@ def test_cli_inference_prints_benchmark_lines(tmp_path, capsys):
     (["worker"], "mode 'worker'"),
     (["generate", "--tp", "2"], "--tp 2"),
     (["generate", "--pp", "2"], "--pp 2"),
-    (["generate", "--buffer-float-type", "q80"], "q80"),
+    (["generate", "--dp", "2"], "--dp 2"),
     (["generate", "--ep", "2"], "--ep 2"),
     (["generate", "--nnodes", "2"], "--nnodes"),
 ])

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from distributed_llama_tpu_torch.ops import (cuda_attention, cuda_build,
-                                             cuda_probes, cuda_q40)
+                                             cuda_probes, cuda_q40, cuda_q80)
 from distributed_llama_tpu_torch.quants.torch_codec import QuantizedTensor
 from distributed_llama_tpu_torch.runtime.engine import Engine, resolve_device
 from distributed_llama_tpu_torch.testing import tiny_spec
@@ -178,7 +178,7 @@ def test_probe_tool_module_raises_without_a_card():
 
 
 @pytest.mark.parametrize("tool", ["exp_f8_flash", "exp_pk_decode", "exp_scale_f16",
-                                  "exp_unpack_overlap"])
+                                  "exp_unpack_overlap", "k1_plans"])
 def test_probe_tool_modules_raise_without_a_card(tool):
     """Each later probe tool runs on cuda unless told otherwise: with no
     card its `python -m` entry raises instead of running on the CPU."""
@@ -296,3 +296,30 @@ def test_probe_source_exports_c_entries():
     assert "__dp4a" in (cuda_build.CSRC / "q40_probes.cu").read_text()
     assert "__nv_cvt_fp8x2_to_halfraw2" in (cuda_build.CSRC / "f8_flash_probe.cu").read_text()
     assert "mma.sync" in (cuda_build.CSRC / "q40_prefill_probe.cu").read_text()
+
+
+def test_q80_roundtrip_raises_off_cpu_instead_of_falling_back():
+    """The Q80 round trip on a non-CPU device: a raise, no plain version,
+    no launch counted; a width that is not whole Q80 blocks raises too."""
+    before = cuda_q80.q80_roundtrip.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_q80.q80_roundtrip(torch.empty((2, 64), device="meta"), torch.float32)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cuda_q80.q80_roundtrip(torch.empty((2, 48)), torch.float32)
+    assert cuda_q80.q80_roundtrip.launches == before
+
+
+def test_q80_and_wgmma_sources_export_c_entries():
+    """q80_roundtrip.cu is an engine kernel (built with K1-K3) and exports
+    its C entry; K1's source has the wgmma path, its TMA maps and the plan
+    export the tests mirror."""
+    assert "q80_roundtrip" in cuda_build.KERNELS
+    src = (cuda_build.CSRC / "q80_roundtrip.cu").read_text()
+    assert 'extern "C" int q80_roundtrip_launch(' in src
+    assert "cudaGetLastError()" in src and "__float2int_rn" in src
+    k1 = (cuda_build.CSRC / "q40_matmul.cu").read_text()
+    assert 'extern "C" int q40_matmul_tc_plan(' in k1
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor.2d", "setmaxnreg",
+                   "mbarrier.try_wait", "barrier.cluster"):
+        assert needle in k1
+    assert "mma.sync" not in k1

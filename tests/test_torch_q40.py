@@ -62,7 +62,7 @@ def test_q40_matmul_leading_dims():
     np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
 
 
-@pytest.mark.parametrize("t", [16, 64])
+@pytest.mark.parametrize("t", [16, 44, 64, 256])
 def test_q40_matmul_bf16_out(t):
     """bf16 out_dtype with t >= 16: the TPU kernel feeds its MXU bf16
     operands (dequantized weights rounded to bf16); the port keeps f32
@@ -119,3 +119,85 @@ def test_matmul_above_max_t_takes_dequant_path():
     assert cuda_q40.q40_matmul.launches == before
     assert not cuda_q40.supports_kernel(pq, cuda_q40.MAX_T + 1)
     assert cuda_q40.supports_kernel(pq, cuda_q40.MAX_T)
+
+
+# every Llama-2-7B projection (wqkv, wo, w13, w2) and the Mixtral 8x7B
+# expert shapes (gate/up, down), (d, n)
+PROJECTIONS = {"wqkv": (12288, 4096), "wo": (4096, 4096), "w13": (22016, 4096),
+               "w2": (4096, 11008), "moe_gate_up": (14336, 4096),
+               "moe_down": (4096, 14336)}
+
+
+@pytest.mark.parametrize("name", list(PROJECTIONS))
+def test_tc_plan_fills_the_card_at_every_projection(name):
+    """At t = 256 every 7B and Mixtral projection's plan launches a wave's
+    worth of CTAs (>= 96 of the 132, 128 and up wherever the tiles allow),
+    with a split only where the n axis has a group for each CTA of the
+    cluster; the plan depends on the shapes alone."""
+    d, n = PROJECTIONS[name]
+    bn, split = cuda_q40.tc_plan(256, n, d)
+    assert bn in cuda_q40.TC_TOKENS and split in (1, 2)
+    assert cuda_q40.tc_ctas(256, n, d) >= 96
+    assert split <= n // cuda_q40.TC_GROUP
+    assert cuda_q40.tc_ctas(256, n, d) == \
+        -(-256 // bn) * -(-d // cuda_q40.TC_ROWS) * split
+    assert cuda_q40.tc_plan(256, n, d) == (bn, split)
+
+
+def test_tc_plan_splits_the_4096_row_weights():
+    """wo, w2 and the expert down projection have 4096 rows, 32 row tiles
+    of 128: one 256-token tile would leave 100 of 132 SMs idle, so their
+    plan splits n across a 2-CTA cluster and cuts 128-token tiles."""
+    for name in ("wo", "w2", "moe_down"):
+        d, n = PROJECTIONS[name]
+        assert cuda_q40.tc_plan(256, n, d) == (128, 2)
+        assert cuda_q40.tc_ctas(256, n, d) == 128
+
+
+def test_tc_plan_is_the_timed_best_at_a_7b_chunk():
+    """At t = 256 the plan is the fastest of the six plans timed on the
+    H100 at each shape (PERF.md): one 256-token tile where the row
+    tiles fill a wave, a split of n where they do not."""
+    want = {"wqkv": (256, 1), "wo": (128, 2), "w13": (256, 2), "w2": (128, 2),
+            "moe_gate_up": (256, 1), "moe_down": (128, 2)}
+    for name, (d, n) in PROJECTIONS.items():
+        assert cuda_q40.tc_plan(256, n, d) == want[name], name
+
+
+@pytest.mark.parametrize("t", [9, 44, 128, 256])
+def test_tc_plan_covers_every_token(t):
+    """Ragged chunks: the tiles cover t tokens, and a chunk of at most 64
+    tokens takes the narrowest tile."""
+    for d, n in PROJECTIONS.values():
+        bn, _ = cuda_q40.tc_plan(t, n, d)
+        assert -(-t // bn) * bn >= t
+        if t <= 64:
+            assert bn == 64
+
+
+@pytest.mark.parametrize("n,t,dtypes,aligned,want", [
+    (4096, 256, "bf16", True, True),       # a 7B chunk
+    (11008, 44, "bf16", True, True),       # w2's n, a ragged last chunk
+    (4096, cuda_q40.TC_MIN_T - 1, "bf16", True, False),  # below the crossing
+    (4096, 256, "f32", True, False),       # f32 operands: the GEMV path
+    (64, 256, "bf16", True, False),        # the tiny fixtures' widths
+    (128, 256, "bf16", True, False),
+    (4096 + 32, 256, "bf16", True, False),  # n not a multiple of 256
+    (4096, 256, "bf16", False, False),     # an unaligned operand
+])
+def test_tc_path_rule(n, t, dtypes, aligned, want):
+    """The stated rule that routes a launch: bf16 in and out, t >=
+    TC_MIN_T, n % 256 == 0 and aligned operands take the tensor-core path;
+    every other launch takes the GEMV path, never a fallback on failure."""
+    dt = torch.bfloat16 if dtypes == "bf16" else torch.float32
+    assert cuda_q40.uses_tc_path(dt, dt, t, n, aligned) is want
+
+
+def test_model_widths_pass_the_tc_rule():
+    """Every 7B, Mixtral and Grok-1 input width is a multiple of 256, so
+    their prefill chunks reach the tensor-core path; the tiny fixtures'
+    (64, 128) do not, and take the GEMV path on the card."""
+    for n in (4096, 11008, 14336, 6144, 32768):
+        assert cuda_q40.uses_tc_path(torch.bfloat16, torch.bfloat16, 256, n)
+    for n in (64, 128):
+        assert not cuda_q40.uses_tc_path(torch.bfloat16, torch.bfloat16, 256, n)
