@@ -22,11 +22,18 @@ result line):
     times cross is where cuda_q40.TC_MIN_T belongs.
  2b. The Q80 round trip (csrc/q80_roundtrip.cu) against its plain version,
     bit for bit, at the 7B and Mixtral matmul input shapes (t 1 and 256;
-    n 4096, 11008, 14336), bf16 and f32 in and out, timed beside it.
+    n 4096, 11008, 14336), bf16 and f32 in and out, timed beside it; each
+    input holds a NaN block and a +inf and a -inf block, which must come
+    out as NaN at the same 96 positions (the other values bit for bit).
  3. K2, the expert-indexed Q40 matmul, against its plain version at the
     Mixtral 8x7B and Grok-1 expert shapes (gate/up and down; 8 experts, 2
     active), t in {1, 4}, bf16 and f32; library time is index_select of the
-    two experts' bytes, dequantize to the dtype, torch.matmul.
+    two experts' bytes, dequantize to the dtype, torch.matmul. Then the
+    t = 1 GEMV that K1 and K2 share at its edges, in all four f32/bf16
+    in/out pairs: d of 1-4097 (not a multiple of its 4-row items or of a
+    CTA's rows), n of 1-3 Q40 blocks and n not a multiple of its 1024-value
+    chunk; a NaN in x must reach every output, an expert index out of range
+    is clamped; each case launched twice must give the same bits.
  4. K3, flash attention, against its plain version with bf16 q at B = 1,
     hs = 128, S = 2048, (H, KVH) in {(32, 32), (32, 8)}, T in {1, 256},
     pos0 in {0, 511, 2048 - T}, plus B = 2 with a different pos0 per row,
@@ -94,7 +101,9 @@ result line):
     --buffer-float-type f32 equal to the CLI on the CPU; one --cache-dtype
     f8 run).
 
-The line before the last holds the per-kernel JSON; the last line is
+Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
+one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
+of it. The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}. Library calls are timed as yardsticks only:
 the port never calls them.
 """
@@ -183,6 +192,16 @@ def phase_build() -> float:
     libs = cuda_build.build_all(cuda_build.KERNELS + cuda_build.PROBES)
     dt = time.perf_counter() - t0
     print(f"[build] {', '.join(p.name for p in libs.values())} in {dt:.1f} s")
+    # the t = 1 GEMV's registers a thread (2 CTAs of 256 threads an SM need
+    # at most 128), from the library just built
+    cuobjdump = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    lines = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(libs["q40_matmul"])],
+                           capture_output=True, text=True, timeout=120).stdout.splitlines() \
+        if cuobjdump.exists() else []
+    for i, line in enumerate(lines[:-1]):
+        if "q40_gemv1_kernel" in line:
+            print(f"[build] q40_gemv1_kernel {line.split('q40_gemv1_kernelI', 1)[1][:24]}: "
+                  f"{lines[i + 1].strip()}")
     return dt
 
 
@@ -306,6 +325,73 @@ def k1_paths(gen, name: str, d: int, n: int, ws, w0) -> list[dict]:
     return rows
 
 
+# the t = 1 GEMV's edges, (d, n): d not a multiple of its 4-row items or of
+# a CTA's rows, n of 1-3 Q40 blocks (most lanes of a chunk past n), n not
+# a multiple of a 1024-value chunk, 7B's w2 width
+GEMV1_EDGES = ((1, 32), (3, 64), (37, 96), (130, 1056), (4097, 11008))
+DTYPE_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+               (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
+
+
+def held(tag: str, fn, want: torch.Tensor, odt) -> dict:
+    """One edge case of the t = 1 GEMV: the kernel within TOL of the plain
+    version, finite where the plain version is, NaN where it is, and a
+    second launch bit-identical to the first."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    err = (got.float() - want.float())[~nan].abs().max().item() if (~nan).any() else 0.0
+    tol = TOL[odt] * (want.float()[~nan].abs().max().item() if (~nan).any() else 0.0)
+    ok = (tuple(got.shape) == tuple(want.shape) and err <= tol
+          and torch.equal(torch.isnan(got), nan) and bool(torch.isfinite(got[~nan]).all())
+          and same_bits(got, again))
+    row = dict(case=tag, max_abs_err=err, tol=tol, nan=int(nan.sum()), repeat_equal=same_bits(got, again))
+    if not ok:
+        fail(f"t = 1 GEMV edge {tag}: {row}")
+    return row
+
+
+def gemv1_edges(gen) -> list[dict]:
+    """The t = 1 GEMV behind K1 and K2 against q40_matmul_reference and
+    q40_expert_matmul_reference at its edges (GEMV1_EDGES), in each pair of
+    f32/bf16 in and out: a NaN in x must reach every output, an expert
+    index out of range is clamped, and every case launched twice gives the
+    same bits."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    rows = []
+    for d, n in GEMV1_EDGES:
+        w = random_q40(gen, d, n)
+        we = random_q40(gen, N_EXPERTS, d, n)
+        for dt, odt in DTYPE_PAIRS:
+            x = torch.randn((1, n), generator=gen, device="cuda").to(dt)
+            xn = x.clone()
+            xn[0, n // 2 + 1] = math.nan
+            tag = f"d={d} n={n} {str(dt)[6:]}->{str(odt)[6:]}"
+            for label, xx in (("", x), (" NaN in x", xn)):
+                rows.append(held("K1 " + tag + label, lambda: cuda_q40.q40_matmul(xx, w, odt),
+                                 cuda_q40.q40_matmul_reference(xx, w, odt), odt))
+            xk = torch.randn((N_ACTIVE, 1, n), generator=gen, device="cuda").to(dt)
+            for label, xx, idx in (
+                    ("", x, [5, 2]), (" per expert", xk, [1, 7]),
+                    (" index out of range", xk, [-3, N_EXPERTS + 3]), (" NaN in x", xn, [0, 6])):
+                ix = torch.tensor(idx, dtype=torch.int32, device="cuda")
+                rows.append(held("K2 " + tag + label,
+                                 lambda: cuda_q40.q40_expert_matmul(xx, we, ix, odt),
+                                 cuda_q40.q40_expert_matmul_reference(xx, we, ix, odt), odt))
+        del w, we
+    print(f"[GEMV1-edge] t = 1 GEMV: {len(rows)} cases (K1 and K2; d {[e[0] for e in GEMV1_EDGES]}, "
+          f"n {[e[1] for e in GEMV1_EDGES]}; 4 dtype pairs; NaN in x, clamped expert index), "
+          f"each within TOL and bit-identical on a second launch; max err share "
+          f"{max(r['max_abs_err'] / r['tol'] if r['tol'] else 0.0 for r in rows):.3f} of TOL")
+    return rows
+
+
 def phase_k2(gen) -> dict:
     """K2 at the MoE expert shapes: an (8, d, n) stack, 2 active experts.
     The timed calls cycle the active pair through all 8 experts, so the
@@ -389,13 +475,21 @@ def phase_q80(gen) -> dict:
             x = x * torch.rand((t, 1), generator=gen, device="cuda") * 30
             x[0, :32] = 0.0
             x[-1, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5], device="cuda")
+            # a block holding a NaN, one holding +inf, one -inf: each comes
+            # out as 32 NaNs in the plain version
+            x[0, 32 + 5] = math.nan
+            x[0, 64 + 31] = math.inf
+            x[0, 96] = -math.inf
             x = x.to(dt)
             got = cuda_q80.q80_roundtrip(x, odt)
             want = cuda_q80.q80_roundtrip_reference(x, odt)
             torch.cuda.synchronize()
-            bits = torch.int16 if odt == torch.bfloat16 else torch.int32
-            exact = torch.equal(got.view(bits), want.view(bits))
-            err = (got.float() - want.float()).abs().max().item()
+            # NaN at the same positions, every other value bit for bit (NaN
+            # payloads may differ)
+            nan = torch.isnan(want)
+            exact = (torch.equal(torch.isnan(got), nan) and int(nan.sum()) == 96
+                     and same_bits(got[~nan], want[~nan]))
+            err = (got[~nan].float() - want[~nan].float()).abs().max().item()
             ms = time_ms(lambda: cuda_q80.q80_roundtrip(x, odt))
             plain = time_ms(lambda: cuda_q80.q80_roundtrip_reference(x, odt))
             bms, by = bound_ms(x.numel() * (x.element_size() + got.element_size()), 0.0, odt)
@@ -1491,6 +1585,7 @@ def main() -> int:
     k1 = phase_k1(gen)
     q80 = phase_q80(gen)
     k2 = phase_k2(gen)
+    edges = gemv1_edges(gen)
     k3 = phase_k3(gen)
     probes = phase_probes()
     t_p2 = time.perf_counter()
@@ -1500,11 +1595,17 @@ def main() -> int:
     main_paths = phase_main_paths()
     phase_file_path()
     kernels = summarize(k1, q80, k2, k3, probes, probes2, main_paths)
+    for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
+                            ("K2", "q40_expert_matmul", "one Mixtral 8x7B decode step, t = 1, bf16")):
+        e = next(k for k in kernels["kernels"] if k["name"] == name)
+        print(f"[{tag}] step sum, {what}: {e['ms']:.4f} ms against a bound of "
+              f"{e['bound_ms']:.4f} ms = {e['bound_ms'] / e['ms']:.3f} of the bound; plain "
+              f"{e['plain_ms']:.3f} ms, library {e['library_ms']:.4f} ms [{card}]")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, k1=k1["rows"], k1_paths=k1["paths"],
         k1_plans=k1["plans"], q80=q80["rows"],
-        k2=k2["rows"], k3=k3["rows"], k3_shapes=k3["shapes"], k3_graph=k3["graph"],
+        k2=k2["rows"], gemv1_edges=edges, k3=k3["rows"], k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

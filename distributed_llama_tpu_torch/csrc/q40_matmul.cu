@@ -11,9 +11,51 @@
 // prefill chunk (t = 256) the operations: 2*t*d*n multiply-adds, 3.38 TFLOP
 // per 7B chunk, 3.4 ms at the tensor cores' 989 TFLOP/s in bf16.
 //
-// Two paths, chosen per launch like the TPU kernel's operand rule:
+// Three kernels, chosen per launch like the TPU kernel's operand rule:
 //
-// GEMV path (t < tc_min_t, or any f32 operand), for the decode bound:
+// GEMV at t = 1 (q40_gemv1_kernel), the whole decode path of K1 and K2.
+// What bounds it on the H100: the weight bytes (1.11 ms a 7B step), and
+// close behind them the instructions that unpack them. At 2 values a byte,
+// the weights at 3.35 TB/s are 6.7e12 values/s against 33.8e12 thread
+// instructions/s (132 SMs x 128 lanes x the 1.98 GHz boost clock), so 4
+// instructions a value already take 80% of the memory time. The
+// design, against the three things that held the earlier GEMV (below, kept
+// for 2 <= t <= 8) at ~45% of the bound:
+//  * x is read once a warp-chunk, not staged per 8-row CTA. A chunk is
+//    1024 values of n, one 32-value Q40 block a lane; the lane holds its
+//    32 x values in registers as f32 (bf16 widened by a shift) for every
+//    row its warp takes in that chunk. A CTA owns R rows, cut into items of
+//    4 rows x one chunk; the items, chunk-major, are dealt to the 8 warps
+//    in contiguous runs, so a warp reloads x (from L2) only when its run
+//    crosses a chunk: x is read 1-2 times a CTA (2 at n = 4096, 1.55 at
+//    w2's 11008), and no barrier precedes the work.
+//  * No int-to-float convert: a nibble masked at bits 8-11 or 12-15 and
+//    OR'd into 0x4B000000 (one LOP3; written in PTX, because the compiler
+//    splits (v & mask) | magic into two around its immediates) is the f32
+//    2^23 + nib * 2^p, and one FMA with s * 2^-p and -(2^(23-p) + 8) * s
+//    (both exact) gives (nib - 8) * s exactly: the plain version's f32
+//    weight, then one FMA into the sum: with 3 shifts a 32-bit word, 3.4
+//    instructions a value before the scale, the loads and the reduction
+//    (the earlier GEMV: shift, mask, convert, subtract, multiply, FMA).
+//  * Loads in flight: each warp issues its next item's 4 rows (4 x 16
+//    bytes and an f16 scale a lane) before it consumes the current one;
+//    2 CTAs of 8 warps an SM. A ring of 4 items a warp in shared memory
+//    (cp.async), which put 3 items in flight, was slower (PERF.md):
+//    with the weights out of registers the loop issued more instructions,
+//    and the kernel is bound by issue more than by bytes in flight.
+//  * A deterministic split of n: a row's chunks are summed by different
+//    warps. Each item's 4 row sums are reduced across the warp by shuffles
+//    in a fixed pattern and written to shared memory, part[chunk][row]; after
+//    one barrier the CTA adds each row's partials in chunk order and rounds
+//    once to the output type. No atomics: two launches give the same bits.
+//  * The grid is one wave of equal CTAs: R = d / (the CTAs the card holds
+//    at once / k), rounded up to 4 rows (7B: wo and w2 16, wqkv 48, w13 84,
+//    wcls 124; Mixtral's experts 112 and 32). 128 registers a thread (the
+//    cap of __launch_bounds__(256, 2)), no spills (chip_smoke.py prints
+//    the library's resource usage), so 2 CTAs (16 warps) an SM; the
+//    partials take C x R x 4 bytes of shared memory (1.3 KB at w13).
+//
+// GEMV for 2 <= t <= 8, and f32 operands at any t > 1 (q40_matmul_kernel):
 //  * The weight stays packed in device memory in the file's block-major
 //    order (quants/torch_codec.py): one lane loads one whole 32-value block
 //    with a single 16-byte load plus its 2-byte f16 scale, and a warp's 32
@@ -26,12 +68,11 @@
 //    padding), so the lanes' 16-byte reads of their own block hit 32
 //    distinct banks. The chunk's weight loads are issued first, so they are
 //    in flight while the activations are staged.
-//  * Tokens go in groups of TT (1, 4 or 8): a lane unpacks its block once
+//  * Tokens go in groups of TT (4 or 8): a lane unpacks its block once
 //    into 32 registers and uses it for every token of the group, so one
 //    weight read serves TT tokens. Token groups run along gridDim.x, the
 //    fastest-varying block index, so the groups that re-read one row block
 //    run close together and find it in the 50 MB L2.
-//  * At t = 1 each lane holds U = 4 blocks' loads in flight per chunk.
 //
 // Tensor-core path (bf16 in and out, t >= tc_min_t, n % 256 == 0, 16-byte
 // aligned operands), for prefill chunks: see q40_matmul_wgmma_kernel below
@@ -51,8 +92,8 @@
 // Replaces: distributed_llama_tpu/ops/pallas_q40.py q40_expert_matmul (the
 // pallas_call at pallas_q40.py:319, def at :283).
 //
-// It is K1's GEMV path with one more grid dimension: blockIdx.z is the
-// active expert k, and each block reads idx[k] from device memory itself
+// It is K1's GEMV with one more grid dimension, the active expert k, and
+// each block reads idx[k] from device memory itself
 // (the TPU kernel's scalar prefetch), so the host never learns the routing
 // and one launch covers all K experts. Only the weight base moves, to
 // packed + idx[k]*d*n/2 and scales + idx[k]*d*n/32: the active experts'
@@ -61,10 +102,10 @@
 //
 // What bounds it on the H100: the weight bytes. At Mixtral widths a launch
 // reads 2 experts x 14336 x 4096 x 18/32 bytes = 66.1 MB, 19.7 us at
-// 3.35 TB/s; a decode step's 96 launches read 6.34 GB, 1.89 ms. GEMV path
-// only (t <= 8): the JAX package calls its kernel at t = b = 1 alone. Making
-// it fast (split-K for the 4096-row down projection, wider loads in flight)
-// is later work.
+// 3.35 TB/s; a decode step's 96 launches read 6.34 GB, 1.89 ms. GEMV paths
+// only (t <= 8): the JAX package calls its kernel at t = b = 1 alone, which
+// takes the t = 1 GEMV with the expert on blockIdx.y; t = 2-8 the older one
+// with the expert on blockIdx.z.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -72,6 +113,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -208,6 +250,195 @@ q40_matmul_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
     for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
     const int tok = t0 + tt;
     if (lane == 0 && tok < t) store(out + (size_t)tok * d + row, a);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The decode GEMV (t = 1), K1 and K2: see the header's "GEMV at t = 1".
+
+constexpr int kG1Warps = 8;
+constexpr int kG1Threads = kG1Warps * 32;
+constexpr int kG1Rows = 4;                  // rows an item
+constexpr int kG1SmemMax = 48 * 1024;       // bytes of partial sums, without an opt-in
+
+// the 32 x values of one lane's block, as f32 (0 for a block past n)
+__device__ __forceinline__ void load_x32(const float* p, bool live, float* xr) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 f = live ? __ldg(reinterpret_cast<const float4*>(p) + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    xr[4 * j] = f.x; xr[4 * j + 1] = f.y; xr[4 * j + 2] = f.z; xr[4 * j + 3] = f.w;
+  }
+}
+__device__ __forceinline__ void load_x32(const __nv_bfloat16* p, bool live, float* xr) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint4 u = live ? __ldg(reinterpret_cast<const uint4*>(p) + j) : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {   // a bf16 is the top half of its f32
+      xr[8 * j + 2 * q] = __uint_as_float(w[q] << 16);
+      xr[8 * j + 2 * q + 1] = __uint_as_float(w[q] & 0xFFFF0000u);
+    }
+  }
+}
+
+// 2^23 + nibble * 2^p as an f32, the nibble already at bits p..p+3 of v
+// under mask (p = 8 or 12): (v & mask) | magic in one LOP3 (the compiler
+// would split it into two around its immediates), no int-to-float convert
+__device__ __forceinline__ float nib_f(uint32_t v, uint32_t mask, uint32_t magic) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(r) : "r"(v), "r"(mask), "r"(magic));
+  return __uint_as_float(r);
+}
+
+// One item's weights: kG1Rows rows of one lane's block, 16 bytes and an
+// f16 scale a row, loaded together before the previous item is consumed.
+struct G1Item {
+  uint4 w[kG1Rows];
+  __half s[kG1Rows];
+};
+
+// x . (one row's block), exactly as the plain version's f32 products: each
+// nibble becomes (nib - 8) * s by one exact FMA, f * s*2^-p - (2^(23-p) + 8) * s,
+// where both constants are exact in f32 for p = 8 and 12 (13 and 9
+// significant bits times the f16 scale's 11), and (nib - 8) * s itself
+// needs 15 bits. Word q of the block holds bytes 4q..4q+3; byte j's low
+// nibble is element j, its high nibble element j + 16.
+__device__ __forceinline__ float dot_block(const uint4& blk, __half s16, const float* xr,
+                                           uint32_t m8, uint32_t m12, uint32_t magic) {
+  const float s = __half2float(s16);
+  const float sp8 = s * (1.0f / 256.0f), cp8 = s * -32776.0f;   // 2^15 + 8
+  const float sp12 = s * (1.0f / 4096.0f), cp12 = s * -2056.0f;  // 2^11 + 8
+  const uint32_t words[4] = {blk.x, blk.y, blk.z, blk.w};
+  float a = 0.f, b = 0.f;   // elements 0-15 and 16-31: two chains
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t w = words[q];
+    const uint32_t v[4] = {w << 8, w, w >> 8, w >> 16};   // byte bb's nibbles at bits 8-15
+#pragma unroll
+    for (int bb = 0; bb < 4; ++bb) {
+      a = fmaf(xr[4 * q + bb], __fmaf_rn(nib_f(v[bb], m8, magic), sp8, cp8), a);
+      b = fmaf(xr[16 + 4 * q + bb], __fmaf_rn(nib_f(v[bb], m12, magic), sp12, cp12), b);
+    }
+  }
+  return a + b;
+}
+
+// The RI row sums of a warp, each spread over its 32 lanes, reduced so that
+// lane group r (RI groups of 32/RI lanes, by the lane's top bits) holds row
+// r's total: log2(RI) halving steps, each lane sending the half it gives
+// up, then a butterfly inside the group. Returns the lane's row total;
+// *row gets its row. The order of the adds depends on nothing but the lane.
+template <int RI>
+__device__ __forceinline__ float warp_rows_reduce(float* a, int lane, int* row) {
+  int r = 0;
+  int off = 16;
+#pragma unroll
+  for (int cnt = RI; cnt > 1; cnt >>= 1, off >>= 1) {
+    const int half = cnt / 2;
+    const bool up = lane & off;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = up ? a[i] : a[i + half];
+      const float keep = up ? a[i + half] : a[i];
+      a[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    if (up) r += half;
+  }
+#pragma unroll
+  for (; off > 0; off >>= 1) a[0] += __shfl_xor_sync(0xffffffffu, a[0], off);
+  *row = r;
+  return a[0];
+}
+
+// A CTA owns rows [row0, row0 + R) of one weight (K2: of expert idx[k],
+// blockIdx.y = k), cut into items of kG1Rows rows x one chunk of n. The C x G
+// items, chunk-major, are dealt to the 8 warps in contiguous runs, so a
+// warp loads a chunk of x into registers once and keeps it for every row
+// of its run in that chunk. Each item's row sums go to shared memory
+// (part[c][row]); the CTA then adds each row's C partials in chunk order
+// and rounds once to the output type.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(kG1Threads, 2)
+q40_gemv1_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
+                 const __half* __restrict__ scales, TO* __restrict__ out, int n, int d, int R,
+                 const int* __restrict__ idx, int n_experts, long long x_kstride) {
+  constexpr int RI = kG1Rows;
+  extern __shared__ float part[];   // C x R partial sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nb = n / 32;
+  const int C = (nb + 31) / 32, G = R / RI;
+  const int row0 = blockIdx.x * R;
+  if (idx != nullptr) {
+    const int k = blockIdx.y;
+    const int e = min(max(idx[k], 0), n_experts - 1);
+    x += (size_t)k * x_kstride;
+    out += (size_t)k * d;
+    packed += (size_t)e * d * (n / 2);
+    scales += (size_t)e * d * nb;
+  }
+  const int items = C * G;
+  const int i0 = (int)((long long)warp * items / kG1Warps);
+  const int i1 = (int)((long long)(warp + 1) * items / kG1Warps);
+  // this CTA's rows; a row past d reads row d - 1 (never written), a lane
+  // past the last block reads the last block against x = 0
+  const uint4* pw = reinterpret_cast<const uint4*>(packed) + (size_t)row0 * nb;
+  const __half* ps = scales + (size_t)row0 * nb;
+  const int rlast = d - 1 - row0;
+  // the LOP3's operands, kept in registers
+  uint32_t m8 = 0xF00u, m12 = 0xF000u, magic = 0x4B000000u;
+  asm volatile("" : "+r"(m8), "+r"(m12), "+r"(magic));
+
+  auto load = [&](G1Item& it, int i) {
+    const int c = i / G, g = i - c * G;
+    const int blk = min(c * 32 + lane, nb - 1);
+#pragma unroll
+    for (int r = 0; r < RI; ++r) {
+      const int o = min(g * RI + r, rlast) * nb + blk;
+      it.w[r] = __ldg(pw + o);
+      it.s[r] = __ldg(ps + o);
+    }
+  };
+  float xr[32];
+  int cx = -1;
+  auto consume = [&](const G1Item& it, int i) {
+    const int c = i / G, g = i - c * G;
+    if (c != cx) {   // a new chunk of x: 32 values a lane, from L2
+      const int blk = c * 32 + lane;
+      load_x32(x + (size_t)blk * 32, blk < nb, xr);
+      cx = c;
+    }
+    float a[RI];
+#pragma unroll
+    for (int r = 0; r < RI; ++r) a[r] = dot_block(it.w[r], it.s[r], xr, m8, m12, magic);
+    int r;
+    const float v = warp_rows_reduce<RI>(a, lane, &r);
+    if ((lane & (32 / RI - 1)) == 0) part[c * R + g * RI + r] = v;   // R % RI == 0
+  };
+
+  // two items' loads in flight: item i + 1's are issued before item i is
+  // consumed; the first chunk of x (from L2) ahead of the first weights
+  G1Item A, B;
+  if (i0 < i1) {
+    const int blk = i0 / G * 32 + lane;
+    load_x32(x + (size_t)blk * 32, blk < nb, xr);
+    cx = i0 / G;
+    load(A, i0);
+  }
+  for (int i = i0; i < i1; i += 2) {
+    if (i + 1 < i1) load(B, i + 1);
+    consume(A, i);
+    if (i + 1 >= i1) break;
+    if (i + 2 < i1) load(A, i + 2);
+    consume(B, i + 1);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < R; j += kG1Threads) {
+    const int row = row0 + j;
+    if (row >= d) break;
+    float acc = 0.f;
+    for (int c = 0; c < C; ++c) acc += part[c * R + j];
+    store(out + row, acc);
   }
 }
 
@@ -718,17 +949,51 @@ cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* packed, const __
   return cudaErrorInvalidValue;
 }
 
-// The GEMV path: k experts along gridDim.z (k = 1 and idx = nullptr for K1).
+// The t = 1 GEMV's plan: rows a CTA, from the shapes and the CTAs the card
+// holds at once (resident), so that one launch is about one wave of equal
+// CTAs; a multiple of kG1Rows, at most 256, and its partial sums (C x R
+// floats) within kG1SmemMax. 0 if n is too wide for even kG1Rows rows.
+inline int gemv1_rows(int n, int d, int k, int resident) {
+  const int chunks = (n / 32 + 31) / 32;
+  const int cap = std::min(256, kG1SmemMax / (4 * chunks)) / kG1Rows * kG1Rows;
+  if (cap < kG1Rows) return 0;
+  const int per = std::max(1, resident / k);   // CTAs an expert
+  const int r = ((d + per - 1) / per + kG1Rows - 1) / kG1Rows * kG1Rows;
+  return std::min(r, cap);
+}
+
+template <typename TI, typename TO>
+cudaError_t launch_gemv1(const TI* xp, const uint8_t* pp, const __half* sp, TO* op, int n, int d,
+                         const int* idx, int n_experts, long long x_kstride, int k,
+                         cudaStream_t stream) {
+  // the CTAs the card holds at once, asked once (the same card every launch)
+  static const int resident = [] {
+    int dev = 0, sms = 0, occ = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, q40_gemv1_kernel<TI, TO>, kG1Threads,
+                                                  8192);
+    return std::max(1, sms) * std::max(1, occ);
+  }();
+  const int rows = gemv1_rows(n, d, k, resident);
+  if (rows == 0) return cudaErrorInvalidValue;
+  const int chunks = (n / 32 + 31) / 32;
+  const dim3 grid((unsigned)((d + rows - 1) / rows), (unsigned)k);
+  q40_gemv1_kernel<TI, TO><<<grid, kG1Threads, (size_t)chunks * rows * 4, stream>>>(
+      xp, pp, sp, op, n, d, rows, idx, n_experts, x_kstride);
+  return cudaGetLastError();
+}
+
+// The GEMV path: k experts along gridDim.z (k = 1 and idx = nullptr for K1);
+// t = 1 takes the decode GEMV above.
 template <typename TI, typename TO>
 cudaError_t launch_gemv(const TI* xp, const uint8_t* pp, const __half* sp, TO* op, int t, int n, int d,
                         const int* idx, int n_experts, long long x_kstride, int k, cudaStream_t stream) {
+  if (t == 1) return launch_gemv1<TI, TO>(xp, pp, sp, op, n, d, idx, n_experts, x_kstride, k, stream);
   const dim3 block(kWarps * 32);
   const unsigned rows = (unsigned)((d + kWarps - 1) / kWarps);
   const unsigned kz = (unsigned)k;
-  if (t == 1) {
-    q40_matmul_kernel<TI, TO, 1, 4><<<dim3(1, rows, kz), block, 0, stream>>>(
-        xp, pp, sp, op, t, n, d, idx, n_experts, x_kstride);
-  } else if (t <= 4) {
+  if (t <= 4) {
     q40_matmul_kernel<TI, TO, 4, 2><<<dim3(1, rows, kz), block, 0, stream>>>(
         xp, pp, sp, op, t, n, d, idx, n_experts, x_kstride);
   } else {

@@ -12,11 +12,18 @@
 // Per 32-value block, bit for bit the plain version
 // (quants/torch_codec.py quantize_q80_torch, dequantize_q80_torch):
 //   scale = absmax * f32(1/127)          (XLA's form of absmax / 127)
+//                                        (absmax is NaN if the block holds
+//                                        a NaN, as the codec's amax is)
 //   inv   = scale > 0 ? 1 / scale : 0     (IEEE reciprocal, round to nearest)
 //   q     = round_half_even(g * inv)      (int, |q| <= 127)
 //   s16   = f16(scale)                    (the stored scale)
 //   out   = f32: q * f32(s16);  bf16: bf16(q * f32(bf16(s16)))
 // Every product is an explicit __fmul_rn, so nothing contracts into an FMA.
+// A block holding a NaN gets a NaN scale and dequantizes to 32 NaNs, as the
+// codec's does; fmaxf would drop the NaN and give a finite block with a 0
+// in its place, so the absmax is taken with max.NaN (sm_80 and later). A
+// block holding +-inf gets an inf scale, inv = 0, and 0 * inf = NaN at
+// every position, as in the codec.
 //
 // Layout: one thread per 4 consecutive values, 8 threads per block, so a
 // warp covers 4 blocks with one 16-byte (f32) or 8-byte (bf16) load a
@@ -34,6 +41,13 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+// max that returns NaN if either operand is NaN (fmaxf returns the other)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 f = *reinterpret_cast<const float4*>(p);
@@ -69,10 +83,10 @@ q80_roundtrip_kernel(const TI* __restrict__ x, TO* __restrict__ out, long long n
   const bool live = i < n4;
   float v[4] = {0.f, 0.f, 0.f, 0.f};
   if (live) load4(x + 4 * i, v);
-  float am = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3])));
+  float am = max_nan(max_nan(fabsf(v[0]), fabsf(v[1])), max_nan(fabsf(v[2]), fabsf(v[3])));
   // n4 is a multiple of 8, so a group of 8 lanes is all live or all dead
 #pragma unroll
-  for (int off = 1; off < 8; off <<= 1) am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, off));
+  for (int off = 1; off < 8; off <<= 1) am = max_nan(am, __shfl_xor_sync(0xffffffffu, am, off));
   if (!live) return;
   const float scale = __fmul_rn(am, 1.0f / 127.0f);
   const float inv = scale > 0.f ? __frcp_rn(scale) : 0.f;

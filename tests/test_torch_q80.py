@@ -4,7 +4,9 @@ the CPU, with the same inputs made by numpy from a seed:
   * the codec (quants/torch_codec.py quantize_q80_torch /
     dequantize_q80_torch) against quantize_q80_jax / dequantize_q80_jax,
     bit for bit, f32 and bf16 in and out, with all-zero blocks and values
-    at a rounding half;
+    at a rounding half; and on blocks holding a NaN, +inf or -inf, where
+    the NaN positions must agree and every finite value be bit-equal
+    (the Q80 kernel is held to the same on the card);
   * q80_roundtrip (ops/cuda_q80.py) on the CPU: the codec's plain version;
   * matmul and fused_expert_matmul with activation_q80 against the JAX
     functions with the Pallas kernels in interpret mode;
@@ -92,6 +94,46 @@ def test_q80_codec_is_bit_equal_to_jax(inp, out):
     # to even (0.5 -> 0, 1.5 -> 2, -2.5 -> -2 at scale 1)
     assert not q[0, 0].any() and s[0, 0] == 0
     assert q[1, 0, :4].tolist() == [127, 0, 2, -2]
+
+
+def _assert_same_bits(got: np.ndarray, want: np.ndarray):
+    """NaN at the same positions, every other value bit-equal (NaN
+    payloads may differ between the two codecs)."""
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32))
+
+
+@pytest.mark.parametrize("special", ["nan", "+inf", "-inf"])
+@pytest.mark.parametrize("out", list(DTYPES))
+@pytest.mark.parametrize("inp", list(DTYPES))
+def test_q80_codec_matches_jax_on_nonfinite_blocks(inp, out, special):
+    """A block holding a NaN (or +-inf) comes out of the round trip as 32
+    NaNs with a NaN (inf) scale; the blocks beside it are untouched."""
+    tin, jin = DTYPES[inp]
+    tout, jout = DTYPES[out]
+    x = _activations(np.random.default_rng(2), 4, 128)
+    bad = np.float32({"nan": np.nan, "+inf": np.inf, "-inf": -np.inf}[special])
+    x[0, 3] = bad            # the first block of row 0
+    x[2, 64 + 31] = bad      # the last value of row 2's third block
+    xt = torch.from_numpy(x).to(tin)
+    xj = jnp.asarray(xt.float().numpy()).astype(jin)
+    q, s = quantize_q80_torch(xt)
+    qj, sj = quantize_q80_jax(xj)
+    s32, sj32 = s.float().numpy(), np.asarray(sj).astype(np.float32)
+    _assert_same_bits(s32, sj32)
+    finite = np.isfinite(sj32)
+    assert finite.sum() == finite.size - 2
+    # q of a non-finite block is a cast of NaN (unspecified); elsewhere equal
+    np.testing.assert_array_equal(q.numpy()[finite], np.asarray(qj)[finite])
+    got = dequantize_q80_torch(q, s, tout).float().numpy()
+    want = np.asarray(dequantize_q80_jax(qj, sj, jout)).astype(np.float32)
+    _assert_same_bits(got, want)
+    assert np.isnan(got[0, :32]).all() and np.isnan(got[2, 64:96]).all()
+    assert np.isfinite(got[0, 32:]).all() and np.isfinite(got[1]).all()
+    # and the wrapper's CPU path is the same codec
+    _assert_same_bits(cuda_q80.q80_roundtrip(xt, tout).float().numpy(), want)
 
 
 @pytest.mark.parametrize("out", list(DTYPES))
