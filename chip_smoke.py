@@ -34,6 +34,18 @@ result line):
     CTA's rows), n of 1-3 Q40 blocks and n not a multiple of its 1024-value
     chunk; a NaN in x must reach every output, an expert index out of range
     is clamped; each case launched twice must give the same bits.
+ 3b. [GEMV1-Q80]: the Q80 round trip fused into that t = 1 GEMV (K1 and K2
+    with activation_q80 at t = 1, x raw), at every t = 1 shape of the main
+    paths (7B's five projections, Mixtral's wqkv, the Mixtral and Grok-1
+    expert stacks) in all four dtype pairs, on a finite input (a zero
+    block, exact halves) and on one holding a NaN, a +inf and a -inf
+    block: each launch must equal the unfused pair (the standalone Q80
+    kernel, then the GEMV) bit for bit with NaN at the same positions, be
+    within TOL of the plain version and repeat bit for bit; then the 120
+    edge cases of phase 3 with the round trip fused, held the same way.
+    Timed at bf16 per shape (the fused launch, the GEMV alone, in turns;
+    the Q80 kernel alone, the pair, the plain round trip), and summed over
+    a 7B decode step (129 launches) and a Mixtral one (65 K1 + 96 K2).
  4. K3, flash attention, against its plain version with bf16 q at B = 1,
     hs = 128, S = 2048, (H, KVH) in {(32, 32), (32, 8)}, T in {1, 256},
     pos0 in {0, 511, 2048 - T}, plus B = 2 with a different pos0 per row,
@@ -85,25 +97,31 @@ result line):
     logits after it must match the same engine run on the plain versions
     (MoE routing replayed from the kernel run, so a near-tie cannot pick
     other experts; the script prints how many decisions would differ):
-      * Llama-2-7B, 300-token prompt, 32 tokens: per step and chunk K1
-        129, K3 32, Q80 129;
+    Q80 counts the standalone round trip's launches, Q80F the K1 and K2
+    launches with it fused in (t = 1; also counted under K1 and K2):
+      * Llama-2-7B, 300-token prompt, 32 tokens: per step K1 129, K3 32,
+        Q80 0, Q80F 129; per chunk K1 129, K3 32, Q80 128, Q80F 1 (wcls);
       * Mixtral 8x7B, 32 layers, the same prompt and count: per step K1 65,
-        K2 96, K3 32, Q80 193, per 256-token chunk K1 833, K2 0, K3 32, Q80
-        865; its MoE block must run under
+        K2 96, K3 32, Q80 32 (the router), Q80F 161, per 256-token chunk K1
+        833, K2 0, K3 32, Q80 864, Q80F 1; its MoE block must run under
         torch.cuda.set_sync_debug_mode("error"); then the same with an fp8
         (e4m3) KV cache;
       * Grok-1 widths cut to 2 layers, 40-token prompt, 8 tokens: per step
-        K1 5, K2 6, K3 2, Q80 13; per chunk K1 53, K3 2, Q80 55.
+        K1 5, K2 6, K3 2, Q80 2, Q80F 11; per chunk K1 53, K3 2, Q80 54,
+        Q80F 1.
     Each prints its decode step's cudaLaunchKernel count and idle share.
  6. The file path: tiny fixtures' .m/.t through the port's CLI on cuda
     (Llama and Mixtral: one run at the CLI's defaults, bf16 with Q80
-    activations, whose kernels must launch; f32 tokens with
+    activations, whose kernels must launch, the fused round trip included;
+    f32 tokens with
     --buffer-float-type f32 equal to the CLI on the CPU; one --cache-dtype
     f8 run).
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
-of it. The line before the last holds the per-kernel JSON; the last line is
+of it, and the [GEMV1-Q80] step sums (fused, GEMV alone, GEMV + standalone
+Q80) of a 7B and a Mixtral step. The line before the last holds the
+per-kernel JSON; the last line is
 {"ok": true, "device": {...}}. Library calls are timed as yardsticks only:
 the port never calls them.
 """
@@ -198,10 +216,12 @@ def phase_build() -> float:
     lines = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(libs["q40_matmul"])],
                            capture_output=True, text=True, timeout=120).stdout.splitlines() \
         if cuobjdump.exists() else []
+    # (template arguments as mangled: f float, 13__nv_bfloat16 bf16, S1_ /
+    # S2_ a repeat of an earlier type; Lb1E the Q80 round trip fused in)
     for i, line in enumerate(lines[:-1]):
         if "q40_gemv1_kernel" in line:
-            print(f"[build] q40_gemv1_kernel {line.split('q40_gemv1_kernelI', 1)[1][:24]}: "
-                  f"{lines[i + 1].strip()}")
+            args = line.split("q40_gemv1_kernelI", 1)[1].split("EEv", 1)[0]
+            print(f"[build] q40_gemv1_kernel<{args}>: {lines[i + 1].strip()}")
     return dt
 
 
@@ -338,11 +358,14 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.dtype == b.dtype and torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
 
 
-def held(tag: str, fn, want: torch.Tensor, odt) -> dict:
-    """One edge case of the t = 1 GEMV: the kernel within TOL of the plain
+def held(tag: str, fn, want: torch.Tensor, odt, pair=None) -> dict:
+    """One case of the t = 1 GEMV: the kernel within TOL of the plain
     version, finite where the plain version is, NaN where it is, and a
-    second launch bit-identical to the first."""
+    second launch bit-identical to the first. With `pair` (the fused Q80
+    round trip): the launch also equals the unfused pair (the standalone
+    Q80 kernel, then the GEMV) bit for bit, NaN at the same positions."""
     got, again = fn(), fn()
+    ref = pair() if pair is not None else None
     torch.cuda.synchronize()
     nan = torch.isnan(want)
     err = (got.float() - want.float())[~nan].abs().max().item() if (~nan).any() else 0.0
@@ -351,18 +374,24 @@ def held(tag: str, fn, want: torch.Tensor, odt) -> dict:
           and torch.equal(torch.isnan(got), nan) and bool(torch.isfinite(got[~nan]).all())
           and same_bits(got, again))
     row = dict(case=tag, max_abs_err=err, tol=tol, nan=int(nan.sum()), repeat_equal=same_bits(got, again))
+    if ref is not None:
+        row["pair_equal"] = (torch.equal(torch.isnan(ref), nan)
+                             and same_bits(got[~nan], ref[~nan]))
+        ok = ok and row["pair_equal"]
     if not ok:
-        fail(f"t = 1 GEMV edge {tag}: {row}")
+        fail(f"t = 1 GEMV {tag}: {row}")
     return row
 
 
-def gemv1_edges(gen) -> list[dict]:
+def gemv1_edges(gen, q80: bool = False) -> list[dict]:
     """The t = 1 GEMV behind K1 and K2 against q40_matmul_reference and
     q40_expert_matmul_reference at its edges (GEMV1_EDGES), in each pair of
     f32/bf16 in and out: a NaN in x must reach every output, an expert
     index out of range is clamped, and every case launched twice gives the
-    same bits."""
-    from distributed_llama_tpu_torch.ops import cuda_q40
+    same bits. q80: the same cases with the Q80 round trip fused in, each
+    also bit-equal to the unfused pair (the standalone Q80 kernel, then the
+    GEMV)."""
+    from distributed_llama_tpu_torch.ops import cuda_q40, cuda_q80
 
     rows = []
     for d, n in GEMV1_EDGES:
@@ -374,20 +403,30 @@ def gemv1_edges(gen) -> list[dict]:
             xn[0, n // 2 + 1] = math.nan
             tag = f"d={d} n={n} {str(dt)[6:]}->{str(odt)[6:]}"
             for label, xx in (("", x), (" NaN in x", xn)):
-                rows.append(held("K1 " + tag + label, lambda: cuda_q40.q40_matmul(xx, w, odt),
-                                 cuda_q40.q40_matmul_reference(xx, w, odt), odt))
+                rows.append(held(
+                    "K1 " + tag + label,
+                    lambda: cuda_q40.q40_matmul(xx, w, odt, activation_q80=q80),
+                    cuda_q40.q40_matmul_reference(xx, w, odt, activation_q80=q80), odt,
+                    pair=(lambda: cuda_q40.q40_matmul(cuda_q80.q80_roundtrip(xx, odt), w, odt))
+                    if q80 else None))
             xk = torch.randn((N_ACTIVE, 1, n), generator=gen, device="cuda").to(dt)
             for label, xx, idx in (
                     ("", x, [5, 2]), (" per expert", xk, [1, 7]),
                     (" index out of range", xk, [-3, N_EXPERTS + 3]), (" NaN in x", xn, [0, 6])):
                 ix = torch.tensor(idx, dtype=torch.int32, device="cuda")
-                rows.append(held("K2 " + tag + label,
-                                 lambda: cuda_q40.q40_expert_matmul(xx, we, ix, odt),
-                                 cuda_q40.q40_expert_matmul_reference(xx, we, ix, odt), odt))
+                rows.append(held(
+                    "K2 " + tag + label,
+                    lambda: cuda_q40.q40_expert_matmul(xx, we, ix, odt, activation_q80=q80),
+                    cuda_q40.q40_expert_matmul_reference(xx, we, ix, odt, activation_q80=q80), odt,
+                    pair=(lambda: cuda_q40.q40_expert_matmul(cuda_q80.q80_roundtrip(xx, odt),
+                                                             we, ix, odt))
+                    if q80 else None))
         del w, we
-    print(f"[GEMV1-edge] t = 1 GEMV: {len(rows)} cases (K1 and K2; d {[e[0] for e in GEMV1_EDGES]}, "
+    tag = "[GEMV1-Q80] edges, Q80 round trip fused:" if q80 else "[GEMV1-edge] t = 1 GEMV:"
+    print(f"{tag} {len(rows)} cases (K1 and K2; d {[e[0] for e in GEMV1_EDGES]}, "
           f"n {[e[1] for e in GEMV1_EDGES]}; 4 dtype pairs; NaN in x, clamped expert index), "
-          f"each within TOL and bit-identical on a second launch; max err share "
+          f"each within TOL and bit-identical on a second launch"
+          f"{', and bit-equal to the unfused pair' if q80 else ''}; max err share "
           f"{max(r['max_abs_err'] / r['tol'] if r['tol'] else 0.0 for r in rows):.3f} of TOL")
     return rows
 
@@ -450,6 +489,141 @@ def phase_k2(gen) -> dict:
         del w
         torch.cuda.empty_cache()
     return {"rows": rows}
+
+
+# the t = 1 shapes of the fused Q80 round trip, (d, n, experts): K1's 7B
+# projections and Mixtral's wqkv (32 KV heads of 128 -> 8: 6144x4096; its
+# wo and wcls are 7B's), K2's Mixtral and Grok-1 expert stacks
+GEMV1_Q80_SHAPES = {**{k: (d, n, 0) for k, (d, n) in K1_SHAPES.items()},
+                    "mixtral_wqkv": (6144, 4096, 0),
+                    **{k: (d, n, N_EXPERTS) for k, (d, n) in K2_SHAPES.items()}}
+# launches a decode step (t = 1, bf16): Llama-2-7B's 129 K1; Mixtral's 65 K1
+# and 96 K2 (gate and up each one launch a layer, down one)
+GEMV1_Q80_STEPS = {
+    "llama2_7b": {"wqkv": 32, "wo": 32, "w13": 32, "w2": 32, "wcls": 1},
+    "mixtral_8x7b": {"mixtral_wqkv": 32, "wo": 32, "wcls": 1,
+                     "mixtral_gate_up": 64, "mixtral_down": 32}}
+
+
+def q80_input(gen, shape, dt, nonfinite: bool) -> torch.Tensor:
+    """A matmul input for the fused round trip: values of very different
+    sizes, a zero block, a block whose absmax is 127 holding exact halves,
+    a block whose scale is below f16's range (it comes out as zeros);
+    nonfinite: in its first row also a NaN block, a +inf and a -inf block
+    (each comes out as 32 NaNs) and a block whose absmax is past f16's
+    range times 127 (an inf scale: +-inf, and NaN where q is 0)."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    x = x * torch.rand((*shape[:-1], 1), generator=gen, device="cuda") * 30
+    x[..., :32] = 0.0
+    x[..., 32:64] = x[..., 32:64].clamp(-100.0, 100.0)
+    x[..., 32:36] = torch.tensor([127.0, 0.5, 1.5, -2.5], device="cuda")
+    x[..., 192:224] *= 1e-38   # a scale below f16's range (and 1 / scale past f32's)
+    if nonfinite:
+        first = x.reshape(-1, shape[-1])[0]
+        first[64 + 5] = math.nan
+        first[96 + 31] = math.inf
+        first[128] = -math.inf
+        first[160 + 9] = 3e7
+    return x.to(dt)
+
+
+def phase_gemv1_q80(gen) -> dict:
+    """The Q80 round trip fused into the t = 1 GEMV of K1 and K2, at every
+    t = 1 shape of the main paths (GEMV1_Q80_SHAPES) in all four f32/bf16
+    in/out pairs, on a finite input and on one holding a NaN, a +inf, a
+    -inf and an inf-scale block (K2's per-expert x: in expert 0's only):
+    the fused launch equals the unfused pair (the standalone Q80 kernel,
+    then the GEMV) bit for bit with NaN at the same positions, is within
+    TOL of the plain version, and repeats bit for bit; then the edge cases. Timed at bf16:
+    the fused launch, the GEMV alone (on the round-tripped input), the Q80
+    kernel alone, the pair, and the plain round trip; summed over a 7B and
+    a Mixtral decode step."""
+    from distributed_llama_tpu_torch.ops import cuda_q40, cuda_q80
+
+    bf16 = torch.bfloat16
+    rows, timed = [], {}
+    pairs = [torch.tensor([2 * i + 1, 2 * i], dtype=torch.int32, device="cuda")
+             for i in range(N_EXPERTS // 2)]
+    for name, (d, n, experts) in GEMV1_Q80_SHAPES.items():
+        ws = None if experts else rotating(lambda: random_q40(gen, d, n),
+                                           d * n // 2 + d * n // 32 * 2)
+        w0 = random_q40(gen, experts, d, n) if experts else ws()
+        state = {"i": 0}
+
+        def idx():
+            state["i"] = (state["i"] + 1) % len(pairs)
+            return pairs[state["i"]]
+        xshape = (N_ACTIVE, 1, n) if name.endswith("down") else (1, n)
+        if experts:
+            def kern(x, odt, q80, w=w0, ix=None):
+                return cuda_q40.q40_expert_matmul(x, w, idx() if ix is None else ix, odt,
+                                                  activation_q80=q80)
+
+            def plain(x, odt, w=w0):
+                return cuda_q40.q40_expert_matmul_reference(x, w, pairs[0], odt,
+                                                            activation_q80=True)
+            fixed = dict(ix=pairs[0])
+        else:
+            def kern(x, odt, q80, w=None, ix=None):
+                return cuda_q40.q40_matmul(x, ws() if w is None else w, odt, activation_q80=q80)
+
+            def plain(x, odt, w=w0):
+                return cuda_q40.q40_matmul_reference(x, w, odt, activation_q80=True)
+            fixed = dict(w=w0)
+        for dt, odt in DTYPE_PAIRS:
+            for nonfinite in (False, True):
+                x = q80_input(gen, xshape, dt, nonfinite)
+                tag = (f"{name} {str(dt)[6:]}->{str(odt)[6:]}"
+                       f"{' NaN/+inf/-inf blocks' if nonfinite else ''}")
+                rows.append(held(
+                    tag, lambda: kern(x, odt, True, **fixed), plain(x, odt), odt,
+                    pair=lambda: kern(cuda_q80.q80_roundtrip(x, odt), odt, False, **fixed)))
+        x = q80_input(gen, xshape, bf16, False)
+        xq = cuda_q80.q80_roundtrip(x, bf16)
+        # in turns: GEMV, fused, fused, GEMV
+        t = {}
+        g1 = time_ms(lambda: kern(xq, bf16, False))
+        f1 = time_ms(lambda: kern(x, bf16, True))
+        f2 = time_ms(lambda: kern(x, bf16, True))
+        g2 = time_ms(lambda: kern(xq, bf16, False))
+        t["fused_ms"], t["gemv_ms"] = (f1 + f2) / 2, (g1 + g2) / 2
+        t["q80_ms"] = time_ms(lambda: cuda_q80.q80_roundtrip(x, bf16))
+        t["pair_ms"] = time_ms(lambda: kern(cuda_q80.q80_roundtrip(x, bf16), bf16, False))
+        t["plain_q80_ms"] = time_ms(lambda: cuda_q80.q80_roundtrip_reference(x, bf16))
+        t["x_bytes"] = x.numel() * x.element_size()
+        t["bound_q80_ms"], _ = bound_ms(t["x_bytes"], 0.0, bf16)
+        t["added_us"] = (t["fused_ms"] - t["gemv_ms"]) * 1e3
+        timed[name] = t
+        print(f"[GEMV1-Q80] {name} (d {d}, n {n}{', 2 of 8 experts' if experts else ''}), bf16: "
+              f"fused {t['fused_ms'] * 1e3:.2f} us (runs {f1 * 1e3:.2f}, {f2 * 1e3:.2f}), "
+              f"GEMV alone {t['gemv_ms'] * 1e3:.2f} us (runs {g1 * 1e3:.2f}, {g2 * 1e3:.2f}), "
+              f"Q80 alone {t['q80_ms'] * 1e3:.2f} us, pair {t['pair_ms'] * 1e3:.2f} us; "
+              f"fused - GEMV {t['added_us']:+.2f} us")
+        del ws, w0, kern, plain, fixed
+        torch.cuda.empty_cache()
+    worst = max(r["max_abs_err"] / r["tol"] if r["tol"] else 0.0 for r in rows)
+    print(f"[GEMV1-Q80] {len(rows)} cases at the main paths' t = 1 shapes (4 dtype pairs, finite "
+          f"and NaN/+inf/-inf blocks): each bit-equal to the unfused pair with NaN at the same "
+          f"positions, within TOL of the plain version (max err share {worst:.3f}), "
+          f"bit-identical on a second launch")
+    steps = {}
+    for step, counts in GEMV1_Q80_STEPS.items():
+        agg = {k: sum(timed[sh][k] * c for sh, c in counts.items())
+               for k in ("fused_ms", "gemv_ms", "q80_ms", "pair_ms", "plain_q80_ms",
+                         "bound_q80_ms")}
+        agg["launches"] = sum(counts.values())
+        agg["gemv_plus_q80_ms"] = agg["gemv_ms"] + agg["q80_ms"]
+        agg["saved_ms"] = agg["gemv_plus_q80_ms"] - agg["fused_ms"]
+        agg["fused_minus_gemv_ms"] = agg["fused_ms"] - agg["gemv_ms"]
+        steps[step] = agg
+        print(f"[GEMV1-Q80] {step} step ({agg['launches']} launches, bf16): fused "
+              f"{agg['fused_ms']:.4f} ms; GEMV alone {agg['gemv_ms']:.4f}; Q80 alone "
+              f"{agg['q80_ms']:.4f}; GEMV + Q80 {agg['gemv_plus_q80_ms']:.4f} (the pair in one "
+              f"graph {agg['pair_ms']:.4f}); saved {agg['saved_ms']:.4f} ms; fused - GEMV "
+              f"{agg['fused_minus_gemv_ms']:+.4f} ms")
+    edges = gemv1_edges(gen, q80=True)
+    return {"rows": rows, "timed": timed, "steps": steps, "edges": edges,
+            "max_abs_err": max(r["max_abs_err"] for r in rows + edges)}
 
 
 # Q80 round-trip inputs (tokens, width): 7B's and Mixtral's matmul inputs at
@@ -983,7 +1157,8 @@ def _counters() -> dict:
     from distributed_llama_tpu_torch.ops import cuda_attention, cuda_q40, cuda_q80
 
     return {"K1": cuda_q40.q40_matmul, "K2": cuda_q40.q40_expert_matmul,
-            "K3": cuda_attention.flash_attention, "Q80": cuda_q80.q80_roundtrip}
+            "K3": cuda_attention.flash_attention, "Q80": cuda_q80.q80_roundtrip,
+            "Q80F": cuda_q40.q80_fused}
 
 
 def _probe_counters() -> dict:
@@ -1233,12 +1408,11 @@ def drive_path(label: str, engine, prompt: list[int], n_decode: int,
           f"= {gbps / HBM_BYTES_PER_S:.3f} of 3.35 TB/s")
     busy = profile["device_ms_per_step"]
     launches = dict(profile["runtime_calls"]).get("cudaLaunchKernel")
-    print(f"[main] {label}: cudaLaunchKernel per decode step {launches} (Llama-2-7B "
-          f"before the Q80 round trip: 1,719)")
+    print(f"[main] {label}: cudaLaunchKernel per decode step {launches} (Llama-2-7B with "
+          f"the standalone Q80 round trip: 1,848; with it fused into the GEMV: 1,719 expected)")
     if busy is not None:
         print(f"[main] {label}: device busy {busy:.3f} ms of {decode_ms:.3f} ms per "
-              f"decode token: idle share {1 - busy / decode_ms:.3f} (Llama-2-7B before "
-              f"the Q80 round trip: 0.84)")
+              f"decode token: idle share {1 - busy / decode_ms:.3f}")
     cmp = compare_with_plain(engine, prompt)
     return dict(label=label, launches=counts, per_step=step, chunks=n_chunks,
                 prefill_launches=prefill_counts,
@@ -1271,14 +1445,16 @@ def phase_main_paths() -> dict:
     out = {}
 
     # every engine as the CLI builds it for a Q40 model: the Q80 round trip
-    # on every matmul input, one launch a matmul call
+    # on every matmul input, inside K1's or K2's launch at t = 1 (Q80F:
+    # those launches, also counted under K1 and K2), the standalone kernel
+    # (Q80) elsewhere; a chunk's wcls runs at t = 1
     q80 = dict(activation_q80=True)
     spec = _spec("llama2_7b")
     engine = _engine(spec, seed=0, **q80)
     out["llama2_7b"] = drive_path(
         "Llama-2-7B", engine, prompt, 32,
-        per_chunk={"K1": 129, "K2": 0, "K3": 32, "Q80": 129},
-        per_step={"K1": 129, "K2": 0, "K3": 32, "Q80": 129},
+        per_chunk={"K1": 129, "K2": 0, "K3": 32, "Q80": 128, "Q80F": 1},
+        per_step={"K1": 129, "K2": 0, "K3": 32, "Q80": 0, "Q80F": 129},
         weight_bytes=decode_weight_bytes(spec, engine.params))
     out["llama2_7b"]["logits_vs_plain"].pop("logits")
     del engine
@@ -1287,11 +1463,12 @@ def phase_main_paths() -> dict:
     spec = _spec("mixtral_8x7b")
     engine = _engine(spec, seed=1, **q80)
     wb = decode_weight_bytes(spec, engine.params)
-    # Q80: a chunk's wqkv, wo, router and 8 x (gate, up, down) a layer, + wcls;
-    # a step's wqkv, wo, router, gate, up, down (K2: one call for both
-    # active experts) a layer, + wcls
-    moe_counts = dict(per_chunk={"K1": 833, "K2": 0, "K3": 32, "Q80": 865},
-                      per_step={"K1": 65, "K2": 96, "K3": 32, "Q80": 193}, weight_bytes=wb)
+    # Q80: a chunk's wqkv, wo, router and 8 x (gate, up, down) a layer; a
+    # step's router a layer. Q80F: a chunk's wcls; a step's wqkv, wo, gate,
+    # up, down (K2: one call for both active experts) a layer, + wcls
+    moe_counts = dict(per_chunk={"K1": 833, "K2": 0, "K3": 32, "Q80": 864, "Q80F": 1},
+                      per_step={"K1": 65, "K2": 96, "K3": 32, "Q80": 32, "Q80F": 161},
+                      weight_bytes=wb)
     check_moe_block_sync_free(engine)
     out["mixtral_8x7b"] = drive_path("Mixtral 8x7B", engine, prompt, 32, **moe_counts)
     params = engine.params
@@ -1316,8 +1493,8 @@ def phase_main_paths() -> dict:
     gprompt = [1] + np.random.default_rng(8).integers(3, spec.vocab_size, 39).tolist()
     out["grok1_2l"] = drive_path(
         "Grok-1 (2 layers)", engine, gprompt, 8,
-        per_chunk={"K1": 53, "K2": 0, "K3": 2, "Q80": 55},
-        per_step={"K1": 5, "K2": 6, "K3": 2, "Q80": 13},
+        per_chunk={"K1": 53, "K2": 0, "K3": 2, "Q80": 54, "Q80F": 1},
+        per_step={"K1": 5, "K2": 6, "K3": 2, "Q80": 2, "Q80F": 11},
         weight_bytes=decode_weight_bytes(spec, engine.params))
     out["grok1_2l"]["logits_vs_plain"].pop("logits")
     del engine
@@ -1356,7 +1533,7 @@ def phase_file_path() -> None:
             print(f"[file] {name}: " + " | ".join(out.strip().splitlines()[-5:]))
             # the CLI at its defaults: bf16, and --buffer-float-type q80 (the
             # Q80 round trip on every matmul input)
-            need = ("K1", "K2", "K3", "Q80") if name == "mixtral" else ("K1", "K3", "Q80")
+            need = ("K1", "K3", "Q80", "Q80F") + (("K2",) if name == "mixtral" else ())
             if "Generated tokens:    16" not in out or not all(counts[k] for k in need):
                 fail(f"CLI inference on cuda at its defaults, {name}: launches {counts}")
             f32 = ["generate", *common, "--compute-dtype", "f32", "--cache-dtype", "f32",
@@ -1375,8 +1552,8 @@ def phase_file_path() -> None:
                     fail("CLI inference with --cache-dtype f8 did not complete")
 
 
-def summarize(k1: dict, q80: dict, k2: dict, k3: dict, probes: dict, probes2: dict,
-              main: dict) -> dict:
+def summarize(k1: dict, q80: dict, fused: dict, k2: dict, k3: dict, probes: dict,
+              probes2: dict, main: dict) -> dict:
     """One entry per kernel (K3's e4m3 mode its own): its time, plain and
     library times and bound for ONE decode step (t = 1, bf16), summed from
     the per-launch measurements above — K1 and K3 of a Llama-2-7B step, K2
@@ -1401,12 +1578,16 @@ def summarize(k1: dict, q80: dict, k2: dict, k3: dict, probes: dict, probes2: di
     # up, down)
     moe = {r["shape"]: r for r in k1["rows"] if r["t"] == 256 and r["shape"] in K1_MOE_SHAPES}
     agg_moe = {key: 8 * (2 * moe["moe_gate_up"][key] + moe["moe_down"][key]) for key in keys}
-    # the Q80 round trip of one 7B decode step: 32 x (wqkv, wo, w13 inputs
-    # at 4096, w2's at 11008) + wcls's, bf16
+    # the standalone Q80 round trip where a 7B path still runs it: one
+    # prefill chunk, 32 x (wqkv, wo, w13 inputs at 4096, w2's at 11008) at
+    # t = 256, bf16 (the chunk's wcls input, t = 1, is fused)
     qr = {(r["t"], r["n"]): r for r in q80["rows"]
           if r["dtype"] == "bfloat16" and r["out"] == "bfloat16"}
-    aggq = {key: 32 * (3 * qr[(1, 4096)][key] + qr[(1, 11008)][key]) + qr[(1, 4096)][key]
+    aggq = {key: 32 * (3 * qr[(256, 4096)][key] + qr[(256, 11008)][key])
             for key in ("ms", "plain_ms", "bound_ms")}
+    # the round trip fused into the t = 1 GEMV, one 7B decode step: the
+    # fused launches' time less the GEMV's alone; bound: x read once
+    f7 = fused["steps"]["llama2_7b"]
 
     def k3_row(cache, kvh, t, pos0):
         return next(r for r in k3["rows"] if r["cache"] == cache and r["dtype"] == "bfloat16"
@@ -1449,7 +1630,21 @@ def summarize(k1: dict, q80: dict, k2: dict, k3: dict, probes: dict, probes2: di
              launches=sum(main[p]["launches"]["Q80"] for p in main),
              max_abs_err=max(r["max_abs_err"] for r in q80["rows"]),
              **aggq, bound_by="bytes", library_ms=None,
-             at="one 7B decode step: 32x(wqkv, wo, w13, w2 inputs) + wcls's, t=1, bf16"),
+             at="one 7B prefill chunk: 32x(wqkv, wo, w13, w2 inputs) at t=256, bf16; "
+                "launches: the standalone kernel's (router, prefill inputs)"),
+        dict(name="q40_gemv1_q80", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
+             replaces="distributed_llama_tpu/ops/matmul.py:93 and :165 (quantize_q80_jax / "
+                      "dequantize_q80_jax, fused by XLA into the Q40 kernel's operand; no "
+                      "pallas_call)",
+             launches=sum(main[p]["launches"]["Q80F"] for p in main),
+             max_abs_err=fused["max_abs_err"],
+             ms=f7["fused_minus_gemv_ms"], plain_ms=f7["plain_q80_ms"],
+             bound_ms=f7["bound_q80_ms"], bound_by="bytes", library_ms=None,
+             fused_ms=f7["fused_ms"], gemv_ms=f7["gemv_ms"],
+             gemv_plus_q80_ms=f7["gemv_plus_q80_ms"],
+             at="one 7B decode step, 129 inputs, t=1, bf16: the fused K1 launches' time less "
+                "the GEMV's alone (fused_ms - gemv_ms); plain: the codec's round trip"),
         dict(name="q40_expert_matmul", route="cuda",
              source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
              replaces="distributed_llama_tpu/ops/pallas_q40.py:319",
@@ -1586,6 +1781,7 @@ def main() -> int:
     q80 = phase_q80(gen)
     k2 = phase_k2(gen)
     edges = gemv1_edges(gen)
+    fused = phase_gemv1_q80(gen)
     k3 = phase_k3(gen)
     probes = phase_probes()
     t_p2 = time.perf_counter()
@@ -1594,18 +1790,24 @@ def main() -> int:
     print(f"[probe] P2, P3, P5, P6 in {probes2['seconds']:.1f} s")
     main_paths = phase_main_paths()
     phase_file_path()
-    kernels = summarize(k1, q80, k2, k3, probes, probes2, main_paths)
+    kernels = summarize(k1, q80, fused, k2, k3, probes, probes2, main_paths)
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
                             ("K2", "q40_expert_matmul", "one Mixtral 8x7B decode step, t = 1, bf16")):
         e = next(k for k in kernels["kernels"] if k["name"] == name)
         print(f"[{tag}] step sum, {what}: {e['ms']:.4f} ms against a bound of "
               f"{e['bound_ms']:.4f} ms = {e['bound_ms'] / e['ms']:.3f} of the bound; plain "
               f"{e['plain_ms']:.3f} ms, library {e['library_ms']:.4f} ms [{card}]")
+    for step, a in fused["steps"].items():
+        print(f"[GEMV1-Q80] {step} step, t = 1, bf16: fused {a['fused_ms']:.4f} ms, GEMV alone "
+              f"{a['gemv_ms']:.4f} ms, GEMV + standalone Q80 {a['gemv_plus_q80_ms']:.4f} ms: "
+              f"saved {a['saved_ms']:.4f} ms, fused - GEMV {a['fused_minus_gemv_ms']:+.4f} ms "
+              f"[{card}]")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, k1=k1["rows"], k1_paths=k1["paths"],
         k1_plans=k1["plans"], q80=q80["rows"],
-        k2=k2["rows"], gemv1_edges=edges, k3=k3["rows"], k3_shapes=k3["shapes"], k3_graph=k3["graph"],
+        k2=k2["rows"], gemv1_edges=edges, gemv1_q80=fused, k3=k3["rows"],
+        k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -28,7 +28,13 @@
 //    4 rows x one chunk; the items, chunk-major, are dealt to the 8 warps
 //    in contiguous runs, so a warp reloads x (from L2) only when its run
 //    crosses a chunk: x is read 1-2 times a CTA (2 at n = 4096, 1.55 at
-//    w2's 11008), and no barrier precedes the work.
+//    w2's 11008). A new chunk's bf16 x is loaded at the top of its item's
+//    step, before the other item's weight loads are issued, while that
+//    buffer is free: one item's weights and 16 registers of x are live at
+//    the load, so the 128 registers leave the dot room (PERF.md, PR 9:
+//    faster at every bf16 shape of 7B, Mixtral and Grok-1 but wo). f32 x
+//    (32 registers at the load) keeps the load after the next item's
+//    weights, where it timed faster.
 //  * No int-to-float convert: a nibble masked at bits 8-11 or 12-15 and
 //    OR'd into 0x4B000000 (one LOP3; written in PTX, because the compiler
 //    splits (v & mask) | magic into two around its immediates) is the f32
@@ -54,6 +60,27 @@
 //    cap of __launch_bounds__(256, 2)), no spills (chip_smoke.py prints
 //    the library's resource usage), so 2 CTAs (16 warps) an SM; the
 //    partials take C x R x 4 bytes of shared memory (1.3 KB at w13).
+//  * The Q80 activation round trip fused in (the Q80 template switch; the
+//    C entry points' q80 argument): x arrives raw, f32 or bf16, and the
+//    CTA round-trips all of it once, before its items, into shared memory
+//    (q80_store: csrc/q80_roundtrip.cu's per-block math, bit for bit, a
+//    32-value Q80 block a thread, rounded to the output type, which is the
+//    caller's compute type: ops/matmul.py passes out_dtype=compute_dtype;
+//    two threads a block, or two blocks' loads in flight, timed no faster).
+//    One barrier, then the loop reads each chunk from there (load_xs)
+//    instead of from L2. So the launch gives bit for bit what the
+//    standalone kernel and then this GEMV give. x' takes 80 (bf16) or 144 (f32) bytes a block of shared memory,
+//    counted in the CTAs an SM holds. Every CTA round-trips the whole of x,
+//    about 4.5 instructions a value (absmax, multiply, the add of the
+//    round-half-even shift, one FMA, a paired convert, the loads and
+//    stores), which is what the fused launch adds to the GEMV: K2's fused
+//    launches run 16-warp CTAs, one an SM (the same 128 registers a
+//    thread), so an SM round-trips x once, not twice; K1's keep 8-warp
+//    CTAs, two an SM, which timed faster at most 7B shapes. Tried and
+//    slower (PERF.md, PR 9): the round trip in each lane's registers where
+//    it loads a chunk (lane-local, no barrier): its absmax and scale at a
+//    chunk change raised the loop's register pressure and slowed every
+//    dot, whether or not a chunk changed at run time.
 //
 // GEMV for 2 <= t <= 8, and f32 operands at any t > 1 (q40_matmul_kernel):
 //  * The weight stays packed in device memory in the file's block-major
@@ -258,6 +285,7 @@ q40_matmul_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
 
 constexpr int kG1Warps = 8;
 constexpr int kG1Threads = kG1Warps * 32;
+
 constexpr int kG1Rows = 4;                  // rows an item
 constexpr int kG1SmemMax = 48 * 1024;       // bytes of partial sums, without an opt-in
 
@@ -278,6 +306,108 @@ __device__ __forceinline__ void load_x32(const __nv_bfloat16* p, bool live, floa
     for (int q = 0; q < 4; ++q) {   // a bf16 is the top half of its f32
       xr[8 * j + 2 * q] = __uint_as_float(w[q] << 16);
       xr[8 * j + 2 * q + 1] = __uint_as_float(w[q] & 0xFFFF0000u);
+    }
+  }
+}
+
+// max that returns NaN if either operand is NaN (fmaxf returns the other)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// The Q80 round trip of one 32-value block, bit for bit csrc/q80_roundtrip.cu's
+// per-block math (and so the plain codec's). absmax with max.NaN, so a NaN
+// block gives a NaN scale and 32 NaNs; scale = absmax * f32(1/127); s =
+// f32(f16(scale)) (bf16 output: f32(bf16(f16(scale)))); inv = 1 / scale
+// (IEEE) where s > 0, else 0 (the standalone kernel tests scale > 0; where
+// the scale is positive but below f16's range, s is 0 and every value comes
+// out 0 either way, and 1 / scale may overflow, so inv = 0 keeps the
+// products finite); q = round-half-even(y = x * inv), as (y + M) - M with
+// M = 1.5 * 2^23, exact for |y| < 2^22 (|y| <= 127) and equal to
+// __float2int_rn on every finite y, in full-rate adds instead of two
+// quarter-rate converts; x' = q * s, rounded once to the output type.
+// Where s is finite, the last subtract and the multiply are one FMA,
+// (y + M) * s - M * s: M * s is exact (13 significant bits), so the FMA's
+// single rounding of the exact q * s (at most 18 bits) is q * s itself.
+// Where s is NaN or inf (a block holding a NaN or +-inf, or an absmax past
+// f16's range) the plain steps run, as in the standalone kernel: 0 * inf
+// is NaN there, q * inf with q != 0 is +-inf. Every other product and add
+// is explicitly rounded, so nothing contracts into an FMA.
+template <typename TO>
+__device__ __forceinline__ void q80_values(float* v) {
+  constexpr float kM = 12582912.0f;   // 1.5 * 2^23
+  float m[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) m[c] = fabsf(v[c]);
+#pragma unroll
+  for (int j = 4; j < 32; ++j) m[j & 3] = max_nan(m[j & 3], fabsf(v[j]));
+  const float am = max_nan(max_nan(m[0], m[1]), max_nan(m[2], m[3]));
+  const float scale = __fmul_rn(am, 1.0f / 127.0f);
+  float s = __half2float(__float2half_rn(scale));
+  if constexpr (!std::is_same<TO, float>::value) s = __bfloat162float(__float2bfloat16_rn(s));
+  const float inv = s > 0.f ? __frcp_rn(scale) : 0.f;
+  if (__builtin_expect(isfinite(s), 1)) {   // a branch, not a select: one side runs
+    const float ms = __fmul_rn(-kM, s);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) v[j] = __fmaf_rn(__fadd_rn(__fmul_rn(v[j], inv), kM), s, ms);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) v[j] = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(v[j], inv), kM), -kM), s);
+  }
+}
+
+// A round-tripped block in shared memory, 32-bit words a block: f32, 32
+// values and 4 of padding; bf16, 16 pairs and 4 of padding (a lane's
+// 16-byte reads of its own block then hit distinct banks).
+template <typename TO>
+__host__ __device__ constexpr int xs_words() { return std::is_same<TO, float>::value ? 36 : 20; }
+
+// v (one block of x, as f32) round-tripped and stored in TO at dst
+template <typename TO>
+__device__ __forceinline__ void q80_store(uint32_t* dst, float* v) {
+  q80_values<TO>(v);
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+  if constexpr (std::is_same<TO, float>::value) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      d4[j] = make_uint4(__float_as_uint(v[4 * j]), __float_as_uint(v[4 * j + 1]),
+                         __float_as_uint(v[4 * j + 2]), __float_as_uint(v[4 * j + 3]));
+  } else {
+    uint32_t w[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {   // bf16 pairs, each rounded once: element 2j low, 2j + 1 high
+      const __nv_bfloat162 p2 = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      w[j] = *reinterpret_cast<const uint32_t*>(&p2);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d4[j] = make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
+  }
+}
+
+// the 32 round-tripped values of one lane's block as f32 (0 for a block
+// past n), from shared memory
+template <typename TO>
+__device__ __forceinline__ void load_xs(const uint32_t* src, bool live, float* xr) {
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  if constexpr (std::is_same<TO, float>::value) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint4 u = live ? s4[j] : make_uint4(0u, 0u, 0u, 0u);
+      xr[4 * j] = __uint_as_float(u.x); xr[4 * j + 1] = __uint_as_float(u.y);
+      xr[4 * j + 2] = __uint_as_float(u.z); xr[4 * j + 3] = __uint_as_float(u.w);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint4 u = live ? s4[j] : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {   // a bf16 is the top half of its f32
+        xr[8 * j + 2 * q] = __uint_as_float(w[q] << 16);
+        xr[8 * j + 2 * q + 1] = __uint_as_float(w[q] & 0xFFFF0000u);
+      }
     }
   }
 }
@@ -357,9 +487,10 @@ __device__ __forceinline__ float warp_rows_reduce(float* a, int lane, int* row) 
 // warp loads a chunk of x into registers once and keeps it for every row
 // of its run in that chunk. Each item's row sums go to shared memory
 // (part[c][row]); the CTA then adds each row's C partials in chunk order
-// and rounds once to the output type.
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(kG1Threads, 2)
+// and rounds once to the output type. Q80: x is raw; the CTA round-trips
+// it once into shared memory (xs, after the partials) before its items.
+template <typename TI, typename TO, bool Q80, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS, kG1Warps * 2 / WARPS)
 q40_gemv1_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
                  const __half* __restrict__ scales, TO* __restrict__ out, int n, int d, int R,
                  const int* __restrict__ idx, int n_experts, long long x_kstride) {
@@ -378,8 +509,9 @@ q40_gemv1_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
     scales += (size_t)e * d * nb;
   }
   const int items = C * G;
-  const int i0 = (int)((long long)warp * items / kG1Warps);
-  const int i1 = (int)((long long)(warp + 1) * items / kG1Warps);
+  constexpr int THREADS = 32 * WARPS;
+  const int i0 = (int)((long long)warp * items / WARPS);
+  const int i1 = (int)((long long)(warp + 1) * items / WARPS);
   // this CTA's rows; a row past d reads row d - 1 (never written), a lane
   // past the last block reads the last block against x = 0
   const uint4* pw = reinterpret_cast<const uint4*>(packed) + (size_t)row0 * nb;
@@ -401,13 +533,21 @@ q40_gemv1_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
   };
   float xr[32];
   int cx = -1;
-  auto consume = [&](const G1Item& it, int i) {
-    const int c = i / G, g = i - c * G;
-    if (c != cx) {   // a new chunk of x: 32 values a lane, from L2
+  uint32_t* xs = reinterpret_cast<uint32_t*>(part + C * R);   // Q80: nb blocks (R % 4 == 0: aligned)
+  auto chunk = [&](int i) {   // x of item i's chunk into xr, if it is a new chunk
+    const int c = i / G;
+    if (c != cx) {
       const int blk = c * 32 + lane;
-      load_x32(x + (size_t)blk * 32, blk < nb, xr);
+      if constexpr (Q80) {
+        load_xs<TO>(xs + (size_t)blk * xs_words<TO>(), blk < nb, xr);
+      } else {
+        load_x32(x + (size_t)blk * 32, blk < nb, xr);   // from L2
+      }
       cx = c;
     }
+  };
+  auto dot = [&](const G1Item& it, int i) {
+    const int c = i / G, g = i - c * G;
     float a[RI];
 #pragma unroll
     for (int r = 0; r < RI; ++r) a[r] = dot_block(it.w[r], it.s[r], xr, m8, m12, magic);
@@ -417,23 +557,37 @@ q40_gemv1_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
   };
 
   // two items' loads in flight: item i + 1's are issued before item i is
-  // consumed; the first chunk of x (from L2) ahead of the first weights
+  // consumed. A new chunk's x that arrives as 16-bit values (bf16 x, or
+  // Q80's bf16 x') is loaded before the other item's weight loads, f32 x
+  // (twice the registers at the load) after them (PERF.md, PR 9: each the
+  // faster for its type at most shapes).
+  constexpr bool EARLY = !std::is_same<std::conditional_t<Q80, TO, TI>, float>::value;
   G1Item A, B;
-  if (i0 < i1) {
-    const int blk = i0 / G * 32 + lane;
-    load_x32(x + (size_t)blk * 32, blk < nb, xr);
-    cx = i0 / G;
-    load(A, i0);
+  if constexpr (!Q80 && !EARLY) {
+    if (i0 < i1) chunk(i0);   // x ahead of the first weights
+  }
+  if (i0 < i1) load(A, i0);
+  if constexpr (Q80) {   // the round trip, behind the first item's loads
+    for (int b = threadIdx.x; b < nb; b += THREADS) {   // a block a thread
+      float v[32];
+      load_x32(x + (size_t)b * 32, true, v);
+      q80_store<TO>(xs + (size_t)b * xs_words<TO>(), v);
+    }
+    __syncthreads();
   }
   for (int i = i0; i < i1; i += 2) {
+    if constexpr (EARLY) chunk(i);
     if (i + 1 < i1) load(B, i + 1);
-    consume(A, i);
+    if constexpr (!EARLY) chunk(i);
+    dot(A, i);
     if (i + 1 >= i1) break;
+    if constexpr (EARLY) chunk(i + 1);
     if (i + 2 < i1) load(A, i + 2);
-    consume(B, i + 1);
+    if constexpr (!EARLY) chunk(i + 1);
+    dot(B, i + 1);
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < R; j += kG1Threads) {
+  for (int j = threadIdx.x; j < R; j += THREADS) {
     const int row = row0 + j;
     if (row >= d) break;
     float acc = 0.f;
@@ -953,43 +1107,70 @@ cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* packed, const __
 // holds at once (resident), so that one launch is about one wave of equal
 // CTAs; a multiple of kG1Rows, at most 256, and its partial sums (C x R
 // floats) within kG1SmemMax. 0 if n is too wide for even kG1Rows rows.
-inline int gemv1_rows(int n, int d, int k, int resident) {
+inline int gemv1_rows(int n, int d, int k, int resident, int max_rows = 256) {
   const int chunks = (n / 32 + 31) / 32;
-  const int cap = std::min(256, kG1SmemMax / (4 * chunks)) / kG1Rows * kG1Rows;
+  const int cap = std::min(max_rows, kG1SmemMax / (4 * chunks)) / kG1Rows * kG1Rows;
   if (cap < kG1Rows) return 0;
   const int per = std::max(1, resident / k);   // CTAs an expert
   const int r = ((d + per - 1) / per + kG1Rows - 1) / kG1Rows * kG1Rows;
   return std::min(r, cap);
 }
 
-template <typename TI, typename TO>
+template <typename TI, typename TO, bool Q80, int WARPS>
 cudaError_t launch_gemv1(const TI* xp, const uint8_t* pp, const __half* sp, TO* op, int n, int d,
                          const int* idx, int n_experts, long long x_kstride, int k,
                          cudaStream_t stream) {
-  // the CTAs the card holds at once, asked once (the same card every launch)
-  static const int resident = [] {
-    int dev = 0, sms = 0, occ = 0;
+  // asked once (the same card every launch): the SMs, the CTAs an SM holds
+  // by registers, the shared memory an SM has and a CTA may opt into
+  struct Card { int sms, occ, smem_sm, smem_cta; };
+  static const Card card = [] {
+    int dev = 0;
+    Card c{1, 1, 0, 0};
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, q40_gemv1_kernel<TI, TO>, kG1Threads,
+    cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.occ, q40_gemv1_kernel<TI, TO, Q80, WARPS>, 32 * WARPS,
                                                   8192);
-    return std::max(1, sms) * std::max(1, occ);
+    cudaDeviceGetAttribute(&c.smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    cudaDeviceGetAttribute(&c.smem_cta, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (Q80) cudaFuncSetAttribute(q40_gemv1_kernel<TI, TO, Q80, WARPS>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_cta);
+    return c;
   }();
-  const int rows = gemv1_rows(n, d, k, resident);
-  if (rows == 0) return cudaErrorInvalidValue;
-  const int chunks = (n / 32 + 31) / 32;
+  const int nb = n / 32, chunks = (nb + 31) / 32;
+  // Q80: the round-tripped x, which every CTA holds whole; the plan takes
+  // as many CTAs an SM as its registers allow and its shared memory holds
+  // (with the runtime's 1 KB a CTA)
+  const size_t xs_bytes = Q80 ? (size_t)nb * xs_words<TO>() * 4 : 0;
+  int per_sm = std::max(1, card.occ), rows = 0;
+  size_t smem = 0;
+  for (;; --per_sm) {
+    rows = gemv1_rows(n, d, k, std::max(1, card.sms) * per_sm, 32 * WARPS);
+    smem = (size_t)chunks * rows * 4 + xs_bytes;
+    if (!Q80 || per_sm == 1 || (size_t)per_sm * (smem + 1024) <= (size_t)card.smem_sm) break;
+  }
+  if (rows == 0 || smem > (size_t)std::max(card.smem_cta, kG1SmemMax)) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)((d + rows - 1) / rows), (unsigned)k);
-  q40_gemv1_kernel<TI, TO><<<grid, kG1Threads, (size_t)chunks * rows * 4, stream>>>(
+  q40_gemv1_kernel<TI, TO, Q80, WARPS><<<grid, 32 * WARPS, smem, stream>>>(
       xp, pp, sp, op, n, d, rows, idx, n_experts, x_kstride);
   return cudaGetLastError();
 }
 
 // The GEMV path: k experts along gridDim.z (k = 1 and idx = nullptr for K1);
-// t = 1 takes the decode GEMV above.
+// t = 1 takes the decode GEMV above, with the Q80 round trip fused in if
+// q80 is set. q80 at t > 1 is refused: only the t = 1 GEMV has it.
 template <typename TI, typename TO>
 cudaError_t launch_gemv(const TI* xp, const uint8_t* pp, const __half* sp, TO* op, int t, int n, int d,
-                        const int* idx, int n_experts, long long x_kstride, int k, cudaStream_t stream) {
-  if (t == 1) return launch_gemv1<TI, TO>(xp, pp, sp, op, n, d, idx, n_experts, x_kstride, k, stream);
+                        const int* idx, int n_experts, long long x_kstride, int k, bool q80,
+                        cudaStream_t stream) {
+  // K2 with the round trip fused runs 16-warp CTAs, one an SM (the same
+  // 128 registers a thread): measured faster at every expert shape, and
+  // slower at most of K1's (PERF.md, PR 9)
+  if (t == 1 && q80 && idx != nullptr)
+    return launch_gemv1<TI, TO, true, 2 * kG1Warps>(xp, pp, sp, op, n, d, idx, n_experts, x_kstride, k, stream);
+  if (t == 1 && q80)
+    return launch_gemv1<TI, TO, true, kG1Warps>(xp, pp, sp, op, n, d, idx, n_experts, x_kstride, k, stream);
+  if (t == 1) return launch_gemv1<TI, TO, false, kG1Warps>(xp, pp, sp, op, n, d, idx, n_experts, x_kstride, k, stream);
+  if (q80) return cudaErrorInvalidValue;
   const dim3 block(kWarps * 32);
   const unsigned rows = (unsigned)((d + kWarps - 1) / kWarps);
   const unsigned kz = (unsigned)k;
@@ -1006,24 +1187,25 @@ cudaError_t launch_gemv(const TI* xp, const uint8_t* pp, const __half* sp, TO* o
 
 template <typename TI, typename TO>
 cudaError_t launch(const void* x, const void* packed, const void* scales, void* out,
-                   int t, int n, int d, int tc_min_t, cudaStream_t stream) {
+                   int t, int n, int d, int tc_min_t, bool q80, cudaStream_t stream) {
   const TI* xp = static_cast<const TI*>(x);
   const uint8_t* pp = static_cast<const uint8_t*>(packed);
   const __half* sp = static_cast<const __half*>(scales);
   TO* op = static_cast<TO*>(out);
   if constexpr (std::is_same<TI, __nv_bfloat16>::value && std::is_same<TO, __nv_bfloat16>::value) {
-    if (tc_eligible(x, packed, scales, t, n, tc_min_t)) return launch_wgmma(xp, pp, sp, op, t, n, d, stream);
+    if (tc_eligible(x, packed, scales, t, n, tc_min_t))   // the tensor-core path has no round trip
+      return q80 ? cudaErrorInvalidValue : launch_wgmma(xp, pp, sp, op, t, n, d, stream);
   }
-  return launch_gemv<TI, TO>(xp, pp, sp, op, t, n, d, nullptr, 1, 0, 1, stream);
+  return launch_gemv<TI, TO>(xp, pp, sp, op, t, n, d, nullptr, 1, 0, 1, q80, stream);
 }
 
 template <typename TI, typename TO>
 cudaError_t launch_experts(const void* x, long long x_kstride, const int* idx, int k, int n_experts,
                            const void* packed, const void* scales, void* out, int t, int n, int d,
-                           cudaStream_t stream) {
+                           bool q80, cudaStream_t stream) {
   return launch_gemv<TI, TO>(static_cast<const TI*>(x), static_cast<const uint8_t*>(packed),
                              static_cast<const __half*>(scales), static_cast<TO*>(out), t, n, d,
-                             idx, n_experts, x_kstride, k, stream);
+                             idx, n_experts, x_kstride, k, q80, stream);
 }
 
 }  // namespace
@@ -1031,16 +1213,21 @@ cudaError_t launch_experts(const void* x, long long x_kstride, const int* idx, i
 // x: (t, n) f32 (x_dtype 0) or bf16 (1); packed: (d, n/2) u8 block-major;
 // scales: (d, n/32) f16; out: (t, d) f32 (out_dtype 0) or bf16 (1).
 // bf16 in and out with t >= tc_min_t, n % 256 == 0 and 16-byte aligned x,
-// packed and scales takes the tensor-core path. Returns the launch's
-// cudaError_t.
+// packed and scales takes the tensor-core path. q80 = 1: x is raw and the
+// kernel applies the Q80 round trip to it first, rounded to the output type
+// (the caller's compute type); t = 1 only, the t = 1 GEMV's path: anything
+// else returns cudaErrorInvalidValue, never a launch without the round
+// trip. Returns the launch's cudaError_t.
 extern "C" int q40_matmul_launch(const void* x, int x_dtype, const void* packed,
                                  const void* scales, void* out, int out_dtype,
-                                 int t, int n, int d, int tc_min_t, void* stream) {
+                                 int t, int n, int d, int tc_min_t, int q80, void* stream) {
+  if (q80 != 0 && t != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && out_dtype == 0) return launch<float, float>(x, packed, scales, out, t, n, d, tc_min_t, s);
-  if (x_dtype == 0 && out_dtype == 1) return launch<float, __nv_bfloat16>(x, packed, scales, out, t, n, d, tc_min_t, s);
-  if (x_dtype == 1 && out_dtype == 0) return launch<__nv_bfloat16, float>(x, packed, scales, out, t, n, d, tc_min_t, s);
-  if (x_dtype == 1 && out_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(x, packed, scales, out, t, n, d, tc_min_t, s);
+  const bool f = q80 != 0;
+  if (x_dtype == 0 && out_dtype == 0) return launch<float, float>(x, packed, scales, out, t, n, d, tc_min_t, f, s);
+  if (x_dtype == 0 && out_dtype == 1) return launch<float, __nv_bfloat16>(x, packed, scales, out, t, n, d, tc_min_t, f, s);
+  if (x_dtype == 1 && out_dtype == 0) return launch<__nv_bfloat16, float>(x, packed, scales, out, t, n, d, tc_min_t, f, s);
+  if (x_dtype == 1 && out_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(x, packed, scales, out, t, n, d, tc_min_t, f, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1048,22 +1235,25 @@ extern "C" int q40_matmul_launch(const void* x, int x_dtype, const void* packed,
 // expert (x_kstride t*n), f32 (x_dtype 0) or bf16 (1); idx: (k,) int32 on the
 // device, read by the kernel; packed: (n_experts, d, n/2) u8 block-major;
 // scales: (n_experts, d, n/32) f16; out: (k, t, d) f32 (out_dtype 0) or
-// bf16 (1). t <= 8 (the GEMV path). Returns the launch's cudaError_t.
+// bf16 (1). t <= 8 (the GEMV path). q80 = 1: the Q80 round trip fused in,
+// as for q40_matmul_launch, at t = 1 only. Returns the launch's cudaError_t.
 extern "C" int q40_expert_matmul_launch(const void* x, int x_dtype, long long x_kstride,
                                         const void* idx, int k, int n_experts,
                                         const void* packed, const void* scales, void* out,
-                                        int out_dtype, int t, int n, int d, void* stream) {
+                                        int out_dtype, int t, int n, int d, int q80, void* stream) {
   if (t < 1 || t > 8 || k < 1 || n_experts < 1) return (int)cudaErrorInvalidValue;
+  if (q80 != 0 && t != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
+  const bool f = q80 != 0;
   if (x_dtype == 0 && out_dtype == 0)
-    return launch_experts<float, float>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, s);
+    return launch_experts<float, float>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, f, s);
   if (x_dtype == 0 && out_dtype == 1)
-    return launch_experts<float, __nv_bfloat16>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, s);
+    return launch_experts<float, __nv_bfloat16>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, f, s);
   if (x_dtype == 1 && out_dtype == 0)
-    return launch_experts<__nv_bfloat16, float>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, s);
+    return launch_experts<__nv_bfloat16, float>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, f, s);
   if (x_dtype == 1 && out_dtype == 1)
-    return launch_experts<__nv_bfloat16, __nv_bfloat16>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, s);
+    return launch_experts<__nv_bfloat16, __nv_bfloat16>(x, x_kstride, ip, k, n_experts, packed, scales, out, t, n, d, f, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,8 +16,10 @@ then the final norm and wcls. Every Q40 projection is a kernel launch on
 the card: K1 (ops/cuda_q40.py) for the dense weights and for every expert
 of a prefill chunk, K2 for the active experts of a decode step; every
 attention a flash-kernel launch (ops/cuda_attention.py). With
-activation_q80, every matmul input first goes through the Q80 round trip
-(ops/cuda_q80.py), one launch per matmul call.
+activation_q80, every matmul input first goes through the Q80 round trip:
+inside K1's or K2's launch at t = 1 (every Q40 projection of a decode
+step), as one more launch (ops/cuda_q80.py) for the router and every
+prefill input (ops/matmul.py).
 
 Unlike the JAX package's functional update of a donated cache, the port
 writes K/V into the cache tensors IN PLACE at the segment's positions.

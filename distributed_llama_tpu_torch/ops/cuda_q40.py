@@ -18,17 +18,31 @@ the JAX package's q40_expert_matmul: the same product against the K experts
 idx[0..K-1] of a stacked (E, d, n) Q40 weight, in one launch, with the
 indices left on the device (the kernel reads them). Its plain version is
 `q40_expert_matmul_reference`; it counts its own `launches`.
+
+Both take `activation_q80`: x arrives raw (f32 or bf16) and goes through
+the Q80 round trip to out_dtype first, as the JAX package's matmul applies
+quantize_q80_jax / dequantize_q80_jax to its operand (XLA fuses those into
+the Q40 kernel's read). On the card the round trip runs inside the t = 1
+GEMV, in the same launch (csrc/q40_matmul.cu q80_store: once a CTA, into
+shared memory), bit for bit the standalone Q80 kernel (ops/cuda_q80.py)
+followed by the GEMV; the plain
+version is the codec's round trip followed by the product. It exists at
+t = 1 only (`fuses_q80`): at t >= 2 both wrappers raise, on every device,
+and never skip the round trip. `q80_fused.launches` counts the launches
+with the round trip fused in (each also counts in its wrapper's own).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 
 from ..quants.torch_codec import QuantizedTensor, dequantize_q40_torch
 from . import cuda_build
+from .cuda_q80 import q80_roundtrip_reference
 
 # the JAX package's MAX_T (pallas_q40.py:72): larger token counts are
 # FLOP-amortized and take the dequantize-then-matmul path (ops/matmul.py)
@@ -57,6 +71,20 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def supports_kernel(w: QuantizedTensor, t: int) -> bool:
     """Kernel preconditions: a 2D (d, n/2) weight and at most MAX_T tokens."""
     return w.packed.dim() == 2 and t <= MAX_T
+
+
+def fuses_q80(w, t: int) -> bool:
+    """Whether a product of t tokens against w takes the Q80 round trip
+    inside the kernel's launch: a Q40 weight (K1's (d, n) or K2's stacked
+    (E, d, n)) at t = 1, the t = 1 GEMV. Everything else (t >= 2, dense
+    weights) keeps the standalone round trip (ops/cuda_q80.py)."""
+    return isinstance(w, QuantizedTensor) and t == 1
+
+
+def _refuse_unfused(name: str, t: int, activation_q80: bool) -> None:
+    if activation_q80 and t != 1:
+        raise ValueError(f"{name}: the Q80 round trip is fused in at t = 1 only, "
+                         f"got t={t}")
 
 
 def _tc_group_cost(bn: int) -> int:
@@ -102,8 +130,12 @@ def uses_tc_path(x_dtype, out_dtype, t: int, n: int, aligned: bool = True,
 
 
 def q40_matmul_reference(x: torch.Tensor, w: QuantizedTensor,
-                         out_dtype=torch.float32) -> torch.Tensor:
-    """Plain version: dequantize to f32, one f32 product, cast once."""
+                         out_dtype=torch.float32,
+                         activation_q80: bool = False) -> torch.Tensor:
+    """Plain version: (the codec's Q80 round trip to out_dtype,) dequantize
+    to f32, one f32 product, cast once."""
+    if activation_q80:
+        x = q80_roundtrip_reference(x, out_dtype)
     wd = dequantize_q40_torch(w, torch.float32)
     y = torch.matmul(x.to(torch.float32), wd.t())
     return y.to(out_dtype)
@@ -117,7 +149,7 @@ def _lib():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,7 +162,7 @@ def _expert_lib():
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -163,47 +195,59 @@ def _checked_x(name: str, x: torch.Tensor, w: QuantizedTensor,
 
 
 def _launch(x2: torch.Tensor, w: QuantizedTensor, out_dtype,
-            tc_min_t: int = TC_MIN_T) -> torch.Tensor:
+            tc_min_t: int = TC_MIN_T, activation_q80: bool = False) -> torch.Tensor:
+    t = x2.shape[0]
+    _refuse_unfused("q40_matmul", t, activation_q80)
     x2 = _checked_x("q40_matmul", x2, w, out_dtype)
-    t, n = x2.shape
-    d = w.packed.shape[0]
+    n, d = x2.shape[1], w.packed.shape[0]
     out = torch.empty((t, d), dtype=out_dtype, device=x2.device)
     fn = _lib()
     rc = fn(x2.data_ptr(), _DTYPE_CODE[x2.dtype], w.packed.data_ptr(),
             w.scales.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
-            t, n, d, tc_min_t, torch.cuda.current_stream(x2.device).cuda_stream)
+            t, n, d, tc_min_t, int(activation_q80),
+            torch.cuda.current_stream(x2.device).cuda_stream)
     cuda_build.check(rc, "q40_matmul")
     q40_matmul.launches += 1
+    q80_fused.launches += int(activation_q80)
     return out
 
 
 def q40_matmul(x: torch.Tensor, w: QuantizedTensor,
-               out_dtype=torch.float32) -> torch.Tensor:
+               out_dtype=torch.float32, activation_q80: bool = False) -> torch.Tensor:
     """y[..., d] = sum_n x[..., n] * W[d, n]; x may have leading dims whose
-    product is at most MAX_T."""
+    product is at most MAX_T. activation_q80: x through the Q80 round trip
+    to out_dtype first, in the same launch (t = 1 only)."""
     lead = x.shape[:-1]
     d = w.packed.shape[0]
+    t = x.numel() // x.shape[-1]
+    _refuse_unfused("q40_matmul", t, activation_q80)
     if x.device.type == "cpu":
-        return q40_matmul_reference(x, w, out_dtype)
+        return q40_matmul_reference(x, w, out_dtype, activation_q80)
     if x.device.type != "cuda":
         raise ValueError(f"q40_matmul: no kernel for device {x.device}")
-    t = x.numel() // x.shape[-1]
     if not supports_kernel(w, t):
         raise ValueError(f"q40_matmul kernel takes t <= {MAX_T} tokens and "
                          f"a 2D weight, got t={t}")
-    return _launch(x.reshape(t, x.shape[-1]), w, out_dtype).reshape(*lead, d)
+    return _launch(x.reshape(t, x.shape[-1]), w, out_dtype,
+                   activation_q80=activation_q80).reshape(*lead, d)
 
 
 q40_matmul.launches = 0
+# launches of K1 and K2 with the Q80 round trip fused in
+q80_fused = types.SimpleNamespace(launches=0)
 
 
 def q40_expert_matmul_reference(x: torch.Tensor, w: QuantizedTensor,
                                 idx: torch.Tensor,
-                                out_dtype=torch.float32) -> torch.Tensor:
-    """Plain version of K2: gather the K experts' packed bytes and scales
-    on the device (indices clamped into range, as the kernel and the JAX
-    package's dynamic index clamp them), dequantize to f32, one f32
-    product per expert, cast once. x (t, n) or (K, t, n) -> (K, t, d)."""
+                                out_dtype=torch.float32,
+                                activation_q80: bool = False) -> torch.Tensor:
+    """Plain version of K2: (the codec's Q80 round trip of x to out_dtype,)
+    gather the K experts' packed bytes and scales on the device (indices
+    clamped into range, as the kernel and the JAX package's dynamic index
+    clamp them), dequantize to f32, one f32 product per expert, cast once.
+    x (t, n) or (K, t, n) -> (K, t, d)."""
+    if activation_q80:
+        x = q80_roundtrip_reference(x, out_dtype)
     sel = idx.to(device=w.packed.device, dtype=torch.long).clamp(
         0, w.packed.shape[0] - 1)
     wd = dequantize_q40_torch(QuantizedTensor(w.packed.index_select(0, sel),
@@ -214,7 +258,7 @@ def q40_expert_matmul_reference(x: torch.Tensor, w: QuantizedTensor,
 
 
 def _expert_launch(x: torch.Tensor, w: QuantizedTensor, idx: torch.Tensor,
-                   out_dtype) -> torch.Tensor:
+                   out_dtype, activation_q80: bool = False) -> torch.Tensor:
     k = idx.numel()
     n_e, d, _ = w.packed.shape
     n = x.shape[-1]
@@ -228,6 +272,7 @@ def _expert_launch(x: torch.Tensor, w: QuantizedTensor, idx: torch.Tensor,
     if t > EXPERT_MAX_T:
         raise ValueError(f"q40_expert_matmul kernel takes t <= "
                          f"{EXPERT_MAX_T} tokens, got t={t}")
+    _refuse_unfused("q40_expert_matmul", t, activation_q80)
     x = _checked_x("q40_expert_matmul", x, w, out_dtype)
     if idx.device != x.device:
         raise ValueError("q40_expert_matmul: idx and x on different devices")
@@ -237,28 +282,33 @@ def _expert_launch(x: torch.Tensor, w: QuantizedTensor, idx: torch.Tensor,
     rc = _expert_lib()(
         x.data_ptr(), _DTYPE_CODE[x.dtype], stride, idx.data_ptr(), k, n_e,
         w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[out_dtype], t, n, d,
+        _DTYPE_CODE[out_dtype], t, n, d, int(activation_q80),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(rc, "q40_expert_matmul")
     q40_expert_matmul.launches += 1
+    q80_fused.launches += int(activation_q80)
     return out
 
 
 def q40_expert_matmul(x: torch.Tensor, w: QuantizedTensor,
                       idx: torch.Tensor,
-                      out_dtype=torch.float32) -> torch.Tensor:
+                      out_dtype=torch.float32,
+                      activation_q80: bool = False) -> torch.Tensor:
     """y[k, t, d] = sum_n x[(k,) t, n] * W[idx[k], d, n]: x (t, n) shared by
     the K experts or (K, t, n) one per expert, W a stacked (E, d, n) Q40
-    weight, idx (K,) expert indices on x's device. Returns (K, t, d)."""
+    weight, idx (K,) expert indices on x's device. Returns (K, t, d).
+    activation_q80: x through the Q80 round trip to out_dtype first, in the
+    same launch (t = 1 only)."""
     if w.packed.dim() != 3:
         raise ValueError(f"q40_expert_matmul takes a stacked (E, d, n/2) "
                          f"weight, got packed {tuple(w.packed.shape)}")
+    _refuse_unfused("q40_expert_matmul", x.shape[-2], activation_q80)
     if x.device.type == "cpu":
-        return q40_expert_matmul_reference(x, w, idx, out_dtype)
+        return q40_expert_matmul_reference(x, w, idx, out_dtype, activation_q80)
     if x.device.type != "cuda":
         raise ValueError(f"q40_expert_matmul: no kernel for device "
                          f"{x.device}")
-    return _expert_launch(x, w, idx, out_dtype)
+    return _expert_launch(x, w, idx, out_dtype, activation_q80)
 
 
 q40_expert_matmul.launches = 0

@@ -15,9 +15,14 @@ logical shape (d, n) (d output rows), activations are (..., n), output is
 experts of a stacked (E, d, n) weight: kernel K2 for Q40 stacks.
 
 Both take `activation_q80`: the input goes through the Q80 round trip
-(ops/cuda_q80.py, one kernel launch) before the product, as the JAX
-package's matmul and fused_expert_matmul do (ops/matmul.py:93-95,
-:165-167). The tensor-parallel weight wrappers are not ported yet.
+before the product, as the JAX package's matmul and fused_expert_matmul do
+(ops/matmul.py:93-95, :165-167), where XLA fuses it into the Q40 kernel's
+operand read. Here a Q40 weight at t = 1 (`cuda_q40.fuses_q80`: every
+projection of a decode step) gets it inside K1's or K2's own launch, with
+x passed raw; every other input (t >= 2, the dense router weight, the
+dequantize path above MAX_T) goes through the standalone kernel
+(ops/cuda_q80.py), one more launch a matmul call. The tensor-parallel
+weight wrappers are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,15 +50,18 @@ def matmul(x: torch.Tensor, w: WeightFormat, *,
     """y[..., d] = sum_n x[..., n] * W[d, n] in compute_dtype: the Q40
     kernel when it applies, the dequantize-then-matmul path otherwise (the
     JAX package's local_matmul; the port has no mesh wrappers around it)."""
-    x = _input(x, compute_dtype, activation_q80)
     if isinstance(w, QuantizedTensor):
         t = x.numel() // x.shape[-1]
         if cuda_q40.supports_kernel(w, t):
-            return cuda_q40.q40_matmul(x, w, out_dtype=compute_dtype)
+            fused = activation_q80 and cuda_q40.fuses_q80(w, t)
+            if not fused:
+                x = _input(x, compute_dtype, activation_q80)
+            return cuda_q40.q40_matmul(x, w, out_dtype=compute_dtype,
+                                       activation_q80=fused)
         wd = dequantize_q40_torch(w, compute_dtype)
     else:
         wd = w.to(compute_dtype)
-    return torch.matmul(x, wd.t())
+    return torch.matmul(_input(x, compute_dtype, activation_q80), wd.t())
 
 
 def fused_expert_matmul(x: torch.Tensor, w: WeightFormat, idx: torch.Tensor,
@@ -66,8 +74,12 @@ def fused_expert_matmul(x: torch.Tensor, w: WeightFormat, idx: torch.Tensor,
     plain version on the CPU); on the card it launches K2 or raises, and
     never gathers the experts' bytes instead. A dense stack (the
     dense-weight mode, which has no kernel) is gathered and multiplied."""
-    x = _input(x, compute_dtype, activation_q80)
     if isinstance(w, QuantizedTensor):
-        return cuda_q40.q40_expert_matmul(x, w, idx, out_dtype=compute_dtype)
+        fused = activation_q80 and cuda_q40.fuses_q80(w, x.shape[-2])
+        if not fused:
+            x = _input(x, compute_dtype, activation_q80)
+        return cuda_q40.q40_expert_matmul(x, w, idx, out_dtype=compute_dtype,
+                                          activation_q80=fused)
     wd = w.index_select(0, idx.to(torch.long)).to(compute_dtype)  # (K, d, n)
-    return torch.matmul(x, wd.transpose(-1, -2))
+    return torch.matmul(_input(x, compute_dtype, activation_q80),
+                        wd.transpose(-1, -2))

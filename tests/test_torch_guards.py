@@ -1,6 +1,7 @@
 """Guards of the port: no JAX inside it, no device fallback."""
 
 import ast
+import ctypes
 import functools
 import os
 import subprocess
@@ -323,3 +324,93 @@ def test_q80_and_wgmma_sources_export_c_entries():
                    "mbarrier.try_wait", "barrier.cluster"):
         assert needle in k1
     assert "mma.sync" not in k1
+
+
+class _FakeKernel:
+    """A stand-in for a C entry point: records each call's arguments and
+    returns the given cudaError_t."""
+
+    def __init__(self, rc=0):
+        self.rc, self.calls = rc, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.rc
+
+
+def test_fused_q80_wrappers_launch_at_t1_and_raise_above(monkeypatch):
+    """K1's and K2's fused Q80 round trip, through their CUDA branches with
+    the kernel library mocked: at t = 1 the launch passes q80 = 1 and counts
+    one launch (and one fused); at t >= 2, on the card or the CPU, the
+    wrappers raise before any launch; a launch the kernel refuses raises
+    and counts nothing. Nothing falls back to a launch without the round
+    trip."""
+    import types
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    meta = functools.partial(torch.empty, device="meta")
+    w = QuantizedTensor(meta((8, 32), dtype=torch.uint8), meta((8, 2), dtype=torch.float16))
+    stack = QuantizedTensor(meta((4, 8, 32), dtype=torch.uint8),
+                            meta((4, 8, 2), dtype=torch.float16))
+    idx = meta((2,), dtype=torch.int32)
+
+    def counts():
+        return (cuda_q40.q40_matmul.launches, cuda_q40.q40_expert_matmul.launches,
+                cuda_q40.q80_fused.launches)
+
+    k1, k2 = _FakeKernel(), _FakeKernel()
+    monkeypatch.setattr(cuda_q40, "_lib", lambda: k1)
+    monkeypatch.setattr(cuda_q40, "_expert_lib", lambda: k2)
+    before = counts()
+    cuda_q40._launch(meta((1, 64)), w, torch.bfloat16, activation_q80=True)
+    cuda_q40._expert_launch(meta((2, 1, 64)), stack, idx, torch.float32,
+                            activation_q80=True)
+    assert k1.calls[-1][10] == 1 and k2.calls[-1][13] == 1   # the q80 argument
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    cuda_q40._launch(meta((2, 64)), w, torch.bfloat16)           # unfused: q80 = 0
+    assert k1.calls[-1][10] == 0 and counts()[2] == before[2] + 2
+
+    before, n1, n2 = counts(), len(k1.calls), len(k2.calls)
+    for call in (lambda: cuda_q40._launch(meta((2, 64)), w, torch.float32, activation_q80=True),
+                 lambda: cuda_q40._expert_launch(meta((2, 64)), stack, idx, torch.float32,
+                                                 activation_q80=True),
+                 lambda: cuda_q40.q40_matmul(meta((1, 3, 64)), w, activation_q80=True),
+                 lambda: cuda_q40.q40_matmul(torch.zeros((2, 64)), w, activation_q80=True),
+                 lambda: cuda_q40.q40_expert_matmul(torch.zeros((2, 2, 64)), stack,
+                                                    torch.zeros(2, dtype=torch.int32),
+                                                    activation_q80=True)):
+        with pytest.raises(ValueError, match="t = 1 only"):
+            call()
+    assert (len(k1.calls), len(k2.calls)) == (n1, n2) and counts() == before
+
+    refuse = _FakeKernel(rc=1)   # cudaErrorInvalidValue
+    monkeypatch.setattr(cuda_q40, "_lib", lambda: refuse)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        cuda_q40._launch(meta((1, 64)), w, torch.float32, activation_q80=True)
+    assert counts() == before and len(refuse.calls) == 1
+
+
+def _c_params(src: str, entry: str) -> list[str]:
+    sig = src.split(f'extern "C" int {entry}(', 1)[1].split(")", 1)[0]
+    return [" ".join(p.split()) for p in sig.split(",")]
+
+
+def test_q40_entry_points_take_the_q80_argument(monkeypatch):
+    """csrc/q40_matmul.cu exports K1's and K2's entry points with the q80
+    argument before the stream, and the wrappers' ctypes argument lists
+    match the C parameter lists one for one."""
+    import types
+
+    src = (cuda_build.CSRC / "q40_matmul.cu").read_text()
+    fake = types.SimpleNamespace(q40_matmul_launch=types.SimpleNamespace(),
+                                 q40_expert_matmul_launch=types.SimpleNamespace())
+    monkeypatch.setattr(cuda_build, "load", lambda name: fake)
+    for entry, lib in (("q40_matmul_launch", cuda_q40._lib),
+                       ("q40_expert_matmul_launch", cuda_q40._expert_lib)):
+        params = _c_params(src, entry)
+        assert params[-2:] == ["int q80", "void* stream"]
+        fn = lib.__wrapped__()   # past the cache: types the fake entry
+        assert len(fn.argtypes) == len(params)
+        assert fn.argtypes[-2:] == [ctypes.c_int, ctypes.c_void_p]
+        assert "cudaErrorInvalidValue" in src.split(f'extern "C" int {entry}(', 1)[1][:600]
