@@ -80,13 +80,20 @@ result line):
     counted on its own (counts zeroed just before, read just after, exact):
     exp_f8_flash (P2: one flash-decode call per cache mode, bf16 / e4m3
     astype / bits / bitsflush, B 1, KVH 32, S 8192, fill 7680; bits must
-    equal astype bit for bit; library: SDPA on the filled prefix in bf16),
+    equal astype bit for bit; library: SDPA on the filled prefix in bf16;
+    then each mode timed at 2-24 blocks a row against its plan, and held at
+    its edges: pos 0, 255, 256, S - 1 and past S, B 2 with unequal pos, S
+    100, at the plan's split and at 1, 5 and 13; the kernel's plan export
+    must equal cuda_probes.f8_split_plan),
     exp_pk_decode (P3: base and pk at w1 22016x4096 and attn 4096x4096),
     exp_scale_f16 (P5: 32 x 22016x4096 with u16 and f32 scales, K1 beside;
     the kernel's f16 decode checked over all 63,488 finite patterns) and
     exp_unpack_overlap (P6: 11008x4096, T 256, K1's tensor-core path as
-    `landed` and every (td, n_sub)); each kernel against its plain version
-    (within TOL; P3 pk within 1e-4), then plain and library times.
+    `landed` and every (td, n_sub); then each (td, n_sub) held at t 44, 300
+    and 1, d = td and n 256); each kernel against its plain version
+    (within TOL; P3 pk within 1e-4), then plain and library times. Every
+    P2 and P6 launch checked is launched twice and must repeat bit for bit;
+    each P2 and P6 kernel's registers and local (spill) bytes are printed.
  5. The main paths at full width, each an Engine on cuda from seeded
     synthetic Q40 weights with the Q80 activation round trip on (as the
     CLI builds it for a Q40 model; the plain side runs the round trip's
@@ -1026,8 +1033,14 @@ def phase_probes_p2_p6() -> dict:
     if not torch.equal(outs["bits"], outs["astype"]):
         fail("f8_flash_decode: bits differs from astype on the card")
     print("[probe] bits == astype exact: ok")
+    for label, mode in f8.VARIANTS:   # a second launch gives the same bits
+        k, v = a["bits" if mode == "bitsflush" else mode]
+        if not torch.equal(cuda_probes.f8_flash_decode(mode, a["pos"], a["q"], k, v), outs[mode]):
+            fail(f"f8_flash_decode {mode}: a repeated launch differs")
+    p2_sweep = f8_split_sweep(a)
     del a, ps, outs
     torch.cuda.empty_cache()
+    p2_edges = f8_edges()
 
     # P3: base and pk at w1 and attn, one call each
     cases = {name: exp_pk_decode.make_case(d, n, 0, cuda)
@@ -1124,13 +1137,138 @@ def phase_probes_p2_p6() -> dict:
          tr["landed"], uo.flops(), torch.bfloat16, **at)
     for td, ns in uo.combos():
         label = f"td={td} n_sub={ns}"
-        held("q40_matmul_sub", label, cuda_probes.q40_matmul_sub(xb, w, ns, td).float(),
+        y = cuda_probes.q40_matmul_sub(xb, w, ns, td)
+        held("q40_matmul_sub", label, y.float(),
              want, TOL[torch.bfloat16], False, plain, lib, tr[label], uo.flops(),
              torch.bfloat16, td=td, n_sub=ns, **at)
+        if not torch.equal(cuda_probes.q40_matmul_sub(xb, w, ns, td), y):
+            fail(f"q40_matmul_sub {label}: a repeated launch differs")
     del w, xb, want
     torch.cuda.empty_cache()
+    p6_edges = sub_edges()
+    attrs = probe_attrs()
     return {"rows": rows, "tools": tools, "pk_vs_base": pk_err,
-            "decision": uo.decision(best)}
+            "decision": uo.decision(best), "p2_split_sweep": p2_sweep, "p2_edges": p2_edges,
+            "p6_edges": p6_edges, "attrs": attrs}
+
+
+def held_small(tag: str, got: torch.Tensor, want: torch.Tensor, again: torch.Tensor) -> dict:
+    """One edge case of a probe: within TOL[bf16] of the plain version,
+    finite, and a second launch bit for bit the first."""
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs().max().item()
+    tol = TOL[torch.bfloat16] * want.double().abs().max().item()
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        fail(f"{tag}: max err {err:.3g} > tol {tol:.3g}")
+    if not torch.equal(got, again):
+        fail(f"{tag}: a repeated launch differs")
+    return dict(case=tag, max_abs_err=err, tol=tol)
+
+
+def f8_edges() -> list[dict]:
+    """P2 at its edges, every mode: pos 0, 255, 256 and S - 1 at S 1024,
+    B 2 with pos 100 and 900, and pos past S (clamped); each the plan's
+    split and 1, 5 and 13 blocks a row, against the plain version, bits
+    equal to astype; the kernel's plan export equal to f8_split_plan."""
+    from distributed_llama_tpu_torch.ops import cuda_probes as cp
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    rows = []
+    for b, kvh, s_len, pos in ((1, 2, 1024, [0]), (1, 2, 1024, [255]), (1, 2, 1024, [256]),
+                               (1, 2, 1024, [1023]), (2, 2, 1024, [100, 900]),
+                               (1, 2, 1024, [5000]), (1, 4, 100, [99])):
+        r = b * kvh
+        q = torch.randn((r, 1, cp.F8_HS), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((r, s_len, cp.F8_HS), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((r, s_len, cp.F8_HS), generator=gen, device="cuda").to(torch.bfloat16)
+        k8, v8 = k.to(F8), v.to(F8)
+        caches = {"plain": (k, v), "astype": (k8, v8),
+                  "bits": (k8.view(torch.uint8), v8.view(torch.uint8))}
+        caches["bitsflush"] = caches["bits"]
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        outs = {}
+        for mode in cp.F8_MODES:
+            kc, vc = caches[mode]
+            want = cp.f8_flash_decode_reference(mode, p, q, kc, vc)
+            outs[mode] = cp.f8_flash_decode(mode, p, q, kc, vc)
+            tag = f"P2 {mode} b{b} kvh{kvh} S{s_len} pos{pos}"
+            rows.append(held_small(tag, outs[mode].float(), want.float(),
+                                   cp.f8_flash_decode(mode, p, q, kc, vc).float()))
+            for n in (1, 5, 13):
+                got = cp.f8_flash_decode_split(mode, p, q, kc, vc, n)
+                rows.append(held_small(f"{tag} n_split {n}", got.float(), want.float(),
+                                       cp.f8_flash_decode_split(mode, p, q, kc, vc, n).float()))
+            plan = (cp.f8_flash_plan_kernel(r, s_len, mode), cp.f8_split_plan(r, s_len, mode))
+            if plan[0] != plan[1]:
+                fail(f"f8_flash_decode {mode}: the kernel's plan {plan[0]} != f8_split_plan {plan[1]}")
+        if not torch.equal(outs["bits"], outs["astype"]):
+            fail(f"f8_flash_decode b{b} kvh{kvh} S{s_len} pos{pos}: bits differs from astype")
+    worst = max(r["max_abs_err"] / r["tol"] if r["tol"] else 0.0 for r in rows)
+    print(f"[probe] P2 edges: {len(rows)} cases (pos 0, 255, 256, S - 1, past S, B 2 "
+          f"unequal, S 100; plan and 1/5/13 blocks a row), each within TOL and bit-identical "
+          f"on a second launch, bits == astype, plans equal (max err share {worst:.3f})")
+    return rows
+
+
+def f8_split_sweep(a: dict) -> dict:
+    """P2 at the tool's shape, each mode timed at other blocks a row than
+    its plan's: where the plan stands."""
+    from distributed_llama_tpu_torch.ops import cuda_probes as cp
+    from distributed_llama_tpu_torch.tools import exp_f8_flash as f8
+
+    out = {}
+    for _, mode in f8.VARIANTS:
+        k, v = a["bits" if mode == "bitsflush" else mode]
+        out[mode] = {"plan": cp.f8_split_plan(f8.B * f8.KVH, f8.S, mode), "ms": {
+            n: time_ms(lambda n=n: cp.f8_flash_decode_split(mode, a["pos"], a["q"], k, v, n))
+            for n in (2, 4, 8, 12, 16, 24)}}
+        print(f"[probe] P2 {mode} split sweep (plan {out[mode]['plan']}): "
+              + ", ".join(f"{n}: {ms:.4f}" for n, ms in out[mode]["ms"].items()) + " ms")
+    return out
+
+
+def sub_edges() -> list[dict]:
+    """P6 at its edges, every (td, n_sub): t = 44 (TMA's zero fill past t),
+    t = 300 (two token tiles), d = td (one row tile) and n = 256 (one
+    256-value group, a short -8 correction), against the plain version,
+    bit-identical on a second launch."""
+    from distributed_llama_tpu_torch.ops import cuda_probes as cp
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(37)
+    rows = []
+    for t, n, d in ((44, 4096, 11008), (300, 1024, 256), (44, 4096, 64), (256, 256, 128),
+                    (1, 512, 128)):
+        w = random_q40(gen, d, n)
+        x = torch.randn((t, n), generator=gen, device="cuda").to(torch.bfloat16)
+        want = cp.q40_matmul_sub_reference(x, w).float()
+        for td in cp.SUB_TDS:
+            if d % td:
+                continue
+            for ns in cp.SUB_NS:
+                rows.append(held_small(f"P6 t{t} n{n} d{d} td{td} n_sub{ns}",
+                                       cp.q40_matmul_sub(x, w, ns, td).float(), want,
+                                       cp.q40_matmul_sub(x, w, ns, td).float()))
+    worst = max(r["max_abs_err"] / r["tol"] if r["tol"] else 0.0 for r in rows)
+    print(f"[probe] P6 edges: {len(rows)} cases (t 44, 300 and 1, d = td, n 256), each within "
+          f"TOL and bit-identical on a second launch (max err share {worst:.3f})")
+    return rows
+
+
+def probe_attrs() -> dict:
+    """Registers and local (spill) bytes a thread of every P2 and P6
+    variant, as built; a spill is printed, not failed."""
+    from distributed_llama_tpu_torch.ops import cuda_probes as cp
+
+    out = {f"f8_flash_decode {m}": cp.kernel_attrs("f8", i) for i, m in enumerate(cp.F8_MODES)}
+    out.update({f"q40_matmul_sub td={td} n_sub={ns}": cp.kernel_attrs("sub", td, ns)
+                for td in cp.SUB_TDS for ns in cp.SUB_NS})
+    for name, a in out.items():
+        print(f"[probe] {name}: {a['regs']} registers, {a['local_bytes']} local bytes"
+              f"{' (SPILLS)' if a['local_bytes'] else ''}, {a['dynamic_smem']} B shared, "
+              f"{a['threads']} threads")
+    return out
 
 
 def _spec(name: str):

@@ -10,7 +10,9 @@ bound in each source's header).
   q40_matmul_b(x, w)               unsigned nibbles in bf16, -8 as an f32 correction
   int8_gemv(xq, pk, sc)            int4 widened to int8, integer dot, row scale
   f8_flash_decode(mode, pos, q, k, v)  flash decode over a bf16 or e4m3 cache,
-                                   one of F8_MODES of converting it
+                                   one of F8_MODES of converting it; S split
+                                   by f8_split_plan (f8_flash_decode_split:
+                                   at a given split, for sweeps)
   q40_pk_gemv(mode, x1, x2, xs, w) the GEMV with or without the `& 0xF`
                                    (PK_MODES: lo = pk - 16 hi folded into x2)
   q40_matmul_scales(x, w)          the GEMV with u16 (f16 bits) or f32 scales
@@ -23,9 +25,12 @@ kernels read them (the scales probe also u16); the pk and overlap probes
 take float16 scales, as K1 does. Each wrapper runs its plain PyTorch
 version (`*_reference`) on a CPU tensor, launches its kernel on a CUDA
 tensor, and raises on any other device: there is no fallback from a kernel
-to its plain version. Each wrapper's `launches` counts its calls that
-launched the kernel (f8_flash_decode and q40_matmul_sub launch two kernels
-per call, a small pass and the main one); plain-version calls do not count.
+to its plain version. `kernel_attrs` reads a P2 or P6 kernel's registers
+and local (spill) bytes as built. Each wrapper's `launches` counts its calls that
+launched the kernel (f8_flash_decode may launch two kernels per call, the
+split pass and the merge, q40_matmul_sub two, the block sums of x and the
+product; f8_flash_decode_split counts on f8_flash_decode); plain-version
+calls do not count.
 """
 
 from __future__ import annotations
@@ -285,9 +290,65 @@ int8_gemv.launches = 0
 
 F8_MODES = ("plain", "astype", "bits", "bitsflush")
 F8_HS = 128                 # the kernel's head size
-_F8_SPLIT = 256             # cache slots per block: kSplit in csrc/f8_flash_probe.cu
+# csrc/f8_flash_probe.cu: kSms, kWarps (a slot range each), kStg (slots a
+# stage), blocks an SM by cache type (kBpsBf16, kBpsF8)
+F8_SMS, F8_WARPS, F8_STAGE = 132, 4, 16
+F8_BLOCKS_PER_SM = {"bf16": 1, "e4m3": 4}
 _F8_CACHE = {"plain": torch.bfloat16, "astype": torch.float8_e4m3fn,
              "bits": torch.uint8, "bitsflush": torch.uint8}
+
+
+def f8_split_plan(rows: int, s_len: int, mode: str) -> int:
+    """Blocks a row of the split pass, from the shapes and the mode's cache
+    type alone (f8_plan in csrc/f8_flash_probe.cu): as many as keep rows x
+    n_split within one wave of F8_BLOCKS_PER_SM blocks an SM, at least 1,
+    at most one 16-slot stage a warp of S."""
+    most = -(-s_len // (F8_WARPS * F8_STAGE))
+    per_sm = F8_BLOCKS_PER_SM["bf16" if mode == "plain" else "e4m3"]
+    return max(1, min(F8_SMS * per_sm // rows, most))
+
+
+def f8_split_ranges(pos: torch.Tensor, kvh: int, s_len: int,
+                    n_split: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(start, count), each (rows, n_split * F8_WARPS) int64: the slots of
+    every warp of the split pass, as each block derives them from pos on
+    the device. Row i's fill = min(pos[i // kvh], S - 1) + 1 visible slots
+    are cut into n_split * F8_WARPS ranges of ceil(fill / units) slots;
+    warp u of the row (block u // F8_WARPS) takes [start, start + count)."""
+    units = n_split * F8_WARPS
+    fill = pos.to(torch.int64).clamp(max=s_len - 1).repeat_interleave(kvh) + 1
+    per = (fill + units - 1) // units
+    u = torch.arange(units, device=pos.device)
+    start = torch.minimum(u[None, :] * per[:, None], fill[:, None])
+    return start, torch.minimum(per[:, None], fill[:, None] - start)
+
+
+def f8_split_partials(mode: str, pos: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, n_split: int):
+    """The split pass in plain PyTorch: for every warp range of
+    f8_split_ranges the partial (m, l, acc) in f32, m the range's max score,
+    l the sum of p = exp(s - m) and acc the sum of bf16(p) v; an empty range
+    gives m = -1e30, l = 0, acc = 0. m, l (rows, units), acc (rows, units,
+    128)."""
+    rows, s_len, hs = k.shape
+    start, count = f8_split_ranges(pos, rows // pos.numel(), s_len, n_split)
+    kf = f8_cache_bf16(mode, k).to(torch.float32)
+    vf = f8_cache_bf16(mode, v).to(torch.float32)
+    scores = torch.matmul(q.to(torch.float32), kf.transpose(1, 2)) * (1.0 / hs ** 0.5)
+    slot = torch.arange(s_len, device=k.device)
+    inside = (slot >= start[..., None]) & (slot < (start + count)[..., None])
+    s = torch.where(inside, scores, torch.full_like(scores, -1e30))   # (rows, units, S)
+    m = s.amax(-1)
+    p = torch.where(inside, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    return m, p.sum(-1), torch.matmul(p.to(torch.bfloat16).to(torch.float32), vf)
+
+
+def f8_merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Partials (m, l, acc) over a row's ranges -> (rows, 1, 128) bf16:
+    each weighed by exp(m - the row's max), summed in range order."""
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    out = (acc * w[..., None]).sum(1) / (l * w).sum(-1, keepdim=True)
+    return out.to(torch.bfloat16)[:, None, :]
 
 
 def f8_bits_to_bf16(u8: torch.Tensor, flush: bool) -> torch.Tensor:
@@ -338,12 +399,32 @@ def f8_flash_decode(mode: str, pos: torch.Tensor, q: torch.Tensor,
                     k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """One decode step of attention, q (R, 1, 128) bf16 against k, v
     (R, S, 128) — bf16 for `plain`, float8_e4m3fn for `astype`, uint8 e4m3
-    bits for `bits` and `bitsflush` — with pos (b,) int32, R = b * kvh.
-    Returns (R, 1, 128) bf16."""
+    bits for `bits` and `bitsflush` — with pos (b,) int32 >= 0, R = b * kvh.
+    Returns (R, 1, 128) bf16. The kernel splits S by f8_split_plan."""
     if mode not in F8_MODES:
         raise ValueError(f"f8_flash_decode: mode {mode!r} is not one of {F8_MODES}")
     if _device_of("f8_flash_decode", pos, q, k, v) == "cpu":
         return f8_flash_decode_reference(mode, pos, q, k, v)
+    return _f8_launch(mode, pos, q, k, v, 0)
+
+
+def f8_flash_decode_split(mode: str, pos: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, n_split: int) -> torch.Tensor:
+    """f8_flash_decode with n_split blocks a row instead of the plan's, for
+    timing split counts against each other. On the CPU: the split pass's
+    plain version (f8_split_partials, then f8_merge_partials)."""
+    if mode not in F8_MODES or n_split < 1:
+        raise ValueError(f"f8_flash_decode_split: mode {mode!r} not in {F8_MODES} "
+                         f"or n_split {n_split} < 1")
+    if _device_of("f8_flash_decode_split", pos, q, k, v) == "cpu":
+        return f8_merge_partials(*f8_split_partials(mode, pos, q, k, v, n_split))
+    return _f8_launch(mode, pos, q, k, v, n_split)
+
+
+def _f8_launch(mode: str, pos: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, n_split: int) -> torch.Tensor:
+    """Check the operands and launch the kernel (n_split 0: the plan's);
+    counts on f8_flash_decode.launches."""
     if k.dim() != 3 or k.shape != v.shape or k.shape[2] != F8_HS or \
             tuple(q.shape) != (k.shape[0], 1, F8_HS) or pos.dim() != 1 or \
             pos.numel() < 1 or k.shape[0] % pos.numel():
@@ -360,23 +441,41 @@ def f8_flash_decode(mode: str, pos: torch.Tensor, q: torch.Tensor,
         raise ValueError("f8_flash_decode: k and v must be contiguous and 16-byte aligned")
     rows, s_len, _ = k.shape
     q, pos = q.contiguous(), pos.contiguous()
-    n_split = -(-s_len // _F8_SPLIT)
-    # the split pass's partial (m, l, acc) per row and block of slots
-    part_m = torch.empty((rows, n_split), dtype=torch.float32, device=q.device)
+    n = n_split or f8_split_plan(rows, s_len, mode)
+    # the split pass's partial (m, l, acc) per row and block (unread at n = 1)
+    part_m = torch.empty((rows, n), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((rows, n_split, F8_HS), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((rows, n, F8_HS), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    rc = _fn("f8_flash_decode_launch", (_I,) + (_P,) * 8 + (_I, _I, _I, _P),
+    rc = _fn("f8_flash_decode_launch", (_I,) + (_P,) * 8 + (_I, _I, _I, _I, _P),
              "f8_flash_probe")(
         F8_MODES.index(mode), q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-        rows, rows // pos.numel(), s_len, _stream(q))
+        rows, rows // pos.numel(), s_len, n, _stream(q))
     cuda_build.check(rc, "f8_flash_decode")
     f8_flash_decode.launches += 1
     return out
 
 
 f8_flash_decode.launches = 0
+
+
+def f8_flash_plan_kernel(rows: int, s_len: int, mode: str) -> int:
+    """The split count the kernel's own plan gives (must equal
+    f8_split_plan); loads the library."""
+    return _fn("f8_flash_plan", (_I, _I, _I), "f8_flash_probe")(rows, s_len, F8_MODES.index(mode))
+
+
+def kernel_attrs(kind: str, *variant: int) -> dict:
+    """A probe kernel as compiled, from cudaFuncGetAttributes: registers a
+    thread, local (spill) bytes a thread, static and dynamic shared bytes,
+    threads a block. kind "f8" with (mode index,), or "sub" with (td, n_sub)."""
+    entry, lib = {"f8": ("f8_flash_decode_attrs", "f8_flash_probe"),
+                  "sub": ("q40_matmul_sub_attrs", "q40_prefill_probe")}[kind]
+    vals = (ctypes.c_int * 5)()
+    rc = _fn(entry, (_I,) * len(variant) + (_P,), lib)(*variant, ctypes.addressof(vals))
+    cuda_build.check(rc, entry)
+    return dict(zip(("regs", "local_bytes", "static_smem", "dynamic_smem", "threads"), vals))
 
 
 # ---------------------------------------------------------------------------
@@ -487,8 +586,8 @@ q40_matmul_scales.launches = 0
 # ---------------------------------------------------------------------------
 # P6: unpack/MMA overlap for a prefill chunk (tools/exp_unpack_overlap.py)
 
-SUB_TDS = (64, 128)         # weight rows per block: 4 warps x 16 or 32 rows
-SUB_NS = (1, 2, 4, 8)       # sub-tiles per 128-value chunk of n
+SUB_TDS = (64, 128)         # weight rows a CTA: 1 or 2 MMA warpgroups of 64 rows
+SUB_NS = (1, 2, 4, 8)       # sub-tiles a 128-value chunk of n (the A ring's buffers)
 
 
 def q40_matmul_sub_reference(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
@@ -507,10 +606,11 @@ def q40_matmul_sub_reference(x: torch.Tensor, w: QuantizedTensor) -> torch.Tenso
 
 def q40_matmul_sub(x: torch.Tensor, w: QuantizedTensor, n_sub: int, td: int) -> torch.Tensor:
     """y (t, d) bf16 = bf16 x (t, n) . bf16(nib * s) - 8 xsum . s, f32 sums,
-    on the tensor cores: blocks of td weight rows (SUB_TDS) x 64 tokens,
-    each 128-value chunk of n dequantized in n_sub sub-tiles (SUB_NS),
+    on the tensor cores: CTAs of td weight rows (SUB_TDS) x 256 tokens, a
+    dequantize warpgroup writing each 128-value chunk of n as bf16 in n_sub
+    sub-tiles (SUB_NS) that the MMA warpgroups consume with wgmma,
     overlapped with the MMAs when n_sub > 1. w has float16 scales; d % td
-    == 0 and n % 256 == 0."""
+    == 0, n % 256 == 0, the scales 16-byte aligned."""
     if n_sub not in SUB_NS or td not in SUB_TDS:
         raise ValueError(f"q40_matmul_sub: n_sub {n_sub} not in {SUB_NS} or td {td} "
                          f"not in {SUB_TDS}")
@@ -521,6 +621,8 @@ def q40_matmul_sub(x: torch.Tensor, w: QuantizedTensor, n_sub: int, td: int) -> 
     if n % 256 or d % td:
         raise ValueError(f"q40_matmul_sub: n {n} must be a multiple of 256 and d {d} "
                          f"of td {td}")
+    if w.scales.data_ptr() % 16:
+        raise ValueError("q40_matmul_sub: scales must be 16-byte aligned")
     xsum = torch.empty((t, n // 32), dtype=torch.float32, device=x.device)
     out = torch.empty((t, d), dtype=torch.bfloat16, device=x.device)
     rc = _fn("q40_matmul_sub_launch", (_P,) * 5 + (_I,) * 5 + (_P,), "q40_prefill_probe")(

@@ -36,8 +36,8 @@ VARIANTS = (("bf16", "plain"), ("astype-f8", "astype"), ("bits-f8", "bits"),
 
 def build(mode: str, b: int, kvh: int, s: int, hs: int, sb: int = 512):
     """run(pos, q, k, v) -> (b*kvh, 1, hs) bf16 for one mode. sb is the TPU
-    tool's block of slots; the card's kernel splits S into its own blocks
-    of 256 slots across the SMs, so sb does not change it."""
+    tool's block of slots; the card's kernel splits S by its own plan
+    (cuda_probes.f8_split_plan) across the SMs, so sb does not change it."""
     if hs != cuda_probes.F8_HS:
         raise ValueError(f"the kernel takes hs = {cuda_probes.F8_HS}, got {hs}")
 

@@ -11,15 +11,17 @@ N(0, 1) in bf16. Variants, each one launch per call:
                    tensor-core path (wgmma with the weight dequantized
                    into registers)
   td=T n_sub=S     ops/cuda_probes.py q40_matmul_sub (csrc/
-                   q40_prefill_probe.cu): blocks of T weight rows x 64
-                   tokens; each 128-value chunk of N dequantized in S
-                   sub-tiles, the dequantize of sub-tile i+1 overlapped
-                   with the MMAs of sub-tile i when S > 1
+                   q40_prefill_probe.cu): CTAs of T weight rows x 256
+                   tokens, a dequantize warpgroup writing each 128-value
+                   chunk of N as bf16 in S sub-tiles that MMA warpgroups
+                   consume with wgmma from shared memory; the dequantize
+                   of sub-tile i+1 overlapped with the MMAs of sub-tile i
+                   when S > 1
 
 The TPU tool's (td, n_sub) list followed VMEM and Mosaic's 128-lane rule.
-Here td is 64 or 128 (4 warps of 16 or 32 rows; 256 rows would hold 128
-f32 sums per thread and spill) and must divide D; n_sub is 1, 2, 4 or 8
-(sub-tiles of 128, 64, 32 or 16 values of N, the last half a Q40 block).
+Here td is 64 or 128 (one or two MMA warpgroups of 64 rows, 128 f32 sums
+a thread) and must divide D; n_sub is 1, 2, 4 or 8 (sub-tiles of 128, 64,
+32 or 16 values of N, the last half a Q40 block).
 "whole-tile" is td=128 n_sub=1. A line gives ms per call, bytes and rate;
 then the TPU tool's lines, with TFLOP/s and the ratio to whole-tile, and
 its DECISION against the landed path.

@@ -287,16 +287,20 @@ def test_probe_source_exports_c_entries():
     entries = {"q40_probes": ("q40_ladder_launch", "q40_matmul_a_launch",
                               "q40_matmul_b_launch", "int8_gemv_launch",
                               "q40_pk_gemv_launch", "q40_matmul_scales_launch"),
-               "f8_flash_probe": ("f8_flash_decode_launch",),
-               "q40_prefill_probe": ("q40_matmul_sub_launch",)}
+               "f8_flash_probe": ("f8_flash_decode_launch", "f8_flash_plan",
+                                  "f8_flash_decode_attrs"),
+               "q40_prefill_probe": ("q40_matmul_sub_launch", "q40_matmul_sub_attrs")}
     for name, names in entries.items():
         src = (cuda_build.CSRC / f"{name}.cu").read_text()
         for entry in names:
             assert f'extern "C" int {entry}(' in src
         assert "cudaGetLastError()" in src
     assert "__dp4a" in (cuda_build.CSRC / "q40_probes.cu").read_text()
-    assert "__nv_cvt_fp8x2_to_halfraw2" in (cuda_build.CSRC / "f8_flash_probe.cu").read_text()
-    assert "mma.sync" in (cuda_build.CSRC / "q40_prefill_probe.cu").read_text()
+    f8 = (cuda_build.CSRC / "f8_flash_probe.cu").read_text()
+    assert "__nv_cvt_fp8x2_to_halfraw2" in f8 and "mma.sync" in f8 and "cp.async.cg" in f8
+    # P6: SS wgmma fed by a TMA ring, the -8 correction as tf32 wgmma
+    sub = (cuda_build.CSRC / "q40_prefill_probe.cu").read_text()
+    assert "wgmma.mma_async" in sub and ".tf32.tf32" in sub and "cp.async.bulk.tensor" in sub
 
 
 def test_q80_roundtrip_raises_off_cpu_instead_of_falling_back():
