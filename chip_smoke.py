@@ -85,15 +85,23 @@ result line):
     its edges: pos 0, 255, 256, S - 1 and past S, B 2 with unequal pos, S
     100, at the plan's split and at 1, 5 and 13; the kernel's plan export
     must equal cuda_probes.f8_split_plan),
-    exp_pk_decode (P3: base and pk at w1 22016x4096 and attn 4096x4096),
-    exp_scale_f16 (P5: 32 x 22016x4096 with u16 and f32 scales, K1 beside;
-    the kernel's f16 decode checked over all 63,488 finite patterns) and
+    exp_pk_decode (P3: base and pk at w1 22016x4096 and attn 4096x4096, K1
+    beside each shape), exp_scale_f16 (P5: 32 x 22016x4096 with u16 and f32
+    scales, K1 beside; the kernel's f16 decode checked over all 63,488
+    finite patterns), each tool's DECISION line; P3 and P5 (one kernel,
+    csrc/q40_gemv1_probes.cu) timed at every body (the other item loop, the
+    FMA dequantize, the loads alone, an empty launch of the same grid), as
+    programmatic dependent launches and at 4-128 rows a CTA, every product
+    body held within TOL; held at 52
+    edges (d 1, 4, 5, 17 x n 32, 1024, 1056 with a row of zero scales, and
+    4096x4096 with x = 0); their plans equal to cuda_probes.gemv1_rows; and
     exp_unpack_overlap (P6: 11008x4096, T 256, K1's tensor-core path as
     `landed` and every (td, n_sub); then each (td, n_sub) held at t 44, 300
     and 1, d = td and n 256); each kernel against its plain version
     (within TOL; P3 pk within 1e-4), then plain and library times. Every
-    P2 and P6 launch checked is launched twice and must repeat bit for bit;
-    each P2 and P6 kernel's registers and local (spill) bytes are printed.
+    P2, P3, P5 and P6 launch checked is launched twice and must repeat bit
+    for bit; each P2, P3/P5 and P6 kernel's registers and local (spill)
+    bytes are printed.
  5. The main paths at full width, each an Engine on cuda from seeded
     synthetic Q40 weights with the Q80 activation round trip on (as the
     CLI builds it for a Q40 model; the plain side runs the round trip's
@@ -975,17 +983,15 @@ def counted_passes(name: str, ps: list, want: dict) -> dict:
 
 def phase_probes_p2_p6() -> dict:
     """Phase 4b, its second part: the fp8-cache flash decode (P2), the pk
-    substitution (P3), the f16-bit scales (P5) and the prefill overlap (P6)
-    at their tools' shapes. Per tool: the counted untimed pass, the timed
-    lines, each kernel against its plain version, then plain, library and
-    bound over the same call or pass."""
+    substitution (P3) and the f16-bit scales (P5) (probes_p3_p5), and the
+    prefill overlap (P6) at their tools' shapes. Per tool: the counted
+    untimed pass, the timed lines, each kernel against its plain version,
+    then plain, library and bound over the same call or pass."""
     import torch.nn.functional as F
 
     from distributed_llama_tpu_torch.ops import cuda_probes, cuda_q40
-    from distributed_llama_tpu_torch.quants.torch_codec import (QuantizedTensor,
-                                                                dequantize_q40_torch)
-    from distributed_llama_tpu_torch.tools import (exp_f8_flash, exp_pk_decode,
-                                                   exp_scale_f16, exp_unpack_overlap)
+    from distributed_llama_tpu_torch.quants.torch_codec import dequantize_q40_torch
+    from distributed_llama_tpu_torch.tools import exp_f8_flash, exp_unpack_overlap
 
     cuda = torch.device("cuda")
     rows, tools = [], {}
@@ -1042,73 +1048,7 @@ def phase_probes_p2_p6() -> dict:
     torch.cuda.empty_cache()
     p2_edges = f8_edges()
 
-    # P3: base and pk at w1 and attn, one call each
-    cases = {name: exp_pk_decode.make_case(d, n, 0, cuda)
-             for name, d, n, _ in exp_pk_decode.SHAPES}
-    ps = exp_pk_decode.passes(cuda, cases)
-    tools["exp_pk_decode"] = res = counted_passes(
-        "exp_pk_decode", ps, {label: {"P3": 1} for label, _, _ in ps})
-    tr = {r["name"]: r for r in res["rows"]}
-    pk_err = {}
-    for name, d, n, _ in exp_pk_decode.SHAPES:
-        c = cases[name]
-        wd = rotating(lambda c=c: dequantize_q40_torch(c["w"], torch.bfloat16), d * n * 2)
-        xb = torch.randn((1, n), device="cuda").to(torch.bfloat16)
-        lib = time_ms(lambda: torch.matmul(xb, wd().t()))
-        del wd
-        y = {}
-        for mode in cuda_probes.PK_MODES:
-            args = (mode, c["x1"], c["x2"][mode], c["xs"], c["w"])
-            y[mode] = cuda_probes.q40_pk_gemv(*args)
-            # pk: x1 . pk and x2 . hi are each ~16x the result and cancel, so
-            # the sum order's rounding is amplified about 16x
-            held("q40_pk_gemv", f"{name} {mode}", y[mode],
-                 cuda_probes.q40_pk_gemv_reference(*args),
-                 1e-4 if mode == "pk" else TOL[torch.float32], False,
-                 time_ms(lambda: cuda_probes.q40_pk_gemv_reference(*args)), lib,
-                 tr[f"{name} {mode}"], 2.0 * d * n, torch.float32, shape=name, d=d, n=n)
-        pk_err[name] = ((y["pk"] - y["base"]).abs().max()
-                        / y["base"].abs().max()).item()
-    print(f"[probe] pk vs base, max |diff| / max |base|: {pk_err}")
-    del cases, ps
-    torch.cuda.empty_cache()
-
-    # P5: L weights with u16 and with f32 scales, K1 beside them
-    sf = exp_scale_f16
-    layers, x = made = sf.make_layers(cuda)
-    ps = sf.passes(cuda, made)
-    tools["exp_scale_f16"] = res = counted_passes(
-        "exp_scale_f16", ps, {"u16 scales": {"P5": sf.L}, "f32 scales": {"P5": sf.L},
-                              "K1": {"K1": sf.L}})
-    tr = {r["name"]: r for r in res["rows"]}
-    del ps
-    xb = x.to(torch.bfloat16)
-    wds = [dequantize_q40_torch(QuantizedTensor(p, sc), torch.bfloat16) for p, sc, _ in layers]
-    lib = time_ms(lambda: [torch.matmul(xb, wd.t()) for wd in wds])
-    del wds
-    for label, idx in (("u16 scales", 2), ("f32 scales", 1)):
-        ws = [QuantizedTensor(layer[0], layer[idx]) for layer in layers]
-        held("q40_matmul_scales", label, cuda_probes.q40_matmul_scales(x, ws[0]),
-             cuda_probes.q40_matmul_scales_reference(x, ws[0]), TOL[torch.float32], False,
-             time_ms(lambda: [cuda_probes.q40_matmul_scales_reference(x, w) for w in ws]),
-             lib, tr[label], 2.0 * sf.L * sf.D_OUT * sf.D_IN, torch.float32,
-             layers=sf.L, d=sf.D_OUT, n=sf.D_IN)
-    # the kernel's f16 decode over every finite pattern: one 32-value row
-    # per pattern, nibbles 9 and x = e_0, so y = 9 s - 8 s = s exactly
-    bits = torch.arange(65536, dtype=torch.int32)
-    bits = bits[torch.isfinite(bits.to(torch.int16).view(torch.float16))]
-    su = bits.to(torch.int16).view(torch.uint16).reshape(-1, 1).to("cuda")
-    e0 = torch.zeros((1, 32), device="cuda")
-    e0[0, 0] = 1.0
-    y = cuda_probes.q40_matmul_scales(e0, QuantizedTensor(
-        torch.full((su.shape[0], 16), 0x99, dtype=torch.uint8, device="cuda"), su))
-    want = bits.to(torch.int16).view(torch.float16).to(torch.float32).to("cuda")[None]
-    if not torch.equal(y, want):
-        fail("q40_matmul_scales: the kernel's f16 decode differs from float16")
-    print(f"[probe] the kernel's f16 decode equals float16 over all {su.shape[0]} "
-          "finite patterns")
-    del layers, x, made
-    torch.cuda.empty_cache()
+    pk_err, gemv1 = probes_p3_p5(held, tools)
 
     # P6: landed (K1's tensor-core path, wgmma) and every (td, n_sub), one call each
     uo = exp_unpack_overlap
@@ -1149,7 +1089,287 @@ def phase_probes_p2_p6() -> dict:
     attrs = probe_attrs()
     return {"rows": rows, "tools": tools, "pk_vs_base": pk_err,
             "decision": uo.decision(best), "p2_split_sweep": p2_sweep, "p2_edges": p2_edges,
-            "p6_edges": p6_edges, "attrs": attrs}
+            "p6_edges": p6_edges, "attrs": attrs, "gemv1": gemv1}
+
+
+def probes_p3_p5(held, tools: dict) -> tuple[dict, dict]:
+    """Phase 4b's P3 (the pk substitution) and P5 (the f16-bit scales), one
+    kernel template on the design of the t = 1 GEMV: per tool the counted
+    untimed pass (K1 beside each shape or pass), the timed lines and the
+    DECISION line; each mode against its plain version at full shape, then
+    plain, library and bound, a repeat launch bit for bit; P5's f16 decode
+    over every finite pattern; then the sweeps over bodies and rows a CTA,
+    the edge cases, the kernel's plans and its registers. `held` records
+    and checks one full-shape row. Returns (pk vs base error, the rest)."""
+    from distributed_llama_tpu_torch.ops import cuda_probes
+    from distributed_llama_tpu_torch.quants.torch_codec import (QuantizedTensor,
+                                                                dequantize_q40_torch)
+    from distributed_llama_tpu_torch.tools import exp_pk_decode, exp_scale_f16
+
+    cuda = torch.device("cuda")
+    # P3: base and pk at w1 and attn, one call each, K1 beside them
+    cases = {name: exp_pk_decode.make_case(d, n, 0, cuda)
+             for name, d, n, _ in exp_pk_decode.SHAPES}
+    ps = exp_pk_decode.passes(cuda, cases)
+    tools["exp_pk_decode"] = res = counted_passes(
+        "exp_pk_decode", ps, {label: {"K1" if label.endswith("K1") else "P3": 1}
+                              for label, _, _ in ps})
+    tr = {r["name"]: r for r in res["rows"]}
+    decisions = {"exp_pk_decode": exp_pk_decode.decision({r["name"]: r["ms"] for r in res["rows"]})}
+    print("[probe] " + decisions["exp_pk_decode"])
+    pk_err = {}
+    for name, d, n, _ in exp_pk_decode.SHAPES:
+        c = cases[name]
+        wd = rotating(lambda c=c: dequantize_q40_torch(c["w"], torch.bfloat16), d * n * 2)
+        xb = torch.randn((1, n), device="cuda").to(torch.bfloat16)
+        lib = time_ms(lambda: torch.matmul(xb, wd().t()))
+        del wd
+        y = {}
+        for mode in cuda_probes.PK_MODES:
+            args = (mode, c["x1"], c["x2"][mode], c["xs"], c["w"])
+            y[mode] = cuda_probes.q40_pk_gemv(*args)
+            # pk: x1 . pk and x2 . hi are each ~16x the result and cancel, so
+            # the sum order's rounding is amplified about 16x
+            held("q40_pk_gemv", f"{name} {mode}", y[mode],
+                 cuda_probes.q40_pk_gemv_reference(*args),
+                 1e-4 if mode == "pk" else TOL[torch.float32], False,
+                 time_ms(lambda: cuda_probes.q40_pk_gemv_reference(*args)), lib,
+                 tr[f"{name} {mode}"], 2.0 * d * n, torch.float32, shape=name, d=d, n=n,
+                 k1_ms=tr[f"{name} K1"]["ms"])
+            if not same_bits(cuda_probes.q40_pk_gemv(*args), y[mode]):
+                fail(f"q40_pk_gemv {name} {mode}: a repeated launch differs")
+        pk_err[name] = ((y["pk"] - y["base"]).abs().max()
+                        / y["base"].abs().max()).item()
+    print(f"[probe] pk vs base, max |diff| / max |base|: {pk_err}")
+    sweeps = {"P3": gemv1_sweep_p3(cases)}
+    del cases, ps
+    torch.cuda.empty_cache()
+
+    # P5: L weights with u16 and with f32 scales, K1 beside them
+    sf = exp_scale_f16
+    layers, x = made = sf.make_layers(cuda)
+    ps = sf.passes(cuda, made)
+    tools["exp_scale_f16"] = res = counted_passes(
+        "exp_scale_f16", ps, {"u16 scales": {"P5": sf.L}, "f32 scales": {"P5": sf.L},
+                              "K1": {"K1": sf.L}})
+    tr = {r["name"]: r for r in res["rows"]}
+    decisions["exp_scale_f16"] = sf.decision({r["name"]: r["ms"] for r in res["rows"]})
+    print("[probe] " + decisions["exp_scale_f16"])
+    del ps
+    xb = x.to(torch.bfloat16)
+    wds = [dequantize_q40_torch(QuantizedTensor(p, sc), torch.bfloat16) for p, sc, _ in layers]
+    lib = time_ms(lambda: [torch.matmul(xb, wd.t()) for wd in wds])
+    del wds
+    for label, idx in (("u16 scales", 2), ("f32 scales", 1)):
+        ws = [QuantizedTensor(layer[0], layer[idx]) for layer in layers]
+        y5 = cuda_probes.q40_matmul_scales(x, ws[0])
+        held("q40_matmul_scales", label, y5,
+             cuda_probes.q40_matmul_scales_reference(x, ws[0]), TOL[torch.float32], False,
+             time_ms(lambda: [cuda_probes.q40_matmul_scales_reference(x, w) for w in ws]),
+             lib, tr[label], 2.0 * sf.L * sf.D_OUT * sf.D_IN, torch.float32,
+             layers=sf.L, d=sf.D_OUT, n=sf.D_IN, k1_ms=tr["K1"]["ms"])
+        if not same_bits(cuda_probes.q40_matmul_scales(x, ws[0]), y5):
+            fail(f"q40_matmul_scales {label}: a repeated launch differs")
+    # the kernel's f16 decode over every finite pattern: one 32-value row
+    # per pattern, nibbles 9 and x = e_0, so y = 9 s - 8 s = s exactly
+    bits = torch.arange(65536, dtype=torch.int32)
+    bits = bits[torch.isfinite(bits.to(torch.int16).view(torch.float16))]
+    su = bits.to(torch.int16).view(torch.uint16).reshape(-1, 1).to("cuda")
+    e0 = torch.zeros((1, 32), device="cuda")
+    e0[0, 0] = 1.0
+    y = cuda_probes.q40_matmul_scales(e0, QuantizedTensor(
+        torch.full((su.shape[0], 16), 0x99, dtype=torch.uint8, device="cuda"), su))
+    want = bits.to(torch.int16).view(torch.float16).to(torch.float32).to("cuda")[None]
+    if not torch.equal(y, want):
+        fail("q40_matmul_scales: the kernel's f16 decode differs from float16")
+    print(f"[probe] the kernel's f16 decode equals float16 over all {su.shape[0]} "
+          "finite patterns")
+    sweeps["P5"] = gemv1_sweep_p5(layers, x)
+    del layers, x, made
+    torch.cuda.empty_cache()
+    gemv1 = dict(decisions=decisions, sweeps=sweeps, edges=gemv1_probe_edges(),
+                 plans=gemv1_probe_plans(), attrs=gemv1_probe_attrs())
+    return pk_err, gemv1
+
+
+# rows a CTA that P3 and P5's kernel is timed at beside its plan's
+GEMV1_SWEEP_ROWS = (4, 8, 16, 32, 64, 128)
+# the bodies also timed as programmatic dependent launches (each launch's
+# first weight loads overlap the tail of the launch before it)
+GEMV1_PDL_BODIES = ("full", "loads", "empty")
+
+
+def gemv1_sweep_p3(cases: dict) -> dict:
+    """P3 at the tool's shapes (each call on the next of copies that pass
+    the L2 cache), both modes: ms of every body of GEMV1_BODIES at the
+    plan's rows a CTA (the product as kept, with the other item loop and
+    with the FMA dequantize; the loads alone; no loads: what a short
+    launch's time is made of), the product, the loads and the empty launch
+    again as programmatic dependent launches, then the product at other
+    rows a CTA; every product body at every rows a CTA, and the dependent
+    launch, also held within TOL."""
+    from distributed_llama_tpu_torch.ops import cuda_probes as cp
+    from distributed_llama_tpu_torch.quants.torch_codec import QuantizedTensor
+    from distributed_llama_tpu_torch.tools import exp_pk_decode
+
+    out = {}
+    for name, d, n, _ in exp_pk_decode.SHAPES:
+        c = cases[name]
+        ws = rotating(lambda c=c: QuantizedTensor(c["w"].packed.clone(), c["w"].scales.clone()),
+                      exp_pk_decode.call_bytes(d, n))
+        plan = cp.gemv1_plan_kernel("base", n, d)[0]
+        for mode in cp.PK_MODES:
+            args = (c["x1"], c["x2"][mode], c["xs"])
+            want = cp.q40_pk_gemv_reference(mode, *args, c["w"])
+            tol = (1e-4 if mode == "pk" else TOL[torch.float32]) * want.abs().max().item()
+            t = {body: time_ms(lambda body=body: cp.q40_gemv1_probe(mode, body, 0, *args, ws()))
+                 for body in cp.GEMV1_BODIES}
+            t.update({f"{body} pdl": time_ms(lambda body=body: cp.q40_gemv1_probe(
+                mode, body, 0, *args, ws(), pdl=True)) for body in GEMV1_PDL_BODIES})
+            y = cp.q40_gemv1_probe(mode, "full", 0, *args, c["w"], pdl=True)
+            if not (y - want).abs().max().item() <= tol:
+                fail(f"P3 {name} {mode} full pdl: beyond TOL")
+            for rows in (0, *GEMV1_SWEEP_ROWS):
+                for body in ("full", "other_loop", "fma"):
+                    y = cp.q40_gemv1_probe(mode, body, rows, *args, c["w"])
+                    if not (y - want).abs().max().item() <= tol:
+                        fail(f"P3 {name} {mode} {body} at {rows or plan} rows a CTA: beyond TOL")
+                if rows in (0, plan):
+                    continue
+                t[f"rows {rows}"] = time_ms(
+                    lambda rows=rows: cp.q40_gemv1_probe(mode, "full", rows, *args, ws()))
+            out[f"{name} {mode}"] = dict(plan_rows=plan, ms=t)
+            print(f"[probe] P3 {name} {mode} (plan {plan} rows a CTA), ms: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+        del ws
+    return out
+
+
+def gemv1_sweep_p5(layers: list, x: torch.Tensor) -> dict:
+    """P5 at the tool's shape, a pass over its L weights for u16 and f32
+    scales: ms of every body of GEMV1_BODIES at the plan (the loads alone
+    say what the bytes take at this load pattern), of GEMV1_PDL_BODIES as
+    programmatic dependent launches (a pass is 32 GEMVs back to back, as in
+    a decode step), and of the product at other rows a CTA; every product
+    body and the dependent launch held within TOL on one weight."""
+    from distributed_llama_tpu_torch.ops import cuda_probes as cp
+    from distributed_llama_tpu_torch.quants.torch_codec import QuantizedTensor
+
+    out = {}
+    d, n = layers[0][0].shape[0], layers[0][0].shape[1] * 2
+    plan = cp.gemv1_plan_kernel("u16", n, d)[0]
+    for mode, idx in (("u16", 2), ("f32", 1)):
+        ws = [QuantizedTensor(layer[0], layer[idx]) for layer in layers]
+
+        def one_pass(body, rows=0, pdl=False):
+            for w in ws:
+                cp.q40_gemv1_probe(mode, body, rows, x, None, None, w, pdl=pdl)
+        want = cp.q40_matmul_scales_reference(x, ws[0])
+        for body, pdl in (("full", False), ("other_loop", False), ("fma", False), ("full", True)):
+            y = cp.q40_gemv1_probe(mode, body, 0, x, None, None, ws[0], pdl=pdl)
+            if not (y - want).abs().max().item() <= TOL[torch.float32] * want.abs().max().item():
+                fail(f"P5 {mode} {body}{' pdl' if pdl else ''}: beyond TOL")
+        t = {body: time_ms(lambda body=body: one_pass(body)) for body in cp.GEMV1_BODIES}
+        t.update({f"{body} pdl": time_ms(lambda body=body: one_pass(body, pdl=True))
+                  for body in GEMV1_PDL_BODIES})
+        for rows in (r for r in GEMV1_SWEEP_ROWS if r != plan):
+            t[f"rows {rows}"] = time_ms(lambda rows=rows: one_pass("full", rows))
+        out[mode] = dict(plan_rows=plan, ms=t)
+        print(f"[probe] P5 {mode} scales, one pass of {len(ws)} (plan {plan} rows a CTA), ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    return out
+
+
+def gemv1_probe_edges() -> list[dict]:
+    """P3 (base, pk) and P5 (u16, f32 scales) at their edges, each against
+    its plain version within TOL (pk 1e-4) and bit-identical on a second
+    launch: d 1, 4, 5, 17 (one item, or not a multiple of its 4 rows) by n
+    32, 1024, 1056 (one block, one whole chunk, a ragged second chunk), row
+    2's scales all 0 where d >= 4; then 4096x4096 with x = 0. Inputs come
+    from a CPU generator, so every card sees the same values."""
+    from distributed_llama_tpu_torch.ops import cuda_probes as cp
+    from distributed_llama_tpu_torch.quants.torch_codec import QuantizedTensor
+
+    gen = torch.Generator().manual_seed(41)
+    rows = []
+
+    def case(tag, call, want, tol_rel):
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        tol = tol_rel * want.double().abs().max().item()
+        if not (tuple(got.shape) == tuple(want.shape) and err <= tol
+                and bool(torch.isfinite(got).all())):
+            fail(f"{tag}: max err {err:.3g} > tol {tol:.3g}")
+        if not same_bits(got, again):
+            fail(f"{tag}: a repeated launch differs")
+        rows.append(dict(case=tag, max_abs_err=err, tol=tol))
+
+    shapes = [(d, n, False) for d in (1, 4, 5, 17) for n in (32, 1024, 1056)] + [(4096, 4096, True)]
+    for d, n, zero_x in shapes:
+        packed = torch.randint(0, 256, (d, n // 2), generator=gen, dtype=torch.uint8).cuda()
+        sc = torch.rand((d, n // 32), generator=gen) * 0.004 + 0.001
+        if d >= 4:
+            sc[2] = 0.0
+        x = torch.zeros((1, n)) if zero_x else torch.randn((1, n), generator=gen)
+        xr = x.reshape(-1, 32)
+        x1, xh = xr[:, :16].reshape(1, -1), xr[:, 16:].reshape(1, -1)
+        xs = xr.sum(1).reshape(1, -1).cuda()
+        s16 = sc.to(torch.float16).cuda()
+        at = f"d{d} n{n}{' x=0' if zero_x else ''}"
+        for mode in cp.PK_MODES:
+            x2 = (xh if mode == "base" else xh - 16.0 * x1).cuda()
+            args = (mode, x1.cuda(), x2, xs, QuantizedTensor(packed, s16))
+            case(f"P3 {mode} {at}", lambda: cp.q40_pk_gemv(*args),
+                 cp.q40_pk_gemv_reference(*args), 1e-4 if mode == "pk" else TOL[torch.float32])
+        for kind, scales in (("u16", s16.view(torch.uint16)), ("f32", sc.cuda())):
+            w = QuantizedTensor(packed, scales)
+            xc = x.cuda()
+            case(f"P5 {kind} {at}", lambda: cp.q40_matmul_scales(xc, w),
+                 cp.q40_matmul_scales_reference(xc, w), TOL[torch.float32])
+    worst = max(r["max_abs_err"] / r["tol"] if r["tol"] else 0.0 for r in rows)
+    print(f"[probe] P3/P5 edges: {len(rows)} cases (base, pk, u16, f32; d 1, 4, 5, 17 x n 32, "
+          f"1024, 1056, a row of zero scales; 4096x4096 with x = 0), each within TOL and "
+          f"bit-identical on a second launch (max err share {worst:.3f})")
+    return rows
+
+
+def gemv1_probe_plans() -> dict:
+    """The P3/P5 kernel's own plan (rows a CTA, CTAs, resident CTAs) at
+    every shape phase 4b runs, which must equal cuda_probes.gemv1_rows for
+    the resident count it reports."""
+    from distributed_llama_tpu_torch.ops import cuda_probes as cp
+
+    out = {}
+    shapes = [(4096, 22016), (4096, 4096)] + [(n, d) for d in (1, 4, 5, 17)
+                                              for n in (32, 1024, 1056)]
+    for mode in cp.GEMV1_MODES:
+        for n, d in shapes:
+            rows, ctas, resident = cp.gemv1_plan_kernel(mode, n, d)
+            want = cp.gemv1_rows(n, d, resident)
+            if (rows, ctas) != (want, -(-d // want)):
+                fail(f"P3/P5 plan {mode} n{n} d{d}: kernel {rows} rows x {ctas} CTAs, "
+                     f"gemv1_rows {want}")
+            out[f"{mode} n{n} d{d}"] = dict(rows=rows, ctas=ctas, resident=resident)
+    print(f"[probe] P3/P5 plans equal cuda_probes.gemv1_rows at {len(out)} shapes; resident CTAs "
+          + ", ".join(f"{m} {out[f'{m} n4096 d4096']['resident']}" for m in cp.GEMV1_MODES)
+          + f"; 4096x4096 {out['base n4096 d4096']['rows']} rows x "
+          f"{out['base n4096 d4096']['ctas']} CTAs, 22016x4096 "
+          f"{out['base n4096 d22016']['rows']} x {out['base n4096 d22016']['ctas']}")
+    return out
+
+
+def gemv1_probe_attrs() -> dict:
+    """Registers and local (spill) bytes a thread of every mode and body of
+    the P3/P5 kernel, as built; a spill is printed, not failed."""
+    from distributed_llama_tpu_torch.ops import cuda_probes as cp
+
+    out = {f"{m} {b}": cp.kernel_attrs("gemv1", i, j)
+           for i, m in enumerate(cp.GEMV1_MODES) for j, b in enumerate(cp.GEMV1_BODIES)}
+    print("[probe] P3/P5 kernel " + "; ".join(
+        f"{k}: {a['regs']} registers, {a['local_bytes']} local bytes"
+        f"{' (SPILLS)' if a['local_bytes'] else ''}" for k, a in out.items()))
+    return out
 
 
 def held_small(tag: str, got: torch.Tensor, want: torch.Tensor, again: torch.Tensor) -> dict:
@@ -1883,14 +2103,17 @@ def probe_entries_p2_p6(probes2: dict) -> list[dict]:
                  "one call of tools.exp_f8_flash: B 1, KVH 32, S 8192, hs 128, fill 7680, t=1")
            for label, mode in (("bf16", "plain"), ("astype-f8", "astype"),
                                ("bits-f8", "bits"), ("bitsflush-f8", "bitsflush"))]
-    out += [entry(f"q40_pk_gemv_{mode}", "q40_probes.cu", "tools/exp_pk_decode.py:79",
+    out += [entry(f"q40_pk_gemv_{mode}", "q40_gemv1_probes.cu", "tools/exp_pk_decode.py:79",
                   "exp_pk_decode", f"w1 {mode}", "P3", "q40_pk_gemv",
                   "one call of tools.exp_pk_decode at w1: 22016x4096, f16 scales, t=1, f32",
-                  shapes={"attn": {k: row("q40_pk_gemv", f"attn {mode}")[k] for k in keys}})
+                  k1_ms=row("q40_pk_gemv", f"w1 {mode}")["k1_ms"],
+                  shapes={"attn": {k: row("q40_pk_gemv", f"attn {mode}")[k]
+                                   for k in keys + ("k1_ms",)}})
             for mode in ("base", "pk")]
-    out += [entry(f"q40_matmul_scales_{kind}", "q40_probes.cu", "tools/exp_scale_f16.py:60",
+    out += [entry(f"q40_matmul_scales_{kind}", "q40_gemv1_probes.cu", "tools/exp_scale_f16.py:60",
                   "exp_scale_f16", f"{kind} scales", "P5", "q40_matmul_scales",
-                  f"one pass of tools.exp_scale_f16: 32 x 22016x4096, {kind} scales, t=1, f32")
+                  f"one pass of tools.exp_scale_f16: 32 x 22016x4096, {kind} scales, t=1, f32",
+                  k1_ms=row("q40_matmul_scales", f"{kind} scales")["k1_ms"])
             for kind in ("u16", "f32")]
     landed = {k: row("q40_matmul (landed, wgmma)", "landed")[k] for k in keys}
     out += [entry(f"q40_matmul_sub_n{ns}", "q40_prefill_probe.cu",

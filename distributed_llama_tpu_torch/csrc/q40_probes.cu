@@ -1,4 +1,4 @@
-// Q40 decode-GEMV design probes for Hopper (sm_90a): six kernels that take
+// Q40 decode-GEMV design probes for Hopper (sm_90a): four kernels that take
 // the t = 1 Q40 GEMV of K1/K2 (csrc/q40_matmul.cu) apart, to find what holds
 // it below the card's memory rate. Each replaces one Pallas probe of the JAX
 // repository's tools/:
@@ -12,13 +12,9 @@
 //    unsigned nibbles in bf16 and the -8 folded out into a correction.
 //  * int8_gemv_kernel: tools/exp_int8_dot.py int8_gemv (:56), int4 widened
 //    to int8 and an integer dot (__dp4a), one f32 scale per row.
-//  * q40_pk_kernel<PK>: tools/exp_pk_decode.py build (the pallas_call at
-//    :79), the packed-byte substitution: lo = pk - 16*hi folded into the
-//    activations (x2 = x_hi - 16 x_lo, made outside the kernel), so the
-//    low operand is the whole byte and the `& 0xF` goes.
-//  * q40_scales_kernel<U16>: tools/exp_scale_f16.py q40_matmul_u16 (:60),
-//    K1's t = 1 function with 2-byte f16 scales decoded by integer ops
-//    (U16), against the same kernel reading 4-byte f32 scales.
+//
+// The probes P3 (tools/exp_pk_decode.py) and P5 (tools/exp_scale_f16.py) are
+// in csrc/q40_gemv1_probes.cu, on the design of K1's t = 1 GEMV.
 //
 // What bounds them on the H100: the weight bytes. At the probes' shape
 // (11008 x 4096, t = 1) a ladder, A or B launch reads 22.5 MB of nibbles
@@ -62,28 +58,8 @@
 // an XOR per 4 weights ((nib + 0x78) ^ 0x80 is nib - 8 as int8) and feeds
 // __dp4a against the int8 activations. The integer sum is exact, so the
 // result equals the plain version bit for bit.
-//
-// P3 and P5 are the ladder's dot layout with the -8 folded out: per Q40
-// block a lane sums its 32 products in f32, multiplies the sum by the
-// block's scale once, and adds s * xsum[b] to a correction that the row
-// subtracts 8 times at the end. What bounds them is again the weight bytes:
-// P3 at w1 (22016 x 4096, f16 scales) reads 50.8 MB, 15.2 us; at attn
-// (4096 x 4096) 9.5 MB, 2.83 us. P5's pass of 32 x 22016 x 4096 reads
-// 1,626.7 MB with u16 scales (0.486 ms) and 1,807.1 MB with f32 (0.539 ms).
-//  * P3 stages its two activation vectors (x1, x2: (n/2) f32 each, in the
-//    weight's byte order) into the 36-float slots, x1 in the first 16 and
-//    x2 in the next, and reads xsum (n/32) per lane from device memory.
-//    Per byte: base converts lo = byte & 0xF and hi = byte >> 4; pk
-//    converts the byte itself and hi. The sums are f32 FMAs; the 16x
-//    cancellation in pk costs about 1e-5 of the largest output.
-//  * P5 stages x as the dot stage does and the block of threads sums each
-//    32-value block of x into shared memory (a third barrier per chunk).
-//    U16 decodes a scale as the JAX package's _f16_bits_to_f32 does:
-//    sign | (e + 112) << 23 | m << 13 for normals, m * 2^-24 for
-//    subnormals, with integer ops and a select, never __half2float.
 
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -383,159 +359,6 @@ int8_gemv_kernel(const int8_t* __restrict__ xq, const uint8_t* __restrict__ pk,
   if (lane == 0) out[row] = (float)acc * __ldg(sc + row);
 }
 
-// ---------------------------------------------------------------------------
-// P3. x1, x2: (n/2) f32, element b*16 + j for byte j of block b; xsum: (n/32)
-// f32; packed: (d, n/2) u8 block-major; scales: (d, n/32) f16; out: (d) f32.
-template <bool PK>
-__global__ void __launch_bounds__(kWarps * 32)
-q40_pk_kernel(const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ xsum,
-              const uint8_t* __restrict__ packed, const __half* __restrict__ scales, float* __restrict__ out, int n,
-              int d) {
-  __shared__ __align__(16) float xs[kCB * kPad];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * kWarps + warp;
-  const int nb = n / 32;
-  const bool live = row < d;
-  const uint4* prow = reinterpret_cast<const uint4*>(packed) + (size_t)(live ? row : 0) * nb;
-  const __half* srow = scales + (size_t)(live ? row : 0) * nb;
-
-  float acc = 0.f, corr = 0.f;
-  for (int c0 = 0; c0 < nb; c0 += kCB) {
-    uint4 pk[kU];
-    float sc[kU], xsb[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int blk = c0 + u * 32 + lane;
-      const bool in = live && blk < nb;
-      // a missing block: zero bytes, scale and block sum; it adds nothing
-      pk[u] = in ? __ldg(prow + blk) : make_uint4(0u, 0u, 0u, 0u);
-      sc[u] = in ? __half2float(srow[blk]) : 0.f;
-      xsb[u] = in ? __ldg(xsum + blk) : 0.f;
-    }
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < kCB * 8; i += kWarps * 32) {
-      const int blk = i >> 3, part = i & 7, b = c0 + blk;
-      const float* src = part < 4 ? x1 : x2;
-      const float4 v = b < nb ? __ldg(reinterpret_cast<const float4*>(src + b * 16 + (part & 3) * 4))
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(&xs[blk * kPad + part * 4]) = v;
-    }
-    __syncthreads();
-    if (!live) continue;
-
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const uint32_t words[4] = {pk[u].x, pk[u].y, pk[u].z, pk[u].w};
-      const float* xb = &xs[(u * 32 + lane) * kPad];
-      float a = 0.f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 xl = *reinterpret_cast<const float4*>(xb + 4 * q);
-        const float4 xh = *reinterpret_cast<const float4*>(xb + 16 + 4 * q);
-        const float l4[4] = {xl.x, xl.y, xl.z, xl.w};
-        const float h4[4] = {xh.x, xh.y, xh.z, xh.w};
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const uint32_t byte = (words[q] >> (8 * bb)) & 0xFFu;
-          const float lo = PK ? (float)byte : (float)(byte & 0xFu);
-          a = fmaf(l4[bb], lo, a);
-          a = fmaf(h4[bb], (float)(byte >> 4), a);
-        }
-      }
-      acc = fmaf(a, sc[u], acc);
-      corr = fmaf(xsb[u], sc[u], corr);
-    }
-  }
-
-  if (!live) return;
-  const float y = warp_sum(fmaf(-8.f, corr, acc));
-  if (lane == 0) out[row] = y;
-}
-
-// ---------------------------------------------------------------------------
-// P5. f16 bits -> f32 with integer ops (the JAX package's _f16_bits_to_f32):
-// exact for every finite pattern, normals and subnormals.
-__device__ __forceinline__ float f16_bits_to_f32(uint32_t u) {
-  const uint32_t sign = (u & 0x8000u) << 16, e = (u >> 10) & 0x1Fu, m = u & 0x3FFu;
-  const float normal = __uint_as_float(sign | ((e + 112u) << 23) | (m << 13));
-  const float sub = __uint_as_float(__float_as_uint((float)m * 5.9604644775390625e-08f) | sign);
-  return e == 0u ? sub : normal;
-}
-
-// x: (n) f32; packed: (d, n/2) u8 block-major; scales: (d, n/32) u16 f16
-// bits (U16) or f32; out: (d) f32.
-template <bool U16>
-__global__ void __launch_bounds__(kWarps * 32)
-q40_scales_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed, const void* __restrict__ scales,
-                  float* __restrict__ out, int n, int d) {
-  __shared__ __align__(16) float xs[kCB * kPad];
-  __shared__ float xsum[kCB];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * kWarps + warp;
-  const int nb = n / 32;
-  const bool live = row < d;
-  const uint4* prow = reinterpret_cast<const uint4*>(packed) + (size_t)(live ? row : 0) * nb;
-  const size_t soff = (size_t)(live ? row : 0) * nb;
-
-  float acc = 0.f, corr = 0.f;
-  for (int c0 = 0; c0 < nb; c0 += kCB) {
-    uint4 pk[kU];
-    float sc[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int blk = c0 + u * 32 + lane;
-      const bool in = live && blk < nb;
-      pk[u] = in ? __ldg(prow + blk) : make_uint4(0u, 0u, 0u, 0u);
-      if constexpr (U16) {
-        sc[u] = f16_bits_to_f32(in ? (uint32_t)__ldg(static_cast<const unsigned short*>(scales) + soff + blk) : 0u);
-      } else {
-        sc[u] = in ? __ldg(static_cast<const float*>(scales) + soff + blk) : 0.f;
-      }
-    }
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < kCB * 8; i += kWarps * 32) {
-      const int col = c0 * 32 + i * 4;
-      const float4 v = col < n ? __ldg(reinterpret_cast<const float4*>(x + col)) : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(&xs[(i >> 3) * kPad + (i & 7) * 4]) = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < kCB) {  // one block's activation sum per thread
-      const float* b = &xs[threadIdx.x * kPad];
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) s += b[j];
-      xsum[threadIdx.x] = s;
-    }
-    __syncthreads();
-    if (!live) continue;
-
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const uint32_t words[4] = {pk[u].x, pk[u].y, pk[u].z, pk[u].w};
-      const float4* xv = reinterpret_cast<const float4*>(&xs[(u * 32 + lane) * kPad]);
-      float a = 0.f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 xl = xv[q], xh = xv[4 + q];
-        const float l4[4] = {xl.x, xl.y, xl.z, xl.w};
-        const float h4[4] = {xh.x, xh.y, xh.z, xh.w};
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const uint32_t byte = (words[q] >> (8 * bb)) & 0xFFu;
-          a = fmaf(l4[bb], (float)(byte & 0xFu), a);
-          a = fmaf(h4[bb], (float)(byte >> 4), a);
-        }
-      }
-      acc = fmaf(a, sc[u], acc);
-      corr = fmaf(sc[u], xsum[u * 32 + lane], corr);
-    }
-  }
-
-  if (!live) return;
-  const float y = warp_sum(fmaf(-8.f, corr, acc));
-  if (lane == 0) out[row] = y;
-}
-
 template <int STAGE>
 cudaError_t launch_ladder(const void* x, const void* packed, const void* scales, void* out, int n, int d,
                           cudaStream_t stream) {
@@ -599,47 +422,5 @@ extern "C" int int8_gemv_launch(const void* xq, const void* pk, const void* sc, 
   int8_gemv_kernel<<<rows, kWarps * 32, (size_t)k, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(pk), static_cast<const float*>(sc),
       static_cast<float*>(out), k, d);
-  return (int)cudaGetLastError();
-}
-
-// P3. pk 0 (base) or 1 (pk). x1, x2: (n/2) f32 in the weight's byte order
-// (x1 = x_lo; x2 = x_hi, or x_hi - 16 x_lo for pk); xsum: (n/32) f32;
-// packed: (d, n/2) u8 block-major; scales: (d, n/32) f16; out: (d) f32.
-// Returns the launch's cudaError_t.
-extern "C" int q40_pk_gemv_launch(int pk, const void* x1, const void* x2, const void* xsum, const void* packed,
-                                  const void* scales, void* out, int n, int d, void* stream) {
-  if (n % 32 || (pk != 0 && pk != 1)) return (int)cudaErrorInvalidValue;
-  const unsigned rows = (unsigned)((d + kWarps - 1) / kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(x1);
-  const float* b = static_cast<const float*>(x2);
-  const float* c = static_cast<const float*>(xsum);
-  const uint8_t* p = static_cast<const uint8_t*>(packed);
-  const __half* sc = static_cast<const __half*>(scales);
-  float* o = static_cast<float*>(out);
-  if (pk) {
-    q40_pk_kernel<true><<<rows, kWarps * 32, 0, s>>>(a, b, c, p, sc, o, n, d);
-  } else {
-    q40_pk_kernel<false><<<rows, kWarps * 32, 0, s>>>(a, b, c, p, sc, o, n, d);
-  }
-  return (int)cudaGetLastError();
-}
-
-// P5. u16 1: scales are (d, n/32) u16 f16 bits; u16 0: f32. x: (n) f32;
-// packed: (d, n/2) u8 block-major; out: (d) f32. Returns the launch's
-// cudaError_t.
-extern "C" int q40_matmul_scales_launch(int u16, const void* x, const void* packed, const void* scales, void* out,
-                                        int n, int d, void* stream) {
-  if (n % 32 || (u16 != 0 && u16 != 1)) return (int)cudaErrorInvalidValue;
-  const unsigned rows = (unsigned)((d + kWarps - 1) / kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x);
-  const uint8_t* p = static_cast<const uint8_t*>(packed);
-  float* o = static_cast<float*>(out);
-  if (u16) {
-    q40_scales_kernel<true><<<rows, kWarps * 32, 0, s>>>(xp, p, scales, o, n, d);
-  } else {
-    q40_scales_kernel<false><<<rows, kWarps * 32, 0, s>>>(xp, p, scales, o, n, d);
-  }
   return (int)cudaGetLastError();
 }

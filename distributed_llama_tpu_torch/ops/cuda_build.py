@@ -29,8 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 KERNELS = ("q40_matmul", "flash_attention",   # the engine's kernels
            "q80_roundtrip")
-PROBES = ("q40_probes", "f8_flash_probe",     # the design probes (tools/)
-          "q40_prefill_probe")
+PROBES = ("q40_probes", "q40_gemv1_probes",   # the design probes (tools/)
+          "f8_flash_probe", "q40_prefill_probe")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

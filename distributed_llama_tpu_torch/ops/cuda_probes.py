@@ -1,9 +1,9 @@
 """The design probes — counterparts of the Pallas probes in the JAX
 repository's tools/ (kernel_ladder.py, kernel_experiments.py,
-exp_int8_dot.py, exp_pk_decode.py, exp_scale_f16.py in csrc/q40_probes.cu;
-exp_f8_flash.py in csrc/f8_flash_probe.cu; exp_unpack_overlap.py in
-csrc/q40_prefill_probe.cu), as hand-written Hopper kernels (design and
-bound in each source's header).
+exp_int8_dot.py in csrc/q40_probes.cu; exp_pk_decode.py, exp_scale_f16.py
+in csrc/q40_gemv1_probes.cu; exp_f8_flash.py in csrc/f8_flash_probe.cu;
+exp_unpack_overlap.py in csrc/q40_prefill_probe.cu), as hand-written Hopper
+kernels (design and bound in each source's header).
 
   q40_ladder(stage, x, w)          the cost ladder, one stage of STAGES per launch
   q40_matmul_a(x, w)               the dequantized weight in bf16, -8 inside
@@ -16,6 +16,9 @@ bound in each source's header).
   q40_pk_gemv(mode, x1, x2, xs, w) the GEMV with or without the `& 0xF`
                                    (PK_MODES: lo = pk - 16 hi folded into x2)
   q40_matmul_scales(x, w)          the GEMV with u16 (f16 bits) or f32 scales
+  q40_gemv1_probe(mode, body, rows, xa, xb, xs, w, pdl)  P3 or P5's kernel
+                                   with another body (GEMV1_BODIES), rows a
+                                   CTA or as a dependent launch, for sweeps
   q40_matmul_sub(x, w, n_sub, td)  a prefill chunk on the tensor cores, the
                                    dequantize overlapped (n_sub > 1) or not
 
@@ -25,12 +28,12 @@ kernels read them (the scales probe also u16); the pk and overlap probes
 take float16 scales, as K1 does. Each wrapper runs its plain PyTorch
 version (`*_reference`) on a CPU tensor, launches its kernel on a CUDA
 tensor, and raises on any other device: there is no fallback from a kernel
-to its plain version. `kernel_attrs` reads a P2 or P6 kernel's registers
-and local (spill) bytes as built. Each wrapper's `launches` counts its calls that
+to its plain version. `kernel_attrs` reads a P2, P3/P5 or P6 kernel's
+registers and local (spill) bytes as built. Each wrapper's `launches` counts its calls that
 launched the kernel (f8_flash_decode may launch two kernels per call, the
 split pass and the merge, q40_matmul_sub two, the block sums of x and the
-product; f8_flash_decode_split counts on f8_flash_decode); plain-version
-calls do not count.
+product; f8_flash_decode_split counts on f8_flash_decode, q40_gemv1_probe
+on q40_pk_gemv or q40_matmul_scales); plain-version calls do not count.
 """
 
 from __future__ import annotations
@@ -469,9 +472,11 @@ def f8_flash_plan_kernel(rows: int, s_len: int, mode: str) -> int:
 def kernel_attrs(kind: str, *variant: int) -> dict:
     """A probe kernel as compiled, from cudaFuncGetAttributes: registers a
     thread, local (spill) bytes a thread, static and dynamic shared bytes,
-    threads a block. kind "f8" with (mode index,), or "sub" with (td, n_sub)."""
+    threads a block. kind "f8" with (mode index,), "sub" with (td, n_sub),
+    or "gemv1" with (GEMV1_MODES index, GEMV1_BODIES index)."""
     entry, lib = {"f8": ("f8_flash_decode_attrs", "f8_flash_probe"),
-                  "sub": ("q40_matmul_sub_attrs", "q40_prefill_probe")}[kind]
+                  "sub": ("q40_matmul_sub_attrs", "q40_prefill_probe"),
+                  "gemv1": ("q40_gemv1_probe_attrs", "q40_gemv1_probes")}[kind]
     vals = (ctypes.c_int * 5)()
     rc = _fn(entry, (_I,) * len(variant) + (_P,), lib)(*variant, ctypes.addressof(vals))
     cuda_build.check(rc, entry)
@@ -479,9 +484,72 @@ def kernel_attrs(kind: str, *variant: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# P3: the packed-byte substitution (tools/exp_pk_decode.py)
+# P3 and P5: one kernel on the design of K1's t = 1 GEMV (csrc/q40_gemv1_probes.cu)
 
 PK_MODES = ("base", "pk")
+GEMV1_MODES = ("base", "pk", "u16", "f32")     # the C entry's mode index
+# the product (as kept; with the mode's other item loop; with the FMA form
+# of the dequantize), the loads alone, no loads
+GEMV1_BODIES = ("full", "other_loop", "fma", "loads", "empty")
+_PRODUCT_BODIES = ("full", "other_loop", "fma")
+# csrc/q40_gemv1_probes.cu: warps a CTA, rows an item (a chunk is 32 Q40
+# blocks, one a lane), partial-sum bytes a CTA, rows a CTA at most
+GEMV1_WARPS, GEMV1_ITEM_ROWS = 8, 4
+GEMV1_SMEM_MAX, GEMV1_MAX_ROWS = 48 * 1024, 256
+# the f32 2^23: an operand v at bit p of a word OR'd into it is 2^23 + v 2^p
+MAGIC = 0x4B000000
+# the bit positions of the operands in the kernel's words: a word's bytes 0
+# and 1 (2 and 3 after a shift by 16) hold lo at 0 and 8, hi at 4 and 12;
+# pk's whole byte sits at 0
+NIBBLE_PS = (0, 4, 8, 12)
+
+
+def magic_operand(v: torch.Tensor, p: int) -> torch.Tensor:
+    """v as the kernel's kept arithmetic forms it, with no int-to-float
+    convert: v (an integer tensor of nibbles, or bytes at p = 0) at bit p OR'd
+    into the f32 2^(23-p) (its last mantissa bit worth 2^-p) is 2^(23-p) + v;
+    one f32 subtraction of 2^(23-p) leaves v."""
+    f = ((v.to(torch.int32) << p) | (MAGIC - (p << 23))).view(torch.float32)
+    return f - 2.0 ** (23 - p)
+
+
+def magic_times_scale(v: torch.Tensor, s: torch.Tensor, p: int) -> torch.Tensor:
+    """v * s as the kernel's "fma" body forms it, with no int-to-float
+    convert: v (an integer tensor of nibbles, or bytes at p = 0) shifted to
+    bit p and OR'd into MAGIC is the f32 f = 2^23 + v 2^p; one FMA f * (s 2^-p)
+    - 2^(23-p) s (both constants s times a power of two), here in f64 and
+    rounded to f32 once, as the card's FMA rounds. v and s broadcast; s is
+    f32."""
+    f = ((v.to(torch.int32) << p) | MAGIC).view(torch.float32)
+    sp, cp = s * 2.0 ** -p, s * -(2.0 ** (23 - p))
+    return (f.double() * sp.double() + cp.double()).to(torch.float32)
+
+
+def gemv1_rows(n: int, d: int, resident: int) -> int:
+    """Rows a CTA of the P3/P5 kernel (the kernel's gemv1_rows): about one
+    wave of `resident` equal CTAs, a multiple of GEMV1_ITEM_ROWS, at most
+    GEMV1_MAX_ROWS, its partial sums within GEMV1_SMEM_MAX; 0 if n is too
+    wide for even one item's rows."""
+    chunks = -(-(n // 32) // 32)
+    cap = min(GEMV1_MAX_ROWS, GEMV1_SMEM_MAX // (4 * chunks)) \
+        // GEMV1_ITEM_ROWS * GEMV1_ITEM_ROWS
+    if cap < GEMV1_ITEM_ROWS:
+        return 0
+    per_cta = -(-d // max(1, resident))
+    return min(-(-per_cta // GEMV1_ITEM_ROWS) * GEMV1_ITEM_ROWS, cap)
+
+
+def gemv1_items(n: int, d: int, rows: int):
+    """The kernel's work, item by item: (cta, warp, chunk, row0) for every
+    item of GEMV1_ITEM_ROWS rows x one chunk a warp computes, dealt
+    chunk-major in contiguous runs; a row past d is read but never written."""
+    chunks = -(-(n // 32) // 32)
+    per_cta = chunks * (rows // GEMV1_ITEM_ROWS)
+    for cta in range(-(-d // rows)):
+        for warp in range(GEMV1_WARPS):
+            for i in range(warp * per_cta // GEMV1_WARPS, (warp + 1) * per_cta // GEMV1_WARPS):
+                c, g = divmod(i, rows // GEMV1_ITEM_ROWS)
+                yield cta, warp, c, cta * rows + g * GEMV1_ITEM_ROWS
 
 
 def q40_pk_gemv_reference(mode: str, x1: torch.Tensor, x2: torch.Tensor,
@@ -499,6 +567,20 @@ def q40_pk_gemv_reference(mode: str, x1: torch.Tensor, x2: torch.Tensor,
     return ((blk * s).sum(-1) - 8.0 * (s * xs.reshape(nb)).sum(-1))[None, :]
 
 
+def _pk_checked(x1: torch.Tensor, x2: torch.Tensor, xs: torch.Tensor, w: QuantizedTensor):
+    """x1, x2 (1, n/2) and xs (1, n/32) f32 and w with f16 scales, as the
+    kernel takes them; raises otherwise."""
+    m = x1.shape[-1]
+    if tuple(x1.shape) != (1, m) or x2.shape != x1.shape or \
+            tuple(xs.shape) != (1, m // 16) or m % 16:
+        raise ValueError(f"q40_pk_gemv: x1 {tuple(x1.shape)}, x2 {tuple(x2.shape)}, "
+                         f"xs {tuple(xs.shape)} must be (1, n/2), (1, n/2), (1, n/32)")
+    if not (x1.dtype == x2.dtype == xs.dtype == torch.float32):
+        raise TypeError("q40_pk_gemv: x1, x2 and xs must be float32")
+    _checked_weight("q40_pk_gemv", w, 2 * m, (torch.float16,))
+    return _aligned(x1), _aligned(x2), xs.contiguous()
+
+
 def q40_pk_gemv(mode: str, x1: torch.Tensor, x2: torch.Tensor, xs: torch.Tensor,
                 w: QuantizedTensor) -> torch.Tensor:
     """y (1, d) f32 = sum over the bytes of x1 (A s) + x2 (hi s) - 8 sum_b
@@ -509,20 +591,13 @@ def q40_pk_gemv(mode: str, x1: torch.Tensor, x2: torch.Tensor, xs: torch.Tensor,
         raise ValueError(f"q40_pk_gemv: mode {mode!r} is not one of {PK_MODES}")
     if _device_of("q40_pk_gemv", x1, x2, xs, w.packed, w.scales) == "cpu":
         return q40_pk_gemv_reference(mode, x1, x2, xs, w)
-    m = x1.shape[-1]
-    if tuple(x1.shape) != (1, m) or x2.shape != x1.shape or \
-            tuple(xs.shape) != (1, m // 16) or m % 16:
-        raise ValueError(f"q40_pk_gemv: x1 {tuple(x1.shape)}, x2 {tuple(x2.shape)}, "
-                         f"xs {tuple(xs.shape)} must be (1, n/2), (1, n/2), (1, n/32)")
-    if not (x1.dtype == x2.dtype == xs.dtype == torch.float32):
-        raise TypeError("q40_pk_gemv: x1, x2 and xs must be float32")
-    _checked_weight("q40_pk_gemv", w, 2 * m, (torch.float16,))
-    x1, x2, xs = _aligned(x1), _aligned(x2), xs.contiguous()
+    x1, x2, xs = _pk_checked(x1, x2, xs, w)
     d = w.packed.shape[0]
     out = torch.empty((1, d), dtype=torch.float32, device=x1.device)
-    rc = _fn("q40_pk_gemv_launch", (_I,) + (_P,) * 6 + (_I, _I, _P))(
+    rc = _fn("q40_pk_gemv_launch", (_I,) + (_P,) * 6 + (_I, _I, _P), "q40_gemv1_probes")(
         PK_MODES.index(mode), x1.data_ptr(), x2.data_ptr(), xs.data_ptr(),
-        w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(), 2 * m, d, _stream(x1))
+        w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(), 2 * x1.shape[1], d,
+        _stream(x1))
     cuda_build.check(rc, "q40_pk_gemv")
     q40_pk_gemv.launches += 1
     return out
@@ -572,7 +647,7 @@ def q40_matmul_scales(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
                      (torch.uint16, torch.float32))
     d, n = w.packed.shape[0], x.shape[1]
     out = torch.empty((1, d), dtype=torch.float32, device=x.device)
-    rc = _fn("q40_matmul_scales_launch", (_I,) + (_P,) * 4 + (_I, _I, _P))(
+    rc = _fn("q40_matmul_scales_launch", (_I,) + (_P,) * 4 + (_I, _I, _P), "q40_gemv1_probes")(
         int(w.scales.dtype == torch.uint16), x.data_ptr(), w.packed.data_ptr(),
         w.scales.data_ptr(), out.data_ptr(), n, d, _stream(x))
     cuda_build.check(rc, "q40_matmul_scales")
@@ -581,6 +656,59 @@ def q40_matmul_scales(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
 
 
 q40_matmul_scales.launches = 0
+
+
+def q40_gemv1_probe(mode: str, body: str, rows: int, xa: torch.Tensor, xb, xs,
+                    w: QuantizedTensor, pdl: bool = False) -> torch.Tensor:
+    """P3 or P5's kernel (mode of GEMV1_MODES: base and pk take q40_pk_gemv's
+    operands xa = x1, xb = x2, xs; u16 and f32 take q40_matmul_scales's x as
+    xa, xb and xs None) with another body of GEMV1_BODIES or `rows` a CTA
+    (0: the plan), for timing them against each other. "loads" and "empty"
+    compute nothing (their output is not y). pdl ("full", "loads", "empty"):
+    a programmatic dependent launch, whose first weight loads overlap the
+    tail of the kernel before it on the stream, so w must not be that
+    kernel's output. On the CPU, the product bodies run the plain version
+    and the others raise. Counts on q40_pk_gemv (base, pk) or
+    q40_matmul_scales (u16, f32)."""
+    if mode not in GEMV1_MODES or body not in GEMV1_BODIES or \
+            (pdl and body not in ("full", "loads", "empty")):
+        raise ValueError(f"q40_gemv1_probe: mode {mode!r} not in {GEMV1_MODES} or body "
+                         f"{body!r} not in {GEMV1_BODIES} (pdl: full, loads, empty)")
+    pk = mode in PK_MODES
+    ops = (xa, xb, xs) if pk else (xa,)
+    if _device_of("q40_gemv1_probe", *ops, w.packed, w.scales) == "cpu":
+        if body not in _PRODUCT_BODIES:
+            raise ValueError(f"q40_gemv1_probe: body {body!r} has no plain version")
+        return q40_pk_gemv_reference(mode, xa, xb, xs, w) if pk \
+            else q40_matmul_scales_reference(xa, w)
+    if pk:
+        xa, xb, xs = _pk_checked(xa, xb, xs, w)
+        n = 2 * xa.shape[1]
+    else:
+        want = torch.uint16 if mode == "u16" else torch.float32
+        xa = _checked_q40("q40_gemv1_probe", xa, w, torch.float32, 1, (want,))
+        n = xa.shape[1]
+    d = w.packed.shape[0]
+    out = torch.empty((1, d), dtype=torch.float32, device=xa.device)
+    rc = _fn("q40_gemv1_probe_launch", (_I, _I, _I) + (_P,) * 6 + (_I, _I, _I, _P),
+             "q40_gemv1_probes")(
+        GEMV1_MODES.index(mode), GEMV1_BODIES.index(body), int(pdl), xa.data_ptr(),
+        xb.data_ptr() if pk else None, xs.data_ptr() if pk else None,
+        w.packed.data_ptr(), w.scales.data_ptr(), out.data_ptr(), n, d, rows, _stream(xa))
+    cuda_build.check(rc, "q40_gemv1_probe")
+    (q40_pk_gemv if pk else q40_matmul_scales).launches += 1
+    return out
+
+
+def gemv1_plan_kernel(mode: str, n: int, d: int) -> tuple[int, int, int]:
+    """(rows a CTA, CTAs, resident CTAs) as the kernel plans a launch of
+    `mode` at (n, d); rows must equal gemv1_rows(n, d, resident). Loads the
+    library."""
+    vals = (ctypes.c_int * 3)()
+    rc = _fn("q40_gemv1_probe_plan", (_I, _I, _I, _P), "q40_gemv1_probes")(
+        GEMV1_MODES.index(mode), n, d, ctypes.addressof(vals))
+    cuda_build.check(rc, "q40_gemv1_probe_plan")
+    return tuple(vals)
 
 
 # ---------------------------------------------------------------------------

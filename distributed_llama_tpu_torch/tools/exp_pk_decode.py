@@ -9,10 +9,12 @@ from N(0, 0.05) with f16 scales, x from N(0, 1). Substituting lo = pk -
 
 drops the mask from the unpack; the activation combination is made outside
 the kernel. Both modes run the same GEMV (ops/cuda_probes.py q40_pk_gemv,
-csrc/q40_probes.cu): base converts lo and hi, pk the byte and hi. A line
-gives ms per call, the bytes a call really moves and the rate; then the TPU
+csrc/q40_gemv1_probes.cu, on the design of K1's t = 1 GEMV): base puts lo
+and hi into the f32 magic constant, pk the byte and hi. K1 (ops/cuda_q40.py
+q40_matmul, bf16, t = 1) runs on the same weight beside them. A line gives
+ms per call, the bytes a call really moves and the rate; then the TPU
 tool's lines: base and pk ms, their ratio, and pk's largest difference from
-base relative to base's largest value.
+base relative to base's largest value; on the card, a DECISION line.
 
     python -m distributed_llama_tpu_torch.tools.exp_pk_decode [--device cuda|cpu]
 
@@ -30,6 +32,7 @@ from ..ops import cuda_probes
 from ..quants.numpy_codec import quantize_q40
 from ..quants.torch_codec import QuantizedTensor
 from ..utils.device import resolve_device
+from .kernel_experiments import k1_pass
 from .timing import pass_rows, rotating
 
 # (name, d, n, td): td is the TPU tool's row tile, kept for build()'s
@@ -69,8 +72,9 @@ def call_bytes(d: int, n: int) -> int:
 
 
 def passes(dev: torch.device, cases: dict | None = None) -> list[tuple]:
-    """(label, one call, bytes it moves) per shape and mode; a weight that
-    fits the L2 cache rotates through copies."""
+    """(label, one call, bytes it moves) per shape and mode, and K1 at each
+    shape on the same copies; a weight that fits the L2 cache rotates
+    through copies."""
     cases = cases or {name: make_case(d, n, 0, dev) for name, d, n, _ in SHAPES}
     out = []
     for name, d, n, td in SHAPES:
@@ -83,7 +87,23 @@ def passes(dev: torch.device, cases: dict | None = None) -> list[tuple]:
             out.append((f"{name} {mode}",
                         lambda run=run, c=c, ws=ws, mode=mode:
                         run(c["x1"], c["x2"][mode], c["xs"], ws()), nbytes))
+        _, k1_call, k1_bytes = k1_pass(ws.copies, dev, rotate=True)
+        out.append((f"{name} K1", k1_call, k1_bytes))
     return out
+
+
+def decision(ms: dict) -> str:
+    """The DECISION line from ms per call by label: does pk beat base by
+    more than 3% at each shape, and each mode against K1 there."""
+    ratios = {name: ms[f"{name} base"] / ms[f"{name} pk"] for name, *_ in SHAPES}
+    wins = [name for name, r in ratios.items() if r > 1.03]
+    verdict = (f"pk beats base by more than 3% at {', '.join(wins)}: a design for K1's next "
+               "GEMV" if wins else "pk does not beat base by more than 3% at any shape: the "
+               "nibble unpack stays")
+    detail = "; ".join(
+        f"{name} base/pk {ratios[name]:.3f}, base/K1 {ms[f'{name} base'] / ms[f'{name} K1']:.3f}, "
+        f"pk/K1 {ms[f'{name} pk'] / ms[f'{name} K1']:.3f}" for name, *_ in SHAPES)
+    return f"DECISION: {verdict} ({detail})"
 
 
 def main(argv=None) -> list[dict]:
@@ -102,6 +122,8 @@ def main(argv=None) -> list[dict]:
         times = ("not measured (cpu)" if base is None else
                  f"base {base:.4f} ms  pk {pk:.4f} ms  -> {base / pk:.3f}x")
         print(f"{name}: {times}  max-rel-err {err:.2e}")
+    if dev.type == "cuda":
+        print(decision(ms))
     return rows
 
 

@@ -3,7 +3,8 @@
 Counterpart of the JAX repository's tools/exp_scale_f16.py, at its shape:
 L = 32 weights of 22016 x 4096 (w13-sized, d x n), t = 1, f32 x and out,
 random packed bytes and scales in [0.001, 0.005). The same GEMV (ops/
-cuda_probes.py q40_matmul_scales, csrc/q40_probes.cu) reads the scales as
+cuda_probes.py q40_matmul_scales, csrc/q40_gemv1_probes.cu, on the design
+of K1's t = 1 GEMV) reads the scales as
 
   u16 scales  2-byte f16 bits, decoded by integer ops in the kernel
   f32 scales  4-byte f32, read as they are (about 10% more bytes a pass)
@@ -12,7 +13,8 @@ and K1 (ops/cuda_q40.py q40_matmul, bf16, t = 1) runs on the same bytes
 with f16 scales beside them. A line gives ms per pass over the L weights,
 the bytes a pass really moves and the rate; then the TPU tool's lines: the
 relative difference of u16 from f32 scales (the f16 rounding of the
-scales), each pass's ms and GB/s, and the speedup of u16 over f32.
+scales), each pass's ms and GB/s, and the speedup of u16 over f32; then a
+DECISION line.
 
     python -m distributed_llama_tpu_torch.tools.exp_scale_f16 [--device cuda|cpu]
 
@@ -79,6 +81,19 @@ def passes(dev: torch.device, made=None) -> list[tuple]:
             k1_pass([QuantizedTensor(p, sc) for p, sc, _ in layers], dev)]
 
 
+def decision(ms: dict) -> str:
+    """The DECISION line from ms per pass by label: the integer decode's
+    cost against K1 (the hardware convert of f16 scales, the same weight
+    bytes; bf16 x), and whether f32 over u16 tracks the f32 scales' extra
+    bytes: bytes-bound at >= 1.08, issue-bound at <= 1.03, else mixed."""
+    u16, f32, k1 = ms["u16 scales"], ms["f32 scales"], ms["K1"]
+    r = f32 / u16
+    kind = "bytes-bound" if r >= 1.08 else "issue-bound" if r <= 1.03 else "mixed"
+    return (f"DECISION: u16 takes {u16 / k1:.3f}x K1's time (integer decode and f32 x against "
+            f"the hardware convert and bf16 x); f32/u16 {r:.3f} for "
+            f"{pass_bytes(4) / pass_bytes(2):.3f}x the bytes: {kind} at this shape")
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -96,6 +111,7 @@ def main(argv=None) -> list[dict]:
         print(f"f32 scales: {t32:7.4f} ms  ({r['f32 scales']['gbps']:6.1f} GB/s total)")
         print(f"u16 scales: {t16:7.4f} ms  ({r['u16 scales']['gbps']:6.1f} GB/s total)")
         print(f"speedup: {t32 / t16:.3f}x")
+        print(decision({name: row["ms"] for name, row in r.items()}))
     return rows
 
 

@@ -35,17 +35,25 @@ from .timing import pass_rows
 L, D, H = 32, 4096, 11008   # layers, n (model dim), d (FFN hidden dim)
 
 
-def k1_pass(ws: list[QuantizedTensor], dev: torch.device) -> tuple:
+def k1_pass(ws: list[QuantizedTensor], dev: torch.device, rotate: bool = False) -> tuple:
     """("K1", one pass of K1 over `ws` with their scales narrowed to f16
-    (K1's scale type), bf16 x (ones) and out, t = 1, bytes it moves)."""
+    (K1's scale type), bf16 x (ones) and out, t = 1, bytes it moves).
+    rotate: each call launches K1 once, on the next of `ws` in turn (copies
+    of one weight that pass the L2 cache), and moves one launch's bytes."""
     d, n = ws[0].packed.shape[0], ws[0].packed.shape[1] * 2
     wk = [QuantizedTensor(w.packed, w.scales.to(torch.float16)) for w in ws]
     x = torch.ones((1, n), dtype=torch.bfloat16, device=dev)
+    launch = d * n // 2 + d * (n // 32) * 2 + n * 2 + d * 2
+    turn = {"i": 0}
+
+    def one_call():
+        turn["i"] = (turn["i"] + 1) % len(wk)
+        cuda_q40.q40_matmul(x, wk[turn["i"]], torch.bfloat16)
 
     def one_pass():
         for w in wk:
             cuda_q40.q40_matmul(x, w, torch.bfloat16)
-    return "K1", one_pass, len(wk) * (d * n // 2 + d * (n // 32) * 2 + n * 2 + d * 2)
+    return ("K1", one_call, launch) if rotate else ("K1", one_pass, len(wk) * launch)
 
 
 def passes(dev: torch.device) -> list[tuple]:

@@ -50,13 +50,15 @@ def time_ms(fn, budget_ms: float = 60.0, max_iters: int = 100) -> float:
 
 def rotating(make, nbytes: int):
     """Enough copies of an operand that cycling through them exceeds the L2
-    cache, so every timed call reads its operand from device memory."""
+    cache, so every timed call reads its operand from device memory. The
+    returned function gives the next copy; its `copies` holds them all."""
     copies = [make() for _ in range(max(1, min(8, math.ceil(2 * L2_BYTES / nbytes))))]
     state = {"i": 0}
 
     def nxt():
         state["i"] = (state["i"] + 1) % len(copies)
         return copies[state["i"]]
+    nxt.copies = copies
     return nxt
 
 

@@ -282,11 +282,14 @@ def test_later_probe_wrappers_raise_off_cpu_instead_of_falling_back():
 
 def test_probe_source_exports_c_entries():
     # built on their own: the engine's first launch never compiles them
-    assert cuda_build.PROBES == ("q40_probes", "f8_flash_probe", "q40_prefill_probe")
+    assert cuda_build.PROBES == ("q40_probes", "q40_gemv1_probes", "f8_flash_probe",
+                                 "q40_prefill_probe")
     assert not set(cuda_build.PROBES) & set(cuda_build.KERNELS)
     entries = {"q40_probes": ("q40_ladder_launch", "q40_matmul_a_launch",
-                              "q40_matmul_b_launch", "int8_gemv_launch",
-                              "q40_pk_gemv_launch", "q40_matmul_scales_launch"),
+                              "q40_matmul_b_launch", "int8_gemv_launch"),
+               "q40_gemv1_probes": ("q40_pk_gemv_launch", "q40_matmul_scales_launch",
+                                    "q40_gemv1_probe_launch", "q40_gemv1_probe_plan",
+                                    "q40_gemv1_probe_attrs"),
                "f8_flash_probe": ("f8_flash_decode_launch", "f8_flash_plan",
                                   "f8_flash_decode_attrs"),
                "q40_prefill_probe": ("q40_matmul_sub_launch", "q40_matmul_sub_attrs")}
@@ -296,6 +299,11 @@ def test_probe_source_exports_c_entries():
             assert f'extern "C" int {entry}(' in src
         assert "cudaGetLastError()" in src
     assert "__dp4a" in (cuda_build.CSRC / "q40_probes.cu").read_text()
+    # P3 and P5: K1's t = 1 GEMV design, the operand into the magic constant
+    # by a LOP3 or (pk's byte) a PRMT, no int-to-float convert
+    g1 = (cuda_build.CSRC / "q40_gemv1_probes.cu").read_text()
+    assert "lop3.b32" in g1 and "__byte_perm" in g1 and "0x4B000000u" in g1
+    assert "__int2float" not in g1 and "__uint2float" not in g1
     f8 = (cuda_build.CSRC / "f8_flash_probe.cu").read_text()
     assert "__nv_cvt_fp8x2_to_halfraw2" in f8 and "mma.sync" in f8 and "cp.async.cg" in f8
     # P6: SS wgmma fed by a TMA ring, the -8 correction as tf32 wgmma
