@@ -105,11 +105,16 @@ result line):
  5. The main paths at full width, each an Engine on cuda from seeded
     synthetic Q40 weights with the Q80 activation round trip on (as the
     CLI builds it for a Q40 model; the plain side runs the round trip's
-    plain version too), greedy generate after a prompt. Launch counts
+    plain version too), greedy generate after a prompt. Every decode step
+    replays the engine's captured CUDA graph (captured in a warm-up
+    generate); a replay adds the launches the capture tallied, so launch
+    counts stay exact. Launch counts
     are zeroed just before each generate and read just after; every
     prefill chunk and decode step must launch exactly its kernels' counts.
     Logits must be finite, and the prompt's logits and one decode step's
-    logits after it must match the same engine run on the plain versions
+    logits after it must match an eager engine over the same weights
+    (cuda_graphs=False: a captured graph no longer calls the wrappers that
+    plain_versions() patches) run on the kernels and on the plain versions
     (MoE routing replayed from the kernel run, so a near-tie cannot pick
     other experts; the script prints how many decisions would differ):
     Q80 counts the standalone round trip's launches, Q80F the K1 and K2
@@ -124,13 +129,31 @@ result line):
       * Grok-1 widths cut to 2 layers, 40-token prompt, 8 tokens: per step
         K1 5, K2 6, K3 2, Q80 2, Q80F 11; per chunk K1 53, K3 2, Q80 54,
         Q80F 1.
-    Each prints its decode step's cudaLaunchKernel count and idle share.
+    Each prints its decode step's cudaGraphLaunch and cudaLaunchKernel
+    counts, the cudaMemcpyAsync calls by the ops that make them, and the
+    idle share.
+ 5b. The graph phase of each main path (`[graph]` lines): the capture's
+    seconds, pool and tally; the whole T = 1 forward at a device position
+    under set_sync_debug_mode("error"); one decode step eager and replayed
+    on the same cache state, logits and caches bit-identical; 32 greedy
+    tokens of generate, eager and graph, identical; decode ms/token eager
+    and graph in turns (A, B, A, B, A, B: median and spread), each with
+    its profile (idle share, cudaGraphLaunch and cudaLaunchKernel a step);
+    decode_greedy_device: 32 tokens equal to generate's with a greedy host
+    sampler from the same zeroed state, then ms/token over 128 tokens (3
+    runs) and its Q40 bytes a token as a share of 3.35 TB/s;
+    generate_device at temperature 0 and at 0.8 / top-p 0.9 (fixed seeds)
+    against host generate with the same seed: equal, or at 0.8 a
+    neighbouring token in the host's CDF order with the coin within the
+    f32 summation bound of a boundary (printed with its margin). After
+    each path its engines are deleted and the memory left is printed.
  6. The file path: tiny fixtures' .m/.t through the port's CLI on cuda
     (Llama and Mixtral: one run at the CLI's defaults, bf16 with Q80
     activations, whose kernels must launch, the fused round trip included;
     f32 tokens with
-    --buffer-float-type f32 equal to the CLI on the CPU; one --cache-dtype
-    f8 run).
+    --buffer-float-type f32 equal to the CLI on the CPU, and with
+    --device-sampling too; one --device-sampling run at the defaults; one
+    --cache-dtype f8 run).
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
@@ -1553,15 +1576,19 @@ def decode_weight_bytes(spec, params) -> int:
     return total
 
 
-def profile_decode(engine, token: int, steps: int = 4) -> dict:
+def profile_decode(engine, token: int, steps: int = 4, run=None) -> dict:
     """Device time per decode step by kernel name, from torch.profiler over
-    a few steps (each ends in its logits copy, as in generate)."""
+    a few steps (each ends in its logits copy, as in generate), or over
+    run(), which makes `steps` decode steps itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.fetch_logits(engine.step(np.asarray([[token]], np.int32), engine.pos))
+        if run is not None:
+            run()
+        else:
+            for _ in range(steps):
+                engine.fetch_logits(engine.step(np.asarray([[token]], np.int32), engine.pos))
         torch.cuda.synchronize()
 
     # kernel events only: a CPU op's row repeats the device time of the
@@ -1571,22 +1598,51 @@ def profile_decode(engine, token: int, steps: int = 4) -> dict:
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   key=lambda r: -r[2])
     total = sum(r[2] for r in rows)
-    # the host side: CUDA runtime calls per step (launches, copies, syncs;
-    # the logits copy ends each step with one)
-    runtime = sorted(((e.key, e.count / steps) for e in prof.key_averages()
-                      if e.device_type == DeviceType.CPU and e.key.startswith("cuda")),
-                     key=lambda r: -r[1])
-    print("[profile] CUDA runtime calls per decode step: "
-          + ", ".join(f"{k} {c:.1f}" for k, c in runtime[:6]))
+    # the host side: CUDA runtime calls per step (launches, graph launches,
+    # copies, syncs; the logits copy ends each step with one)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CPU and e.key.startswith("cuda")]
+    runtime = sorted(((e.key, e.count / steps) for e in events), key=lambda r: -r[1])
+    host_ms = {e.key: e.cpu_time_total / 1e3 / steps for e in events}
+    calls = dict(runtime)
+    print("[profile] CUDA runtime calls per decode step (host ms in them): "
+          + ", ".join(f"{k} {c:.1f} ({host_ms[k]:.3f})" for k, c in runtime[:8]))
+    print(f"[profile] per decode step: cudaGraphLaunch {calls.get('cudaGraphLaunch', 0.0):.1f}, "
+          f"cudaLaunchKernel {calls.get('cudaLaunchKernel', 0.0):.1f}, cudaMemcpyAsync "
+          f"{calls.get('cudaMemcpyAsync', 0.0):.1f}")
+    copies = memcpy_callers(prof, steps)
+    if copies:
+        print("[profile] cudaMemcpyAsync per decode step by calling op: "
+              + "; ".join(f"{k}: {c:.1f}" for k, c in copies.items()))
+    out = {"runtime_calls": runtime, "runtime_host_ms": host_ms, "memcpy_callers": copies,
+           "graph_launches_per_step": calls.get("cudaGraphLaunch", 0.0),
+           "launch_kernel_per_step": calls.get("cudaLaunchKernel", 0.0)}
     if not rows:
         print("[profile] the profiler recorded no device time: not measured")
-        return {"device_ms_per_step": None, "top": [], "runtime_calls": runtime}
+        return {"device_ms_per_step": None, "top": [], **out}
     print(f"[profile] kernel time per decode step {total:.3f} ms; top kernels:")
     for name, count, ms in rows[:10]:
         print(f"[profile]   {ms:8.4f} ms  x{count:6.1f}  {name[:90]}")
-    return {"device_ms_per_step": total, "runtime_calls": runtime,
+    return {"device_ms_per_step": total, **out,
             "device_ops_per_step": sum(r[1] for r in rows),
             "top": [dict(name=n[:120], per_step=c, ms=m) for n, c, m in rows[:20]]}
+
+
+def memcpy_callers(prof, steps: int) -> dict:
+    """cudaMemcpyAsync calls per step by the ops that made them (the op
+    and its two enclosing ops), from the profiler's event tree."""
+    tally: dict = {}
+    for e in prof.events():
+        if e.name != "cudaMemcpyAsync":
+            continue
+        chain, p = [], getattr(e, "cpu_parent", None)
+        while p is not None and len(chain) < 3:
+            chain.append(p.name)
+            p = getattr(p, "cpu_parent", None)
+        key = " < ".join(chain) or "(no enclosing op)"
+        tally[key] = tally.get(key, 0) + 1
+    top = sorted(tally.items(), key=lambda kv: -kv[1])[:8]
+    return {k: v / steps for k, v in top}
 
 
 @contextlib.contextmanager
@@ -1644,7 +1700,13 @@ def replayed_routes(rec: list):
 def compare_with_plain(engine, prompt: list[int]) -> dict:
     """The prompt, then one decode step, through the kernels and through
     the plain versions on the same engine (routing replayed); both logits
-    held to LOGITS_TOL and LOGITS_REL_L2_TOL."""
+    held to LOGITS_TOL and LOGITS_REL_L2_TOL. The engine must run eagerly:
+    plain_versions() patches the wrappers the forward calls, which a
+    captured graph no longer calls."""
+    if engine.cuda_graphs:
+        fail("compare_with_plain needs an eager engine (cuda_graphs=False): a captured "
+             "graph would replay the kernels on both sides")
+
     def prompt_then_step(token=None):
         engine.reset()
         lpre = engine.prefill(prompt).float()
@@ -1701,10 +1763,14 @@ def check_moe_block_sync_free(engine) -> None:
     print("[main]   the MoE decode block ran under set_sync_debug_mode('error')")
 
 
-def drive_path(label: str, engine, prompt: list[int], n_decode: int,
+def drive_path(label: str, engine, eager, prompt: list[int], n_decode: int,
                per_chunk: dict, per_step: dict, weight_bytes: int) -> dict:
     """One main path: greedy generate with exact launch counts, one more
-    decode step, profile, and the comparison with the plain versions."""
+    decode step, profile, and the comparison with the plain versions. The
+    engine replays its captured decode step (captured in the warm-up): each
+    replay adds the capture's tally to the counters, so a step's counts are
+    its kernels' launches. The comparison runs on `eager`, an eager engine
+    over the same weights."""
     from distributed_llama_tpu_torch.sampler import Sampler
 
     vocab = engine.spec.vocab_size
@@ -1765,13 +1831,14 @@ def drive_path(label: str, engine, prompt: list[int], n_decode: int,
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms) at {gbps / 1e9:.1f} GB/s "
           f"= {gbps / HBM_BYTES_PER_S:.3f} of 3.35 TB/s")
     busy = profile["device_ms_per_step"]
-    launches = dict(profile["runtime_calls"]).get("cudaLaunchKernel")
-    print(f"[main] {label}: cudaLaunchKernel per decode step {launches} (Llama-2-7B with "
-          f"the standalone Q80 round trip: 1,848; with it fused into the GEMV: 1,719 expected)")
+    launches = profile["launch_kernel_per_step"]
+    print(f"[main] {label}: per decode step cudaGraphLaunch {profile['graph_launches_per_step']} "
+          f"and cudaLaunchKernel {launches} (the decode step is one captured graph; eager, "
+          f"Llama-2-7B made 1,719 cudaLaunchKernel a step)")
     if busy is not None:
         print(f"[main] {label}: device busy {busy:.3f} ms of {decode_ms:.3f} ms per "
               f"decode token: idle share {1 - busy / decode_ms:.3f}")
-    cmp = compare_with_plain(engine, prompt)
+    cmp = compare_with_plain(eager, prompt)
     return dict(label=label, launches=counts, per_step=step, chunks=n_chunks,
                 prefill_launches=prefill_counts,
                 decode_steps=n_steps, profile=profile, prefill_tokens=len(prompt),
@@ -1781,6 +1848,236 @@ def drive_path(label: str, engine, prompt: list[int], n_decode: int,
                 idle_share=None if busy is None else 1 - busy / decode_ms,
                 launch_kernel_calls_per_step=launches,
                 logits_vs_plain=cmp)
+
+
+def _eager_twin(engine):
+    """An engine over the same weights and settings that runs every step
+    eagerly (cuda_graphs=False): the A side of the graph phase, and the
+    engine the kernels-against-plain comparison runs on."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    return Engine(engine.spec, engine.params, device="cuda",
+                  compute_dtype=engine.compute_dtype, cache_dtype=engine.cache_dtype,
+                  activation_q80=engine.activation_q80, cuda_graphs=False)
+
+
+def check_forward_sync_free(engine) -> None:
+    """The whole T = 1 forward, at a position on the device, under
+    set_sync_debug_mode("error"): a host sync or a blocking copy from host
+    memory (which could not be captured) raises."""
+    from distributed_llama_tpu_torch.models.transformer import forward
+
+    tok = torch.full((1, 1), 5, dtype=torch.int64, device="cuda")
+    pos = torch.full((1,), 3, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits = forward(engine.params, engine.spec, tok, pos, engine.cache,
+                             compute_dtype=engine.compute_dtype,
+                             activation_q80=engine.activation_q80)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    engine.reset()
+    if not bool(torch.isfinite(logits).all()):
+        fail("decode forward at a device position: logits not finite")
+    print("[graph]   the T = 1 forward at a device position ran under "
+          "set_sync_debug_mode('error')")
+
+
+def _recording_sampler(vocab: int, temperature: float, topp: float, seed: int):
+    """A host Sampler that keeps each draw's logits and RNG state."""
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    class Recording(Sampler):
+        def sample(self, logits):
+            self.seen.append((np.array(logits, np.float32), self.rng_state))
+            return super().sample(logits)
+    rec = Recording(vocab, temperature, topp, seed)
+    rec.seen = []
+    return rec
+
+
+def cdf_margin(logits: np.ndarray, state: int, temperature: float, topp: float,
+               host: int, device: int) -> dict:
+    """Where the host Sampler's coin fell in its float64 CDF (the nucleus's
+    for top-p): the distance to the nearest boundary, beside the bound of
+    f32 summation over the same terms (n * 2^-24 * total), and whether the
+    device's token is the host's neighbour in that CDF's order. A device
+    token that differs is explained by the f32 CDF only if it is a
+    neighbour and the margin is within the bound."""
+    from distributed_llama_tpu_torch.sampler import topp_nucleus
+    from distributed_llama_tpu_torch.utils.rng import xorshift_f32
+
+    x = logits.astype(np.float32) / np.float32(temperature)
+    x = np.exp(x - x.max())
+    probs = x / x.sum()
+    _, coin = xorshift_f32(state)
+    if topp <= 0 or topp >= 1:
+        order = np.arange(len(probs))
+        cum = np.cumsum(probs.astype(np.float64))
+        last = len(cum) - 1
+    else:
+        order, cum, last = topp_nucleus(probs, topp)
+    r = coin * cum[last]
+    where = {int(t): i for i, t in enumerate(order[:last + 1])}
+    adjacent = device in where and abs(where[device] - where.get(host, -2)) == 1
+    return dict(margin=float(np.min(np.abs(cum[:last + 1] - r))),
+                f32_bound=float((last + 1) * 2.0 ** -24 * cum[last]),
+                nucleus=last + 1, adjacent=adjacent)
+
+
+def _ms_stats(xs: list) -> dict:
+    return dict(median=float(np.median(xs)), min=float(min(xs)), max=float(max(xs)),
+                runs=[float(x) for x in xs])
+
+
+def graph_phase(label: str, engine, eager, prompt: list[int], weight_bytes: int,
+                card: str) -> dict:
+    """The compiled decode path of one main path: the captured step against
+    the eager one (bit for bit, and 32 greedy tokens), ms/token of both in
+    turns, decode_greedy_device and generate_device against host generate."""
+    from distributed_llama_tpu_torch.runtime.graphs import LAUNCH_COUNTERS
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab = engine.spec.vocab_size
+    out: dict = {}
+
+    def greedy():
+        return Sampler(vocab, 0.0, 0.9, 1)
+
+    def captures() -> dict:
+        return {str(k): dict(capture_s=g.capture_s, pool_mib=g.pool_bytes / 2 ** 20,
+                             tally=list(g.tally)) for k, g in engine.graphs.items()}
+    g1 = engine.graphs[1]
+    names = ("K1", "K2", "Q80F", "K3", "Q80")
+    print(f"[graph] {label}: decode step captured in {g1.capture_s:.3f} s (eager warm-up "
+          f"included), its pool {g1.pool_bytes / 2 ** 20:.1f} MiB; launches a replay "
+          f"{dict(zip(names, g1.tally))}")
+    if len(LAUNCH_COUNTERS) != len(names):
+        fail("graph tally: counter names out of date")
+    check_forward_sync_free(engine)
+
+    # one step, eager and replayed, on the same cache state: the eager
+    # engine takes the graph engine's cache after the prompt
+    engine.reset()
+    eager.reset()
+    tok = int(engine.prefill(prompt).argmax())
+    for dst, src in zip((*eager.cache.k, *eager.cache.v), (*engine.cache.k, *engine.cache.v)):
+        dst.copy_(src)
+    eager.pos = engine.pos
+    le = eager.step(np.asarray([[tok]], np.int32), eager.pos)
+    lg = engine.step(np.asarray([[tok]], np.int32), engine.pos)
+    torch.cuda.synchronize()
+    same_cache = all(torch.equal(a, b) for a, b in zip((*eager.cache.k, *eager.cache.v),
+                                                       (*engine.cache.k, *engine.cache.v)))
+    diff = (le - lg).abs().max().item()
+    print(f"[graph] {label}: one decode step eager vs graph: logits bit-identical "
+          f"{torch.equal(le, lg)} (max abs diff {diff:.3g}), caches bit-identical {same_cache}")
+    if not torch.equal(le, lg) or not same_cache:
+        fail(f"{label}: the graph's decode step differs from the eager step")
+
+    toks = {}
+    for name, e in (("eager", eager), ("graph", engine)):
+        e.reset()
+        toks[name] = e.generate(prompt, 32, greedy()).tokens
+    print(f"[graph] {label}: 32 greedy tokens, eager == graph: {toks['eager'] == toks['graph']}")
+    if toks["eager"] != toks["graph"]:
+        fail(f"{label}: greedy tokens differ: eager {toks['eager']}, graph {toks['graph']}")
+
+    # ms/token, eager and graph in turns (A, B, A, B, A, B)
+    ms: dict = {"eager": [], "graph": []}
+    for _ in range(3):
+        for name, e in (("eager", eager), ("graph", engine)):
+            e.reset()
+            ms[name].append(e.generate(prompt[:40], 33, greedy()).stats.averages().generation_ms)
+    out["card"] = card
+    for name, e in (("eager", eager), ("graph", engine)):
+        st = out[f"{name}_ms_per_token"] = _ms_stats(ms[name])
+        print(f"[graph] {label}: {name} decode {st['median']:.3f} ms/token median "
+              f"(min {st['min']:.3f}, max {st['max']:.3f}; runs "
+              f"{', '.join(f'{x:.3f}' for x in st['runs'])}) [{card}]")
+        prof = profile_decode(e, toks["graph"][-1])
+        busy = prof["device_ms_per_step"]
+        out[f"{name}_profile"] = dict(
+            device_ms_per_step=busy,
+            graph_launches_per_step=prof["graph_launches_per_step"],
+            launch_kernel_per_step=prof["launch_kernel_per_step"],
+            memcpy_callers=prof["memcpy_callers"], runtime_host_ms=prof["runtime_host_ms"],
+            idle_share=None if busy is None else 1 - busy / st["median"])
+        print(f"[graph] {label}: {name}: cudaGraphLaunch {prof['graph_launches_per_step']:.1f}, "
+              f"cudaLaunchKernel {prof['launch_kernel_per_step']:.1f} a step; device busy "
+              + ("not measured" if busy is None else
+                 f"{busy:.3f} ms of {st['median']:.3f}: idle share {1 - busy / st['median']:.3f}"))
+
+    # decode_greedy_device: tokens against generate with a greedy host
+    # sampler from the same (zeroed) state, then ms/token
+    first = prompt[1]
+    engine.reset()
+    want = engine.generate([first], 32, greedy()).tokens
+    engine.reset()
+    got, _ = engine.decode_greedy_device(first, 32)      # captures ("greedy",)
+    print(f"[graph] {label}: decode_greedy_device 32 tokens == generate's: "
+          f"{got.ravel().tolist() == want}")
+    if got.ravel().tolist() != want:
+        fail(f"{label}: decode_greedy_device {got.ravel().tolist()} vs generate {want}")
+    n = 128
+    dg = []
+    for _ in range(3):
+        engine.reset()
+        _, sec = engine.decode_greedy_device(first, n)
+        dg.append(sec / n * 1e3)
+    st = out["greedy_device_ms_per_token"] = _ms_stats(dg)
+    share = weight_bytes / (st["median"] / 1e3) / HBM_BYTES_PER_S
+    out["greedy_device_hbm_share"] = share
+    print(f"[graph] {label}: decode_greedy_device {n} tokens: {st['median']:.3f} ms/token "
+          f"median (min {st['min']:.3f}, max {st['max']:.3f}); Q40 bytes per token "
+          f"{weight_bytes / 1e9:.3f} GB = {share:.3f} of 3.35 TB/s [{card}]")
+    engine.reset()
+    prof = profile_decode(engine, first, 16, run=lambda: engine.decode_greedy_device(first, 16))
+    busy = prof["device_ms_per_step"]
+    out["greedy_device_profile"] = dict(
+        device_ms_per_step=busy, graph_launches_per_step=prof["graph_launches_per_step"],
+        launch_kernel_per_step=prof["launch_kernel_per_step"],
+        idle_share=None if busy is None else 1 - busy / st["median"])
+    print(f"[graph] {label}: decode_greedy_device: device busy "
+          + ("not measured" if busy is None else
+             f"{busy:.3f} ms a token of {st['median']:.3f}: idle share {1 - busy / st['median']:.3f}"))
+
+    # generate_device against host generate with the same seed
+    out["generate_device"] = []
+    for temperature, topp, seed in ((0.0, 0.9, 5), (0.8, 0.9, 1234)):
+        engine.reset()
+        rec = _recording_sampler(vocab, temperature, topp, seed)
+        want = engine.generate(prompt[:40], 32, rec).tokens
+        engine.reset()
+        t0 = time.perf_counter()
+        got = engine.generate_device(prompt[:40], 32, temperature=temperature, topp=topp,
+                                     seed=seed)
+        wall = time.perf_counter() - t0
+        row = dict(temperature=temperature, topp=topp, seed=seed, equal=got == want,
+                   steps=engine.last_device_steps, wall_s=wall)
+        if got != want:
+            k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            logits, state = rec.seen[k]
+            m = (cdf_margin(logits, state, temperature, topp, want[k], got[k])
+                 if temperature else None)
+            row.update(first_difference=k, device=got[k], host=want[k], cdf=m)
+            print(f"[graph] {label}: generate_device T={temperature} differs from host generate "
+                  f"at token {k}: device {got[k]}, host {want[k]}; CDF margin {m}")
+            if m is None or not m["adjacent"] or m["margin"] > m["f32_bound"]:
+                fail(f"{label}: generate_device differs from host generate at token {k} "
+                     f"beyond the f32 CDF bound ({m})")
+        print(f"[graph] {label}: generate_device T={temperature} top-p {topp} seed {seed}: "
+              f"{len(got)} tokens, equal to host generate {got == want}, "
+              f"{engine.last_device_steps} device steps, {wall:.3f} s with the 40-token prefill")
+        out["generate_device"].append(row)
+    out["captures"] = captures()
+    for key, c in out["captures"].items():
+        print(f"[graph] {label}: graph {key}: captured in {c['capture_s']:.3f} s, pool "
+              f"{c['pool_mib']:.1f} MiB")
+    return out
 
 
 def _engine(spec, seed: int, params=None, **kw):
@@ -1797,7 +2094,15 @@ def _engine(spec, seed: int, params=None, **kw):
     return engine
 
 
-def phase_main_paths() -> dict:
+def _release(label: str) -> None:
+    """After `del` of a path's engines: their caches, graphs and graph
+    pools go back to the card."""
+    torch.cuda.empty_cache()
+    print(f"[graph] {label}: after del of its engines, {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+          f"GiB allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+
+
+def phase_main_paths(card: str) -> dict:
     rng = np.random.default_rng(7)
     prompt = [1] + rng.integers(3, 32000, 299).tolist()
     out = {}
@@ -1805,21 +2110,28 @@ def phase_main_paths() -> dict:
     # every engine as the CLI builds it for a Q40 model: the Q80 round trip
     # on every matmul input, inside K1's or K2's launch at t = 1 (Q80F:
     # those launches, also counted under K1 and K2), the standalone kernel
-    # (Q80) elsewhere; a chunk's wcls runs at t = 1
+    # (Q80) elsewhere; a chunk's wcls runs at t = 1. Each path's engine
+    # replays its captured decode step; its eager twin over the same
+    # weights runs the comparison with the plain versions and the graph
+    # phase's A side.
     q80 = dict(activation_q80=True)
     spec = _spec("llama2_7b")
     engine = _engine(spec, seed=0, **q80)
+    eager = _eager_twin(engine)
+    wb = decode_weight_bytes(spec, engine.params)
     out["llama2_7b"] = drive_path(
-        "Llama-2-7B", engine, prompt, 32,
+        "Llama-2-7B", engine, eager, prompt, 32,
         per_chunk={"K1": 129, "K2": 0, "K3": 32, "Q80": 128, "Q80F": 1},
         per_step={"K1": 129, "K2": 0, "K3": 32, "Q80": 0, "Q80F": 129},
-        weight_bytes=decode_weight_bytes(spec, engine.params))
+        weight_bytes=wb)
     out["llama2_7b"]["logits_vs_plain"].pop("logits")
-    del engine
-    torch.cuda.empty_cache()
+    out["llama2_7b"]["graph"] = graph_phase("Llama-2-7B", engine, eager, prompt, wb, card)
+    del engine, eager
+    _release("Llama-2-7B")
 
     spec = _spec("mixtral_8x7b")
     engine = _engine(spec, seed=1, **q80)
+    eager = _eager_twin(engine)
     wb = decode_weight_bytes(spec, engine.params)
     # Q80: a chunk's wqkv, wo, router and 8 x (gate, up, down) a layer; a
     # step's router a layer. Q80F: a chunk's wcls; a step's wqkv, wo, gate,
@@ -1828,13 +2140,17 @@ def phase_main_paths() -> dict:
                       per_step={"K1": 65, "K2": 96, "K3": 32, "Q80": 32, "Q80F": 161},
                       weight_bytes=wb)
     check_moe_block_sync_free(engine)
-    out["mixtral_8x7b"] = drive_path("Mixtral 8x7B", engine, prompt, 32, **moe_counts)
+    out["mixtral_8x7b"] = drive_path("Mixtral 8x7B", engine, eager, prompt, 32, **moe_counts)
+    out["mixtral_8x7b"]["graph"] = graph_phase("Mixtral 8x7B", engine, eager, prompt, wb, card)
     params = engine.params
-    del engine
-    torch.cuda.empty_cache()
+    del engine, eager
+    _release("Mixtral 8x7B")
     engine = _engine(spec, seed=1, params=params, cache_dtype=F8, **q80)
-    out["mixtral_8x7b_f8"] = drive_path("Mixtral 8x7B, f8 cache", engine, prompt,
+    eager = _eager_twin(engine)
+    out["mixtral_8x7b_f8"] = drive_path("Mixtral 8x7B, f8 cache", engine, eager, prompt,
                                         32, **moe_counts)
+    out["mixtral_8x7b_f8"]["graph"] = graph_phase("Mixtral 8x7B, f8 cache", engine, eager,
+                                                  prompt, wb, card)
     lb = out["mixtral_8x7b"]["logits_vs_plain"].pop("logits")
     lf = out["mixtral_8x7b_f8"]["logits_vs_plain"].pop("logits")
     dist = {}
@@ -1843,20 +2159,24 @@ def phase_main_paths() -> dict:
                           rel_l2=((a - b).norm() / a.norm()).item())
     print(f"[main] Mixtral 8x7B logits, f8 cache vs bf16 cache (for information): {dist}")
     out["mixtral_8x7b_f8"]["logits_vs_bf16_cache"] = dist
-    del engine, params
-    torch.cuda.empty_cache()
+    del engine, eager, params
+    _release("Mixtral 8x7B, f8 cache")
 
     spec = _spec("grok1_2l")
     engine = _engine(spec, seed=2, **q80)
+    eager = _eager_twin(engine)
+    wb = decode_weight_bytes(spec, engine.params)
     gprompt = [1] + np.random.default_rng(8).integers(3, spec.vocab_size, 39).tolist()
     out["grok1_2l"] = drive_path(
-        "Grok-1 (2 layers)", engine, gprompt, 8,
+        "Grok-1 (2 layers)", engine, eager, gprompt, 8,
         per_chunk={"K1": 53, "K2": 0, "K3": 2, "Q80": 54, "Q80F": 1},
         per_step={"K1": 5, "K2": 6, "K3": 2, "Q80": 2, "Q80F": 11},
-        weight_bytes=decode_weight_bytes(spec, engine.params))
+        weight_bytes=wb)
     out["grok1_2l"]["logits_vs_plain"].pop("logits")
-    del engine
-    torch.cuda.empty_cache()
+    out["grok1_2l"]["graph"] = graph_phase("Grok-1 (2 layers)", engine, eager, gprompt, wb,
+                                           card)
+    del engine, eager
+    _release("Grok-1 (2 layers)")
     return out
 
 
@@ -1902,6 +2222,21 @@ def phase_file_path() -> None:
                   f"inference launches {counts}")
             if text(gpu) != text(cpu):
                 fail(f"CLI f32 text differs ({name}): cuda {text(gpu)} vs cpu {text(cpu)}")
+            # --device-sampling: the whole decode loop in a replayed graph;
+            # greedy, its text is the host loop's
+            dsg = run(f32 + ["--device", "cuda", "--device-sampling"]).splitlines()
+            print(f"[file] {name}: CLI --device-sampling f32 tokens on cuda == host loop on "
+                  f"cpu: {text(dsg) == text(cpu)}")
+            if text(dsg) != text(cpu):
+                fail(f"CLI --device-sampling text differs ({name}): {text(dsg)} vs {text(cpu)}")
+            zero_counts()
+            ds = run(["inference", *common, "--device", "cuda", "--device-sampling"])
+            counts = read_counts()
+            print(f"[file] {name}: --device-sampling at the CLI's defaults: "
+                  + " | ".join(ds.strip().splitlines()[-3:]) + f"; launches {counts}")
+            if "(on-device loop, 16 device steps)" not in ds or "Wall time:" not in ds \
+                    or not all(counts[k] for k in need):
+                fail(f"CLI inference --device-sampling on cuda, {name}: {ds[-300:]} {counts}")
             if name == "mixtral":
                 f8 = run(["inference", *common, "--device", "cuda", "--cache-dtype", "f8"])
                 print("[file] mixtral, --cache-dtype f8: "
@@ -2149,7 +2484,10 @@ def main() -> int:
     probes2 = phase_probes_p2_p6()
     probes2["seconds"] = time.perf_counter() - t_p2
     print(f"[probe] P2, P3, P5, P6 in {probes2['seconds']:.1f} s")
-    main_paths = phase_main_paths()
+    t_main = time.perf_counter()
+    main_paths = phase_main_paths(card)
+    main_s = time.perf_counter() - t_main
+    print(f"[main] main paths and their graph phases in {main_s:.1f} s")
     phase_file_path()
     kernels = summarize(k1, q80, fused, k2, k3, probes, probes2, main_paths)
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
@@ -2163,13 +2501,27 @@ def main() -> int:
               f"{a['gemv_ms']:.4f} ms, GEMV + standalone Q80 {a['gemv_plus_q80_ms']:.4f} ms: "
               f"saved {a['saved_ms']:.4f} ms, fused - GEMV {a['fused_minus_gemv_ms']:+.4f} ms "
               f"[{card}]")
+    def share(x):
+        return "not measured" if x is None else f"{x:.3f}"
+    for key, path in main_paths.items():
+        g = path["graph"]
+        e, r = g["eager_ms_per_token"], g["graph_ms_per_token"]
+        print(f"[graph] {key}: decode ms/token eager {e['median']:.3f} [{e['min']:.3f}, "
+              f"{e['max']:.3f}], graph {r['median']:.3f} [{r['min']:.3f}, {r['max']:.3f}] "
+              f"({e['median'] / r['median']:.2f}x); idle share eager "
+              f"{share(g['eager_profile']['idle_share'])}, graph "
+              f"{share(g['graph_profile']['idle_share'])}; a graph step "
+              f"{g['graph_profile']['graph_launches_per_step']:.1f} cudaGraphLaunch, "
+              f"{g['graph_profile']['launch_kernel_per_step']:.1f} cudaLaunchKernel; "
+              f"decode_greedy_device {g['greedy_device_ms_per_token']['median']:.3f} ms/token "
+              f"= {g['greedy_device_hbm_share']:.3f} of 3.35 TB/s [{card}]")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, k1=k1["rows"], k1_paths=k1["paths"],
         k1_plans=k1["plans"], q80=q80["rows"],
         k2=k2["rows"], gemv1_edges=edges, gemv1_q80=fused, k3=k3["rows"],
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
-        probes=probes, probes2=probes2, main_paths=main_paths,
+        probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -14,7 +14,10 @@ Runs Llama, Mixtral and Grok-1 `.m` files on `--device cuda` (the
 default) or `--device cpu`; `--cache-dtype f8` keeps the KV cache in fp8
 (e4m3). `--buffer-float-type` defaults to q80, as in the JAX CLI: for a
 Q40 model every matmul input goes through the Q80 round trip (the
-reference's quantized activation buffers); `f32` turns it off. Flags of
+reference's quantized activation buffers); `f32` turns it off. On the card
+every decode step replays one captured CUDA graph; `--device-sampling`
+runs the whole sampled decode loop on the device (Engine.generate_device)
+and prints its tokens when the loop ends, as the JAX CLI does. Flags of
 features the port does not have yet — the chat/api/worker modes, mesh
 axes, clusters — are accepted by the parser only to be refused with a
 message, never silently ignored.
@@ -58,6 +61,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--buffer-float-type", default="q80", choices=["f32", "q80"],
                    help="activation buffers: q80 (the default) round-trips "
                         "every matmul input of a Q40 model through Q80")
+    p.add_argument("--device-sampling", action="store_true",
+                   help="run the whole sampled decode loop on the device "
+                        "(temperature/top-p and the reference's xorshift "
+                        "stream in a replayed CUDA graph that stops at eos; "
+                        "no host round trip per token). Output prints "
+                        "after the loop")
     for axis in ("tp", "dp", "sp", "ep", "pp"):
         p.add_argument(f"--{axis}", type=int, default=1,
                        help="mesh axis; only 1 is ported")
@@ -126,10 +135,36 @@ def _safe_print(piece: str) -> None:
     print(out, end="", flush=True)
 
 
+def _stream_pieces(tokenizer, prev_token: int, toks: list[int]) -> None:
+    """Print a token list as decoded text (JAX apps/dllama.py:783)."""
+    for tok in toks:
+        _safe_print(tokenizer.decode_piece(prev_token, tok).decode(
+            "utf-8", errors="replace"))
+        prev_token = tok
+    print()
+
+
 def cmd_generate(args, benchmark: bool) -> None:
     engine, tokenizer, sampler = build_engine(args)
     tokens = tokenizer.encode(args.prompt or "Hello")
     print(f"💡 prompt tokens: {len(tokens)}")
+    if args.device_sampling:     # JAX apps/dllama.py:850-867
+        t0 = time.perf_counter()
+        out = engine.generate_device(
+            tokens, _steps(args, engine), temperature=args.temperature,
+            topp=args.topp, seed=sampler.rng_state,
+            eos_id=tokenizer.stop_token_ids(), vocab_size=tokenizer.vocab_size)
+        dt = time.perf_counter() - t0
+        _stream_pieces(tokenizer, tokens[-1], out)
+        if benchmark:
+            # the wall time includes the prefill and, on a first call on
+            # the card, the loop's capture: no per-token rate is claimed
+            capture = " and one-time graph capture" if engine.cuda_graphs else ""
+            print(f"Generated tokens:    {len(out)} (on-device loop, "
+                  f"{engine.last_device_steps} device steps)")
+            print(f"Wall time:           {dt:.2f} s (includes the prefill"
+                  f"{capture})")
+        return
     prev = [tokens[-1]]
 
     def on_token(tok: int) -> None:

@@ -23,10 +23,18 @@ prefill input (ops/matmul.py).
 
 Unlike the JAX package's functional update of a donated cache, the port
 writes K/V into the cache tensors IN PLACE at the segment's positions.
+Positions come as an int, a host sequence or a (B,) int32 tensor on the
+device (the JAX forward's per_row_pos branch, transformer.py:486); every
+position-dependent value (RoPE angles, cache rows, K3's pos0) is computed
+on the device from that tensor, so a captured CUDA graph of the forward
+(runtime/graphs.py) reads the positions afresh at every replay. A write
+at a position outside [0, S) is dropped, as the JAX package's scatter
+drops it (transformer.py:97 _scatter_cache_write).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence
 
 import torch
@@ -47,7 +55,9 @@ GROK_LOGIT_SCALE = 0.5773502691896257     # ref: src/grok1-tasks.cpp:271
 
 class KVCache(NamedTuple):
     """Per-layer KV cache: lists of L tensors, each (B, KVH, S, hs),
-    head-major (JAX transformer.py:54-83), written in place."""
+    head-major (JAX transformer.py:54-83), written in place. Each tensor
+    is the front of a buffer one hs-row longer: a write dropped for its
+    position lands in that spare row, which nothing reads."""
 
     k: list
     v: list
@@ -59,10 +69,13 @@ class KVCache(NamedTuple):
         device = resolve_device(device)
         s = seq_len or spec.seq_len
         shape = (batch, spec.n_kv_heads, s, spec.head_size)
-        return cls([torch.zeros(shape, dtype=dtype, device=device)
-                    for _ in range(spec.n_layers)],
-                   [torch.zeros(shape, dtype=dtype, device=device)
-                    for _ in range(spec.n_layers)])
+        n = math.prod(shape)
+
+        def buf():
+            flat = torch.zeros(n + spec.head_size, dtype=dtype, device=device)
+            return flat[:n].view(shape)
+        return cls([buf() for _ in range(spec.n_layers)],
+                   [buf() for _ in range(spec.n_layers)])
 
 
 def _to_cache_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -75,23 +88,63 @@ def _to_cache_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
-def _write_cache(k_cache, v_cache, k, v, pos0: Sequence[int]) -> None:
-    """Write (B, T, KVH, hs) K/V at rows' positions pos0[b]..pos0[b]+T."""
-    t = k.shape[1]
-    k_w = _to_cache_dtype(k.transpose(1, 2), k_cache.dtype)
-    v_w = _to_cache_dtype(v.transpose(1, 2), v_cache.dtype)
-    if len(set(pos0)) == 1:
-        p = pos0[0]
-        k_cache[:, :, p:p + t] = k_w
-        v_cache[:, :, p:p + t] = v_w
-        return
-    for b, p in enumerate(pos0):
-        k_cache[b, :, p:p + t] = k_w[b]
-        v_cache[b, :, p:p + t] = v_w[b]
+class CacheWrite(NamedTuple):
+    """Where a segment's K/V go: `rows` (B*KVH*T,) int64, the row of each
+    (b, kvh, t) vector in a cache seen as (B*KVH*S, hs); a position outside
+    [0, S) maps to row B*KVH*S, the spare row past the cache. `spare`: some
+    position may be outside (always so for positions on the device)."""
+
+    rows: torch.Tensor
+    spare: bool
+
+
+def cache_write(q_pos: torch.Tensor, n_kv_heads: int, seq_len: int,
+                spare: bool) -> CacheWrite:
+    """The rows of every layer's cache write for positions q_pos (B, T),
+    computed once a forward on q_pos's device."""
+    b, t = q_pos.shape
+    heads = torch.arange(b * n_kv_heads, dtype=torch.int64, device=q_pos.device)
+    base = (heads * seq_len).view(b, n_kv_heads, 1)
+    pos = q_pos.to(torch.int64)[:, None, :]
+    inside = (pos >= 0) & (pos < seq_len)
+    rows = torch.where(inside, base + pos, b * n_kv_heads * seq_len)
+    return CacheWrite(rows.reshape(-1), spare)
+
+
+# the cache's bits as integers of its width: index_copy_ moves them as they
+# are, for every cache dtype (e4m3 included)
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def _cache_rows(cache: torch.Tensor, spare: bool) -> torch.Tensor:
+    """The cache as (B*KVH*S, hs) rows of integers, with the spare row past
+    them if asked. The spare row must be the last of the cache's buffer
+    (KVCache.create, or its last batch row): anything else there would be
+    overwritten."""
+    hs = cache.shape[-1]
+    n = cache.numel() // hs
+    if not spare:
+        return cache.view(n, hs).view(_BITS[cache.element_size()])
+    held = cache.untyped_storage().nbytes() // cache.element_size()
+    if not cache.is_contiguous() or held != cache.storage_offset() + (n + 1) * hs:
+        raise ValueError("a cache write outside [0, S) needs the spare row "
+                         "that KVCache.create allocates after the cache")
+    rows = torch.as_strided(cache, (n + 1, hs), (hs, 1))
+    return rows.view(_BITS[cache.element_size()])
+
+
+def _write_cache(k_cache, v_cache, k, v, where: CacheWrite) -> None:
+    """Write (B, T, KVH, hs) K/V at their rows, in place: one index_copy_ a
+    cache. A dropped write lands in the spare row, so it can never fall on
+    a slot that a kept write of the same segment fills."""
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        w = _to_cache_dtype(new.transpose(1, 2), cache.dtype)   # (B, KVH, T, hs)
+        w = w.reshape(-1, w.shape[-1]).view(_BITS[cache.element_size()])
+        _cache_rows(cache, where.spare).index_copy_(0, where.rows, w)
 
 
 def _attention_block(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos,
-                     angles, pos0: Sequence[int], compute_dtype,
+                     angles, where: CacheWrite, compute_dtype,
                      activation_q80: bool = False):
     """Norm -> QKV -> RoPE -> cache write -> attention -> output proj.
     Returns the wo projection, not yet added to the residual."""
@@ -112,7 +165,7 @@ def _attention_block(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos,
 
     q = apply_rope(q, angles, spec.arch)
     k = apply_rope(k, angles, spec.arch)
-    _write_cache(k_cache, v_cache, k, v, pos0)
+    _write_cache(k_cache, v_cache, k, v, where)
 
     if cuda_attention.flash_supported(t, h, kvh):
         att = cuda_attention.flash_attention(q, k_cache, v_cache, q_pos)
@@ -193,11 +246,11 @@ def _moe_ffn(xb, lw, spec: ModelSpec, compute_dtype,
 
 
 def _layer(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos, angles,
-           pos0: Sequence[int], compute_dtype, activation_q80: bool = False):
+           where: CacheWrite, compute_dtype, activation_q80: bool = False):
     """One block (JAX transformer.py:_layer): attention, then the dense or
     MoE FFN with the arch's norms and residuals."""
     attn = _attention_block(x, lw, spec, k_cache, v_cache, q_pos, angles,
-                            pos0, compute_dtype, activation_q80)
+                            where, compute_dtype, activation_q80)
     if spec.arch == ArchType.GROK1:
         # post-attention norm BEFORE the residual add (ref: grok1-tasks.cpp:16-41)
         x = x + rmsnorm(attn, lw["rms_ffn"]).to(x.dtype)
@@ -216,28 +269,41 @@ def forward(
     params: dict,
     spec: ModelSpec,
     tokens: torch.Tensor,          # (B, T) integer token ids
-    pos0: int | Sequence[int],     # first position: shared, or one per row
+    pos0: int | Sequence[int] | torch.Tensor,   # shared, per row, or (B,) on the device
     cache: KVCache,
     *,
     compute_dtype=torch.float32,
     logits_for_all: bool = False,
-    logit_index: int | Sequence[int] | None = None,
+    logit_index: int | Sequence[int] | torch.Tensor | None = None,
     activation_q80: bool = False,
 ) -> torch.Tensor:
     """Run T tokens through the model, writing their K/V into `cache`.
     activation_q80 sends every matmul input (router and wcls included)
     through the Q80 round trip, as the JAX forward's cfg does.
 
+    pos0: an int, a host sequence of B ints, or a (B,) integer tensor
+    (int32 on tokens' device reads no host value: the form a captured
+    graph takes). Row b's token r sits at pos0[b] + r; a position outside
+    [0, S) writes nothing (its logits mean nothing, as in the JAX slot
+    steps), so a row at pos0 == S leaves its cache untouched.
+
     Returns f32 logits (B, vocab) for the last token (or position
-    `logit_index`, shared or per row, for a right-padded segment), or
-    (B, T, vocab) if logits_for_all."""
+    `logit_index`: an int, a host sequence or a (B,) tensor, for a
+    right-padded segment), or (B, T, vocab) if logits_for_all."""
     b, t = tokens.shape
-    pos0 = [int(pos0)] * b if isinstance(pos0, int) else [int(p) for p in pos0]
-    if len(pos0) != b:
-        raise ValueError(f"pos0 has {len(pos0)} rows, tokens {b}")
     dev = tokens.device
-    q_pos = (torch.tensor(pos0, dtype=torch.int32, device=dev)[:, None]
-             + torch.arange(t, dtype=torch.int32, device=dev)[None, :])
+    s = cache.k[0].shape[2]
+    if isinstance(pos0, torch.Tensor):
+        pos_t = pos0.to(device=dev, dtype=torch.int32).reshape(-1).expand(b)
+        spare = True    # the device's positions are not read here
+    else:
+        rows = [int(pos0)] * b if isinstance(pos0, int) else [int(p) for p in pos0]
+        if len(rows) != b:
+            raise ValueError(f"pos0 has {len(rows)} rows, tokens {b}")
+        pos_t = torch.tensor(rows, dtype=torch.int32, device=dev)
+        spare = any(p < 0 or p + t > s for p in rows)
+    q_pos = pos_t[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+    where = cache_write(q_pos, spec.n_kv_heads, s, spare)
 
     angles = rope_angles(q_pos, spec.head_size, spec.rope_theta)
     x = params["tok_emb"][tokens.long()].to(compute_dtype)  # ref: tasks.cpp:202-203
@@ -245,7 +311,7 @@ def forward(
         x = x * GROK_INPUT_SCALE
     for l in range(spec.n_layers):
         x = _layer(x, params["layers"][l], spec, cache.k[l], cache.v[l],
-                   q_pos, angles, pos0, compute_dtype, activation_q80)
+                   q_pos, angles, where, compute_dtype, activation_q80)
 
     x = rmsnorm(x, params["rms_final"])         # ref: llama2-tasks.cpp:222-234
     if not logits_for_all:

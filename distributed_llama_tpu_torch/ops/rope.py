@@ -11,7 +11,9 @@ JAX package's ops/rope.py.
 
 Angles are computed in f32. `rope_angles` computes them once per segment;
 the forward shares them between q and k of every layer (the JAX package
-recomputes them inside each call and leaves XLA to hoist them). Functions
+recomputes them inside each call and leaves XLA to hoist them). They are
+made on pos's device from the positions there, with no copy from the host,
+so a captured decode step (runtime/graphs.py) recomputes them at replay. Functions
 take x shaped (..., n_heads, head_size) and angles for positions
 broadcastable to x.shape[:-2].
 """
@@ -28,9 +30,8 @@ def rope_angles(pos: torch.Tensor, head_size: int,
     """cos/sin of pos * theta^(-2j/head_size) for j in [0, head_size/2).
     pos: (...,) -> (..., head_size/2) each."""
     j = torch.arange(head_size // 2, dtype=torch.float32, device=pos.device)
-    freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=pos.device),
-                           2.0 * j / head_size)
+    base = torch.full((), theta, dtype=torch.float32, device=pos.device)
+    freq = 1.0 / torch.pow(base, 2.0 * j / head_size)
     val = pos.to(torch.float32)[..., None] * freq
     return torch.cos(val), torch.sin(val)
 

@@ -1,13 +1,23 @@
 """Inference engine on one device — counterpart of the JAX package's
 runtime/engine.py (Engine.__init__ for one device, reset, step, prefill,
-generate, fetch_logits).
+generate, fetch_logits, decode_greedy_device, generate_device).
 
 The prompt is prefilled in chunks of `prefill_chunk` (256 by default, the Q40
 kernel's MAX_T: the fewest whole-weight passes that still take the kernel);
 decode then runs one token per step through the host sampler with the
 reference's xorshift stream. The KV cache is preallocated once and written
-in place. The forward runs eagerly under torch.inference_mode; capturing the
-decode step as a CUDA graph is later work.
+in place; `reset` zeroes it in place, so neither it nor the parameters
+ever move.
+
+On the card, a decode step (T = 1) is a CUDA graph (runtime/graphs.py):
+the forward over static token and position buffers, captured once per
+engine and replayed at every step, as the JAX engine jits its step once
+(runtime/engine.py:669 _compiled_step). The two on-device loops are graphs
+of one step each, replayed back to back with no host read per token:
+`decode_greedy_device` (the loop the JAX bench times) and `generate_device`
+(sampled, with ops/device_sampler.py). Prefill chunks run eagerly.
+`cuda_graphs=False` runs every step eagerly on the card too; on the CPU
+everything runs eagerly and nothing is captured.
 
 The engine runs on `cuda` unless the caller asks for the CPU: with no card
 present, `Engine(...)` raises instead of running elsewhere.
@@ -16,6 +26,7 @@ present, `Engine(...)` raises instead of running elsewhere.
 from __future__ import annotations
 
 import time
+import types
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -24,13 +35,18 @@ import torch
 from ..models.params import fuse_layer_weights
 from ..models.spec import ModelSpec
 from ..models.transformer import KVCache, forward
+from ..ops.device_sampler import sample_token, state_from_seed
 from ..sampler import Sampler
 from ..utils.device import resolve_device
+from .graphs import CapturedStep, capture
 from .stats import RunStats, StepStats
 
 # the fp8 (e4m3) cache stores 1 byte per value; writes saturate at +-448
 # and K3 upcasts it in registers (ops/cuda_attention.py)
 CACHE_DTYPES = (torch.bfloat16, torch.float32, torch.float8_e4m3fn)
+# generate_device's host reads the loop's done flag once every this many
+# replays: at most this many - 1 forwards run after the stop token
+_DONE_CHECK_EVERY = 8
 
 __all__ = ["CACHE_DTYPES", "Engine", "GenerationResult", "resolve_device"]
 
@@ -52,6 +68,7 @@ class Engine:
         cache_dtype=torch.bfloat16,
         prefill_chunk: int = 256,
         activation_q80: bool = False,
+        cuda_graphs: bool = True,
     ):
         self.device = resolve_device(device)
         if cache_dtype not in CACHE_DTYPES:
@@ -79,26 +96,110 @@ class Engine:
         self.cache = KVCache.create(spec, 1, self.seq_len, cache_dtype,
                                     self.device)
         self.pos = 0
+        # the captured steps, keyed like the JAX engine's _steps: 1 (the
+        # decode step), ("greedy",), ("dsample", temperature, topp, vocab,
+        # stop ids); empty on the CPU or with cuda_graphs=False
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        self.graphs: dict[object, CapturedStep] = {}
+        # device while-loop iterations of the last generate_device call
+        # (== its sampled tokens; forwards run == that - 1)
+        self.last_device_steps = 0
+        # the steps' static buffers: a graph reads and writes these at
+        # replay, so they never move
+        dev, i64 = self.device, torch.int64
+        self._buf = types.SimpleNamespace(
+            tok=torch.zeros((1, 1), dtype=i64, device=dev),
+            pos=torch.zeros((1,), dtype=torch.int32, device=dev),
+            count=torch.zeros((1,), dtype=i64, device=dev),
+            out=torch.zeros((self.seq_len + 2,), dtype=i64, device=dev),
+            done=torch.zeros((1,), dtype=torch.bool, device=dev),
+            limit=torch.zeros((1,), dtype=i64, device=dev),
+            rng=torch.zeros((2,), dtype=i64, device=dev),
+            logits=torch.zeros((1, spec.vocab_size), dtype=torch.float32,
+                               device=dev))
 
     def reset(self) -> None:
-        """New session: zero the cache and rewind the position."""
+        """New session: zero the cache (in place) and rewind the position."""
+        self._zero_cache()
+        self.pos = 0
+
+    def _zero_cache(self) -> None:
         for buf in (*self.cache.k, *self.cache.v):
             buf.zero_()
-        self.pos = 0
+
+    # -- steps: the forward over the engine's configuration ---------------
+
+    def _forward(self, tokens: torch.Tensor, pos0) -> torch.Tensor:
+        """The engine's forward, configured in exactly one place."""
+        return forward(self.params, self.spec, tokens, pos0, self.cache,
+                       compute_dtype=self.compute_dtype,
+                       activation_q80=self.activation_q80)
+
+    def _decode_step(self) -> torch.Tensor:
+        """Graph 1: the token in `tok` at the position in `pos`."""
+        return self._forward(self._buf.tok, self._buf.pos)
+
+    def _greedy_step(self) -> None:
+        """Graph ("greedy",): one decode step whose argmax is recorded at
+        `count` and fed back as the next token at the next position."""
+        b = self._buf
+        nxt = torch.argmax(self._forward(b.tok, b.pos), dim=-1)      # (1,)
+        b.out.index_copy_(0, b.count, nxt)
+        b.tok.copy_(nxt.view(1, 1))
+        b.pos.add_(1)
+        b.count.add_(1)
+
+    def _sample_step(self, temperature: float, topp: float, n_vocab: int,
+                     stops: tuple) -> None:
+        """Graph ("dsample", ...): the body of the JAX generate_device loop
+        (runtime/engine.py:2045-2063) behind a device `done` flag. A live
+        step samples from `logits`, records the token at `count` and ends
+        the run at a stop token or at `limit` tokens; then the forward of
+        that token runs, unless the run has ended: its position then goes
+        to S, where the cache write is dropped. Once done, a replay changes
+        no recorded token, RNG state, position or cache slot."""
+        b = self._buf
+        tok, rng = sample_token(b.logits[0, :n_vocab], b.rng, temperature, topp)
+        live = ~b.done
+        b.out.index_copy_(0, b.count, tok.view(1))
+        b.rng.copy_(torch.where(live, rng, b.rng))
+        stop = b.count == b.limit - 1
+        for s in stops:
+            stop = stop | (tok == s)
+        b.count.add_(live.to(torch.int64))
+        b.done.logical_or_(live & stop)
+        live = ~b.done
+        pos = torch.where(live, b.pos, self.seq_len)
+        b.logits.copy_(self._forward(tok.view(1, 1), pos))
+        b.pos.add_(live.to(torch.int32))
+
+    def _captured(self, key, fn: Callable[[], object]) -> CapturedStep:
+        """The graph of `key`, captured from fn at its first use (fn runs
+        once eagerly then, with the static buffers as they stand)."""
+        if key not in self.graphs:
+            self.graphs[key] = capture(fn)
+        return self.graphs[key]
 
     @torch.inference_mode()
     def step(self, tokens: np.ndarray, pos0: int) -> torch.Tensor:
         """Run a (1, T) segment from absolute position pos0; returns the
-        last token's logits (1, vocab) f32 on the device. Advances pos."""
+        last token's logits (1, vocab) f32 on the device, a tensor of its
+        own that no later step overwrites. Advances pos. At T = 1 on a
+        CUDA engine this replays the captured decode step."""
         b, t = tokens.shape
         if b != 1:
             raise ValueError(f"the engine runs one sequence, got batch {b}")
         if pos0 + t > self.seq_len:
             raise ValueError("context overflow")
-        tok = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
-        logits = forward(self.params, self.spec, tok, pos0, self.cache,
-                         compute_dtype=self.compute_dtype,
-                         activation_q80=self.activation_q80)
+        if t == 1 and self.cuda_graphs:
+            self._buf.tok.fill_(int(tokens[0, 0]))
+            self._buf.pos.fill_(pos0)
+            graph = self._captured(1, self._decode_step)
+            graph.replay()
+            logits = graph.out.clone()
+        else:
+            tok = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
+            logits = self._forward(tok, pos0)
         self.pos = pos0 + t
         return logits
 
@@ -160,3 +261,102 @@ class Engine:
             if on_token:
                 on_token(token)
         return GenerationResult(out, stats)
+
+    # -- on-device loops: one captured step, replayed back to back ---------
+
+    @torch.inference_mode()
+    def decode_greedy_device(self, first_token: int,
+                             n_tokens: int) -> tuple[np.ndarray, float]:
+        """Greedy decode of n_tokens from first_token at self.pos with no
+        host round trip per token (JAX runtime/engine.py:2215, the loop the
+        JAX bench times). Like the JAX loop, it runs on a fresh cache: the
+        cache is zeroed in place first. Returns (tokens (n_tokens, 1) int32,
+        seconds); the seconds exclude the graph's capture on the first
+        call. Advances pos by n_tokens; a run past the cache raises."""
+        if n_tokens < 0 or self.pos + n_tokens > self.seq_len:
+            raise ValueError(f"context overflow: {n_tokens} tokens from "
+                             f"pos {self.pos} of {self.seq_len}")
+        b, key = self._buf, ("greedy",)
+
+        def start() -> None:
+            self._zero_cache()
+            b.tok.fill_(first_token)
+            b.pos.fill_(self.pos)
+            b.count.zero_()
+        if self.cuda_graphs and key not in self.graphs:
+            start()
+            self._captured(key, self._greedy_step)
+        start()
+        run = self.graphs[key].replay if self.cuda_graphs else self._greedy_step
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        for _ in range(n_tokens):
+            run()
+        toks = b.out[:n_tokens].cpu()      # the one host read: waits for all
+        dt = time.perf_counter() - t0
+        self.pos += n_tokens
+        return toks.numpy().astype(np.int32).reshape(n_tokens, 1), dt
+
+    @torch.inference_mode()
+    def generate_device(
+        self,
+        prompt: list[int],
+        max_tokens: int,
+        *,
+        temperature: float,
+        topp: float,
+        seed: int,
+        eos_id: int | set[int] | None = None,
+        vocab_size: int | None = None,
+    ) -> list[int]:
+        """Sampled generation with the decode loop on the device (JAX
+        runtime/engine.py:1990): each replay samples (ops/device_sampler.py,
+        the reference's xorshift* stream seeded with `seed`) and steps the
+        model, with no host round trip per token; the host reads the done
+        flag once every _DONE_CHECK_EVERY replays.
+
+        The generate() + Sampler contract: it stops at the first stop token
+        (included), the forward of the last emitted token never runs (no
+        cache write past it), pos advances by n - 1 for n tokens, and
+        last_device_steps is n. The device CDF is summed in f32, so a
+        neighbouring token differs from the host Sampler's only within f32
+        rounding of a CDF boundary. vocab_size: sample only over the first
+        vocab_size logits, as the host Sampler truncates to its vocab."""
+        stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
+        n_vocab = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
+        logits = self.prefill(prompt)
+        if max_tokens <= 0:      # the hard-cap contract of generate()
+            self.last_device_steps = 0
+            return []
+        # every stepped token writes the cache at pos < seq_len; the last
+        # token is never stepped, so the loop may emit at the context edge
+        max_tokens = min(max_tokens, self.seq_len - self.pos + 1)
+        stops = tuple(sorted(stop_ids))
+        key = ("dsample", float(temperature), float(topp), n_vocab, stops)
+        b = self._buf
+
+        def step() -> None:
+            self._sample_step(float(temperature), float(topp), n_vocab, stops)
+
+        def start(done: bool) -> None:
+            b.logits.copy_(logits)
+            b.rng.copy_(state_from_seed(seed, self.device))
+            b.count.zero_()
+            b.done.fill_(done)
+            b.pos.fill_(self.pos)
+            b.limit.fill_(max_tokens)
+        if self.cuda_graphs and key not in self.graphs:
+            start(True)     # done: the warm-up run writes no cache slot
+            self._captured(key, step)
+        start(False)
+        run = self.graphs[key].replay if self.cuda_graphs else step
+        every = _DONE_CHECK_EVERY if self.cuda_graphs else 1
+        for i in range(max_tokens):
+            run()
+            if (i + 1) % every == 0 and bool(b.done):
+                break
+        n = int(b.count)
+        self.last_device_steps = n
+        self.pos += max(n - 1, 0)
+        return b.out[:n].tolist()

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -426,3 +427,101 @@ def test_q40_entry_points_take_the_q80_argument(monkeypatch):
         assert len(fn.argtypes) == len(params)
         assert fn.argtypes[-2:] == [ctypes.c_int, ctypes.c_void_p]
         assert "cudaErrorInvalidValue" in src.split(f'extern "C" int {entry}(', 1)[1][:600]
+
+
+def test_import_guards_cover_the_compiled_decode_path():
+    """The device sampler and the graph module are in the package the
+    blocked-jax import test and the per-file import scan walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"ops/device_sampler.py", "runtime/graphs.py"} <= files
+
+
+def _cpu_engine(**kw):
+    from distributed_llama_tpu_torch.models.params import load_params, random_tensors
+
+    spec = tiny_spec()
+    params = load_params(spec, random_tensors(spec, seed=0), device="cpu")
+    return Engine(spec, params, device="cpu",
+                  compute_dtype=torch.float32, cache_dtype=torch.float32, **kw)
+
+
+def test_cpu_engine_never_captures(monkeypatch):
+    """On the CPU every step runs eagerly, cuda_graphs or not: capturing
+    (or touching a CUDA graph at all) would raise here."""
+    from distributed_llama_tpu_torch.runtime import engine as engine_mod
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU engine tried to capture a CUDA graph")
+    monkeypatch.setattr(engine_mod, "capture", refuse)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", refuse)
+    eng = _cpu_engine(cuda_graphs=True)
+    assert eng.cuda_graphs is False
+    eng.step(np.asarray([[3]], np.int32), 0)
+    eng.decode_greedy_device(3, 4)
+    eng.reset()
+    eng.generate_device([1, 2], 4, temperature=0.8, topp=0.9, seed=1)
+    assert eng.graphs == {}
+
+
+def test_failed_capture_raises_without_eager_fallback(monkeypatch):
+    """A graph engine whose capture fails raises from step(); it does not
+    run the step eagerly instead (no launch counted, no position moved)."""
+    from distributed_llama_tpu_torch.runtime import engine as engine_mod
+
+    eng = _cpu_engine()
+    eng.cuda_graphs = True          # as a CUDA engine would have it
+    tried = []
+
+    def fail(fn):
+        tried.append(fn)
+        raise RuntimeError("operation not permitted when stream is capturing")
+    monkeypatch.setattr(engine_mod, "capture", fail)
+    monkeypatch.setattr(engine_mod, "forward", lambda *a, **k: pytest.fail("ran eagerly"))
+    with pytest.raises(RuntimeError, match="capturing"):
+        eng.step(np.asarray([[3]], np.int32), 0)
+    assert len(tried) == 1 and eng.pos == 0 and eng.graphs == {}
+
+
+def test_capture_tallies_launches_and_replays_count_them(monkeypatch):
+    """graphs.capture with CUDA's graph API faked on the CPU: the warm-up's
+    launches count (they run), the capture's are taken back (nothing runs)
+    and kept as the tally, and each replay adds the tally, so counters stay
+    exact under replay."""
+    import contextlib
+    import types
+
+    from distributed_llama_tpu_torch.runtime import graphs
+
+    replays = []
+
+    class FakeGraph:
+        def replay(self):
+            replays.append(1)
+
+    stream = types.SimpleNamespace(wait_stream=lambda other: None)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda: stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: stream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", lambda g: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(graphs, "pool_bytes", lambda g: 0)
+
+    def step():
+        cuda_q40.q40_matmul.launches += 3
+        cuda_q40.q80_fused.launches += 3
+        cuda_attention.flash_attention.launches += 2
+        return "logits"
+    before = [c.launches for c in graphs.LAUNCH_COUNTERS]
+    g = graphs.capture(step)
+    warm = [c.launches - b for c, b in zip(graphs.LAUNCH_COUNTERS, before)]
+    assert warm == [3, 0, 3, 2, 0] and g.tally == (3, 0, 3, 2, 0) and g.out == "logits"
+    for _ in range(5):
+        g.replay()
+    assert len(replays) == 5
+    assert [c.launches - b for c, b in zip(graphs.LAUNCH_COUNTERS, before)] == \
+        [3 + 5 * 3, 0, 3 + 5 * 3, 2 + 5 * 2, 0]
+    assert graphs.LAUNCH_COUNTERS == (cuda_q40.q40_matmul, cuda_q40.q40_expert_matmul,
+                                      cuda_q40.q80_fused, cuda_attention.flash_attention,
+                                      cuda_q80.q80_roundtrip)
