@@ -153,11 +153,47 @@ result line):
     f32 tokens with
     --buffer-float-type f32 equal to the CLI on the CPU, and with
     --device-sampling too; one --device-sampling run at the defaults; one
-    --cache-dtype f8 run).
+    --cache-dtype f8 run; Llama: `dllama api --serve-batch 2` built from
+    the CLI's arguments, one chat request, its f32 text equal to the same
+    server's on the CPU).
+ 7. Serving (`[serve]` lines; run after phase 5, over its Llama-2-7B
+    weights, full width and depth): (a) an Engine of B = 4 slots with Q80
+    activations and a bf16 cache; the scheduler's warmup captures the
+    slot decode graph, whose tally must be 129 K1 (the tensor-core path at
+    t = 4), 32 K3 and 129 standalone Q80; three batch steps eager and
+    replayed on the same cache state, tokens and positions moved between
+    replays and a row gated in one, logits and caches bit-identical; a
+    batch step and a chunk on the kernels against the plain versions on
+    the eager twin (LOGITS_TOL, LOGITS_REL_L2_TOL); a (4, 256) chunk with
+    rows 1 and 3 gated at pos S: their caches bit-untouched, the live
+    rows' logits those of a batch-1 prefill of the same tokens; exact
+    launches of a chunk (K1 1, K3 32, Q80 129) and of a step. (b) The
+    scheduler: 8 greedy requests, seeded prompts of 40-300 tokens, 32
+    tokens each, 4 submitted at once and 4 while those decode; exact
+    launches over the run; each request's tokens equal to a sequential
+    batch-1 generate up to the first batch-1 top-2 logit gap within the
+    logits tolerance (printed); every live row of 4 batch steps against
+    the batch-1 step at the same position and cache contents. Then ms per
+    batch step with 4 live rows, eager and graph in turns (each step with
+    its logits to the host and a greedy pick a row), aggregate tok/s,
+    the step's profile (idle share, cudaGraphLaunch/cudaLaunchKernel).
+    (c) `dllama api --serve-batch 4` in-process on 127.0.0.1:0 (ApiState
+    over the 7B engine, a byte-fallback tokenizer of its vocab): four
+    concurrent greedy streaming clients, two chat and two completions,
+    whose text equals the scheduler's for the same prompts; /v1/models,
+    /healthz, /readyz, /stats 200; a prompt past S 400; the legacy path's
+    chat text equal to generate's. Printed with the card: tok/s, ms a
+    batch step, TTFT and ITL p50/p95, ms a (4, 256) chunk, the idle share,
+    and K1 at t = 4, the 129 standalone Q80 and K3 over 4 rows, each a
+    step's sum against its bound, plain version and library call. K1's
+    t = 4 layer rows come from phase 2's path rows, wcls's is timed here;
+    the Q80 and K3 rows from phases 2b and 4, which run the batch step's
+    shapes (Q80 at 4 x 4096 and 4 x 11008; K3 over 4 rows at their own
+    fills, and with rows gated at S in a step and in a 256-token chunk).
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
-of it, and the [GEMV1-Q80] step sums (fused, GEMV alone, GEMV + standalone
+of it, the serving phase's three step sums at B = 4, and the [GEMV1-Q80] step sums (fused, GEMV alone, GEMV + standalone
 Q80) of a 7B and a Mixtral step. The line before the last holds the
 per-kernel JSON; the last line is
 {"ok": true, "device": {...}}. Library calls are timed as yardsticks only:
@@ -667,7 +703,8 @@ def phase_gemv1_q80(gen) -> dict:
 # Q80 round-trip inputs (tokens, width): 7B's and Mixtral's matmul inputs at
 # a decode step and a 256-token chunk (dim 4096; 7B hidden 11008, Mixtral
 # 14336, w2's and the expert down projection's)
-Q80_SHAPES = ((1, 4096), (1, 11008), (1, 14336), (256, 4096), (256, 11008), (256, 14336))
+Q80_SHAPES = ((1, 4096), (1, 11008), (1, 14336), (256, 4096), (256, 11008), (256, 14336),
+              (4, 4096), (4, 11008))     # the last two: a 7B batch step's inputs, B = 4
 
 
 def phase_q80(gen) -> dict:
@@ -732,7 +769,12 @@ def phase_k3(gen) -> dict:
               (1, 32, 32, 1, [7680], 128, 8192),    # P2's shape: B1, KVH32, fill 7680
               (1, 32, 8, 100, [1000], 128, 2048),   # a ragged last tile
               (1, 32, 8, 1, [1500], 64, 2048),      # hs 64, decode and prefill
-              (1, 32, 8, 256, [511], 64, 2048)]
+              (1, 32, 8, 256, [511], 64, 2048),
+              # the serving phase's shapes: a 7B batch step, 4 rows at their
+              # own fills; gated rows at pos0 == S in a step and in a chunk
+              (4, 32, 32, 1, [511, 400, 300, 200], 128, 2048),
+              (4, 32, 32, 1, [300, 2048, 100, 2048], 128, 2048),
+              (4, 32, 32, 256, [0, 2048, 512, 2048], 128, 2048)]
     # (q dtype, cache dtype, cases): the bf16 q paths on every case, the
     # exact f32 path (f32 q, f32 or e4m3 cache) on a few
     f32_cases = [(1, 32, 8, 1, [2047], 128, 2048), (1, 32, 8, 256, [1792], 128, 2048),
@@ -770,7 +812,7 @@ def phase_k3(gen) -> dict:
 
             ms = time_ms(run_kernel)
             plain = time_ms(run_plain)
-            fill = max(pos0) + t
+            fill = min(max(pos0) + t, s)     # a gated row (pos0 == S) sees all S
             qs = q.transpose(1, 2)                                  # (B, H, T, hs)
             ks = k[:, :, :fill].to(dt).repeat_interleave(g, dim=1)
             vs = v[:, :, :fill].to(dt).repeat_interleave(g, dim=1)
@@ -781,7 +823,7 @@ def phase_k3(gen) -> dict:
             # this run's work: query token tt of row b sees pos0[b] + tt + 1
             # slots, for each of its H heads a q.k and a p.v of hs multiply-adds;
             # bytes: q and out once, K and V up to each row's last position
-            seen = sum(p + tt + 1 for p in pos0 for tt in range(t))
+            seen = sum(min(p + tt + 1, s) for p in pos0 for tt in range(t))
             nbytes = (2 * q.numel() * q.element_size()
                       + sum(2 * kvh * min(p + t, s) * hs * csize for p in pos0))
             ops = 4.0 * hs * h * seen
@@ -2102,7 +2144,9 @@ def _release(label: str) -> None:
           f"GiB allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
 
 
-def phase_main_paths(card: str) -> dict:
+def phase_main_paths(card: str) -> tuple[dict, dict]:
+    """The main paths and their graph phases; returns their results and
+    the Llama-2-7B params, which the serving phase reuses."""
     rng = np.random.default_rng(7)
     prompt = [1] + rng.integers(3, 32000, 299).tolist()
     out = {}
@@ -2126,6 +2170,7 @@ def phase_main_paths(card: str) -> dict:
         weight_bytes=wb)
     out["llama2_7b"]["logits_vs_plain"].pop("logits")
     out["llama2_7b"]["graph"] = graph_phase("Llama-2-7B", engine, eager, prompt, wb, card)
+    params_7b = engine.params
     del engine, eager
     _release("Llama-2-7B")
 
@@ -2177,7 +2222,7 @@ def phase_main_paths(card: str) -> dict:
                                            card)
     del engine, eager
     _release("Grok-1 (2 layers)")
-    return out
+    return out, params_7b
 
 
 def phase_file_path() -> None:
@@ -2243,6 +2288,708 @@ def phase_file_path() -> None:
                       + " | ".join(f8.strip().splitlines()[-5:]))
                 if "Generated tokens:    16" not in f8:
                     fail("CLI inference with --cache-dtype f8 did not complete")
+            if name == "llama":
+                # `dllama api --serve-batch 2` as serve() builds it, on
+                # cuda and on the CPU: the same f32 chat text
+                texts = {dev: cli_api_text(mpath, tpath, dev) for dev in ("cuda", "cpu")}
+                print(f"[file] llama: dllama api --serve-batch 2, f32 chat text cuda == cpu: "
+                      f"{texts['cuda'] == texts['cpu']} ({len(texts['cuda'])} chars)")
+                if texts["cuda"] != texts["cpu"]:
+                    fail(f"dllama api text differs: cuda {texts['cuda']!r}, cpu {texts['cpu']!r}")
+
+
+def cli_api_text(mpath: str, tpath: str, device: str) -> str:
+    """One greedy chat request through `dllama api --serve-batch 2` built
+    by apps.api_server.build_server from the CLI's arguments, bound to
+    127.0.0.1:0; the server drains and closes after it."""
+    import http.client
+    import threading
+
+    from distributed_llama_tpu_torch.apps import api_server, dllama
+
+    args = dllama.build_argparser().parse_args(
+        ["api", "--model", mpath, "--tokenizer", tpath, "--host", "127.0.0.1", "--port", "0",
+         "--serve-batch", "2", "--temperature", "0", "--compute-dtype", "f32",
+         "--cache-dtype", "f32", "--buffer-float-type", "f32", "--device", device])
+    with contextlib.redirect_stdout(io.StringIO()):
+        server, state = api_server.build_server(args)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        conn = http.client.HTTPConnection(*server.server_address[:2], timeout=300)
+        conn.request("POST", "/v1/chat/completions", json.dumps(
+            {"messages": [{"role": "user", "content": "hello world"}], "max_tokens": 16,
+             "temperature": 0}), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        if resp.status != 200:
+            fail(f"dllama api on {device}: {resp.status} {body}")
+        return body["choices"][0]["message"]["content"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        api_server.finish(state, drain_timeout=30.0)
+
+
+# -- phase 7: serving (the batch-B slot engine, the scheduler, dllama api) --
+
+SERVE_B, SERVE_C = 4, 256
+# a batch step's launches: every projection at t = B on K1's tensor-core
+# path with the standalone Q80 round trip before it (the fused one is
+# t = 1 only), one K3 a layer; a (B, C) chunk's projections take the
+# dequantize path (t = B*C > MAX_T), its wcls at t = B
+SLOT_STEP = {"K1": 129, "K2": 0, "K3": 32, "Q80": 129, "Q80F": 0}
+SLOT_CHUNK = {"K1": 1, "K2": 0, "K3": 32, "Q80": 129, "Q80F": 0}
+COUNTER_NAMES = ("K1", "K2", "Q80F", "K3", "Q80")     # graphs.LAUNCH_COUNTERS order
+
+
+def _tokenizer(vocab: int):
+    """A byte-fallback tokenizer over the model's vocab (3 specials, 256
+    byte tokens, fillers): the synthetic weights come with no .t file."""
+    from distributed_llama_tpu_torch.io import TokenizerData
+    from distributed_llama_tpu_torch.testing import byte_fallback_vocab
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    return Tokenizer(TokenizerData(vocab=byte_fallback_vocab(vocab), scores=[0.0] * vocab,
+                                   bos_id=1, eos_id=2))
+
+
+def _held_logits(what: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Logits held as compare_with_plain holds them: max abs error within
+    LOGITS_TOL of max |want|, relative L2 within LOGITS_REL_L2_TOL."""
+    got, want = got.float(), want.float()
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
+        fail(f"{what}: logits not finite")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    rel_l2 = ((got - want).norm() / want.norm()).item()
+    if err > LOGITS_TOL * scale or rel_l2 > LOGITS_REL_L2_TOL:
+        fail(f"{what}: max abs {err:.4g} (tol {LOGITS_TOL * scale:.4g}), rel L2 {rel_l2:.3g}")
+    return dict(max_abs_err=err, tol=LOGITS_TOL * scale, rel_l2=rel_l2,
+                same_argmax=int(got.argmax()) == int(want.argmax()))
+
+
+def _chunk(rows: dict, b: int, c: int, s: int):
+    """A (B, C) slot chunk: rows {r: (tokens, pos)}; every other row gated."""
+    tok = np.zeros((b, c), np.int32)
+    pos = np.full((b,), s, np.int32)
+    lidx = np.zeros((b,), np.int32)
+    for r, (t, p) in rows.items():
+        tok[r, :len(t)] = t
+        pos[r] = p
+        lidx[r] = len(t) - 1
+    return tok, pos, lidx
+
+
+def _copy_cache(dst, src, dst_rows=slice(None), src_rows=slice(None)) -> None:
+    for a, b in zip((*dst.k, *dst.v), (*src.k, *src.v)):
+        a[dst_rows].copy_(b[src_rows])
+
+
+def serving_slot_engine(spec, one, eng, eager) -> tuple[dict, object]:
+    """(a): the slot decode graph captured in warmup with its tally; one
+    batch step eager and replayed bit for bit over moved tokens and
+    positions; the kernels in the step and in a chunk against their plain
+    versions; a (B, C) chunk with two rows gated: their caches untouched,
+    the live rows' logits those of a batch-1 prefill; exact launches.
+    Returns the results and the warmed scheduler."""
+    from distributed_llama_tpu_torch.runtime.scheduler import Scheduler
+
+    b, c, s, vocab = SERVE_B, SERVE_C, spec.seq_len, spec.vocab_size
+    out: dict = {}
+    sched = Scheduler(eng, chunk=c)
+    t0 = time.perf_counter()
+    sched.warmup()
+    torch.cuda.synchronize()
+    g = eng.graphs.get("slot_decode")
+    if g is None:
+        fail("warmup did not capture the slot decode graph")
+    tally = dict(zip(COUNTER_NAMES, g.tally))
+    out["warmup_s"], out["capture_s"] = time.perf_counter() - t0, g.capture_s
+    out["pool_mib"], out["tally"] = g.pool_bytes / 2 ** 20, tally
+    print(f"[serve] warmup {out['warmup_s']:.3f} s: slot_decode captured in {g.capture_s:.3f} "
+          f"s, pool {out['pool_mib']:.1f} MiB, launches a replay {tally}")
+    if tally != SLOT_STEP:
+        fail(f"slot decode tally {tally}, wanted {SLOT_STEP}")
+
+    rng = np.random.default_rng(11)
+    lens = (256, 180, 256, 90)
+    prompts = [rng.integers(3, vocab, n).tolist() for n in lens]
+    eng.slot_prefill_chunk(*_chunk({r: (p, 0) for r, p in enumerate(prompts)}, b, c, s))
+    _copy_cache(eager.cache, eng.cache)
+    pos = np.asarray(lens, np.int32)
+    for i in range(3):          # tokens and positions move between replays
+        tok = rng.integers(3, vocab, (b, 1)).astype(np.int32)
+        p = pos + i
+        if i == 1:
+            p[2] = s            # a gated row in the middle step
+        le = eager.slot_decode_step(tok, p)
+        lg = eng.slot_decode_step(tok, p)
+        torch.cuda.synchronize()
+        if not torch.equal(le, lg):
+            fail(f"slot decode step {i}: eager and replayed logits differ "
+                 f"(max abs {(le - lg).abs().max().item():.3g})")
+    same = all(torch.equal(x, y) for x, y in zip((*eager.cache.k, *eager.cache.v),
+                                                 (*eng.cache.k, *eng.cache.v)))
+    print(f"[serve] 3 batch steps eager vs replayed (tokens and positions moved, a row gated "
+          f"in one): logits bit-identical True, caches bit-identical {same}")
+    if not same:
+        fail("slot decode: eager and replayed caches differ")
+
+    # the kernels inside the step and the chunk against their plain
+    # versions, on the eager twin: the plain run rewrites the same slots
+    tok = rng.integers(3, vocab, (b, 1)).astype(np.int32)
+    p = pos + 3
+    lk = eager.slot_decode_step(tok, p)
+    with plain_versions():
+        lp = eager.slot_decode_step(tok, p)
+    out["step_vs_plain"] = _held_logits("batch step, kernels vs plain", lk, lp)
+    args = _chunk({0: (prompts[0], 0), 2: (prompts[2][:200], 0)}, b, c, s)
+    lk = eager.slot_prefill_chunk(*args)
+    with plain_versions():
+        lp = eager.slot_prefill_chunk(*args)
+    out["chunk_vs_plain"] = _held_logits("chunk, kernels vs plain", lk[[0, 2]], lp[[0, 2]])
+    print(f"[serve] kernels vs plain: batch step {out['step_vs_plain']}; chunk (rows 0, 2) "
+          f"{out['chunk_vs_plain']}")
+
+    # a (B, C) chunk with rows 1 and 3 gated at S: their caches bit for
+    # bit, and the live rows' logits against a batch-1 prefill
+    a_tok = rng.integers(3, vocab, 256).tolist()
+    b_tok = rng.integers(3, vocab, 200).tolist()
+    before = [t[[1, 3]] for t in (*eng.cache.k, *eng.cache.v)]   # copies
+    zero_counts()
+    lg = eng.slot_prefill_chunk(*_chunk({0: (a_tok, 0), 2: (b_tok, 0)}, b, c, s))
+    torch.cuda.synchronize()
+    chunk_counts = read_counts()
+    untouched = all(torch.equal(x, t[[1, 3]]) for x, t in zip(before, (*eng.cache.k,
+                                                                       *eng.cache.v)))
+    del before
+    if not untouched:
+        fail("a (B, C) chunk changed the cache of a row gated at pos S")
+    if chunk_counts != SLOT_CHUNK:
+        fail(f"a (B, C) chunk launched {chunk_counts}, wanted {SLOT_CHUNK}")
+    live = {}
+    for r, t in ((0, a_tok), (2, b_tok)):
+        one.reset()
+        live[r] = _held_logits(f"chunk row {r} vs batch-1 prefill", lg[r], one.prefill(t)[0])
+    out["gated_chunk"] = dict(gated_untouched=untouched, live_vs_batch1=live,
+                              launches=chunk_counts)
+    print(f"[serve] (4, 256) chunk, rows 1 and 3 gated at S: their caches bit-untouched "
+          f"{untouched}; live rows vs batch-1 prefill {live}; launches {chunk_counts}")
+    zero_counts()
+    eng.slot_decode_step(tok, p + 1)
+    torch.cuda.synchronize()
+    step_counts = read_counts()
+    print(f"[serve] one batch step (replay) launches {step_counts}")
+    if step_counts != SLOT_STEP:
+        fail(f"a batch step launched {step_counts}, wanted {SLOT_STEP}")
+    out["step_launches"] = step_counts
+
+    ms = []
+    args = _chunk({r: (t, 0) for r, t in enumerate(prompts)}, b, c, s)
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.slot_prefill_chunk(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["chunk_ms"] = _ms_stats(ms)
+    return out, sched
+
+
+def _top2_gap(logits: np.ndarray) -> float:
+    """The gap between the two largest logits of one step."""
+    top = np.sort(logits.astype(np.float64))[-2:]
+    return float(top[1] - top[0])
+
+
+def serving_scheduler(spec, one, eng, sched) -> dict:
+    """(b): 8 greedy requests, prompts of 40-300 tokens, 32 tokens each:
+    4 at once, 4 joining while the first decode; exact launches; every
+    live row of 4 batch steps against the batch-1 step at the same
+    position and cache contents; then each request's tokens against a
+    sequential batch-1 generate. A batch row's logits lie within e of the
+    batch-1 step's (e the worst max abs difference of those 16 rows), so
+    greedy tokens can part only where the batch-1 top-2 gap is at most
+    2e: the tokens must be equal, or first differ at such a near-tie."""
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    b, s, vocab = SERVE_B, spec.seq_len, spec.vocab_size
+    rng = np.random.default_rng(13)
+    prompts = [[1] + rng.integers(3, vocab, n - 1).tolist()
+               for n in rng.integers(40, 301, 8)]
+    calls = {"chunk": 0, "step": 0}
+    chunk_fn, step_fn = eng.slot_prefill_chunk, eng.slot_decode_step
+
+    def counted(kind, fn):
+        def run(*a):
+            calls[kind] += 1
+            return fn(*a)
+        return run
+    eng.slot_prefill_chunk = counted("chunk", chunk_fn)
+    eng.slot_decode_step = counted("step", step_fn)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        reqs = [sched.submit(p, 32, Sampler(vocab, 0.0, 0.9, 1)) for p in prompts[:4]]
+        while not all(r.stats.t_first is not None for r in reqs):
+            sched.step()
+        reqs += [sched.submit(p, 32, Sampler(vocab, 0.0, 0.9, 1)) for p in prompts[4:]]
+        while not all(r.finished.is_set() for r in reqs):
+            sched.step()
+        torch.cuda.synchronize()
+    finally:
+        del eng.slot_prefill_chunk, eng.slot_decode_step
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: calls["chunk"] * SLOT_CHUNK[k] + calls["step"] * SLOT_STEP[k] for k in counts}
+    print(f"[serve] scheduler: 8 requests x 32 tokens in {wall:.3f} s, {calls['chunk']} chunks "
+          f"+ {calls['step']} batch steps, launches {counts}")
+    if counts != want:
+        fail(f"scheduler run launched {counts}, wanted {want}")
+    got = [list(r.tokens(timeout=5.0)) for r in reqs]
+
+    # every live row of 4 batch steps against the batch-1 step at the same
+    # position and cache contents (row r's cache copied into the batch-1
+    # engine before the step)
+    lens = (300, 213, 97, 256)
+    rows = [rng.integers(3, vocab, n).tolist() for n in lens]
+    for lo in range(0, 300, SERVE_C):
+        eng.slot_prefill_chunk(*_chunk({r: (t[lo:lo + SERVE_C], lo) for r, t in
+                                        enumerate(rows) if len(t) > lo}, b, SERVE_C, s))
+    step_rows = []
+    tok = rng.integers(3, vocab, (b, 1)).astype(np.int32)
+    pos = np.asarray(lens, np.int32)
+    for i in range(4):
+        want_rows = []
+        for r in range(b):
+            _copy_cache(one.cache, eng.cache, slice(0, 1), slice(r, r + 1))
+            want_rows.append(one.step(tok[r:r + 1], int(pos[r]))[0])
+        lg = eng.slot_decode_step(tok, pos)
+        step_rows += [_held_logits(f"batch step {i} row {r} vs batch-1 step", lg[r], w)
+                      for r, w in enumerate(want_rows)]
+        tok = lg.argmax(-1, keepdim=True).int().cpu().numpy()
+        pos = pos + 1
+    worst = max(step_rows, key=lambda r: r["max_abs_err"] / r["tol"])
+    near_tie = 2 * max(r["max_abs_err"] for r in step_rows)
+    print(f"[serve] 4 batch steps x 4 live rows vs the batch-1 step: all within tolerance; "
+          f"worst {worst}; near-tie bound on a top-2 gap 2e = {near_tie:.4g}")
+
+    parity = []
+    for i, (p, toks) in enumerate(zip(prompts, got)):
+        one.reset()
+        rec = _recording_sampler(vocab, 0.0, 0.9, 1)
+        ref = one.generate(p, 32, rec).tokens
+        first_diff = next((k for k, (x, y) in enumerate(zip(toks, ref)) if x != y),
+                          None if len(toks) == len(ref) else min(len(toks), len(ref)))
+        gaps = [_top2_gap(lg) for lg, _ in rec.seen]
+        gap = (None if first_diff is None or first_diff >= len(gaps) else gaps[first_diff])
+        parity.append(dict(prompt=len(p), tokens=len(toks), first_difference=first_diff,
+                           gap_at_difference=gap, min_gap=min(gaps)))
+        print(f"[serve] request {i}: {len(p)}-token prompt, {len(toks)} tokens; "
+              + ("equal to batch-1 generate's" if first_diff is None else
+                 f"first difference from batch-1 generate at {first_diff}, batch-1 top-2 gap "
+                 f"there {gap} (near-tie bound {near_tie:.4g})")
+              + f"; smallest batch-1 top-2 gap {min(gaps):.4g}")
+        if first_diff is not None and (gap is None or gap > near_tie):
+            fail(f"request {i}: tokens differ from batch-1 generate at {first_diff}, where the "
+                 f"batch-1 top-2 gap {gap} exceeds the near-tie bound {near_tie:.4g}")
+    return dict(wall_s=wall, chunks=calls["chunk"], steps=calls["step"], launches=counts,
+                parity=parity, step_rows_worst=worst, near_tie_bound=near_tie)
+
+
+# the load run: greedy requests of 32 tokens with seeded prompts of 16-300
+# tokens (one or two chunks), arriving as a seeded Poisson process
+LOAD_N, LOAD_RATE = 200, 5.0      # requests, mean arrivals a second
+
+
+def serving_load(spec, sched) -> dict:
+    """LOAD_N requests through the scheduler at LOAD_RATE arrivals a
+    second. The step loop runs here: a request is submitted at the first
+    iteration after its arrival time, and each token is stamped when the
+    step that made it returns. Aggregate tok/s: every token over the wall
+    time from the first arrival to the last token. TTFT: arrival to first
+    token, over every request. ITL: every gap between two consecutive
+    tokens of a request, over every request."""
+    import queue
+
+    from distributed_llama_tpu_torch.runtime.stats import percentile
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab = spec.vocab_size
+    rng = np.random.default_rng(29)
+    arrive = np.concatenate([[0.0], np.cumsum(rng.exponential(1 / LOAD_RATE, LOAD_N - 1))])
+    prompts = [[1] + rng.integers(3, vocab, n - 1).tolist()
+               for n in rng.integers(16, 301, LOAD_N)]
+    stamps: list[list[float]] = [[] for _ in range(LOAD_N)]
+    reqs: list = []
+    live: set = set()
+    t0 = time.perf_counter()
+    while len(reqs) < LOAD_N or live:
+        now = time.perf_counter() - t0
+        while len(reqs) < LOAD_N and arrive[len(reqs)] <= now:
+            live.add(len(reqs))
+            reqs.append(sched.submit(prompts[len(reqs)], 32, Sampler(vocab, 0.0, 0.9, 1)))
+        worked = sched.step()
+        t = time.perf_counter() - t0
+        for i in list(live):
+            while True:
+                try:
+                    kind, val = reqs[i].events.get_nowait()
+                except queue.Empty:
+                    break
+                if kind == "token":
+                    stamps[i].append(t)
+                elif kind == "done":
+                    live.discard(i)
+                else:
+                    fail(f"load run: request {i} failed: {val}")
+        if not worked:
+            if live:
+                fail(f"load run: the scheduler idled with {len(live)} requests unfinished")
+            if len(reqs) < LOAD_N:
+                time.sleep(max(0.0, arrive[len(reqs)] - (time.perf_counter() - t0)))
+    wall = max(st[-1] for st in stamps)
+    n_tok = sum(len(st) for st in stamps)
+    if n_tok != 32 * LOAD_N:
+        fail(f"load run: {n_tok} tokens, wanted {32 * LOAD_N}")
+    ttft = [(st[0] - a) * 1e3 for st, a in zip(stamps, arrive)]
+    itl = [(y - x) * 1e3 for st in stamps for x, y in zip(st, st[1:])]
+    out = dict(requests=LOAD_N, rate_per_s=LOAD_RATE, arrival_span_s=float(arrive[-1]),
+               wall_s=wall, tokens=n_tok, tok_s=n_tok / wall,
+               prompt_tokens=sum(len(p) for p in prompts), n_gaps=len(itl))
+    for name, xs in (("ttft", ttft), ("itl", itl)):
+        out.update({f"{name}_p{q}_ms": percentile(xs, q) for q in (50, 95, 99)})
+        out[f"{name}_max_ms"] = max(xs)
+    return out
+
+
+def serving_timing(spec, eng, eager, card: str) -> dict:
+    """ms per batch step with 4 live rows, eager (A) and graph (B) in
+    turns, each step as the scheduler's decode runs it (the step, its
+    logits to the host, a greedy pick a row); the graph step's profile."""
+    b, vocab = SERVE_B, spec.vocab_size
+    start = np.asarray((300, 250, 200, 150), np.int32)
+
+    def run(e, n):
+        tok = np.full((b, 1), 5, np.int32)
+        pos = start.copy()
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            lg = e.fetch_logits(e.slot_decode_step(tok, pos))
+            tok = lg.argmax(-1)[:, None].astype(np.int32)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            pos = pos + 1
+        return float(np.median(ms[2:]))
+    ms = {"eager": [], "graph": []}
+    for _ in range(3):
+        for name, e in (("eager", eager), ("graph", eng)):
+            ms[name].append(run(e, 34))
+    out = {name: _ms_stats(v) for name, v in ms.items()}
+    prof = profile_decode(eng, 5, 8, run=lambda: run(eng, 8))
+    busy = prof["device_ms_per_step"]
+    med = out["graph"]["median"]
+    out["profile"] = dict(device_ms_per_step=busy,
+                          graph_launches_per_step=prof["graph_launches_per_step"],
+                          launch_kernel_per_step=prof["launch_kernel_per_step"],
+                          kernels_per_step=prof.get("device_ops_per_step"),
+                          idle_share=None if busy is None else 1 - busy / med,
+                          top=prof.get("top", [])[:10])
+    out["tok_s"] = b * 1e3 / med
+    return out
+
+
+def serving_http(spec, one, card: str) -> dict:
+    """(c): `dllama api --serve-batch 4` in-process on 127.0.0.1:0 over
+    the 7B engine: four concurrent greedy streaming clients (two chat, two
+    completions) whose text equals the scheduler's for the same prompts;
+    the GET routes; a prompt past S gets 400; then the legacy path's chat
+    text against generate. The step sampler (runtime/profiler.PROFILER)
+    times every 4th working step with CUDA events; /stats reports it."""
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from distributed_llama_tpu_torch.apps import api_server
+    from distributed_llama_tpu_torch.runtime.profiler import PROFILER
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab = spec.vocab_size
+    tokenizer = _tokenizer(vocab)
+    sampler = Sampler(vocab, 0.0, 0.9, 3)
+    rng = np.random.default_rng(17)
+
+    def words(n):
+        return " ".join("".join(chr(97 + c) for c in rng.integers(0, 26, 5)) for _ in range(n))
+    bodies = [("/v1/chat/completions", {"messages": [{"role": "user", "content": words(20)}]}),
+              ("/v1/completions", {"prompt": words(40)}),
+              ("/v1/chat/completions", {"messages": [{"role": "system", "content": words(8)},
+                                                     {"role": "user", "content": words(30)}]}),
+              ("/v1/completions", {"prompt": words(5)})]
+    bodies = [(r, {**bd, "max_tokens": 32, "temperature": 0, "stream": True})
+              for r, bd in bodies]
+
+    def start(state):
+        server = ThreadingHTTPServer(("127.0.0.1", 0), api_server.make_handler(state))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        return server
+
+    def post(addr, route, body):
+        conn = http.client.HTTPConnection(*addr, timeout=600)
+        conn.request("POST", route, json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+
+    def streamed_text(route, raw):
+        events = [json.loads(line[6:]) for line in raw.splitlines()
+                  if line.startswith("data: ") and line != "data: [DONE]"]
+        if route.endswith("chat/completions"):
+            return "".join(e["choices"][0]["delta"].get("content", "") for e in events)
+        return "".join(e["choices"][0]["text"] for e in events)
+
+    def scanned(chat, body, toks):
+        prompt, markers, stops = api_server._prompt_and_stops(body, chat)
+        scan = api_server._piece_scanner(tokenizer, tokenizer.encode(prompt)[-1], markers, stops)
+        text = ""
+        for t in toks:
+            piece = scan(t)
+            if piece is None:
+                break
+            text += piece
+        return text
+
+    out: dict = {}
+    state = api_server.ApiState(one, tokenizer, sampler, model_name="llama2-7b-synthetic",
+                                serve_batch=SERVE_B, serve_chunk=SERVE_C)
+    server = start(state)
+    addr = server.server_address[:2]
+    PROFILER.sample_every = 4
+    try:
+        results: dict = {}
+
+        def client(i, route, body):
+            results[i] = post(addr, route, body)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i, r, bd))
+                   for i, (r, bd) in enumerate(bodies)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or any(results[i][0] != 200 for i in range(4)):
+            fail(f"HTTP streaming clients: {[results.get(i, (None,))[0] for i in range(4)]}")
+        texts = [streamed_text(r, results[i][1]) for i, (r, _) in enumerate(bodies)]
+        # the scheduler's text for the same prompts, through the same supervisor
+        sup = state._scheduler
+        reqs = []
+        for route, body in bodies:
+            prompt, _, _ = api_server._prompt_and_stops(body, route.endswith("chat/completions"))
+            reqs.append(sup.submit(tokenizer.encode(prompt), 32, Sampler(vocab, 0.0, 0.9, 1),
+                                   eos_id=tokenizer.eos_id))
+        want = [scanned(r.endswith("chat/completions"), bd, list(q.tokens(timeout=600)))
+                for (r, bd), q in zip(bodies, reqs)]
+        equal = texts == want
+        print(f"[serve] HTTP: 4 concurrent streaming clients (2 chat, 2 completions) in "
+              f"{wall:.3f} s; text equal to the scheduler's for the same prompts: {equal}")
+        if not equal:
+            fail(f"HTTP text differs from the scheduler's: {texts} vs {want}")
+        for path in ("/v1/models", "/healthz", "/readyz", "/stats"):
+            conn = http.client.HTTPConnection(*addr, timeout=60)
+            conn.request("GET", path)
+            resp = conn.getresponse()
+            body = resp.read()
+            if resp.status != 200:
+                fail(f"GET {path}: {resp.status}")
+            if path == "/stats":
+                out["stats"] = json.loads(body)
+        dev = out["stats"].get("device_time", {})
+        sampled = dev.get("by_entry", {}).get("scheduler_step")
+        print(f"[serve] HTTP /stats: {dev.get('sampled_steps')} working steps sampled by the "
+              f"step sampler (CUDA events), device ms a step {sampled} [{card}]")
+        if not sampled:
+            fail(f"the step sampler recorded no device time: {dev}")
+        status, raw = post(addr, "/v1/chat/completions",
+                           {"messages": [{"role": "user", "content": "x" * 3000}],
+                            "max_tokens": 2, "temperature": 0})
+        print(f"[serve] HTTP: GET /v1/models, /healthz, /readyz, /stats 200; a prompt past S "
+              f"answers {status} {raw[:80]}")
+        if status != 400:
+            fail(f"a prompt past S answered {status}, wanted 400")
+        out.update(wall_s=wall, texts_equal=equal, clients=len(bodies))
+    finally:
+        PROFILER.reset()
+        server.shutdown()
+        server.server_close()
+        api_server.finish(state, drain_timeout=30.0)
+        if state._scheduler is not None:
+            state._scheduler.engine.release()
+
+    # the legacy path (no --serve-batch): one chat request against generate
+    legacy = api_server.ApiState(one, tokenizer, Sampler(vocab, 0.0, 0.9, 3),
+                                 model_name="llama2-7b-synthetic")
+    server = start(legacy)
+    try:
+        route, body = bodies[0]
+        status, raw = post(server.server_address[:2], route, {**body, "stream": False})
+        if status != 200:
+            fail(f"legacy chat request: {status} {raw[:200]}")
+        got = json.loads(raw)["choices"][0]["message"]["content"]
+        prompt, _, _ = api_server._prompt_and_stops(body, True)
+        one.reset()
+        toks = one.generate(tokenizer.encode(prompt), 32, Sampler(vocab, 0.0, 0.9, 1)).tokens
+        want = scanned(True, body, toks)
+        print(f"[serve] HTTP legacy path: chat text equal to generate's: {got == want}")
+        if got != want:
+            fail(f"legacy chat text {got!r} differs from generate's {want!r}")
+        out["legacy_equal"] = True
+    finally:
+        server.shutdown()
+        server.server_close()
+    return out
+
+
+def k1_wcls_t4(gen) -> dict:
+    """K1 on wcls at t = B, the one projection of a batch step that phase
+    2's path rows do not time at t = 4: kernel, plain, library, bound."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.quants.torch_codec import dequantize_q40_torch
+
+    d, n = K1_SHAPES["wcls"]
+    dt, t = torch.bfloat16, SERVE_B
+    wbytes = d * n // 2 + d * n // 32 * 2
+    ws = rotating(lambda: random_q40(gen, d, n), wbytes)
+    w0 = ws()
+    x = torch.randn((t, n), generator=gen, device="cuda").to(dt)
+    got = cuda_q40.q40_matmul(x, w0, dt).float()
+    want = cuda_q40.q40_matmul_reference(x, w0, dt).float()
+    err = (got - want).abs().max().item()
+    tol = TOL[dt] * want.abs().max().item()
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        fail(f"K1 wcls t={t}: max err {err:.3g} > tol {tol:.3g}")
+    wd = rotating(lambda: dequantize_q40_torch(random_q40(gen, d, n), dt), d * n * 2)
+    bms, by = bound_ms(wbytes + 2 * t * n + 2 * t * d, 2.0 * t * d * n, dt)
+    row = dict(shape="wcls", d=d, n=n, t=t, max_abs_err=err, tol=tol,
+               ms=time_ms(lambda: cuda_q40.q40_matmul(x, ws(), dt)),
+               plain_ms=time_ms(lambda: cuda_q40.q40_matmul_reference(x, ws(), dt)),
+               library_ms=time_ms(lambda: torch.matmul(x, wd().t())), bound_ms=bms, bound_by=by)
+    print("[serve] [K1] " + json.dumps(row))
+    del ws, wd, w0
+    return row
+
+
+def phase_serving(card: str, params) -> dict:
+    """Phase 7, serving at Llama-2-7B full width and depth over phase 5's
+    weights: the batch-4 slot engine (a), the scheduler (b), the timing of
+    the batch step, and `dllama api` over HTTP (c)."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    spec = _spec("llama2_7b")
+    t_start = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    q80 = dict(activation_q80=True)
+    one = Engine(spec, params, device="cuda", **q80)       # the CLI's batch-1 engine
+    eng = Engine(spec, params, device="cuda", batch=SERVE_B, **q80)
+    eager = Engine(spec, params, device="cuda", batch=SERVE_B, cuda_graphs=False, **q80)
+    out, sched = serving_slot_engine(spec, one, eng, eager)
+    out["scheduler"] = serving_scheduler(spec, one, eng, sched)
+    out["load"] = serving_load(spec, sched)
+    out["timing"] = serving_timing(spec, eng, eager, card)
+    eng.release()
+    eager.release()
+    del eng, eager, sched
+    out["http"] = serving_http(spec, one, card)
+    del one
+    torch.cuda.empty_cache()
+    out["k1_wcls_t4"] = k1_wcls_t4(gen)
+    out["seconds"] = time.perf_counter() - t_start
+    tm, ld = out["timing"], out["load"]
+    g, e, prof = tm["graph"], tm["eager"], tm["profile"]
+    busy = prof["device_ms_per_step"]
+    print(f"[serve] load run: {ld['requests']} requests x 32 tokens, Poisson arrivals at "
+          f"{ld['rate_per_s']:.1f} a second over {ld['arrival_span_s']:.3f} s, 4 slots: aggregate "
+          f"{ld['tok_s']:.1f} tok/s ({ld['tokens']} tokens in {ld['wall_s']:.3f} s) [{card}]")
+    print(f"[serve] load run: TTFT p50 {ld['ttft_p50_ms']:.1f} ms, p95 {ld['ttft_p95_ms']:.1f}, "
+          f"p99 {ld['ttft_p99_ms']:.1f}, max {ld['ttft_max_ms']:.1f} ({ld['requests']} requests); "
+          f"ITL p50 {ld['itl_p50_ms']:.3f} ms, p95 {ld['itl_p95_ms']:.3f}, p99 "
+          f"{ld['itl_p99_ms']:.3f}, max {ld['itl_max_ms']:.3f} (every gap: {ld['n_gaps']}) "
+          f"[{card}]")
+    print(f"[serve] isolated batch step loop (4 live rows, no scheduler, greedy on the host): "
+          f"{tm['tok_s']:.1f} tok/s [{card}]")
+    print(f"[serve] batch step (B = 4): graph {g['median']:.3f} ms median (min {g['min']:.3f}, "
+          f"max {g['max']:.3f}; runs {', '.join(f'{x:.3f}' for x in g['runs'])}), eager "
+          f"{e['median']:.3f} ms (min {e['min']:.3f}, max {e['max']:.3f}), in turns [{card}]")
+    c = out["chunk_ms"]
+    print(f"[serve] (4, 256) prefill chunk {c['median']:.3f} ms median (min {c['min']:.3f}, "
+          f"max {c['max']:.3f}) [{card}]")
+    print(f"[serve] batch step: device busy "
+          + ("not measured" if busy is None else
+             f"{busy:.3f} ms of {g['median']:.3f}: idle share {1 - busy / g['median']:.3f}")
+          + f"; cudaGraphLaunch {prof['graph_launches_per_step']:.1f}, cudaLaunchKernel "
+            f"{prof['launch_kernel_per_step']:.1f} a step [{card}]")
+    ops = prof["kernels_per_step"]
+    print(f"[serve] batch step kernels: {SLOT_STEP['K1']} K1 + {SLOT_STEP['K3']} K3 + "
+          f"{SLOT_STEP['Q80']} Q80 (counted) + "
+          + ("not measured" if ops is None else
+             f"{ops - sum(SLOT_STEP.values()):.0f} other kernels, PyTorch's and K3's merge "
+             f"passes (profiler: {ops:.0f} in all)")
+          + " a step")
+    print(f"[serve] phase 7 in {out['seconds']:.1f} s")
+    return out
+
+
+def serving_entries(k1: dict, q80: dict, k3: dict, serving: dict) -> list[dict]:
+    """The kernels at the serving phase's shapes, each for ONE 7B batch
+    step (B = 4, t = 4): K1 on its tensor-core path (phase 2's path rows
+    at t = 4 for the layers, wcls timed in phase 7), the 129 standalone
+    Q80 round trips (phase 2b's t = 4 rows), K3 over 4 rows (phase 4).
+    Launches: counted over phase 7's scheduler run (its batch steps and
+    chunks; a chunk's K1 is its wcls at t = 4, its Q80 128 inputs at
+    t = 1024 and wcls's at t = 4)."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    kp = {r["shape"]: r for r in k1["paths"] if r["t"] == SERVE_B}
+    w = serving["k1_wcls_t4"]
+    layer = ("wqkv", "wo", "w13", "w2")
+    k1s = {key: 32 * sum(kp[sh]["tc_ms" if key == "ms" else key] for sh in layer) + w[key]
+           for key in keys}
+    qr = {(r["t"], r["n"]): r for r in q80["rows"]
+          if r["dtype"] == "bfloat16" and r["out"] == "bfloat16"}
+    q80s = {key: 97 * qr[(SERVE_B, 4096)][key] + 32 * qr[(SERVE_B, 11008)][key]
+            for key in ("ms", "plain_ms", "bound_ms")}
+    a = next(r for r in k3["rows"] if r["b"] == SERVE_B and r["t"] == 1 and r["cache"] == "bfloat16"
+             and r["dtype"] == "bfloat16" and r["pos0"] == [511, 400, 300, 200])
+    counts = serving["scheduler"]["launches"]
+    return [
+        dict(name="q40_matmul_slot_step", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t = B = 4: wgmma with the "
+                      "weight dequantized into registers, one 64-token tile)",
+             launches=counts["K1"],
+             max_abs_err=max([kp[sh]["tc_err"] for sh in layer] + [w["max_abs_err"]]),
+             **k1s, bound_by="bytes",
+             at="one 7B batch step: 32x(wqkv,wo,w13,w2)+wcls at t=4, bf16; launches: phase "
+                "7's scheduler run"),
+        dict(name="q80_roundtrip_slot_step", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q80_roundtrip.cu",
+             replaces="distributed_llama_tpu/ops/matmul.py:93 (quantize_q80_jax / "
+                      "dequantize_q80_jax before every matmul; no pallas_call)",
+             launches=counts["Q80"],
+             max_abs_err=max(qr[(SERVE_B, n)]["max_abs_err"] for n in (4096, 11008)),
+             **q80s, bound_by="bytes", library_ms=None,
+             at="one 7B batch step: 97 inputs at 4x4096 + 32 at 4x11008, bf16; launches: "
+                "phase 7's scheduler run (its chunks' inputs at t=1024 too)"),
+        dict(name="flash_attention_slot_step", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/flash_attention.cu",
+             replaces="distributed_llama_tpu/ops/pallas_attention.py:233",
+             launches=counts["K3"],
+             max_abs_err=max(r["max_abs_err"] for r in k3["rows"] if r["b"] == SERVE_B
+                             and r["cache"] == "bfloat16" and r["dtype"] == "bfloat16"),
+             ms=32 * a["ms"], plain_ms=32 * a["plain_ms"], bound_ms=32 * a["bound_ms"],
+             bound_by=a["bound_by"], library_ms=32 * a["library_ms"],
+             at="one 7B batch step: 32 layers, 4 rows at pos0 511/400/300/200, T=1, H=KVH=32, "
+                "bf16; launches: phase 7's scheduler run (its (4, 256) chunks too)"),
+    ]
 
 
 def summarize(k1: dict, q80: dict, fused: dict, k2: dict, k3: dict, probes: dict,
@@ -2485,17 +3232,32 @@ def main() -> int:
     probes2["seconds"] = time.perf_counter() - t_p2
     print(f"[probe] P2, P3, P5, P6 in {probes2['seconds']:.1f} s")
     t_main = time.perf_counter()
-    main_paths = phase_main_paths(card)
+    main_paths, params_7b = phase_main_paths(card)
     main_s = time.perf_counter() - t_main
     print(f"[main] main paths and their graph phases in {main_s:.1f} s")
+    serving = phase_serving(card, params_7b)
+    del params_7b
+    torch.cuda.empty_cache()
     phase_file_path()
     kernels = summarize(k1, q80, fused, k2, k3, probes, probes2, main_paths)
+    kernels["kernels"] += serving_entries(k1, q80, k3, serving)
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
                             ("K2", "q40_expert_matmul", "one Mixtral 8x7B decode step, t = 1, bf16")):
         e = next(k for k in kernels["kernels"] if k["name"] == name)
         print(f"[{tag}] step sum, {what}: {e['ms']:.4f} ms against a bound of "
               f"{e['bound_ms']:.4f} ms = {e['bound_ms'] / e['ms']:.3f} of the bound; plain "
               f"{e['plain_ms']:.3f} ms, library {e['library_ms']:.4f} ms [{card}]")
+    for tag, name, what in (("K1", "q40_matmul_slot_step", "one 7B batch step, t = 4, bf16, "
+                                                          "the tensor-core path"),
+                            ("Q80", "q80_roundtrip_slot_step", "one 7B batch step's 129 "
+                                                               "standalone launches, t = 4"),
+                            ("K3", "flash_attention_slot_step", "one 7B batch step, 4 rows "
+                                                                "at fills 512/401/301/201")):
+        e = next(k for k in kernels["kernels"] if k["name"] == name)
+        lib = ("none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms")
+        print(f"[serve] [{tag}] {what}: {e['ms']:.4f} ms against a bound of {e['bound_ms']:.4f} "
+              f"ms ({e['bound_by']}) = {e['bound_ms'] / e['ms']:.3f} of the bound; plain "
+              f"{e['plain_ms']:.3f} ms, library {lib} [{card}]")
     for step, a in fused["steps"].items():
         print(f"[GEMV1-Q80] {step} step, t = 1, bf16: fused {a['fused_ms']:.4f} ms, GEMV alone "
               f"{a['gemv_ms']:.4f} ms, GEMV + standalone Q80 {a['gemv_plus_q80_ms']:.4f} ms: "
@@ -2522,6 +3284,7 @@ def main() -> int:
         k2=k2["rows"], gemv1_edges=edges, gemv1_q80=fused, k3=k3["rows"],
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
+        serving=serving,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -1,4 +1,4 @@
-"""dllama CLI of the port — modes `inference` and `generate`.
+"""dllama CLI of the port — modes `inference`, `generate` and `api`.
 
 Counterpart of the JAX package's apps/dllama.py (ref:
 src/apps/dllama/dllama.cpp):
@@ -6,9 +6,14 @@ src/apps/dllama/dllama.cpp):
   inference  prompt completion with a per-token benchmark line and end-of-run
              averages (ref: dllama.cpp:43-91)
   generate   plain streaming completion (ref: dllama.cpp:96-131)
+  api        the OpenAI-compatible HTTP server (apps/api_server.py); with
+             --serve-batch B, the continuous-batching scheduler over B
+             slots under its supervisor
 
     python -m distributed_llama_tpu_torch.apps.dllama inference \\
         --model m.m --tokenizer t.t --prompt "Hello" --steps 32
+    python -m distributed_llama_tpu_torch.apps.dllama api \\
+        --model m.m --tokenizer t.t --port 9990 --serve-batch 4
 
 Runs Llama, Mixtral and Grok-1 `.m` files on `--device cuda` (the
 default) or `--device cpu`; `--cache-dtype f8` keeps the KV cache in fp8
@@ -18,9 +23,10 @@ reference's quantized activation buffers); `f32` turns it off. On the card
 every decode step replays one captured CUDA graph; `--device-sampling`
 runs the whole sampled decode loop on the device (Engine.generate_device)
 and prints its tokens when the loop ends, as the JAX CLI does. Flags of
-features the port does not have yet — the chat/api/worker modes, mesh
-axes, clusters — are accepted by the parser only to be refused with a
-message, never silently ignored.
+features the port does not have yet — the chat and worker modes, mesh
+axes, clusters, and the serving features listed in UNPORTED_FLAGS — are
+accepted by the parser only to be refused with a message, never silently
+ignored.
 """
 
 from __future__ import annotations
@@ -33,7 +39,41 @@ import torch
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 CACHE_DTYPES = {**DTYPES, "f8": torch.float8_e4m3fn}
-PORTED_MODES = ("inference", "generate")
+PORTED_MODES = ("inference", "generate", "api")
+# serving flags of the JAX CLI that the port does not have yet, with the
+# ROADMAP item that brings each (refused with that message when given)
+_SPEC = "speculation (ROADMAP item 12)"
+_FLEET = "replicas and the fleet (ROADMAP item 16)"
+_EXTRAS = "serving extras (ROADMAP item 10c)"
+UNPORTED_FLAGS = {
+    "--lookup-decode": _SPEC, "--draft": _SPEC, "--draft-len": _SPEC,
+    "--session": "session files (ROADMAP item 12)",
+    "--prefix-cache": "the prefix cache (ROADMAP item 9)",
+    "--prefix-blocks": "the prefix cache (ROADMAP item 9)",
+    "--prefix-block-len": "the prefix cache (ROADMAP item 9)",
+    "--replicas": _FLEET, "--retry-budget": _FLEET, "--route-policy": _FLEET,
+    "--replica-procs": _FLEET, "--replica-hosts": _FLEET,
+    "--kv-transfer": _FLEET, "--tier": _FLEET, "--min-replicas": _FLEET,
+    "--max-replicas": _FLEET, "--tenant-budgets": _FLEET,
+    "--slo-ttft-ms": _EXTRAS, "--slo-itl-ms": _EXTRAS, "--autotune": _EXTRAS,
+    "--admin-token": _EXTRAS, "--trace": _EXTRAS, "--trace-buffer": _EXTRAS,
+    "--trace-dir": _EXTRAS, "--trace-sample": _EXTRAS,
+    "--trace-decode-every": _EXTRAS, "--freeze-compiles": _EXTRAS,
+    "--profile-sample": _EXTRAS, "--profile-dir": _EXTRAS,
+}
+_FLAG_SWITCHES = ("--prefix-cache", "--kv-transfer", "--trace",
+                  "--freeze-compiles")
+
+
+def _serve_batch(v: str) -> int:
+    if v == "auto":
+        raise argparse.ArgumentTypeError(
+            "--serve-batch auto is not ported yet (auto-sizing, ROADMAP "
+            "item 10c): give the number of slots")
+    n = int(v)
+    if n < 0:
+        raise argparse.ArgumentTypeError("--serve-batch must be >= 0")
+    return n
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -67,6 +107,34 @@ def build_argparser() -> argparse.ArgumentParser:
                         "stream in a replayed CUDA graph that stops at eos; "
                         "no host round trip per token). Output prints "
                         "after the loop")
+    # api mode (JAX apps/dllama.py's defaults)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=9990)
+    p.add_argument("--serve-batch", type=_serve_batch, default=0, metavar="B",
+                   help="api: serve through the continuous-batching "
+                        "scheduler with B KV slots (0 = requests serialize "
+                        "on one engine)")
+    p.add_argument("--serve-chunk", type=int, default=0, metavar="C",
+                   help="api: the scheduler's prefill chunk (0 = the "
+                        "engine's, 256)")
+    p.add_argument("--queue-depth", type=int, default=0, metavar="N",
+                   help="api: admission queue bound (0 = 4 x --serve-batch); "
+                        "past it requests get 429 with Retry-After")
+    p.add_argument("--request-deadline", type=float, default=0.0,
+                   metavar="S", help="api: per-request end-to-end budget in "
+                                     "seconds (0 = none)")
+    p.add_argument("--stall-timeout", type=float, default=0.0, metavar="S",
+                   help="api: watchdog bound on one scheduler step in "
+                        "seconds (0 = 10)")
+    p.add_argument("--drain-timeout", type=float, default=30.0, metavar="S",
+                   help="api: on SIGTERM, how long in-flight requests may "
+                        "finish")
+    for flag in UNPORTED_FLAGS:
+        if flag in _FLAG_SWITCHES:
+            p.add_argument(flag, action="store_true", default=None,
+                           help="not ported yet")
+        else:
+            p.add_argument(flag, default=None, help="not ported yet")
     for axis in ("tp", "dp", "sp", "ep", "pp"):
         p.add_argument(f"--{axis}", type=int, default=1,
                        help="mesh axis; only 1 is ported")
@@ -87,6 +155,20 @@ def refusals(args) -> list[str]:
                        "ported yet (one device only)")
     if args.nnodes != 1:
         out.append("--nnodes: multi-host clusters are not ported yet")
+    for flag, why in UNPORTED_FLAGS.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            out.append(f"{flag}: {why} is not ported yet")
+    if args.mode != "api" and (args.serve_batch or args.serve_chunk
+                               or args.queue_depth or args.request_deadline
+                               or args.stall_timeout):
+        out.append("--serve-batch/--serve-chunk/--queue-depth/"
+                   "--request-deadline/--stall-timeout are api-mode flags")
+    if args.serve_batch == 0 and (args.serve_chunk or args.queue_depth
+                                  or args.request_deadline
+                                  or args.stall_timeout):
+        out.append("--serve-chunk/--queue-depth/--request-deadline/"
+                   "--stall-timeout configure the scheduler and need "
+                   "--serve-batch B")
     return out
 
 
@@ -198,6 +280,11 @@ def main(argv: list[str] | None = None) -> None:
     refused = refusals(args)
     if refused:
         sys.exit("error: " + "; ".join(refused))
+    if args.mode == "api":
+        from .api_server import serve
+
+        serve(args)
+        return
     cmd_generate(args, benchmark=args.mode == "inference")
 
 

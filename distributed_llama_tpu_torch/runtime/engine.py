@@ -1,6 +1,7 @@
 """Inference engine on one device — counterpart of the JAX package's
 runtime/engine.py (Engine.__init__ for one device, reset, step, prefill,
-generate, fetch_logits, decode_greedy_device, generate_device).
+generate, fetch_logits, decode_greedy_device, generate_device, and the
+continuous-batching slot steps slot_prefill_chunk and slot_decode_step).
 
 The prompt is prefilled in chunks of `prefill_chunk` (256 by default, the Q40
 kernel's MAX_T: the fewest whole-weight passes that still take the kernel);
@@ -18,6 +19,17 @@ of one step each, replayed back to back with no host read per token:
 (sampled, with ops/device_sampler.py). Prefill chunks run eagerly.
 `cuda_graphs=False` runs every step eagerly on the card too; on the CPU
 everything runs eagerly and nothing is captured.
+
+An engine of `batch=B` holds B sequences ("slots") in one (B, KVH, S, hs)
+cache for the serving scheduler (runtime/scheduler.py), which owns every
+row's position: `slot_prefill_chunk` runs a (B, C) chunk eagerly,
+`slot_decode_step` a (B, 1) step, on the card one captured graph
+("slot_decode") over static token and position buffers. A row a call does
+not serve passes position S: its writes land in the cache's spare row and
+its logits mean nothing. The batch-1 methods (step, prefill, generate and
+the device loops) refuse a batch-B engine. A batch-B engine may share the
+params of a batch-1 one: fuse_layer_weights leaves fused params as they
+are, so no weight is copied.
 
 The engine runs on `cuda` unless the caller asks for the CPU: with no card
 present, `Engine(...)` raises instead of running elsewhere.
@@ -38,7 +50,9 @@ from ..models.transformer import KVCache, forward
 from ..ops.device_sampler import sample_token, state_from_seed
 from ..sampler import Sampler
 from ..utils.device import resolve_device
+from .faults import FAULTS
 from .graphs import CapturedStep, capture
+from .profiler import COMPILES
 from .stats import RunStats, StepStats
 
 # the fp8 (e4m3) cache stores 1 byte per value; writes saturate at +-448
@@ -69,8 +83,11 @@ class Engine:
         prefill_chunk: int = 256,
         activation_q80: bool = False,
         cuda_graphs: bool = True,
+        batch: int = 1,
     ):
         self.device = resolve_device(device)
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(
                 f"cache_dtype {cache_dtype} is not ported: the port's cache "
@@ -92,15 +109,20 @@ class Engine:
         self.activation_q80 = activation_q80
         # single-device fast path: fused QKV / w1|w3 launches (in place)
         self.params = fuse_layer_weights(params)
-        # one sequence: batched serving comes with the serving slice
-        self.cache = KVCache.create(spec, 1, self.seq_len, cache_dtype,
-                                    self.device)
+        # B slots (rows) of the scheduler, or the one sequence of step()
+        self.batch = int(batch)
+        self.cache = KVCache.create(spec, self.batch, self.seq_len,
+                                    cache_dtype, self.device)
         self.pos = 0
         # the captured steps, keyed like the JAX engine's _steps: 1 (the
         # decode step), ("greedy",), ("dsample", temperature, topp, vocab,
-        # stop ids); empty on the CPU or with cuda_graphs=False
+        # stop ids), "slot_decode"; empty on the CPU or with
+        # cuda_graphs=False. Every capture is recorded in COMPILES; once
+        # the scheduler's warmup marks the engine warm, a new key is a
+        # capture after warmup (runtime/profiler.py)
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
         self.graphs: dict[object, CapturedStep] = {}
+        self._compile_warm = False
         # device while-loop iterations of the last generate_device call
         # (== its sampled tokens; forwards run == that - 1)
         self.last_device_steps = 0
@@ -108,8 +130,8 @@ class Engine:
         # replay, so they never move
         dev, i64 = self.device, torch.int64
         self._buf = types.SimpleNamespace(
-            tok=torch.zeros((1, 1), dtype=i64, device=dev),
-            pos=torch.zeros((1,), dtype=torch.int32, device=dev),
+            tok=torch.zeros((self.batch, 1), dtype=i64, device=dev),
+            pos=torch.zeros((self.batch,), dtype=torch.int32, device=dev),
             count=torch.zeros((1,), dtype=i64, device=dev),
             out=torch.zeros((self.seq_len + 2,), dtype=i64, device=dev),
             done=torch.zeros((1,), dtype=torch.bool, device=dev),
@@ -129,11 +151,20 @@ class Engine:
 
     # -- steps: the forward over the engine's configuration ---------------
 
-    def _forward(self, tokens: torch.Tensor, pos0) -> torch.Tensor:
+    def _forward(self, tokens: torch.Tensor, pos0,
+                 logit_index=None) -> torch.Tensor:
         """The engine's forward, configured in exactly one place."""
         return forward(self.params, self.spec, tokens, pos0, self.cache,
                        compute_dtype=self.compute_dtype,
-                       activation_q80=self.activation_q80)
+                       activation_q80=self.activation_q80,
+                       logit_index=logit_index)
+
+    def _one_sequence(self, name: str) -> None:
+        if self.batch != 1:
+            raise ValueError(
+                f"{name} runs one sequence; this engine holds {self.batch} "
+                "slots: drive it with slot_prefill_chunk and "
+                "slot_decode_step (runtime/scheduler.py)")
 
     def _decode_step(self) -> torch.Tensor:
         """Graph 1: the token in `tok` at the position in `pos`."""
@@ -177,8 +208,28 @@ class Engine:
         """The graph of `key`, captured from fn at its first use (fn runs
         once eagerly then, with the static buffers as they stand)."""
         if key not in self.graphs:
+            COMPILES.pre_compile(self, key)
             self.graphs[key] = capture(fn)
+            COMPILES.record(key, self.graphs[key].capture_s * 1e3)
         return self.graphs[key]
+
+    def mark_compile_warm(self) -> None:
+        """The serving set is captured (Scheduler.warmup): from here a new
+        graph key is a capture after warmup."""
+        self._compile_warm = True
+
+    def release(self) -> None:
+        """Give the cache and the captured graphs' pools back to the
+        allocator: a supervisor rebuild calls this on the failed engine
+        before its factory allocates the next one, so memory does not
+        double on every recovery. The engine is unusable afterwards."""
+        for g in self.graphs.values():
+            g.graph.reset()
+        self.graphs.clear()
+        self.cache = None
+        self._buf = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     @torch.inference_mode()
     def step(self, tokens: np.ndarray, pos0: int) -> torch.Tensor:
@@ -186,6 +237,7 @@ class Engine:
         last token's logits (1, vocab) f32 on the device, a tensor of its
         own that no later step overwrites. Advances pos. At T = 1 on a
         CUDA engine this replays the captured decode step."""
+        self._one_sequence("step")
         b, t = tokens.shape
         if b != 1:
             raise ValueError(f"the engine runs one sequence, got batch {b}")
@@ -228,6 +280,7 @@ class Engine:
     ) -> GenerationResult:
         """Prefill + decode loop (ref: src/apps/dllama/dllama.cpp:14-91).
         max_tokens is a hard cap; <= 0 emits nothing (prefill still runs)."""
+        self._one_sequence("generate")
         stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
         stats = RunStats()
         out: list[int] = []
@@ -273,6 +326,7 @@ class Engine:
         cache is zeroed in place first. Returns (tokens (n_tokens, 1) int32,
         seconds); the seconds exclude the graph's capture on the first
         call. Advances pos by n_tokens; a run past the cache raises."""
+        self._one_sequence("decode_greedy_device")
         if n_tokens < 0 or self.pos + n_tokens > self.seq_len:
             raise ValueError(f"context overflow: {n_tokens} tokens from "
                              f"pos {self.pos} of {self.seq_len}")
@@ -323,6 +377,7 @@ class Engine:
         neighbouring token differs from the host Sampler's only within f32
         rounding of a CDF boundary. vocab_size: sample only over the first
         vocab_size logits, as the host Sampler truncates to its vocab."""
+        self._one_sequence("generate_device")
         stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
         n_vocab = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
         logits = self.prefill(prompt)
@@ -360,3 +415,59 @@ class Engine:
         self.last_device_steps = n
         self.pos += max(n - 1, 0)
         return b.out[:n].tolist()
+
+    # -- continuous-batching slot steps (runtime/scheduler.py) -------------
+
+    def _slot_args(self, name: str, tokens: np.ndarray, pos: np.ndarray):
+        tokens, pos = np.asarray(tokens), np.asarray(pos)
+        if tokens.ndim != 2 or tokens.shape[0] != self.batch \
+                or pos.shape != (self.batch,):
+            raise ValueError(f"{name}: tokens {tokens.shape} and positions "
+                             f"{pos.shape} for an engine of {self.batch} slots")
+        return tokens.astype(np.int64), pos.astype(np.int32)
+
+    @torch.inference_mode()
+    def slot_prefill_chunk(self, tokens: np.ndarray, pos: np.ndarray,
+                           logit_index: np.ndarray) -> torch.Tensor:
+        """One chunked-prefill forward over the slots (JAX
+        runtime/engine.py:1449): row r writes its (B, C) chunk's K/V at
+        positions pos[r]..pos[r]+C-1 without touching any other row. A row
+        not prefilling passes pos[r] == S: its writes land in the spare
+        row, so its cache, mid-decode or idle, is untouched. Returns the
+        (B, vocab) f32 logits at each row's `logit_index` within the chunk,
+        on the device. Runs eagerly; does not touch self.pos."""
+        FAULTS.fire("prefill_raise")   # host side, before any launch
+        tokens, pos = self._slot_args("slot_prefill_chunk", tokens, pos)
+        dev = self.device
+        return self._forward(
+            torch.as_tensor(tokens, device=dev), torch.as_tensor(pos, device=dev),
+            torch.as_tensor(np.asarray(logit_index, np.int64), device=dev))
+
+    def _slot_decode(self) -> torch.Tensor:
+        """Graph "slot_decode": row r's token in `tok` at its position in
+        `pos`."""
+        return self._forward(self._buf.tok, self._buf.pos)
+
+    @torch.inference_mode()
+    def slot_decode_step(self, tokens: np.ndarray,
+                         pos: np.ndarray) -> torch.Tensor:
+        """One decode step of the slots (JAX runtime/engine.py:1495): row r
+        feeds tokens[r, 0] at its own position pos[r]; a row without a
+        token passes pos[r] == S (its write is dropped, its logits mean
+        nothing). Returns (B, vocab) f32 logits on the device, a tensor of
+        its own. On a CUDA engine the host copies the tokens and positions
+        into the static buffers and replays the captured graph
+        "slot_decode" (captured at the first call, the scheduler's
+        warmup). Does not touch self.pos."""
+        tokens, pos = self._slot_args("slot_decode_step", tokens, pos)
+        if tokens.shape[1] != 1:
+            raise ValueError(f"slot_decode_step feeds one token a row, got "
+                             f"{tokens.shape}")
+        b = self._buf
+        b.tok.copy_(torch.from_numpy(tokens))
+        b.pos.copy_(torch.from_numpy(pos))
+        if not self.cuda_graphs:
+            return self._slot_decode()
+        graph = self._captured("slot_decode", self._slot_decode)
+        graph.replay()
+        return graph.out.clone()

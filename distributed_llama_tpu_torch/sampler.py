@@ -62,6 +62,16 @@ class Sampler:
     def set_seed(self, seed: int) -> None:
         self.rng_state = seed & ((1 << 64) - 1)
 
+    def next_seed(self) -> int:
+        """Advance the xorshift stream one step and return the new state as
+        a 64-bit seed for a derived per-request RNG (the API server seeds
+        a request that names no seed from it): consecutive calls give
+        fresh seeds, and two samplers in the same state give the same
+        one."""
+        s, _ = xorshift_f32(self.rng_state)
+        self.rng_state = s
+        return s
+
     def _coin(self) -> float:
         self._rng_state, v = xorshift_f32(self._rng_state)
         return v

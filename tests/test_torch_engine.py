@@ -104,7 +104,7 @@ def test_cli_inference_prints_benchmark_lines(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,needle", [
     (["chat"], "mode 'chat'"),
-    (["api"], "mode 'api'"),
+    (["api", "--prefix-cache"], "--prefix-cache"),
     (["worker"], "mode 'worker'"),
     (["generate", "--tp", "2"], "--tp 2"),
     (["generate", "--pp", "2"], "--pp 2"),

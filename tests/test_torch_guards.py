@@ -525,3 +525,126 @@ def test_capture_tallies_launches_and_replays_count_them(monkeypatch):
     assert graphs.LAUNCH_COUNTERS == (cuda_q40.q40_matmul, cuda_q40.q40_expert_matmul,
                                       cuda_q40.q80_fused, cuda_attention.flash_attention,
                                       cuda_q80.q80_roundtrip)
+
+
+def test_import_guards_cover_the_serving_path():
+    """The serving slice's modules are in the package the blocked-jax
+    import test and the per-file import scan walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"runtime/scheduler.py", "runtime/resilience.py", "runtime/faults.py",
+            "runtime/trace.py", "runtime/profiler.py", "runtime/sampling.py",
+            "runtime/stats.py", "apps/api_server.py"} <= files
+
+
+@pytest.mark.parametrize("call", [
+    lambda e: e.step(np.asarray([[3]], np.int32), 0),
+    lambda e: e.prefill([1, 2]),
+    lambda e: e.generate([1, 2], 3, None),
+    lambda e: e.decode_greedy_device(3, 2),
+    lambda e: e.generate_device([1, 2], 3, temperature=0.0, topp=0.9, seed=1),
+], ids=["step", "prefill", "generate", "decode_greedy_device", "generate_device"])
+def test_batch_engine_refuses_the_one_sequence_methods(call):
+    eng = _cpu_engine(batch=3)
+    with pytest.raises(ValueError, match="slot_prefill_chunk and slot_decode_step"):
+        call(eng)
+    assert eng.pos == 0
+
+
+def test_cpu_batch_engine_never_captures_the_slot_step(monkeypatch):
+    from distributed_llama_tpu_torch.runtime import engine as engine_mod
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU engine tried to capture a CUDA graph")
+    monkeypatch.setattr(engine_mod, "capture", refuse)
+    eng = _cpu_engine(batch=2, cuda_graphs=True)
+    s = eng.seq_len
+    logits = eng.slot_decode_step(np.asarray([[3], [4]], np.int32),
+                                  np.asarray([0, s], np.int32))
+    assert logits.shape == (2, eng.spec.vocab_size) and eng.graphs == {}
+
+
+def test_slot_decode_captures_once_and_records_the_ledger(monkeypatch):
+    """With capture faked on the CPU: the first slot step captures graph
+    "slot_decode" (into COMPILES), later steps replay it and return a
+    copy; a capture after warmup is counted, and refused when frozen; a
+    failed capture raises, with no eager run instead."""
+    import types
+
+    from distributed_llama_tpu_torch.runtime import engine as engine_mod
+    from distributed_llama_tpu_torch.runtime import graphs
+    from distributed_llama_tpu_torch.runtime.profiler import COMPILES
+    from distributed_llama_tpu_torch.runtime.scheduler import RequestError
+
+    made = []
+
+    def fake_capture(fn):
+        out = fn()
+        made.append(out)
+        return graphs.CapturedStep(
+            types.SimpleNamespace(replay=lambda: None, reset=lambda: None),
+            out, (0,) * len(graphs.LAUNCH_COUNTERS), 0.002, 0)
+    monkeypatch.setattr(engine_mod, "capture", fake_capture)
+    COMPILES.reset()
+    eng = _cpu_engine(batch=2)
+    eng.cuda_graphs = True
+    tok, pos = np.asarray([[3], [4]], np.int32), np.asarray([0, eng.seq_len], np.int32)
+    a = eng.slot_decode_step(tok, pos)
+    b = eng.slot_decode_step(tok, pos)
+    assert list(eng.graphs) == ["slot_decode"] and len(made) == 1
+    assert torch.equal(a, made[0]) and a is not made[0] and b is not a
+    assert COMPILES.summary()["by_key"]["slot_decode"]["count"] == 1
+    eng.mark_compile_warm()
+    eng._captured(("greedy",), lambda: None)
+    assert COMPILES.summary()["after_warmup"] == 1
+    COMPILES.freeze = True
+    try:
+        with pytest.raises(RequestError, match="frozen"):
+            eng._captured(("other",), lambda: None)
+    finally:
+        COMPILES.reset()
+    eng.release()
+    assert eng.cache is None and eng.graphs == {}
+
+    def fail(fn):
+        raise RuntimeError("operation not permitted when stream is capturing")
+    monkeypatch.setattr(engine_mod, "capture", fail)
+    eng = _cpu_engine(batch=2)
+    eng.cuda_graphs = True
+    monkeypatch.setattr(engine_mod, "forward", lambda *a, **k: pytest.fail("ran eagerly"))
+    with pytest.raises(RuntimeError, match="capturing"):
+        eng.slot_decode_step(tok, pos)
+
+
+def test_cli_refuses_unported_serving_flags(capsys):
+    from distributed_llama_tpu_torch.apps import dllama
+
+    for argv, needle in (
+            (["api", "--prefix-cache"], "ROADMAP item 9"),
+            (["api", "--draft", "self:1"], "ROADMAP item 12"),
+            (["api", "--replicas", "2"], "ROADMAP item 16"),
+            (["api", "--admin-token", "x"], "ROADMAP item 10c"),
+            (["api", "--session", "s.bin"], "session files"),
+            (["generate", "--serve-batch", "2"], "api-mode flags"),
+            (["api", "--queue-depth", "3"], "need --serve-batch")):
+        with pytest.raises(SystemExit) as ei:
+            dllama.main(argv)
+        assert needle in str(ei.value), argv
+    with pytest.raises(SystemExit):
+        dllama.main(["api", "--serve-batch", "auto"])
+    assert "auto is not ported" in capsys.readouterr().err
+
+
+def test_api_mode_without_a_card_raises(monkeypatch, tmp_path):
+    """`dllama api` runs on cuda unless told otherwise: with no card it
+    raises before any server binds, never serving on the CPU."""
+    from distributed_llama_tpu_torch.apps import api_server, dllama
+    from distributed_llama_tpu_torch.testing import write_fixture
+
+    mpath, tpath = write_fixture(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(api_server, "ThreadingHTTPServer",
+                        lambda *a: pytest.fail("a server was bound"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dllama.main(["api", "--model", mpath, "--tokenizer", tpath,
+                     "--serve-batch", "2", "--port", "0"])
