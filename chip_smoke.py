@@ -191,6 +191,38 @@ result line):
     shapes (Q80 at 4 x 4096 and 4 x 11008; K3 over 4 rows at their own
     fills, and with rows gated at S in a step and in a 256-token chunk).
 
+ 7b. KV reuse (`[prefix]`, `[session]` lines; over phase 7's engines and
+    weights): a PrefixCache at the serving default (2 x 4 x 2048 tokens in
+    blocks of 32: 512 blocks, 8 GiB); 24 blocks published from a
+    prefilled row bit-equal to its cache slices, a row seeded from them
+    bit-equal to the source row, no cache tensor moved; an e4m3 arena block
+    of every byte code seeds a row with 0x7F and 0xFF saturated to +-448;
+    a 24-block seed and one publish timed (CUDA events; kernel ms,
+    launches) beside their bound in bytes; the slot decode graph replayed
+    after a seed bit-equal to the eager step. Hit parity: 8 greedy
+    requests of 32 tokens sharing a 768-token prefix (3 chunks, 24
+    blocks), suffixes of 16-200 tokens, the first cold, then 7 that must
+    hit, against the same requests with the cache off: tokens equal or
+    first different at a cache-off top-2 gap within phase 7's near-tie
+    bound. Eviction: a 40-block arena, 6 requests one at a time over 2
+    alternating 768-token prefixes, tokens held against the cache-off run
+    as above; evictions, hits and every block accounted for. Load runs
+    with shared prefixes (a synthetic smoke load, from no trace), cache
+    off then on: 40 requests at 0.8 a second (below the cold run's knee)
+    and 60 at 2 a second (past it), each one of 4 seeded 768-token
+    prefixes and a unique suffix (aggregate tok/s, TTFT and ITL
+    p50/p95/p99, TTFT p50 over each half of the arrivals, the share of
+    gaps a chunk stalled, hit rate, tokens saved and prefilled,
+    evictions). Sessions: a batch-1
+    engine runs a 300-token prompt and 16 tokens and saves; a fresh
+    engine loads the file and its 32 greedy tokens through the graph step
+    equal the uninterrupted run's.
+ 8. Chat (`[chat]` lines): `python -m distributed_llama_tpu_torch.apps.
+    dllama chat --device cuda` on the tiny Llama and Mixtral fixtures,
+    greedy, at the CLI's defaults: two turns with --session, then a third
+    resumed from the file in a new process, equal to an uninterrupted
+    three-turn run.
+
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
 of it, the serving phase's three step sums at B = 4, and the [GEMV1-Q80] step sums (fused, GEMV alone, GEMV + standalone
@@ -1618,12 +1650,16 @@ def decode_weight_bytes(spec, params) -> int:
     return total
 
 
-def profile_decode(engine, token: int, steps: int = 4, run=None) -> dict:
+def profile_decode(engine, token: int, steps: int = 4, run=None,
+                   quiet: bool = False) -> dict:
     """Device time per decode step by kernel name, from torch.profiler over
     a few steps (each ends in its logits copy, as in generate), or over
-    run(), which makes `steps` decode steps itself."""
+    run(), which makes `steps` decode steps (or other calls) itself;
+    `quiet` prints nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    say = (lambda *_: None) if quiet else print
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         if run is not None:
@@ -1647,24 +1683,24 @@ def profile_decode(engine, token: int, steps: int = 4, run=None) -> dict:
     runtime = sorted(((e.key, e.count / steps) for e in events), key=lambda r: -r[1])
     host_ms = {e.key: e.cpu_time_total / 1e3 / steps for e in events}
     calls = dict(runtime)
-    print("[profile] CUDA runtime calls per decode step (host ms in them): "
+    say("[profile] CUDA runtime calls per decode step (host ms in them): "
           + ", ".join(f"{k} {c:.1f} ({host_ms[k]:.3f})" for k, c in runtime[:8]))
-    print(f"[profile] per decode step: cudaGraphLaunch {calls.get('cudaGraphLaunch', 0.0):.1f}, "
+    say(f"[profile] per decode step: cudaGraphLaunch {calls.get('cudaGraphLaunch', 0.0):.1f}, "
           f"cudaLaunchKernel {calls.get('cudaLaunchKernel', 0.0):.1f}, cudaMemcpyAsync "
           f"{calls.get('cudaMemcpyAsync', 0.0):.1f}")
     copies = memcpy_callers(prof, steps)
     if copies:
-        print("[profile] cudaMemcpyAsync per decode step by calling op: "
+        say("[profile] cudaMemcpyAsync per decode step by calling op: "
               + "; ".join(f"{k}: {c:.1f}" for k, c in copies.items()))
     out = {"runtime_calls": runtime, "runtime_host_ms": host_ms, "memcpy_callers": copies,
            "graph_launches_per_step": calls.get("cudaGraphLaunch", 0.0),
            "launch_kernel_per_step": calls.get("cudaLaunchKernel", 0.0)}
     if not rows:
-        print("[profile] the profiler recorded no device time: not measured")
+        say("[profile] the profiler recorded no device time: not measured")
         return {"device_ms_per_step": None, "top": [], **out}
-    print(f"[profile] kernel time per decode step {total:.3f} ms; top kernels:")
+    say(f"[profile] kernel time per decode step {total:.3f} ms; top kernels:")
     for name, count, ms in rows[:10]:
-        print(f"[profile]   {ms:8.4f} ms  x{count:6.1f}  {name[:90]}")
+        say(f"[profile]   {ms:8.4f} ms  x{count:6.1f}  {name[:90]}")
     return {"device_ms_per_step": total, **out,
             "device_ops_per_step": sum(r[1] for r in rows),
             "top": [dict(name=n[:120], per_step=c, ms=m) for n, c, m in rows[:20]]}
@@ -2602,31 +2638,37 @@ def serving_scheduler(spec, one, eng, sched) -> dict:
 LOAD_N, LOAD_RATE = 200, 5.0      # requests, mean arrivals a second
 
 
-def serving_load(spec, sched) -> dict:
-    """LOAD_N requests through the scheduler at LOAD_RATE arrivals a
-    second. The step loop runs here: a request is submitted at the first
+def serving_load(spec, sched, n_req: int = LOAD_N, rate: float = LOAD_RATE,
+                 prompts: list | None = None, seed: int = 29) -> dict:
+    """n_req requests through the scheduler at `rate` seeded Poisson
+    arrivals a second; `prompts` (default: seeded prompts of 16-300
+    tokens). The step loop runs here: a request is submitted at the first
     iteration after its arrival time, and each token is stamped when the
     step that made it returns. Aggregate tok/s: every token over the wall
     time from the first arrival to the last token. TTFT: arrival to first
-    token, over every request. ITL: every gap between two consecutive
-    tokens of a request, over every request."""
+    token, over every request, and its p50 over the first and the second
+    half of the arrivals (a queue that grows shows as a later half slower
+    than the earlier). ITL: every gap between two consecutive tokens of a
+    request, over every request, and the share of gaps over 4x the median
+    (those a prefill chunk stalled)."""
     import queue
 
     from distributed_llama_tpu_torch.runtime.stats import percentile
     from distributed_llama_tpu_torch.sampler import Sampler
 
     vocab = spec.vocab_size
-    rng = np.random.default_rng(29)
-    arrive = np.concatenate([[0.0], np.cumsum(rng.exponential(1 / LOAD_RATE, LOAD_N - 1))])
-    prompts = [[1] + rng.integers(3, vocab, n - 1).tolist()
-               for n in rng.integers(16, 301, LOAD_N)]
-    stamps: list[list[float]] = [[] for _ in range(LOAD_N)]
+    rng = np.random.default_rng(seed)
+    arrive = np.concatenate([[0.0], np.cumsum(rng.exponential(1 / rate, n_req - 1))])
+    if prompts is None:
+        prompts = [[1] + rng.integers(3, vocab, n - 1).tolist()
+                   for n in rng.integers(16, 301, n_req)]
+    stamps: list[list[float]] = [[] for _ in range(n_req)]
     reqs: list = []
     live: set = set()
     t0 = time.perf_counter()
-    while len(reqs) < LOAD_N or live:
+    while len(reqs) < n_req or live:
         now = time.perf_counter() - t0
-        while len(reqs) < LOAD_N and arrive[len(reqs)] <= now:
+        while len(reqs) < n_req and arrive[len(reqs)] <= now:
             live.add(len(reqs))
             reqs.append(sched.submit(prompts[len(reqs)], 32, Sampler(vocab, 0.0, 0.9, 1)))
         worked = sched.step()
@@ -2646,20 +2688,23 @@ def serving_load(spec, sched) -> dict:
         if not worked:
             if live:
                 fail(f"load run: the scheduler idled with {len(live)} requests unfinished")
-            if len(reqs) < LOAD_N:
+            if len(reqs) < n_req:
                 time.sleep(max(0.0, arrive[len(reqs)] - (time.perf_counter() - t0)))
     wall = max(st[-1] for st in stamps)
     n_tok = sum(len(st) for st in stamps)
-    if n_tok != 32 * LOAD_N:
-        fail(f"load run: {n_tok} tokens, wanted {32 * LOAD_N}")
+    if n_tok != 32 * n_req:
+        fail(f"load run: {n_tok} tokens, wanted {32 * n_req}")
     ttft = [(st[0] - a) * 1e3 for st, a in zip(stamps, arrive)]
     itl = [(y - x) * 1e3 for st in stamps for x, y in zip(st, st[1:])]
-    out = dict(requests=LOAD_N, rate_per_s=LOAD_RATE, arrival_span_s=float(arrive[-1]),
+    out = dict(requests=n_req, rate_per_s=rate, arrival_span_s=float(arrive[-1]),
                wall_s=wall, tokens=n_tok, tok_s=n_tok / wall,
                prompt_tokens=sum(len(p) for p in prompts), n_gaps=len(itl))
     for name, xs in (("ttft", ttft), ("itl", itl)):
         out.update({f"{name}_p{q}_ms": percentile(xs, q) for q in (50, 95, 99)})
         out[f"{name}_max_ms"] = max(xs)
+    out["ttft_p50_first_half_ms"] = percentile(ttft[:n_req // 2], 50)
+    out["ttft_p50_second_half_ms"] = percentile(ttft[n_req // 2:], 50)
+    out["itl_stall_share"] = sum(g > 4 * out["itl_p50_ms"] for g in itl) / len(itl)
     return out
 
 
@@ -2849,6 +2894,457 @@ def serving_http(spec, one, card: str) -> dict:
     return out
 
 
+# -- phase 7b: KV reuse (the prefix cache, sessions, chat) -------------------
+
+# the prefix cache at its serving default: 2 x B x context tokens in blocks
+# of 32 (512 blocks of 16 MiB at 7B in bf16, 8 GiB); the shared prefixes are
+# 768 tokens: 3 whole chunks, 24 blocks
+PREFIX_BL, PREFIX_SHARED = 32, 768
+# the load runs, (arrivals a second, requests): below the cold run's knee
+# (~1.7 requests a second: four 134 ms chunks a request), and past it
+PREFIX_LOAD = ((0.8, 40), (2.0, 60))
+# the eviction check's arena: less than two 768-token prefixes' 48 blocks
+PREFIX_EVICT_BLOCKS = 40
+
+
+def event_ms(fn, reps: int = 7) -> dict:
+    """CUDA-event ms per eager call of `fn`, `reps` calls one at a time
+    (the seed reads its block ids from the host, so it cannot be
+    captured)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return _ms_stats(ms)
+
+
+def _ptrs(*engines) -> list[int]:
+    return [t.data_ptr() for e in engines for t in (*e.cache.k, *e.cache.v)]
+
+
+def prefix_seed_publish(spec, params, eng, eager, pc, card: str) -> dict:
+    """(a) Seed and publish at 7B on the card: published blocks (12 in one
+    call, 12 one at a time) against the cache slices they came from and a
+    seeded row against its blocks, bit for bit; the cache tensors'
+    addresses unchanged; the e4m3 guard; the device ms and launches of a
+    24-block seed, a one-block publish and a 24-block publish beside their
+    bound; the slot decode graph replayed after a seed against the eager
+    step."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    b, c, s, vocab = SERVE_B, SERVE_C, spec.seq_len, spec.vocab_size
+    bl, nb = PREFIX_BL, PREFIX_SHARED // PREFIX_BL
+    out: dict = {}
+    ptrs = _ptrs(eng, eager)
+    rng = np.random.default_rng(43)
+    toks = [1] + rng.integers(3, vocab, PREFIX_SHARED - 1).tolist()
+    for lo in range(0, PREFIX_SHARED, c):       # row 0 holds a prefilled prefix
+        eng.slot_prefill_chunk(*_chunk({0: (toks[lo:lo + c], lo)}, b, c, s))
+    ids = list(range(pc.num_blocks - 1, pc.num_blocks - 1 - nb, -1))   # the free list's order
+    eng.slot_publish_block(pc.arena_k, pc.arena_v, 0, 0, ids[:nb // 2])   # as a publish does
+    for i in range(nb // 2, nb):                                          # and block by block
+        eng.slot_publish_block(pc.arena_k, pc.arena_v, 0, i * bl, [ids[i]])
+    torch.cuda.synchronize()
+    pub_ok = all(torch.equal(a[dst, l].view(torch.int16), cch[l][0, :, i * bl:(i + 1) * bl]
+                             .view(torch.int16))
+                 for a, cch in ((pc.arena_k, eng.cache.k), (pc.arena_v, eng.cache.v))
+                 for l in range(spec.n_layers) for i, dst in enumerate(ids))
+    eng.slot_seed_prefix(pc.arena_k, pc.arena_v, 2, ids)
+    torch.cuda.synchronize()
+    seed_ok = all(torch.equal(cch[l][2, :, :PREFIX_SHARED].view(torch.int16),
+                              cch[l][0, :, :PREFIX_SHARED].view(torch.int16))
+                  for cch in (eng.cache.k, eng.cache.v) for l in range(spec.n_layers))
+    moved = _ptrs(eng, eager) != ptrs
+    print(f"[prefix] {nb} blocks published from row 0 bit-equal to its cache slices: {pub_ok}; "
+          f"row 2 seeded from them bit-equal to row 0's first {PREFIX_SHARED} positions: "
+          f"{seed_ok}; cache tensors moved: {moved}")
+    if not (pub_ok and seed_ok) or moved:
+        fail(f"seed/publish: published {pub_ok}, seeded {seed_ok}, moved {moved}")
+
+    # the seed and one publish: device ms, launches, bound
+    blk_bytes = 2 * spec.n_layers * spec.n_kv_heads * bl * spec.head_size * 2   # K, V in bf16
+    rows = {}
+    for name, fn, nbytes in (
+            ("seed_24_blocks", lambda: eng.slot_seed_prefix(pc.arena_k, pc.arena_v, 2, ids),
+             2 * nb * blk_bytes),
+            ("publish_1_block", lambda: eng.slot_publish_block(pc.arena_k, pc.arena_v, 0, 0,
+                                                               ids[:1]), 2 * blk_bytes),
+            ("publish_24_blocks", lambda: eng.slot_publish_block(pc.arena_k, pc.arena_v, 0, 0,
+                                                                 ids), 2 * nb * blk_bytes)):
+        ev = event_ms(fn)          # ends synchronized
+        prof = profile_decode(None, 0, steps=3, run=lambda: [fn() for _ in range(3)],
+                              quiet=True)
+        calls = {k: n for k, n in prof["runtime_calls"]
+                 if k in ("cudaLaunchKernel", "cudaMemcpyAsync")}
+        row = dict(event_ms=ev, device_ms=prof["device_ms_per_step"],
+                   launches=sum(calls.values()), calls=calls, bytes=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        rows[name] = row
+        dev = row["device_ms"]
+        print(f"[prefix] {name}: {row['event_ms']['median']:.4f} ms by CUDA events (median "
+              f"of {len(row['event_ms']['runs'])}), kernels "
+              + ("not measured" if dev is None else f"{dev:.4f} ms")
+              + f" (torch.profiler), {row['launches']:.0f} launches {row['calls']}; bound "
+              f"{row['bound_ms']:.4f} ms ({nbytes / 2 ** 20:.0f} MiB at 3.35 TB/s) [{card}]")
+    out["copies"] = rows
+    if _ptrs(eng, eager) != ptrs:
+        fail("timing the seed and the publish moved a cache tensor")
+
+    # the e4m3 guard: an arena block holding every byte code, 0x7F and
+    # 0xFF included, seeds a row of an f8 engine over the same weights
+    f8 = Engine(spec, params, device="cuda", cache_dtype=F8, activation_q80=True)
+    ak, av = f8.new_prefix_arena(1, bl)
+    codes = torch.arange(256, dtype=torch.uint8, device=ak.device)
+    for a in (ak, av):
+        a.view(torch.uint8).view(-1).copy_(codes.repeat(a.numel() // 256))
+    f8_ptrs = _ptrs(f8)
+    f8.slot_seed_prefix(ak, av, 0, [0])
+    want = codes.view(F8).float()
+    want[0x7F], want[0xFF] = 448.0, -448.0
+    got = [cch[l][0, :, :bl].float().reshape(-1) for cch in (f8.cache.k, f8.cache.v)
+           for l in range(spec.n_layers)]
+    f8_ok = all(torch.equal(g, want.repeat(g.numel() // 256)) for g in got)
+    nan = any(bool(torch.isnan(g).any()) for g in got)
+    print(f"[prefix] e4m3: a block of every byte code seeds a row with 0x7F -> "
+          f"{got[0][0x7F].item()}, 0xFF -> {got[0][0xFF].item()}, every other code as it is: "
+          f"{f8_ok}; NaN in the row: {nan}; cache tensors moved: {_ptrs(f8) != f8_ptrs}")
+    if not f8_ok or nan or _ptrs(f8) != f8_ptrs:
+        fail("the e4m3 seeding guard")
+    out["f8_guard"] = dict(ok=f8_ok, nan=nan)
+    f8.release()
+    del f8, ak, av
+
+    # the captured slot decode graph after a seed: row 1 seeded in both
+    # engines from the same blocks, one step at pos 768, rows 0, 2, 3 gated
+    for e in (eng, eager):
+        e.slot_seed_prefix(pc.arena_k, pc.arena_v, 1, ids)
+    tok = np.zeros((b, 1), np.int32)
+    tok[1, 0] = int(rng.integers(3, vocab))
+    pos = np.full((b,), s, np.int32)
+    pos[1] = PREFIX_SHARED
+    lg = eng.slot_decode_step(tok, pos)
+    le = eager.slot_decode_step(tok, pos)
+    torch.cuda.synchronize()
+    same = torch.equal(lg[1], le[1])
+    print(f"[prefix] slot_decode graph replayed after a seed: row 1's logits bit-equal to the "
+          f"eager step's: {same}")
+    if not same:
+        fail(f"graph after a seed: max abs {(lg[1] - le[1]).abs().max().item():.3g}")
+    out["graph_after_seed_equal"] = same
+    return out
+
+
+def _suffixed(rng, vocab: int, heads: list, n: int) -> list:
+    """n prompts: a head from `heads`, chosen uniformly, and a unique
+    suffix of 16-200 tokens."""
+    return [list(heads[int(rng.integers(len(heads)))])
+            + rng.integers(3, vocab, int(k)).tolist() for k in rng.integers(16, 201, n)]
+
+
+def _cache_runs(spec, eng, prompts, caches: dict, first_alone: bool) -> dict:
+    """Greedy requests of 32 tokens through a scheduler over `eng` for each
+    (name, prefix cache or None) of `caches`, the same prompts each time:
+    the first request alone until its first token, then the rest at once
+    (`first_alone`), or one request at a time, each to its end. Each run's
+    tokens, recording samplers, wall time and launches."""
+    from distributed_llama_tpu_torch.runtime.scheduler import Scheduler
+
+    vocab, runs = spec.vocab_size, {}
+    for name, pc in caches.items():
+        sched = Scheduler(eng, chunk=SERVE_C, prefix_cache=pc)
+        recs = [_recording_sampler(vocab, 0.0, 0.9, 1) for _ in prompts]
+        zero_counts()
+        t0 = time.perf_counter()
+        reqs = []
+        for i, (p, r) in enumerate(zip(prompts, recs)):
+            if first_alone and i > 0:
+                reqs += [sched.submit(q, 32, rr) for q, rr in zip(prompts[1:], recs[1:])]
+                break
+            reqs.append(sched.submit(p, 32, r))
+            while (reqs[0].stats.t_first is None if first_alone
+                   else not reqs[-1].finished.is_set()):
+                sched.step()
+        while not all(r.finished.is_set() for r in reqs):
+            sched.step()
+        torch.cuda.synchronize()
+        runs[name] = dict(tokens=[list(r.tokens(timeout=5.0)) for r in reqs], recs=recs,
+                          wall_s=time.perf_counter() - t0, launches=read_counts())
+        if not all(runs[name]["launches"][k] for k in ("K1", "K3", "Q80")):
+            fail(f"prefix cache run {name}: launches {runs[name]['launches']}")
+    return runs
+
+
+def _cache_parity(runs: dict, prompts, near_tie: float, what: str) -> list:
+    """The cache-on run's tokens against the cache-off run's: equal, or
+    first different where the cache-off run's top-2 gap is within phase
+    7's near-tie bound 2e (the gap printed wherever tokens differ)."""
+    parity = []
+    for i, (a, b_) in enumerate(zip(runs["on"]["tokens"], runs["off"]["tokens"])):
+        first = next((k for k, (x, y) in enumerate(zip(a, b_)) if x != y),
+                     None if len(a) == len(b_) else min(len(a), len(b_)))
+        gaps = [_top2_gap(lg) for lg, _ in runs["off"]["recs"][i].seen]
+        gap = None if first is None or first >= len(gaps) else gaps[first]
+        parity.append(dict(prompt=len(prompts[i]), first_difference=first, gap=gap))
+        if first is not None:
+            print(f"[prefix] {what} request {i}: first difference at token {first}, cache-off "
+                  f"top-2 gap there {gap} (near-tie bound {near_tie:.4g})")
+            if gap is None or gap > near_tie:
+                fail(f"{what} request {i}: tokens differ at {first} where the gap {gap} "
+                     f"exceeds {near_tie:.4g}")
+    return parity
+
+
+def prefix_hit_parity(spec, eng, pc, near_tie: float) -> dict:
+    """(b) 8 greedy requests of 32 tokens sharing one 768-token prefix,
+    each with its own suffix: the first runs cold and publishes, then the
+    other 7 join and must hit. The same requests through the scheduler
+    without the cache, over the same engine: the tokens must be equal, or
+    first differ at a near-tie (_cache_parity)."""
+    vocab = spec.vocab_size
+    rng = np.random.default_rng(47)
+    head = [1] + rng.integers(3, vocab, PREFIX_SHARED - 1).tolist()
+    prompts = _suffixed(rng, vocab, [head], 8)
+    runs = _cache_runs(spec, eng, prompts, {"on": pc, "off": None}, first_alone=True)
+    st = pc.stats.summary()
+    parity = _cache_parity(runs, prompts, near_tie, "hit parity")
+    equal = sum(p["first_difference"] is None for p in parity)
+    print(f"[prefix] hit parity: 8 requests (768-token shared prefix + 16-200-token suffixes) "
+          f"x 32 tokens; cache on: {st['hits']} hits of {st['lookups']} lookups, "
+          f"tokens_saved {st['tokens_saved']}, tokens_prefilled {st['tokens_prefilled']}, "
+          f"{st['blocks_published']} blocks published, {runs['on']['wall_s']:.3f} s; cache off "
+          f"{runs['off']['wall_s']:.3f} s; {equal} of 8 token streams equal; launches on "
+          f"{runs['on']['launches']}, off {runs['off']['launches']}")
+    if st["hits"] != 7 or st["lookups"] != 8:
+        fail(f"hit parity: {st['hits']} hits of {st['lookups']} lookups, wanted 7 of 8")
+    return dict(stats=st, parity=parity, equal=equal,
+                wall_s={k: v["wall_s"] for k, v in runs.items()},
+                launches={k: v["launches"] for k, v in runs.items()})
+
+
+def prefix_evict(spec, eng, near_tie: float) -> dict:
+    """(c) Eviction on the card: an arena of PREFIX_EVICT_BLOCKS blocks,
+    less than two prompts' blocks, serves 6 greedy requests of 32 tokens
+    one at a time, alternating between 2 seeded 768-token prefixes (each
+    with its own 16-200-token suffix). Every publish after the first
+    evicts the other prefix's LRU leaves, so later requests hit on what
+    is left of their prefix. Tokens against the cache-off run
+    (_cache_parity); the pool must account for every block."""
+    from distributed_llama_tpu_torch.runtime.prefix_cache import PrefixCache
+
+    vocab = spec.vocab_size
+    rng = np.random.default_rng(67)
+    heads = [[1] + rng.integers(3, vocab, PREFIX_SHARED - 1).tolist() for _ in range(2)]
+    prompts = [_suffixed(rng, vocab, [heads[i % 2]], 1)[0] for i in range(6)]
+    pc = PrefixCache(eng, num_blocks=PREFIX_EVICT_BLOCKS, block_len=PREFIX_BL)
+    runs = _cache_runs(spec, eng, prompts, {"on": pc, "off": None}, first_alone=False)
+    st = pc.stats.summary()
+    parity = _cache_parity(runs, prompts, near_tie, "eviction")
+    equal = sum(p["first_difference"] is None for p in parity)
+    accounted = st["blocks_in_use"] + len(pc._free) == pc.num_blocks
+    print(f"[prefix] eviction: {PREFIX_EVICT_BLOCKS}-block arena, 6 requests one at a time over "
+          f"2 alternating {PREFIX_SHARED}-token prefixes: {st['evictions']} evictions, {st['publish_drops']} "
+          f"publish drops, {st['hits']} hits of {st['lookups']} ({st['tokens_saved']} tokens "
+          f"saved), {st['blocks_in_use']} blocks in use + {len(pc._free)} free = "
+          f"{pc.num_blocks}: {accounted}; {equal} of 6 token streams equal to the cache-off run")
+    if not st["evictions"] or not st["hits"] or not accounted:
+        fail(f"eviction: {st}, pool accounted {accounted}")
+    pc.release()
+    return dict(stats=st, parity=parity, equal=equal)
+
+
+def prefix_load(spec, eng, new_pc, card: str) -> dict:
+    """(d) The load runs with shared prefixes, cache off then on (a fresh
+    tree from `new_pc()`), in one process over the same engine, at each
+    (rate, requests) of PREFIX_LOAD: greedy requests of 32 tokens at
+    seeded Poisson arrivals, each prompt one of 4 seeded 768-token
+    prefixes, chosen uniformly, then a unique suffix of 16-200 tokens. A
+    synthetic shape, taken from no trace: a smoke load of the cache. The
+    first rate sits below the cold run's knee (its TTFT p50 over the
+    second half of the requests is printed beside the first half's), the
+    second past it, where only the aggregate rate compares."""
+    from distributed_llama_tpu_torch.runtime.scheduler import Scheduler
+
+    vocab = spec.vocab_size
+    rng = np.random.default_rng(53)
+    heads = [[1] + rng.integers(3, vocab, PREFIX_SHARED - 1).tolist() for _ in range(4)]
+    out = {}
+    for rate, n_req in PREFIX_LOAD:
+        prompts = _suffixed(rng, vocab, heads, n_req)
+        where = "below" if rate == PREFIX_LOAD[0][0] else "past"
+        runs = {}
+        for name in ("off", "on"):
+            pc = new_pc() if name == "on" else None
+            sched = Scheduler(eng, chunk=SERVE_C, prefix_cache=pc)
+            ld = serving_load(spec, sched, n_req, rate, prompts, seed=59)
+            print(f"[prefix] load {rate:g}/s ({where} the cold knee), cache {name}: "
+                  f"{ld['requests']} requests x 32 tokens over {ld['arrival_span_s']:.3f} s: "
+                  f"aggregate {ld['tok_s']:.1f} tok/s ({ld['tokens']} tokens in "
+                  f"{ld['wall_s']:.3f} s); TTFT p50 {ld['ttft_p50_ms']:.1f} ms, p95 "
+                  f"{ld['ttft_p95_ms']:.1f}, p99 {ld['ttft_p99_ms']:.1f} (p50 first half "
+                  f"{ld['ttft_p50_first_half_ms']:.1f}, second half "
+                  f"{ld['ttft_p50_second_half_ms']:.1f}); ITL p50 {ld['itl_p50_ms']:.3f} ms, "
+                  f"p95 {ld['itl_p95_ms']:.3f}, p99 {ld['itl_p99_ms']:.3f} ({ld['n_gaps']} gaps, "
+                  f"{ld['itl_stall_share']:.4f} of them over 4x the median) [{card}]")
+            if pc is not None:
+                st = ld["prefix_cache"] = pc.stats.summary()
+                print(f"[prefix] load {rate:g}/s, cache on: hit rate {st['hit_rate']} "
+                      f"({st['hits']} of {st['lookups']}), tokens saved {st['tokens_saved']} "
+                      f"against {st['tokens_prefilled']} prefilled (saved share "
+                      f"{st['prefill_saved_frac']}), {st['blocks_published']} blocks "
+                      f"published, {st['evictions']} evictions, {st['publish_drops']} "
+                      f"publish drops")
+                if not st["hits"]:
+                    fail(f"load run at {rate:g}/s with the cache on: no hit")
+                pc.release()
+                del pc, sched
+                torch.cuda.empty_cache()
+            runs[name] = ld
+        out[f"{rate:g}/s"] = runs
+    return out
+
+
+def phase_prefix(spec, params, eng, eager, near_tie: float, card: str) -> dict:
+    """Phase 7b over phase 7's slot engines: (a) seed and publish, (b) hit
+    parity, (c) eviction, (d) the load runs with shared prefixes, cache
+    off and on."""
+    from distributed_llama_tpu_torch.runtime.prefix_cache import PrefixCache
+
+    t0 = time.perf_counter()
+    n_blocks = 2 * SERVE_B * spec.seq_len // PREFIX_BL
+    pc = PrefixCache(eng, num_blocks=n_blocks, block_len=PREFIX_BL)
+    print(f"[prefix] PrefixCache: {n_blocks} blocks of {PREFIX_BL} tokens (2 x {SERVE_B} x "
+          f"{spec.seq_len}), arena {2 * pc.arena_k.numel() * 2 / 2 ** 30:.2f} GiB")
+    out = prefix_seed_publish(spec, params, eng, eager, pc, card)
+    out["hit_parity"] = prefix_hit_parity(spec, eng, pc, near_tie)
+    pc.release()
+    del pc
+    torch.cuda.empty_cache()
+    out["eviction"] = prefix_evict(spec, eng, near_tie)
+    out["load"] = prefix_load(
+        spec, eng, lambda: PrefixCache(eng, num_blocks=n_blocks, block_len=PREFIX_BL), card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[prefix] phase 7b in {out['seconds']:.1f} s")
+    return out
+
+
+def phase_session(spec, params, one, card: str) -> dict:
+    """Sessions at 7B: a batch-1 engine runs a 300-token prompt and 16
+    tokens and saves its session; a fresh engine over the same params
+    loads it and takes 32 greedy tokens through its graph step, which
+    must equal the first engine's uninterrupted 32, bit for bit."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab = spec.vocab_size
+    prompt = [1] + np.random.default_rng(61).integers(3, vocab, 299).tolist()
+    one.reset()
+    part1 = one.generate(prompt, 16, Sampler(vocab, 0.0, 0.9, 1)).tokens
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/s.npz"
+        t0 = time.perf_counter()
+        one.save_session(path, tokens=prompt + part1)
+        save_s = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        want = one.generate([part1[-1]], 32, Sampler(vocab, 0.0, 0.9, 1)).tokens
+        fresh = Engine(spec, params, device="cuda", activation_q80=True)
+        ptrs = _ptrs(fresh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = fresh.load_session(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    moved = _ptrs(fresh) != ptrs
+    zero_counts()
+    got = fresh.generate([part1[-1]], 32, Sampler(vocab, 0.0, 0.9, 1)).tokens
+    torch.cuda.synchronize()
+    counts = read_counts()
+    graph = 1 in fresh.graphs
+    fresh.release()
+    del fresh
+    torch.cuda.empty_cache()
+    equal = got == want and hist == prompt + part1
+    print(f"[session] 7B: 300-token prompt + 16 tokens saved ({size / 2 ** 20:.1f} MiB, pos "
+          f"{len(prompt) + 15}) in {save_s:.3f} s; a fresh engine loaded it in {load_s:.3f} s "
+          f"(cache tensors moved: {moved}) and took 32 greedy tokens through its graph step "
+          f"(captured: {graph}; launches {counts}): equal to the uninterrupted run's: {equal} "
+          f"[{card}]")
+    if not equal or moved or not graph or not counts["K1"]:
+        fail(f"session continuation: equal {equal}, moved {moved}, graph {graph}, {counts}")
+    return dict(bytes=size, save_s=save_s, load_s=load_s, equal=equal, launches=counts)
+
+
+def phase_chat() -> dict:
+    """`python -m ...apps.dllama chat --device cuda` on the tiny Llama and
+    Mixtral fixtures, greedy, at the CLI's defaults: two turns on stdin
+    with --session, then a third turn resumed from the session in a new
+    process, against an uninterrupted three-turn run. The processes of a
+    wave run side by side."""
+    from distributed_llama_tpu_torch.models.spec import ArchType
+    from distributed_llama_tpu_torch.testing import write_fixture
+
+    fixtures = {"llama": dict(seed=77),
+                "mixtral": dict(seed=82, arch=ArchType.MIXTRAL, n_experts=4,
+                                n_active_experts=2)}
+    lines = ["Be brief.", "hello there", "and then?", "why so?"]
+
+    def start(argv, stdin):
+        return subprocess.Popen([sys.executable, "-m", "distributed_llama_tpu_torch.apps.dllama",
+                                 "chat", *argv], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                cwd=str(Path(__file__).resolve().parent)), stdin
+
+    def finish(procs):
+        outs = []
+        try:
+            for p, stdin in procs:
+                o, e = p.communicate(stdin, timeout=300)
+                if p.returncode:
+                    fail(f"dllama chat exited {p.returncode}: {e[-600:]}")
+                outs.append(o)
+        finally:
+            for p, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return outs
+
+    def turns(out):
+        """The assistant's text of each turn."""
+        return [t.split("👱 User")[0] for t in out.split("🤖 Assistant")[1:]]
+
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        common, sess = {}, {}
+        for name, kw in fixtures.items():
+            m, t = write_fixture(tempfile.mkdtemp(dir=d), **kw)
+            common[name] = ["--model", m, "--tokenizer", t, "--steps", "12", "--seed", "3",
+                            "--temperature", "0", "--device", "cuda"]
+            sess[name] = ["--session", f"{d}/{name}.npz"]
+        first = finish([start(common[n] + sess[n], "\n".join(lines[:3]) + "\n") for n in fixtures]
+                       + [start(common[n], "\n".join(lines) + "\n") for n in fixtures])
+        resumed = finish([start(common[n] + sess[n], lines[3] + "\n") for n in fixtures])
+    for i, name in enumerate(fixtures):
+        two, whole, third = first[i], first[i + len(fixtures)], resumed[i]
+        ok = ("resumed session" in third and len(turns(whole)) == 3
+              and turns(whole)[:2] == turns(two) and turns(third) == turns(whole)[2:])
+        out[name] = dict(equal=ok, third=turns(third)[0].strip() if turns(third) else None)
+        print(f"[chat] {name}: two turns with --session, then a third resumed in a new process: "
+              f"its text equal to the uninterrupted three-turn run's: {ok} "
+              f"({len(out[name]['third'] or '')} chars)")
+        if not ok:
+            fail(f"chat resume ({name}): {whole[-400:]!r} vs {third[-400:]!r}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[chat] in {out['seconds']:.1f} s")
+    return out
+
+
 def k1_wcls_t4(gen) -> dict:
     """K1 on wcls at t = B, the one projection of a batch step that phase
     2's path rows do not time at t = 4: kernel, plain, library, bound."""
@@ -2881,7 +3377,8 @@ def k1_wcls_t4(gen) -> dict:
 def phase_serving(card: str, params) -> dict:
     """Phase 7, serving at Llama-2-7B full width and depth over phase 5's
     weights: the batch-4 slot engine (a), the scheduler (b), the timing of
-    the batch step, and `dllama api` over HTTP (c)."""
+    the batch step, the KV-reuse phase over the same engines (7b), `dllama
+    api` over HTTP (c), then sessions on the batch-1 engine."""
     from distributed_llama_tpu_torch.runtime.engine import Engine
 
     spec = _spec("llama2_7b")
@@ -2896,10 +3393,13 @@ def phase_serving(card: str, params) -> dict:
     out["scheduler"] = serving_scheduler(spec, one, eng, sched)
     out["load"] = serving_load(spec, sched)
     out["timing"] = serving_timing(spec, eng, eager, card)
+    out["prefix"] = phase_prefix(spec, params, eng, eager,
+                                 out["scheduler"]["near_tie_bound"], card)
     eng.release()
     eager.release()
     del eng, eager, sched
     out["http"] = serving_http(spec, one, card)
+    out["session"] = phase_session(spec, params, one, card)
     del one
     torch.cuda.empty_cache()
     out["k1_wcls_t4"] = k1_wcls_t4(gen)
@@ -3239,6 +3739,7 @@ def main() -> int:
     del params_7b
     torch.cuda.empty_cache()
     phase_file_path()
+    chat = phase_chat()
     kernels = summarize(k1, q80, fused, k2, k3, probes, probes2, main_paths)
     kernels["kernels"] += serving_entries(k1, q80, k3, serving)
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
@@ -3284,7 +3785,7 @@ def main() -> int:
         k2=k2["rows"], gemv1_edges=edges, gemv1_q80=fused, k3=k3["rows"],
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
-        serving=serving,
+        serving=serving, chat=chat,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

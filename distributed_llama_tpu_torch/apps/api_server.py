@@ -24,16 +24,27 @@ longest common token prefix of the previous request's cache. Handler
 threads touch host tokens only; every CUDA call after the build runs on the
 supervisor's step thread or, on the legacy path, under the engine lock.
 
+With --prefix-cache (and --serve-batch B) every generation of the
+supervisor carries a radix prefix cache (runtime/prefix_cache.py): an
+arena of 2 x B x context tokens in blocks of 32 unless --prefix-blocks and
+--prefix-block-len say otherwise, reported in /stats `prefix_cache` and
+the /metrics `dllama_prefix_cache_*` families. On the legacy path,
+--session FILE resumes the cached prefix and its token history at startup
+(`load_server_session`) and saves them at shutdown
+(`save_server_session`).
+
 Not ported (each refused with a message naming its ROADMAP item):
-/v1/batch/completions, the /admin/* routes, replicas and the router, the
-prefix cache, speculation, tenants and session files.
+/v1/batch/completions, the /admin/* routes, replicas and the router,
+speculation and tenants.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import signal
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -66,7 +77,8 @@ class ApiState:
     def __init__(self, engine, tokenizer, sampler, model_name: str = "dllama",
                  serve_batch: int = 0, serve_chunk: int = 0,
                  queue_depth: int = 0, request_deadline: float = 0.0,
-                 stall_timeout: float = 0.0):
+                 stall_timeout: float = 0.0, prefix_cache: bool = False,
+                 prefix_blocks: int = 0, prefix_block_len: int = 32):
         self.engine = engine
         self.tokenizer = tokenizer
         self.sampler = sampler
@@ -81,6 +93,13 @@ class ApiState:
         self.queue_depth = queue_depth
         self.request_deadline = request_deadline
         self.stall_timeout = stall_timeout
+        # the radix prefix cache on the scheduler path: prefix_blocks 0
+        # sizes the arena at 2 x B x context tokens (JAX
+        # runtime/router.py:1680), enough for several system prompts and
+        # recent conversations
+        self.prefix_cache = prefix_cache
+        self.prefix_blocks = prefix_blocks
+        self.prefix_block_len = prefix_block_len
         # graceful drain (SIGTERM): POSTs 503, /readyz unready
         self.draining = False
         # the legacy path's token history whose K/V is live in the cache
@@ -117,11 +136,42 @@ class ApiState:
                           activation_q80=eng.activation_q80,
                           cuda_graphs=eng.cuda_graphs)
 
+        n_blocks = 0
+        if self.prefix_cache:
+            n_blocks = self.prefix_blocks or max(
+                2 * self.serve_batch * eng.seq_len // self.prefix_block_len, 1)
         return EngineSupervisor(
             engine_factory, chunk=self.serve_chunk or None,
             max_queue=self.queue_depth or 4 * self.serve_batch,
             request_deadline=self.request_deadline or None,
-            stall_timeout=self.stall_timeout or 10.0)
+            stall_timeout=self.stall_timeout or 10.0,
+            prefix_blocks=n_blocks, prefix_block_len=self.prefix_block_len)
+
+
+def load_server_session(state: ApiState, path: str) -> None:
+    """Restore a previous server process's cached prefix and its token
+    history (Engine.load_session, which refuses another model through the
+    fingerprint): a request whose prompt extends the saved conversation
+    prefills only its suffix, and answers as it would have without the
+    restart."""
+    tokens = state.engine.load_session(path)
+    # the cache holds K/V for exactly engine.pos positions; a token past
+    # them (a final unstepped token) must not count as cached
+    state.cached_tokens = tokens[: state.engine.pos]
+
+
+def save_server_session(state: ApiState, path: str) -> bool:
+    """Persist the cached prefix and its token history (Engine.save_session)
+    at shutdown. A shutdown mid-request leaves cached_tokens empty while
+    engine.pos is large: the save is then SKIPPED (False) and a previous
+    file stays. The cache is never saved beyond the tokens that describe
+    it."""
+    if not state.cached_tokens:
+        return False
+    eng = state.engine
+    eng.pos = min(eng.pos, len(state.cached_tokens))
+    eng.save_session(path, tokens=state.cached_tokens)
+    return True
 
 
 def _raw_prompt_body(body: dict) -> bool:
@@ -561,28 +611,50 @@ def make_handler(state: ApiState):
 
 def build_server(args) -> tuple[ThreadingHTTPServer, ApiState]:
     """The CLI's engine, its ApiState and a threaded server bound to
-    --host/--port (port 0: any free port, in server.server_address)."""
+    --host/--port (port 0: any free port, in server.server_address). The
+    prefix cache's block length is validated against the engine's context
+    before the server binds; --session resumes a legacy-path session."""
     from .dllama import build_engine
 
     engine, tokenizer, sampler = build_engine(args)
+    block_len = args.prefix_block_len or 32
+    if args.prefix_cache and not 1 <= block_len <= engine.seq_len:
+        sys.exit(f"error: --prefix-block-len {block_len} outside 1.."
+                 f"{engine.seq_len} (the engine context)")
     state = ApiState(engine, tokenizer, sampler,
                      serve_batch=args.serve_batch,
                      serve_chunk=args.serve_chunk,
                      queue_depth=args.queue_depth,
                      request_deadline=args.request_deadline,
-                     stall_timeout=args.stall_timeout)
+                     stall_timeout=args.stall_timeout,
+                     prefix_cache=bool(args.prefix_cache),
+                     prefix_blocks=args.prefix_blocks or 0,
+                     prefix_block_len=block_len)
+    if args.session and os.path.exists(args.session):
+        load_server_session(state, args.session)
+        print(f"💾 resumed session from {args.session} "
+              f"({engine.pos} cached positions)")
     return ThreadingHTTPServer((args.host, args.port), make_handler(state)), state
 
 
-def finish(state: ApiState, drain_timeout: float) -> bool:
+def finish(state: ApiState, drain_timeout: float,
+           session: str | None = None) -> bool:
     """Stop admitting, let in-flight scheduler work finish for up to
     drain_timeout seconds, then close the supervisor (stragglers get
-    structured shutdown frames). Returns whether the drain completed."""
+    structured shutdown frames); with `session`, save the legacy path's
+    session. Returns whether the drain completed."""
     state.draining = True
     drained = True
     if state._scheduler is not None:
         drained = state._scheduler.drain(timeout=drain_timeout)
         state._scheduler.close()
+    if session:
+        if save_server_session(state, session):
+            print(f"💾 saved session to {session} "
+                  f"({state.engine.pos} cached positions)")
+        else:
+            print("💾 no completed session to save "
+                  f"(leaving {session} untouched)")
     return drained
 
 
@@ -606,7 +678,7 @@ def serve(args) -> None:
         pass
     finally:
         server.server_close()
-        if finish(state, args.drain_timeout):
+        if finish(state, args.drain_timeout, session=args.session):
             print("🔌 drained: all in-flight requests completed")
         else:
             print(f"🔌 drain deadline ({args.drain_timeout:.0f}s) elapsed; "

@@ -1,4 +1,4 @@
-"""dllama CLI of the port — modes `inference`, `generate` and `api`.
+"""dllama CLI of the port — modes `inference`, `generate`, `chat` and `api`.
 
 Counterpart of the JAX package's apps/dllama.py (ref:
 src/apps/dllama/dllama.cpp):
@@ -6,9 +6,14 @@ src/apps/dllama/dllama.cpp):
   inference  prompt completion with a per-token benchmark line and end-of-run
              averages (ref: dllama.cpp:43-91)
   generate   plain streaming completion (ref: dllama.cpp:96-131)
+  chat       interactive chat with the Llama-2 [INST]/<<SYS>> template
+             (ref: dllama.cpp:133-178); --session FILE resumes the
+             conversation's KV cache and saves it after every turn
   api        the OpenAI-compatible HTTP server (apps/api_server.py); with
              --serve-batch B, the continuous-batching scheduler over B
-             slots under its supervisor
+             slots under its supervisor, and --prefix-cache the radix
+             prefix cache over them; without it, --session FILE resumes
+             and saves the one engine's cached prefix
 
     python -m distributed_llama_tpu_torch.apps.dllama inference \\
         --model m.m --tokenizer t.t --prompt "Hello" --steps 32
@@ -23,15 +28,15 @@ reference's quantized activation buffers); `f32` turns it off. On the card
 every decode step replays one captured CUDA graph; `--device-sampling`
 runs the whole sampled decode loop on the device (Engine.generate_device)
 and prints its tokens when the loop ends, as the JAX CLI does. Flags of
-features the port does not have yet — the chat and worker modes, mesh
-axes, clusters, and the serving features listed in UNPORTED_FLAGS — are
-accepted by the parser only to be refused with a message, never silently
-ignored.
+features the port does not have yet — the worker mode, mesh axes,
+clusters, and the features listed in UNPORTED_FLAGS — are accepted by the
+parser only to be refused with a message, never silently ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -39,7 +44,7 @@ import torch
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 CACHE_DTYPES = {**DTYPES, "f8": torch.float8_e4m3fn}
-PORTED_MODES = ("inference", "generate", "api")
+PORTED_MODES = ("inference", "generate", "chat", "api")
 # serving flags of the JAX CLI that the port does not have yet, with the
 # ROADMAP item that brings each (refused with that message when given)
 _SPEC = "speculation (ROADMAP item 12)"
@@ -47,10 +52,6 @@ _FLEET = "replicas and the fleet (ROADMAP item 16)"
 _EXTRAS = "serving extras (ROADMAP item 10c)"
 UNPORTED_FLAGS = {
     "--lookup-decode": _SPEC, "--draft": _SPEC, "--draft-len": _SPEC,
-    "--session": "session files (ROADMAP item 12)",
-    "--prefix-cache": "the prefix cache (ROADMAP item 9)",
-    "--prefix-blocks": "the prefix cache (ROADMAP item 9)",
-    "--prefix-block-len": "the prefix cache (ROADMAP item 9)",
     "--replicas": _FLEET, "--retry-budget": _FLEET, "--route-policy": _FLEET,
     "--replica-procs": _FLEET, "--replica-hosts": _FLEET,
     "--kv-transfer": _FLEET, "--tier": _FLEET, "--min-replicas": _FLEET,
@@ -61,8 +62,7 @@ UNPORTED_FLAGS = {
     "--trace-decode-every": _EXTRAS, "--freeze-compiles": _EXTRAS,
     "--profile-sample": _EXTRAS, "--profile-dir": _EXTRAS,
 }
-_FLAG_SWITCHES = ("--prefix-cache", "--kv-transfer", "--trace",
-                  "--freeze-compiles")
+_FLAG_SWITCHES = ("--kv-transfer", "--trace", "--freeze-compiles")
 
 
 def _serve_batch(v: str) -> int:
@@ -74,6 +74,10 @@ def _serve_batch(v: str) -> int:
     if n < 0:
         raise argparse.ArgumentTypeError("--serve-batch must be >= 0")
     return n
+
+
+def _int_or_auto(v: str):
+    return v if v == "auto" else int(v)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -101,6 +105,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--buffer-float-type", default="q80", choices=["f32", "q80"],
                    help="activation buffers: q80 (the default) round-trips "
                         "every matmul input of a Q40 model through Q80")
+    p.add_argument("--system-prompt", default=None,
+                   help="chat mode system prompt")
+    p.add_argument("--session", default=None, metavar="FILE",
+                   help="chat/api modes: persist the KV-cache session to "
+                        "FILE (chat: after every turn; api without "
+                        "--serve-batch: on shutdown) and resume from it on "
+                        "start, without re-prefilling its history")
     p.add_argument("--device-sampling", action="store_true",
                    help="run the whole sampled decode loop on the device "
                         "(temperature/top-p and the reference's xorshift "
@@ -129,6 +140,22 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--drain-timeout", type=float, default=30.0, metavar="S",
                    help="api: on SIGTERM, how long in-flight requests may "
                         "finish")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="api, with --serve-batch: the radix prefix cache "
+                        "(runtime/prefix_cache.py): an admission seeds the "
+                        "longest cached token prefix from a block arena on "
+                        "the device and prefills only the suffix; finished "
+                        "prompts publish their blocks; /stats gains a "
+                        "prefix_cache block")
+    p.add_argument("--prefix-blocks", type=_int_or_auto, default=0,
+                   metavar="N",
+                   help="prefix-cache arena size in blocks (0 = 2 x "
+                        "serve-batch x context tokens). Arena bytes = N x 2 "
+                        "x layers x kv_heads x block_len x head_size x the "
+                        "cache dtype's size")
+    p.add_argument("--prefix-block-len", type=int, default=None, metavar="L",
+                   help="prefix-cache block length in tokens (default 32): "
+                        "reuse is whole blocks only")
     for flag in UNPORTED_FLAGS:
         if flag in _FLAG_SWITCHES:
             p.add_argument(flag, action="store_true", default=None,
@@ -157,7 +184,8 @@ def refusals(args) -> list[str]:
         out.append("--nnodes: multi-host clusters are not ported yet")
     for flag, why in UNPORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
-            out.append(f"{flag}: {why} is not ported yet")
+            out.append(f"{flag} in mode {args.mode!r}: {why} is not ported "
+                       "yet")
     if args.mode != "api" and (args.serve_batch or args.serve_chunk
                                or args.queue_depth or args.request_deadline
                                or args.stall_timeout):
@@ -169,12 +197,49 @@ def refusals(args) -> list[str]:
         out.append("--serve-chunk/--queue-depth/--request-deadline/"
                    "--stall-timeout configure the scheduler and need "
                    "--serve-batch B")
+    out += _prefix_and_session_refusals(args)
     return out
+
+
+def _prefix_and_session_refusals(args) -> list[str]:
+    """The JAX server's prefix-cache and session refusals, in its words
+    (JAX apps/api_server.py:1695-1745, :1992-2003)."""
+    out = []
+    if args.prefix_blocks == "auto":
+        out.append("--prefix-blocks auto is not ported yet (auto-sizing, "
+                   "ROADMAP item 10c): give --prefix-cache a number of "
+                   "blocks")
+    elif args.prefix_blocks < 0:
+        out.append("--prefix-blocks must be >= 0 (0 = the 2xBxcontext "
+                   "default, or 'auto')")
+    if args.prefix_cache and not args.serve_batch:
+        out.append("--prefix-cache requires --serve-batch N (the radix "
+                   "cache serves the slot scheduler; the legacy path "
+                   "already reuses its single session's prefix)")
+    if not args.prefix_cache and (args.prefix_blocks
+                                  or args.prefix_block_len is not None):
+        out.append("--prefix-blocks/--prefix-block-len have no effect "
+                   "without --prefix-cache")
+    if args.session and args.serve_batch:
+        out.append("--serve-batch (continuous-batching scheduler) does not "
+                   "compose with --session prefix persistence")
+    if args.session and args.mode not in ("chat", "api"):
+        out.append("--session is a chat/api-mode flag")
+    return out
+
+
+def check_session_flags(args) -> None:
+    """--session needs a host-fetchable, stage-flat KV cache: save_session
+    fetches it to the host, which a multi-process mesh or a stage-stacked
+    pp cache cannot give. Fails before any engine work (JAX
+    apps/dllama.py:716)."""
+    if getattr(args, "session", None) and (args.nnodes > 1 or args.pp > 1):
+        sys.exit("error: --session does not compose with --nnodes or --pp")
 
 
 def build_engine(args):
     """model file -> (engine, tokenizer, sampler)."""
-    from ..io.model_file import read_spec
+    from ..io.model_file import content_fingerprint, read_spec
     from ..models.loader import load_params_streamed
     from ..quants.types import FloatType
     from ..runtime.engine import Engine, resolve_device
@@ -199,7 +264,10 @@ def build_engine(args):
                     cache_dtype=CACHE_DTYPES[args.cache_dtype],
                     # JAX apps/dllama.py:651: Q80 activations for Q40 weights
                     activation_q80=(args.buffer_float_type == "q80"
-                                    and spec.weights_float_type == FloatType.Q40))
+                                    and spec.weights_float_type == FloatType.Q40),
+                    # the weights file's content hash, folded into the
+                    # session fingerprint (JAX apps/dllama.py:559)
+                    model_fingerprint=content_fingerprint(args.model))
     tokenizer = Tokenizer.from_file(args.tokenizer)
     seed = args.seed if args.seed is not None else int(time.time())
     sampler = Sampler(tokenizer.vocab_size, args.temperature, args.topp, seed)
@@ -275,8 +343,68 @@ def _print_benchmark(res) -> None:
     print(f"Avg sampling time:   {avg.host_ms:.2f} ms")
 
 
+def cmd_chat(args) -> None:
+    """Interactive chat with the Llama-2 template (ref: dllama.cpp:133-178;
+    JAX apps/dllama.py:1040). Each turn runs Engine.generate on the one
+    engine, continuing at its position; with --session the cache and the
+    conversation's tokens load before the first turn and save after
+    every turn."""
+    engine, tokenizer, sampler = build_engine(args)
+    convo: list[int] = []   # the whole conversation's tokens
+    resumed = False
+    if args.session and os.path.exists(args.session):
+        convo = engine.load_session(args.session)
+        resumed = True
+        print(f"💾 resumed session from {args.session} "
+              f"({engine.pos} cached positions)")
+    system = args.system_prompt
+    if system is None and not resumed:
+        try:
+            system = input("💻 System prompt (optional): ")
+        except EOFError:
+            system = ""
+    first = not resumed
+    stops = tokenizer.stop_token_ids()
+    while True:
+        try:
+            user = input("\n👱 User\n> ")
+        except EOFError:
+            break
+        if not user:
+            continue
+        if first and system:
+            text = f"[INST] <<SYS>>\n{system}\n<</SYS>>\n\n{user} [/INST]"
+        else:
+            text = f"[INST] {user} [/INST]"
+        first = False
+        tokens = tokenizer.encode(text, add_bos=True)
+        print("\n🤖 Assistant")
+        prev = [tokens[-1]]
+
+        def on_token(tok: int) -> None:
+            if tok not in stops:
+                _safe_print(tokenizer.decode_piece(prev[0], tok).decode(
+                    "utf-8", errors="replace"))
+            prev[0] = tok
+
+        # the prompt itself must fit before any generation can start
+        remaining = engine.seq_len - engine.pos - len(tokens)
+        if remaining <= 1:
+            print("(context window full)")
+            break
+        budget = min(_steps(args, engine), remaining)
+        convo.extend(tokens)
+        res = engine.generate(tokens, budget, sampler, eos_id=stops,
+                              on_token=on_token)
+        convo.extend(res.tokens)
+        print()
+        if args.session:
+            engine.save_session(args.session, tokens=convo)
+
+
 def main(argv: list[str] | None = None) -> None:
     args = build_argparser().parse_args(argv)
+    check_session_flags(args)
     refused = refusals(args)
     if refused:
         sys.exit("error: " + "; ".join(refused))
@@ -284,6 +412,9 @@ def main(argv: list[str] | None = None) -> None:
         from .api_server import serve
 
         serve(args)
+        return
+    if args.mode == "chat":
+        cmd_chat(args)
         return
     cmd_generate(args, benchmark=args.mode == "inference")
 

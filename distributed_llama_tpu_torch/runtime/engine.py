@@ -31,14 +31,26 @@ the device loops) refuse a batch-B engine. A batch-B engine may share the
 params of a batch-1 one: fuse_layer_weights leaves fused params as they
 are, so no weight is copied.
 
+Cache seeding (JAX runtime/engine.py:406-545, :1577-1652): `save_session`
+and `load_session` persist the filled cache prefix in the JAX package's
+file format (one file serves both packages), and `new_prefix_arena`,
+`slot_seed_prefix` and `slot_publish_block` move K/V between a slot's
+cache row and the radix prefix cache's block arena
+(runtime/prefix_cache.py). Every one of them copies into the existing
+cache tensors: the captured graphs read and write those addresses, so a
+load, a seed or a reset never rebinds them. Bytes entering the cache from
+outside a forward pass the fp8 NaN-code guard (`saturate_f8_nan_codes`).
+
 The engine runs on `cuda` unless the caller asks for the CPU: with no card
 present, `Engine(...)` raises instead of running elsewhere.
 """
 
 from __future__ import annotations
 
+import os
 import time
 import types
+import zlib
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -46,7 +58,8 @@ import torch
 
 from ..models.params import fuse_layer_weights
 from ..models.spec import ModelSpec
-from ..models.transformer import KVCache, forward
+from ..models.transformer import _BITS, KVCache, forward
+from ..ops.cuda_attention import saturate_f8_nan_codes
 from ..ops.device_sampler import sample_token, state_from_seed
 from ..sampler import Sampler
 from ..utils.device import resolve_device
@@ -58,16 +71,59 @@ from .stats import RunStats, StepStats
 # the fp8 (e4m3) cache stores 1 byte per value; writes saturate at +-448
 # and K3 upcasts it in registers (ops/cuda_attention.py)
 CACHE_DTYPES = (torch.bfloat16, torch.float32, torch.float8_e4m3fn)
+# the numpy names of the cache dtypes (jnp.dtype(...).name in the JAX
+# package): the session file stores them and its fingerprint hashes them
+DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32",
+               torch.float8_e4m3fn: "float8_e4m3fn"}
 # generate_device's host reads the loop's done flag once every this many
 # replays: at most this many - 1 forwards run after the stop token
 _DONE_CHECK_EVERY = 8
 
-__all__ = ["CACHE_DTYPES", "Engine", "GenerationResult", "resolve_device"]
+__all__ = ["CACHE_DTYPES", "Engine", "GenerationResult", "resolve_device",
+           "seed_rows_from_blocks"]
 
 
 class GenerationResult(NamedTuple):
     tokens: list[int]
     stats: RunStats
+
+
+def seed_rows_from_blocks(cache: KVCache, arena_k: torch.Tensor,
+                          arena_v: torch.Tensor, row: int,
+                          block_ids) -> None:
+    """Seed cache row `row`'s leading positions from prefix-arena blocks,
+    in place (the body of Engine.slot_seed_prefix; JAX
+    runtime/engine.py:42 seed_rows_from_blocks).
+
+    arena_k/arena_v: (num_blocks, layers, kv_heads, block_len, head_size),
+    each block laid out like a cache slice (KVH before the sequence), so
+    a layer's seed is one gather of the matched blocks and one copy into
+    cache[l][row, :, :n], n = len(block_ids) * block_len. Unlike the JAX
+    seed, which pads block_ids to a fixed width for one compilation key,
+    only the matched blocks are written. The blocks pass the fp8 NaN-code
+    guard: the arena's producer is not trusted at the seeding boundary."""
+    ids = torch.as_tensor(np.asarray(block_ids, np.int64),
+                          device=arena_k.device)
+    mb = int(ids.numel())
+    if mb == 0:
+        return
+    _, _, kvh, bl, hs = arena_k.shape
+    n = mb * bl
+    for l in range(len(cache.k)):
+        for arena, leaf in ((arena_k, cache.k[l]), (arena_v, cache.v[l])):
+            # moved as integer bits of the dtype's width (every dtype's
+            # gather and copy), guarded in the dtype itself
+            seg = _bits(arena[:, l]).index_select(0, ids)
+            seg = _bits(saturate_f8_nan_codes(seg.view(arena.dtype)))
+            _bits(leaf[row, :, :n]).view(kvh, mb, bl, hs).transpose(0, 1).copy_(seg)
+
+
+_BITS_NP = {1: np.uint8, 2: np.int16, 4: np.int32}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits as integers of its width (a view)."""
+    return t.view(_BITS[t.element_size()])
 
 
 class Engine:
@@ -84,6 +140,7 @@ class Engine:
         activation_q80: bool = False,
         cuda_graphs: bool = True,
         batch: int = 1,
+        model_fingerprint: int = 0,
     ):
         self.device = resolve_device(device)
         if batch < 1:
@@ -107,6 +164,10 @@ class Engine:
         # the Q80 round trip (JAX runtime/engine.py:125; the CLI's default
         # for Q40 models)
         self.activation_q80 = activation_q80
+        # content hash of the weights file (io/model_file.py
+        # content_fingerprint; the CLI sets it), folded into the session
+        # fingerprint; 0 for params held in memory
+        self.model_fingerprint = int(model_fingerprint)
         # single-device fast path: fused QKV / w1|w3 launches (in place)
         self.params = fuse_layer_weights(params)
         # B slots (rows) of the scheduler, or the one sequence of step()
@@ -144,6 +205,75 @@ class Engine:
         """New session: zero the cache (in place) and rewind the position."""
         self._zero_cache()
         self.pos = 0
+
+    # -- session persistence (JAX runtime/engine.py:406-545) ---------------
+
+    def save_session(self, path: str, tokens: list[int] | None = None) -> None:
+        """Persist the session: pos and the filled cache prefix (positions
+        < pos), with an optional token history, as the JAX package's .npz
+        (narrow dtypes stored as raw uint8/uint16 bits), so either package
+        loads the other's file. Written to path + ".tmp", then renamed: a
+        signal mid-write never leaves a truncated file where a good one
+        stood."""
+        data: dict = {
+            "pos": np.int64(self.pos),
+            "cache_dtype": np.str_(DTYPE_NAMES[self.cache_dtype]),
+            "config": np.asarray(self._session_fingerprint(), np.int64),
+            "tokens": np.asarray(tokens if tokens is not None else [],
+                                 np.int32),
+        }
+        for l in range(self.spec.n_layers):
+            for name, leaf in (("k", self.cache.k[l]), ("v", self.cache.v[l])):
+                arr = _bits(leaf[:, :, :self.pos]).cpu().numpy()
+                if self.cache_dtype == torch.bfloat16:
+                    arr = arr.view(np.uint16)
+                elif self.cache_dtype == torch.float32:
+                    arr = arr.view(np.float32)
+                data[f"{name}{l}"] = arr
+        # an open handle: np.savez(str) appends ".npz" to a bare name
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **data)
+        os.replace(tmp, path)
+
+    def load_session(self, path: str) -> list[int]:
+        """Restore a save_session() file, of either package: refuses a
+        mismatched model or engine config, zeroes the cache and copies the
+        saved prefix into it IN PLACE (through the NaN-code guard), sets
+        pos. Returns the saved token history ([] when it has none)."""
+        z = np.load(path)
+        saved, mine = [int(x) for x in z["config"]], self._session_fingerprint()
+        # the weight-content element compares only when both sides know it:
+        # 0 means params held in memory (and 4-element files predate it)
+        content_ok = (len(saved) < 5 or saved[4] == mine[4]
+                      or 0 in (saved[4], mine[4]))
+        if saved[:4] != mine[:4] or not content_ok:
+            raise ValueError(
+                "session file does not match this engine's model/config "
+                f"(saved {saved}, engine {mine})")
+        pos = int(z["pos"])
+        if not 0 <= pos <= self.seq_len:
+            raise ValueError(f"session pos {pos} outside 0..{self.seq_len}")
+        self.reset()
+        for l in range(self.spec.n_layers):
+            for name, leaf in (("k", self.cache.k[l]), ("v", self.cache.v[l])):
+                raw = np.ascontiguousarray(z[f"{name}{l}"])
+                bits = torch.from_numpy(raw.view(_BITS_NP[raw.dtype.itemsize]))
+                pfx = bits.to(self.device).view(self.cache_dtype)
+                _bits(leaf[:, :, :pos]).copy_(_bits(saturate_f8_nan_codes(pfx)))
+        self.pos = pos
+        return z["tokens"].tolist() if "tokens" in z.files else []
+
+    def _session_fingerprint(self) -> list[int]:
+        """Architecture dims, cache shape and dtype, and the weights'
+        content hash: the JAX engine's fingerprint, value for value."""
+        sp = self.spec
+        return [zlib.crc32(repr((sp.arch, sp.dim, sp.hidden_dim, sp.n_layers,
+                                 sp.n_heads, sp.n_kv_heads,
+                                 sp.head_size)).encode()),
+                self.batch, self.seq_len,
+                zlib.crc32(DTYPE_NAMES[self.cache_dtype].encode()),
+                self.model_fingerprint]
 
     def _zero_cache(self) -> None:
         for buf in (*self.cache.k, *self.cache.v):
@@ -442,6 +572,50 @@ class Engine:
         return self._forward(
             torch.as_tensor(tokens, device=dev), torch.as_tensor(pos, device=dev),
             torch.as_tensor(np.asarray(logit_index, np.int64), device=dev))
+
+    # -- prefix-cache arena (runtime/prefix_cache.py) ----------------------
+
+    def new_prefix_arena(self, num_blocks: int, block_len: int):
+        """The radix prefix cache's block arena: zeroed K and V tensors of
+        (num_blocks, layers, kv_heads, block_len, head_size) in the cache
+        dtype. The arena dies with the engine: a supervisor rebuild mints a
+        fresh engine, arena and tree."""
+        if num_blocks < 1 or not 1 <= block_len <= self.seq_len:
+            raise ValueError(f"prefix arena of {num_blocks} blocks of "
+                             f"{block_len} (context {self.seq_len})")
+        shape = (num_blocks, self.spec.n_layers, self.spec.n_kv_heads,
+                 block_len, self.spec.head_size)
+        return (torch.zeros(shape, dtype=self.cache_dtype, device=self.device),
+                torch.zeros(shape, dtype=self.cache_dtype, device=self.device))
+
+    @torch.inference_mode()
+    def slot_seed_prefix(self, arena_k, arena_v, row: int, block_ids) -> None:
+        """Seed slot row `row`'s leading cache positions from arena blocks,
+        in place (seed_rows_from_blocks): one gather and one copy a layer
+        for K and for V, eagerly, on the default stream between the
+        scheduler's replays. Does not touch self.pos."""
+        seed_rows_from_blocks(self.cache, arena_k, arena_v, row, block_ids)
+
+    @torch.inference_mode()
+    def slot_publish_block(self, arena_k, arena_v, row: int, offset: int,
+                           dst: list[int]) -> None:
+        """Copy slot row `row`'s cache positions from `offset` into the
+        arena blocks `dst`, in place, block_len positions a block (a
+        publish's new blocks cover consecutive positions). One indexed copy
+        a layer for K and for V, whatever the number of blocks. The bytes
+        came from this engine's own saturating writes, so no guard runs
+        here (the seed side owns it, as `saturate_f8_nan_codes` in
+        seed_rows_from_blocks and load_session)."""
+        ids = torch.as_tensor(np.asarray(dst, np.int64),
+                              device=arena_k.device)
+        _, _, kvh, bl, hs = arena_k.shape
+        mb = int(ids.numel())
+        for l in range(self.spec.n_layers):
+            for arena, leaf in ((arena_k, self.cache.k[l]),
+                                (arena_v, self.cache.v[l])):
+                src = _bits(leaf[row, :, offset:offset + mb * bl])
+                _bits(arena[:, l]).index_copy_(
+                    0, ids, src.view(kvh, mb, bl, hs).transpose(0, 1))
 
     def _slot_decode(self) -> torch.Tensor:
         """Graph "slot_decode": row r's token in `tok` at its position in

@@ -10,9 +10,10 @@ runtime/profiler.py, for what the scheduler and the server call:
     capture runs. The warm flag lives on the engine, so a rebuilt engine's
     own warmup captures are not counted against it.
   * ``hbm_ledger``: live bytes by category from the engine's known tensor
-    shapes (weights, vocab, KV slots, the modelled logits workspace),
-    reconciled against ``torch.cuda.memory_stats`` on the card (device
-    fields None on the CPU), with the headroom in KV slots.
+    shapes (weights, vocab, KV slots, the prefix cache's arena, the
+    modelled logits workspace), reconciled against
+    ``torch.cuda.memory_stats`` on the card (device fields None on the
+    CPU), with the headroom in KV slots and in arena blocks.
   * ``build_info``: torch, CUDA and the card, for /healthz and the
     ``dllama_build_info`` series.
   * ``PROFILER``: every ``sample_every``-th working scheduler step is
@@ -156,13 +157,15 @@ def device_memory_stats(device) -> dict | None:
                 device).total_memory)}
 
 
-def hbm_ledger(engine) -> dict:
+def hbm_ledger(engine, prefix_cache=None) -> dict:
     """Live bytes by category for one engine (the ``hbm`` /stats block):
     weights (every param but the vocab tables), vocab (tok_emb and wcls),
-    KV slots (the whole (B, KVH, S, hs) cache), the modelled logits
-    workspace ((B, vocab) f32 logits and one (B, chunk, dim) activation).
-    On the card: the allocator's bytes in use and the card's memory, the
-    unaccounted rest, and the headroom in KV slots."""
+    KV slots (the whole (B, KVH, S, hs) cache), the prefix cache's K/V
+    arena, the modelled logits workspace ((B, vocab) f32 logits and one
+    (B, chunk, dim) activation). ``per_block_bytes`` is one more arena
+    block (of the cache's block length; 32 tokens without a cache). On the
+    card: the allocator's bytes in use and the card's memory, the
+    unaccounted rest, and the headroom in KV slots and arena blocks."""
     spec = engine.spec
     params = engine.params
     vocab_b = _tensor_bytes([params[k] for k in ("tok_emb", "wcls")
@@ -170,24 +173,35 @@ def hbm_ledger(engine) -> dict:
     weights = _tensor_bytes({k: v for k, v in params.items()
                              if k not in ("tok_emb", "wcls")})
     kv = _tensor_bytes([engine.cache.k, engine.cache.v])
+    arena, n_blocks, bl = 0, 0, 32
+    if prefix_cache is not None:
+        arena = _tensor_bytes([prefix_cache.arena_k, prefix_cache.arena_v])
+        n_blocks, bl = prefix_cache.num_blocks, prefix_cache.block_len
+    cache_itemsize = torch.empty((), dtype=engine.cache_dtype).element_size()
     compute_itemsize = torch.empty((), dtype=engine.compute_dtype).element_size()
     logits_ws = (engine.batch * spec.vocab_size * 4
                  + engine.batch * engine.prefill_chunk * spec.dim
                  * compute_itemsize)
     per_slot = kv // engine.batch
-    accounted = weights + vocab_b + kv + logits_ws
+    per_block = (arena // n_blocks if n_blocks else
+                 2 * spec.n_layers * spec.n_kv_heads * bl
+                 * spec.head_size * cache_itemsize)
+    accounted = weights + vocab_b + kv + arena + logits_ws
     out = {
         "weights_bytes": weights,
         "vocab_bytes": vocab_b,
         "kv_slot_bytes": kv,
+        "prefix_arena_bytes": arena,
         "logits_workspace_bytes": logits_ws,
         "accounted_bytes": accounted,
         "per_slot_bytes": per_slot,
+        "per_block_bytes": per_block,
         "device_bytes_in_use": None,
         "device_bytes_limit": None,
         "unaccounted_bytes": None,
         "headroom_bytes": None,
         "slots_addable": None,
+        "prefix_blocks_addable": None,
     }
     dev = device_memory_stats(engine.device)
     if dev is not None:
@@ -196,7 +210,8 @@ def hbm_ledger(engine) -> dict:
                    device_bytes_limit=dev["bytes_limit"],
                    unaccounted_bytes=max(dev["bytes_in_use"] - accounted, 0),
                    headroom_bytes=free,
-                   slots_addable=free // per_slot if per_slot else None)
+                   slots_addable=free // per_slot if per_slot else None,
+                   prefix_blocks_addable=free // per_block if per_block else None)
     return out
 
 

@@ -27,6 +27,12 @@ a device-side assert) poisons the process's CUDA context; no engine built
 in the same process will run, so the breaker opens after
 ``breaker_threshold`` failed rebuilds and the process must be restarted.
 
+With ``prefix_blocks > 0`` every generation's scheduler gets a fresh
+radix prefix cache (runtime/prefix_cache.py) over its own engine: its
+arena holds K/V only that engine wrote, so a rebuild starts from an empty
+tree, and the failed generation's arena goes back to the allocator with
+its cache before the factory allocates.
+
 Generations: each (engine, scheduler) pair is one generation. A failure
 invalidates the generation first (a wedged step thread that wakes finds
 ``gen != self._gen`` and exits), then fails its requests, then rebuilds.
@@ -38,6 +44,7 @@ import contextlib
 import threading
 import time
 
+from .prefix_cache import PrefixCache
 from .scheduler import Scheduler
 from .stats import SupervisorStats
 
@@ -73,9 +80,14 @@ class EngineSupervisor:
                  request_deadline: float | None = None,
                  stall_timeout: float = 10.0, watchdog_poll: float = 0.02,
                  backoff_base: float = 0.1, backoff_max: float = 5.0,
-                 breaker_threshold: int = 3):
+                 breaker_threshold: int = 3,
+                 prefix_blocks: int = 0, prefix_block_len: int = 32):
         self._factory = engine_factory
         self._chunk = chunk
+        # prefix_blocks > 0: a radix prefix cache of that many blocks of
+        # prefix_block_len tokens, minted fresh with every generation
+        self._prefix_blocks = int(prefix_blocks)
+        self._prefix_block_len = int(prefix_block_len)
         self.max_queue = int(max_queue)
         self._queue_timeout = queue_timeout
         self._request_deadline = request_deadline
@@ -117,6 +129,12 @@ class EngineSupervisor:
         """The CURRENT generation's ServeStats; cross-generation totals
         are in summary()."""
         return self._sched.stats
+
+    @property
+    def prefix_cache(self):
+        """The CURRENT generation's radix prefix cache (None when off);
+        like `stats`, it swaps wholesale on recovery."""
+        return self._sched.prefix_cache
 
     @property
     def state(self) -> str:
@@ -236,7 +254,7 @@ class EngineSupervisor:
         out["state"] = state
         out["resilience"] = self.sup_stats.summary()
         try:
-            out["hbm"] = hbm_ledger(sched.engine)
+            out["hbm"] = hbm_ledger(sched.engine, sched.prefix_cache)
         except AttributeError:  # a failed engine, released mid-scrape
             pass
         out["compiles"] = COMPILES.summary()
@@ -255,9 +273,14 @@ class EngineSupervisor:
     # -- internals ---------------------------------------------------------
 
     def _make_sched(self, engine) -> Scheduler:
+        pc = None
+        if self._prefix_blocks > 0:
+            pc = PrefixCache(engine, num_blocks=self._prefix_blocks,
+                             block_len=self._prefix_block_len)
         return Scheduler(engine, chunk=self._chunk, max_queue=self.max_queue,
                          queue_timeout=self._queue_timeout,
-                         request_deadline=self._request_deadline)
+                         request_deadline=self._request_deadline,
+                         prefix_cache=pc)
 
     def _start_loop(self, sched: Scheduler, gen: int) -> None:
         for g in [g for g, t in self._loop_threads.items()
@@ -322,7 +345,7 @@ class EngineSupervisor:
         # mutex (a wedged step holds it)
         old._abort_all(f"engine failure: {msg}")
         t = threading.Thread(target=self._rebuild,
-                             args=(t_detect, old.engine), daemon=True)
+                             args=(t_detect, old), daemon=True)
         with self._state_lock:
             self._rebuild_thread = t
         t.start()
@@ -333,10 +356,12 @@ class EngineSupervisor:
         wait for the card). Factory and warmup failures count toward the
         breaker."""
         if failed is not None:
-            # the failed engine's cache and graph pools go back before the
-            # factory allocates the next engine; on one stream, the
-            # allocator orders any launch still queued on them first
-            failed.release()
+            # the failed generation's arena, cache and graph pools go back
+            # before the factory allocates the next engine; on one stream,
+            # the allocator orders any launch still queued on them first
+            if failed.prefix_cache is not None:
+                failed.prefix_cache.release()
+            failed.engine.release()
         while not self._stop:
             with self._state_lock:
                 n = self.sup_stats.consecutive_failures
@@ -355,6 +380,8 @@ class EngineSupervisor:
                 sched.warmup()
             except Exception:  # noqa: BLE001 — one more consecutive failure
                 if sched is not None:
+                    if sched.prefix_cache is not None:
+                        sched.prefix_cache.release()
                     sched.engine.release()
                 with self._state_lock:
                     self.sup_stats.consecutive_failures += 1

@@ -1,6 +1,7 @@
 """Continuous batching: a slot-based KV scheduler over the batch-B Engine —
 the port of the JAX package's runtime/scheduler.py (its core: submit, the
-scheduling iteration, warmup, the step thread, close, exclusive).
+scheduling iteration, warmup, the step thread, close, exclusive, and the
+radix prefix cache's admission seed and publish).
 
 Iteration-level scheduling in the Orca style (Yu et al., OSDI '22) with
 slot-reuse KV management: the KV cache is ONE batch-B allocation whose rows
@@ -25,6 +26,17 @@ is the slot's RNG state), so greedy requests yield exactly the tokens of a
 sequential ``Engine.generate`` where the arithmetic is the same (f32 on the
 CPU: tests/test_torch_scheduler.py).
 
+Cross-request KV reuse: with a ``runtime/prefix_cache.PrefixCache``
+attached, ``_admit`` looks up the longest cached token prefix, seeds the
+slot's cache row from arena blocks (``Engine.slot_seed_prefix``, eager
+copies on the default stream between the graph's replays) and prefills
+only the suffix; a slot publishes its PROMPT's K/V back into the tree when
+the prompt finishes prefilling (prefill-written blocks only: decode-step
+K/V is not guaranteed bitwise-equal to a cold prefill's). The matched path
+stays pinned for the slot's lifetime, so eviction never frees a block an
+in-flight slot came from, and ``_abort_all`` invalidates the whole tree
+(the arena dies with the engine).
+
 Thread model: ``submit()`` is thread-safe and never takes the step mutex;
 the step loop runs on the ``start()`` thread, the supervisor's thread
 (runtime/resilience.py) or synchronously through ``step()``. Every thread
@@ -32,9 +44,9 @@ issues its CUDA work on the default stream, so a capture, its replays and
 the host copies between them are ordered on one stream. HTTP handler
 threads touch host tokens only.
 
-Not ported: speculation (draft, verify steps), the prefix cache, the SLO
-admission ladder, the weighted-fair queue and the KV-transfer methods; the
-constructor refuses them.
+Not ported: speculation (draft, verify steps), the SLO admission ladder,
+the weighted-fair queue and the KV-transfer methods (the lock-free
+``kv_match_len`` peek excepted); the constructor refuses them.
 """
 
 from __future__ import annotations
@@ -56,7 +68,6 @@ from .stats import RequestStats, ServeStats
 # constructor options of the JAX Scheduler that the port does not have yet,
 # with the ROADMAP item that brings each
 UNPORTED = {
-    "prefix_cache": "the prefix cache (ROADMAP item 9)",
     "draft_factory": "draft speculation (ROADMAP item 12)",
     "draft_len": "draft speculation (ROADMAP item 12)",
     "slo_ttft_ms": "the SLO admission ladder (ROADMAP item 10c)",
@@ -158,9 +169,10 @@ class ServeRequest:
 class _Slot:
     """One row of the batched KV cache: FREE when req is None, PREFILL
     while off < len(prompt), DECODE after. `pos` is the next cache write
-    position, `last` the token to feed next step."""
+    position, `last` the token to feed next step, `pins` the prefix-cache
+    path the slot was seeded from (held until the slot releases)."""
 
-    __slots__ = ("idx", "req", "pos", "off", "n_out", "last")
+    __slots__ = ("idx", "req", "pos", "off", "n_out", "last", "pins")
 
     def __init__(self, idx: int):
         self.idx = idx
@@ -169,12 +181,14 @@ class _Slot:
         self.off = 0
         self.n_out = 0
         self.last = 0
+        self.pins: tuple = ()
 
 
 class Scheduler:
     def __init__(self, engine, *, chunk: int | None = None,
                  max_queue: int = 0, queue_timeout: float | None = None,
-                 request_deadline: float | None = None, **unported):
+                 request_deadline: float | None = None, prefix_cache=None,
+                 **unported):
         asked = {k: v for k, v in unported.items() if v}
         unknown = set(asked) - set(UNPORTED)
         if unknown:
@@ -187,6 +201,11 @@ class Scheduler:
         if not 1 <= self.chunk <= engine.seq_len:
             raise ValueError(f"chunk {self.chunk} outside 1..{engine.seq_len}")
         self.slots = [_Slot(i) for i in range(engine.batch)]
+        # radix prefix cache over THIS engine's arena (a supervisor rebuild
+        # passes a fresh one); None = reuse off
+        if prefix_cache is not None and prefix_cache.engine is not engine:
+            raise ValueError("prefix cache arena belongs to a different engine")
+        self.prefix_cache = prefix_cache
         # admission control: max_queue bounds the waiting line (0 = no
         # bound), queue_timeout how long a request may WAIT before it is
         # failed rather than started, request_deadline the default
@@ -200,6 +219,8 @@ class Scheduler:
         self._mutex = threading.RLock()  # step()/exclusive() mutual excl.
         self._wake = threading.Event()
         self.stats = ServeStats()
+        if prefix_cache is not None:
+            self.stats.prefix = prefix_cache.stats
         self._thread: threading.Thread | None = None
         self._stop = False
         self._closed = False
@@ -307,6 +328,7 @@ class Scheduler:
                 self._finish_slot(s, "cancelled")
             elif s.req.expired(now):
                 req, s.req = s.req, None
+                self._release_slot_cache(s, req)
                 self._expire_req(req)
         self._admit()
         pre = [s for s in self.slots
@@ -352,6 +374,17 @@ class Scheduler:
             s = free.pop(0)
             s.req = req
             s.off = s.pos = s.n_out = s.last = 0
+            s.pins = ()
+            if self.prefix_cache is not None:
+                # seed the longest cached prefix (whole blocks, capped at
+                # len - 1) and prefill only the suffix; the path stays
+                # pinned until the slot releases. tokens_prefilled counts
+                # per dispatched chunk, in _prefill_chunk
+                n, ids, pins = self.prefix_cache.lookup_pin(req.prompt)
+                if n > 0:
+                    self.prefix_cache.seed_slot(s.idx, ids)
+                    s.off = n
+                    s.pins = pins
 
     def _sample_view(self, logits) -> FullLogitsView:
         return FullLogitsView(self.engine.fetch_logits(logits))
@@ -366,6 +399,9 @@ class Scheduler:
         for s in rows:
             n = min(c, len(s.req.prompt) - s.off)
             tok[s.idx, :n] = s.req.prompt[s.off:s.off + n]
+            if self.prefix_cache is not None:
+                # real (not pad) tokens this forward prefills
+                self.prefix_cache.stats.tokens_prefilled += n
             # tail padding (token 0) writes beyond the prompt; decode
             # overwrites them before any later query attends them
             pos[s.idx] = s.off
@@ -379,6 +415,11 @@ class Scheduler:
         view = self._sample_view(logits)
         for s in finishing:
             s.pos = len(s.req.prompt)
+            if self.prefix_cache is not None:
+                # publish the prompt's blocks the moment they are all
+                # written, not at slot finish, so requests sharing the
+                # prefix hit while this one still decodes
+                self.prefix_cache.publish(s.idx, s.req.prompt)
             if s.req.max_tokens <= 0:
                 # the hard-cap contract of Engine.generate
                 self._finish_slot(s, "length")
@@ -417,8 +458,29 @@ class Scheduler:
         elif s.n_out >= req.max_tokens or s.pos >= self.engine.seq_len:
             self._finish_slot(s, "length")
 
+    def _release_slot_cache(self, s: _Slot, req: ServeRequest) -> None:
+        """Prefix-cache bookkeeping for a slot leaving by any path: release
+        the seed pins, and for a slot retiring MID-PREFILL (cancel,
+        deadline) publish the prompt prefix it did write (s.off advances
+        only after a chunk's forward ran, so [0, off) is real data).
+
+        Only PREFILL-written blocks are ever published, never the decode
+        extension: decode-step K/V is not guaranteed bitwise-equal to what
+        a cold prefill of the same tokens writes (another kernel path may
+        round differently), and seeding it would void the cache-on ==
+        cache-off token parity. A next chat turn still hits the previous
+        turn's prompt blocks and re-prefills only the reply and the new
+        message."""
+        if self.prefix_cache is None:
+            return
+        if 0 < s.off < len(req.prompt):
+            self.prefix_cache.publish(s.idx, req.prompt[: s.off])
+        self.prefix_cache.unpin(s.pins)
+        s.pins = ()
+
     def _finish_slot(self, s: _Slot, reason: str) -> None:
         req, s.req = s.req, None  # the slot is free from here on
+        self._release_slot_cache(s, req)
         self._finish_req(req, reason)
 
     def _finish_req(self, req: ServeRequest, reason: str) -> None:
@@ -436,13 +498,20 @@ class Scheduler:
         unread), so the cache is untouched. On the card this captures the
         slot decode graph, and builds and loads every kernel library the
         serving path launches. The supervisor runs it before it marks an
-        engine ready, so a first step's capture never reads as a stall."""
+        engine ready, so a first step's capture never reads as a stall.
+        With a prefix cache, one seed and one publish run too: the seed
+        really writes row 0, so the scheduler must be idle."""
         eng = self.engine
         with self._mutex:
             gate = np.full((eng.batch,), eng.seq_len, np.int32)
             eng.slot_prefill_chunk(np.zeros((eng.batch, self.chunk), np.int32),
                                    gate, np.zeros((eng.batch,), np.int32))
             eng.slot_decode_step(np.zeros((eng.batch, 1), np.int32), gate)
+            if self.prefix_cache is not None:
+                if any(s.req is not None for s in self.slots):
+                    raise RuntimeError(
+                        "prefix-cache warmup requires an idle scheduler")
+                self.prefix_cache.warmup()
             mark = getattr(eng, "mark_compile_warm", None)
             if mark is not None:
                 mark()
@@ -491,7 +560,12 @@ class Scheduler:
         frame. Called WITHOUT the mutex by close() and the supervisor,
         when the step thread may be wedged inside a step holding it."""
         frame = {"code": code, "message": msg, "retryable": retryable}
+        if self.prefix_cache is not None:
+            # the engine generation behind the arena is being discarded:
+            # the whole tree goes, so nothing seeds from a dead engine
+            self.prefix_cache.invalidate()
         for s in self.slots:
+            s.pins = ()  # the invalidate detached the pinned nodes
             if s.req is not None:
                 req, s.req = s.req, None
                 self._fail_req(req, frame)
@@ -513,6 +587,12 @@ class Scheduler:
         # no mutex: a stuck thread holds it forever
         self._abort_all("scheduler shutdown", code="shutdown",
                         retryable=False)
+
+    def kv_match_len(self, tokens: list[int]) -> int:
+        """Lock-free peek at this scheduler's cached prefix of `tokens`
+        (0 with the cache off; PrefixCache.match_len)."""
+        pc = self.prefix_cache
+        return pc.match_len(tokens) if pc is not None else 0
 
     @contextlib.contextmanager
     def exclusive(self):

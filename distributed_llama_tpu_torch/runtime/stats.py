@@ -5,11 +5,12 @@ end-of-run averages (ref: src/apps/dllama/dllama.cpp:47-91). The port's copy
 of the JAX package's runtime/stats.py, for what the port runs: StepStats and
 RunStats (generation wall ms (G), device-step ms (I, the step up to its
 logits on the host — the copy is the sync point), host overhead ms), and the
-serving records of the scheduler and its supervisor (RequestStats,
-ServeStats, SupervisorStats, percentile). The step timeline (it belongs to
-the flight recorder, which comes with the --trace flags) and the
-speculative, prefix-cache, router, cluster, transfer and fleet records are
-not ported: the port serves none of those yet.
+serving records of the scheduler, its supervisor and the radix prefix
+cache (RequestStats, ServeStats, SupervisorStats, PrefixCacheStats,
+percentile). The step timeline (it belongs to the flight recorder, which
+comes with the --trace flags) and the speculative, router, cluster,
+transfer and fleet records are not ported: the port serves none of those
+yet.
 """
 
 from __future__ import annotations
@@ -102,6 +103,9 @@ class ServeStats:
     requests_failed: int = 0
     requests_expired: int = 0
     requests_rejected: int = 0
+    # attached by the Scheduler when the radix prefix cache is on: its
+    # summary rides the same /stats payload as a `prefix_cache` block
+    prefix: "PrefixCacheStats | None" = None
 
     def __post_init__(self):
         self.requests = deque(maxlen=self.window)   # RequestStats records
@@ -114,7 +118,7 @@ class ServeStats:
         ttfts = [r.ttft_ms for r in self.requests if r.ttft_ms is not None]
         itls = [r.itl_ms for r in self.requests if r.itl_ms is not None]
         rnd = lambda v: None if v is None else round(v, 3)  # noqa: E731
-        return {
+        out = {
             "requests_submitted": self.requests_submitted,
             "requests_finished": self.requests_finished,
             "requests_failed": self.requests_failed,
@@ -130,6 +134,53 @@ class ServeStats:
             if self.occupancy else 0.0,
             "max_queue_depth": max(self.queue_depth, default=0),
             "steps": self.steps,
+        }
+        if self.prefix is not None:
+            out["prefix_cache"] = self.prefix.summary()
+        return out
+
+
+@dataclasses.dataclass
+class PrefixCacheStats:
+    """Counters owned by runtime/prefix_cache.PrefixCache. Lifetime = one
+    (engine, scheduler) generation: the arena dies with the engine, so a
+    supervisor rebuild starts these at zero (a fresh empty tree reads as
+    a 0% hit rate until it re-warms)."""
+
+    num_blocks: int = 0
+    block_len: int = 0
+    lookups: int = 0           # admissions checked against the tree
+    hits: int = 0              # admissions seeded from >= 1 cached block
+    tokens_saved: int = 0      # prompt tokens seeded instead of prefilled
+    tokens_prefilled: int = 0  # prompt tokens actually prefilled
+    blocks_published: int = 0
+    evictions: int = 0         # unreferenced LRU leaves freed for reuse
+    publish_drops: int = 0     # publishes cut short: the pool held only
+    # referenced blocks (eviction never frees a pinned block)
+    invalidations: int = 0     # whole-tree resets (abort, rebuild, close)
+    blocks_in_use: int = 0     # gauge: pool blocks the tree references
+
+    def summary(self) -> dict:
+        rnd = lambda v: None if v is None else round(v, 4)  # noqa: E731
+        seen = self.tokens_saved + self.tokens_prefilled
+        return {
+            "num_blocks": self.num_blocks,
+            "block_len": self.block_len,
+            "blocks_in_use": self.blocks_in_use,
+            "lookups": self.lookups,
+            "hits": self.hits,
+            "hit_rate": rnd(self.hits / self.lookups) if self.lookups
+            else None,
+            "tokens_saved": self.tokens_saved,
+            # not in the JAX summary, whose /metrics so never shows the
+            # tokens_prefilled family it declares
+            "tokens_prefilled": self.tokens_prefilled,
+            "prefill_saved_frac": rnd(self.tokens_saved / seen) if seen
+            else None,
+            "blocks_published": self.blocks_published,
+            "evictions": self.evictions,
+            "publish_drops": self.publish_drops,
+            "invalidations": self.invalidations,
         }
 
 

@@ -1,12 +1,12 @@
 """The /metrics plane — the port's copy of ``render_prometheus`` from the
 JAX package's runtime/trace.py: the /stats summary dict as Prometheus text
 exposition (GET /metrics, apps/api_server.py), for the families the
-single-GPU serving stack produces.
+single-GPU serving stack produces, the radix prefix cache's included.
 
 The flight recorder (``Tracer``: per-request spans, the step timeline and
 its ``dllama_step_ms`` families) comes with the --trace flags that turn it
-on (ROADMAP item 10c). The JSONL sink and the router, prefix cache,
-speculation, transfer, fleet and cluster families are not ported.
+on (ROADMAP item 10c). The JSONL sink and the router, speculation,
+transfer, fleet and cluster families are not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +40,21 @@ _GAUGES = (
      "Mean live slots per scheduler iteration (window)"),
     ("max_queue_depth", "dllama_queue_depth_max", {},
      "Max admission-queue depth (window)"),
+)
+
+_PREFIX = (
+    ("lookups", "dllama_prefix_cache_lookups_total"),
+    ("hits", "dllama_prefix_cache_hits_total"),
+    ("tokens_saved", "dllama_prefix_cache_tokens_saved_total"),
+    ("tokens_prefilled", "dllama_prefix_cache_tokens_prefilled_total"),
+    ("blocks_published", "dllama_prefix_cache_blocks_published_total"),
+    ("evictions", "dllama_prefix_cache_evictions_total"),
+    ("publish_drops", "dllama_prefix_cache_publish_drops_total"),
+)
+# blocks_in_use is a level (it drops as blocks free or evict): a gauge,
+# never a counter, which rate() would read as a reset at every drop
+_PREFIX_GAUGES = (
+    ("blocks_in_use", "dllama_prefix_cache_blocks_in_use"),
 )
 
 _RESILIENCE = (
@@ -113,6 +128,7 @@ def _add_device_blocks(p: _Prom, summary: dict) -> None:
         for cat, field in (("weights", "weights_bytes"),
                            ("vocab", "vocab_bytes"),
                            ("kv_slots", "kv_slot_bytes"),
+                           ("prefix_arena", "prefix_arena_bytes"),
                            ("logits_workspace", "logits_workspace_bytes")):
             p.add(pre + "hbm_bytes", hbm.get(field), {"category": cat},
                   help_="Live HBM bytes by category (known array shapes)")
@@ -123,6 +139,9 @@ def _add_device_blocks(p: _Prom, summary: dict) -> None:
               {"kind": "limit"})
         p.add(pre + "hbm_slots_addable", hbm.get("slots_addable"),
               help_="KV slots that still fit free HBM (headroom)")
+        p.add(pre + "hbm_prefix_blocks_addable",
+              hbm.get("prefix_blocks_addable"),
+              help_="Prefix-arena blocks that still fit free HBM")
     dev = summary.get("device_time")
     if dev:
         p.add(pre + "profile_sampled_steps_total",
@@ -163,6 +182,9 @@ def render_prometheus(summary: dict | None, *, model: str = "dllama",
             p.add(name, summary.get(key), help_=help_, type_="counter")
         for key, name, labels, help_ in _GAUGES:
             p.add(name, summary.get(key), labels=labels, help_=help_)
+        _add_block(p, summary.get("prefix_cache"), _PREFIX, type_="counter")
+        _add_block(p, summary.get("prefix_cache"), _PREFIX_GAUGES,
+                   type_="gauge")
         _add_block(p, summary.get("resilience"), _RESILIENCE,
                    type_="counter")
         res = summary.get("resilience") or {}

@@ -380,3 +380,133 @@ def test_cli_api_mode_serves_and_drains(files):
         server.server_close()
         assert api_server.finish(state, drain_timeout=10.0)
     assert state._scheduler.state == "closed"
+
+
+# -- KV reuse: the prefix cache on the scheduler path, sessions on the legacy one --
+
+SHARED = "You are a terse assistant. Answer in one word. "
+
+
+def test_prefix_cache_stats_and_text_match_jax_server(files):
+    """--prefix-cache with --serve-batch: two requests sharing a prefix of
+    whole blocks give the JAX server's text, the second one hits, and
+    /stats and /metrics carry the prefix cache's block and families with
+    the JAX server's counters."""
+    bodies = [{"prompt": SHARED + q, "max_tokens": 5, "temperature": 0}
+              for q in ("ab", "cd?")]
+    kw = dict(serve_batch=2, serve_chunk=16, prefix_cache=True, prefix_block_len=8)
+    out = {}
+    for pkg, mk_state, handler in (("port", _port_state, api_server.make_handler),
+                                   ("jax", _jax_state, jax_api.make_handler)):
+        state = mk_state(files, **kw)
+        server = _serve(state, handler)
+        try:
+            texts = [_text(server.server_address, "/v1/completions", b) for b in bodies]
+            stats = json.loads(_get(server.server_address, "/stats").read())
+            metrics = _get(server.server_address, "/metrics").read().decode()
+            out[pkg] = texts, stats["prefix_cache"], metrics
+        finally:
+            server.shutdown()
+            state._scheduler.close()
+    (texts, pc, metrics), (jtexts, jpc, _) = out["port"], out["jax"]
+    assert texts == jtexts
+    prefilled = pc.pop("tokens_prefilled")         # the JAX summary leaves it out
+    assert pc == jpc
+    assert prefilled > 0 and f"dllama_prefix_cache_tokens_prefilled_total {prefilled}" in metrics
+    seq = 192
+    assert pc["hits"] == 1 and pc["tokens_saved"] > 0 and pc["block_len"] == 8
+    assert pc["num_blocks"] == 2 * 2 * seq // 8      # the 2 x B x context default
+    assert f"dllama_prefix_cache_hits_total 1" in metrics
+    assert 'dllama_hbm_bytes{category="prefix_arena"}' in metrics
+
+
+def test_session_legacy_roundtrip_matches_jax(files, tmp_path):
+    """--session on the legacy path: a server saves its cached prefix at
+    shutdown, a new server resumes it, and a follow-up request that
+    extends the first conversation answers as the JAX server does through
+    the same restart and as the port does without one."""
+    mpath, tpath = files
+    first = {"prompt": "abba: cd", "max_tokens": 6, "temperature": 0}
+    follow = {"prompt": "abba: cd ef? gh", "max_tokens": 6, "temperature": 0}
+
+    def serve(pkg, session):
+        argv = ["api", "--model", mpath, "--tokenizer", tpath, "--host", "127.0.0.1",
+                "--port", "0", "--temperature", "0", "--seed", "3", *F32]
+        if session:
+            argv += ["--session", session]
+        if pkg == "port":
+            args = dllama.build_argparser().parse_args(argv + ["--device", "cpu"])
+            server, state = api_server.build_server(args)
+        else:
+            args = jax_dllama.build_argparser().parse_args(argv)
+            engine, tokenizer, sampler = jax_dllama.build_engine(args)
+            state = jax_api.ApiState(engine, tokenizer, sampler, model_name="tiny")
+            if session and __import__("os").path.exists(session):
+                jax_api.load_server_session(state, session)
+            server = ThreadingHTTPServer(("127.0.0.1", 0), jax_api.make_handler(state))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        return server, state
+
+    got = {}
+    for pkg in ("port", "jax"):
+        sess = str(tmp_path / f"{pkg}.npz")
+        server, state = serve(pkg, sess)
+        a = _text(server.server_address, "/v1/completions", first)
+        server.shutdown()
+        if pkg == "port":
+            api_server.finish(state, drain_timeout=5.0, session=sess)
+        else:
+            assert jax_api.save_server_session(state, sess)
+        server, state = serve(pkg, sess)
+        assert state.cached_tokens and state.engine.pos == len(state.cached_tokens)
+        b = _text(server.server_address, "/v1/completions", follow)
+        server.shutdown()
+        got[pkg] = (a, b)
+    assert got["port"] == got["jax"]
+    server, state = serve("port", None)
+    try:
+        assert _text(server.server_address, "/v1/completions", first) == got["port"][0]
+        assert _text(server.server_address, "/v1/completions", follow) == got["port"][1]
+    finally:
+        server.shutdown()
+
+
+def test_session_save_skipped_without_a_completed_request(files, tmp_path):
+    """A shutdown with nothing cached leaves an earlier file untouched."""
+    state = _port_state(files)
+    path = tmp_path / "s.npz"
+    path.write_bytes(b"earlier")
+    assert not api_server.save_server_session(state, str(path))
+    api_server.finish(state, drain_timeout=1.0, session=str(path))
+    assert path.read_bytes() == b"earlier"
+
+
+@pytest.mark.parametrize("argv,needle", [
+    (["--prefix-cache"], "--prefix-cache requires --serve-batch N"),
+    (["--prefix-blocks", "8"], "have no effect without --prefix-cache"),
+    (["--prefix-block-len", "32"], "have no effect without --prefix-cache"),
+    (["--serve-batch", "2", "--prefix-cache", "--prefix-blocks", "-1"],
+     "--prefix-blocks must be >= 0"),
+    (["--serve-batch", "2", "--prefix-cache", "--prefix-blocks", "auto"], "ROADMAP item 10c"),
+    (["--serve-batch", "2", "--session", "s.npz"], "does not compose with --session"),
+    (["--serve-batch", "2", "--kv-transfer"], "ROADMAP item 16"),
+], ids=["cache-needs-batch", "blocks-need-cache", "len-needs-cache", "negative-blocks",
+        "auto-blocks", "session-with-batch", "kv-transfer"])
+def test_prefix_and_session_refusals(argv, needle):
+    """Each refusal in the JAX server's words (or naming its ROADMAP item),
+    before any engine work."""
+    with pytest.raises(SystemExit) as ei:
+        dllama.main(["api", "--model", "x.m", "--tokenizer", "x.t", *argv])
+    assert needle in str(ei.value)
+
+
+@pytest.mark.parametrize("block_len", [-3, 193])
+def test_prefix_block_len_checked_against_the_context(files, block_len):
+    """The block length is validated against the engine's context before
+    the server binds."""
+    mpath, tpath = files
+    args = dllama.build_argparser().parse_args(
+        ["api", "--model", mpath, "--tokenizer", tpath, "--port", "0", "--serve-batch", "2",
+         "--prefix-cache", "--prefix-block-len", str(block_len), "--device", "cpu", *F32])
+    with pytest.raises(SystemExit, match=r"outside 1\.\.192"):
+        api_server.build_server(args)

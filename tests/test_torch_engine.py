@@ -103,8 +103,9 @@ def test_cli_inference_prints_benchmark_lines(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["chat"], "mode 'chat'"),
-    (["api", "--prefix-cache"], "--prefix-cache"),
+    (["chat", "--lookup-decode", "3"], "mode 'chat'"),
+    (["api", "--serve-batch", "2", "--prefix-cache", "--prefix-blocks", "auto"],
+     "--prefix-cache"),
     (["worker"], "mode 'worker'"),
     (["generate", "--tp", "2"], "--tp 2"),
     (["generate", "--pp", "2"], "--pp 2"),

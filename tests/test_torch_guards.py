@@ -537,6 +537,73 @@ def test_import_guards_cover_the_serving_path():
             "runtime/stats.py", "apps/api_server.py"} <= files
 
 
+def test_import_guards_cover_the_kv_reuse_path():
+    """The KV-reuse slice's modules are in the package the blocked-jax
+    import test and the per-file import scan walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"runtime/prefix_cache.py", "runtime/engine.py", "apps/dllama.py",
+            "apps/api_server.py"} <= files
+
+
+def test_kv_reuse_paths_run_with_jax_blocked(tmp_path):
+    """In a process where `import jax` (and the JAX package) fails: `dllama
+    chat --session` runs two turns and resumes a third on the CPU, and the
+    scheduler seeds a request from its prefix cache; no JAX module is ever
+    loaded, at import or at run time."""
+    code = (
+        "import sys, io, builtins, contextlib\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'distributed_llama_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from distributed_llama_tpu_torch.apps import dllama\n"
+        "from distributed_llama_tpu_torch.testing import write_fixture\n"
+        f"m, t = write_fixture({str(tmp_path)!r}, seq_len=96)\n"
+        "def chat(lines):\n"
+        "    it = iter(lines)\n"
+        "    def fake(*a):\n"
+        "        try:\n"
+        "            return next(it)\n"
+        "        except StopIteration:\n"
+        "            raise EOFError\n"
+        "    builtins.input = fake\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        dllama.main(['chat', '--model', m, '--tokenizer', t, '--steps', '3',\n"
+        "                     '--temperature', '0', '--device', 'cpu', '--session',\n"
+        f"                     {str(tmp_path / 's.npz')!r}])\n"
+        "    return buf.getvalue()\n"
+        "chat(['', 'ab', 'cd'])\n"
+        "assert 'resumed session' in chat(['ef'])\n"
+        "import torch\n"
+        "from distributed_llama_tpu_torch.models.params import load_params, random_tensors\n"
+        "from distributed_llama_tpu_torch.runtime.engine import Engine\n"
+        "from distributed_llama_tpu_torch.runtime.prefix_cache import PrefixCache\n"
+        "from distributed_llama_tpu_torch.runtime.scheduler import Scheduler\n"
+        "from distributed_llama_tpu_torch.sampler import Sampler\n"
+        "from distributed_llama_tpu_torch.testing import tiny_spec\n"
+        "spec = tiny_spec(seq_len=64)\n"
+        "p = load_params(spec, random_tensors(spec, seed=1), mode='q40', dtype=torch.float32, device='cpu')\n"
+        "eng = Engine(spec, p, device='cpu', batch=2, compute_dtype=torch.float32, cache_dtype=torch.float32)\n"
+        "pc = PrefixCache(eng, num_blocks=8, block_len=4)\n"
+        "sched = Scheduler(eng, chunk=8, prefix_cache=pc)\n"
+        "sched.warmup()\n"
+        "for tail in ([5], [6, 7]):\n"
+        "    r = sched.submit(list(range(1, 10)) + tail, 2, Sampler(spec.vocab_size, 0.0, 0.9, 1))\n"
+        "    while not r.finished.is_set():\n"
+        "        sched.step()\n"
+        "assert pc.stats.hits == 1 and pc.stats.tokens_saved == 8, pc.stats\n"
+        "assert not any(k.split('.')[0] in ('jax', 'jaxlib') for k in sys.modules)\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
 @pytest.mark.parametrize("call", [
     lambda e: e.step(np.asarray([[3]], np.int32), 0),
     lambda e: e.prefill([1, 2]),
@@ -620,11 +687,12 @@ def test_cli_refuses_unported_serving_flags(capsys):
     from distributed_llama_tpu_torch.apps import dllama
 
     for argv, needle in (
-            (["api", "--prefix-cache"], "ROADMAP item 9"),
+            (["api", "--prefix-cache"], "--prefix-cache requires --serve-batch N"),
             (["api", "--draft", "self:1"], "ROADMAP item 12"),
             (["api", "--replicas", "2"], "ROADMAP item 16"),
             (["api", "--admin-token", "x"], "ROADMAP item 10c"),
-            (["api", "--session", "s.bin"], "session files"),
+            (["api", "--serve-batch", "2", "--session", "s.bin"],
+             "does not compose with --session"),
             (["generate", "--serve-batch", "2"], "api-mode flags"),
             (["api", "--queue-depth", "3"], "need --serve-batch")):
         with pytest.raises(SystemExit) as ei:
@@ -648,3 +716,20 @@ def test_api_mode_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dllama.main(["api", "--model", mpath, "--tokenizer", tpath,
                      "--serve-batch", "2", "--port", "0"])
+
+
+def test_chat_mode_without_a_card_raises(monkeypatch, tmp_path):
+    """`dllama chat` runs on cuda unless told otherwise: with no card it
+    raises before the first prompt, never chatting on the CPU."""
+    import builtins
+
+    from distributed_llama_tpu_torch.apps import dllama
+    from distributed_llama_tpu_torch.testing import write_fixture
+
+    mpath, tpath = write_fixture(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(builtins, "input", lambda *a: pytest.fail("chat asked for input"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dllama.main(["chat", "--model", mpath, "--tokenizer", tpath,
+                     "--session", str(tmp_path / "s.npz")])
+    assert not (tmp_path / "s.npz").exists()

@@ -94,14 +94,25 @@ def test_render_prometheus_matches_jax(kw):
 
 
 def test_render_prometheus_has_no_unported_families():
-    """Prefix-arena fields in the memory block render nothing, and the
-    renderer takes no tracer: those families come with their features."""
+    """The renderer takes no tracer and renders no fleet family: the
+    router, replica, transfer and autosize blocks of a summary render
+    nothing. The prefix cache's families render as the JAX renderer's
+    (ported with the prefix cache)."""
     summary = _summary()
     summary["hbm"] = {**summary["hbm"], "prefix_arena_bytes": 6, "prefix_blocks_addable": 3}
-    text = trace.render_prometheus(summary)
-    assert "prefix" not in text and "dllama_step_ms" not in text
+    summary["prefix_cache"] = {"lookups": 4, "hits": 3, "blocks_in_use": 2}
+    fleet = {"router": {"routed": 5}, "replicas": [{"replica": 0, "tokens_out": 1}],
+             "kv_transfer": {"fills": 1}, "autosize": {"serve_batch": 4}}
+    text = trace.render_prometheus({**summary, **fleet})
+    assert text == trace.render_prometheus(summary)
+    assert "dllama_step_ms" not in text and "router" not in text and "replica" not in text
     assert 'dllama_hbm_bytes{category="kv_slots"} 8' in text
-    assert text == trace.render_prometheus(_summary())
+    assert 'dllama_hbm_bytes{category="prefix_arena"} 6' in text
+    assert "dllama_hbm_prefix_blocks_addable 3" in text
+    assert "dllama_prefix_cache_hits_total 3" in text
+    assert "dllama_prefix_cache_blocks_in_use 2" in text
+    assert text.splitlines() == [ln for ln in jax_trace.render_prometheus(
+        summary).splitlines() if ln not in _JAX_ONLY_STATES]
 
 
 @pytest.mark.parametrize("spec", [dict(after=2, times=2), dict(after=0, times=0),
