@@ -22,7 +22,8 @@ result line):
     times cross is where cuda_q40.TC_MIN_T belongs.
  2b. The Q80 round trip (csrc/q80_roundtrip.cu) against its plain version,
     bit for bit, at the 7B and Mixtral matmul input shapes (t 1 and 256;
-    n 4096, 11008, 14336), bf16 and f32 in and out, timed beside it; each
+    n 4096, 11008, 14336; and a 7B batch step's t = 4 and verify forward's
+    t = 8 at n 4096, 11008), bf16 and f32 in and out, timed beside it; each
     input holds a NaN block and a +inf and a -inf block, which must come
     out as NaN at the same 96 positions (the other values bit for bit).
  3. K2, the expert-indexed Q40 matmul, against its plain version at the
@@ -50,8 +51,8 @@ result line):
     hs = 128, S = 2048, (H, KVH) in {(32, 32), (32, 8)}, T in {1, 256},
     pos0 in {0, 511, 2048 - T}, plus B = 2 with a different pos0 per row,
     decode at P2's shape (H = KVH = 32, S = 8192, pos0 7680), T = 100 at
-    pos0 1000 (a ragged last tile) and hs = 64 at a decode and a prefill
-    case, each with a bf16 cache and with an fp8 (e4m3) cache (the
+    pos0 1000 (a ragged last tile), hs = 64 at a decode and a prefill
+    case, and T = 8 at pos0 300 (a 7B verify forward), each with a bf16 cache and with an fp8 (e4m3) cache (the
     tensor-core paths); then f32 q over an f32 cache at four cases and over
     an e4m3 cache at one (the exact f32 path). Each row names its split
     plan (rows a block, n_split); library time is
@@ -222,11 +223,39 @@ result line):
     greedy, at the CLI's defaults: two turns with --session, then a third
     resumed from the file in a new process, equal to an uninterrupted
     three-turn run.
+ 9. Speculative decoding (`[spec]` lines; after phase 7, over the same
+    Llama-2-7B weights, full width and depth, bf16 cache, Q80 on): a plain
+    graph generate of 39 greedy tokens after a 300-token prompt, its
+    logits recorded. Each verify width T = 2..8: the graph ("lookup", T)
+    after the prompt, its tally exactly 129 K1 (the tensor-core path),
+    32 K3, 129 standalone Q80; each position's logits held (LOGITS_TOL,
+    LOGITS_REL_L2_TOL) to the plain decode step's at that position, whose
+    largest difference e gives the near-tie bound 2e; the forward on the
+    kernels against the plain versions on the eager twin; ms a forward by
+    CUDA events beside the decode step's. Then 32 greedy tokens each of
+    prompt lookup, the self-draft at depth 4 (draft_len 7), a draft that
+    always matches (the plain run's next tokens) and one that never does
+    (each shifted by one), through Engine._lookup_loop: tokens equal to
+    plain generate's or first different at a plain top-2 gap within the
+    near-tie bound; each run twice, the second with launches zeroed just
+    before and read just after (K1, K3, Q80 and Q80F must launch), timed:
+    ms/token, tokens a verify, device and host ms; the self-draft's
+    proposal alone. One sampled lookup run and one sampled self-draft run:
+    device and host ms. The scheduler with --draft self:4 over a B = 4
+    engine: the verify step's position-0 logits of 4 live rows against
+    the batch-1 step's; warmup captures the draft's proposal and
+    ("slot_verify", 8, 32000); 8 greedy requests capture nothing more and
+    give batch-1 generate's tokens (near-ties as above); slot_verify_step
+    and the slot decode step timed. Last, `dllama inference
+    --lookup-decode 4` and `--draft self:1` on the tiny Llama and Mixtral
+    fixtures, at the defaults with their kernels launched, and in f32
+    with the CPU's tokens.
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
-of it, the serving phase's three step sums at B = 4, and the [GEMV1-Q80] step sums (fused, GEMV alone, GEMV + standalone
-Q80) of a 7B and a Mixtral step. The line before the last holds the
+of it, the serving phase's three step sums at B = 4, phase 9's three sums
+of one 7B verify forward at T = 8, and the [GEMV1-Q80] step sums (fused,
+GEMV alone, GEMV + standalone Q80) of a 7B and a Mixtral step. The line before the last holds the
 per-kernel JSON; the last line is
 {"ok": true, "device": {...}}. Library calls are timed as yardsticks only:
 the port never calls them.
@@ -736,7 +765,8 @@ def phase_gemv1_q80(gen) -> dict:
 # a decode step and a 256-token chunk (dim 4096; 7B hidden 11008, Mixtral
 # 14336, w2's and the expert down projection's)
 Q80_SHAPES = ((1, 4096), (1, 11008), (1, 14336), (256, 4096), (256, 11008), (256, 14336),
-              (4, 4096), (4, 11008))     # the last two: a 7B batch step's inputs, B = 4
+              (4, 4096), (4, 11008),     # a 7B batch step's inputs, B = 4
+              (8, 4096), (8, 11008))     # a 7B verify forward's, T = 8
 
 
 def phase_q80(gen) -> dict:
@@ -806,7 +836,9 @@ def phase_k3(gen) -> dict:
               # own fills; gated rows at pos0 == S in a step and in a chunk
               (4, 32, 32, 1, [511, 400, 300, 200], 128, 2048),
               (4, 32, 32, 1, [300, 2048, 100, 2048], 128, 2048),
-              (4, 32, 32, 256, [0, 2048, 512, 2048], 128, 2048)]
+              (4, 32, 32, 256, [0, 2048, 512, 2048], 128, 2048),
+              # a 7B verify forward: 8 query rows after a 300-token prompt
+              (1, 32, 32, 8, [300], 128, 2048)]
     # (q dtype, cache dtype, cases): the bf16 q paths on every case, the
     # exact f32 path (f32 q, f32 or e4m3 cache) on a few
     f32_cases = [(1, 32, 8, 1, [2047], 128, 2048), (1, 32, 8, 256, [1792], 128, 2048),
@@ -3345,14 +3377,15 @@ def phase_chat() -> dict:
     return out
 
 
-def k1_wcls_t4(gen) -> dict:
-    """K1 on wcls at t = B, the one projection of a batch step that phase
-    2's path rows do not time at t = 4: kernel, plain, library, bound."""
+def k1_wcls(gen, t: int = SERVE_B, tag: str = "[serve] [K1] ") -> dict:
+    """K1 on wcls at t tokens, the one projection that phase 2's path rows
+    do not time at t > 1 (a batch step's t = B, a verify forward's t = 8):
+    kernel, plain, library, bound."""
     from distributed_llama_tpu_torch.ops import cuda_q40
     from distributed_llama_tpu_torch.quants.torch_codec import dequantize_q40_torch
 
     d, n = K1_SHAPES["wcls"]
-    dt, t = torch.bfloat16, SERVE_B
+    dt = torch.bfloat16
     wbytes = d * n // 2 + d * n // 32 * 2
     ws = rotating(lambda: random_q40(gen, d, n), wbytes)
     w0 = ws()
@@ -3369,7 +3402,7 @@ def k1_wcls_t4(gen) -> dict:
                ms=time_ms(lambda: cuda_q40.q40_matmul(x, ws(), dt)),
                plain_ms=time_ms(lambda: cuda_q40.q40_matmul_reference(x, ws(), dt)),
                library_ms=time_ms(lambda: torch.matmul(x, wd().t())), bound_ms=bms, bound_by=by)
-    print("[serve] [K1] " + json.dumps(row))
+    print(tag + json.dumps(row))
     del ws, wd, w0
     return row
 
@@ -3402,7 +3435,7 @@ def phase_serving(card: str, params) -> dict:
     out["session"] = phase_session(spec, params, one, card)
     del one
     torch.cuda.empty_cache()
-    out["k1_wcls_t4"] = k1_wcls_t4(gen)
+    out["k1_wcls_t4"] = k1_wcls(gen)
     out["seconds"] = time.perf_counter() - t_start
     tm, ld = out["timing"], out["load"]
     g, e, prof = tm["graph"], tm["eager"], tm["profile"]
@@ -3437,6 +3470,463 @@ def phase_serving(card: str, params) -> dict:
           + " a step")
     print(f"[serve] phase 7 in {out['seconds']:.1f} s")
     return out
+
+
+# -- phase 9: speculative decoding (prompt lookup, the real draft, the
+# scheduler's verify step) ----------------------------------------------------
+
+SPEC_K = 7          # the CLI's default draft length: a verify forward of 8 tokens
+SPEC_DEPTH = 4      # the self-draft's layers, of 32
+SPEC_N = 32         # tokens of each exactness run, after the 300-token prompt
+# a verify forward at 2 <= T <= 8 tokens: every projection on K1's
+# tensor-core path with the standalone Q80 round trip before it, wcls
+# included (the logits of every position), one K3 a layer
+VERIFY_TALLY = {"K1": 129, "K2": 0, "K3": 32, "Q80": 129, "Q80F": 0}
+
+
+def _tally(graph) -> dict:
+    """A captured graph's launch tally by counter name."""
+    from distributed_llama_tpu_torch.runtime.graphs import LAUNCH_COUNTERS
+
+    by_id = {id(c): n for c, n in zip(LAUNCH_COUNTERS, graph.tally)}
+    return {name: by_id[id(c)] for name, c in _counters().items()}
+
+
+def _greedy_verify_loop(engine, prompt: list[int], n: int, draft_fn, stats) -> list[int]:
+    """Engine._lookup_loop greedy, with the draft from draft_fn(hist, k,
+    token, pos0): the verify loop every speculative mode runs, fed a draft
+    of known quality."""
+    from distributed_llama_tpu_torch.runtime.speculative import count_accepted
+
+    def verify(seg_logits, draft):
+        greedy = np.argmax(seg_logits, axis=-1)
+        return [int(g) for g in greedy[:count_accepted(draft, greedy) + 1]]
+    return list(engine._lookup_loop(prompt, n, None, draft_len=SPEC_K, max_ngram=0,
+                                    history=None, stats=stats,
+                                    first_fn=lambda row: int(np.argmax(row)),
+                                    verify_fn=verify, draft_fn=draft_fn))
+
+
+def _held_to_plain(what: str, got: list[int], want: list[int], gaps: list[float],
+                   near_tie: float) -> dict:
+    """Tokens equal to the plain run's, or first different where the plain
+    run's top-2 logit gap is within the near-tie bound (a verify forward
+    takes another kernel path, which rounds the logits differently)."""
+    first = next((k for k, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None if len(got) == len(want) else min(len(got), len(want)))
+    gap = None if first is None or first >= len(gaps) else gaps[first]
+    if first is not None and (gap is None or gap > near_tie):
+        fail(f"{what}: tokens differ from plain generate at {first}, where its top-2 gap "
+             f"{gap} exceeds the near-tie bound {near_tie:.4g}")
+    return dict(first_difference=first, gap_at_difference=gap)
+
+
+def _spec_timing(stats, n: int, fwd: int) -> dict:
+    """ms a token and tokens a verify over the decode part of a run (the
+    prefill's record and its token left out)."""
+    body = stats.steps[1:]
+    return dict(ms_per_token=sum(s.generation_ms for s in body) / max(n - 1, 1),
+                tokens_per_forward=(n - 1) / max(fwd - 1, 1),
+                device_ms=sum(s.device_ms for s in body),
+                host_ms=sum(s.host_ms for s in body), forwards=fwd, tokens=n)
+
+
+def spec_verify_widths(one, eager, prompt: list[int], want: list[int], seen: list,
+                       card: str) -> dict:
+    """Each verify width T = 2..8: its graph ("lookup", T) replayed after
+    the prompt, its tally exact; each position's logits against the plain
+    graph decode step's at the same position (their largest difference e
+    sets the near-tie bound 2e); the forward on the kernels against the
+    plain versions on the eager twin; its ms a forward (CUDA events)."""
+    pos0 = len(prompt)
+    for e in (one, eager):
+        e.reset()
+        e.prefill(prompt)
+    rows, worst = [], 0.0
+    for t in range(2, SPEC_K + 2):
+        seg = np.asarray([want[:t]], np.int32)
+        lg = torch.from_numpy(one._verify_logits(seg, pos0))
+        g = one.graphs[("lookup", t)]
+        tally = _tally(g)
+        if tally != VERIFY_TALLY:
+            fail(f"verify graph T={t}: tally {tally}, wanted {VERIFY_TALLY}")
+        dec = [_held_logits(f"verify T={t} position {i} vs the decode step", lg[i],
+                            torch.from_numpy(seen[i + 1][0])) for i in range(t)]
+        worst = max([worst] + [d["max_abs_err"] for d in dec])
+        tok = torch.as_tensor(seg.astype(np.int64), device=eager.device)
+        lk = eager._forward(tok, pos0, logits_for_all=True)[0]
+        with plain_versions():
+            lp = eager._forward(tok, pos0, logits_for_all=True)[0]
+        held = _held_logits(f"verify T={t} kernels vs plain", lk, lp)
+        ms = event_ms(g.replay, reps=15)
+        row = dict(t=t, tally=tally, capture_s=g.capture_s, pool_mib=g.pool_bytes / 2 ** 20,
+                   vs_decode_max_abs=max(d["max_abs_err"] for d in dec),
+                   kernels_vs_plain=held, ms=ms)
+        rows.append(row)
+        print(f"[spec] verify T={t}: {ms['median']:.3f} ms a forward (graph replay; min "
+              f"{ms['min']:.3f}, max {ms['max']:.3f}); tally {tally}; capture "
+              f"{g.capture_s:.2f} s, pool {row['pool_mib']:.1f} MiB; logits vs the decode "
+              f"step max abs {row['vs_decode_max_abs']:.4g}; kernels vs plain max abs "
+              f"{held['max_abs_err']:.4g} (tol {held['tol']:.4g}), rel L2 "
+              f"{held['rel_l2']:.3g} [{card}]")
+    step = event_ms(one.graphs[1].replay, reps=15)
+    print(f"[spec] plain decode step (graph 1, T = 1): {step['median']:.3f} ms [{card}]")
+    return dict(rows=rows, decode_step_ms=step, near_tie_bound=2 * worst)
+
+
+def spec_streams(one, prompt: list[int], want: list[int], gaps: list[float],
+                 near_tie: float, card: str) -> dict:
+    """The batch-1 speculative streams at Llama-2-7B, greedy, SPEC_N tokens
+    after the prompt: prompt lookup, the self-draft at depth 4, a draft
+    that always matches (the plain run's own next tokens) and one that
+    never does (each shifted by one). Each runs twice (the first captures
+    its graphs); the second, with launches zeroed just before and read just
+    after, is held to the plain run's tokens and timed."""
+    from distributed_llama_tpu_torch.runtime.draft import DraftModel
+    from distributed_llama_tpu_torch.runtime.stats import RunStats
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab = one.spec.vocab_size
+    one.reset()
+    res = one.generate(prompt, SPEC_N, Sampler(vocab, 0.0, 0.9, 1))
+    plain = _spec_timing(res.stats, SPEC_N, SPEC_N)
+    draft = DraftModel.self_draft(one, SPEC_DEPTH)
+
+    def oracle(shift):
+        def fn(hist, k, token, pos0):
+            e = len(hist) - len(prompt)
+            return [(t + shift) % vocab for t in want[e:e + k]]
+        return fn
+
+    modes = {
+        "lookup": lambda st: list(one.generate_lookup_stream(
+            prompt, SPEC_N, draft_len=SPEC_K, stats=st)),
+        f"self-draft depth {SPEC_DEPTH}": lambda st: list(one.generate_draft_stream(
+            prompt, SPEC_N, draft=draft, draft_len=SPEC_K, stats=st)),
+        "always-matching draft": lambda st: _greedy_verify_loop(one, prompt, SPEC_N,
+                                                                oracle(0), st),
+        "never-matching draft": lambda st: _greedy_verify_loop(one, prompt, SPEC_N,
+                                                               oracle(1), st),
+    }
+    out, total = {}, {k: 0 for k in _counters()}
+    for name, run in modes.items():
+        one.reset()
+        run(RunStats())
+        one.reset()
+        st = RunStats()
+        zero_counts()
+        toks = run(st)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if not all(counts[k] for k in ("K1", "K3", "Q80", "Q80F")):
+            fail(f"{name}: a kernel of the path did not launch: {counts}")
+        for k in counts:
+            total[k] += counts[k]
+        fwd, n = one.last_accept_stats
+        held = _held_to_plain(name, toks, want[:SPEC_N], gaps, near_tie)
+        tm = _spec_timing(st, n, fwd)
+        out[name] = dict(**held, **tm, launches=counts, spec=dict(one.last_spec))
+        print(f"[spec] {name}: {n} tokens in {fwd} forwards ({tm['tokens_per_forward']:.2f} "
+              f"tokens a verify after the prefill); "
+              + ("every token equal to plain generate's" if held["first_difference"] is None
+                 else f"first difference at {held['first_difference']} (plain top-2 gap "
+                      f"{held['gap_at_difference']:.4g}, near-tie bound {near_tie:.4g})")
+              + f"; {tm['ms_per_token']:.3f} ms/token (plain generate "
+                f"{plain['ms_per_token']:.3f}); device {tm['device_ms']:.1f} ms, host "
+                f"{tm['host_ms']:.1f} ms; launches {counts} [{card}]")
+    # the draft's proposal alone: SPEC_K captured depth-4 steps, one host read
+    one.reset()
+    one.prefill(prompt)
+    tok, pos = np.asarray([want[0]], np.int32), np.asarray([len(prompt)], np.int32)
+    prop = event_ms(lambda: draft.propose(draft.cache, tok, pos, SPEC_K,
+                                          n_vocab=vocab), reps=10)
+    print(f"[spec] self-draft proposal: {SPEC_K} steps of {SPEC_DEPTH} layers in "
+          f"{prop['median']:.3f} ms ({prop['median'] / SPEC_K:.3f} ms a step) [{card}]")
+    return dict(plain=plain, modes=out, launches=total, draft=draft, proposal_ms=prop)
+
+
+def spec_sampled(one, prompt: list[int], want: list[int], draft, card: str) -> dict:
+    """One sampled lookup run (history primed with the greedy continuation,
+    so drafts are proposed) and one sampled self-draft run: their device
+    and host ms. target_dist softmaxes and sorts the whole vocabulary on
+    the host for every position it weighs."""
+    from distributed_llama_tpu_torch.runtime.stats import RunStats
+
+    out = {}
+    runs = {"sampled lookup": lambda st: list(one.generate_lookup_sampled_stream(
+                prompt, SPEC_N, temperature=0.8, topp=0.9, seed=5, draft_len=SPEC_K,
+                history=prompt + want, stats=st)),
+            f"sampled self-draft depth {SPEC_DEPTH}": lambda st: list(
+                one.generate_draft_sampled_stream(
+                    prompt, 16, draft=draft, temperature=0.8, topp=0.9, seed=5,
+                    draft_len=SPEC_K, stats=st))}
+    for name, run in runs.items():
+        one.reset()
+        run(RunStats())
+        one.reset()
+        st = RunStats()
+        toks = run(st)
+        fwd, n = one.last_accept_stats
+        tm = _spec_timing(st, n, fwd)
+        if len(toks) != n or not all(0 <= t < one.spec.vocab_size for t in toks):
+            fail(f"{name}: {len(toks)} tokens, {n} counted")
+        out[name] = dict(**tm, spec=dict(one.last_spec))
+        print(f"[spec] {name}: {n} tokens in {fwd} forwards, {tm['ms_per_token']:.3f} "
+              f"ms/token: device (verify + logits copy) {tm['device_ms']:.1f} ms, host "
+              f"(drafting, target_dist, accepting) {tm['host_ms']:.1f} ms [{card}]")
+    return out
+
+
+def spec_serving(spec, params, one, near_tie: float, card: str) -> dict:
+    """The scheduler with --draft self:4 (draft_len 7) over a B = 4 engine.
+    First the verify step's position-0 logits of 4 live rows against the
+    batch-1 step's (the near-tie bound). Then warmup captures the draft's proposal and the verify graph ("slot_verify",
+    8, vocab); 8 greedy requests of 32 tokens (4 at once, 4 joining) capture
+    nothing more, launch K1, K3 and Q80, and give each request the tokens of
+    a batch-1 generate (or first differ at a near-tie). Then one
+    slot_verify_step and one slot decode step timed at 4 live rows."""
+    from distributed_llama_tpu_torch.runtime.draft import DraftModel
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+    from distributed_llama_tpu_torch.runtime.profiler import COMPILES
+    from distributed_llama_tpu_torch.runtime.scheduler import Scheduler
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab = spec.vocab_size
+    eng = Engine(spec, params, device="cuda", batch=SERVE_B, activation_q80=True)
+    # the verify step's position-0 logits of 4 live rows against the batch-1
+    # step at the same position and cache contents: their largest
+    # difference e gives the scheduler's near-tie bound 2e (at least the
+    # batch-1 streams' and phase 7's)
+    rng = np.random.default_rng(17)
+    lens = (300, 213, 97, 256)
+    rows = [rng.integers(3, vocab, n).tolist() for n in lens]
+    for lo in range(0, 300, SERVE_C):
+        eng.slot_prefill_chunk(*_chunk({r: (t[lo:lo + SERVE_C], lo) for r, t in
+                                        enumerate(rows) if len(t) > lo}, SERVE_B, SERVE_C,
+                                       spec.seq_len))
+    tok = rng.integers(3, vocab, (SERVE_B, 1 + SPEC_K)).astype(np.int32)
+    pos = np.asarray(lens, np.int32)
+    _, lg0 = eng.slot_verify_step(tok, pos, vocab)
+    held = []
+    for r in range(SERVE_B):
+        _copy_cache(one.cache, eng.cache, slice(0, 1), slice(r, r + 1))
+        held.append(_held_logits(f"slot verify row {r} position 0 vs the batch-1 step",
+                                 lg0[r], one.step(tok[r:r + 1, :1], int(pos[r]))[0]))
+    near_tie = max(near_tie, 2 * max(h["max_abs_err"] for h in held))
+    sched = Scheduler(eng, chunk=SERVE_C, draft_len=SPEC_K, draft_vocab=vocab,
+                      draft_factory=lambda e: DraftModel.self_draft(e, SPEC_DEPTH))
+    t0 = time.perf_counter()
+    sched.warmup()
+    warm_s = time.perf_counter() - t0
+    keys = sorted(map(str, [*eng.graphs, *sched.draft.graphs]))
+    after = COMPILES.after_warmup
+    prompts = [[1] + rng.integers(3, vocab, n - 1).tolist() for n in rng.integers(40, 301, 8)]
+    zero_counts()
+    t0 = time.perf_counter()
+    reqs = [sched.submit(p, 32, Sampler(vocab, 0.0, 0.9, 1)) for p in prompts[:4]]
+    while not all(r.stats.t_first is not None for r in reqs):
+        sched.step()
+    reqs += [sched.submit(p, 32, Sampler(vocab, 0.0, 0.9, 1)) for p in prompts[4:]]
+    while not all(r.finished.is_set() for r in reqs):
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    captured = COMPILES.after_warmup - after
+    blk = sched.stats.summary()["spec"]
+    print(f"[spec] scheduler --draft self:{SPEC_DEPTH}, B = {SERVE_B}: warmup {warm_s:.1f} s "
+          f"captured {keys}; 8 requests x 32 tokens in {wall:.3f} s, {captured} captures "
+          f"after warmup; spec {blk}; launches {counts} [{card}]")
+    if captured or not all(counts[k] for k in ("K1", "K3", "Q80")):
+        fail(f"speculative serving: {captured} captures after warmup, launches {counts}")
+    parity = []
+    for i, (p, r) in enumerate(zip(prompts, reqs)):
+        one.reset()
+        rec = _recording_sampler(vocab, 0.0, 0.9, 1)
+        ref = one.generate(p, 32, rec).tokens
+        held = _held_to_plain(f"scheduler request {i}", list(r.tokens(timeout=5.0)), ref,
+                              [_top2_gap(lg) for lg, _ in rec.seen], near_tie)
+        parity.append(held)
+    print(f"[spec] scheduler tokens against batch-1 generate: "
+          + ", ".join("equal" if h["first_difference"] is None else
+                      f"first difference at {h['first_difference']} (gap "
+                      f"{h['gap_at_difference']:.4g})" for h in parity)
+          + f" (near-tie bound {near_tie:.4g})")
+    # one verify step and one decode step at 4 live rows (fills 300-97)
+    eng.slot_verify_step(tok, pos, vocab)
+    verify = event_ms(eng.graphs[("slot_verify", 1 + SPEC_K, vocab)].replay, reps=15)
+    eng.slot_decode_step(tok[:, :1], pos)
+    step = event_ms(eng.graphs["slot_decode"].replay, reps=15)
+    call = []
+    for _ in range(10):
+        c0 = time.perf_counter()
+        eng.slot_verify_step(tok, pos, vocab)
+        call.append((time.perf_counter() - c0) * 1e3)
+    print(f"[spec] slot_verify_step B = {SERVE_B}, K = {SPEC_K}: {verify['median']:.3f} ms a "
+          f"replay, {np.median(call):.3f} ms a call with its host copies; slot decode step "
+          f"{step['median']:.3f} ms [{card}]")
+    sched.close()
+    eng.release()
+    return dict(warmup_s=warm_s, graphs=keys, wall_s=wall, captures_after_warmup=captured,
+                spec=blk, launches=counts, parity=parity, near_tie_bound=near_tie,
+                verify_rows_vs_batch1=held, slot_verify_ms=verify,
+                slot_verify_call_ms=_ms_stats(call), slot_decode_ms=step)
+
+
+def spec_file_path() -> dict:
+    """`dllama inference --lookup-decode 4` and `--draft self:1` on the tiny
+    Llama and Mixtral fixtures on cuda: at the CLI's defaults (bf16, Q80
+    activations) with K1, K3, Q80 and Q80F launched (K2 too for Mixtral),
+    and in f32 with the tokens of the CLI on the CPU."""
+    from distributed_llama_tpu_torch.apps import dllama
+    from distributed_llama_tpu_torch.models.spec import ArchType
+    from distributed_llama_tpu_torch.testing import write_fixture
+
+    def run(argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dllama.main(argv)
+        return buf.getvalue()
+
+    def text(out):
+        lines = out.splitlines()
+        return lines[next(i for i, l in enumerate(lines) if l.startswith("💡")):][:2]
+
+    out = {}
+    fixtures = {"llama": dict(seed=77),
+                "mixtral": dict(seed=82, arch=ArchType.MIXTRAL, n_experts=4,
+                                n_active_experts=2)}
+    for name, kw in fixtures.items():
+        with tempfile.TemporaryDirectory() as d:
+            mpath, tpath = write_fixture(d, **kw)
+            common = ["inference", "--model", mpath, "--tokenizer", tpath, "--prompt",
+                      "hello hello world hello", "--steps", "16", "--seed", "3",
+                      "--temperature", "0"]
+            need = ("K1", "K3", "Q80", "Q80F") + (("K2",) if name == "mixtral" else ())
+            for flag in (["--lookup-decode", "4"], ["--draft", "self:1"]):
+                zero_counts()
+                dflt = run(common + flag + ["--device", "cuda"])
+                counts = read_counts()
+                f32 = common + flag + ["--compute-dtype", "f32", "--cache-dtype", "f32",
+                                       "--buffer-float-type", "f32"]
+                gpu, cpu = run(f32 + ["--device", "cuda"]), run(f32 + ["--device", "cpu"])
+                ok = ("Generated tokens:    16" in dflt and all(counts[k] for k in need)
+                      and text(gpu) == text(cpu))
+                line = next(l for l in dflt.splitlines() if l.startswith("Generated tokens"))
+                out[f"{name} {' '.join(flag)}"] = dict(ok=ok, launches=counts, line=line)
+                print(f"[spec] CLI {name} {' '.join(flag)}: defaults on cuda: {line}, launches "
+                      f"{counts}; f32 text cuda == cpu: {text(gpu) == text(cpu)}")
+                if not ok:
+                    fail(f"CLI {' '.join(flag)} ({name}): {dflt[-300:]!r} {counts}; f32 "
+                         f"{text(gpu)} vs {text(cpu)}")
+    return out
+
+
+def phase_spec(card: str, params, near_tie_7: float, gen) -> dict:
+    """Phase 9, speculative decoding at Llama-2-7B full width and depth over
+    phase 5's weights (bf16 cache, Q80 activations): the verify widths, the
+    batch-1 streams, the sampled modes, the scheduler with a self-draft,
+    then the CLI on the tiny fixtures; K1 on wcls at t = 8 for the verify
+    forward's kernel sums. near_tie_7: phase 7's bound (a batch step's
+    logits against the batch-1 step's)."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    t_start = time.perf_counter()
+    spec = _spec("llama2_7b")
+    vocab = spec.vocab_size
+    one = Engine(spec, params, device="cuda", activation_q80=True)
+    eager = _eager_twin(one)
+    rng = np.random.default_rng(7)
+    prompt = [1] + rng.integers(3, vocab, 299).tolist()
+    # the plain graph run, its logits recorded: the tokens every stream is
+    # held to and the decode step's logits each verify position is held to
+    one.reset()
+    rec = _recording_sampler(vocab, 0.0, 0.9, 1)
+    want = one.generate(prompt, SPEC_N + SPEC_K, rec).tokens
+    gaps = [_top2_gap(lg) for lg, _ in rec.seen]
+    out = {"verify": spec_verify_widths(one, eager, prompt, want, rec.seen, card)}
+    del eager
+    near = max(out["verify"]["near_tie_bound"], near_tie_7)
+    out["near_tie_bound"] = near
+    streams = spec_streams(one, prompt, want, gaps, near, card)
+    draft = streams.pop("draft")
+    out["streams"] = streams
+    out["sampled"] = spec_sampled(one, prompt, want, draft, card)
+    del draft
+    one.release()
+    del one
+    torch.cuda.empty_cache()
+    out["serving"] = spec_serving(spec, params, Engine(spec, params, device="cuda",
+                                                       activation_q80=True), near, card)
+    torch.cuda.empty_cache()
+    out["cli"] = spec_file_path()
+    out["k1_wcls"] = k1_wcls(gen, 1 + SPEC_K, "[spec] [K1] ")
+    out["seconds"] = time.perf_counter() - t_start
+    v = {r["t"]: r["ms"]["median"] for r in out["verify"]["rows"]}
+    step = out["verify"]["decode_step_ms"]["median"]
+    m = out["streams"]["modes"]
+    full, none = m["always-matching draft"], m["never-matching draft"]
+    # break-even: the verify at T = 8 costs v8 / step plain steps; it pays
+    # once a forward emits more tokens than that
+    print(f"[spec] verify ms at T = 2..8: " + ", ".join(f"{t}: {x:.3f}" for t, x in v.items())
+          + f"; plain decode step {step:.3f} ms; verify at T = 8 = {v[8] / step:.2f} plain "
+            f"steps: break-even at {v[8] / step:.2f} tokens a forward [{card}]")
+    print(f"[spec] decode ms/token: plain generate {out['streams']['plain']['ms_per_token']:.3f}, "
+          f"always-matching draft {full['ms_per_token']:.3f} ({full['tokens_per_forward']:.2f} "
+          f"tokens a forward), never-matching {none['ms_per_token']:.3f} "
+          f"({none['tokens_per_forward']:.2f}) [{card}]")
+    print(f"[spec] phase 9 in {out['seconds']:.1f} s")
+    return out
+
+
+def spec_entries(k1: dict, q80: dict, k3: dict, spec: dict) -> list[dict]:
+    """The kernels of one 7B verify forward at T = 8 (draft_len 7): K1 on
+    its tensor-core path (phase 2's path rows at t = 8 for the layers, wcls
+    timed in phase 9), the 129 standalone Q80 round trips
+    (phase 2b's t = 8 rows), K3 over 8 query rows at fill 308 (phase 4).
+    Launches: counted over phase 9's batch-1 speculative streams."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    kp = {r["shape"]: r for r in k1["paths"] if r["t"] == 1 + SPEC_K}
+    w = spec["k1_wcls"]
+    layer = ("wqkv", "wo", "w13", "w2")
+    k1s = {key: 32 * sum(kp[sh]["tc_ms" if key == "ms" else key] for sh in layer) + w[key]
+           for key in keys}
+    qr = {(r["t"], r["n"]): r for r in q80["rows"]
+          if r["dtype"] == "bfloat16" and r["out"] == "bfloat16"}
+    t = 1 + SPEC_K
+    q80s = {key: 97 * qr[(t, 4096)][key] + 32 * qr[(t, 11008)][key]
+            for key in ("ms", "plain_ms", "bound_ms")}
+    a = next(r for r in k3["rows"] if r["b"] == 1 and r["t"] == t and r["cache"] == "bfloat16"
+             and r["dtype"] == "bfloat16" and r["kvh"] == 32)
+    counts = spec["streams"]["launches"]
+    return [
+        dict(name="q40_matmul_verify", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t = 1 + k = 8: wgmma with "
+                      "the weight dequantized into registers, one 64-token tile)",
+             launches=counts["K1"],
+             max_abs_err=max([kp[sh]["tc_err"] for sh in layer] + [w["max_abs_err"]]),
+             **k1s, bound_by="bytes",
+             at="one 7B verify forward: 32x(wqkv,wo,w13,w2)+wcls at t=8, bf16; launches: "
+                "phase 9's batch-1 speculative streams"),
+        dict(name="q80_roundtrip_verify", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q80_roundtrip.cu",
+             replaces="distributed_llama_tpu/ops/matmul.py:93 (quantize_q80_jax / "
+                      "dequantize_q80_jax before every matmul; no pallas_call)",
+             launches=counts["Q80"],
+             max_abs_err=max(qr[(t, n)]["max_abs_err"] for n in (4096, 11008)),
+             **q80s, bound_by="bytes", library_ms=None,
+             at="one 7B verify forward: 97 inputs at 8x4096 + 32 at 8x11008, bf16; launches: "
+                "phase 9's batch-1 speculative streams"),
+        dict(name="flash_attention_verify", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/flash_attention.cu",
+             replaces="distributed_llama_tpu/ops/pallas_attention.py:233",
+             launches=counts["K3"], max_abs_err=a["max_abs_err"],
+             ms=32 * a["ms"], plain_ms=32 * a["plain_ms"], bound_ms=32 * a["bound_ms"],
+             bound_by=a["bound_by"], library_ms=32 * a["library_ms"],
+             at=f"one 7B verify forward: 32 layers, T=8 at pos0 {a['pos0'][0]}, H=KVH=32, "
+                "bf16; launches: phase 9's batch-1 speculative streams"),
+    ]
 
 
 def serving_entries(k1: dict, q80: dict, k3: dict, serving: dict) -> list[dict]:
@@ -3736,12 +4226,14 @@ def main() -> int:
     main_s = time.perf_counter() - t_main
     print(f"[main] main paths and their graph phases in {main_s:.1f} s")
     serving = phase_serving(card, params_7b)
+    spec9 = phase_spec(card, params_7b, serving["scheduler"]["near_tie_bound"], gen)
     del params_7b
     torch.cuda.empty_cache()
     phase_file_path()
     chat = phase_chat()
     kernels = summarize(k1, q80, fused, k2, k3, probes, probes2, main_paths)
     kernels["kernels"] += serving_entries(k1, q80, k3, serving)
+    kernels["kernels"] += spec_entries(k1, q80, k3, spec9)
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
                             ("K2", "q40_expert_matmul", "one Mixtral 8x7B decode step, t = 1, bf16")):
         e = next(k for k in kernels["kernels"] if k["name"] == name)
@@ -3757,6 +4249,17 @@ def main() -> int:
         e = next(k for k in kernels["kernels"] if k["name"] == name)
         lib = ("none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms")
         print(f"[serve] [{tag}] {what}: {e['ms']:.4f} ms against a bound of {e['bound_ms']:.4f} "
+              f"ms ({e['bound_by']}) = {e['bound_ms'] / e['ms']:.3f} of the bound; plain "
+              f"{e['plain_ms']:.3f} ms, library {lib} [{card}]")
+    for tag, name, what in (("K1", "q40_matmul_verify", "one 7B verify forward, t = 8, bf16, "
+                                                        "the tensor-core path"),
+                            ("Q80", "q80_roundtrip_verify", "one 7B verify forward's 129 "
+                                                            "standalone launches, t = 8"),
+                            ("K3", "flash_attention_verify", "one 7B verify forward, 8 query "
+                                                             "rows at fill 308")):
+        e = next(k for k in kernels["kernels"] if k["name"] == name)
+        lib = ("none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms")
+        print(f"[spec] [{tag}] {what}: {e['ms']:.4f} ms against a bound of {e['bound_ms']:.4f} "
               f"ms ({e['bound_by']}) = {e['bound_ms'] / e['ms']:.3f} of the bound; plain "
               f"{e['plain_ms']:.3f} ms, library {lib} [{card}]")
     for step, a in fused["steps"].items():
@@ -3785,7 +4288,7 @@ def main() -> int:
         k2=k2["rows"], gemv1_edges=edges, gemv1_q80=fused, k3=k3["rows"],
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
-        serving=serving, chat=chat,
+        serving=serving, chat=chat, spec=spec9,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -33,9 +33,19 @@ the /metrics `dllama_prefix_cache_*` families. On the legacy path,
 (`load_server_session`) and saves them at shutdown
 (`save_server_session`).
 
+Speculative decoding (runtime/speculative.py, runtime/draft.py): with
+--draft self:D|model:PATH and --serve-batch B, every slot drafts through
+the scheduler's one fixed-width verify forward; on the legacy path
+--lookup-decode K or --draft speculates every request, greedy ones through
+the exact greedy streams (Engine.generate_lookup_stream,
+generate_draft_stream), sampled ones through rejection resampling on a
+numpy stream seeded from the shared sampler (Sampler.next_seed). The
+legacy path folds each request's accept record into `spec_stats`, which
+/stats and /metrics report as the `spec` block in every tier.
+
 Not ported (each refused with a message naming its ROADMAP item):
-/v1/batch/completions, the /admin/* routes, replicas and the router,
-speculation and tenants.
+/v1/batch/completions, the /admin/* routes, replicas and the router, and
+tenants.
 """
 
 from __future__ import annotations
@@ -75,10 +85,14 @@ def build_chat_prompt(messages: list[dict]) -> str:
 
 class ApiState:
     def __init__(self, engine, tokenizer, sampler, model_name: str = "dllama",
-                 serve_batch: int = 0, serve_chunk: int = 0,
-                 queue_depth: int = 0, request_deadline: float = 0.0,
-                 stall_timeout: float = 0.0, prefix_cache: bool = False,
-                 prefix_blocks: int = 0, prefix_block_len: int = 32):
+                 lookup_decode: int = 0, serve_batch: int = 0,
+                 serve_chunk: int = 0, queue_depth: int = 0,
+                 request_deadline: float = 0.0, stall_timeout: float = 0.0,
+                 prefix_cache: bool = False, prefix_blocks: int = 0,
+                 prefix_block_len: int = 32, draft: str | None = None,
+                 draft_len: int = 0):
+        from ..runtime.stats import SpecStats
+
         self.engine = engine
         self.tokenizer = tokenizer
         self.sampler = sampler
@@ -100,6 +114,19 @@ class ApiState:
         self.prefix_cache = prefix_cache
         self.prefix_blocks = prefix_blocks
         self.prefix_block_len = prefix_block_len
+        # the legacy path's prompt-lookup draft length (0 = off), and the
+        # --draft spec string with its draft length: the scheduler path
+        # builds its draft per generation, the legacy path one DraftModel
+        # over this engine on first use (draft_model())
+        self.lookup_decode = lookup_decode
+        self.draft = draft
+        self.draft_len = int(draft_len or 0)
+        self._draft_model = None
+        # the legacy path's aggregate accept record (the scheduler carries
+        # its own on ServeStats.spec)
+        self.spec_stats = SpecStats(
+            mode=(draft or ("lookup" if lookup_decode else "off")),
+            draft_len=self.draft_len or lookup_decode)
         # graceful drain (SIGTERM): POSTs 503, /readyz unready
         self.draining = False
         # the legacy path's token history whose K/V is live in the cache
@@ -116,6 +143,17 @@ class ApiState:
 
             self._build_info = build_info(self.engine)
         return self._build_info
+
+    def draft_model(self):
+        """The legacy path's DraftModel over this engine, built once on
+        first use."""
+        if self._draft_model is None and self.draft:
+            from ..runtime.draft import build_draft
+
+            with self.engine_lock:
+                if self._draft_model is None:
+                    self._draft_model = build_draft(self.engine, self.draft)
+        return self._draft_model
 
     def _build_supervisor(self):
         """The supervisor over a batch-`serve_batch` engine, built, warmed
@@ -145,7 +183,9 @@ class ApiState:
             max_queue=self.queue_depth or 4 * self.serve_batch,
             request_deadline=self.request_deadline or None,
             stall_timeout=self.stall_timeout or 10.0,
-            prefix_blocks=n_blocks, prefix_block_len=self.prefix_block_len)
+            prefix_blocks=n_blocks, prefix_block_len=self.prefix_block_len,
+            draft=self.draft, draft_len=self.draft_len,
+            draft_vocab=self.tokenizer.vocab_size)
 
 
 def load_server_session(state: ApiState, path: str) -> None:
@@ -275,19 +315,58 @@ def _completion_chunks(state: ApiState, body: dict):
             logits = engine.step(np.asarray([[tok]], np.int32), engine.pos)
             history.append(tok)  # stepping tok wrote its K/V
 
+    # the speculative streams do not append their tokens to `history`
+    # (the consumer loop does), plain_tokens() appends as it steps:
+    # `speculating` keeps exactly one owner, so a request that falls
+    # through to the plain loop (a negative temperature) keeps the cached
+    # prefix aligned with the real K/V positions
+    speculating = state.draft is not None or state.lookup_decode > 0
+    v = tokenizer.vocab_size
     try:
-        for tok in plain_tokens():
+        if state.draft is not None and sampler.temperature == 0.0:
+            token_iter = engine.generate_draft_stream(
+                suffix, n_gen, history=tokens, draft=state.draft_model(),
+                draft_len=state.draft_len or 7, vocab_size=v)
+        elif state.draft is not None and sampler.temperature > 0.0:
+            token_iter = engine.generate_draft_sampled_stream(
+                suffix, n_gen, history=tokens, draft=state.draft_model(),
+                temperature=sampler.temperature, topp=sampler.topp,
+                seed=sampler.next_seed(), draft_len=state.draft_len or 7,
+                vocab_size=v)
+        elif state.lookup_decode > 0 and sampler.temperature == 0.0:
+            token_iter = engine.generate_lookup_stream(
+                suffix, n_gen, history=tokens,
+                draft_len=state.lookup_decode, vocab_size=v)
+        elif state.lookup_decode > 0 and sampler.temperature > 0.0:
+            token_iter = engine.generate_lookup_sampled_stream(
+                suffix, n_gen, history=tokens,
+                temperature=sampler.temperature, topp=sampler.topp,
+                seed=sampler.next_seed(), draft_len=state.lookup_decode,
+                vocab_size=v)
+        else:
+            speculating = False
+            token_iter = plain_tokens()
+        for tok in token_iter:
             piece = scan(tok)
             if piece is None:
                 finish = "stop"
                 break
             emitted += 1
+            if speculating:
+                history.append(tok)  # its position is written by a verify
             yield ("piece", piece)
         state.cached_tokens = history[: engine.pos]
     finally:
         sampler.set_temp(saved_temp)
         if saved_rng_state is not None:
             sampler.rng_state = saved_rng_state
+        if speculating and engine.last_spec:
+            # fold the request's accept record into the legacy tier's
+            ls, ss = engine.last_spec, state.spec_stats
+            ss.verify_forwards += ls["forwards"]
+            ss.drafted += ls["drafted"]
+            ss.accepted += ls["accepted"]
+            ss.emitted_spec += ls["emitted"]
     yield ("done", {"finish_reason": finish,
                     "prompt_tokens": len(tokens),
                     "completion_tokens": emitted})
@@ -445,7 +524,10 @@ def make_handler(state: ApiState):
             elif self.path == "/readyz":
                 self._readyz()
             elif self.path == "/stats":
-                self._json(200, {"scheduler": "off"} if state._scheduler is None
+                # the legacy tier's accept record answers too
+                self._json(200, {"scheduler": "off",
+                                 "spec": state.spec_stats.summary()}
+                           if state._scheduler is None
                            else state._scheduler.summary())
             elif self.path == "/metrics":
                 self._metrics()
@@ -469,6 +551,8 @@ def make_handler(state: ApiState):
                 payload["compiles"] = COMPILES.summary()
             if "hbm" not in payload:
                 payload["hbm"] = hbm_ledger(state.engine)
+            if "spec" not in payload:
+                payload["spec"] = state.spec_stats.summary()
             data = render_prometheus(payload, model=state.model_name,
                                      mode=mode, state=st,
                                      build=state.build_info()).encode()
@@ -617,11 +701,24 @@ def build_server(args) -> tuple[ThreadingHTTPServer, ApiState]:
     from .dllama import build_engine
 
     engine, tokenizer, sampler = build_engine(args)
+    if args.draft:
+        # the depth bound needs the model's spec: refused at startup, not
+        # on the first request (parse_draft_spec vetted the format)
+        from ..runtime.draft import parse_draft_spec
+
+        kind, arg = parse_draft_spec(args.draft)
+        if kind == "self" and not 1 <= int(arg) < engine.spec.n_layers:
+            sys.exit(f"error: --draft self:{arg}: depth must be in "
+                     f"1..{engine.spec.n_layers - 1} (the model has "
+                     f"{engine.spec.n_layers} layers)")
     block_len = args.prefix_block_len or 32
     if args.prefix_cache and not 1 <= block_len <= engine.seq_len:
         sys.exit(f"error: --prefix-block-len {block_len} outside 1.."
                  f"{engine.seq_len} (the engine context)")
     state = ApiState(engine, tokenizer, sampler,
+                     lookup_decode=args.lookup_decode,
+                     draft=args.draft,
+                     draft_len=(args.draft_len or 7) if args.draft else 0,
                      serve_batch=args.serve_batch,
                      serve_chunk=args.serve_chunk,
                      queue_depth=args.queue_depth,

@@ -27,7 +27,14 @@ Q40 model every matmul input goes through the Q80 round trip (the
 reference's quantized activation buffers); `f32` turns it off. On the card
 every decode step replays one captured CUDA graph; `--device-sampling`
 runs the whole sampled decode loop on the device (Engine.generate_device)
-and prints its tokens when the loop ends, as the JAX CLI does. Flags of
+and prints its tokens when the loop ends, as the JAX CLI does.
+`--lookup-decode K` (prompt lookup) and `--draft self:D|model:PATH` with
+`--draft-len K` (a real draft) speculate in inference, generate and chat:
+each verify forward feeds the last token and up to K drafted ones and
+emits the accepted prefix plus one token (runtime/speculative.py,
+runtime/draft.py); greedy output equals the plain stream, sampled output
+is distribution-exact by rejection resampling. In api mode they speculate
+on the legacy path, and --draft per slot on the scheduler. Flags of
 features the port does not have yet — the worker mode, mesh axes,
 clusters, and the features listed in UNPORTED_FLAGS — are accepted by the
 parser only to be refused with a message, never silently ignored.
@@ -40,6 +47,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -47,11 +55,9 @@ CACHE_DTYPES = {**DTYPES, "f8": torch.float8_e4m3fn}
 PORTED_MODES = ("inference", "generate", "chat", "api")
 # serving flags of the JAX CLI that the port does not have yet, with the
 # ROADMAP item that brings each (refused with that message when given)
-_SPEC = "speculation (ROADMAP item 12)"
 _FLEET = "replicas and the fleet (ROADMAP item 16)"
 _EXTRAS = "serving extras (ROADMAP item 10c)"
 UNPORTED_FLAGS = {
-    "--lookup-decode": _SPEC, "--draft": _SPEC, "--draft-len": _SPEC,
     "--replicas": _FLEET, "--retry-budget": _FLEET, "--route-policy": _FLEET,
     "--replica-procs": _FLEET, "--replica-hosts": _FLEET,
     "--kv-transfer": _FLEET, "--tier": _FLEET, "--min-replicas": _FLEET,
@@ -118,6 +124,28 @@ def build_argparser() -> argparse.ArgumentParser:
                         "stream in a replayed CUDA graph that stops at eos; "
                         "no host round trip per token). Output prints "
                         "after the loop")
+    p.add_argument("--lookup-decode", type=int, default=0, metavar="K",
+                   help="speculative decoding: draft up to K tokens a step "
+                        "from the context's own n-grams and verify them in "
+                        "ONE forward (prompt lookup). At --temperature 0 "
+                        "the tokens are exactly the greedy stream; above "
+                        "it tokens are accepted or resampled by rejection, "
+                        "distribution-exact against the host sampler (on "
+                        "another RNG stream)")
+    p.add_argument("--draft", default=None, metavar="self:D|model:PATH",
+                   help="real-draft speculative decoding: 'self:D' drafts "
+                        "with the model's own first D layers and logits "
+                        "head (no extra weights; a D-layer KV cache), "
+                        "'model:PATH' with a separate draft .m of the same "
+                        "vocab. Greedy output equals the plain stream; "
+                        "temperature > 0 accepts with min(1, p/q) against "
+                        "the draft's own distribution. In api mode with "
+                        "--serve-batch every slot drafts through one "
+                        "fixed-width verify forward. Exclusive with "
+                        "--lookup-decode")
+    p.add_argument("--draft-len", type=int, default=None, metavar="K",
+                   help="with --draft: tokens proposed a draft pass "
+                        "(default 7); the verify width is 1 + K")
     # api mode (JAX apps/dllama.py's defaults)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=9990)
@@ -228,6 +256,50 @@ def _prefix_and_session_refusals(args) -> list[str]:
     return out
 
 
+def check_spec_flags(args) -> None:
+    """The JAX CLI's parse-time refusals of --draft, --draft-len and
+    --lookup-decode, in its words (JAX apps/dllama.py:796-807, 1044,
+    1296-1327): every one fails before any model load. (--dp with
+    --lookup-decode is the batched lookup of ROADMAP item 10b; refusals()
+    refuses every mesh axis.)"""
+    if args.draft_len is not None and not args.draft:
+        sys.exit("error: --draft-len has no effect without --draft "
+                 "(self:<depth> or model:<path>)")
+    if args.draft_len is not None and args.draft_len < 1:
+        sys.exit("error: --draft-len must be >= 1")
+    if args.draft:
+        if args.lookup_decode:
+            sys.exit("error: --draft and --lookup-decode both pick the "
+                     "draft source — use one (the real draft pays on "
+                     "arbitrary text; prompt lookup only on repetitive)")
+        from ..runtime.draft import parse_draft_spec
+        try:
+            kind, arg = parse_draft_spec(args.draft)
+        except ValueError as e:
+            sys.exit(f"error: {e}")
+        if kind == "model" and not os.path.exists(arg):
+            sys.exit(f"error: --draft model:{arg}: no such file")
+        if args.nnodes > 1:
+            sys.exit("error: --draft does not compose with --nnodes "
+                     "(the worker protocol has no draft replay)")
+        if args.pp > 1:
+            sys.exit("error: --draft does not compose with --pp "
+                     "(stage-stacked layers cannot be depth-sliced)")
+        if args.dp > 1:
+            sys.exit("error: --draft is single-sequence outside api "
+                     "mode and per-slot inside it; it does not compose "
+                     "with --dp")
+        if args.device_sampling:
+            sys.exit("error: --draft is host-loop decoding; it does "
+                     "not compose with --device-sampling")
+    if args.lookup_decode:
+        if args.nnodes > 1:
+            sys.exit("error: --lookup-decode does not compose with --nnodes")
+        if args.device_sampling and args.mode in ("inference", "generate"):
+            sys.exit("error: --lookup-decode is host-loop decoding; it "
+                     "does not compose with --device-sampling")
+
+
 def check_session_flags(args) -> None:
     """--session needs a host-fetchable, stage-flat KV cache: save_session
     fetches it to the host, which a multi-process mesh or a stage-stacked
@@ -322,11 +394,70 @@ def cmd_generate(args, benchmark: bool) -> None:
             "utf-8", errors="replace"))
         prev[0] = tok
 
+    if args.draft or args.lookup_decode:
+        _generate_spec(args, engine, tokenizer, sampler, tokens, on_token,
+                       benchmark)
+        return
     res = engine.generate(tokens, _steps(args, engine), sampler,
                           eos_id=tokenizer.stop_token_ids(), on_token=on_token)
     print()
     if benchmark:
         _print_benchmark(res)
+
+
+def _build_draft(args, engine):
+    from ..runtime.draft import build_draft
+    try:
+        return build_draft(engine, args.draft)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+
+
+def _speculate(args, engine, tokens, budget, sampler, stops, on_token,
+               vocab, draft=None, history=None, f32: bool = True):
+    """One speculative run in the mode the flags pick (JAX
+    apps/dllama.py:875-937, :1102-1136): a real draft or prompt lookup,
+    greedy at temperature 0, rejection-resampled above it on a numpy
+    stream seeded from the sampler's state. With f32, temperature and
+    top-p go through float32 first, as the JAX CLI's generate rounds them
+    (its chat does not)."""
+    common = dict(eos_id=stops, on_token=on_token, vocab_size=vocab,
+                  history=history)
+    rnd = (lambda v: float(np.float32(v))) if f32 else float  # noqa: E731
+    sampled = dict(temperature=rnd(args.temperature), topp=rnd(args.topp),
+                   seed=sampler.rng_state)
+    if draft is not None:
+        dl = args.draft_len or 7
+        if args.temperature > 0:
+            return engine.generate_draft_sampled(
+                tokens, budget, draft=draft, draft_len=dl, **sampled,
+                **common)
+        return engine.generate_draft(tokens, budget, draft=draft,
+                                     draft_len=dl, **common)
+    if args.temperature > 0:
+        return engine.generate_lookup_sampled(
+            tokens, budget, draft_len=args.lookup_decode, **sampled, **common)
+    return engine.generate_lookup(tokens, budget,
+                                  draft_len=args.lookup_decode, **common)
+
+
+def _generate_spec(args, engine, tokenizer, sampler, tokens, on_token,
+                   benchmark: bool) -> None:
+    draft = _build_draft(args, engine) if args.draft else None
+    t0 = time.perf_counter()
+    _speculate(args, engine, tokens, _steps(args, engine), sampler,
+               tokenizer.stop_token_ids(), on_token, tokenizer.vocab_size,
+               draft=draft)
+    dt = time.perf_counter() - t0
+    print()
+    if benchmark:
+        fwd, n = engine.last_accept_stats
+        what = f", draft {args.draft}" if draft is not None else ""
+        print(f"Generated tokens:    {n} in {fwd} forwards "
+              f"({n / max(fwd, 1):.2f} tokens/forward{what})")
+        capture = (" and the graphs' capture" if engine.cuda_graphs else "")
+        print(f"Wall time:           {dt:.2f} s (includes the prefill"
+              f"{capture})")
 
 
 def _print_benchmark(res) -> None:
@@ -350,7 +481,10 @@ def cmd_chat(args) -> None:
     conversation's tokens load before the first turn and save after
     every turn."""
     engine, tokenizer, sampler = build_engine(args)
-    convo: list[int] = []   # the whole conversation's tokens
+    chat_draft = _build_draft(args, engine) if args.draft else None
+    # the whole conversation's tokens: the n-gram miner's source and the
+    # real draft's catch-up stream (the token at position i is convo[i])
+    convo: list[int] = []
     resumed = False
     if args.session and os.path.exists(args.session):
         convo = engine.load_session(args.session)
@@ -394,8 +528,17 @@ def cmd_chat(args) -> None:
             break
         budget = min(_steps(args, engine), remaining)
         convo.extend(tokens)
-        res = engine.generate(tokens, budget, sampler, eos_id=stops,
-                              on_token=on_token)
+        if chat_draft is not None or args.lookup_decode:
+            # a turn speculates over the whole conversation so far
+            res = _speculate(args, engine, tokens, budget, sampler, stops,
+                             on_token, tokenizer.vocab_size,
+                             draft=chat_draft, history=convo, f32=False)
+            if args.temperature > 0:
+                # the next turn draws afresh (JAX apps/dllama.py:1111)
+                sampler.set_seed(sampler.rng_state + len(res.tokens) + 1)
+        else:
+            res = engine.generate(tokens, budget, sampler, eos_id=stops,
+                                  on_token=on_token)
         convo.extend(res.tokens)
         print()
         if args.session:
@@ -404,6 +547,7 @@ def cmd_chat(args) -> None:
 
 def main(argv: list[str] | None = None) -> None:
     args = build_argparser().parse_args(argv)
+    check_spec_flags(args)
     check_session_flags(args)
     refused = refusals(args)
     if refused:

@@ -276,7 +276,8 @@ def forward(
     logits_for_all: bool = False,
     logit_index: int | Sequence[int] | torch.Tensor | None = None,
     activation_q80: bool = False,
-) -> torch.Tensor:
+    logits: bool = True,
+) -> torch.Tensor | None:
     """Run T tokens through the model, writing their K/V into `cache`.
     activation_q80 sends every matmul input (router and wcls included)
     through the Q80 round trip, as the JAX forward's cfg does.
@@ -289,7 +290,10 @@ def forward(
 
     Returns f32 logits (B, vocab) for the last token (or position
     `logit_index`: an int, a host sequence or a (B,) tensor, for a
-    right-padded segment), or (B, T, vocab) if logits_for_all."""
+    right-padded segment), or (B, T, vocab) if logits_for_all; with
+    logits=False, None after the last layer (a draft's catch-up chunk,
+    which only fills the cache: the JAX package's XLA drops that head as
+    dead code)."""
     b, t = tokens.shape
     dev = tokens.device
     s = cache.k[0].shape[2]
@@ -312,6 +316,8 @@ def forward(
     for l in range(spec.n_layers):
         x = _layer(x, params["layers"][l], spec, cache.k[l], cache.v[l],
                    q_pos, angles, where, compute_dtype, activation_q80)
+    if not logits:
+        return None
 
     x = rmsnorm(x, params["rms_final"])         # ref: llama2-tasks.cpp:222-234
     if not logits_for_all:
@@ -320,8 +326,8 @@ def forward(
         else:
             idx = torch.as_tensor(logit_index, device=dev).reshape(-1).expand(b)
             x = x[torch.arange(b, device=dev), idx.long()]
-    logits = matmul(x, params["wcls"], compute_dtype=compute_dtype,
-                    activation_q80=activation_q80).to(torch.float32)
+    out = matmul(x, params["wcls"], compute_dtype=compute_dtype,
+                 activation_q80=activation_q80).to(torch.float32)
     if spec.arch == ArchType.GROK1:
-        logits = logits * GROK_LOGIT_SCALE          # ref: grok1-tasks.cpp:269-272
-    return logits
+        out = out * GROK_LOGIT_SCALE          # ref: grok1-tasks.cpp:269-272
+    return out

@@ -1,7 +1,9 @@
 """Inference engine on one device — counterpart of the JAX package's
 runtime/engine.py (Engine.__init__ for one device, reset, step, prefill,
-generate, fetch_logits, decode_greedy_device, generate_device, and the
-continuous-batching slot steps slot_prefill_chunk and slot_decode_step).
+generate, fetch_logits, decode_greedy_device, generate_device, the
+speculative streams generate_lookup* and generate_draft*, and the
+continuous-batching slot steps slot_prefill_chunk, slot_decode_step and
+slot_verify_step).
 
 The prompt is prefilled in chunks of `prefill_chunk` (256 by default, the Q40
 kernel's MAX_T: the fewest whole-weight passes that still take the kernel);
@@ -31,6 +33,18 @@ the device loops) refuse a batch-B engine. A batch-B engine may share the
 params of a batch-1 one: fuse_layer_weights leaves fused params as they
 are, so no weight is copied.
 
+Speculative decoding (JAX runtime/engine.py:932-1447, :1524): every mode
+runs one verify loop (`_lookup_loop`): a forward over [last token] + a
+draft of k tokens at t = 1 + k, every position's logits to the host, the
+accepted prefix plus one token emitted. On a CUDA engine the verify at
+width T is one captured graph ("lookup", T) over a static (1, T) token
+buffer and the device position, so a stream mints at most draft_len + 1
+graphs. Drafts come from the context's n-grams (prompt lookup) or from a
+DraftModel (runtime/draft.py), greedy (the stream equals generate()'s) or
+sampled by rejection resampling on a numpy PCG64 stream drawn in the JAX
+order. `slot_verify_step` is the scheduler's fixed-width verify over the B
+slots, one graph ("slot_verify", 1 + K, n_vocab).
+
 Cache seeding (JAX runtime/engine.py:406-545, :1577-1652): `save_session`
 and `load_session` persist the filled cache prefix in the JAX package's
 file format (one file serves both packages), and `new_prefix_arena`,
@@ -51,7 +65,7 @@ import os
 import time
 import types
 import zlib
-from typing import Callable, NamedTuple
+from typing import Callable, Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -187,6 +201,13 @@ class Engine:
         # device while-loop iterations of the last generate_device call
         # (== its sampled tokens; forwards run == that - 1)
         self.last_device_steps = 0
+        # the last speculative stream's (forwards, tokens) and its accept
+        # record (forwards, drafted, accepted, emitted), updated per verify
+        self.last_accept_stats = (0, 0)
+        self.last_spec: dict | None = None
+        # the drafts built over this engine (runtime/draft.py): release()
+        # releases their caches and graphs with the engine's own
+        self._drafts: list = []
         # the steps' static buffers: a graph reads and writes these at
         # replay, so they never move
         dev, i64 = self.device, torch.int64
@@ -199,7 +220,9 @@ class Engine:
             limit=torch.zeros((1,), dtype=i64, device=dev),
             rng=torch.zeros((2,), dtype=i64, device=dev),
             logits=torch.zeros((1, spec.vocab_size), dtype=torch.float32,
-                               device=dev))
+                               device=dev),
+            # the verify steps' (B, T) token buffers, one per width T
+            seg={})
 
     def reset(self) -> None:
         """New session: zero the cache (in place) and rewind the position."""
@@ -281,13 +304,13 @@ class Engine:
 
     # -- steps: the forward over the engine's configuration ---------------
 
-    def _forward(self, tokens: torch.Tensor, pos0,
-                 logit_index=None) -> torch.Tensor:
+    def _forward(self, tokens: torch.Tensor, pos0, logit_index=None,
+                 logits_for_all: bool = False) -> torch.Tensor:
         """The engine's forward, configured in exactly one place."""
         return forward(self.params, self.spec, tokens, pos0, self.cache,
                        compute_dtype=self.compute_dtype,
                        activation_q80=self.activation_q80,
-                       logit_index=logit_index)
+                       logit_index=logit_index, logits_for_all=logits_for_all)
 
     def _one_sequence(self, name: str) -> None:
         if self.batch != 1:
@@ -356,6 +379,9 @@ class Engine:
         for g in self.graphs.values():
             g.graph.reset()
         self.graphs.clear()
+        for d in self._drafts:
+            d.release()
+        self._drafts.clear()
         self.cache = None
         self._buf = None
         if self.device.type == "cuda":
@@ -444,6 +470,463 @@ class Engine:
             if on_token:
                 on_token(token)
         return GenerationResult(out, stats)
+
+    # -- speculative decoding (runtime/speculative.py, runtime/draft.py) ---
+
+    def _seg_buffer(self, t: int) -> torch.Tensor:
+        """The static (B, t) token buffer of the verify steps of width t."""
+        seg = self._buf.seg
+        if t not in seg:
+            seg[t] = torch.zeros((self.batch, t), dtype=torch.int64,
+                                 device=self.device)
+        return seg[t]
+
+    @torch.inference_mode()
+    def _verify_logits(self, seg: np.ndarray, pos0: int) -> np.ndarray:
+        """The verify forward of a batch-1 speculative stream: the (1, T)
+        segment [last token] + draft at pos0, every position's logits
+        (T, vocab) f32 on the host. On a CUDA engine the captured step
+        ("lookup", T) replays over the static (1, T) buffer and the device
+        position (JAX engine.py:1062, compiled with logits_for_all)."""
+        t = seg.shape[1]
+        if not self.cuda_graphs:
+            tok = torch.as_tensor(np.asarray(seg, np.int64), device=self.device)
+            return self.fetch_logits(
+                self._forward(tok, pos0, logits_for_all=True))[0]
+        buf = self._seg_buffer(t)
+        buf.copy_(torch.from_numpy(np.asarray(seg, np.int64)))
+        self._buf.pos.fill_(pos0)
+        graph = self._captured(("lookup", t), lambda: self._forward(
+            buf, self._buf.pos, logits_for_all=True))
+        graph.replay()
+        return self.fetch_logits(graph.out)[0]
+
+    def generate_lookup_stream(
+        self,
+        prompt: list[int],
+        max_tokens: int,
+        eos_id: int | set[int] | None = None,
+        *,
+        draft_len: int = 7,
+        max_ngram: int = 3,
+        history: list[int] | None = None,
+        stats: RunStats | None = None,
+        vocab_size: int | None = None,
+    ) -> Iterator[int]:
+        """Prompt-lookup speculative decoding as a token iterator (JAX
+        runtime/engine.py:932): each verify forward feeds the last token
+        plus a draft mined from the context's own n-grams and emits the
+        accepted prefix plus one token. The stream is exactly generate()'s
+        greedy stream. `prompt` is fed from self.pos; `history` is the
+        whole context drafts are mined from (default: the prompt);
+        `vocab_size` caps the argmax at the tokenizer's vocab, as the host
+        Sampler truncates. `last_accept_stats` and `last_spec` update at
+        every forward."""
+        from .speculative import count_accepted
+
+        spec_v = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
+
+        def first(row: np.ndarray) -> int:
+            return int(np.argmax(row[:spec_v]))
+
+        def verify(seg_logits: np.ndarray, draft: list[int]) -> list[int]:
+            greedy = np.argmax(seg_logits[:, :spec_v], axis=-1)
+            m = count_accepted(draft, greedy)
+            return [int(g) for g in greedy[: m + 1]]
+
+        return self._lookup_loop(prompt, max_tokens, eos_id,
+                                 draft_len=draft_len, max_ngram=max_ngram,
+                                 history=history, stats=stats,
+                                 first_fn=first, verify_fn=verify)
+
+    def _lookup_loop(
+        self,
+        prompt: list[int],
+        max_tokens: int,
+        eos_id: int | set[int] | None,
+        *,
+        draft_len: int,
+        max_ngram: int,
+        history: list[int] | None,
+        stats: RunStats | None,
+        first_fn: Callable[[np.ndarray], int],
+        verify_fn: Callable[[np.ndarray, list[int]], list[int]],
+        draft_fn: Callable | None = None,
+    ) -> Iterator[int]:
+        """The verify loop every speculative mode shares (JAX
+        runtime/engine.py:980): draft sizing, the verify step, eos and
+        budget truncation, the position bookkeeping, the accept record and
+        the timing split. Modes differ in their callbacks:
+        first_fn(logits row) -> the first token; verify_fn(seg_logits
+        (T, V), draft) -> the emitted tokens (the accepted draft prefix
+        plus exactly one more); draft_fn(hist, k, token, pos0) -> a draft
+        (real-draft modes; default: the n-gram miner)."""
+        from .speculative import find_draft
+
+        self._one_sequence("speculative decoding")
+        stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
+        if max_tokens <= 0:
+            # the hard-cap contract of generate(): prefill, emit nothing
+            self.prefill(prompt)
+            self.last_accept_stats = (1, 0)
+            self.last_spec = {"forwards": 1, "drafted": 0, "accepted": 0,
+                              "emitted": 0}
+            return
+
+        t0 = time.perf_counter()
+        logits_np = self.fetch_logits(self.prefill(prompt))
+        t1 = time.perf_counter()
+        if stats is not None:
+            stats.add(StepStats(generation_ms=(t1 - t0) * 1e3,
+                                device_ms=(t1 - t0) * 1e3))
+        token = first_fn(logits_np[0])
+        n_out = 1
+        self.last_accept_stats = (1, 1)
+        # `accepted` counts the draft tokens actually used after eos and
+        # budget truncation
+        self.last_spec = {"forwards": 1, "drafted": 0, "accepted": 0,
+                          "emitted": 1}
+        hist = np.asarray((history if history is not None else prompt)
+                          + [token], np.int32)
+        yield token
+
+        while (n_out < max_tokens and self.pos < self.seq_len
+               and token not in stop_ids):
+            # the draft fits the budget and the context (the fed token's
+            # own K/V write needs a free slot too)
+            g0 = time.perf_counter()
+            k = min(draft_len, self.seq_len - self.pos - 1,
+                    max_tokens - n_out - 1)
+            pos0 = self.pos
+            if draft_fn is not None:
+                draft = draft_fn(hist, k, token, pos0) if k > 0 else []
+            else:
+                draft = (find_draft(hist, k, max_ngram=max_ngram)
+                         if k > 0 else [])
+            seg = np.asarray([[token] + draft], np.int32)
+            # device ms: the verify forward and its logits copy; mining
+            # and accepting are host ms
+            d0 = time.perf_counter()
+            seg_logits = self._verify_logits(seg, pos0)
+            d1 = time.perf_counter()
+
+            emitted = verify_fn(seg_logits, draft)
+            # a stop token is emitted (generate() parity), the rest dropped
+            for i, t in enumerate(emitted):
+                if t in stop_ids:
+                    emitted = emitted[: i + 1]
+                    break
+            emitted = emitted[: max_tokens - n_out]
+            # positions pos0..pos0+a hold [token] + the confirmed prefix;
+            # unconfirmed draft writes past them are overwritten position
+            # by position before any later query attends them
+            a = len(emitted) - 1
+            self.pos = pos0 + 1 + a
+            n_out += len(emitted)
+            self.last_accept_stats = (self.last_accept_stats[0] + 1, n_out)
+            self.last_spec["forwards"] += 1
+            self.last_spec["drafted"] += len(draft)
+            self.last_spec["accepted"] += max(a, 0)
+            self.last_spec["emitted"] += len(emitted)
+            hist = np.concatenate([hist, np.asarray(emitted, np.int32)])
+            token = emitted[-1]
+            g1 = time.perf_counter()
+            if stats is not None:
+                stats.add(StepStats(generation_ms=(g1 - g0) * 1e3,
+                                    device_ms=(d1 - d0) * 1e3,
+                                    host_ms=(g1 - g0 - (d1 - d0)) * 1e3))
+            yield from emitted
+
+    @staticmethod
+    def _collect(stream: Iterator[int], stats: RunStats,
+                 on_token: Callable[[int], None] | None) -> GenerationResult:
+        out: list[int] = []
+        for t in stream:
+            out.append(t)
+            if on_token:
+                on_token(t)
+        return GenerationResult(out, stats)
+
+    def generate_lookup(
+        self,
+        prompt: list[int],
+        max_tokens: int,
+        eos_id: int | set[int] | None = None,
+        *,
+        draft_len: int = 7,
+        max_ngram: int = 3,
+        on_token: Callable[[int], None] | None = None,
+        vocab_size: int | None = None,
+        history: list[int] | None = None,
+    ) -> GenerationResult:
+        """Collecting wrapper over generate_lookup_stream (the CLI path)."""
+        stats = RunStats()
+        return self._collect(self.generate_lookup_stream(
+            prompt, max_tokens, eos_id, draft_len=draft_len,
+            max_ngram=max_ngram, stats=stats, vocab_size=vocab_size,
+            history=history), stats, on_token)
+
+    def generate_lookup_sampled(
+        self,
+        prompt: list[int],
+        max_tokens: int,
+        *,
+        temperature: float,
+        topp: float,
+        seed: int,
+        eos_id: int | set[int] | None = None,
+        draft_len: int = 7,
+        max_ngram: int = 3,
+        on_token: Callable[[int], None] | None = None,
+        vocab_size: int | None = None,
+        history: list[int] | None = None,
+    ) -> GenerationResult:
+        """Sampled prompt-lookup speculation by rejection resampling (JAX
+        runtime/engine.py:1126): every emitted token is distributed as the
+        host Sampler's draw on the same logits, on a numpy PCG64 stream
+        seeded with `seed` (not the Sampler's xorshift stream)."""
+        stats = RunStats()
+        return self._collect(self.generate_lookup_sampled_stream(
+            prompt, max_tokens, temperature=temperature, topp=topp,
+            seed=seed, eos_id=eos_id, draft_len=draft_len,
+            max_ngram=max_ngram, vocab_size=vocab_size, history=history,
+            stats=stats), stats, on_token)
+
+    def generate_lookup_sampled_stream(
+        self,
+        prompt: list[int],
+        max_tokens: int,
+        *,
+        temperature: float,
+        topp: float,
+        seed: int,
+        eos_id: int | set[int] | None = None,
+        draft_len: int = 7,
+        max_ngram: int = 3,
+        vocab_size: int | None = None,
+        history: list[int] | None = None,
+        stats: RunStats | None = None,
+    ) -> Iterator[int]:
+        """Token-iterator form of generate_lookup_sampled (JAX
+        runtime/engine.py:1170). The uniforms are drawn in the JAX order:
+        one for the first token, then per draft position one to accept
+        and one to resample, and one for the bonus token of a fully
+        accepted draft."""
+        from .speculative import accept_or_resample, draw, target_dist
+
+        if not temperature > 0:
+            raise ValueError("temperature 0 is the greedy mode "
+                             "(generate_lookup)")
+        spec_v = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
+        rng = np.random.default_rng(seed)
+
+        def first(row: np.ndarray) -> int:
+            return draw(target_dist(row, temperature, topp, spec_v),
+                        rng.random())
+
+        def verify(seg_logits: np.ndarray, draft: list[int]) -> list[int]:
+            # position i's logits condition on [token] + draft[:i]
+            emitted: list[int] = []
+            for i, d in enumerate(draft):
+                p_i = target_dist(seg_logits[i], temperature, topp, spec_v)
+                ok, t = accept_or_resample(p_i, int(d), rng.random(),
+                                           rng.random())
+                emitted.append(t)
+                if not ok:
+                    return emitted
+            p_k = target_dist(seg_logits[len(draft)], temperature, topp,
+                              spec_v)
+            emitted.append(draw(p_k, rng.random()))
+            return emitted
+
+        return self._lookup_loop(prompt, max_tokens, eos_id,
+                                 draft_len=draft_len, max_ngram=max_ngram,
+                                 history=history, stats=stats,
+                                 first_fn=first, verify_fn=verify)
+
+    def _draft_catchup(self, draft, state: dict, hist: np.ndarray,
+                       target_pos: int) -> None:
+        """Bring a draft cache's frontier up to target_pos by prefilling
+        the tokens it missed (hist[i] is the token at position i), in
+        chunks of one fixed width (JAX runtime/engine.py:1230): pad writes
+        land past the frontier and are overwritten before the draft
+        attends them."""
+        c = min(self.prefill_chunk, self.seq_len)
+        target = min(int(target_pos), len(hist))
+        while state["pos"] < target:
+            dp = state["pos"]
+            n = min(c, target - dp)
+            tok = np.zeros((self.batch, c), np.int32)
+            tok[0, :n] = hist[dp:dp + n]
+            pos = np.full((self.batch,), self.seq_len, np.int32)
+            pos[0] = dp
+            state["cache"] = draft.prefill_chunk(state["cache"], tok, pos)
+            state["pos"] = dp + n
+
+    def generate_draft_stream(
+        self,
+        prompt: list[int],
+        max_tokens: int,
+        eos_id: int | set[int] | None = None,
+        *,
+        draft,
+        draft_len: int = 7,
+        history: list[int] | None = None,
+        stats: RunStats | None = None,
+        vocab_size: int | None = None,
+    ) -> Iterator[int]:
+        """Greedy real-draft speculation (JAX runtime/engine.py:1254): the
+        draft (runtime/draft.py) proposes draft_len tokens in one dispatch
+        (one captured step, replayed), the verify forward confirms the
+        accepted prefix plus one; the stream is exactly generate()'s greedy
+        stream. The draft's cache is zeroed at the start and caught up from
+        `history` (default: the prompt), so a stream that continues a
+        loaded session or a chat prefills the whole context into it."""
+        from .speculative import count_accepted
+
+        self._one_sequence("generate_draft_stream")
+        spec_v = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
+        state = {"cache": draft.new_cache(), "pos": 0}
+
+        def first(row: np.ndarray) -> int:
+            return int(np.argmax(row[:spec_v]))
+
+        def verify(seg_logits: np.ndarray, dr: list[int]) -> list[int]:
+            greedy = np.argmax(seg_logits[:, :spec_v], axis=-1)
+            m = count_accepted(dr, greedy)
+            return [int(g) for g in greedy[: m + 1]]
+
+        def draft_fn(hist, k, token, pos0):
+            self._draft_catchup(draft, state, hist, pos0)
+            # always the full draft_len (one graph), truncated to k: the
+            # extra steps' writes sit past the frontier, and every next
+            # round re-feeds from its pos0, overwriting each stale
+            # position before its own query attends it
+            toks, state["cache"] = draft.propose(
+                state["cache"], np.asarray([token], np.int32),
+                np.asarray([pos0], np.int32), draft_len, n_vocab=spec_v)
+            state["pos"] = pos0 + draft_len
+            return [int(t) for t in toks[0][:k]]
+
+        return self._lookup_loop(prompt, max_tokens, eos_id,
+                                 draft_len=draft_len, max_ngram=0,
+                                 history=history, stats=stats,
+                                 first_fn=first, verify_fn=verify,
+                                 draft_fn=draft_fn)
+
+    def generate_draft(
+        self,
+        prompt: list[int],
+        max_tokens: int,
+        eos_id: int | set[int] | None = None,
+        *,
+        draft,
+        draft_len: int = 7,
+        on_token: Callable[[int], None] | None = None,
+        vocab_size: int | None = None,
+        history: list[int] | None = None,
+    ) -> GenerationResult:
+        """Collecting wrapper over generate_draft_stream (the CLI path)."""
+        stats = RunStats()
+        return self._collect(self.generate_draft_stream(
+            prompt, max_tokens, eos_id, draft=draft, draft_len=draft_len,
+            stats=stats, vocab_size=vocab_size, history=history),
+            stats, on_token)
+
+    def generate_draft_sampled_stream(
+        self,
+        prompt: list[int],
+        max_tokens: int,
+        *,
+        draft,
+        temperature: float,
+        topp: float,
+        seed: int,
+        eos_id: int | set[int] | None = None,
+        draft_len: int = 7,
+        vocab_size: int | None = None,
+        history: list[int] | None = None,
+        stats: RunStats | None = None,
+    ) -> Iterator[int]:
+        """Sampled real-draft speculation by general rejection resampling
+        (JAX runtime/engine.py:1342): the draft samples each proposal from
+        its own distribution q, the target accepts with min(1, p/q) and
+        resamples max(p - q, 0) on the first reject. The draft loop is
+        host-paced: one captured draft step a proposal, its logits to the
+        host for target_dist and the draw."""
+        from .speculative import accept_or_resample_q, draw, target_dist
+
+        self._one_sequence("generate_draft_sampled_stream")
+        if not temperature > 0:
+            raise ValueError("temperature 0 is the greedy mode "
+                             "(generate_draft)")
+        spec_v = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
+        rng = np.random.default_rng(seed)
+        state = {"cache": draft.new_cache(), "pos": 0, "q": []}
+
+        def first(row: np.ndarray) -> int:
+            return draw(target_dist(row, temperature, topp, spec_v),
+                        rng.random())
+
+        def draft_fn(hist, k, token, pos0):
+            self._draft_catchup(draft, state, hist, pos0)
+            toks: list[int] = []
+            qs: list[np.ndarray] = []
+            cur, p, cache = int(token), int(pos0), state["cache"]
+            for _ in range(k):
+                lg, cache = draft.step_logits(
+                    cache, np.asarray([[cur]], np.int32),
+                    np.asarray([p], np.int32))
+                qd = target_dist(lg[0], temperature, topp, spec_v)
+                cur = draw(qd, rng.random())
+                toks.append(cur)
+                qs.append(qd)
+                p += 1
+            state["cache"], state["pos"], state["q"] = cache, p, qs
+            return toks
+
+        def verify(seg_logits: np.ndarray, dr: list[int]) -> list[int]:
+            emitted: list[int] = []
+            for i, d in enumerate(dr):
+                p_i = target_dist(seg_logits[i], temperature, topp, spec_v)
+                ok, t = accept_or_resample_q(p_i, state["q"][i], int(d),
+                                             rng.random(), rng.random())
+                emitted.append(t)
+                if not ok:
+                    return emitted
+            p_k = target_dist(seg_logits[len(dr)], temperature, topp,
+                              spec_v)
+            emitted.append(draw(p_k, rng.random()))
+            return emitted
+
+        return self._lookup_loop(prompt, max_tokens, eos_id,
+                                 draft_len=draft_len, max_ngram=0,
+                                 history=history, stats=stats,
+                                 first_fn=first, verify_fn=verify,
+                                 draft_fn=draft_fn)
+
+    def generate_draft_sampled(
+        self,
+        prompt: list[int],
+        max_tokens: int,
+        *,
+        draft,
+        temperature: float,
+        topp: float,
+        seed: int,
+        eos_id: int | set[int] | None = None,
+        draft_len: int = 7,
+        on_token: Callable[[int], None] | None = None,
+        vocab_size: int | None = None,
+        history: list[int] | None = None,
+    ) -> GenerationResult:
+        """Collecting wrapper over generate_draft_sampled_stream."""
+        stats = RunStats()
+        return self._collect(self.generate_draft_sampled_stream(
+            prompt, max_tokens, draft=draft, temperature=temperature,
+            topp=topp, seed=seed, eos_id=eos_id, draft_len=draft_len,
+            vocab_size=vocab_size, history=history, stats=stats),
+            stats, on_token)
 
     # -- on-device loops: one captured step, replayed back to back ---------
 
@@ -645,3 +1128,40 @@ class Engine:
         graph = self._captured("slot_decode", self._slot_decode)
         graph.replay()
         return graph.out.clone()
+
+    @torch.inference_mode()
+    def slot_verify_step(self, tokens: np.ndarray, pos: np.ndarray,
+                         n_vocab: int) -> tuple[np.ndarray, torch.Tensor]:
+        """One fixed-width speculative verify step of the slots (JAX
+        runtime/engine.py:1524): row r feeds its (1 + K) segment [last
+        token, draft...] at positions pos[r]..pos[r]+K (rows without a
+        draft pad with their own token; a gated row passes pos[r] == S).
+        Returns (greedy (B, 1 + K) int32 on the host: the argmax over the
+        first n_vocab logits after each segment position, computed on the
+        device; the position-0 logits (B, vocab) f32, a device tensor of
+        its own: what slot_decode_step would have returned, for the rows
+        that sample). On a CUDA engine one captured graph
+        ("slot_verify", 1 + K, n_vocab) over static (B, 1 + K) token and
+        (B,) position buffers. Does not touch self.pos."""
+        from .draft import batched_verify
+
+        tokens, pos = self._slot_args("slot_verify_step", tokens, pos)
+        t, nv = tokens.shape[1], int(n_vocab)
+        kw = dict(compute_dtype=self.compute_dtype,
+                  activation_q80=self.activation_q80)
+        if not self.cuda_graphs:
+            dev = self.device
+            greedy, logits0 = batched_verify(
+                self.params, self.spec, torch.as_tensor(tokens, device=dev),
+                torch.as_tensor(pos, device=dev), self.cache, n_vocab=nv,
+                fwd_kwargs=kw)
+            return greedy.cpu().numpy(), logits0
+        buf, b = self._seg_buffer(t), self._buf
+        buf.copy_(torch.from_numpy(tokens))
+        b.pos.copy_(torch.from_numpy(pos))
+        graph = self._captured(("slot_verify", t, nv), lambda: batched_verify(
+            self.params, self.spec, buf, b.pos, self.cache, n_vocab=nv,
+            fwd_kwargs=kw))
+        graph.replay()
+        greedy, logits0 = graph.out
+        return greedy.cpu().numpy(), logits0.clone()

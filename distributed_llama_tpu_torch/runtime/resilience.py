@@ -31,7 +31,11 @@ With ``prefix_blocks > 0`` every generation's scheduler gets a fresh
 radix prefix cache (runtime/prefix_cache.py) over its own engine: its
 arena holds K/V only that engine wrote, so a rebuild starts from an empty
 tree, and the failed generation's arena goes back to the allocator with
-its cache before the factory allocates.
+its cache before the factory allocates. With ``draft`` ("self:D" or
+"model:PATH", runtime/draft.py) every generation's scheduler builds its
+draft over its own engine (a self-draft's params are that engine's
+tensors); the failed engine's drafts, their caches and graphs, go back
+with it (``Engine.release``).
 
 Generations: each (engine, scheduler) pair is one generation. A failure
 invalidates the generation first (a wedged step thread that wakes finds
@@ -81,13 +85,20 @@ class EngineSupervisor:
                  stall_timeout: float = 10.0, watchdog_poll: float = 0.02,
                  backoff_base: float = 0.1, backoff_max: float = 5.0,
                  breaker_threshold: int = 3,
-                 prefix_blocks: int = 0, prefix_block_len: int = 32):
+                 prefix_blocks: int = 0, prefix_block_len: int = 32,
+                 draft: str | None = None, draft_len: int = 0,
+                 draft_vocab: int | None = None):
         self._factory = engine_factory
         self._chunk = chunk
         # prefix_blocks > 0: a radix prefix cache of that many blocks of
         # prefix_block_len tokens, minted fresh with every generation
         self._prefix_blocks = int(prefix_blocks)
         self._prefix_block_len = int(prefix_block_len)
+        # the --draft spec string: built into a DraftModel per generation
+        # inside _make_sched, over that generation's engine
+        self._draft = draft
+        self._draft_len = int(draft_len)
+        self._draft_vocab = draft_vocab
         self.max_queue = int(max_queue)
         self._queue_timeout = queue_timeout
         self._request_deadline = request_deadline
@@ -277,10 +288,18 @@ class EngineSupervisor:
         if self._prefix_blocks > 0:
             pc = PrefixCache(engine, num_blocks=self._prefix_blocks,
                              block_len=self._prefix_block_len)
+        draft_factory = None
+        if self._draft:
+            from .draft import build_draft
+
+            spec_str = self._draft
+            draft_factory = lambda eng: build_draft(eng, spec_str)  # noqa: E731
         return Scheduler(engine, chunk=self._chunk, max_queue=self.max_queue,
                          queue_timeout=self._queue_timeout,
                          request_deadline=self._request_deadline,
-                         prefix_cache=pc)
+                         prefix_cache=pc, draft_factory=draft_factory,
+                         draft_len=self._draft_len,
+                         draft_vocab=self._draft_vocab)
 
     def _start_loop(self, sched: Scheduler, gen: int) -> None:
         for g in [g for g, t in self._loop_threads.items()
@@ -361,7 +380,8 @@ class EngineSupervisor:
             # the allocator orders any launch still queued on them first
             if failed.prefix_cache is not None:
                 failed.prefix_cache.release()
-            failed.engine.release()
+            failed.draft_cache = None   # the draft's own, released below
+            failed.engine.release()     # its drafts' caches and graphs too
         while not self._stop:
             with self._state_lock:
                 n = self.sup_stats.consecutive_failures
@@ -382,6 +402,7 @@ class EngineSupervisor:
                 if sched is not None:
                     if sched.prefix_cache is not None:
                         sched.prefix_cache.release()
+                    sched.draft_cache = None
                     sched.engine.release()
                 with self._state_lock:
                     self.sup_stats.consecutive_failures += 1

@@ -1,7 +1,7 @@
 """Continuous batching: a slot-based KV scheduler over the batch-B Engine —
 the port of the JAX package's runtime/scheduler.py (its core: submit, the
-scheduling iteration, warmup, the step thread, close, exclusive, and the
-radix prefix cache's admission seed and publish).
+scheduling iteration, warmup, the step thread, close, exclusive, the radix
+prefix cache's admission seed and publish, and per-slot draft speculation).
 
 Iteration-level scheduling in the Orca style (Yu et al., OSDI '22) with
 slot-reuse KV management: the KV cache is ONE batch-B allocation whose rows
@@ -37,6 +37,21 @@ stays pinned for the slot's lifetime, so eviction never frees a block an
 in-flight slot came from, and ``_abort_all`` invalidates the whole tree
 (the arena dies with the engine).
 
+Per-slot draft speculation: with a ``draft_factory`` (runtime/draft.py) the
+scheduler builds one DraftModel over its engine, whose cache holds the
+draft K/V of every slot. A decode iteration with a greedy row that can
+speculate runs ONE draft proposal (``DraftModel.propose``: draft_len greedy
+draft steps for every speculating row) and ONE fixed-width verify forward
+(``Engine.slot_verify_step``, (B, 1 + draft_len) tokens, one captured
+graph): each speculating row emits its accepted draft prefix plus one token,
+exactly the tokens of a plain greedy decode; sampled rows ride the same
+forward and sample from its position-0 logits. A row's draft frontier
+(``draft_pos``) trails what the target wrote after admission (the whole
+prompt, prefix-cache seeded or not) and after plain rounds; one batched
+draft catch-up chunk an iteration prefills it from the row's fed tokens.
+``warmup`` runs the draft's prefill, proposal and the verify once with every
+row gated, so speculative serving captures no graph after it.
+
 Thread model: ``submit()`` is thread-safe and never takes the step mutex;
 the step loop runs on the ``start()`` thread, the supervisor's thread
 (runtime/resilience.py) or synchronously through ``step()``. Every thread
@@ -44,8 +59,8 @@ issues its CUDA work on the default stream, so a capture, its replays and
 the host copies between them are ordered on one stream. HTTP handler
 threads touch host tokens only.
 
-Not ported: speculation (draft, verify steps), the SLO admission ladder,
-the weighted-fair queue and the KV-transfer methods (the lock-free
+Not ported: the SLO admission ladder (and its "no speculation" rung), the
+weighted-fair queue and the KV-transfer methods (the lock-free
 ``kv_match_len`` peek excepted); the constructor refuses them.
 """
 
@@ -63,13 +78,12 @@ import numpy as np
 from .faults import FAULTS
 from .profiler import PROFILER
 from .sampling import FullLogitsView
-from .stats import RequestStats, ServeStats
+from .speculative import count_accepted
+from .stats import RequestStats, ServeStats, SpecStats
 
 # constructor options of the JAX Scheduler that the port does not have yet,
 # with the ROADMAP item that brings each
 UNPORTED = {
-    "draft_factory": "draft speculation (ROADMAP item 12)",
-    "draft_len": "draft speculation (ROADMAP item 12)",
     "slo_ttft_ms": "the SLO admission ladder (ROADMAP item 10c)",
     "slo_itl_ms": "the SLO admission ladder (ROADMAP item 10c)",
     "fair_queue": "the weighted-fair queue (ROADMAP item 16)",
@@ -170,9 +184,13 @@ class _Slot:
     """One row of the batched KV cache: FREE when req is None, PREFILL
     while off < len(prompt), DECODE after. `pos` is the next cache write
     position, `last` the token to feed next step, `pins` the prefix-cache
-    path the slot was seeded from (held until the slot releases)."""
+    path the slot was seeded from (held until the slot releases). With a
+    draft armed, `draft_pos` is the row's draft-cache frontier (positions
+    below it hold the fed tokens' draft K/V) and `toks` the fed-token
+    history the draft catch-up reads (prompt + emitted tokens)."""
 
-    __slots__ = ("idx", "req", "pos", "off", "n_out", "last", "pins")
+    __slots__ = ("idx", "req", "pos", "off", "n_out", "last", "pins",
+                 "draft_pos", "toks")
 
     def __init__(self, idx: int):
         self.idx = idx
@@ -182,13 +200,16 @@ class _Slot:
         self.n_out = 0
         self.last = 0
         self.pins: tuple = ()
+        self.draft_pos = 0
+        self.toks: list[int] = []
 
 
 class Scheduler:
     def __init__(self, engine, *, chunk: int | None = None,
                  max_queue: int = 0, queue_timeout: float | None = None,
                  request_deadline: float | None = None, prefix_cache=None,
-                 **unported):
+                 draft_factory=None, draft_len: int = 0,
+                 draft_vocab: int | None = None, **unported):
         asked = {k: v for k, v in unported.items() if v}
         unknown = set(asked) - set(UNPORTED)
         if unknown:
@@ -206,6 +227,20 @@ class Scheduler:
         if prefix_cache is not None and prefix_cache.engine is not engine:
             raise ValueError("prefix cache arena belongs to a different engine")
         self.prefix_cache = prefix_cache
+        # per-slot draft speculation: the factory builds a DraftModel over
+        # THIS engine (a supervisor rebuild passes a fresh engine: the
+        # draft's params are its tensors and die with it); its one
+        # batched cache serves every slot, the frontiers live on the slots
+        self.draft = draft_factory(engine) if draft_factory else None
+        self.draft_len = int(draft_len) if self.draft is not None else 0
+        if self.draft is not None and self.draft_len < 1:
+            raise ValueError("a draft without a draft length proposes nothing")
+        # the verify's device argmax runs over the TOKENIZER's vocab (the
+        # host Sampler truncates there); requests whose sampler vocab
+        # differs never speculate
+        self.draft_vocab = int(draft_vocab or engine.spec.vocab_size)
+        self.draft_cache = (self.draft.new_cache()
+                            if self.draft is not None else None)
         # admission control: max_queue bounds the waiting line (0 = no
         # bound), queue_timeout how long a request may WAIT before it is
         # failed rather than started, request_deadline the default
@@ -221,6 +256,12 @@ class Scheduler:
         self.stats = ServeStats()
         if prefix_cache is not None:
             self.stats.prefix = prefix_cache.stats
+        # always attached (mode "off" without a draft): a tier never loses
+        # the spec family to a launch flag
+        self._spec_stats = SpecStats(
+            mode=(self.draft.label if self.draft is not None else "off"),
+            draft_len=self.draft_len)
+        self.stats.spec = self._spec_stats
         self._thread: threading.Thread | None = None
         self._stop = False
         self._closed = False
@@ -342,10 +383,19 @@ class Scheduler:
         self.stats.queue_depth.append(len(self._queue))
         if pre:
             self._prefill_chunk(pre)
+        if self.draft is not None:
+            # one draft catch-up chunk an iteration: rows whose draft
+            # frontier trails the target (fresh admissions, prefix-seeded
+            # prompts, plain rounds) advance by up to one chunk
+            self._draft_catchup_chunk()
         if dec:
             # rows that finished their prompt in this iteration's chunk
             # wait for the next one: one decode forward a row an iteration
-            self._decode(dec)
+            if self.draft is not None and any(self._spec_capable(s)
+                                              for s in dec):
+                self._decode_spec(dec)
+            else:
+                self._decode(dec)
         return True
 
     def _expire_req(self, req: ServeRequest, code: str = "deadline",
@@ -375,6 +425,11 @@ class Scheduler:
             s.req = req
             s.off = s.pos = s.n_out = s.last = 0
             s.pins = ()
+            # the draft state resets with the lease: the new request's
+            # draft prefill overwrites the predecessor's draft K/V before
+            # the draft attends it, as in the main cache
+            s.draft_pos = 0
+            s.toks = list(req.prompt)
             if self.prefix_cache is not None:
                 # seed the longest cached prefix (whole blocks, capped at
                 # len - 1) and prefill only the suffix; the path stays
@@ -438,6 +493,119 @@ class Scheduler:
             s.pos += 1
             self._emit(s, view.sample(s.req.sampler, s.idx))
 
+    # -- per-slot draft speculation (runtime/draft.py) ---------------------
+
+    def _speculates(self, req: ServeRequest) -> bool:
+        """A greedy request at the verify's vocab: its tokens are the
+        verify's device argmax."""
+        smp = req.sampler
+        return (getattr(smp, "temperature", None) == 0.0
+                and getattr(smp, "vocab_size", 0) == self.draft_vocab)
+
+    def _spec_capable(self, s: _Slot) -> bool:
+        """Whether slot s rides a speculative verify this iteration: a
+        speculating request, its draft caught up to the target, and at
+        least 2 tokens of budget and of context left (a draft for one
+        remaining token buys nothing)."""
+        req = s.req
+        return (self._speculates(req)
+                and s.draft_pos >= s.pos
+                and req.max_tokens - s.n_out >= 2
+                and self.engine.seq_len - s.pos >= 2)
+
+    def _draft_catchup_chunk(self) -> None:
+        """One batched (B, C) draft prefill chunk for every slot whose
+        draft frontier trails what the target wrote, from its fed-token
+        history `s.toks` (the last emitted token is never fed, there or
+        here). A prefix-cache seed fills the target's cache, not the
+        draft's, so a seeded prompt is prefilled here from its tokens.
+        Rows that never speculate get no draft K/V."""
+        eng, c = self.engine, self.chunk
+        rows = []
+        for s in self.slots:
+            if s.req is None or not self._speculates(s.req):
+                continue
+            avail = min(len(s.toks), max(s.off, s.pos))
+            if s.draft_pos < avail:
+                rows.append((s, avail))
+        if not rows:
+            return
+        tok = np.zeros((eng.batch, c), np.int32)
+        pos = np.full((eng.batch,), eng.seq_len, np.int32)
+        for s, avail in rows:
+            n = min(c, avail - s.draft_pos)
+            tok[s.idx, :n] = s.toks[s.draft_pos:s.draft_pos + n]
+            pos[s.idx] = s.draft_pos
+            s.draft_pos += n
+        self.draft_cache = self.draft.prefill_chunk(self.draft_cache, tok, pos)
+        self._spec_stats.draft_forwards += 1
+
+    def _decode_spec(self, rows: list[_Slot]) -> None:
+        """The speculative decode iteration (JAX scheduler.py:880): ONE
+        draft proposal of draft_len tokens for every speculating row, ONE
+        fixed-width verify forward; each speculating row advances by its
+        accepted prefix plus one token, the target's own argmax.
+        Non-speculating rows (sampled, another vocab, draft catching up)
+        ride the same forward with their segment padded by their own
+        token and sample from the position-0 logits."""
+        eng, k = self.engine, self.draft_len
+        spec_rows = [s for s in rows if self._spec_capable(s)]
+        dtok = np.zeros((eng.batch,), np.int32)
+        dpos = np.full((eng.batch,), eng.seq_len, np.int32)  # gated rows
+        for s in spec_rows:
+            dtok[s.idx] = s.last
+            dpos[s.idx] = s.pos
+        drafts_np, self.draft_cache = self.draft.propose(
+            self.draft_cache, dtok, dpos, k, n_vocab=self.draft_vocab)
+        self._spec_stats.draft_forwards += 1
+        tok = np.zeros((eng.batch, 1 + k), np.int32)
+        pos = np.full((eng.batch,), eng.seq_len, np.int32)
+        drafts: dict[int, list[int]] = {}
+        for s in rows:
+            # pad = the row's own token: its writes sit past the accepted
+            # prefix and are overwritten before any query attends them
+            tok[s.idx, :] = s.last
+            pos[s.idx] = s.pos
+        for s in spec_rows:
+            # the proposal is always k long (one graph); the row's budget
+            # and headroom cut it, the surplus becomes padding
+            kk = min(k, eng.seq_len - s.pos - 1,
+                     s.req.max_tokens - s.n_out - 1)
+            d = [int(t) for t in drafts_np[s.idx][:kk]]
+            drafts[s.idx] = d
+            tok[s.idx, 1:1 + len(d)] = d
+            s.draft_pos = s.pos + k  # the proposal wrote pos..pos+k-1
+        greedy, logits0 = eng.slot_verify_step(tok, pos, self.draft_vocab)
+        self._spec_stats.verify_forwards += 1
+        nonspec = [s for s in rows if s.idx not in drafts]
+        view0 = self._sample_view(logits0) if nonspec else None
+        for s in rows:
+            d = drafts.get(s.idx)
+            if d is None:
+                s.pos += 1
+                self._emit(s, view0.sample(s.req.sampler, s.idx))
+                continue
+            req = s.req
+            m = count_accepted(d, greedy[s.idx])
+            emitted = [int(g) for g in greedy[s.idx][: m + 1]]
+            self._spec_stats.drafted += len(d)
+            self._spec_stats.accepted += m
+            self._spec_stats.emitted_spec += len(emitted)
+            req.stats.spec_forwards += 1
+            req.stats.spec_drafted += len(d)
+            req.stats.spec_accepted += m
+            pos0 = s.pos
+            for t in emitted:
+                s.pos += 1
+                self._emit(s, t)
+                if s.req is None:  # stop or budget retired the slot: the
+                    break          # rest of the accepted tokens go
+            if s.req is not None:
+                # clamp the draft frontier to the verified stream:
+                # positions past the first rejection hold rejected tokens'
+                # draft K/V, which a plain round would never overwrite
+                s.draft_pos = min(pos0 + k, s.pos)
+
     def _emit(self, s: _Slot, token: int) -> None:
         """Record one sampled token and retire the slot the moment the
         request is done: Engine.generate's continue condition, negated. A
@@ -448,6 +616,7 @@ class Scheduler:
         token = int(token)
         s.n_out += 1
         s.last = token
+        s.toks.append(token)  # the draft catch-up's fed-token history
         if req.stats.t_first is None:
             req.stats.t_first = time.perf_counter()
         req.stats.n_out = s.n_out
@@ -499,14 +668,27 @@ class Scheduler:
         slot decode graph, and builds and loads every kernel library the
         serving path launches. The supervisor runs it before it marks an
         engine ready, so a first step's capture never reads as a stall.
-        With a prefix cache, one seed and one publish run too: the seed
-        really writes row 0, so the scheduler must be idle."""
+        With a draft, its prefill chunk, its proposal and the verify step
+        run too, all rows gated, so speculative serving captures nothing
+        after warmup. With a prefix cache, one seed and one publish run
+        too: the seed really writes row 0, so the scheduler must be
+        idle."""
         eng = self.engine
         with self._mutex:
             gate = np.full((eng.batch,), eng.seq_len, np.int32)
             eng.slot_prefill_chunk(np.zeros((eng.batch, self.chunk), np.int32),
                                    gate, np.zeros((eng.batch,), np.int32))
             eng.slot_decode_step(np.zeros((eng.batch, 1), np.int32), gate)
+            if self.draft is not None:
+                self.draft_cache = self.draft.prefill_chunk(
+                    self.draft_cache,
+                    np.zeros((eng.batch, self.chunk), np.int32), gate)
+                _, self.draft_cache = self.draft.propose(
+                    self.draft_cache, np.zeros((eng.batch,), np.int32),
+                    gate, self.draft_len, n_vocab=self.draft_vocab)
+                eng.slot_verify_step(
+                    np.zeros((eng.batch, 1 + self.draft_len), np.int32),
+                    gate, self.draft_vocab)
             if self.prefix_cache is not None:
                 if any(s.req is not None for s in self.slots):
                     raise RuntimeError(

@@ -5,12 +5,12 @@ end-of-run averages (ref: src/apps/dllama/dllama.cpp:47-91). The port's copy
 of the JAX package's runtime/stats.py, for what the port runs: StepStats and
 RunStats (generation wall ms (G), device-step ms (I, the step up to its
 logits on the host — the copy is the sync point), host overhead ms), and the
-serving records of the scheduler, its supervisor and the radix prefix
-cache (RequestStats, ServeStats, SupervisorStats, PrefixCacheStats,
-percentile). The step timeline (it belongs to the flight recorder, which
-comes with the --trace flags) and the speculative, router, cluster,
-transfer and fleet records are not ported: the port serves none of those
-yet.
+serving records of the scheduler, its supervisor, the radix prefix
+cache and speculative decoding (RequestStats, ServeStats, SupervisorStats,
+PrefixCacheStats, SpecStats, percentile). The step timeline (it belongs to
+the flight recorder, which comes with the --trace flags) and the router,
+cluster, transfer and fleet records are not ported: the port serves none
+of those yet.
 """
 
 from __future__ import annotations
@@ -72,6 +72,12 @@ class RequestStats:
     t_submit: float = 0.0
     t_first: float | None = None
     t_done: float | None = None
+    # the request's speculative record (runtime/draft.py): verify forwards
+    # it rode, draft tokens proposed for it and how many were accepted
+    # (the aggregate twin: SpecStats)
+    spec_forwards: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
     @property
     def ttft_ms(self) -> float | None:
@@ -84,6 +90,43 @@ class RequestStats:
         if self.t_first is None or self.t_done is None or self.n_out < 2:
             return None
         return (self.t_done - self.t_first) / (self.n_out - 1) * 1e3
+
+
+@dataclasses.dataclass
+class SpecStats:
+    """Aggregate speculative-decoding counters (the `spec` /stats block and
+    the dllama_spec_* /metrics family), owned by the Scheduler, or by the
+    API server's legacy path. Attached even with drafting off (mode "off",
+    zeros): a tier never loses a metric family to a launch flag. Lifetime:
+    one scheduler generation, like ServeStats."""
+
+    mode: str = "off"          # off | self<d> | model | lookup | the --draft
+    draft_len: int = 0
+    verify_forwards: int = 0   # verify forwards dispatched
+    draft_forwards: int = 0    # draft dispatches (a proposal or a chunk)
+    drafted: int = 0           # draft tokens proposed (speculating rows)
+    accepted: int = 0          # draft tokens the verify confirmed
+    emitted_spec: int = 0      # tokens emitted by speculating rows
+    # iterations run with drafting disabled by the SLO admission policy
+    # (its "no speculation" rung is not ported: always 0 here)
+    degraded_steps: int = 0
+
+    def summary(self) -> dict:
+        return {
+            "mode": self.mode,
+            "draft_len": self.draft_len,
+            "verify_forwards": self.verify_forwards,
+            "draft_forwards": self.draft_forwards,
+            "drafted": self.drafted,
+            "accepted": self.accepted,
+            "emitted_spec": self.emitted_spec,
+            "accept_rate": (round(self.accepted / self.drafted, 4)
+                            if self.drafted else None),
+            "tokens_per_verify": (round(self.emitted_spec
+                                        / self.verify_forwards, 3)
+                                  if self.verify_forwards else None),
+            "degraded_steps": self.degraded_steps,
+        }
 
 
 @dataclasses.dataclass
@@ -106,6 +149,8 @@ class ServeStats:
     # attached by the Scheduler when the radix prefix cache is on: its
     # summary rides the same /stats payload as a `prefix_cache` block
     prefix: "PrefixCacheStats | None" = None
+    # always attached by the Scheduler (mode "off" without a draft)
+    spec: SpecStats | None = None
 
     def __post_init__(self):
         self.requests = deque(maxlen=self.window)   # RequestStats records
@@ -137,6 +182,8 @@ class ServeStats:
         }
         if self.prefix is not None:
             out["prefix_cache"] = self.prefix.summary()
+        if self.spec is not None:
+            out["spec"] = self.spec.summary()
         return out
 
 

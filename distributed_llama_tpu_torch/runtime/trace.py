@@ -5,8 +5,8 @@ single-GPU serving stack produces, the radix prefix cache's included.
 
 The flight recorder (``Tracer``: per-request spans, the step timeline and
 its ``dllama_step_ms`` families) comes with the --trace flags that turn it
-on (ROADMAP item 10c). The JSONL sink and the router, speculation,
-transfer, fleet and cluster families are not ported.
+on (ROADMAP item 10c). The JSONL sink and the router, transfer, fleet and
+cluster families are not ported.
 """
 
 from __future__ import annotations
@@ -106,6 +106,47 @@ def _add_block(p: _Prom, block: dict | None, table, *, type_: str) -> None:
         p.add(name, block.get(key), type_=type_)
 
 
+_SPEC_COUNTERS = (
+    ("verify_forwards", "spec_verify_forwards_total",
+     "Fixed-width speculative verify forwards dispatched"),
+    ("draft_forwards", "spec_draft_forwards_total",
+     "Draft dispatches (one k-token scan or prefill chunk == one)"),
+    ("drafted", "spec_drafted_tokens_total",
+     "Draft tokens proposed to the verifier"),
+    ("accepted", "spec_accepted_tokens_total",
+     "Draft tokens the verify forward confirmed"),
+    ("emitted_spec", "spec_emitted_tokens_total",
+     "Tokens emitted by speculating rows"),
+    ("degraded_steps", "spec_degraded_steps_total",
+     "Iterations the SLO admission policy ran with drafting disabled"),
+)
+
+
+def _add_spec(p: _Prom, spec: dict | None, *, labels: dict | None = None,
+              prefix: str = "dllama_") -> None:
+    """The speculative-decoding family (the SpecStats summary), attached
+    even with drafting off (mode "off", zeros), so the family never
+    vanishes off a launch flag. `labels` and `prefix` serve a per-replica
+    block (dllama_replica_spec_*), as the JAX renderer's do."""
+    if not spec:
+        return
+    per = " (per replica)" if prefix != "dllama_" else ""
+    p.add(f"{prefix}spec_mode", 1,
+          {**(labels or {}), "mode": _esc(spec.get("mode", "off")),
+           "draft_len": str(spec.get("draft_len", 0))},
+          help_=f"Draft mode in effect (info-style: constant 1){per}")
+    for key, name, help_ in _SPEC_COUNTERS:
+        p.add(f"{prefix}{name}", spec.get(key), labels, type_="counter",
+              help_=help_ + per)
+    p.add(f"{prefix}spec_accept_rate", spec.get("accept_rate"), labels,
+          help_="Accepted / drafted over the scheduler generation — the "
+                "number that says whether speculation pays on this "
+                f"traffic (docs/operations.md){per}")
+    p.add(f"{prefix}spec_tokens_per_verify", spec.get("tokens_per_verify"),
+          labels,
+          help_=f"Mean tokens emitted per verify forward{per}")
+
+
 def _add_device_blocks(p: _Prom, summary: dict) -> None:
     """The device-tier families (runtime/profiler.py): the ledger of
     captured graphs, the memory ledger, the sampled step device time."""
@@ -193,5 +234,6 @@ def render_prometheus(summary: dict | None, *, model: str = "dllama",
               help_="Failure-detected to ready-again latency")
         p.add("dllama_supervisor_recovery_ms", res.get("recovery_p99_ms"),
               {"quantile": "0.99"})
+        _add_spec(p, summary.get("spec"))
         _add_device_blocks(p, summary)
     return p.render()

@@ -191,10 +191,18 @@ def test_readyz_scheduler_states_and_stats(files):
 
 
 def test_legacy_stats_and_metrics(servers):
+    """The legacy tier answers /stats with the scheduler off and its
+    speculative accept record (mode "off" here), as the JAX server does
+    (whose legacy /stats also carries the fleet blocks the port lacks)."""
     addr = servers[("port", "legacy")][0]
-    assert json.loads(_get(addr, "/stats").read()) == {"scheduler": "off"}
+    stats = json.loads(_get(addr, "/stats").read())
+    jstats = json.loads(_get(servers[("jax", "legacy")][0], "/stats").read())
+    assert set(stats) == {"scheduler", "spec"}
+    assert stats == {k: jstats[k] for k in stats}
+    assert stats["scheduler"] == "off" and stats["spec"]["mode"] == "off"
     metrics = _get(addr, "/metrics").read().decode()
     assert 'mode="legacy"' in metrics and 'dllama_state{state="off"} 1' in metrics
+    assert 'dllama_spec_mode{mode="off",draft_len="0"} 1' in metrics
 
 
 def test_prompt_too_long_clean_400(servers):

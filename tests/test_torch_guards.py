@@ -688,7 +688,8 @@ def test_cli_refuses_unported_serving_flags(capsys):
 
     for argv, needle in (
             (["api", "--prefix-cache"], "--prefix-cache requires --serve-batch N"),
-            (["api", "--draft", "self:1"], "ROADMAP item 12"),
+            (["api", "--draft", "self:1", "--lookup-decode", "2"],
+             "both pick the draft source"),
             (["api", "--replicas", "2"], "ROADMAP item 16"),
             (["api", "--admin-token", "x"], "ROADMAP item 10c"),
             (["api", "--serve-batch", "2", "--session", "s.bin"],
@@ -733,3 +734,115 @@ def test_chat_mode_without_a_card_raises(monkeypatch, tmp_path):
         dllama.main(["chat", "--model", mpath, "--tokenizer", tpath,
                      "--session", str(tmp_path / "s.npz")])
     assert not (tmp_path / "s.npz").exists()
+
+
+def test_import_guards_cover_the_speculation_path():
+    """The speculation slice's modules are in the package the blocked-jax
+    import test and the per-file import scan walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"runtime/speculative.py", "runtime/draft.py"} <= files
+
+
+def test_cpu_engine_never_captures_the_speculative_steps(monkeypatch):
+    """On the CPU the verify steps and the draft's steps run eagerly,
+    cuda_graphs or not."""
+    from distributed_llama_tpu_torch.runtime import draft as draft_mod
+    from distributed_llama_tpu_torch.runtime import engine as engine_mod
+    from distributed_llama_tpu_torch.runtime.draft import DraftModel
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU engine tried to capture a CUDA graph")
+    monkeypatch.setattr(engine_mod, "capture", refuse)
+    monkeypatch.setattr(draft_mod, "capture", refuse)
+    eng = _cpu_engine(cuda_graphs=True)
+    d = DraftModel.self_draft(eng, 1)
+    assert len(eng.generate_lookup([1, 2, 1, 2], 6, draft_len=3).tokens) == 6
+    eng.reset()
+    assert len(eng.generate_draft([1, 2, 3], 6, draft=d, draft_len=3).tokens) == 6
+    eng.reset()
+    assert len(eng.generate_draft_sampled([1, 2, 3], 4, draft=d, temperature=0.8,
+                                          topp=0.9, seed=1).tokens) == 4
+    b = _cpu_engine(batch=2, cuda_graphs=True)
+    greedy, logits0 = b.slot_verify_step(np.asarray([[3, 4, 5], [6, 6, 6]], np.int32),
+                                         np.asarray([0, b.seq_len], np.int32), 50)
+    assert greedy.shape == (2, 3) and greedy.dtype == np.int32
+    assert logits0.shape == (2, b.spec.vocab_size)
+    assert eng.graphs == {} and d.graphs == {} and b.graphs == {}
+
+
+def test_speculative_graph_keys_and_launch_tallies(monkeypatch):
+    """With CUDA's graph API faked on the CPU and a forward that counts 2
+    K1 and 1 K3 launches: each verify width T is one graph ("lookup", T),
+    the draft's proposal one graph replayed k times, its sampled step one
+    graph, the scheduler's verify one ("slot_verify", 1 + K, n_vocab);
+    every key is in COMPILES, the capture's launches are the warm-up's,
+    each replay adds the tally, and Engine.release releases the drafts."""
+    import contextlib
+    import types
+
+    from distributed_llama_tpu_torch.runtime import draft as draft_mod
+    from distributed_llama_tpu_torch.runtime import engine as engine_mod
+    from distributed_llama_tpu_torch.runtime import graphs
+    from distributed_llama_tpu_torch.runtime.draft import DraftModel
+    from distributed_llama_tpu_torch.runtime.profiler import COMPILES
+
+    class FakeGraph:
+        def replay(self):
+            pass
+
+        def reset(self):
+            pass
+
+    stream = types.SimpleNamespace(wait_stream=lambda other: None)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda: stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: stream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", lambda g: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(graphs, "pool_bytes", lambda g: 0)
+
+    def counting_forward(params, spec, tokens, pos0, cache, *, logits_for_all=False,
+                         logits=True, **kw):
+        cuda_q40.q40_matmul.launches += 2
+        cuda_attention.flash_attention.launches += 1
+        b, t = tokens.shape
+        return torch.zeros((b, t, spec.vocab_size) if logits_for_all
+                           else (b, spec.vocab_size))
+    monkeypatch.setattr(engine_mod, "forward", counting_forward)
+    monkeypatch.setattr(draft_mod, "forward", counting_forward)
+    COMPILES.reset()
+    try:
+        eng = _cpu_engine()
+        eng.cuda_graphs = True
+        v = eng.spec.vocab_size
+        k1 = cuda_q40.q40_matmul
+        n0 = k1.launches
+        for t in (3, 3, 2):
+            lg = eng._verify_logits(np.zeros((1, t), np.int32), 4)
+            assert lg.shape == (t, v)
+        assert set(eng.graphs) == {("lookup", 3), ("lookup", 2)}
+        assert all(g.tally == (2, 0, 0, 1, 0) for g in eng.graphs.values())
+        assert k1.launches - n0 == 2 * 2 + 3 * 2   # two warm-ups, three replays
+        d = DraftModel.self_draft(eng, 1)
+        n0 = k1.launches
+        toks, cache = d.propose(d.cache, np.asarray([3], np.int32),
+                                np.asarray([4], np.int32), 5, n_vocab=v)
+        assert toks.shape == (1, 5) and cache is d.cache
+        assert k1.launches - n0 == 2 + 5 * 2       # warm-up, five replays
+        d.step_logits(d.cache, np.asarray([[3]], np.int32), np.asarray([4], np.int32))
+        assert set(d.graphs) == {("sdraft_scan", "self1", 5, v), ("sdraft_step", "self1")}
+        assert d.graphs[("sdraft_scan", "self1", 5, v)].tally == (2, 0, 0, 1, 0)
+        b = _cpu_engine(batch=2)
+        b.cuda_graphs = True
+        greedy, logits0 = b.slot_verify_step(np.zeros((2, 4), np.int32),
+                                             np.asarray([0, b.seq_len], np.int32), v)
+        assert list(b.graphs) == [("slot_verify", 4, v)]
+        assert greedy.shape == (2, 4) and logits0.shape == (2, v)
+        assert {"lookup:3", "lookup:2", f"sdraft_scan:self1:5:{v}", "sdraft_step:self1",
+                f"slot_verify:4:{v}"} <= set(COMPILES.summary()["by_key"])
+        eng.release()
+        assert d.cache is None and d.graphs == {} and eng._drafts == []
+    finally:
+        COMPILES.reset()

@@ -207,7 +207,7 @@ def test_exclusive_drains_then_lends_engine(tiny):
 
 def test_scheduler_refuses_unported_options(tiny):
     eng = _engine(tiny, 2)
-    for opt in ("draft_factory", "slo_ttft_ms", "fair_queue"):
+    for opt in ("fault_key", "slo_ttft_ms", "fair_queue"):
         with pytest.raises(ValueError, match="not ported"):
             Scheduler(eng, **{opt: object()})
     with pytest.raises(TypeError):

@@ -325,10 +325,18 @@ def test_chat_session_flag_resumes(fixture_files, tmp_path, monkeypatch, tempera
 
 
 def test_chat_refuses_speculation_flags(fixture_files):
+    """Chat speculates (tests/test_torch_draft.py, test_torch_speculative.py);
+    what it refuses are the JAX CLI's dead combinations, in its words."""
+    from distributed_llama_tpu.apps import dllama as jax_dllama
     from distributed_llama_tpu_torch.apps import dllama
 
     mpath, tpath = fixture_files
-    for flag, val in (("--lookup-decode", "5"), ("--draft", "self:1")):
+    for extra, needle in ((["--lookup-decode", "5", "--draft", "self:1"],
+                           "both pick the draft source"),
+                          (["--draft-len", "3"], "--draft-len has no effect")):
+        argv = ["chat", "--model", mpath, "--tokenizer", tpath] + extra
         with pytest.raises(SystemExit) as ei:
-            dllama.main(["chat", "--model", mpath, "--tokenizer", tpath, flag, val])
-        assert "ROADMAP item 12" in str(ei.value) and "mode 'chat'" in str(ei.value)
+            dllama.main(argv)
+        with pytest.raises(SystemExit) as ej:
+            jax_dllama.main(argv)
+        assert needle in str(ei.value) and str(ei.value) == str(ej.value)
