@@ -250,6 +250,30 @@ result line):
     --lookup-decode 4` and `--draft self:1` on the tiny Llama and Mixtral
     fixtures, at the defaults with their kernels launched, and in f32
     with the CPU's tokens.
+10. The flight recorder, the device profiler and the batch generators
+    (`[trace]`, `[batch]`, `[F3]` lines; over the same 7B weights, B = 4,
+    C = 256, bf16 cache, Q80 on): (a) phase 7's 8 requests with --trace
+    and --profile-sample 1: each request's span holds enqueue > admit >
+    prefill > first_token > finish under its own trace id; the step
+    timeline's compositions; each sampled step's wall ms, device ms by
+    entry (CUDA events around each graph replay and eager entry) and host
+    gap; no capture after warmup; tokens held to batch-1 generate's. A
+    scheduler step with 4 live decode rows timed with tracing off and on
+    in turns, TRACE_PAIRS pairs: tracing must cost at most 2%. (d) The
+    batch generators over 4 prompts: generate_batch against batch-1
+    generate, generate_batch_device (T 0.8, top-p 0.9, row i seeded
+    11 + i) against its host twin (same forward, a Sampler a row): equal
+    or a CDF neighbour within the f32 bound, generate_batch_lookup against
+    generate_batch; wall, prefill, ms a decode forward and tok/s. (b)
+    `dllama api --serve-batch 4` in-process: POST /admin/profile?ms=200
+    while 3 streams decode and a 4th is admitted, the trace's K1 and K3
+    kernels counted (inside graph replays too; none there is printed, not
+    failed); POST /v1/batch/completions with 4 prompts, texts equal to
+    generate_batch's on the same engine. (c, e) Three CLI processes on the
+    tiny Llama Q40 fixture: `generate --profile DIR` (its trace must hold
+    K1 kernels), the KV-header file, and its legacy-header copy with
+    --weights-float-type q40, whose tokens must equal the KV-header
+    file's.
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
@@ -2642,27 +2666,38 @@ def serving_scheduler(spec, one, eng, sched) -> dict:
     print(f"[serve] 4 batch steps x 4 live rows vs the batch-1 step: all within tolerance; "
           f"worst {worst}; near-tie bound on a top-2 gap 2e = {near_tie:.4g}")
 
+    parity = batch1_parity(one, prompts, got, near_tie, "[serve] request")
+    return dict(wall_s=wall, chunks=calls["chunk"], steps=calls["step"], launches=counts,
+                parity=parity, step_rows_worst=worst, near_tie_bound=near_tie)
+
+
+def batch1_parity(one, prompts: list, got: list, near_tie: float, tag: str,
+                  n: int = 32) -> list:
+    """Each row's greedy tokens against a sequential batch-1 generate of its
+    prompt: equal, or first different where the batch-1 top-2 logit gap is
+    within the near-tie bound (a batch row's logits lie within e of the
+    batch-1 step's)."""
+    vocab = one.spec.vocab_size
     parity = []
     for i, (p, toks) in enumerate(zip(prompts, got)):
         one.reset()
         rec = _recording_sampler(vocab, 0.0, 0.9, 1)
-        ref = one.generate(p, 32, rec).tokens
+        ref = one.generate(p, n, rec).tokens
         first_diff = next((k for k, (x, y) in enumerate(zip(toks, ref)) if x != y),
                           None if len(toks) == len(ref) else min(len(toks), len(ref)))
         gaps = [_top2_gap(lg) for lg, _ in rec.seen]
         gap = (None if first_diff is None or first_diff >= len(gaps) else gaps[first_diff])
         parity.append(dict(prompt=len(p), tokens=len(toks), first_difference=first_diff,
                            gap_at_difference=gap, min_gap=min(gaps)))
-        print(f"[serve] request {i}: {len(p)}-token prompt, {len(toks)} tokens; "
+        print(f"{tag} {i}: {len(p)}-token prompt, {len(toks)} tokens; "
               + ("equal to batch-1 generate's" if first_diff is None else
                  f"first difference from batch-1 generate at {first_diff}, batch-1 top-2 gap "
                  f"there {gap} (near-tie bound {near_tie:.4g})")
               + f"; smallest batch-1 top-2 gap {min(gaps):.4g}")
         if first_diff is not None and (gap is None or gap > near_tie):
-            fail(f"request {i}: tokens differ from batch-1 generate at {first_diff}, where the "
+            fail(f"{tag} {i}: tokens differ from batch-1 generate at {first_diff}, where the "
                  f"batch-1 top-2 gap {gap} exceeds the near-tie bound {near_tie:.4g}")
-    return dict(wall_s=wall, chunks=calls["chunk"], steps=calls["step"], launches=counts,
-                parity=parity, step_rows_worst=worst, near_tie_bound=near_tie)
+    return parity
 
 
 # the load run: greedy requests of 32 tokens with seeded prompts of 16-300
@@ -2881,11 +2916,12 @@ def serving_http(spec, one, card: str) -> dict:
             if path == "/stats":
                 out["stats"] = json.loads(body)
         dev = out["stats"].get("device_time", {})
-        sampled = dev.get("by_entry", {}).get("scheduler_step")
+        sampled = dev.get("by_entry", {}).get("slot_decode")
         print(f"[serve] HTTP /stats: {dev.get('sampled_steps')} working steps sampled by the "
-              f"step sampler (CUDA events), device ms a step {sampled} [{card}]")
+              f"step sampler (CUDA events around each entry), device ms by entry {dev.get('by_entry')} "
+              f"[{card}]")
         if not sampled:
-            fail(f"the step sampler recorded no device time: {dev}")
+            fail(f"the step sampler recorded no slot_decode device time: {dev}")
         status, raw = post(addr, "/v1/chat/completions",
                            {"messages": [{"role": "user", "content": "x" * 3000}],
                             "max_tokens": 2, "temperature": 0})
@@ -3879,6 +3915,493 @@ def phase_spec(card: str, params, near_tie_7: float, gen) -> dict:
     return out
 
 
+# -- phase 10: the flight recorder, the device profiler and the batch
+# generators -------------------------------------------------------------------
+
+# untraced/traced batch-step pairs, in ABBA order; tracing may cost at most
+# this share of a batch step (the JAX package's bar, tests/test_trace.py:316)
+TRACE_PAIRS, TRACE_BOUND = 100, 0.02
+SPAN_ORDER = ("enqueue", "admit", "prefill", "first_token", "finish")
+BATCH_N = 32        # tokens a row of each batch generator run
+
+
+def _in_order(kinds: list, want: tuple) -> bool:
+    """Whether `want` is a subsequence of `kinds`."""
+    it = iter(kinds)
+    return all(k in it for k in want)
+
+
+def trace_run(spec, one, sched, near_tie: float, card: str) -> dict:
+    """(a): phase 7's 8 parity requests with the flight recorder on and
+    every working step sampled (--trace, --profile-sample 1): each
+    request's span in order under its own trace id; the step timeline's
+    compositions; each sampled step's wall ms, device ms by entry (CUDA
+    events around each entry point) and host gap (wall - device); no graph
+    captured after warmup; tokens held to batch-1 generate's."""
+    from distributed_llama_tpu_torch.runtime.profiler import COMPILES, PROFILER
+    from distributed_llama_tpu_torch.runtime.trace import TRACER
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab, eng = spec.vocab_size, sched.engine
+    rng = np.random.default_rng(13)
+    prompts = [[1] + rng.integers(3, vocab, n - 1).tolist()
+               for n in rng.integers(40, 301, 8)]
+    graphs0, warm0 = set(eng.graphs), COMPILES.summary()["after_warmup"]
+    TRACER.configure(capacity=1 << 16)
+    PROFILER.reset()
+    PROFILER.sample_every = 1
+    t0 = time.perf_counter()
+    try:
+        reqs = [sched.submit(p, 32, Sampler(vocab, 0.0, 0.9, 1)) for p in prompts[:4]]
+        while not all(r.stats.t_first is not None for r in reqs):
+            sched.step()
+        reqs += [sched.submit(p, 32, Sampler(vocab, 0.0, 0.9, 1)) for p in prompts[4:]]
+        while not all(r.finished.is_set() for r in reqs):
+            sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = [e for e in TRACER.recent(0) if e["kind"] == "step"]
+        end = time.perf_counter() + 60
+        while (PROFILER.sampled + PROFILER.sample_failures < len(steps)
+               and time.perf_counter() < end):
+            time.sleep(0.01)
+    finally:
+        PROFILER.sample_every = 0
+    if PROFILER.sample_failures or PROFILER.sampled != len(steps):
+        fail(f"trace run: {PROFILER.sampled} steps attributed, {PROFILER.sample_failures} "
+             f"failures, of {len(steps)} working steps")
+    got = [list(r.tokens(timeout=5.0)) for r in reqs]
+    tids = [r.trace_id for r in reqs]
+    if len(set(tids)) != len(reqs) or min(tids) < 1:
+        fail(f"trace ids {tids}: one id > 0 a request wanted")
+    spans = []
+    for i, r in enumerate(reqs):
+        span = TRACER.by_id(r.trace_id)
+        kinds = [e["kind"] for e in span]
+        if any(e["tid"] != r.trace_id for e in span) or not _in_order(kinds, SPAN_ORDER):
+            fail(f"request {i}: span {kinds} under trace id {r.trace_id}")
+        spans.append(kinds)
+    print(f"[trace] 8 requests x 32 tokens in {wall:.3f} s with --trace and --profile-sample "
+          f"1: every span in order under its own trace id, e.g. request 0: "
+          f"{' > '.join(spans[0])}")
+    timeline = TRACER.step_timeline()
+    for comp, row in timeline.items():
+        print(f"[trace] step timeline: {comp[0]} decode rows, {comp[1]} prefill rows, chunk "
+              f"{comp[2]}: {row['n']} steps, wall p50 {row['p50_ms']:.3f} ms, p99 "
+              f"{row['p99_ms']:.3f}, mean {row['mean_ms']:.3f} [{card}]")
+    by_n = {r["step"]: r for r in PROFILER.recent_steps}
+    rows = []
+    for ev, n in zip(steps, sorted(by_n)):
+        r = by_n[n]
+        rows.append(dict(dec=ev["dec"], pre=ev["pre"], wall_ms=r["wall_ms"],
+                         device_ms=r["device_ms"], span_ms=r["span_ms"],
+                         host_gap_ms=r["wall_ms"] - r["device_ms"],
+                         by_entry={k: round(v, 4) for k, v in r["by_entry"].items()}))
+    for k, r in enumerate(rows[:8]):
+        print(f"[trace] sampled step {k} ({r['dec']} decode, {r['pre']} prefill rows): wall "
+              f"{r['wall_ms']:.3f} ms, device {r['device_ms']:.3f} ms {r['by_entry']}, host gap "
+              f"{r['host_gap_ms']:.3f} ms [{card}]")
+    groups: dict = {}
+    for r in rows:
+        groups.setdefault((r["dec"], r["pre"]), []).append(r)
+    summary = {}
+    for (dec, pre), rs in sorted(groups.items()):
+        med = {f: float(np.median([r[f] for r in rs]))
+               for f in ("wall_ms", "device_ms", "host_gap_ms", "span_ms")}
+        entries = {k: float(np.median([r["by_entry"].get(k, 0.0) for r in rs]))
+                   for k in sorted({k for r in rs for k in r["by_entry"]})}
+        summary[f"dec{dec}_pre{pre}"] = dict(n=len(rs), by_entry=entries, **med)
+        print(f"[trace] sampled steps, {dec} decode + {pre} prefill rows ({len(rs)}): median "
+              f"wall {med['wall_ms']:.3f} ms, device {med['device_ms']:.3f} ms "
+              f"({', '.join(f'{k} {v:.3f}' for k, v in entries.items())}), host gap "
+              f"{med['host_gap_ms']:.3f} ms = {med['host_gap_ms'] / med['wall_ms']:.3f} of the "
+              f"wall; device span first to last event {med['span_ms']:.3f} ms [{card}]")
+    captured = sorted(map(str, set(eng.graphs) - graphs0))
+    after = COMPILES.summary()["after_warmup"] - warm0
+    print(f"[trace] graphs captured after warmup with tracing and sampling on: {after} "
+          f"({captured or 'none'})")
+    if after or captured:
+        fail(f"tracing captured graphs after warmup: {captured}")
+    parity = batch1_parity(one, prompts, got, near_tie, "[trace] request")
+    return dict(wall_s=wall, spans=spans, timeline={f"dec{k[0]}_pre{k[1]}_c{k[2]}": v
+                                                    for k, v in timeline.items()},
+                sampled=rows, by_composition=summary, parity=parity)
+
+
+def trace_overhead(spec, sched, card: str) -> dict:
+    """(a): ms a scheduler step with 4 live decode rows, the flight
+    recorder off and on in turns (ABBA, TRACE_PAIRS pairs): the medians and
+    their spread; tracing must cost at most TRACE_BOUND of the step."""
+    from distributed_llama_tpu_torch.runtime.trace import TRACER
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab = spec.vocab_size
+    rng = np.random.default_rng(19)
+    reqs = [sched.submit([1] + rng.integers(3, vocab, 99).tolist(), 2 * TRACE_PAIRS + 24,
+                         Sampler(vocab, 0.0, 0.9, 1)) for _ in range(SERVE_B)]
+    while not all(r.stats.t_first is not None for r in reqs):
+        sched.step()
+    for _ in range(4):
+        sched.step()
+    ms: dict = {False: [], True: []}
+    try:
+        for i in range(TRACE_PAIRS):
+            for on in ((False, True) if i % 2 == 0 else (True, False)):
+                TRACER.enabled = on
+                t0 = time.perf_counter()
+                sched.step()
+                ms[on].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        TRACER.enabled = True
+        for r in reqs:
+            r.cancel()
+        while sched.step():
+            pass
+    off, on = _ms_stats(ms[False]), _ms_stats(ms[True])
+    share = on["median"] / off["median"] - 1
+    p = {k: [float(np.percentile(ms[k], q)) for q in (10, 90)] for k in ms}
+    print(f"[trace] scheduler step, 4 live decode rows, {TRACE_PAIRS} pairs in turns: tracing off "
+          f"{off['median']:.4f} ms median (p10 {p[False][0]:.4f}, p90 {p[False][1]:.4f}), on "
+          f"{on['median']:.4f} ms (p10 {p[True][0]:.4f}, p90 {p[True][1]:.4f}): "
+          f"{share * 100:+.2f}% (bound {TRACE_BOUND * 100:.0f}%) [{card}]")
+    if share > TRACE_BOUND:
+        fail(f"tracing costs {share * 100:.2f}% of a batch step, over {TRACE_BOUND * 100:.0f}%")
+    return dict(off=off, on=on, share=share, pairs=TRACE_PAIRS, p10_p90=p)
+
+
+def _timed_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def _host_batch_sampled(eng, prompts: list, n: int, temperature: float, topp: float,
+                        seed: int) -> tuple:
+    """generate_batch_device's host twin: the same prefill and the same
+    (B, 1) forward (the slot decode graph), each row sampled on the host
+    by its own recording Sampler seeded seed + i."""
+    b, s = eng.batch, eng.seq_len
+    recs = [_recording_sampler(eng.spec.vocab_size, temperature, topp, seed + i)
+            for i in range(b)]
+    lg = eng.fetch_logits(eng._batch_prefill(prompts))
+    pos = np.asarray([len(p) for p in prompts], np.int32)
+    out = [[] for _ in range(b)]
+    for _ in range(n):
+        live = pos < s
+        if not live.any():
+            break
+        tok = np.zeros((b, 1), np.int32)
+        for i in np.nonzero(live)[0]:
+            tok[i, 0] = recs[i].sample(lg[i])
+            out[i].append(int(tok[i, 0]))
+        lg = eng.fetch_logits(eng.slot_decode_step(tok, np.where(live, pos, s)))
+        pos = pos + 1
+    return out, recs
+
+
+def batch_generators(spec, one, eng, near_tie: float, card: str) -> dict:
+    """(d): the batch generators on the B = 4 engine over 4 prompts of
+    300/213/97/256 tokens, BATCH_N tokens a row: generate_batch greedy
+    against batch-1 generate; generate_batch_device at 0.8 / top-p 0.9
+    against its host twin (each row's own seed, the same forward): equal,
+    or a CDF neighbour within the f32 bound; generate_batch_lookup against
+    generate_batch; generate_batch at 0.8 / top-p 0.9 too, for the host
+    loop's cost at the device loop's sampler. Each run twice (the first
+    captures), timed: wall ms, the prefill's share, ms a decode forward
+    and decode tok/s."""
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab, n = spec.vocab_size, BATCH_N
+    rng = np.random.default_rng(23)
+    prompts = [[1] + rng.integers(3, vocab, m - 1).tolist() for m in (300, 213, 97, 256)]
+    graphs0 = set(eng.graphs)
+    pre_ms = min(_timed_ms(lambda: eng._batch_prefill(prompts))[1] for _ in range(2))
+    runs = {
+        "generate_batch": lambda: eng.generate_batch(prompts, n, Sampler(vocab, 0.0, 0.9, 1)),
+        # the host loop at the device loop's sampler settings, for its cost
+        "generate_batch T=0.8": lambda: eng.generate_batch(prompts, n,
+                                                         Sampler(vocab, 0.8, 0.9, 11)),
+        "generate_batch_device": lambda: eng.generate_batch_device(
+            prompts, n, temperature=0.8, topp=0.9, seed=11),
+        "generate_batch_lookup": lambda: eng.generate_batch_lookup(prompts, n, draft_len=SPEC_K),
+    }
+    out: dict = {"prefill_ms": pre_ms}
+    toks: dict = {}
+    for name, fn in runs.items():
+        first, _ = _timed_ms(fn)
+        got, ms = _timed_ms(fn)
+        if got != first:
+            fail(f"{name}: a second run gave other tokens")
+        toks[name] = got
+        forwards = (eng.last_accept_stats[0] if name == "generate_batch_lookup"
+                    else eng.last_device_steps if name == "generate_batch_device" else n)
+        n_tok = sum(len(r) for r in got)
+        dec_ms = ms - pre_ms
+        out[name] = dict(wall_ms=ms, tokens=n_tok, forwards=forwards,
+                         decode_ms_per_forward=dec_ms / max(forwards - 1, 1),
+                         decode_tok_s=(n_tok - len(got)) / dec_ms * 1e3)
+        r = out[name]
+        print(f"[batch] {name}: {n_tok} tokens over 4 rows in {ms:.3f} ms (prefill "
+              f"{pre_ms:.3f}), {forwards} forwards: {r['decode_ms_per_forward']:.3f} ms a decode "
+              f"forward, {r['decode_tok_s']:.1f} decode tok/s [{card}]")
+    out["generate_batch"]["parity"] = batch1_parity(
+        one, prompts, toks["generate_batch"], near_tie, "[batch] generate_batch row", n)
+    host, recs = _host_batch_sampled(eng, prompts, n, 0.8, 0.9, 11)
+    diffs = []
+    for i, (d, h) in enumerate(zip(toks["generate_batch_device"], host)):
+        k = next((j for j, (x, y) in enumerate(zip(d, h)) if x != y),
+                 None if len(d) == len(h) else min(len(d), len(h)))
+        if k is None:
+            continue
+        lg, state = recs[i].seen[k] if k < len(recs[i].seen) else (None, None)
+        m = (cdf_margin(lg, state, 0.8, 0.9, h[k], d[k])
+             if lg is not None and k < len(d) else None)
+        diffs.append(dict(row=i, first_difference=k, cdf=m))
+        if m is None or not m["adjacent"] or m["margin"] > m["f32_bound"]:
+            fail(f"generate_batch_device row {i} differs from its host twin at {k}: {m}")
+    print(f"[batch] generate_batch_device T=0.8 top-p 0.9, row i seeded 11 + i: "
+          + ("every row equal to the host twin's tokens" if not diffs else
+             f"rows differ from the host twin only at CDF neighbours within the f32 bound: "
+             f"{diffs}"))
+    out["generate_batch_device"]["host_differences"] = diffs
+    same = toks["generate_batch_lookup"] == toks["generate_batch"]
+    out["generate_batch_lookup"]["equal_to_generate_batch"] = same
+    if not same:
+        out["generate_batch_lookup"]["parity"] = batch1_parity(
+            one, prompts, toks["generate_batch_lookup"], near_tie,
+            "[batch] generate_batch_lookup row", n)
+    minted = sorted(map(str, set(eng.graphs) - graphs0))
+    print(f"[batch] generate_batch_lookup equal to generate_batch on every greedy row: {same}; "
+          f"{eng.last_accept_stats[1] / max(eng.last_accept_stats[0], 1):.2f} tokens a forward; "
+          f"graphs minted by the batch generators: {minted}")
+    out["graphs_minted"] = minted
+    return out
+
+
+def _kernel_counts(path: str) -> dict:
+    """Kernel events of a torch.profiler Chrome trace: K1 (q40_*), K3
+    (flash_*) and all, each with how many ran inside a CUDA graph replay
+    (correlated with a cudaGraphLaunch)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    graph = {e.get("args", {}).get("correlation") for e in events
+             if e.get("cat") == "cuda_runtime" and e.get("name") == "cudaGraphLaunch"}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = {}
+    for tag, pick in (("K1", lambda k: "q40_" in k), ("K3", lambda k: "flash_" in k),
+                      ("all", lambda k: True)):
+        ks = [e for e in kernels if pick(e.get("name", ""))]
+        out[tag] = dict(n=len(ks), in_graph=sum(e.get("args", {}).get("correlation") in graph
+                                                for e in ks))
+    return out
+
+
+def trace_http(spec, one, card: str) -> dict:
+    """(b) and (d): `dllama api --serve-batch 4` in-process: POST
+    /admin/profile?ms=200 while 3 streams decode and a 4th is admitted,
+    its trace file's K1 and K3 kernels (inside graph replays too); then
+    POST /v1/batch/completions with 4 prompts, whose texts must equal
+    generate_batch's on the same engine."""
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from distributed_llama_tpu_torch.apps import api_server
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab = spec.vocab_size
+    tokenizer = _tokenizer(vocab)
+    rng = np.random.default_rng(31)
+
+    def words(k):
+        return " ".join("".join(chr(97 + c) for c in rng.integers(0, 26, 5)) for _ in range(k))
+
+    def post(addr, route, body):
+        conn = http.client.HTTPConnection(*addr, timeout=600)
+        conn.request("POST", route, json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        state = api_server.ApiState(one, tokenizer, Sampler(vocab, 0.0, 0.9, 3),
+                                    model_name="llama2-7b-synthetic", serve_batch=SERVE_B,
+                                    serve_chunk=SERVE_C, profile_dir=d)
+        server = ThreadingHTTPServer(("127.0.0.1", 0), api_server.make_handler(state))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        addr = server.server_address[:2]
+        try:
+            res: dict = {}
+
+            def call(key, route, body):
+                res[key] = post(addr, route, body)
+            bodies = [{"prompt": words(40), "max_tokens": 96, "temperature": 0, "stream": True}
+                      for _ in range(SERVE_B)]
+            threads = [threading.Thread(target=call, args=(i, "/v1/completions", bodies[i]))
+                       for i in range(SERVE_B)]
+            for t in threads[:3]:
+                t.start()
+            time.sleep(0.5)          # the 3 streams past their prefill
+            prof = threading.Thread(target=call, args=("profile", "/admin/profile?ms=200", {}))
+            prof.start()
+            time.sleep(0.05)         # the 4th's prefill chunk inside the window
+            threads[3].start()
+            for t in (*threads, prof):
+                t.join(timeout=600)
+            status, raw = res["profile"]
+            if status != 200 or any(res[i][0] != 200 for i in range(SERVE_B)):
+                fail(f"/admin/profile {status} {raw[:200]}; streams "
+                     f"{[res[i][0] for i in range(SERVE_B)]}")
+            reply = json.loads(raw)
+            if not Path(reply["trace"]).is_file():
+                fail(f"/admin/profile wrote no trace: {reply}")
+            counts = _kernel_counts(reply["trace"])
+            out["profile"] = dict(reply=reply, kernels=counts,
+                                  bytes=Path(reply["trace"]).stat().st_size)
+            print(f"[trace] POST /admin/profile?ms=200 while 4 streams run: "
+                  f"{out['profile']['bytes']} bytes of trace; kernels {counts['all']['n']} "
+                  f"({counts['all']['in_graph']} inside graph replays), K1 {counts['K1']['n']} "
+                  f"({counts['K1']['in_graph']} in replays), K3 {counts['K3']['n']} "
+                  f"({counts['K3']['in_graph']} in replays) [{card}]")
+            if not counts["all"]["n"]:
+                fail("the /admin/profile trace holds no kernel")
+            if not (counts["K1"]["in_graph"] and counts["K3"]["in_graph"]):
+                print("[trace] the /admin/profile trace names no K1 or no K3 kernel inside the "
+                      "graph replays: the CUDA-event attribution carries those numbers")
+
+            # the batch endpoint against generate_batch on the same engine
+            texts = [words(int(k)) for k in rng.integers(10, 60, SERVE_B)]
+            (status, raw), ms = _timed_ms(lambda: post(addr, "/v1/batch/completions", {
+                "prompts": texts, "max_tokens": BATCH_N, "temperature": 0}))
+            if status != 200:
+                fail(f"/v1/batch/completions: {status} {raw[:200]}")
+            reply = json.loads(raw)
+            got = [c["message"]["content"] for c in reply["choices"]]
+            rows = [tokenizer.encode(t) for t in texts]
+            with state._scheduler.exclusive() as eng:
+                eng.reset()
+                outs = eng.generate_batch(rows, BATCH_N, Sampler(vocab, 0.0, 0.9, 1))
+                eng.reset()
+            want = []
+            for r, toks in zip(rows, outs):
+                scan = api_server._piece_scanner(tokenizer, r[-1], (), [])
+                text = ""
+                for t in toks:
+                    piece = scan(t)
+                    if piece is None:
+                        break
+                    text += piece
+                want.append(text)
+            n_tok = reply["usage"]["completion_tokens"]
+            print(f"[batch] POST /v1/batch/completions, 4 prompts x {BATCH_N} tokens: "
+                  f"{ms:.3f} ms, {n_tok / ms * 1e3:.1f} tok/s; texts equal to generate_batch's: "
+                  f"{got == want}; finish reasons "
+                  f"{[c['finish_reason'] for c in reply['choices']]} [{card}]")
+            if got != want:
+                fail(f"batch endpoint texts {got} differ from generate_batch's {want}")
+            out["batch_endpoint"] = dict(ms=ms, tokens=n_tok, equal=True)
+        finally:
+            server.shutdown()
+            server.server_close()
+            api_server.finish(state, drain_timeout=30.0)
+            if state._scheduler is not None:
+                state._scheduler.engine.release()
+    return out
+
+
+def trace_cli(card: str) -> dict:
+    """(c) and (e): the port's CLI on the card on the tiny Llama Q40
+    fixture, three processes side by side: `generate --profile DIR` (its
+    trace must hold K1 kernels), the KV-header file, and the same file
+    with the reference's legacy header and --weights-float-type q40, whose
+    tokens must equal the KV-header file's."""
+    from distributed_llama_tpu_torch.testing import write_fixture, write_legacy_copy
+
+    with tempfile.TemporaryDirectory() as d:
+        m, t = write_fixture(d, seed=5)
+        legacy = write_legacy_copy(m, f"{d}/legacy.m")
+        common = ["generate", "--tokenizer", t, "--prompt", "Hello", "--steps", "12",
+                  "--temperature", "0", "--seed", "3", "--device", "cuda"]
+        runs = {"profile": ["--model", m, "--profile", f"{d}/prof"], "kv": ["--model", m],
+                "legacy": ["--model", legacy, "--weights-float-type", "q40"]}
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "distributed_llama_tpu_torch.apps.dllama", *common, *a],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=str(Path(__file__).resolve().parent)) for k, a in runs.items()}
+        outs = {}
+        try:
+            for k, p in procs.items():
+                o, e = p.communicate(timeout=300)
+                if p.returncode:
+                    fail(f"dllama generate ({k}) exited {p.returncode}: {e[-600:]}")
+                outs[k] = o
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+        def text(o):
+            lines = o.splitlines()
+            return lines[next(i for i, ln in enumerate(lines) if ln.startswith("💡")):]
+        trace = Path(f"{d}/prof/trace.json")
+        if not trace.is_file():
+            fail("dllama generate --profile wrote no trace")
+        counts = _kernel_counts(str(trace))
+        equal = text(outs["legacy"]) == text(outs["kv"])
+    print(f"[trace] dllama generate --profile DIR on the tiny fixture: trace with "
+          f"{counts['all']['n']} kernels, K1 {counts['K1']['n']} ({counts['K1']['in_graph']} "
+          f"inside graph replays), K3 {counts['K3']['n']} [{card}]")
+    print(f"[F3] the legacy-header Q40 fixture with --weights-float-type q40: tokens equal to "
+          f"the KV-header file's: {equal}")
+    if not counts["K1"]["n"]:
+        fail(f"the --profile trace holds no K1 kernel: {counts}")
+    if not equal:
+        fail(f"F3: legacy-header tokens {text(outs['legacy'])} differ from {text(outs['kv'])}")
+    return dict(profile_kernels=counts, legacy_equal=equal)
+
+
+def phase_trace_batch(card: str, params, near_tie: float) -> dict:
+    """Phase 10 (`[trace]`, `[batch]`, `[F3]` lines) over phase 7's 7B
+    engines (B = 4, C = 256, bf16 cache, Q80 on): the traced run, the
+    tracer's cost, the batch generators, /admin/profile and the batch
+    endpoint, then the CLI's --profile and the legacy header on the tiny
+    fixture. near_tie: phase 9's bound (batch and verify logits against
+    the batch-1 step's)."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+    from distributed_llama_tpu_torch.runtime.profiler import PROFILER
+    from distributed_llama_tpu_torch.runtime.scheduler import Scheduler
+    from distributed_llama_tpu_torch.runtime.trace import TRACER
+
+    t_start = time.perf_counter()
+    spec = _spec("llama2_7b")
+    one = Engine(spec, params, device="cuda", activation_q80=True)
+    eng = Engine(spec, params, device="cuda", batch=SERVE_B, activation_q80=True)
+    sched = Scheduler(eng, chunk=SERVE_C)
+    sched.warmup()
+    out: dict = {}
+    try:
+        out["trace"] = trace_run(spec, one, sched, near_tie, card)
+        out["overhead"] = trace_overhead(spec, sched, card)
+    finally:
+        TRACER.reset()
+        PROFILER.reset()
+    out["batch"] = batch_generators(spec, one, eng, near_tie, card)
+    eng.release()
+    del eng, sched
+    torch.cuda.empty_cache()
+    out["http"] = trace_http(spec, one, card)
+    one.release()
+    del one
+    torch.cuda.empty_cache()
+    out["cli"] = trace_cli(card)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[trace] phase 10 in {out['seconds']:.1f} s")
+    return out
+
+
 def spec_entries(k1: dict, q80: dict, k3: dict, spec: dict) -> list[dict]:
     """The kernels of one 7B verify forward at T = 8 (draft_len 7): K1 on
     its tensor-core path (phase 2's path rows at t = 8 for the layers, wcls
@@ -4227,6 +4750,7 @@ def main() -> int:
     print(f"[main] main paths and their graph phases in {main_s:.1f} s")
     serving = phase_serving(card, params_7b)
     spec9 = phase_spec(card, params_7b, serving["scheduler"]["near_tie_bound"], gen)
+    trace10 = phase_trace_batch(card, params_7b, spec9["near_tie_bound"])
     del params_7b
     torch.cuda.empty_cache()
     phase_file_path()
@@ -4288,7 +4812,7 @@ def main() -> int:
         k2=k2["rows"], gemv1_edges=edges, gemv1_q80=fused, k3=k3["rows"],
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
-        serving=serving, chat=chat, spec=spec9,
+        serving=serving, chat=chat, spec=spec9, trace=trace10,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

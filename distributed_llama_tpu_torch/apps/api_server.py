@@ -43,14 +43,29 @@ numpy stream seeded from the shared sampler (Sampler.next_seed). The
 legacy path folds each request's accept record into `spec_stats`, which
 /stats and /metrics report as the `spec` block in every tier.
 
-Not ported (each refused with a message naming its ROADMAP item):
-/v1/batch/completions, the /admin/* routes, replicas and the router, and
-tenants.
+POST /v1/batch/completions (with --serve-batch B) decodes up to B prompts
+as one batch on the scheduler's engine, borrowed through
+``EngineSupervisor.exclusive()`` once every in-flight request has finished
+(Engine.generate_batch_stream; greedy batches with --lookup-decode K
+through Engine.generate_batch_lookup), in the JAX server's JSON and SSE
+shapes.
+
+Operator routes, loopback-only unless --admin-token TOKEN is given (then
+``Authorization: Bearer TOKEN`` from elsewhere): GET /admin/trace
+(the flight recorder's ring as JSONL, ``?n=``, ``?id=``, ``?kind=``,
+``?since_ms=``; 404 with tracing off) and POST /admin/profile?ms=N (one
+torch.profiler trace of the next N ms under --profile-dir). /stats carries
+the ``trace`` and ``step_timeline`` blocks with --trace and
+``device_time`` with --profile-sample; /metrics the tracer's families.
+
+Not ported (each refused with a message naming its ROADMAP item): the
+breaker reset and the replica verbs, replicas and the router, and tenants.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hmac
 import json
 import os
 import signal
@@ -65,12 +80,45 @@ from ..runtime.resilience import EngineUnready
 from ..runtime.scheduler import PromptTooLong, QueueFull, RequestError
 
 CHAT_EOS_MARKERS = ("<|eot_id|>", "<|end_of_text|>")
+# a streaming batch lookup request sends an SSE comment this often while
+# its collected run goes on (JAX apps/api_server.py:56)
+KEEPALIVE_SECS = 1.0
 
+_REPLICA_VERB = ("the replica verbs come with replicas and the fleet "
+                 "(ROADMAP item 16)")
 UNPORTED_ROUTES = {
-    "/v1/batch/completions": "the batch endpoint needs generate_batch "
-                             "(ROADMAP item 10b)",
-    "/admin/": "the operator routes are not ported yet (ROADMAP item 10c)",
+    "/admin/reset_breaker": "the breaker reset comes with admission "
+                            "control (ROADMAP item 10c, second half)",
+    "/admin/drain_replica": _REPLICA_VERB,
+    "/admin/restart_replica": _REPLICA_VERB,
+    "/admin/undrain_replica": _REPLICA_VERB,
 }
+
+
+class BadRequest(ValueError):
+    """A malformed client field (a non-numeric temperature or seed, a
+    non-string prompt): HTTP 400, never a retryable 503."""
+
+
+def _is_loopback(addr: str) -> bool:
+    """The /admin/* guard's default: loopback only (IPv4 127.0.0.0/8,
+    IPv6 ::1 and the IPv6-mapped IPv4 form)."""
+    if addr.startswith("::ffff:"):
+        addr = addr[len("::ffff:"):]
+    return addr == "::1" or addr.startswith("127.")
+
+
+def _admin_authorized(state: "ApiState", client_addr: str,
+                      auth_header: str | None) -> bool:
+    """May this caller use /admin/*? Loopback always may; from elsewhere
+    only with ``Authorization: Bearer <--admin-token>``, compared in
+    constant time (JAX apps/api_server.py:77)."""
+    if _is_loopback(client_addr):
+        return True
+    if not state.admin_token or not auth_header:
+        return False
+    expected = "Bearer " + state.admin_token
+    return hmac.compare_digest(auth_header.encode(), expected.encode())
 
 
 def build_chat_prompt(messages: list[dict]) -> str:
@@ -90,7 +138,8 @@ class ApiState:
                  request_deadline: float = 0.0, stall_timeout: float = 0.0,
                  prefix_cache: bool = False, prefix_blocks: int = 0,
                  prefix_block_len: int = 32, draft: str | None = None,
-                 draft_len: int = 0):
+                 draft_len: int = 0, admin_token: str | None = None,
+                 profile_dir: str | None = None):
         from ..runtime.stats import SpecStats
 
         self.engine = engine
@@ -119,6 +168,10 @@ class ApiState:
         # builds its draft per generation, the legacy path one DraftModel
         # over this engine on first use (draft_model())
         self.lookup_decode = lookup_decode
+        # the /admin/* bearer token (None: loopback only) and where
+        # /admin/profile captures land (None: a fresh temp dir each)
+        self.admin_token = admin_token
+        self.profile_dir = profile_dir
         self.draft = draft
         self.draft_len = int(draft_len or 0)
         self._draft_model = None
@@ -134,6 +187,12 @@ class ApiState:
         # serializes the legacy path's requests
         self.engine_lock = threading.RLock()
         self._build_info: dict | None = None
+        if engine.device.type == "cuda":
+            # /admin/profile captures on a handler thread: the profiler's
+            # CUDA tracer must start on this one (Profiler.prepare)
+            from ..runtime.profiler import PROFILER
+
+            PROFILER.prepare()
         self._scheduler = (self._build_supervisor() if serve_batch > 0
                            else None)
 
@@ -427,6 +486,163 @@ def _sched_completion_chunks(state: ApiState, body: dict, chat: bool = True):
     yield ("done", done)
 
 
+def _batch_completion_chunks(state: ApiState, body: dict):
+    """POST /v1/batch/completions generator (JAX apps/api_server.py:653):
+    up to serve_batch prompts (``prompts``, raw, or ``messages_list``,
+    chat-templated) decoded as ONE batch on the scheduler's engine.
+    Yields ("piece", (row, piece)) events, ("keepalive", None) while a
+    streamed lookup run collects, then one ("done", {...}) with per-row
+    finish reasons and the usage. A request temperature and seed apply to
+    the whole batch through the shared sampler (coins drawn in row order);
+    the batch cache is reset before and after. The engine is borrowed
+    through the supervisor's exclusive(), which first drives every
+    in-flight request to completion."""
+    sup = state._scheduler
+    engine = sup.engine
+    tokenizer, sampler = state.tokenizer, state.sampler
+    # every field is parsed before the borrow: a malformed value fails
+    # this request as a 400, never inside the exclusive lock
+    try:
+        if "prompts" in body:
+            texts = body["prompts"]
+            raw = True
+        else:
+            texts = [build_chat_prompt(m)
+                     for m in body.get("messages_list", [])]
+            raw = False
+        b = len(texts)
+        if not 1 <= b <= state.serve_batch:
+            raise PromptTooLong(
+                f"batch size {b} outside 1..{state.serve_batch} (server "
+                f"started with --serve-batch {state.serve_batch})")
+        max_tokens = int(body.get("max_tokens", 64))
+        want_stream = bool(body.get("stream", False))
+        stops = body.get("stop") or []
+        if isinstance(stops, str):
+            stops = [stops]
+        rows = [tokenizer.encode(t) for t in texts]
+        limit = engine.seq_len - 1
+        for i, r in enumerate(rows):
+            if len(r) >= limit:
+                raise PromptTooLong(
+                    f"prompt {i}: {len(r)} tokens >= context {limit}")
+        # the budget is the widest row's headroom: a long prompt that
+        # reaches S retires only its own row
+        headroom = max(limit - len(r) for r in rows)
+        n_gen = min(max_tokens, headroom) if max_tokens > 0 else headroom
+        n_prompt_toks = sum(len(r) for r in rows)
+        req_temp = (float(body["temperature"])
+                    if body.get("temperature") is not None else None)
+        req_seed = (int(body["seed"])
+                    if body.get("seed") is not None else None)
+        markers = () if raw else CHAT_EOS_MARKERS
+        tail_len = max([len(m) for m in markers]
+                       + [len(s) for s in stops] + [1]) + 16
+        prev = [r[-1] for r in rows]
+    except PromptTooLong:
+        raise
+    except (ValueError, TypeError, KeyError, AttributeError) as e:
+        raise BadRequest(f"{type(e).__name__}: {e}") from e
+    tails = [""] * b
+    emitted = [0] * b
+    finish = ["length"] * b
+    # the engine's batch is fixed: a short batch pads with rows flagged
+    # before the first step (they never sample or emit)
+    rows = rows + [[rows[0][0]]] * (engine.batch - b)
+    stop_flags = np.zeros(engine.batch, bool)
+    stop_flags[b:] = True
+
+    def scan_token(i: int, tok: int) -> str | None:
+        """Row i's piece for tok, or None when the row just stopped (eos,
+        a chat marker or a stop sequence)."""
+        if tok == tokenizer.eos_id:
+            finish[i] = "stop"
+            return None
+        piece = tokenizer.decode_piece(prev[i], tok).decode(
+            "utf-8", errors="replace")
+        prev[i] = tok
+        tails[i] = (tails[i] + piece)[-tail_len:]
+        if (any(m in tails[i] for m in markers)
+                or (stops and any(s in tails[i] for s in stops))):
+            finish[i] = "stop"
+            return None
+        emitted[i] += 1
+        return piece
+
+    def lookup_rows():
+        return engine.generate_batch_lookup(
+            rows, n_gen, eos_id=tokenizer.eos_id,
+            draft_len=state.lookup_decode, vocab_size=tokenizer.vocab_size,
+            stop_flags=stop_flags)
+
+    # a real `with`: a crash inside the borrow reaches the supervisor's
+    # recovery, and a generator torn down mid-stream still releases it
+    with sup.exclusive():
+        saved_temp = sampler.temperature
+        saved_rng_state = None
+        if req_temp is not None:
+            sampler.set_temp(req_temp)
+        if req_seed is not None:
+            saved_rng_state = sampler.rng_state
+            sampler.set_seed(req_seed)
+        try:
+            engine.reset()  # slots drained: the borrowed cache starts clean
+            if state.lookup_decode > 0 and sampler.temperature == 0.0:
+                # greedy batches speculate; collected, then scanned (a
+                # text stop trims its row afterwards). A stream collects
+                # on a helper thread and sends keepalives meanwhile
+                if want_stream:
+                    box: dict = {}
+
+                    def collect():
+                        try:
+                            box["outs"] = lookup_rows()
+                        except BaseException as e:  # noqa: BLE001 — re-raised below
+                            box["err"] = e
+                    t = threading.Thread(target=collect, daemon=True)
+                    t.start()
+                    try:
+                        while True:
+                            t.join(timeout=KEEPALIVE_SECS)
+                            if not t.is_alive():
+                                break
+                            yield ("keepalive", None)
+                    finally:
+                        # a torn-down generator must not end the borrow
+                        # while the thread still drives the engine
+                        t.join()
+                    if "err" in box:
+                        raise box["err"]
+                    outs = box["outs"]
+                else:
+                    outs = lookup_rows()
+                for i in range(b):
+                    for tok in outs[i]:
+                        piece = scan_token(i, tok)
+                        if piece is None:
+                            break
+                        yield ("piece", (i, piece))
+            else:
+                for step in engine.generate_batch_stream(
+                        rows, n_gen, sampler, stop_flags=stop_flags):
+                    for i, tok in enumerate(step):
+                        if tok is None or stop_flags[i]:
+                            continue
+                        piece = scan_token(i, tok)
+                        if piece is None:
+                            stop_flags[i] = True
+                            continue
+                        yield ("piece", (i, piece))
+        finally:
+            sampler.set_temp(saved_temp)
+            if saved_rng_state is not None:
+                sampler.rng_state = saved_rng_state
+            engine.reset()  # the batch cache holds nothing reusable
+    yield ("done", {"finish_reasons": finish,
+                    "prompt_tokens": n_prompt_toks,
+                    "completion_tokens": sum(emitted)})
+
+
 def _chunk_env(rid: str, created: int, model: str, index: int,
                delta: dict, finish_reason) -> dict:
     """One SSE chat.completion.chunk envelope."""
@@ -469,10 +685,8 @@ def _text_completion_env(rid: str, created: int, model: str, text: str,
 
 
 def _unported_route(path: str) -> str | None:
-    for prefix, why in UNPORTED_ROUTES.items():
-        if path.startswith(prefix):
-            return f"{path} is not ported: {why}"
-    return None
+    why = UNPORTED_ROUTES.get(path.split("?", 1)[0])
+    return None if why is None else f"{path} is not ported: {why}"
 
 
 def make_handler(state: ApiState):
@@ -524,22 +738,134 @@ def make_handler(state: ApiState):
             elif self.path == "/readyz":
                 self._readyz()
             elif self.path == "/stats":
-                # the legacy tier's accept record answers too
-                self._json(200, {"scheduler": "off",
-                                 "spec": state.spec_stats.summary()}
-                           if state._scheduler is None
-                           else state._scheduler.summary())
+                self._stats()
             elif self.path == "/metrics":
                 self._metrics()
-            elif _unported_route(self.path):
-                self._json(501, {"error": _unported_route(self.path)})
+            elif (self.path == "/admin/trace"
+                  or self.path.startswith("/admin/trace?")):
+                self._admin_trace()
             else:
                 self._json(404, {"error": "not found"})
+
+        def _stats(self) -> None:
+            """GET /stats: the supervisor's summary (its trace,
+            step_timeline and device_time blocks included when on); the
+            legacy tier answers its accept record and the trace block."""
+            from ..runtime.trace import TRACER
+
+            if state._scheduler is not None:
+                self._json(200, state._scheduler.summary())
+                return
+            payload = {"scheduler": "off",
+                       "spec": state.spec_stats.summary()}
+            if TRACER.enabled:
+                payload["trace"] = TRACER.summary()
+            self._json(200, payload)
+
+        def _admin_denied(self) -> bool:
+            """The admin guard: answers 403 and returns True unless the
+            caller is on loopback or carries the --admin-token bearer."""
+            if _admin_authorized(state, self.client_address[0],
+                                 self.headers.get("Authorization")):
+                return False
+            self._json(403, {"error": "admin endpoints need loopback or a "
+                                      "valid --admin-token bearer"})
+            return True
+
+        def _admin_trace(self) -> None:
+            """GET /admin/trace[?n=200|?id=TID|?kind=K|?since_ms=MS] (JAX
+            apps/api_server.py:1132): the flight-recorder ring as JSONL,
+            first the clock anchor, then one event a line with its wall
+            time. With filters, the whole ring is filtered, then the last
+            n kept."""
+            from urllib.parse import parse_qs, urlparse
+
+            from ..runtime.trace import EVENT_KINDS, TRACER
+
+            if self._admin_denied():
+                return
+            if not TRACER.enabled:
+                self._json(404, {"error": "tracing off (start with "
+                                          "--trace)"})
+                return
+            try:
+                # keep_blank_values: "kind=" is refused, not dropped
+                q = parse_qs(urlparse(self.path).query,
+                             keep_blank_values=True)
+                tid = int(q["id"][0]) if "id" in q else None
+                n = int(q.get("n", ["200"])[0])
+                if n < 0 or (tid is not None and tid < 0):
+                    raise ValueError(n)
+                kind = q["kind"][0] if "kind" in q else None
+                if kind is not None and kind not in EVENT_KINDS:
+                    raise ValueError(kind)
+                since_ms = (float(q["since_ms"][0]) if "since_ms" in q
+                            else None)
+                if since_ms is not None and not since_ms >= 0:
+                    raise ValueError(since_ms)   # NaN included
+            except (ValueError, IndexError):
+                self._json(400, {"error": "bad request"})
+                return
+            filtered = kind is not None or since_ms is not None
+            events = (TRACER.by_id(tid) if tid is not None
+                      else TRACER.recent(0 if filtered else n))
+            if kind is not None:
+                events = [e for e in events if e.get("kind") == kind]
+            if since_ms is not None:
+                cut = time.perf_counter() - since_ms / 1e3
+                events = [e for e in events if e.get("ts", 0.0) >= cut]
+            if tid is None and filtered and n:
+                events = events[-n:]
+            lines = [json.dumps({"anchor_wall": TRACER.anchor_wall,
+                                 "anchor_mono": TRACER.anchor_mono,
+                                 "events": len(events)})]
+            lines += [json.dumps({**e, "ts_wall": TRACER.to_wall(e["ts"])})
+                      for e in events]
+            data = ("\n".join(lines) + "\n").encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _admin_profile(self) -> None:
+            """POST /admin/profile?ms=N (JAX apps/api_server.py:1372): one
+            torch.profiler trace of the next N ms (0 < N <= 60000, the
+            query or the body's ``ms``, default 100) under --profile-dir.
+            Synchronous: a 200 means the trace is on disk; the threaded
+            server and the scheduler keep running meanwhile. 409 while a
+            capture or a sampled step owns the profiler."""
+            import tempfile
+            from urllib.parse import parse_qs, urlparse
+
+            from ..runtime.profiler import PROFILER
+
+            try:
+                q = parse_qs(urlparse(self.path).query)
+                length = int(self.headers.get("Content-Length", "0"))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                ms = (float(q["ms"][0]) if "ms" in q
+                      else float(body.get("ms", 100.0)))
+                if not 0.0 < ms <= 60_000.0:  # NaN included
+                    raise ValueError(ms)
+            except (ValueError, TypeError, AttributeError):
+                self._json(400, {"error": "bad request: ms must be in "
+                                          "(0, 60000]"})
+                return
+            base = state.profile_dir or tempfile.mkdtemp(prefix="dlprof-")
+            target = os.path.join(base,
+                                  f"profile-{int(time.time() * 1e3):x}")
+            try:
+                out = PROFILER.capture(target, ms)
+            except RuntimeError as e:  # a capture is already running
+                self._json(409, {"error": str(e)}, retry_after=ms / 1e3)
+                return
+            self._json(200, {"status": "ok", **out})
 
         def _metrics(self) -> None:
             """GET /metrics: Prometheus text from the /stats summary."""
             from ..runtime.profiler import COMPILES, hbm_ledger
-            from ..runtime.trace import render_prometheus
+            from ..runtime.trace import TRACER, render_prometheus
 
             if state._scheduler is None:
                 payload, mode, st = None, "legacy", "off"
@@ -553,7 +879,8 @@ def make_handler(state: ApiState):
                 payload["hbm"] = hbm_ledger(state.engine)
             if "spec" not in payload:
                 payload["spec"] = state.spec_stats.summary()
-            data = render_prometheus(payload, model=state.model_name,
+            data = render_prometheus(payload, tracer=TRACER,
+                                     model=state.model_name,
                                      mode=mode, state=st,
                                      build=state.build_info()).encode()
             self.send_response(200)
@@ -579,11 +906,22 @@ def make_handler(state: ApiState):
                                retry_after=sup._retry_after())
 
         def do_POST(self):
-            why = _unported_route(self.path)
-            if why:
-                self._json(501, {"error": why})
+            if self.path.startswith("/admin/"):
+                if self._admin_denied():
+                    return
+                if (self.path == "/admin/profile"
+                        or self.path.startswith("/admin/profile?")):
+                    self._admin_profile()
+                    return
+                why = _unported_route(self.path)
+                if why:
+                    self._json(501, {"error": why})
+                else:
+                    self._json(404, {"error": "not found"})
                 return
-            if self.path not in ("/v1/chat/completions", "/v1/completions"):
+            routes = ("/v1/chat/completions", "/v1/completions",
+                      "/v1/batch/completions")
+            if self.path not in routes:
                 self._json(404, {"error": "not found"})
                 return
             if state.draining:
@@ -596,8 +934,90 @@ def make_handler(state: ApiState):
             except ValueError:  # json.JSONDecodeError is a ValueError
                 self._json(400, {"error": "bad request"})
                 return
+            if self.path == "/v1/batch/completions":
+                self._batch_post(body)
+                return
             self._completion_post(body,
                                   chat=self.path == "/v1/chat/completions")
+
+        def _batch_post(self, body: dict) -> None:
+            """POST /v1/batch/completions (JAX apps/api_server.py:1428):
+            the chat.completion shape with one choice a row (index = row);
+            SSE chunks name their row in `index`."""
+            if state.serve_batch <= 0:
+                self._json(404, {"error": "batch endpoint off (start with "
+                                          "--serve-batch N)"})
+                return
+            rid = f"batchcmpl-{int(time.time() * 1000):x}"
+            created = int(time.time())
+            stream = bool(body.get("stream", False))
+            gen = _batch_completion_chunks(state, body)
+            try:
+                first = next(gen)
+            except (PromptTooLong, BadRequest) as e:
+                self._json(400, {"error": str(e)})
+                return
+            except EngineUnready as e:
+                # the borrow is refused while recovering or draining
+                self._json(503, {"error": str(e), "state": e.state},
+                           retry_after=e.retry_after)
+                return
+            except Exception as e:  # noqa: BLE001 — the borrow's recovery
+                # already ran (EngineSupervisor.exclusive): a retryable 503
+                self._json(503, {"error": f"engine failure: "
+                                          f"{type(e).__name__}: {e}"},
+                           retry_after=1.0)
+                return
+
+            def events():
+                yield first
+                yield from gen
+
+            if stream:
+                self._sse_start()
+                usage = None
+                try:
+                    for kind, payload in events():
+                        if kind == "piece":
+                            i, piece = payload
+                            self._sse(_chunk_env(rid, created,
+                                                 state.model_name, i,
+                                                 {"content": piece}, None))
+                        elif kind == "keepalive":
+                            # an SSE comment: bytes on the wire while the
+                            # collected lookup run goes on
+                            self.wfile.write(b": keepalive\n\n")
+                            self.wfile.flush()
+                        else:
+                            usage = payload
+                except Exception as e:  # noqa: BLE001 — after the 200: a
+                    # structured error event and a terminated stream
+                    self._sse({"error": f"engine failure: "
+                                        f"{type(e).__name__}: {e}"})
+                    self._sse_done()
+                    return
+                for i, fr in enumerate(usage["finish_reasons"]):
+                    self._sse(_chunk_env(rid, created, state.model_name,
+                                         i, {}, fr))
+                self._sse_done()
+                return
+
+            texts: dict[int, str] = {}
+            usage = None
+            for kind, payload in events():
+                if kind == "piece":
+                    i, piece = payload
+                    texts[i] = texts.get(i, "") + piece
+                elif kind == "done":
+                    usage = payload
+            self._json(200, _completion_env(
+                rid, created, state.model_name,
+                [{"index": i,
+                  "message": {"role": "assistant",
+                              "content": texts.get(i, "")},
+                  "finish_reason": fr}
+                 for i, fr in enumerate(usage["finish_reasons"])],
+                usage["prompt_tokens"], usage["completion_tokens"]))
 
         def _completion_post(self, body: dict, chat: bool) -> None:
             """/v1/chat/completions (chat=True) and /v1/completions."""
@@ -693,6 +1113,38 @@ def make_handler(state: ApiState):
     return Handler
 
 
+def configure_observability(args) -> None:
+    """The flight recorder and the step sampler from the CLI's flags, with
+    the JAX server's refusals (apps/api_server.py:1901-1941): the
+    recorder's knobs need --trace, and --profile-sample needs
+    --serve-batch (it samples scheduler steps) and N >= 1."""
+    if not args.trace and (args.trace_dir or args.trace_sample is not None
+                           or args.trace_buffer is not None
+                           or args.trace_decode_every is not None):
+        sys.exit("error: --trace-dir/--trace-sample/--trace-buffer/"
+                 "--trace-decode-every have no effect without --trace")
+    if args.trace:
+        from ..runtime.trace import TRACER
+
+        if args.trace_sample is not None and not 0.0 <= args.trace_sample <= 1.0:
+            sys.exit("error: --trace-sample must be in [0, 1]")
+        TRACER.configure(
+            capacity=args.trace_buffer or 8192,
+            sample=1.0 if args.trace_sample is None else args.trace_sample,
+            decode_every=args.trace_decode_every or 8,
+            sink_dir=args.trace_dir)
+    if args.profile_sample is not None:
+        if not args.serve_batch:
+            sys.exit("error: --profile-sample requires --serve-batch N "
+                     "(the sampler times scheduler steps)")
+        if args.profile_sample < 1:
+            sys.exit("error: --profile-sample must be >= 1 (time every Nth "
+                     "step; omit the flag to disable)")
+        from ..runtime.profiler import PROFILER
+
+        PROFILER.sample_every = args.profile_sample
+
+
 def build_server(args) -> tuple[ThreadingHTTPServer, ApiState]:
     """The CLI's engine, its ApiState and a threaded server bound to
     --host/--port (port 0: any free port, in server.server_address). The
@@ -700,6 +1152,7 @@ def build_server(args) -> tuple[ThreadingHTTPServer, ApiState]:
     before the server binds; --session resumes a legacy-path session."""
     from .dllama import build_engine
 
+    configure_observability(args)
     engine, tokenizer, sampler = build_engine(args)
     if args.draft:
         # the depth bound needs the model's spec: refused at startup, not
@@ -726,7 +1179,9 @@ def build_server(args) -> tuple[ThreadingHTTPServer, ApiState]:
                      stall_timeout=args.stall_timeout,
                      prefix_cache=bool(args.prefix_cache),
                      prefix_blocks=args.prefix_blocks or 0,
-                     prefix_block_len=block_len)
+                     prefix_block_len=block_len,
+                     admin_token=args.admin_token,
+                     profile_dir=args.profile_dir)
     if args.session and os.path.exists(args.session):
         load_server_session(state, args.session)
         print(f"💾 resumed session from {args.session} "

@@ -34,15 +34,28 @@ each verify forward feeds the last token and up to K drafted ones and
 emits the accepted prefix plus one token (runtime/speculative.py,
 runtime/draft.py); greedy output equals the plain stream, sampled output
 is distribution-exact by rejection resampling. In api mode they speculate
-on the legacy path, and --draft per slot on the scheduler. Flags of
-features the port does not have yet — the worker mode, mesh axes,
-clusters, and the features listed in UNPORTED_FLAGS — are accepted by the
-parser only to be refused with a message, never silently ignored.
+on the legacy path, and --draft per slot on the scheduler.
+
+Observability, as in the JAX CLI: `--profile DIR` writes a torch.profiler
+trace (CPU and CUDA activities, Chrome format, DIR/trace.json) of the
+generation in inference, generate and chat. In api mode `--trace` turns on
+the flight recorder (request spans and the step timeline; `--trace-buffer`,
+`--trace-dir`, `--trace-sample`, `--trace-decode-every`), `--profile-sample
+N` times every Nth scheduler step's entry points on the card, and
+`--profile-dir` and `--admin-token` serve POST /admin/profile and the
+admin guard (apps/api_server.py). `--weights-float-type` names the weight
+type of a legacy-header `.m`, which does not store it (ref: app.cpp:47-48);
+`--nthreads` is accepted and ignored, as in the JAX CLI.
+
+Flags of features the port does not have yet — the worker mode, mesh
+axes, clusters, and the features listed in UNPORTED_FLAGS — are accepted
+by the parser only to be refused with a message, never silently ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -56,19 +69,22 @@ PORTED_MODES = ("inference", "generate", "chat", "api")
 # serving flags of the JAX CLI that the port does not have yet, with the
 # ROADMAP item that brings each (refused with that message when given)
 _FLEET = "replicas and the fleet (ROADMAP item 16)"
-_EXTRAS = "serving extras (ROADMAP item 10c)"
+_EXTRAS = "admission control and auto-sizing (ROADMAP item 10c)"
+_MESH = "tensor parallelism and the vocab split (ROADMAP item 13)"
+_CLUSTER = "the multi-node control plane (ROADMAP item 15)"
 UNPORTED_FLAGS = {
     "--replicas": _FLEET, "--retry-budget": _FLEET, "--route-policy": _FLEET,
     "--replica-procs": _FLEET, "--replica-hosts": _FLEET,
     "--kv-transfer": _FLEET, "--tier": _FLEET, "--min-replicas": _FLEET,
     "--max-replicas": _FLEET, "--tenant-budgets": _FLEET,
     "--slo-ttft-ms": _EXTRAS, "--slo-itl-ms": _EXTRAS, "--autotune": _EXTRAS,
-    "--admin-token": _EXTRAS, "--trace": _EXTRAS, "--trace-buffer": _EXTRAS,
-    "--trace-dir": _EXTRAS, "--trace-sample": _EXTRAS,
-    "--trace-decode-every": _EXTRAS, "--freeze-compiles": _EXTRAS,
-    "--profile-sample": _EXTRAS, "--profile-dir": _EXTRAS,
+    "--freeze-compiles": _EXTRAS,
+    "--shard-vocab": _MESH,
+    "--coordinator": _CLUSTER, "--node-rank": _CLUSTER,
+    "--connect-timeout": _CLUSTER, "--heartbeat-interval": _CLUSTER,
+    "--worker-timeout": _CLUSTER, "--push-weights": _CLUSTER,
 }
-_FLAG_SWITCHES = ("--kv-transfer", "--trace", "--freeze-compiles")
+_FLAG_SWITCHES = ("--kv-transfer", "--freeze-compiles", "--push-weights")
 
 
 def _serve_batch(v: str) -> int:
@@ -103,6 +119,25 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--topp", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=None,
                    help="sampler seed (default: time)")
+    p.add_argument("--weights-float-type", default=None,
+                   choices=["f32", "f16", "q40", "q80"],
+                   help="must match the model file (ref: app.cpp:47-48); "
+                        "a legacy-header .m stores no weight type and "
+                        "needs it")
+    p.add_argument("--nthreads", type=int, default=None,
+                   help="accepted for reference CLI parity; the card "
+                        "manages its own parallelism (ref: app.cpp:84)")
+    p.add_argument("--workers", nargs="*", default=None,
+                   help="n/a on a GPU; refused (ref: app.cpp:51-74)")
+    p.add_argument("--pallas", action="store_true", default=None,
+                   help="the JAX CLI's kernel switch; refused: the port "
+                        "always runs its Hopper kernels on the card")
+    p.add_argument("--no-pallas", dest="pallas", action="store_false",
+                   help="refused, as --pallas")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="inference/generate/chat: write a torch.profiler "
+                        "trace (CPU and CUDA activities, Chrome format) of "
+                        "the generation to DIR/trace.json")
     p.add_argument("--compute-dtype", default="bf16", choices=["bf16", "f32"])
     p.add_argument("--cache-dtype", default="bf16",
                    choices=["bf16", "f32", "f8"])
@@ -184,6 +219,40 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--prefix-block-len", type=int, default=None, metavar="L",
                    help="prefix-cache block length in tokens (default 32): "
                         "reuse is whole blocks only")
+    # the flight recorder and the device profiler (runtime/trace.py,
+    # runtime/profiler.py; JAX apps/dllama.py:410-465)
+    p.add_argument("--admin-token", default=None, metavar="TOKEN",
+                   help="api mode: bearer token accepted on /admin/* as an "
+                        "alternative to the loopback-only default "
+                        "(constant-time compare)")
+    p.add_argument("--trace", action="store_true",
+                   help="api mode: the flight recorder — per-request "
+                        "lifecycle spans and the per-iteration step "
+                        "timeline in a fixed-capacity ring, served by "
+                        "/admin/trace and the dllama_step_ms /metrics "
+                        "family. Host-side; off it records nothing")
+    p.add_argument("--trace-buffer", type=int, default=None, metavar="N",
+                   help="ring capacity in events (default 8192; oldest "
+                        "events fall off first)")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="also persist events as rotating JSONL files under "
+                        "DIR (16 MB x 8 files)")
+    p.add_argument("--trace-sample", type=float, default=None, metavar="R",
+                   help="fraction of request spans persisted to --trace-dir "
+                        "(deterministic per trace id; the ring and /metrics "
+                        "see everything). Default 1.0")
+    p.add_argument("--trace-decode-every", type=int, default=None,
+                   metavar="N",
+                   help="decode progress event cadence in tokens (default "
+                        "8): bounds how much ring one long stream takes")
+    p.add_argument("--profile-sample", type=int, default=None, metavar="N",
+                   help="api mode (needs --serve-batch): time every Nth "
+                        "scheduler step's entry points on the card with "
+                        "CUDA events (/stats device_time, dllama_device_ms "
+                        "/metrics). Off by default")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="where POST /admin/profile captures land (default: "
+                        "a fresh temp dir a capture)")
     for flag in UNPORTED_FLAGS:
         if flag in _FLAG_SWITCHES:
             p.add_argument(flag, action="store_true", default=None,
@@ -201,6 +270,12 @@ def build_argparser() -> argparse.ArgumentParser:
 def refusals(args) -> list[str]:
     """Every flag of a feature the port does not have yet, as a message."""
     out = []
+    if args.pallas is not None:
+        out.append("--pallas/--no-pallas: the port has no kernel switch; "
+                   "on the card every Q40 matmul and the attention run "
+                   "their Hopper kernels, on the CPU their plain versions, "
+                   "and nothing falls back from one to the other (ROADMAP "
+                   "North star)")
     if args.mode not in PORTED_MODES:
         out.append(f"mode {args.mode!r} is not ported yet (ported: "
                    f"{', '.join(PORTED_MODES)})")
@@ -321,7 +396,9 @@ def build_engine(args):
     if not args.model or not args.tokenizer:
         sys.exit("error: --model and --tokenizer are required")
     device = resolve_device(args.device)
-    spec = read_spec(args.model)
+    wft = (FloatType[args.weights_float_type.upper()]
+           if args.weights_float_type else None)
+    spec = read_spec(args.model, weights_float_type=wft)
     print(f"⏩ {args.model}: arch={spec.arch.name} dim={spec.dim} "
           f"layers={spec.n_layers} heads={spec.n_heads}/{spec.n_kv_heads} "
           f"seq={spec.seq_len} device={device}")
@@ -366,10 +443,37 @@ def _stream_pieces(tokenizer, prev_token: int, toks: list[int]) -> None:
     print()
 
 
+@contextlib.contextmanager
+def _maybe_profile(args):
+    """A torch.profiler trace of what runs inside, with --profile DIR (JAX
+    apps/dllama.py:769 _maybe_profile): CPU activities, and the card's
+    kernels on a CUDA engine, written as DIR/trace.json (Chrome trace
+    format)."""
+    if not args.profile:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if args.device == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    print(f"📈 profiler trace written to {args.profile}")
+
+
 def cmd_generate(args, benchmark: bool) -> None:
     engine, tokenizer, sampler = build_engine(args)
     tokens = tokenizer.encode(args.prompt or "Hello")
     print(f"💡 prompt tokens: {len(tokens)}")
+    with _maybe_profile(args):
+        _generate(args, engine, tokenizer, sampler, tokens, benchmark)
+
+
+def _generate(args, engine, tokenizer, sampler, tokens: list[int],
+              benchmark: bool) -> None:
     if args.device_sampling:     # JAX apps/dllama.py:850-867
         t0 = time.perf_counter()
         out = engine.generate_device(
@@ -479,7 +583,8 @@ def cmd_chat(args) -> None:
     JAX apps/dllama.py:1040). Each turn runs Engine.generate on the one
     engine, continuing at its position; with --session the cache and the
     conversation's tokens load before the first turn and save after
-    every turn."""
+    every turn; with --profile DIR the turns run under one torch.profiler
+    trace."""
     engine, tokenizer, sampler = build_engine(args)
     chat_draft = _build_draft(args, engine) if args.draft else None
     # the whole conversation's tokens: the n-gram miner's source and the
@@ -499,54 +604,62 @@ def cmd_chat(args) -> None:
             system = ""
     first = not resumed
     stops = tokenizer.stop_token_ids()
-    while True:
-        try:
-            user = input("\n👱 User\n> ")
-        except EOFError:
-            break
-        if not user:
-            continue
-        if first and system:
-            text = f"[INST] <<SYS>>\n{system}\n<</SYS>>\n\n{user} [/INST]"
-        else:
-            text = f"[INST] {user} [/INST]"
-        first = False
-        tokens = tokenizer.encode(text, add_bos=True)
-        print("\n🤖 Assistant")
-        prev = [tokens[-1]]
+    with _maybe_profile(args):
+        while True:
+            try:
+                user = input("\n👱 User\n> ")
+            except EOFError:
+                break
+            if not user:
+                continue
+            if first and system:
+                text = f"[INST] <<SYS>>\n{system}\n<</SYS>>\n\n{user} [/INST]"
+            else:
+                text = f"[INST] {user} [/INST]"
+            first = False
+            tokens = tokenizer.encode(text, add_bos=True)
+            print("\n🤖 Assistant")
+            prev = [tokens[-1]]
 
-        def on_token(tok: int) -> None:
-            if tok not in stops:
-                _safe_print(tokenizer.decode_piece(prev[0], tok).decode(
-                    "utf-8", errors="replace"))
-            prev[0] = tok
+            def on_token(tok: int) -> None:
+                if tok not in stops:
+                    _safe_print(tokenizer.decode_piece(prev[0], tok).decode(
+                        "utf-8", errors="replace"))
+                prev[0] = tok
 
-        # the prompt itself must fit before any generation can start
-        remaining = engine.seq_len - engine.pos - len(tokens)
-        if remaining <= 1:
-            print("(context window full)")
-            break
-        budget = min(_steps(args, engine), remaining)
-        convo.extend(tokens)
-        if chat_draft is not None or args.lookup_decode:
-            # a turn speculates over the whole conversation so far
-            res = _speculate(args, engine, tokens, budget, sampler, stops,
-                             on_token, tokenizer.vocab_size,
-                             draft=chat_draft, history=convo, f32=False)
-            if args.temperature > 0:
-                # the next turn draws afresh (JAX apps/dllama.py:1111)
-                sampler.set_seed(sampler.rng_state + len(res.tokens) + 1)
-        else:
-            res = engine.generate(tokens, budget, sampler, eos_id=stops,
-                                  on_token=on_token)
-        convo.extend(res.tokens)
-        print()
-        if args.session:
-            engine.save_session(args.session, tokens=convo)
+            # the prompt itself must fit before any generation can start
+            remaining = engine.seq_len - engine.pos - len(tokens)
+            if remaining <= 1:
+                print("(context window full)")
+                break
+            budget = min(_steps(args, engine), remaining)
+            convo.extend(tokens)
+            if chat_draft is not None or args.lookup_decode:
+                # a turn speculates over the whole conversation so far
+                res = _speculate(args, engine, tokens, budget, sampler, stops,
+                                 on_token, tokenizer.vocab_size,
+                                 draft=chat_draft, history=convo, f32=False)
+                if args.temperature > 0:
+                    # the next turn draws afresh (JAX apps/dllama.py:1111)
+                    sampler.set_seed(sampler.rng_state + len(res.tokens) + 1)
+            else:
+                res = engine.generate(tokens, budget, sampler, eos_id=stops,
+                                      on_token=on_token)
+            convo.extend(res.tokens)
+            print()
+            if args.session:
+                engine.save_session(args.session, tokens=convo)
 
 
 def main(argv: list[str] | None = None) -> None:
     args = build_argparser().parse_args(argv)
+    if args.workers:
+        # the JAX CLI's refusal (apps/dllama.py:1286-1290), for a GPU
+        sys.exit("error: --workers is not applicable on a GPU — the "
+                 "reference's TCP root/worker star has no counterpart "
+                 "here; use --tp N for one host's devices (ROADMAP item "
+                 "13), or --nnodes/--coordinator + `dllama worker` "
+                 "processes for a multi-host cluster (ROADMAP item 15)")
     check_spec_flags(args)
     check_session_flags(args)
     refused = refusals(args)

@@ -17,6 +17,11 @@ lands within f32 rounding of a CDF boundary. JAX takes an exact top-512
 window when the nucleus lies inside it and the full stable sort
 otherwise, and its tokens are identical either way; a captured graph
 cannot branch on data, so this port always runs the full sort.
+
+`sample_rows` samples B rows at once, each on its own RNG state (the JAX
+package's `jax.vmap(sample_token)`): every op runs once over the (B,
+vocab) logits, so a batched loop's graph launches the sampler's kernels
+once, not B times. `sample_token` is its one-row case.
 """
 
 from __future__ import annotations
@@ -53,16 +58,16 @@ def _mulhi(a: torch.Tensor, b: int) -> torch.Tensor:
 
 
 def xorshift_step(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One xorshift* step on a (2,) [hi, lo] state; returns (state', u32
-    sample as int64) — bit-identical to utils/rng.xorshift_u32."""
-    hi, lo = state[0], state[1]
+    """One xorshift* step on a (..., 2) [hi, lo] state; returns (state',
+    u32 sample as int64) — bit-identical to utils/rng.xorshift_u32."""
+    hi, lo = state[..., 0], state[..., 1]
     hi, lo = hi ^ (hi >> 12), lo ^ ((lo >> 12) | ((hi << 20) & _M32))
     hi, lo = hi ^ (((hi << 25) & _M32) | (lo >> 7)), lo ^ ((lo << 25) & _M32)
     hi, lo = hi ^ (hi >> 27), lo ^ ((lo >> 27) | ((hi << 5) & _M32))
     # sample = bits 32..63 of state * 0x2545F4914F6CDD1D (mod 2^64)
     sample = (_mulhi(lo, _MULT_LO) + _mullo(lo, _MULT_HI)
               + _mullo(hi, _MULT_LO)) & _M32
-    return torch.stack([hi, lo]), sample
+    return torch.stack([hi, lo], dim=-1), sample
 
 
 def coin_f32(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -75,7 +80,19 @@ def sample_token(logits: torch.Tensor, state: torch.Tensor,
                  temperature: float, topp: float
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sample one token id from (vocab,) logits; returns (token as a 0-dim
-    int64 tensor, state'). No value leaves the device.
+    int64 tensor, state'). No value leaves the device."""
+    if temperature == 0.0:      # argmax: no coin drawn, the state as it is
+        return torch.argmax(logits), state
+    tok, state = sample_rows(logits[None], state[None], temperature, topp)
+    return tok[0], state[0]
+
+
+def sample_rows(logits: torch.Tensor, state: torch.Tensor,
+                temperature: float, topp: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sample one token id a row from (B, vocab) logits, row b on its own
+    (2,) state state[b]; returns (tokens (B,) int64, states (B, 2)). No
+    value leaves the device.
 
     temperature and topp are fixed per call site (a graph is captured per
     sampler config), with sampler.Sampler.sample's branches: temperature 0
@@ -83,39 +100,41 @@ def sample_token(logits: torch.Tensor, state: torch.Tensor,
     else the reference's cutoff prefilter, stable sort and truncated
     nucleus (ref: src/tokenizer.cpp:231-306)."""
     if temperature == 0.0:
-        return torch.argmax(logits), state
+        return torch.argmax(logits, dim=-1), state
 
     x = logits.to(torch.float32)
     # a device divisor: a host scalar would make the card multiply by its
     # reciprocal, which is not the division the JAX sampler does
     x = x / torch.full((), temperature, dtype=torch.float32, device=x.device)
-    x = torch.exp(x - x.max())
-    probs = x / x.sum()
+    x = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+    probs = x / x.sum(dim=-1, keepdim=True)
     state, coin = coin_f32(state)
-    n = probs.shape[0]
+    coin = coin[:, None]
+    n = probs.shape[-1]
 
     if topp <= 0 or topp >= 1:
-        cdf = torch.cumsum(probs, 0)
-        idx = torch.searchsorted(cdf, coin.reshape(1), right=True)
-        return idx.clamp(max=n - 1).reshape(()), state
+        cdf = torch.cumsum(probs, -1)
+        idx = torch.searchsorted(cdf, coin, right=True)
+        return idx.clamp(max=n - 1)[:, 0], state
 
     cutoff = float(np.float32((1.0 - topp) / (n - 1)))
     keep = probs >= cutoff
     # near-uniform probs with topp < 1/n can leave no candidate; keep the
     # (first) argmax then, as the host Sampler does
-    first = torch.arange(n, device=probs.device) == torch.argmax(probs)
-    keep = torch.where(keep.any(), keep, first)
+    first = (torch.arange(n, device=probs.device)[None, :]
+             == torch.argmax(probs, dim=-1, keepdim=True))
+    keep = torch.where(keep.any(dim=-1, keepdim=True), keep, first)
     # non-candidates carry key -1 < 0 <= any candidate prob, so they sink
     # to the tail of the descending order and add 0 to the cdf
     key = torch.where(keep, probs, -1.0)
-    n_cand = keep.sum() - 1     # last candidate position, if none exceed topp
-    order = torch.sort(-key, stable=True).indices
-    p_sorted = key.gather(0, order).clamp(min=0.0)
-    cum = torch.cumsum(p_sorted, 0)
+    n_cand = keep.sum(dim=-1) - 1   # last candidate position, if none exceed topp
+    order = torch.sort(-key, dim=-1, stable=True).indices
+    p_sorted = key.gather(-1, order).clamp(min=0.0)
+    cum = torch.cumsum(p_sorted, -1)
     over = cum > topp
-    last = torch.where(over.any(), torch.argmax(over.to(torch.uint8)),
-                       n_cand.clamp(max=n - 1)).reshape(1)
+    last = torch.where(over.any(dim=-1), torch.argmax(over.to(torch.uint8), dim=-1),
+                       n_cand.clamp(max=n - 1))[:, None]
     # gathers, not cum[last]: a 0-dim index tensor is read on the host
-    r = coin * cum.gather(0, last)
+    r = coin * cum.gather(-1, last)
     idx = torch.searchsorted(cum, r, right=True)
-    return order.gather(0, torch.minimum(idx, last)).reshape(()), state
+    return order.gather(-1, torch.minimum(idx, last))[:, 0], state

@@ -50,7 +50,7 @@ import torch
 
 from ..models.transformer import KVCache, forward
 from .graphs import CapturedStep, capture
-from .profiler import COMPILES
+from .profiler import COMPILES, PROFILER, compile_key_str
 
 
 def parse_draft_spec(s: str) -> tuple[str, str]:
@@ -206,8 +206,8 @@ class DraftModel:
     def _captured(self, key, fn) -> CapturedStep:
         if key not in self.graphs:
             COMPILES.pre_compile(self.engine, key)
-            self.graphs[key] = capture(fn)
-            COMPILES.record(key, self.graphs[key].capture_s * 1e3)
+            self.graphs[key] = capture(fn)._replace(name=compile_key_str(key))
+            COMPILES.record(self.engine, key, self.graphs[key].capture_s * 1e3)
         return self.graphs[key]
 
     def _load(self, tok: np.ndarray, pos: np.ndarray) -> None:
@@ -225,11 +225,12 @@ class DraftModel:
         pass pos == seq_len)."""
         self._own(cache)
         dev = self.engine.device
-        draft_prefill_cache(
-            self.params, self.spec,
-            torch.as_tensor(np.asarray(tok, np.int64), device=dev),
-            torch.as_tensor(np.asarray(pos, np.int32), device=dev),
-            self.cache, fwd_kwargs=self._kwargs())
+        tok = torch.as_tensor(np.asarray(tok, np.int64), device=dev)
+        PROFILER.timed(
+            f"draft_prefill:{tok.shape[1]}", lambda: draft_prefill_cache(
+                self.params, self.spec, tok,
+                torch.as_tensor(np.asarray(pos, np.int32), device=dev),
+                self.cache, fwd_kwargs=self._kwargs()))
         return self.cache
 
     @torch.inference_mode()

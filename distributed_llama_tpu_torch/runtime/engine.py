@@ -45,6 +45,18 @@ sampled by rejection resampling on a numpy PCG64 stream drawn in the JAX
 order. `slot_verify_step` is the scheduler's fixed-width verify over the B
 slots, one graph ("slot_verify", 1 + K, n_vocab).
 
+Batched generation (JAX runtime/engine.py:1683-2188): `generate_batch`,
+`generate_batch_stream`, `generate_batch_device` and
+`generate_batch_lookup` run B independent prompts on a batch-B engine
+(the API server's /v1/batch/completions borrows the scheduler's). The
+prompts prefill right-padded, chunk by chunk, through `slot_prefill_chunk`;
+each row then decodes at its own position, a finished row gated to S (its
+writes land in the spare row). The host loop replays the "slot_decode"
+graph and samples every live row with the one shared Sampler in row order;
+the device loop is one graph ("bdsample", ...) replayed with each row's
+own xorshift stream (seed + i); the lookup loop drafts per row and
+verifies all rows in one "slot_verify" graph of width 1 + k_max.
+
 Cache seeding (JAX runtime/engine.py:406-545, :1577-1652): `save_session`
 and `load_session` persist the filled cache prefix in the JAX package's
 file format (one file serves both packages), and `new_prefix_arena`,
@@ -74,12 +86,13 @@ from ..models.params import fuse_layer_weights
 from ..models.spec import ModelSpec
 from ..models.transformer import _BITS, KVCache, forward
 from ..ops.cuda_attention import saturate_f8_nan_codes
-from ..ops.device_sampler import sample_token, state_from_seed
+from ..ops.device_sampler import sample_rows, sample_token, state_from_seed
 from ..sampler import Sampler
 from ..utils.device import resolve_device
 from .faults import FAULTS
 from .graphs import CapturedStep, capture
-from .profiler import COMPILES
+from .profiler import COMPILES, PROFILER, compile_key_str
+from .sampling import FullLogitsView
 from .stats import RunStats, StepStats
 
 # the fp8 (e4m3) cache stores 1 byte per value; writes saturate at +-448
@@ -222,7 +235,9 @@ class Engine:
             logits=torch.zeros((1, spec.vocab_size), dtype=torch.float32,
                                device=dev),
             # the verify steps' (B, T) token buffers, one per width T
-            seg={})
+            seg={},
+            # generate_batch_device's per-row buffers, made at first use
+            rows=None)
 
     def reset(self) -> None:
         """New session: zero the cache (in place) and rewind the position."""
@@ -362,8 +377,8 @@ class Engine:
         once eagerly then, with the static buffers as they stand)."""
         if key not in self.graphs:
             COMPILES.pre_compile(self, key)
-            self.graphs[key] = capture(fn)
-            COMPILES.record(key, self.graphs[key].capture_s * 1e3)
+            self.graphs[key] = capture(fn)._replace(name=compile_key_str(key))
+            COMPILES.record(self, key, self.graphs[key].capture_s * 1e3)
         return self.graphs[key]
 
     def mark_compile_warm(self) -> None:
@@ -1029,6 +1044,334 @@ class Engine:
         self.pos += max(n - 1, 0)
         return b.out[:n].tolist()
 
+    # -- batched generation (JAX runtime/engine.py:1683-2188) ---------------
+
+    def _batch_args(self, prompts: list[list[int]]) -> np.ndarray:
+        if len(prompts) != self.batch:
+            raise ValueError(f"{len(prompts)} prompts for an engine of "
+                             f"{self.batch} slots")
+        if not all(prompts):
+            raise ValueError("empty prompt")
+        lens = np.asarray([len(p) for p in prompts], np.int32)
+        if int(lens.max()) >= self.seq_len:
+            raise ValueError("context overflow")
+        return lens
+
+    def _batch_prefill(self, prompts: list[list[int]]) -> torch.Tensor:
+        """Prefill every row's prompt from position 0, right-padded, in
+        chunks of prefill_chunk through slot_prefill_chunk: a row whose
+        prompt ended in an earlier chunk is gated (position S), and a
+        tail chunk's padding writes past the prompt, where decode
+        overwrites it before any query attends it. Returns (B, vocab) f32
+        logits at each row's last prompt token."""
+        c = min(self.prefill_chunk, self.seq_len)
+        last: list = [None] * self.batch
+        for off in range(0, max(len(p) for p in prompts), c):
+            tok = np.zeros((self.batch, c), np.int32)
+            pos = np.full((self.batch,), self.seq_len, np.int32)
+            lidx = np.zeros((self.batch,), np.int32)
+            for i, p in enumerate(prompts):
+                n = min(c, len(p) - off)
+                if n > 0:
+                    tok[i, :n] = p[off:off + n]
+                    pos[i], lidx[i] = off, n - 1
+            logits = self.slot_prefill_chunk(tok, pos, lidx)
+            for i, p in enumerate(prompts):
+                if off < len(p) <= off + c:
+                    last[i] = logits[i]
+        return torch.stack(last)
+
+    def generate_batch(
+        self,
+        prompts: list[list[int]],
+        max_tokens: int,
+        sampler: Sampler,
+        eos_id: int | set[int] | None = None,
+    ) -> list[list[int]]:
+        """B independent sequences at once (JAX runtime/engine.py:1840):
+        one token list a row, a row's stop token included as its last
+        entry (generate() parity). Greedy rows equal B separate generate()
+        runs."""
+        out: list[list[int]] = [[] for _ in prompts]
+        for step_toks in self.generate_batch_stream(prompts, max_tokens,
+                                                    sampler, eos_id):
+            for i, t in enumerate(step_toks):
+                if t is not None:
+                    out[i].append(t)
+        return out
+
+    @torch.inference_mode()
+    def generate_batch_stream(
+        self,
+        prompts: list[list[int]],
+        max_tokens: int,
+        sampler: Sampler,
+        eos_id: int | set[int] | None = None,
+        stop_flags: np.ndarray | None = None,
+    ) -> Iterator[list[int | None]]:
+        """Step-level iterator form of generate_batch (JAX
+        runtime/engine.py:1863), the batch endpoint's stream. Each yield is
+        one decode step's tokens: B entries, a row's new token (a stop
+        token included, then the row stops) or None for a row that is
+        done or past its budget. max_tokens <= 0 prefills and emits
+        nothing. One shared Sampler samples every live row in row order,
+        so its coins are drawn as by per-row sample() calls.
+
+        `stop_flags` is the caller's (B,) bool array: setting
+        stop_flags[i] between steps retires row i (the server's text-level
+        stop scan); a row flagged before the first step never samples (the
+        server pads a short batch with such rows). A row decodes while
+        unstopped, under budget and with a free cache position; every
+        other row passes position S."""
+        stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
+        lens = self._batch_args(prompts)
+        b = self.batch
+        logits = self._batch_prefill(prompts)
+        self.pos = int(lens.max())
+        if max_tokens <= 0:      # the hard-cap contract of generate()
+            return
+
+        def sample_rows(lg, mask: np.ndarray) -> np.ndarray:
+            view = FullLogitsView(self.fetch_logits(lg))
+            out = np.full(b, -1, np.int64)
+            for i in np.nonzero(mask)[0]:
+                out[i] = view.sample(sampler, int(i))
+            return out
+
+        n_out = np.zeros(b, np.int64)
+        done = np.zeros(b, bool)
+        live0 = (np.ones(b, bool) if stop_flags is None
+                 else ~np.asarray(stop_flags, bool))
+        # a pre-retired row still feeds a token: a real id, 0
+        cur = np.where(live0, sample_rows(logits, live0), 0).astype(np.int64)
+        for i in np.nonzero(live0)[0]:
+            n_out[i] = 1
+            done[i] = int(cur[i]) in stop_ids
+        pos = lens.copy()        # next write position a row
+        yield [int(c) if live0[i] else None for i, c in enumerate(cur)]
+
+        def alive(i: int) -> bool:
+            if stop_flags is not None and stop_flags[i]:
+                return False
+            return (not done[i] and n_out[i] < max_tokens
+                    and pos[i] < self.seq_len)
+
+        while True:
+            live = np.asarray([alive(i) for i in range(b)])
+            if not live.any():
+                return
+            lg = self.slot_decode_step(cur[:, None],
+                                       np.where(live, pos, self.seq_len))
+            nxt = sample_rows(lg, live)
+            step: list[int | None] = [None] * b
+            for i in np.nonzero(live)[0]:
+                step[i] = int(nxt[i])
+                n_out[i] += 1
+                cur[i] = nxt[i]
+                done[i] = int(nxt[i]) in stop_ids
+            pos = pos + 1
+            self.pos = int(np.minimum(pos, self.seq_len).max())
+            yield step
+
+    def _row_buffers(self) -> types.SimpleNamespace:
+        """generate_batch_device's static per-row buffers: each row's
+        logits, RNG state, done flag and recorded tokens."""
+        if self._buf.rows is None:
+            dev, b = self.device, self.batch
+            self._buf.rows = types.SimpleNamespace(
+                logits=torch.zeros((b, self.spec.vocab_size),
+                                   dtype=torch.float32, device=dev),
+                rng=torch.zeros((b, 2), dtype=torch.int64, device=dev),
+                done=torch.zeros((b,), dtype=torch.bool, device=dev),
+                out=torch.zeros((b, self.seq_len + 2), dtype=torch.int64,
+                                device=dev))
+        return self._buf.rows
+
+    def _batch_sample_step(self, temperature: float, topp: float,
+                           n_vocab: int, stops: tuple) -> None:
+        """Graph ("bdsample", ...): one iteration of the JAX
+        generate_batch_device while-loop (runtime/engine.py:2152-2175)
+        behind a loop flag: the loop runs while fewer than `limit`
+        iterations ran and some row is live. A row whose position reached
+        S is done; each live row samples from its own logits and RNG
+        stream, records its token at column `count` and is done at a stop
+        token; then the forward of every row that goes on runs, the rest
+        at position S. Once the loop has ended, a replay changes no
+        recorded token, RNG state, position or cache slot."""
+        b, r = self._buf, self._row_buffers()
+        looping = (b.count < b.limit) & ~r.done.all()
+        done = r.done | (b.pos >= self.seq_len)
+        tok, states = sample_rows(r.logits[:, :n_vocab], r.rng, temperature,
+                                  topp)
+        record = ~done & looping
+        r.out.index_copy_(1, b.count,
+                          torch.where(record, tok, -1).view(-1, 1))
+        r.rng.copy_(torch.where(record.view(-1, 1), states, r.rng))
+        for s in stops:
+            done = done | (record & (tok == s))
+        feed = b.tok.view(-1)
+        feed.copy_(torch.where(record, tok, feed))
+        pos = torch.where(~done & looping, b.pos, self.seq_len)
+        r.logits.copy_(self._forward(b.tok, pos))
+        r.done.copy_(torch.where(looping, done, r.done))
+        b.pos.add_(looping.to(torch.int32))
+        b.count.add_(looping.to(torch.int64))
+
+    @torch.inference_mode()
+    def generate_batch_device(
+        self,
+        prompts: list[list[int]],
+        max_tokens: int,
+        *,
+        temperature: float,
+        topp: float,
+        seed: int,
+        eos_id: int | set[int] | None = None,
+        vocab_size: int | None = None,
+    ) -> list[list[int]]:
+        """Batched sampled generation with the decode loop on the device
+        (JAX runtime/engine.py:2089): B sequences, row i on its own
+        xorshift* stream seeded seed + i, so its tokens match a
+        generate_device run of that prompt at seed + i. A row stops at its
+        stop token (recorded) or when its cache fills; the loop ends when
+        every row is done. On a CUDA engine each iteration is one replay
+        of the graph ("bdsample", temperature, top-p, vocab, stops),
+        captured once a sampler configuration (max_tokens is a buffer,
+        not a key); the host reads the done flags once every
+        _DONE_CHECK_EVERY replays. last_device_steps is the loop's
+        iteration count."""
+        stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
+        n_vocab = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
+        lens = self._batch_args(prompts)
+        logits = self._batch_prefill(prompts)
+        self.pos = int(lens.max())
+        if max_tokens <= 0:      # the hard-cap contract of generate()
+            self.last_device_steps = 0
+            return [[] for _ in prompts]
+        # past this many iterations every row has reached S: the JAX loop
+        # ends there too
+        limit = min(max_tokens, self.seq_len - int(lens.min()) + 1)
+        stops = tuple(sorted(stop_ids))
+        key = ("bdsample", float(temperature), float(topp), n_vocab, stops)
+        b, r = self._buf, self._row_buffers()
+
+        def step() -> None:
+            self._batch_sample_step(float(temperature), float(topp), n_vocab,
+                                    stops)
+
+        def start(done: bool) -> None:
+            r.logits.copy_(logits)
+            r.rng.copy_(torch.stack([state_from_seed(seed + i, self.device)
+                                     for i in range(self.batch)]))
+            r.done.fill_(done)
+            r.out.fill_(-1)
+            b.tok.zero_()
+            b.count.zero_()
+            b.pos.copy_(torch.from_numpy(lens))
+            b.limit.fill_(limit)
+        if self.cuda_graphs and key not in self.graphs:
+            start(True)     # every row done: the warm-up writes nothing
+            self._captured(key, step)
+        start(False)
+        run = self.graphs[key].replay if self.cuda_graphs else step
+        every = _DONE_CHECK_EVERY if self.cuda_graphs else 1
+        for i in range(limit):
+            run()
+            if (i + 1) % every == 0 and bool(r.done.all()):
+                break
+        n = int(b.count)
+        self.last_device_steps = n
+        self.pos = int(min(int(lens.max()) + n, self.seq_len))
+        return [[int(x) for x in row if x >= 0]
+                for row in r.out[:, :n].cpu().tolist()]
+
+    def generate_batch_lookup(
+        self,
+        prompts: list[list[int]],
+        max_tokens: int,
+        eos_id: int | set[int] | None = None,
+        *,
+        draft_len: int = 7,
+        max_ngram: int = 3,
+        vocab_size: int | None = None,
+        histories: list[list[int]] | None = None,
+        stop_flags: np.ndarray | None = None,
+    ) -> list[list[int]]:
+        """Batched prompt-lookup speculative decoding (JAX
+        runtime/engine.py:1683): every row mines its own draft from its own
+        history, the drafts right-pad to the widest live draft (padding
+        feeds the row's current token again; its writes sit past the
+        accepted prefix and are overwritten like any unconfirmed draft),
+        and ONE verify forward of (B, 1 + k_max), the "slot_verify" graph
+        of that width, confirms each row's accepted prefix plus one. Each
+        row's stream is exactly its greedy stream. Greedy only. Returns one
+        token list a row (stop token included); `last_accept_stats` holds
+        (verify forwards, tokens) over the rows. `histories[i]` (default:
+        prompts[i]) is row i's draft-mining context; rows flagged in
+        `stop_flags` before the call never emit."""
+        from .speculative import count_accepted, find_draft
+
+        stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
+        spec_v = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
+        lens = self._batch_args(prompts)
+        b = self.batch
+        logits = self._batch_prefill(prompts)
+        self.pos = int(lens.max())
+        if max_tokens <= 0:      # the hard-cap contract of generate()
+            self.last_accept_stats = (1, 0)
+            return [[] for _ in range(b)]
+        first = torch.argmax(logits[:, :spec_v].float(), dim=-1).cpu().numpy()
+        out: list[list[int]] = [[] for _ in range(b)]
+        done = (np.asarray(stop_flags, bool).copy() if stop_flags is not None
+                else np.zeros(b, bool))
+        cur = first.astype(np.int64)
+        hists = [np.asarray((histories[i] if histories is not None
+                             else prompts[i]) + [int(first[i])], np.int32)
+                 for i in range(b)]
+        for i in np.nonzero(~done)[0]:   # a pre-retired row never emits
+            out[i].append(int(first[i]))
+            done[i] = int(first[i]) in stop_ids
+        pos = lens.copy()
+        n_forwards = 1
+        self.last_accept_stats = (n_forwards, sum(len(o) for o in out))
+
+        def alive(i: int) -> bool:
+            return (not done[i] and len(out[i]) < max_tokens
+                    and pos[i] < self.seq_len)
+
+        while any(alive(i) for i in range(b)):
+            live = [alive(i) for i in range(b)]
+            drafts: list[list[int]] = []
+            for i in range(b):
+                k = (min(draft_len, self.seq_len - pos[i] - 1,
+                         max_tokens - len(out[i]) - 1) if live[i] else 0)
+                drafts.append(find_draft(hists[i], k, max_ngram=max_ngram)
+                              if k > 0 else [])
+            k_max = max(len(d) for d in drafts)
+            seg = np.repeat(cur[:, None], 1 + k_max, axis=1)
+            for i, d in enumerate(drafts):
+                seg[i, 1:1 + len(d)] = d
+            greedy, _ = self.slot_verify_step(
+                seg, np.where(live, pos, self.seq_len), spec_v)
+            n_forwards += 1
+            for i in np.nonzero(live)[0]:
+                m = count_accepted(drafts[i], greedy[i])
+                emitted = [int(g) for g in greedy[i][: m + 1]]
+                for j, tk in enumerate(emitted):
+                    if tk in stop_ids:
+                        emitted = emitted[: j + 1]
+                        done[i] = True
+                        break
+                emitted = emitted[: max_tokens - len(out[i])]
+                pos[i] += len(emitted)       # 1 + accepted
+                out[i].extend(emitted)
+                cur[i] = emitted[-1]
+                hists[i] = np.concatenate(
+                    [hists[i], np.asarray(emitted, np.int32)])
+            self.pos = int(np.minimum(pos, self.seq_len).max())
+            self.last_accept_stats = (n_forwards, sum(len(o) for o in out))
+        return out
+
     # -- continuous-batching slot steps (runtime/scheduler.py) -------------
 
     def _slot_args(self, name: str, tokens: np.ndarray, pos: np.ndarray):
@@ -1052,7 +1395,8 @@ class Engine:
         FAULTS.fire("prefill_raise")   # host side, before any launch
         tokens, pos = self._slot_args("slot_prefill_chunk", tokens, pos)
         dev = self.device
-        return self._forward(
+        return PROFILER.timed(
+            f"slot_prefill:{tokens.shape[1]}", self._forward,
             torch.as_tensor(tokens, device=dev), torch.as_tensor(pos, device=dev),
             torch.as_tensor(np.asarray(logit_index, np.int64), device=dev))
 
@@ -1077,7 +1421,8 @@ class Engine:
         in place (seed_rows_from_blocks): one gather and one copy a layer
         for K and for V, eagerly, on the default stream between the
         scheduler's replays. Does not touch self.pos."""
-        seed_rows_from_blocks(self.cache, arena_k, arena_v, row, block_ids)
+        PROFILER.timed("prefix_seed", seed_rows_from_blocks, self.cache,
+                       arena_k, arena_v, row, block_ids)
 
     @torch.inference_mode()
     def slot_publish_block(self, arena_k, arena_v, row: int, offset: int,
@@ -1089,6 +1434,11 @@ class Engine:
         came from this engine's own saturating writes, so no guard runs
         here (the seed side owns it, as `saturate_f8_nan_codes` in
         seed_rows_from_blocks and load_session)."""
+        PROFILER.timed("prefix_publish", self._publish, arena_k, arena_v,
+                       row, offset, dst)
+
+    def _publish(self, arena_k, arena_v, row: int, offset: int,
+                 dst: list[int]) -> None:
         ids = torch.as_tensor(np.asarray(dst, np.int64),
                               device=arena_k.device)
         _, _, kvh, bl, hs = arena_k.shape

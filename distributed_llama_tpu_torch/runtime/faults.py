@@ -25,7 +25,8 @@ subprocess harnesses:
 ``after=N`` skips the first N invocations of the site, ``times=K`` fires on
 the next K (K=0: every invocation), ``ms=F`` sets the stall/sleep length.
 Counters are per site and only grow, so an arm spec fires at the same
-invocations on every run.
+invocations on every run. With tracing on, a site that fires records a
+``fault`` event on the flight recorder (runtime/trace.py).
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ import dataclasses
 import os
 import threading
 import time
+
+from .trace import TRACER
 
 SITES = ("step_raise", "step_stall", "prefill_raise", "slow_step")
 
@@ -115,6 +118,10 @@ class FaultRegistry:
             if a is None or not a.should_fire():
                 return
             ms, fired = a.ms, a.fired
+        if TRACER.enabled:
+            # the flight recorder sees every fault that fired, next to
+            # the spans it killed
+            TRACER.event("fault", 0, site=site, key=None, n=fired)
         if site.endswith("_raise"):
             raise FaultError(f"injected {site} (fire #{fired})")
         if site == "step_stall":

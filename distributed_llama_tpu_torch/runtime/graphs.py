@@ -14,6 +14,10 @@ The kernel wrappers count their launches in Python, so a graph counts at
 capture, where nothing launches. `capture` takes that count back and keeps
 it as the graph's tally; every replay adds the tally, so the counters read
 as if each replay had launched its kernels one by one, which it does.
+
+A step carries its graph key's name (``profiler.compile_key_str``): inside
+a sampled scheduler step (runtime/profiler.py) its replay is timed between
+two CUDA events under that name.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from ..ops.cuda_attention import flash_attention
 from ..ops.cuda_q40 import q40_expert_matmul, q40_matmul, q80_fused
 from ..ops.cuda_q80 import q80_roundtrip
+from .profiler import PROFILER
 
 # the wrappers themselves, taken at import: a test that patches a module's
 # attribute with a plain version leaves these counters in place
@@ -36,16 +41,18 @@ LAUNCH_COUNTERS = (q40_matmul, q40_expert_matmul, q80_fused, flash_attention,
 class CapturedStep(NamedTuple):
     """One captured step: its graph, what the captured run returned (in
     the graph's pool, overwritten by every replay), the launches of one
-    replay a counter, and the capture's seconds and pool bytes."""
+    replay a counter, the capture's seconds and pool bytes, and the name
+    its replays are timed under."""
 
     graph: torch.cuda.CUDAGraph
     out: object
     tally: tuple
     capture_s: float
     pool_bytes: int
+    name: str = ""
 
     def replay(self) -> None:
-        self.graph.replay()
+        PROFILER.timed(self.name, self.graph.replay)
         for counter, n in zip(LAUNCH_COUNTERS, self.tally):
             counter.launches += n
 

@@ -16,26 +16,42 @@ runtime/profiler.py, for what the scheduler and the server call:
     CPU), with the headroom in KV slots and in arena blocks.
   * ``build_info``: torch, CUDA and the card, for /healthz and the
     ``dllama_build_info`` series.
-  * ``PROFILER``: every ``sample_every``-th working scheduler step is
-    timed on the card with CUDA events around the step (the device span
-    from the step's first launch to its last, idle gaps included), under
-    the entry ``scheduler_step``. Off (the default) it costs one
-    attribute read a step.
+  * ``PROFILER``: sampled per-entry device time and the on-demand
+    capture. Every ``sample_every``-th working scheduler step
+    (``--profile-sample N``) records a pair of CUDA events on the current
+    stream around each entry point it runs: every captured graph's replay
+    (under its key's ``compile_key_str``: ``slot_decode``,
+    ``slot_verify:8:32000``, the draft's ``draft_scan:...``), the eager
+    slot prefill chunk (``slot_prefill:C``), the draft's catch-up chunk
+    (``draft_prefill:C``), the prefix cache's seed (``prefix_seed``) and
+    publish (``prefix_publish``). A daemon thread waits for the step's
+    last event and records each entry's summed device ms
+    (``device_time``), the step's wall and device ms (``sync``: one GPU
+    runs no collective, so its sync ms are 0, the JAX package's
+    single-device meaning) and a ``sync`` trace event. The events are
+    recorded between launches, never inside a captured graph, and no
+    device value is read on the scheduler thread. Off (the default) a
+    step costs one attribute read. ``capture(directory, ms)`` (the
+    ``POST /admin/profile`` body) writes one ``torch.profiler`` Chrome
+    trace, CPU and CUDA activities, of the next ms milliseconds.
 
-Auto-sizing (``resolve_auto_shape`` and the autotune artifact) and the
-on-demand trace capture are not ported.
+Auto-sizing (``resolve_auto_shape`` and the autotune artifact) is not
+ported (ROADMAP item 10c, second half).
 """
 
 from __future__ import annotations
 
+import os
 import re
 import threading
+import time
 from collections import deque
 
 import torch
 
 from ..quants.torch_codec import QuantizedTensor
 from .stats import percentile
+from .trace import TRACER
 
 # -- the ledger of captured graphs -----------------------------------------
 
@@ -82,6 +98,9 @@ class CompileLedger:
         ks = compile_key_str(key)
         with self._lock:
             self.after_warmup += 1
+        if TRACER.enabled:
+            TRACER.event("compile_after_warmup", 0, key=ks,
+                         frozen=self.freeze)
         if self.freeze:
             from .scheduler import RequestError
 
@@ -90,8 +109,9 @@ class CompileLedger:
                 f"new graph key {ks!r} after warmup with the serving set "
                 "frozen", retryable=False)
 
-    def record(self, key, ms: float) -> None:
+    def record(self, engine, key, ms: float) -> None:
         ks = compile_key_str(key)
+        warm = bool(getattr(engine, "_compile_warm", False))
         with self._lock:
             self.total += 1
             self.total_ms += ms
@@ -105,6 +125,8 @@ class CompileLedger:
                 rec["count"] += 1
                 rec["ms"] = round(rec["ms"] + ms, 3)
                 rec["last_ms"] = round(ms, 3)
+        if TRACER.enabled:
+            TRACER.event("compile", 0, key=ks, ms=round(ms, 3), warm=warm)
 
     def summary(self) -> dict:
         """The ``compiles`` /stats block."""
@@ -234,11 +256,13 @@ def build_info(engine=None) -> dict:
             "card": card}
 
 
-# -- sampled step device time -----------------------------------------------
+# -- sampled per-entry device time and the on-demand capture ----------------
 
 
 class DeviceTimeStats:
-    """Per-entry device-ms windows fed by the sampled steps."""
+    """Per-entry device-ms windows fed by the sampled steps: {entry name:
+    bounded window of the entry's summed device ms within one sampled
+    step}."""
 
     def __init__(self, window: int = 512, max_keys: int = 64):
         self.window = int(window)
@@ -268,58 +292,217 @@ class DeviceTimeStats:
         return out
 
 
-class Profiler:
-    """Sampled per-step device time (singleton ``PROFILER``). Off
-    (``sample_every == 0``) call sites pay one attribute read a step;
-    on, every Nth working step is bracketed by two CUDA events on the
-    current stream and its device ms recorded under ``scheduler_step``.
-    On the CPU a sampled step records nothing and counts a failure: there
-    is no device time to read."""
+class SyncStats:
+    """Per-sampled-step device sync/compute split (the JAX package's
+    ``SyncStats``): one (sync_ms, device_ms, wall_ms) record a sampled
+    step. sync_ms is the device time of collectives, which one GPU never
+    runs: 0, as the JAX package reports a single device. The summary is
+    the ``sync`` half of the ``device_time`` /stats block."""
 
-    ENTRY = "scheduler_step"
+    def __init__(self, window: int = 512):
+        self.window = int(window)
+        self._lock = threading.Lock()
+        self._sync = deque(maxlen=self.window)  # guarded by self._lock
+        self._device = deque(maxlen=self.window)
+        self._wall = deque(maxlen=self.window)
+
+    def record(self, sync_ms: float, device_ms: float,
+               wall_ms: float | None = None) -> None:
+        with self._lock:
+            self._sync.append(float(sync_ms))
+            self._device.append(float(device_ms))
+            if wall_ms is not None:
+                self._wall.append(float(wall_ms))
+
+    def summary(self) -> dict:
+        with self._lock:
+            sync = list(self._sync)
+            dev = list(self._device)
+            wall = list(self._wall)
+        if not sync:
+            return {"n": 0}
+        rnd = lambda v: None if v is None else round(v, 4)  # noqa: E731
+        total_dev = sum(dev)
+        return {
+            "n": len(sync),
+            "sync_p50_ms": rnd(percentile(sync, 50)),
+            "sync_p99_ms": rnd(percentile(sync, 99)),
+            "device_p50_ms": rnd(percentile(dev, 50)),
+            # window sums, not a mean of ratios
+            "sync_share": rnd(sum(sync) / total_dev) if total_dev else None,
+            "wall_p50_ms": rnd(percentile(wall, 50)) if wall else None,
+        }
+
+
+def _event():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+class Profiler:
+    """The on-demand capture and the sampled per-entry device time
+    (singleton ``PROFILER``). Off (``sample_every == 0``) the scheduler
+    pays one attribute read a step and an entry point one more
+    (``active is None``). On, every Nth working step sets ``active`` to a
+    list that each entry point run in the step appends its (name, start,
+    end) CUDA events to; the N - 1 other steps pay one counter increment.
+    On the CPU a sampled step records nothing and counts a failure: there
+    is no device time to read.
+
+    ``capture`` (the /admin/profile body) and a due step sample share one
+    owner flag, as in the JAX package: the loser skips, never blocks."""
 
     def __init__(self):
-        self.sample_every = 0       # 0 = off
+        self.sample_every = 0       # 0 = attribution off
         self._n = 0                 # working-step counter
-        self.sampled = 0
+        self.sampled = 0            # sampled steps attributed
         self.sample_failures = 0
+        self.captures = 0           # /admin/profile captures written
         self.device_time = DeviceTimeStats()
+        self.sync = SyncStats()
+        # the last sampled steps: the working step's number, its wall ms,
+        # device ms by entry, and the device span from its first event to
+        # its last
+        self.recent_steps: deque = deque(maxlen=256)
+        # the sampled step's entries while it runs (scheduler thread only)
+        self.active: list | None = None
+        self._lock = threading.Lock()
+        self._busy = False  # guarded by self._lock
+
+    # -- the /admin/profile body ----------------------------------------
+
+    @staticmethod
+    def prepare() -> None:
+        """Start torch.profiler's CUDA tracer (kineto over CUPTI) on the
+        calling thread with one empty session. It initializes at its first
+        CUDA session and must do so on the thread that imported torch: a
+        first session on an HTTP handler thread records no kernel ("External
+        init callback must run in same thread as registerClient"). The
+        server calls this on the thread that builds it."""
+        from torch.profiler import ProfilerActivity, profile
+
+        if torch.cuda.is_available():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]):
+                pass
+
+    def capture(self, directory: str, ms: float) -> dict:
+        """Write one torch.profiler trace (CPU and, on a card, CUDA
+        activities) of the next `ms` milliseconds to
+        `directory`/trace.json (created). Synchronous: the caller's thread
+        sleeps out the window while the other threads keep launching, so
+        a return means the trace is on disk. Raises RuntimeError("capture
+        busy") while a capture or a sampled step owns the profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with self._lock:
+            if self._busy:
+                raise RuntimeError("capture busy: a profiler capture or a "
+                                   "sampled step is running in this "
+                                   "process")
+            self._busy = True
+        try:
+            os.makedirs(directory, exist_ok=True)
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            with profile(activities=acts) as prof:
+                time.sleep(max(float(ms), 0.0) / 1e3)
+            path = os.path.join(directory, "trace.json")
+            prof.export_chrome_trace(path)
+            self.captures += 1
+            if TRACER.enabled:
+                TRACER.event("profile", 0, dir=directory, ms=float(ms))
+            return {"dir": directory, "ms": float(ms), "trace": path}
+        finally:
+            with self._lock:
+                self._busy = False
+
+    # -- sampled step attribution ----------------------------------------
 
     def step_begin(self):
-        """At the top of a working step: the start event when THIS step
-        is sampled, else None."""
+        """At the top of a working step: the step's start event when THIS
+        step is sampled (``active`` armed), else None."""
         self._n += 1
         if self._n % self.sample_every:
             return None
         if not torch.cuda.is_available():
             self.sample_failures += 1
             return None
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        return start
+        with self._lock:
+            if self._busy:
+                return None  # an /admin/profile capture owns the profiler
+            self._busy = True
+        self.active = []
+        return _event()
+
+    def timed(self, name: str, fn, *args):
+        """Run fn(*args); inside a sampled step, between two CUDA events
+        recorded on the current stream under entry `name`."""
+        rec = self.active
+        if rec is None:
+            return fn(*args)
+        start = _event()
+        try:
+            return fn(*args)
+        finally:
+            rec.append((name, start, _event()))
 
     def step_end(self, start, wall_ms: float | None = None) -> None:
-        """At the end of the sampled step: record the end event, wait for
-        it, and keep the device ms between the two."""
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        end.synchronize()
-        self.device_time.record(self.ENTRY, start.elapsed_time(end))
-        self.sampled += 1
+        """At the end of the sampled step: record the end event and hand
+        the wait and the attribution to a daemon thread, so the scheduler
+        thread goes back to launching at once."""
+        entries, self.active = self.active, None
+        end = _event()
+        with self._lock:
+            self._busy = False
+        threading.Thread(target=self._ingest,
+                         args=(self._n, start, end, entries, wall_ms),
+                         name="dlprof-ingest", daemon=True).start()
+
+    def _ingest(self, n: int, start, end, entries: list, wall_ms) -> None:
+        try:
+            end.synchronize()
+            per: dict[str, float] = {}
+            for name, s, e in entries:
+                per[name] = per.get(name, 0.0) + s.elapsed_time(e)
+            for name, ms in per.items():
+                self.device_time.record(name, ms)
+            device_ms = sum(per.values())
+            self.sync.record(0.0, device_ms, wall_ms)
+            self.recent_steps.append({"step": n, "wall_ms": wall_ms,
+                               "device_ms": device_ms,
+                               "span_ms": start.elapsed_time(end),
+                               "by_entry": per})
+            if TRACER.enabled:
+                TRACER.event(
+                    "sync", 0, sync_ms=0.0, device_ms=round(device_ms, 4),
+                    wall_ms=(None if wall_ms is None else round(wall_ms, 4)),
+                    share=0.0 if device_ms else None)
+            self.sampled += 1
+        except Exception:  # noqa: BLE001 — attribution is best effort
+            self.sample_failures += 1
 
     def summary(self) -> dict:
         """The ``device_time`` /stats block (present when sampling on)."""
         return {"sample_every": self.sample_every,
                 "sampled_steps": self.sampled,
                 "sample_failures": self.sample_failures,
-                "by_entry": self.device_time.summary()}
+                "captures": self.captures,
+                "by_entry": self.device_time.summary(),
+                "sync": self.sync.summary()}
 
     def reset(self) -> None:
         self.sample_every = 0
         self._n = 0
         self.sampled = 0
         self.sample_failures = 0
+        self.captures = 0
         self.device_time = DeviceTimeStats()
+        self.sync = SyncStats()
+        self.recent_steps = deque(maxlen=256)
+        self.active = None
 
 
 PROFILER = Profiler()

@@ -51,6 +51,7 @@ import time
 from .prefix_cache import PrefixCache
 from .scheduler import Scheduler
 from .stats import SupervisorStats
+from .trace import TRACER
 
 READY = "ready"
 RECOVERING = "recovering"
@@ -245,6 +246,9 @@ class EngineSupervisor:
             self._rebuild_thread = threading.Thread(
                 target=self._rebuild, args=(time.perf_counter(),),
                 daemon=True)
+        if TRACER.enabled:
+            TRACER.event("circuit", 0, scope="engine", state="half_open",
+                         key=None)
         self._rebuild_thread.start()
 
     def summary(self) -> dict:
@@ -271,6 +275,9 @@ class EngineSupervisor:
         out["compiles"] = COMPILES.summary()
         if PROFILER.sample_every:
             out["device_time"] = PROFILER.summary()
+        if TRACER.enabled:
+            out["trace"] = TRACER.summary()
+            out["step_timeline"] = TRACER.steps.summary_json()
         return out
 
     def _retry_after(self) -> float:
@@ -360,6 +367,9 @@ class EngineSupervisor:
             if kind == "crash":
                 self.sup_stats.crashes += 1
             self.sup_stats.consecutive_failures += 1
+        if TRACER.enabled:
+            TRACER.event("engine_failure", 0, failure=kind, msg=msg[:200],
+                         gen=gen, key=None)
         # outside the state lock (waiter wakeups) and without the step
         # mutex (a wedged step holds it)
         old._abort_all(f"engine failure: {msg}")
@@ -387,6 +397,9 @@ class EngineSupervisor:
                 n = self.sup_stats.consecutive_failures
                 if n >= self.breaker_threshold:
                     self._state = BROKEN  # circuit open: stay unready
+                    if TRACER.enabled:
+                        TRACER.event("circuit", 0, scope="engine",
+                                     state="open", fails=n, key=None)
                     return
             time.sleep(min(self._backoff_base * (2 ** max(n - 1, 0)),
                            self._backoff_max))
@@ -421,7 +434,10 @@ class EngineSupervisor:
                 self._sched = sched
                 self._state = READY
                 self.sup_stats.recoveries += 1
-                self.sup_stats.recovery_ms.append(
-                    (time.perf_counter() - t_detect) * 1e3)
+                recovery_ms = (time.perf_counter() - t_detect) * 1e3
+                self.sup_stats.recovery_ms.append(recovery_ms)
+            if TRACER.enabled:
+                TRACER.event("recovery", 0, ms=round(recovery_ms, 3),
+                             gen=gen, key=None)
             self._start_loop(sched, gen)
             return

@@ -52,6 +52,15 @@ draft catch-up chunk an iteration prefills it from the row's fed tokens.
 ``warmup`` runs the draft's prefill, proposal and the verify once with every
 row gated, so speculative serving captures no graph after it.
 
+Flight recorder (runtime/trace.py): with ``TRACER`` on, ``submit`` mints
+one trace id a request and each request's span records ``enqueue``,
+``admit``, ``seed``, ``prefill`` (a chunk), ``first_token``, ``decode``
+(every ``decode_every``-th token), ``spec`` and ``finish`` or ``error``;
+every working iteration records a ``step`` (its composition and wall ms),
+all on the host between launches. Off, each site costs one attribute
+read. With ``PROFILER.sample_every`` set, every Nth working step times its
+entry points on the card (runtime/profiler.py).
+
 Thread model: ``submit()`` is thread-safe and never takes the step mutex;
 the step loop runs on the ``start()`` thread, the supervisor's thread
 (runtime/resilience.py) or synchronously through ``step()``. Every thread
@@ -80,6 +89,7 @@ from .profiler import PROFILER
 from .sampling import FullLogitsView
 from .speculative import count_accepted
 from .stats import RequestStats, ServeStats, SpecStats
+from .trace import TRACER
 
 # constructor options of the JAX Scheduler that the port does not have yet,
 # with the ROADMAP item that brings each
@@ -133,8 +143,11 @@ class ServeRequest:
 
     def __init__(self, rid: int, prompt: list[int], max_tokens: int,
                  sampler, stop_ids: set[int],
-                 deadline: float | None = None):
+                 deadline: float | None = None, trace_id: int = 0):
         self.id = rid
+        # flight-recorder span id (runtime/trace.py), minted once a
+        # request at the scheduler door; 0 = untraced
+        self.trace_id = trace_id
         self.prompt = prompt
         self.max_tokens = max_tokens
         self.sampler = sampler
@@ -276,14 +289,16 @@ class Scheduler:
 
     def submit(self, prompt: list[int], max_tokens: int, sampler,
                eos_id: int | set[int] | None = None,
-               deadline: float | None = None) -> ServeRequest:
+               deadline: float | None = None,
+               trace_id: int | None = None) -> ServeRequest:
         """Enqueue a request; it joins the running batch when a slot frees.
         `sampler` is the request's own (its RNG stream is the slot's
         sampling state). max_tokens <= 0 prefills and emits nothing.
         Raises PromptTooLong when the prompt cannot fit the context,
         QueueFull at the queue bound, SchedulerClosed after close().
         `deadline` is an absolute perf_counter bound (default: now +
-        request_deadline when configured)."""
+        request_deadline when configured). `trace_id` defaults to a fresh
+        id with tracing on (the scheduler door is the front door)."""
         if self._closed:
             raise SchedulerClosed("scheduler is closed")
         prompt = [int(t) for t in prompt]
@@ -305,9 +320,15 @@ class Scheduler:
         with self._rid_lock:
             self._rid += 1
             rid = self._rid
+        if trace_id is None:
+            trace_id = TRACER.new_id() if TRACER.enabled else 0
         req = ServeRequest(rid, prompt, max_tokens, sampler, stop_ids,
-                           deadline=deadline)
+                           deadline=deadline, trace_id=trace_id)
         req.stats.t_submit = now
+        if TRACER.enabled:
+            TRACER.event("enqueue", trace_id, rid=rid,
+                         n_prompt=len(prompt), max_tokens=max_tokens,
+                         key=None)
         with self._rid_lock:
             self.stats.requests_submitted += 1
         self.stats.requests.append(req.stats)
@@ -381,6 +402,7 @@ class Scheduler:
         self.stats.steps += 1
         self.stats.occupancy.append(len(pre) + len(dec))
         self.stats.queue_depth.append(len(self._queue))
+        cw = self.chunk if pre else 0
         if pre:
             self._prefill_chunk(pre)
         if self.draft is not None:
@@ -396,6 +418,13 @@ class Scheduler:
                 self._decode_spec(dec)
             else:
                 self._decode(dec)
+        if TRACER.enabled:
+            # the step timeline: composition and wall ms from the
+            # watchdog heartbeat's t0
+            TRACER.step(decode_rows=len(dec), prefill_rows=len(pre),
+                        chunk=cw, queue_depth=len(self._queue),
+                        wall_ms=(time.perf_counter() - self._step_t0) * 1e3,
+                        key=None)
         return True
 
     def _expire_req(self, req: ServeRequest, code: str = "deadline",
@@ -430,6 +459,11 @@ class Scheduler:
             # the draft attends it, as in the main cache
             s.draft_pos = 0
             s.toks = list(req.prompt)
+            if TRACER.enabled:
+                TRACER.event("admit", req.trace_id, slot=s.idx,
+                             queue_ms=round(
+                                 (now - req.stats.t_submit) * 1e3, 3),
+                             key=None)
             if self.prefix_cache is not None:
                 # seed the longest cached prefix (whole blocks, capped at
                 # len - 1) and prefill only the suffix; the path stays
@@ -440,6 +474,10 @@ class Scheduler:
                     self.prefix_cache.seed_slot(s.idx, ids)
                     s.off = n
                     s.pins = pins
+                if TRACER.enabled:
+                    # a miss (hit=0) is timeline information too
+                    TRACER.event("seed", req.trace_id, hit=n,
+                                 n_prompt=len(req.prompt))
 
     def _sample_view(self, logits) -> FullLogitsView:
         return FullLogitsView(self.engine.fetch_logits(logits))
@@ -461,6 +499,9 @@ class Scheduler:
             # overwrites them before any later query attends them
             pos[s.idx] = s.off
             lidx[s.idx] = n - 1
+            if TRACER.enabled:
+                TRACER.event("prefill", s.req.trace_id, off=s.off, n=n,
+                             slot=s.idx)
             s.off += n
             if s.off == len(s.req.prompt):
                 finishing.append(s)
@@ -618,7 +659,16 @@ class Scheduler:
         s.last = token
         s.toks.append(token)  # the draft catch-up's fed-token history
         if req.stats.t_first is None:
-            req.stats.t_first = time.perf_counter()
+            now = time.perf_counter()
+            req.stats.t_first = now
+            if TRACER.enabled:
+                TRACER.event("first_token", req.trace_id,
+                             ttft_ms=round((now - req.stats.t_submit)
+                                           * 1e3, 3))
+        elif TRACER.enabled and s.n_out % TRACER.decode_every == 0:
+            # progress at a bounded cadence: a per-token event would let
+            # one long stream flush the ring
+            TRACER.event("decode", req.trace_id, n_out=s.n_out)
         req.stats.n_out = s.n_out
         self.stats.tokens_out += 1
         req.events.put(("token", token))
@@ -658,6 +708,15 @@ class Scheduler:
         req.finish_reason = reason
         req.stats.t_done = time.perf_counter()
         self.stats.requests_finished += 1
+        if TRACER.enabled:
+            if req.stats.spec_forwards:
+                # the request's accept record, one event a request
+                TRACER.event("spec", req.trace_id,
+                             forwards=req.stats.spec_forwards,
+                             drafted=req.stats.spec_drafted,
+                             accepted=req.stats.spec_accepted, key=None)
+            TRACER.event("finish", req.trace_id, reason=reason,
+                         n_out=req.stats.n_out)
         req.events.put(("done", reason))
         req.finished.set()
 
@@ -732,6 +791,11 @@ class Scheduler:
         req.stats.t_done = time.perf_counter()
         self.stats.requests_finished += 1
         self.stats.requests_failed += 1
+        if TRACER.enabled:
+            TRACER.event("error", req.trace_id,
+                         code=frame.get("code", "error"),
+                         retryable=bool(frame.get("retryable", True)),
+                         n_out=req.stats.n_out, key=None)
         req.events.put(("error", dict(frame)))
         req.finished.set()
         return True

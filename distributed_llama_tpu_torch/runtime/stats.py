@@ -7,8 +7,8 @@ RunStats (generation wall ms (G), device-step ms (I, the step up to its
 logits on the host — the copy is the sync point), host overhead ms), and the
 serving records of the scheduler, its supervisor, the radix prefix
 cache and speculative decoding (RequestStats, ServeStats, SupervisorStats,
-PrefixCacheStats, SpecStats, percentile). The step timeline (it belongs to
-the flight recorder, which comes with the --trace flags) and the router,
+PrefixCacheStats, SpecStats, percentile), and the flight recorder's step
+timeline (StepTimelineStats, owned by runtime/trace.Tracer). The router,
 cluster, transfer and fleet records are not ported: the port serves none
 of those yet.
 """
@@ -16,6 +16,7 @@ of those yet.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from collections import deque
 
 
@@ -127,6 +128,54 @@ class SpecStats:
                                   if self.verify_forwards else None),
             "degraded_steps": self.degraded_steps,
         }
+
+
+class StepTimelineStats:
+    """Per-batch-composition step-duration windows (owned by
+    runtime/trace.Tracer): every scheduler iteration records its wall ms
+    keyed by (decode_rows, prefill_rows, chunk), the ``dllama_step_ms``
+    /metrics family and the ``step_timeline`` /stats block. Bounded:
+    ``window`` samples a composition, at most ``max_keys`` compositions."""
+
+    def __init__(self, window: int = 4096, max_keys: int = 256):
+        self.window = int(window)
+        self.max_keys = int(max_keys)
+        self._lock = threading.Lock()
+        self._hist: dict[tuple, deque] = {}  # guarded by self._lock
+        self.overflow = 0  # samples dropped past max_keys
+
+    def record(self, decode_rows: int, prefill_rows: int, chunk: int,
+               wall_ms: float) -> None:
+        key = (int(decode_rows), int(prefill_rows), int(chunk))
+        with self._lock:
+            d = self._hist.get(key)
+            if d is None:
+                if len(self._hist) >= self.max_keys:
+                    self.overflow += 1
+                    return
+                d = self._hist[key] = deque(maxlen=self.window)
+            d.append(wall_ms)
+
+    def summary(self) -> dict:
+        """{(dec, pre, chunk): {n, p50_ms, p99_ms, mean_ms}} over the
+        windows, busiest composition first."""
+        with self._lock:
+            items = [(k, list(d)) for k, d in self._hist.items()]
+        out = {}
+        for key, xs in sorted(items, key=lambda kv: -len(kv[1])):
+            out[key] = {
+                "n": len(xs),
+                "p50_ms": round(percentile(xs, 50), 4),
+                "p99_ms": round(percentile(xs, 99), 4),
+                "mean_ms": round(sum(xs) / len(xs), 4),
+            }
+        return out
+
+    def summary_json(self) -> dict:
+        """summary() with string keys ("dec4_pre1_c16"): tuple keys do not
+        survive json.dumps."""
+        return {f"dec{k[0]}_pre{k[1]}_c{k[2]}": v
+                for k, v in self.summary().items()}
 
 
 @dataclasses.dataclass

@@ -1,15 +1,333 @@
-"""The /metrics plane — the port's copy of ``render_prometheus`` from the
-JAX package's runtime/trace.py: the /stats summary dict as Prometheus text
-exposition (GET /metrics, apps/api_server.py), for the families the
-single-GPU serving stack produces, the radix prefix cache's included.
+"""Flight recorder and the /metrics plane — the port of the JAX package's
+runtime/trace.py for one GPU.
 
-The flight recorder (``Tracer``: per-request spans, the step timeline and
-its ``dllama_step_ms`` families) comes with the --trace flags that turn it
-on (ROADMAP item 10c). The JSONL sink and the router, transfer, fleet and
-cluster families are not ported.
+  * **Per-request spans**: ``Tracer`` (the singleton ``TRACER``) records
+    each request's lifecycle (``enqueue -> admit -> seed -> prefill ->
+    first_token -> decode/N -> spec -> finish|error``) and the events that
+    explain a timeline (``engine_failure``, ``circuit``, ``recovery``,
+    ``fault``, ``compile``, ``compile_after_warmup``, ``profile``,
+    ``sync``) into a fixed-capacity ring. Appends take no lock
+    (``deque.append`` is atomic under the GIL); the span index, the step
+    windows and the sink take their own. Off (the default) it records
+    nothing and allocates nothing: call sites check ``TRACER.enabled``
+    before they build any kwargs, so a server launched without --trace
+    pays one attribute read a site.
+  * **Step timeline**: every scheduler iteration records its batch
+    composition (decode rows, prefill rows, chunk width), its queue depth
+    and its wall ms, kept a composition in ``stats.StepTimelineStats``:
+    the ``dllama_step_ms`` /metrics family and the /stats
+    ``step_timeline`` block.
+  * **Export**: ``render_prometheus`` turns the /stats summary dict and
+    the tracer's windows into Prometheus text (GET /metrics);
+    GET /admin/trace serves the ring as JSONL; ``--trace-dir`` attaches a
+    rotating JSONL sink with a per-request sample rate.
+
+One clock: every timestamp is ``time.perf_counter()``, the clock of the
+scheduler's deadlines, TTFT/ITL and the supervisor's watchdog; one
+(wall, mono) anchor pair converts to wall time at export only.
+
+Every event is host code between device launches: none is recorded inside
+a captured CUDA graph, and none reads a device value. ``EVENT_KINDS`` is
+the JAX tuple whole; the kinds of the router, KV transfer, cluster and
+fleet (``route``, ``kv_fill``, ``failover``, ``cluster_*``,
+``worker_exit``, ``respawn``, ``handshake``, ``bcast``, ``scale_*``,
+``shed``, ``degrade``) come with those layers (ROADMAP items 15 and 16),
+and so do the cross-process span methods (``reserve``, ``ingest``,
+``export_span``).
 """
 
 from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+
+from .stats import StepTimelineStats
+
+# event kinds a span may contain, in rough lifecycle order (the JAX tuple)
+EVENT_KINDS = (
+    "enqueue",        # scheduler door: request queued (n_prompt, rid)
+    "admit",          # slot leased (slot, queue_ms)
+    "seed",           # prefix-cache seed (hit = tokens seeded)
+    "prefill",        # one prefill chunk dispatched for this row (off, n)
+    "first_token",    # TTFT edge
+    "decode",         # every Nth decode token (n_out)
+    "finish",         # terminal: natural finish (reason, n_out)
+    "error",          # terminal: structured error frame (code, retryable)
+    "route",          # router placement (replica, reason, attempt)
+    "kv_fill",        # cross-replica KV block fill
+    "failover",       # retryable pre-stream failure -> re-place
+    "circuit",        # breaker transition (scope, state)
+    "fault",          # an armed fault site actually fired (site, key)
+    "engine_failure",  # supervisor caught a crash/stall (failure, gen)
+    "recovery",       # supervisor rebuilt to ready (ms, gen)
+    "cluster_lost",   # cluster peer lost
+    "worker_exit",    # replica worker process died
+    "respawn",        # worker respawned to routable
+    "spec",           # terminal speculative accept record for one request
+    #                   (forwards, drafted, accepted)
+    "step",           # scheduler iteration (timeline record)
+    "handshake",      # cluster control star formed
+    "cluster_tick",   # one cluster protocol frame handled
+    "bcast",          # startup data-plane broadcast timed
+    "sync",           # one sampled step's collective vs total device ms
+    #                   (runtime/profiler.py)
+    "compile",        # a CUDA graph was captured (key, ms, warm) —
+    #                   runtime/profiler.CompileLedger
+    "compile_after_warmup",  # the recompile sentinel fired (key, frozen)
+    "profile",        # an /admin/profile capture completed (dir, ms)
+    "scale_up",       # fleet controller added a replica
+    "scale_down",     # fleet controller drained and reaped a replica
+    "shed",           # overload door refused/degraded a request
+    "degrade",        # shed ladder moved a rung
+)
+
+
+def _sampled(tid: int, rate: float) -> bool:
+    """Deterministic per-request sink sampling: a trace id is always in or
+    always out, so a span is never half persisted (Knuth's multiplicative
+    hash: ids are sequential, and ``tid % k`` would follow arrival
+    order)."""
+    if rate >= 1.0:
+        return True
+    if rate <= 0.0:
+        return False
+    return ((tid * 2654435761) & 0xFFFFFFFF) / 4294967296.0 < rate
+
+
+class TraceSink:
+    """Rotating JSONL sink (``trace-00000001.jsonl`` ...): a file rotates
+    past ``max_bytes``, the oldest files go past ``max_files``, so the
+    disk footprint is bounded by ``max_bytes * max_files``. Line-buffered
+    writes under one lock; the Tracer has already decided sampling."""
+
+    def __init__(self, directory: str, *, max_bytes: int = 16 << 20,
+                 max_files: int = 8):
+        self.directory = directory
+        self.max_bytes = int(max_bytes)
+        self.max_files = int(max_files)
+        self._lock = threading.Lock()
+        self._fh = None  # guarded by self._lock
+        self._n = 0
+        self._seq = 0
+        os.makedirs(directory, exist_ok=True)
+
+    def _open_next(self) -> None:  # holds self._lock
+        if self._fh is not None:
+            try:
+                self._fh.close()
+            except OSError:
+                pass
+        self._seq += 1
+        path = os.path.join(self.directory, f"trace-{self._seq:08d}.jsonl")
+        self._fh = open(path, "a", buffering=1)  # line-buffered
+        self._n = self._fh.tell()
+        old = sorted(f for f in os.listdir(self.directory)
+                     if f.startswith("trace-") and f.endswith(".jsonl"))
+        for f in old[:-self.max_files] if len(old) > self.max_files else ():
+            try:
+                os.unlink(os.path.join(self.directory, f))
+            except OSError:
+                pass
+
+    def write(self, line: str) -> None:
+        with self._lock:
+            if self._fh is None or self._n >= self.max_bytes:
+                self._open_next()
+            self._fh.write(line + "\n")
+            self._n += len(line) + 1
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fh is not None:
+                try:
+                    self._fh.close()
+                except OSError:
+                    pass
+                self._fh = None
+
+
+class Tracer:
+    """Host-side flight recorder (module singleton: ``TRACER``). Off by
+    default; hot call sites check ``if TRACER.enabled:`` before building
+    event kwargs. On, ``event()`` appends one small dict to a bounded ring
+    and, for sampled spans, to the JSONL sink; ``step()`` also feeds the
+    per-composition step windows."""
+
+    def __init__(self):
+        self.enabled = False
+        self.decode_every = 8     # decode progress event cadence (tokens)
+        self.sample = 1.0         # sink sampling rate (the ring keeps all)
+        self._capacity = 8192
+        self._ring: deque = deque(maxlen=self._capacity)
+        self._lock = threading.Lock()
+        self._next_id = 0  # guarded by self._lock
+        self._sink: TraceSink | None = None
+        self.steps = StepTimelineStats()
+        self.dropped = 0          # sink write failures (disk full ...)
+        # per-tid span index: by_id is O(span), not O(ring)
+        self._spans: dict[int, list] = {}  # guarded by self._span_lock
+        self._span_order: deque = deque()
+        self._span_lock = threading.Lock()
+        self._anchor()
+
+    @property
+    def _span_cap(self) -> int:
+        return max(self._capacity // 8, 64)  # distinct live spans
+
+    def _anchor(self) -> None:
+        # one (wall, mono) pair: every stored ts is perf_counter; wall
+        # conversion happens at export only
+        self.anchor_mono = time.perf_counter()
+        self.anchor_wall = time.time()
+
+    # -- configuration ------------------------------------------------------
+
+    def configure(self, *, capacity: int | None = None,
+                  sample: float | None = None,
+                  decode_every: int | None = None,
+                  sink_dir: str | None = None,
+                  sink_max_bytes: int = 16 << 20,
+                  sink_max_files: int = 8,
+                  enabled: bool = True) -> None:
+        """(Re)configure and enable. A capacity change replaces the ring
+        (its eviction order cannot carry over); the sink is replaced."""
+        with self._lock:
+            if capacity is not None:
+                self._capacity = max(int(capacity), 16)
+                self._ring = deque(maxlen=self._capacity)
+                with self._span_lock:
+                    self._spans = {}
+                    self._span_order = deque()
+            if sample is not None:
+                assert 0.0 <= sample <= 1.0, sample
+                self.sample = float(sample)
+            if decode_every is not None:
+                self.decode_every = max(int(decode_every), 1)
+            if self._sink is not None:
+                self._sink.close()
+                self._sink = None
+            if sink_dir is not None:
+                self._sink = TraceSink(sink_dir, max_bytes=sink_max_bytes,
+                                       max_files=sink_max_files)
+            self._anchor()
+            self.enabled = bool(enabled)
+
+    def reset(self) -> None:
+        """Disable and drop all state (test teardown). The singleton
+        survives: call sites keep their reference."""
+        with self._lock:
+            self.enabled = False
+            self._ring = deque(maxlen=self._capacity)
+            with self._span_lock:
+                self._spans = {}
+                self._span_order = deque()
+            self.steps = StepTimelineStats()
+            self._next_id = 0
+            self.dropped = 0
+            if self._sink is not None:
+                self._sink.close()
+                self._sink = None
+            self._anchor()
+
+    def new_id(self) -> int:
+        """Mint one trace id (sequential, > 0: 0 means untraced)."""
+        with self._lock:
+            self._next_id += 1
+            return self._next_id
+
+    # -- recording ----------------------------------------------------------
+
+    def event(self, kind: str, tid: int = 0, **fields) -> None:
+        """Append one event. Hot call sites check ``enabled`` first; this
+        check covers a race with a concurrent reset()."""
+        if not self.enabled:
+            return
+        rec = {"ts": time.perf_counter(), "kind": kind, "tid": tid}
+        if fields:
+            rec.update(fields)
+        self._ring.append(rec)
+        if tid:
+            self._index(tid, rec)
+        sink = self._sink
+        if sink is not None and (tid == 0 or _sampled(tid, self.sample)):
+            try:
+                sink.write(json.dumps(
+                    {**rec, "ts_wall": self.to_wall(rec["ts"])}))
+            except (OSError, ValueError):
+                self.dropped += 1
+
+    def step(self, *, decode_rows: int, prefill_rows: int, chunk: int,
+             queue_depth: int, wall_ms: float,
+             key: str | None = None) -> None:
+        """One scheduler iteration: a ring record and the
+        per-composition window."""
+        if not self.enabled:
+            return
+        rec = {"ts": time.perf_counter(), "kind": "step", "tid": 0,
+               "dec": decode_rows, "pre": prefill_rows, "chunk": chunk,
+               "queue": queue_depth, "ms": round(wall_ms, 4)}
+        if key is not None:
+            rec["key"] = key
+        self._ring.append(rec)
+        self.steps.record(decode_rows, prefill_rows, chunk, wall_ms)
+        sink = self._sink
+        if sink is not None:
+            try:
+                sink.write(json.dumps(
+                    {**rec, "ts_wall": self.to_wall(rec["ts"])}))
+            except (OSError, ValueError):
+                self.dropped += 1
+
+    # -- export -------------------------------------------------------------
+
+    def to_wall(self, ts_mono: float) -> float:
+        return self.anchor_wall + (ts_mono - self.anchor_mono)
+
+    def recent(self, n: int = 200) -> list[dict]:
+        """The last n events (0: all), oldest first."""
+        evs = list(self._ring)
+        return evs[-n:] if n else evs
+
+    def _index(self, tid: int, rec: dict) -> None:
+        """Append one span event to the per-tid index (past the cap the
+        oldest SPAN goes whole; a span keeps its first 1024 events)."""
+        with self._span_lock:
+            lst = self._spans.get(tid)
+            if lst is None:
+                while len(self._spans) >= self._span_cap:
+                    old = self._span_order.popleft()
+                    self._spans.pop(old, None)
+                lst = self._spans[tid] = []
+                self._span_order.append(tid)
+            if len(lst) < 1024:
+                lst.append(rec)
+
+    def by_id(self, tid: int) -> list[dict]:
+        """One request's span, in order (the /admin/trace?id=N view)."""
+        with self._span_lock:
+            return list(self._spans.get(tid, ()))
+
+    def step_timeline(self) -> dict:
+        """Per-composition step-ms summary (p50/p99/mean/n)."""
+        return self.steps.summary()
+
+    def summary(self) -> dict:
+        """The tracer's own block (the /stats ``trace`` block)."""
+        return {"enabled": self.enabled,
+                "events": len(self._ring),
+                "capacity": self._capacity,
+                "next_id": self._next_id,
+                "sample": self.sample,
+                "sink_dropped": self.dropped,
+                "sink": (self._sink.directory
+                         if self._sink is not None else None)}
+
+
+TRACER = Tracer()
+
 
 # -- Prometheus text exposition ---------------------------------------------
 
@@ -195,14 +513,28 @@ def _add_device_blocks(p: _Prom, summary: dict) -> None:
                   help_="Sampled per-step device ms by entry point")
             p.add(pre + "device_samples_total", rec.get("n"), lab,
                   type_="counter")
+        sync = dev.get("sync")
+        if sync and sync.get("n"):
+            # per sampled step, device collective (sync) ms against total
+            # device ms: 0 on one GPU, where no collective runs
+            p.add(pre + "step_sync_ms", sync.get("sync_p50_ms"),
+                  {"quantile": "0.5"},
+                  help_="Sampled per-step device collective ms (the "
+                        "sync half of the sync/compute split)")
+            p.add(pre + "step_sync_ms", sync.get("sync_p99_ms"),
+                  {"quantile": "0.99"})
+            p.add(pre + "step_sync_share", sync.get("sync_share"),
+                  help_="Collective share of sampled device step time "
+                        "(window mean)")
 
 
-def render_prometheus(summary: dict | None, *, model: str = "dllama",
-                      mode: str = "scheduler",
+def render_prometheus(summary: dict | None, *, tracer: Tracer | None = None,
+                      model: str = "dllama", mode: str = "scheduler",
                       state: str | None = None,
                       build: dict | None = None) -> str:
     """The GET /metrics body: the /stats summary dict (None while the
-    legacy mode) as Prometheus text exposition format."""
+    legacy mode) and, with tracing on, the tracer's step-timeline windows,
+    as Prometheus text exposition format."""
     p = _Prom()
     p.add("dllama_up", 1, {"model": model, "mode": mode},
           help_="The serving process is up", type_="gauge")
@@ -236,4 +568,23 @@ def render_prometheus(summary: dict | None, *, model: str = "dllama",
               {"quantile": "0.99"})
         _add_spec(p, summary.get("spec"))
         _add_device_blocks(p, summary)
+    if tracer is not None and tracer.enabled:
+        t = tracer.summary()
+        p.add("dllama_trace_events", t["events"],
+              help_="Events in the flight-recorder ring")
+        p.add("dllama_trace_next_id", t["next_id"], type_="counter",
+              help_="Trace ids minted")
+        p.add("dllama_trace_sink_dropped_total", t["sink_dropped"],
+              type_="counter")
+        for comp, row in tracer.step_timeline().items():
+            lab = {"decode_rows": str(comp[0]),
+                   "prefill_rows": str(comp[1]), "chunk": str(comp[2])}
+            p.add("dllama_step_ms", row["p50_ms"],
+                  {**lab, "quantile": "0.5"},
+                  help_="Scheduler step wall ms by batch composition")
+            p.add("dllama_step_ms", row["p99_ms"],
+                  {**lab, "quantile": "0.99"})
+            p.add("dllama_steps_by_composition_total", row["n"], lab,
+                  type_="counter",
+                  help_="Scheduler iterations by batch composition")
     return p.render()

@@ -10,10 +10,13 @@ testing module: the same seed writes the same bytes in both packages.
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 
 from .io import (TokenizerData, model_tensor_plan, write_model,
                  write_tokenizer_file)
+from .io.model_file import read_spec
 from .models import ArchType, HiddenAct, ModelSpec
 from .quants import FloatType
 
@@ -57,3 +60,24 @@ def write_fixture(dirpath, seed: int = 77, rng=None,
         vocab=byte_fallback_vocab(spec.vocab_size),
         scores=[0.0] * spec.vocab_size, bos_id=1, eos_id=2))
     return mpath, tpath
+
+
+def write_legacy_copy(mpath: str, out: str) -> str:
+    """Copy a KV-header `.m` (a LLAMA or GROK1 file) to `out` with its
+    header replaced by the reference's legacy 9-int header (magic = the
+    arch type, ref: src/transformer.cpp:198). A legacy header stores no
+    weight type and no rope theta (10000 is read back), so a Q40 copy
+    loads only with --weights-float-type q40. Returns `out`."""
+    spec = read_spec(mpath)
+    with open(mpath, "rb") as f:
+        f.seek(4)
+        header_size = struct.unpack("<i", f.read(4))[0]
+        f.seek(header_size)
+        body = f.read()
+    with open(out, "wb") as f:
+        f.write(struct.pack("<10i", int(spec.arch), spec.dim, spec.hidden_dim,
+                            spec.n_layers, spec.n_heads, spec.n_kv_heads,
+                            spec.n_experts, spec.n_active_experts,
+                            spec.vocab_size, spec.seq_len))
+        f.write(body)
+    return out

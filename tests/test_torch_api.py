@@ -221,8 +221,8 @@ def test_bad_json_and_unported_routes(servers):
     conn = http.client.HTTPConnection(*addr, timeout=60)
     conn.request("POST", "/v1/completions", "{not json", {"Content-Type": "application/json"})
     assert conn.getresponse().status == 400
-    for method, path in (("POST", "/v1/batch/completions"),
-                         ("POST", "/admin/reset_breaker"), ("GET", "/admin/trace")):
+    for method, path in (("POST", "/admin/reset_breaker"),
+                         ("POST", "/admin/drain_replica")):
         conn = http.client.HTTPConnection(*addr, timeout=60)
         conn.request(method, path, "{}")
         resp = conn.getresponse()

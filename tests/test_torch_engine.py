@@ -103,7 +103,7 @@ def test_cli_inference_prints_benchmark_lines(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["chat", "--trace"], "mode 'chat'"),
+    (["chat", "--slo-ttft-ms", "5"], "mode 'chat'"),
     (["api", "--serve-batch", "2", "--prefix-cache", "--prefix-blocks", "auto"],
      "--prefix-cache"),
     (["worker"], "mode 'worker'"),

@@ -691,7 +691,7 @@ def test_cli_refuses_unported_serving_flags(capsys):
             (["api", "--draft", "self:1", "--lookup-decode", "2"],
              "both pick the draft source"),
             (["api", "--replicas", "2"], "ROADMAP item 16"),
-            (["api", "--admin-token", "x"], "ROADMAP item 10c"),
+            (["api", "--slo-ttft-ms", "5"], "ROADMAP item 10c"),
             (["api", "--serve-batch", "2", "--session", "s.bin"],
              "does not compose with --session"),
             (["generate", "--serve-batch", "2"], "api-mode flags"),

@@ -94,7 +94,8 @@ def test_render_prometheus_matches_jax(kw):
 
 
 def test_render_prometheus_has_no_unported_families():
-    """The renderer takes no tracer and renders no fleet family: the
+    """Without a tracer the renderer renders no step family, and it
+    renders no fleet family: the
     router, replica, transfer and autosize blocks of a summary render
     nothing. The prefix cache's families render as the JAX renderer's
     (ported with the prefix cache)."""
@@ -175,8 +176,8 @@ def test_compile_ledger_sentinel_and_freeze():
 
     led, eng = profiler.CompileLedger(), Eng()
     led.pre_compile(eng, "slot_decode")
-    led.record("slot_decode", 12.5)
-    led.record(1, 3.0)
+    led.record(eng, "slot_decode", 12.5)
+    led.record(eng, 1, 3.0)
     eng._compile_warm = True
     led.pre_compile(eng, ("dsample", 0.5, 0.9, 32, (2,)))
     s = led.summary()
