@@ -274,6 +274,25 @@ result line):
     K1 kernels), the KV-header file, and its legacy-header copy with
     --weights-float-type q40, whose tokens must equal the KV-header
     file's.
+11. Admission, auto-sizing and native (`[autotune]`, `[autosize]`,
+    `[admission]`, `[native]` lines; over the same 7B weights, bf16
+    cache, Q80 on): the calibration tool at its defaults (B = 2-128,
+    chunk 32, 32 steps, seq 256, its own synthetic weights): the decode
+    curve, the knee, the ladder's widths, the artifact written to
+    OUT_DIR and loaded back; three auto-sizing decisions against the
+    template engine (no artifact, the card's, the card's with a 50 ms ITL
+    SLO) with their bytes against the headroom, then the no-artifact,
+    no-arena decision built through the server's state under
+    --freeze-compiles: 8 requests against batch-1 generate, 0 captures
+    after warmup; phase 7's load cut to 100 requests at 5 a second, B = 4,
+    C = 256, static then with a 50 ms ITL SLO, launches counted from 0
+    around each (K1, K3 and Q80 must launch), 0 captures after warmup,
+    the steps at each rung, each rung's (4, w) chunk by CUDA events with
+    its route; --draft self:4 under an 8 ms ITL SLO (the actuator must
+    fire, tokens against batch-1 generate); `make -C native clean`, a
+    `dllama generate` at T 0.8 on the tiny fixture, `make -C native`, the
+    same run on the native backends (tokens equal), and the native
+    tokenizer and sampler against the Python ones.
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
@@ -4402,6 +4421,324 @@ def phase_trace_batch(card: str, params, near_tie: float) -> dict:
     return out
 
 
+# -- phase 11: the SLO admission ladder, auto-sizing from the card's own
+# calibration, --freeze-compiles, and the native tokenizer and sampler ------
+
+ADM_N, ADM_RATE = 100, 5.0    # phase 7's load, 100 requests at 5 a second
+ADM_SLO_ITL_MS = 50.0         # the adaptive run's ITL SLO
+SPEC_SLO_ITL_MS = 8.0         # below a 7B verify forward (8.1-9.7 ms)
+AUTOSIZE_SLO_ITL_MS = 50.0    # the third decision's SLO: a 10 ms step budget
+AUTOSIZE_N = 8                # greedy requests on the auto-sized engine
+
+
+def admission_autotune(card: str) -> dict:
+    """[autotune]: the calibration tool at its defaults on Llama-2-7B
+    (batches 2-128, chunk 32, 32 steps, seq 256, synthetic Q40 weights of
+    its own); the artifact goes to OUT_DIR/AUTOTUNE.cuda.json."""
+    from distributed_llama_tpu_torch.runtime.profiler import load_autotune
+    from distributed_llama_tpu_torch.tools import autotune
+
+    t0 = time.perf_counter()
+    art = autotune.calibrate(model="7b", device="cuda",
+                             log=lambda *a, **k: print("[autotune]", *a))
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "AUTOTUNE.cuda.json"
+    path.write_text(json.dumps(art, indent=1) + "\n")
+    load_autotune(str(path))   # the server's loader accepts it
+    for p in art["knee"]["curve"]:
+        print(f"[autotune] decode curve: {p['rows']} rows, step p50 {p['p50_ms']:.4f} ms, "
+              f"{p['rows_per_s']:.1f} rows/s [{card}]")
+    k, rec = art["knee"], art["recommendation"]
+    print(f"[autotune] knee {k['knee_rows']} rows ({k['method']})"
+          + (f": {k['note']}" if k.get("note") else ""))
+    print("[autotune] ladder (B = 128, chunk 32), CUDA events, best of 5: "
+          + ", ".join(f"width {w} {ms:.4f} ms" for w, ms in art["prefill_ms_by_width"].items())
+          + f" [{card}]")
+    print(f"[autotune] recommendation: --serve-batch {rec['serve_batch']} ({rec['basis']}); "
+          f"HBM cap {rec['hbm_cap_rows']}; artifact {path.name}, device {art['device']}; "
+          f"in {time.perf_counter() - t0:.1f} s")
+    return {"artifact": art, "path": str(path), "seconds": time.perf_counter() - t0}
+
+
+def _decision_line(tag: str, dec: dict, card: str) -> int:
+    """Print one decision record and the bytes it would allocate; returns
+    those bytes."""
+    from distributed_llama_tpu_torch.runtime.profiler import decision_bytes
+
+    inp = dec["inputs"]
+    need = decision_bytes(dec)
+    print(f"[autosize] {tag}: --serve-batch {dec['serve_batch']} ({dec['serve_batch_basis']}), "
+          f"--prefix-blocks {dec['prefix_blocks']} ({dec['prefix_blocks_basis']}); knee "
+          f"{inp['knee_rows']} [{inp['knee_basis']}], rows under the ITL SLO "
+          f"{inp['rows_under_itl_slo']}; per slot {inp['per_slot_bytes'] / 2 ** 30:.3f} GiB, per "
+          f"block {inp['per_block_bytes'] / 2 ** 20:.1f} MiB; headroom "
+          f"{inp['headroom_bytes'] / 2 ** 30:.2f} GiB, slots addable {inp['slots_addable']}, "
+          f"blocks addable {inp['prefix_blocks_addable']}; the decision's KV slots + arena "
+          f"{need / 2 ** 30:.2f} GiB of the {inp['headroom_bytes'] / 2 ** 30:.2f} GiB headroom "
+          f"[{card}]")
+    return need
+
+
+def admission_autosize(spec, params, one, art: dict, near_tie: float, card: str) -> dict:
+    """[autosize]: three decisions against the 7B template engine (no
+    artifact, the card's artifact, the artifact with an ITL SLO), each
+    with --prefix-blocks auto; then the no-artifact decision without an
+    arena built through the API server's state (warmed, --freeze-compiles
+    on), serving AUTOSIZE_N greedy requests against batch-1 generate with
+    no capture after warmup."""
+    from distributed_llama_tpu_torch.apps.api_server import ApiState
+    from distributed_llama_tpu_torch.runtime.profiler import (COMPILES, hbm_ledger,
+                                                              resolve_auto_shape)
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"ledger": hbm_ledger(one)}
+    for tag, kw in (("no artifact", {}), ("card's artifact", dict(autotune=art)),
+                    (f"card's artifact, ITL SLO {AUTOSIZE_SLO_ITL_MS:g} ms",
+                     dict(autotune=art, slo_itl_ms=AUTOSIZE_SLO_ITL_MS))):
+        dec = resolve_auto_shape(one, serve_batch="auto", prefix_blocks="auto", **kw)
+        need = _decision_line(tag, dec, card)
+        out[tag] = dict(decision=dec, bytes=need,
+                        fits=need <= dec["inputs"]["headroom_bytes"])
+    dec = resolve_auto_shape(one, serve_batch="auto")
+    b = dec["serve_batch"]
+    _decision_line("built (no artifact, no arena)", dec, card)
+    if b * dec["inputs"]["per_slot_bytes"] > dec["inputs"]["headroom_bytes"]:
+        fail(f"autosize: the built decision's {b} slots do not fit the headroom")
+    vocab = spec.vocab_size
+    before = COMPILES.summary()["after_warmup"]
+    COMPILES.freeze = True
+    try:
+        state = ApiState(one, _tokenizer(vocab), Sampler(vocab, 0.0, 0.9, 3),
+                         serve_batch=b, serve_chunk=SERVE_C, autosize=dec)
+        sup = state._scheduler
+        rng = np.random.default_rng(17)
+        prompts = [[1] + rng.integers(3, vocab, n - 1).tolist()
+                   for n in rng.integers(16, 301, AUTOSIZE_N)]
+        t1 = time.perf_counter()
+        reqs = [sup.submit(p, 32, Sampler(vocab, 0.0, 0.9, 1)) for p in prompts]
+        got = [list(r.tokens(timeout=300)) for r in reqs]
+        wall = time.perf_counter() - t1
+        summ = sup.summary()
+        sup.close()
+    finally:
+        COMPILES.freeze = False
+    captures = COMPILES.summary()["after_warmup"] - before
+    print(f"[autosize] built B = {b}: {AUTOSIZE_N} greedy requests x 32 tokens in {wall:.3f} s; "
+          f"captures after warmup under --freeze-compiles: {captures}; engine KV "
+          f"{summ['hbm']['kv_slot_bytes'] / 2 ** 30:.2f} GiB, headroom after "
+          f"{summ['hbm']['headroom_bytes'] / 2 ** 30:.2f} GiB [{card}]")
+    if captures:
+        fail(f"autosize: {captures} captures after warmup")
+    out["built"] = dict(serve_batch=b, decision=dec, wall_s=wall, captures_after_warmup=captures,
+                        parity=batch1_parity(one, prompts, got, near_tie, "[autosize] request"))
+    del state, sup
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _rung_counts() -> dict:
+    """Steps with prefill rows, by chunk width, from the step timeline."""
+    from distributed_llama_tpu_torch.runtime.trace import TRACER
+
+    counts: dict = {}
+    for (dec, pre, chunk), row in TRACER.step_timeline().items():
+        if pre:
+            counts[chunk] = counts.get(chunk, 0) + row["n"]
+    return dict(sorted(counts.items(), reverse=True))
+
+
+def admission_load(spec, params, card: str) -> dict:
+    """[admission]: B = 4, C = 256, phase 7's seeded Poisson load of ADM_N
+    requests, static then with ITL SLO ADM_SLO_ITL_MS on one engine, both
+    under --freeze-compiles, kernels counted from 0 around each run; the
+    ladder's (4, w) chunks timed with CUDA events and named by route."""
+    from distributed_llama_tpu_torch.ops.cuda_q40 import MAX_T
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+    from distributed_llama_tpu_torch.runtime.profiler import COMPILES
+    from distributed_llama_tpu_torch.runtime.scheduler import Scheduler
+    from distributed_llama_tpu_torch.runtime.trace import TRACER
+    from distributed_llama_tpu_torch.tools.autotune import prefill_ladder_ms
+
+    eng = Engine(spec, params, device="cuda", batch=SERVE_B, activation_q80=True)
+    out: dict = {}
+    for label, slo in (("static", None), ("adaptive", ADM_SLO_ITL_MS)):
+        sched = Scheduler(eng, chunk=SERVE_C, slo_itl_ms=slo)
+        sched.warmup()
+        before = COMPILES.summary()["after_warmup"]
+        COMPILES.freeze = True
+        TRACER.configure(capacity=1 << 16, decode_every=1 << 30)
+        zero_counts()
+        try:
+            ld = serving_load(spec, sched, n_req=ADM_N, rate=ADM_RATE)
+        finally:
+            counts = read_counts()
+            rungs = _rung_counts()
+            TRACER.reset()
+            COMPILES.freeze = False
+            sched.close()
+        adm = sched.stats.summary().get("admission") or {}
+        ld.update(rungs=rungs, launches=counts, admission=adm,
+                  captures_after_warmup=COMPILES.summary()["after_warmup"] - before)
+        out[label] = ld
+        print(f"[admission] {label}{'' if slo is None else f' (ITL SLO {slo:g} ms)'}: "
+              f"{ld['requests']} requests x 32 tokens at {ld['rate_per_s']:g}/s, B = {SERVE_B}, "
+              f"C = {SERVE_C}: {ld['tok_s']:.1f} tok/s; TTFT p50 {ld['ttft_p50_ms']:.1f} ms, "
+              f"p95 {ld['ttft_p95_ms']:.1f}; ITL p50 {ld['itl_p50_ms']:.3f} ms, p95 "
+              f"{ld['itl_p95_ms']:.3f}, p99 {ld['itl_p99_ms']:.3f}; shrinks "
+              f"{adm.get('shrinks', 0)}, widens {adm.get('widens', 0)}; prefill steps by width "
+              f"{rungs}; launches {counts}; captures after warmup {ld['captures_after_warmup']} "
+              f"[{card}]")
+        if ld["captures_after_warmup"]:
+            fail(f"admission ({label}): captures after warmup")
+        for k in ("K1", "K3", "Q80"):
+            if not counts[k]:
+                fail(f"admission ({label}): {k} never launched in the load run")
+    ladder = prefill_ladder_ms(eng, SERVE_C)
+    out["ladder_ms"] = ladder
+    print("[admission] (4, w) prefill chunks, CUDA events, best of 5: " + ", ".join(
+        f"w {w}: {ms:.4f} ms ({'dequantize + torch.matmul' if SERVE_B * int(w) > MAX_T else 'K1'}"
+        f", t = {SERVE_B * int(w)})" for w, ms in ladder.items()) + f" [{card}]")
+    eng.release()
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def admission_spec(spec, params, one, near_tie: float, card: str) -> dict:
+    """[admission] spec: --draft self:4 (draft length 7) over a B = 4 engine
+    with an ITL SLO below a verify forward: the actuator turns drafting off
+    (spec_disables >= 1) and counts degraded steps; greedy tokens against
+    batch-1 generate."""
+    from distributed_llama_tpu_torch.runtime.draft import build_draft
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+    from distributed_llama_tpu_torch.runtime.scheduler import Scheduler
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    vocab = spec.vocab_size
+    eng = Engine(spec, params, device="cuda", batch=SERVE_B, activation_q80=True)
+    sched = Scheduler(eng, chunk=SERVE_C, slo_itl_ms=SPEC_SLO_ITL_MS,
+                      draft_factory=lambda e: build_draft(e, "self:4"), draft_len=SPEC_K,
+                      draft_vocab=vocab)
+    sched.warmup()
+    rng = np.random.default_rng(23)
+    prompts = [[1] + rng.integers(3, vocab, n - 1).tolist() for n in rng.integers(16, 301, 4)]
+    reqs = [sched.submit(p, 32, Sampler(vocab, 0.0, 0.9, 1)) for p in prompts]
+    for _ in range(2000):
+        if all(r.finished.is_set() for r in reqs):
+            break
+        sched.step()
+    got = [list(r.tokens(timeout=60)) for r in reqs]
+    summ = sched.stats.summary()
+    sched.close()
+    eng.release()
+    del eng, sched
+    torch.cuda.empty_cache()
+    sp, adm = summ["spec"], summ["admission"]
+    print(f"[admission] spec: --draft self:4, draft length {SPEC_K}, ITL SLO "
+          f"{SPEC_SLO_ITL_MS:g} ms: spec_disables {adm['spec_disables']}, spec_enables "
+          f"{adm['spec_enables']}, degraded_steps {sp['degraded_steps']}, verify forwards "
+          f"{sp['verify_forwards']}, ITL EWMA {adm['itl_ewma_ms']} ms [{card}]")
+    if adm["spec_disables"] < 1 or sp["degraded_steps"] < 1:
+        fail(f"admission spec: the actuator did not fire: {adm} {sp}")
+    return dict(spec=sp, admission=adm,
+                parity=batch1_parity(one, prompts, got, near_tie, "[admission] spec request"))
+
+
+def admission_native() -> dict:
+    """[native]: `dllama generate` on the tiny fixture with the Python
+    tokenizer and sampler (no library built), then `make -C native` and
+    the same run with the native ones (backend "auto" loads the library);
+    in-process, the native tokenizer and sampler against the Python ones
+    on the fixture's tokenizer."""
+    from distributed_llama_tpu_torch import native
+    from distributed_llama_tpu_torch.io.tokenizer_file import read_tokenizer_file
+    from distributed_llama_tpu_torch.sampler import Sampler
+    from distributed_llama_tpu_torch.testing import write_fixture
+    from distributed_llama_tpu_torch.tokenizer import Tokenizer
+
+    root = Path(__file__).resolve().parent
+
+    def make(*target):
+        res = subprocess.run(["make", "-C", str(root / "native"), *target],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode:
+            fail(f"make -C native {' '.join(target)}: {res.stderr[-600:]}")
+
+    def generate(m, t):
+        res = subprocess.run(
+            [sys.executable, "-m", "distributed_llama_tpu_torch.apps.dllama", "generate",
+             "--model", m, "--tokenizer", t, "--prompt", "Hello world", "--steps", "16",
+             "--temperature", "0.8", "--seed", "5", "--device", "cuda"],
+            capture_output=True, text=True, timeout=300, cwd=str(root))
+        if res.returncode:
+            fail(f"dllama generate exited {res.returncode}: {res.stderr[-600:]}")
+        lines = res.stdout.splitlines()
+        return lines[next(i for i, ln in enumerate(lines) if ln.startswith("💡")):]
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        m, t = write_fixture(d, seed=5)
+        make("clean")
+        native._lib = None
+        if native.available():
+            fail("a native library loads after `make -C native clean`")
+        python_run = generate(m, t)
+        make()
+        if not native.available():
+            fail("the port's loader does not load native/libdllama_native.so")
+        native_run = generate(m, t)
+        data = read_tokenizer_file(t)
+        nat, py = Tokenizer(data, backend="native"), Tokenizer(data, backend="python")
+        texts = ["Hello world", "héllo \N{SNOWMAN} ab", "", "a" * 64, "\x00\x7f tail"]
+        tok_equal = all(nat.encode(s) == py.encode(s) for s in texts)
+        ids = py.encode("Hello world and more")
+        dec_equal = all(nat.decode_piece(p, x) == py.decode_piece(p, x)
+                        for p, x in zip([py.bos_id] + ids, ids))
+    rng = np.random.default_rng(3)
+    smp_equal = True
+    for temp, topp in ((0.0, 0.9), (0.8, 0.0), (0.7, 0.9), (1.3, 0.5)):
+        a = Sampler(512, temp, topp, 123, backend="native")
+        b = Sampler(512, temp, topp, 123, backend="python")
+        for _ in range(50):
+            x = rng.standard_normal(512).astype(np.float32) * 3
+            smp_equal &= a.sample(x.copy()) == b.sample(x.copy()) and a.rng_state == b.rng_state
+    gen_equal = python_run == native_run
+    secs = time.perf_counter() - t0
+    print(f"[native] make -C native; native tokenizer == Python: encode {tok_equal}, decode "
+          f"{dec_equal}; native sampler == Python (indices and xorshift state, 200 draws): "
+          f"{smp_equal}; dllama generate (T 0.8) on the tiny fixture, Python then native "
+          f"backends: tokens equal {gen_equal}; in {secs:.1f} s")
+    if not (tok_equal and dec_equal and smp_equal and gen_equal):
+        fail(f"native parity: {python_run} vs {native_run}")
+    return dict(tokenizer=tok_equal and dec_equal, sampler=smp_equal, generate=gen_equal,
+                seconds=secs)
+
+
+def phase_admission(card: str, params, near_tie: float) -> dict:
+    """Phase 11 (`[autotune]`, `[autosize]`, `[admission]`, `[native]`)."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    t_start = time.perf_counter()
+    spec = _spec("llama2_7b")
+    out = {"autotune": admission_autotune(card)}
+    torch.cuda.empty_cache()
+    one = Engine(spec, params, device="cuda", activation_q80=True)
+    out["autosize"] = admission_autosize(spec, params, one, out["autotune"]["artifact"],
+                                         near_tie, card)
+    out["load"] = admission_load(spec, params, card)
+    out["spec"] = admission_spec(spec, params, one, near_tie, card)
+    one.release()
+    del one
+    torch.cuda.empty_cache()
+    out["native"] = admission_native()
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[admission] phase 11 in {out['seconds']:.1f} s")
+    return out
+
+
 def spec_entries(k1: dict, q80: dict, k3: dict, spec: dict) -> list[dict]:
     """The kernels of one 7B verify forward at T = 8 (draft_len 7): K1 on
     its tensor-core path (phase 2's path rows at t = 8 for the layers, wcls
@@ -4751,6 +5088,7 @@ def main() -> int:
     serving = phase_serving(card, params_7b)
     spec9 = phase_spec(card, params_7b, serving["scheduler"]["near_tie_bound"], gen)
     trace10 = phase_trace_batch(card, params_7b, spec9["near_tie_bound"])
+    admission11 = phase_admission(card, params_7b, spec9["near_tie_bound"])
     del params_7b
     torch.cuda.empty_cache()
     phase_file_path()
@@ -4812,7 +5150,7 @@ def main() -> int:
         k2=k2["rows"], gemv1_edges=edges, gemv1_q80=fused, k3=k3["rows"],
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
-        serving=serving, chat=chat, spec=spec9, trace=trace10,
+        serving=serving, chat=chat, spec=spec9, trace=trace10, admission=admission11,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

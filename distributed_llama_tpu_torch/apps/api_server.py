@@ -57,9 +57,20 @@ Operator routes, loopback-only unless --admin-token TOKEN is given (then
 torch.profiler trace of the next N ms under --profile-dir). /stats carries
 the ``trace`` and ``step_timeline`` blocks with --trace and
 ``device_time`` with --profile-sample; /metrics the tracer's families.
+POST /admin/reset_breaker (body ``{"replica": i}`` optional; one GPU has
+replica 0 only) is the operator's half-open of a BROKEN supervisor.
+
+Admission and auto-sizing: --slo-ttft-ms/--slo-itl-ms arm every
+generation's admission policy (runtime/scheduler.AdmissionPolicy, the
+``admission`` block and ``dllama_admission_*``); --serve-batch auto and
+--prefix-blocks auto resolve against the built engine's memory ledger
+capped by the batch knee (--autotune FILE, runtime/profiler.
+resolve_auto_shape), logged at startup and exported as the ``autosize``
+block and ``dllama_autosize_*``; --freeze-compiles refuses a graph capture
+after warmup.
 
 Not ported (each refused with a message naming its ROADMAP item): the
-breaker reset and the replica verbs, replicas and the router, and tenants.
+replica verbs, replicas and the router, and tenants.
 """
 
 from __future__ import annotations
@@ -87,8 +98,6 @@ KEEPALIVE_SECS = 1.0
 _REPLICA_VERB = ("the replica verbs come with replicas and the fleet "
                  "(ROADMAP item 16)")
 UNPORTED_ROUTES = {
-    "/admin/reset_breaker": "the breaker reset comes with admission "
-                            "control (ROADMAP item 10c, second half)",
     "/admin/drain_replica": _REPLICA_VERB,
     "/admin/restart_replica": _REPLICA_VERB,
     "/admin/undrain_replica": _REPLICA_VERB,
@@ -139,7 +148,10 @@ class ApiState:
                  prefix_cache: bool = False, prefix_blocks: int = 0,
                  prefix_block_len: int = 32, draft: str | None = None,
                  draft_len: int = 0, admin_token: str | None = None,
-                 profile_dir: str | None = None):
+                 profile_dir: str | None = None,
+                 slo_ttft_ms: float | None = None,
+                 slo_itl_ms: float | None = None,
+                 autosize: dict | None = None):
         from ..runtime.stats import SpecStats
 
         self.engine = engine
@@ -163,6 +175,11 @@ class ApiState:
         self.prefix_cache = prefix_cache
         self.prefix_blocks = prefix_blocks
         self.prefix_block_len = prefix_block_len
+        # the SLOs of every generation's admission policy, and the startup
+        # auto-sizing decision record (None without an 'auto')
+        self.slo_ttft_ms = slo_ttft_ms
+        self.slo_itl_ms = slo_itl_ms
+        self.autosize = autosize
         # the legacy path's prompt-lookup draft length (0 = off), and the
         # --draft spec string with its draft length: the scheduler path
         # builds its draft per generation, the legacy path one DraftModel
@@ -243,6 +260,7 @@ class ApiState:
             request_deadline=self.request_deadline or None,
             stall_timeout=self.stall_timeout or 10.0,
             prefix_blocks=n_blocks, prefix_block_len=self.prefix_block_len,
+            slo_ttft_ms=self.slo_ttft_ms, slo_itl_ms=self.slo_itl_ms,
             draft=self.draft, draft_len=self.draft_len,
             draft_vocab=self.tokenizer.vocab_size)
 
@@ -754,7 +772,11 @@ def make_handler(state: ApiState):
             from ..runtime.trace import TRACER
 
             if state._scheduler is not None:
-                self._json(200, state._scheduler.summary())
+                payload = state._scheduler.summary()
+                if state.autosize:
+                    # the startup decision: chosen shape and every input
+                    payload["autosize"] = state.autosize
+                self._json(200, payload)
                 return
             payload = {"scheduler": "off",
                        "spec": state.spec_stats.summary()}
@@ -828,6 +850,32 @@ def make_handler(state: ApiState):
             self.end_headers()
             self.wfile.write(data)
 
+        def _admin_reset_breaker(self) -> None:
+            """POST /admin/reset_breaker {replica?: i} (JAX
+            apps/api_server.py:1286): the operator's half-open of a
+            BROKEN supervisor (``EngineSupervisor.reset_breaker``): one
+            rebuild is tried. One GPU has replica 0 only."""
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                replica = body.get("replica")
+                if replica is not None:
+                    replica = int(replica)
+            except (ValueError, TypeError, AttributeError):
+                self._json(400, {"error": "bad request"})
+                return
+            sup = state._scheduler
+            if sup is None:
+                self._json(404, {"error": "no supervised scheduler "
+                                          "(start with --serve-batch N)"})
+                return
+            if replica is not None and replica != 0:
+                self._json(400, {"error": f"no replica {replica} "
+                                          "(tier has 1)"})
+                return
+            sup.reset_breaker()
+            self._json(200, {"status": "ok", "state": sup.state})
+
         def _admin_profile(self) -> None:
             """POST /admin/profile?ms=N (JAX apps/api_server.py:1372): one
             torch.profiler trace of the next N ms (0 < N <= 60000, the
@@ -873,6 +921,8 @@ def make_handler(state: ApiState):
                 payload, mode, st = (state._scheduler.summary(),
                                      "scheduler", None)
             payload = dict(payload or {})
+            if state.autosize:
+                payload["autosize"] = state.autosize
             if "compiles" not in payload:
                 payload["compiles"] = COMPILES.summary()
             if "hbm" not in payload:
@@ -912,6 +962,9 @@ def make_handler(state: ApiState):
                 if (self.path == "/admin/profile"
                         or self.path.startswith("/admin/profile?")):
                     self._admin_profile()
+                    return
+                if self.path == "/admin/reset_breaker":
+                    self._admin_reset_breaker()
                     return
                 why = _unported_route(self.path)
                 if why:
@@ -1133,15 +1186,21 @@ def configure_observability(args) -> None:
             sample=1.0 if args.trace_sample is None else args.trace_sample,
             decode_every=args.trace_decode_every or 8,
             sink_dir=args.trace_dir)
-    if args.profile_sample is not None:
-        if not args.serve_batch:
-            sys.exit("error: --profile-sample requires --serve-batch N "
-                     "(the sampler times scheduler steps)")
-        if args.profile_sample < 1:
-            sys.exit("error: --profile-sample must be >= 1 (time every Nth "
-                     "step; omit the flag to disable)")
-        from ..runtime.profiler import PROFILER
+    if (args.freeze_compiles or args.profile_sample is not None) \
+            and not args.serve_batch:
+        sys.exit("error: --freeze-compiles/--profile-sample require "
+                 "--serve-batch N (the sentinel arms at scheduler "
+                 "warmup; the sampler hooks scheduler steps)")
+    if args.profile_sample is not None and args.profile_sample < 1:
+        sys.exit("error: --profile-sample must be >= 1 (time every Nth "
+                 "step; omit the flag to disable)")
+    from ..runtime.profiler import COMPILES, PROFILER
 
+    if args.freeze_compiles:
+        # the sentinel refuses only on an engine that warmup marked warm,
+        # so setting it before the supervisor's warmup is safe
+        COMPILES.freeze = True
+    if args.profile_sample is not None:
         PROFILER.sample_every = args.profile_sample
 
 
@@ -1149,9 +1208,12 @@ def build_server(args) -> tuple[ThreadingHTTPServer, ApiState]:
     """The CLI's engine, its ApiState and a threaded server bound to
     --host/--port (port 0: any free port, in server.server_address). The
     prefix cache's block length is validated against the engine's context
-    before the server binds; --session resumes a legacy-path session."""
-    from .dllama import build_engine
+    before the server binds; --serve-batch auto and --prefix-blocks auto
+    resolve against the built engine; --session resumes a legacy-path
+    session."""
+    from .dllama import build_engine, check_admission_flags
 
+    autotune_art = check_admission_flags(args)
     configure_observability(args)
     engine, tokenizer, sampler = build_engine(args)
     if args.draft:
@@ -1168,20 +1230,57 @@ def build_server(args) -> tuple[ThreadingHTTPServer, ApiState]:
     if args.prefix_cache and not 1 <= block_len <= engine.seq_len:
         sys.exit(f"error: --prefix-block-len {block_len} outside 1.."
                  f"{engine.seq_len} (the engine context)")
+    serve_batch, prefix_blocks = args.serve_batch, args.prefix_blocks or 0
+    autosize = None
+    if serve_batch == "auto" or prefix_blocks == "auto":
+        # resolve against the built engine's ledger, once, before any
+        # scheduler exists (JAX apps/api_server.py:2004-2030)
+        from ..runtime.profiler import decision_bytes, resolve_auto_shape
+
+        try:
+            autosize = resolve_auto_shape(
+                engine, serve_batch=serve_batch, prefix_blocks=prefix_blocks,
+                prefix_block_len=block_len, autotune=autotune_art,
+                slo_itl_ms=args.slo_itl_ms)
+        except ValueError as e:
+            sys.exit(f"error: {e}")
+        serve_batch = autosize["serve_batch"]
+        prefix_blocks = autosize["prefix_blocks"]
+        inp = autosize["inputs"]
+        # both auto caps read the same headroom: a decision whose slots
+        # and arena together exceed it would fail its first allocation
+        need, room = decision_bytes(autosize), inp["headroom_bytes"]
+        if room is not None and need > room:
+            sys.exit(f"error: the auto-sized --serve-batch {serve_batch} "
+                     f"and --prefix-blocks {prefix_blocks} need {need} "
+                     f"bytes of KV slots and arena, over the device's "
+                     f"{room} bytes of headroom: pass a smaller "
+                     f"--serve-batch or --prefix-blocks")
+        print(f"⚖️  auto-sized: --serve-batch {serve_batch} "
+              f"({autosize['serve_batch_basis']})"
+              + (f", --prefix-blocks {prefix_blocks} "
+                 f"({autosize['prefix_blocks_basis']})"
+                 if args.prefix_blocks == "auto" else "")
+              + f" — knee={inp['knee_rows']} [{inp['knee_basis']}], "
+                f"headroom_bytes={inp['headroom_bytes']}, "
+                f"slots_addable={inp['slots_addable']}", flush=True)
     state = ApiState(engine, tokenizer, sampler,
                      lookup_decode=args.lookup_decode,
                      draft=args.draft,
                      draft_len=(args.draft_len or 7) if args.draft else 0,
-                     serve_batch=args.serve_batch,
+                     serve_batch=serve_batch,
                      serve_chunk=args.serve_chunk,
                      queue_depth=args.queue_depth,
                      request_deadline=args.request_deadline,
                      stall_timeout=args.stall_timeout,
                      prefix_cache=bool(args.prefix_cache),
-                     prefix_blocks=args.prefix_blocks or 0,
+                     prefix_blocks=prefix_blocks,
                      prefix_block_len=block_len,
                      admin_token=args.admin_token,
-                     profile_dir=args.profile_dir)
+                     profile_dir=args.profile_dir,
+                     slo_ttft_ms=args.slo_ttft_ms,
+                     slo_itl_ms=args.slo_itl_ms,
+                     autosize=autosize)
     if args.session and os.path.exists(args.session):
         load_server_session(state, args.session)
         print(f"💾 resumed session from {args.session} "

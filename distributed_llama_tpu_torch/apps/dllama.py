@@ -43,7 +43,12 @@ the flight recorder (request spans and the step timeline; `--trace-buffer`,
 `--trace-dir`, `--trace-sample`, `--trace-decode-every`), `--profile-sample
 N` times every Nth scheduler step's entry points on the card, and
 `--profile-dir` and `--admin-token` serve POST /admin/profile and the
-admin guard (apps/api_server.py). `--weights-float-type` names the weight
+admin guard (apps/api_server.py). Admission and sizing, as in the JAX CLI:
+`--slo-ttft-ms`/`--slo-itl-ms` arm the scheduler's admission ladder,
+`--serve-batch auto`/`--prefix-blocks auto` size the server from the
+memory ledger and the `--autotune FILE` knee, `--freeze-compiles` refuses a
+graph capture after warmup (check_admission_flags holds the JAX parse-time
+refusals). `--weights-float-type` names the weight
 type of a legacy-header `.m`, which does not store it (ref: app.cpp:47-48);
 `--nthreads` is accepted and ignored, as in the JAX CLI.
 
@@ -69,7 +74,6 @@ PORTED_MODES = ("inference", "generate", "chat", "api")
 # serving flags of the JAX CLI that the port does not have yet, with the
 # ROADMAP item that brings each (refused with that message when given)
 _FLEET = "replicas and the fleet (ROADMAP item 16)"
-_EXTRAS = "admission control and auto-sizing (ROADMAP item 10c)"
 _MESH = "tensor parallelism and the vocab split (ROADMAP item 13)"
 _CLUSTER = "the multi-node control plane (ROADMAP item 15)"
 UNPORTED_FLAGS = {
@@ -77,29 +81,34 @@ UNPORTED_FLAGS = {
     "--replica-procs": _FLEET, "--replica-hosts": _FLEET,
     "--kv-transfer": _FLEET, "--tier": _FLEET, "--min-replicas": _FLEET,
     "--max-replicas": _FLEET, "--tenant-budgets": _FLEET,
-    "--slo-ttft-ms": _EXTRAS, "--slo-itl-ms": _EXTRAS, "--autotune": _EXTRAS,
-    "--freeze-compiles": _EXTRAS,
     "--shard-vocab": _MESH,
     "--coordinator": _CLUSTER, "--node-rank": _CLUSTER,
     "--connect-timeout": _CLUSTER, "--heartbeat-interval": _CLUSTER,
     "--worker-timeout": _CLUSTER, "--push-weights": _CLUSTER,
 }
-_FLAG_SWITCHES = ("--kv-transfer", "--freeze-compiles", "--push-weights")
-
-
-def _serve_batch(v: str) -> int:
-    if v == "auto":
-        raise argparse.ArgumentTypeError(
-            "--serve-batch auto is not ported yet (auto-sizing, ROADMAP "
-            "item 10c): give the number of slots")
-    n = int(v)
-    if n < 0:
-        raise argparse.ArgumentTypeError("--serve-batch must be >= 0")
-    return n
+_FLAG_SWITCHES = ("--kv-transfer", "--push-weights")
 
 
 def _int_or_auto(v: str):
-    return v if v == "auto" else int(v)
+    """argparse type for --serve-batch/--prefix-blocks: a plain int, or
+    the literal 'auto', resolved at engine build from the memory ledger's
+    headroom capped by the calibrated batch knee (runtime/profiler.
+    resolve_auto_shape; JAX apps/dllama.py:34)."""
+    s = v.strip().lower()
+    if s == "auto":
+        return "auto"
+    try:
+        return int(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer or 'auto', got {v!r}")
+
+
+def _serve_batch(v: str):
+    n = _int_or_auto(v)
+    if n != "auto" and n < 0:
+        raise argparse.ArgumentTypeError("--serve-batch must be >= 0")
+    return n
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -184,13 +193,47 @@ def build_argparser() -> argparse.ArgumentParser:
     # api mode (JAX apps/dllama.py's defaults)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=9990)
-    p.add_argument("--serve-batch", type=_serve_batch, default=0, metavar="B",
+    p.add_argument("--serve-batch", type=_serve_batch, default=0,
+                   metavar="B|auto",
                    help="api: serve through the continuous-batching "
                         "scheduler with B KV slots (0 = requests serialize "
-                        "on one engine)")
+                        "on one engine). 'auto' sizes B at startup from "
+                        "the memory ledger's headroom capped by the batch "
+                        "knee (--autotune artifact, or a conservative "
+                        "default); the decision is logged and exported on "
+                        "/stats and /metrics")
     p.add_argument("--serve-chunk", type=int, default=0, metavar="C",
                    help="api: the scheduler's prefill chunk (0 = the "
-                        "engine's, 256)")
+                        "engine's, 256). With --slo-ttft-ms/--slo-itl-ms "
+                        "this is the WIDEST rung of the adaptive width "
+                        "ladder")
+    # SLO-aware admission (api mode, with --serve-batch; runtime/
+    # scheduler.AdmissionPolicy): either flag arms the policy
+    p.add_argument("--slo-ttft-ms", type=float, default=None, metavar="MS",
+                   help="api mode, with --serve-batch: time-to-first-token "
+                        "target. The admission policy widens the chunked-"
+                        "prefill width (toward --serve-chunk) when the "
+                        "live TTFT EWMA endangers this bound and inter-"
+                        "token latency has headroom")
+    p.add_argument("--slo-itl-ms", type=float, default=None, metavar="MS",
+                   help="api mode, with --serve-batch: inter-token-latency "
+                        "target. Every scheduler iteration with prefill "
+                        "work stretches running streams' token gap by one "
+                        "chunk forward; the admission policy shrinks the "
+                        "chunk width one warmed rung at a time when the "
+                        "live step-time EWMA approaches this bound, widens "
+                        "again when decode rows idle, and turns "
+                        "speculation off while the bound is endangered. "
+                        "Host-side only: the width ladder is warmed up "
+                        "front, so --freeze-compiles holds while it adapts")
+    p.add_argument("--autotune", default=None, metavar="FILE",
+                   help="api mode, with --serve-batch auto or "
+                        "--prefix-blocks auto: calibration artifact "
+                        "(python -m distributed_llama_tpu_torch.tools."
+                        "autotune) supplying the measured batch knee that "
+                        "caps the auto-sizing; without it a conservative "
+                        "default knee applies. tools/dlprof.py reads the "
+                        "same artifact offline")
     p.add_argument("--queue-depth", type=int, default=0, metavar="N",
                    help="api: admission queue bound (0 = 4 x --serve-batch); "
                         "past it requests get 429 with Retry-After")
@@ -211,11 +254,15 @@ def build_argparser() -> argparse.ArgumentParser:
                         "prompts publish their blocks; /stats gains a "
                         "prefix_cache block")
     p.add_argument("--prefix-blocks", type=_int_or_auto, default=0,
-                   metavar="N",
+                   metavar="N|auto",
                    help="prefix-cache arena size in blocks (0 = 2 x "
-                        "serve-batch x context tokens). Arena bytes = N x 2 "
-                        "x layers x kv_heads x block_len x head_size x the "
-                        "cache dtype's size")
+                        "serve-batch x context tokens; 'auto' = that target "
+                        "capped at half the measured headroom; startup "
+                        "refuses a decision whose slots and arena together "
+                        "exceed the headroom; the decision is on /stats "
+                        "like --serve-batch auto). Arena bytes = N x "
+                        "2 x layers x kv_heads x block_len x head_size x "
+                        "the cache dtype's size")
     p.add_argument("--prefix-block-len", type=int, default=None, metavar="L",
                    help="prefix-cache block length in tokens (default 32): "
                         "reuse is whole blocks only")
@@ -245,6 +292,14 @@ def build_argparser() -> argparse.ArgumentParser:
                    metavar="N",
                    help="decode progress event cadence in tokens (default "
                         "8): bounds how much ring one long stream takes")
+    p.add_argument("--freeze-compiles", action="store_true",
+                   help="api mode (needs --serve-batch): after warmup "
+                        "captures the serving set of CUDA graphs, any NEW "
+                        "graph key is refused with a structured error "
+                        "instead of captured. Covers everything captured "
+                        "after warmup, the batch endpoint's graphs "
+                        "included (warm those shapes first or leave the "
+                        "freeze off)")
     p.add_argument("--profile-sample", type=int, default=None, metavar="N",
                    help="api mode (needs --serve-batch): time every Nth "
                         "scheduler step's entry points on the card with "
@@ -291,9 +346,10 @@ def refusals(args) -> list[str]:
                        "yet")
     if args.mode != "api" and (args.serve_batch or args.serve_chunk
                                or args.queue_depth or args.request_deadline
-                               or args.stall_timeout):
+                               or args.stall_timeout or args.freeze_compiles):
         out.append("--serve-batch/--serve-chunk/--queue-depth/"
-                   "--request-deadline/--stall-timeout are api-mode flags")
+                   "--request-deadline/--stall-timeout/--freeze-compiles "
+                   "are api-mode flags")
     if args.serve_batch == 0 and (args.serve_chunk or args.queue_depth
                                   or args.request_deadline
                                   or args.stall_timeout):
@@ -308,11 +364,7 @@ def _prefix_and_session_refusals(args) -> list[str]:
     """The JAX server's prefix-cache and session refusals, in its words
     (JAX apps/api_server.py:1695-1745, :1992-2003)."""
     out = []
-    if args.prefix_blocks == "auto":
-        out.append("--prefix-blocks auto is not ported yet (auto-sizing, "
-                   "ROADMAP item 10c): give --prefix-cache a number of "
-                   "blocks")
-    elif args.prefix_blocks < 0:
+    if args.prefix_blocks != "auto" and args.prefix_blocks < 0:
         out.append("--prefix-blocks must be >= 0 (0 = the 2xBxcontext "
                    "default, or 'auto')")
     if args.prefix_cache and not args.serve_batch:
@@ -329,6 +381,38 @@ def _prefix_and_session_refusals(args) -> list[str]:
     if args.session and args.mode not in ("chat", "api"):
         out.append("--session is a chat/api-mode flag")
     return out
+
+
+def check_admission_flags(args) -> dict | None:
+    """The JAX server's parse-time refusals of the SLO and auto-sizing
+    flags, in its words and order (JAX apps/api_server.py:1700-1730,
+    :1788-1796): an SLO nobody enforces or an artifact nobody reads is an
+    error before any engine work. Returns the loaded --autotune artifact
+    (None without the flag)."""
+    serve_batch = args.serve_batch
+    slo_ttft, slo_itl = args.slo_ttft_ms, args.slo_itl_ms
+    if (slo_ttft is not None or slo_itl is not None) and not serve_batch:
+        sys.exit("error: --slo-ttft-ms/--slo-itl-ms require "
+                 "--serve-batch N|auto (the SLO-aware admission policy "
+                 "adapts the scheduler's chunked-prefill width)")
+    for name, v in (("--slo-ttft-ms", slo_ttft), ("--slo-itl-ms", slo_itl)):
+        if v is not None and not v > 0:
+            sys.exit(f"error: {name} must be > 0 "
+                     "(omit the flag to disable)")
+    auto = serve_batch == "auto" or args.prefix_blocks == "auto"
+    if args.autotune and not auto:
+        sys.exit("error: --autotune has no effect without --serve-batch "
+                 "auto or --prefix-blocks auto (tools/dlprof.py consumes "
+                 "the artifact offline)")
+    art = None
+    if args.autotune:
+        from ..runtime.profiler import load_autotune
+
+        try:
+            art = load_autotune(args.autotune)
+        except (OSError, ValueError) as e:
+            sys.exit(f"error: --autotune {args.autotune}: {e}")
+    return art
 
 
 def check_spec_flags(args) -> None:
@@ -660,6 +744,7 @@ def main(argv: list[str] | None = None) -> None:
                  "here; use --tp N for one host's devices (ROADMAP item "
                  "13), or --nnodes/--coordinator + `dllama worker` "
                  "processes for a multi-host cluster (ROADMAP item 15)")
+    check_admission_flags(args)
     check_spec_flags(args)
     check_session_flags(args)
     refused = refusals(args)

@@ -14,6 +14,12 @@ runtime/profiler.py, for what the scheduler and the server call:
     modelled logits workspace), reconciled against
     ``torch.cuda.memory_stats`` on the card (device fields None on the
     CPU), with the headroom in KV slots and in arena blocks.
+  * auto-sizing (JAX :391-556): the autotune artifact's contract
+    (``validate_autotune``, ``load_autotune``, from the stdlib-only
+    tools/dlprof.py) and ``resolve_auto_shape``,
+    which resolves ``--serve-batch auto`` and ``--prefix-blocks auto``
+    from the ledger's headroom capped by the calibrated batch knee
+    (``tools/autotune.py`` measures it on the card).
   * ``build_info``: torch, CUDA and the card, for /healthz and the
     ``dllama_build_info`` series.
   * ``PROFILER``: sampled per-entry device time and the on-demand
@@ -34,9 +40,6 @@ runtime/profiler.py, for what the scheduler and the server call:
     step costs one attribute read. ``capture(directory, ms)`` (the
     ``POST /admin/profile`` body) writes one ``torch.profiler`` Chrome
     trace, CPU and CUDA activities, of the next ms milliseconds.
-
-Auto-sizing (``resolve_auto_shape`` and the autotune artifact) is not
-ported (ROADMAP item 10c, second half).
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ from collections import deque
 import torch
 
 from ..quants.torch_codec import QuantizedTensor
+from ..tools.dlprof import (AUTOTUNE_KIND, AUTOTUNE_VERSION,  # noqa: F401
+                           load_autotune, validate_autotune)
 from .stats import percentile
 from .trace import TRACER
 
@@ -169,25 +174,33 @@ def _tensor_bytes(tree) -> int:
 
 
 def device_memory_stats(device) -> dict | None:
-    """{bytes_in_use, bytes_limit} of a CUDA device from the caching
-    allocator and the card's total memory; None on the CPU."""
+    """{bytes_in_use, bytes_limit} of a CUDA device; None on the CPU.
+    In use: the caching allocator's allocated bytes. Limit: what the
+    allocator could hold, its reserved bytes plus the free bytes that
+    cudaMemGetInfo reports (the card's total would count the CUDA context
+    and memory that torch does not own as free)."""
     if device.type != "cuda":
         return None
     ms = torch.cuda.memory_stats(device)
+    free, _total = torch.cuda.mem_get_info(device)
     return {"bytes_in_use": int(ms.get("allocated_bytes.all.current", 0)),
-            "bytes_limit": int(torch.cuda.get_device_properties(
-                device).total_memory)}
+            "bytes_limit": int(torch.cuda.memory_reserved(device)) + int(free)}
 
 
-def hbm_ledger(engine, prefix_cache=None) -> dict:
+def hbm_ledger(engine, prefix_cache=None, *, block_len: int | None = None,
+               device_stats: dict | None | bool = True) -> dict:
     """Live bytes by category for one engine (the ``hbm`` /stats block):
     weights (every param but the vocab tables), vocab (tok_emb and wcls),
     KV slots (the whole (B, KVH, S, hs) cache), the prefix cache's K/V
     arena, the modelled logits workspace ((B, vocab) f32 logits and one
     (B, chunk, dim) activation). ``per_block_bytes`` is one more arena
-    block (of the cache's block length; 32 tokens without a cache). On the
-    card: the allocator's bytes in use and the card's memory, the
-    unaccounted rest, and the headroom in KV slots and arena blocks."""
+    block (of the cache's block length; without a cache, of `block_len`,
+    default 32 tokens). ``device_stats``: True reads
+    ``device_memory_stats`` (None on the CPU), a dict stands in for it (a
+    dict with only ``bytes_limit`` takes the accounted bytes as in use:
+    what-if sizing), None skips it. With device numbers: the bytes in use
+    and the limit, the unaccounted rest, and the headroom in KV slots and
+    arena blocks."""
     spec = engine.spec
     params = engine.params
     vocab_b = _tensor_bytes([params[k] for k in ("tok_emb", "wcls")
@@ -195,7 +208,7 @@ def hbm_ledger(engine, prefix_cache=None) -> dict:
     weights = _tensor_bytes({k: v for k, v in params.items()
                              if k not in ("tok_emb", "wcls")})
     kv = _tensor_bytes([engine.cache.k, engine.cache.v])
-    arena, n_blocks, bl = 0, 0, 32
+    arena, n_blocks, bl = 0, 0, block_len
     if prefix_cache is not None:
         arena = _tensor_bytes([prefix_cache.arena_k, prefix_cache.arena_v])
         n_blocks, bl = prefix_cache.num_blocks, prefix_cache.block_len
@@ -204,11 +217,18 @@ def hbm_ledger(engine, prefix_cache=None) -> dict:
     logits_ws = (engine.batch * spec.vocab_size * 4
                  + engine.batch * engine.prefill_chunk * spec.dim
                  * compute_itemsize)
-    per_slot = kv // engine.batch
+    per_slot = (kv // engine.batch if engine.batch else 0) or (
+        2 * spec.n_layers * spec.n_kv_heads * engine.seq_len
+        * spec.head_size * cache_itemsize)
     per_block = (arena // n_blocks if n_blocks else
-                 2 * spec.n_layers * spec.n_kv_heads * bl
+                 2 * spec.n_layers * spec.n_kv_heads * int(bl or 32)
                  * spec.head_size * cache_itemsize)
     accounted = weights + vocab_b + kv + arena + logits_ws
+    dev = (device_memory_stats(engine.device) if device_stats is True
+           else (device_stats or None))
+    if dev is not None and "bytes_in_use" not in dev:
+        dev = {"bytes_in_use": accounted,
+               "bytes_limit": int(dev.get("bytes_limit") or 0) or None}
     out = {
         "weights_bytes": weights,
         "vocab_bytes": vocab_b,
@@ -225,16 +245,137 @@ def hbm_ledger(engine, prefix_cache=None) -> dict:
         "slots_addable": None,
         "prefix_blocks_addable": None,
     }
-    dev = device_memory_stats(engine.device)
     if dev is not None:
-        free = max(dev["bytes_limit"] - dev["bytes_in_use"], 0)
         out.update(device_bytes_in_use=dev["bytes_in_use"],
                    device_bytes_limit=dev["bytes_limit"],
-                   unaccounted_bytes=max(dev["bytes_in_use"] - accounted, 0),
-                   headroom_bytes=free,
-                   slots_addable=free // per_slot if per_slot else None,
-                   prefix_blocks_addable=free // per_block if per_block else None)
+                   unaccounted_bytes=max(dev["bytes_in_use"] - accounted, 0))
+        if dev["bytes_limit"]:
+            free = max(dev["bytes_limit"] - dev["bytes_in_use"], 0)
+            out.update(headroom_bytes=free,
+                       slots_addable=free // per_slot if per_slot else None,
+                       prefix_blocks_addable=(free // per_block
+                                              if per_block else None))
     return out
+
+
+# -- auto-sizing ------------------------------------------------------------
+
+# the knee when no calibration artifact is given: decode reads every
+# weight once a step, so batching pays until the KV traffic competes with
+# the weight read; 32 rows is the JAX package's conservative default.
+# Calibrate the card's own with `python -m
+# distributed_llama_tpu_torch.tools.autotune`
+DEFAULT_KNEE_ROWS = 32
+# the share of an ITL SLO a decode step may take when the curve raises the
+# knee: a mixed iteration's wall is the decode step plus one (B, C) chunk,
+# and the policy must hold its widest rung
+ITL_BUDGET_FRAC = 0.2
+
+
+def resolve_auto_shape(engine, *, serve_batch, prefix_blocks=0,
+                       prefix_block_len: int = 32,
+                       autotune: dict | None = None,
+                       slo_itl_ms: float | None = None,
+                       device_stats=True) -> dict:
+    """Resolve ``--serve-batch auto`` and ``--prefix-blocks auto`` against
+    a built template engine (JAX runtime/profiler.py:439):
+
+      * serve_batch: the target capped by the KV slots the headroom can
+        hold. The target is the knee (the artifact's, else
+        ``DEFAULT_KNEE_ROWS``), raised to the largest measured batch whose
+        decode-step p50 fits ``ITL_BUDGET_FRAC`` of ``slo_itl_ms`` when an
+        ITL SLO and a curve are both given. Without device numbers (the
+        CPU) the target stands alone.
+      * prefix_blocks: the 2 x B x context target, capped at HALF the
+        blocks the headroom could hold (the arena must not eat the
+        headroom the slots were just granted). Both caps read the same
+        headroom, so the slots and the arena together may exceed it:
+        ``decision_bytes`` is what a decision allocates.
+
+    The port has one engine per server, so the record's ``replicas`` is 1
+    (the JAX package splits the caps across its replica tier). Returns
+    the decision record: the chosen values, every input, and each value's
+    basis ("autotune" | "default_heuristic" | "slo_curve" |
+    "hbm_cap" | "static" | "context_heuristic"). Raises ValueError for an
+    engine without weights or a cache to ledger."""
+    if getattr(engine, "params", None) is None or not hasattr(engine,
+                                                              "cache"):
+        raise ValueError(
+            "auto sizing needs a ledger-capable local engine (the "
+            "process tier's workers own their engines — pass explicit "
+            "sizes there; calibrate with tools/autotune.py and read the "
+            "recommendation)")
+    ledger = hbm_ledger(engine, block_len=prefix_block_len,
+                        device_stats=device_stats)
+    knee = None
+    knee_basis = "default_heuristic"
+    if autotune is not None:
+        k = (autotune.get("knee") or {}).get("knee_rows")
+        if k:
+            knee = int(k)
+            knee_basis = "autotune"
+    if knee is None:
+        knee = DEFAULT_KNEE_ROWS
+    target, target_basis = knee, knee_basis
+    rows_under_slo = None
+    if slo_itl_ms and autotune is not None:
+        budget = ITL_BUDGET_FRAC * float(slo_itl_ms)
+        afford = [int(p["rows"]) for p in autotune.get("decode_curve") or ()
+                  if p.get("p50_ms") is not None and p["p50_ms"] <= budget]
+        if afford:
+            rows_under_slo = max(afford)
+            if rows_under_slo > target:
+                target, target_basis = rows_under_slo, "slo_curve"
+    inputs = {
+        "knee_rows": knee,
+        "knee_basis": knee_basis,
+        "slo_itl_ms": slo_itl_ms,
+        "rows_under_itl_slo": rows_under_slo,
+        "replicas": 1,
+        "per_slot_bytes": ledger["per_slot_bytes"],
+        "per_block_bytes": ledger["per_block_bytes"],
+        "headroom_bytes": ledger["headroom_bytes"],
+        "slots_addable": ledger["slots_addable"],
+        "prefix_blocks_addable": ledger["prefix_blocks_addable"],
+    }
+    out = {"inputs": inputs}
+    if serve_batch == "auto":
+        cap = None
+        if ledger["slots_addable"] is not None:
+            cap = max(int(ledger["slots_addable"]), 1)
+        b = min(target, cap) if cap is not None else target
+        out["serve_batch"] = max(int(b), 1)
+        out["serve_batch_basis"] = ("hbm_cap"
+                                    if cap is not None and cap < target
+                                    else target_basis)
+    else:
+        out["serve_batch"] = int(serve_batch)
+        out["serve_batch_basis"] = "static"
+    b = out["serve_batch"]
+    if prefix_blocks == "auto":
+        bl = max(int(prefix_block_len), 1)
+        target = max(2 * b * engine.seq_len // bl, 1)
+        cap = None
+        if ledger["prefix_blocks_addable"] is not None:
+            cap = max(int(ledger["prefix_blocks_addable"]) // 2, 1)
+        out["prefix_blocks"] = min(target, cap) if cap is not None \
+            else target
+        out["prefix_blocks_basis"] = ("hbm_cap"
+                                      if cap is not None and cap < target
+                                      else "context_heuristic")
+    else:
+        out["prefix_blocks"] = (int(prefix_blocks)
+                                if prefix_blocks else prefix_blocks)
+        out["prefix_blocks_basis"] = "static"
+    return out
+
+
+def decision_bytes(decision: dict) -> int:
+    """The KV slot and arena bytes a ``resolve_auto_shape`` decision
+    allocates."""
+    inp = decision["inputs"]
+    return (int(decision["serve_batch"]) * inp["per_slot_bytes"]
+            + int(decision["prefix_blocks"] or 0) * inp["per_block_bytes"])
 
 
 # -- build info -------------------------------------------------------------

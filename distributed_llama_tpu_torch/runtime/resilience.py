@@ -87,6 +87,8 @@ class EngineSupervisor:
                  backoff_base: float = 0.1, backoff_max: float = 5.0,
                  breaker_threshold: int = 3,
                  prefix_blocks: int = 0, prefix_block_len: int = 32,
+                 slo_ttft_ms: float | None = None,
+                 slo_itl_ms: float | None = None,
                  draft: str | None = None, draft_len: int = 0,
                  draft_vocab: int | None = None):
         self._factory = engine_factory
@@ -95,6 +97,11 @@ class EngineSupervisor:
         # prefix_block_len tokens, minted fresh with every generation
         self._prefix_blocks = int(prefix_blocks)
         self._prefix_block_len = int(prefix_block_len)
+        # the SLOs of the admission policy: every generation's scheduler
+        # gets a FRESH policy (the old EWMAs describe the dead engine's
+        # steps; the new one learns again in a few steps)
+        self._slo_ttft_ms = slo_ttft_ms
+        self._slo_itl_ms = slo_itl_ms
         # the --draft spec string: built into a DraftModel per generation
         # inside _make_sched, over that generation's engine
         self._draft = draft
@@ -304,7 +311,9 @@ class EngineSupervisor:
         return Scheduler(engine, chunk=self._chunk, max_queue=self.max_queue,
                          queue_timeout=self._queue_timeout,
                          request_deadline=self._request_deadline,
-                         prefix_cache=pc, draft_factory=draft_factory,
+                         prefix_cache=pc, slo_ttft_ms=self._slo_ttft_ms,
+                         slo_itl_ms=self._slo_itl_ms,
+                         draft_factory=draft_factory,
                          draft_len=self._draft_len,
                          draft_vocab=self._draft_vocab)
 

@@ -68,9 +68,15 @@ issues its CUDA work on the default stream, so a capture, its replays and
 the host copies between them are ordered on one stream. HTTP handler
 threads touch host tokens only.
 
-Not ported: the SLO admission ladder (and its "no speculation" rung), the
-weighted-fair queue and the KV-transfer methods (the lock-free
-``kv_match_len`` peek excepted); the constructor refuses them.
+SLO-aware admission (either ``slo_ttft_ms`` or ``slo_itl_ms`` arms it):
+``AdmissionPolicy`` walks a fixed ladder of chunk widths
+(``chunk_ladder``: C, C/2, C/4, C/8) one rung at a time off the live step
+wall, and turns speculation off while the ITL EWMA endangers the SLO.
+``warmup()`` runs every rung, so an adaptive run captures no graph after
+warmup.
+
+Not ported: the weighted-fair queue and the KV-transfer methods (the
+lock-free ``kv_match_len`` peek excepted); the constructor refuses them.
 """
 
 from __future__ import annotations
@@ -94,8 +100,6 @@ from .trace import TRACER
 # constructor options of the JAX Scheduler that the port does not have yet,
 # with the ROADMAP item that brings each
 UNPORTED = {
-    "slo_ttft_ms": "the SLO admission ladder (ROADMAP item 10c)",
-    "slo_itl_ms": "the SLO admission ladder (ROADMAP item 10c)",
     "fair_queue": "the weighted-fair queue (ROADMAP item 16)",
     "fault_key": "replica fault keys (ROADMAP item 16)",
 }
@@ -193,6 +197,145 @@ class ServeRequest:
                                    val.get("retryable", True))
 
 
+# AdmissionPolicy's constants (the JAX package's defaults): the newest
+# sample's EWMA weight, and the shares of the ITL SLO above which the
+# policy shrinks (and turns speculation off) and under which it widens
+# (and turns it back on)
+EWMA_ALPHA = 0.25
+SHRINK_FRAC = 0.85
+WIDEN_FRAC = 0.5
+
+
+def chunk_ladder(chunk: int, rungs: int = 4) -> list[int]:
+    """The admission policy's fixed menu of chunk widths: descending
+    halvings of the configured width, at most `rungs` entries, floor 1. A
+    ladder (not a continuum) keeps the set of prefill shapes bounded and
+    known up front: ``Scheduler.warmup()`` runs every rung, so an adaptive
+    run captures nothing after warmup and ``--freeze-compiles`` holds
+    while the width moves (JAX runtime/scheduler.py:187)."""
+    ladder = [int(chunk)]
+    while len(ladder) < rungs and ladder[-1] > 1:
+        ladder.append(max(ladder[-1] // 2, 1))
+    return ladder
+
+
+class AdmissionPolicy:
+    """SLO-aware admission (JAX runtime/scheduler.py:201): trade each
+    iteration's chunked-prefill width against decode occupancy off the
+    live step timeline, on the host only.
+
+    An iteration with prefill and decode rows costs one (B, C) chunk
+    forward plus one (B, 1) decode step, and every decoding row's token
+    gap IS that iteration's wall: wide chunks finish prompts in few
+    iterations (good TTFT) but stretch every running stream's gap (bad
+    ITL). The policy walks ``chunk_ladder`` one rung at a time:
+
+      * SHRINK one rung when decoding rows saw prefill interference and
+        the ITL EWMA is above ``SHRINK_FRAC`` of ``slo_itl_ms``;
+      * WIDEN one rung when decode rows are idle, when the ITL EWMA is
+        under ``WIDEN_FRAC`` of the SLO, or when the TTFT EWMA endangers
+        ``slo_ttft_ms`` while ITL has headroom.
+
+    ``cooldown`` observed steps separate transitions. The "no
+    speculation" actuator (``spec_allowed``) turns drafting off when the
+    ITL EWMA passes ``SHRINK_FRAC`` of the SLO (a verify forward is wider
+    than a decode step) and back on under ``WIDEN_FRAC``, independently
+    of the width's cooldown. Exported as the ``admission`` /stats block
+    and the ``dllama_admission_*`` /metrics family."""
+
+    def __init__(self, chunk: int, *, slo_ttft_ms: float | None = None,
+                 slo_itl_ms: float | None = None, cooldown: int = 2):
+        if not (slo_ttft_ms or slo_itl_ms):
+            raise ValueError("an SLO-less policy has no goal")
+        self.slo_ttft_ms = slo_ttft_ms
+        self.slo_itl_ms = slo_itl_ms
+        self.ladder = chunk_ladder(chunk)
+        self._rung = 0              # index into ladder; 0 = widest
+        self.cooldown = int(cooldown)
+        self._since_change = self.cooldown  # first decision is eligible
+        self.itl_ewma_ms: float | None = None
+        self.ttft_ewma_ms: float | None = None
+        self.shrinks = 0
+        self.widens = 0
+        self.spec_on = True
+        self.spec_disables = 0
+        self.spec_enables = 0
+
+    @property
+    def spec_allowed(self) -> bool:
+        """Whether the scheduler may run speculative verify steps this
+        iteration."""
+        return self.spec_on
+
+    @property
+    def width(self) -> int:
+        return self.ladder[self._rung]
+
+    def _mix(self, prev: float | None, sample: float) -> float:
+        return sample if prev is None else (
+            EWMA_ALPHA * sample + (1.0 - EWMA_ALPHA) * prev)
+
+    def observe_ttft(self, ttft_ms: float) -> None:
+        self.ttft_ewma_ms = self._mix(self.ttft_ewma_ms, float(ttft_ms))
+
+    def observe_step(self, wall_ms: float, decode_rows: int,
+                     prefill_rows: int) -> None:
+        """One working iteration's composition and wall ms, after its
+        forwards ran. A step with decode rows is their token gap."""
+        if decode_rows:
+            self.itl_ewma_ms = self._mix(self.itl_ewma_ms, float(wall_ms))
+        # the speculation actuator first: it does not wait out the
+        # width's cooldown
+        if self.slo_itl_ms and self.itl_ewma_ms is not None:
+            if (self.spec_on
+                    and self.itl_ewma_ms > SHRINK_FRAC * self.slo_itl_ms):
+                self.spec_on = False
+                self.spec_disables += 1
+            elif (not self.spec_on
+                  and self.itl_ewma_ms < WIDEN_FRAC * self.slo_itl_ms):
+                self.spec_on = True
+                self.spec_enables += 1
+        self._since_change += 1
+        if self._since_change < self.cooldown:
+            return
+        itl, slo_i = self.itl_ewma_ms, self.slo_itl_ms
+        ttft, slo_t = self.ttft_ewma_ms, self.slo_ttft_ms
+        if (slo_i and decode_rows and prefill_rows and itl is not None
+                and itl > SHRINK_FRAC * slo_i):
+            if self._rung + 1 < len(self.ladder):
+                self._rung += 1
+                self.shrinks += 1
+                self._since_change = 0
+            return
+        comfortable = (slo_i is not None and itl is not None
+                       and itl < WIDEN_FRAC * slo_i)
+        ttft_pressure = (slo_t is not None and ttft is not None
+                         and ttft > SHRINK_FRAC * slo_t
+                         and (slo_i is None or itl is None
+                              or itl < SHRINK_FRAC * slo_i))
+        if ((decode_rows == 0 or comfortable or ttft_pressure)
+                and self._rung > 0):
+            self._rung -= 1
+            self.widens += 1
+            self._since_change = 0
+
+    def summary(self) -> dict:
+        rnd = lambda v: None if v is None else round(v, 3)  # noqa: E731
+        return {
+            "slo_ttft_ms": self.slo_ttft_ms,
+            "slo_itl_ms": self.slo_itl_ms,
+            "chunk_width": self.width,
+            "chunk_ladder": list(self.ladder),
+            "itl_ewma_ms": rnd(self.itl_ewma_ms),
+            "ttft_ewma_ms": rnd(self.ttft_ewma_ms),
+            "shrinks": self.shrinks,
+            "widens": self.widens,
+            "spec_allowed": self.spec_on,
+            "spec_disables": self.spec_disables,
+            "spec_enables": self.spec_enables,
+        }
+
+
 class _Slot:
     """One row of the batched KV cache: FREE when req is None, PREFILL
     while off < len(prompt), DECODE after. `pos` is the next cache write
@@ -221,6 +364,8 @@ class Scheduler:
     def __init__(self, engine, *, chunk: int | None = None,
                  max_queue: int = 0, queue_timeout: float | None = None,
                  request_deadline: float | None = None, prefix_cache=None,
+                 slo_ttft_ms: float | None = None,
+                 slo_itl_ms: float | None = None,
                  draft_factory=None, draft_len: int = 0,
                  draft_vocab: int | None = None, **unported):
         asked = {k: v for k, v in unported.items() if v}
@@ -234,6 +379,13 @@ class Scheduler:
         self.chunk = int(chunk or min(engine.prefill_chunk, engine.seq_len))
         if not 1 <= self.chunk <= engine.seq_len:
             raise ValueError(f"chunk {self.chunk} outside 1..{engine.seq_len}")
+        # SLO-aware admission (either SLO arms it): the policy walks the
+        # chunk-width ladder off the live step wall; `chunk` stays the
+        # widest rung, and the only width without an SLO
+        self.admission = (AdmissionPolicy(self.chunk,
+                                          slo_ttft_ms=slo_ttft_ms,
+                                          slo_itl_ms=slo_itl_ms)
+                          if (slo_ttft_ms or slo_itl_ms) else None)
         self.slots = [_Slot(i) for i in range(engine.batch)]
         # radix prefix cache over THIS engine's arena (a supervisor rebuild
         # passes a fresh one); None = reuse off
@@ -269,6 +421,7 @@ class Scheduler:
         self.stats = ServeStats()
         if prefix_cache is not None:
             self.stats.prefix = prefix_cache.stats
+        self.stats.admission = self.admission  # None without an SLO
         # always attached (mode "off" without a draft): a tier never loses
         # the spec family to a launch flag
         self._spec_stats = SpecStats(
@@ -402,10 +555,20 @@ class Scheduler:
         self.stats.steps += 1
         self.stats.occupancy.append(len(pre) + len(dec))
         self.stats.queue_depth.append(len(self._queue))
-        cw = self.chunk if pre else 0
+        # this iteration's chunk width: the policy's current rung, or the
+        # one configured width without an SLO
+        cw = (self.admission.width if self.admission is not None
+              else self.chunk) if pre else 0
         if pre:
-            self._prefill_chunk(pre)
-        if self.draft is not None:
+            self._prefill_chunk(pre, cw)
+        # the policy's "no speculation" actuator gates every draft
+        # launch: while the ITL EWMA endangers the SLO, decode rows take
+        # plain (B, 1) steps
+        spec_ok = self.draft is not None and (
+            self.admission is None or self.admission.spec_allowed)
+        if self.draft is not None and dec and not spec_ok:
+            self._spec_stats.degraded_steps += 1
+        if spec_ok:
             # one draft catch-up chunk an iteration: rows whose draft
             # frontier trails the target (fresh admissions, prefix-seeded
             # prompts, plain rounds) advance by up to one chunk
@@ -413,8 +576,7 @@ class Scheduler:
         if dec:
             # rows that finished their prompt in this iteration's chunk
             # wait for the next one: one decode forward a row an iteration
-            if self.draft is not None and any(self._spec_capable(s)
-                                              for s in dec):
+            if spec_ok and any(self._spec_capable(s) for s in dec):
                 self._decode_spec(dec)
             else:
                 self._decode(dec)
@@ -425,6 +587,12 @@ class Scheduler:
                         chunk=cw, queue_depth=len(self._queue),
                         wall_ms=(time.perf_counter() - self._step_t0) * 1e3,
                         key=None)
+        if self.admission is not None:
+            # the wall the timeline records is the policy's signal; it
+            # sets the NEXT iteration's width
+            self.admission.observe_step(
+                (time.perf_counter() - self._step_t0) * 1e3,
+                len(dec), len(pre))
         return True
 
     def _expire_req(self, req: ServeRequest, code: str = "deadline",
@@ -482,9 +650,9 @@ class Scheduler:
     def _sample_view(self, logits) -> FullLogitsView:
         return FullLogitsView(self.engine.fetch_logits(logits))
 
-    def _prefill_chunk(self, rows: list[_Slot]) -> None:
+    def _prefill_chunk(self, rows: list[_Slot], width: int) -> None:
         eng = self.engine
-        b, c = eng.batch, self.chunk
+        b, c = eng.batch, width
         tok = np.zeros((b, c), np.int32)
         pos = np.full((b,), eng.seq_len, np.int32)  # gated rows: dropped
         lidx = np.zeros((b,), np.int32)
@@ -661,6 +829,8 @@ class Scheduler:
         if req.stats.t_first is None:
             now = time.perf_counter()
             req.stats.t_first = now
+            if self.admission is not None:
+                self.admission.observe_ttft((now - req.stats.t_submit) * 1e3)
             if TRACER.enabled:
                 TRACER.event("first_token", req.trace_id,
                              ttft_ms=round((now - req.stats.t_submit)
@@ -729,14 +899,18 @@ class Scheduler:
         engine ready, so a first step's capture never reads as a stall.
         With a draft, its prefill chunk, its proposal and the verify step
         run too, all rows gated, so speculative serving captures nothing
-        after warmup. With a prefix cache, one seed and one publish run
+        after warmup. With an SLO, every rung of the width ladder runs its
+        prefill chunk. With a prefix cache, one seed and one publish run
         too: the seed really writes row 0, so the scheduler must be
         idle."""
         eng = self.engine
         with self._mutex:
             gate = np.full((eng.batch,), eng.seq_len, np.int32)
-            eng.slot_prefill_chunk(np.zeros((eng.batch, self.chunk), np.int32),
-                                   gate, np.zeros((eng.batch,), np.int32))
+            widths = (self.admission.ladder if self.admission is not None
+                      else [self.chunk])
+            for w in widths:
+                eng.slot_prefill_chunk(np.zeros((eng.batch, w), np.int32),
+                                       gate, np.zeros((eng.batch,), np.int32))
             eng.slot_decode_step(np.zeros((eng.batch, 1), np.int32), gate)
             if self.draft is not None:
                 self.draft_cache = self.draft.prefill_chunk(

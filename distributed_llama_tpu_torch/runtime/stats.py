@@ -108,8 +108,9 @@ class SpecStats:
     drafted: int = 0           # draft tokens proposed (speculating rows)
     accepted: int = 0          # draft tokens the verify confirmed
     emitted_spec: int = 0      # tokens emitted by speculating rows
-    # iterations run with drafting disabled by the SLO admission policy
-    # (its "no speculation" rung is not ported: always 0 here)
+    # decode iterations run without speculation although a draft is
+    # armed: the SLO admission policy's "no speculation" actuator
+    # (runtime/scheduler.AdmissionPolicy.spec_allowed) held it off
     degraded_steps: int = 0
 
     def summary(self) -> dict:
@@ -198,6 +199,10 @@ class ServeStats:
     # attached by the Scheduler when the radix prefix cache is on: its
     # summary rides the same /stats payload as a `prefix_cache` block
     prefix: "PrefixCacheStats | None" = None
+    # attached by the Scheduler when an SLO arms the admission policy
+    # (runtime/scheduler.AdmissionPolicy): its chunk width, EWMAs and
+    # transition counters ride /stats as an `admission` block
+    admission: object | None = None
     # always attached by the Scheduler (mode "off" without a draft)
     spec: SpecStats | None = None
 
@@ -231,6 +236,8 @@ class ServeStats:
         }
         if self.prefix is not None:
             out["prefix_cache"] = self.prefix.summary()
+        if self.admission is not None:
+            out["admission"] = self.admission.summary()
         if self.spec is not None:
             out["spec"] = self.spec.summary()
         return out

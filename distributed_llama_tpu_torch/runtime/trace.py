@@ -528,6 +528,24 @@ def _add_device_blocks(p: _Prom, summary: dict) -> None:
                         "(window mean)")
 
 
+def _add_admission(p: _Prom, adm: dict | None) -> None:
+    """The SLO admission family (runtime/scheduler.AdmissionPolicy's
+    summary): the live chunk width and the EWMAs the policy steers on."""
+    if not adm:
+        return
+    p.add("dllama_admission_chunk_width", adm.get("chunk_width"),
+          help_="Current adaptive chunked-prefill width (tokens)")
+    p.add("dllama_admission_chunk_changes_total", adm.get("shrinks"),
+          {"direction": "shrink"}, type_="counter",
+          help_="Adaptive chunk-width rung transitions")
+    p.add("dllama_admission_chunk_changes_total", adm.get("widens"),
+          {"direction": "widen"}, type_="counter")
+    p.add("dllama_admission_itl_ewma_ms", adm.get("itl_ewma_ms"),
+          help_="Live inter-token-latency EWMA the policy steers on")
+    p.add("dllama_admission_ttft_ewma_ms", adm.get("ttft_ewma_ms"),
+          help_="Live time-to-first-token EWMA")
+
+
 def render_prometheus(summary: dict | None, *, tracer: Tracer | None = None,
                       model: str = "dllama", mode: str = "scheduler",
                       state: str | None = None,
@@ -566,6 +584,24 @@ def render_prometheus(summary: dict | None, *, tracer: Tracer | None = None,
               help_="Failure-detected to ready-again latency")
         p.add("dllama_supervisor_recovery_ms", res.get("recovery_p99_ms"),
               {"quantile": "0.99"})
+        auto = summary.get("autosize")
+        if auto:
+            # the startup auto-sizing decision (runtime/profiler.
+            # resolve_auto_shape): what was chosen and why
+            p.add("dllama_autosize_serve_batch", auto.get("serve_batch"),
+                  {"basis": _esc(auto.get("serve_batch_basis"))},
+                  help_="Auto-resolved --serve-batch (KV slots)")
+            if auto.get("prefix_blocks_basis") != "static":
+                p.add("dllama_autosize_prefix_blocks",
+                      auto.get("prefix_blocks"),
+                      {"basis": _esc(auto.get("prefix_blocks_basis"))},
+                      help_="Auto-resolved --prefix-blocks (arena blocks)")
+            p.add("dllama_autosize_knee_rows",
+                  (auto.get("inputs") or {}).get("knee_rows"),
+                  {"basis": _esc((auto.get("inputs") or {})
+                                 .get("knee_basis"))},
+                  help_="Batch knee that capped the auto-sizing")
+        _add_admission(p, summary.get("admission"))
         _add_spec(p, summary.get("spec"))
         _add_device_blocks(p, summary)
     if tracer is not None and tracer.enabled:

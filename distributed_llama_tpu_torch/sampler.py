@@ -7,8 +7,10 @@ reference's sampling decisions given identical logits. Vectorized with numpy
 matches the reference qsort comparator's ordering of distinct values
 (ref: src/tokenizer.cpp:257-263).
 
-This is the pure-Python backend of the JAX package's sampler; its native
-C++ twin is not part of the port yet.
+A C++ twin (the repo's native/dllama_native.cpp, held against this one in
+tests/test_torch_native.py) is used when the shared library is loaded
+(backend="auto"; native.py); backend="python" forces this oracle, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -42,22 +44,39 @@ def topp_nucleus(probs: np.ndarray, topp: float):
 
 class Sampler:
     def __init__(self, vocab_size: int, temperature: float, topp: float,
-                 seed: int):
+                 seed: int, backend: str = "auto"):
         self.vocab_size = vocab_size
         self.temperature = float(temperature)
         self.topp = float(topp)
+        self._native = None
+        if backend in ("auto", "native"):
+            from . import native
+
+            if native.available():
+                self._native = native.NativeSampler(
+                    vocab_size, temperature, topp, seed)
+            elif backend == "native":
+                raise RuntimeError("native backend requested but "
+                                   "libdllama_native.so is not built")
         self._rng_state = seed & ((1 << 64) - 1)
 
     @property
     def rng_state(self) -> int:
+        if self._native is not None:
+            return self._native.rng_state
         return self._rng_state
 
     @rng_state.setter
     def rng_state(self, v: int) -> None:
-        self._rng_state = v & ((1 << 64) - 1)
+        if self._native is not None:
+            self._native.rng_state = v
+        else:
+            self._rng_state = v & ((1 << 64) - 1)
 
     def set_temp(self, temperature: float) -> None:
         self.temperature = float(temperature)
+        if self._native is not None:
+            self._native.set_temp(temperature)
 
     def set_seed(self, seed: int) -> None:
         self.rng_state = seed & ((1 << 64) - 1)
@@ -77,6 +96,8 @@ class Sampler:
         return v
 
     def sample(self, logits: np.ndarray) -> int:
+        if self._native is not None:
+            return self._native.sample(logits)
         logits = np.asarray(logits, dtype=np.float32).reshape(-1)[: self.vocab_size]
         if self.temperature == 0.0:
             return int(np.argmax(logits))

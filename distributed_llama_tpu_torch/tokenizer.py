@@ -5,8 +5,11 @@ UTF-8 codepoint scan, byte-fallback at +3 offset, then greedy highest-score
 pair merging. Decode strips a leading space after BOS and expands `<0xXX>`
 raw-byte pieces (ref: src/tokenizer.cpp:89-100).
 
-This is the pure-Python backend of the JAX package's tokenizer; its native
-C++ twin is not part of the port yet.
+A C++ implementation with the same behavior lives in the repo's native/
+(dllama_native.cpp, built with `make -C native`) and is used when the
+shared library is loaded (backend="auto"; native.py); this pure-Python
+version is the fallback and the oracle the native code is held against
+(tests/test_torch_native.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from .io.tokenizer_file import TokenizerData, read_tokenizer_file
 
 
 class Tokenizer:
-    def __init__(self, data: TokenizerData):
+    def __init__(self, data: TokenizerData, backend: str = "auto"):
         self.data = data
         self.vocab = data.vocab
         self.scores = data.scores
@@ -26,6 +29,16 @@ class Tokenizer:
             # first occurrence wins, like bsearch over a stable-sorted vocab
             if tok not in self._index:
                 self._index[tok] = i
+        self._native = None
+        if backend in ("auto", "native"):
+            from . import native
+
+            if native.available():
+                self._native = native.NativeTokenizer(
+                    self.vocab, self.scores, self.bos_id, self.eos_id)
+            elif backend == "native":
+                raise RuntimeError("native backend requested but "
+                                   "libdllama_native.so is not built")
 
     @classmethod
     def from_file(cls, path: str) -> "Tokenizer":
@@ -51,6 +64,8 @@ class Tokenizer:
         return ids
 
     def encode(self, text: str, add_bos: bool = True, add_eos: bool = False) -> list[int]:
+        if self._native is not None:
+            return self._native.encode(text, add_bos, add_eos)
         tokens: list[int] = []
         if add_bos:
             tokens.append(self.bos_id)
@@ -101,6 +116,8 @@ class Tokenizer:
         return tokens
 
     def decode_piece(self, prev_token: int, token: int) -> bytes:
+        if self._native is not None:
+            return self._native.decode_piece(prev_token, token)
         piece = self.vocab[token]
         if prev_token == self.bos_id and piece.startswith(b" "):
             piece = piece[1:]

@@ -103,9 +103,8 @@ def test_cli_inference_prints_benchmark_lines(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["chat", "--slo-ttft-ms", "5"], "mode 'chat'"),
-    (["api", "--serve-batch", "2", "--prefix-cache", "--prefix-blocks", "auto"],
-     "--prefix-cache"),
+    (["chat", "--shard-vocab", "on"], "mode 'chat'"),
+    (["api", "--prefix-cache", "--replicas", "2"], "--prefix-cache"),
     (["worker"], "mode 'worker'"),
     (["generate", "--tp", "2"], "--tp 2"),
     (["generate", "--pp", "2"], "--pp 2"),

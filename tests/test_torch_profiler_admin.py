@@ -154,8 +154,10 @@ def test_admin_guard_over_http(servers, monkeypatch):
 def test_admin_profile_writes_a_trace(servers, tmp_path):
     """POST /admin/profile?ms=N: a torch.profiler Chrome trace under
     --profile-dir, the profile event, the captures count; 400 on a bad
-    window (as the JAX server), 409 while the profiler is owned; the
-    unported admin verbs answer 501 with their ROADMAP item."""
+    window (as the JAX server), 409 while the profiler is owned;
+    /admin/reset_breaker answers as the JAX server's (200 on a healthy
+    supervisor, 400 on a bad body); the replica verbs answer 501 with
+    their ROADMAP item."""
     addr, state = servers["port"]
     jaddr, _ = servers["jax"]
     state.profile_dir = str(tmp_path)
@@ -177,9 +179,11 @@ def test_admin_profile_writes_a_trace(servers, tmp_path):
         assert _req(addr, "POST", "/admin/profile?ms=5")[0] == 409
     finally:
         profiler.PROFILER._busy = False
-    for verb, item in (("reset_breaker", "10c"), ("drain_replica", "16")):
-        status, raw = _req(addr, "POST", f"/admin/{verb}", {})
-        assert status == 501 and f"ROADMAP item {item}" in json.loads(raw)["error"]
+    for body, code in (({}, 200), ({"replica": "x"}, 400)):
+        assert _req(addr, "POST", "/admin/reset_breaker", body)[0] == \
+            _req(jaddr, "POST", "/admin/reset_breaker", body)[0] == code, body
+    status, raw = _req(addr, "POST", "/admin/drain_replica", {})
+    assert status == 501 and "ROADMAP item 16" in json.loads(raw)["error"]
     assert _req(addr, "POST", "/admin/nope", {})[0] == 404
 
 

@@ -207,9 +207,12 @@ def test_exclusive_drains_then_lends_engine(tiny):
 
 def test_scheduler_refuses_unported_options(tiny):
     eng = _engine(tiny, 2)
-    for opt in ("fault_key", "slo_ttft_ms", "fair_queue"):
+    for opt in ("fault_key", "fair_queue"):
         with pytest.raises(ValueError, match="not ported"):
             Scheduler(eng, **{opt: object()})
+    # the SLOs are ported: either one arms the admission policy
+    assert Scheduler(eng, slo_ttft_ms=500.0).admission is not None
+    assert Scheduler(eng).admission is None
     with pytest.raises(TypeError):
         Scheduler(eng, no_such_option=1)
 

@@ -95,17 +95,26 @@ def test_render_prometheus_matches_jax(kw):
 
 def test_render_prometheus_has_no_unported_families():
     """Without a tracer the renderer renders no step family, and it
-    renders no fleet family: the
-    router, replica, transfer and autosize blocks of a summary render
-    nothing. The prefix cache's families render as the JAX renderer's
-    (ported with the prefix cache)."""
+    renders no fleet family: the router, replica and transfer blocks of a
+    summary render nothing. The prefix cache's families render as the JAX
+    renderer's (ported with the prefix cache), and so does the autosize
+    block (ported with auto-sizing)."""
     summary = _summary()
     summary["hbm"] = {**summary["hbm"], "prefix_arena_bytes": 6, "prefix_blocks_addable": 3}
     summary["prefix_cache"] = {"lookups": 4, "hits": 3, "blocks_in_use": 2}
     fleet = {"router": {"routed": 5}, "replicas": [{"replica": 0, "tokens_out": 1}],
-             "kv_transfer": {"fills": 1}, "autosize": {"serve_batch": 4}}
+             "kv_transfer": {"fills": 1}}
     text = trace.render_prometheus({**summary, **fleet})
     assert text == trace.render_prometheus(summary)
+    auto = {"serve_batch": 4, "serve_batch_basis": "autotune", "prefix_blocks": 0,
+            "prefix_blocks_basis": "static",
+            "inputs": {"knee_rows": 4, "knee_basis": "autotune"}}
+    with_auto = trace.render_prometheus({**summary, "autosize": auto})
+    assert with_auto.splitlines() == [
+        ln for ln in jax_trace.render_prometheus({**summary, "autosize": auto}).splitlines()
+        if ln not in _JAX_ONLY_STATES]
+    assert 'dllama_autosize_serve_batch{basis="autotune"} 4' in with_auto
+    assert "dllama_autosize_prefix_blocks" not in with_auto
     assert "dllama_step_ms" not in text and "router" not in text and "replica" not in text
     assert 'dllama_hbm_bytes{category="kv_slots"} 8' in text
     assert 'dllama_hbm_bytes{category="prefix_arena"} 6' in text
