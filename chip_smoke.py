@@ -209,8 +209,8 @@ result line):
     alternating 768-token prefixes, tokens held against the cache-off run
     as above; evictions, hits and every block accounted for. Load runs
     with shared prefixes (a synthetic smoke load, from no trace), cache
-    off then on: 40 requests at 0.8 a second (below the cold run's knee)
-    and 60 at 2 a second (past it), each one of 4 seeded 768-token
+    off then on: 12 requests at 0.8 a second (below the cold run's knee)
+    and 16 at 2 a second (past it), each one of 4 seeded 768-token
     prefixes and a unique suffix (aggregate tok/s, TTFT and ITL
     p50/p95/p99, TTFT p50 over each half of the arrivals, the share of
     gaps a chunk stalled, hit rate, tokens saved and prefilled,
@@ -284,7 +284,7 @@ result line):
     SLO) with their bytes against the headroom, then the no-artifact,
     no-arena decision built through the server's state under
     --freeze-compiles: 8 requests against batch-1 generate, 0 captures
-    after warmup; phase 7's load cut to 100 requests at 5 a second, B = 4,
+    after warmup; phase 7's load cut to 50 requests at 5 a second, B = 4,
     C = 256, static then with a 50 ms ITL SLO, launches counted from 0
     around each (K1, K3 and Q80 must launch), 0 captures after warmup,
     the steps at each rung, each rung's (4, w) chunk by CUDA events with
@@ -293,6 +293,42 @@ result line):
     `dllama generate` at T 0.8 on the tiny fixture, `make -C native`, the
     same run on the native backends (tokens equal), and the native
     tokenizer and sampler against the Python ones.
+12. Tensor parallelism (`[tp]` lines; after phase 11, over the same 7B
+    weights): ranks are gloo processes sharing the card
+    (parallel/launch.RankPool: NCCL needs a card a rank), each building
+    the same synthetic Q40 weights from one seed on the card and keeping
+    its shard (Engine(mesh=)), Q80 activations and collectives and a bf16
+    cache as the CLI builds them; every collective stages through host
+    memory, so steps run eagerly. Llama-2-7B at full width and depth at
+    tp = 2 and tp = 4, Mixtral 8x7B at full width and 2 layers at tp = 2
+    (routing replayed from the one-GPU run): greedy tokens after the
+    300-token prompt, launches counted from 0 on rank 0, against one GPU
+    over the same weights: every rank's tokens equal; each step's logits
+    on rank 0, up to and including the first token difference, within
+    LOGITS_TOL and LOGITS_REL_L2_TOL of one GPU's; tokens equal one GPU's
+    up to the first step whose one-GPU top-2 logit gap is within the
+    near-tie bound those tolerances allow (2 x LOGITS_TOL x max |logit|);
+    launches equal to one GPU's (the same kernels a step at the shard
+    shapes). Then one 256-token chunk and TP_TIMED decode steps timed,
+    with the host ms of the collectives and of the staging. The data axis
+    (`[dp]` lines): 7B generate_batch over dp = 2 ranks (two rows each,
+    prompts of DP_PROMPTS tokens), greedy and at T 0.8, against one GPU's
+    generate_batch: rows equal on every rank, each draw's logits within
+    those tolerances while its row's history is one GPU's, the shared
+    sampler's RNG state at every draw equal to one GPU's, greedy rows
+    equal up to a near tie. The NCCL path at world size 1: a 1-rank NCCL group,
+    the 7B engine with force_mesh_kernels (marked weights, the exact
+    all-reduce over the group of one), its decode step captured as a CUDA
+    graph with the all-reduces inside: tokens equal to the plain engine's,
+    both timed through their graphs in turns. The CLI: `dllama generate
+    --tp 2` on the tiny Llama fixture (this process rank 0, one rank
+    spawned), its f32 text equal to one GPU's, rank 0's
+    kernels launched; `inference --dp 2` counting both rows. Last, K1 at
+    the 7B tp = 2 and tp = 4 row and column shards (t = 1 with the Q80
+    round trip fused, t = 256), the standalone Q80 at the column shards'
+    chunk inputs, K2 at the Mixtral tp = 2 expert shards and K3 over
+    16/16, 8/8 and 16/4 local heads, each against its plain version and
+    timed beside its plain version, library call and bound.
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
@@ -403,9 +439,50 @@ def phase_build() -> float:
     return dt
 
 
-def phase_k1(gen) -> dict:
+def k1_row(gen, tag: str, name: str, d: int, n: int, t: int, dt, ws, w0,
+           q80: bool = False) -> dict:
+    """K1 on t tokens of x (d, n): against its plain version (within TOL),
+    timed beside the plain version, the library call (the dequantized
+    weight through torch.matmul) and its bound; ws() rotates weights of
+    the shape so the timed reads miss L2. With q80 the Q80 round trip runs
+    inside the launch (t = 1, as a decode step runs it), on both sides."""
     from distributed_llama_tpu_torch.ops import cuda_q40
     from distributed_llama_tpu_torch.quants.torch_codec import dequantize_q40_torch
+
+    wbytes = d * n // 2 + d * n // 32 * 2
+    x = torch.randn((t, n), generator=gen, device="cuda").to(dt)
+    got = cuda_q40.q40_matmul(x, w0, dt, activation_q80=q80)
+    want = cuda_q40.q40_matmul_reference(x, w0, dt, activation_q80=q80)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = TOL[dt] * scale
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    ms = time_ms(lambda: cuda_q40.q40_matmul(x, ws(), dt, activation_q80=q80))
+    plain = time_ms(lambda: cuda_q40.q40_matmul_reference(x, ws(), dt,
+                                                          activation_q80=q80))
+    wd = rotating(lambda: dequantize_q40_torch(random_q40(gen, d, n), dt),
+                  d * n * x.element_size())
+    lib = time_ms(lambda: torch.matmul(x, wd().t()))
+    del wd
+    nbytes = wbytes + t * n * x.element_size() + t * d * x.element_size()
+    bms, by = bound_ms(nbytes, 2.0 * t * d * n, dt)
+    tc = cuda_q40.uses_tc_path(dt, dt, t, n)
+    row = dict(shape=name, d=d, n=n, t=t, dtype=str(dt).split(".")[-1],
+               path="tc" if tc else "gemv",
+               plan=cuda_q40.tc_plan(t, n, d) if tc else None,
+               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+               library_ms=lib, bound_ms=bms, bound_by=by)
+    if q80:
+        row["q80"] = True
+    print(tag + json.dumps(row))
+    if not ok:
+        fail(f"K1 {name} t={t} {dt}: max err {err:.3g} > tol {tol:.3g}")
+    return row
+
+
+def phase_k1(gen) -> dict:
+    from distributed_llama_tpu_torch.ops import cuda_q40
 
     rows, paths = [], []
     for name, (d, n) in {**K1_SHAPES, **K1_MOE_SHAPES}.items():
@@ -416,32 +493,7 @@ def phase_k1(gen) -> dict:
                 ((1, torch.bfloat16), (16, torch.bfloat16), (256, torch.bfloat16),
                  (1, torch.float32)))
         for t, dt in runs:
-            x = torch.randn((t, n), generator=gen, device="cuda").to(dt)
-            got = cuda_q40.q40_matmul(x, w0, dt)
-            want = cuda_q40.q40_matmul_reference(x, w0, dt)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            tol = TOL[dt] * scale
-            ok = err <= tol and bool(torch.isfinite(got).all())
-            ms = time_ms(lambda: cuda_q40.q40_matmul(x, ws(), dt))
-            plain = time_ms(lambda: cuda_q40.q40_matmul_reference(x, ws(), dt))
-            wd = rotating(lambda: dequantize_q40_torch(random_q40(gen, d, n), dt),
-                          d * n * x.element_size())
-            lib = time_ms(lambda: torch.matmul(x, wd().t()))
-            del wd
-            nbytes = wbytes + t * n * x.element_size() + t * d * x.element_size()
-            bms, by = bound_ms(nbytes, 2.0 * t * d * n, dt)
-            tc = cuda_q40.uses_tc_path(dt, dt, t, n)
-            row = dict(shape=name, d=d, n=n, t=t, dtype=str(dt).split(".")[-1],
-                       path="tc" if tc else "gemv",
-                       plan=cuda_q40.tc_plan(t, n, d) if tc else None,
-                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                       library_ms=lib, bound_ms=bms, bound_by=by)
-            rows.append(row)
-            print("[K1] " + json.dumps(row))
-            if not ok:
-                fail(f"K1 {name} t={t} {dt}: max err {err:.3g} > tol {tol:.3g}")
+            rows.append(k1_row(gen, "[K1] ", name, d, n, t, dt, ws, w0))
         if name in K1_PER_STEP and name != "wcls":   # wcls runs at t = 1 only
             paths += k1_paths(gen, name, d, n, ws, w0)
         del ws, w0
@@ -610,63 +662,77 @@ def gemv1_edges(gen, q80: bool = False) -> list[dict]:
 
 
 def phase_k2(gen) -> dict:
-    """K2 at the MoE expert shapes: an (8, d, n) stack, 2 active experts.
-    The timed calls cycle the active pair through all 8 experts, so the
-    stack's bytes (264 MB at Mixtral) keep each call's reads out of L2."""
+    """K2 at the MoE expert shapes: an (8, d, n) stack, 2 active experts."""
+    rows = []
+    for name, (d, n) in K2_SHAPES.items():
+        w = random_q40(gen, N_EXPERTS, d, n)
+        for t in (1, 4):
+            for dt in (torch.bfloat16, torch.float32):
+                rows.append(k2_row(gen, "[K2] ", name, w, t, dt))
+        del w
+        torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def k2_row(gen, tag: str, name: str, w, t: int, dt, q80: bool = False) -> dict:
+    """K2 on t tokens against 2 active experts of the (8, d, n) stack w:
+    against its plain version (within TOL), timed beside the plain version,
+    the library call (index_select of the two experts' bytes, dequantize,
+    torch.matmul) and its bound. The timed calls cycle the active pair
+    through all 8 experts, so the stack's bytes (264 MB at Mixtral) keep
+    each call's reads out of L2. With q80 the Q80 round trip runs inside
+    the launch (t = 1), on both sides."""
     from distributed_llama_tpu_torch.ops import cuda_q40
     from distributed_llama_tpu_torch.quants.torch_codec import (
         QuantizedTensor, dequantize_q40_torch)
 
-    rows = []
+    _, d, n = w.shape
     pairs = [torch.tensor([2 * i + 1, 2 * i], dtype=torch.int32, device="cuda")
              for i in range(N_EXPERTS // 2)]
-    for name, (d, n) in K2_SHAPES.items():
-        w = random_q40(gen, N_EXPERTS, d, n)
-        state = {"i": 0}
+    state = {"i": 0}
 
-        def idx():
-            state["i"] = (state["i"] + 1) % len(pairs)
-            return pairs[state["i"]]
-        per_expert = name.endswith("down")   # down takes one x per expert
-        for t in (1, 4):
-            for dt in (torch.bfloat16, torch.float32):
-                shape = (N_ACTIVE, t, n) if per_expert else (t, n)
-                x = torch.randn(shape, generator=gen, device="cuda").to(dt)
-                got = cuda_q40.q40_expert_matmul(x, w, pairs[0], dt)
-                want = cuda_q40.q40_expert_matmul_reference(x, w, pairs[0], dt)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                tol = TOL[dt] * want.float().abs().max().item()
-                ok = err <= tol and bool(torch.isfinite(got).all()) and \
-                    tuple(got.shape) == (N_ACTIVE, t, d)
+    def idx():
+        state["i"] = (state["i"] + 1) % len(pairs)
+        return pairs[state["i"]]
+    per_expert = name.startswith(("mixtral_down", "grok1_down"))   # one x an expert
+    shape = (N_ACTIVE, t, n) if per_expert else (t, n)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    got = cuda_q40.q40_expert_matmul(x, w, pairs[0], dt, activation_q80=q80)
+    want = cuda_q40.q40_expert_matmul_reference(x, w, pairs[0], dt,
+                                                activation_q80=q80)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dt] * want.float().abs().max().item()
+    ok = err <= tol and bool(torch.isfinite(got).all()) and \
+        tuple(got.shape) == (N_ACTIVE, t, d)
 
-                def library():
-                    sel = idx().long()
-                    wd = dequantize_q40_torch(QuantizedTensor(
-                        w.packed.index_select(0, sel),
-                        w.scales.index_select(0, sel)), dt)
-                    return torch.matmul(x, wd.transpose(-1, -2))
+    def library():
+        sel = idx().long()
+        wd = dequantize_q40_torch(QuantizedTensor(
+            w.packed.index_select(0, sel),
+            w.scales.index_select(0, sel)), dt)
+        return torch.matmul(x, wd.transpose(-1, -2))
 
-                ms = time_ms(lambda: cuda_q40.q40_expert_matmul(x, w, idx(), dt))
-                plain = time_ms(lambda: cuda_q40.q40_expert_matmul_reference(
-                    x, w, idx(), dt))
-                lib = time_ms(library)
-                nbytes = (N_ACTIVE * (d * n // 2 + d * n // 32 * 2)
-                          + x.numel() * x.element_size()
-                          + N_ACTIVE * t * d * x.element_size())
-                bms, by = bound_ms(nbytes, 2.0 * N_ACTIVE * t * d * n, dt)
-                row = dict(shape=name, e=N_EXPERTS, k=N_ACTIVE, d=d, n=n, t=t,
-                           dtype=str(dt).split(".")[-1], max_abs_err=err,
-                           tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=bms, bound_by=by)
-                rows.append(row)
-                print("[K2] " + json.dumps(row))
-                if not ok:
-                    fail(f"K2 {name} t={t} {dt}: max err {err:.3g} > tol "
-                         f"{tol:.3g}, shape {tuple(got.shape)}")
-        del w
-        torch.cuda.empty_cache()
-    return {"rows": rows}
+    ms = time_ms(lambda: cuda_q40.q40_expert_matmul(x, w, idx(), dt,
+                                                    activation_q80=q80))
+    plain = time_ms(lambda: cuda_q40.q40_expert_matmul_reference(
+        x, w, idx(), dt, activation_q80=q80))
+    lib = time_ms(library)
+    nbytes = (N_ACTIVE * (d * n // 2 + d * n // 32 * 2)
+              + x.numel() * x.element_size()
+              + N_ACTIVE * t * d * x.element_size())
+    bms, by = bound_ms(nbytes, 2.0 * N_ACTIVE * t * d * n, dt)
+    row = dict(shape=name, e=N_EXPERTS, k=N_ACTIVE, d=d, n=n, t=t,
+               dtype=str(dt).split(".")[-1], max_abs_err=err,
+               tol=tol, ms=ms, plain_ms=plain, library_ms=lib,
+               bound_ms=bms, bound_by=by)
+    if q80:
+        row["q80"] = True
+    print(tag + json.dumps(row))
+    if not ok:
+        fail(f"K2 {name} t={t} {dt}: max err {err:.3g} > tol "
+             f"{tol:.3g}, shape {tuple(got.shape)}")
+    return row
 
 
 # the t = 1 shapes of the fused Q80 round trip, (d, n, experts): K1's 7B
@@ -816,53 +882,55 @@ def phase_q80(gen) -> dict:
     """The Q80 round trip against its plain version, bit for bit, at the
     7B and Mixtral matmul input shapes, f32 and bf16 in and out; timed
     beside the plain version (no single PyTorch call computes it)."""
-    from distributed_llama_tpu_torch.ops import cuda_q80
-
     rows = []
     for t, n in Q80_SHAPES:
         for dt, odt in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
                         (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)):
             if dt != odt and t != 256:
                 continue
-            # rows of very different sizes, a zero block and exact halves
-            x = torch.randn((t, n), generator=gen, device="cuda")
-            x = x * torch.rand((t, 1), generator=gen, device="cuda") * 30
-            x[0, :32] = 0.0
-            x[-1, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5], device="cuda")
-            # a block holding a NaN, one holding +inf, one -inf: each comes
-            # out as 32 NaNs in the plain version
-            x[0, 32 + 5] = math.nan
-            x[0, 64 + 31] = math.inf
-            x[0, 96] = -math.inf
-            x = x.to(dt)
-            got = cuda_q80.q80_roundtrip(x, odt)
-            want = cuda_q80.q80_roundtrip_reference(x, odt)
-            torch.cuda.synchronize()
-            # NaN at the same positions, every other value bit for bit (NaN
-            # payloads may differ)
-            nan = torch.isnan(want)
-            exact = (torch.equal(torch.isnan(got), nan) and int(nan.sum()) == 96
-                     and same_bits(got[~nan], want[~nan]))
-            err = (got[~nan].float() - want[~nan].float()).abs().max().item()
-            ms = time_ms(lambda: cuda_q80.q80_roundtrip(x, odt))
-            plain = time_ms(lambda: cuda_q80.q80_roundtrip_reference(x, odt))
-            bms, by = bound_ms(x.numel() * (x.element_size() + got.element_size()), 0.0, odt)
-            row = dict(t=t, n=n, dtype=str(dt).split(".")[-1], out=str(odt).split(".")[-1],
-                       exact=exact, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
-                       bound_ms=bms, bound_by=by)
-            rows.append(row)
-            print("[Q80] " + json.dumps(row))
-            if not exact:
-                fail(f"q80_roundtrip t={t} n={n} {dt}->{odt}: not bit-equal to the plain "
-                     f"version (max err {err:.3g})")
+            rows.append(q80_row(gen, "[Q80] ", t, n, dt, odt))
     return {"rows": rows}
 
 
+def q80_row(gen, tag: str, t: int, n: int, dt, odt) -> dict:
+    """The Q80 round trip of a (t, n) input against its plain version, bit
+    for bit, timed beside it."""
+    from distributed_llama_tpu_torch.ops import cuda_q80
+
+    # rows of very different sizes, a zero block and exact halves
+    x = torch.randn((t, n), generator=gen, device="cuda")
+    x = x * torch.rand((t, 1), generator=gen, device="cuda") * 30
+    x[0, :32] = 0.0
+    x[-1, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5], device="cuda")
+    # a block holding a NaN, one holding +inf, one -inf: each comes
+    # out as 32 NaNs in the plain version
+    x[0, 32 + 5] = math.nan
+    x[0, 64 + 31] = math.inf
+    x[0, 96] = -math.inf
+    x = x.to(dt)
+    got = cuda_q80.q80_roundtrip(x, odt)
+    want = cuda_q80.q80_roundtrip_reference(x, odt)
+    torch.cuda.synchronize()
+    # NaN at the same positions, every other value bit for bit (NaN
+    # payloads may differ)
+    nan = torch.isnan(want)
+    exact = (torch.equal(torch.isnan(got), nan) and int(nan.sum()) == 96
+             and same_bits(got[~nan], want[~nan]))
+    err = (got[~nan].float() - want[~nan].float()).abs().max().item()
+    ms = time_ms(lambda: cuda_q80.q80_roundtrip(x, odt))
+    plain = time_ms(lambda: cuda_q80.q80_roundtrip_reference(x, odt))
+    bms, by = bound_ms(x.numel() * (x.element_size() + got.element_size()), 0.0, odt)
+    row = dict(t=t, n=n, dtype=str(dt).split(".")[-1], out=str(odt).split(".")[-1],
+               exact=exact, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+               bound_ms=bms, bound_by=by)
+    print(tag + json.dumps(row))
+    if not exact:
+        fail(f"q80_roundtrip t={t} n={n} {dt}->{odt}: not bit-equal to the plain "
+             f"version (max err {err:.3g})")
+    return row
+
+
 def phase_k3(gen) -> dict:
-    import torch.nn.functional as F
-
-    from distributed_llama_tpu_torch.ops import cuda_attention
-
     bf16 = torch.bfloat16
     # (b, h, kvh, t, pos0 per row, hs, S)
     cases = []
@@ -888,67 +956,78 @@ def phase_k3(gen) -> dict:
                  (2, 32, 8, 16, [100, 1500], 128, 2048), (1, 32, 8, 100, [1000], 128, 2048)]
     runs = [(bf16, bf16, cases), (bf16, F8, cases), (torch.float32, torch.float32, f32_cases),
             (torch.float32, F8, f32_cases[:1])]
-    rows = []
-    for dt, cdt, run_cases in runs:   # dt: q and the output
-        for b, h, kvh, t, pos0, hs, s in run_cases:
-            g = h // kvh
-            csize = torch.tensor([], dtype=cdt).element_size()
-            cache_bytes = 2 * b * kvh * s * hs * csize
-            kvs = rotating(lambda: (
-                torch.randn((b, kvh, s, hs), generator=gen, device="cuda").to(cdt),
-                torch.randn((b, kvh, s, hs), generator=gen, device="cuda").to(cdt)),
-                cache_bytes)
-            k, v = kvs()
-            q = torch.randn((b, t, h, hs), generator=gen, device="cuda").to(dt)
-            q_pos = (torch.tensor(pos0, device="cuda", dtype=torch.int32)[:, None]
-                     + torch.arange(t, device="cuda", dtype=torch.int32)[None, :])
-            got = cuda_attention.flash_attention(q, k, v, q_pos)
-            want = cuda_attention.flash_attention_reference(q, k, v, q_pos)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = TOL[dt] * want.float().abs().max().item()
-            ok = err <= tol and bool(torch.isfinite(got).all()) and got.dtype == dt
-
-            def run_kernel():
-                kk, vv = kvs()
-                cuda_attention.flash_attention(q, kk, vv, q_pos)
-
-            def run_plain():
-                kk, vv = kvs()
-                cuda_attention.flash_attention_reference(q, kk, vv, q_pos)
-
-            ms = time_ms(run_kernel)
-            plain = time_ms(run_plain)
-            fill = min(max(pos0) + t, s)     # a gated row (pos0 == S) sees all S
-            qs = q.transpose(1, 2)                                  # (B, H, T, hs)
-            ks = k[:, :, :fill].to(dt).repeat_interleave(g, dim=1)
-            vs = v[:, :, :fill].to(dt).repeat_interleave(g, dim=1)
-            sl = torch.arange(fill, device="cuda")
-            mask = sl[None, None, :] <= q_pos[:, :, None]           # (B, T, fill)
-            mask = mask[:, None]
-            lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
-            # this run's work: query token tt of row b sees pos0[b] + tt + 1
-            # slots, for each of its H heads a q.k and a p.v of hs multiply-adds;
-            # bytes: q and out once, K and V up to each row's last position
-            seen = sum(min(p + tt + 1, s) for p in pos0 for tt in range(t))
-            nbytes = (2 * q.numel() * q.element_size()
-                      + sum(2 * kvh * min(p + t, s) * hs * csize for p in pos0))
-            ops = 4.0 * hs * h * seen
-            bms, by = bound_ms(nbytes, ops, dt)
-            block_rows, n_split = cuda_attention.split_plan(b, kvh, s, t, g, dt == torch.float32)
-            row = dict(b=b, h=h, kvh=kvh, t=t, pos0=pos0, hs=hs, s=s,
-                       dtype=str(dt).split(".")[-1], cache=str(cdt).split(".")[-1],
-                       block_rows=block_rows, n_split=n_split,
-                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                       library_ms=lib, bound_ms=bms, bound_by=by)
-            rows.append(row)
-            print("[K3] " + json.dumps(row))
-            if not ok:
-                fail(f"K3 {dt} q, {cdt} cache b={b} h={h}/{kvh} t={t} pos0={pos0} hs={hs} "
-                     f"S={s}: max err {err:.3g} > tol {tol:.3g}")
-            del kvs, k, v, ks, vs
+    rows = [k3_row(gen, "[K3] ", dt, cdt, case)
+            for dt, cdt, run_cases in runs for case in run_cases]
     torch.cuda.empty_cache()
     return {"rows": rows, "shapes": k3_shape_sweep(gen), "graph": k3_graph_replay(gen)}
+
+
+def k3_row(gen, tag: str, dt, cdt, case: tuple) -> dict:
+    """K3 on one case (b, h, kvh, t, pos0 per row, hs, S) with q and the
+    output in dt over a cdt cache: against its plain version (within TOL),
+    timed beside the plain version, SDPA over the filled prefix and its
+    bound."""
+    import torch.nn.functional as F
+
+    from distributed_llama_tpu_torch.ops import cuda_attention
+
+    b, h, kvh, t, pos0, hs, s = case
+    g = h // kvh
+    csize = torch.tensor([], dtype=cdt).element_size()
+    cache_bytes = 2 * b * kvh * s * hs * csize
+    kvs = rotating(lambda: (
+        torch.randn((b, kvh, s, hs), generator=gen, device="cuda").to(cdt),
+        torch.randn((b, kvh, s, hs), generator=gen, device="cuda").to(cdt)),
+        cache_bytes)
+    k, v = kvs()
+    q = torch.randn((b, t, h, hs), generator=gen, device="cuda").to(dt)
+    q_pos = (torch.tensor(pos0, device="cuda", dtype=torch.int32)[:, None]
+             + torch.arange(t, device="cuda", dtype=torch.int32)[None, :])
+    got = cuda_attention.flash_attention(q, k, v, q_pos)
+    want = cuda_attention.flash_attention_reference(q, k, v, q_pos)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dt] * want.float().abs().max().item()
+    ok = err <= tol and bool(torch.isfinite(got).all()) and got.dtype == dt
+
+    def run_kernel():
+        kk, vv = kvs()
+        cuda_attention.flash_attention(q, kk, vv, q_pos)
+
+    def run_plain():
+        kk, vv = kvs()
+        cuda_attention.flash_attention_reference(q, kk, vv, q_pos)
+
+    ms = time_ms(run_kernel)
+    plain = time_ms(run_plain)
+    fill = min(max(pos0) + t, s)     # a gated row (pos0 == S) sees all S
+    qs = q.transpose(1, 2)                                  # (B, H, T, hs)
+    ks = k[:, :, :fill].to(dt).repeat_interleave(g, dim=1)
+    vs = v[:, :, :fill].to(dt).repeat_interleave(g, dim=1)
+    sl = torch.arange(fill, device="cuda")
+    mask = sl[None, None, :] <= q_pos[:, :, None]           # (B, T, fill)
+    mask = mask[:, None]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+    # this run's work: query token tt of row b sees pos0[b] + tt + 1
+    # slots, for each of its H heads a q.k and a p.v of hs multiply-adds;
+    # bytes: q and out once, K and V up to each row's last position
+    seen = sum(min(p + tt + 1, s) for p in pos0 for tt in range(t))
+    nbytes = (2 * q.numel() * q.element_size()
+              + sum(2 * kvh * min(p + t, s) * hs * csize for p in pos0))
+    ops = 4.0 * hs * h * seen
+    bms, by = bound_ms(nbytes, ops, dt)
+    block_rows, n_split = cuda_attention.split_plan(b, kvh, s, t, g, dt == torch.float32)
+    row = dict(b=b, h=h, kvh=kvh, t=t, pos0=pos0, hs=hs, s=s,
+               dtype=str(dt).split(".")[-1], cache=str(cdt).split(".")[-1],
+               block_rows=block_rows, n_split=n_split,
+               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+               library_ms=lib, bound_ms=bms, bound_by=by)
+    print(tag + json.dumps(row))
+    if not ok:
+        fail(f"K3 {dt} q, {cdt} cache b={b} h={h}/{kvh} t={t} pos0={pos0} hs={hs} "
+             f"S={s}: max err {err:.3g} > tol {tol:.3g}")
+    del kvs, k, v, ks, vs
+    return row
 
 
 def k3_shape_sweep(gen) -> dict:
@@ -1906,8 +1985,9 @@ def check_moe_block_sync_free(engine) -> None:
     with torch.inference_mode():
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = transformer._moe_ffn(xb, engine.params["layers"][0], spec,
-                                       engine.compute_dtype, engine.activation_q80)
+            out = transformer._moe_ffn(xb, engine.params["layers"][0], spec, dict(
+                compute_dtype=engine.compute_dtype, activation_q80=engine.activation_q80,
+                mesh=None, tp_reduce="exact"))
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -2426,7 +2506,7 @@ def cli_api_text(mpath: str, tpath: str, device: str) -> str:
         server, state = api_server.build_server(args)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     try:
-        conn = http.client.HTTPConnection(*server.server_address[:2], timeout=300)
+        conn = http.client.HTTPConnection(*server.server_address[:2], timeout=180)
         conn.request("POST", "/v1/chat/completions", json.dumps(
             {"messages": [{"role": "user", "content": "hello world"}], "max_tokens": 16,
              "temperature": 0}), {"Content-Type": "application/json"})
@@ -2721,7 +2801,8 @@ def batch1_parity(one, prompts: list, got: list, near_tie: float, tag: str,
 
 # the load run: greedy requests of 32 tokens with seeded prompts of 16-300
 # tokens (one or two chunks), arriving as a seeded Poisson process
-LOAD_N, LOAD_RATE = 200, 5.0      # requests, mean arrivals a second
+LOAD_N, LOAD_RATE = 80, 5.0       # requests, mean arrivals a second
+LOAD_DRAIN_S = 120.0              # a load run fails this long after its last arrival
 
 
 def serving_load(spec, sched, n_req: int = LOAD_N, rate: float = LOAD_RATE,
@@ -2754,6 +2835,9 @@ def serving_load(spec, sched, n_req: int = LOAD_N, rate: float = LOAD_RATE,
     t0 = time.perf_counter()
     while len(reqs) < n_req or live:
         now = time.perf_counter() - t0
+        if now > arrive[-1] + LOAD_DRAIN_S:
+            fail(f"load run: {len(live)} requests unfinished {LOAD_DRAIN_S:g} s after the "
+                 f"last arrival")
         while len(reqs) < n_req and arrive[len(reqs)] <= now:
             live.add(len(reqs))
             reqs.append(sched.submit(prompts[len(reqs)], 32, Sampler(vocab, 0.0, 0.9, 1)))
@@ -2866,7 +2950,7 @@ def serving_http(spec, one, card: str) -> dict:
         return server
 
     def post(addr, route, body):
-        conn = http.client.HTTPConnection(*addr, timeout=600)
+        conn = http.client.HTTPConnection(*addr, timeout=180)
         conn.request("POST", route, json.dumps(body), {"Content-Type": "application/json"})
         resp = conn.getresponse()
         return resp.status, resp.read().decode()
@@ -2906,7 +2990,7 @@ def serving_http(spec, one, card: str) -> dict:
         for t in threads:
             t.start()
         for t in threads:
-            t.join(timeout=600)
+            t.join(timeout=180)
         wall = time.perf_counter() - t0
         if any(t.is_alive() for t in threads) or any(results[i][0] != 200 for i in range(4)):
             fail(f"HTTP streaming clients: {[results.get(i, (None,))[0] for i in range(4)]}")
@@ -2918,7 +3002,7 @@ def serving_http(spec, one, card: str) -> dict:
             prompt, _, _ = api_server._prompt_and_stops(body, route.endswith("chat/completions"))
             reqs.append(sup.submit(tokenizer.encode(prompt), 32, Sampler(vocab, 0.0, 0.9, 1),
                                    eos_id=tokenizer.eos_id))
-        want = [scanned(r.endswith("chat/completions"), bd, list(q.tokens(timeout=600)))
+        want = [scanned(r.endswith("chat/completions"), bd, list(q.tokens(timeout=180)))
                 for (r, bd), q in zip(bodies, reqs)]
         equal = texts == want
         print(f"[serve] HTTP: 4 concurrent streaming clients (2 chat, 2 completions) in "
@@ -2989,7 +3073,7 @@ def serving_http(spec, one, card: str) -> dict:
 PREFIX_BL, PREFIX_SHARED = 32, 768
 # the load runs, (arrivals a second, requests): below the cold run's knee
 # (~1.7 requests a second: four 134 ms chunks a request), and past it
-PREFIX_LOAD = ((0.8, 40), (2.0, 60))
+PREFIX_LOAD = ((0.8, 12), (2.0, 16))
 # the eviction check's arena: less than two 768-token prefixes' 48 blocks
 PREFIX_EVICT_BLOCKS = 40
 
@@ -3390,7 +3474,7 @@ def phase_chat() -> dict:
         outs = []
         try:
             for p, stdin in procs:
-                o, e = p.communicate(stdin, timeout=300)
+                o, e = p.communicate(stdin, timeout=180)
                 if p.returncode:
                     fail(f"dllama chat exited {p.returncode}: {e[-600:]}")
                 outs.append(o)
@@ -4238,7 +4322,7 @@ def trace_http(spec, one, card: str) -> dict:
         return " ".join("".join(chr(97 + c) for c in rng.integers(0, 26, 5)) for _ in range(k))
 
     def post(addr, route, body):
-        conn = http.client.HTTPConnection(*addr, timeout=600)
+        conn = http.client.HTTPConnection(*addr, timeout=180)
         conn.request("POST", route, json.dumps(body), {"Content-Type": "application/json"})
         resp = conn.getresponse()
         return resp.status, resp.read().decode()
@@ -4268,7 +4352,7 @@ def trace_http(spec, one, card: str) -> dict:
             time.sleep(0.05)         # the 4th's prefill chunk inside the window
             threads[3].start()
             for t in (*threads, prof):
-                t.join(timeout=600)
+                t.join(timeout=180)
             status, raw = res["profile"]
             if status != 200 or any(res[i][0] != 200 for i in range(SERVE_B)):
                 fail(f"/admin/profile {status} {raw[:200]}; streams "
@@ -4352,7 +4436,7 @@ def trace_cli(card: str) -> dict:
         outs = {}
         try:
             for k, p in procs.items():
-                o, e = p.communicate(timeout=300)
+                o, e = p.communicate(timeout=180)
                 if p.returncode:
                     fail(f"dllama generate ({k}) exited {p.returncode}: {e[-600:]}")
                 outs[k] = o
@@ -4424,7 +4508,7 @@ def phase_trace_batch(card: str, params, near_tie: float) -> dict:
 # -- phase 11: the SLO admission ladder, auto-sizing from the card's own
 # calibration, --freeze-compiles, and the native tokenizer and sampler ------
 
-ADM_N, ADM_RATE = 100, 5.0    # phase 7's load, 100 requests at 5 a second
+ADM_N, ADM_RATE = 50, 5.0     # phase 7's load, 50 requests at 5 a second
 ADM_SLO_ITL_MS = 50.0         # the adaptive run's ITL SLO
 SPEC_SLO_ITL_MS = 8.0         # below a 7B verify forward (8.1-9.7 ms)
 AUTOSIZE_SLO_ITL_MS = 50.0    # the third decision's SLO: a 10 ms step budget
@@ -4518,7 +4602,7 @@ def admission_autosize(spec, params, one, art: dict, near_tie: float, card: str)
                    for n in rng.integers(16, 301, AUTOSIZE_N)]
         t1 = time.perf_counter()
         reqs = [sup.submit(p, 32, Sampler(vocab, 0.0, 0.9, 1)) for p in prompts]
-        got = [list(r.tokens(timeout=300)) for r in reqs]
+        got = [list(r.tokens(timeout=120)) for r in reqs]
         wall = time.perf_counter() - t1
         summ = sup.summary()
         sup.close()
@@ -4663,7 +4747,7 @@ def admission_native() -> dict:
 
     def make(*target):
         res = subprocess.run(["make", "-C", str(root / "native"), *target],
-                             capture_output=True, text=True, timeout=300)
+                             capture_output=True, text=True, timeout=180)
         if res.returncode:
             fail(f"make -C native {' '.join(target)}: {res.stderr[-600:]}")
 
@@ -4672,7 +4756,7 @@ def admission_native() -> dict:
             [sys.executable, "-m", "distributed_llama_tpu_torch.apps.dllama", "generate",
              "--model", m, "--tokenizer", t, "--prompt", "Hello world", "--steps", "16",
              "--temperature", "0.8", "--seed", "5", "--device", "cuda"],
-            capture_output=True, text=True, timeout=300, cwd=str(root))
+            capture_output=True, text=True, timeout=180, cwd=str(root))
         if res.returncode:
             fail(f"dllama generate exited {res.returncode}: {res.stderr[-600:]}")
         lines = res.stdout.splitlines()
@@ -4736,6 +4820,613 @@ def phase_admission(card: str, params, near_tie: float) -> dict:
     out["native"] = admission_native()
     out["seconds"] = time.perf_counter() - t_start
     print(f"[admission] phase 11 in {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 12: tensor parallelism over ranks (--tp), on the one card ----------
+
+# the ranks of phase 12: gloo processes sharing the card (one GPU: NCCL needs
+# a card a rank), each bounded: a collective a rank never joins fails after
+TP_TIMEOUT_S = 180.0
+# greedy tokens after the main paths' 300-token prompt (two chunks, 256 and
+# 44), and decode steps timed a tp
+TP_DECODE, TP_TIMED = 8, 8
+# the shard shapes of Llama-2-7B a rank holds: row shards (wqkv, w13, wcls)
+# cut the output rows, column shards (wo, w2) the input columns
+TP_COL = ("wo", "w2")
+# the data axis on the card: rows of 7B generate_batch over dp = 2 ranks
+# (prompt lengths: one or two prefill chunks), tokens a row
+DP_PROMPTS, DP_DECODE = (300, 213, 97, 256), 16
+
+
+def _shard_shape(name: str, tp: int) -> tuple[int, int]:
+    d, n = K1_SHAPES[name]
+    return (d, n // tp) if name in TP_COL else (d // tp, n)
+
+
+def _greedy_trace(engine, prompt: list[int], n: int):
+    """Greedy tokens after the prompt (n of them), each step's top-2 logit
+    gap and each step's logits (f32, host; the prompt's first)."""
+    engine.reset()
+    lg = engine.fetch_logits(engine.prefill(prompt))[0]
+    lgs, toks, gaps = [lg], [], []
+    for i in range(n):
+        toks.append(int(np.argmax(lg)))
+        gaps.append(_top2_gap(lg))
+        if i + 1 < n:
+            lg = engine.fetch_logits(engine.step(np.asarray([[toks[-1]]], np.int32),
+                                                 engine.pos))[0]
+            lgs.append(lg)
+    return toks, gaps, lgs
+
+
+def tp_rank_job(name: str, n_layers: int, tp: int, seed: int, prompt: list[int],
+                routes: list | None) -> dict:
+    """One rank of a tp group on the card (RankPool job): the synthetic Q40
+    weights of `name` from `seed` built on the card, the rank's shard kept
+    (Engine(mesh=) cuts it), Q80 activations and collectives and a bf16
+    cache as the CLI builds a Q40 engine. Its greedy trace after the
+    prompt (MoE routing replayed from `routes`) with launches counted from
+    0, then one 256-token chunk and TP_TIMED decode steps timed with the
+    host seconds of the collectives and of the host staging."""
+    import dataclasses
+
+    from distributed_llama_tpu_torch.models.params import synthetic_q40_params
+    from distributed_llama_tpu_torch.parallel.mesh import describe, make_mesh
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    mesh = make_mesh(tp=tp, device_type="cuda")
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    spec = dataclasses.replace(_spec(name), n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = synthetic_q40_params(spec, seed=seed, device=mesh.device)
+    eng = Engine(spec, params, mesh=mesh, activation_q80=True)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rec = ([torch.from_numpy(r).to(mesh.device) for r in routes] if routes else None)
+    with replayed_routes(rec) if rec else contextlib.nullcontext():
+        zero_counts()
+        mesh.reset_stats()
+        toks, gaps, lgs = _greedy_trace(eng, prompt, TP_DECODE)
+        torch.cuda.synchronize()
+        counts, run_stats = read_counts(), dict(mesh.stats)
+    eng.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step(np.asarray([prompt[:256]], np.int32), 0)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    for i in range(TP_TIMED):
+        eng.step(np.asarray([[toks[i % len(toks)]]], np.int32), eng.pos)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / TP_TIMED
+    st = dict(mesh.stats)
+    return dict(rank=mesh.rank, backend=mesh.backend, describe=describe(mesh),
+                graphs=eng.cuda_graphs, tokens=toks, gaps=gaps,
+                logits=lgs if mesh.rank == 0 else None, counts=counts,
+                run_stats=run_stats, build_s=build_s, prefill_ms=prefill_ms,
+                decode_ms=decode_ms,
+                collective_ms=st["collective_s"] * 1e3 / TP_TIMED,
+                staging_ms=st["staging_s"] * 1e3 / TP_TIMED,
+                collectives_per_step=st["collectives"] / TP_TIMED,
+                staged_bytes_per_step=st["staged_bytes"] / TP_TIMED,
+                memory_gb=torch.cuda.max_memory_allocated(mesh.device) / 1e9)
+
+
+def _held_steps(label: str, got: list, want: list) -> list[dict]:
+    """Each step's logits against one GPU's at the same history, held to
+    the script's LOGITS_TOL (of max |one-GPU logit|) and LOGITS_REL_L2_TOL."""
+    rows = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.isfinite(g).all():
+            fail(f"{label}: step {i} logits not finite")
+        diff, scale = float(np.abs(g - w).max()), float(np.abs(w).max())
+        rel_l2 = float(np.linalg.norm(g - w) / np.linalg.norm(w))
+        if diff > LOGITS_TOL * scale or rel_l2 > LOGITS_REL_L2_TOL:
+            fail(f"{label}: step {i} logits max abs diff {diff:.4g} (tol "
+                 f"{LOGITS_TOL * scale:.4g}), rel L2 {rel_l2:.3g} (tol {LOGITS_REL_L2_TOL})")
+        rows.append(dict(step=i, max_abs_diff=diff, tol=LOGITS_TOL * scale, rel_l2=rel_l2))
+    return rows
+
+
+def _held_tp(label: str, res: list, toks1: list, gaps1: list, lgs1: list,
+             counts1: dict, card: str) -> dict:
+    """Every rank's tokens equal; rank 0's against one device's: each
+    step's logits, up to and including the first token difference (the
+    same history on both sides), within LOGITS_TOL and LOGITS_REL_L2_TOL;
+    tokens the same up to the first step whose one-GPU top-2 gap is
+    within the near-tie bound those tolerances allow (2 x LOGITS_TOL x
+    max |logit|); launches equal to one device's, K1 and K3 launched."""
+    r0 = res[0]
+    for r in res[1:]:
+        if r["tokens"] != r0["tokens"]:
+            fail(f"[tp] {label}: rank {r['rank']} tokens {r['tokens']} differ from rank 0's")
+    mismatch = next((i for i, (a, b) in enumerate(zip(r0["tokens"], toks1)) if a != b), None)
+    upto = len(toks1) if mismatch is None else mismatch + 1
+    steps = _held_steps(f"[tp] {label}", r0["logits"][:upto], lgs1[:upto])
+    near_tie = 2 * LOGITS_TOL * float(np.abs(lgs1[0]).max())
+    tie = next((i for i, g in enumerate(gaps1) if g <= near_tie), None)
+    worst = max(steps, key=lambda r: r["rel_l2"])
+    print(f"[tp] {label}: {r0['describe']}; logits vs one GPU at {len(steps)} steps: prompt "
+          f"max abs diff {steps[0]['max_abs_diff']:.4g} (tol {steps[0]['tol']:.4g}), rel L2 "
+          f"{steps[0]['rel_l2']:.3g} (tol {LOGITS_REL_L2_TOL}); worst step {worst['step']} "
+          f"max abs diff {worst['max_abs_diff']:.4g}, rel L2 {worst['rel_l2']:.3g}; near-tie "
+          f"bound {near_tie:.4g}; first one-GPU gap within it at step {tie}; first token "
+          f"difference at step {mismatch} [{card}]")
+    if mismatch is not None and (tie is None or mismatch < tie):
+        fail(f"[tp] {label}: token {mismatch} differs from one GPU's "
+             f"({r0['tokens']} vs {toks1}) before any near tie")
+    if r0["counts"] != counts1 or not (r0["counts"]["K1"] and r0["counts"]["K3"]):
+        fail(f"[tp] {label}: launches {r0['counts']} != one GPU's {counts1}")
+    share = lambda x: x / r0["decode_ms"]   # noqa: E731
+    print(f"[tp] {label}: launches {r0['counts']} (one GPU's: equal); decode "
+          f"{r0['decode_ms']:.3f} ms/token eager (graphs {r0['graphs']}): collectives "
+          f"{r0['collective_ms']:.3f} ms ({share(r0['collective_ms']):.3f}), host staging "
+          f"{r0['staging_ms']:.3f} ms ({share(r0['staging_ms']):.3f}), "
+          f"{r0['collectives_per_step']:.0f} collectives and "
+          f"{r0['staged_bytes_per_step'] / 1e6:.3f} MB staged a step; one 256-token "
+          f"chunk {r0['prefill_ms']:.2f} ms; build {r0['build_s']:.1f} s, peak "
+          f"{max(r['memory_gb'] for r in res):.2f} GB a rank [{card}]")
+    out = {k: v for k, v in r0.items() if k != "logits"}
+    out.update(logits_max_abs_diff=steps[0]["max_abs_diff"],
+               logits_rel_l2=steps[0]["rel_l2"], steps_held=steps, near_tie_bound=near_tie,
+               first_near_tie=tie, first_mismatch=mismatch, one_gpu_tokens=toks1)
+    return out
+
+
+def _batch_draws(engine, prompts: list, temperature: float, seed: int) -> dict:
+    """engine.generate_batch over `prompts` (DP_DECODE tokens a row) with a
+    recording Sampler: the rows, the logits and RNG state of each draw the
+    shared sampler makes (in the JAX order: step by step, rows in order),
+    and the host seconds. A greedy engine over ranks draws nothing on the
+    host (only the tokens meet), so its rows' logits are recorded where
+    its argmax reads them: each rank's own rows, in `local`."""
+    rec = _recording_sampler(engine.spec.vocab_size, temperature, 0.9, seed)
+    local = []
+    greedy_rows = engine._greedy_rows
+
+    def recording_greedy_rows(lg, n_vocab):
+        local.append(lg.float().cpu().numpy())
+        return greedy_rows(lg, n_vocab)
+
+    engine._greedy_rows = recording_greedy_rows
+    try:
+        engine.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = engine.generate_batch(prompts, DP_DECODE, rec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del engine._greedy_rows
+    return dict(rows=rows, draws=rec.seen, local=local, wall_s=wall)
+
+
+def dp_rank_job(prompts: list, temps: list) -> dict:
+    """One rank of a dp = 2 mesh on the card (RankPool job): the 7B
+    synthetic Q40 weights from seed 0 built on the card, Q80 activations
+    and a bf16 cache, batch = len(prompts) rows, this rank holding half of
+    them; generate_batch at each temperature, launches counted from 0."""
+    import gc
+
+    from distributed_llama_tpu_torch.models.params import synthetic_q40_params
+    from distributed_llama_tpu_torch.parallel.mesh import describe, make_mesh
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(dp=2, device_type="cuda")
+    spec = _spec("llama2_7b")
+    params = synthetic_q40_params(spec, seed=0, device=mesh.device)
+    eng = Engine(spec, params, mesh=mesh, activation_q80=True, batch=len(prompts),
+                 max_seq_len=512)
+    del params
+    out = dict(rank=mesh.rank, describe=describe(mesh), row0=eng._row0, runs={})
+    zero_counts()
+    mesh.reset_stats()
+    for t in temps:
+        out["runs"][t] = _batch_draws(eng, prompts, t, seed=11)
+    torch.cuda.synchronize()
+    out.update(counts=read_counts(), stats=dict(mesh.stats))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flip_explained(want: np.ndarray, got: np.ndarray, state: int, temperature: float,
+                    topp: float, tok_want: int, tok_got: int) -> dict:
+    """A sampled token that differs at equal RNG state: where the coin fell
+    in the one-GPU CDF (cdf_margin) beside how far the two logit vectors'
+    probabilities lie apart (L1 at the temperature). Explained when the
+    margin is within 2 x L1: the coin's point and every CDF boundary move
+    by at most L1 between the two distributions."""
+    def probs(lg):
+        x = lg.astype(np.float64) / temperature
+        x = np.exp(x - x.max())
+        return x / x.sum()
+
+    l1 = float(np.abs(probs(want) - probs(got)).sum())
+    m = cdf_margin(want, state, temperature, topp, tok_want, tok_got)
+    return dict(margin=m["margin"], l1=l1, nucleus=m["nucleus"],
+                explained=m["margin"] <= 2 * l1)
+
+
+def _held_dp(res: list, one: dict, card: str) -> dict:
+    """The dp = 2 rows against one GPU's generate_batch over the same
+    weights. Every rank holds every row's tokens, the same. Each draw's
+    logits, while its row's history is one GPU's (up to and including the
+    row's first token difference), within LOGITS_TOL and LOGITS_REL_L2_TOL
+    of one GPU's: sampled rows take them from the shared sampler's
+    record, whose RNG state at every draw must equal one GPU's (one
+    sampler, rows in order); greedy rows from each rank's own rows. A
+    greedy row's tokens equal one GPU's up to its first top-2 gap within
+    the near-tie bound (2 x LOGITS_TOL x max |logit|); a sampled row's
+    first difference must lie at a draw whose logits are held and be
+    explained by them (_flip_explained)."""
+    out = {}
+    for t, want in one.items():
+        runs = [r["runs"][t] for r in res]
+        for r, run in zip(res[1:], runs[1:]):
+            if run["rows"] != runs[0]["rows"]:
+                fail(f"[dp] T={t}: rank {r['rank']} rows differ from rank 0's")
+        got, n_rows = runs[0], len(want["rows"])
+        first = [next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), None)
+                 for g, w in zip(got["rows"], want["rows"])]
+        if t == 0.0:
+            # each rank's local (rows, V) logits a step, rows side by side
+            lg_got = [np.concatenate(x) for x in zip(*(r["runs"][t]["local"] for r in res))]
+            draws = [(s, i, lg_got[s][i]) for s in range(len(lg_got)) for i in range(n_rows)]
+        else:
+            draws = [(k // n_rows, k % n_rows, lg) for k, (lg, _) in enumerate(got["draws"])]
+            states = [st for _, st in got["draws"]]
+            if states != [st for _, st in want["draws"]]:
+                fail(f"[dp] T={t}: the shared sampler's RNG states differ from one GPU's")
+        if len(draws) != len(want["draws"]):
+            fail(f"[dp] T={t}: {len(draws)} draws, one GPU made {len(want['draws'])}")
+        held = []
+        for (s, i, g), (w, _) in zip(draws, want["draws"]):
+            if first[i] is None or s <= first[i]:
+                held += _held_steps(f"[dp] T={t} row {i} step {s}", [g], [w])
+        worst = max(held, key=lambda r: r["rel_l2"])
+        near_tie = 2 * LOGITS_TOL * max(float(np.abs(w).max()) for w, _ in want["draws"])
+        gaps = [[_top2_gap(w) for k, (w, _) in enumerate(want["draws"]) if k % n_rows == i]
+                for i in range(n_rows)]
+        print(f"[dp] T={t}: Llama-2-7B generate_batch over {res[0]['describe']}, "
+              f"{n_rows} rows x {DP_DECODE} tokens, rows equal on every rank; {len(held)} "
+              f"draws held to one GPU's (worst rel L2 {worst['rel_l2']:.3g}, max abs diff "
+              f"{worst['max_abs_diff']:.4g}){'; RNG states equal' if t else ''}; first token "
+              f"difference a row {first} (near-tie bound {near_tie:.4g}); {got['wall_s']:.2f} s "
+              f"(one GPU {want['wall_s']:.2f} s) [{card}]")
+        flips = {}
+        for i, k in enumerate(first):
+            if k is None:
+                continue
+            if t == 0.0:
+                tie = next((j for j, g in enumerate(gaps[i]) if g <= near_tie), None)
+                if tie is None or k < tie:
+                    fail(f"[dp] row {i}: greedy token {k} differs from one GPU's before "
+                         "any near tie")
+                continue
+            (w, state), g = want["draws"][k * n_rows + i], got["draws"][k * n_rows + i][0]
+            flips[i] = _flip_explained(w, g, state, t, 0.9, want["rows"][i][k],
+                                       got["rows"][i][k])
+            print(f"[dp] T={t} row {i}: first token difference at draw {k}: the coin "
+                  f"{flips[i]['margin']:.3g} from a one-GPU CDF boundary, the two "
+                  f"distributions {flips[i]['l1']:.3g} apart (L1), nucleus "
+                  f"{flips[i]['nucleus']} tokens")
+            if not flips[i]["explained"]:
+                fail(f"[dp] T={t} row {i}: token {k} differs from one GPU's with the coin "
+                     f"{flips[i]['margin']:.3g} from any CDF boundary, beyond 2 x L1 "
+                     f"{flips[i]['l1']:.3g}")
+        out[f"T{t}"] = dict(rows=got["rows"], one_gpu_rows=want["rows"], first_difference=first,
+                            draws_held=len(held), worst=worst, near_tie_bound=near_tie,
+                            flips=flips,
+                            wall_s=got["wall_s"], one_gpu_wall_s=want["wall_s"])
+    counts = res[0]["counts"]
+    print(f"[dp] rank 0 launches {counts}; {res[0]['stats']['collectives']} collectives, "
+          f"{res[0]['stats']['staged_bytes'] / 1e6:.3f} MB staged [{card}]")
+    if not (counts["K1"] and counts["K3"]):
+        fail(f"[dp] rank 0 launched {counts}")
+    out["counts"] = counts
+    return out
+
+
+def nccl_world1_job(prompt: list[int]) -> dict:
+    """A 1-rank NCCL group (RankPool job): the 7B engine with the shard path
+    forced at tp = 1 (force_mesh_kernels: marked weights, the column
+    splits' exact all-reduce over the group of one) beside the plain
+    engine over the same weights; its decode step captured as a CUDA graph
+    with the all-reduce inside; greedy tokens of both, and each one's
+    decode ms/token through its graph, in turns."""
+    from distributed_llama_tpu_torch.models.params import synthetic_q40_params
+    from distributed_llama_tpu_torch.parallel.mesh import make_mesh
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    mesh = make_mesh(tp=1, device_type="cuda")
+    spec = _spec("llama2_7b")
+    params = synthetic_q40_params(spec, seed=0, device=mesh.device)
+    plain = Engine(spec, params, device=mesh.device, activation_q80=True)
+    forced = Engine(spec, params, mesh=mesh, force_mesh_kernels=True,
+                    activation_q80=True)
+    want, _, (first_want, *_) = _greedy_trace(plain, prompt, TP_DECODE)
+    mesh.reset_stats()
+    got, _, (first_got, *_) = _greedy_trace(forced, prompt, TP_DECODE)
+    at_capture = dict(mesh.stats)
+    ms = {"plain": [], "forced": []}
+    for _ in range(3):
+        for key, eng in (("plain", plain), ("forced", forced)):
+            eng.reset()
+            eng.prefill(prompt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(32):
+                eng.step(np.asarray([[want[i % len(want)]]], np.int32), eng.pos)
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) * 1e3 / 32)
+    g = forced.graphs.get(1)
+    return dict(backend=mesh.backend, tokens=got, plain_tokens=want,
+                logits_max_abs_diff=float(np.abs(first_got - first_want).max()),
+                captured=g is not None, graph_tally=list(g.tally) if g else None,
+                collectives_at_capture=at_capture["collectives"],
+                marked=type(forced.params["layers"][0]["wo"]).__name__,
+                ms_per_token=ms)
+
+
+def tp_kernels(gen) -> dict:
+    """K1, K2, K3 and the Q80 round trip at the shard shapes of the tp
+    paths, each against its plain version and timed beside its plain
+    version, its library call and its bound (phases 2-4's rows): K1 at
+    the 7B tp = 2 and tp = 4 row and column shards, t = 1 with the Q80
+    round trip fused (a decode step) and t = 256 (a chunk; wcls at t = 1
+    only); K2 at the Mixtral tp = 2 expert shards (t = 1, fused Q80); K3
+    over 16/16, 8/8 (7B tp 2, 4) and 16/4 (Mixtral tp 2) local heads,
+    decode at fill 512 and a 256-token chunk; the standalone Q80 round
+    trip at the column shards' chunk inputs."""
+    bf16 = torch.bfloat16
+    k1, k2, k3, q80 = [], [], [], []
+    for tp in (2, 4):
+        for name in K1_SHAPES:
+            d, n = _shard_shape(name, tp)
+            wbytes = d * n // 2 + d * n // 32 * 2
+            ws = rotating(lambda: random_q40(gen, d, n), wbytes)
+            w0 = ws()
+            for t, fq in ((1, True), (256, False)) if name != "wcls" else ((1, True),):
+                row = k1_row(gen, f"[tp] [K1] tp={tp} ", name, d, n, t, bf16, ws, w0,
+                             q80=fq)
+                row["tp"] = tp
+                k1.append(row)
+            del ws, w0
+            torch.cuda.empty_cache()
+        for name in TP_COL:
+            n = _shard_shape(name, tp)[1]
+            row = q80_row(gen, f"[tp] [Q80] tp={tp} {name} input ", 256, n, bf16, bf16)
+            row.update(tp=tp, shape=name)
+            q80.append(row)
+    for name, (d, n) in (("mixtral_gate_up_tp2", (14336 // 2, 4096)),
+                         ("mixtral_down_tp2", (4096, 14336 // 2))):
+        w = random_q40(gen, N_EXPERTS, d, n)
+        k2.append(k2_row(gen, "[tp] [K2] ", name, w, 1, bf16, q80=True))
+        del w
+        torch.cuda.empty_cache()
+    for h, kvh, what in ((16, 16, "llama2_7b_tp2"), (8, 8, "llama2_7b_tp4"),
+                         (16, 4, "mixtral_tp2")):
+        for t, p0 in ((1, 511), (256, 1792)):
+            row = k3_row(gen, f"[tp] [K3] {what} ", bf16, bf16,
+                         (1, h, kvh, t, [p0], 128, 2048))
+            row["what"] = what
+            k3.append(row)
+    torch.cuda.empty_cache()
+    return dict(k1=k1, k2=k2, k3=k3, q80=q80)
+
+
+def tp_cli(card: str) -> dict:
+    """`dllama generate --tp 2` and `inference --dp 2` on the tiny Llama
+    fixture, this process as rank 0 and one spawned rank on the same card
+    (gloo): f32 text at --tp 2 equal to one GPU's (the CPU's --tp 2 text
+    is held to the JAX CLI's by tests/test_torch_tp.py), rank 0's K1 and
+    K3 launched, the backend printed; --dp 2 at the CLI's defaults counts
+    both rows."""
+    from distributed_llama_tpu_torch.apps import dllama
+    from distributed_llama_tpu_torch.testing import write_fixture
+
+    def run(argv) -> list[str]:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dllama.main(argv)
+        return buf.getvalue().splitlines()
+
+    def text(lines):
+        return lines[next(i for i, l in enumerate(lines) if l.startswith("💡")):]
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mpath, tpath = write_fixture(d, seed=77)
+        f32 = ["generate", "--model", mpath, "--tokenizer", tpath, "--prompt",
+               "hello world", "--steps", "16", "--seed", "3", "--temperature", "0",
+               "--compute-dtype", "f32", "--cache-dtype", "f32",
+               "--buffer-float-type", "f32"]
+        one = run(f32 + ["--device", "cuda"])
+        zero_counts()
+        gpu = run(f32 + ["--device", "cuda", "--tp", "2"])
+        counts = read_counts()
+        rows = run(["inference", "--model", mpath, "--tokenizer", tpath, "--prompt",
+                    "hello world", "--steps", "8", "--seed", "3", "--device", "cuda",
+                    "--dp", "2"])
+    backend = next((l for l in gpu if "mesh dp=" in l), "")
+    ok = (text(gpu) == text(one) and "gloo" in backend
+          and counts["K1"] > 0 and counts["K3"] > 0)
+    both = any("(2 sequences)" in l for l in rows)
+    print(f"[tp] CLI: generate --tp 2 on cuda: {backend.strip()}; f32 text equal to one "
+          f"GPU's: {text(gpu) == text(one)}; rank 0 "
+          f"launches {counts}; inference --dp 2 at the defaults counts both rows: {both}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if not (ok and both):
+        fail(f"[tp] CLI over ranks: --tp 2 {text(gpu)} vs one GPU {text(one)}, launches "
+             f"{counts}, --dp 2 {rows[-3:]}")
+    return dict(counts=counts, backend=backend, text=text(gpu), dp_rows=rows[-3:])
+
+
+def phase_tp(card: str, params_7b) -> dict:
+    """Phase 12 (`[tp]` and `[dp]` lines): Llama-2-7B at full width and depth
+    over tp = 2 and tp = 4 ranks, its generate_batch rows over dp = 2
+    ranks, Mixtral 8x7B at full width and 2 layers over tp = 2, each held
+    against one GPU over the same weights; the NCCL path at world size 1
+    with its decode step captured; the kernels at the shard shapes."""
+    import dataclasses
+
+    from distributed_llama_tpu_torch.models.params import synthetic_q40_params
+    from distributed_llama_tpu_torch.parallel.launch import RankPool
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(7)
+    prompt = [1] + rng.integers(3, 32000, 299).tolist()
+    out = {}
+    spec = _spec("llama2_7b")
+    one = Engine(spec, params_7b, device="cuda", activation_q80=True)
+    _greedy_trace(one, prompt, 2)     # captures the decode step (its warm-up counts)
+    zero_counts()
+    toks1, gaps1, lgs1 = _greedy_trace(one, prompt, TP_DECODE)
+    torch.cuda.synchronize()
+    counts1 = read_counts()
+    del one
+    # the dp rows' reference: one GPU's generate_batch, eager, so that every
+    # draw's logits reach the recording sampler
+    prompts = [[1] + rng.integers(3, 32000, n - 1).tolist() for n in DP_PROMPTS]
+    one = Engine(spec, params_7b, device="cuda", activation_q80=True,
+                 batch=len(prompts), max_seq_len=512, cuda_graphs=False)
+    one_rows = {t: _batch_draws(one, prompts, t, seed=11) for t in (0.0, 0.8)}
+    del one
+    torch.cuda.empty_cache()
+    # Mixtral at 2 layers: the one-GPU run eager, so each routing decision
+    # is recorded; the ranks replay them
+    spec_m = dataclasses.replace(_spec("mixtral_8x7b"), n_layers=2)
+    params_m = synthetic_q40_params(spec_m, seed=1, device="cuda")
+    one = Engine(spec_m, params_m, device="cuda", activation_q80=True, cuda_graphs=False)
+    with recorded_routes() as rec:
+        zero_counts()
+        toks_m, gaps_m, lgs_m = _greedy_trace(one, prompt, TP_DECODE)
+        torch.cuda.synchronize()
+        counts_m = read_counts()
+    routes = [r.cpu().numpy() for r in rec]
+    del one, params_m, rec
+    torch.cuda.empty_cache()
+    # one group of 2 ranks runs the three 2-rank jobs (a group's start is
+    # most of a short job's seconds), then one of 4
+    with RankPool(2, device_type="cuda", timeout_s=TP_TIMEOUT_S) as pool:
+        res = pool.run("chip_smoke:tp_rank_job", "llama2_7b", spec.n_layers, 2, 0, prompt, None)
+        out["llama2_7b_tp2"] = _held_tp("Llama-2-7B tp=2", res, toks1, gaps1, lgs1, counts1,
+                                        card)
+        del res
+        res = pool.run("chip_smoke:dp_rank_job", prompts, list(one_rows))
+        out["llama2_7b_dp2"] = _held_dp(res, one_rows, card)
+        del res
+        res = pool.run("chip_smoke:tp_rank_job", "mixtral_8x7b", 2, 2, 1, prompt, routes)
+        out["mixtral_2l_tp2"] = _held_tp("Mixtral 8x7B (2 layers) tp=2", res, toks_m, gaps_m,
+                                         lgs_m, counts_m, card)
+        del res
+    with RankPool(4, device_type="cuda", timeout_s=TP_TIMEOUT_S) as pool:
+        res = pool.run("chip_smoke:tp_rank_job", "llama2_7b", spec.n_layers, 4, 0, prompt, None)
+        out["llama2_7b_tp4"] = _held_tp("Llama-2-7B tp=4", res, toks1, gaps1, lgs1, counts1,
+                                        card)
+        del res
+    with RankPool(1, device_type="cuda", timeout_s=TP_TIMEOUT_S) as pool:
+        w1 = pool.run("chip_smoke:nccl_world1_job", prompt)[0]
+    ms = {k: _ms_stats(v) for k, v in w1["ms_per_token"].items()}
+    print(f"[tp] NCCL world 1: backend {w1['backend']}, weights marked ({w1['marked']}), "
+          f"decode step captured {w1['captured']} with {w1['collectives_at_capture']} "
+          f"collectives run through warm-up and capture, graph tally {w1['graph_tally']}; "
+          f"tokens equal to the plain engine's {w1['tokens'] == w1['plain_tokens']}, "
+          f"prompt logits max abs diff {w1['logits_max_abs_diff']:.4g}; decode ms/token "
+          f"through the graph: forced {ms['forced']['median']:.3f} [{ms['forced']['min']:.3f}, "
+          f"{ms['forced']['max']:.3f}], plain {ms['plain']['median']:.3f} "
+          f"[{ms['plain']['min']:.3f}, {ms['plain']['max']:.3f}] [{card}]")
+    if w1["backend"] != "nccl" or not w1["captured"] or not w1["collectives_at_capture"]:
+        fail("[tp] NCCL world 1: the decode step was not captured with its all-reduce")
+    if w1["tokens"] != w1["plain_tokens"]:
+        fail(f"[tp] NCCL world 1: tokens {w1['tokens']} != plain {w1['plain_tokens']}")
+    out["nccl_world1"] = w1
+    out["cli"] = tp_cli(card)
+    t_k = time.perf_counter()
+    out["kernels"] = tp_kernels(torch.Generator(device="cuda").manual_seed(12))
+    out["kernels_s"] = time.perf_counter() - t_k
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[tp] phase 12 in {out['seconds']:.1f} s (kernel rows {out['kernels_s']:.1f} s)")
+    return out
+
+
+def tp_entries(tp: dict) -> list[dict]:
+    """The kernels at the tp paths' shard shapes, each for ONE rank's step
+    (the sums of phase 12's rows a step runs); launches: rank 0's counts
+    over each tp path's run (its prompt's two chunks and its decode
+    steps)."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    kr = tp["kernels"]
+    out = []
+    src1 = "distributed_llama_tpu_torch/csrc/q40_matmul.cu"
+    for n in (2, 4):
+        run = tp[f"llama2_7b_tp{n}"]["counts"]
+        rows = {(r["shape"], r["t"]): r for r in kr["k1"] if r["tp"] == n}
+        dec = {k: 32 * sum(rows[(s, 1)][k] for s in ("wqkv", "wo", "w13", "w2"))
+               + rows[("wcls", 1)][k] for k in keys}
+        pre = {k: 32 * sum(rows[(s, 256)][k] for s in ("wqkv", "wo", "w13", "w2"))
+               + rows[("wcls", 1)][k] for k in keys}
+        off_tc = [s for s in ("wo", "w2") if rows[(s, 256)]["path"] != "tc"]
+        out += [
+            dict(name=f"q40_matmul_tp{n}", route="cuda", source=src1,
+                 replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (per shard, "
+                          "parallel/tp_q80.py:99 and :228)",
+                 launches=run["K1"],
+                 max_abs_err=max(r["max_abs_err"] for (s, t), r in rows.items() if t == 1),
+                 **dec, bound_by="bytes",
+                 at=f"one rank's 7B decode step at tp={n}: 32x(wqkv,wo,w13,w2 shards)+wcls "
+                    "shard, t=1, Q80 fused, bf16; launches: the tp run's rank 0"),
+            dict(name=f"q40_matmul_prefill_tp{n}", route="cuda", source=src1,
+                 replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (per shard)",
+                 launches=run["K1"],
+                 max_abs_err=max(r["max_abs_err"] for (s, t), r in rows.items() if t == 256),
+                 **pre, bound_by="operations", off_tensor_core_path=off_tc,
+                 at=f"one rank's 7B 256-token chunk at tp={n}: 32x(4 shards) at t=256 + wcls "
+                    "shard at t=1, bf16; launches: the tp run's rank 0"),
+        ]
+        q = {r["shape"]: r for r in kr["q80"] if r["tp"] == n}
+        out.append(dict(
+            name=f"q80_roundtrip_tp{n}", route="cuda",
+            source="distributed_llama_tpu_torch/csrc/q80_roundtrip.cu",
+            replaces="distributed_llama_tpu/ops/matmul.py:93 (no pallas_call)",
+            launches=run["Q80"],
+            max_abs_err=max(r["max_abs_err"] for r in q.values()),
+            **{k: 32 * (q["wo"][k] + q["w2"][k]) for k in ("ms", "plain_ms", "bound_ms")},
+            bound_by="bytes", library_ms=None,
+            at=f"one rank's 7B chunk at tp={n}: the 64 column-shard inputs (wo, w2) at t=256, "
+               "bf16; launches: the tp run's rank 0 (every standalone input)"))
+        for t, tag in ((1, ""), (256, "_prefill")):
+            a = next(r for r in kr["k3"] if r["what"] == f"llama2_7b_tp{n}" and r["t"] == t)
+            out.append(dict(
+                name=f"flash_attention{tag}_tp{n}", route="cuda",
+                source="distributed_llama_tpu_torch/csrc/flash_attention.cu",
+                replaces="distributed_llama_tpu/ops/pallas_attention.py:233 (per shard, "
+                         "parallel/tp_q80.py:135)",
+                launches=run["K3"], max_abs_err=a["max_abs_err"],
+                **{k: 32 * a[k] for k in keys}, bound_by=a["bound_by"],
+                at=f"one rank's 7B {'decode step' if t == 1 else '256-token chunk'} at "
+                   f"tp={n}: 32 layers, {a['h']}/{a['kvh']} local heads, bf16"))
+    k2 = {r["shape"]: r for r in kr["k2"]}
+    out.append(dict(
+        name="q40_expert_matmul_tp2", route="cuda", source=src1,
+        replaces="distributed_llama_tpu/ops/pallas_q40.py:319 (per shard)",
+        launches=tp["mixtral_2l_tp2"]["counts"]["K2"],
+        max_abs_err=max(r["max_abs_err"] for r in k2.values()),
+        **{k: 32 * (2 * k2["mixtral_gate_up_tp2"][k] + k2["mixtral_down_tp2"][k])
+           for k in keys}, bound_by="bytes",
+        at="one rank's Mixtral decode step at tp=2 (32 layers): gate/up (8, 7168, 4096) "
+           "and down (8, 4096, 7168) shards, 2 of 8 experts, t=1, Q80 fused, bf16; "
+           "launches: the 2-layer tp run's rank 0"))
     return out
 
 
@@ -5059,15 +5750,72 @@ def probe_entries_p2_p6(probes2: dict) -> list[dict]:
     return out
 
 
+# a run still going after WATCHDOG_S (the script's limit is 1200 s) prints
+# every thread's stack to stderr, its ranks' too, stops every process it
+# started and exits nonzero: a stall names its place
+WATCHDOG_S = 1100.0
+
+
+def _descendants(pid: int) -> list[int]:
+    """Every process below `pid`, read from /proc, parents first."""
+    kids: dict[int, list[int]] = {}
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                ppid = int((d / "stat").read_text().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+            kids.setdefault(ppid, []).append(int(d.name))
+    out, todo = [], [pid]
+    while todo:
+        for c in kids.get(todo.pop(), []):
+            out.append(c)
+            todo.append(c)
+    return out
+
+
+def start_watchdog() -> None:
+    import faulthandler
+    import os
+    import signal
+    import threading
+
+    def fire():
+        print(f"chip_smoke FAILED: still running after {WATCHDOG_S:.0f} s; the stacks:",
+              file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        procs = _descendants(os.getpid())
+        for pid in procs:      # the ranks print their stacks on SIGUSR1, one at a time
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGUSR1)
+            time.sleep(0.5)
+        for pid in procs:
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        os._exit(3)
+
+    timer = threading.Timer(WATCHDOG_S, fire)
+    timer.daemon = True
+    timer.start()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    sys.stdout.reconfigure(line_buffering=True)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    start_watchdog()
+
+    def mark(what: str) -> None:
+        print(f"[chip_smoke] {what} done at {time.perf_counter() - t_start:.1f} s",
+              file=sys.stderr, flush=True)
+
     card = phase_card()
     build_s = phase_build()
+    mark("phase 1 (build)")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     k1 = phase_k1(gen)
@@ -5076,26 +5824,38 @@ def main() -> int:
     edges = gemv1_edges(gen)
     fused = phase_gemv1_q80(gen)
     k3 = phase_k3(gen)
+    mark("phases 2-4 (K1, Q80, K2, K3)")
     probes = phase_probes()
     t_p2 = time.perf_counter()
     probes2 = phase_probes_p2_p6()
     probes2["seconds"] = time.perf_counter() - t_p2
     print(f"[probe] P2, P3, P5, P6 in {probes2['seconds']:.1f} s")
+    mark("phase 4b (probes)")
     t_main = time.perf_counter()
     main_paths, params_7b = phase_main_paths(card)
     main_s = time.perf_counter() - t_main
     print(f"[main] main paths and their graph phases in {main_s:.1f} s")
+    mark("phase 5 (main paths)")
     serving = phase_serving(card, params_7b)
+    mark("phase 7 (serving)")
     spec9 = phase_spec(card, params_7b, serving["scheduler"]["near_tie_bound"], gen)
+    mark("phase 9 (speculation)")
     trace10 = phase_trace_batch(card, params_7b, spec9["near_tie_bound"])
+    mark("phase 10 (trace, batch)")
     admission11 = phase_admission(card, params_7b, spec9["near_tie_bound"])
+    mark("phase 11 (admission)")
+    tp12 = phase_tp(card, params_7b)
+    mark("phase 12 (tp, dp)")
     del params_7b
     torch.cuda.empty_cache()
     phase_file_path()
+    mark("phase 6 (file path)")
     chat = phase_chat()
+    mark("phase 8 (chat)")
     kernels = summarize(k1, q80, fused, k2, k3, probes, probes2, main_paths)
     kernels["kernels"] += serving_entries(k1, q80, k3, serving)
     kernels["kernels"] += spec_entries(k1, q80, k3, spec9)
+    kernels["kernels"] += tp_entries(tp12)
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
                             ("K2", "q40_expert_matmul", "one Mixtral 8x7B decode step, t = 1, bf16")):
         e = next(k for k in kernels["kernels"] if k["name"] == name)
@@ -5151,6 +5911,7 @@ def main() -> int:
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
         serving=serving, chat=chat, spec=spec9, trace=trace10, admission=admission11,
+        tp=tp12,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -52,9 +52,20 @@ refusals). `--weights-float-type` names the weight
 type of a legacy-header `.m`, which does not store it (ref: app.cpp:47-48);
 `--nthreads` is accepted and ignored, as in the JAX CLI.
 
-Flags of features the port does not have yet — the worker mode, mesh
-axes, clusters, and the features listed in UNPORTED_FLAGS — are accepted
-by the parser only to be refused with a message, never silently ignored.
+Over ranks, as in the JAX CLI: `--tp N` splits the model over N
+tensor-parallel ranks and `--dp N` runs N batch rows on N data-parallel
+ranks (row 0 streams, `inference` counts every row); `--shard-vocab`
+(auto, on, off) splits the embedding and the head over tp. The CLI starts
+its ranks itself (parallel/launch.py: this process is rank 0 and alone
+prints, the others are spawned): one process a rank, NCCL when every rank
+has a GPU of its own, gloo on the CPU and when ranks share a GPU (the
+choice is printed). With `--buffer-float-type q80` (the default) the
+column splits' partial sums cross the ranks as Q80 blocks.
+
+Flags of features the port does not have yet — the worker mode, the sp,
+ep and pp axes, serving over ranks, clusters, and the features listed in
+UNPORTED_FLAGS — are accepted by the parser only to be refused with a
+message, never silently ignored.
 """
 
 from __future__ import annotations
@@ -68,25 +79,29 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.mesh import refuse_unported_axes
+
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 CACHE_DTYPES = {**DTYPES, "f8": torch.float8_e4m3fn}
 PORTED_MODES = ("inference", "generate", "chat", "api")
 # serving flags of the JAX CLI that the port does not have yet, with the
 # ROADMAP item that brings each (refused with that message when given)
 _FLEET = "replicas and the fleet (ROADMAP item 16)"
-_MESH = "tensor parallelism and the vocab split (ROADMAP item 13)"
+_RANKS = "serving over ranks (ROADMAP item 18)"
 _CLUSTER = "the multi-node control plane (ROADMAP item 15)"
 UNPORTED_FLAGS = {
     "--replicas": _FLEET, "--retry-budget": _FLEET, "--route-policy": _FLEET,
     "--replica-procs": _FLEET, "--replica-hosts": _FLEET,
     "--kv-transfer": _FLEET, "--tier": _FLEET, "--min-replicas": _FLEET,
     "--max-replicas": _FLEET, "--tenant-budgets": _FLEET,
-    "--shard-vocab": _MESH,
     "--coordinator": _CLUSTER, "--node-rank": _CLUSTER,
     "--connect-timeout": _CLUSTER, "--heartbeat-interval": _CLUSTER,
     "--worker-timeout": _CLUSTER, "--push-weights": _CLUSTER,
 }
 _FLAG_SWITCHES = ("--kv-transfer", "--push-weights")
+# every rendezvous and collective of a run over ranks, in seconds: a rank
+# that dies leaves the others failing after this long, not hanging
+RANK_TIMEOUT_S = 600.0
 
 
 def _int_or_auto(v: str):
@@ -314,9 +329,18 @@ def build_argparser() -> argparse.ArgumentParser:
                            help="not ported yet")
         else:
             p.add_argument(flag, default=None, help="not ported yet")
-    for axis in ("tp", "dp", "sp", "ep", "pp"):
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (one process each)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks: the batch rows, one a rank")
+    for axis in ("sp", "ep", "pp"):
         p.add_argument(f"--{axis}", type=int, default=1,
-                       help="mesh axis; only 1 is ported")
+                       help="mesh axis of ROADMAP item 14; only 1 is ported")
+    p.add_argument("--shard-vocab", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="row-split the embedding table and logits head "
+                        "over tp: auto = whenever tp divides the vocab; "
+                        "off keeps them replicated")
     p.add_argument("--nnodes", type=int, default=1,
                    help="cluster size; only 1 is ported")
     return p
@@ -334,10 +358,20 @@ def refusals(args) -> list[str]:
     if args.mode not in PORTED_MODES:
         out.append(f"mode {args.mode!r} is not ported yet (ported: "
                    f"{', '.join(PORTED_MODES)})")
-    for axis in ("tp", "dp", "sp", "ep", "pp"):
-        if getattr(args, axis) != 1:
-            out.append(f"--{axis} {getattr(args, axis)}: meshes are not "
-                       "ported yet (one device only)")
+    out += refuse_unported_axes(sp=args.sp, ep=args.ep, pp=args.pp)
+    for axis in ("tp", "dp"):
+        n = getattr(args, axis)
+        if n < 1:
+            out.append(f"--{axis} must be >= 1")
+        elif n > 1 and args.mode not in ("inference", "generate"):
+            out.append(f"--{axis} {n} in mode {args.mode!r}: {_RANKS} is "
+                       "not ported yet")
+        elif n > 1 and (args.lookup_decode or args.draft):
+            out.append(f"--{axis} {n} with --lookup-decode/--draft: "
+                       f"speculation {_RANKS} is not ported yet")
+        elif n > 1 and args.profile:
+            out.append(f"--{axis} {n} with --profile: a trace of every "
+                       f"rank {_RANKS} is not ported yet")
     if args.nnodes != 1:
         out.append("--nnodes: multi-host clusters are not ported yet")
     for flag, why in UNPORTED_FLAGS.items():
@@ -418,9 +452,8 @@ def check_admission_flags(args) -> dict | None:
 def check_spec_flags(args) -> None:
     """The JAX CLI's parse-time refusals of --draft, --draft-len and
     --lookup-decode, in its words (JAX apps/dllama.py:796-807, 1044,
-    1296-1327): every one fails before any model load. (--dp with
-    --lookup-decode is the batched lookup of ROADMAP item 10b; refusals()
-    refuses every mesh axis.)"""
+    1296-1327): every one fails before any model load. (Speculation over
+    ranks is ROADMAP item 18: refusals() refuses it with --tp or --dp.)"""
     if args.draft_len is not None and not args.draft:
         sys.exit("error: --draft-len has no effect without --draft "
                  "(self:<depth> or model:<path>)")
@@ -459,6 +492,15 @@ def check_spec_flags(args) -> None:
                      "does not compose with --device-sampling")
 
 
+def check_mesh_flags(args) -> None:
+    """The JAX CLI's parse-time refusal of a vocab split with nothing to
+    split over, in its words (JAX apps/dllama.py:1328-1335)."""
+    if args.shard_vocab == "on" and args.tp <= 1 and args.nnodes <= 1:
+        sys.exit("error: --shard-vocab on needs a tensor-parallel mesh "
+                 "(--tp > 1) to split the vocab over; 'auto' enables it "
+                 "whenever the mesh allows")
+
+
 def check_session_flags(args) -> None:
     """--session needs a host-fetchable, stage-flat KV cache: save_session
     fetches it to the host, which a multi-process mesh or a stage-stacked
@@ -468,10 +510,13 @@ def check_session_flags(args) -> None:
         sys.exit("error: --session does not compose with --nnodes or --pp")
 
 
-def build_engine(args):
-    """model file -> (engine, tokenizer, sampler)."""
+def build_engine(args, mesh=None):
+    """model file -> (engine, tokenizer, sampler); over a mesh, this rank's
+    engine from its shard of the file (JAX apps/dllama.py:609-660)."""
     from ..io.model_file import content_fingerprint, read_spec
     from ..models.loader import load_params_streamed
+    from ..parallel.mesh import describe
+    from ..parallel.sharding import vocab_splits
     from ..quants.types import FloatType
     from ..runtime.engine import Engine, resolve_device
     from ..sampler import Sampler
@@ -487,17 +532,34 @@ def build_engine(args):
           f"layers={spec.n_layers} heads={spec.n_heads}/{spec.n_kv_heads} "
           f"seq={spec.seq_len} device={device}")
     cdt = DTYPES[args.compute_dtype]
+    q80 = args.buffer_float_type == "q80"
+    tp = mesh.tp if mesh is not None else 1
+    # ONE resolution of --shard-vocab, shared by the loader and the engine
+    # (JAX apps/dllama.py:632-640): the loader keeps the rows the engine
+    # expects
+    shard_vocab = {"auto": vocab_splits(spec, tp), "on": True,
+                   "off": False}[args.shard_vocab]
+    if mesh is not None:
+        device = mesh.device
+        print(f"⏩ {describe(mesh)}")
     t0 = time.perf_counter()
-    params, lstats = load_params_streamed(spec, args.model, device, dtype=cdt)
+    params, lstats = load_params_streamed(
+        spec, args.model, device, dtype=cdt, tp=tp,
+        rank=mesh.tp_rank if mesh is not None else 0,
+        shard_vocab=shard_vocab and tp > 1)
+    per_rank = (f", {lstats.device_bytes / 1e6:.0f} MB on each rank's device"
+                if mesh is not None else "")
     print(f"⏩ loaded {lstats.total_bytes / 1e9:.2f} GB in "
           f"{time.perf_counter() - t0:.1f}s (peak host "
-          f"{lstats.peak_host_bytes / 1e6:.0f} MB)")
-    engine = Engine(spec, params, device=device,
+          f"{lstats.peak_host_bytes / 1e6:.0f} MB{per_rank})")
+    engine = Engine(spec, params, device=device, mesh=mesh,
+                    batch=mesh.dp if mesh is not None else 1,
+                    q80_collectives=q80, shard_vocab=shard_vocab,
                     max_seq_len=args.max_seq_len, compute_dtype=cdt,
                     cache_dtype=CACHE_DTYPES[args.cache_dtype],
                     # JAX apps/dllama.py:651: Q80 activations for Q40 weights
-                    activation_q80=(args.buffer_float_type == "q80"
-                                    and spec.weights_float_type == FloatType.Q40),
+                    activation_q80=(q80 and spec.weights_float_type
+                                    == FloatType.Q40),
                     # the weights file's content hash, folded into the
                     # session fingerprint (JAX apps/dllama.py:559)
                     model_fingerprint=content_fingerprint(args.model))
@@ -548,12 +610,50 @@ def _maybe_profile(args):
     print(f"📈 profiler trace written to {args.profile}")
 
 
-def cmd_generate(args, benchmark: bool) -> None:
-    engine, tokenizer, sampler = build_engine(args)
+def cmd_generate(args, benchmark: bool, mesh=None) -> None:
+    engine, tokenizer, sampler = build_engine(args, mesh)
     tokens = tokenizer.encode(args.prompt or "Hello")
     print(f"💡 prompt tokens: {len(tokens)}")
+    if engine.batch > 1:
+        _generate_rows(args, engine, tokenizer, sampler, tokens, benchmark)
+        return
     with _maybe_profile(args):
         _generate(args, engine, tokenizer, sampler, tokens, benchmark)
+
+
+def _generate_rows(args, engine, tokenizer, sampler, tokens: list[int],
+                   benchmark: bool) -> None:
+    """The dp branch (JAX apps/dllama.py:814-845): the batch rows generate
+    the same prompt independently, one shared sampler drawing every row's
+    coin in row order (with --device-sampling, row i on the device stream
+    seed + i); row 0 streams, `inference` counts every row."""
+    t0 = time.perf_counter()
+    if args.device_sampling:
+        outs = engine.generate_batch_device(
+            [tokens] * engine.batch, _steps(args, engine),
+            temperature=args.temperature, topp=args.topp,
+            seed=sampler.rng_state, eos_id=tokenizer.stop_token_ids(),
+            vocab_size=tokenizer.vocab_size)
+    else:
+        outs = engine.generate_batch([tokens] * engine.batch,
+                                     _steps(args, engine), sampler,
+                                     eos_id=tokenizer.stop_token_ids())
+    dt = time.perf_counter() - t0
+    _stream_pieces(tokenizer, tokens[-1], outs[0])
+    if benchmark:
+        n = sum(len(o) for o in outs)
+        print(f"Generated tokens:    {n} ({engine.batch} sequences)")
+        print(f"Avg tokens / second: {n / max(dt, 1e-9):.2f}")
+
+
+def rank_main(argv: list[str]) -> None:
+    """One rank of `dllama inference|generate --tp N --dp M`: its mesh,
+    its shard of the model, the same run as every other rank."""
+    from ..parallel.mesh import make_mesh
+
+    args = build_argparser().parse_args(argv)
+    mesh = make_mesh(tp=args.tp, dp=args.dp, device_type=args.device)
+    cmd_generate(args, benchmark=args.mode == "inference", mesh=mesh)
 
 
 def _generate(args, engine, tokenizer, sampler, tokens: list[int],
@@ -741,11 +841,13 @@ def main(argv: list[str] | None = None) -> None:
         # the JAX CLI's refusal (apps/dllama.py:1286-1290), for a GPU
         sys.exit("error: --workers is not applicable on a GPU — the "
                  "reference's TCP root/worker star has no counterpart "
-                 "here; use --tp N for one host's devices (ROADMAP item "
-                 "13), or --nnodes/--coordinator + `dllama worker` "
-                 "processes for a multi-host cluster (ROADMAP item 15)")
+                 "here; use --tp N and --dp M, which start one rank "
+                 "process a GPU of this host (or ranks sharing one), or "
+                 "--nnodes/--coordinator + `dllama worker` processes for a "
+                 "multi-host cluster (ROADMAP item 15)")
     check_admission_flags(args)
     check_spec_flags(args)
+    check_mesh_flags(args)
     check_session_flags(args)
     refused = refusals(args)
     if refused:
@@ -757,6 +859,16 @@ def main(argv: list[str] | None = None) -> None:
         return
     if args.mode == "chat":
         cmd_chat(args)
+        return
+    if args.tp * args.dp > 1:
+        from ..parallel.launch import run_ranks
+        from ..utils.device import resolve_device
+
+        resolve_device(args.device)     # no card: raise before any spawn
+        run_ranks(args.tp * args.dp, args.device,
+                  "distributed_llama_tpu_torch.apps.dllama:rank_main",
+                  (list(argv if argv is not None else sys.argv[1:]),),
+                  RANK_TIMEOUT_S)
         return
     cmd_generate(args, benchmark=args.mode == "inference")
 

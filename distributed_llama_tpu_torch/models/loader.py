@@ -12,6 +12,15 @@ are allocated on the device once, when their first expert streams past,
 and each expert's file tensor is copied into its slot as it arrives. No
 host stack of all E experts is ever built (the JAX loader stacks them on
 the host), so the host high-water mark stays near one expert's bytes.
+
+With `tp > 1` (JAX loader.py:371 with a mesh) each rank streams the whole
+file and keeps only its shard of each tensor, cut on the host before the
+upload (parallel/sharding.py's splits: row shards of wq/wk/wv/w1/w3 and
+the experts' up/gate, column shards of wo/w2 and the experts' down, wcls's
+vocab rows when tp divides the vocab, tok_emb's with `shard_vocab`; kv
+heads replicated when tp exceeds them). The rank fuses its own row shards
+and marks every split leaf (parallel/wrappers.py), so Engine(mesh=) takes
+the dict as it is.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ import numpy as np
 import torch
 
 from ..io.model_file import HostTensor, iter_model_tensors
+from ..parallel.sharding import _SPLIT
+from ..parallel.wrappers import TpColWeight, TpRowWeight
 from ..quants.torch_codec import QuantizedTensor
 from ..quants.types import FloatType
 from .params import NORMS, as_q40_host, host_dense, host_weight
@@ -32,6 +43,7 @@ from .spec import ModelSpec
 class LoadStats:
     peak_host_bytes: int = 0
     total_bytes: int = 0
+    device_bytes: int = 0      # this rank's params on its device
 
 
 def _leaf_key(name: str) -> str:
@@ -89,16 +101,69 @@ def _expert_into_stack(dest: dict, key: str, e: int, t: HostTensor,
     dest[key][e].copy_(torch.from_numpy(t.to_f32()))
 
 
+def _host_shard(t: HostTensor, key: str, mode: str, spec: ModelSpec,
+                tp: int, k: int, shard_vocab: bool) -> HostTensor:
+    """Rank k's shard of one file tensor, cut on the host (a Q40 tensor in
+    q40 mode stays packed: whole blocks of its rows or columns)."""
+    split = "row" if key == "tok_emb" and shard_vocab else _SPLIT.get(key)
+    if split is None or (key == "wcls" and t.shape[0] % tp):
+        return t
+    d, n = t.shape
+    if split == "row":
+        if key in ("wk", "wv") and tp > spec.n_kv_heads:
+            # one virtual kv head a rank: real head k // r
+            hs = spec.head_size
+            h = k // (tp // spec.n_kv_heads)
+            rows = slice(h * hs, (h + 1) * hs)
+        else:
+            rows = slice(k * d // tp, (k + 1) * d // tp)
+        cols = slice(None)
+    else:
+        rows, cols = slice(None), slice(k * n // tp, (k + 1) * n // tp)
+    nr = len(range(d)[rows])
+    if mode == "q40" and key != "tok_emb":
+        q = as_q40_host(t)
+        bcols = slice(None) if cols == slice(None) else \
+            slice(cols.start // 32, cols.stop // 32)
+        packed = np.ascontiguousarray(q.packed[rows, bcols])
+        return HostTensor(t.name, FloatType.Q40, (nr, packed.shape[1] * 32),
+                          scales=np.ascontiguousarray(q.scales[rows, bcols]),
+                          packed=packed)
+    x = np.ascontiguousarray(t.to_f32()[rows, cols])
+    return HostTensor(t.name, FloatType.F32, x.shape, data=x)
+
+
+def _mark(key: str, w, spec: ModelSpec, tp: int):
+    """A split leaf in its shard marker (parallel/wrappers.py); a wcls
+    that tp does not split stays whole and plain."""
+    split = _SPLIT.get(key)
+    if split is None or (key == "wcls" and spec.vocab_size % tp):
+        return w
+    return TpRowWeight(w) if split == "row" else TpColWeight(w)
+
+
+def _nbytes(w) -> int:
+    if isinstance(w, (TpRowWeight, TpColWeight)):
+        w = w.w
+    if isinstance(w, QuantizedTensor):
+        return _nbytes(w.packed) + _nbytes(w.scales)
+    return w.numel() * w.element_size()
+
+
 def load_params_streamed(spec: ModelSpec, path: str, device, *,
-                         mode: str | None = None,
-                         dtype=torch.bfloat16) -> tuple[dict, LoadStats]:
-    """Stream the `.m` file into a fused params dict on `device`.
+                         mode: str | None = None, dtype=torch.bfloat16,
+                         tp: int = 1, rank: int = 0,
+                         shard_vocab: bool = False) -> tuple[dict, LoadStats]:
+    """Stream the `.m` file into a fused params dict on `device`: all of it,
+    or with tp > 1 tp rank `rank`'s marked shard.
 
     mode defaults to q40 for Q40 files and dense otherwise (as the JAX
     CLI's build_engine picks it). Returns (params, LoadStats) with the
-    loader's measured high-water mark of resident file-tensor bytes."""
+    loader's measured high-water mark of resident file-tensor bytes and
+    the device bytes of the params it built."""
     if mode is None:
         mode = "q40" if spec.weights_float_type == FloatType.Q40 else "dense"
+    shard = tp > 1
     p: dict = {"layers": [dict() for _ in range(spec.n_layers)]}
     pending: dict[str, list[HostTensor]] = {}
     experts_in = 0
@@ -110,6 +175,8 @@ def load_params_streamed(spec: ModelSpec, path: str, device, *,
         stats.total_bytes += b
         live += b
         stats.peak_host_bytes = max(stats.peak_host_bytes, live)
+        if shard:
+            t = _host_shard(t, key, mode, spec, tp, rank, shard_vocab)
         dest = p["layers"][int(t.name.split(".")[1])] \
             if t.name.startswith("layers.") else p
         group = _fuse_group(key)
@@ -138,4 +205,11 @@ def load_params_streamed(spec: ModelSpec, path: str, device, *,
     if experts_in != 3 * spec.n_experts * spec.n_layers:
         raise ValueError(f"{experts_in} expert tensors in the file, the spec "
                          f"wants {3 * spec.n_experts * spec.n_layers}")
+    if shard:
+        p["wcls"] = _mark("wcls", p["wcls"], spec, tp)
+        p["layers"] = [{k: _mark(k, w, spec, tp) for k, w in lw.items()}
+                       for lw in p["layers"]]
+    stats.device_bytes = sum(_nbytes(w) for lw in p["layers"]
+                             for w in lw.values()) + sum(
+        _nbytes(p[k]) for k in ("tok_emb", "rms_final", "wcls"))
     return p, stats

@@ -117,12 +117,86 @@ def fuse_layer_weights(params: dict) -> dict:
     PLACE (JAX params.py:117-133): one kernel launch per group instead of
     three or two. Mutating the layer dicts frees the superseded tensors
     even while the caller still holds the params dict. MoE experts' gate
-    and up stay apart, as in the JAX package."""
+    and up stay apart, as in the JAX package. A rank's shard
+    (parallel/sharding.py) fuses its own row shards the same way."""
     for lw in params["layers"]:
         if "wq" in lw:
             lw["wqkv"] = _concat_weights([lw.pop("wq"), lw.pop("wk"), lw.pop("wv")])
         if "w1" in lw:
             lw["w13"] = _concat_weights([lw.pop("w1"), lw.pop("w3")])
+    return params
+
+
+def _split_rows(w, cuts: list[int]) -> list:
+    """Split a matmul weight back along the output dim at `cuts` (views)."""
+    edges = list(zip([0] + cuts, cuts + [w.shape[0]]))
+    if isinstance(w, QuantizedTensor):
+        return [QuantizedTensor(w.packed[a:b], w.scales[a:b]) for a, b in edges]
+    return [w[a:b] for a, b in edges]
+
+
+def unfuse_layer_weights(params: dict, spec: ModelSpec) -> dict:
+    """Inverse of fuse_layer_weights (exact row slices; JAX params.py:144),
+    for a params dict that a one-device engine fused in place and a rank's
+    shard is cut from: a row split of the fused [q|k|v] output dim would
+    cross the projections' boundaries. Non-mutating; no-op when nothing is
+    fused."""
+    if not any("wqkv" in lw or "w13" in lw for lw in params["layers"]):
+        return params
+    d, kv, h = spec.dim, spec.kv_dim, spec.hidden_dim
+    params = dict(params)
+    params["layers"] = [dict(lw) for lw in params["layers"]]
+    for lw in params["layers"]:
+        if "wqkv" in lw:
+            lw["wq"], lw["wk"], lw["wv"] = _split_rows(lw.pop("wqkv"),
+                                                       [d, d + kv])
+        if "w13" in lw:
+            lw["w1"], lw["w3"] = _split_rows(lw.pop("w13"), [h])
+    return params
+
+
+def kv_replication(spec: ModelSpec, tp: int) -> int:
+    """The replication factor r of the KV heads when tp exceeds them (JAX
+    params.py:165): each kv head's projections and cache are repeated r =
+    tp / n_kv_heads times as tp "virtual" heads (virtual head j holds real
+    head j // r), so every rank holds one. Raises on a tp it cannot serve."""
+    kvh = spec.n_kv_heads
+    if tp % kvh:
+        raise ValueError(f"tp={tp} must be a multiple of n_kv_heads={kvh} "
+                         "to replicate")
+    if spec.n_heads % tp:
+        raise ValueError(f"tp={tp} must divide n_heads={spec.n_heads}")
+    return tp // kvh
+
+
+def _repeat_head_rows(a: torch.Tensor, kvh: int, r: int) -> torch.Tensor:
+    per = a.shape[0] // kvh
+    return a.reshape(kvh, per, *a.shape[1:]).repeat_interleave(r, dim=0) \
+        .reshape(kvh * r * per, *a.shape[1:])
+
+
+def replicate_kv_heads(params: dict, spec: ModelSpec, tp: int) -> dict:
+    """wk/wv expanded to tp virtual heads (kv_replication; JAX
+    params.py:197). Non-mutating; a leaf already expanded (tp x kv rows)
+    passes through. Takes unfused params."""
+    r = kv_replication(spec, tp)
+    if r == 1:
+        return params
+    kvh = spec.n_kv_heads
+    params = dict(params)
+    params["layers"] = [dict(lw) for lw in params["layers"]]
+    for lw in params["layers"]:
+        for key in ("wk", "wv"):
+            w = lw[key]
+            if w.shape[0] == spec.kv_dim * r:
+                continue
+            if w.shape[0] != spec.kv_dim:
+                raise ValueError(f"{key} has {w.shape[0]} rows, kv_dim is "
+                                 f"{spec.kv_dim}")
+            lw[key] = (QuantizedTensor(_repeat_head_rows(w.packed, kvh, r),
+                                       _repeat_head_rows(w.scales, kvh, r))
+                       if isinstance(w, QuantizedTensor)
+                       else _repeat_head_rows(w, kvh, r))
     return params
 
 

@@ -45,6 +45,10 @@ from ..ops.attention import decode_attention, is_narrow_cache
 from ..ops.matmul import fused_expert_matmul, matmul
 from ..ops.norms import rmsnorm
 from ..ops.rope import apply_rope, rope_angles
+from ..ops.sharded_vocab import embed_tokens_sharded
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import TP_AXIS
+from ..parallel.wrappers import TpRowWeight, WeightWrapper
 from ..quants.torch_codec import take_expert
 from ..utils.device import resolve_device
 from .spec import ArchType, ModelSpec
@@ -144,13 +148,15 @@ def _write_cache(k_cache, v_cache, k, v, where: CacheWrite) -> None:
 
 
 def _attention_block(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos,
-                     angles, where: CacheWrite, compute_dtype,
-                     activation_q80: bool = False):
+                     angles, where: CacheWrite, mm: dict):
     """Norm -> QKV -> RoPE -> cache write -> attention -> output proj.
-    Returns the wo projection, not yet added to the residual."""
-    mm = dict(compute_dtype=compute_dtype, activation_q80=activation_q80)
+    Returns the wo projection, not yet added to the residual. Over tp
+    ranks the rank's row shards give its H/tp query and KVH/tp kv heads
+    (its cache holds those), K3 attends them, and wo's column shard
+    reduces over tp (JAX tp_flash_attention: no collective for attention)."""
     b, t, _ = x.shape
-    h, kvh, hs = spec.n_heads, spec.n_kv_heads, spec.head_size
+    tp = mm["mesh"].tp if mm["mesh"] is not None else 1
+    h, kvh, hs = spec.n_heads // tp, k_cache.shape[1], spec.head_size
 
     xb = rmsnorm(x, lw["rms_att"])  # ref: llama2-tasks.cpp:10-21
     if "wqkv" in lw:
@@ -174,10 +180,9 @@ def _attention_block(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos,
     return matmul(att.reshape(b, t, h * hs), lw["wo"], **mm)
 
 
-def _dense_ffn(xb, lw, spec: ModelSpec, compute_dtype,
-               activation_q80: bool = False):
-    """SwiGLU FFN (ref: src/llama2-tasks.cpp:158-189)."""
-    mm = dict(compute_dtype=compute_dtype, activation_q80=activation_q80)
+def _dense_ffn(xb, lw, spec: ModelSpec, mm: dict):
+    """SwiGLU FFN (ref: src/llama2-tasks.cpp:158-189); over tp, the rank's
+    hidden columns, w2's partial sums reduced."""
     if "w13" in lw:
         h13 = matmul(xb, lw["w13"], **mm)
         hd = h13.shape[-1] // 2
@@ -202,17 +207,17 @@ def moe_route(router_logits: torch.Tensor,
     return top_p / top_p.sum(dim=-1, keepdim=True), top_idx
 
 
-def _moe_ffn(xb, lw, spec: ModelSpec, compute_dtype,
-             activation_q80: bool = False):
+def _moe_ffn(xb, lw, spec: ModelSpec, mm: dict):
     """Top-k routed expert FFN (ref: src/grok1-tasks.cpp:56-227; JAX
-    transformer.py:_moe_ffn, single device). Decode (T = B = 1) computes
+    transformer.py:_moe_ffn, :276-330). Decode (T = B = 1) computes
     just the K active experts, through K2 with the indices on the device;
     prefill computes every expert densely and masks by the routing
-    weights, expert by expert (JAX semantics)."""
+    weights, expert by expert (JAX semantics). Over tp the router stays
+    replicated; each rank runs its row shards of moe_up/moe_gate and its
+    column shard of moe_down, whose partial sums reduce over tp."""
     b, t, d = xb.shape
     k_active = spec.n_active_experts
     act = lambda g: apply_hidden_act(g, spec.hidden_act)  # noqa: E731
-    mm = dict(compute_dtype=compute_dtype, activation_q80=activation_q80)
 
     router_logits = matmul(xb, lw["moe_router"], **mm)
     weights, top_idx = moe_route(router_logits, k_active)    # (B, T, K)
@@ -238,31 +243,42 @@ def _moe_ffn(xb, lw, spec: ModelSpec, compute_dtype,
                             device=xb.device).scatter(-1, top_idx, weights)
     acc = torch.zeros((b, t, d), dtype=xb.dtype, device=xb.device)
     for e in range(spec.n_experts):
-        gate = matmul(xb, take_expert(lw["moe_gate"], e), **mm)
-        up = matmul(xb, take_expert(lw["moe_up"], e), **mm)
-        out = matmul(act(gate) * up, take_expert(lw["moe_down"], e), **mm)
+        gate = matmul(xb, _take_expert(lw["moe_gate"], e), **mm)
+        up = matmul(xb, _take_expert(lw["moe_up"], e), **mm)
+        out = matmul(act(gate) * up, _take_expert(lw["moe_down"], e), **mm)
         acc = acc + e_weights[..., e, None].to(out.dtype) * out
     return acc
 
 
+def _take_expert(w, e: int):
+    """Expert e of a stacked weight, a rank's marked shard included (JAX
+    transformer.py:383)."""
+    if isinstance(w, WeightWrapper):
+        return type(w)(take_expert(w.w, e))
+    return take_expert(w, e)
+
+
 def _layer(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos, angles,
-           where: CacheWrite, compute_dtype, activation_q80: bool = False):
+           where: CacheWrite, compute_dtype, activation_q80: bool = False,
+           mesh=None, tp_reduce: str = "exact"):
     """One block (JAX transformer.py:_layer): attention, then the dense or
     MoE FFN with the arch's norms and residuals."""
+    mm = dict(compute_dtype=compute_dtype, activation_q80=activation_q80,
+              mesh=mesh, tp_reduce=tp_reduce)
     attn = _attention_block(x, lw, spec, k_cache, v_cache, q_pos, angles,
-                            where, compute_dtype, activation_q80)
+                            where, mm)
     if spec.arch == ArchType.GROK1:
         # post-attention norm BEFORE the residual add (ref: grok1-tasks.cpp:16-41)
         x = x + rmsnorm(attn, lw["rms_ffn"]).to(x.dtype)
         xb = rmsnorm(x, lw["rms_moe"])              # ref: grok1-tasks.cpp:43-54
-        moe = rmsnorm(_moe_ffn(xb, lw, spec, compute_dtype, activation_q80),
+        moe = rmsnorm(_moe_ffn(xb, lw, spec, mm),
                       lw["rms_ffn2"])               # ref: grok1-tasks.cpp:244-256
         return x + moe.to(x.dtype)
     x = x + attn.to(x.dtype)                        # ref: llama2-tasks.cpp:125-131
     xb = rmsnorm(x, lw["rms_ffn"])
     if spec.arch == ArchType.MIXTRAL:
-        return x + _moe_ffn(xb, lw, spec, compute_dtype, activation_q80).to(x.dtype)
-    return x + _dense_ffn(xb, lw, spec, compute_dtype, activation_q80).to(x.dtype)
+        return x + _moe_ffn(xb, lw, spec, mm).to(x.dtype)
+    return x + _dense_ffn(xb, lw, spec, mm).to(x.dtype)
 
 
 def forward(
@@ -277,6 +293,10 @@ def forward(
     logit_index: int | Sequence[int] | torch.Tensor | None = None,
     activation_q80: bool = False,
     logits: bool = True,
+    mesh=None,
+    tp_reduce: str = "exact",
+    shard_vocab: bool = False,
+    local_logits: bool = False,
 ) -> torch.Tensor | None:
     """Run T tokens through the model, writing their K/V into `cache`.
     activation_q80 sends every matmul input (router and wcls included)
@@ -293,7 +313,15 @@ def forward(
     right-padded segment), or (B, T, vocab) if logits_for_all; with
     logits=False, None after the last layer (a draft's catch-up chunk,
     which only fills the cache: the JAX package's XLA drops that head as
-    dead code)."""
+    dead code).
+
+    Over a mesh (parallel/mesh.py) `params` are this rank's shard
+    (parallel/sharding.py) and `cache` holds its KVH/tp kv heads and its
+    rows: the column splits reduce over tp (`tp_reduce`: "exact" or
+    "q80"), `shard_vocab` looks the tokens up in the rank's rows of the
+    embedding (ops/sharded_vocab.py), and a row-split wcls gives the
+    rank's vocab slice of the logits, gathered over tp unless
+    `local_logits` keeps them split (the vocab-sharded sampler's input)."""
     b, t = tokens.shape
     dev = tokens.device
     s = cache.k[0].shape[2]
@@ -307,15 +335,19 @@ def forward(
         pos_t = torch.tensor(rows, dtype=torch.int32, device=dev)
         spare = any(p < 0 or p + t > s for p in rows)
     q_pos = pos_t[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
-    where = cache_write(q_pos, spec.n_kv_heads, s, spare)
+    where = cache_write(q_pos, cache.k[0].shape[1], s, spare)
 
     angles = rope_angles(q_pos, spec.head_size, spec.rope_theta)
-    x = params["tok_emb"][tokens.long()].to(compute_dtype)  # ref: tasks.cpp:202-203
+    if shard_vocab:
+        x = embed_tokens_sharded(params["tok_emb"], tokens, mesh, compute_dtype)
+    else:
+        x = params["tok_emb"][tokens.long()].to(compute_dtype)  # ref: tasks.cpp:202-203
     if spec.arch == ArchType.GROK1:
         x = x * GROK_INPUT_SCALE
     for l in range(spec.n_layers):
         x = _layer(x, params["layers"][l], spec, cache.k[l], cache.v[l],
-                   q_pos, angles, where, compute_dtype, activation_q80)
+                   q_pos, angles, where, compute_dtype, activation_q80,
+                   mesh, tp_reduce)
     if not logits:
         return None
 
@@ -330,4 +362,7 @@ def forward(
                  activation_q80=activation_q80).to(torch.float32)
     if spec.arch == ArchType.GROK1:
         out = out * GROK_LOGIT_SCALE          # ref: grok1-tasks.cpp:269-272
+    if isinstance(params["wcls"], TpRowWeight) and not local_logits:
+        # the ranks' vocab slices side by side (JAX: GSPMD's gather)
+        out = all_gather(out, mesh, TP_AXIS).movedim(0, -2).flatten(-2)
     return out

@@ -21,8 +21,13 @@ operand read. Here a Q40 weight at t = 1 (`cuda_q40.fuses_q80`: every
 projection of a decode step) gets it inside K1's or K2's own launch, with
 x passed raw; every other input (t >= 2, the dense router weight, the
 dequantize path above MAX_T) goes through the standalone kernel
-(ops/cuda_q80.py), one more launch a matmul call. The tensor-parallel
-weight wrappers are not ported yet.
+(ops/cuda_q80.py), one more launch a matmul call.
+
+A rank's shard of a weight comes marked (parallel/wrappers.py), and
+`matmul` dispatches on the marker as the JAX matmul does (ops/matmul.py:
+99-124): a row shard is the local product, a column shard the local
+partial sum reduced over tp (parallel/tp_q80.py), the local product being
+`local_matmul` in both.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Union
 
 import torch
 
+from ..parallel.wrappers import TpColWeight, TpRowWeight, WeightWrapper
 from ..quants.torch_codec import QuantizedTensor, dequantize_q40_torch
 from . import cuda_q40, cuda_q80
 
@@ -44,12 +50,29 @@ def _input(x: torch.Tensor, compute_dtype, activation_q80: bool):
     return x.to(compute_dtype)
 
 
-def matmul(x: torch.Tensor, w: WeightFormat, *,
-           compute_dtype=torch.float32,
-           activation_q80: bool = False) -> torch.Tensor:
-    """y[..., d] = sum_n x[..., n] * W[d, n] in compute_dtype: the Q40
-    kernel when it applies, the dequantize-then-matmul path otherwise (the
-    JAX package's local_matmul; the port has no mesh wrappers around it)."""
+def matmul(x: torch.Tensor, w, *, compute_dtype=torch.float32,
+           activation_q80: bool = False, mesh=None,
+           tp_reduce: str = "exact") -> torch.Tensor:
+    """y[..., d] = sum_n x[..., n] * W[d, n] in compute_dtype. A marked
+    shard goes through parallel/tp_q80.py: a TpRowWeight gives the rank's
+    output rows, a TpColWeight the sum over `mesh`'s tp ranks of their
+    partial sums (`tp_reduce`: "exact" or "q80")."""
+    if isinstance(w, TpColWeight):
+        from ..parallel.tp_q80 import tp_col_matmul
+        return tp_col_matmul(x, w, mesh, compute_dtype=compute_dtype,
+                             activation_q80=activation_q80, reduce=tp_reduce)
+    if isinstance(w, TpRowWeight):
+        w = w.w
+    return local_matmul(x, w, compute_dtype=compute_dtype,
+                        activation_q80=activation_q80)
+
+
+def local_matmul(x: torch.Tensor, w: WeightFormat, *,
+                 compute_dtype=torch.float32,
+                 activation_q80: bool = False) -> torch.Tensor:
+    """y[..., d] = sum_n x[..., n] * W[d, n] in compute_dtype on this
+    device: the Q40 kernel when it applies, the dequantize-then-matmul path
+    otherwise (the JAX package's local_matmul)."""
     if isinstance(w, QuantizedTensor):
         t = x.numel() // x.shape[-1]
         if cuda_q40.supports_kernel(w, t):
@@ -64,16 +87,23 @@ def matmul(x: torch.Tensor, w: WeightFormat, *,
     return torch.matmul(_input(x, compute_dtype, activation_q80), wd.t())
 
 
-def fused_expert_matmul(x: torch.Tensor, w: WeightFormat, idx: torch.Tensor,
+def fused_expert_matmul(x: torch.Tensor, w, idx: torch.Tensor,
                         *, compute_dtype=torch.float32,
-                        activation_q80: bool = False) -> torch.Tensor:
+                        activation_q80: bool = False, mesh=None,
+                        tp_reduce: str = "exact") -> torch.Tensor:
     """y[k, t, d] = sum_n x[(k,) t, n] * W[idx[k], d, n] in compute_dtype —
     the JAX package's fused_expert_matmul, for all K active experts at once.
     x is (t, n), shared by the experts, or (K, t, n); W a stacked (E, d, n)
     weight; idx (K,) on the device. A Q40 stack goes to kernel K2 (its
     plain version on the CPU); on the card it launches K2 or raises, and
     never gathers the experts' bytes instead. A dense stack (the
-    dense-weight mode, which has no kernel) is gathered and multiplied."""
+    dense-weight mode, which has no kernel) is gathered and multiplied. A
+    marked shard of a stack goes through parallel/tp_q80.py."""
+    if isinstance(w, WeightWrapper):
+        from ..parallel.tp_q80 import tp_expert_matmul
+        return tp_expert_matmul(x, w, idx, mesh, compute_dtype=compute_dtype,
+                                activation_q80=activation_q80,
+                                reduce=tp_reduce)
     if isinstance(w, QuantizedTensor):
         fused = activation_q80 and cuda_q40.fuses_q80(w, x.shape[-2])
         if not fused:

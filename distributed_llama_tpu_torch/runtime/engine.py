@@ -67,12 +67,37 @@ cache tensors: the captured graphs read and write those addresses, so a
 load, a seed or a reset never rebinds them. Bytes entering the cache from
 outside a forward pass the fp8 NaN-code guard (`saturate_f8_nan_codes`).
 
+Over ranks (JAX runtime/engine.py:118-329, the mesh branches): `mesh=` (a
+parallel/mesh.py Mesh over dp x tp ranks, one engine a rank process) makes
+the engine hold this rank's shard of the params (parallel/sharding.py:
+its row and column splits, kv heads replicated when tp exceeds them, its
+row shards fused), a cache of its KVH/tp kv heads, and its rows of a
+batch: batch/dp when dp divides the batch, every row otherwise (as the
+JAX mesh replicates a batch that dp does not divide). The column splits'
+partial sums reduce exactly or, with `q80_collectives` (the default with
+Q80 activations at tp > 1), by the Q80 two-shot exchange; `shard_vocab`
+splits the embedding's and the head's vocab rows (auto: when tp divides
+the vocab). prefill, generate, the device loops, generate_batch with its
+stream and generate_batch_device run over the mesh: every rank computes
+the same logits, so its host sampler draws the same tokens. In the batch stream the rows'
+logits (or, vocab-sharded, their candidate summaries) meet at every rank
+before one shared Sampler samples them in row order, as the JAX
+generate_batch does; greedy rows exchange only their tokens. Under NCCL a
+decode step is captured with its collectives inside; under gloo on a card
+(ranks sharing a GPU) collectives stage through host memory, which a
+graph cannot capture, so steps run eagerly. The slot, prefix, session and
+speculation entry points refuse a mesh of more than one rank (ROADMAP
+item 18). `force_mesh_kernels` runs the shard path on a 1-rank mesh
+(JAX :139), the single-card proof of the mesh step.
+
 The engine runs on `cuda` unless the caller asks for the CPU: with no card
 present, `Engine(...)` raises instead of running elsewhere.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
 import time
 import types
@@ -82,17 +107,23 @@ from typing import Callable, Iterator, NamedTuple
 import numpy as np
 import torch
 
-from ..models.params import fuse_layer_weights
+from ..models.params import fuse_layer_weights, kv_replication
 from ..models.spec import ModelSpec
 from ..models.transformer import _BITS, KVCache, forward
 from ..ops.cuda_attention import saturate_f8_nan_codes
 from ..ops.device_sampler import sample_rows, sample_token, state_from_seed
+from ..ops.sharded_vocab import sharded_argmax, sharded_sample_prep
+from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.mesh import DP_AXIS, TP_AXIS, WORLD
+from ..parallel.sharding import (check_tp_constraints, is_sharded,
+                                 shard_params, vocab_splits)
+from ..quants.torch_codec import QuantizedTensor
 from ..sampler import Sampler
 from ..utils.device import resolve_device
 from .faults import FAULTS
 from .graphs import CapturedStep, capture
 from .profiler import COMPILES, PROFILER, compile_key_str
-from .sampling import FullLogitsView
+from .sampling import FullLogitsView, ShardedLogitsView
 from .stats import RunStats, StepStats
 
 # the fp8 (e4m3) cache stores 1 byte per value; writes saturate at +-448
@@ -105,6 +136,13 @@ DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32",
 # generate_device's host reads the loop's done flag once every this many
 # replays: at most this many - 1 forwards run after the stop token
 _DONE_CHECK_EVERY = 8
+# what the entry points that do not run over ranks yet say
+MESH_REFUSAL = ("over a mesh of more than one rank is ROADMAP item 18 "
+                "(serving over ranks) and is not ported yet")
+# candidates each rank of a vocab-split head sends the sampler a row (JAX
+# Engine(vocab_topk=32)); the guard fetches one replicated row when they
+# cannot prove the draw
+VOCAB_TOPK = 32
 
 __all__ = ["CACHE_DTYPES", "Engine", "GenerationResult", "resolve_device",
            "seed_rows_from_blocks"]
@@ -168,7 +206,16 @@ class Engine:
         cuda_graphs: bool = True,
         batch: int = 1,
         model_fingerprint: int = 0,
+        mesh=None,
+        q80_collectives: bool | None = None,
+        shard_vocab: bool | None = None,
+        force_mesh_kernels: bool = False,
     ):
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
@@ -182,6 +229,12 @@ class Engine:
         pdev = params["tok_emb"].device
         if pdev.type != self.device.type:
             raise ValueError(f"params live on {pdev}, engine on {self.device}")
+        tp = mesh.tp if mesh is not None else 1
+        file_spec = spec
+        if tp > spec.n_kv_heads:
+            # kv heads replicated to tp virtual heads (JAX engine.py:163-174)
+            kv_replication(spec, tp)
+            spec = dataclasses.replace(spec, n_kv_heads=tp)
         self.spec = spec
         self.seq_len = min(max_seq_len or spec.seq_len, spec.seq_len)
         self.compute_dtype = compute_dtype
@@ -195,12 +248,51 @@ class Engine:
         # content_fingerprint; the CLI sets it), folded into the session
         # fingerprint; 0 for params held in memory
         self.model_fingerprint = int(model_fingerprint)
-        # single-device fast path: fused QKV / w1|w3 launches (in place)
-        self.params = fuse_layer_weights(params)
-        # B slots (rows) of the scheduler, or the one sequence of step()
+        # the mesh knobs (JAX runtime/engine.py:139-266): the column
+        # splits reduce exactly, or by the Q80 two-shot exchange
+        # (--buffer-float-type q80 at tp > 1); the vocab split, auto when
+        # tp divides the vocab
+        self.mesh = mesh
+        if q80_collectives is None:
+            q80_collectives = activation_q80 and tp > 1
+        self.q80_collectives = bool(q80_collectives) and tp > 1
+        self.tp_reduce = "q80" if self.q80_collectives else "exact"
+        if shard_vocab and not vocab_splits(spec, tp):
+            raise ValueError(f"shard_vocab: mesh tp axes cannot split vocab="
+                             f"{spec.vocab_size} evenly (tp={tp})")
+        self.shard_vocab = (vocab_splits(spec, tp) if shard_vocab is None
+                            else bool(shard_vocab))
+        # how often the sharded sampler served a row, and how often it
+        # fetched one replicated row instead
+        self.vocab_sample_stats = {"sharded": 0, "fallback": 0}
+        # the forward's mesh: None on one device, unless the shard path is
+        # forced on a 1-rank mesh
+        self._mesh = (mesh if mesh is not None
+                      and (mesh.size > 1 or force_mesh_kernels) else None)
+        if self._mesh is None:
+            # single-device fast path: fused QKV / w1|w3 launches (in place)
+            self.params = fuse_layer_weights(params)
+        elif is_sharded(params):     # the streamed loader's shard
+            if (params["tok_emb"].shape[0] != spec.vocab_size) != self.shard_vocab:
+                raise ValueError("the params' embedding split does not match "
+                                 f"shard_vocab={self.shard_vocab}")
+            self.params = params
+        else:
+            q40 = any(isinstance(v, QuantizedTensor)
+                      for lw in params["layers"] for v in lw.values())
+            check_tp_constraints(spec, tp, q40=q40)
+            self.params = shard_params(params, file_spec, tp, mesh.tp_rank,
+                                       vocab=self.shard_vocab)
+        # B slots (rows) of the scheduler, or the one sequence of step();
+        # over dp ranks this rank holds rows [row0, row0 + rows) of them
         self.batch = int(batch)
-        self.cache = KVCache.create(spec, self.batch, self.seq_len,
-                                    cache_dtype, self.device)
+        dp = mesh.dp if self._mesh is not None else 1
+        self._dp_split = dp > 1 and self.batch % dp == 0
+        self._rows = self.batch // dp if self._dp_split else self.batch
+        self._row0 = mesh.dp_rank * self._rows if self._dp_split else 0
+        self.cache = KVCache.create(
+            dataclasses.replace(spec, n_kv_heads=spec.n_kv_heads // tp),
+            self._rows, self.seq_len, cache_dtype, self.device)
         self.pos = 0
         # the captured steps, keyed like the JAX engine's _steps: 1 (the
         # decode step), ("greedy",), ("dsample", temperature, topp, vocab,
@@ -209,6 +301,12 @@ class Engine:
         # the scheduler's warmup marks the engine warm, a new key is a
         # capture after warmup (runtime/profiler.py)
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        if self.cuda_graphs and self._mesh is not None and self._mesh.stages:
+            self.cuda_graphs = False
+            if mesh.rank == 0:
+                print("⏩ engine: gloo stages every collective through host "
+                      "memory, which a CUDA graph cannot capture: the "
+                      "decode steps run eagerly", flush=True)
         self.graphs: dict[object, CapturedStep] = {}
         self._compile_warm = False
         # device while-loop iterations of the last generate_device call
@@ -225,8 +323,8 @@ class Engine:
         # replay, so they never move
         dev, i64 = self.device, torch.int64
         self._buf = types.SimpleNamespace(
-            tok=torch.zeros((self.batch, 1), dtype=i64, device=dev),
-            pos=torch.zeros((self.batch,), dtype=torch.int32, device=dev),
+            tok=torch.zeros((self._rows, 1), dtype=i64, device=dev),
+            pos=torch.zeros((self._rows,), dtype=torch.int32, device=dev),
             count=torch.zeros((1,), dtype=i64, device=dev),
             out=torch.zeros((self.seq_len + 2,), dtype=i64, device=dev),
             done=torch.zeros((1,), dtype=torch.bool, device=dev),
@@ -238,6 +336,11 @@ class Engine:
             seg={},
             # generate_batch_device's per-row buffers, made at first use
             rows=None)
+
+    def _single_rank(self, name: str) -> None:
+        """Refuse an entry point that does not run over ranks yet."""
+        if self._mesh is not None and self._mesh.size > 1:
+            raise ValueError(f"{name} {MESH_REFUSAL}")
 
     def reset(self) -> None:
         """New session: zero the cache (in place) and rewind the position."""
@@ -253,6 +356,7 @@ class Engine:
         loads the other's file. Written to path + ".tmp", then renamed: a
         signal mid-write never leaves a truncated file where a good one
         stood."""
+        self._single_rank("save_session")
         data: dict = {
             "pos": np.int64(self.pos),
             "cache_dtype": np.str_(DTYPE_NAMES[self.cache_dtype]),
@@ -279,6 +383,7 @@ class Engine:
         mismatched model or engine config, zeroes the cache and copies the
         saved prefix into it IN PLACE (through the NaN-code guard), sets
         pos. Returns the saved token history ([] when it has none)."""
+        self._single_rank("load_session")
         z = np.load(path)
         saved, mine = [int(x) for x in z["config"]], self._session_fingerprint()
         # the weight-content element compares only when both sides know it:
@@ -320,12 +425,18 @@ class Engine:
     # -- steps: the forward over the engine's configuration ---------------
 
     def _forward(self, tokens: torch.Tensor, pos0, logit_index=None,
-                 logits_for_all: bool = False) -> torch.Tensor:
-        """The engine's forward, configured in exactly one place."""
+                 logits_for_all: bool = False,
+                 local_logits: bool = False) -> torch.Tensor:
+        """The engine's forward, configured in exactly one place.
+        local_logits: a vocab-sharded engine keeps its vocab slice (the
+        sharded sampler's input); otherwise the logits are whole."""
         return forward(self.params, self.spec, tokens, pos0, self.cache,
                        compute_dtype=self.compute_dtype,
                        activation_q80=self.activation_q80,
-                       logit_index=logit_index, logits_for_all=logits_for_all)
+                       logit_index=logit_index, logits_for_all=logits_for_all,
+                       mesh=self._mesh, tp_reduce=self.tp_reduce,
+                       shard_vocab=self.shard_vocab,
+                       local_logits=local_logits and self.shard_vocab)
 
     def _one_sequence(self, name: str) -> None:
         if self.batch != 1:
@@ -579,6 +690,7 @@ class Engine:
         from .speculative import find_draft
 
         self._one_sequence("speculative decoding")
+        self._single_rank("speculative decoding")
         stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
         if max_tokens <= 0:
             # the hard-cap contract of generate(): prefill, emit nothing
@@ -1062,10 +1174,11 @@ class Engine:
         chunks of prefill_chunk through slot_prefill_chunk: a row whose
         prompt ended in an earlier chunk is gated (position S), and a
         tail chunk's padding writes past the prompt, where decode
-        overwrites it before any query attends it. Returns (B, vocab) f32
-        logits at each row's last prompt token."""
+        overwrites it before any query attends it. Returns (rows, vocab)
+        f32 logits at each of this rank's rows' last prompt token (its
+        vocab slice on a vocab-sharded engine)."""
         c = min(self.prefill_chunk, self.seq_len)
-        last: list = [None] * self.batch
+        last: list = [None] * self._rows
         for off in range(0, max(len(p) for p in prompts), c):
             tok = np.zeros((self.batch, c), np.int32)
             pos = np.full((self.batch,), self.seq_len, np.int32)
@@ -1075,11 +1188,15 @@ class Engine:
                 if n > 0:
                     tok[i, :n] = p[off:off + n]
                     pos[i], lidx[i] = off, n - 1
-            logits = self.slot_prefill_chunk(tok, pos, lidx)
+            logits = self._prefill_chunk(tok, pos, lidx)
             for i, p in enumerate(prompts):
-                if off < len(p) <= off + c:
-                    last[i] = logits[i]
+                if self._mine(i) and off < len(p) <= off + c:
+                    last[i - self._row0] = logits[i - self._row0]
         return torch.stack(last)
+
+    def _mine(self, row: int) -> bool:
+        """Whether this rank holds batch row `row`."""
+        return self._row0 <= row < self._row0 + self._rows
 
     def generate_batch(
         self,
@@ -1132,8 +1249,13 @@ class Engine:
             return
 
         def sample_rows(lg, mask: np.ndarray) -> np.ndarray:
-            view = FullLogitsView(self.fetch_logits(lg))
             out = np.full(b, -1, np.int64)
+            if self._mesh is not None and sampler.temperature == 0.0:
+                # greedy rows over ranks: only the tokens meet
+                toks = self._greedy_rows(lg, int(sampler.vocab_size))
+                out[mask] = toks[mask]
+                return out
+            view = self.sample_view(lg, sampler)
             for i in np.nonzero(mask)[0]:
                 out[i] = view.sample(sampler, int(i))
             return out
@@ -1160,8 +1282,7 @@ class Engine:
             live = np.asarray([alive(i) for i in range(b)])
             if not live.any():
                 return
-            lg = self.slot_decode_step(cur[:, None],
-                                       np.where(live, pos, self.seq_len))
+            lg = self._slot_step(cur[:, None], np.where(live, pos, self.seq_len))
             nxt = sample_rows(lg, live)
             step: list[int | None] = [None] * b
             for i in np.nonzero(live)[0]:
@@ -1173,11 +1294,71 @@ class Engine:
             self.pos = int(np.minimum(pos, self.seq_len).max())
             yield step
 
+    # -- sampling over ranks (ops/sharded_vocab.py, runtime/sampling.py) ----
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows -> every row of the batch, on every rank: the
+        dp groups' rows side by side (as they are when dp replicates)."""
+        if not self._dp_split:
+            return x
+        return all_gather(x, self._mesh, DP_AXIS).flatten(0, 1)
+
+    def _greedy_rows(self, lg: torch.Tensor, n_vocab: int) -> np.ndarray:
+        """(B,) greedy tokens over this rank's rows' logits: the sharded
+        argmax on a vocab-sharded engine, np.argmax's first maximum over
+        the first n_vocab logits otherwise; then the tokens of every row."""
+        if self.shard_vocab:
+            toks = sharded_argmax(lg, self._mesh, n_vocab)
+        else:
+            toks = torch.argmax(lg[:, :n_vocab].float(), dim=-1)
+        return self._gather_rows(toks).cpu().numpy()
+
+    def sample_view(self, lg: torch.Tensor, sampler: Sampler):
+        """Sampling access to one step's logits of every row (JAX
+        runtime/engine.py:755), from this rank's rows' logits. Over dp the
+        rows' logits (or summaries) meet at every rank, so one shared
+        Sampler samples all of them in row order. A vocab-sharded engine
+        gives a ShardedLogitsView: the device argmax and per-rank top-k
+        candidates (k = VOCAB_TOPK), exact by the guard, with one
+        replicated row fetched for whatever the candidates cannot
+        prove."""
+        if not self.shard_vocab or self._mesh is None:
+            return FullLogitsView(self.fetch_logits(self._gather_rows(lg)))
+        nv = int(sampler.vocab_size)
+        k = max(1, min(VOCAB_TOPK, lg.shape[-1]))
+        temps = torch.full((lg.shape[0],), sampler.temperature or 1.0,
+                           dtype=torch.float32, device=lg.device)
+        amax, cand_p, cand_id, guard = (
+            self._gather_rows(t).cpu().numpy()
+            for t in sharded_sample_prep(lg, temps, self._mesh, nv, k))
+        return ShardedLogitsView(amax, cand_p, cand_id, guard, nv,
+                                 self._row_fetcher(lg),
+                                 stats=self.vocab_sample_stats)
+
+    def _row_fetcher(self, lg: torch.Tensor):
+        """One whole (vocab,) row of the vocab-split logits, on every rank:
+        the ranks holding the row put their vocab slice in place, the
+        others zeros, and one all-reduce adds them (exact: one value and
+        zeros). Every rank samples the same rows in the same order, so
+        every rank makes the same fetches."""
+        mesh, vl = self._mesh, lg.shape[-1]
+        axis = WORLD if self._dp_split else TP_AXIS
+
+        def fetch(row: int) -> np.ndarray:
+            buf = torch.zeros(self.spec.vocab_size, dtype=torch.float32,
+                              device=lg.device)
+            if self._mine(row):
+                buf[mesh.tp_rank * vl:(mesh.tp_rank + 1) * vl] = \
+                    lg[row - self._row0]
+            return all_reduce(buf, mesh, axis).cpu().numpy()
+
+        return fetch
+
     def _row_buffers(self) -> types.SimpleNamespace:
         """generate_batch_device's static per-row buffers: each row's
         logits, RNG state, done flag and recorded tokens."""
         if self._buf.rows is None:
-            dev, b = self.device, self.batch
+            dev, b = self.device, self._rows
             self._buf.rows = types.SimpleNamespace(
                 logits=torch.zeros((b, self.spec.vocab_size),
                                    dtype=torch.float32, device=dev),
@@ -1239,11 +1420,17 @@ class Engine:
         captured once a sampler configuration (max_tokens is a buffer,
         not a key); the host reads the done flags once every
         _DONE_CHECK_EVERY replays. last_device_steps is the loop's
-        iteration count."""
+        iteration count. Over dp ranks each rank loops over its own rows
+        (row i still on stream seed + i) until they are done, and the rows'
+        tokens meet at the end: a finished row's extra iterations record
+        nothing, so the longest rank's count is the loop's."""
         stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
         n_vocab = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
         lens = self._batch_args(prompts)
         logits = self._batch_prefill(prompts)
+        if self.shard_vocab:         # the device sampler reads whole rows
+            logits = all_gather(logits, self._mesh, TP_AXIS).movedim(0, -2) \
+                .flatten(-2)
         self.pos = int(lens.max())
         if max_tokens <= 0:      # the hard-cap contract of generate()
             self.last_device_steps = 0
@@ -1262,12 +1449,13 @@ class Engine:
         def start(done: bool) -> None:
             r.logits.copy_(logits)
             r.rng.copy_(torch.stack([state_from_seed(seed + i, self.device)
-                                     for i in range(self.batch)]))
+                                     for i in range(self._row0,
+                                                    self._row0 + self._rows)]))
             r.done.fill_(done)
             r.out.fill_(-1)
             b.tok.zero_()
             b.count.zero_()
-            b.pos.copy_(torch.from_numpy(lens))
+            b.pos.copy_(torch.from_numpy(self._local_rows(lens)[0]))
             b.limit.fill_(limit)
         if self.cuda_graphs and key not in self.graphs:
             start(True)     # every row done: the warm-up writes nothing
@@ -1279,11 +1467,15 @@ class Engine:
             run()
             if (i + 1) % every == 0 and bool(r.done.all()):
                 break
-        n = int(b.count)
+        if self._dp_split:
+            n = int(all_reduce(b.count, self._mesh, DP_AXIS, op="max"))
+        else:
+            n = int(b.count)
         self.last_device_steps = n
         self.pos = int(min(int(lens.max()) + n, self.seq_len))
+        # unrecorded slots hold -1: a row's tokens are its recorded ones
         return [[int(x) for x in row if x >= 0]
-                for row in r.out[:, :n].cpu().tolist()]
+                for row in self._gather_rows(r.out[:, :limit]).cpu().tolist()]
 
     def generate_batch_lookup(
         self,
@@ -1311,6 +1503,7 @@ class Engine:
         `stop_flags` before the call never emit."""
         from .speculative import count_accepted, find_draft
 
+        self._single_rank("generate_batch_lookup")
         stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
         spec_v = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
         lens = self._batch_args(prompts)
@@ -1382,6 +1575,11 @@ class Engine:
                              f"{pos.shape} for an engine of {self.batch} slots")
         return tokens.astype(np.int64), pos.astype(np.int32)
 
+    def _local_rows(self, *arrays):
+        """This rank's rows of batch-wide host arrays."""
+        rows = slice(self._row0, self._row0 + self._rows)
+        return tuple(a[rows] for a in arrays)
+
     @torch.inference_mode()
     def slot_prefill_chunk(self, tokens: np.ndarray, pos: np.ndarray,
                            logit_index: np.ndarray) -> torch.Tensor:
@@ -1392,13 +1590,24 @@ class Engine:
         row, so its cache, mid-decode or idle, is untouched. Returns the
         (B, vocab) f32 logits at each row's `logit_index` within the chunk,
         on the device. Runs eagerly; does not touch self.pos."""
+        self._single_rank("slot_prefill_chunk")
+        return self._prefill_chunk(tokens, pos, logit_index)
+
+    def _prefill_chunk(self, tokens: np.ndarray, pos: np.ndarray,
+                       logit_index: np.ndarray) -> torch.Tensor:
+        """slot_prefill_chunk's forward over this rank's rows (its vocab
+        slice of the logits on a vocab-sharded engine). The profiler's
+        entry times the forward alone, its arguments built before it."""
         FAULTS.fire("prefill_raise")   # host side, before any launch
         tokens, pos = self._slot_args("slot_prefill_chunk", tokens, pos)
+        tokens, pos, lidx = self._local_rows(
+            tokens, pos, np.asarray(logit_index, np.int64))
         dev = self.device
         return PROFILER.timed(
-            f"slot_prefill:{tokens.shape[1]}", self._forward,
+            f"slot_prefill:{tokens.shape[1]}",
+            functools.partial(self._forward, local_logits=True),
             torch.as_tensor(tokens, device=dev), torch.as_tensor(pos, device=dev),
-            torch.as_tensor(np.asarray(logit_index, np.int64), device=dev))
+            torch.as_tensor(lidx, device=dev))
 
     # -- prefix-cache arena (runtime/prefix_cache.py) ----------------------
 
@@ -1407,6 +1616,7 @@ class Engine:
         (num_blocks, layers, kv_heads, block_len, head_size) in the cache
         dtype. The arena dies with the engine: a supervisor rebuild mints a
         fresh engine, arena and tree."""
+        self._single_rank("the prefix cache")
         if num_blocks < 1 or not 1 <= block_len <= self.seq_len:
             raise ValueError(f"prefix arena of {num_blocks} blocks of "
                              f"{block_len} (context {self.seq_len})")
@@ -1421,6 +1631,7 @@ class Engine:
         in place (seed_rows_from_blocks): one gather and one copy a layer
         for K and for V, eagerly, on the default stream between the
         scheduler's replays. Does not touch self.pos."""
+        self._single_rank("slot_seed_prefix")
         PROFILER.timed("prefix_seed", seed_rows_from_blocks, self.cache,
                        arena_k, arena_v, row, block_ids)
 
@@ -1434,6 +1645,7 @@ class Engine:
         came from this engine's own saturating writes, so no guard runs
         here (the seed side owns it, as `saturate_f8_nan_codes` in
         seed_rows_from_blocks and load_session)."""
+        self._single_rank("slot_publish_block")
         PROFILER.timed("prefix_publish", self._publish, arena_k, arena_v,
                        row, offset, dst)
 
@@ -1453,7 +1665,7 @@ class Engine:
     def _slot_decode(self) -> torch.Tensor:
         """Graph "slot_decode": row r's token in `tok` at its position in
         `pos`."""
-        return self._forward(self._buf.tok, self._buf.pos)
+        return self._forward(self._buf.tok, self._buf.pos, local_logits=True)
 
     @torch.inference_mode()
     def slot_decode_step(self, tokens: np.ndarray,
@@ -1466,7 +1678,14 @@ class Engine:
         into the static buffers and replays the captured graph
         "slot_decode" (captured at the first call, the scheduler's
         warmup). Does not touch self.pos."""
+        self._single_rank("slot_decode_step")
+        return self._slot_step(tokens, pos)
+
+    def _slot_step(self, tokens: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        """slot_decode_step over this rank's rows (its vocab slice of the
+        logits on a vocab-sharded engine)."""
         tokens, pos = self._slot_args("slot_decode_step", tokens, pos)
+        tokens, pos = self._local_rows(tokens, pos)
         if tokens.shape[1] != 1:
             raise ValueError(f"slot_decode_step feeds one token a row, got "
                              f"{tokens.shape}")
@@ -1495,6 +1714,7 @@ class Engine:
         (B,) position buffers. Does not touch self.pos."""
         from .draft import batched_verify
 
+        self._single_rank("slot_verify_step")
         tokens, pos = self._slot_args("slot_verify_step", tokens, pos)
         t, nv = tokens.shape[1], int(n_vocab)
         kw = dict(compute_dtype=self.compute_dtype,

@@ -103,12 +103,12 @@ def test_cli_inference_prints_benchmark_lines(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["chat", "--shard-vocab", "on"], "mode 'chat'"),
+    (["chat", "--tp", "2", "--shard-vocab", "on"], "mode 'chat'"),
     (["api", "--prefix-cache", "--replicas", "2"], "--prefix-cache"),
     (["worker"], "mode 'worker'"),
-    (["generate", "--tp", "2"], "--tp 2"),
+    (["api", "--tp", "2"], "--tp 2"),
     (["generate", "--pp", "2"], "--pp 2"),
-    (["generate", "--dp", "2"], "--dp 2"),
+    (["chat", "--dp", "2"], "--dp 2"),
     (["generate", "--ep", "2"], "--ep 2"),
     (["generate", "--nnodes", "2"], "--nnodes"),
 ])

@@ -8,8 +8,9 @@ this slice, on the CPU:
     a flag that contradicts a KV header gives the JAX error;
   * the other JAX flags the parser did not know: --nthreads is accepted
     and ignored, --workers refused in the JAX CLI's words, --pallas and
-    --no-pallas, --shard-vocab and the cluster flags refused naming their
-    ROADMAP item, none of them argparse's exit 2;
+    --no-pallas and the cluster flags refused naming their ROADMAP item,
+    --shard-vocab on without --tp refused in the JAX CLI's words, none of
+    them argparse's exit 2;
   * --profile DIR beside --profile-sample and --profile-dir: no prefix
     collision, and a torch.profiler trace of the generation in DIR.
 """
@@ -111,7 +112,7 @@ def test_flag_contradicting_a_kv_header_gives_the_jax_error(fixture, wt):
     (["--workers", "10.0.0.1:9998", "10.0.0.2:9998"], "not applicable on a GPU"),
     (["--pallas"], "ROADMAP North star"),
     (["--no-pallas"], "ROADMAP North star"),
-    (["--shard-vocab", "on"], "ROADMAP item 13"),
+    (["--shard-vocab", "on"], "needs a tensor-parallel mesh (--tp > 1)"),
     (["--coordinator", "h:1234"], "ROADMAP item 15"),
     (["--node-rank", "1"], "ROADMAP item 15"),
     (["--connect-timeout", "5"], "ROADMAP item 15"),
