@@ -4860,6 +4860,11 @@ def _greedy_trace(engine, prompt: list[int], n: int):
     return toks, gaps, lgs
 
 
+# a rank's Llama-2-7B shard from phase 12's job, kept for phase 13's (the
+# same pool of 2 ranks), keyed (name, layers, tp, seed)
+_RANK_SHARDS: dict = {}
+
+
 def tp_rank_job(name: str, n_layers: int, tp: int, seed: int, prompt: list[int],
                 routes: list | None) -> dict:
     """One rank of a tp group on the card (RankPool job): the synthetic Q40
@@ -4882,6 +4887,8 @@ def tp_rank_job(name: str, n_layers: int, tp: int, seed: int, prompt: list[int],
     params = synthetic_q40_params(spec, seed=seed, device=mesh.device)
     eng = Engine(spec, params, mesh=mesh, activation_q80=True)
     del params
+    if name == "llama2_7b":
+        _RANK_SHARDS[(name, n_layers, tp, seed)] = eng.params
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -5271,12 +5278,13 @@ def tp_cli(card: str) -> dict:
     return dict(counts=counts, backend=backend, text=text(gpu), dp_rows=rows[-3:])
 
 
-def phase_tp(card: str, params_7b) -> dict:
+def phase_tp(card: str, params_7b, pool) -> dict:
     """Phase 12 (`[tp]` and `[dp]` lines): Llama-2-7B at full width and depth
     over tp = 2 and tp = 4 ranks, its generate_batch rows over dp = 2
     ranks, Mixtral 8x7B at full width and 2 layers over tp = 2, each held
     against one GPU over the same weights; the NCCL path at world size 1
-    with its decode step captured; the kernels at the shard shapes."""
+    with its decode step captured; the kernels at the shard shapes. `pool`
+    is the group of 2 ranks phase 13 goes on with."""
     import dataclasses
 
     from distributed_llama_tpu_torch.models.params import synthetic_q40_params
@@ -5317,19 +5325,18 @@ def phase_tp(card: str, params_7b) -> dict:
     del one, params_m, rec
     torch.cuda.empty_cache()
     # one group of 2 ranks runs the three 2-rank jobs (a group's start is
-    # most of a short job's seconds), then one of 4
-    with RankPool(2, device_type="cuda", timeout_s=TP_TIMEOUT_S) as pool:
-        res = pool.run("chip_smoke:tp_rank_job", "llama2_7b", spec.n_layers, 2, 0, prompt, None)
-        out["llama2_7b_tp2"] = _held_tp("Llama-2-7B tp=2", res, toks1, gaps1, lgs1, counts1,
-                                        card)
-        del res
-        res = pool.run("chip_smoke:dp_rank_job", prompts, list(one_rows))
-        out["llama2_7b_dp2"] = _held_dp(res, one_rows, card)
-        del res
-        res = pool.run("chip_smoke:tp_rank_job", "mixtral_8x7b", 2, 2, 1, prompt, routes)
-        out["mixtral_2l_tp2"] = _held_tp("Mixtral 8x7B (2 layers) tp=2", res, toks_m, gaps_m,
-                                         lgs_m, counts_m, card)
-        del res
+    # most of a short job's seconds) and phase 13's, then one of 4
+    res = pool.run("chip_smoke:tp_rank_job", "llama2_7b", spec.n_layers, 2, 0, prompt, None)
+    out["llama2_7b_tp2"] = _held_tp("Llama-2-7B tp=2", res, toks1, gaps1, lgs1, counts1,
+                                    card)
+    del res
+    res = pool.run("chip_smoke:dp_rank_job", prompts, list(one_rows))
+    out["llama2_7b_dp2"] = _held_dp(res, one_rows, card)
+    del res
+    res = pool.run("chip_smoke:tp_rank_job", "mixtral_8x7b", 2, 2, 1, prompt, routes)
+    out["mixtral_2l_tp2"] = _held_tp("Mixtral 8x7B (2 layers) tp=2", res, toks_m, gaps_m,
+                                     lgs_m, counts_m, card)
+    del res
     with RankPool(4, device_type="cuda", timeout_s=TP_TIMEOUT_S) as pool:
         res = pool.run("chip_smoke:tp_rank_job", "llama2_7b", spec.n_layers, 4, 0, prompt, None)
         out["llama2_7b_tp4"] = _held_tp("Llama-2-7B tp=4", res, toks1, gaps1, lgs1, counts1,
@@ -5357,6 +5364,354 @@ def phase_tp(card: str, params_7b) -> dict:
     out["kernels_s"] = time.perf_counter() - t_k
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[tp] phase 12 in {out['seconds']:.1f} s (kernel rows {out['kernels_s']:.1f} s)")
+    return out
+
+
+# -- phase 13: serving over ranks -------------------------------------------
+
+# the scheduler over tp = 2 at Llama-2-7B full width: B slots, the self
+# draft's layers and draft length (a verify forward of B x (1 + K) rows),
+# requests sharing a 32-token prefix (the last one sampled), new tokens
+# each, the prefix cache's blocks of 16 tokens, and the slot decode and
+# verify steps timed after the run
+SERVE_TP_B, SERVE_TP_DEPTH, SERVE_TP_K = 2, 2, 3
+SERVE_TP_N, SERVE_TP_NEW, SERVE_TP_CHUNK = 4, 12, 64
+SERVE_TP_BLOCK, SERVE_TP_TIMED = 16, 4
+
+
+def serve_tp_requests(vocab: int) -> list:
+    """(prompt, new tokens, temperature, top-p, seed) of phase 13's
+    requests: a shared 32-token prefix and 8 tokens of each one's own;
+    greedy but the last, at temperature 0.8."""
+    rng = np.random.default_rng(31)
+    prefix = [1] + rng.integers(3, vocab, 31).tolist()
+    return [(prefix + rng.integers(3, vocab, 8).tolist(), SERVE_TP_NEW,
+             0.8 if i == SERVE_TP_N - 1 else 0.0, 0.9, 100 + i)
+            for i in range(SERVE_TP_N)]
+
+
+def serve_tp_job(requests: list) -> dict | None:
+    """One rank of 7B serving over tp = 2 ranks sharing the card (gloo),
+    as `dllama api --serve-batch --tp 2` runs it (RankPool job): phase
+    12's shard of the rank, the control channel; rank 0 runs the
+    scheduler (B slots, the prefix cache, a self-draft) against the
+    mirrored engine with launches counted from 0, then times the slot
+    decode and verify steps; rank 1 follows."""
+    from distributed_llama_tpu_torch.parallel import jobs
+    from distributed_llama_tpu_torch.parallel.control import Control
+    from distributed_llama_tpu_torch.parallel.mesh import make_mesh
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    mesh = make_mesh(tp=2, device_type="cuda")
+    ctl = Control(mesh, TP_TIMEOUT_S)
+    spec = _spec("llama2_7b")
+    eng = Engine(spec, _RANK_SHARDS[("llama2_7b", spec.n_layers, 2, 0)], mesh=mesh,
+                 activation_q80=True)
+    ctl.attach(eng)
+    if not ctl.is_root:
+        ctl.follow()
+        return None
+    try:
+        zero_counts()
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        out = jobs.serve_requests(
+            eng, requests, batch=SERVE_TP_B, chunk=SERVE_TP_CHUNK,
+            prefix=(64, SERVE_TP_BLOCK), draft=f"self:{SERVE_TP_DEPTH}",
+            draft_len=SERVE_TP_K)
+        torch.cuda.synchronize()
+        out.update(wall_s=time.perf_counter() - t0, counts=read_counts(),
+                   mesh=dict(mesh.stats), control=dict(ctl.stats))
+        # the slot steps alone: every row live at its own position
+        slots = eng.spawn(SERVE_TP_B)
+        pos = np.asarray([48, 56][:SERVE_TP_B], np.int32)
+        timed = {"decode": [], "verify": []}
+        for i in range(SERVE_TP_TIMED + 1):
+            c0 = dict(ctl.stats)
+            t1 = time.perf_counter()
+            slots.slot_decode_step(np.full((SERVE_TP_B, 1), 7, np.int32), pos + i)
+            t2 = time.perf_counter()
+            slots.slot_verify_step(np.full((SERVE_TP_B, 1 + SERVE_TP_K), 7, np.int32),
+                                   pos + i, spec.vocab_size)
+            t3 = time.perf_counter()
+            if i:      # the first of each warms the eager path
+                timed["decode"].append((t2 - t1) * 1e3)
+                timed["verify"].append((t3 - t2) * 1e3)
+                timed.setdefault("control_ms", []).append(
+                    (ctl.stats["control_s"] - c0["control_s"]) * 1e3 / 2)
+        out["timed"] = timed
+        out["graphs"] = slots.cuda_graphs
+        return out
+    finally:
+        ctl.close()
+
+
+def serve_tp_kernels(gen, spec) -> dict:
+    """K1, K3 and the standalone Q80 round trip at one rank's shapes of the
+    tp = 2 slot decode step (t = B) and verify step (t = B x (1 + K)),
+    each against its plain version and timed beside it, its library call
+    and its bound, as phase 12 times its rows: K1 at the four layer shards
+    and the wcls shard, the Q80 round trip at each shard's input width,
+    K3 over 16/16 local heads at the B rows' fills."""
+    bf16 = torch.bfloat16
+    ts = {"slot": SERVE_TP_B, "verify": SERVE_TP_B * (1 + SERVE_TP_K)}
+    k1, k3, q80 = [], [], []
+    for name in K1_SHAPES:
+        d, n = _shard_shape(name, 2)
+        wbytes = d * n // 2 + d * n // 32 * 2
+        ws = rotating(lambda: random_q40(gen, d, n), wbytes)
+        w0 = ws()
+        for what, t in ts.items():
+            row = k1_row(gen, f"[serve-tp] [K1] {what} ", name, d, n, t, bf16, ws, w0)
+            row["step"] = what
+            k1.append(row)
+        del ws, w0
+        torch.cuda.empty_cache()
+    for n in sorted({_shard_shape(name, 2)[1] for name in K1_SHAPES}):
+        for what, t in ts.items():
+            row = q80_row(gen, f"[serve-tp] [Q80] {what} n={n} ", t, n, bf16, bf16)
+            row["step"] = what
+            q80.append(row)
+    for what, t in (("slot", 1), ("verify", 1 + SERVE_TP_K)):
+        row = k3_row(gen, f"[serve-tp] [K3] {what} ", bf16, bf16,
+                     (SERVE_TP_B, 16, 16, t, [48, 56][:SERVE_TP_B], 128, spec.seq_len))
+        row["step"] = what
+        k3.append(row)
+    torch.cuda.empty_cache()
+    return dict(k1=k1, k3=k3, q80=q80)
+
+
+def _ranks_api(argv: list, batch: bool) -> tuple:
+    """`dllama api --tp 2 ...` as a process (rank 0 binds, one rank
+    spawned): three completions (and a batch), /healthz, SIGTERM; its
+    answers, health, exit code and output."""
+    import os
+    import signal
+    import threading
+    import urllib.request
+
+    proc = subprocess.Popen([sys.executable, "-m", "distributed_llama_tpu_torch.apps.dllama",
+                             *argv, "--tp", "2"], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    lines = []
+    try:
+        timer = threading.Timer(TP_TIMEOUT_S, proc.kill)
+        timer.start()
+        for line in proc.stdout:
+            lines.append(line)
+            if "listening on" in line:
+                break
+        timer.cancel()
+        port = int(lines[-1].rsplit(":", 1)[1])
+        texts = _api_texts(port, batch)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=TP_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return texts, health, proc.returncode, "".join(lines) + rest
+
+
+def _api_texts(port: int, batch: bool) -> list:
+    import urllib.request
+
+    def post(path, body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=TP_TIMEOUT_S) as r:
+            return json.loads(r.read())
+    out = []
+    for i in range(3):
+        c = post("/v1/completions", {"prompt": f"hello world {i}", "max_tokens": 12,
+                                     "temperature": 0})["choices"][0]
+        out.append(c["text"])
+    if batch:
+        r = post("/v1/batch/completions", {"prompts": ["a b c", "d e"], "max_tokens": 8,
+                                           "temperature": 0})
+        out.append([c["message"]["content"] for c in r["choices"]])
+    return out
+
+
+def serve_tp_cli(card: str) -> dict:
+    """(b) on the tiny Llama fixture, f32: `dllama api --serve-batch 2 --tp
+    2` (the prefix cache, a self:1 draft) over loopback HTTP gives the
+    one-rank server's text and exits 0 on SIGTERM, every rank joined; a
+    session round trip through chat: turn 1 over tp = 2 (`dllama chat --tp
+    2`, stdin piped, this process rank 0) saved, turn 2 resumed on one
+    rank, equal to one rank's two-turn chat."""
+    import threading
+
+    from distributed_llama_tpu_torch.apps import api_server, dllama
+    from distributed_llama_tpu_torch.testing import write_fixture
+
+    def chat(argv, turns) -> list[str]:
+        buf, old = io.StringIO(), sys.stdin
+        sys.stdin = io.StringIO(turns)
+        try:
+            with contextlib.redirect_stdout(buf):
+                dllama.main(argv)
+        finally:
+            sys.stdin = old
+        return buf.getvalue().splitlines()
+
+    def replies(lines: list[str]) -> list[str]:
+        return [l for i, l in enumerate(lines) if i and lines[i - 1] == "🤖 Assistant"]
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        mpath, tpath = write_fixture(d, seed=77)
+        f32 = ["--compute-dtype", "f32", "--cache-dtype", "f32", "--buffer-float-type", "f32",
+               "--temperature", "0", "--seed", "3", "--device", "cuda"]
+        api = ["api", "--model", mpath, "--tokenizer", tpath, "--host", "127.0.0.1",
+               "--port", "0", *f32, "--serve-batch", "2", "--prefix-cache", "--draft",
+               "self:1", "--draft-len", "3"]
+        server, state = api_server.build_server(dllama.build_argparser().parse_args(api))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            want = _api_texts(server.server_address[1], True)
+        finally:
+            server.shutdown()
+            server.server_close()
+            api_server.finish(state, drain_timeout=10.0)
+        got, health, rc, text = _ranks_api(api, True)
+        ok = got == want and health["status"] == "ok" and rc == 0
+        print(f"[serve-tp] CLI: api --serve-batch 2 --tp 2 on cuda (prefix cache, self:1 "
+              f"draft): texts equal to one rank's {got == want}, /healthz {health['status']}, "
+              f"exit {rc} after SIGTERM [{card}]")
+        if not ok:
+            fail(f"[serve-tp] api --tp 2: {got} vs one rank {want}, health {health}, exit "
+                 f"{rc}: {text[-2000:]}")
+        out["api"] = dict(equal=got == want, exit=rc)
+        chat_argv = ["chat", "--model", mpath, "--tokenizer", tpath, *f32, "--steps", "12",
+                     "--system-prompt", "be brief"]
+        whole = chat(chat_argv, "hello there\nand again\n")
+        sess = str(Path(d) / "s.npz")
+        turn1 = chat(chat_argv + ["--tp", "2", "--session", sess], "hello there\n")
+        turn2 = chat(chat_argv + ["--session", sess], "and again\n")
+    got = [replies(turn1)[0], replies(turn2)[0]]
+    ok = got == replies(whole)[:2]
+    print(f"[serve-tp] CLI: chat --tp 2 turn 1 saved to a session, turn 2 resumed on one rank: "
+          f"replies equal to one rank's two-turn chat {ok} [{card}]")
+    if not ok:
+        fail(f"[serve-tp] chat over tp = 2 with a session: {got} vs {replies(whole)[:2]}")
+    out["chat"] = dict(equal=ok)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_serve_tp(card: str, params_7b, pool, tp12: dict, serving_bound: float) -> dict:
+    """Phase 13 (`[serve-tp]` lines): serving over ranks on the one card.
+    (a) the scheduler at Llama-2-7B full width over tp = 2 (phase 12's
+    pool and shards, gloo): B = 2 slots, the prefix cache and a self:2
+    draft, 4 requests sharing a 32-token prefix, 12 tokens each, the last
+    sampled; greedy rows held to one GPU's scheduler on the same weights
+    and to batch-1 generate, a first difference allowed only at a near
+    tie (phase 12's tp bound plus phase 7's batch bound); the sharded
+    vocab path, a seeded prefix hit, K1, K3 and Q80 launched; the slot
+    decode and verify steps timed under gloo. (b) the CLI over ranks. Then
+    K1, K3 and Q80 at one rank's step shapes."""
+    from distributed_llama_tpu_torch.parallel import jobs
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    t_phase = time.perf_counter()
+    spec = _spec("llama2_7b")
+    reqs = serve_tp_requests(spec.vocab_size)
+    res = pool.run("chip_smoke:serve_tp_job", reqs)
+    got = res[0]
+    one = Engine(spec, params_7b, device="cuda", activation_q80=True)
+    want = jobs.serve_requests(one, reqs, batch=SERVE_TP_B, chunk=SERVE_TP_CHUNK,
+                               prefix=(64, SERVE_TP_BLOCK), draft=f"self:{SERVE_TP_DEPTH}",
+                               draft_len=SERVE_TP_K)
+    greedy = [i for i, r in enumerate(reqs) if r[2] == 0.0]
+    near_tie = tp12["llama2_7b_tp2"]["near_tie_bound"] + serving_bound
+    equal = [got["tokens"][i] == want["tokens"][i] for i in greedy]
+    parity = batch1_parity(one, [reqs[i][0] for i in greedy],
+                           [got["tokens"][i] for i in greedy], near_tie,
+                           "[serve-tp] greedy request", n=SERVE_TP_NEW)
+    del one
+    torch.cuda.empty_cache()
+    sampled = got["tokens"][-1]
+    c, vs, pc, sp = got["counts"], got["vocab_sample_stats"], got["prefix"], got["spec"]
+    print(f"[serve-tp] 7B scheduler over tp = 2 (gloo, ranks share the card): "
+          f"{SERVE_TP_N} requests x {SERVE_TP_NEW} tokens in {got['wall_s']:.2f} s; greedy rows "
+          f"equal to one GPU's scheduler {equal}; near-tie bound {near_tie:.4g}; sampled row "
+          f"{len(sampled)} tokens; vocab sampler {vs}; prefix hits {pc['hits']} of "
+          f"{pc['lookups']}; drafted {sp['drafted']} accepted {sp['accepted']}; rank 0 launches "
+          f"{c}; {got['control']['ops']} ops, control {got['control']['control_s']:.3f} s of "
+          f"{got['control']['op_s']:.3f} s; {got['mesh']['collectives']} collectives "
+          f"{got['mesh']['collective_s']:.3f} s, staging {got['mesh']['staging_s']:.3f} s "
+          f"[{card}]")
+    if len(sampled) != SERVE_TP_NEW or not all(0 <= t < spec.vocab_size for t in sampled):
+        fail(f"[serve-tp] sampled row {sampled}")
+    if vs["sharded"] <= 0 or pc["hits"] < 1 or not (c["K1"] and c["K3"] and c["Q80"]):
+        fail(f"[serve-tp] vocab sampler {vs}, prefix {pc}, launches {c}")
+    tm = {k: _ms_stats(v) for k, v in got["timed"].items()}
+    print(f"[serve-tp] gloo step ms at tp = 2, B = {SERVE_TP_B} (eager, graphs "
+          f"{got['graphs']}): slot decode {tm['decode']['median']:.1f} [{tm['decode']['min']:.1f}, "
+          f"{tm['decode']['max']:.1f}], verify t = {SERVE_TP_B}x{1 + SERVE_TP_K} "
+          f"{tm['verify']['median']:.1f} [{tm['verify']['min']:.1f}, {tm['verify']['max']:.1f}]; "
+          f"the control channel's share a step {tm['control_ms']['median']:.2f} ms [{card}]")
+    out = dict(scheduler={k: v for k, v in got.items() if k != "timed"}, timed=tm,
+               one_gpu_tokens=want["tokens"], equal_to_one_gpu=equal, parity=parity,
+               near_tie_bound=near_tie)
+    out["cli"] = serve_tp_cli(card)
+    t_k = time.perf_counter()
+    out["kernels"] = serve_tp_kernels(torch.Generator(device="cuda").manual_seed(13), spec)
+    out["kernels_s"] = time.perf_counter() - t_k
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[serve-tp] phase 13 in {out['seconds']:.1f} s (CLI {out['cli']['seconds']:.1f} s, "
+          f"kernel rows {out['kernels_s']:.1f} s) [{card}]")
+    return out
+
+
+def serve_tp_entries(s13: dict) -> list[dict]:
+    """The kernels at one rank's shapes of the tp = 2 slot decode step
+    (t = B) and verify step (t = B x (1 + K)), each summed over the
+    launches of ONE step (32 layers x 4 shards + wcls; 129 standalone Q80
+    inputs; 32 K3); launches: rank 0's counts over phase 13's scheduler
+    run."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    kr, run = s13["kernels"], s13["scheduler"]["counts"]
+    out = []
+    for step, label in (("slot", f"slot decode step, t={SERVE_TP_B}"),
+                        ("verify", f"verify step, t={SERVE_TP_B}x{1 + SERVE_TP_K}")):
+        rows = {r["shape"]: r for r in kr["k1"] if r["step"] == step}
+        k1 = {k: 32 * sum(rows[s][k] for s in ("wqkv", "wo", "w13", "w2")) + rows["wcls"][k]
+              for k in keys}
+        q = {r["n"]: r for r in kr["q80"] if r["step"] == step}
+        ns = [_shard_shape(s, 2)[1] for s in ("wqkv", "wo", "w13", "w2")]
+        q80 = {k: 32 * sum(q[n][k] for n in ns) + q[_shard_shape("wcls", 2)[1]][k]
+               for k in ("ms", "plain_ms", "bound_ms")}
+        a = next(r for r in kr["k3"] if r["step"] == step)
+        out += [
+            dict(name=f"q40_matmul_{step}_tp2", route="cuda",
+                 source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
+                 replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (per shard)",
+                 launches=run["K1"], max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                 **k1, bound_by="bytes",
+                 at=f"one rank's 7B {label} at tp=2: 32x(wqkv,wo,w13,w2 shards)+wcls shard, "
+                    "bf16; launches: phase 13's scheduler run, rank 0"),
+            dict(name=f"q80_roundtrip_{step}_tp2", route="cuda",
+                 source="distributed_llama_tpu_torch/csrc/q80_roundtrip.cu",
+                 replaces="distributed_llama_tpu/ops/matmul.py:93 (no pallas_call)",
+                 launches=run["Q80"], max_abs_err=max(r["max_abs_err"] for r in q.values()),
+                 **q80, bound_by="bytes", library_ms=None,
+                 at=f"one rank's 7B {label} at tp=2: the 129 standalone inputs, bf16; "
+                    "launches: phase 13's scheduler run, rank 0"),
+            dict(name=f"flash_attention_{step}_tp2", route="cuda",
+                 source="distributed_llama_tpu_torch/csrc/flash_attention.cu",
+                 replaces="distributed_llama_tpu/ops/pallas_attention.py:233 (per shard)",
+                 launches=run["K3"], max_abs_err=a["max_abs_err"],
+                 **{k: 32 * a[k] for k in keys}, bound_by=a["bound_by"],
+                 at=f"one rank's 7B {label} at tp=2: 32 layers, 16/16 local heads, "
+                    f"fills {a['pos0']}, bf16"),
+        ]
     return out
 
 
@@ -5844,8 +6199,14 @@ def main() -> int:
     mark("phase 10 (trace, batch)")
     admission11 = phase_admission(card, params_7b, spec9["near_tie_bound"])
     mark("phase 11 (admission)")
-    tp12 = phase_tp(card, params_7b)
-    mark("phase 12 (tp, dp)")
+    from distributed_llama_tpu_torch.parallel.launch import RankPool
+
+    with RankPool(2, device_type="cuda", timeout_s=TP_TIMEOUT_S) as pool2:
+        tp12 = phase_tp(card, params_7b, pool2)
+        mark("phase 12 (tp, dp)")
+        serve13 = phase_serve_tp(card, params_7b, pool2, tp12,
+                                 serving["scheduler"]["near_tie_bound"])
+        mark("phase 13 (serving over ranks)")
     del params_7b
     torch.cuda.empty_cache()
     phase_file_path()
@@ -5856,6 +6217,7 @@ def main() -> int:
     kernels["kernels"] += serving_entries(k1, q80, k3, serving)
     kernels["kernels"] += spec_entries(k1, q80, k3, spec9)
     kernels["kernels"] += tp_entries(tp12)
+    kernels["kernels"] += serve_tp_entries(serve13)
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
                             ("K2", "q40_expert_matmul", "one Mixtral 8x7B decode step, t = 1, bf16")):
         e = next(k for k in kernels["kernels"] if k["name"] == name)
@@ -5911,7 +6273,7 @@ def main() -> int:
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
         serving=serving, chat=chat, spec=spec9, trace=trace10, admission=admission11,
-        tp=tp12,
+        tp=tp12, serve_tp=serve13,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -69,6 +69,14 @@ resolve_auto_shape), logged at startup and exported as the ``autosize``
 block and ``dllama_autosize_*``; --freeze-compiles refuses a graph capture
 after warmup.
 
+Over --tp ranks (`dllama api --tp T`, parallel/control.py) this server is
+rank 0: it alone binds the port and runs every host layer (HTTP, the
+supervisor and scheduler, the tokenizer, the samplers), and every engine
+call it makes is an op the other ranks run after it, in its order, so the
+legacy path's early stops (a stop string, a disconnect, a deadline) reach
+them at a step boundary. A lost rank makes /healthz and /readyz answer 503
+with the reason, and the server stops and exits non-zero.
+
 Not ported (each refused with a message naming its ROADMAP item): the
 replica verbs, replicas and the router, and tenants.
 """
@@ -199,6 +207,8 @@ class ApiState:
             draft_len=self.draft_len or lookup_decode)
         # graceful drain (SIGTERM): POSTs 503, /readyz unready
         self.draining = False
+        # why the ranks of a mirrored engine were lost (None: in step)
+        self.lost: str | None = None
         # the legacy path's token history whose K/V is live in the cache
         self.cached_tokens: list[int] = []
         # serializes the legacy path's requests
@@ -236,19 +246,15 @@ class ApiState:
         up (the slot decode graph captured) and started. The engine
         factory shares this engine's params: a slot engine costs its KV
         cache, never a copy of the weights."""
-        from ..runtime.engine import Engine
         from ..runtime.resilience import EngineSupervisor
 
         eng = self.engine
 
         def engine_factory():
-            return Engine(eng.spec, eng.params, device=eng.device,
-                          batch=self.serve_batch, max_seq_len=eng.seq_len,
-                          compute_dtype=eng.compute_dtype,
-                          cache_dtype=eng.cache_dtype,
-                          prefill_chunk=eng.prefill_chunk,
-                          activation_q80=eng.activation_q80,
-                          cuda_graphs=eng.cuda_graphs)
+            # the template's mesh and its resolved vocab split carried
+            # through every generation (JAX test_supervisor_tier_serves_
+            # on_tp_mesh); on every rank, as one op
+            return eng.spawn(self.serve_batch)
 
         n_blocks = 0
         if self.prefix_cache:
@@ -749,7 +755,11 @@ def make_handler(state: ApiState):
                      "created": int(time.time()), "owned_by": "user"}]})
             elif self.path in ("/", "/health", "/healthz"):
                 # liveness: 200 while recovering or draining (a restart
-                # would cut the drain short)
+                # would cut the drain short); 503 once a rank is lost
+                if state.lost is not None:
+                    self._json(503, {"status": "lost", "error": state.lost,
+                                     "build": state.build_info()})
+                    return
                 self._json(200, {"status": "draining" if state.draining
                                  else "ok",
                                  "build": state.build_info()})
@@ -943,7 +953,9 @@ def make_handler(state: ApiState):
         def _readyz(self) -> None:
             """Ready = engine healthy AND queue under its bound AND not
             draining; 503 with Retry-After otherwise."""
-            if state.draining:
+            if state.lost is not None:
+                self._json(503, {"status": "lost", "error": state.lost})
+            elif state.draining:
                 self._json(503, {"status": "draining"}, retry_after=1.0)
             elif state._scheduler is None:
                 self._json(200, {"status": "ready", "scheduler": "off"})
@@ -1204,18 +1216,24 @@ def configure_observability(args) -> None:
         PROFILER.sample_every = args.profile_sample
 
 
-def build_server(args) -> tuple[ThreadingHTTPServer, ApiState]:
+def build_server(args, mesh=None,
+                 control=None) -> tuple[ThreadingHTTPServer, ApiState]:
     """The CLI's engine, its ApiState and a threaded server bound to
     --host/--port (port 0: any free port, in server.server_address). The
     prefix cache's block length is validated against the engine's context
     before the server binds; --serve-batch auto and --prefix-blocks auto
     resolve against the built engine; --session resumes a legacy-path
-    session."""
-    from .dllama import build_engine, check_admission_flags
+    session. Over ranks (`mesh`, `control`: rank 0 of `dllama api --tp`)
+    the engine is rank 0's shard, mirrored to the other ranks."""
+    from .dllama import (build_engine, check_admission_flags,
+                         check_serve_flags)
 
     autotune_art = check_admission_flags(args)
+    check_serve_flags(args)
     configure_observability(args)
-    engine, tokenizer, sampler = build_engine(args)
+    engine, tokenizer, sampler = build_engine(args, mesh)
+    if control is not None:
+        control.attach(engine)
     if args.draft:
         # the depth bound needs the model's spec: refused at startup, not
         # on the first request (parse_draft_spec vetted the format)
@@ -1226,6 +1244,11 @@ def build_server(args) -> tuple[ThreadingHTTPServer, ApiState]:
             sys.exit(f"error: --draft self:{arg}: depth must be in "
                      f"1..{engine.spec.n_layers - 1} (the model has "
                      f"{engine.spec.n_layers} layers)")
+        if kind == "model" and engine.mesh is not None:
+            # JAX apps/api_server.py:1978-1986
+            sys.exit("error: --draft model:PATH needs a mesh-less engine "
+                     "(use --draft self:<depth>, which shares the target's "
+                     "sharded buffers)")
     block_len = args.prefix_block_len or 32
     if args.prefix_cache and not 1 <= block_len <= engine.seq_len:
         sys.exit(f"error: --prefix-block-len {block_len} outside 1.."
@@ -1299,7 +1322,10 @@ def finish(state: ApiState, drain_timeout: float,
     if state._scheduler is not None:
         drained = state._scheduler.drain(timeout=drain_timeout)
         state._scheduler.close()
-    if session:
+    if session and state.lost is not None:
+        print(f"💾 a rank is lost: the session is not saved (leaving "
+              f"{session} untouched)")
+    elif session:
         if save_server_session(state, session):
             print(f"💾 saved session to {session} "
                   f"({state.engine.pos} cached positions)")
@@ -1309,9 +1335,11 @@ def finish(state: ApiState, drain_timeout: float,
     return drained
 
 
-def serve(args) -> None:
-    """`dllama api`: serve until SIGTERM or Ctrl-C, then drain."""
-    server, state = build_server(args)
+def serve(args, mesh=None, control=None) -> None:
+    """`dllama api`: serve until SIGTERM or Ctrl-C, then drain. Over ranks
+    (rank 0 of `dllama api --tp`), a lost rank stops the server too, and
+    the process exits non-zero with the reason."""
+    server, state = build_server(args, mesh, control)
 
     def _begin_drain(*_):
         # SIGTERM: POSTs 503 and /readyz unready at once; serve_forever
@@ -1319,6 +1347,13 @@ def serve(args) -> None:
         state.draining = True
         threading.Thread(target=server.shutdown, daemon=True).start()
 
+    def _lost(why: str) -> None:
+        state.lost = why
+        print(f"🔌 {why}", flush=True)
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    if control is not None:
+        control.on_lost(_lost)
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGTERM, _begin_drain)
     host, port = server.server_address[:2]
@@ -1334,3 +1369,5 @@ def serve(args) -> None:
         else:
             print(f"🔌 drain deadline ({args.drain_timeout:.0f}s) elapsed; "
                   "failing stragglers")
+    if state.lost is not None:
+        sys.exit(f"error: {state.lost}")

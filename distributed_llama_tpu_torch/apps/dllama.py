@@ -54,18 +54,26 @@ type of a legacy-header `.m`, which does not store it (ref: app.cpp:47-48);
 
 Over ranks, as in the JAX CLI: `--tp N` splits the model over N
 tensor-parallel ranks and `--dp N` runs N batch rows on N data-parallel
-ranks (row 0 streams, `inference` counts every row); `--shard-vocab`
-(auto, on, off) splits the embedding and the head over tp. The CLI starts
-its ranks itself (parallel/launch.py: this process is rank 0 and alone
-prints, the others are spawned): one process a rank, NCCL when every rank
-has a GPU of its own, gloo on the CPU and when ranks share a GPU (the
-choice is printed). With `--buffer-float-type q80` (the default) the
-column splits' partial sums cross the ranks as Q80 blocks.
+ranks (row 0 streams, `inference` counts every row; with `--lookup-decode
+K` at temperature 0 the rows speculate through generate_batch_lookup);
+`--shard-vocab` (auto, on, off) splits the embedding and the head over tp.
+The CLI starts its ranks itself (parallel/launch.py: this process is rank
+0 and alone prints, the others are spawned): one process a rank, NCCL when
+every rank has a GPU of its own, gloo on the CPU and when ranks share a
+GPU (the choice is printed). With `--buffer-float-type q80` (the default)
+the column splits' partial sums cross the ranks as Q80 blocks.
+`inference` and `generate` run the same program on every rank. `chat` and
+`api` over `--tp` serve from rank 0, which reads stdin or binds the port
+and runs every host layer, while the other ranks run the engine calls it
+mirrors to them (parallel/control.py); speculation, sessions, the prefix
+cache and `--profile` (one trace a rank, DIR/rank<r>/trace.json) run over
+ranks too.
 
 Flags of features the port does not have yet — the worker mode, the sp,
-ep and pp axes, serving over ranks, clusters, and the features listed in
-UNPORTED_FLAGS — are accepted by the parser only to be refused with a
-message, never silently ignored.
+ep and pp axes, clusters, and the features listed in UNPORTED_FLAGS — are
+accepted by the parser only to be refused with a message naming their
+ROADMAP item, never silently ignored; what the JAX CLI itself refuses is
+refused in its words.
 """
 
 from __future__ import annotations
@@ -87,7 +95,6 @@ PORTED_MODES = ("inference", "generate", "chat", "api")
 # serving flags of the JAX CLI that the port does not have yet, with the
 # ROADMAP item that brings each (refused with that message when given)
 _FLEET = "replicas and the fleet (ROADMAP item 16)"
-_RANKS = "serving over ranks (ROADMAP item 18)"
 _CLUSTER = "the multi-node control plane (ROADMAP item 15)"
 UNPORTED_FLAGS = {
     "--replicas": _FLEET, "--retry-budget": _FLEET, "--route-policy": _FLEET,
@@ -161,7 +168,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="inference/generate/chat: write a torch.profiler "
                         "trace (CPU and CUDA activities, Chrome format) of "
-                        "the generation to DIR/trace.json")
+                        "the generation to DIR/trace.json; over ranks one "
+                        "trace a rank, DIR/rank<r>/trace.json")
     p.add_argument("--compute-dtype", default="bf16", choices=["bf16", "f32"])
     p.add_argument("--cache-dtype", default="bf16",
                    choices=["bf16", "f32", "f8"])
@@ -357,23 +365,24 @@ def refusals(args) -> list[str]:
                    "North star)")
     if args.mode not in PORTED_MODES:
         out.append(f"mode {args.mode!r} is not ported yet (ported: "
-                   f"{', '.join(PORTED_MODES)})")
+                   f"{', '.join(PORTED_MODES)}; the worker mode is the "
+                   "multi-node control plane, ROADMAP item 15)")
     out += refuse_unported_axes(sp=args.sp, ep=args.ep, pp=args.pp)
     for axis in ("tp", "dp"):
-        n = getattr(args, axis)
-        if n < 1:
+        if getattr(args, axis) < 1:
             out.append(f"--{axis} must be >= 1")
-        elif n > 1 and args.mode not in ("inference", "generate"):
-            out.append(f"--{axis} {n} in mode {args.mode!r}: {_RANKS} is "
-                       "not ported yet")
-        elif n > 1 and (args.lookup_decode or args.draft):
-            out.append(f"--{axis} {n} with --lookup-decode/--draft: "
-                       f"speculation {_RANKS} is not ported yet")
-        elif n > 1 and args.profile:
-            out.append(f"--{axis} {n} with --profile: a trace of every "
-                       f"rank {_RANKS} is not ported yet")
+    if args.dp > 1 and (args.mode == "chat" or (
+            args.mode == "api" and not args.serve_batch)):
+        # the JAX engine crashes here rather than refusing: its chat and
+        # legacy api generate() on the dp engine's batch rows stops at
+        # `assert self.batch == 1` (JAX runtime/engine.py:838)
+        out.append(f"--dp {args.dp} in mode {args.mode!r}: prefill() is "
+                   "single-sequence; use step() for batches (the JAX "
+                   "engine's assert self.batch == 1, runtime/engine.py:838, "
+                   f"which its {args.mode} reaches on a --dp engine)")
     if args.nnodes != 1:
-        out.append("--nnodes: multi-host clusters are not ported yet")
+        out.append("--nnodes: multi-host clusters are the multi-node "
+                   "control plane (ROADMAP item 15) and are not ported yet")
     for flag, why in UNPORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             out.append(f"{flag} in mode {args.mode!r}: {why} is not ported "
@@ -452,8 +461,8 @@ def check_admission_flags(args) -> dict | None:
 def check_spec_flags(args) -> None:
     """The JAX CLI's parse-time refusals of --draft, --draft-len and
     --lookup-decode, in its words (JAX apps/dllama.py:796-807, 1044,
-    1296-1327): every one fails before any model load. (Speculation over
-    ranks is ROADMAP item 18: refusals() refuses it with --tp or --dp.)"""
+    1296-1327; the mesh-less model draft, apps/api_server.py:1978-1986):
+    every one fails before any model load."""
     if args.draft_len is not None and not args.draft:
         sys.exit("error: --draft-len has no effect without --draft "
                  "(self:<depth> or model:<path>)")
@@ -469,6 +478,10 @@ def check_spec_flags(args) -> None:
             kind, arg = parse_draft_spec(args.draft)
         except ValueError as e:
             sys.exit(f"error: {e}")
+        if kind == "model" and args.tp * args.dp > 1:
+            sys.exit("error: --draft model:PATH needs a mesh-less engine "
+                     "(use --draft self:<depth>, which shares the target's "
+                     "sharded buffers)")
         if kind == "model" and not os.path.exists(arg):
             sys.exit(f"error: --draft model:{arg}: no such file")
         if args.nnodes > 1:
@@ -490,6 +503,9 @@ def check_spec_flags(args) -> None:
         if args.device_sampling and args.mode in ("inference", "generate"):
             sys.exit("error: --lookup-decode is host-loop decoding; it "
                      "does not compose with --device-sampling")
+        if args.dp > 1 and args.temperature != 0:
+            sys.exit("error: --lookup-decode with --dp is greedy-only "
+                     "(Engine.generate_batch_lookup); set --temperature 0")
 
 
 def check_mesh_flags(args) -> None:
@@ -499,6 +515,15 @@ def check_mesh_flags(args) -> None:
         sys.exit("error: --shard-vocab on needs a tensor-parallel mesh "
                  "(--tp > 1) to split the vocab over; 'auto' enables it "
                  "whenever the mesh allows")
+
+
+def check_serve_flags(args) -> None:
+    """The JAX server's refusal of a scheduler over more than the tp axis,
+    in its words (JAX apps/api_server.py:1684-1686): the slot scheduler's
+    engine composes with --tp only."""
+    if args.mode == "api" and args.serve_batch and args.dp > 1:
+        sys.exit("error: --serve-batch needs a single-process engine "
+                 "(no --dp/--sp/--ep/--pp; --tp composes)")
 
 
 def check_session_flags(args) -> None:
@@ -590,11 +615,12 @@ def _stream_pieces(tokenizer, prev_token: int, toks: list[int]) -> None:
 
 
 @contextlib.contextmanager
-def _maybe_profile(args):
+def _maybe_profile(args, mesh=None):
     """A torch.profiler trace of what runs inside, with --profile DIR (JAX
     apps/dllama.py:769 _maybe_profile): CPU activities, and the card's
     kernels on a CUDA engine, written as DIR/trace.json (Chrome trace
-    format)."""
+    format); over ranks each rank writes DIR/rank<r>/trace.json and rank
+    0 says where they are."""
     if not args.profile:
         yield
         return
@@ -603,22 +629,30 @@ def _maybe_profile(args):
     acts = [ProfilerActivity.CPU]
     if args.device == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    os.makedirs(args.profile, exist_ok=True)
+    out = args.profile
+    if mesh is not None and mesh.world > 1:
+        out = os.path.join(args.profile, f"rank{mesh.rank}")
+    os.makedirs(out, exist_ok=True)
     with profile(activities=acts) as prof:
         yield
-    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-    print(f"📈 profiler trace written to {args.profile}")
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    if mesh is not None and mesh.world > 1:
+        print(f"📈 profiler traces written to {args.profile}/rank<r>/"
+              f"trace.json, one a rank (ranks 0-{mesh.world - 1})")
+    else:
+        print(f"📈 profiler trace written to {args.profile}")
 
 
 def cmd_generate(args, benchmark: bool, mesh=None) -> None:
     engine, tokenizer, sampler = build_engine(args, mesh)
     tokens = tokenizer.encode(args.prompt or "Hello")
     print(f"💡 prompt tokens: {len(tokens)}")
-    if engine.batch > 1:
-        _generate_rows(args, engine, tokenizer, sampler, tokens, benchmark)
-        return
-    with _maybe_profile(args):
-        _generate(args, engine, tokenizer, sampler, tokens, benchmark)
+    with _maybe_profile(args, mesh):
+        if engine.batch > 1:
+            _generate_rows(args, engine, tokenizer, sampler, tokens,
+                           benchmark)
+        else:
+            _generate(args, engine, tokenizer, sampler, tokens, benchmark)
 
 
 def _generate_rows(args, engine, tokenizer, sampler, tokens: list[int],
@@ -626,9 +660,16 @@ def _generate_rows(args, engine, tokenizer, sampler, tokens: list[int],
     """The dp branch (JAX apps/dllama.py:814-845): the batch rows generate
     the same prompt independently, one shared sampler drawing every row's
     coin in row order (with --device-sampling, row i on the device stream
-    seed + i); row 0 streams, `inference` counts every row."""
+    seed + i; with --lookup-decode, greedy through generate_batch_lookup:
+    per-row drafts, one verify forward a step); row 0 streams,
+    `inference` counts every row."""
     t0 = time.perf_counter()
-    if args.device_sampling:
+    if args.lookup_decode:
+        outs = engine.generate_batch_lookup(
+            [tokens] * engine.batch, _steps(args, engine),
+            eos_id=tokenizer.stop_token_ids(), draft_len=args.lookup_decode,
+            vocab_size=tokenizer.vocab_size)
+    elif args.device_sampling:
         outs = engine.generate_batch_device(
             [tokens] * engine.batch, _steps(args, engine),
             temperature=args.temperature, topp=args.topp,
@@ -647,13 +688,44 @@ def _generate_rows(args, engine, tokenizer, sampler, tokens: list[int],
 
 
 def rank_main(argv: list[str]) -> None:
-    """One rank of `dllama inference|generate --tp N --dp M`: its mesh,
-    its shard of the model, the same run as every other rank."""
+    """One rank of a run over ranks. `inference|generate --tp N --dp M`:
+    its mesh, its shard of the model, the same run as every other rank.
+    `chat|api --tp N`: rank 0 serves through the mirrored engine
+    (parallel/control.py) and closes the channel when it ends (EOF, the
+    server's drain); every other rank builds its shard and follows until
+    then."""
+    from ..parallel.control import Control
     from ..parallel.mesh import make_mesh
 
     args = build_argparser().parse_args(argv)
     mesh = make_mesh(tp=args.tp, dp=args.dp, device_type=args.device)
-    cmd_generate(args, benchmark=args.mode == "inference", mesh=mesh)
+    if args.mode in ("inference", "generate"):
+        cmd_generate(args, benchmark=args.mode == "inference", mesh=mesh)
+        return
+    control = Control(mesh, RANK_TIMEOUT_S)
+    if mesh.rank != 0:
+        engine, _, _ = build_engine(args, mesh)
+        control.attach(engine)
+        if args.freeze_compiles:
+            # rank 0's sentinel refuses a late capture; each follower
+            # refuses the same capture, so the refusal keeps them in step
+            from ..runtime.profiler import COMPILES
+
+            COMPILES.freeze = True
+        # chat's --profile traces every rank (api mode has none)
+        with _maybe_profile(args, mesh) if args.mode == "chat" \
+                else contextlib.nullcontext():
+            control.follow()
+        return
+    try:
+        if args.mode == "chat":
+            cmd_chat(args, mesh=mesh, control=control)
+        else:
+            from .api_server import serve
+
+            serve(args, mesh=mesh, control=control)
+    finally:
+        control.close()
 
 
 def _generate(args, engine, tokenizer, sampler, tokens: list[int],
@@ -762,14 +834,17 @@ def _print_benchmark(res) -> None:
     print(f"Avg sampling time:   {avg.host_ms:.2f} ms")
 
 
-def cmd_chat(args) -> None:
+def cmd_chat(args, mesh=None, control=None) -> None:
     """Interactive chat with the Llama-2 template (ref: dllama.cpp:133-178;
     JAX apps/dllama.py:1040). Each turn runs Engine.generate on the one
     engine, continuing at its position; with --session the cache and the
     conversation's tokens load before the first turn and save after
     every turn; with --profile DIR the turns run under one torch.profiler
-    trace."""
-    engine, tokenizer, sampler = build_engine(args)
+    trace. Over --tp ranks this is rank 0: it reads stdin, samples and
+    prints, and every engine call is an op of `control`."""
+    engine, tokenizer, sampler = build_engine(args, mesh)
+    if control is not None:
+        control.attach(engine)
     chat_draft = _build_draft(args, engine) if args.draft else None
     # the whole conversation's tokens: the n-gram miner's source and the
     # real draft's catch-up stream (the token at position i is convo[i])
@@ -788,7 +863,7 @@ def cmd_chat(args) -> None:
             system = ""
     first = not resumed
     stops = tokenizer.stop_token_ids()
-    with _maybe_profile(args):
+    with _maybe_profile(args, mesh):
         while True:
             try:
                 user = input("\n👱 User\n> ")
@@ -848,16 +923,17 @@ def main(argv: list[str] | None = None) -> None:
     check_admission_flags(args)
     check_spec_flags(args)
     check_mesh_flags(args)
+    check_serve_flags(args)
     check_session_flags(args)
     refused = refusals(args)
     if refused:
         sys.exit("error: " + "; ".join(refused))
-    if args.mode == "api":
+    if args.tp * args.dp == 1 and args.mode == "api":
         from .api_server import serve
 
         serve(args)
         return
-    if args.mode == "chat":
+    if args.tp * args.dp == 1 and args.mode == "chat":
         cmd_chat(args)
         return
     if args.tp * args.dp > 1:

@@ -6,6 +6,7 @@ exchange tensors.
   all_gather       every rank's tensor, stacked in rank order
   q80_all_gather   the same with an int8 block payload (JAX :22)
   q80_psum         the one-shot Q80 all-reduce (JAX :33)
+  broadcast_object rank 0's picklable object on every rank (a session file)
   q80_psum_2shot   the two-shot Q80 all-reduce (JAX :47), the reference's
                    wire trick: each rank quantizes its partial sums chunk
                    by chunk, an all-to-all hands chunk i to rank i, which
@@ -36,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..quants.torch_codec import dequantize_q80_torch, quantize_q80_torch
-from .mesh import TP_AXIS, Mesh
+from .mesh import TP_AXIS, WORLD, Mesh
 
 
 def _stage(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
@@ -99,6 +100,17 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = TP_AXIS) -> torch.Tensor
     parts = [torch.empty_like(h) for _ in range(mesh.shape[axis])]
     _run(mesh, lambda: dist.all_gather(parts, h, group=mesh.group(axis)))
     return _unstage(mesh, torch.stack(parts))
+
+
+def broadcast_object(obj, mesh: Mesh, src: int = 0):
+    """Rank `src`'s picklable object on every rank of the mesh (a session
+    file's bytes, read once by rank 0)."""
+    if mesh.world == 1:
+        return obj
+    box = [obj]
+    _run(mesh, lambda: dist.broadcast_object_list(box, src=src,
+                                                  group=mesh.group(WORLD)))
+    return box[0]
 
 
 def _all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:

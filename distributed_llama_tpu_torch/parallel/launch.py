@@ -33,6 +33,7 @@ import shutil
 import signal
 import sys
 import tempfile
+import time
 import traceback
 
 import torch
@@ -72,6 +73,7 @@ def _cli_rank(rank: int, world: int, init: str, device_type: str,
     """A spawned CLI rank: its output is dropped (rank 0 prints)."""
     sys.stdout = open(os.devnull, "w")
     faulthandler.register(signal.SIGUSR1, all_threads=True)
+    _share_cores(device_type, world)
     init_ranks(rank, world, init, device_type, timeout_s)
     try:
         _resolve(fn)(*args)
@@ -108,9 +110,17 @@ def run_ranks(world: int, device_type: str, fn: str, args: tuple,
         raise RuntimeError(f"ranks failed (rank, exit code): {bad}")
 
 
+def _share_cores(device_type: str, world: int) -> None:
+    """CPU ranks share the host's cores: each spawned rank takes its share
+    of torch's intra-op threads instead of all of them."""
+    if device_type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // (world + 1)))
+
+
 def _pool_worker(rank: int, world: int, init: str, device_type: str,
                  timeout_s: float, jobs, results) -> None:
     faulthandler.register(signal.SIGUSR1, all_threads=True)
+    _share_cores(device_type, world)
     init_ranks(rank, world, init, device_type, timeout_s)
     try:
         while (job := jobs.get()) is not None:
@@ -142,22 +152,35 @@ class RankPool:
             p.start()
         self._broken = False
 
-    def run(self, fn: str, *args):
+    def run(self, fn: str, *args, partial: bool = False):
         """Every rank's return value of `fn(*args)`, in rank order. A job
         that fails on any rank, or does not answer within the timeout,
-        raises, and the pool takes no more jobs."""
+        raises, and the pool takes no more jobs. With `partial` (a job in
+        which ranks are meant to die) the ranks that gave no answer
+        within the timeout read None, and the pool takes no more jobs."""
         if self._broken:
             raise RuntimeError("the rank pool failed an earlier job")
         for q in self._jobs:
             q.put((fn, args))
-        out, errors = [None] * self.world, []
-        for _ in range(self.world):
+        out, errors, seen = [None] * self.world, [], 0
+        end = time.monotonic() + self.timeout_s
+        while seen < self.world:
             try:
-                rank, ok, val = self._results.get(timeout=self.timeout_s)
+                rank, ok, val = self._results.get(
+                    timeout=0.2 if partial else self.timeout_s)
             except queue.Empty:
+                # a partial job ends once every rank answered or is gone
+                gone = [p for p in self._procs if not p.is_alive()]
+                if partial and (time.monotonic() > end
+                                or seen + len(gone) >= self.world):
+                    self._broken = True
+                    return out
+                if partial:
+                    continue
                 self._broken = True
                 raise TimeoutError(f"{fn}: no answer from every rank in "
                                    f"{self.timeout_s} s") from None
+            seen += 1
             if ok:
                 out[rank] = val
             else:

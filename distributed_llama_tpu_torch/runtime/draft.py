@@ -49,6 +49,8 @@ import numpy as np
 import torch
 
 from ..models.transformer import KVCache, forward
+from ..ops.sharded_vocab import sharded_argmax
+from ..parallel.control import mirrored
 from .graphs import CapturedStep, capture
 from .profiler import COMPILES, PROFILER, compile_key_str
 
@@ -101,10 +103,18 @@ def batched_verify(params, spec, tok, pos, cache, *, n_vocab, fwd_kwargs):
     per-row positions with every position's logits, argmaxed on the device
     over the first n_vocab. Returns (greedy (B, 1 + K) int32, the
     position-0 logits (B, V) f32: what a plain decode step would have
-    returned, for the rows that sample)."""
+    returned, for the rows that sample). With `local_logits` (a
+    vocab-sharded engine over ranks) the logits stay each rank's vocab
+    slice and the greedy tokens are their sharded argmax, the lowest id
+    among equal maxima as np.argmax picks."""
     logits = forward(params, spec, tok, pos, cache, logits_for_all=True,
                      **fwd_kwargs)
-    greedy = torch.argmax(logits[..., :n_vocab], dim=-1).to(torch.int32)
+    if fwd_kwargs.get("local_logits"):
+        b, t = logits.shape[:2]
+        greedy = sharded_argmax(logits.flatten(0, 1), fwd_kwargs["mesh"],
+                                n_vocab).view(b, t).to(torch.int32)
+    else:
+        greedy = torch.argmax(logits[..., :n_vocab], dim=-1).to(torch.int32)
     return greedy, logits[:, 0]
 
 
@@ -122,17 +132,31 @@ def _check_vocab(spec, engine) -> None:
 class DraftModel:
     """One draft forward (spec, params and its own KV cache) bound to a
     target :class:`runtime.engine.Engine`, whose batch, context, cache
-    dtype and forward configuration it takes."""
+    dtype and forward configuration it takes. Over a tp mesh a self-draft
+    runs on the target's shards with the target's reduce and vocab split,
+    and its cache holds this rank's kv heads; its steps are ops of the
+    target's control channel (parallel/control.py)."""
+
+    _ctl_id = None
+    _mirrorable = True
 
     def __init__(self, engine, spec, params, *, label: str):
         _check_vocab(spec, engine)
+        mesh = getattr(engine, "_mesh", None)
+        if mesh is not None and mesh.dp > 1:
+            # JAX apps/dllama.py:1321-1324
+            raise ValueError("--draft is single-sequence outside api mode "
+                             "and per-slot inside it; it does not compose "
+                             "with --dp")
         self.engine = engine
         self.spec = spec
         self.params = params
         self.label = label
         dev, b = engine.device, engine.batch
-        self.cache = KVCache.create(spec, b, engine.seq_len,
-                                    engine.cache_dtype, dev)
+        tp = mesh.tp if mesh is not None else 1
+        self.cache = KVCache.create(
+            dataclasses.replace(spec, n_kv_heads=spec.n_kv_heads // tp), b,
+            engine.seq_len, engine.cache_dtype, dev)
         self._buf = types.SimpleNamespace(
             tok=torch.zeros((b, 1), dtype=torch.int64, device=dev),
             pos=torch.zeros((b,), dtype=torch.int32, device=dev),
@@ -163,7 +187,13 @@ class DraftModel:
     def from_file(cls, engine, path: str) -> "DraftModel":
         """A separate draft ``.m`` loaded through the port's loader onto
         the engine's device, in the engine's compute dtype; depth = its
-        full layer count."""
+        full layer count. Loaded unsharded, so it needs a mesh-less target
+        (JAX runtime/draft.py:192-199)."""
+        if getattr(engine, "mesh", None) is not None:
+            raise ValueError(
+                "--draft model:PATH needs a mesh-less target engine "
+                "(use --draft self:<depth>, which shares the target's "
+                "sharded buffers)")
         from ..io.model_file import read_spec
         from ..models.loader import load_params_streamed
 
@@ -175,16 +205,23 @@ class DraftModel:
 
     # -- state -------------------------------------------------------------
 
+    @property
+    def control(self):
+        """The target engine's control channel: a draft's steps are its
+        ops."""
+        return self.engine.control
+
     def _kwargs(self) -> dict:
-        eng = self.engine
-        return dict(compute_dtype=eng.compute_dtype,
-                    activation_q80=eng.activation_q80)
+        # the target's forward configuration, whole logits (the argmax and
+        # the host draws read every id)
+        return self.engine._fwd_kwargs()
 
     def _own(self, cache) -> None:
         if cache is not self.cache:
             raise ValueError("a DraftModel steps its own cache only (its "
                              "graphs hold that cache's addresses)")
 
+    @mirrored
     def new_cache(self) -> KVCache:
         """The draft cache, zeroed in place: depth layers of the TARGET's
         (batch, seq_len) in the target's cache dtype. Always the same
@@ -193,6 +230,7 @@ class DraftModel:
             buf.zero_()
         return self.cache
 
+    @mirrored
     def release(self) -> None:
         """Give the draft cache and its graphs' pools back (the failed
         engine's drafts, before a supervisor rebuild allocates)."""
@@ -218,6 +256,7 @@ class DraftModel:
 
     # -- steps -------------------------------------------------------------
 
+    @mirrored
     @torch.inference_mode()
     def prefill_chunk(self, cache: KVCache, tok: np.ndarray,
                       pos: np.ndarray) -> KVCache:
@@ -233,6 +272,7 @@ class DraftModel:
                 self.cache, fwd_kwargs=self._kwargs()))
         return self.cache
 
+    @mirrored
     @torch.inference_mode()
     def propose(self, cache: KVCache, tok: np.ndarray, pos: np.ndarray,
                 k: int, *, n_vocab: int) -> tuple[np.ndarray, KVCache]:
@@ -265,6 +305,7 @@ class DraftModel:
             run()
         return out.cpu().numpy().astype(np.int32), self.cache
 
+    @mirrored
     @torch.inference_mode()
     def step_logits(self, cache: KVCache, tok: np.ndarray,
                     pos: np.ndarray) -> tuple[np.ndarray, KVCache]:
@@ -288,7 +329,13 @@ class DraftModel:
 def build_draft(engine, spec_str: str) -> DraftModel:
     """``--draft`` string -> DraftModel over ``engine`` (the factory a
     supervisor calls for every generation: a rebuilt engine gets a fresh
-    DraftModel over its own tensors)."""
+    DraftModel over its own tensors). Built through Engine.new_draft, so a
+    mirrored engine builds it on every rank."""
+    return engine.new_draft(spec_str)
+
+
+def make_draft(engine, spec_str: str) -> DraftModel:
+    """The body of build_draft on one rank."""
     kind, arg = parse_draft_spec(spec_str)
     if kind == "self":
         return DraftModel.self_draft(engine, int(arg))

@@ -85,10 +85,23 @@ before one shared Sampler samples them in row order, as the JAX
 generate_batch does; greedy rows exchange only their tokens. Under NCCL a
 decode step is captured with its collectives inside; under gloo on a card
 (ranks sharing a GPU) collectives stage through host memory, which a
-graph cannot capture, so steps run eagerly. The slot, prefix, session and
-speculation entry points refuse a mesh of more than one rank (ROADMAP
-item 18). `force_mesh_kernels` runs the shard path on a 1-rank mesh
-(JAX :139), the single-card proof of the mesh step.
+graph cannot capture, so steps run eagerly. `force_mesh_kernels` runs the
+shard path on a 1-rank mesh (JAX :139), the single-card proof of the mesh
+step.
+
+Serving over ranks (parallel/control.py): under `chat` and `api` only rank
+0 has the inputs, so rank 0 runs every host loop (the scheduler, the
+samplers, Engine.generate, the speculative loops) and the other ranks run
+the ops it mirrors to them. Every method that issues a collective or
+changes state a follower holds is `@mirrored`: on rank 0 of an engine with
+a `control` channel, a call of it is sent, then run, on every rank; a
+method that calls another runs the inner one locally on each rank. The
+slot steps, the verify steps, the prefix arena's seed and publish, the
+sessions (saved through a gather of every rank's heads to rank 0, loaded
+from rank 0's read of the file), the sampling views and their row fetch,
+the drafts and the engine factory of the supervisor (`spawn`) are such
+ops; with no channel (one rank, or the SPMD CLI runs where every rank runs
+the same program) they run locally.
 
 The engine runs on `cuda` unless the caller asks for the CPU: with no card
 present, `Engine(...)` raises instead of running elsewhere.
@@ -98,6 +111,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import io
 import os
 import time
 import types
@@ -113,7 +127,8 @@ from ..models.transformer import _BITS, KVCache, forward
 from ..ops.cuda_attention import saturate_f8_nan_codes
 from ..ops.device_sampler import sample_rows, sample_token, state_from_seed
 from ..ops.sharded_vocab import sharded_argmax, sharded_sample_prep
-from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.collectives import all_gather, all_reduce, broadcast_object
+from ..parallel.control import mirrored
 from ..parallel.mesh import DP_AXIS, TP_AXIS, WORLD
 from ..parallel.sharding import (check_tp_constraints, is_sharded,
                                  shard_params, vocab_splits)
@@ -136,9 +151,6 @@ DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32",
 # generate_device's host reads the loop's done flag once every this many
 # replays: at most this many - 1 forwards run after the stop token
 _DONE_CHECK_EVERY = 8
-# what the entry points that do not run over ranks yet say
-MESH_REFUSAL = ("over a mesh of more than one rank is ROADMAP item 18 "
-                "(serving over ranks) and is not ported yet")
 # candidates each rank of a vocab-split head sends the sampler a row (JAX
 # Engine(vocab_topk=32)); the guard fetches one replicated row when they
 # cannot prove the draw
@@ -192,6 +204,12 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 class Engine:
+    # the op channel of serving over ranks (parallel/control.py): set on
+    # rank 0 of a mirrored engine, None everywhere else
+    control = None
+    _ctl_id = None
+    _mirrorable = True
+
     def __init__(
         self,
         spec: ModelSpec,
@@ -337,11 +355,44 @@ class Engine:
             # generate_batch_device's per-row buffers, made at first use
             rows=None)
 
-    def _single_rank(self, name: str) -> None:
-        """Refuse an entry point that does not run over ranks yet."""
-        if self._mesh is not None and self._mesh.size > 1:
-            raise ValueError(f"{name} {MESH_REFUSAL}")
+    @mirrored
+    def spawn(self, batch: int) -> "Engine":
+        """An engine of `batch` slots over this one's params, mesh and
+        configuration (the supervisor's engine factory): it costs its KV
+        cache, never a copy of the weights. On every rank as one op."""
+        return Engine(self.spec, self.params, device=self.device,
+                      batch=batch, max_seq_len=self.seq_len,
+                      compute_dtype=self.compute_dtype,
+                      cache_dtype=self.cache_dtype,
+                      prefill_chunk=self.prefill_chunk,
+                      activation_q80=self.activation_q80,
+                      cuda_graphs=self.cuda_graphs,
+                      model_fingerprint=self.model_fingerprint,
+                      mesh=self.mesh, q80_collectives=self.q80_collectives,
+                      shard_vocab=self.shard_vocab,
+                      force_mesh_kernels=self._mesh is not None)
 
+    @mirrored
+    def ranks_device_stats(self) -> dict | None:
+        """The device numbers of the rank with the least headroom
+        (runtime/profiler.py least_headroom): the auto-sizing decision
+        over ranks reads them. None on the CPU."""
+        from .profiler import device_memory_stats, least_headroom
+
+        local = device_memory_stats(self.device)
+        if local is not None:
+            local["bytes_reserved"] = int(torch.cuda.memory_reserved(self.device))
+        return least_headroom(local, self._mesh)
+
+    @mirrored
+    def new_draft(self, spec_str: str):
+        """A DraftModel over this engine from a --draft string
+        (runtime/draft.py), on every rank as one op."""
+        from .draft import make_draft
+
+        return make_draft(self, spec_str)
+
+    @mirrored
     def reset(self) -> None:
         """New session: zero the cache (in place) and rewind the position."""
         self._zero_cache()
@@ -349,14 +400,16 @@ class Engine:
 
     # -- session persistence (JAX runtime/engine.py:406-545) ---------------
 
+    @mirrored
     def save_session(self, path: str, tokens: list[int] | None = None) -> None:
         """Persist the session: pos and the filled cache prefix (positions
         < pos), with an optional token history, as the JAX package's .npz
         (narrow dtypes stored as raw uint8/uint16 bits), so either package
         loads the other's file. Written to path + ".tmp", then renamed: a
         signal mid-write never leaves a truncated file where a good one
-        stood."""
-        self._single_rank("save_session")
+        stood. Over ranks every rank's kv heads (and rows) are gathered and
+        rank 0 writes the whole cache in the JAX layout (JAX
+        runtime/engine.py:406 fetches it to the host the same way)."""
         data: dict = {
             "pos": np.int64(self.pos),
             "cache_dtype": np.str_(DTYPE_NAMES[self.cache_dtype]),
@@ -366,25 +419,55 @@ class Engine:
         }
         for l in range(self.spec.n_layers):
             for name, leaf in (("k", self.cache.k[l]), ("v", self.cache.v[l])):
-                arr = _bits(leaf[:, :, :self.pos]).cpu().numpy()
+                arr = self._whole_prefix(leaf).cpu().numpy()
                 if self.cache_dtype == torch.bfloat16:
                     arr = arr.view(np.uint16)
                 elif self.cache_dtype == torch.float32:
                     arr = arr.view(np.float32)
                 data[f"{name}{l}"] = arr
+        if self._mesh is not None and self._mesh.rank != 0:
+            return
         # an open handle: np.savez(str) appends ".npz" to a bare name
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
             np.savez(f, **data)
         os.replace(tmp, path)
 
+    def _whole_prefix(self, leaf: torch.Tensor) -> torch.Tensor:
+        """The filled prefix (positions < pos) of one cache leaf as integer
+        bits, with every rank's kv heads and rows on a mesh: (B, KVH, pos,
+        hs). The gather moves bytes, which every backend carries."""
+        bits = _bits(leaf[:, :, :self.pos]).contiguous()
+        if self._mesh is None:
+            return bits
+        raw = bits.view(torch.uint8)
+        if self._mesh.tp > 1:
+            raw = all_gather(raw, self._mesh, TP_AXIS).movedim(0, 1).flatten(1, 2)
+        raw = self._gather_rows(raw)
+        return raw.view(bits.dtype)
+
+    @mirrored
     def load_session(self, path: str) -> list[int]:
         """Restore a save_session() file, of either package: refuses a
         mismatched model or engine config, zeroes the cache and copies the
         saved prefix into it IN PLACE (through the NaN-code guard), sets
-        pos. Returns the saved token history ([] when it has none)."""
-        self._single_rank("load_session")
-        z = np.load(path)
+        pos. Returns the saved token history ([] when it has none). Over
+        ranks rank 0 reads the file and hands its bytes to every rank,
+        each of which keeps its own kv heads and rows."""
+        if self._mesh is None:
+            z = np.load(path)
+        else:
+            blob = None
+            if self._mesh.rank == 0:
+                try:
+                    with open(path, "rb") as f:
+                        blob = f.read()
+                except OSError as e:
+                    blob = e
+            blob = broadcast_object(blob, self._mesh)
+            if isinstance(blob, OSError):
+                raise blob
+            z = np.load(io.BytesIO(blob))
         saved, mine = [int(x) for x in z["config"]], self._session_fingerprint()
         # the weight-content element compares only when both sides know it:
         # 0 means params held in memory (and 4-element files predate it)
@@ -398,9 +481,12 @@ class Engine:
         if not 0 <= pos <= self.seq_len:
             raise ValueError(f"session pos {pos} outside 0..{self.seq_len}")
         self.reset()
+        kvh = self.cache.k[0].shape[1]
+        h0 = self._mesh.tp_rank * kvh if self._mesh is not None else 0
+        rows = slice(self._row0, self._row0 + self._rows)
         for l in range(self.spec.n_layers):
             for name, leaf in (("k", self.cache.k[l]), ("v", self.cache.v[l])):
-                raw = np.ascontiguousarray(z[f"{name}{l}"])
+                raw = np.ascontiguousarray(z[f"{name}{l}"][rows, h0:h0 + kvh])
                 bits = torch.from_numpy(raw.view(_BITS_NP[raw.dtype.itemsize]))
                 pfx = bits.to(self.device).view(self.cache_dtype)
                 _bits(leaf[:, :, :pos]).copy_(_bits(saturate_f8_nan_codes(pfx)))
@@ -431,12 +517,17 @@ class Engine:
         local_logits: a vocab-sharded engine keeps its vocab slice (the
         sharded sampler's input); otherwise the logits are whole."""
         return forward(self.params, self.spec, tokens, pos0, self.cache,
-                       compute_dtype=self.compute_dtype,
-                       activation_q80=self.activation_q80,
                        logit_index=logit_index, logits_for_all=logits_for_all,
-                       mesh=self._mesh, tp_reduce=self.tp_reduce,
-                       shard_vocab=self.shard_vocab,
-                       local_logits=local_logits and self.shard_vocab)
+                       **self._fwd_kwargs(local_logits))
+
+    def _fwd_kwargs(self, local_logits: bool = False) -> dict:
+        """The forward's configuration: compute dtype, Q80 activations,
+        and the mesh with its reduce and vocab split (the engine's own
+        forward, the verify step's and a self-draft's)."""
+        return dict(compute_dtype=self.compute_dtype,
+                    activation_q80=self.activation_q80, mesh=self._mesh,
+                    tp_reduce=self.tp_reduce, shard_vocab=self.shard_vocab,
+                    local_logits=local_logits and self.shard_vocab)
 
     def _one_sequence(self, name: str) -> None:
         if self.batch != 1:
@@ -492,11 +583,13 @@ class Engine:
             COMPILES.record(self, key, self.graphs[key].capture_s * 1e3)
         return self.graphs[key]
 
+    @mirrored
     def mark_compile_warm(self) -> None:
         """The serving set is captured (Scheduler.warmup): from here a new
         graph key is a capture after warmup."""
         self._compile_warm = True
 
+    @mirrored
     def release(self) -> None:
         """Give the cache and the captured graphs' pools back to the
         allocator: a supervisor rebuild calls this on the failed engine
@@ -513,6 +606,7 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
+    @mirrored
     @torch.inference_mode()
     def step(self, tokens: np.ndarray, pos0: int) -> torch.Tensor:
         """Run a (1, T) segment from absolute position pos0; returns the
@@ -600,13 +694,15 @@ class Engine:
     # -- speculative decoding (runtime/speculative.py, runtime/draft.py) ---
 
     def _seg_buffer(self, t: int) -> torch.Tensor:
-        """The static (B, t) token buffer of the verify steps of width t."""
+        """The static (rows, t) token buffer of the verify steps of width t
+        (this rank's rows of the batch)."""
         seg = self._buf.seg
         if t not in seg:
-            seg[t] = torch.zeros((self.batch, t), dtype=torch.int64,
+            seg[t] = torch.zeros((self._rows, t), dtype=torch.int64,
                                  device=self.device)
         return seg[t]
 
+    @mirrored
     @torch.inference_mode()
     def _verify_logits(self, seg: np.ndarray, pos0: int) -> np.ndarray:
         """The verify forward of a batch-1 speculative stream: the (1, T)
@@ -690,7 +786,6 @@ class Engine:
         from .speculative import find_draft
 
         self._one_sequence("speculative decoding")
-        self._single_rank("speculative decoding")
         stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
         if max_tokens <= 0:
             # the hard-cap contract of generate(): prefill, emit nothing
@@ -1057,6 +1152,7 @@ class Engine:
 
     # -- on-device loops: one captured step, replayed back to back ---------
 
+    @mirrored
     @torch.inference_mode()
     def decode_greedy_device(self, first_token: int,
                              n_tokens: int) -> tuple[np.ndarray, float]:
@@ -1092,6 +1188,7 @@ class Engine:
         self.pos += n_tokens
         return toks.numpy().astype(np.int32).reshape(n_tokens, 1), dt
 
+    @mirrored
     @torch.inference_mode()
     def generate_device(
         self,
@@ -1169,6 +1266,7 @@ class Engine:
             raise ValueError("context overflow")
         return lens
 
+    @mirrored
     def _batch_prefill(self, prompts: list[list[int]]) -> torch.Tensor:
         """Prefill every row's prompt from position 0, right-padded, in
         chunks of prefill_chunk through slot_prefill_chunk: a row whose
@@ -1255,7 +1353,8 @@ class Engine:
                 toks = self._greedy_rows(lg, int(sampler.vocab_size))
                 out[mask] = toks[mask]
                 return out
-            view = self.sample_view(lg, sampler)
+            temps = np.full(b, sampler.temperature or 1.0, np.float32)
+            view = self.sample_view(lg, temps, int(sampler.vocab_size))
             for i in np.nonzero(mask)[0]:
                 out[i] = view.sample(sampler, int(i))
             return out
@@ -1303,6 +1402,7 @@ class Engine:
             return x
         return all_gather(x, self._mesh, DP_AXIS).flatten(0, 1)
 
+    @mirrored
     def _greedy_rows(self, lg: torch.Tensor, n_vocab: int) -> np.ndarray:
         """(B,) greedy tokens over this rank's rows' logits: the sharded
         argmax on a vocab-sharded engine, np.argmax's first maximum over
@@ -1313,46 +1413,48 @@ class Engine:
             toks = torch.argmax(lg[:, :n_vocab].float(), dim=-1)
         return self._gather_rows(toks).cpu().numpy()
 
-    def sample_view(self, lg: torch.Tensor, sampler: Sampler):
+    @mirrored
+    def sample_view(self, lg: torch.Tensor, temps: np.ndarray | None,
+                    n_vocab: int):
         """Sampling access to one step's logits of every row (JAX
         runtime/engine.py:755), from this rank's rows' logits. Over dp the
         rows' logits (or summaries) meet at every rank, so one shared
         Sampler samples all of them in row order. A vocab-sharded engine
         gives a ShardedLogitsView: the device argmax and per-rank top-k
-        candidates (k = VOCAB_TOPK), exact by the guard, with one
-        replicated row fetched for whatever the candidates cannot
-        prove."""
+        candidates (k = VOCAB_TOPK) at each row's temperature (`temps`,
+        (B,) f32, a greedy row passing 1; None: all 1), exact by the
+        guard, with one replicated row fetched (`fetch_row`) for whatever
+        the candidates cannot prove. n_vocab: the tokenizer's vocab, where
+        the argmax and the candidates stop."""
         if not self.shard_vocab or self._mesh is None:
             return FullLogitsView(self.fetch_logits(self._gather_rows(lg)))
-        nv = int(sampler.vocab_size)
+        nv = int(n_vocab)
         k = max(1, min(VOCAB_TOPK, lg.shape[-1]))
-        temps = torch.full((lg.shape[0],), sampler.temperature or 1.0,
-                           dtype=torch.float32, device=lg.device)
+        temps = (np.ones(self.batch, np.float32) if temps is None
+                 else np.asarray(temps, np.float32))
+        t = torch.as_tensor(self._local_rows(temps)[0], device=lg.device)
         amax, cand_p, cand_id, guard = (
-            self._gather_rows(t).cpu().numpy()
-            for t in sharded_sample_prep(lg, temps, self._mesh, nv, k))
+            self._gather_rows(x).cpu().numpy()
+            for x in sharded_sample_prep(lg, t, self._mesh, nv, k))
         return ShardedLogitsView(amax, cand_p, cand_id, guard, nv,
-                                 self._row_fetcher(lg),
+                                 functools.partial(self.fetch_row, lg),
                                  stats=self.vocab_sample_stats)
 
-    def _row_fetcher(self, lg: torch.Tensor):
-        """One whole (vocab,) row of the vocab-split logits, on every rank:
-        the ranks holding the row put their vocab slice in place, the
-        others zeros, and one all-reduce adds them (exact: one value and
-        zeros). Every rank samples the same rows in the same order, so
-        every rank makes the same fetches."""
+    @mirrored
+    def fetch_row(self, lg: torch.Tensor, row: int) -> np.ndarray:
+        """One whole (vocab,) row of the vocab-split logits `lg`, on every
+        rank: the ranks holding the row put their vocab slice in place,
+        the others zeros, and one all-reduce adds them (exact: one value
+        and zeros). A sampler asks for it lazily, so on a mirrored engine
+        it is an op of its own: followers never sample, they fetch when
+        rank 0 does."""
         mesh, vl = self._mesh, lg.shape[-1]
         axis = WORLD if self._dp_split else TP_AXIS
-
-        def fetch(row: int) -> np.ndarray:
-            buf = torch.zeros(self.spec.vocab_size, dtype=torch.float32,
-                              device=lg.device)
-            if self._mine(row):
-                buf[mesh.tp_rank * vl:(mesh.tp_rank + 1) * vl] = \
-                    lg[row - self._row0]
-            return all_reduce(buf, mesh, axis).cpu().numpy()
-
-        return fetch
+        buf = torch.zeros(self.spec.vocab_size, dtype=torch.float32,
+                          device=lg.device)
+        if self._mine(row):
+            buf[mesh.tp_rank * vl:(mesh.tp_rank + 1) * vl] = lg[row - self._row0]
+        return all_reduce(buf, mesh, axis).cpu().numpy()
 
     def _row_buffers(self) -> types.SimpleNamespace:
         """generate_batch_device's static per-row buffers: each row's
@@ -1398,6 +1500,7 @@ class Engine:
         b.pos.add_(looping.to(torch.int32))
         b.count.add_(looping.to(torch.int64))
 
+    @mirrored
     @torch.inference_mode()
     def generate_batch_device(
         self,
@@ -1503,7 +1606,6 @@ class Engine:
         `stop_flags` before the call never emit."""
         from .speculative import count_accepted, find_draft
 
-        self._single_rank("generate_batch_lookup")
         stop_ids = ({eos_id} if isinstance(eos_id, int) else eos_id) or set()
         spec_v = min(vocab_size or self.spec.vocab_size, self.spec.vocab_size)
         lens = self._batch_args(prompts)
@@ -1513,7 +1615,7 @@ class Engine:
         if max_tokens <= 0:      # the hard-cap contract of generate()
             self.last_accept_stats = (1, 0)
             return [[] for _ in range(b)]
-        first = torch.argmax(logits[:, :spec_v].float(), dim=-1).cpu().numpy()
+        first = self._greedy_rows(logits, spec_v)
         out: list[list[int]] = [[] for _ in range(b)]
         done = (np.asarray(stop_flags, bool).copy() if stop_flags is not None
                 else np.zeros(b, bool))
@@ -1590,15 +1692,17 @@ class Engine:
         row, so its cache, mid-decode or idle, is untouched. Returns the
         (B, vocab) f32 logits at each row's `logit_index` within the chunk,
         on the device. Runs eagerly; does not touch self.pos."""
-        self._single_rank("slot_prefill_chunk")
+        # host side, before any launch, and before the op is sent: a
+        # fault here leaves every rank in step
+        FAULTS.fire("prefill_raise")
         return self._prefill_chunk(tokens, pos, logit_index)
 
+    @mirrored
     def _prefill_chunk(self, tokens: np.ndarray, pos: np.ndarray,
                        logit_index: np.ndarray) -> torch.Tensor:
         """slot_prefill_chunk's forward over this rank's rows (its vocab
         slice of the logits on a vocab-sharded engine). The profiler's
         entry times the forward alone, its arguments built before it."""
-        FAULTS.fire("prefill_raise")   # host side, before any launch
         tokens, pos = self._slot_args("slot_prefill_chunk", tokens, pos)
         tokens, pos, lidx = self._local_rows(
             tokens, pos, np.asarray(logit_index, np.int64))
@@ -1611,30 +1715,33 @@ class Engine:
 
     # -- prefix-cache arena (runtime/prefix_cache.py) ----------------------
 
+    @mirrored
     def new_prefix_arena(self, num_blocks: int, block_len: int):
         """The radix prefix cache's block arena: zeroed K and V tensors of
         (num_blocks, layers, kv_heads, block_len, head_size) in the cache
-        dtype. The arena dies with the engine: a supervisor rebuild mints a
-        fresh engine, arena and tree."""
-        self._single_rank("the prefix cache")
+        dtype, over this rank's kv heads on a mesh (the cache's: KVH/tp,
+        the replicated virtual heads counted). The arena dies with the
+        engine: a supervisor rebuild mints a fresh engine, arena and tree.
+        The radix tree stays on rank 0; block ids come from it."""
         if num_blocks < 1 or not 1 <= block_len <= self.seq_len:
             raise ValueError(f"prefix arena of {num_blocks} blocks of "
                              f"{block_len} (context {self.seq_len})")
-        shape = (num_blocks, self.spec.n_layers, self.spec.n_kv_heads,
+        shape = (num_blocks, self.spec.n_layers, self.cache.k[0].shape[1],
                  block_len, self.spec.head_size)
         return (torch.zeros(shape, dtype=self.cache_dtype, device=self.device),
                 torch.zeros(shape, dtype=self.cache_dtype, device=self.device))
 
+    @mirrored
     @torch.inference_mode()
     def slot_seed_prefix(self, arena_k, arena_v, row: int, block_ids) -> None:
         """Seed slot row `row`'s leading cache positions from arena blocks,
         in place (seed_rows_from_blocks): one gather and one copy a layer
         for K and for V, eagerly, on the default stream between the
         scheduler's replays. Does not touch self.pos."""
-        self._single_rank("slot_seed_prefix")
         PROFILER.timed("prefix_seed", seed_rows_from_blocks, self.cache,
                        arena_k, arena_v, row, block_ids)
 
+    @mirrored
     @torch.inference_mode()
     def slot_publish_block(self, arena_k, arena_v, row: int, offset: int,
                            dst: list[int]) -> None:
@@ -1645,7 +1752,6 @@ class Engine:
         came from this engine's own saturating writes, so no guard runs
         here (the seed side owns it, as `saturate_f8_nan_codes` in
         seed_rows_from_blocks and load_session)."""
-        self._single_rank("slot_publish_block")
         PROFILER.timed("prefix_publish", self._publish, arena_k, arena_v,
                        row, offset, dst)
 
@@ -1678,9 +1784,10 @@ class Engine:
         into the static buffers and replays the captured graph
         "slot_decode" (captured at the first call, the scheduler's
         warmup). Does not touch self.pos."""
-        self._single_rank("slot_decode_step")
         return self._slot_step(tokens, pos)
 
+    @mirrored
+    @torch.inference_mode()
     def _slot_step(self, tokens: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         """slot_decode_step over this rank's rows (its vocab slice of the
         logits on a vocab-sharded engine)."""
@@ -1698,6 +1805,7 @@ class Engine:
         graph.replay()
         return graph.out.clone()
 
+    @mirrored
     @torch.inference_mode()
     def slot_verify_step(self, tokens: np.ndarray, pos: np.ndarray,
                          n_vocab: int) -> tuple[np.ndarray, torch.Tensor]:
@@ -1711,21 +1819,27 @@ class Engine:
         its own: what slot_decode_step would have returned, for the rows
         that sample). On a CUDA engine one captured graph
         ("slot_verify", 1 + K, n_vocab) over static (B, 1 + K) token and
-        (B,) position buffers. Does not touch self.pos."""
+        (B,) position buffers. Does not touch self.pos.
+
+        Over ranks each rank runs its rows with its kv heads: the greedy
+        tokens are the sharded argmax of the vocab-split logits (one
+        (B·(1+K),) gather over tp) and every row's tokens meet over dp;
+        the position-0 logits stay this rank's rows and, vocab-sharded,
+        its vocab slice, as slot_decode_step's do (sample_view reads
+        them)."""
         from .draft import batched_verify
 
-        self._single_rank("slot_verify_step")
         tokens, pos = self._slot_args("slot_verify_step", tokens, pos)
+        tokens, pos = self._local_rows(tokens, pos)
         t, nv = tokens.shape[1], int(n_vocab)
-        kw = dict(compute_dtype=self.compute_dtype,
-                  activation_q80=self.activation_q80)
+        kw = self._fwd_kwargs(local_logits=True)
         if not self.cuda_graphs:
             dev = self.device
             greedy, logits0 = batched_verify(
                 self.params, self.spec, torch.as_tensor(tokens, device=dev),
                 torch.as_tensor(pos, device=dev), self.cache, n_vocab=nv,
                 fwd_kwargs=kw)
-            return greedy.cpu().numpy(), logits0
+            return self._gather_rows(greedy).cpu().numpy(), logits0
         buf, b = self._seg_buffer(t), self._buf
         buf.copy_(torch.from_numpy(tokens))
         b.pos.copy_(torch.from_numpy(pos))
@@ -1734,4 +1848,4 @@ class Engine:
             fwd_kwargs=kw))
         graph.replay()
         greedy, logits0 = graph.out
-        return greedy.cpu().numpy(), logits0.clone()
+        return self._gather_rows(greedy).cpu().numpy(), logits0.clone()

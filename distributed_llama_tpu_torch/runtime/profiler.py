@@ -187,6 +187,38 @@ def device_memory_stats(device) -> dict | None:
             "bytes_limit": int(torch.cuda.memory_reserved(device)) + int(free)}
 
 
+def ranks_on_card(mesh) -> int:
+    """How many ranks of the mesh share this rank's card (parallel/mesh.py
+    rank_device: rank r on cuda:(r % cards))."""
+    from ..parallel.mesh import rank_device
+
+    return sum(rank_device(mesh.device.type, r) == mesh.device
+               for r in range(mesh.world))
+
+
+def least_headroom(local: dict | None, mesh, share: int | None = None):
+    """The device numbers of the mesh's rank with the least headroom,
+    from each rank's own (`local`: device_memory_stats's, with the
+    allocator's reserved bytes as `bytes_reserved`). A card that
+    `share` ranks hold (default: ranks_on_card) lends each of them its
+    share of the free bytes, not all of them: two ranks on one 80 GB card
+    size against 40 GB each, not 80 GB twice. Every rank calls it (one
+    gather over the mesh); None on the CPU."""
+    from ..parallel.collectives import all_gather
+    from ..parallel.mesh import WORLD
+
+    if local is None or mesh is None or mesh.world == 1:
+        return local
+    share = share or ranks_on_card(mesh)
+    reserved = int(local.get("bytes_reserved", 0))
+    free = int(local["bytes_limit"]) - reserved
+    mine = torch.tensor([int(local["bytes_in_use"]), reserved + free // share],
+                        dtype=torch.int64, device=mesh.device)
+    every = all_gather(mine, mesh, WORLD).tolist()
+    in_use, limit = min(every, key=lambda r: r[1] - r[0])
+    return {"bytes_in_use": in_use, "bytes_limit": limit}
+
+
 def hbm_ledger(engine, prefix_cache=None, *, block_len: int | None = None,
                device_stats: dict | None | bool = True) -> dict:
     """Live bytes by category for one engine (the ``hbm`` /stats block):
@@ -292,6 +324,10 @@ def resolve_auto_shape(engine, *, serve_batch, prefix_blocks=0,
         headroom, so the slots and the arena together may exceed it:
         ``decision_bytes`` is what a decision allocates.
 
+    Over ranks the headroom is the least of any rank's, each rank counting
+    its share of a card that ranks share (least_headroom); the ledger's
+    bytes are one rank's shard and its KV heads.
+
     The port has one engine per server, so the record's ``replicas`` is 1
     (the JAX package splits the caps across its replica tier). Returns
     the decision record: the chosen values, every input, and each value's
@@ -305,6 +341,10 @@ def resolve_auto_shape(engine, *, serve_batch, prefix_blocks=0,
             "process tier's workers own their engines — pass explicit "
             "sizes there; calibrate with tools/autotune.py and read the "
             "recommendation)")
+    mesh = getattr(engine, "mesh", None)
+    if device_stats is True and mesh is not None and mesh.world > 1:
+        # every rank's numbers, the least headroom decides (an op)
+        device_stats = engine.ranks_device_stats()
     ledger = hbm_ledger(engine, block_len=prefix_block_len,
                         device_stats=device_stats)
     knee = None

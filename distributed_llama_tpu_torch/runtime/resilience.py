@@ -37,6 +37,15 @@ draft over its own engine (a self-draft's params are that engine's
 tensors); the failed engine's drafts, their caches and graphs, go back
 with it (``Engine.release``).
 
+Over ranks (parallel/control.py) the factory, the warmup, the release and
+every step are ops that rank 0 mirrors to the other ranks, so a rebuild
+runs on every rank in the same order. A failure that leaves the ranks in
+step (a host exception on rank 0 before its op was sent, a stall that
+ends) rebuilds as on one GPU. A rank that is lost (dead, silent past the
+channel's timeout, or out of step after an op) cannot be rebuilt from
+here: the supervisor goes to LOST, which is terminal and unready, and the
+server reports it and exits.
+
 Generations: each (engine, scheduler) pair is one generation. A failure
 invalidates the generation first (a wedged step thread that wakes finds
 ``gen != self._gen`` and exits), then fails its requests, then rebuilds.
@@ -48,6 +57,7 @@ import contextlib
 import threading
 import time
 
+from ..parallel.control import RankLost
 from .prefix_cache import PrefixCache
 from .scheduler import Scheduler
 from .stats import SupervisorStats
@@ -58,6 +68,7 @@ RECOVERING = "recovering"
 BROKEN = "broken"          # circuit open: stays unready until reset
 DRAINING = "draining"
 CLOSED = "closed"
+LOST = "lost"              # a rank of the mesh is gone: terminal
 
 _COUNTER_KEYS = ("requests_submitted", "requests_finished",
                  "requests_failed", "requests_expired",
@@ -124,6 +135,8 @@ class EngineSupervisor:
         self._dead_stats: list = []  # guarded by self._state_lock
         self._carry = {k: 0 for k in _COUNTER_KEYS}  # guarded by self._state_lock
         self._stop = False
+        # why the ranks were lost (LOST), None while they are in step
+        self.lost: str | None = None
         self._gen = 0  # guarded by self._state_lock
         self._state = READY  # guarded by self._state_lock
         self._sched = self._make_sched(engine_factory())
@@ -230,7 +243,7 @@ class EngineSupervisor:
         with self._state_lock:
             if self._state == READY:
                 self._state = DRAINING
-            elif self._state in (RECOVERING, BROKEN):
+            elif self._state in (RECOVERING, BROKEN, LOST):
                 return True  # nothing in flight: the failure aborted it
         end = time.perf_counter() + timeout
         while time.perf_counter() < end:
@@ -275,6 +288,8 @@ class EngineSupervisor:
                       + sum(getattr(d, k, 0) for d in dead))
         out["state"] = state
         out["resilience"] = self.sup_stats.summary()
+        if self.lost is not None:
+            out["resilience"]["lost"] = self.lost
         try:
             out["hbm"] = hbm_ledger(sched.engine, sched.prefix_cache)
         except AttributeError:  # a failed engine, released mid-scrape
@@ -291,7 +306,7 @@ class EngineSupervisor:
         # RECOVERING: one backoff step; BROKEN: nothing changes until an
         # operator steps in
         n = max(self.sup_stats.consecutive_failures, 1)
-        if self._state == BROKEN:
+        if self._state in (BROKEN, LOST):
             return 30.0
         return min(self._backoff_base * (2 ** (n - 1)), self._backoff_max)
 
@@ -361,12 +376,26 @@ class EngineSupervisor:
                     gen, f"step stalled > {self.stall_timeout:.1f}s "
                          "(watchdog)", kind="stall")
 
+    def _ranks_lost(self, engine) -> str | None:
+        """Why the engine's ranks are lost, or None (one GPU, or in step)."""
+        ctl = getattr(engine, "control", None)
+        return None if ctl is None else ctl.lost
+
+    def _go_lost(self, why: str) -> None:
+        with self._state_lock:
+            self.lost = why
+            if self._state != CLOSED:
+                self._state = LOST
+        if TRACER.enabled:
+            TRACER.event("circuit", 0, scope="engine", state="lost",
+                         key=None)
+
     def _on_failure(self, gen: int, msg: str, kind: str) -> None:
         """A loop crash or a watchdog stall: invalidate the generation,
         fail its requests, release its engine, rebuild in the background.
-        Idempotent per generation."""
+        Idempotent per generation. A lost rank is not rebuilt: LOST."""
         with self._state_lock:
-            if gen != self._gen or self._state == CLOSED:
+            if gen != self._gen or self._state in (CLOSED, LOST):
                 return
             t_detect = time.perf_counter()
             self._gen += 1          # wedged/stale threads exit on wake
@@ -382,6 +411,10 @@ class EngineSupervisor:
         # outside the state lock (waiter wakeups) and without the step
         # mutex (a wedged step holds it)
         old._abort_all(f"engine failure: {msg}")
+        lost = self._ranks_lost(old.engine)
+        if lost is not None:
+            self._go_lost(lost)
+            return
         t = threading.Thread(target=self._rebuild,
                              args=(t_detect, old), daemon=True)
         with self._state_lock:
@@ -393,6 +426,12 @@ class EngineSupervisor:
         thread (the watchdog must keep watching, and freeing memory may
         wait for the card). Factory and warmup failures count toward the
         breaker."""
+        try:
+            self._rebuild_body(t_detect, failed)
+        except RankLost as e:
+            self._go_lost(str(e))
+
+    def _rebuild_body(self, t_detect: float, failed) -> None:
         if failed is not None:
             # the failed generation's arena, cache and graph pools go back
             # before the factory allocates the next engine; on one stream,
@@ -420,7 +459,9 @@ class EngineSupervisor:
                 # captured while unready: the watchdog watches READY
                 # generations only
                 sched.warmup()
-            except Exception:  # noqa: BLE001 — one more consecutive failure
+            except Exception as e:  # noqa: BLE001 — one more consecutive failure
+                if isinstance(e, RankLost):
+                    raise
                 if sched is not None:
                     if sched.prefix_cache is not None:
                         sched.prefix_cache.release()

@@ -52,6 +52,13 @@ draft catch-up chunk an iteration prefills it from the row's fed tokens.
 ``warmup`` runs the draft's prefill, proposal and the verify once with every
 row gated, so speculative serving captures no graph after it.
 
+Over tp ranks (parallel/control.py) the scheduler lives on rank 0: every
+engine and draft call above is an op that the other ranks run after it,
+in its order; the radix tree, the samplers and the requests stay here.
+A vocab-sharded engine's rows sample from the argmax and candidate
+summary (Engine.sample_view, each row at its own temperature), a row the
+candidates cannot prove fetching its whole logits through one more op.
+
 Flight recorder (runtime/trace.py): with ``TRACER`` on, ``submit`` mints
 one trace id a request and each request's span records ``enqueue``,
 ``admit``, ``seed``, ``prefill`` (a chunk), ``first_token``, ``decode``
@@ -647,8 +654,23 @@ class Scheduler:
                     TRACER.event("seed", req.trace_id, hit=n,
                                  n_prompt=len(req.prompt))
 
-    def _sample_view(self, logits) -> FullLogitsView:
-        return FullLogitsView(self.engine.fetch_logits(logits))
+    def _sample_view(self, logits, rows: list[_Slot]):
+        """Wrap one forward's logits for host sampling (JAX
+        scheduler.py:744, Engine.sample_view): a vocab-sharded engine
+        serves the rows from the argmax and candidate summary instead of
+        a (B, vocab) fetch, at each sampling row's own temperature (a
+        greedy row passes 1); a replicated engine (or a duck-typed test
+        engine) gives the full-logits view."""
+        eng = self.engine
+        sv = getattr(eng, "sample_view", None)
+        if sv is None:
+            return FullLogitsView(eng.fetch_logits(logits))
+        temps = np.ones((eng.batch,), np.float32)
+        for s in rows:
+            t = getattr(s.req.sampler, "temperature", 0.0)
+            if t:
+                temps[s.idx] = t
+        return sv(logits, temps, self.draft_vocab)
 
     def _prefill_chunk(self, rows: list[_Slot], width: int) -> None:
         eng = self.engine
@@ -676,7 +698,7 @@ class Scheduler:
         logits = eng.slot_prefill_chunk(tok, pos, lidx)
         if not finishing:
             return  # mid-prompt chunk: no logits to the host
-        view = self._sample_view(logits)
+        view = self._sample_view(logits, finishing)
         for s in finishing:
             s.pos = len(s.req.prompt)
             if self.prefix_cache is not None:
@@ -697,7 +719,7 @@ class Scheduler:
         for s in rows:
             tok[s.idx, 0] = s.last
             pos[s.idx] = s.pos
-        view = self._sample_view(eng.slot_decode_step(tok, pos))
+        view = self._sample_view(eng.slot_decode_step(tok, pos), rows)
         for s in rows:
             s.pos += 1
             self._emit(s, view.sample(s.req.sampler, s.idx))
@@ -787,7 +809,7 @@ class Scheduler:
         greedy, logits0 = eng.slot_verify_step(tok, pos, self.draft_vocab)
         self._spec_stats.verify_forwards += 1
         nonspec = [s for s in rows if s.idx not in drafts]
-        view0 = self._sample_view(logits0) if nonspec else None
+        view0 = self._sample_view(logits0, nonspec) if nonspec else None
         for s in rows:
             d = drafts.get(s.idx)
             if d is None:

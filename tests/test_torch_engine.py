@@ -103,16 +103,24 @@ def test_cli_inference_prints_benchmark_lines(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["chat", "--tp", "2", "--shard-vocab", "on"], "mode 'chat'"),
+    (["chat", "--dp", "2"], "mode 'chat'"),
     (["api", "--prefix-cache", "--replicas", "2"], "--prefix-cache"),
     (["worker"], "mode 'worker'"),
-    (["api", "--tp", "2"], "--tp 2"),
+    (["api", "--serve-batch", "2", "--dp", "2"],
+     "--serve-batch needs a single-process engine"),
     (["generate", "--pp", "2"], "--pp 2"),
-    (["chat", "--dp", "2"], "--dp 2"),
+    (["api", "--dp", "2"], "--dp 2"),
     (["generate", "--ep", "2"], "--ep 2"),
     (["generate", "--nnodes", "2"], "--nnodes"),
 ])
 def test_cli_refuses_unported_flags(flags, needle):
+    """What the port does not have yet is refused as not ported; what the
+    JAX CLI itself refuses over ranks (a scheduler over --dp, chat and the
+    legacy api on a --dp engine, which the JAX engine's batch-1 assert
+    stops) is refused in the JAX words. chat and api over --tp run."""
     with pytest.raises(SystemExit) as e:
         dllama.main(flags + ["--model", "x.m", "--tokenizer", "x.t"])
-    assert needle in str(e.value) and "not ported" in str(e.value)
+    msg = str(e.value)
+    assert needle in msg
+    assert ("not ported" in msg or "assert self.batch == 1" in msg
+            or "(no --dp/--sp/--ep/--pp; --tp composes)" in msg)

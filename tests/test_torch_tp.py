@@ -20,9 +20,12 @@ tests run them. The same numpy-seeded weights go to both
     q80 engine's, logits within Q80_TOL; tp = 4 on a wider spec, and tp
     above n_kv_heads (the kv heads replicated);
   * the shard path forced on a 1-rank mesh (JAX force_mesh_kernels);
-  * `dllama generate --tp 2` prints the JAX CLI's text; a mesh engine
-    refuses the entry points of ROADMAP item 18; the CLI refuses chat and
-    api over ranks and the sp, ep and pp axes.
+  * `dllama generate --tp 2` prints the JAX CLI's text; the entry points
+    of serving over ranks (ROADMAP item 18: sessions, the prefix arena,
+    the slot steps, speculation) run on a tp = 2 mirrored engine and give
+    one device's results; the CLI refuses, in the JAX CLI's words, what
+    the JAX CLI refuses over ranks, and the sp, ep and pp axes with their
+    ROADMAP item.
 """
 
 import jax
@@ -290,18 +293,43 @@ def test_default_mesh_on_gloo_ranks_is_not_the_cpu(pool2):
             assert "no CUDA device is available" in dev, dev
 
 
-def test_mesh_engine_refuses_the_entry_points_of_item_18(pool2):
+def test_mesh_engine_refuses_the_entry_points_of_item_18(pool2, tmp_path):
+    """The entry points a mesh engine refused until serving over ranks was
+    ported (ROADMAP item 18) run on a tp = 2 engine now, every rank
+    running them (the SPMD form: no control channel), and give the one
+    device engine's results: a session saved and loaded back, a prefix
+    arena of each rank's kv heads, the slot prefill and decode steps'
+    logits and prompt lookup's greedy tokens."""
     case = Case("LLAMA", "q40", seed=15)
-    calls = [("save_session", ("/nonexistent",), {}),
-             ("load_session", ("/nonexistent",), {}),
+    path = str(tmp_path / "s.npz")
+    seg = np.asarray([PROMPT[:4]], np.int64)
+    calls = [("step", (np.asarray([PROMPT], np.int32), 0), {}),
+             ("save_session", (path,), {}),
+             ("load_session", (path,), {}),
              ("new_prefix_arena", (4, 8), {}),
-             ("slot_decode_step", (np.zeros((1, 1)), np.zeros(1)), {}),
-             ("slot_prefill_chunk", (np.zeros((1, 4)), np.zeros(1),
-                                     np.zeros(1)), {}),
-             ("generate_lookup", (PROMPT, 4), {})]
-    got = pool2.run(f"{JOBS}:refusals", 2, 1, case.blob, F32, calls)
-    for msg, (name, _, _) in zip(got[0], calls):
-        assert "ROADMAP item 18" in msg, (name, msg)
+             ("slot_prefill_chunk", (seg, np.zeros(1), np.asarray([3])), {}),
+             ("slot_decode_step", (np.asarray([[7]]), np.asarray([4])), {}),
+             ("reset", (), {}),
+             ("generate_lookup", (PROMPT, 6), {})]
+    got = pool2.run(ENGINE, 2, 1, case.blob, dict(F32, shard_vocab=False),
+                    calls)[0]["results"]
+    one = Engine(case.pspec, case.params(), device="cpu", **F32)
+    want = [one.step(np.asarray([PROMPT], np.int32), 0).numpy()]
+    one.save_session(str(tmp_path / "one.npz"))
+    want.append(one.load_session(str(tmp_path / "one.npz")))
+    want.append(tuple(a.shape for a in one.new_prefix_arena(4, 8)))
+    want.append(one.slot_prefill_chunk(seg, np.zeros(1), np.asarray([3])).numpy())
+    want.append(one.slot_decode_step(np.asarray([[7]]), np.asarray([4])).numpy())
+    one.reset()
+    want.append(one.generate_lookup(PROMPT, 6).tokens)
+    np.testing.assert_allclose(got[0], want[0], **F32_TOL)
+    assert got[2] == want[1] == []
+    kvh, hs = case.pspec.n_kv_heads, case.pspec.head_size
+    assert [a.shape for a in got[3]] == [(4, 2, kvh // 2, 8, hs)] * 2
+    assert want[2] == ((4, 2, kvh, 8, hs),) * 2
+    np.testing.assert_allclose(got[4], want[3], **F32_TOL)
+    np.testing.assert_allclose(got[5], want[4], **F32_TOL)
+    assert got[7].tokens == want[5]
 
 
 def test_cli_generate_tp2_prints_the_jax_cli_text(tmp_path, capsys, monkeypatch):
@@ -328,20 +356,34 @@ def test_cli_generate_tp2_prints_the_jax_cli_text(tmp_path, capsys, monkeypatch)
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["chat", "--tp", "2"], "--tp 2 in mode 'chat'"),
-    (["api", "--dp", "2"], "--dp 2 in mode 'api'"),
-    (["generate", "--tp", "2", "--lookup-decode", "3"], "speculation"),
-    (["generate", "--dp", "2", "--profile", "prof"], "with --profile"),
+    # the JAX engine's chat on a dp engine stops at its batch-1 assert
+    (["chat", "--dp", "2"], "assert self.batch == 1, runtime/engine.py:838"),
+    (["api", "--serve-batch", "2", "--dp", "2"],
+     "--serve-batch needs a single-process engine (no --dp/--sp/--ep/--pp; "
+     "--tp composes)"),
+    (["generate", "--dp", "2", "--lookup-decode", "3"],
+     "--lookup-decode with --dp is greedy-only (Engine.generate_batch_lookup); "
+     "set --temperature 0"),
+    (["generate", "--dp", "2", "--draft", "self:1"],
+     "--draft is single-sequence outside api mode and per-slot inside it; it "
+     "does not compose with --dp"),
+    (["api", "--tp", "2", "--draft", "model:x.m"],
+     "--draft model:PATH needs a mesh-less engine (use --draft self:<depth>, "
+     "which shares the target's sharded buffers)"),
     (["generate", "--sp", "2"], "--sp 2: the sp axis is ROADMAP item 14"),
     (["generate", "--ep", "2"], "--ep 2: the ep axis is ROADMAP item 14"),
     (["generate", "--pp", "2"], "--pp 2: the pp axis is ROADMAP item 14"),
-], ids=["chat", "api", "lookup", "profile", "sp", "ep", "pp"])
+], ids=["chat", "api", "lookup", "draft", "draft-model", "sp", "ep", "pp"])
 def test_cli_refuses_what_does_not_run_over_ranks(argv, needle):
+    """What the JAX CLI refuses over ranks, refused in its words (JAX
+    apps/dllama.py:800-806, :1321-1324, apps/api_server.py:1684-1686,
+    :1978-1986); the axes the port does not have yet with their ROADMAP
+    item. Each before any model load or rank spawn."""
     with pytest.raises(SystemExit) as e:
         dllama.main(argv + ["--model", "x.m", "--tokenizer", "x.t"])
-    assert needle in str(e.value) and "not ported" in str(e.value)
-    if "item 14" not in needle:
-        assert "ROADMAP item 18" in str(e.value)
+    assert needle in str(e.value)
+    if "item 14" in needle:
+        assert "not ported" in str(e.value)
 
 
 def test_cli_shard_vocab_on_needs_tp_in_the_jax_words():
