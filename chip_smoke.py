@@ -329,6 +329,25 @@ result line):
     chunk inputs, K2 at the Mixtral tp = 2 expert shards and K3 over
     16/16, 8/8 and 16/4 local heads, each against its plain version and
     timed beside its plain version, library call and bound.
+13. Serving over ranks (`[serve-tp]` lines; phase 12's pool of 2 ranks):
+    the scheduler over tp = 2 with the prefix cache and a self draft, the
+    CLI's chat and api over ranks, and K1, K3 and Q80 at one rank's step
+    shapes.
+14. The other mesh axes (`[axes]` lines; phase 12's pool of 2 ranks, gloo
+    on the one card): Llama-2-7B at full width and depth over pp = 2 at
+    the CLI's pp defaults (Q80 off; the 300-token prompt's 256 chunk on
+    GPipe with 8 microbatches, the 44-token tail and decode on the stage
+    relay) and over sp = 2 (the prompt one ring-attention segment, decode
+    over the sequence-sharded cache), Mixtral 8x7B at full width and 2
+    layers over ep = 2 (4 experts a rank, routing replayed from the
+    one-GPU run): tokens and logits held to one GPU's as in phase 12;
+    every rank's K1, K2 and K3 launches equal to its share; a rank's
+    parameter and cache bytes equal to its share of one GPU's; decode
+    ms/token, the prompt's prefill ms, collectives and staged bytes a
+    step. Then K1 at t = 32 (a GPipe microbatch, the 7B layer shapes), K1
+    at t = 1 on a Mixtral local expert without and with the fused Q80
+    round trip, and K3 over a 32-token microbatch at pos0 32*m, each
+    against its plain version and timed beside plain, library and bound.
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
@@ -4941,42 +4960,54 @@ def _held_steps(label: str, got: list, want: list) -> list[dict]:
 
 
 def _held_tp(label: str, res: list, toks1: list, gaps1: list, lgs1: list,
-             counts1: dict, card: str) -> dict:
+             counts1: dict, card: str, want_counts: dict | None = None,
+             tag: str = "[tp]", prefill: str = "one 256-token chunk") -> dict:
     """Every rank's tokens equal; rank 0's against one device's: each
     step's logits, up to and including the first token difference (the
     same history on both sides), within LOGITS_TOL and LOGITS_REL_L2_TOL;
     tokens the same up to the first step whose one-GPU top-2 gap is
     within the near-tie bound those tolerances allow (2 x LOGITS_TOL x
-    max |logit|); launches equal to one device's, K1 and K3 launched."""
+    max |logit|); launches equal to one device's, K1 and K3 launched, or
+    with `want_counts` every rank's K1, K2 and K3 equal to those (a
+    rank's share of the work; K1 launched)."""
     r0 = res[0]
     for r in res[1:]:
         if r["tokens"] != r0["tokens"]:
-            fail(f"[tp] {label}: rank {r['rank']} tokens {r['tokens']} differ from rank 0's")
+            fail(f"{tag} {label}: rank {r['rank']} tokens {r['tokens']} differ from rank 0's")
     mismatch = next((i for i, (a, b) in enumerate(zip(r0["tokens"], toks1)) if a != b), None)
     upto = len(toks1) if mismatch is None else mismatch + 1
-    steps = _held_steps(f"[tp] {label}", r0["logits"][:upto], lgs1[:upto])
+    steps = _held_steps(f"{tag} {label}", r0["logits"][:upto], lgs1[:upto])
     near_tie = 2 * LOGITS_TOL * float(np.abs(lgs1[0]).max())
     tie = next((i for i, g in enumerate(gaps1) if g <= near_tie), None)
     worst = max(steps, key=lambda r: r["rel_l2"])
-    print(f"[tp] {label}: {r0['describe']}; logits vs one GPU at {len(steps)} steps: prompt "
+    print(f"{tag} {label}: {r0['describe']}; logits vs one GPU at {len(steps)} steps: prompt "
           f"max abs diff {steps[0]['max_abs_diff']:.4g} (tol {steps[0]['tol']:.4g}), rel L2 "
           f"{steps[0]['rel_l2']:.3g} (tol {LOGITS_REL_L2_TOL}); worst step {worst['step']} "
           f"max abs diff {worst['max_abs_diff']:.4g}, rel L2 {worst['rel_l2']:.3g}; near-tie "
           f"bound {near_tie:.4g}; first one-GPU gap within it at step {tie}; first token "
           f"difference at step {mismatch} [{card}]")
     if mismatch is not None and (tie is None or mismatch < tie):
-        fail(f"[tp] {label}: token {mismatch} differs from one GPU's "
+        fail(f"{tag} {label}: token {mismatch} differs from one GPU's "
              f"({r0['tokens']} vs {toks1}) before any near tie")
-    if r0["counts"] != counts1 or not (r0["counts"]["K1"] and r0["counts"]["K3"]):
-        fail(f"[tp] {label}: launches {r0['counts']} != one GPU's {counts1}")
+    if want_counts is None:
+        if r0["counts"] != counts1 or not (r0["counts"]["K1"] and r0["counts"]["K3"]):
+            fail(f"{tag} {label}: launches {r0['counts']} != one GPU's {counts1}")
+        what = "one GPU's: equal"
+    else:
+        for r in res:
+            got = {k: r["counts"][k] for k in want_counts}
+            if got != want_counts or not got["K1"]:
+                fail(f"{tag} {label}: rank {r['rank']} launches {got} != its share "
+                     f"{want_counts}")
+        what = f"every rank's K1/K2/K3 its share {want_counts}; one GPU's {counts1}"
     share = lambda x: x / r0["decode_ms"]   # noqa: E731
-    print(f"[tp] {label}: launches {r0['counts']} (one GPU's: equal); decode "
+    print(f"{tag} {label}: launches {r0['counts']} ({what}); decode "
           f"{r0['decode_ms']:.3f} ms/token eager (graphs {r0['graphs']}): collectives "
           f"{r0['collective_ms']:.3f} ms ({share(r0['collective_ms']):.3f}), host staging "
           f"{r0['staging_ms']:.3f} ms ({share(r0['staging_ms']):.3f}), "
           f"{r0['collectives_per_step']:.0f} collectives and "
-          f"{r0['staged_bytes_per_step'] / 1e6:.3f} MB staged a step; one 256-token "
-          f"chunk {r0['prefill_ms']:.2f} ms; build {r0['build_s']:.1f} s, peak "
+          f"{r0['staged_bytes_per_step'] / 1e6:.3f} MB staged a step; {prefill} "
+          f"{r0['prefill_ms']:.2f} ms; build {r0['build_s']:.1f} s, peak "
           f"{max(r['memory_gb'] for r in res):.2f} GB a rank [{card}]")
     out = {k: v for k, v in r0.items() if k != "logits"}
     out.update(logits_max_abs_diff=steps[0]["max_abs_diff"],
@@ -5670,6 +5701,300 @@ def phase_serve_tp(card: str, params_7b, pool, tp12: dict, serving_bound: float)
     return out
 
 
+# -- phase 14: the other mesh axes (--pp, --sp, --ep), on the one card -------
+
+# greedy tokens after the 300-token prompt, and decode steps timed a job
+AXES_DECODE, AXES_TIMED = 8, 8
+# phase 14's jobs: (label, model, layers, grid, weight seed, Q80 activations).
+# pp at the CLI's pp defaults (Q80 off, exact collectives); sp and ep at
+# the CLI's defaults (Q80 on; under ep the experts skip it, as in JAX)
+AXES_JOBS = (("Llama-2-7B pp=2", "llama2_7b", 32, dict(pp=2), 0, False),
+             ("Llama-2-7B sp=2", "llama2_7b", 32, dict(sp=2), 0, True),
+             ("Mixtral 8x7B (2 layers) ep=2", "mixtral_8x7b", 2, dict(ep=2), 1, True))
+
+
+def axes_rank_job(name: str, n_layers: int, grid: dict, seed: int, q80: bool,
+                  prompt: list[int], routes: list | None) -> dict:
+    """One rank of a pp, sp or ep group on the card (RankPool job): the
+    synthetic Q40 weights of `name` from `seed` built on the card, the
+    rank's share kept (Engine(mesh=) picks its stage, its experts; sp keeps
+    every weight and S/sp of the cache), a bf16 cache, Q80 activations as
+    the CLI's defaults for the axis give them. Its greedy trace after the
+    prompt (MoE routing replayed from `routes`) with launches counted from
+    0, its parameter and cache bytes; then the whole prompt's prefill and
+    AXES_TIMED decode steps timed, with the host ms of the collectives and
+    of the host staging."""
+    import dataclasses
+
+    from distributed_llama_tpu_torch.models.loader import param_bytes
+    from distributed_llama_tpu_torch.models.params import synthetic_q40_params
+    from distributed_llama_tpu_torch.parallel.mesh import describe, make_mesh
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    mesh = make_mesh(**grid, device_type="cuda")
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    spec = dataclasses.replace(_spec(name), n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = synthetic_q40_params(spec, seed=seed, device=mesh.device)
+    eng = Engine(spec, params, mesh=mesh, activation_q80=q80)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lw = eng.params["layers"][0]
+    cache = sum(t.numel() * t.element_size() for t in (*eng.cache.k, *eng.cache.v))
+    rec = ([torch.from_numpy(r).to(mesh.device) for r in routes] if routes else None)
+    with replayed_routes(rec) if rec else contextlib.nullcontext():
+        zero_counts()
+        mesh.reset_stats()
+        toks, gaps, lgs = _greedy_trace(eng, prompt, AXES_DECODE)
+        torch.cuda.synchronize()
+        counts, run_stats = read_counts(), dict(mesh.stats)
+    eng.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prefill(prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    for i in range(AXES_TIMED):
+        eng.step(np.asarray([[toks[i % len(toks)]]], np.int32), eng.pos)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / AXES_TIMED
+    st = dict(mesh.stats)
+    return dict(rank=mesh.rank, coords=mesh.coords, describe=describe(mesh),
+                graphs=eng.cuda_graphs, tokens=toks, gaps=gaps,
+                logits=lgs if mesh.rank == 0 else None, counts=counts,
+                run_stats=run_stats, build_s=build_s, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, layers=len(eng.params["layers"]),
+                experts=lw["moe_up"].shape[0] if "moe_up" in lw else 0,
+                param_bytes=param_bytes(eng.params), cache_bytes=cache,
+                collective_ms=st["collective_s"] * 1e3 / AXES_TIMED,
+                staging_ms=st["staging_s"] * 1e3 / AXES_TIMED,
+                collectives_per_step=st["collectives"] / AXES_TIMED,
+                staged_bytes_per_step=st["staged_bytes"] / AXES_TIMED,
+                memory_gb=torch.cuda.max_memory_allocated(mesh.device) / 1e9)
+
+
+def axes_launches(spec, grid: dict, prompt_len: int, chunk: int = 256) -> dict:
+    """K1, K2 and K3 launches one rank of `grid` makes in axes_rank_job's
+    greedy trace (the prompt, then AXES_DECODE - 1 decode steps), counted
+    from the path each forward takes: every Q40 projection of a layer one
+    K1, K3 once a layer, the head (wcls) one K1 a forward on every rank.
+    pp: a stage runs its L/pp layers once for every microbatch of a chunk
+    (GPipe, parallel/pp.gpipe_microbatches) or once for a short chunk and
+    a decode step. sp (no pp): the prompt is one ring segment; attention
+    over the sequence-sharded cache is plain torch (no K3). ep: every local
+    expert's gate, up and down through K1 in every forward (no K2)."""
+    from distributed_llama_tpu_torch.parallel.pp import gpipe_microbatches
+
+    pp, sp, ep = (grid.get(a, 1) for a in ("pp", "sp", "ep"))
+    chunks = [min(chunk, prompt_len - i) for i in range(0, prompt_len, chunk)]
+    steps = AXES_DECODE - 1
+    if sp > 1:
+        chunks = [prompt_len + (-prompt_len) % sp]
+    heads = len(chunks) + steps                     # forwards reaching wcls
+    stage = sum(gpipe_microbatches(c, pp) for c in chunks) + steps
+    layers = spec.n_layers // pp
+    per_layer = (2 + 3 * spec.n_experts // ep) if ep > 1 else 4
+    return dict(K1=layers * per_layer * stage + heads, K2=0,
+                K3=0 if sp > 1 else layers * stage)
+
+
+def axes_kernels(gen) -> dict:
+    """The new shapes the axes run, each against its plain version and
+    timed beside its plain version, library call and bound (phases 2-4's
+    rows): K1 at t = 32 on the 7B layer shapes (a GPipe microbatch, the
+    tensor-core path), Q80 off as the pp job runs; K1 at t = 1 on a
+    Mixtral local expert (14336x4096, 4096x14336) without the fused Q80
+    round trip (the ep path) and, beside it, with it (what one GPU's K2
+    decode fuses); K3 over a 32-token microbatch at pos0 32*m, m = 0..7
+    (the 256-token chunk's 8 microbatches on a stage)."""
+    bf16 = torch.bfloat16
+    k1, ep, k3 = [], [], []
+    for name in ("wqkv", "wo", "w13", "w2"):
+        d, n = K1_SHAPES[name]
+        ws = rotating(lambda: random_q40(gen, d, n), d * n // 2 + d * n // 32 * 2)
+        w0 = ws()
+        k1.append(k1_row(gen, "[axes] [K1] gpipe ", name, d, n, 32, bf16, ws, w0))
+        del ws, w0
+        torch.cuda.empty_cache()
+    for name, (d, n) in K1_MOE_SHAPES.items():
+        ws = rotating(lambda: random_q40(gen, d, n), d * n // 2 + d * n // 32 * 2)
+        w0 = ws()
+        for fq in (False, True):
+            row = k1_row(gen, "[axes] [K1] ep local expert ", name, d, n, 1, bf16, ws,
+                         w0, q80=fq)
+            row["q80"] = fq
+            ep.append(row)
+        del ws, w0
+        torch.cuda.empty_cache()
+    for m in range(8):
+        row = k3_row(gen, "[axes] [K3] gpipe microbatch ", bf16, bf16,
+                     (1, 32, 32, 32, [32 * m], 128, 2048))
+        row["m"] = m
+        k3.append(row)
+    torch.cuda.empty_cache()
+    return dict(k1_gpipe=k1, k1_ep=ep, k3_gpipe=k3)
+
+
+def phase_axes(card: str, params_7b, pool) -> dict:
+    """Phase 14 (`[axes]` lines): the other mesh axes on the one card, each
+    job a pool of 2 gloo ranks sharing it (phase 12's pool), held against
+    one GPU over the same weights: Llama-2-7B at full width and depth over
+    pp = 2 (the CLI's pp defaults: Q80 off; the 300-token prompt's 256
+    chunk on GPipe with 8 microbatches, its 44-token tail and decode on
+    the stage relay) and over sp = 2 (the prompt one ring segment, decode
+    over the sequence-sharded cache), Mixtral 8x7B at full width and 2
+    layers over ep = 2 (4 experts a rank; routing replayed from the
+    one-GPU run). Each: every rank's tokens equal; rank 0's logits and
+    tokens held as phase 12 holds them (LOGITS_TOL, LOGITS_REL_L2_TOL, the
+    near-tie rule); each rank's K1, K2 and K3 launches equal to its share
+    (axes_launches); a rank's parameter bytes against one GPU's (pp: half
+    the layers; ep: half of every expert stack) and cache bytes (sp: half
+    the positions); collectives and staged bytes a decode step, decode
+    ms/token and the prompt's prefill ms. Then the new kernel rows."""
+    import dataclasses
+
+    from distributed_llama_tpu_torch.models.loader import param_bytes
+    from distributed_llama_tpu_torch.models.params import synthetic_q40_params
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(7)
+    prompt = [1] + rng.integers(3, 32000, 299).tolist()
+    out = {}
+    for label, name, n_layers, grid, seed, q80 in AXES_JOBS:
+        spec = dataclasses.replace(_spec(name), n_layers=n_layers)
+        if name == "llama2_7b":
+            params, routes = params_7b, None
+            one = Engine(spec, params, device="cuda", activation_q80=q80)
+            _greedy_trace(one, prompt, 2)     # captures the decode step
+            zero_counts()
+            toks1, gaps1, lgs1 = _greedy_trace(one, prompt, AXES_DECODE)
+        else:
+            params = synthetic_q40_params(spec, seed=seed, device="cuda")
+            one = Engine(spec, params, device="cuda", activation_q80=q80,
+                         cuda_graphs=False)
+            with recorded_routes() as rec:
+                zero_counts()
+                toks1, gaps1, lgs1 = _greedy_trace(one, prompt, AXES_DECODE)
+            routes = [r.cpu().numpy() for r in rec]
+        torch.cuda.synchronize()
+        counts1 = read_counts()
+        one_params = param_bytes(one.params)
+        one_cache = sum(t.numel() * t.element_size() for t in (*one.cache.k, *one.cache.v))
+        one_head = param_bytes(dict(one.params, layers=[]))
+        one_experts = param_bytes(dict(one.params, layers=[
+            {k: lw[k] for k in ("moe_up", "moe_gate", "moe_down") if k in lw}
+            for lw in one.params["layers"]])) - one_head
+        del one, params
+        torch.cuda.empty_cache()
+        res = pool.run("chip_smoke:axes_rank_job", name, n_layers, grid, seed, q80,
+                       prompt, routes)
+        want = axes_launches(spec, grid, len(prompt))
+        held = _held_tp(label, res, toks1, gaps1, lgs1, counts1, card, want_counts=want,
+                        tag="[axes]", prefill=f"the {len(prompt)}-token prompt's prefill")
+        r0 = res[0]
+        axis = next(iter(grid))
+        # a rank's share against one GPU's: pp half the layers' bytes and
+        # half the cache, sp every weight and half the cache, ep half of
+        # every expert stack and the whole cache
+        want_params = {"pp": one_head + (one_params - one_head) // 2,
+                       "sp": one_params, "ep": one_params - one_experts // 2}[axis]
+        want_cache = one_cache // 2 if axis in ("pp", "sp") else one_cache
+        share_params = (r0["param_bytes"] - one_head) / (one_params - one_head)
+        share_cache = r0["cache_bytes"] / one_cache
+        print(f"[axes] {label}: a rank holds {r0['layers']} of {spec.n_layers} layers, "
+              f"{r0['experts']} of {spec.n_experts} experts a stack, "
+              f"{r0['param_bytes'] / 1e9:.3f} GB of parameters (one GPU "
+              f"{one_params / 1e9:.3f} GB; of the layers' bytes {share_params:.4f}), cache "
+              f"{r0['cache_bytes'] / 1e6:.1f} MB (one GPU {one_cache / 1e6:.1f} MB: "
+              f"{share_cache:.4f}); launches each rank {[r['counts'] for r in res]} "
+              f"[{card}]")
+        shares = {"pp": (r0["layers"] * 2, spec.n_layers), "sp": (1, 1),
+                  "ep": (r0["experts"] * 2, spec.n_experts)}[axis]
+        for r in res:
+            if (r["param_bytes"], r["cache_bytes"]) != (want_params, want_cache) \
+                    or shares[0] != shares[1]:
+                fail(f"[axes] {label}: rank {r['rank']} holds {r['layers']} layers, "
+                     f"{r['experts']} experts, {r['param_bytes']} parameter bytes (want "
+                     f"{want_params}), {r['cache_bytes']} cache bytes (want {want_cache})")
+        held.update(share_params=share_params, share_cache=share_cache,
+                    one_gpu_param_bytes=one_params, one_gpu_cache_bytes=one_cache,
+                    want_counts=want, ranks=[{k: v for k, v in r.items() if k != "logits"}
+                                             for r in res])
+        out[f"{name}_{axis}{grid[axis]}"] = held
+        del res
+        torch.cuda.empty_cache()
+    t_k = time.perf_counter()
+    out["kernels"] = axes_kernels(torch.Generator(device="cuda").manual_seed(14))
+    out["kernels_s"] = time.perf_counter() - t_k
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[axes] phase 14 in {out['seconds']:.1f} s (kernel rows {out['kernels_s']:.1f} s) "
+          f"[{card}]")
+    return out
+
+
+def _bound_by(rows) -> str:
+    """What bounds a sum of rows: the label whose rows hold the larger
+    share of the summed bound."""
+    share = {}
+    for r in rows:
+        share[r["bound_by"]] = share.get(r["bound_by"], 0.0) + r["bound_ms"]
+    return max(share, key=share.get)
+
+
+def axes_entries(ax: dict) -> list[dict]:
+    """The new shapes' kernel rows, each summed over what ONE rank runs:
+    K1 over a GPipe microbatch on a 7B stage (16 layers x 4 projections at
+    t = 32); K1 over a Mixtral ep = 2 rank's local experts in a decode
+    step (32 layers x 4 experts x gate, up, down at t = 1, no fused Q80),
+    with the fused call's sum beside it; K3 over the 256-token chunk's 8
+    microbatches on a stage (16 layers x m = 0..7). Launches: the pp job's
+    and the ep job's rank 0."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    kr, src1 = ax["kernels"], "distributed_llama_tpu_torch/csrc/q40_matmul.cu"
+    pp_run, ep_run = ax["llama2_7b_pp2"]["counts"], ax["mixtral_8x7b_ep2"]["counts"]
+    g = {r["shape"]: r for r in kr["k1_gpipe"]}
+    e = {(r["shape"], r["q80"]): r for r in kr["k1_ep"]}
+    ep_sum = {q: {k: 32 * 4 * (2 * e[("moe_gate_up", q)][k] + e[("moe_down", q)][k])
+                  for k in keys} for q in (False, True)}
+    return [
+        dict(name="q40_matmul_gpipe_t32", route="cuda", source=src1,
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (per stage, "
+                      "parallel/pp.py:308 pp_layers_gpipe)",
+             launches=pp_run["K1"], max_abs_err=max(r["max_abs_err"] for r in g.values()),
+             **{k: 16 * sum(r[k] for r in g.values()) for k in keys},
+             bound_by=_bound_by(g.values()),
+             path=sorted({r["path"] for r in g.values()}),
+             at="one 7B stage (pp=2) over one GPipe microbatch: 16x(wqkv,wo,w13,w2) at "
+                "t=32, no Q80 (the CLI's pp default), bf16; launches: the pp run's rank 0"),
+        dict(name="q40_matmul_ep_local_experts", route="cuda", source=src1,
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (per local expert, "
+                      "parallel/ep_moe.py:154 _ep_body)",
+             launches=ep_run["K1"],
+             max_abs_err=max(e[(s, False)]["max_abs_err"] for s in K1_MOE_SHAPES),
+             **ep_sum[False], bound_by="bytes",
+             fused_q80_ms=ep_sum[True]["ms"],
+             at="one Mixtral rank's decode step at ep=2 (32 layers): 4 local experts x "
+                "(gate, up 14336x4096; down 4096x14336) at t=1 through K1's GEMV without "
+                "the fused Q80 (the JAX ep body's local_matmul); fused_q80_ms: the same "
+                "calls with the round trip fused; launches: the 2-layer ep run's rank 0"),
+        dict(name="flash_attention_gpipe_microbatches", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/flash_attention.cu",
+             replaces="distributed_llama_tpu/ops/pallas_attention.py:233 (per stage)",
+             launches=pp_run["K3"],
+             max_abs_err=max(r["max_abs_err"] for r in kr["k3_gpipe"]),
+             **{k: 16 * sum(r[k] for r in kr["k3_gpipe"]) for k in keys},
+             bound_by=_bound_by(kr["k3_gpipe"]),
+             at="one 7B stage (pp=2) over a 256-token chunk's 8 GPipe microbatches: 16 "
+                "layers x t=32 at pos0 32*m, m=0..7, 32/32 heads, bf16 cache; launches: "
+                "the pp run's rank 0"),
+    ]
+
+
 def serve_tp_entries(s13: dict) -> list[dict]:
     """The kernels at one rank's shapes of the tp = 2 slot decode step
     (t = B) and verify step (t = B x (1 + K)), each summed over the
@@ -6107,51 +6432,40 @@ def probe_entries_p2_p6(probes2: dict) -> list[dict]:
 
 # a run still going after WATCHDOG_S (the script's limit is 1200 s) prints
 # every thread's stack to stderr, its ranks' too, stops every process it
-# started and exits nonzero: a stall names its place
+# started and exits nonzero: a stall names its place. That watchdog is a
+# Python thread, which a stall holding the interpreter lock never lets run,
+# so a process of its own (tools/watchdog.py) backs it up at WATCHDOG_HARD_S:
+# SIGUSR1 to this process (faulthandler prints every thread's stack from
+# C) and to each process below it, then every one of them killed
 WATCHDOG_S = 1100.0
+WATCHDOG_HARD_S = 1140.0
 
 
-def _descendants(pid: int) -> list[int]:
-    """Every process below `pid`, read from /proc, parents first."""
-    kids: dict[int, list[int]] = {}
-    for d in Path("/proc").iterdir():
-        if d.name.isdigit():
-            try:
-                ppid = int((d / "stat").read_text().rsplit(")", 1)[1].split()[1])
-            except (OSError, IndexError, ValueError):
-                continue
-            kids.setdefault(ppid, []).append(int(d.name))
-    out, todo = [], [pid]
-    while todo:
-        for c in kids.get(todo.pop(), []):
-            out.append(c)
-            todo.append(c)
-    return out
-
-
-def start_watchdog() -> None:
+def start_watchdog() -> subprocess.Popen:
+    """Start both watchdogs; returns the backstop's process, which ends
+    when its stdin (this process's pipe) closes."""
     import faulthandler
     import os
     import signal
     import threading
 
+    from distributed_llama_tpu_torch.tools.watchdog import descendants, signal_tree
+
     def fire():
         print(f"chip_smoke FAILED: still running after {WATCHDOG_S:.0f} s; the stacks:",
               file=sys.stderr, flush=True)
         faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
-        procs = _descendants(os.getpid())
-        for pid in procs:      # the ranks print their stacks on SIGUSR1, one at a time
-            with contextlib.suppress(OSError):
-                os.kill(pid, signal.SIGUSR1)
-            time.sleep(0.5)
-        for pid in procs:
-            with contextlib.suppress(OSError):
-                os.kill(pid, signal.SIGKILL)
+        signal_tree(descendants(os.getpid()))  # the ranks print their stacks on SIGUSR1
         os._exit(3)
 
     timer = threading.Timer(WATCHDOG_S, fire)
     timer.daemon = True
     timer.start()
+    faulthandler.register(signal.SIGUSR1, file=sys.stderr, all_threads=True)
+    return subprocess.Popen(
+        [sys.executable, "-m", "distributed_llama_tpu_torch.tools.watchdog",
+         str(os.getpid()), str(WATCHDOG_HARD_S)],
+        stdin=subprocess.PIPE, cwd=str(Path(__file__).resolve().parent))
 
 
 def main() -> int:
@@ -6162,7 +6476,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    start_watchdog()
+    watchdog = start_watchdog()
 
     def mark(what: str) -> None:
         print(f"[chip_smoke] {what} done at {time.perf_counter() - t_start:.1f} s",
@@ -6207,6 +6521,8 @@ def main() -> int:
         serve13 = phase_serve_tp(card, params_7b, pool2, tp12,
                                  serving["scheduler"]["near_tie_bound"])
         mark("phase 13 (serving over ranks)")
+        axes14 = phase_axes(card, params_7b, pool2)
+        mark("phase 14 (pp, sp, ep)")
     del params_7b
     torch.cuda.empty_cache()
     phase_file_path()
@@ -6218,6 +6534,7 @@ def main() -> int:
     kernels["kernels"] += spec_entries(k1, q80, k3, spec9)
     kernels["kernels"] += tp_entries(tp12)
     kernels["kernels"] += serve_tp_entries(serve13)
+    kernels["kernels"] += axes_entries(axes14)
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
                             ("K2", "q40_expert_matmul", "one Mixtral 8x7B decode step, t = 1, bf16")):
         e = next(k for k in kernels["kernels"] if k["name"] == name)
@@ -6273,8 +6590,10 @@ def main() -> int:
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
         serving=serving, chat=chat, spec=spec9, trace=trace10, admission=admission11,
-        tp=tp12, serve_tp=serve13,
+        tp=tp12, serve_tp=serve13, axes=axes14,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
+    watchdog.stdin.close()
+    watchdog.wait(timeout=10)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -56,21 +56,31 @@ Over ranks, as in the JAX CLI: `--tp N` splits the model over N
 tensor-parallel ranks and `--dp N` runs N batch rows on N data-parallel
 ranks (row 0 streams, `inference` counts every row; with `--lookup-decode
 K` at temperature 0 the rows speculate through generate_batch_lookup);
-`--shard-vocab` (auto, on, off) splits the embedding and the head over tp.
-The CLI starts its ranks itself (parallel/launch.py: this process is rank
-0 and alone prints, the others are spawned): one process a rank, NCCL when
+`--shard-vocab` (auto, on, off) splits the embedding and the head over tp
+(over pp and tp with stages, when pp*tp divides the vocab). `--pp N`
+places the layers in N pipeline stages (a long prompt chunk runs GPipe;
+as in the JAX CLI, `--buffer-float-type q80` is then ignored with a
+notice and the run goes without Q80 activations), `--ep N` places a MoE
+model's experts over N ranks and `--sp N` shards the KV cache's sequence
+over N ranks (the prompt prefills as one ring-attention segment); these
+three run in `inference` and `generate`, and `chat` and the legacy `api`
+run over `--ep` and `--pp`. The CLI starts its ranks itself
+(parallel/launch.py: this process is rank 0 and alone prints, the others
+are spawned): one process a rank, NCCL when
 every rank has a GPU of its own, gloo on the CPU and when ranks share a
 GPU (the choice is printed). With `--buffer-float-type q80` (the default)
 the column splits' partial sums cross the ranks as Q80 blocks.
 `inference` and `generate` run the same program on every rank. `chat` and
-`api` over `--tp` serve from rank 0, which reads stdin or binds the port
+`api` over `--tp` (and the legacy `api` and `chat` over `--ep` and `--pp`)
+serve from rank 0, which reads stdin or binds the port
 and runs every host layer, while the other ranks run the engine calls it
 mirrors to them (parallel/control.py); speculation, sessions, the prefix
 cache and `--profile` (one trace a rank, DIR/rank<r>/trace.json) run over
 ranks too.
 
-Flags of features the port does not have yet — the worker mode, the sp,
-ep and pp axes, clusters, and the features listed in UNPORTED_FLAGS — are
+Flags of features the port does not have yet — the worker mode, chat and
+the legacy api over the sp axis, clusters, and the features listed in
+UNPORTED_FLAGS — are
 accepted by the parser only to be refused with a message naming their
 ROADMAP item, never silently ignored; what the JAX CLI itself refuses is
 refused in its words.
@@ -80,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 import os
 import sys
 import time
@@ -87,7 +98,6 @@ import time
 import numpy as np
 import torch
 
-from ..parallel.mesh import refuse_unported_axes
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 CACHE_DTYPES = {**DTYPES, "f8": torch.float8_e4m3fn}
@@ -109,6 +119,15 @@ _FLAG_SWITCHES = ("--kv-transfer", "--push-weights")
 # every rendezvous and collective of a run over ranks, in seconds: a rank
 # that dies leaves the others failing after this long, not hanging
 RANK_TIMEOUT_S = 600.0
+# the mesh axes, in the JAX mesh's order; the three the scheduler does not
+# run over (the JAX server refuses them)
+AXES = ("dp", "sp", "ep", "pp", "tp")
+NEW_AXES = ("sp", "ep", "pp")
+
+
+def world_size(args) -> int:
+    """The ranks a run takes: the product of the mesh axes."""
+    return math.prod(getattr(args, a) for a in AXES)
 
 
 def _int_or_auto(v: str):
@@ -341,9 +360,17 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="tensor-parallel ranks (one process each)")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel ranks: the batch rows, one a rank")
-    for axis in ("sp", "ep", "pp"):
-        p.add_argument(f"--{axis}", type=int, default=1,
-                       help="mesh axis of ROADMAP item 14; only 1 is ported")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks (ring-attention prefill; "
+                        "each holds seq_len/sp of the KV cache)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel ranks (MoE models: each holds "
+                        "n_experts/ep experts)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel ranks (each holds n_layers/pp "
+                        "layers and their KV cache). --session is refused "
+                        "and --buffer-float-type q80 is ignored in favor of "
+                        "exact collectives")
     p.add_argument("--shard-vocab", default="auto",
                    choices=["auto", "on", "off"],
                    help="row-split the embedding table and logits head "
@@ -367,10 +394,18 @@ def refusals(args) -> list[str]:
         out.append(f"mode {args.mode!r} is not ported yet (ported: "
                    f"{', '.join(PORTED_MODES)}; the worker mode is the "
                    "multi-node control plane, ROADMAP item 15)")
-    out += refuse_unported_axes(sp=args.sp, ep=args.ep, pp=args.pp)
-    for axis in ("tp", "dp"):
+    for axis in AXES:
         if getattr(args, axis) < 1:
             out.append(f"--{axis} must be >= 1")
+    if args.mode in ("chat", "api") and not args.serve_batch and args.sp > 1:
+        # chat and the legacy api run over ep and pp through the control
+        # channel's existing ops; the ring prefill is no op yet. api
+        # --serve-batch over any of them is refused in the JAX words
+        # (check_serve_flags)
+        out.append(f"mode {args.mode!r} with --sp {args.sp}: serving over "
+                   "sp is ROADMAP item 19 and is not ported yet (inference "
+                   "and generate run over every axis; chat and api over ep "
+                   "and pp)")
     if args.dp > 1 and (args.mode == "chat" or (
             args.mode == "api" and not args.serve_batch)):
         # the JAX engine crashes here rather than refusing: its chat and
@@ -478,7 +513,7 @@ def check_spec_flags(args) -> None:
             kind, arg = parse_draft_spec(args.draft)
         except ValueError as e:
             sys.exit(f"error: {e}")
-        if kind == "model" and args.tp * args.dp > 1:
+        if kind == "model" and world_size(args) > 1:
             sys.exit("error: --draft model:PATH needs a mesh-less engine "
                      "(use --draft self:<depth>, which shares the target's "
                      "sharded buffers)")
@@ -521,7 +556,8 @@ def check_serve_flags(args) -> None:
     """The JAX server's refusal of a scheduler over more than the tp axis,
     in its words (JAX apps/api_server.py:1684-1686): the slot scheduler's
     engine composes with --tp only."""
-    if args.mode == "api" and args.serve_batch and args.dp > 1:
+    if args.mode == "api" and args.serve_batch and max(
+            getattr(args, a) for a in ("dp", *NEW_AXES)) > 1:
         sys.exit("error: --serve-batch needs a single-process engine "
                  "(no --dp/--sp/--ep/--pp; --tp composes)")
 
@@ -541,7 +577,8 @@ def build_engine(args, mesh=None):
     from ..io.model_file import content_fingerprint, read_spec
     from ..models.loader import load_params_streamed
     from ..parallel.mesh import describe
-    from ..parallel.sharding import vocab_splits
+    from ..parallel.sharding import (check_axis_constraints,
+                                     loader_placement, vocab_splits)
     from ..quants.types import FloatType
     from ..runtime.engine import Engine, resolve_device
     from ..sampler import Sampler
@@ -558,26 +595,42 @@ def build_engine(args, mesh=None):
           f"seq={spec.seq_len} device={device}")
     cdt = DTYPES[args.compute_dtype]
     q80 = args.buffer_float_type == "q80"
+    if q80 and args.pp > 1:
+        # JAX apps/dllama.py:617-622: the stages reduce exactly, and the
+        # whole run goes without Q80 activations
+        print("⏩ --pp uses exact collectives; ignoring --buffer-float-type q80")
+        q80 = False
     tp = mesh.tp if mesh is not None else 1
     # ONE resolution of --shard-vocab, shared by the loader and the engine
     # (JAX apps/dllama.py:632-640): the loader keeps the rows the engine
     # expects
     shard_vocab = {"auto": vocab_splits(spec, tp), "on": True,
                    "off": False}[args.shard_vocab]
+    try:
+        # the JAX engine's placement rules, before any weight is read
+        check_axis_constraints(
+            spec, sp=args.sp, ep=args.ep, pp=args.pp,
+            seq_len=min(args.max_seq_len or spec.seq_len, spec.seq_len),
+            q80_collectives=q80 and tp > 1)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    place = {}
     if mesh is not None:
         device = mesh.device
         print(f"⏩ {describe(mesh)}")
+        place = loader_placement(mesh, spec, shard_vocab)
     t0 = time.perf_counter()
-    params, lstats = load_params_streamed(
-        spec, args.model, device, dtype=cdt, tp=tp,
-        rank=mesh.tp_rank if mesh is not None else 0,
-        shard_vocab=shard_vocab and tp > 1)
+    try:
+        params, lstats = load_params_streamed(spec, args.model, device,
+                                              dtype=cdt, **place)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
     per_rank = (f", {lstats.device_bytes / 1e6:.0f} MB on each rank's device"
                 if mesh is not None else "")
     print(f"⏩ loaded {lstats.total_bytes / 1e9:.2f} GB in "
           f"{time.perf_counter() - t0:.1f}s (peak host "
           f"{lstats.peak_host_bytes / 1e6:.0f} MB{per_rank})")
-    engine = Engine(spec, params, device=device, mesh=mesh,
+    engine = _new_engine(spec, params, device=device, mesh=mesh,
                     batch=mesh.dp if mesh is not None else 1,
                     q80_collectives=q80, shard_vocab=shard_vocab,
                     max_seq_len=args.max_seq_len, compute_dtype=cdt,
@@ -592,6 +645,17 @@ def build_engine(args, mesh=None):
     seed = args.seed if args.seed is not None else int(time.time())
     sampler = Sampler(tokenizer.vocab_size, args.temperature, args.topp, seed)
     return engine, tokenizer, sampler
+
+
+def _new_engine(*args, **kw):
+    """Engine(...), its refusals (the JAX engine's asserts, in their
+    words) as the CLI's error exit."""
+    from ..runtime.engine import Engine
+
+    try:
+        return Engine(*args, **kw)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
 
 
 def _steps(args, engine) -> int:
@@ -698,7 +762,8 @@ def rank_main(argv: list[str]) -> None:
     from ..parallel.mesh import make_mesh
 
     args = build_argparser().parse_args(argv)
-    mesh = make_mesh(tp=args.tp, dp=args.dp, device_type=args.device)
+    mesh = make_mesh(tp=args.tp, dp=args.dp, sp=args.sp, ep=args.ep,
+                     pp=args.pp, device_type=args.device)
     if args.mode in ("inference", "generate"):
         cmd_generate(args, benchmark=args.mode == "inference", mesh=mesh)
         return
@@ -928,20 +993,21 @@ def main(argv: list[str] | None = None) -> None:
     refused = refusals(args)
     if refused:
         sys.exit("error: " + "; ".join(refused))
-    if args.tp * args.dp == 1 and args.mode == "api":
+    world = world_size(args)
+    if world == 1 and args.mode == "api":
         from .api_server import serve
 
         serve(args)
         return
-    if args.tp * args.dp == 1 and args.mode == "chat":
+    if world == 1 and args.mode == "chat":
         cmd_chat(args)
         return
-    if args.tp * args.dp > 1:
+    if world > 1:
         from ..parallel.launch import run_ranks
         from ..utils.device import resolve_device
 
         resolve_device(args.device)     # no card: raise before any spawn
-        run_ranks(args.tp * args.dp, args.device,
+        run_ranks(world, args.device,
                   "distributed_llama_tpu_torch.apps.dllama:rank_main",
                   (list(argv if argv is not None else sys.argv[1:]),),
                   RANK_TIMEOUT_S)

@@ -21,6 +21,16 @@ vocab rows when tp divides the vocab, tok_emb's with `shard_vocab`; kv
 heads replicated when tp exceeds them). The rank fuses its own row shards
 and marks every split leaf (parallel/wrappers.py), so Engine(mesh=) takes
 the dict as it is.
+
+With `pp > 1` or `ep > 1` (JAX loader.py:150-180, 230-345) a rank keeps
+only the layers of its stage and, of every MoE stack, its E/ep experts
+(each still cut to its tp rows or columns, and marked EpRowWeight /
+EpColWeight): the others stream past and are dropped on the host, so the
+rank's device never holds the whole model. sp replicates the weights.
+kv heads are replicated per tensor before anything is kept, as in JAX.
+`vocab_split` (n, i) cuts the vocab rows of wcls (and of tok_emb with
+`shard_vocab`) into n parts, over (pp, tp) when the engine widens the
+split over the stages (parallel/sharding.vocab_axis).
 """
 
 from __future__ import annotations
@@ -31,8 +41,9 @@ import numpy as np
 import torch
 
 from ..io.model_file import HostTensor, iter_model_tensors
-from ..parallel.sharding import _SPLIT
-from ..parallel.wrappers import TpColWeight, TpRowWeight
+from ..parallel.sharding import _SPLIT, check_axis_constraints
+from ..parallel.wrappers import (EpColWeight, EpRowWeight, TpColWeight,
+                                 TpRowWeight, WeightWrapper)
 from ..quants.torch_codec import QuantizedTensor
 from ..quants.types import FloatType
 from .params import NORMS, as_q40_host, host_dense, host_weight
@@ -102,11 +113,15 @@ def _expert_into_stack(dest: dict, key: str, e: int, t: HostTensor,
 
 
 def _host_shard(t: HostTensor, key: str, mode: str, spec: ModelSpec,
-                tp: int, k: int, shard_vocab: bool) -> HostTensor:
+                tp: int, k: int, shard_vocab: bool,
+                vocab_split: tuple[int, int]) -> HostTensor:
     """Rank k's shard of one file tensor, cut on the host (a Q40 tensor in
-    q40 mode stays packed: whole blocks of its rows or columns)."""
+    q40 mode stays packed: whole blocks of its rows or columns); the vocab
+    rows of tok_emb and wcls are shard vocab_split[1] of vocab_split[0]."""
     split = "row" if key == "tok_emb" and shard_vocab else _SPLIT.get(key)
-    if split is None or (key == "wcls" and t.shape[0] % tp):
+    if key in ("tok_emb", "wcls"):
+        tp, k = vocab_split
+    if split is None or tp == 1 or (key == "wcls" and t.shape[0] % tp):
         return t
     d, n = t.shape
     if split == "row":
@@ -133,17 +148,21 @@ def _host_shard(t: HostTensor, key: str, mode: str, spec: ModelSpec,
     return HostTensor(t.name, FloatType.F32, x.shape, data=x)
 
 
-def _mark(key: str, w, spec: ModelSpec, tp: int):
-    """A split leaf in its shard marker (parallel/wrappers.py); a wcls
-    that tp does not split stays whole and plain."""
+def _mark(key: str, w, spec: ModelSpec, tp: int, ep: int):
+    """A placed leaf in its marker (parallel/wrappers.py): a MoE stack
+    over ep > 1 in its Ep marker, a tp-split leaf (tp > 1; for wcls, tp is
+    the vocab split's count) in its Tp marker; a wcls that the split does
+    not divide stays whole and plain."""
     split = _SPLIT.get(key)
-    if split is None or (key == "wcls" and spec.vocab_size % tp):
+    if ep > 1 and key in ("moe_up", "moe_gate", "moe_down"):
+        return EpColWeight(w) if split == "col" else EpRowWeight(w)
+    if split is None or tp == 1 or (key == "wcls" and spec.vocab_size % tp):
         return w
     return TpRowWeight(w) if split == "row" else TpColWeight(w)
 
 
 def _nbytes(w) -> int:
-    if isinstance(w, (TpRowWeight, TpColWeight)):
+    if isinstance(w, WeightWrapper):
         w = w.w
     if isinstance(w, QuantizedTensor):
         return _nbytes(w.packed) + _nbytes(w.scales)
@@ -153,9 +172,14 @@ def _nbytes(w) -> int:
 def load_params_streamed(spec: ModelSpec, path: str, device, *,
                          mode: str | None = None, dtype=torch.bfloat16,
                          tp: int = 1, rank: int = 0,
-                         shard_vocab: bool = False) -> tuple[dict, LoadStats]:
+                         shard_vocab: bool = False, ep: int = 1,
+                         ep_rank: int = 0, pp: int = 1, pp_rank: int = 0,
+                         vocab_split: tuple[int, int] | None = None,
+                         ) -> tuple[dict, LoadStats]:
     """Stream the `.m` file into a fused params dict on `device`: all of it,
-    or with tp > 1 tp rank `rank`'s marked shard.
+    or with tp > 1 tp rank `rank`'s marked shard; with pp > 1 only stage
+    pp_rank's layers (the dict's "layers" are those L/pp), with ep > 1 only
+    ep rank ep_rank's experts of every MoE stack.
 
     mode defaults to q40 for Q40 files and dense otherwise (as the JAX
     CLI's build_engine picks it). Returns (params, LoadStats) with the
@@ -164,7 +188,11 @@ def load_params_streamed(spec: ModelSpec, path: str, device, *,
     if mode is None:
         mode = "q40" if spec.weights_float_type == FloatType.Q40 else "dense"
     shard = tp > 1
-    p: dict = {"layers": [dict() for _ in range(spec.n_layers)]}
+    vocab_split = vocab_split or (tp, rank)
+    check_axis_constraints(spec, ep=ep, pp=pp)
+    n_local, e_local = spec.n_layers // pp, spec.n_experts // ep
+    l0, e0 = pp_rank * n_local, ep_rank * e_local
+    p: dict = {"layers": [dict() for _ in range(n_local)]}
     pending: dict[str, list[HostTensor]] = {}
     experts_in = 0
     stats = LoadStats()
@@ -175,10 +203,18 @@ def load_params_streamed(spec: ModelSpec, path: str, device, *,
         stats.total_bytes += b
         live += b
         stats.peak_host_bytes = max(stats.peak_host_bytes, live)
-        if shard:
-            t = _host_shard(t, key, mode, spec, tp, rank, shard_vocab)
-        dest = p["layers"][int(t.name.split(".")[1])] \
-            if t.name.startswith("layers.") else p
+        parts = t.name.split(".")
+        if parts[0] == "layers" and not (
+                l0 <= int(parts[1]) < l0 + n_local and (
+                    parts[2] != "experts"
+                    or e0 <= int(parts[3]) < e0 + e_local)):
+            live -= b       # another stage's layer or another rank's expert
+            continue
+        if shard or key in ("tok_emb", "wcls"):
+            t = _host_shard(t, key, mode, spec, tp, rank, shard_vocab,
+                            vocab_split)
+        dest = p["layers"][int(parts[1]) - l0] \
+            if parts[0] == "layers" else p
         group = _fuse_group(key)
         if group is not None:
             gk = f"{t.name.rsplit('.', 1)[0]}.{group}"
@@ -190,8 +226,8 @@ def load_params_streamed(spec: ModelSpec, path: str, device, *,
                 live -= sum(_host_bytes(x) for x in ts)
             continue
         if key in ("moe_up", "moe_gate", "moe_down"):
-            _expert_into_stack(dest, key, int(t.name.split(".")[3]), t,
-                               spec.n_experts, mode, dtype, device)
+            _expert_into_stack(dest, key, int(parts[3]) - e0, t, e_local,
+                               mode, dtype, device)
             experts_in += 1
         elif key in NORMS:
             dest[key] = host_dense(t, torch.float32, device)  # norms stay f32
@@ -202,14 +238,19 @@ def load_params_streamed(spec: ModelSpec, path: str, device, *,
         live -= b
     if pending:
         raise ValueError(f"incomplete fusion groups: {list(pending)}")
-    if experts_in != 3 * spec.n_experts * spec.n_layers:
-        raise ValueError(f"{experts_in} expert tensors in the file, the spec "
-                         f"wants {3 * spec.n_experts * spec.n_layers}")
-    if shard:
-        p["wcls"] = _mark("wcls", p["wcls"], spec, tp)
-        p["layers"] = [{k: _mark(k, w, spec, tp) for k, w in lw.items()}
+    if experts_in != 3 * e_local * n_local:
+        raise ValueError(f"{experts_in} expert tensors kept from the file, "
+                         f"the spec wants {3 * e_local * n_local}")
+    p["wcls"] = _mark("wcls", p["wcls"], spec, vocab_split[0], 1)
+    if shard or ep > 1:
+        p["layers"] = [{k: _mark(k, w, spec, tp, ep) for k, w in lw.items()}
                        for lw in p["layers"]]
-    stats.device_bytes = sum(_nbytes(w) for lw in p["layers"]
-                             for w in lw.values()) + sum(
-        _nbytes(p[k]) for k in ("tok_emb", "rms_final", "wcls"))
+    stats.device_bytes = param_bytes(p)
     return p, stats
+
+
+def param_bytes(p: dict) -> int:
+    """The bytes a params dict holds on its device (every leaf, marked
+    shards unwrapped)."""
+    return sum(_nbytes(w) for lw in p["layers"] for w in lw.values()) + sum(
+        _nbytes(p[k]) for k in ("tok_emb", "rms_final", "wcls"))

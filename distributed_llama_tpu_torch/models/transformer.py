@@ -30,6 +30,16 @@ on the device from that tensor, so a captured CUDA graph of the forward
 (runtime/graphs.py) reads the positions afresh at every replay. A write
 at a position outside [0, S) is dropped, as the JAX package's scatter
 drops it (transformer.py:97 _scatter_cache_write).
+
+Over the other mesh axes (JAX transformer.py:117-235, 293-331, 495-515):
+with sp the cache holds the rank's S/sp positions, every write goes to
+its chunk-local row (a position of another shard is dropped, JAX
+:155-174) and attention runs over the sharded cache, or, for the ring
+prefill segment (`ring`), over the K/V blocks travelling the sp ring
+(parallel/ring_attention.py); with ep the MoE FFN computes the rank's
+local experts and reduces over (ep, tp) (parallel/ep_moe.py); with pp the
+rank runs its stage's layers, the stage relay or GPipe picked per segment
+(parallel/pp.py).
 """
 
 from __future__ import annotations
@@ -46,9 +56,13 @@ from ..ops.matmul import fused_expert_matmul, matmul
 from ..ops.norms import rmsnorm
 from ..ops.rope import apply_rope, rope_angles
 from ..ops.sharded_vocab import embed_tokens_sharded
-from ..parallel.collectives import all_gather
-from ..parallel.mesh import TP_AXIS
-from ..parallel.wrappers import TpRowWeight, WeightWrapper
+from ..parallel import pp as pipeline
+from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.ep_moe import ep_moe_ffn
+from ..parallel.mesh import SP_AXIS, TP_AXIS
+from ..parallel.ring_attention import (ring_attention_local,
+                                       sp_cache_attention_local)
+from ..parallel.wrappers import EpRowWeight, TpRowWeight, WeightWrapper
 from ..quants.torch_codec import take_expert
 from ..utils.device import resolve_device
 from .spec import ArchType, ModelSpec
@@ -148,14 +162,20 @@ def _write_cache(k_cache, v_cache, k, v, where: CacheWrite) -> None:
 
 
 def _attention_block(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos,
-                     angles, where: CacheWrite, mm: dict):
+                     angles, where: CacheWrite, mm: dict, ring=None):
     """Norm -> QKV -> RoPE -> cache write -> attention -> output proj.
     Returns the wo projection, not yet added to the residual. Over tp
     ranks the rank's row shards give its H/tp query and KVH/tp kv heads
     (its cache holds those), K3 attends them, and wo's column shard
-    reduces over tp (JAX tp_flash_attention: no collective for attention)."""
+    reduces over tp (JAX tp_flash_attention: no collective for attention).
+    Over sp the cache is the rank's S/sp positions: attention merges the
+    shards' statistics (sp_cache_attention_local), or, for the ring
+    prefill segment (`ring`: its chunk's first position), runs the ring,
+    writing each passing block's positions of this shard."""
     b, t, _ = x.shape
-    tp = mm["mesh"].tp if mm["mesh"] is not None else 1
+    mesh = mm["mesh"]
+    tp = mesh.tp if mesh is not None else 1
+    sp = mesh.sp if mesh is not None else 1
     h, kvh, hs = spec.n_heads // tp, k_cache.shape[1], spec.head_size
 
     xb = rmsnorm(x, lw["rms_att"])  # ref: llama2-tasks.cpp:10-21
@@ -171,12 +191,22 @@ def _attention_block(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos,
 
     q = apply_rope(q, angles, spec.arch)
     k = apply_rope(k, angles, spec.arch)
-    _write_cache(k_cache, v_cache, k, v, where)
 
-    if cuda_attention.flash_supported(t, h, kvh):
-        att = cuda_attention.flash_attention(q, k_cache, v_cache, q_pos)
+    if ring is not None:
+        s = k_cache.shape[2]
+
+        def write_block(kb, vb, k_pos):
+            _write_cache(k_cache, v_cache, kb, vb, cache_write(
+                k_pos - mesh.sp_rank * s, kvh, s, True))
+        att = ring_attention_local(q, k, v, ring, mesh, on_block=write_block)
     else:
-        att = decode_attention(q, k_cache, v_cache, q_pos)  # (B, T, H, hs)
+        _write_cache(k_cache, v_cache, k, v, where)
+        if sp > 1:
+            att = sp_cache_attention_local(q, k_cache, v_cache, q_pos, mesh)
+        elif cuda_attention.flash_supported(t, h, kvh):
+            att = cuda_attention.flash_attention(q, k_cache, v_cache, q_pos)
+        else:
+            att = decode_attention(q, k_cache, v_cache, q_pos)  # (B, T, H, hs)
     return matmul(att.reshape(b, t, h * hs), lw["wo"], **mm)
 
 
@@ -222,6 +252,19 @@ def _moe_ffn(xb, lw, spec: ModelSpec, mm: dict):
     router_logits = matmul(xb, lw["moe_router"], **mm)
     weights, top_idx = moe_route(router_logits, k_active)    # (B, T, K)
 
+    def scatter_weights():
+        # every expert's routing weight, 0 for an inactive one (JAX
+        # scatter_weights): the ep path's and the dense prefill's mask
+        return torch.zeros(router_logits.shape, dtype=torch.float32,
+                           device=xb.device).scatter(-1, top_idx, weights)
+
+    if isinstance(lw["moe_up"], EpRowWeight):
+        # experts placed over ep: the rank's local experts, densely, for
+        # every segment (JAX transformer.py:303-331)
+        return ep_moe_ffn(xb, scatter_weights(), lw, mm["mesh"], act_fn=act,
+                          compute_dtype=mm["compute_dtype"],
+                          reduce=mm["tp_reduce"]).to(xb.dtype)
+
     if t == 1 and b == 1:
         idx = top_idx.reshape(k_active).to(torch.int32)   # K2's index type
         x1 = xb.reshape(1, d)
@@ -239,8 +282,7 @@ def _moe_ffn(xb, lw, spec: ModelSpec, mm: dict):
         return acc.reshape(b, t, d).to(xb.dtype)
 
     # prefill: every expert densely, masked by the scattered routing weights
-    e_weights = torch.zeros(router_logits.shape, dtype=torch.float32,
-                            device=xb.device).scatter(-1, top_idx, weights)
+    e_weights = scatter_weights()
     acc = torch.zeros((b, t, d), dtype=xb.dtype, device=xb.device)
     for e in range(spec.n_experts):
         gate = matmul(xb, _take_expert(lw["moe_gate"], e), **mm)
@@ -260,13 +302,13 @@ def _take_expert(w, e: int):
 
 def _layer(x, lw, spec: ModelSpec, k_cache, v_cache, q_pos, angles,
            where: CacheWrite, compute_dtype, activation_q80: bool = False,
-           mesh=None, tp_reduce: str = "exact"):
+           mesh=None, tp_reduce: str = "exact", ring=None):
     """One block (JAX transformer.py:_layer): attention, then the dense or
     MoE FFN with the arch's norms and residuals."""
     mm = dict(compute_dtype=compute_dtype, activation_q80=activation_q80,
               mesh=mesh, tp_reduce=tp_reduce)
     attn = _attention_block(x, lw, spec, k_cache, v_cache, q_pos, angles,
-                            where, mm)
+                            where, mm, ring)
     if spec.arch == ArchType.GROK1:
         # post-attention norm BEFORE the residual add (ref: grok1-tasks.cpp:16-41)
         x = x + rmsnorm(attn, lw["rms_ffn"]).to(x.dtype)
@@ -297,6 +339,9 @@ def forward(
     tp_reduce: str = "exact",
     shard_vocab: bool = False,
     local_logits: bool = False,
+    vocab_axis: str = TP_AXIS,
+    ring: bool = False,
+    pp_gpipe: bool = True,
 ) -> torch.Tensor | None:
     """Run T tokens through the model, writing their K/V into `cache`.
     activation_q80 sends every matmul input (router and wcls included)
@@ -321,10 +366,22 @@ def forward(
     "q80"), `shard_vocab` looks the tokens up in the rank's rows of the
     embedding (ops/sharded_vocab.py), and a row-split wcls gives the
     rank's vocab slice of the logits, gathered over tp unless
-    `local_logits` keeps them split (the vocab-sharded sampler's input)."""
+    `local_logits` keeps them split (the vocab-sharded sampler's input).
+    `vocab_axis` is the axis the vocab is split over: tp, or (pp, tp)
+    (parallel/mesh.PP_TP). With sp the cache holds the rank's S/sp
+    positions; `ring` makes the segment this rank's chunk of the ring
+    prefill (pos0 the chunk's first position, an int; `logit_index` the
+    whole segment's index of the logits' row, whose chunk's rank hands
+    it to the others). With pp `params` and `cache` hold this stage's
+    layers, and `pp_gpipe` lets a long segment take GPipe."""
     b, t = tokens.shape
     dev = tokens.device
     s = cache.k[0].shape[2]
+    sp = mesh.sp if mesh is not None else 1
+    if ring and (sp == 1 or not isinstance(pos0, int) or logits_for_all
+                 or logit_index is None):
+        raise ValueError("a ring segment needs sp > 1, an int pos0 and the "
+                         "logit_index of one row")
     if isinstance(pos0, torch.Tensor):
         pos_t = pos0.to(device=dev, dtype=torch.int32).reshape(-1).expand(b)
         spare = True    # the device's positions are not read here
@@ -335,24 +392,50 @@ def forward(
         pos_t = torch.tensor(rows, dtype=torch.int32, device=dev)
         spare = any(p < 0 or p + t > s for p in rows)
     q_pos = pos_t[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
-    where = cache_write(q_pos, cache.k[0].shape[1], s, spare)
+    # over sp the cache's rows are this rank's positions, from off on; a
+    # position of another shard goes to the spare row
+    off = mesh.sp_rank * s if sp > 1 else 0
+    spare = spare or sp > 1
 
-    angles = rope_angles(q_pos, spec.head_size, spec.rope_theta)
+    def positions(q_pos):
+        """The cache rows and RoPE angles of positions q_pos (B, T)."""
+        return (cache_write(q_pos - off if off else q_pos,
+                            cache.k[0].shape[1], s, spare),
+                rope_angles(q_pos, spec.head_size, spec.rope_theta))
+
+    def stage(x, q_pos, placed=None):
+        # this rank's layers (all of them, or its pp stage's)
+        where, angles = placed or positions(q_pos)
+        for l, lw in enumerate(params["layers"]):
+            x = _layer(x, lw, spec, cache.k[l], cache.v[l], q_pos, angles,
+                       where, compute_dtype, activation_q80, mesh, tp_reduce,
+                       ring=pos0 if ring else None)
+        return x
+
+    pp = mesh.pp if mesh is not None else 1
+    placed = positions(q_pos) if pp == 1 else None
     if shard_vocab:
-        x = embed_tokens_sharded(params["tok_emb"], tokens, mesh, compute_dtype)
+        x = embed_tokens_sharded(params["tok_emb"], tokens, mesh,
+                                 compute_dtype, vocab_axis)
     else:
         x = params["tok_emb"][tokens.long()].to(compute_dtype)  # ref: tasks.cpp:202-203
     if spec.arch == ArchType.GROK1:
         x = x * GROK_INPUT_SCALE
-    for l in range(spec.n_layers):
-        x = _layer(x, params["layers"][l], spec, cache.k[l], cache.v[l],
-                   q_pos, angles, where, compute_dtype, activation_q80,
-                   mesh, tp_reduce)
+    if pp > 1:
+        x = pipeline.forward(x, q_pos, stage, mesh, pp_gpipe)
+    else:
+        x = stage(x, q_pos, placed)
     if not logits:
         return None
 
     x = rmsnorm(x, params["rms_final"])         # ref: llama2-tasks.cpp:222-234
-    if not logits_for_all:
+    if ring:
+        # the row's chunk holds it; its rank hands it to the others (the
+        # rest add zeros: exact)
+        r = int(logit_index) - pos0
+        x = all_reduce(x[:, r] if 0 <= r < t else torch.zeros_like(x[:, 0]),
+                       mesh, SP_AXIS)
+    elif not logits_for_all:
         if logit_index is None:
             x = x[:, -1, :]
         else:
@@ -364,5 +447,5 @@ def forward(
         out = out * GROK_LOGIT_SCALE          # ref: grok1-tasks.cpp:269-272
     if isinstance(params["wcls"], TpRowWeight) and not local_logits:
         # the ranks' vocab slices side by side (JAX: GSPMD's gather)
-        out = all_gather(out, mesh, TP_AXIS).movedim(0, -2).flatten(-2)
+        out = all_gather(out, mesh, vocab_axis).movedim(0, -2).flatten(-2)
     return out

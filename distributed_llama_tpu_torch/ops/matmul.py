@@ -28,6 +28,13 @@ A rank's shard of a weight comes marked (parallel/wrappers.py), and
 99-124): a row shard is the local product, a column shard the local
 partial sum reduced over tp (parallel/tp_q80.py), the local product being
 `local_matmul` in both.
+
+Two JAX quirks the other mesh axes keep: the expert-parallel MoE body
+(parallel/ep_moe.py, JAX ep_moe._ep_body) calls `local_matmul` without
+`activation_q80`, so under ep the experts' inputs skip the Q80 round trip
+(on the card, K1's t = 1 GEMV without its fused q80_store); and inside
+pipeline stages the column splits reduce exactly (the engine refuses Q80
+collectives with pp, as the JAX engine asserts).
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """The vocab split: the embedding gather and the head's sampling summary
 over vocab-sharded tables — counterpart of the JAX package's
 ops/sharded_vocab.py (vocab_shard_axes :59, embed_tokens_sharded :110,
-sample_prep_local :135, sharded_sample_prep :171), over tp only.
+sample_prep_local :135, sharded_sample_prep :171), over tp or, with
+pipeline stages, over (pp, tp) (the `axis` argument: parallel/mesh.PP_TP,
+the shard index pp_index * tp + tp_index).
 
-  * Embedding: each tp rank holds rows [base, base + V/tp) of tok_emb.
+  * Embedding: each rank holds rows [base, base + V/n) of tok_emb.
     The lookup is a masked local gather (a token outside the rank's rows
     gives exact zeros) and one all-reduce over tp: zeros plus the one
     real row add exactly in any float type, so the result is bit-identical
@@ -30,28 +32,29 @@ from ..parallel.mesh import TP_AXIS
 
 
 def embed_tokens_sharded(emb_local: torch.Tensor, tokens: torch.Tensor, mesh,
-                         compute_dtype) -> torch.Tensor:
-    """(B, T) token ids -> (B, T, dim) from this rank's (V/tp, dim) rows of
-    the embedding table: masked local gather, then the sum over tp."""
+                         compute_dtype, axis: str = TP_AXIS) -> torch.Tensor:
+    """(B, T) token ids -> (B, T, dim) from this rank's (V/n, dim) rows of
+    the embedding table: masked local gather, then the sum over `axis`."""
     vloc = emb_local.shape[0]
-    loc = tokens.to(torch.int64) - mesh.tp_rank * vloc
+    loc = tokens.to(torch.int64) - mesh.index(axis) * vloc
     ok = (loc >= 0) & (loc < vloc)
     x = emb_local[loc.clamp(0, vloc - 1)].to(compute_dtype)
-    return all_reduce(x.masked_fill(~ok[..., None], 0), mesh, TP_AXIS)
+    return all_reduce(x.masked_fill(~ok[..., None], 0), mesh, axis)
 
 
-def sharded_argmax(logits: torch.Tensor, mesh, n_vocab: int) -> torch.Tensor:
-    """(B,) global greedy tokens from this rank's (B, V/tp) logits: the
+def sharded_argmax(logits: torch.Tensor, mesh, n_vocab: int,
+                   axis: str = TP_AXIS) -> torch.Tensor:
+    """(B,) global greedy tokens from this rank's (B, V/n) logits: the
     greedy half of the summary alone (local max and argmax, gathered),
     with the same tie-break."""
     vloc = logits.shape[-1]
-    base = mesh.tp_rank * vloc
+    base = mesh.index(axis) * vloc
     gid = base + torch.arange(vloc, device=logits.device)
     lm = torch.where((gid < n_vocab)[None, :], logits.to(torch.float32),
                      float("-inf"))
     loc_max, loc_arg = lm.max(dim=-1)
-    return _pick(all_gather(loc_max, mesh, TP_AXIS).t(),
-                 all_gather(base + loc_arg, mesh, TP_AXIS).t())
+    return _pick(all_gather(loc_max, mesh, axis).t(),
+                 all_gather(base + loc_arg, mesh, axis).t())
 
 
 def _pick(lmax: torch.Tensor, larg: torch.Tensor) -> torch.Tensor:
@@ -62,7 +65,7 @@ def _pick(lmax: torch.Tensor, larg: torch.Tensor) -> torch.Tensor:
 
 
 def sample_prep_local(l_local: torch.Tensor, temps: torch.Tensor, base: int,
-                      n_vocab: int, k: int, mesh):
+                      n_vocab: int, k: int, mesh, axis: str = TP_AXIS):
     """This rank's summary of its (B, V/tp) logits (JAX :135): (local max
     (B, 1), local argmax as a global id (B, 1), top-k probabilities (B, k)
     in descending order, their global ids (B, k), the k-th probability
@@ -74,9 +77,9 @@ def sample_prep_local(l_local: torch.Tensor, temps: torch.Tensor, base: int,
     lm = torch.where(valid, l_local.to(torch.float32), float("-inf"))
     loc_max, loc_arg = lm.max(dim=-1)     # the first maximum's index
     x = lm / temps.to(torch.float32).clamp_min(1e-6)[:, None]
-    gmax = all_reduce(x.max(dim=-1).values, mesh, TP_AXIS, op="max")
+    gmax = all_reduce(x.max(dim=-1).values, mesh, axis, op="max")
     e = torch.where(valid, torch.exp(x - gmax[:, None]), 0.0)
-    z = all_reduce(e.sum(dim=-1), mesh, TP_AXIS)
+    z = all_reduce(e.sum(dim=-1), mesh, axis)
     p = e / z[:, None]
     # lax.top_k's order: probability descending, the lower index first
     top_p, top_i = torch.sort(p, dim=-1, descending=True, stable=True)
@@ -86,13 +89,13 @@ def sample_prep_local(l_local: torch.Tensor, temps: torch.Tensor, base: int,
 
 
 def sharded_sample_prep(logits: torch.Tensor, temps: torch.Tensor, mesh,
-                        n_vocab: int, k: int):
-    """(B, V/tp) logits of this rank -> the summary over every tp rank
-    (JAX :171): argmax (B,) int64, candidate probabilities and ids
-    (B, tp * k) in rank order, guards (B, tp). The logits themselves are
+                        n_vocab: int, k: int, axis: str = TP_AXIS):
+    """(B, V/n) logits of this rank -> the summary over every rank of
+    `axis` (JAX :171): argmax (B,) int64, candidate probabilities and ids
+    (B, n * k) in rank order, guards (B, n). The logits themselves are
     never gathered."""
-    base = mesh.tp_rank * logits.shape[-1]
-    parts = sample_prep_local(logits, temps, base, n_vocab, k, mesh)
+    base = mesh.index(axis) * logits.shape[-1]
+    parts = sample_prep_local(logits, temps, base, n_vocab, k, mesh, axis)
     lmax, larg, cand_p, cand_id, guard = (
-        all_gather(t, mesh, TP_AXIS).movedim(0, 1).flatten(1) for t in parts)
+        all_gather(t, mesh, axis).movedim(0, 1).flatten(1) for t in parts)
     return _pick(lmax, larg), cand_p, cand_id, guard

@@ -6,7 +6,14 @@ exchange tensors.
   all_gather       every rank's tensor, stacked in rank order
   q80_all_gather   the same with an int8 block payload (JAX :22)
   q80_psum         the one-shot Q80 all-reduce (JAX :33)
+  broadcast        one rank's tensor on every rank of the axis (the last
+                   pp stage's activations)
   broadcast_object rank 0's picklable object on every rank (a session file)
+  send, recv       a tensor from this rank to another, point to point (the
+                   pp stage hop: send returns at once, its copy in flight)
+  ring_shift       tensors one place round the axis's ring, posted and
+                   left in flight (the sp ring's lax.ppermute): each rank
+                   sends to the next and receives from the previous
   q80_psum_2shot   the two-shot Q80 all-reduce (JAX :47), the reference's
                    wire trick: each rank quantizes its partial sums chunk
                    by chunk, an all-to-all hands chunk i to rank i, which
@@ -37,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 from ..quants.torch_codec import dequantize_q80_torch, quantize_q80_torch
-from .mesh import TP_AXIS, WORLD, Mesh
+from .mesh import TP_AXIS, WORLD, Mesh, axis_parts
 
 
 def _stage(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
@@ -100,6 +107,80 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = TP_AXIS) -> torch.Tensor
     parts = [torch.empty_like(h) for _ in range(mesh.shape[axis])]
     _run(mesh, lambda: dist.all_gather(parts, h, group=mesh.group(axis)))
     return _unstage(mesh, torch.stack(parts))
+
+
+def broadcast(x: torch.Tensor, mesh: Mesh, axis: str, src: int) -> torch.Tensor:
+    """The tensor of the rank at index `src` along `axis` on every rank of
+    the axis; every rank passes a tensor of the same shape and dtype (what
+    the others pass is overwritten, never read)."""
+    if not _spans(mesh, axis):
+        return x
+    (a,) = axis_parts(axis)
+    buf = _stage(mesh, x.contiguous()) if mesh.stages else x.clone(
+        memory_format=torch.contiguous_format)
+    root = mesh.neighbour(a, src - mesh.coords[a])
+    _run(mesh, lambda: dist.broadcast(buf, root, group=mesh.group(axis)))
+    return _unstage(mesh, buf)
+
+
+class Pending:
+    """Point-to-point transfers in flight (send, ring_shift): wait() ends
+    them and returns what was received, on the mesh's device."""
+
+    def __init__(self, mesh: Mesh, works: list, received: list,
+                 keep: list):
+        self.mesh, self._works, self._received = mesh, works, received
+        self._keep = keep      # the staged sends' host copies, until done
+
+    def wait(self) -> list[torch.Tensor]:
+        t0 = time.perf_counter()
+        for w in self._works:
+            w.wait()
+        self.mesh.stats["collective_s"] += time.perf_counter() - t0
+        self._keep = []
+        return [_unstage(self.mesh, r) for r in self._received]
+
+
+def _p2p(mesh: Mesh, sends: list, recvs: list) -> Pending:
+    """Post sends [(tensor, dst rank)] and receives [(like tensor, src
+    rank)]: NCCL takes them as one batch (so that a pair of ranks sending
+    to each other cannot wait on each other), gloo one by one on its own
+    threads. Every transfer counts as one collective."""
+    # a staged receive lands in host memory; wait() copies it to the card
+    out = [torch.empty(like.shape, dtype=like.dtype,
+                       device="cpu" if mesh.stages else like.device)
+           for like, _ in recvs]
+    keep = [_stage(mesh, t.contiguous()) for t, _ in sends]
+    t0 = time.perf_counter()
+    if mesh.backend == "nccl":
+        ops = [dist.P2POp(dist.isend, t, d) for t, (_, d) in zip(keep, sends)]
+        ops += [dist.P2POp(dist.irecv, t, s) for t, (_, s) in zip(out, recvs)]
+        works = dist.batch_isend_irecv(ops) if ops else []
+    else:
+        works = [dist.isend(t, d) for t, (_, d) in zip(keep, sends)]
+        works += [dist.irecv(t, s) for t, (_, s) in zip(out, recvs)]
+    mesh.stats["collectives"] += len(sends) + len(recvs)
+    mesh.stats["collective_s"] += time.perf_counter() - t0
+    return Pending(mesh, works, out, keep)
+
+
+def send(x: torch.Tensor, mesh: Mesh, dst: int) -> Pending:
+    """Send x to global rank `dst`; the copy stays in flight until the
+    returned Pending is waited on (x must not change before then)."""
+    return _p2p(mesh, [(x, dst)], [])
+
+
+def recv(like: torch.Tensor, mesh: Mesh, src: int) -> torch.Tensor:
+    """A tensor of `like`'s shape and dtype from global rank `src`."""
+    return _p2p(mesh, [], [(like, src)]).wait()[0]
+
+
+def ring_shift(xs: list[torch.Tensor], mesh: Mesh, axis: str) -> Pending:
+    """Every tensor of xs one place round `axis`'s ring: sent to the next
+    rank, its counterpart received from the previous one. Returns at once;
+    wait() gives the received tensors in xs's order."""
+    nxt, prv = mesh.neighbour(axis, 1), mesh.neighbour(axis, -1)
+    return _p2p(mesh, [(x, nxt) for x in xs], [(x, prv) for x in xs])
 
 
 def broadcast_object(obj, mesh: Mesh, src: int = 0):

@@ -105,6 +105,121 @@ def refusals(tp: int, dp: int, blob: bytes, engine_kw: dict,
     return out
 
 
+# -- the other axes (sp, ep, pp) ------------------------------------------
+
+
+def placement(eng) -> dict:
+    """What this rank holds: its layers, the experts of its MoE stacks,
+    its parameter bytes and its cache's (layers, rows, kv heads,
+    positions) and bytes."""
+    from ..models.loader import param_bytes
+
+    lw = eng.params["layers"][0]
+    k = eng.cache.k
+    return dict(layers=len(eng.params["layers"]),
+                experts=lw["moe_up"].shape[0] if "moe_up" in lw else 0,
+                param_bytes=param_bytes(eng.params),
+                cache=(len(k), *k[0].shape[:3]),
+                cache_bytes=sum(t.numel() * t.element_size()
+                                for t in (*k, *eng.cache.v)))
+
+
+def _grid_report(eng, calls: list) -> dict:
+    out = []
+    for m, a, kw in calls:
+        try:
+            out.append(host(getattr(eng, m)(*a, **kw)))
+        except ValueError as e:            # an engine refusal, as a result
+            out.append(f"ValueError: {e}")
+    return dict(results=out, stats=dict(eng.mesh.stats),
+                placement=placement(eng), coords=dict(eng.mesh.coords),
+                vocab_axis=eng._vocab_axis, tp_reduce=eng.tp_reduce)
+
+
+def grid_calls(grid: dict, blob: bytes, engine_kw: dict, calls: list) -> dict:
+    """Each (method, args, kwargs) of `calls` on an Engine over a mesh of
+    CPU ranks of the axis sizes `grid` (make_mesh's keywords), built from
+    the full params in `blob`: their results (a ValueError's message in
+    its place), the mesh's stats and coordinates, and the rank's
+    placement."""
+    from ..runtime.engine import Engine
+
+    spec, params = unpack(blob)
+    eng = Engine(spec, params, mesh=make_mesh(**grid, device_type="cpu"),
+                 **engine_kw)
+    return _grid_report(eng, calls)
+
+
+def ring(sp: int, q: np.ndarray, k: np.ndarray, v: np.ndarray,
+         pos0: int) -> np.ndarray:
+    """ring_attention_local of rank i's chunk of the whole (B, T, ...) q,
+    k and v on an sp-rank mesh, the chunk's first position pos0 + i*T/sp."""
+    from .ring_attention import ring_attention_local
+
+    mesh = make_mesh(sp=sp, device_type="cpu")
+    t = q.shape[1] // sp
+    c = slice(mesh.sp_rank * t, (mesh.sp_rank + 1) * t)
+    return host(ring_attention_local(
+        *(torch.from_numpy(np.ascontiguousarray(a[:, c])) for a in (q, k, v)),
+        pos0 + mesh.sp_rank * t, mesh))
+
+
+def sp_cache(sp: int, q: np.ndarray, k_cache: np.ndarray,
+             v_cache: np.ndarray, q_pos: np.ndarray) -> np.ndarray:
+    """sp_cache_attention_local of the queries q against rank i's shard
+    of the whole (B, KVH, S, hs) caches, positions [i*S/sp, (i+1)*S/sp)."""
+    from .ring_attention import sp_cache_attention_local
+
+    mesh = make_mesh(sp=sp, device_type="cpu")
+    s = k_cache.shape[2] // sp
+    c = slice(mesh.sp_rank * s, (mesh.sp_rank + 1) * s)
+    return host(sp_cache_attention_local(
+        torch.from_numpy(q),
+        *(torch.from_numpy(np.ascontiguousarray(a[:, :, c]))
+          for a in (k_cache, v_cache)), torch.from_numpy(q_pos), mesh))
+
+
+def moe_layer(grid: dict, blob: bytes, engine_kw: dict,
+              x: np.ndarray) -> np.ndarray:
+    """The MoE FFN of layer 0 (models/transformer._moe_ffn) on the
+    post-norm activations x (B, T, dim), over a mesh of CPU ranks of the
+    axis sizes `grid`, in the engine's configuration (its Q80 activations
+    and reduce)."""
+    from ..models.transformer import _moe_ffn
+    from ..runtime.engine import Engine
+
+    spec, params = unpack(blob)
+    eng = Engine(spec, params, mesh=make_mesh(**grid, device_type="cpu"),
+                 **engine_kw)
+    mm = dict(compute_dtype=eng.compute_dtype,
+              activation_q80=eng.activation_q80, mesh=eng.mesh,
+              tp_reduce=eng.tp_reduce)
+    return host(_moe_ffn(torch.from_numpy(x).to(eng.compute_dtype),
+                         eng.params["layers"][0], eng.spec, mm))
+
+
+def grid_file_calls(grid: dict, path: str, engine_kw: dict,
+                    calls: list) -> dict:
+    """grid_calls over the streamed loader's placement of the `.m` file at
+    `path` (each rank reads only its share into its params), with the
+    loader's own count of the bytes it kept."""
+    from ..io.model_file import read_spec
+    from ..models.loader import load_params_streamed
+    from ..parallel.sharding import loader_placement, vocab_splits
+    from ..runtime.engine import Engine
+
+    mesh = make_mesh(**grid, device_type="cpu")
+    spec = read_spec(path)
+    shard_vocab = engine_kw.get("shard_vocab")
+    if shard_vocab is None:
+        shard_vocab = vocab_splits(spec, mesh.tp)
+    params, stats = load_params_streamed(
+        spec, path, "cpu", dtype=engine_kw.get("compute_dtype", torch.float32),
+        **loader_placement(mesh, spec, shard_vocab))
+    eng = Engine(spec, params, mesh=mesh, **engine_kw)
+    return dict(_grid_report(eng, calls), loaded_bytes=stats.device_bytes)
+
+
 # -- serving over ranks (parallel/control.py) -------------------------------
 
 

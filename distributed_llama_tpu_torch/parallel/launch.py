@@ -9,7 +9,8 @@
              start one group and send it many jobs (a job is a
              "module:function" name and its arguments; every rank calls
              it and its return value comes back). parallel/jobs.py holds
-             the jobs.
+             the jobs. A pool is any grid's: each job builds the mesh of
+             its axis sizes over the pool's ranks (parallel/mesh.py).
 
 Processes are spawned, never forked: a child imports only this package,
 so a parent that imports jax (a test) hands none of it down. The ranks

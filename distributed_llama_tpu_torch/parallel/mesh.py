@@ -6,10 +6,16 @@ torch.distributed, and `Mesh` is this process's view of the grid: the axis
 sizes under the JAX axis names, this rank's coordinates, its device, and
 one process group for each axis larger than 1.
 
-Ranks lie in the JAX mesh's order, tp fastest: rank = dp_index * tp +
-tp_index, so each tp group holds consecutive ranks. Only dp and tp are
-ported; sp, ep and pp are accepted at 1 and refused otherwise (ROADMAP
-item 14).
+Ranks lie in the JAX mesh's order (dp, sp, ep, pp, tp), tp fastest:
+
+    rank = (((dp_i * sp + sp_i) * ep + ep_i) * pp + pp_i) * tp + tp_i
+
+so each tp group holds consecutive ranks. Two joint groups join the axes
+that one reduce spans: (ep, tp), the expert-parallel MoE's partial sums
+(parallel/ep_moe.py), and (pp, tp), the vocab split widened over the
+stages (ops/sharded_vocab.py); a joint group's ranks lie major to minor
+as listed. pp's stage hop and sp's ring run point to point between the
+global ranks that `neighbour` names.
 
 The backend: NCCL when every rank has a GPU of its own (rank r on
 cuda:r), gloo on the CPU and when ranks share a GPU. Under gloo a
@@ -22,7 +28,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -33,17 +41,13 @@ SP_AXIS = "sp"
 EP_AXIS = "ep"
 PP_AXIS = "pp"
 TP_AXIS = "tp"
+AXES = (DP_AXIS, SP_AXIS, EP_AXIS, PP_AXIS, TP_AXIS)
+# joint axes: one group over several mesh axes, major to minor
+EP_TP = "ep,tp"
+PP_TP = "pp,tp"
+JOINT = {EP_TP: (EP_AXIS, TP_AXIS), PP_TP: (PP_AXIS, TP_AXIS)}
 # not a mesh axis: every rank at once (a row fetched across dp groups)
 WORLD = "world"
-# the axes the port does not run yet, with the ROADMAP item that brings them
-UNPORTED_AXES = {SP_AXIS: 14, EP_AXIS: 14, PP_AXIS: 14}
-
-
-def refuse_unported_axes(**sizes: int) -> list[str]:
-    """A message for every unported axis asked for at a size other than 1."""
-    return [f"--{a} {n}: the {a} axis is ROADMAP item {UNPORTED_AXES[a]} "
-            "and is not ported yet" for a, n in sizes.items()
-            if a in UNPORTED_AXES and n != 1]
 
 
 def choose_backend(device_type: str, world: int) -> str:
@@ -61,9 +65,14 @@ def rank_device(device_type: str, rank: int) -> torch.device:
     return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
 
 
+def axis_parts(axis: str) -> tuple[str, ...]:
+    """The mesh axes an axis name spans: itself, or a joint axis's parts."""
+    return JOINT.get(axis, (axis,))
+
+
 @dataclasses.dataclass
 class Mesh:
-    """This rank's view of a (dp, tp) grid of `world` ranks."""
+    """This rank's view of a (dp, sp, ep, pp, tp) grid of `world` ranks."""
 
     shape: dict
     rank: int
@@ -71,9 +80,12 @@ class Mesh:
     backend: str
     device: torch.device
     groups: dict
-    # collective calls made from Python, the host copies gloo needs for
-    # CUDA tensors, and their host seconds (a replayed CUDA graph's
-    # collectives run without Python and are not counted)
+    # this rank's coordinate on each of AXES
+    coords: dict = dataclasses.field(default_factory=dict)
+    # collective calls made from Python (point-to-point sends and receives
+    # included), the host copies gloo needs for CUDA tensors, and their
+    # host seconds (a replayed CUDA graph's collectives run without Python
+    # and are not counted)
     stats: dict = dataclasses.field(default_factory=lambda: dict(
         collectives=0, collective_s=0.0, staged=0, staged_bytes=0,
         staging_s=0.0))
@@ -92,12 +104,52 @@ class Mesh:
         return self.shape[DP_AXIS]
 
     @property
+    def sp(self) -> int:
+        return self.shape[SP_AXIS]
+
+    @property
+    def ep(self) -> int:
+        return self.shape[EP_AXIS]
+
+    @property
+    def pp(self) -> int:
+        return self.shape[PP_AXIS]
+
+    @property
     def tp_rank(self) -> int:
-        return self.rank % self.tp
+        return self.coords[TP_AXIS]
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // self.tp
+        return self.coords[DP_AXIS]
+
+    @property
+    def sp_rank(self) -> int:
+        return self.coords[SP_AXIS]
+
+    @property
+    def ep_rank(self) -> int:
+        return self.coords[EP_AXIS]
+
+    @property
+    def pp_rank(self) -> int:
+        return self.coords[PP_AXIS]
+
+    def index(self, axis: str) -> int:
+        """This rank's index along an axis or a joint axis (major to minor:
+        its rank in that group)."""
+        i = 0
+        for a in axis_parts(axis):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def neighbour(self, axis: str, step: int) -> int:
+        """The global rank `step` places along `axis` from this one, around
+        the axis (the ring's next is step 1, its previous step -1)."""
+        stride = math.prod(self.shape[a] for a in AXES[AXES.index(axis) + 1:])
+        i = self.coords[axis]
+        j = (i + step) % self.shape[axis]
+        return self.rank + (j - i) * stride
 
     @property
     def stages(self) -> bool:
@@ -107,7 +159,7 @@ class Mesh:
 
     def group(self, axis: str):
         """The process group of this rank's `axis` (the default group when
-        the axis spans every rank)."""
+        the axis spans every rank; None when it is one rank wide)."""
         return self.groups[axis]
 
     def reset_stats(self) -> None:
@@ -131,43 +183,61 @@ def init_ranks(rank: int, world: int, init_method: str, device_type: str,
     return dist.get_backend()
 
 
+def _members(sizes: dict, axis: str) -> list[list[int]]:
+    """Every group of `axis` (or joint axis): the global ranks of each,
+    major to minor along its parts, the other coordinates fixed."""
+    parts = axis_parts(axis)
+    grid = np.arange(math.prod(sizes[a] for a in AXES)).reshape(
+        [sizes[a] for a in AXES])
+    moved = np.moveaxis(grid, [AXES.index(a) for a in parts],
+                        list(range(-len(parts), 0)))
+    return moved.reshape(-1, math.prod(sizes[a] for a in parts)).tolist()
+
+
 def make_mesh(tp: int = 1, dp: int = 1, sp: int = 1, ep: int = 1,
               pp: int = 1, *, device_type: str | None = None) -> Mesh:
-    """This rank's (dp, tp) mesh over the default process group, which
-    must be initialised (init_ranks) with world = dp * tp ranks. Every rank
-    calls it with the same sizes: the groups are made collectively. The
-    ranks run on the GPU unless `device_type` is "cpu" (resolve_device:
-    no card raises), whichever backend joined them."""
+    """This rank's (dp, sp, ep, pp, tp) mesh over the default process
+    group, which must be initialised (init_ranks) with world = dp * sp *
+    ep * pp * tp ranks. Every rank calls it with the same sizes: the
+    groups are made collectively, in one order. The ranks run on the GPU
+    unless `device_type` is "cpu" (resolve_device: no card raises),
+    whichever backend joined them."""
     device_type = resolve_device(device_type).type
-    refused = refuse_unported_axes(sp=sp, ep=ep, pp=pp)
-    if refused:
-        raise ValueError("; ".join(refused))
+    sizes = {DP_AXIS: dp, SP_AXIS: sp, EP_AXIS: ep, PP_AXIS: pp, TP_AXIS: tp}
+    if min(sizes.values()) < 1:
+        raise ValueError(f"mesh axes must be >= 1, got {sizes}")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs the ranks' process group: call "
                            "init_ranks first")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if tp * dp != world:
-        raise ValueError(f"mesh dp={dp} x tp={tp} needs {dp * tp} ranks, "
-                         f"the group has {world}")
+    need = math.prod(sizes.values())
+    if need != world:
+        raise ValueError(f"mesh dp={dp} x sp={sp} x ep={ep} x pp={pp} x "
+                         f"tp={tp} needs {need} ranks, the group has {world}")
     backend = dist.get_backend()
     groups: dict = {WORLD: dist.group.WORLD}
-    for axis, size, members in (
-            (TP_AXIS, tp, [[d * tp + t for t in range(tp)] for d in range(dp)]),
-            (DP_AXIS, dp, [[d * tp + t for d in range(dp)] for t in range(tp)])):
-        if size == world:
+    made: dict = {}
+    for axis in (*AXES, *JOINT):
+        n = math.prod(sizes[a] for a in axis_parts(axis))
+        if n == world:
             groups[axis] = dist.group.WORLD
             continue
         groups[axis] = None
-        if size == 1:
+        if n == 1:
             continue
-        for ranks in members:       # every rank makes every group, in order
-            g = dist.new_group(ranks)
+        for ranks in _members(sizes, axis):   # every rank makes every group
+            key = tuple(ranks)
+            if key not in made:               # a joint axis may equal an axis
+                made[key] = dist.new_group(ranks)
             if rank in ranks:
-                groups[axis] = g
-    shape = {DP_AXIS: dp, SP_AXIS: 1, EP_AXIS: 1, PP_AXIS: 1, TP_AXIS: tp,
-             WORLD: world}
+                groups[axis] = made[key]
+    coords = dict(zip(AXES, np.unravel_index(
+        rank, [sizes[a] for a in AXES])))
+    coords = {a: int(i) for a, i in coords.items()}
+    shape = dict(sizes, **{j: math.prod(sizes[a] for a in JOINT[j])
+                           for j in JOINT}, **{WORLD: world})
     return Mesh(shape, rank, world, backend, rank_device(device_type, rank),
-                groups)
+                groups, coords)
 
 
 def describe(mesh: Mesh) -> str:
@@ -176,5 +246,7 @@ def describe(mesh: Mesh) -> str:
            else f"{mesh.world} ranks share {torch.cuda.device_count()} "
                 "GPU(s): collectives stage through host memory"
            if mesh.device.type == "cuda" else "CPU ranks")
-    return (f"mesh dp={mesh.dp} tp={mesh.tp} over {mesh.world} ranks: "
+    axes = " ".join(f"{a}={mesh.shape[a]}" for a in AXES
+                    if mesh.shape[a] > 1 or a in (DP_AXIS, TP_AXIS))
+    return (f"mesh {axes} over {mesh.world} ranks: "
             f"{mesh.backend} ({why})")

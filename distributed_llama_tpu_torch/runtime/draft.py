@@ -112,7 +112,8 @@ def batched_verify(params, spec, tok, pos, cache, *, n_vocab, fwd_kwargs):
     if fwd_kwargs.get("local_logits"):
         b, t = logits.shape[:2]
         greedy = sharded_argmax(logits.flatten(0, 1), fwd_kwargs["mesh"],
-                                n_vocab).view(b, t).to(torch.int32)
+                                n_vocab, fwd_kwargs["vocab_axis"]
+                                ).view(b, t).to(torch.int32)
     else:
         greedy = torch.argmax(logits[..., :n_vocab], dim=-1).to(torch.int32)
     return greedy, logits[:, 0]
@@ -148,15 +149,16 @@ class DraftModel:
             raise ValueError("--draft is single-sequence outside api mode "
                              "and per-slot inside it; it does not compose "
                              "with --dp")
+        if mesh is not None and mesh.pp > 1:
+            # JAX apps/dllama.py:1318-1320
+            raise ValueError("--draft does not compose with --pp "
+                             "(stage-stacked layers cannot be depth-sliced)")
         self.engine = engine
         self.spec = spec
         self.params = params
         self.label = label
         dev, b = engine.device, engine.batch
-        tp = mesh.tp if mesh is not None else 1
-        self.cache = KVCache.create(
-            dataclasses.replace(spec, n_kv_heads=spec.n_kv_heads // tp), b,
-            engine.seq_len, engine.cache_dtype, dev)
+        self.cache = engine.rank_cache(spec)
         self._buf = types.SimpleNamespace(
             tok=torch.zeros((b, 1), dtype=torch.int64, device=dev),
             pos=torch.zeros((b,), dtype=torch.int32, device=dev),

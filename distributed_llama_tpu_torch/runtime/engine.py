@@ -68,7 +68,8 @@ load, a seed or a reset never rebinds them. Bytes entering the cache from
 outside a forward pass the fp8 NaN-code guard (`saturate_f8_nan_codes`).
 
 Over ranks (JAX runtime/engine.py:118-329, the mesh branches): `mesh=` (a
-parallel/mesh.py Mesh over dp x tp ranks, one engine a rank process) makes
+parallel/mesh.py Mesh over dp x sp x ep x pp x tp ranks, one engine a rank
+process) makes
 the engine hold this rank's shard of the params (parallel/sharding.py:
 its row and column splits, kv heads replicated when tp exceeds them, its
 row shards fused), a cache of its KVH/tp kv heads, and its rows of a
@@ -88,6 +89,18 @@ decode step is captured with its collectives inside; under gloo on a card
 graph cannot capture, so steps run eagerly. `force_mesh_kernels` runs the
 shard path on a 1-rank mesh (JAX :139), the single-card proof of the mesh
 step.
+
+The other axes (JAX runtime/engine.py:160-330, 834-875): over pp the rank
+holds its stage's L/pp layers and their cache, a long segment takes GPipe
+(`pp_gpipe`, on by default) and every step runs eagerly (the stage hop is
+point to point); over ep it holds E/ep experts of every MoE stack; over
+sp it holds every weight and S/sp positions of the cache, and `prefill`
+from position 0 runs the whole prompt as one ring segment (padded to a
+multiple of sp, the logits at its true last position). With the vocab
+split and pp > 1 the vocab lies over (pp, tp) when pp*tp divides it.
+Sessions and the prefix cache refuse pp as the JAX engine does; the
+prefix cache over an sp-sharded cache is serving over the new axes,
+ROADMAP item 19.
 
 Serving over ranks (parallel/control.py): under `chat` and `api` only rank
 0 has the inputs, so rank 0 runs every host loop (the scheduler, the
@@ -129,9 +142,11 @@ from ..ops.device_sampler import sample_rows, sample_token, state_from_seed
 from ..ops.sharded_vocab import sharded_argmax, sharded_sample_prep
 from ..parallel.collectives import all_gather, all_reduce, broadcast_object
 from ..parallel.control import mirrored
-from ..parallel.mesh import DP_AXIS, TP_AXIS, WORLD
-from ..parallel.sharding import (check_tp_constraints, is_sharded,
-                                 shard_params, vocab_splits)
+from ..parallel.mesh import (DP_AXIS, EP_AXIS, PP_AXIS, SP_AXIS,
+                             TP_AXIS, WORLD, axis_parts)
+from ..parallel.sharding import (check_axis_constraints, check_tp_constraints,
+                                 is_sharded, shard_params, vocab_axis,
+                                 vocab_splits)
 from ..quants.torch_codec import QuantizedTensor
 from ..sampler import Sampler
 from ..utils.device import resolve_device
@@ -228,6 +243,7 @@ class Engine:
         q80_collectives: bool | None = None,
         shard_vocab: bool | None = None,
         force_mesh_kernels: bool = False,
+        pp_gpipe: bool = True,
     ):
         if mesh is not None:
             if device is not None and resolve_device(device) != mesh.device:
@@ -248,6 +264,8 @@ class Engine:
         if pdev.type != self.device.type:
             raise ValueError(f"params live on {pdev}, engine on {self.device}")
         tp = mesh.tp if mesh is not None else 1
+        sp, ep, pp = ((mesh.sp, mesh.ep, mesh.pp) if mesh is not None
+                      else (1, 1, 1))
         file_spec = spec
         if tp > spec.n_kv_heads:
             # kv heads replicated to tp virtual heads (JAX engine.py:163-174)
@@ -275,11 +293,21 @@ class Engine:
             q80_collectives = activation_q80 and tp > 1
         self.q80_collectives = bool(q80_collectives) and tp > 1
         self.tp_reduce = "q80" if self.q80_collectives else "exact"
+        # the other axes' rules (JAX :186-189, 215-221, 234-245); GPipe for
+        # a long segment over pp (JAX pp_gpipe)
+        check_axis_constraints(spec, sp=sp, ep=ep, pp=pp,
+                               seq_len=self.seq_len,
+                               q80_collectives=self.q80_collectives)
+        self.pp_gpipe = bool(pp_gpipe)
         if shard_vocab and not vocab_splits(spec, tp):
             raise ValueError(f"shard_vocab: mesh tp axes cannot split vocab="
                              f"{spec.vocab_size} evenly (tp={tp})")
         self.shard_vocab = (vocab_splits(spec, tp) if shard_vocab is None
                             else bool(shard_vocab))
+        # the axis the vocab split lies over: (pp, tp) when the stages
+        # widen it (JAX vocab_shard_axes), else tp
+        self._vocab_axis = (vocab_axis(spec, tp, pp) if self.shard_vocab
+                            else TP_AXIS)
         # how often the sharded sampler served a row, and how often it
         # fetched one replicated row instead
         self.vocab_sample_stats = {"sharded": 0, "fallback": 0}
@@ -290,17 +318,24 @@ class Engine:
         if self._mesh is None:
             # single-device fast path: fused QKV / w1|w3 launches (in place)
             self.params = fuse_layer_weights(params)
-        elif is_sharded(params):     # the streamed loader's shard
+        elif is_sharded(params) or len(params["layers"]) != spec.n_layers:
+            # the streamed loader's placement
             if (params["tok_emb"].shape[0] != spec.vocab_size) != self.shard_vocab:
                 raise ValueError("the params' embedding split does not match "
                                  f"shard_vocab={self.shard_vocab}")
+            if len(params["layers"]) != spec.n_layers // pp:
+                raise ValueError(f"the params hold {len(params['layers'])} "
+                                 f"layers, a pp={pp} stage {spec.n_layers // pp}")
             self.params = params
         else:
             q40 = any(isinstance(v, QuantizedTensor)
                       for lw in params["layers"] for v in lw.values())
             check_tp_constraints(spec, tp, q40=q40)
-            self.params = shard_params(params, file_spec, tp, mesh.tp_rank,
-                                       vocab=self.shard_vocab)
+            self.params = shard_params(
+                params, file_spec, tp, mesh.tp_rank, vocab=self.shard_vocab,
+                ep=ep, ep_k=mesh.ep_rank, pp=pp, pp_k=mesh.pp_rank,
+                vocab_split=(mesh.shape[self._vocab_axis],
+                             mesh.index(self._vocab_axis)))
         # B slots (rows) of the scheduler, or the one sequence of step();
         # over dp ranks this rank holds rows [row0, row0 + rows) of them
         self.batch = int(batch)
@@ -308,9 +343,7 @@ class Engine:
         self._dp_split = dp > 1 and self.batch % dp == 0
         self._rows = self.batch // dp if self._dp_split else self.batch
         self._row0 = mesh.dp_rank * self._rows if self._dp_split else 0
-        self.cache = KVCache.create(
-            dataclasses.replace(spec, n_kv_heads=spec.n_kv_heads // tp),
-            self._rows, self.seq_len, cache_dtype, self.device)
+        self.cache = self.rank_cache(spec)
         self.pos = 0
         # the captured steps, keyed like the JAX engine's _steps: 1 (the
         # decode step), ("greedy",), ("dsample", temperature, topp, vocab,
@@ -318,7 +351,9 @@ class Engine:
         # cuda_graphs=False. Every capture is recorded in COMPILES; once
         # the scheduler's warmup marks the engine warm, a new key is a
         # capture after warmup (runtime/profiler.py)
-        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        # over pp every step runs eagerly: the stage hop is point to point
+        self.cuda_graphs = (bool(cuda_graphs) and self.device.type == "cuda"
+                            and pp == 1)
         if self.cuda_graphs and self._mesh is not None and self._mesh.stages:
             self.cuda_graphs = False
             if mesh.rank == 0:
@@ -355,6 +390,21 @@ class Engine:
             # generate_batch_device's per-row buffers, made at first use
             rows=None)
 
+    def rank_cache(self, spec: ModelSpec) -> KVCache:
+        """A zeroed cache of `spec`'s layers as this rank holds them: its
+        rows of the batch, its KVH/tp kv heads, its pp stage's L/pp layers
+        and its S/sp positions (JAX sharding.cache_pspec)."""
+        m = self._mesh
+        tp, sp, pp = (m.tp, m.sp, m.pp) if m is not None else (1, 1, 1)
+        return KVCache.create(
+            dataclasses.replace(spec, n_kv_heads=spec.n_kv_heads // tp,
+                                n_layers=spec.n_layers // pp),
+            self._rows, self.seq_len // sp, self.cache_dtype, self.device)
+
+    def _refuse_pp(self, what: str) -> None:
+        if self._mesh is not None and self._mesh.pp > 1:
+            raise ValueError(f"{what} does not support --pp")
+
     @mirrored
     def spawn(self, batch: int) -> "Engine":
         """An engine of `batch` slots over this one's params, mesh and
@@ -370,7 +420,8 @@ class Engine:
                       model_fingerprint=self.model_fingerprint,
                       mesh=self.mesh, q80_collectives=self.q80_collectives,
                       shard_vocab=self.shard_vocab,
-                      force_mesh_kernels=self._mesh is not None)
+                      force_mesh_kernels=self._mesh is not None,
+                      pp_gpipe=self.pp_gpipe)
 
     @mirrored
     def ranks_device_stats(self) -> dict | None:
@@ -409,7 +460,10 @@ class Engine:
         signal mid-write never leaves a truncated file where a good one
         stood. Over ranks every rank's kv heads (and rows) are gathered and
         rank 0 writes the whole cache in the JAX layout (JAX
-        runtime/engine.py:406 fetches it to the host the same way)."""
+        runtime/engine.py:406 fetches it to the host the same way); over
+        sp the shards' positions are gathered too. pp is refused, in the
+        JAX words (JAX :417)."""
+        self._refuse_pp("session save/restore")
         data: dict = {
             "pos": np.int64(self.pos),
             "cache_dtype": np.str_(DTYPE_NAMES[self.cache_dtype]),
@@ -437,10 +491,13 @@ class Engine:
         """The filled prefix (positions < pos) of one cache leaf as integer
         bits, with every rank's kv heads and rows on a mesh: (B, KVH, pos,
         hs). The gather moves bytes, which every backend carries."""
-        bits = _bits(leaf[:, :, :self.pos]).contiguous()
         if self._mesh is None:
-            return bits
+            return _bits(leaf[:, :, :self.pos]).contiguous()
+        bits = _bits(leaf).contiguous()
         raw = bits.view(torch.uint8)
+        if self._mesh.sp > 1:           # every shard's positions, in order
+            raw = all_gather(raw, self._mesh, SP_AXIS).movedim(0, 2).flatten(2, 3)
+        raw = raw[:, :, :self.pos].contiguous()
         if self._mesh.tp > 1:
             raw = all_gather(raw, self._mesh, TP_AXIS).movedim(0, 1).flatten(1, 2)
         raw = self._gather_rows(raw)
@@ -453,7 +510,9 @@ class Engine:
         saved prefix into it IN PLACE (through the NaN-code guard), sets
         pos. Returns the saved token history ([] when it has none). Over
         ranks rank 0 reads the file and hands its bytes to every rank,
-        each of which keeps its own kv heads and rows."""
+        each of which keeps its own kv heads and rows (and, over sp, its
+        positions)."""
+        self._refuse_pp("session save/restore")
         if self._mesh is None:
             z = np.load(path)
         else:
@@ -481,15 +540,20 @@ class Engine:
         if not 0 <= pos <= self.seq_len:
             raise ValueError(f"session pos {pos} outside 0..{self.seq_len}")
         self.reset()
-        kvh = self.cache.k[0].shape[1]
+        kvh, s = self.cache.k[0].shape[1], self.cache.k[0].shape[2]
         h0 = self._mesh.tp_rank * kvh if self._mesh is not None else 0
         rows = slice(self._row0, self._row0 + self._rows)
+        # this rank's positions of the prefix: [lo, hi), from off on
+        off = self._mesh.sp_rank * s if self._mesh is not None else 0
+        lo, hi = min(pos, off), min(pos, off + s)
         for l in range(self.spec.n_layers):
             for name, leaf in (("k", self.cache.k[l]), ("v", self.cache.v[l])):
-                raw = np.ascontiguousarray(z[f"{name}{l}"][rows, h0:h0 + kvh])
+                raw = np.ascontiguousarray(
+                    z[f"{name}{l}"][rows, h0:h0 + kvh, lo:hi])
                 bits = torch.from_numpy(raw.view(_BITS_NP[raw.dtype.itemsize]))
                 pfx = bits.to(self.device).view(self.cache_dtype)
-                _bits(leaf[:, :, :pos]).copy_(_bits(saturate_f8_nan_codes(pfx)))
+                _bits(leaf[:, :, lo - off:hi - off]).copy_(
+                    _bits(saturate_f8_nan_codes(pfx)))
         self.pos = pos
         return z["tokens"].tolist() if "tokens" in z.files else []
 
@@ -511,14 +575,15 @@ class Engine:
     # -- steps: the forward over the engine's configuration ---------------
 
     def _forward(self, tokens: torch.Tensor, pos0, logit_index=None,
-                 logits_for_all: bool = False,
-                 local_logits: bool = False) -> torch.Tensor:
+                 logits_for_all: bool = False, local_logits: bool = False,
+                 ring: bool = False) -> torch.Tensor:
         """The engine's forward, configured in exactly one place.
         local_logits: a vocab-sharded engine keeps its vocab slice (the
-        sharded sampler's input); otherwise the logits are whole."""
+        sharded sampler's input); otherwise the logits are whole. ring:
+        the tokens are this rank's chunk of a ring prefill segment."""
         return forward(self.params, self.spec, tokens, pos0, self.cache,
                        logit_index=logit_index, logits_for_all=logits_for_all,
-                       **self._fwd_kwargs(local_logits))
+                       ring=ring, **self._fwd_kwargs(local_logits))
 
     def _fwd_kwargs(self, local_logits: bool = False) -> dict:
         """The forward's configuration: compute dtype, Q80 activations,
@@ -527,7 +592,8 @@ class Engine:
         return dict(compute_dtype=self.compute_dtype,
                     activation_q80=self.activation_q80, mesh=self._mesh,
                     tp_reduce=self.tp_reduce, shard_vocab=self.shard_vocab,
-                    local_logits=local_logits and self.shard_vocab)
+                    local_logits=local_logits and self.shard_vocab,
+                    vocab_axis=self._vocab_axis, pp_gpipe=self.pp_gpipe)
 
     def _one_sequence(self, name: str) -> None:
         if self.batch != 1:
@@ -636,7 +702,13 @@ class Engine:
         return logits.float().cpu().numpy()
 
     def prefill(self, prompt: list[int]) -> torch.Tensor:
-        """Feed the prompt in fixed-size chunks; returns the last logits."""
+        """Feed the prompt in fixed-size chunks; returns the last logits.
+        Over sp (and no pp) a prompt from position 0 runs as ONE ring
+        segment instead (JAX runtime/engine.py:834-875)."""
+        m, n = self._mesh, len(prompt)
+        if (m is not None and m.sp > 1 and m.pp == 1 and self.pos == 0
+                and n > 1 and n + (-n) % m.sp <= self.seq_len):
+            return self._prefill_ring(prompt)
         logits = None
         i, n = 0, len(prompt)
         while i < n:
@@ -644,6 +716,26 @@ class Engine:
             seg = np.asarray(prompt[i:i + chunk], np.int32)[None, :]
             logits = self.step(seg, self.pos)
             i += chunk
+        return logits
+
+    @torch.inference_mode()
+    def _prefill_ring(self, prompt: list[int]) -> torch.Tensor:
+        """The whole prompt as one sequence-parallel segment (JAX
+        _prefill_ring): padded to a multiple of sp, rank i runs chunk i
+        through every layer with ring attention, each rank writing the
+        positions of its cache shard; the logits are the true last
+        position's. Padded positions land in the cache at >= pos, so later
+        steps never attend them."""
+        self._one_sequence("prefill")
+        m, n = self._mesh, len(prompt)
+        t = n + (-n) % m.sp
+        tl = t // m.sp
+        seg = np.zeros((1, t), np.int64)
+        seg[0, :n] = prompt
+        c0 = m.sp_rank * tl
+        tok = torch.as_tensor(seg[:, c0:c0 + tl], device=self.device)
+        logits = self._forward(tok, c0, logit_index=n - 1, ring=True)
+        self.pos = n
         return logits
 
     def generate(
@@ -1408,7 +1500,7 @@ class Engine:
         argmax on a vocab-sharded engine, np.argmax's first maximum over
         the first n_vocab logits otherwise; then the tokens of every row."""
         if self.shard_vocab:
-            toks = sharded_argmax(lg, self._mesh, n_vocab)
+            toks = sharded_argmax(lg, self._mesh, n_vocab, self._vocab_axis)
         else:
             toks = torch.argmax(lg[:, :n_vocab].float(), dim=-1)
         return self._gather_rows(toks).cpu().numpy()
@@ -1435,7 +1527,8 @@ class Engine:
         t = torch.as_tensor(self._local_rows(temps)[0], device=lg.device)
         amax, cand_p, cand_id, guard = (
             self._gather_rows(x).cpu().numpy()
-            for x in sharded_sample_prep(lg, t, self._mesh, nv, k))
+            for x in sharded_sample_prep(lg, t, self._mesh, nv, k,
+                                         self._vocab_axis))
         return ShardedLogitsView(amax, cand_p, cand_id, guard, nv,
                                  functools.partial(self.fetch_row, lg),
                                  stats=self.vocab_sample_stats)
@@ -1449,11 +1542,17 @@ class Engine:
         it is an op of its own: followers never sample, they fetch when
         rank 0 does."""
         mesh, vl = self._mesh, lg.shape[-1]
-        axis = WORLD if self._dp_split else TP_AXIS
+        axis = WORLD if self._dp_split else self._vocab_axis
+        # over every rank, one copy of each vocab slice: the ranks of the
+        # other axes' first index hold it
+        lead = not self._dp_split or all(
+            mesh.coords[a] == 0 for a in (SP_AXIS, EP_AXIS, PP_AXIS)
+            if a not in axis_parts(self._vocab_axis))
         buf = torch.zeros(self.spec.vocab_size, dtype=torch.float32,
                           device=lg.device)
-        if self._mine(row):
-            buf[mesh.tp_rank * vl:(mesh.tp_rank + 1) * vl] = lg[row - self._row0]
+        if self._mine(row) and lead:
+            v0 = mesh.index(self._vocab_axis) * vl
+            buf[v0:v0 + vl] = lg[row - self._row0]
         return all_reduce(buf, mesh, axis).cpu().numpy()
 
     def _row_buffers(self) -> types.SimpleNamespace:
@@ -1532,8 +1631,8 @@ class Engine:
         lens = self._batch_args(prompts)
         logits = self._batch_prefill(prompts)
         if self.shard_vocab:         # the device sampler reads whole rows
-            logits = all_gather(logits, self._mesh, TP_AXIS).movedim(0, -2) \
-                .flatten(-2)
+            logits = all_gather(logits, self._mesh, self._vocab_axis) \
+                .movedim(0, -2).flatten(-2)
         self.pos = int(lens.max())
         if max_tokens <= 0:      # the hard-cap contract of generate()
             self.last_device_steps = 0
@@ -1723,6 +1822,11 @@ class Engine:
         the replicated virtual heads counted). The arena dies with the
         engine: a supervisor rebuild mints a fresh engine, arena and tree.
         The radix tree stays on rank 0; block ids come from it."""
+        self._refuse_pp("prefix cache")
+        if self._mesh is not None and self._mesh.sp > 1:
+            raise ValueError("the prefix cache over an sp-sharded KV cache is "
+                             "serving over ep/pp/sp, ROADMAP item 19, and is "
+                             "not ported yet")
         if num_blocks < 1 or not 1 <= block_len <= self.seq_len:
             raise ValueError(f"prefix arena of {num_blocks} blocks of "
                              f"{block_len} (context {self.seq_len})")

@@ -52,7 +52,8 @@ class CapturedStep(NamedTuple):
     name: str = ""
 
     def replay(self) -> None:
-        PROFILER.timed(self.name, self.graph.replay)
+        with PROFILER.launch_gate:
+            PROFILER.timed(self.name, self.graph.replay)
         for counter, n in zip(LAUNCH_COUNTERS, self.tally):
             counter.launches += n
 

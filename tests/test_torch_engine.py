@@ -108,9 +108,10 @@ def test_cli_inference_prints_benchmark_lines(tmp_path, capsys):
     (["worker"], "mode 'worker'"),
     (["api", "--serve-batch", "2", "--dp", "2"],
      "--serve-batch needs a single-process engine"),
-    (["generate", "--pp", "2"], "--pp 2"),
+    (["chat", "--sp", "2"], "--sp 2"),
     (["api", "--dp", "2"], "--dp 2"),
-    (["generate", "--ep", "2"], "--ep 2"),
+    (["api", "--serve-batch", "2", "--ep", "2"],
+     "--serve-batch needs a single-process engine"),
     (["generate", "--nnodes", "2"], "--nnodes"),
 ])
 def test_cli_refuses_unported_flags(flags, needle):

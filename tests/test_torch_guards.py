@@ -537,6 +537,15 @@ def test_import_guards_cover_the_serving_path():
             "runtime/stats.py", "apps/api_server.py"} <= files
 
 
+def test_import_guards_cover_the_other_mesh_axes():
+    """The other axes' modules (pp, ep, sp) are in the package the
+    blocked-jax import test and the per-file import scan walk."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"parallel/pp.py", "parallel/ep_moe.py", "parallel/ring_attention.py",
+            "parallel/mesh.py", "parallel/collectives.py"} <= files
+
+
 def test_import_guards_cover_the_kv_reuse_path():
     """The KV-reuse slice's modules are in the package the blocked-jax
     import test and the per-file import scan walk."""

@@ -340,3 +340,56 @@ def test_sampled_steps_attribute_every_entry(monkeypatch):
     finally:
         prof._busy = False
     sched.close()
+
+
+def test_capture_starts_and_stops_with_no_graph_replay_in_flight(monkeypatch, tmp_path):
+    """The launch gate: torch.profiler's start and stop in a capture run
+    with Profiler.launch_gate held, and every graph replay runs under it,
+    so a replay on another thread waits out a start or a stop (the stall
+    of ROADMAP S1); the window itself leaves the gate free."""
+    import torch.profiler
+
+    from distributed_llama_tpu_torch.runtime import graphs
+
+    prof = profiler.PROFILER
+
+    def free() -> bool:
+        """Whether another thread can take the gate now."""
+        box = []
+
+        def probe():
+            got = prof.launch_gate.acquire(blocking=False)
+            if got:
+                prof.launch_gate.release()
+            box.append(got)
+        t = threading.Thread(target=probe)
+        t.start()
+        t.join()
+        return box[0]
+
+    seen = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def start(self):
+            seen.append(("start", free()))
+
+        def stop(self):
+            seen.append(("stop", free()))
+
+        def export_chrome_trace(self, path):
+            seen.append(("window", free()))
+            with open(path, "w") as f:
+                json.dump({"traceEvents": []}, f)
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    out = prof.capture(str(tmp_path / "p"), 1.0)
+    assert os.path.isfile(out["trace"])
+    assert seen == [("start", False), ("stop", False), ("window", True)]
+    replays = []
+    step = graphs.CapturedStep(
+        type("G", (), {"replay": staticmethod(lambda: replays.append(free()))}),
+        None, (0,) * len(graphs.LAUNCH_COUNTERS), 0.0, 0)
+    step.replay()
+    assert replays == [False] and free()

@@ -90,12 +90,12 @@ def _one_rank(files, *extra, batch: bool):
         api_server.finish(state, drain_timeout=10.0)
 
 
-def _ranks_server(files, *extra, batch: bool):
-    """`dllama api --tp 2 ...` as a process: its answers and /healthz, then
-    SIGTERM; its exit code and output."""
+def _ranks_server(files, *extra, batch: bool, ranks=("--tp", "2")):
+    """`dllama api --tp 2 ...` (or over the axes in `ranks`) as a process:
+    its answers and /healthz, then SIGTERM; its exit code and output."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "distributed_llama_tpu_torch.apps.dllama",
-         *_argv(files, "--tp", "2", *extra)],
+         *_argv(files, *ranks, *extra)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=dict(os.environ, PYTHONUNBUFFERED="1"))
     lines = []

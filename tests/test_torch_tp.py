@@ -24,8 +24,7 @@ tests run them. The same numpy-seeded weights go to both
     of serving over ranks (ROADMAP item 18: sessions, the prefix arena,
     the slot steps, speculation) run on a tp = 2 mirrored engine and give
     one device's results; the CLI refuses, in the JAX CLI's words, what
-    the JAX CLI refuses over ranks, and the sp, ep and pp axes with their
-    ROADMAP item.
+    the JAX CLI refuses over ranks, the sp, ep and pp axes included.
 """
 
 import jax
@@ -370,20 +369,24 @@ def test_cli_generate_tp2_prints_the_jax_cli_text(tmp_path, capsys, monkeypatch)
     (["api", "--tp", "2", "--draft", "model:x.m"],
      "--draft model:PATH needs a mesh-less engine (use --draft self:<depth>, "
      "which shares the target's sharded buffers)"),
-    (["generate", "--sp", "2"], "--sp 2: the sp axis is ROADMAP item 14"),
-    (["generate", "--ep", "2"], "--ep 2: the ep axis is ROADMAP item 14"),
-    (["generate", "--pp", "2"], "--pp 2: the pp axis is ROADMAP item 14"),
+    (["api", "--serve-batch", "2", "--sp", "2"],
+     "--serve-batch needs a single-process engine (no --dp/--sp/--ep/--pp; "
+     "--tp composes)"),
+    (["generate", "--ep", "2", "--draft", "model:x.m"],
+     "--draft model:PATH needs a mesh-less engine (use --draft self:<depth>, "
+     "which shares the target's sharded buffers)"),
+    (["generate", "--pp", "2", "--draft", "self:1"],
+     "--draft does not compose with --pp (stage-stacked layers cannot be "
+     "depth-sliced)"),
 ], ids=["chat", "api", "lookup", "draft", "draft-model", "sp", "ep", "pp"])
 def test_cli_refuses_what_does_not_run_over_ranks(argv, needle):
     """What the JAX CLI refuses over ranks, refused in its words (JAX
-    apps/dllama.py:800-806, :1321-1324, apps/api_server.py:1684-1686,
-    :1978-1986); the axes the port does not have yet with their ROADMAP
-    item. Each before any model load or rank spawn."""
+    apps/dllama.py:800-806, :1318-1324, apps/api_server.py:1684-1686,
+    :1978-1986), the sp, ep and pp axes included. Each before any model
+    load or rank spawn."""
     with pytest.raises(SystemExit) as e:
         dllama.main(argv + ["--model", "x.m", "--tokenizer", "x.t"])
     assert needle in str(e.value)
-    if "item 14" in needle:
-        assert "not ported" in str(e.value)
 
 
 def test_cli_shard_vocab_on_needs_tp_in_the_jax_words():
