@@ -209,8 +209,8 @@ result line):
     alternating 768-token prefixes, tokens held against the cache-off run
     as above; evictions, hits and every block accounted for. Load runs
     with shared prefixes (a synthetic smoke load, from no trace), cache
-    off then on: 12 requests at 0.8 a second (below the cold run's knee)
-    and 16 at 2 a second (past it), each one of 4 seeded 768-token
+    off then on: 8 requests at 0.8 a second (below the cold run's knee)
+    and 12 at 2 a second (past it), each one of 4 seeded 768-token
     prefixes and a unique suffix (aggregate tok/s, TTFT and ITL
     p50/p95/p99, TTFT p50 over each half of the arrivals, the share of
     gaps a chunk stalled, hit rate, tokens saved and prefilled,
@@ -348,6 +348,21 @@ result line):
     at t = 1 on a Mixtral local expert without and with the fused Q80
     round trip, and K3 over a 32-token microbatch at pos0 32*m, each
     against its plain version and timed beside plain, library and bound.
+15. A cluster of two nodes (`[cluster]` lines; each node a `dllama`
+    process of one rank, both on the one card under gloo), and serving
+    over sp, on a Llama-2-7B width `.m` of 2 layers with random Q40
+    bytes, at the CLI's dtypes (bf16, Q80 activations). Side by side, each
+    its own process: a single-host `inference --tp 2`; `chat --sp 2` (the
+    ring prefill a mirrored op) on a ~300-token first turn, its greedy
+    tokens equal to `inference --sp 2` on the same prompt and its rank
+    0's K1, K2 and K3 launches equal to an sp = 2 rank's share (Q80's to
+    that run's); and a cluster whose worker is SIGKILLed mid-decode, the
+    root's exit 43 within --worker-timeout plus one heartbeat. Then,
+    alone, the root `inference --push-weights` and a file-less worker:
+    text equal to the single-host `--tp 2`, S equal to
+    estimate_decode_wire, each node's launches equal to the single-host
+    rank 0's, the push's bytes and ms and the heartbeat RTT from the
+    root's ClusterStats.
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
@@ -3092,7 +3107,8 @@ def serving_http(spec, one, card: str) -> dict:
 PREFIX_BL, PREFIX_SHARED = 32, 768
 # the load runs, (arrivals a second, requests): below the cold run's knee
 # (~1.7 requests a second: four 134 ms chunks a request), and past it
-PREFIX_LOAD = ((0.8, 12), (2.0, 16))
+# (cut from 12 and 16 requests to keep the script inside its time limit)
+PREFIX_LOAD = ((0.8, 8), (2.0, 12))
 # the eviction check's arena: less than two 768-token prefixes' 48 blocks
 PREFIX_EVICT_BLOCKS = 40
 
@@ -5512,19 +5528,25 @@ def serve_tp_kernels(gen, spec) -> dict:
     return dict(k1=k1, k3=k3, q80=q80)
 
 
-def _ranks_api(argv: list, batch: bool) -> tuple:
-    """`dllama api --tp 2 ...` as a process (rank 0 binds, one rank
-    spawned): three completions (and a batch), /healthz, SIGTERM; its
-    answers, health, exit code and output."""
+def _ranks_api_start(argv: list) -> subprocess.Popen:
+    """`dllama api --tp 2 ...` started as a process (rank 0 binds, one
+    rank spawned)."""
     import os
+
+    return subprocess.Popen([sys.executable, "-m", "distributed_llama_tpu_torch.apps.dllama",
+                             *argv, "--tp", "2"], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+
+
+def _ranks_api(proc: subprocess.Popen, batch: bool) -> tuple:
+    """The `_ranks_api_start` process, once it listens: three completions
+    (and a batch), /healthz, SIGTERM; its answers, health, exit code and
+    output."""
     import signal
     import threading
     import urllib.request
 
-    proc = subprocess.Popen([sys.executable, "-m", "distributed_llama_tpu_torch.apps.dllama",
-                             *argv, "--tp", "2"], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            env=dict(os.environ, PYTHONUNBUFFERED="1"))
     lines = []
     try:
         timer = threading.Timer(TP_TIMEOUT_S, proc.kill)
@@ -5602,15 +5624,29 @@ def serve_tp_cli(card: str) -> dict:
         api = ["api", "--model", mpath, "--tokenizer", tpath, "--host", "127.0.0.1",
                "--port", "0", *f32, "--serve-batch", "2", "--prefix-cache", "--draft",
                "self:1", "--draft-len", "3"]
-        server, state = api_server.build_server(dllama.build_argparser().parse_args(api))
-        threading.Thread(target=server.serve_forever, daemon=True).start()
+        chat_argv = ["chat", "--model", mpath, "--tokenizer", tpath, *f32, "--steps", "12",
+                     "--system-prompt", "be brief"]
+        sess = str(Path(d) / "s.npz")
+        # the ranks' server starts up while the one-rank server answers
+        # and the chats run
+        proc = _ranks_api_start(api)
         try:
-            want = _api_texts(server.server_address[1], True)
-        finally:
-            server.shutdown()
-            server.server_close()
-            api_server.finish(state, drain_timeout=10.0)
-        got, health, rc, text = _ranks_api(api, True)
+            server, state = api_server.build_server(dllama.build_argparser().parse_args(api))
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            try:
+                want = _api_texts(server.server_address[1], True)
+            finally:
+                server.shutdown()
+                server.server_close()
+                api_server.finish(state, drain_timeout=10.0)
+            whole = chat(chat_argv, "hello there\nand again\n")
+            turn1 = chat(chat_argv + ["--tp", "2", "--session", sess], "hello there\n")
+            turn2 = chat(chat_argv + ["--session", sess], "and again\n")
+        except BaseException:
+            proc.kill()
+            proc.communicate()
+            raise
+        got, health, rc, text = _ranks_api(proc, True)
         ok = got == want and health["status"] == "ok" and rc == 0
         print(f"[serve-tp] CLI: api --serve-batch 2 --tp 2 on cuda (prefix cache, self:1 "
               f"draft): texts equal to one rank's {got == want}, /healthz {health['status']}, "
@@ -5619,12 +5655,6 @@ def serve_tp_cli(card: str) -> dict:
             fail(f"[serve-tp] api --tp 2: {got} vs one rank {want}, health {health}, exit "
                  f"{rc}: {text[-2000:]}")
         out["api"] = dict(equal=got == want, exit=rc)
-        chat_argv = ["chat", "--model", mpath, "--tokenizer", tpath, *f32, "--steps", "12",
-                     "--system-prompt", "be brief"]
-        whole = chat(chat_argv, "hello there\nand again\n")
-        sess = str(Path(d) / "s.npz")
-        turn1 = chat(chat_argv + ["--tp", "2", "--session", sess], "hello there\n")
-        turn2 = chat(chat_argv + ["--session", sess], "and again\n")
     got = [replies(turn1)[0], replies(turn2)[0]]
     ok = got == replies(whole)[:2]
     print(f"[serve-tp] CLI: chat --tp 2 turn 1 saved to a session, turn 2 resumed on one rank: "
@@ -5935,6 +5965,354 @@ def phase_axes(card: str, params_7b, pool) -> dict:
     print(f"[axes] phase 14 in {out['seconds']:.1f} s (kernel rows {out['kernels_s']:.1f} s) "
           f"[{card}]")
     return out
+
+
+# -- phase 15: the multi-node control plane, two nodes on the one card -------
+
+# the cluster's file: Llama-2-7B widths (bench.py:101 LLAMA2_7B), 2 of 32
+# layers, random Q40 bytes (~0.8 GB: the f32 embedding 524 MB, the layers
+# 228 MB, wcls 74 MB); the full depth would push ~3.9 GB through gloo
+CLUSTER_LAYERS = 2
+CLUSTER_STEPS = 8
+# the killed run's detection bound: --worker-timeout plus one heartbeat,
+# and the cluster's own limits
+CLUSTER_HB_S, CLUSTER_TIMEOUT_S = 0.5, 3.0
+CLUSTER_NODE_LIMIT_S = 120.0
+
+
+def write_random_q40_model(path: str, spec) -> int:
+    """A `.m` of `spec` with random Q40 weights written as packed bytes, the
+    way bench.py:151 _rand_q40 builds them (random nibbles, f16 scales in
+    [0.001, 0.005)), never through the f32 quantizer; f32 tensors (the
+    embedding, the norms) random in [-0.05, 0.05) and 1. Returns its
+    bytes."""
+    from distributed_llama_tpu_torch.io.model_file import model_tensor_plan, write_header
+    from distributed_llama_tpu_torch.quants import FloatType
+
+    rng = np.random.default_rng(15)
+    block = np.dtype([("s", "<f2"), ("q", "u1", (16,))])
+    with open(path, "wb") as f:
+        write_header(f, spec)
+        for name, shape, ftype in model_tensor_plan(spec):
+            n = math.prod(shape)
+            if ftype == FloatType.Q40:
+                b = np.empty(n // 32, block)
+                b["s"] = rng.random(n // 32, dtype=np.float32) * 0.004 + 0.001
+                b["q"] = rng.integers(0, 256, (n // 32, 16), dtype=np.uint8)
+                f.write(b.tobytes())
+            elif name.startswith(("rms", "layers")):
+                f.write(np.ones(n, np.float32).tobytes())
+            else:
+                f.write(((rng.random(n, dtype=np.float32) - 0.5) * 0.1).tobytes())
+    return Path(path).stat().st_size
+
+
+def counted_node(argv: list[str]) -> None:
+    """One `dllama` process of phase 15 (`python -c "import chip_smoke;
+    chip_smoke.counted_node(argv)"`): `dllama` with `argv`, then, as one
+    JSON line on stderr after `[cluster-node]`, this process's kernel
+    launches, the prompt and the tokens of every Engine.generate it ran
+    and, on a cluster, the control star's summary (the ClusterStats the
+    link holds until it closes)."""
+    from distributed_llama_tpu_torch.apps import dllama
+    from distributed_llama_tpu_torch.parallel import multihost as mh
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+
+    summary, runs = {}, []
+    close, generate = mh.close_link, Engine.generate
+
+    def keep_summary() -> None:
+        summary.update(mh.cluster_summary() or {})
+        close()
+
+    def keep_tokens(self, tokens, *a, **k):
+        res = generate(self, tokens, *a, **k)
+        runs.append(dict(prompt=[int(t) for t in tokens], tokens=[int(t) for t in res.tokens]))
+        return res
+
+    zero_counts()
+    code = 0
+    with mock.patch.object(mh, "close_link", keep_summary), \
+            mock.patch.object(Engine, "generate", keep_tokens):
+        try:
+            dllama.main(argv)
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+    print("[cluster-node] " + json.dumps(dict(counts=read_counts(), cluster=summary, runs=runs)),
+          file=sys.stderr, flush=True)
+    sys.exit(code)
+
+
+def _node(argv: list[str], stdin: str | None = None) -> subprocess.Popen:
+    """counted_node(argv) started as a process of its own; `stdin` names a
+    file it reads as its standard input."""
+    with open(stdin) if stdin else contextlib.nullcontext(subprocess.DEVNULL) as f:
+        return subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; chip_smoke.counted_node(sys.argv[1:])", *argv],
+            cwd=str(Path(__file__).resolve().parent), stdin=f,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish_node(p: subprocess.Popen, what: str) -> tuple[int, str, dict]:
+    try:
+        out, err = p.communicate(timeout=CLUSTER_NODE_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        out, err = p.communicate(timeout=10)
+        fail(f"[cluster] {what} still running after {CLUSTER_NODE_LIMIT_S:.0f} s: "
+             f"{out[-2000:]} {err[-2000:]}")
+    rec = next((json.loads(l.split(" ", 1)[1]) for l in err.splitlines()
+                if l.startswith("[cluster-node] ")), {})
+    return p.returncode, out, dict(rec, stderr=err[-3000:])
+
+
+def _free_port_pair() -> int:
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        try:
+            with socket.socket() as s2:
+                s2.bind(("127.0.0.1", port + 1))
+            return port
+        except OSError:
+            continue
+    fail("[cluster] no two consecutive free ports")
+
+
+def _ok_node(p: subprocess.Popen, what: str) -> tuple[str, dict]:
+    """A reference process's output and record; fails unless it exits 0."""
+    rc, out, rec = _finish_node(p, what)
+    if rc != 0:
+        fail(f"[cluster] {what} exited {rc}: {out[-2000:]} {rec.get('stderr')}")
+    return out, rec
+
+
+def cluster_kill_run(mpath: str, common: list[str], hb: list[str]) -> dict:
+    """A cluster (root `inference` and a worker, both reading the file)
+    whose worker is SIGKILLed mid-decode: the root's exit code, the
+    seconds from the kill to the root's end and its ClusterPeerLost line."""
+    port = _free_port_pair()
+    cl = ["--nnodes", "2", "--coordinator", f"127.0.0.1:{port}", *hb]
+    long = [a if a != str(CLUSTER_STEPS) else "1500" for a in common]
+    worker = _node(["worker", "--model", mpath, *long, *cl, "--node-rank", "1"])
+    root = _node(["inference", "--model", mpath, *long, *cl, "--node-rank", "0"])
+    try:
+        t_seen = _wait_for(root, "💡 prompt tokens")
+        time.sleep(1.0)                      # into the decode steps
+        t_kill = time.monotonic()
+        worker.kill()
+        worker.communicate(timeout=30)
+        rc, rout, _ = _finish_node(root, "the root after its worker's SIGKILL")
+        detect_s = time.monotonic() - t_kill
+    finally:
+        for p in (worker, root):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    lost = next((l.split("🔴 cluster: ", 1)[1] for l in rout.splitlines()
+                 if "🔴 cluster: " in l), None)
+    return dict(exit=rc, detect_s=detect_s, lost=lost, decode_start_s=t_seen, out=rout[-1500:])
+
+
+def phase_cluster(card: str) -> dict:
+    """Phase 15 (`[cluster]` lines) on a Llama-2-7B-width file of
+    CLUSTER_LAYERS layers, every run at the CLI's dtypes (bf16 compute
+    and cache, Q80 activations), the ~300-token prompts and CLUSTER_STEPS
+    greedy tokens. Side by side, each a process of its own (their times
+    are not read): the single-host `inference --tp 2`; `chat --sp 2`
+    (ROADMAP item 19: the ring prefill a mirrored op) with one first turn,
+    and `inference --sp 2` on that turn's rendered prompt; and a cluster
+    whose worker is SIGKILLed mid-decode (the root exits 43 with the
+    ClusterPeerLost line within --worker-timeout plus one heartbeat).
+    Held: the chat's prompt and greedy tokens equal to the `inference --sp
+    2` run's, and its rank 0's K1, K2 and K3 launches equal to an sp = 2
+    rank's share (axes_launches) and its Q80 launches to that run's. Then,
+    alone: a two-node cluster on 127.0.0.1, the root `dllama inference
+    --nnodes 2 --push-weights` and a file-less `dllama worker
+    --push-weights` (no --model), both on the one card under gloo. Held:
+    the root's text (tokens and pieces) equal to the single-host `--tp 2`
+    (the same collectives); every 🔶 line carries T and S, and S equals
+    runtime/netstats.estimate_decode_wire for that mesh; each node's
+    K1/K3/Q80 launches equal the single-host run's rank 0 launches (its
+    tp = 2 share at that depth); the weight push's bytes and ms and the
+    heartbeat RTT p50 from the root's ClusterStats."""
+    import types
+
+    from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
+    from distributed_llama_tpu_torch.parallel.sharding import vocab_splits
+    from distributed_llama_tpu_torch.quants import FloatType
+    from distributed_llama_tpu_torch.runtime.netstats import estimate_decode_wire
+    from distributed_llama_tpu_torch.testing import byte_fallback_vocab
+    from distributed_llama_tpu_torch.io import TokenizerData, write_tokenizer_file
+
+    t_phase = time.perf_counter()
+    spec = ModelSpec(arch=ArchType.LLAMA, dim=4096, hidden_dim=11008,
+                     n_layers=CLUSTER_LAYERS, n_heads=32, n_kv_heads=32,
+                     vocab_size=32000, seq_len=2048,
+                     weights_float_type=FloatType.Q40)
+    # 299 bytes of text: with BOS, 300 tokens of the byte tokenizer (the
+    # main paths' prompt length: one 256-token chunk and a 44-token tail)
+    rng = np.random.default_rng(5)
+    prompt = "".join(chr(97 + c) for c in rng.integers(0, 26, 299))
+    # the chat's first turn: the Llama-2 template around a system prompt
+    # and 257 letters, 300 tokens with BOS (cmd_chat renders it so)
+    system, user = "be brief", "".join(chr(97 + c) for c in rng.integers(0, 26, 257))
+    chat_prompt = f"[INST] <<SYS>>\n{system}\n<</SYS>>\n\n{user} [/INST]"
+
+    def text(out: str) -> list[str]:
+        lines = [l for l in out.splitlines() if not l.startswith("[W")]
+        i = next(i for i, l in enumerate(lines) if l.startswith("💡"))
+        return lines[i:i + 2]
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        mpath, tpath = f"{d}/model.m", f"{d}/tok.t"
+        t0 = time.perf_counter()
+        out["file_bytes"] = write_random_q40_model(mpath, spec)
+        write_tokenizer_file(tpath, TokenizerData(
+            vocab=byte_fallback_vocab(spec.vocab_size), scores=[0.0] * spec.vocab_size,
+            bos_id=1, eos_id=2))
+        Path(f"{d}/turn.txt").write_text(user + "\n")
+        out["write_s"] = time.perf_counter() - t0
+        print(f"[cluster] file: Llama-2-7B widths, {CLUSTER_LAYERS} layers, random Q40 "
+              f"bytes: {out['file_bytes']} bytes, written in {out['write_s']:.1f} s")
+        gen = ["--tokenizer", tpath, "--steps", str(CLUSTER_STEPS), "--seed", "3",
+               "--temperature", "0", "--device", "cuda"]
+        common = [*gen, "--prompt", prompt]
+        hb = ["--heartbeat-interval", str(CLUSTER_HB_S),
+              "--worker-timeout", str(CLUSTER_TIMEOUT_S)]
+        # the references and the killed cluster side by side: each its own
+        # process (with one rank spawned where it runs over ranks)
+        t0 = time.perf_counter()
+        refs = dict(
+            tp2=_node(["inference", "--model", mpath, *common, "--tp", "2"]),
+            sp2=_node(["inference", "--model", mpath, *gen, "--prompt", chat_prompt,
+                       "--sp", "2"]),
+            chat_sp2=_node(["chat", "--model", mpath, *gen, "--system-prompt", system,
+                            "--sp", "2"], stdin=f"{d}/turn.txt"))
+        try:
+            kill = cluster_kill_run(mpath, common, hb)
+            done = {k: _ok_node(p, f"the single-host {k}") for k, p in refs.items()}
+        finally:
+            for p in refs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        out["side_by_side_s"] = time.perf_counter() - t0
+        rc, detect_s, lost = kill["exit"], kill["detect_s"], kill["lost"]
+        out["kill"] = {k: v for k, v in kill.items() if k != "out"}
+        print(f"[cluster] worker SIGKILLed mid-decode: the root exits {rc} after "
+              f"{detect_s:.2f} s (bound {CLUSTER_TIMEOUT_S + CLUSTER_HB_S:.1f} s): {lost} "
+              f"[{card}]")
+        if rc != 43 or lost is None or detect_s > CLUSTER_TIMEOUT_S + CLUSTER_HB_S:
+            fail(f"[cluster] the killed worker: root exit {rc} after {detect_s:.2f} s, "
+                 f"{kill['out']}")
+        # serving over sp: the chat's first turn against inference --sp 2
+        (one, one_rec), (isp, isp_rec), (chat, chat_rec) = (
+            done["tp2"], done["sp2"], done["chat_sp2"])
+        one_counts = one_rec.get("counts")
+        chat_runs, isp_runs = chat_rec.get("runs") or [], isp_rec.get("runs") or []
+        n_prompt = len(chat_runs[0]["prompt"]) if chat_runs else 0
+        want_sp = axes_launches(spec, dict(sp=2), n_prompt)
+        cc, ic = chat_rec.get("counts") or {}, isp_rec.get("counts") or {}
+        stopped = bool(chat_runs) and len(chat_runs[0]["tokens"]) < CLUSTER_STEPS
+        out["chat_sp"] = dict(
+            prompt_tokens=n_prompt, tokens=chat_runs[0]["tokens"] if chat_runs else None,
+            tokens_equal=bool(chat_runs) and chat_runs == isp_runs, counts=cc,
+            counts_inference_sp=ic, want=want_sp, stopped_early=stopped)
+        print(f"[cluster] chat --sp 2 (bf16, Q80 activations; the ring prefill a mirrored op): "
+              f"a {n_prompt}-token first turn, its {CLUSTER_STEPS} greedy tokens equal to "
+              f"inference --sp 2 on the same prompt: {out['chat_sp']['tokens_equal']}; rank 0 "
+              f"launches {cc} (inference --sp 2 {ic}; an sp = 2 rank's share {want_sp}) "
+              f"[{card}]")
+        if not (out["chat_sp"]["tokens_equal"] and len(chat_runs) == 1 and cc == ic
+                and cc.get("K1") and (stopped or all(cc.get(k) == v
+                                                     for k, v in want_sp.items()))):
+            fail(f"[cluster] chat --sp 2: {out['chat_sp']}, inference --sp 2 {isp_runs}: "
+                 f"{chat[-1500:]} {isp[-1500:]}")
+        # the cluster alone: root and file-less worker, each its own process
+        port = _free_port_pair()
+        cl = ["--nnodes", "2", "--coordinator", f"127.0.0.1:{port}", "--push-weights", *hb]
+        t0 = time.perf_counter()
+        worker = _node(["worker", *common, *cl, "--node-rank", "1"])
+        root = _node(["inference", "--model", mpath, *common, *cl, "--node-rank", "0"])
+        rc, rout, rrec = _finish_node(root, "the root")
+        wrc, wout, wrec = _finish_node(worker, "the worker")
+        out["cluster_s"] = time.perf_counter() - t0
+        if rc != 0 or wrc != 0:
+            fail(f"[cluster] root exit {rc}, worker exit {wrc}: {rout[-2000:]} "
+                 f"{rrec.get('stderr')} {wout[-1500:]} {wrec.get('stderr')}")
+        lines = [l for l in rout.splitlines() if l.startswith("🔶")]
+        s_cols = {l.rsplit(" S ", 1)[1] for l in lines}
+        t_cols = [float(l.split(" T ", 1)[1].split(" ms", 1)[0]) for l in lines]
+        mesh = types.SimpleNamespace(shape={"dp": 1, "sp": 1, "ep": 1, "pp": 1, "tp": 2})
+        wire = estimate_decode_wire(spec, mesh, q80=True, act_bytes=2, batch=1,
+                                    shard_vocab=bool(vocab_splits(spec, 2)), vocab_topk=32)
+        want_s = f"{wire.sent_kb_per_token:7.1f} kB"
+        cluster = rrec.get("cluster") or {}
+        rtt = (cluster.get("wire", {}).get("peers", {}).get("1", {}).get("rtt_ms") or {})
+        avg = next((l for l in rout.splitlines() if l.startswith("Avg generation time:")), "")
+        ms_token = float(avg.split(":")[1].split("ms")[0]) if avg else None
+        push_bytes, push_ms = cluster.get("bcast_tensors_bytes"), cluster.get("bcast_tensors_ms")
+        out.update(
+            text_equal=text(rout) == text(one), s_kb=sorted(s_cols), want_s=want_s,
+            t_ms=t_cols, ms_per_token=ms_token, push_bytes=push_bytes, push_ms=push_ms,
+            push_gb_s=(push_bytes / push_ms / 1e6 if push_bytes and push_ms else None),
+            rtt_p50_ms=rtt.get("p50_ms"), rtt_n=rtt.get("n"),
+            counts_root=rrec.get("counts"), counts_worker=wrec.get("counts"),
+            counts_single_host=one_counts, breakdown=wire.breakdown,
+            pushed_worker="<pushed>" in wout)
+        print(f"[cluster] 2 nodes (root inference --push-weights, file-less worker) on "
+              f"127.0.0.1, gloo on the one card: text equal to a single-host --tp 2: "
+              f"{out['text_equal']}; S {out['s_kb']} (estimate_decode_wire "
+              f"{want_s.strip()}); T {t_cols[0]:.2f} ms (prefill), "
+              f"{t_cols[-1]:.2f} ms a decode step; {ms_token} ms/token; push "
+              f"{push_bytes} bytes in {push_ms} ms "
+              f"({out['push_gb_s'] or 0:.3f} GB/s); heartbeat RTT p50 "
+              f"{out['rtt_p50_ms']} ms (n {out['rtt_n']}); launches root "
+              f"{out['counts_root']}, worker {out['counts_worker']}, single-host rank 0 "
+              f"{one_counts}; {out['cluster_s']:.1f} s [{card}]")
+        need = ("K1", "K3", "Q80")
+        if not (out["text_equal"] and s_cols == {want_s} and len(lines) == CLUSTER_STEPS
+                and out["pushed_worker"] and push_bytes and out["rtt_p50_ms"] is not None
+                and one_counts
+                and all(c == one_counts for c in (out["counts_root"], out["counts_worker"]))
+                and all(one_counts[k] for k in need)):
+            fail(f"[cluster] {out} root {text(rout)} vs single host {text(one)}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[cluster] phase 15 in {out['seconds']:.1f} s (side by side "
+          f"{out['side_by_side_s']:.1f} s, the cluster alone {out['cluster_s']:.1f} s) "
+          f"[{card}]")
+    return out
+
+
+def _wait_for(p: subprocess.Popen, needle: str) -> float:
+    """Seconds until a node's stdout holds `needle` (read from its pipe
+    without buffering); fails past the node limit."""
+    import os
+    import selectors
+
+    fd = p.stdout.fileno()
+    sel = selectors.DefaultSelector()
+    sel.register(fd, selectors.EVENT_READ)
+    t0, seen = time.monotonic(), b""
+    try:
+        while time.monotonic() - t0 < CLUSTER_NODE_LIMIT_S:
+            if sel.select(timeout=0.2):
+                chunk = os.read(fd, 65536)
+                if not chunk:
+                    break
+                seen += chunk
+                if needle.encode() in seen:
+                    return time.monotonic() - t0
+    finally:
+        sel.close()
+    p.kill()
+    fail(f"[cluster] {needle!r} never appeared: {seen[-2000:]!r}")
 
 
 def _bound_by(rows) -> str:
@@ -6529,6 +6907,8 @@ def main() -> int:
     mark("phase 6 (file path)")
     chat = phase_chat()
     mark("phase 8 (chat)")
+    cluster15 = phase_cluster(card)
+    mark("phase 15 (cluster)")
     kernels = summarize(k1, q80, fused, k2, k3, probes, probes2, main_paths)
     kernels["kernels"] += serving_entries(k1, q80, k3, serving)
     kernels["kernels"] += spec_entries(k1, q80, k3, spec9)
@@ -6590,7 +6970,7 @@ def main() -> int:
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
         serving=serving, chat=chat, spec=spec9, trace=trace10, admission=admission11,
-        tp=tp12, serve_tp=serve13, axes=axes14,
+        tp=tp12, serve_tp=serve13, axes=axes14, cluster=cluster15,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     watchdog.stdin.close()
     watchdog.wait(timeout=10)

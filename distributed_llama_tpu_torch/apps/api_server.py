@@ -138,6 +138,22 @@ def _admin_authorized(state: "ApiState", client_addr: str,
     return hmac.compare_digest(auth_header.encode(), expected.encode())
 
 
+def _add_cluster_blocks(payload: dict) -> None:
+    """A cluster root's /stats and /metrics blocks (JAX
+    apps/api_server.py:1005-1015): `cluster` (heartbeat counters, peer
+    losses, phase, the startup broadcast timings; runtime/stats.
+    ClusterStats) and `wire`, the measured wire ledger hoisted (bytes and
+    frames by peer, MSG kind and direction, heartbeat RTT, clock
+    offsets). Nothing off a cluster."""
+    from ..parallel.multihost import cluster_summary
+
+    cluster = cluster_summary()
+    if cluster is not None:
+        payload["cluster"] = cluster
+        if cluster.get("wire"):
+            payload["wire"] = cluster["wire"]
+
+
 def build_chat_prompt(messages: list[dict]) -> str:
     """Llama-3 header template (ref: dllama-api.cpp:173-181)."""
     out = []
@@ -209,6 +225,14 @@ class ApiState:
         self.draining = False
         # why the ranks of a mirrored engine were lost (None: in step)
         self.lost: str | None = None
+        # a cluster root (parallel/multihost.py): each request's body goes
+        # to the workers, which replay it; set to the ClusterPeerLost when
+        # the control star loses a node (/readyz answers 503 until the
+        # diagnostic exit)
+        from ..parallel.multihost import is_multihost
+
+        self.multihost = is_multihost(engine.mesh)
+        self.cluster_lost = None
         # the legacy path's token history whose K/V is live in the cache
         self.cached_tokens: list[int] = []
         # serializes the legacy path's requests
@@ -358,7 +382,10 @@ def _completion_chunks(state: ApiState, body: dict):
         raise PromptTooLong(
             f"prompt is {len(tokens)} tokens; context is {engine.seq_len}")
     lcp = 0
-    while (lcp < len(state.cached_tokens) and lcp < len(tokens) - 1
+    # a cluster skips the reuse, as the JAX server does (its
+    # apps/api_server.py:403-409): every node prefills each request whole
+    while (not state.multihost and lcp < len(state.cached_tokens)
+           and lcp < len(tokens) - 1
            and state.cached_tokens[lcp] == tokens[lcp]):
         lcp += 1
     if lcp > 0:
@@ -786,12 +813,14 @@ def make_handler(state: ApiState):
                 if state.autosize:
                     # the startup decision: chosen shape and every input
                     payload["autosize"] = state.autosize
+                _add_cluster_blocks(payload)
                 self._json(200, payload)
                 return
             payload = {"scheduler": "off",
                        "spec": state.spec_stats.summary()}
             if TRACER.enabled:
                 payload["trace"] = TRACER.summary()
+            _add_cluster_blocks(payload)
             self._json(200, payload)
 
         def _admin_denied(self) -> bool:
@@ -939,6 +968,7 @@ def make_handler(state: ApiState):
                 payload["hbm"] = hbm_ledger(state.engine)
             if "spec" not in payload:
                 payload["spec"] = state.spec_stats.summary()
+            _add_cluster_blocks(payload)
             data = render_prometheus(payload, tracer=TRACER,
                                      model=state.model_name,
                                      mode=mode, state=st,
@@ -953,7 +983,13 @@ def make_handler(state: ApiState):
         def _readyz(self) -> None:
             """Ready = engine healthy AND queue under its bound AND not
             draining; 503 with Retry-After otherwise."""
-            if state.lost is not None:
+            if state.cluster_lost is not None:
+                # a cluster node is gone: the process is about to take its
+                # diagnostic exit; answer honestly meanwhile
+                self._json(503, {"status": "cluster_lost",
+                                 "detail": state.cluster_lost.summary()},
+                           retry_after=30.0)
+            elif state.lost is not None:
                 self._json(503, {"status": "lost", "error": state.lost})
             elif state.draining:
                 self._json(503, {"status": "draining"}, retry_after=1.0)
@@ -1094,86 +1130,102 @@ def make_handler(state: ApiState):
             lock = (contextlib.nullcontext() if use_sched
                     else state.engine_lock)
             with lock:
+                if state.multihost:
+                    # a cluster root: the workers replay this request from
+                    # its body (apps/dllama.py cmd_worker), sent before
+                    # any engine work so their collectives line up with
+                    # ours (JAX apps/api_server.py:1543-1549)
+                    from ..parallel import multihost as mh
+
+                    mh.send_api(json.dumps(body).encode())
                 # pull the first event before committing a 200, so prompt
                 # and admission errors still get a clean 4xx
                 gen = (_sched_completion_chunks(state, body, chat=chat)
                        if use_sched else _completion_chunks(state, body))
                 try:
-                    first = next(gen)
-                except PromptTooLong as e:
-                    self._json(400, {"error": str(e)})
-                    return
-                except QueueFull as e:
-                    self._json(429, {"error": str(e)},
-                               retry_after=e.retry_after)
-                    return
-                except EngineUnready as e:
-                    self._json(503, {"error": str(e), "state": e.state},
-                               retry_after=e.retry_after)
-                    return
+                    try:
+                        first = next(gen)
+                    except PromptTooLong as e:
+                        self._json(400, {"error": str(e)})
+                        return
+                    except QueueFull as e:
+                        self._json(429, {"error": str(e)},
+                                   retry_after=e.retry_after)
+                        return
+                    except EngineUnready as e:
+                        self._json(503, {"error": str(e), "state": e.state},
+                                   retry_after=e.retry_after)
+                        return
 
-                def events():
-                    yield first
-                    yield from gen
+                    def events():
+                        yield first
+                        yield from gen
 
-                if chat:
-                    def piece_env(p):
-                        return _chunk_env(rid, created, state.model_name, 0,
-                                          {"content": p}, None)
+                    if chat:
+                        def piece_env(p):
+                            return _chunk_env(rid, created, state.model_name, 0,
+                                              {"content": p}, None)
 
-                    def final_env(fr):
-                        return _chunk_env(rid, created, state.model_name, 0,
-                                          {}, fr)
-                else:
-                    def piece_env(p):
-                        return _text_chunk_env(rid, created,
-                                               state.model_name, p, None)
+                        def final_env(fr):
+                            return _chunk_env(rid, created, state.model_name, 0,
+                                              {}, fr)
+                    else:
+                        def piece_env(p):
+                            return _text_chunk_env(rid, created,
+                                                   state.model_name, p, None)
 
-                    def final_env(fr):
-                        return _text_chunk_env(rid, created,
-                                               state.model_name, "", fr)
+                        def final_env(fr):
+                            return _text_chunk_env(rid, created,
+                                                   state.model_name, "", fr)
 
-                if stream:
-                    self._sse_start()
-                    usage = None
+                    if stream:
+                        self._sse_start()
+                        usage = None
+                        for kind, payload in events():
+                            if kind == "piece":
+                                self._sse(piece_env(payload))
+                            else:
+                                usage = payload
+                        if usage.get("error"):
+                            # mid-stream failure: an explicit structured error
+                            # event, then a terminated stream
+                            self._sse({"error": usage["error"]})
+                        self._sse(final_env(usage["finish_reason"]))
+                        self._sse_done()
+                        return
+
+                    text = ""
+                    usage = {"finish_reason": "length", "prompt_tokens": 0,
+                             "completion_tokens": 0}
                     for kind, payload in events():
                         if kind == "piece":
-                            self._sse(piece_env(payload))
+                            text += payload
                         else:
                             usage = payload
-                    if usage.get("error"):
-                        # mid-stream failure: an explicit structured error
-                        # event, then a terminated stream
-                        self._sse({"error": usage["error"]})
-                    self._sse(final_env(usage["finish_reason"]))
-                    self._sse_done()
-                    return
-
-                text = ""
-                usage = {"finish_reason": "length", "prompt_tokens": 0,
-                         "completion_tokens": 0}
-                for kind, payload in events():
-                    if kind == "piece":
-                        text += payload
+                    if usage.get("error") and not text:
+                        # failed before any output: a retryable status
+                        self._json(503, {"error": usage["error"]},
+                                   retry_after=1.0)
+                        return
+                    if chat:
+                        self._json(200, _completion_env(
+                            rid, created, state.model_name,
+                            [{"index": 0,
+                              "message": {"role": "assistant", "content": text},
+                              "finish_reason": usage["finish_reason"]}],
+                            usage["prompt_tokens"], usage["completion_tokens"]))
                     else:
-                        usage = payload
-                if usage.get("error") and not text:
-                    # failed before any output: a retryable status
-                    self._json(503, {"error": usage["error"]},
-                               retry_after=1.0)
-                    return
-                if chat:
-                    self._json(200, _completion_env(
-                        rid, created, state.model_name,
-                        [{"index": 0,
-                          "message": {"role": "assistant", "content": text},
-                          "finish_reason": usage["finish_reason"]}],
-                        usage["prompt_tokens"], usage["completion_tokens"]))
-                else:
-                    self._json(200, _text_completion_env(
-                        rid, created, state.model_name, text,
-                        usage["finish_reason"], usage["prompt_tokens"],
-                        usage["completion_tokens"]))
+                        self._json(200, _text_completion_env(
+                            rid, created, state.model_name, text,
+                            usage["finish_reason"], usage["prompt_tokens"],
+                            usage["completion_tokens"]))
+                finally:
+                    if state.multihost:
+                        # the workers replay the whole request: a client
+                        # that went away mid-stream still gets every step
+                        # run here, so the collectives stay aligned
+                        for _ in gen:
+                            pass
 
     return Handler
 
@@ -1354,6 +1406,24 @@ def serve(args, mesh=None, control=None) -> None:
 
     if control is not None:
         control.on_lost(_lost)
+    if state.multihost:
+        # a cluster root (JAX apps/api_server.py:2064-2084): a lost node
+        # means every later forward would wait in an orphaned collective.
+        # The supervisor (were one live) goes to LOST with structured
+        # cluster_peer_lost frames, /readyz answers 503 cluster_lost, the
+        # handler threads get a beat to flush, then the diagnostic exit
+        # (43)
+        from ..parallel import multihost as mh
+
+        def _on_peer_lost(exc):
+            state.cluster_lost = exc
+            if state._scheduler is not None:
+                state._scheduler.trip_cluster(exc)
+            time.sleep(0.5)
+            mh.diagnostic_exit(exc)
+
+        mh.install_peer_lost_exit(_on_peer_lost)
+        mh.set_phase("serve")
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGTERM, _begin_drain)
     host, port = server.server_address[:2]

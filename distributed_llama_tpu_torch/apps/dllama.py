@@ -1,4 +1,5 @@
-"""dllama CLI of the port — modes `inference`, `generate`, `chat` and `api`.
+"""dllama CLI of the port — modes `inference`, `generate`, `chat`, `api` and
+`worker`.
 
 Counterpart of the JAX package's apps/dllama.py (ref:
 src/apps/dllama/dllama.cpp):
@@ -14,6 +15,7 @@ src/apps/dllama/dllama.cpp):
              slots under its supervisor, and --prefix-cache the radix
              prefix cache over them; without it, --session FILE resumes
              and saves the one engine's cached prefix
+  worker     join a multi-node cluster as a non-root node (below)
 
     python -m distributed_llama_tpu_torch.apps.dllama inference \\
         --model m.m --tokenizer t.t --prompt "Hello" --steps 32
@@ -64,26 +66,44 @@ notice and the run goes without Q80 activations), `--ep N` places a MoE
 model's experts over N ranks and `--sp N` shards the KV cache's sequence
 over N ranks (the prompt prefills as one ring-attention segment); these
 three run in `inference` and `generate`, and `chat` and the legacy `api`
-run over `--ep` and `--pp`. The CLI starts its ranks itself
+run over them too. The CLI starts its ranks itself
 (parallel/launch.py: this process is rank 0 and alone prints, the others
 are spawned): one process a rank, NCCL when
 every rank has a GPU of its own, gloo on the CPU and when ranks share a
 GPU (the choice is printed). With `--buffer-float-type q80` (the default)
 the column splits' partial sums cross the ranks as Q80 blocks.
 `inference` and `generate` run the same program on every rank. `chat` and
-`api` over `--tp` (and the legacy `api` and `chat` over `--ep` and `--pp`)
-serve from rank 0, which reads stdin or binds the port
+`api` over `--tp` (and the legacy `api` and `chat` over `--sp`, `--ep`
+and `--pp`) serve from rank 0, which reads stdin or binds the port
 and runs every host layer, while the other ranks run the engine calls it
 mirrors to them (parallel/control.py); speculation, sessions, the prefix
 cache and `--profile` (one trace a rank, DIR/rank<r>/trace.json) run over
 ranks too.
 
-Flags of features the port does not have yet — the worker mode, chat and
-the legacy api over the sp axis, clusters, and the features listed in
-UNPORTED_FLAGS — are
-accepted by the parser only to be refused with a message naming their
-ROADMAP item, never silently ignored; what the JAX CLI itself refuses is
-refused in its words.
+Over nodes, as in the JAX CLI (parallel/multihost.py): start the root with
+any mode and `--nnodes N --node-rank 0 --coordinator host:port`, and one
+`dllama worker --nnodes N --node-rank r --coordinator host:port` on each
+other node, every one with the same model, tokenizer and mesh flags (a
+worker with `--push-weights` needs no `--model`: the root broadcasts the
+spec and every tensor's bytes, and every node passes the flag). The nodes
+first form the control star (a versioned handshake on the coordinator's
+port + 1, heartbeats every `--heartbeat-interval`, a node silent past
+`--worker-timeout` is lost), then every rank joins one process group at
+the coordinator's address. A node runs world / N of the mesh's ranks
+(with the default axes tp spans the cluster, one rank a node); the
+node's first is the process started here, and it spawns the others. The
+root runs the mode; a worker replays each run, request and benchmark
+sequence the root announces (RUN, API, XFER_BENCH, SHUTDOWN). A lost
+node ends every node with one `🔴 cluster: {...}` line and exit code 43;
+a cluster that never forms, exit code 44. `inference` prints the JAX
+CLI's per-token G/I/T/H/S lines: S the modeled kB a rank sends a token
+(runtime/netstats.py), T the transfer time of the collectives timed on
+the mesh (`Engine.measure_transfer_ms`).
+
+Flags of features the port does not have yet (UNPORTED_FLAGS: replicas
+and the fleet) are accepted by the parser only to be refused with a
+message naming their ROADMAP item, never silently ignored; what the JAX
+CLI itself refuses is refused in its words.
 """
 
 from __future__ import annotations
@@ -101,21 +121,16 @@ import torch
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 CACHE_DTYPES = {**DTYPES, "f8": torch.float8_e4m3fn}
-PORTED_MODES = ("inference", "generate", "chat", "api")
 # serving flags of the JAX CLI that the port does not have yet, with the
 # ROADMAP item that brings each (refused with that message when given)
 _FLEET = "replicas and the fleet (ROADMAP item 16)"
-_CLUSTER = "the multi-node control plane (ROADMAP item 15)"
 UNPORTED_FLAGS = {
     "--replicas": _FLEET, "--retry-budget": _FLEET, "--route-policy": _FLEET,
     "--replica-procs": _FLEET, "--replica-hosts": _FLEET,
     "--kv-transfer": _FLEET, "--tier": _FLEET, "--min-replicas": _FLEET,
     "--max-replicas": _FLEET, "--tenant-budgets": _FLEET,
-    "--coordinator": _CLUSTER, "--node-rank": _CLUSTER,
-    "--connect-timeout": _CLUSTER, "--heartbeat-interval": _CLUSTER,
-    "--worker-timeout": _CLUSTER, "--push-weights": _CLUSTER,
 }
-_FLAG_SWITCHES = ("--kv-transfer", "--push-weights")
+_FLAG_SWITCHES = ("--kv-transfer",)
 # every rendezvous and collective of a run over ranks, in seconds: a rank
 # that dies leaves the others failing after this long, not hanging
 RANK_TIMEOUT_S = 600.0
@@ -125,9 +140,20 @@ AXES = ("dp", "sp", "ep", "pp", "tp")
 NEW_AXES = ("sp", "ep", "pp")
 
 
+def mesh_axes(args) -> dict:
+    """The mesh's axis sizes. Over nodes with the default --tp, tp spans
+    the cluster's ranks (JAX apps/dllama.py:610-613): one rank a node
+    beside the other axes."""
+    axes = {a: getattr(args, a) for a in AXES}
+    rest = math.prod(v for a, v in axes.items() if a != "tp")
+    if args.nnodes > 1 and args.tp == 1 and args.nnodes % rest == 0:
+        axes["tp"] = args.nnodes // rest
+    return axes
+
+
 def world_size(args) -> int:
     """The ranks a run takes: the product of the mesh axes."""
-    return math.prod(getattr(args, a) for a in AXES)
+    return math.prod(mesh_axes(args).values())
 
 
 def _int_or_auto(v: str):
@@ -376,8 +402,48 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="row-split the embedding table and logits head "
                         "over tp: auto = whenever tp divides the vocab; "
                         "off keeps them replicated")
+    # the multi-node cluster (parallel/multihost.py; JAX
+    # apps/dllama.py:467-508). The root's --heartbeat-interval and
+    # --worker-timeout are authoritative: workers adopt them from the
+    # HELLO ack
     p.add_argument("--nnodes", type=int, default=1,
-                   help="cluster size; only 1 is ported")
+                   help="number of nodes in the cluster (node 0 is the "
+                        "root; the others run `dllama worker`)")
+    p.add_argument("--node-rank", type=int, default=0,
+                   help="this node's rank (0..nnodes-1)")
+    p.add_argument("--coordinator", default=None,
+                   help="the process group's address host:port (rank 0's "
+                        "TCP store; the control star listens on port + 1), "
+                        "reachable from every node (required with "
+                        "--nnodes)")
+    p.add_argument("--push-weights", action="store_true",
+                   help="cluster weight distribution: rank 0 streams the "
+                        ".m and broadcasts each tensor's bytes, so workers "
+                        "need NO local model file (the reference root's "
+                        "per-worker TCP weight push, transformer.cpp:562-"
+                        "591). Pass on EVERY process; workers may omit "
+                        "--model")
+    p.add_argument("--connect-timeout", type=float, default=30.0,
+                   metavar="SECS",
+                   help="cluster formation budget: workers retry the "
+                        "root's control port with exponential backoff "
+                        "until this deadline, and the root waits this "
+                        "long for every worker's versioned HELLO — past "
+                        "it, a structured formation error (exit 44), "
+                        "never a silent hang")
+    p.add_argument("--heartbeat-interval", type=float, default=2.0,
+                   metavar="SECS",
+                   help="root->worker MSG_PING cadence on the control "
+                        "channel (workers answer MSG_PONG; both sides "
+                        "time out silent peers)")
+    p.add_argument("--worker-timeout", type=float, default=10.0,
+                   metavar="SECS",
+                   help="peer-loss detection bound: a node silent on the "
+                        "control channel this long (dead, wedged, or "
+                        "partitioned) is declared lost with a structured "
+                        "ClusterPeerLost diagnostic (exit 43) instead of "
+                        "hanging a collective; must comfortably exceed "
+                        "--heartbeat-interval")
     return p
 
 
@@ -390,22 +456,9 @@ def refusals(args) -> list[str]:
                    "their Hopper kernels, on the CPU their plain versions, "
                    "and nothing falls back from one to the other (ROADMAP "
                    "North star)")
-    if args.mode not in PORTED_MODES:
-        out.append(f"mode {args.mode!r} is not ported yet (ported: "
-                   f"{', '.join(PORTED_MODES)}; the worker mode is the "
-                   "multi-node control plane, ROADMAP item 15)")
     for axis in AXES:
         if getattr(args, axis) < 1:
             out.append(f"--{axis} must be >= 1")
-    if args.mode in ("chat", "api") and not args.serve_batch and args.sp > 1:
-        # chat and the legacy api run over ep and pp through the control
-        # channel's existing ops; the ring prefill is no op yet. api
-        # --serve-batch over any of them is refused in the JAX words
-        # (check_serve_flags)
-        out.append(f"mode {args.mode!r} with --sp {args.sp}: serving over "
-                   "sp is ROADMAP item 19 and is not ported yet (inference "
-                   "and generate run over every axis; chat and api over ep "
-                   "and pp)")
     if args.dp > 1 and (args.mode == "chat" or (
             args.mode == "api" and not args.serve_batch)):
         # the JAX engine crashes here rather than refusing: its chat and
@@ -415,9 +468,6 @@ def refusals(args) -> list[str]:
                    "single-sequence; use step() for batches (the JAX "
                    "engine's assert self.batch == 1, runtime/engine.py:838, "
                    f"which its {args.mode} reaches on a --dp engine)")
-    if args.nnodes != 1:
-        out.append("--nnodes: multi-host clusters are the multi-node "
-                   "control plane (ROADMAP item 15) and are not ported yet")
     for flag, why in UNPORTED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             out.append(f"{flag} in mode {args.mode!r}: {why} is not ported "
@@ -533,8 +583,6 @@ def check_spec_flags(args) -> None:
             sys.exit("error: --draft is host-loop decoding; it does "
                      "not compose with --device-sampling")
     if args.lookup_decode:
-        if args.nnodes > 1:
-            sys.exit("error: --lookup-decode does not compose with --nnodes")
         if args.device_sampling and args.mode in ("inference", "generate"):
             sys.exit("error: --lookup-decode is host-loop decoding; it "
                      "does not compose with --device-sampling")
@@ -553,13 +601,66 @@ def check_mesh_flags(args) -> None:
 
 
 def check_serve_flags(args) -> None:
-    """The JAX server's refusal of a scheduler over more than the tp axis,
-    in its words (JAX apps/api_server.py:1684-1686): the slot scheduler's
-    engine composes with --tp only."""
+    """The JAX server's refusals of a scheduler over a cluster or over more
+    than the tp axis, in its words (JAX apps/api_server.py:1680-1686): the
+    slot scheduler's engine is single-process and composes with --tp
+    only."""
+    if args.mode == "api" and args.serve_batch and args.nnodes > 1:
+        sys.exit("error: --serve-batch does not compose with --nnodes")
     if args.mode == "api" and args.serve_batch and max(
             getattr(args, a) for a in ("dp", *NEW_AXES)) > 1:
         sys.exit("error: --serve-batch needs a single-process engine "
                  "(no --dp/--sp/--ep/--pp; --tp composes)")
+
+
+def check_cluster_flags(args) -> None:
+    """The JAX CLI's cluster refusals, in its words and order (JAX
+    apps/dllama.py:793-808, :1044, :1341-1385), before any model load or
+    cluster work; and a mesh whose ranks do not split evenly over the
+    nodes."""
+    if args.session and args.nnodes > 1:
+        sys.exit("error: --session does not compose with --nnodes > 1 — "
+                 "a multi-process mesh's cache shards are not addressable "
+                 "from one host")
+    if args.nnodes <= 1:
+        if args.mode == "worker":
+            sys.exit("error: worker mode needs a cluster — pass --nnodes N "
+                     "--node-rank r --coordinator host:port (single-host "
+                     "multi-device runs need no workers: use --tp N)")
+        return
+    if not args.coordinator:
+        sys.exit("error: --nnodes > 1 requires --coordinator host:port")
+    if args.mode == "worker" and args.node_rank == 0:
+        sys.exit("error: rank 0 is the root — run a non-worker mode")
+    if args.mode != "worker" and args.node_rank != 0:
+        sys.exit("error: non-root ranks must run `dllama worker`")
+    if args.heartbeat_interval <= 0 or args.worker_timeout <= 0:
+        sys.exit("error: --heartbeat-interval and --worker-timeout "
+                 "must be positive")
+    if args.worker_timeout < 2 * args.heartbeat_interval:
+        # healthy workers produce frames only in answer to PINGs: a bound
+        # under ~2 pings declares live nodes dead on one late heartbeat
+        sys.exit(f"error: --worker-timeout {args.worker_timeout:g} "
+                 "must be at least 2x --heartbeat-interval "
+                 f"({args.heartbeat_interval:g}) — a node is only "
+                 "expected to produce a frame per heartbeat, so a "
+                 "tighter bound declares healthy peers lost "
+                 "(recommended: 3-5x)")
+    if args.mode in ("inference", "generate"):
+        if args.device_sampling:
+            sys.exit("error: --device-sampling does not compose with "
+                     "--nnodes (the worker protocol drives generate())")
+        if args.lookup_decode and args.dp > 1:
+            # the worker's lookup replay is single-row
+            sys.exit("error: --lookup-decode with --dp does not compose "
+                     "with --nnodes")
+    if args.mode == "chat" and args.lookup_decode:
+        sys.exit("error: --lookup-decode does not compose with --nnodes")
+    world = world_size(args)
+    if world % args.nnodes:
+        sys.exit(f"error: the mesh's {world} ranks do not split evenly "
+                 f"over --nnodes {args.nnodes} (each node runs the same "
+                 "number of ranks)")
 
 
 def check_session_flags(args) -> None:
@@ -573,9 +674,14 @@ def check_session_flags(args) -> None:
 
 def build_engine(args, mesh=None):
     """model file -> (engine, tokenizer, sampler); over a mesh, this rank's
-    engine from its shard of the file (JAX apps/dllama.py:609-660)."""
+    engine from its shard of the file (JAX apps/dllama.py:609-660). Over
+    nodes, the JAX startup on every rank, in one order whatever the
+    rank's flags (JAX :524-582, :628-669): the spec broadcast, the config
+    fingerprint check, the weights (with --push-weights from rank 0's
+    broadcast), then the sampler seed from the root."""
     from ..io.model_file import content_fingerprint, read_spec
     from ..models.loader import load_params_streamed
+    from ..parallel import multihost as mh
     from ..parallel.mesh import describe
     from ..parallel.sharding import (check_axis_constraints,
                                      loader_placement, vocab_splits)
@@ -584,15 +690,38 @@ def build_engine(args, mesh=None):
     from ..sampler import Sampler
     from ..tokenizer import Tokenizer
 
-    if not args.model or not args.tokenizer:
-        sys.exit("error: --model and --tokenizer are required")
+    multihost = mh.is_multihost(mesh)
+    # root-push: only rank 0 reads the .m; the workers get the spec and
+    # the weights over the broadcast
+    pushed_worker = args.push_weights and multihost and mh.cluster_rank() > 0
+    if (not args.model and not pushed_worker) or not args.tokenizer:
+        sys.exit("error: --model and --tokenizer are required "
+                 "(--model optional for --push-weights workers)")
     device = resolve_device(args.device)
     wft = (FloatType[args.weights_float_type.upper()]
            if args.weights_float_type else None)
-    spec = read_spec(args.model, weights_float_type=wft)
-    print(f"⏩ {args.model}: arch={spec.arch.name} dim={spec.dim} "
-          f"layers={spec.n_layers} heads={spec.n_heads}/{spec.n_kv_heads} "
-          f"seq={spec.seq_len} device={device}")
+    if multihost:
+        # on every cluster startup, push or not, so the collective sequence
+        # does not depend on a rank's flags (multihost.bcast_spec)
+        if mh.cluster_rank() == 0:
+            spec = read_spec(args.model, weights_float_type=wft)
+            model_fp = content_fingerprint(args.model)
+            mh.bcast_spec(spec, model_fp, push=args.push_weights)
+        else:
+            rspec, rfp, _ = mh.bcast_spec(None)
+            if pushed_worker:
+                spec, model_fp = rspec, rfp
+            else:
+                spec = read_spec(args.model, weights_float_type=wft)
+                model_fp = content_fingerprint(args.model)
+        _check_cluster_config(args, spec, model_fp)
+    else:
+        spec = read_spec(args.model, weights_float_type=wft)
+        model_fp = content_fingerprint(args.model)
+    print(f"⏩ {args.model or '<pushed>'}: arch={spec.arch.name} "
+          f"dim={spec.dim} layers={spec.n_layers} "
+          f"heads={spec.n_heads}/{spec.n_kv_heads} seq={spec.seq_len} "
+          f"device={device}")
     cdt = DTYPES[args.compute_dtype]
     q80 = args.buffer_float_type == "q80"
     if q80 and args.pp > 1:
@@ -620,9 +749,14 @@ def build_engine(args, mesh=None):
         print(f"⏩ {describe(mesh)}")
         place = loader_placement(mesh, spec, shard_vocab)
     t0 = time.perf_counter()
+    # with --push-weights over nodes, rank 0 streams its file into the
+    # broadcast and every rank keeps its shards of the same stream
+    tensors = (mh.bcast_model_tensors(spec, args.model or None)
+               if args.push_weights and multihost else None)
     try:
         params, lstats = load_params_streamed(spec, args.model, device,
-                                              dtype=cdt, **place)
+                                              dtype=cdt, tensors=tensors,
+                                              **place)
     except ValueError as e:
         sys.exit(f"error: {e}")
     per_rank = (f", {lstats.device_bytes / 1e6:.0f} MB on each rank's device"
@@ -640,11 +774,44 @@ def build_engine(args, mesh=None):
                                     == FloatType.Q40),
                     # the weights file's content hash, folded into the
                     # session fingerprint (JAX apps/dllama.py:559)
-                    model_fingerprint=content_fingerprint(args.model))
+                    model_fingerprint=model_fp)
     tokenizer = Tokenizer.from_file(args.tokenizer)
     seed = args.seed if args.seed is not None else int(time.time())
+    if multihost:
+        # one sampler stream cluster-wide: every rank reproduces the root's
+        # draws (the default seed is the clock, which differs per node)
+        seed = mh.broadcast_seed(seed)
     sampler = Sampler(tokenizer.vocab_size, args.temperature, args.topp, seed)
     return engine, tokenizer, sampler
+
+
+def _check_cluster_config(args, spec, model_fp: int) -> None:
+    """Every rank's model, tokenizer and engine flags against rank 0's, as
+    the JAX CLI checks them (apps/dllama.py:568-606): a node with other
+    files or flags would compute other shapes and wait in a mismatched
+    collective, so a mismatch is an error on every rank at once."""
+    import dataclasses
+    import zlib
+
+    from ..parallel.multihost import check_config
+
+    spec_fp = zlib.crc32(repr(dataclasses.astuple(spec)).encode())
+    with open(args.tokenizer, "rb") as f:
+        tok_fp = zlib.crc32(f.read())
+    check_config([spec_fp, model_fp, tok_fp,
+                  args.tp, args.dp, args.sp, args.ep, args.pp,
+                  int(args.buffer_float_type == "q80"),
+                  int(args.compute_dtype == "bf16"),
+                  ["bf16", "f32", "f8"].index(args.cache_dtype),
+                  args.max_seq_len if args.max_seq_len is not None else -1,
+                  # the JAX CLI's kernel switch, always its default here
+                  2,
+                  # api mode samples with each node's own flags
+                  int(np.float32(args.temperature).view(np.int32)),
+                  int(np.float32(args.topp).view(np.int32)),
+                  # and speculates with each node's own --lookup-decode
+                  args.lookup_decode,
+                  int(args.push_weights)])
 
 
 def _new_engine(*args, **kw):
@@ -729,6 +896,8 @@ def _generate_rows(args, engine, tokenizer, sampler, tokens: list[int],
     `inference` counts every row."""
     t0 = time.perf_counter()
     if args.lookup_decode:
+        _announce_run(engine, tokens, _steps(args, engine), sampler=sampler,
+                      lookup=args.lookup_decode)
         outs = engine.generate_batch_lookup(
             [tokens] * engine.batch, _steps(args, engine),
             eos_id=tokenizer.stop_token_ids(), draft_len=args.lookup_decode,
@@ -740,6 +909,7 @@ def _generate_rows(args, engine, tokenizer, sampler, tokens: list[int],
             seed=sampler.rng_state, eos_id=tokenizer.stop_token_ids(),
             vocab_size=tokenizer.vocab_size)
     else:
+        _announce_run(engine, tokens, _steps(args, engine), sampler=sampler)
         outs = engine.generate_batch([tokens] * engine.batch,
                                      _steps(args, engine), sampler,
                                      eos_id=tokenizer.stop_token_ids())
@@ -823,11 +993,12 @@ def _generate(args, engine, tokenizer, sampler, tokens: list[int],
         _generate_spec(args, engine, tokenizer, sampler, tokens, on_token,
                        benchmark)
         return
+    _announce_run(engine, tokens, _steps(args, engine), sampler=sampler)
     res = engine.generate(tokens, _steps(args, engine), sampler,
                           eos_id=tokenizer.stop_token_ids(), on_token=on_token)
     print()
     if benchmark:
-        _print_benchmark(res)
+        _print_benchmark(engine, res)
 
 
 def _build_draft(args, engine):
@@ -869,6 +1040,10 @@ def _speculate(args, engine, tokens, budget, sampler, stops, on_token,
 def _generate_spec(args, engine, tokenizer, sampler, tokens, on_token,
                    benchmark: bool) -> None:
     draft = _build_draft(args, engine) if args.draft else None
+    if draft is None:
+        # a cluster's workers replay the lookup run from its header
+        _announce_run(engine, tokens, _steps(args, engine), sampler=sampler,
+                      lookup=args.lookup_decode)
     t0 = time.perf_counter()
     _speculate(args, engine, tokens, _steps(args, engine), sampler,
                tokenizer.stop_token_ids(), on_token, tokenizer.vocab_size,
@@ -885,18 +1060,164 @@ def _generate_spec(args, engine, tokenizer, sampler, tokens, on_token,
               f"{capture})")
 
 
-def _print_benchmark(res) -> None:
-    """Per-token G/I/H lines + averages (ref: dllama.cpp:47-48,74-91). One
-    device, so the reference's transfer columns T/S have nothing to show."""
-    for s in res.stats.steps:
+def _print_benchmark(engine, res) -> None:
+    """Per-token G/I/T/H/S lines and the averages, in the JAX CLI's text
+    (apps/dllama.py:975-1037; ref: dllama.cpp:47-48,74-91): S the modeled
+    kB a rank sends a decoded token (Engine.wire_estimate), T the timed
+    collectives' estimate (Engine.measure_transfer_ms; the first line,
+    the prefill, measure_prefill_transfer_ms), then the kB by collective.
+    On one device both are 0, as in the JAX text. A cluster's workers run
+    the same measure sequence (MSG_XFER_BENCH carries n_prompt): a measure
+    the workers skipped would leave the root waiting in a collective."""
+    from ..parallel import multihost as mh
+
+    wire = engine.wire_estimate()
+    n_prompt = max(engine.pos - (len(res.tokens) - 1), 1)
+    if mh.is_multihost(engine.mesh):
+        mh.set_phase("bench")
+        mh.send_xfer_bench(n_prompt)
+    t_ms = engine.measure_transfer_ms()
+    t_pre_ms = engine.measure_prefill_transfer_ms(n_prompt)
+    for i, s in enumerate(res.stats.steps):
+        tv = t_pre_ms if i == 0 else t_ms
         print(f"🔶 G {s.generation_ms:7.2f} ms I {s.device_ms:7.2f} ms "
-              f"H {s.host_ms:5.2f} ms")
+              f"T {tv:6.2f} ms H {s.host_ms:5.2f} ms "
+              f"S {wire.sent_kb_per_token:7.1f} kB")
     avg = res.stats.averages()
     print(f"Generated tokens:    {len(res.tokens)}")
     print(f"Avg tokens / second: {1000.0 / max(avg.generation_ms, 1e-9):.2f}")
     print(f"Avg generation time: {avg.generation_ms:.2f} ms")
     print(f"Avg inference time:  {avg.device_ms:.2f} ms")
+    print(f"Avg transfer (est):  {t_ms:.2f} ms, "
+          f"{wire.sent_kb_per_token:.1f} kB/token/device")
+    for kname, kb in wire.breakdown.items():
+        print(f"  {kname}: {kb:.1f} kB")
     print(f"Avg sampling time:   {avg.host_ms:.2f} ms")
+
+
+def _announce_run(engine, tokens: list[int], max_tokens: int,
+                  sampler=None, lookup: int = 0, reset: bool = False) -> None:
+    """The root's side of the cluster protocol (JAX apps/dllama.py:737):
+    tell the workers to enter the same run — the prompt, the budget, the
+    sampler's temperature, top-p and current RNG state, the lookup draft
+    length (0: plain) — before the root enters it. With the flight
+    recorder on, the run rides one minted trace id, under which the
+    workers ship their spans back (MSG_TRACE). No-op off a cluster."""
+    from ..parallel import multihost as mh
+    from ..runtime.trace import TRACER
+
+    if not mh.is_multihost(engine.mesh):
+        return
+    tid = 0
+    if TRACER.enabled:
+        tid = TRACER.new_id()
+        link = mh.get_link()
+        if link is not None:
+            link.trace_tid = tid
+        TRACER.event("cluster_tick", tid, phase="run", role="root", rank=0,
+                     n_prompt=len(tokens))
+    mh.set_phase("run")
+    mh.send_run(tokens, max_tokens, sampler.rng_state if sampler else 0,
+                sampler.temperature if sampler else 0.0,
+                sampler.topp if sampler else 0.0, reset, lookup=lookup,
+                trace_tid=tid)
+
+
+def cmd_worker(args, mesh) -> None:
+    """A rank of a cluster other than the root (JAX apps/dllama.py:1152):
+    build this rank's engine, then replay what the root announces until it
+    shuts down — RUN (a plain, lookup or sampled generate, with the root's
+    sampler parameters and RNG state from the header), API (the root's
+    request, replayed from its body through the legacy completion loop),
+    XFER_BENCH (the benchmark's measure sequence). Per-token sync is not
+    needed: every rank reads the same logits and draws the same tokens."""
+    from ..parallel import multihost as mh
+    from ..runtime.trace import TRACER
+    from ..sampler import Sampler
+
+    if args.trace:
+        # a ring only: the spans ship root-ward after each run
+        TRACER.configure(capacity=args.trace_buffer or 8192, enabled=True)
+    engine, tokenizer, sampler = build_engine(args, mesh)
+    stops = tokenizer.stop_token_ids()
+    api_state = None
+    node, nnodes = mh.cluster_rank() * args.nnodes // mesh.world, args.nnodes
+    print(f"⏳ worker rank {node} of {nnodes} ready", flush=True)
+    while True:
+        mh.set_phase("idle")
+        # a root that dies or wedges surfaces as ClusterPeerLost within
+        # --worker-timeout (the link's receiver thread exits 43 itself when
+        # this thread waits in a collective)
+        msg = mh.recv_msg()
+        if msg.kind == mh.MSG_SHUTDOWN:
+            print("🔌 root shut down — exiting", flush=True)
+            return
+        if msg.kind == mh.MSG_RUN:
+            mh.set_phase("run")
+            tid = msg.trace_tid
+            t_run = time.perf_counter()
+            if TRACER.enabled and tid:
+                TRACER.reserve(tid)
+                link = mh.get_link()
+                if link is not None:
+                    link.trace_tid = tid
+                TRACER.event("cluster_tick", tid, phase="run", role="worker",
+                             rank=node, n_prompt=len(msg.tokens or ()))
+            if msg.reset:
+                engine.reset()
+            if msg.lookup and msg.temperature > 0:
+                engine.generate_lookup_sampled(
+                    msg.tokens, msg.max_tokens, temperature=msg.temperature,
+                    topp=msg.topp, seed=msg.seed, eos_id=stops,
+                    draft_len=msg.lookup, vocab_size=tokenizer.vocab_size)
+            elif msg.lookup:
+                engine.generate_lookup(msg.tokens, msg.max_tokens,
+                                       eos_id=stops, draft_len=msg.lookup,
+                                       vocab_size=tokenizer.vocab_size)
+            else:
+                run_sampler = Sampler(tokenizer.vocab_size, msg.temperature,
+                                      msg.topp, msg.seed)
+                if engine.batch > 1:
+                    engine.generate_batch([msg.tokens] * engine.batch,
+                                          msg.max_tokens, run_sampler,
+                                          eos_id=stops)
+                else:
+                    engine.generate(msg.tokens, msg.max_tokens, run_sampler,
+                                    eos_id=stops)
+            if TRACER.enabled and tid:
+                TRACER.event("cluster_tick", tid, phase="run_done",
+                             role="worker", rank=node,
+                             ms=round((time.perf_counter() - t_run) * 1e3, 3))
+                link = mh.get_link()
+                if link is not None and hasattr(link, "ship_trace"):
+                    link.ship_trace(TRACER.export_span(tid))
+        elif msg.kind == mh.MSG_API:
+            mh.set_phase("api")
+            import json
+
+            from .api_server import ApiState, PromptTooLong, _completion_chunks
+
+            if api_state is None:
+                api_state = ApiState(engine, tokenizer, sampler,
+                                     lookup_decode=args.lookup_decode)
+            try:
+                for _ in _completion_chunks(api_state, json.loads(msg.body)):
+                    pass
+            except (PromptTooLong, json.JSONDecodeError, KeyError,
+                    TypeError) as e:
+                # the root raised the same error at the same point
+                print(f"⚠️  request failed: {type(e).__name__}: {e}")
+            # any other failure is this node's alone (a kernel, memory):
+            # the root may be inside this request's collectives, where no
+            # resync can line them up again, so it ends this process and
+            # the root's link reports ClusterPeerLost (exit 43 everywhere)
+        elif msg.kind == mh.MSG_XFER_BENCH:
+            # the root's _print_benchmark sequence: decode, then prefill
+            # for the header's n_prompt
+            mh.set_phase("bench")
+            engine.measure_transfer_ms()
+            engine.measure_prefill_transfer_ms(max(msg.max_tokens, 1))
+            mh.set_phase("idle")
 
 
 def cmd_chat(args, mesh=None, control=None) -> None:
@@ -967,12 +1288,79 @@ def cmd_chat(args, mesh=None, control=None) -> None:
                     # the next turn draws afresh (JAX apps/dllama.py:1111)
                     sampler.set_seed(sampler.rng_state + len(res.tokens) + 1)
             else:
+                _announce_run(engine, tokens, budget, sampler=sampler)
                 res = engine.generate(tokens, budget, sampler, eos_id=stops,
                                       on_token=on_token)
             convo.extend(res.tokens)
             print()
             if args.session:
                 engine.save_session(args.session, tokens=convo)
+
+
+def node_main(argv: list[str]) -> None:
+    """One rank of a cluster (every rank of every node runs this once the
+    process group is joined): its mesh, then the root (global rank 0) runs
+    the mode and every other rank the worker loop. The root's clean end
+    sends SHUTDOWN, which reaches the workers wherever they wait (after a
+    crash the heartbeat's EOF tells them instead)."""
+    from ..parallel import multihost as mh
+    from ..parallel.mesh import make_mesh
+
+    args = build_argparser().parse_args(argv)
+    mh.set_phase("load")
+    mesh = make_mesh(**mesh_axes(args), device_type=args.device)
+    if mh.cluster_rank() != 0:
+        cmd_worker(args, mesh)
+        return
+    if args.mode in ("inference", "generate"):
+        cmd_generate(args, benchmark=args.mode == "inference", mesh=mesh)
+    elif args.mode == "chat":
+        cmd_chat(args, mesh=mesh)
+    else:
+        from .api_server import serve
+
+        serve(args, mesh=mesh)
+    mh.send_shutdown()
+
+
+def _run_cluster(args, argv: list[str]) -> None:
+    """This node of a cluster (JAX apps/dllama.py:1366-1421): form the star
+    and join the process group, then run this node's ranks. A formation
+    failure prints one `🔴 cluster formation failed` line and exits 44; a
+    lost node, one `🔴 cluster: {...}` line and exit 43 (from the link's
+    detection thread, armed before the rendezvous, or here when the
+    driving thread saw it first)."""
+    import json
+
+    from ..parallel import multihost as mh
+    from ..parallel.launch import run_node
+    from ..utils.device import resolve_device
+
+    resolve_device(args.device)         # no card: raise before any spawn
+    try:
+        run_node(args.nnodes, args.node_rank, world_size(args),
+                 args.coordinator, args.device,
+                 "distributed_llama_tpu_torch.apps.dllama:node_main",
+                 (argv,), RANK_TIMEOUT_S,
+                 connect_timeout=args.connect_timeout,
+                 heartbeat_interval=args.heartbeat_interval,
+                 worker_timeout=args.worker_timeout)
+    except mh.ClusterProtocolError as e:
+        print(f"🔴 cluster formation failed: {e}", flush=True)
+        sys.exit(mh.EXIT_FORMATION)
+    except Exception as e:
+        # a collective over a dead peer's socket fails about as fast as
+        # the link sees the EOF: the link's verdict decides whether this
+        # is a lost node (exit 43) or a failure of this one
+        lost = (e if isinstance(e, mh.ClusterPeerLost) else
+                mh.await_peer_lost(args.worker_timeout
+                                   + args.heartbeat_interval))
+        if lost is None:
+            raise
+        print("🔴 cluster: " + json.dumps(lost.summary()), flush=True)
+        sys.exit(mh.EXIT_PEER_LOST)
+    finally:
+        mh.close_link()
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -984,15 +1372,19 @@ def main(argv: list[str] | None = None) -> None:
                  "here; use --tp N and --dp M, which start one rank "
                  "process a GPU of this host (or ranks sharing one), or "
                  "--nnodes/--coordinator + `dllama worker` processes for a "
-                 "multi-host cluster (ROADMAP item 15)")
+                 "multi-host cluster")
     check_admission_flags(args)
     check_spec_flags(args)
     check_mesh_flags(args)
     check_serve_flags(args)
+    check_cluster_flags(args)
     check_session_flags(args)
     refused = refusals(args)
     if refused:
         sys.exit("error: " + "; ".join(refused))
+    if args.nnodes > 1:
+        _run_cluster(args, list(argv if argv is not None else sys.argv[1:]))
+        return
     world = world_size(args)
     if world == 1 and args.mode == "api":
         from .api_server import serve

@@ -175,14 +175,18 @@ def load_params_streamed(spec: ModelSpec, path: str, device, *,
                          shard_vocab: bool = False, ep: int = 1,
                          ep_rank: int = 0, pp: int = 1, pp_rank: int = 0,
                          vocab_split: tuple[int, int] | None = None,
-                         ) -> tuple[dict, LoadStats]:
+                         tensors=None) -> tuple[dict, LoadStats]:
     """Stream the `.m` file into a fused params dict on `device`: all of it,
     or with tp > 1 tp rank `rank`'s marked shard; with pp > 1 only stage
     pp_rank's layers (the dict's "layers" are those L/pp), with ep > 1 only
     ep rank ep_rank's experts of every MoE stack.
 
     mode defaults to q40 for Q40 files and dense otherwise (as the JAX
-    CLI's build_engine picks it). Returns (params, LoadStats) with the
+    CLI's build_engine picks it). `tensors`: a HostTensor iterator in
+    the file's order that replaces the file read (JAX loader.py:371-390):
+    a cluster's --push-weights feeds parallel.multihost.bcast_model_tensors
+    here, so a worker with no `.m` (path None) keeps its shards from the
+    root's broadcast, one tensor resident at a time. Returns (params, LoadStats) with the
     loader's measured high-water mark of resident file-tensor bytes and
     the device bytes of the params it built."""
     if mode is None:
@@ -197,7 +201,8 @@ def load_params_streamed(spec: ModelSpec, path: str, device, *,
     experts_in = 0
     stats = LoadStats()
     live = 0
-    for t in iter_model_tensors(path, spec):
+    for t in (tensors if tensors is not None
+              else iter_model_tensors(path, spec)):
         key = _leaf_key(t.name)
         b = _host_bytes(t)
         stats.total_bytes += b

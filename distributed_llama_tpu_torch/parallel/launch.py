@@ -4,6 +4,12 @@
              as in the JAX CLI): this process is rank 0, the others are
              spawned, every rank runs the same function, and rank 0 alone
              prints.
+  run_node   one node of a multi-node cluster (`dllama ... --nnodes N`):
+             this process is the node's first rank and holds its control
+             link (parallel/multihost.py); it forms the control star,
+             spawns the node's other local ranks, and every rank joins one
+             process group at the coordinator's address. A spawned local
+             rank exits when the process that started it is gone.
   RankPool   a standing group of worker ranks that run jobs sent by a
              parent which is not itself a rank: tests and chip_smoke.py
              start one group and send it many jobs (a job is a
@@ -18,7 +24,11 @@ meet through a file store in a fresh temporary directory (no TCP port to
 race for). Every rendezvous, collective and join is bounded: the process
 group's timeout fails a collective that a dead rank never joins, and a
 pool's result that does not arrive in time fails the job. A spawned rank
-prints every thread's stack to stderr on SIGUSR1.
+prints every thread's stack to stderr on SIGUSR1. A rank whose function
+returned leaves the group only when every rank has (a barrier before
+destroy_process_group): a rank that tore its gloo pairs down while another
+still finished its own teardown aborted that one ("terminate called
+without an active exception", exit -6).
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import shutil
 import signal
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -69,6 +80,18 @@ def _resolve(name: str):
     return getattr(importlib.import_module(mod), fn)
 
 
+def _run_and_leave(fn: str, args: tuple) -> None:
+    """Run one rank's function, then leave the process group: after a
+    barrier when it returned (every rank leaves together), at once when it
+    raised (the others fail on their next collective)."""
+    try:
+        _resolve(fn)(*args)
+        dist.barrier()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def _cli_rank(rank: int, world: int, init: str, device_type: str,
               timeout_s: float, fn: str, args: tuple) -> None:
     """A spawned CLI rank: its output is dropped (rank 0 prints)."""
@@ -76,10 +99,23 @@ def _cli_rank(rank: int, world: int, init: str, device_type: str,
     faulthandler.register(signal.SIGUSR1, all_threads=True)
     _share_cores(device_type, world)
     init_ranks(rank, world, init, device_type, timeout_s)
-    try:
-        _resolve(fn)(*args)
-    finally:
-        dist.destroy_process_group()
+    _run_and_leave(fn, args)
+
+
+def _join(procs: list, ranks: list[int], timeout_s: float) -> list:
+    """Wait for spawned ranks (killing one still running after
+    `timeout_s`); the (rank, exit code) of those that failed."""
+    for p in procs:
+        p.join(timeout_s)
+        if p.is_alive():
+            p.terminate()
+            p.join(5)
+    return [(r, p.exitcode) for r, p in zip(ranks, procs) if p.exitcode]
+
+
+def _raise_failed(bad: list) -> None:
+    if bad:
+        raise RuntimeError(f"ranks failed (rank, exit code): {bad}")
 
 
 def run_ranks(world: int, device_type: str, fn: str, args: tuple,
@@ -96,19 +132,77 @@ def run_ranks(world: int, device_type: str, fn: str, args: tuple,
         p.start()
     try:
         init_ranks(0, world, init, device_type, timeout_s)
-        _resolve(fn)(*args)
+        _run_and_leave(fn, args)
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for p in procs:
-            p.join(timeout_s)
-            if p.is_alive():
-                p.terminate()
-                p.join(5)
+        bad = _join(procs, list(range(1, world)), timeout_s)
         shutil.rmtree(store_dir, ignore_errors=True)
-    bad = [(r + 1, p.exitcode) for r, p in enumerate(procs) if p.exitcode]
-    if bad:
-        raise RuntimeError(f"ranks failed (rank, exit code): {bad}")
+    _raise_failed(bad)
+
+
+def _follow_parent(parent: int) -> None:
+    """Exit (code 1) once the process that spawned this one is gone: a
+    node's link holder that exits on a lost peer takes its local ranks
+    with it, wherever they wait."""
+    def watch() -> None:
+        while os.getppid() == parent:
+            time.sleep(0.2)
+        os._exit(1)
+
+    threading.Thread(target=watch, name="dllama-parent-watch",
+                     daemon=True).start()
+
+
+def _node_rank(rank: int, world: int, nnodes: int, coordinator: str,
+               device_type: str, timeout_s: float, fn: str, args: tuple,
+               parent: int) -> None:
+    """A spawned local rank of a cluster node: its output is dropped."""
+    from . import multihost as mh
+
+    sys.stdout = open(os.devnull, "w")
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    _follow_parent(parent)
+    _share_cores(device_type, world // nnodes)
+    mh.join_data_plane(coordinator, rank, world, nnodes, device_type,
+                       timeout_s)
+    _run_and_leave(fn, args)
+
+
+def run_node(nnodes: int, node_rank: int, world: int, coordinator: str,
+             device_type: str, fn: str, args: tuple, timeout_s: float, *,
+             connect_timeout: float, heartbeat_interval: float,
+             worker_timeout: float) -> None:
+    """Run `fn(*args)` on the world / nnodes ranks of node `node_rank` of a
+    cluster: form the control star (multihost.init_multihost; a
+    formation failure raises ClusterProtocolError before anything is
+    spawned), spawn the node's other local ranks, join the process group
+    with them as the node's first rank, and run. Raises if a spawned rank
+    fails; one still running `timeout_s` after this one returned is
+    killed."""
+    from . import multihost as mh
+
+    ctx = mp.get_context("spawn")
+    ranks = mh.node_ranks(node_rank, world, nnodes)[1:]
+    procs = [ctx.Process(target=_node_rank, daemon=True, args=(
+        r, world, nnodes, coordinator, device_type, timeout_s, fn, args,
+        os.getpid())) for r in ranks]
+
+    def start() -> None:
+        for p in procs:
+            p.start()
+
+    _share_cores(device_type, world // nnodes)
+    try:
+        mh.init_multihost(coordinator, nnodes, node_rank, world=world,
+                          device_type=device_type, timeout_s=timeout_s,
+                          connect_timeout=connect_timeout,
+                          heartbeat_interval=heartbeat_interval,
+                          worker_timeout=worker_timeout, before_join=start)
+        _run_and_leave(fn, args)
+    finally:
+        bad = _join([p for p in procs if p.pid is not None],
+                    [r for r, p in zip(ranks, procs) if p.pid is not None],
+                    timeout_s)
+    _raise_failed(bad)
 
 
 def _share_cores(device_type: str, world: int) -> None:

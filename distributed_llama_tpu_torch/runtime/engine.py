@@ -98,9 +98,16 @@ sp it holds every weight and S/sp positions of the cache, and `prefill`
 from position 0 runs the whole prompt as one ring segment (padded to a
 multiple of sp, the logits at its true last position). With the vocab
 split and pp > 1 the vocab lies over (pp, tp) when pp*tp divides it.
-Sessions and the prefix cache refuse pp as the JAX engine does; the
-prefix cache over an sp-sharded cache is serving over the new axes,
-ROADMAP item 19.
+Sessions and the prefix cache refuse pp as the JAX engine does; over sp
+the prefix arena holds every kv head, and the ring prefill is an op of
+the control channel, so chat and the legacy api serve over sp.
+
+Over nodes (parallel/multihost.py): an engine whose mesh spans ranks of
+more than one node keeps the vocab split of the weights but samples from
+whole logits (`shard_sampling` is off, JAX runtime/engine.py:753), and
+`wire_estimate`, `measure_transfer_ms` and `measure_prefill_transfer_ms`
+give the inference CLI's S and T columns (JAX :549-600), the latter two
+timing activation-sized collectives over the schedules the forward runs.
 
 Serving over ranks (parallel/control.py): under `chat` and `api` only rank
 0 has the inputs, so rank 0 runs every host loop (the scheduler, the
@@ -311,6 +318,11 @@ class Engine:
         # how often the sharded sampler served a row, and how often it
         # fetched one replicated row instead
         self.vocab_sample_stats = {"sharded": 0, "fallback": 0}
+        # a mesh over ranks of more than one node: the samplers read whole
+        # logits (JAX runtime/engine.py:334-337, :753)
+        from ..parallel.multihost import is_multihost
+
+        self._multihost = is_multihost(mesh)
         # the forward's mesh: None on one device, unless the shard path is
         # forced on a 1-rank mesh
         self._mesh = (mesh if mesh is not None
@@ -698,8 +710,91 @@ class Engine:
         return logits
 
     def fetch_logits(self, logits: torch.Tensor) -> np.ndarray:
-        """Bring step() logits to the host (the copy waits for the card)."""
+        """Bring step() logits to the host (the copy waits for the card).
+        step()'s logits are whole on every rank of a mesh (the forward
+        gathers a vocab split), so every rank of a cluster reads the same
+        logits and its sampler draws the same token (JAX
+        runtime/engine.py:737, the protocol's lock-step invariant)."""
         return logits.float().cpu().numpy()
+
+    # -- the benchmark's transfer columns (JAX runtime/engine.py:549-650) --
+
+    def wire_estimate(self):
+        """Modeled bytes each rank sends a decoded token, by collective
+        (runtime/netstats.estimate_decode_wire: the S column)."""
+        from .netstats import estimate_decode_wire
+
+        return estimate_decode_wire(
+            self.spec, self.mesh, q80=self.q80_collectives,
+            act_bytes=torch.finfo(self.compute_dtype).bits // 8,
+            batch=self.batch, shard_vocab=self.shard_vocab,
+            vocab_topk=VOCAB_TOPK)
+
+    def measure_transfer_ms(self) -> float:
+        """Measured transfer estimate of one decode step (the T column):
+        activation-sized collectives timed on the mesh and scaled by the
+        decode step's count of each — the tp partial-sum reduces, the ep
+        group's MoE reduce, the pp stage hops and the last stage's
+        broadcast, and sp's three statistic reduces a layer. Every rank
+        runs it, in one order (a cluster's workers on MSG_XFER_BENCH)."""
+        return self._segment_ms(1, ring=False)
+
+    def measure_prefill_transfer_ms(self, n_prompt: int) -> float:
+        """The same for prefilling an n_prompt-token prompt, segment by
+        segment as prefill() runs it: chunks of prefill_chunk (each a
+        GPipe schedule over pp when long enough), or over sp the whole
+        prompt as one ring segment. Measured once per distinct segment
+        length. Returns total ms."""
+        m = self._mesh
+        if m is None:
+            return 0.0
+        if m.sp > 1 and m.pp == 1:
+            t = n_prompt + (-n_prompt) % m.sp
+            return self._segment_ms(t, ring=True)
+        n_full, tail = divmod(n_prompt, self.prefill_chunk)
+        total = 0.0
+        if n_full:
+            total += self._segment_ms(self.prefill_chunk, ring=False) * n_full
+        if tail:
+            total += self._segment_ms(tail, ring=False)
+        return total
+
+    def _segment_ms(self, t: int, ring: bool) -> float:
+        """Timed collectives of one t-token forward segment over this
+        rank's rows (JAX _segment_reduce_ms and _segment_pp_ms, with the
+        port's pp and sp schedules)."""
+        from ..parallel.pp import gpipe_microbatches
+        from .netstats import (measure_allreduce_ms, measure_broadcast_ms,
+                               measure_ppermute_ms)
+
+        m, sp = self._mesh, self.spec
+        if m is None:
+            return 0.0
+        act = self._rows * t * sp.dim
+        total = 0.0
+        if sp.is_moe and m.ep > 1:
+            if m.tp > 1:                    # the attention's wo reduce
+                total += measure_allreduce_ms(m, act) * sp.n_layers
+            total += measure_allreduce_ms(m, act, axes=("ep", "tp")) \
+                * sp.n_layers
+        elif m.tp > 1:
+            per_layer = (1 + sp.n_active_experts) if sp.is_moe else 2
+            total += measure_allreduce_ms(m, act) * per_layer * sp.n_layers
+        if m.pp > 1:
+            mb = gpipe_microbatches(t, m.pp) if self.pp_gpipe else 1
+            hop = measure_ppermute_ms(m, self._rows * (t // mb) * sp.dim)
+            total += hop * (mb + m.pp - 2) + measure_broadcast_ms(m, act)
+        if m.sp > 1:
+            heads = self._rows * sp.n_heads
+            if ring:     # the K/V blocks' sp - 1 hops a layer
+                kv = 2 * self._rows * (t // m.sp) * sp.n_kv_heads * sp.head_size
+                total += (measure_ppermute_ms(m, kv, axis="sp")
+                          * (m.sp - 1) * sp.n_layers)
+            else:        # the statistics' merge: max, then two sums
+                total += (measure_allreduce_ms(m, heads * t, axes=("sp",)) * 2
+                          + measure_allreduce_ms(m, heads * t * sp.head_size,
+                                                 axes=("sp",))) * sp.n_layers
+        return total
 
     def prefill(self, prompt: list[int]) -> torch.Tensor:
         """Feed the prompt in fixed-size chunks; returns the last logits.
@@ -718,6 +813,7 @@ class Engine:
             i += chunk
         return logits
 
+    @mirrored
     @torch.inference_mode()
     def _prefill_ring(self, prompt: list[int]) -> torch.Tensor:
         """The whole prompt as one sequence-parallel segment (JAX
@@ -725,7 +821,9 @@ class Engine:
         through every layer with ring attention, each rank writing the
         positions of its cache shard; the logits are the true last
         position's. Padded positions land in the cache at >= pos, so later
-        steps never attend them."""
+        steps never attend them. An op of its own on a mirrored engine:
+        under chat and the legacy api over sp every rank runs the ring in
+        rank 0's order."""
         self._one_sequence("prefill")
         m, n = self._mesh, len(prompt)
         t = n + (-n) % m.sp
@@ -1494,6 +1592,14 @@ class Engine:
             return x
         return all_gather(x, self._mesh, DP_AXIS).flatten(0, 1)
 
+    @property
+    def shard_sampling(self) -> bool:
+        """Whether the samplers read the vocab-split logits' summaries (the
+        sharded argmax and top-k candidates): with the vocab split, except
+        over more than one node, where they read whole logits (JAX
+        runtime/engine.py:747 shard_sampling)."""
+        return self.shard_vocab and not self._multihost
+
     @mirrored
     def _greedy_rows(self, lg: torch.Tensor, n_vocab: int) -> np.ndarray:
         """(B,) greedy tokens over this rank's rows' logits: the sharded
@@ -1518,7 +1624,10 @@ class Engine:
         guard, with one replicated row fetched (`fetch_row`) for whatever
         the candidates cannot prove. n_vocab: the tokenizer's vocab, where
         the argmax and the candidates stop."""
-        if not self.shard_vocab or self._mesh is None:
+        if not self.shard_sampling or self._mesh is None:
+            if self.shard_vocab:       # whole rows: every rank's vocab slice
+                lg = all_gather(lg, self._mesh, self._vocab_axis) \
+                    .movedim(0, -2).flatten(-2)
             return FullLogitsView(self.fetch_logits(self._gather_rows(lg)))
         nv = int(n_vocab)
         k = max(1, min(VOCAB_TOPK, lg.shape[-1]))
@@ -1819,14 +1928,11 @@ class Engine:
         """The radix prefix cache's block arena: zeroed K and V tensors of
         (num_blocks, layers, kv_heads, block_len, head_size) in the cache
         dtype, over this rank's kv heads on a mesh (the cache's: KVH/tp,
-        the replicated virtual heads counted). The arena dies with the
+        the replicated virtual heads counted; over sp every head, as the
+        JAX engine refuses only pp). The arena dies with the
         engine: a supervisor rebuild mints a fresh engine, arena and tree.
         The radix tree stays on rank 0; block ids come from it."""
         self._refuse_pp("prefix cache")
-        if self._mesh is not None and self._mesh.sp > 1:
-            raise ValueError("the prefix cache over an sp-sharded KV cache is "
-                             "serving over ep/pp/sp, ROADMAP item 19, and is "
-                             "not ported yet")
         if num_blocks < 1 or not 1 <= block_len <= self.seq_len:
             raise ValueError(f"prefix arena of {num_blocks} blocks of "
                              f"{block_len} (context {self.seq_len})")

@@ -17,6 +17,24 @@ never changes a captured graph):
   * ``slow_step``     — scheduler step loop: sleeps ``ms`` per fire (the
                         degraded-but-alive shape deadlines must catch)
 
+Socket-layer sites, fired inside the multi-node control star's frame
+codec (parallel/multihost.py), so two-process chaos tests can kill or
+stall either side of the root<->worker star and assert bounded detection
+(parallel/cluster_harness.py):
+
+  * ``conn_refused``   — worker connect attempt: raises
+                         ``ConnectionRefusedError`` (the formation
+                         retry/backoff path; ``times=K`` fails the first K
+                         attempts)
+  * ``recv_stall``     — frame receive entry: blocks like ``step_stall``
+                         (a wedged peer that holds its socket open but
+                         stops reading, and so stops answering heartbeats;
+                         only the PING/PONG timeout detects it)
+  * ``frame_truncate`` — frame send: writes half the frame then closes the
+                         socket (the peer sees a mid-frame EOF)
+  * ``peer_close``     — frame send: closes the socket without writing
+                         (the abrupt-death shape at a protocol point)
+
 Arming is test-driven (``FAULTS.arm(...)``) or from the environment for
 subprocess harnesses:
 
@@ -38,7 +56,8 @@ import time
 
 from .trace import TRACER
 
-SITES = ("step_raise", "step_stall", "prefill_raise", "slow_step")
+SITES = ("step_raise", "step_stall", "prefill_raise", "slow_step",
+         "conn_refused", "recv_stall", "frame_truncate", "peer_close")
 
 
 class FaultError(RuntimeError):
@@ -122,15 +141,33 @@ class FaultRegistry:
             # the flight recorder sees every fault that fired, next to
             # the spans it killed
             TRACER.event("fault", 0, site=site, key=None, n=fired)
+        if site == "conn_refused":
+            # the real exception type of the connect retry path: an
+            # injected refusal walks the same backoff as a root not up yet
+            raise ConnectionRefusedError(f"injected {site} (fire #{fired})")
         if site.endswith("_raise"):
             raise FaultError(f"injected {site} (fire #{fired})")
-        if site == "step_stall":
+        if site in ("step_stall", "recv_stall"):
             # block like a real hang: until released or ms elapses
             # (default: effectively forever, the watchdog's job)
             self._release.wait(timeout=(ms / 1e3) if ms else 3600.0)
             return
         if site == "slow_step" and ms:
             time.sleep(ms / 1e3)
+
+    def triggered(self, site: str) -> bool:
+        """The query form of ``fire()`` for sites whose effect the caller
+        performs (``frame_truncate``/``peer_close``: the codec owns the
+        socket and mangles it itself). Consumes one invocation count."""
+        with self._lock:
+            a = self._armed.get(site)
+            if a is None:
+                return False
+            fire = a.should_fire()
+            fired = a.fired
+        if fire and TRACER.enabled:
+            TRACER.event("fault", 0, site=site, key=None, n=fired)
+        return fire
 
     def load_env(self, env=None) -> None:
         """Parse ``DLLAMA_FAULTS`` (see the module docstring). A malformed

@@ -390,6 +390,26 @@ class EngineSupervisor:
             TRACER.event("circuit", 0, scope="engine", state="lost",
                          key=None)
 
+    def trip_cluster(self, exc) -> None:
+        """A cluster node is gone (parallel/multihost.ClusterPeerLost; JAX
+        runtime/resilience.py:283): the engine's mesh spans a process that
+        no rebuild brings back, so the supervisor goes to its terminal
+        state, LOST, at once: every in-flight and queued request gets a
+        structured ``cluster_peer_lost`` error frame (not retryable: the
+        same server cannot serve a retry), and nothing is rebuilt.
+        Idempotent; called from the link's detection thread while the
+        step thread may be wedged in a collective (the abort takes no step
+        mutex)."""
+        with self._state_lock:
+            if self._state in (CLOSED, LOST):
+                return
+            self._gen += 1          # wedged/stale threads exit on wake
+            old = self._sched
+            old._stop = True
+            self.sup_stats.cluster_losses += 1
+        self._go_lost(str(exc))
+        old._abort_all(str(exc), code="cluster_peer_lost", retryable=False)
+
     def _on_failure(self, gen: int, msg: str, kind: str) -> None:
         """A loop crash or a watchdog stall: invalidate the generation,
         fail its requests, release its engine, rebuild in the background.

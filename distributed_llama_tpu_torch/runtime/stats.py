@@ -8,9 +8,11 @@ logits on the host — the copy is the sync point), host overhead ms), and the
 serving records of the scheduler, its supervisor, the radix prefix
 cache and speculative decoding (RequestStats, ServeStats, SupervisorStats,
 PrefixCacheStats, SpecStats, percentile), and the flight recorder's step
-timeline (StepTimelineStats, owned by runtime/trace.Tracer). The router,
-cluster, transfer and fleet records are not ported: the port serves none
-of those yet.
+timeline (StepTimelineStats, owned by runtime/trace.Tracer), and the
+multi-node control star's records (WireStats, the measured wire ledger,
+and ClusterStats, owned by parallel/multihost's links). The router,
+transfer and fleet records are not ported: the port serves none of those
+yet.
 """
 
 from __future__ import annotations
@@ -298,6 +300,7 @@ class SupervisorStats:
     recoveries: int = 0       # successful rebuilds back to ready
     consecutive_failures: int = 0
     rejected_unready: int = 0  # submits refused while recovering/broken
+    cluster_losses: int = 0    # a cluster node lost (trip_cluster)
 
     def __post_init__(self):
         # failure-detected -> ready-again latency
@@ -311,6 +314,191 @@ class SupervisorStats:
             "recoveries": self.recoveries,
             "consecutive_failures": self.consecutive_failures,
             "rejected_unready": self.rejected_unready,
+            "cluster_losses": self.cluster_losses,
             "recovery_p50_ms": rnd(percentile(list(self.recovery_ms), 50)),
             "recovery_p99_ms": rnd(percentile(list(self.recovery_ms), 99)),
+        }
+
+
+class WireStats:
+    """Measured control-plane wire ledger bytes and frames per
+    (peer, MSG kind, direction) plus per-peer PING→PONG round-trip
+    histograms and the midpoint clock-offset estimate — owned by
+    parallel/multihost's link objects, which account every codec
+    send/recv through :meth:`account`. MEASURED, not modeled: a torn
+    frame counts exactly the bytes that actually crossed the socket
+    (the fault sites fire inside the codec, so the ledger sees the same
+    partial writes the peer does). Kind labels are the MSG_* names (a
+    small closed set), peers are ranks — cardinality is bounded by
+    protocol design, but a ``max_keys`` bound backs that up. Rendered
+    as the ``wire`` block of the cluster /stats summary and the
+    ``dllama_wire_bytes_total{peer,kind,dir}`` /
+    ``dllama_heartbeat_rtt_ms{peer}`` /metrics families (the JAX
+    package's runtime/stats.py WireStats, copied)."""
+
+    def __init__(self, window: int = 512, max_keys: int = 64,
+                 recent: int = 32):
+        import threading
+        from collections import deque  # noqa: F401 — used in rtt()
+
+        self.window = int(window)
+        self.max_keys = int(max_keys)
+        self.recent = int(recent)
+        self._lock = threading.Lock()
+        # peer -> {"tx"|"rx" -> {kind_name -> [frames, bytes]}}
+        self._counts: dict[int, dict] = {}  # guarded by self._lock
+        self._rtt: dict[int, object] = {}  # guarded by self._lock
+        self._offset: dict[int, float] = {}  # guarded by self._lock
+        self._best_rtt: dict[int, float] = {}  # guarded by self._lock
+        self.key_overflow = 0
+
+    def account(self, peer: int, kind: str, direction: str,
+                nbytes: int, frames: int = 1) -> None:
+        """One codec send/recv: ``nbytes`` actually moved (0 is skipped —
+        nothing crossed the wire). Cheap by design: a dict walk and two
+        int adds under one lock, on control-plane frames only (heartbeat
+        cadence, never per decoded token)."""
+        if nbytes <= 0:
+            return
+        with self._lock:
+            dirs = self._counts.setdefault(int(peer), {})
+            kinds = dirs.setdefault(direction, {})
+            rec = kinds.get(kind)
+            if rec is None:
+                if len(kinds) >= self.max_keys:
+                    self.key_overflow += 1
+                    return
+                rec = kinds[kind] = [0, 0]
+            rec[0] += int(frames)
+            rec[1] += int(nbytes)
+
+    def rtt(self, peer: int, ms: float,
+            offset_s: float | None = None) -> None:
+        """One PING→PONG round trip. The clock offset rides the BEST
+        (minimum-RTT) sample seen so far — the standard NTP-style pick:
+        the smaller the round trip, the tighter the midpoint bounds the
+        remote clock."""
+        from collections import deque
+
+        with self._lock:
+            d = self._rtt.get(int(peer))
+            if d is None:
+                d = self._rtt[int(peer)] = deque(maxlen=self.window)
+            d.append(float(ms))
+            if offset_s is not None:
+                best = self._best_rtt.get(int(peer))
+                if best is None or ms <= best:
+                    self._best_rtt[int(peer)] = float(ms)
+                    self._offset[int(peer)] = float(offset_s)
+
+    def clock_offset_s(self, peer: int) -> float | None:
+        """Best-sample estimate of (peer wall clock − local wall clock),
+        seconds — what MSG_TRACE ingestion subtracts to rebase a worker's
+        wall-stamped span onto the root timeline."""
+        with self._lock:
+            return self._offset.get(int(peer))
+
+    def total_bytes(self, direction: str) -> int:
+        with self._lock:
+            return sum(rec[1]
+                       for dirs in self._counts.values()
+                       for kind in (dirs.get(direction) or {},)
+                       for rec in kind.values())
+
+    def peer_bytes(self, peer: int, kind: str, direction: str) -> int:
+        """Exact measured bytes for one (peer, kind, dir) — the
+        reconciliation tests compare this against frame-size
+        arithmetic."""
+        with self._lock:
+            rec = ((self._counts.get(int(peer)) or {})
+                   .get(direction) or {}).get(kind)
+            return rec[1] if rec else 0
+
+    def summary(self) -> dict:
+        with self._lock:
+            peers = {}
+            for peer in sorted(set(self._counts) | set(self._rtt)):
+                rec: dict = {}
+                dirs = self._counts.get(peer) or {}
+                for d in ("tx", "rx"):
+                    kinds = dirs.get(d)
+                    if kinds:
+                        rec[d] = {k: {"frames": v[0], "bytes": v[1]}
+                                  for k, v in sorted(kinds.items())}
+                rtts = list(self._rtt.get(peer) or ())
+                if rtts:
+                    rec["rtt_ms"] = {
+                        "n": len(rtts),
+                        "p50_ms": round(percentile(rtts, 50), 4),
+                        "p99_ms": round(percentile(rtts, 99), 4),
+                        "mean_ms": round(sum(rtts) / len(rtts), 4),
+                        # a short raw tail so offline consumers (the bench
+                        # cluster row's step_timeline) can re-histogram
+                        "recent": [round(v, 4) for v in rtts[-self.recent:]],
+                    }
+                off = self._offset.get(peer)
+                if off is not None:
+                    rec["clock_offset_ms"] = round(off * 1e3, 4)
+                    rec["best_rtt_ms"] = round(self._best_rtt[peer], 4)
+                peers[str(peer)] = rec
+            out = {"peers": peers, "key_overflow": self.key_overflow}
+        out["tx_bytes"] = self.total_bytes("tx")
+        out["rx_bytes"] = self.total_bytes("rx")
+        return out
+
+
+@dataclasses.dataclass
+class ClusterStats:
+    """Control-plane counters owned by parallel/multihost's link objects
+    (RootLink / WorkerLink): heartbeat traffic, formation retries, the
+    measured wire ledger (:class:`WireStats`), startup data-plane
+    broadcast timings, and the structured record of every peer loss.
+    Surfaced as the ``cluster`` block of GET /stats on a multihost api
+    root, and by the chaos harness (parallel/cluster_harness.py). The
+    phase label is attached live by ``multihost.cluster_summary()`` — it
+    belongs to the link, not here."""
+
+    nnodes: int = 1
+    node_rank: int = 0
+    protocol_version: int = 0
+    heartbeat_interval_s: float = 0.0
+    worker_timeout_s: float = 0.0
+    connect_retries: int = 0   # worker side: backoff attempts at formation
+    pings_sent: int = 0        # root side
+    pongs_received: int = 0    # root side
+    pongs_sent: int = 0        # worker side
+    frames_sent: int = 0       # protocol frames (excl. pings)
+    frames_received: int = 0   # every frame (incl. heartbeat traffic)
+    # startup data-plane timings (parallel/multihost.bcast_spec /
+    # bcast_model_tensors — the collective weight push the heartbeat
+    # covers but the wire ledger cannot count: torch.distributed owns
+    # those bytes): wall ms per phase, plus the tensor bytes rank 0
+    # streamed
+    bcast_spec_ms: float | None = None
+    bcast_tensors_ms: float | None = None
+    bcast_tensors_bytes: int = 0
+
+    def __post_init__(self):
+        # ClusterPeerLost.summary() dicts, in detection order
+        self.peers_lost: list = []
+        self.wire = WireStats()
+
+    def summary(self) -> dict:
+        return {
+            "nnodes": self.nnodes,
+            "node_rank": self.node_rank,
+            "protocol_version": self.protocol_version,
+            "heartbeat_interval_s": self.heartbeat_interval_s,
+            "worker_timeout_s": self.worker_timeout_s,
+            "connect_retries": self.connect_retries,
+            "pings_sent": self.pings_sent,
+            "pongs_received": self.pongs_received,
+            "pongs_sent": self.pongs_sent,
+            "frames_sent": self.frames_sent,
+            "frames_received": self.frames_received,
+            "bcast_spec_ms": self.bcast_spec_ms,
+            "bcast_tensors_ms": self.bcast_tensors_ms,
+            "bcast_tensors_bytes": self.bcast_tensors_bytes,
+            "wire": self.wire.summary(),
+            "peers_lost": list(self.peers_lost),
         }

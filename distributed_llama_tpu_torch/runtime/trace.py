@@ -28,12 +28,14 @@ scheduler's deadlines, TTFT/ITL and the supervisor's watchdog; one
 
 Every event is host code between device launches: none is recorded inside
 a captured CUDA graph, and none reads a device value. ``EVENT_KINDS`` is
-the JAX tuple whole; the kinds of the router, KV transfer, cluster and
-fleet (``route``, ``kv_fill``, ``failover``, ``cluster_*``,
-``worker_exit``, ``respawn``, ``handshake``, ``bcast``, ``scale_*``,
-``shed``, ``degrade``) come with those layers (ROADMAP items 15 and 16),
-and so do the cross-process span methods (``reserve``, ``ingest``,
-``export_span``).
+the JAX tuple whole. The multi-node control star (parallel/multihost.py)
+records ``cluster_tick``, ``cluster_lost``, ``handshake`` and ``bcast``,
+and its cross-process span methods are here: a worker ``reserve``s the
+root's trace ids and ships ``export_span`` in MSG_TRACE frames, which the
+root ``ingest``s onto its timeline, rebased by the heartbeat's clock-offset
+estimate. The router, KV transfer and fleet kinds (``route``, ``kv_fill``,
+``failover``, ``worker_exit``, ``respawn``, ``scale_*``, ``shed``,
+``degrade``) come with those layers (ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -238,6 +240,14 @@ class Tracer:
             self._next_id += 1
             return self._next_id
 
+    def reserve(self, tid: int) -> None:
+        """Adopt a trace id minted by another process (the cluster root):
+        advance the local counter past it, so this process's own mints
+        never collide with it."""
+        with self._lock:
+            if tid > self._next_id:
+                self._next_id = int(tid)
+
     # -- recording ----------------------------------------------------------
 
     def event(self, kind: str, tid: int = 0, **fields) -> None:
@@ -281,6 +291,27 @@ class Tracer:
             except (OSError, ValueError):
                 self.dropped += 1
 
+    def ingest(self, events: list[dict], origin: str,
+               anchor_wall: float | None = None) -> None:
+        """Merge another process's span events (a worker's MSG_TRACE
+        payload) onto this timeline. They arrive wall-stamped
+        (``ts_wall``: monotonic clocks do not transfer between processes)
+        and are rebased onto this process's perf_counter through the
+        local anchor; each gains ``origin``."""
+        if not self.enabled:
+            return
+        for e in events:
+            rec = dict(e)
+            wall = rec.pop("ts_wall", None)
+            if wall is None and anchor_wall is not None and "ts" in rec:
+                wall = anchor_wall + rec["ts"]
+            rec["ts"] = (self.anchor_mono + (wall - self.anchor_wall)
+                         if wall is not None else time.perf_counter())
+            rec["origin"] = origin
+            self._ring.append(rec)
+            if rec.get("tid"):
+                self._index(rec["tid"], rec)
+
     # -- export -------------------------------------------------------------
 
     def to_wall(self, ts_mono: float) -> float:
@@ -309,6 +340,12 @@ class Tracer:
         """One request's span, in order (the /admin/trace?id=N view)."""
         with self._span_lock:
             return list(self._spans.get(tid, ()))
+
+    def export_span(self, tid: int) -> list[dict]:
+        """The span as a cross-process payload: each event gains
+        ``ts_wall``, so the receiving tracer can rebase it (``ingest``)."""
+        return [{**e, "ts_wall": self.to_wall(e["ts"])}
+                for e in self.by_id(tid)]
 
     def step_timeline(self) -> dict:
         """Per-composition step-ms summary (p50/p99/mean/n)."""
@@ -380,6 +417,7 @@ _RESILIENCE = (
     ("watchdog_trips", "dllama_supervisor_watchdog_trips_total"),
     ("recoveries", "dllama_supervisor_recoveries_total"),
     ("rejected_unready", "dllama_supervisor_rejected_unready_total"),
+    ("cluster_losses", "dllama_supervisor_cluster_losses_total"),
 )
 
 
@@ -546,6 +584,69 @@ def _add_admission(p: _Prom, adm: dict | None) -> None:
           help_="Live time-to-first-token EWMA")
 
 
+_CLUSTER_COUNTERS = (
+    ("pings_sent", "dllama_cluster_pings_sent_total"),
+    ("pongs_received", "dllama_cluster_pongs_received_total"),
+    ("pongs_sent", "dllama_cluster_pongs_sent_total"),
+    ("frames_sent", "dllama_cluster_frames_sent_total"),
+    ("frames_received", "dllama_cluster_frames_received_total"),
+    ("connect_retries", "dllama_cluster_connect_retries_total"),
+)
+
+
+def _add_cluster(p: _Prom, cluster: dict | None) -> None:
+    """The cluster-plane families (parallel/multihost ClusterStats and
+    its wire ledger): every counter the /stats block carries, the phase
+    label, the startup broadcast timings, and the measured wire ledger
+    (JAX runtime/trace.py _add_cluster)."""
+    if not cluster:
+        return
+    p.add("dllama_cluster_peers_lost_total",
+          len(cluster.get("peers_lost") or ()), type_="counter",
+          help_="Structured ClusterPeerLost detections")
+    for key, name in _CLUSTER_COUNTERS:
+        p.add(name, cluster.get(key), type_="counter")
+    p.add("dllama_cluster_nnodes", cluster.get("nnodes"),
+          help_="Configured cluster size")
+    ph = cluster.get("phase")
+    if ph:
+        p.add("dllama_cluster_phase", 1, {"phase": _esc(ph)},
+              help_="Current cluster phase (info-style: constant 1, "
+                    "phase in the label)")
+    p.add("dllama_cluster_bcast_ms", cluster.get("bcast_spec_ms"),
+          {"what": "spec"},
+          help_="Startup data-plane broadcast wall ms by phase")
+    p.add("dllama_cluster_bcast_ms", cluster.get("bcast_tensors_ms"),
+          {"what": "tensors"})
+    if cluster.get("bcast_tensors_bytes"):
+        p.add("dllama_cluster_bcast_bytes_total",
+              cluster.get("bcast_tensors_bytes"), {"what": "tensors"},
+              type_="counter",
+              help_="Tensor bytes streamed through the startup broadcast")
+    wire = cluster.get("wire") or {}
+    for peer, rec in (wire.get("peers") or {}).items():
+        for dirn in ("tx", "rx"):
+            for kind, kb in (rec.get(dirn) or {}).items():
+                lab = {"peer": str(peer), "kind": _esc(kind), "dir": dirn}
+                p.add("dllama_wire_bytes_total", kb.get("bytes"), lab,
+                      type_="counter",
+                      help_="Measured control-plane bytes by peer, MSG "
+                            "kind, and direction (the wire ledger)")
+                p.add("dllama_wire_frames_total", kb.get("frames"), lab,
+                      type_="counter",
+                      help_="Measured control-plane frames")
+        rtt = rec.get("rtt_ms") or {}
+        p.add("dllama_heartbeat_rtt_ms", rtt.get("p50_ms"),
+              {"peer": str(peer), "quantile": "0.5"},
+              help_="PING→PONG round trip per peer (window)")
+        p.add("dllama_heartbeat_rtt_ms", rtt.get("p99_ms"),
+              {"peer": str(peer), "quantile": "0.99"})
+        p.add("dllama_cluster_clock_offset_ms",
+              rec.get("clock_offset_ms"), {"peer": str(peer)},
+              help_="PING/PONG-midpoint clock-offset estimate (peer wall "
+                    "minus local wall, at the best-RTT sample)")
+
+
 def render_prometheus(summary: dict | None, *, tracer: Tracer | None = None,
                       model: str = "dllama", mode: str = "scheduler",
                       state: str | None = None,
@@ -604,6 +705,7 @@ def render_prometheus(summary: dict | None, *, tracer: Tracer | None = None,
         _add_admission(p, summary.get("admission"))
         _add_spec(p, summary.get("spec"))
         _add_device_blocks(p, summary)
+        _add_cluster(p, summary.get("cluster"))
     if tracer is not None and tracer.enabled:
         t = tracer.summary()
         p.add("dllama_trace_events", t["events"],

@@ -25,9 +25,14 @@ The report (JSON, and markdown with ``--out``) has four sections:
     its budget.
 
 With ``--autotune FILE`` the report compares the artifact's calibrated
-knee with the measured one and flags a drift of 25% or more. The
-measured cluster-plane section of the repo's tool (``--wire``) waits for
-the multi-node control plane (ROADMAP item 15).
+knee with the measured one and flags a drift of 25% or more. With
+``--wire`` it adds the measured cluster-plane section: per-peer bytes,
+frames, heartbeat RTT tails and clock offsets from the rows' ``wire``
+blocks (a cluster root's /stats, the chaos harness's ``complete`` stats),
+the sampled device sync-vs-compute share from ``sync`` trace events, and
+every measured-vs-modeled reconciliation, drift flagged at 25%. The
+repo's KV-transfer part of that section comes with the fleet (ROADMAP
+item 16).
 
 Pure host-side file crunching: it imports nothing of the package, so it
 runs with the file alone. ``--selftest`` synthesizes a tiny trace and
@@ -415,12 +420,90 @@ def tail_attribution(paths: list[dict], k: int = 5) -> list[dict]:
     return out
 
 
+# -- the wire report (measured cluster-plane traffic) ----------------------
+
+# runtime/netstats.WIRE_DRIFT_FRAC, repeated: this tool imports nothing of
+# the package
+WIRE_DRIFT_FRAC = 0.25
+
+
+def wire_report(events: list[dict], bench_rows: list[dict]) -> dict | None:
+    """The comms section (the repo's tools/dlprof.py wire_report, less its
+    KV-transfer blocks): per-peer measured bytes/frames and RTT tails from
+    the rows' ``wire`` blocks, the sampled device sync-vs-compute share
+    from ``sync`` trace events, and every measured-vs-modeled
+    reconciliation found, drift re-flagged at >= 25%. None when no input
+    carries wire data."""
+    peers: dict[str, dict] = {}
+    reconciles: list[dict] = []
+
+    def eat_summary(side: str, w: dict) -> None:
+        for peer, rec in (w.get("peers") or {}).items():
+            key = f"{side}:peer{peer}" if side else f"peer{peer}"
+            out = peers.setdefault(key, {"tx_bytes": 0, "rx_bytes": 0,
+                                         "tx_frames": 0, "rx_frames": 0,
+                                         "by_kind": {}})
+            for dirn in ("tx", "rx"):
+                for kind, kb in (rec.get(dirn) or {}).items():
+                    out[f"{dirn}_bytes"] += kb.get("bytes", 0)
+                    out[f"{dirn}_frames"] += kb.get("frames", 0)
+                    out["by_kind"][f"{dirn}:{kind}"] = {
+                        "frames": kb.get("frames"),
+                        "bytes": kb.get("bytes")}
+            rtt = rec.get("rtt_ms")
+            if rtt:
+                out["rtt_ms"] = {k: rtt.get(k)
+                                 for k in ("n", "p50_ms", "p99_ms",
+                                           "mean_ms")}
+            if rec.get("clock_offset_ms") is not None:
+                out["clock_offset_ms"] = rec["clock_offset_ms"]
+
+    for row in bench_rows:
+        w = row.get("wire")
+        if isinstance(w, dict) and w:
+            if "peers" in w:  # a raw WireStats summary
+                eat_summary("", w)
+            else:             # {"root": summary, "worker": summary, ...}
+                for side, sub in w.items():
+                    if isinstance(sub, dict) and "peers" in sub:
+                        eat_summary(side, sub)
+            if isinstance(w.get("reconcile"), dict):
+                # a copy: the drift flag is re-derived below, and the
+                # caller's rows are never changed
+                reconciles.append(dict(w["reconcile"]))
+
+    syncs = [e for e in events if e.get("kind") == "sync"]
+    sync = None
+    if syncs:
+        sync_ms = [float(e.get("sync_ms") or 0.0) for e in syncs]
+        dev_ms = [float(e.get("device_ms") or 0.0) for e in syncs]
+        total_dev = sum(dev_ms)
+        sync = {
+            "sampled_steps": len(syncs),
+            "sync_p50_ms": _rnd(percentile(sync_ms, 50), 4),
+            "sync_p99_ms": _rnd(percentile(sync_ms, 99), 4),
+            "device_p50_ms": _rnd(percentile(dev_ms, 50), 4),
+            # window sums, not a mean of ratios (an idle step's ratio must
+            # not swamp the loaded steps)
+            "sync_share": (_rnd(sum(sync_ms) / total_dev, 4)
+                           if total_dev else None),
+        }
+
+    if not peers and sync is None and not reconciles:
+        return None
+    for rec in reconciles:
+        if rec.get("drift_frac") is not None:
+            rec["drift"] = rec["drift_frac"] >= WIRE_DRIFT_FRAC
+    return {"peers": peers, "sync": sync, "reconcile": reconciles,
+            "drift": any(r.get("drift") for r in reconciles)}
+
+
 # -- the report -------------------------------------------------------------
 
 
 def analyze(events: list[dict], bench_rows: list[dict] | None = None, *,
             slo_ttft_ms: float = 500.0, slo_itl_ms: float = 100.0,
-            autotune: dict | None = None) -> dict:
+            autotune: dict | None = None, wire: bool = False) -> dict:
     bench_rows = bench_rows or []
     timeline = merge_timelines(events, bench_rows)
     paths = [p for p in (critical_path(s)
@@ -451,6 +534,8 @@ def analyze(events: list[dict], bench_rows: list[dict] | None = None, *,
     }
     if autotune is not None:
         report["autotune"] = autotune_comparison(knee, autotune)
+    if wire:
+        report["wire"] = wire_report(events, bench_rows)
     return report
 
 
@@ -526,6 +611,39 @@ def render_markdown(report: dict) -> str:
                 f"{t['dominant_phase']} | {sh['queue']}/{sh['prefill']}/"
                 f"{sh['decode']} |")
         lines.append("")
+
+    w = report.get("wire")
+    if w:
+        lines += ["## Wire (measured cluster plane)", ""]
+        if w["peers"]:
+            lines += ["| peer | tx bytes | rx bytes | frames (tx/rx) | "
+                      "rtt p50/p99 ms | clock offset ms |",
+                      "|---|---|---|---|---|---|"]
+            for name, rec in sorted(w["peers"].items()):
+                rtt = rec.get("rtt_ms") or {}
+                lines.append(
+                    f"| {name} | {rec['tx_bytes']} | {rec['rx_bytes']} | "
+                    f"{rec['tx_frames']}/{rec['rx_frames']} | "
+                    f"{rtt.get('p50_ms')}/{rtt.get('p99_ms')} | "
+                    f"{rec.get('clock_offset_ms')} |")
+            lines.append("")
+        sync = w.get("sync")
+        if sync:
+            lines += [f"Sync vs compute (sampled device steps, "
+                      f"n={sync['sampled_steps']}): collective p50 "
+                      f"{sync['sync_p50_ms']} ms of device p50 "
+                      f"{sync['device_p50_ms']} ms — **share "
+                      f"{sync['sync_share']}**.", ""]
+        for rec in w.get("reconcile") or ():
+            flag = " ⚠️ **DRIFTED**" if rec.get("drift") else " (ok)"
+            lines.append(
+                f"Measured vs modeled ({rec.get('unit', 'bytes')}): "
+                f"{rec.get('measured')} vs {rec.get('modeled')} — drift "
+                f"{rec.get('drift_frac')}{flag}.")
+            if rec.get("note"):
+                lines.append(f"_{rec['note']}_")
+        if w.get("reconcile"):
+            lines.append("")
 
     hbm = report.get("hbm")
     if hbm:
@@ -620,8 +738,41 @@ def _selftest() -> int:
     assert drifted["drift"] and drifted["drift_frac"] == 1.0, drifted
     assert "Calibration drift" in render_markdown(r2)
 
+    # the wire section: a row's measured cluster ledger and sampled sync
+    # events give the per-peer table, the sync share and the
+    # reconciliation; an exact match reads clean, a 30%-off model flags
+    wire_row = {"metric": "wire-selftest", "wire": {
+        "root": {"peers": {"1": {
+            "tx": {"PING": {"frames": 5, "bytes": 120},
+                   "RUN": {"frames": 2, "bytes": 223}},
+            "rx": {"PONG": {"frames": 5, "bytes": 160}},
+            "rtt_ms": {"n": 5, "p50_ms": 0.9, "p99_ms": 1.7,
+                       "mean_ms": 1.1},
+            "clock_offset_ms": 0.07}}},
+        "reconcile": {"measured": 223.0, "modeled": 223.0,
+                      "unit": "bytes", "drift_frac": 0.0,
+                      "drift": False}}}
+    sync_events = [{"ts_wall": t, "kind": "sync", "tid": 0,
+                    "sync_ms": 2.0, "device_ms": 8.0, "share": 0.25}
+                   for _ in range(4)]
+    rw = analyze(events + sync_events, [bench_row, wire_row], wire=True)
+    w = rw["wire"]
+    assert w is not None and not w["drift"], w
+    assert w["peers"]["root:peer1"]["tx_bytes"] == 343, w["peers"]
+    assert w["sync"]["sync_share"] == 0.25, w["sync"]
+    md_w = render_markdown(rw)
+    assert "Wire (measured cluster plane)" in md_w and "0.25" in md_w
+    drifted_row = {"metric": "w2", "wire": {
+        "reconcile": {"measured": 130.0, "modeled": 100.0,
+                      "unit": "bytes", "drift_frac": 0.3, "drift": True}}}
+    wd = analyze(events, [drifted_row], wire=True)["wire"]
+    assert wd["drift"] and wd["reconcile"][0]["drift"], wd
+    assert "DRIFTED" in render_markdown({**rw, "wire": wd})
+    # without --wire the report is unchanged (no section, no key)
+    assert "wire" not in analyze(events, [wire_row]), "wire leaked"
+
     print("dlprof selftest: OK (knee=4, 3 spans, autotune drift check, "
-          "report renders)")
+          "wire section + sync share + drift flag, report renders)")
     return 0
 
 
@@ -639,6 +790,13 @@ def main(argv: list[str] | None = None) -> int:
                          "(python -m distributed_llama_tpu_torch.tools.autotune): the report compares its "
                          "calibrated knee against the live measured one "
                          "and flags >= 25%% drift")
+    ap.add_argument("--wire", action="store_true",
+                    help="add the measured cluster-plane comms section: "
+                         "per-peer bytes + RTT tails from the rows' "
+                         "`wire` blocks, device sync-vs-compute share "
+                         "from sampled `sync` trace events, and every "
+                         "measured-vs-modeled reconciliation (drift "
+                         "flagged at >= 25%%)")
     ap.add_argument("--slo-ttft-ms", type=float, default=500.0)
     ap.add_argument("--slo-itl-ms", type=float, default=100.0)
     ap.add_argument("--out", default=None, metavar="PREFIX",
@@ -663,12 +821,18 @@ def main(argv: list[str] | None = None) -> int:
         except (OSError, ValueError) as e:
             ap.error(f"--autotune {args.autotune}: {e}")
     report = analyze(events, rows, slo_ttft_ms=args.slo_ttft_ms,
-                     slo_itl_ms=args.slo_itl_ms, autotune=art)
+                     slo_itl_ms=args.slo_itl_ms, autotune=art,
+                     wire=args.wire)
     at = report.get("autotune")
     if at and at["drift"]:
         print(f"dlprof: ⚠️ knee drift {at['drift_frac']:.0%} — calibrated "
               f"{at['calibrated_knee_rows']} vs measured "
               f"{at['measured_knee_rows']} rows (re-run tools/autotune.py)",
+              file=sys.stderr)
+    w = report.get("wire")
+    if w and w.get("drift"):
+        print("dlprof: ⚠️ measured wire traffic drifted >= 25% from the "
+              "model — see the report's wire.reconcile entries",
               file=sys.stderr)
     if args.out:
         with open(args.out + ".json", "w") as f:

@@ -1,6 +1,7 @@
 """Does POST /admin/profile hang a serving process on the card?
 
     python -m distributed_llama_tpu_torch.tools.exp_profile_race [--captures N]
+        [--serve-batch B] [--prompt-words W] [--max-tokens T]
 
 Serves `dllama api --serve-batch 4 --serve-chunk 256` in-process on
 Llama-2-7B (bench.py:101 widths, all 32 layers, synthetic Q40 weights from
@@ -11,6 +12,12 @@ after a pause that moves through 0.05-0.65 s, POSTs /admin/profile?ms=W
 profiler's start and stop thus land beside the scheduler's decode graph
 replays and prefill chunks at many phases. One line a capture gives its
 index and seconds; the last line is a JSON object with the count done.
+
+`--serve-batch 0` serves the legacy path instead (the requests take the
+one engine in turn: eager prefill chunks, then graph decode steps), and
+`--prompt-words 250 --max-tokens 8` makes the load prefill-heavy (each
+request ~1,500 prompt tokens, six 256-token chunks, then 8 tokens), so
+the captures land beside the eager prefill launches.
 
 A capture that hangs the process hangs this tool with it (a thread holding
 the interpreter lock stops any in-process timer): run it under `timeout -s
@@ -56,6 +63,10 @@ def _post(addr, route: str, body: dict):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--captures", type=int, default=40)
+    ap.add_argument("--serve-batch", type=int, default=4,
+                    help="the scheduler's slots; 0 = the legacy path")
+    ap.add_argument("--prompt-words", type=int, default=40)
+    ap.add_argument("--max-tokens", type=int, default=96)
     args = ap.parse_args()
     faulthandler.register(signal.SIGUSR1, all_threads=True)
     if not torch.cuda.is_available():
@@ -79,7 +90,8 @@ def main() -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         state = api_server.ApiState(engine, tokenizer, Sampler(vocab, 0.0, 0.9, 3),
-                                    model_name="llama2-7b-synthetic", serve_batch=4,
+                                    model_name="llama2-7b-synthetic",
+                                    serve_batch=args.serve_batch,
                                     serve_chunk=256, profile_dir=d)
         server = ThreadingHTTPServer(("127.0.0.1", 0), api_server.make_handler(state))
         threading.Thread(target=server.serve_forever, daemon=True).start()
@@ -92,7 +104,8 @@ def main() -> int:
                 def call(key, route, body):
                     res[key] = _post(addr, route, body)
                 streams = [threading.Thread(target=call, args=(
-                    j, "/v1/completions", {"prompt": words(40), "max_tokens": 96,
+                    j, "/v1/completions", {"prompt": words(args.prompt_words),
+                                           "max_tokens": args.max_tokens,
                                            "temperature": 0, "stream": True}))
                     for j in range(4)]
                 for t in streams:
@@ -114,7 +127,10 @@ def main() -> int:
             server.shutdown()
             server.server_close()
             api_server.finish(state, drain_timeout=30.0)
-    print(json.dumps({"captures": done, "seconds": time.perf_counter() - t0,
+    print(json.dumps({"captures": done, "serve_batch": args.serve_batch,
+                      "prompt_words": args.prompt_words,
+                      "max_tokens": args.max_tokens,
+                      "seconds": time.perf_counter() - t0,
                       "device": torch.cuda.get_device_name(0)}))
     return 0
 

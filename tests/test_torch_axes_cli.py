@@ -5,11 +5,12 @@ and the refusals of what does not run over them yet.
   * `generate --pp 2 / --ep 2 / --sp 2` prints the JAX CLI's text;
   * `chat --pp 2` and `chat --ep 2` (with a session over ep) print the JAX
     CLI's chat text, and the legacy `api --pp 2 / --ep 2` answers with the
-    one-rank server's text: the control channel's existing ops carry them
-    (parallel/control.py; the ring prefill of sp is no op yet);
-  * chat and the legacy api over sp are refused naming ROADMAP item 19,
-    the scheduler over any new axis and --session with --pp in the JAX
-    words; a grid the model does not fit in the JAX engine's words.
+    one-rank server's text: the control channel's ops carry them
+    (parallel/control.py);
+  * the scheduler over any new axis, a model draft on a mesh and
+    --session with --pp are refused in the JAX words; a grid the model
+    does not fit in the JAX engine's words (chat and the legacy api over
+    sp: tests/test_torch_sp_serving.py).
 
 Each port run is one command: this process is rank 0 and prints, the
 other ranks are spawned (parallel/launch.run_ranks) with the CLI's rank
@@ -115,10 +116,12 @@ def test_cli_api_legacy_over_pp_and_ep_gives_the_one_rank_text(axis,
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["chat", "--sp", "2"], "mode 'chat' with --sp 2: serving over sp is "
-     "ROADMAP item 19"),
-    (["api", "--sp", "2"], "mode 'api' with --sp 2: serving over sp is "
-     "ROADMAP item 19"),
+    (["chat", "--sp", "2", "--draft", "model:x.m"],
+     "--draft model:PATH needs a mesh-less engine (use --draft "
+     "self:<depth>, which shares the target's sharded buffers)"),
+    (["api", "--serve-batch", "2", "--sp", "2"],
+     "--serve-batch needs a single-process engine (no --dp/--sp/--ep/--pp; "
+     "--tp composes)"),
     (["api", "--serve-batch", "2", "--ep", "2"],
      "--serve-batch needs a single-process engine (no --dp/--sp/--ep/--pp; "
      "--tp composes)"),
@@ -126,10 +129,10 @@ def test_cli_api_legacy_over_pp_and_ep_gives_the_one_rank_text(axis,
      "--session does not compose with --nnodes or --pp"),
 ])
 def test_cli_serving_over_the_new_axes_is_refused(argv, needle):
-    """chat and the legacy api over sp are ROADMAP item 19 (the ring
-    prefill is no op of the control channel yet); the scheduler over any
-    new axis is refused in the JAX server's words, --session with --pp in
-    the JAX CLI's. Each before any model load or rank spawn."""
+    """chat and the legacy api run over sp (tests/test_torch_sp_serving.py);
+    a model draft on a mesh, the scheduler over any new axis and --session
+    with --pp are refused in the JAX words. Each before any model load or
+    rank spawn."""
     with pytest.raises(SystemExit) as e:
         dllama.main(argv + ["--model", "x.m", "--tokenizer", "x.t"])
     assert needle in str(e.value)

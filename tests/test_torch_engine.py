@@ -105,23 +105,28 @@ def test_cli_inference_prints_benchmark_lines(tmp_path, capsys):
 @pytest.mark.parametrize("flags,needle", [
     (["chat", "--dp", "2"], "mode 'chat'"),
     (["api", "--prefix-cache", "--replicas", "2"], "--prefix-cache"),
-    (["worker"], "mode 'worker'"),
+    (["worker"], "worker mode needs a cluster"),
     (["api", "--serve-batch", "2", "--dp", "2"],
      "--serve-batch needs a single-process engine"),
-    (["chat", "--sp", "2"], "--sp 2"),
+    (["chat", "--sp", "2", "--replicas", "2"], "--replicas"),
     (["api", "--dp", "2"], "--dp 2"),
     (["api", "--serve-batch", "2", "--ep", "2"],
      "--serve-batch needs a single-process engine"),
-    (["generate", "--nnodes", "2"], "--nnodes"),
+    (["generate", "--nnodes", "2"],
+     "--nnodes > 1 requires --coordinator host:port"),
 ])
 def test_cli_refuses_unported_flags(flags, needle):
     """What the port does not have yet is refused as not ported; what the
     JAX CLI itself refuses over ranks (a scheduler over --dp, chat and the
     legacy api on a --dp engine, which the JAX engine's batch-1 assert
-    stops) is refused in the JAX words. chat and api over --tp run."""
+    stops) or over nodes (a worker with no cluster, --nnodes with no
+    coordinator) is refused in the JAX words. chat and api over --tp and
+    --sp run."""
     with pytest.raises(SystemExit) as e:
         dllama.main(flags + ["--model", "x.m", "--tokenizer", "x.t"])
     msg = str(e.value)
     assert needle in msg
     assert ("not ported" in msg or "assert self.batch == 1" in msg
-            or "(no --dp/--sp/--ep/--pp; --tp composes)" in msg)
+            or "(no --dp/--sp/--ep/--pp; --tp composes)" in msg
+            or "(single-host multi-device runs need no workers: use --tp N)"
+            in msg or msg == "error: " + needle)

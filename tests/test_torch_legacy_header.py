@@ -113,17 +113,25 @@ def test_flag_contradicting_a_kv_header_gives_the_jax_error(fixture, wt):
     (["--pallas"], "ROADMAP North star"),
     (["--no-pallas"], "ROADMAP North star"),
     (["--shard-vocab", "on"], "needs a tensor-parallel mesh (--tp > 1)"),
-    (["--coordinator", "h:1234"], "ROADMAP item 15"),
-    (["--node-rank", "1"], "ROADMAP item 15"),
-    (["--connect-timeout", "5"], "ROADMAP item 15"),
-    (["--heartbeat-interval", "1"], "ROADMAP item 15"),
-    (["--worker-timeout", "3"], "ROADMAP item 15"),
-    (["--push-weights"], "ROADMAP item 15"),
+    (["--nnodes", "2", "--coordinator", "h:1234", "--node-rank", "1"],
+     "non-root ranks must run `dllama worker`"),
+    (["--nnodes", "2", "--node-rank", "1"],
+     "--nnodes > 1 requires --coordinator host:port"),
+    (["--nnodes", "2", "--coordinator", "h:1", "--connect-timeout", "5",
+      "--device-sampling"], "--device-sampling does not compose with --nnodes"),
+    (["--nnodes", "2", "--coordinator", "h:1", "--heartbeat-interval", "0"],
+     "--heartbeat-interval and --worker-timeout must be positive"),
+    (["--nnodes", "2", "--coordinator", "h:1", "--worker-timeout", "3"],
+     "--worker-timeout 3 must be at least 2x --heartbeat-interval (2)"),
+    (["--nnodes", "2", "--coordinator", "h:1", "--push-weights", "--draft",
+      "self:1"], "--draft does not compose with --nnodes"),
 ], ids=["workers", "pallas", "no-pallas", "shard-vocab", "coordinator", "node-rank",
         "connect-timeout", "heartbeat-interval", "worker-timeout", "push-weights"])
 def test_jax_flags_are_refused_by_item_not_by_argparse(flags, needle):
     """Each JAX flag parses in both CLIs (never argparse's exit 2); the
-    port refuses it with a message naming why, before any model load."""
+    port refuses it, or a combination the JAX CLI refuses (the cluster
+    flags run since the multi-node control plane came), with a message
+    naming why, before any model load."""
     argv = ["generate", "--model", "x.m", "--tokenizer", "x.t"] + flags
     jax_dllama.build_argparser().parse_args(argv)
     dllama.build_argparser().parse_args(argv)

@@ -425,3 +425,38 @@ def test_exclusive_borrow_crash_triggers_recovery(tiny):
         assert list(req.tokens(timeout=60.0)) == _oracle(tiny, [1, 9, 23], 4)
     finally:
         sup.close()
+
+
+def test_trip_cluster_goes_lost_with_structured_frames(tiny):
+    """A lost cluster node (JAX runtime/resilience.py:283 trip_cluster): the
+    in-flight request fails at once with a structured, non-retryable
+    cluster_peer_lost frame, the supervisor goes to its terminal state
+    (LOST: unready, nothing rebuilt), and a second trip changes nothing."""
+    from distributed_llama_tpu_torch.parallel.multihost import ClusterPeerLost
+    from distributed_llama_tpu_torch.runtime.resilience import LOST
+
+    spec = tiny[0]
+    made = []
+    sup = EngineSupervisor(_factory(tiny, made=made), chunk=8,
+                           stall_timeout=60.0, backoff_base=0.01)
+    try:
+        FAULTS.arm("slow_step", times=0, ms=25.0)
+        req = sup.submit([1, 9], 40, _greedy(spec))
+        exc = ClusterPeerLost(1, 0.3, "serve", "eof")
+        sup.trip_cluster(exc)
+        with pytest.raises(RequestError) as ei:
+            list(req.tokens(timeout=30.0))
+        frame = ei.value.frame()
+        assert frame["code"] == "cluster_peer_lost"
+        assert frame["retryable"] is False
+        assert str(exc) in frame["message"]
+        assert sup.state == LOST and not sup.ready
+        assert sup.sup_stats.cluster_losses == 1
+        sup.trip_cluster(exc)
+        time.sleep(0.2)
+        assert sup.sup_stats.cluster_losses == 1 and len(made) == 1
+        with pytest.raises(EngineUnready):
+            sup.submit([1, 9], 4, _greedy(spec))
+    finally:
+        FAULTS.clear()
+        sup.close()

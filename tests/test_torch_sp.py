@@ -17,8 +17,8 @@ weights go to both (tests/torch_mesh_cases.py).
     AXES_F32_TOL and the JAX tokens, bf16 within BF16_TOL; a rank's cache
     holds S/sp positions; the loader replicates every weight; a session
     saved over sp is the one-device file, and loads back;
-  * the refusals: seq_len % sp in the JAX words, the prefix cache over an
-    sp-sharded cache naming ROADMAP item 19.
+  * the refusals: seq_len % sp in the JAX words; the prefix cache over an
+    sp-sharded cache builds the JAX engine's arena.
 """
 
 import jax
@@ -39,7 +39,7 @@ from distributed_llama_tpu_torch.parallel.ring_attention import (block_attn,
                                                                  merge)
 from distributed_llama_tpu_torch.runtime.engine import Engine
 from distributed_llama_tpu_torch.sampler import Sampler
-from torch_mesh_cases import (AXES_F32_TOL, BF16, BF16_TOL, F32, GRID_FILE,
+from torch_mesh_cases import (AXES_F32_TOL, BF16, BF16_TOL, F32, GRID, GRID_FILE,
                               JAX_BF16, JOBS, Case, axes_check, grid_run)
 
 # the attention functions in f32 on both sides: the same einsums and
@@ -225,6 +225,14 @@ def test_sp_refusals(pool2):
     with pytest.raises(AssertionError) as e:
         Case("LLAMA", "q40").jax_engine(sp=3)
     assert needle in str(e.value)
-    got = grid_run(pool2, dict(sp=2), Case("LLAMA", "q40", seed=46),
-                   [("new_prefix_arena", (4, 8), {})], **F32)
-    assert "ROADMAP item 19" in got[0]["results"][0]
+    # the prefix arena over sp: the JAX engine's shape, every kv head
+    case = Case("LLAMA", "q40", seed=46)
+    got = pool2.run(GRID, dict(sp=2), case.blob, F32,
+                    [("new_prefix_arena", (4, 8), {})])
+    want = case.jax_engine(sp=2).new_prefix_arena(4, 8)
+    for arena, jarena in zip(got[0]["results"][0] + got[1]["results"][0],
+                             want + want):
+        assert arena.shape == tuple(jarena.shape) == (
+            4, case.spec.n_layers, case.spec.n_kv_heads, 8,
+            case.spec.head_size)
+        assert not arena.any()
