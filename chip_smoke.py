@@ -363,6 +363,26 @@ result line):
     estimate_decode_wire, each node's launches equal to the single-host
     rank 0's, the push's bytes and ms and the heartbeat RTT from the
     root's ClusterStats.
+16. The fleet (`[fleet]` lines). 16a, right after phase 11, on phase 5's
+    Llama-2-7B weights at the CLI's dtypes: build_front_door with two
+    thread replicas of 2 slots each and a prefix cache, 8 greedy requests
+    of 16 tokens (4 on one 256-token prefix) against the same requests
+    through one supervisor and batch-1 generate (phase 9's near-tie
+    bound); cache-aware placement of the sharing requests, each
+    replica's bytes below one weight copy, its K1/K3/Q80 launches (its
+    scheduler's launch scope) summing to the run's; then replica_raise
+    on r1 mid-trace, zero unstreamed failures, the retried requests'
+    tokens as before. 16b: Router._spawn_factory mints replica 2 beside
+    the live replicas (its captures wait at the device gate), the trace's
+    tokens unchanged, the new replica serving. Then K1, Q80 and K3 at one
+    7B batch step of t = B = 2. 16c, after phase 15: two worker processes
+    (`--replica-procs 2 --kv-transfer`, round-robin) on phase 15's kind of
+    file: a 300-token prompt's 9 blocks fill over the wire (bytes equal to
+    block_payload_bytes x blocks, the fill's ms beside the cold prefill
+    and estimate_block_transfer, tokens equal to the cold run's), then a
+    worker SIGKILLed mid-stream: zero unstreamed failures, the exit
+    classified signal:SIGKILL, the worker back in rotation, totals
+    carried.
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
@@ -383,6 +403,7 @@ import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -6846,6 +6867,562 @@ def start_watchdog() -> subprocess.Popen:
         stdin=subprocess.PIPE, cwd=str(Path(__file__).resolve().parent))
 
 
+# -- phase 16: the fleet -------------------------------------------------------
+
+FLEET_B = 2                 # each replica's slots (the K1 step rows at t = 2)
+FLEET_BLOCKS, FLEET_BL = 32, 32   # each replica's prefix arena: 32 blocks of 32
+FLEET_TOKENS = 16           # greedy tokens a request
+LAUNCH_NAMES = {"q40_matmul": "K1", "q40_expert_matmul": "K2", "q80_fused": "Q80F",
+                "flash_attention": "K3", "q80_roundtrip": "Q80"}
+
+
+def _fleet_prompts(vocab: int) -> tuple[list, list]:
+    """8 prompts: 4 on one 256-token prefix (its tails 8-47 tokens), 4 of
+    40-300 tokens; and the index of the sharing ones."""
+    rng = np.random.default_rng(61)
+    shared = [1] + rng.integers(3, vocab, 255).tolist()
+    prompts = [shared + rng.integers(3, vocab, n).tolist() for n in (8, 20, 33, 47)]
+    prompts += [[1] + rng.integers(3, vocab, int(n) - 1).tolist()
+                for n in rng.integers(40, 301, 4)]
+    return prompts, [0, 1, 2, 3]
+
+
+def _fleet_trace(door, prompts: list, vocab: int, first_alone: bool = True) -> list:
+    """The 8 requests through `door`: the first alone to its end (it
+    publishes the shared prefix), then the 7 others at once. Returns each
+    request's (tokens or the error frame, replica, retries)."""
+    from distributed_llama_tpu_torch.runtime.scheduler import RequestError
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    def greedy():
+        return Sampler(vocab, 0.0, 0.9, 1)
+
+    out = [None] * len(prompts)
+
+    def drain(i, r):
+        try:
+            out[i] = (list(r.tokens(timeout=300.0)), getattr(r, "replica_id", 0),
+                      getattr(r, "retries", 0), None)
+        except RequestError as e:
+            out[i] = (None, getattr(r, "replica_id", 0), getattr(r, "retries", 0),
+                      dict(e.frame(), streamed=getattr(r, "emitted", 0)))
+    order = list(range(len(prompts)))
+    if first_alone:
+        drain(0, door.submit(prompts[0], FLEET_TOKENS, greedy()))
+        order = order[1:]
+    reqs = [(i, door.submit(prompts[i], FLEET_TOKENS, greedy())) for i in order]
+    for i, r in reqs:
+        drain(i, r)
+    return out
+
+
+def _fleet_door(tmpl, **kw):
+    from distributed_llama_tpu_torch.runtime.router import build_front_door
+
+    return build_front_door(tmpl, serve_batch=FLEET_B, serve_chunk=SERVE_C,
+                            prefix_cache=True, prefix_blocks=FLEET_BLOCKS,
+                            prefix_block_len=FLEET_BL, stall_timeout=60.0, **kw)
+
+
+def phase_fleet_threads(card: str, params, k1: dict, near_tie: float, gen) -> dict:
+    """Phase 16a-b (`[fleet]` lines): the thread tier on Llama-2-7B at
+    full width and depth over phase 5's weights, at the CLI's dtypes.
+    16a: build_front_door(replicas=2, serve_batch=2, prefix cache) and 8
+    greedy requests of 16 tokens (4 on one 256-token prefix), against the
+    same requests through one supervisor: tokens equal, or first
+    different at a near tie of phase 7's bound (batch1_parity); every
+    sharing request after the first on the warm replica; the door's bytes
+    below one weight copy a replica; each replica's K1/K3/Q80 launches
+    (its scheduler's scope) summing to the run's totals. Then replica_raise
+    on r1 mid-trace: zero unstreamed failures, the retried requests'
+    tokens equal to the undisturbed run's. 16b: Router._spawn_factory
+    mints replica 2 while replicas 0-1 serve the trace again, its graph
+    captures beside their replays (runtime/graphs.DEVICE_GATE): no CUDA
+    error, the tokens as in 16a, the replica's bytes and captures
+    printed. Then K1 (the tensor-core path), K3 and the standalone Q80 of
+    one 7B batch step at t = B = 2, each against its plain version and
+    timed beside it, its library call and its bound."""
+    from distributed_llama_tpu_torch.runtime.engine import Engine
+    from distributed_llama_tpu_torch.runtime.faults import FAULTS
+    from distributed_llama_tpu_torch.runtime.graphs import DEVICE_GATE
+    from distributed_llama_tpu_torch.runtime.profiler import COMPILES
+
+    t_phase = time.perf_counter()
+    spec = _spec("llama2_7b")
+    vocab = spec.vocab_size
+    prompts, sharing = _fleet_prompts(vocab)
+    wbytes = decode_weight_bytes(spec, params)
+    out = {"weight_bytes": wbytes}
+
+    # the CLI's batch-1 engine, the doors' template; the reference: one
+    # supervisor over the same weights
+    tmpl = Engine(spec, params, device="cuda", activation_q80=True)
+    single = _fleet_door(tmpl)
+    ref = _fleet_trace(single, prompts, vocab)
+    eng1 = single.engine
+    single.close()
+    eng1.release()
+    del single, eng1
+    torch.cuda.empty_cache()
+    if any(t is None for t, *_ in ref):
+        fail(f"fleet: the one-supervisor run failed a request: {ref}")
+    ref_tokens = [t for t, *_ in ref]
+    out["parity_single"] = batch1_parity(tmpl, prompts, ref_tokens, near_tie,
+                                         "[fleet] one supervisor, request", n=FLEET_TOKENS)
+
+    # 16a: two thread replicas
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    door = _fleet_door(tmpl, replicas=2)
+    torch.cuda.synchronize()
+    door_bytes = torch.cuda.memory_allocated() - m0
+    per_rep = door_bytes / 2
+    print(f"[fleet] thread tier: 2 replicas built, allocated bytes {m0} -> "
+          f"{m0 + door_bytes} (+{door_bytes}, {per_rep:.0f} a replica: its KV cache, "
+          f"arena and graph pools) against one weight copy of {wbytes} bytes [{card}]")
+    if not per_rep < wbytes:
+        fail(f"fleet: a thread replica costs {per_rep:.0f} bytes, not below the "
+             f"{wbytes}-byte weight copy")
+    zero_counts()
+    for h in door.replicas:
+        h.sup._sched.launches.clear()
+    t0 = time.perf_counter()
+    got = _fleet_trace(door, prompts, vocab)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    per = [{LAUNCH_NAMES[k]: v for k, v in h.sup._sched.launches.items()}
+           for h in door.replicas]
+    summed = {k: sum(p.get(k, 0) for p in per) for k in counts}
+    print(f"[fleet] 8 requests x {FLEET_TOKENS} tokens over 2 replicas in {wall:.3f} s; "
+          f"launches {counts}, by replica {per}")
+    if summed != counts:
+        fail(f"fleet: per-replica launches {per} sum to {summed}, not the run's {counts}")
+    if any(t is None for t, *_ in got):
+        fail(f"fleet: the thread tier failed a request: {got}")
+    warm = got[sharing[0]][1]
+    placed = [got[i][1] for i in sharing[1:]]
+    rstats = door.stats.summary()
+    print(f"[fleet] placement: shared-prefix requests on {[got[i][1] for i in sharing]}, "
+          f"others on {[g[1] for i, g in enumerate(got) if i not in sharing]}; router "
+          f"{rstats}")
+    if any(p != warm for p in placed) or rstats["routed_cache_hit"] < len(placed):
+        fail(f"fleet: the sharing requests after the first went to {placed}, not all to the "
+             f"warm replica {warm} (cache hits {rstats['routed_cache_hit']})")
+    tokens = [t for t, *_ in got]
+    same = [a == b for a, b in zip(tokens, ref_tokens)]
+    out["parity_router"] = batch1_parity(tmpl, prompts, tokens, near_tie,
+                                         "[fleet] 2 replicas, request", n=FLEET_TOKENS)
+    print(f"[fleet] thread tier tokens equal to one supervisor's for {sum(same)} of 8 "
+          f"requests; every request within the near-tie bound {near_tie:.4g} of batch-1 "
+          f"generate")
+    out.update(trace_s=wall, launches=counts, launches_by_replica=per, router=rstats,
+               bytes_per_replica=per_rep, equal_to_single=same)
+
+    # replica_raise on r1, mid-trace
+    FAULTS.arm("replica_raise", key="r1", after=1, times=1)
+    try:
+        chaos = _fleet_trace(door, prompts, vocab, first_alone=False)
+    finally:
+        FAULTS.clear()
+    failed = [c for c in chaos if c[0] is None]
+    unstreamed = [c for c in failed if c[3].get("streamed", 0) == 0]
+    retried = [i for i, c in enumerate(chaos) if c[0] is not None and c[2] > 0]
+    print(f"[fleet] replica_raise on r1 after 1 step: {len(retried)} requests retried on a "
+          f"sibling, {len(failed)} failed ({len(unstreamed)} before their first token); "
+          f"router {door.stats.summary()}")
+    if unstreamed:
+        fail(f"fleet: replica_raise failed {len(unstreamed)} requests that had streamed "
+             f"nothing: {unstreamed}")
+    if not retried:
+        fail("fleet: replica_raise retried no request")
+    for i in retried:
+        if chaos[i][0] != tokens[i]:
+            fail(f"fleet: retried request {i}'s tokens {chaos[i][0]} differ from the "
+                 f"undisturbed run's {tokens[i]}")
+    out["chaos"] = dict(retried=len(retried), failed=len(failed))
+
+    # 16b: scale-up beside live replicas
+    deadline = time.perf_counter() + 120.0
+    while not all(h.ready for h in door.replicas) and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    waits0, after0 = DEVICE_GATE.exclusive_waits, COMPILES.summary().get("after_warmup")
+    box = {}
+
+    def spawn():
+        torch.cuda.synchronize()
+        box["m0"] = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        box["h"] = door._spawn_factory(2, "mixed")
+        box["s"] = time.perf_counter() - t
+        box["m1"] = torch.cuda.memory_allocated()
+    th = threading.Thread(target=spawn)
+    t0 = time.perf_counter()
+    th.start()
+    live = _fleet_trace(door, prompts, vocab, first_alone=False)
+    th.join(timeout=300.0)
+    torch.cuda.synchronize()
+    if "h" not in box:
+        fail("fleet: the scale-up spawn did not finish")
+    h2 = box["h"]
+    door.add_replica(h2)
+    eng2 = h2.sup.engine
+    caps = len(eng2.graphs)
+    waits = DEVICE_GATE.exclusive_waits - waits0
+    print(f"[fleet] scale-up: replica 2 built in {box['s']:.3f} s beside the live trace "
+          f"({time.perf_counter() - t0:.3f} s), {caps} graphs captured in its warmup, "
+          f"{waits} of its captures waited for sibling steps, captures after warmup "
+          f"{COMPILES.summary().get('after_warmup')} (before: {after0}); allocated "
+          f"{box['m0']} -> {box['m1']} (+{box['m1'] - box['m0']} during the spawn, live "
+          f"steps' buffers included) [{card}]")
+    if any(c[0] is None for c in live):
+        fail(f"fleet: a request failed during the scale-up: {live}")
+    for i, c in enumerate(live):
+        if c[0] != tokens[i]:
+            fail(f"fleet: request {i}'s tokens during the scale-up differ from 16a's")
+    # replica 2 serves: the others drained
+    for h in door.replicas[:2]:
+        h.draining = True
+    after = _fleet_trace(door, prompts[4:6], vocab, first_alone=False)
+    for h in door.replicas[:2]:
+        h.draining = False
+    if any(c[1] != 2 or c[0] != tokens[4 + i] for i, c in enumerate(after)):
+        fail(f"fleet: replica 2 served {after}, not the 16a tokens")
+    out["scale_up"] = dict(spawn_s=box["s"], captures=caps, capture_waits=waits,
+                           bytes=box["m1"] - box["m0"])
+    engines = [h.sup.engine for h in door.replicas]
+    door.close()
+    for e in engines:
+        e.release()
+    del door, h2, eng2, engines
+    torch.cuda.empty_cache()
+
+    # the batch step's kernels at t = B = 2
+    out["k1_wcls_t2"] = k1_wcls(gen, t=FLEET_B, tag="[fleet] [K1] ")
+    out["q80_rows"] = [q80_row(gen, "[fleet] [Q80] ", FLEET_B, n, torch.bfloat16,
+                               torch.bfloat16) for n in (4096, 11008)]
+    out["k3_row"] = k3_row(gen, "[fleet] [K3] ", torch.bfloat16, torch.bfloat16,
+                           (FLEET_B, 32, 32, 1, [300, 180], 128, 2048))
+    tmpl.release()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[fleet] phase 16a-b in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def phase_fleet_procs(card: str) -> dict:
+    """Phase 16c (`[fleet]` lines): the process tier on a Llama-2-7B-width
+    .m of CLUSTER_LAYERS layers with random Q40 bytes, at the CLI's dtypes:
+    build_front_door(replica_procs=2, kv_transfer=True, round-robin
+    placement), two worker processes on the one card, each with its own
+    weights. A 300-token request warms replica 0; the same prompt is then
+    placed on replica 1, cold, and fills over the wire: blocks and bytes
+    received equal to block_payload_bytes x blocks, the filled request's
+    tokens equal to the donor's (transfer off). Its TTFT is timed from
+    door.submit, so the fill is inside it, and printed beside the fill's
+    ms, a cold prefill of another 300-token prompt on a warm worker (the
+    re-prefill the fill replaces, also from door.submit) and
+    estimate_block_transfer at that prefill's rate. Then one worker is
+    SIGKILLed while it streams: zero unstreamed failures, the exit
+    classified signal:SIGKILL, the respawned worker back in rotation, its
+    own requests_finished and tokens_out after the respawn no lower than
+    it reported just before the kill, and the requests the kill took out
+    of the /stats totals printed."""
+    import os
+    import signal as _signal
+
+    from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
+    from distributed_llama_tpu_torch.quants import FloatType
+    from distributed_llama_tpu_torch.runtime.kv_transfer import block_payload_bytes
+    from distributed_llama_tpu_torch.runtime.netstats import estimate_block_transfer
+    from distributed_llama_tpu_torch.runtime.router import build_front_door
+    from distributed_llama_tpu_torch.runtime.scheduler import RequestError
+    from distributed_llama_tpu_torch.sampler import Sampler
+
+    t_phase = time.perf_counter()
+    spec = ModelSpec(arch=ArchType.LLAMA, dim=4096, hidden_dim=11008,
+                     n_layers=CLUSTER_LAYERS, n_heads=32, n_kv_heads=32,
+                     vocab_size=32000, seq_len=2048, weights_float_type=FloatType.Q40)
+    vocab = spec.vocab_size
+    rng = np.random.default_rng(71)
+    prompt = [1] + rng.integers(3, vocab, 299).tolist()
+    other = [1] + rng.integers(3, vocab, 299).tolist()
+    out = {}
+
+    def greedy():
+        return Sampler(vocab, 0.0, 0.9, 1)
+
+    with tempfile.TemporaryDirectory() as d:
+        mpath = f"{d}/model.m"
+        write_random_q40_model(mpath, spec)
+        cfg = {"model": mpath, "device": "cuda", "batch": FLEET_B,
+               "compute_dtype": "bf16", "cache_dtype": "bf16", "buffer_float_type": "q80",
+               "prefix_cache": True, "prefix_blocks": FLEET_BLOCKS,
+               "prefix_block_len": FLEET_BL,
+               "serve": {"chunk": SERVE_C, "stall_timeout": 60.0}}
+        t0 = time.perf_counter()
+        door = build_front_door(None, serve_batch=FLEET_B, replica_procs=2,
+                                worker_config=cfg, prefix_cache=True,
+                                prefix_block_len=FLEET_BL, kv_transfer=True,
+                                route_policy="round_robin", workdir=f"{d}/workers",
+                                spawn_timeout=300.0)
+        out["spawn_s"] = time.perf_counter() - t0
+        try:
+            def timed(p):
+                """A request from door.submit to its end: the request, its
+                tokens and its TTFT in ms from the submit call."""
+                t_sub = time.perf_counter()
+                r = door.submit(p, FLEET_TOKENS, greedy())
+                toks = list(r.tokens(timeout=300.0))
+                return r, toks, (r.stats.t_first - t_sub) * 1e3
+            # the first request on a freshly spawned worker: its first-use
+            # costs are in its TTFT, so it is not the re-prefill's time
+            ra, ta, ttft_first = timed(prompt)
+            rb, tb, ttft_b = timed(prompt)
+            summ = door.summary()
+            # the re-prefill that a fill replaces: a cold prefill of as
+            # many tokens on a worker that has served already
+            _, _, ttft_cold = timed(other)
+            kv = {r["replica"]: r["kv_transfer"] for r in summ["replicas"]}
+            imp, don = kv[rb.replica_id], kv[ra.replica_id]
+            per_block = block_payload_bytes(spec.n_layers, spec.n_kv_heads, FLEET_BL,
+                                            spec.head_size, torch.bfloat16)
+            n_blocks = imp["blocks_filled"]
+            est = estimate_block_transfer(spec, tokens=len(prompt), block_len=FLEET_BL,
+                                          cache_bytes=2, prefill_tok_per_s=len(prompt)
+                                          / (ttft_cold / 1e3))
+            print(f"[fleet] processes: 2 workers up in {out['spawn_s']:.1f} s; the 300-token "
+                  f"request on r{ra.replica_id} (the fresh worker's first, TTFT "
+                  f"{ttft_first:.1f} ms from submit), the same prompt on r{rb.replica_id} "
+                  f"filled over the wire: {n_blocks} blocks, {imp['bytes_rx']} bytes (= "
+                  f"{n_blocks} x {per_block}), fill {imp['transfer_p50_ms']} ms, its TTFT "
+                  f"{ttft_b:.1f} ms from submit, the fill inside; a cold prefill of another "
+                  f"300-token prompt on a warm worker: TTFT {ttft_cold:.1f} ms from submit; "
+                  f"donor exported {don['blocks_exported']} blocks; estimate_block_transfer "
+                  f"at that prefill's rate {est} [{card}]")
+            if ra.replica_id == rb.replica_id or imp["fills_ok"] != 1:
+                fail(f"fleet: no wire fill (replicas {ra.replica_id}, {rb.replica_id}; {imp})")
+            if imp["bytes_rx"] != n_blocks * per_block or n_blocks != est["n_blocks"] \
+                    or don["bytes_tx"] != imp["bytes_rx"]:
+                fail(f"fleet: fill moved {imp['bytes_rx']} bytes in {n_blocks} blocks, not "
+                     f"{est['n_blocks']} x {per_block}")
+            if tb != ta:
+                k = next(i for i, (x, y) in enumerate(zip(tb, ta)) if x != y)
+                fail(f"fleet: the filled request's tokens differ from the donor's cold run "
+                     f"at {k}: {tb} vs {ta}")
+            out["transfer"] = dict(ttft_first_ms=ttft_first, ttft_cold_warm_ms=ttft_cold,
+                                   ttft_filled_ms=ttft_b,
+                                   fill_ms=imp["transfer_p50_ms"], blocks=n_blocks,
+                                   bytes=imp["bytes_rx"], estimate=est, tokens_equal=True)
+
+            # SIGKILL a worker while it streams
+            before = door.summary()
+            victim = door.replicas[0]
+            pid = victim._proc.pid
+            reqs = [door.submit(prompt[:64 + 16 * i], 48, greedy()) for i in range(6)]
+            res = [None] * 6
+
+            def drain(i):
+                try:
+                    res[i] = ("ok", list(reqs[i].tokens(timeout=300.0)))
+                except RequestError as e:
+                    res[i] = ("error", reqs[i].emitted, e.code)
+            ths = [threading.Thread(target=drain, args=(i,)) for i in range(6)]
+            for th in ths:
+                th.start()
+            end = time.perf_counter() + 120.0
+            while time.perf_counter() < end and not any(
+                    r.replica_id == 0 and r.emitted > 0 for r in reqs):
+                time.sleep(0.005)
+            # the victim's own totals just before the kill (a live RPC,
+            # which also becomes the handle's last-polled counters)
+            pre = victim.summary()
+            os.kill(pid, _signal.SIGKILL)
+            t_kill = time.perf_counter()
+            for th in ths:
+                th.join(timeout=300.0)
+            unstreamed = [r for r in res if r is None or (r[0] == "error" and r[1] == 0)]
+            # the handle's monitor classifies the death at its next poll
+            # (the clients' EOFs may come first), then respawns
+            while time.perf_counter() < t_kill + 240.0 and not (
+                    victim.proc_stats.exit_classes and victim.ready):
+                time.sleep(0.05)
+            classes = dict(victim.proc_stats.exit_classes)
+            back_s = time.perf_counter() - t_kill
+            after = door.summary()
+            post = victim.summary()
+            own = {k: (pre[k], post[k]) for k in ("requests_finished", "tokens_out")}
+            # every submit reached a worker once, a retry once more: what
+            # the door's total lacks of that, the kill took with it (the
+            # dead worker's counts after its last poll)
+            retries = after["router"]["retries"] - before["router"]["retries"]
+            lost = (before["requests_submitted"] + len(reqs) + retries
+                    - after["requests_submitted"])
+            print(f"[fleet] SIGKILL of worker r0 (pid {pid}) mid-stream: "
+                  f"{sum(r[0] == 'ok' for r in res if r)} of 6 requests completed, "
+                  f"{sum(1 for r in res if r and r[0] == 'error')} failed after streaming, "
+                  f"{len(unstreamed)} unstreamed failures; exit classes {classes}; back in "
+                  f"rotation after {back_s:.1f} s (ready {victim.ready}); r0's own totals just "
+                  f"before the kill -> after the respawn {own}; door requests_submitted "
+                  f"{before['requests_submitted']} -> {after['requests_submitted']} over "
+                  f"{len(reqs)} submits and {retries} retries: {lost} of them missing, taken "
+                  f"with the kill "
+                  f"[{card}]")
+            if unstreamed:
+                fail(f"fleet: {len(unstreamed)} unstreamed requests failed on the kill: {res}")
+            if not classes.get("signal:SIGKILL"):
+                fail(f"fleet: the kill was classified {classes}")
+            if not victim.ready:
+                fail("fleet: the killed worker did not come back into rotation")
+            if any(b > a for b, a in own.values()):
+                fail(f"fleet: r0's totals were not carried across the kill: {own}")
+            r2 = door.submit(prompt, FLEET_TOKENS, greedy())
+            if list(r2.tokens(timeout=300.0)) != ta:
+                fail("fleet: after the respawn the prompt's tokens changed")
+            out["kill"] = dict(classes=classes, back_s=back_s, carried=own, lost=lost,
+                               completed=sum(r[0] == "ok" for r in res if r))
+        finally:
+            door.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[fleet] phase 16c in {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def fleet_lookup_stream(card: str) -> dict:
+    """Phase 16d (`[fleet]` lines): `dllama api --serve-batch 2 --replicas
+    2 --lookup-decode 4` on the tiny Llama fixture (f32, in-process): a
+    streamed greedy POST /v1/batch/completions borrows replica 0 while a
+    stream decodes, and its helper thread captures the lookup verify
+    widths at their first use (warmup captures them only with a draft)
+    inside the borrow, beside the sibling's steps. Held: the stream
+    answers within its bound (no deadlock at the device gate), its rows'
+    texts equal the same batch's non-streamed answer, the borrow's verify
+    graphs were captured, and the sibling's stream completed."""
+    import http.client
+    import threading
+
+    from distributed_llama_tpu_torch.apps import api_server, dllama
+    from distributed_llama_tpu_torch.testing import write_fixture
+
+    t0 = time.perf_counter()
+
+    def post(addr, route, body):
+        conn = http.client.HTTPConnection(*addr, timeout=120)
+        conn.request("POST", route, json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        mpath, tpath = write_fixture(d, seed=77)
+        argv = ["api", "--model", mpath, "--tokenizer", tpath, "--host", "127.0.0.1",
+                "--port", "0", "--compute-dtype", "f32", "--cache-dtype", "f32",
+                "--buffer-float-type", "f32", "--temperature", "0", "--seed", "3",
+                "--device", "cuda", "--serve-batch", "2", "--replicas", "2",
+                "--lookup-decode", "4"]
+        server, state = api_server.build_server(dllama.build_argparser().parse_args(argv))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        addr = server.server_address[:2]
+        try:
+            door = state._scheduler
+            lent = door.replicas[0].sup.engine
+
+            def verify_keys():
+                return sorted(k for k in lent.graphs if k[0] == "slot_verify")
+            before = verify_keys()
+            batch = {"prompts": ["ab ab ab ab ab ab", "hello hello hello hello"],
+                     "max_tokens": 24, "temperature": 0}
+            res = {}
+            side = threading.Thread(target=lambda: res.setdefault("side", post(
+                addr, "/v1/completions", {"prompt": "tell me more", "max_tokens": 48,
+                                          "temperature": 0, "stream": True})), daemon=True)
+            streamed = threading.Thread(target=lambda: res.setdefault("stream", post(
+                addr, "/v1/batch/completions", {**batch, "stream": True})), daemon=True)
+            side.start()
+            streamed.start()
+            streamed.join(timeout=120.0)
+            side.join(timeout=120.0)
+            if streamed.is_alive():
+                fail("fleet: a streamed --lookup-decode batch did not answer in 120 s "
+                     "(a deadlock at the device gate)")
+            status, raw = res["stream"]
+            rows: dict = {}
+            for line in raw.splitlines():
+                if line.startswith("data: ") and line != "data: [DONE]":
+                    c = json.loads(line[6:])["choices"][0]
+                    rows[c["index"]] = rows.get(c["index"], "") + c["delta"].get("content", "")
+            captured = [k for k in verify_keys() if k not in before]
+            st2, raw2 = post(addr, "/v1/batch/completions", batch)
+            want = ({c["index"]: c["message"]["content"] for c in json.loads(raw2)["choices"]}
+                    if st2 == 200 else None)
+            side_ok = "side" in res and res["side"][0] == 200
+            print(f"[fleet] streamed --lookup-decode 4 batch over 2 thread replicas: status "
+                  f"{status}, rows equal to the non-streamed answer {rows == want}, verify "
+                  f"graphs captured inside the borrow {[k[1] for k in captured]}, the "
+                  f"sibling's stream {res.get('side', ('none',))[0]} "
+                  f"({time.perf_counter() - t0:.1f} s) [{card}]")
+            if status != 200 or rows != want or not side_ok:
+                fail(f"fleet: streamed lookup batch {status} {rows} vs {st2} {want}; side "
+                     f"{res.get('side', ('none', ''))[0]}")
+            if not captured:
+                fail("fleet: the streamed lookup batch captured no verify graph inside the "
+                     "borrow (the check did not reach its path)")
+            out = dict(equal=True, captured=[k[1] for k in captured])
+        finally:
+            server.shutdown()
+            server.server_close()
+            api_server.finish(state, drain_timeout=10.0)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def fleet_entries(k1: dict, fleet: dict) -> list[dict]:
+    """The kernels at phase 16's shapes, each for ONE 7B batch step of a
+    thread replica (B = 2, t = 2): K1 on its tensor-core path (phase 2's
+    path rows at t = 2 for the layers, wcls timed in phase 16), the 129
+    standalone Q80 round trips and K3 over 2 rows, timed in phase 16.
+    Launches: phase 16a's run over the two replicas."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    kp = {r["shape"]: r for r in k1["paths"] if r["t"] == FLEET_B}
+    w = fleet["k1_wcls_t2"]
+    layer = ("wqkv", "wo", "w13", "w2")
+    k1s = {key: 32 * sum(kp[sh]["tc_ms" if key == "ms" else key] for sh in layer) + w[key]
+           for key in keys}
+    qr = {r["n"]: r for r in fleet["q80_rows"]}
+    q80s = {key: 97 * qr[4096][key] + 32 * qr[11008][key]
+            for key in ("ms", "plain_ms", "bound_ms")}
+    a = fleet["k3_row"]
+    counts = fleet["launches"]
+    return [
+        dict(name="q40_matmul_fleet_step", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t = B = 2: wgmma with the "
+                      "weight dequantized into registers)",
+             launches=counts["K1"],
+             max_abs_err=max([kp[sh]["tc_err"] for sh in layer] + [w["max_abs_err"]]),
+             **k1s, bound_by="bytes",
+             at="one 7B batch step of a thread replica: 32x(wqkv,wo,w13,w2)+wcls at t=2, "
+                "bf16; launches: phase 16a's run over 2 replicas"),
+        dict(name="q80_roundtrip_fleet_step", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q80_roundtrip.cu",
+             replaces="distributed_llama_tpu/ops/matmul.py:93 (quantize_q80_jax / "
+                      "dequantize_q80_jax before every matmul; no pallas_call)",
+             launches=counts["Q80"],
+             max_abs_err=max(r["max_abs_err"] for r in fleet["q80_rows"]),
+             **q80s, bound_by="bytes", library_ms=None,
+             at="one 7B batch step: 97 inputs at 2x4096 + 32 at 2x11008, bf16; launches: "
+                "phase 16a's run (its chunks' inputs at t=512 too)"),
+        dict(name="flash_attention_fleet_step", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/flash_attention.cu",
+             replaces="distributed_llama_tpu/ops/pallas_attention.py:233",
+             launches=counts["K3"], max_abs_err=a["max_abs_err"],
+             ms=32 * a["ms"], plain_ms=32 * a["plain_ms"], bound_ms=32 * a["bound_ms"],
+             bound_by=a["bound_by"], library_ms=32 * a["library_ms"],
+             at="one 7B batch step: 32 layers, 2 rows at pos0 300/180, T=1, H=KVH=32, bf16; "
+                "launches: phase 16a's run (its (2, 256) chunks too)"),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6891,6 +7468,8 @@ def main() -> int:
     mark("phase 10 (trace, batch)")
     admission11 = phase_admission(card, params_7b, spec9["near_tie_bound"])
     mark("phase 11 (admission)")
+    fleet16 = phase_fleet_threads(card, params_7b, k1, spec9["near_tie_bound"], gen)
+    mark("phase 16a-b (thread replicas)")
     from distributed_llama_tpu_torch.parallel.launch import RankPool
 
     with RankPool(2, device_type="cuda", timeout_s=TP_TIMEOUT_S) as pool2:
@@ -6909,12 +7488,17 @@ def main() -> int:
     mark("phase 8 (chat)")
     cluster15 = phase_cluster(card)
     mark("phase 15 (cluster)")
+    fleet16["procs"] = phase_fleet_procs(card)
+    mark("phase 16c (process replicas)")
+    fleet16["lookup_stream"] = fleet_lookup_stream(card)
+    mark("phase 16d (streamed lookup batch)")
     kernels = summarize(k1, q80, fused, k2, k3, probes, probes2, main_paths)
     kernels["kernels"] += serving_entries(k1, q80, k3, serving)
     kernels["kernels"] += spec_entries(k1, q80, k3, spec9)
     kernels["kernels"] += tp_entries(tp12)
     kernels["kernels"] += serve_tp_entries(serve13)
     kernels["kernels"] += axes_entries(axes14)
+    kernels["kernels"] += fleet_entries(k1, fleet16)
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
                             ("K2", "q40_expert_matmul", "one Mixtral 8x7B decode step, t = 1, bf16")):
         e = next(k for k in kernels["kernels"] if k["name"] == name)
@@ -6970,7 +7554,7 @@ def main() -> int:
         k3_shapes=k3["shapes"], k3_graph=k3["graph"],
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
         serving=serving, chat=chat, spec=spec9, trace=trace10, admission=admission11,
-        tp=tp12, serve_tp=serve13, axes=axes14, cluster=cluster15,
+        tp=tp12, serve_tp=serve13, axes=axes14, cluster=cluster15, fleet=fleet16,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     watchdog.stdin.close()
     watchdog.wait(timeout=10)

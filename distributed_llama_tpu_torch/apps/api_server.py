@@ -57,8 +57,9 @@ Operator routes, loopback-only unless --admin-token TOKEN is given (then
 torch.profiler trace of the next N ms under --profile-dir). /stats carries
 the ``trace`` and ``step_timeline`` blocks with --trace and
 ``device_time`` with --profile-sample; /metrics the tracer's families.
-POST /admin/reset_breaker (body ``{"replica": i}`` optional; one GPU has
-replica 0 only) is the operator's half-open of a BROKEN supervisor.
+POST /admin/reset_breaker (body ``{"replica": i}`` optional: without it
+every replica) is the operator's half-open of a BROKEN supervisor and of
+the router's circuits.
 
 Admission and auto-sizing: --slo-ttft-ms/--slo-itl-ms arm every
 generation's admission policy (runtime/scheduler.AdmissionPolicy, the
@@ -77,8 +78,19 @@ legacy path's early stops (a stop string, a disconnect, a deadline) reach
 them at a step boundary. A lost rank makes /healthz and /readyz answer 503
 with the reason, and the server stops and exits non-zero.
 
-Not ported (each refused with a message naming its ROADMAP item): the
-replica verbs, replicas and the router, and tenants.
+The replica tier and the fleet (runtime/router.build_front_door builds
+every front door): --replicas N thread replicas over shared weights behind
+the cache-aware failover router, --replica-procs N worker processes
+(runtime/replica_worker.py) and --replica-hosts pre-started ones;
+--kv-transfer moves published prefix blocks between replicas, --tier gives
+them prefill/decode roles; the fleet controller (runtime/fleet.py) scales
+the replicas between --min-replicas and --max-replicas, walks the shed
+ladder when an SLO is set (a shed is a 429 with Retry-After) and with
+--tenant-budgets queues each replica weighted-fair by the request's
+``tenant`` (body field or ``X-Tenant`` header). /readyz reports each
+replica, /stats and /metrics carry the router, kv_transfer and fleet
+blocks, and POST /admin/drain_replica, /admin/restart_replica and
+/admin/undrain_replica roll replicas one at a time.
 """
 
 from __future__ import annotations
@@ -95,6 +107,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..ops import launch_scope
+from ..runtime.fleet import ShedReject
+from ..runtime.graphs import DEVICE_GATE
 from ..runtime.resilience import EngineUnready
 from ..runtime.scheduler import PromptTooLong, QueueFull, RequestError
 
@@ -102,15 +117,6 @@ CHAT_EOS_MARKERS = ("<|eot_id|>", "<|end_of_text|>")
 # a streaming batch lookup request sends an SSE comment this often while
 # its collected run goes on (JAX apps/api_server.py:56)
 KEEPALIVE_SECS = 1.0
-
-_REPLICA_VERB = ("the replica verbs come with replicas and the fleet "
-                 "(ROADMAP item 16)")
-UNPORTED_ROUTES = {
-    "/admin/drain_replica": _REPLICA_VERB,
-    "/admin/restart_replica": _REPLICA_VERB,
-    "/admin/undrain_replica": _REPLICA_VERB,
-}
-
 
 class BadRequest(ValueError):
     """A malformed client field (a non-numeric temperature or seed, a
@@ -154,6 +160,20 @@ def _add_cluster_blocks(payload: dict) -> None:
             payload["wire"] = cluster["wire"]
 
 
+def _add_fleet_blocks(state: "ApiState", payload: dict) -> None:
+    """The transfer and fleet blocks in every tier (enabled=False and
+    zeros where the layer is off: a tier never loses a family to a launch
+    flag)."""
+    from ..runtime.stats import FleetStats, KVTransferStats
+
+    if "kv_transfer" not in payload:
+        payload["kv_transfer"] = KVTransferStats().summary()
+    if "fleet" not in payload:
+        payload["fleet"] = (state._fleet.summary()
+                            if state._fleet is not None
+                            else FleetStats().summary())
+
+
 def build_chat_prompt(messages: list[dict]) -> str:
     """Llama-3 header template (ref: dllama-api.cpp:173-181)."""
     out = []
@@ -175,7 +195,13 @@ class ApiState:
                  profile_dir: str | None = None,
                  slo_ttft_ms: float | None = None,
                  slo_itl_ms: float | None = None,
-                 autosize: dict | None = None):
+                 autosize: dict | None = None, replicas: int = 1,
+                 retry_budget: int = 1, route_policy: str = "cache_aware",
+                 replica_procs: int = 0, replica_hosts=None,
+                 worker_config: dict | None = None,
+                 kv_transfer: bool = False, tiers=None,
+                 min_replicas: int = 0, max_replicas: int = 0,
+                 tenant_budgets: str | None = None):
         from ..runtime.stats import SpecStats
 
         self.engine = engine
@@ -204,6 +230,31 @@ class ApiState:
         self.slo_ttft_ms = slo_ttft_ms
         self.slo_itl_ms = slo_itl_ms
         self.autosize = autosize
+        # the replica tier (runtime/router.py): replicas > 1 thread
+        # replicas over this engine's weights, replica_procs worker
+        # processes built from worker_config, replica_hosts pre-started
+        # workers; retry_budget bounds the failover resubmits,
+        # route_policy picks the placement rule
+        self.replicas = replicas
+        self.retry_budget = retry_budget
+        self.route_policy = route_policy
+        self.replica_procs = replica_procs
+        self.replica_hosts = replica_hosts
+        self.worker_config = worker_config
+        self.router_mode = bool(replicas > 1 or replica_procs
+                                or replica_hosts)
+        # the block-transfer plane and the replicas' roles
+        # (runtime/kv_transfer.py)
+        self.kv_transfer = bool(kv_transfer)
+        self.tiers = tiers
+        # the fleet brain (runtime/fleet.py): the autoscaling window,
+        # weighted-fair queueing over tenant budgets, the shed ladder
+        # (armed by an SLO); built with the front door
+        self.min_replicas = int(min_replicas or 0)
+        self.max_replicas = int(max_replicas or 0)
+        self.tenant_budgets = tenant_budgets
+        self.tenant_ledger = None
+        self._fleet = None
         # the legacy path's prompt-lookup draft length (0 = off), and the
         # --draft spec string with its draft length: the scheduler path
         # builds its draft per generation, the legacy path one DraftModel
@@ -238,13 +289,15 @@ class ApiState:
         # serializes the legacy path's requests
         self.engine_lock = threading.RLock()
         self._build_info: dict | None = None
-        if engine.device.type == "cuda":
+        if engine.device.type == "cuda" and not (replica_procs
+                                                 or replica_hosts):
             # /admin/profile captures on a handler thread: the profiler's
-            # CUDA tracer must start on this one (Profiler.prepare)
+            # CUDA tracer must start on this one (Profiler.prepare). A
+            # process tier's parent does no device work
             from ..runtime.profiler import PROFILER
 
             PROFILER.prepare()
-        self._scheduler = (self._build_supervisor() if serve_batch > 0
+        self._scheduler = (self._build_front_door() if serve_batch > 0
                            else None)
 
     def build_info(self) -> dict:
@@ -265,34 +318,58 @@ class ApiState:
                     self._draft_model = build_draft(self.engine, self.draft)
         return self._draft_model
 
-    def _build_supervisor(self):
-        """The supervisor over a batch-`serve_batch` engine, built, warmed
-        up (the slot decode graph captured) and started. The engine
-        factory shares this engine's params: a slot engine costs its KV
-        cache, never a copy of the weights."""
-        from ..runtime.resilience import EngineSupervisor
+    def _build_front_door(self):
+        """The serving front door (runtime/router.build_front_door), built,
+        warmed up (every replica's slot graphs captured, or every worker
+        process up) and started: an EngineSupervisor over one slot
+        engine, or a Router over replicas. A thread replica's engine
+        shares this engine's params (Engine.spawn): it costs its KV cache,
+        never a copy of the weights. The fleet controller is built over
+        it and started."""
+        from ..runtime.fleet import (FleetConfig, FleetController,
+                                     ShedLadder, TenantLedger,
+                                     parse_tenant_budgets)
+        from ..runtime.router import build_front_door
 
-        eng = self.engine
-
-        def engine_factory():
-            # the template's mesh and its resolved vocab split carried
-            # through every generation (JAX test_supervisor_tier_serves_
-            # on_tp_mesh); on every rank, as one op
-            return eng.spawn(self.serve_batch)
-
-        n_blocks = 0
-        if self.prefix_cache:
-            n_blocks = self.prefix_blocks or max(
-                2 * self.serve_batch * eng.seq_len // self.prefix_block_len, 1)
-        return EngineSupervisor(
-            engine_factory, chunk=self.serve_chunk or None,
-            max_queue=self.queue_depth or 4 * self.serve_batch,
-            request_deadline=self.request_deadline or None,
-            stall_timeout=self.stall_timeout or 10.0,
-            prefix_blocks=n_blocks, prefix_block_len=self.prefix_block_len,
+        if self.tenant_budgets:
+            self.tenant_ledger = TenantLedger(
+                parse_tenant_budgets(self.tenant_budgets))
+        door = build_front_door(
+            self.engine, serve_batch=self.serve_batch,
+            serve_chunk=self.serve_chunk, queue_depth=self.queue_depth,
+            request_deadline=self.request_deadline,
+            stall_timeout=self.stall_timeout,
+            prefix_cache=self.prefix_cache,
+            prefix_blocks=self.prefix_blocks,
+            prefix_block_len=self.prefix_block_len,
+            replicas=self.replicas, retry_budget=self.retry_budget,
+            route_policy=self.route_policy,
+            replica_procs=self.replica_procs,
+            replica_hosts=self.replica_hosts,
+            worker_config=self.worker_config,
             slo_ttft_ms=self.slo_ttft_ms, slo_itl_ms=self.slo_itl_ms,
             draft=self.draft, draft_len=self.draft_len,
-            draft_vocab=self.tokenizer.vocab_size)
+            draft_vocab=self.tokenizer.vocab_size,
+            kv_transfer=self.kv_transfer, tiers=self.tiers,
+            tenant_ledger=self.tenant_ledger)
+        # the fleet brain rides every scheduler tier: the shed ladder arms
+        # off the SLOs (none: admit() passes through), autoscaling off
+        # the --min/--max-replicas window (it scales only a door with a
+        # spawn factory)
+        boot = max(self.replicas, self.replica_procs,
+                   len(self.replica_hosts or ()), 1)
+        cfg = FleetConfig(min_replicas=self.min_replicas or boot,
+                          max_replicas=self.max_replicas or boot)
+        ladder = (ShedLadder() if (self.slo_ttft_ms or self.slo_itl_ms)
+                  else None)
+        self._fleet = FleetController(door, config=cfg, ladder=ladder,
+                                      ledger=self.tenant_ledger)
+        self._fleet.start()
+        return door
+
+    def fleet(self):
+        """The fleet controller (None without --serve-batch)."""
+        return self._fleet
 
 
 def load_server_session(state: ApiState, path: str) -> None:
@@ -482,6 +559,24 @@ def _completion_chunks(state: ApiState, body: dict):
                     "completion_tokens": emitted})
 
 
+def _prefix_would_hit(door, tokens: list[int]) -> bool:
+    """Would this prompt seed from a radix prefix cache anywhere in the
+    tier? The ladder's prefix_only rung admits only such work. Read-only
+    peeks (match_len, kv_match_len), never a pin; a failure reads as a
+    miss (under overload the safe answer is to shed)."""
+    try:
+        handles = getattr(door, "replicas", None)
+        if handles:
+            return any(h.match_len(tokens) > 0 for h in handles
+                       if not getattr(h, "reap", False))
+        sched = getattr(door, "_sched", None)
+        if sched is not None:
+            return sched.kv_match_len(tokens) > 0
+    except Exception:  # noqa: BLE001 — a replica mid-recovery
+        pass
+    return False
+
+
 def _sched_completion_chunks(state: ApiState, body: dict, chat: bool = True):
     """The scheduler path's generator: enqueue onto the shared
     continuous-batching scheduler and yield pieces as the request's slot
@@ -508,9 +603,28 @@ def _sched_completion_chunks(state: ApiState, body: dict, chat: bool = True):
                       topp=state.sampler.topp, seed=seed)
     limit = sched.engine.seq_len - len(tokens) - 1
     n_gen = min(max_tokens, limit) if max_tokens > 0 else limit
+    # the fleet's overload door (runtime/fleet.py): the shed ladder runs
+    # before submit; speculation off and a max_tokens clamp are silent,
+    # prefix-only and shed raise ShedReject (the handler's 429 with the
+    # drain rate's Retry-After)
+    tenant = body.get("tenant")
+    priority = str(body.get("priority") or "normal")
+    fleet = state.fleet()
+    if fleet is not None:
+        n_gen = fleet.admit(tenant=tenant, n_prompt=len(tokens),
+                            max_tokens=n_gen,
+                            prefix_hit=_prefix_would_hit(sched, tokens))
+    kwargs = {}
+    if state.router_mode:
+        # the replica tier: the OpenAI `user` field (or `session`) keys
+        # replica stickiness, so a conversation keeps its warm replica
+        session = body.get("session") or body.get("user")
+        if session is not None:
+            kwargs["session"] = str(session)
     # PromptTooLong and QueueFull raise here, before any event: the
     # handler answers 400 or 429
-    req = sched.submit(tokens, n_gen, sampler, eos_id=tokenizer.eos_id)
+    req = sched.submit(tokens, n_gen, sampler, eos_id=tokenizer.eos_id,
+                       tenant=tenant, priority=priority, **kwargs)
 
     scan = _piece_scanner(tokenizer, tokens[-1], markers, stops)
     emitted = 0
@@ -641,27 +755,36 @@ def _batch_completion_chunks(state: ApiState, body: dict):
             if state.lookup_decode > 0 and sampler.temperature == 0.0:
                 # greedy batches speculate; collected, then scanned (a
                 # text stop trims its row afterwards). A stream collects
-                # on a helper thread and sends keepalives meanwhile
+                # on a helper thread and sends keepalives meanwhile; the
+                # borrow's hold on the device gate goes to the helper (a
+                # verify width's first capture there must not wait on
+                # this thread, which waits on the helper), and so does
+                # the borrow's launch scope
                 if want_stream:
                     box: dict = {}
+                    counts = launch_scope.current()
 
                     def collect():
                         try:
-                            box["outs"] = lookup_rows()
+                            with DEVICE_GATE.shared(), \
+                                    launch_scope.scope(counts):
+                                box["outs"] = lookup_rows()
                         except BaseException as e:  # noqa: BLE001 — re-raised below
                             box["err"] = e
-                    t = threading.Thread(target=collect, daemon=True)
-                    t.start()
-                    try:
-                        while True:
-                            t.join(timeout=KEEPALIVE_SECS)
-                            if not t.is_alive():
-                                break
-                            yield ("keepalive", None)
-                    finally:
-                        # a torn-down generator must not end the borrow
-                        # while the thread still drives the engine
-                        t.join()
+                    with DEVICE_GATE.released():
+                        t = threading.Thread(target=collect, daemon=True)
+                        t.start()
+                        try:
+                            while True:
+                                t.join(timeout=KEEPALIVE_SECS)
+                                if not t.is_alive():
+                                    break
+                                yield ("keepalive", None)
+                        finally:
+                            # a torn-down generator must not end the
+                            # borrow while the thread still drives the
+                            # engine
+                            t.join()
                     if "err" in box:
                         raise box["err"]
                     outs = box["outs"]
@@ -733,11 +856,6 @@ def _text_completion_env(rid: str, created: int, model: str, text: str,
             "usage": {"prompt_tokens": prompt_tokens,
                       "completion_tokens": completion_tokens,
                       "total_tokens": prompt_tokens + completion_tokens}}
-
-
-def _unported_route(path: str) -> str | None:
-    why = UNPORTED_ROUTES.get(path.split("?", 1)[0])
-    return None if why is None else f"{path} is not ported: {why}"
 
 
 def make_handler(state: ApiState):
@@ -813,13 +931,12 @@ def make_handler(state: ApiState):
                 if state.autosize:
                     # the startup decision: chosen shape and every input
                     payload["autosize"] = state.autosize
-                _add_cluster_blocks(payload)
-                self._json(200, payload)
-                return
-            payload = {"scheduler": "off",
-                       "spec": state.spec_stats.summary()}
-            if TRACER.enabled:
-                payload["trace"] = TRACER.summary()
+            else:
+                payload = {"scheduler": "off",
+                           "spec": state.spec_stats.summary()}
+                if TRACER.enabled:
+                    payload["trace"] = TRACER.summary()
+            _add_fleet_blocks(state, payload)
             _add_cluster_blocks(payload)
             self._json(200, payload)
 
@@ -889,17 +1006,23 @@ def make_handler(state: ApiState):
             self.end_headers()
             self.wfile.write(data)
 
-        def _admin_reset_breaker(self) -> None:
-            """POST /admin/reset_breaker {replica?: i} (JAX
-            apps/api_server.py:1286): the operator's half-open of a
-            BROKEN supervisor (``EngineSupervisor.reset_breaker``): one
-            rebuild is tried. One GPU has replica 0 only."""
+        def _admin_post(self) -> None:
+            """The operator verbs (JAX apps/api_server.py:1286):
+              POST /admin/reset_breaker   {replica?: i} — the half-open of
+                   a BROKEN supervisor and of the router circuit; without
+                   `replica`, every replica;
+              POST /admin/drain_replica   {replica: i, timeout?: s}
+              POST /admin/restart_replica {replica: i, timeout?: s}
+              POST /admin/undrain_replica {replica: i}
+                   — the rolling restart, one replica at a time (replica
+                   tiers only)."""
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 body = json.loads(self.rfile.read(length) or b"{}")
                 replica = body.get("replica")
                 if replica is not None:
                     replica = int(replica)
+                timeout = float(body.get("timeout", 30.0))
             except (ValueError, TypeError, AttributeError):
                 self._json(400, {"error": "bad request"})
                 return
@@ -908,12 +1031,43 @@ def make_handler(state: ApiState):
                 self._json(404, {"error": "no supervised scheduler "
                                           "(start with --serve-batch N)"})
                 return
-            if replica is not None and replica != 0:
+            from ..runtime.router import Router
+
+            is_router = isinstance(sup, Router)
+            if replica is not None and not (
+                    is_router and 0 <= replica < len(sup.replicas)):
+                n = len(sup.replicas) if is_router else 1
                 self._json(400, {"error": f"no replica {replica} "
-                                          "(tier has 1)"})
+                                          f"(tier has {n})"})
                 return
-            sup.reset_breaker()
-            self._json(200, {"status": "ok", "state": sup.state})
+            if self.path == "/admin/reset_breaker":
+                if is_router:
+                    sup.reset_breaker(replica)
+                else:
+                    sup.reset_breaker()
+                self._json(200, {"status": "ok", "state": sup.state})
+            elif self.path in ("/admin/drain_replica",
+                               "/admin/restart_replica",
+                               "/admin/undrain_replica"):
+                if not is_router or replica is None:
+                    self._json(400, {"error": "replica operations need "
+                                              "--replicas N > 1 and a "
+                                              "replica index"})
+                    return
+                if self.path == "/admin/drain_replica":
+                    ok = sup.drain_replica(replica, timeout=timeout)
+                    self._json(200, {"status": "drained" if ok
+                                     else "drain_timeout",
+                                     "replica": replica})
+                elif self.path == "/admin/restart_replica":
+                    sup.restart_replica(replica, timeout=timeout)
+                    self._json(200, {"status": "restarted",
+                                     "replica": replica})
+                else:
+                    sup.undrain_replica(replica)
+                    self._json(200, {"status": "ok", "replica": replica})
+            else:
+                self._json(404, {"error": "not found"})
 
         def _admin_profile(self) -> None:
             """POST /admin/profile?ms=N (JAX apps/api_server.py:1372): one
@@ -939,6 +1093,15 @@ def make_handler(state: ApiState):
                 self._json(400, {"error": "bad request: ms must be in "
                                           "(0, 60000]"})
                 return
+            sup = state._scheduler
+            if sup is not None and hasattr(sup, "profile"):
+                # a process tier: each worker captures its own device
+                # work into its own directory, all at once
+                workers = sup.profile(ms)
+                if workers is not None:  # None: no remote replicas
+                    self._json(200, {"status": "ok", "ms": ms,
+                                     "workers": workers})
+                    return
             base = state.profile_dir or tempfile.mkdtemp(prefix="dlprof-")
             target = os.path.join(base,
                                   f"profile-{int(time.time() * 1e3):x}")
@@ -958,16 +1121,20 @@ def make_handler(state: ApiState):
                 payload, mode, st = None, "legacy", "off"
             else:
                 payload, mode, st = (state._scheduler.summary(),
-                                     "scheduler", None)
+                                     "router" if state.router_mode
+                                     else "scheduler", None)
             payload = dict(payload or {})
             if state.autosize:
                 payload["autosize"] = state.autosize
             if "compiles" not in payload:
                 payload["compiles"] = COMPILES.summary()
-            if "hbm" not in payload:
+            if "hbm" not in payload and not state.router_mode:
+                # a router tier's replicas carry their own hbm blocks
+                # (they share one weight allocation)
                 payload["hbm"] = hbm_ledger(state.engine)
-            if "spec" not in payload:
+            if "spec" not in payload and not state.router_mode:
                 payload["spec"] = state.spec_stats.summary()
+            _add_fleet_blocks(state, payload)
             _add_cluster_blocks(payload)
             data = render_prometheus(payload, tracer=TRACER,
                                      model=state.model_name,
@@ -997,28 +1164,39 @@ def make_handler(state: ApiState):
                 self._json(200, {"status": "ready", "scheduler": "off"})
             else:
                 sup = state._scheduler
+                payload = {"state": sup.state}
+                if state.router_mode:
+                    # the replica tier is ready while ANY replica serves;
+                    # each replica's state rides along, suffixed with what
+                    # the router sees (drained, reaped by the fleet, its
+                    # circuit open)
+                    payload["replicas"] = {
+                        f"r{h.id}": (h.state
+                                     + ("/draining" if h.draining else "")
+                                     + ("/reaping"
+                                        if getattr(h, "reap", False)
+                                        else "")
+                                     + ("/breaker_open"
+                                        if h.open_until > 0.0 else ""))
+                        for h in sup.replicas}
                 if sup.ready:
-                    self._json(200, {"status": "ready", "state": sup.state})
+                    self._json(200, {"status": "ready", **payload})
                 else:
-                    self._json(503, {"status": "unready", "state": sup.state},
+                    self._json(503, {"status": "unready", **payload},
                                retry_after=sup._retry_after())
 
         def do_POST(self):
             if self.path.startswith("/admin/"):
+                # dispatched before the draining check: an operator may
+                # reset a breaker or roll a replica while the front door
+                # refuses client traffic
                 if self._admin_denied():
                     return
                 if (self.path == "/admin/profile"
                         or self.path.startswith("/admin/profile?")):
                     self._admin_profile()
                     return
-                if self.path == "/admin/reset_breaker":
-                    self._admin_reset_breaker()
-                    return
-                why = _unported_route(self.path)
-                if why:
-                    self._json(501, {"error": why})
-                else:
-                    self._json(404, {"error": "not found"})
+                self._admin_post()
                 return
             routes = ("/v1/chat/completions", "/v1/completions",
                       "/v1/batch/completions")
@@ -1126,6 +1304,10 @@ def make_handler(state: ApiState):
                    f"{int(time.time() * 1000):x}")
             created = int(time.time())
             stream = bool(body.get("stream", False))
+            # the tenant (runtime/fleet.py): the body's field wins, the
+            # X-Tenant header fills in
+            if "tenant" not in body and self.headers.get("X-Tenant"):
+                body["tenant"] = self.headers.get("X-Tenant")
             use_sched = state.serve_batch > 0
             lock = (contextlib.nullcontext() if use_sched
                     else state.engine_lock)
@@ -1150,6 +1332,12 @@ def make_handler(state: ApiState):
                         return
                     except QueueFull as e:
                         self._json(429, {"error": str(e)},
+                                   retry_after=e.retry_after)
+                        return
+                    except ShedReject as e:
+                        # the fleet's overload ladder turned the request
+                        # away: Retry-After from the live drain rate
+                        self._json(429, {"error": str(e), "shed": e.reason},
                                    retry_after=e.retry_after)
                         return
                     except EngineUnready as e:
@@ -1277,13 +1465,32 @@ def build_server(args, mesh=None,
     resolve against the built engine; --session resumes a legacy-path
     session. Over ranks (`mesh`, `control`: rank 0 of `dllama api --tp`)
     the engine is rank 0's shard, mirrored to the other ranks."""
-    from .dllama import (build_engine, check_admission_flags,
+    from .dllama import (build_engine, build_front_template,
+                         check_admission_flags, check_fleet_flags,
                          check_serve_flags)
 
     autotune_art = check_admission_flags(args)
     check_serve_flags(args)
+    tier = check_fleet_flags(args)
     configure_observability(args)
-    engine, tokenizer, sampler = build_engine(args, mesh)
+    worker_config = None
+    if tier["replica_procs"]:
+        if not args.model:
+            sys.exit("error: --replica-procs workers load their own "
+                     "weights and need --model")
+        from ..runtime.replica_worker import config_from_cli_args
+
+        worker_config = config_from_cli_args(args, args.serve_batch)
+    if tier["replica_procs"] or tier["replica_hosts"]:
+        # the workers own the weights: the parent reads the .m header and
+        # the tokenizer only
+        engine, tokenizer, sampler = build_front_template(args)
+    else:
+        engine, tokenizer, sampler = build_engine(args, mesh)
+    if worker_config is not None and args.draft:
+        # the verify argmax truncates at the TOKENIZER vocab, which the
+        # workers do not load
+        worker_config["draft_vocab"] = tokenizer.vocab_size
     if control is not None:
         control.attach(engine)
     if args.draft:
@@ -1355,7 +1562,18 @@ def build_server(args, mesh=None,
                      profile_dir=args.profile_dir,
                      slo_ttft_ms=args.slo_ttft_ms,
                      slo_itl_ms=args.slo_itl_ms,
-                     autosize=autosize)
+                     autosize=autosize,
+                     replicas=tier["replicas"],
+                     retry_budget=(1 if args.retry_budget is None
+                                   else args.retry_budget),
+                     route_policy=args.route_policy or "cache_aware",
+                     replica_procs=tier["replica_procs"],
+                     replica_hosts=tier["replica_hosts"],
+                     worker_config=worker_config,
+                     kv_transfer=tier["kv_transfer"], tiers=tier["tiers"],
+                     min_replicas=args.min_replicas or 0,
+                     max_replicas=args.max_replicas or 0,
+                     tenant_budgets=args.tenant_budgets)
     if args.session and os.path.exists(args.session):
         load_server_session(state, args.session)
         print(f"💾 resumed session from {args.session} "
@@ -1371,6 +1589,10 @@ def finish(state: ApiState, drain_timeout: float,
     session. Returns whether the drain completed."""
     state.draining = True
     drained = True
+    if state._fleet is not None:
+        # the fleet brain stops first: a scale decision must not race the
+        # door's close
+        state._fleet.close()
     if state._scheduler is not None:
         drained = state._scheduler.drain(timeout=drain_timeout)
         state._scheduler.close()
@@ -1424,8 +1646,23 @@ def serve(args, mesh=None, control=None) -> None:
 
         mh.install_peer_lost_exit(_on_peer_lost)
         mh.set_phase("serve")
+    def _hup(*_):
+        # SIGHUP: the rolling restart of a replica tier (each replica
+        # drained and rebuilt in turn, zero failed requests), on a thread
+        # of its own (a handler must return fast). A single supervisor has
+        # no sibling to take its traffic
+        if not state.router_mode or state._scheduler is None:
+            print("🔁 SIGHUP ignored: rolling restart needs a replica "
+                  "tier (--replicas/--replica-procs)", flush=True)
+            return
+        print("🔁 SIGHUP: rolling restart started", flush=True)
+        threading.Thread(target=state._scheduler.rolling_restart,
+                         name="dllama-sighup-restart", daemon=True).start()
+
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGTERM, _begin_drain)
+        if hasattr(signal, "SIGHUP"):
+            signal.signal(signal.SIGHUP, _hup)
     host, port = server.server_address[:2]
     print(f"🔌 dllama-api listening on {host}:{port}", flush=True)
     try:

@@ -100,10 +100,15 @@ CLI's per-token G/I/T/H/S lines: S the modeled kB a rank sends a token
 (runtime/netstats.py), T the transfer time of the collectives timed on
 the mesh (`Engine.measure_transfer_ms`).
 
-Flags of features the port does not have yet (UNPORTED_FLAGS: replicas
-and the fleet) are accepted by the parser only to be refused with a
-message naming their ROADMAP item, never silently ignored; what the JAX
-CLI itself refuses is refused in its words.
+The replica tier and the fleet, as in the JAX CLI (api mode, with
+--serve-batch): `--replicas N` thread replicas over shared weights behind
+the cache-aware failover router, `--replica-procs N` worker processes,
+`--replica-hosts H:P,...` pre-started workers, `--kv-transfer` and
+`--tier` the block-transfer plane and its prefill/decode roles,
+`--min-replicas`/`--max-replicas` the fleet controller's autoscaling window
+and `--tenant-budgets` weighted-fair queueing (check_fleet_flags holds the
+JAX server's refusals, in its words). What the JAX CLI itself refuses is
+refused in its words.
 """
 
 from __future__ import annotations
@@ -121,16 +126,6 @@ import torch
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 CACHE_DTYPES = {**DTYPES, "f8": torch.float8_e4m3fn}
-# serving flags of the JAX CLI that the port does not have yet, with the
-# ROADMAP item that brings each (refused with that message when given)
-_FLEET = "replicas and the fleet (ROADMAP item 16)"
-UNPORTED_FLAGS = {
-    "--replicas": _FLEET, "--retry-budget": _FLEET, "--route-policy": _FLEET,
-    "--replica-procs": _FLEET, "--replica-hosts": _FLEET,
-    "--kv-transfer": _FLEET, "--tier": _FLEET, "--min-replicas": _FLEET,
-    "--max-replicas": _FLEET, "--tenant-budgets": _FLEET,
-}
-_FLAG_SWITCHES = ("--kv-transfer",)
 # every rendezvous and collective of a run over ranks, in seconds: a rank
 # that dies leaves the others failing after this long, not hanging
 RANK_TIMEOUT_S = 600.0
@@ -376,12 +371,110 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="where POST /admin/profile captures land (default: "
                         "a fresh temp dir a capture)")
-    for flag in UNPORTED_FLAGS:
-        if flag in _FLAG_SWITCHES:
-            p.add_argument(flag, action="store_true", default=None,
-                           help="not ported yet")
-        else:
-            p.add_argument(flag, default=None, help="not ported yet")
+    # the replica tier and the fleet (api mode; runtime/router.py,
+    # runtime/replica_worker.py, runtime/kv_transfer.py, runtime/fleet.py;
+    # the JAX CLI's flags and help)
+    p.add_argument("--replicas", type=int, default=1, metavar="N",
+                   help="api mode, with --serve-batch: run N supervised "
+                        "engine replicas behind a cache-aware failover "
+                        "router (runtime/router.py) — weights SHARED, "
+                        "each replica its own KV cache + prefix arena. "
+                        "A crashed/stalled/broken replica is invisible "
+                        "to clients: not-yet-streamed requests retry on "
+                        "a healthy sibling (token-identical for greedy), "
+                        "/readyz stays ready while any replica serves, "
+                        "and replicas drain/restart one at a time "
+                        "(POST /admin/drain_replica) with zero failed "
+                        "requests")
+    p.add_argument("--retry-budget", type=int, default=None, metavar="K",
+                   help="api mode, with --replicas: automatic failover "
+                        "resubmits per request (default 1). Only "
+                        "requests that have not streamed a token are "
+                        "retried; mid-stream failures surface a "
+                        "structured non-retryable error frame instead")
+    p.add_argument("--route-policy", default=None,
+                   choices=["cache_aware", "least_loaded", "round_robin"],
+                   help="api mode, with --replicas: placement policy "
+                        "(default cache_aware — route to the replica "
+                        "whose radix tree caches the longest prompt "
+                        "prefix, fall back to least-loaded; the SGLang "
+                        "cache-aware routing idea). Session affinity "
+                        "(body `session`/`user` field) applies under "
+                        "every policy")
+    p.add_argument("--replica-procs", type=int, default=0, metavar="N",
+                   help="api mode, with --serve-batch: run N replicas as "
+                        "supervised OS PROCESSES (each its own "
+                        "interpreter + weights, served over the framed "
+                        "replica protocol) instead of threads — the real "
+                        "fault boundary: a segfault, OOM kill, or "
+                        "SIGKILL costs ONE replica, the router fails "
+                        "not-yet-streamed requests over to a sibling "
+                        "(token-identical for greedy), and the process "
+                        "supervisor respawns the dead worker under "
+                        "backoff with exit-code classification. "
+                        "Mutually exclusive with --replicas")
+    p.add_argument("--replica-hosts", default=None, metavar="H:P,...",
+                   help="api mode, with --serve-batch: comma-separated "
+                        "host:port list of PRE-STARTED replica workers "
+                        "(python -m distributed_llama_tpu_torch.runtime."
+                        "replica_worker on each host) — the cross-host "
+                        "tier. No spawn supervision: each worker's "
+                        "lifetime belongs to its host's operator. "
+                        "Mutually exclusive with --replica-procs")
+    p.add_argument("--kv-transfer", action="store_true",
+                   help="api mode, with --prefix-cache and a replica "
+                        "tier: let replicas SHIP published KV blocks to "
+                        "each other (RMSG_BLOCK_* over the framed "
+                        "codec) — a replica placed cold on a prefix a "
+                        "sibling caches FETCHES the blocks and seeds "
+                        "them instead of re-prefilling (greedy outputs "
+                        "bit-identical, transfer failures degrade to a "
+                        "plain re-prefill). Also the carrier of --tier "
+                        "disaggregation. Block frames ride the wire "
+                        "ledger (dllama_kv_transfer_* on /metrics)")
+    p.add_argument("--tier", default=None, metavar="T[,T...]",
+                   help="api mode, with --kv-transfer: per-replica "
+                        "disaggregation roles (prefill|decode|mixed; "
+                        "one value applies to all, or a comma list "
+                        "matching the replica count). prefill-tier "
+                        "replicas run ONLY prompt prefills (big "
+                        "chunks, no decode occupancy) and stream their "
+                        "blocks to decode-tier replicas, which admit "
+                        "already-seeded — the vLLM-lineage split that "
+                        "kills prefill/decode interference. The router "
+                        "falls back to the unified mixed path when no "
+                        "prefill replica is routable. Not with "
+                        "--replica-hosts (set `tier` in each worker's "
+                        "own config; the router learns it from the "
+                        "health PONG)")
+    p.add_argument("--min-replicas", type=int, default=0, metavar="N",
+                   help="api mode, with a replica tier: floor of the "
+                        "fleet controller's autoscaling window (default: "
+                        "the boot replica count — autoscaling off). The "
+                        "controller drains + reaps sustained-idle "
+                        "replicas down to this floor, folding their "
+                        "lifetime counters into the router totals")
+    p.add_argument("--max-replicas", type=int, default=0, metavar="N",
+                   help="api mode, with a replica tier: ceiling of the "
+                        "autoscaling window (default: the boot count — "
+                        "autoscaling off). Under sustained queue growth "
+                        "the controller spawns replicas up to N, hard-"
+                        "capped by the HBM ledger's slots_addable "
+                        "headroom; fresh replicas warm their caches "
+                        "from siblings via --kv-transfer fills before "
+                        "taking traffic")
+    p.add_argument("--tenant-budgets", default=None,
+                   metavar="NAME=W[:TPS],...",
+                   help="api mode, with --serve-batch: per-tenant "
+                        "weighted-fair queueing + token budgets. Each "
+                        "entry names a tenant with fair-share weight W "
+                        "and optional sustained tokens/sec budget (e.g. "
+                        "'gold=4:2000,free=1:100'). Tenants come from "
+                        "the request body `tenant` field or X-Tenant "
+                        "header (unknown tenants get weight 1, no "
+                        "budget); an over-budget tenant is served only "
+                        "when no in-budget tenant waits, so a hog's "
+                        "overage can never move a victim's p99")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel ranks (one process each)")
     p.add_argument("--dp", type=int, default=1,
@@ -468,10 +561,16 @@ def refusals(args) -> list[str]:
                    "single-sequence; use step() for batches (the JAX "
                    "engine's assert self.batch == 1, runtime/engine.py:838, "
                    f"which its {args.mode} reaches on a --dp engine)")
-    for flag, why in UNPORTED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            out.append(f"{flag} in mode {args.mode!r}: {why} is not ported "
-                       "yet")
+    if args.mode != "api" and (
+            args.replicas != 1 or args.replica_procs or args.replica_hosts
+            or args.retry_budget is not None
+            or args.route_policy is not None or args.kv_transfer
+            or args.tier is not None or args.min_replicas
+            or args.max_replicas or args.tenant_budgets is not None):
+        out.append("--replicas/--replica-procs/--replica-hosts/"
+                   "--retry-budget/--route-policy/--kv-transfer/--tier/"
+                   "--min-replicas/--max-replicas/--tenant-budgets are "
+                   "api-mode flags")
     if args.mode != "api" and (args.serve_batch or args.serve_chunk
                                or args.queue_depth or args.request_deadline
                                or args.stall_timeout or args.freeze_compiles):
@@ -602,15 +701,162 @@ def check_mesh_flags(args) -> None:
 
 def check_serve_flags(args) -> None:
     """The JAX server's refusals of a scheduler over a cluster or over more
-    than the tp axis, in its words (JAX apps/api_server.py:1680-1686): the
+    than the tp axis, in its words (JAX apps/api_server.py:1680-1693): the
     slot scheduler's engine is single-process and composes with --tp
-    only."""
+    only, on the single-supervisor tier."""
     if args.mode == "api" and args.serve_batch and args.nnodes > 1:
         sys.exit("error: --serve-batch does not compose with --nnodes")
     if args.mode == "api" and args.serve_batch and max(
             getattr(args, a) for a in ("dp", *NEW_AXES)) > 1:
         sys.exit("error: --serve-batch needs a single-process engine "
                  "(no --dp/--sp/--ep/--pp; --tp composes)")
+    if args.mode == "api" and args.serve_batch and args.tp > 1 and (
+            args.replicas > 1 or args.replica_procs or args.replica_hosts):
+        sys.exit("error: --serve-batch with --tp serves the "
+                 "single-supervisor tier only (no --replicas/"
+                 "--replica-procs/--replica-hosts)")
+
+
+def check_fleet_flags(args) -> dict:
+    """The JAX server's refusals of the replica tier, the transfer plane
+    and the fleet flags, in its words and order (JAX
+    apps/api_server.py:1747-1900), before any engine work. Returns the
+    resolved tier: replicas, replica_procs, replica_hosts [(host, port)]
+    or None, kv_transfer, tiers (a role a replica) or None."""
+    serve_batch = args.serve_batch
+    slo = args.slo_ttft_ms is not None or args.slo_itl_ms is not None
+    replicas = 1 if args.replicas is None else args.replicas
+    if replicas < 1:
+        sys.exit("error: --replicas must be >= 1")
+    replica_procs = args.replica_procs or 0
+    hosts_raw = args.replica_hosts
+    if replica_procs < 0:
+        sys.exit("error: --replica-procs must be >= 1")
+    if replica_procs and hosts_raw:
+        sys.exit("error: --replica-procs (local spawn) and "
+                 "--replica-hosts (connect to pre-started workers) are "
+                 "mutually exclusive")
+    process_tier = bool(replica_procs or hosts_raw)
+    if process_tier and replicas > 1:
+        sys.exit("error: --replicas (thread tier) does not compose with "
+                 "--replica-procs/--replica-hosts (process tier) — pick "
+                 "one replication boundary")
+    if process_tier and args.nnodes > 1:
+        sys.exit("error: --replica-procs/--replica-hosts do not compose "
+                 "with --nnodes (each worker is its own single-host "
+                 "engine; see ROADMAP item 2 for the composition)")
+    if hosts_raw and args.draft:
+        sys.exit("error: --draft does not reach --replica-hosts workers "
+                 "(their configs are their operators'): pass --draft in "
+                 "each worker's own config instead")
+    if hosts_raw and slo:
+        sys.exit("error: --slo-ttft-ms/--slo-itl-ms do not reach "
+                 "--replica-hosts workers (their configs are their "
+                 "operators'): set the SLOs in each worker's own config "
+                 "instead")
+    if (serve_batch == "auto" or args.prefix_blocks == "auto") \
+            and process_tier:
+        sys.exit("error: --serve-batch/--prefix-blocks 'auto' need a "
+                 "ledger-capable local engine; the process tier's "
+                 "workers own their engines — pass explicit sizes "
+                 "(calibrate with tools/autotune.py and use its "
+                 "recommendation)")
+    if not serve_batch and (replicas > 1 or process_tier
+                            or args.retry_budget is not None
+                            or args.route_policy is not None):
+        sys.exit("error: --replicas/--replica-procs/--replica-hosts/"
+                 "--retry-budget/--route-policy require --serve-batch N "
+                 "(the failover router fronts the continuous-batching "
+                 "scheduler)")
+    if replicas == 1 and not process_tier and (
+            args.retry_budget is not None or args.route_policy is not None):
+        sys.exit("error: --retry-budget/--route-policy have no effect "
+                 "without --replicas N > 1 or a process tier")
+    kv_transfer = bool(args.kv_transfer)
+    if kv_transfer and not args.prefix_cache:
+        sys.exit("error: --kv-transfer moves published prefix-cache "
+                 "blocks and requires --prefix-cache")
+    n_fleet = (int(replica_procs) if replica_procs
+               else len(str(hosts_raw).split(",")) if hosts_raw
+               else int(replicas))
+    if kv_transfer and n_fleet < 2:
+        sys.exit("error: --kv-transfer needs >= 2 replicas "
+                 "(--replicas N, --replica-procs N, or --replica-hosts "
+                 "h:p,...) — one replica has no sibling to transfer "
+                 "with")
+    tiers = None
+    if args.tier is not None:
+        if not kv_transfer:
+            sys.exit("error: --tier requires --kv-transfer (a prefill-"
+                     "tier replica is useless unless its blocks can "
+                     "move to the decode tier)")
+        if hosts_raw:
+            sys.exit("error: --tier does not reach --replica-hosts "
+                     "workers (their configs are their operators'): "
+                     "set `tier` in each worker's own config — the "
+                     "router adopts it from the health PONG")
+        n_rep = int(replica_procs) if replica_procs else int(replicas)
+        tiers = [t.strip() for t in str(args.tier).split(",")]
+        if len(tiers) == 1:
+            tiers = tiers * n_rep
+        if len(tiers) != n_rep:
+            sys.exit(f"error: --tier lists {len(tiers)} roles for "
+                     f"{n_rep} replicas (one value, or one per replica)")
+        bad = [t for t in tiers if t not in ("prefill", "decode", "mixed")]
+        if bad:
+            sys.exit(f"error: --tier roles must be prefill|decode|"
+                     f"mixed (got {bad[0]!r})")
+        if all(t == "prefill" for t in tiers):
+            sys.exit("error: --tier needs at least one decode or mixed "
+                     "replica (prefill-tier replicas never serve "
+                     "requests)")
+    min_reps, max_reps = args.min_replicas or 0, args.max_replicas or 0
+    if min_reps < 0 or max_reps < 0:
+        sys.exit("error: --min-replicas/--max-replicas must be >= 1")
+    if (min_reps or max_reps) and not serve_batch:
+        sys.exit("error: --min-replicas/--max-replicas require "
+                 "--serve-batch N (the fleet controller scales the "
+                 "replica set behind the scheduler front door)")
+    if min_reps and max_reps and min_reps > max_reps:
+        sys.exit(f"error: --min-replicas {min_reps} exceeds "
+                 f"--max-replicas {max_reps}")
+    if max_reps and hosts_raw:
+        sys.exit("error: autoscaling does not reach --replica-hosts "
+                 "workers (their lifetimes are their operators'): the "
+                 "controller can only spawn/reap locally supervised "
+                 "replicas (--replicas/--replica-procs)")
+    if max_reps and max_reps > n_fleet and not (replicas > 1
+                                                or replica_procs):
+        sys.exit("error: --max-replicas needs a replica tier to grow "
+                 "(--replicas N or --replica-procs N)")
+    if args.tenant_budgets is not None:
+        if not serve_batch:
+            sys.exit("error: --tenant-budgets requires --serve-batch N "
+                     "(weighted-fair queueing replaces the scheduler's "
+                     "FIFO admission queue)")
+        if hosts_raw:
+            sys.exit("error: --tenant-budgets does not reach "
+                     "--replica-hosts workers (their configs are their "
+                     "operators'): set tenant_budgets in each worker's "
+                     "own config instead")
+        from ..runtime.fleet import parse_tenant_budgets
+
+        try:
+            parse_tenant_budgets(args.tenant_budgets)
+        except ValueError as e:
+            sys.exit(f"error: --tenant-budgets: {e}")
+    replica_hosts = None
+    if hosts_raw:
+        replica_hosts = []
+        for spec in str(hosts_raw).split(","):
+            host, _, port = spec.strip().rpartition(":")
+            if not host or not port.isdigit():
+                sys.exit(f"error: --replica-hosts entry {spec.strip()!r} "
+                         "is not host:port")
+            replica_hosts.append((host, int(port)))
+    return {"replicas": replicas, "replica_procs": replica_procs,
+            "replica_hosts": replica_hosts, "kv_transfer": kv_transfer,
+            "tiers": tiers}
 
 
 def check_cluster_flags(args) -> None:
@@ -670,6 +916,50 @@ def check_session_flags(args) -> None:
     apps/dllama.py:716)."""
     if getattr(args, "session", None) and (args.nnodes > 1 or args.pp > 1):
         sys.exit("error: --session does not compose with --nnodes or --pp")
+
+
+class FrontDoorTemplate:
+    """The slice of the Engine surface a PROCESS-TIER api front end reads
+    (the spec, the context, the device its workers use; no mesh, no
+    cache), built by ``build_front_template`` WITHOUT loading weights: the
+    worker processes own the model (JAX apps/dllama.py:675)."""
+
+    mesh = None
+
+    def __init__(self, spec, max_seq_len=None, device=None):
+        self.spec = spec
+        self.seq_len = min(max_seq_len or spec.seq_len, spec.seq_len)
+        self.device = device
+
+
+def build_front_template(args):
+    """model file -> (shape template, tokenizer, sampler) for the process
+    replica tier (api --replica-procs/--replica-hosts): reads only the .m
+    header, no weights and no engine (JAX apps/dllama.py:688). The
+    device is the workers': `cuda` raises here without a card, before
+    any worker is spawned."""
+    from ..io.model_file import read_spec
+    from ..quants.types import FloatType
+    from ..runtime.engine import resolve_device
+    from ..sampler import Sampler
+    from ..tokenizer import Tokenizer
+
+    if not args.model or not args.tokenizer:
+        sys.exit("error: --model and --tokenizer are required")
+    device = resolve_device(args.device)
+    wft = (FloatType[args.weights_float_type.upper()]
+           if args.weights_float_type else None)
+    spec = read_spec(args.model, weights_float_type=wft)
+    print(f"⏩ {args.model}: arch={spec.arch.name} dim={spec.dim} "
+          f"layers={spec.n_layers} heads={spec.n_heads}/{spec.n_kv_heads} "
+          f"seq={spec.seq_len} (front door: spec only, workers own the "
+          "weights)")
+    tokenizer = Tokenizer.from_file(args.tokenizer)
+    seed = args.seed if args.seed is not None else int(time.time())
+    sampler = Sampler(tokenizer.vocab_size, args.temperature, args.topp,
+                      seed)
+    return (FrontDoorTemplate(spec, args.max_seq_len, device), tokenizer,
+            sampler)
 
 
 def build_engine(args, mesh=None):
@@ -1382,6 +1672,8 @@ def main(argv: list[str] | None = None) -> None:
     refused = refusals(args)
     if refused:
         sys.exit("error: " + "; ".join(refused))
+    if args.mode == "api":
+        check_fleet_flags(args)
     if args.nnodes > 1:
         _run_cluster(args, list(argv if argv is not None else sys.argv[1:]))
         return

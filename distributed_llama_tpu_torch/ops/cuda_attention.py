@@ -37,6 +37,7 @@ import functools
 import torch
 
 from . import cuda_build
+from . import launch_scope
 from .attention import NEG_INF, decode_attention, is_narrow_cache
 
 # cap on T*G query rows per kv head (pallas_attention.py:112): longer
@@ -232,7 +233,7 @@ def _launch(q, k_cache, v_cache, q_pos) -> torch.Tensor:
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[dt], b, t, h, kvh, s, hs,
             block_rows, n_split, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(rc, "flash_attention")
-    flash_attention.launches += 1
+    launch_scope.count(flash_attention, "flash_attention")
     return out
 
 

@@ -42,6 +42,7 @@ import torch
 
 from ..quants.torch_codec import QuantizedTensor, dequantize_q40_torch
 from . import cuda_build
+from . import launch_scope
 from .cuda_q80 import q80_roundtrip_reference
 
 # the JAX package's MAX_T (pallas_q40.py:72): larger token counts are
@@ -207,8 +208,8 @@ def _launch(x2: torch.Tensor, w: QuantizedTensor, out_dtype,
             t, n, d, tc_min_t, int(activation_q80),
             torch.cuda.current_stream(x2.device).cuda_stream)
     cuda_build.check(rc, "q40_matmul")
-    q40_matmul.launches += 1
-    q80_fused.launches += int(activation_q80)
+    launch_scope.count(q40_matmul, "q40_matmul")
+    launch_scope.count(q80_fused, "q80_fused", int(activation_q80))
     return out
 
 
@@ -285,8 +286,8 @@ def _expert_launch(x: torch.Tensor, w: QuantizedTensor, idx: torch.Tensor,
         _DTYPE_CODE[out_dtype], t, n, d, int(activation_q80),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(rc, "q40_expert_matmul")
-    q40_expert_matmul.launches += 1
-    q80_fused.launches += int(activation_q80)
+    launch_scope.count(q40_expert_matmul, "q40_expert_matmul")
+    launch_scope.count(q80_fused, "q80_fused", int(activation_q80))
     return out
 
 

@@ -20,6 +20,7 @@ import torch
 from ..quants.torch_codec import dequantize_q80_torch, quantize_q80_torch
 from ..quants.types import BLOCK_SIZE
 from . import cuda_build
+from . import launch_scope
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,7 +62,7 @@ def q80_roundtrip(x: torch.Tensor, dtype) -> torch.Tensor:
                     _DTYPE_CODE[dtype], x.numel(),
                     torch.cuda.current_stream(x.device).cuda_stream)
         cuda_build.check(rc, "q80_roundtrip")
-        q80_roundtrip.launches += 1
+        launch_scope.count(q80_roundtrip, "q80_roundtrip")
     return out
 
 

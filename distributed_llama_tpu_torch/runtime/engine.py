@@ -158,7 +158,7 @@ from ..quants.torch_codec import QuantizedTensor
 from ..sampler import Sampler
 from ..utils.device import resolve_device
 from .faults import FAULTS
-from .graphs import CapturedStep, capture
+from .graphs import DEVICE_GATE, CapturedStep, capture
 from .profiler import COMPILES, PROFILER, compile_key_str
 from .sampling import FullLogitsView, ShardedLogitsView
 from .stats import RunStats, StepStats
@@ -1977,6 +1977,57 @@ class Engine:
                 src = _bits(leaf[row, :, offset:offset + mb * bl])
                 _bits(arena[:, l]).index_copy_(
                     0, ids, src.view(kvh, mb, bl, hs).transpose(0, 1))
+
+    # -- cross-replica KV block transfer (runtime/kv_transfer.py) ---------
+
+    def _check_transfer(self) -> None:
+        if self._mesh is not None:
+            # the JAX server runs replicas (and so transfers) on
+            # single-process engines only
+            raise ValueError("KV block transfer needs a single-rank engine")
+        if self.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a KV block copy cannot run inside a graph "
+                               "capture")
+
+    @torch.inference_mode()
+    def block_export(self, arena_k, arena_v, src: int):
+        """Arena block `src` as a host (K, V) pair, each (layers, kv_heads,
+        block_len, head_size) in the cache dtype: the bytes a donor ships.
+        On the card the device-to-host copies land in pinned buffers and
+        the stream is synchronized before returning, so the caller reads
+        finished bytes."""
+        self._check_transfer()
+        out = []
+        with DEVICE_GATE.shared():
+            for arena in (arena_k, arena_v):
+                blk = arena[int(src)]
+                host = torch.empty(blk.shape, dtype=blk.dtype,
+                                   pin_memory=blk.is_cuda)
+                host.copy_(blk, non_blocking=blk.is_cuda)
+                out.append(host)
+            if arena_k.is_cuda:
+                torch.cuda.current_stream(arena_k.device).synchronize()
+        return out[0], out[1]
+
+    @torch.inference_mode()
+    def slot_import_block(self, arena_k, arena_v, k_blk, v_blk,
+                          dst: int) -> None:
+        """Write one fetched host block pair into arena block `dst`, in
+        place (the arenas are never rebound: captured graphs hold cache
+        addresses, and a seed reads the arena by index). The bytes land
+        raw; the seed side's e4m3 NaN-code guard owns trust
+        (seed_rows_from_blocks)."""
+        self._check_transfer()
+        blocks = [torch.as_tensor(b) for b in (k_blk, v_blk)]
+        for arena, blk in zip((arena_k, arena_v), blocks):
+            if blk.dtype != arena.dtype or tuple(blk.shape) != tuple(
+                    arena.shape[1:]):
+                raise ValueError(f"block {tuple(blk.shape)}/{blk.dtype} "
+                                 f"does not fit the arena's "
+                                 f"{tuple(arena.shape[1:])}/{arena.dtype}")
+        with DEVICE_GATE.shared():
+            for arena, blk in zip((arena_k, arena_v), blocks):
+                arena[int(dst)].copy_(blk)
 
     def _slot_decode(self) -> torch.Tensor:
         """Graph "slot_decode": row r's token in `tok` at its position in

@@ -17,6 +17,41 @@ never changes a captured graph):
   * ``slow_step``     — scheduler step loop: sleeps ``ms`` per fire (the
                         degraded-but-alive shape deadlines must catch)
 
+Replica-level sites, fired in the scheduler step loop of schedulers that
+carry a ``fault_key`` (the router's replicas: runtime/router.py names
+replica i's scheduler ``r{i}``), so a chaos test kills or wedges ONE
+replica while its siblings keep serving:
+
+  * ``replica_raise`` — like ``step_raise``, but an armed ``key=rK`` spec
+                        counts and fires on replica K's steps only (the
+                        router retries not-yet-streamed requests on a
+                        survivor)
+  * ``replica_stall`` — like ``step_stall`` with the same key filter
+  * ``worker_exit``   — a replica worker PROCESS's token stream
+                        (runtime/replica_worker.py): the worker queries
+                        ``triggered()`` before each token frame and
+                        ``os._exit``s (the in-process stand-in for
+                        SIGKILL, armed by ``DLLAMA_FAULTS`` in the
+                        worker's environment)
+
+KV-transfer sites, fired in the donor's block-export loop
+(runtime/kv_transfer.py), key-filtered by the donor's fault key:
+
+  * ``kvx_stall``     — before a BLOCK_DATA send: blocks like
+                        ``step_stall`` (the importer's per-transfer
+                        deadline must fire and degrade to a re-prefill)
+  * ``kvx_exit``      — same place, ``triggered()`` form: the donor
+                        ``os._exit``s between two block frames
+
+Fleet-controller sites (runtime/fleet.py):
+
+  * ``spawn_stall``   — before a scale-up's replica spawn: blocks like
+                        ``step_stall``, key-filtered by the new replica's
+                        ``rK``
+  * ``scale_flap``    — controller tick, ``triggered()`` form: each fire
+                        flips a synthetic full/empty load signal (the
+                        hysteresis must not flap replicas)
+
 Socket-layer sites, fired inside the multi-node control star's frame
 codec (parallel/multihost.py), so two-process chaos tests can kill or
 stall either side of the root<->worker star and assert bounded detection
@@ -41,7 +76,9 @@ subprocess harnesses:
     DLLAMA_FAULTS="step_raise:after=40;times=1,slow_step:ms=50;times=0"
 
 ``after=N`` skips the first N invocations of the site, ``times=K`` fires on
-the next K (K=0: every invocation), ``ms=F`` sets the stall/sleep length.
+the next K (K=0: every invocation), ``ms=F`` sets the stall/sleep length,
+``key=S`` restricts a site to callers passing that key (other callers are
+not even counted, so ``after`` stays deterministic per replica).
 Counters are per site and only grow, so an arm spec fires at the same
 invocations on every run. With tracing on, a site that fires records a
 ``fault`` event on the flight recorder (runtime/trace.py).
@@ -57,7 +94,12 @@ import time
 from .trace import TRACER
 
 SITES = ("step_raise", "step_stall", "prefill_raise", "slow_step",
-         "conn_refused", "recv_stall", "frame_truncate", "peer_close")
+         "replica_raise", "replica_stall", "worker_exit",
+         "conn_refused", "recv_stall", "frame_truncate", "peer_close",
+         "kvx_stall", "kvx_exit", "spawn_stall", "scale_flap")
+# the sites that block like a hang until released or ms elapses
+_STALLS = ("step_stall", "recv_stall", "replica_stall", "kvx_stall",
+           "spawn_stall")
 
 
 class FaultError(RuntimeError):
@@ -71,6 +113,7 @@ class _Armed:
     after: int = 0     # skip this many invocations of the site first
     times: int = 1     # then fire on this many (0 = every one from there on)
     ms: float = 0.0    # stall/sleep milliseconds (step_stall / slow_step)
+    key: str | None = None  # only calls carrying this key count or fire
     hits: int = 0      # invocations seen
     fired: int = 0     # invocations that actually fired
 
@@ -98,12 +141,13 @@ class FaultRegistry:
         self._release = threading.Event()
 
     def arm(self, site: str, *, after: int = 0, times: int = 1,
-            ms: float = 0.0) -> None:
+            ms: float = 0.0, key: str | None = None) -> None:
         if site not in SITES:
             raise ValueError(f"unknown fault site {site!r} (have {SITES})")
         with self._lock:
             self._release.clear()
-            self._armed[site] = _Armed(site, after=after, times=times, ms=ms)
+            self._armed[site] = _Armed(site, after=after, times=times, ms=ms,
+                                       key=key)
 
     def clear(self, site: str | None = None) -> None:
         """Disarm (one site or everything) and release any stall in
@@ -128,26 +172,29 @@ class FaultRegistry:
             a = self._armed.get(site)
             return a.fired if a else 0
 
-    def fire(self, site: str) -> None:
+    def fire(self, site: str, key: str | None = None) -> None:
         """Called at the named site. No-op unless armed; otherwise raises
         (``*_raise``), stalls (``step_stall``) or sleeps (``slow_step``)
-        per the armed spec."""
+        per the armed spec. A spec armed with a key neither fires nor
+        counts for a caller with another key."""
         with self._lock:
             a = self._armed.get(site)
-            if a is None or not a.should_fire():
+            if a is None or (a.key is not None and key != a.key):
+                return
+            if not a.should_fire():
                 return
             ms, fired = a.ms, a.fired
         if TRACER.enabled:
             # the flight recorder sees every fault that fired, next to
             # the spans it killed
-            TRACER.event("fault", 0, site=site, key=None, n=fired)
+            TRACER.event("fault", 0, site=site, key=key, n=fired)
         if site == "conn_refused":
             # the real exception type of the connect retry path: an
             # injected refusal walks the same backoff as a root not up yet
             raise ConnectionRefusedError(f"injected {site} (fire #{fired})")
         if site.endswith("_raise"):
             raise FaultError(f"injected {site} (fire #{fired})")
-        if site in ("step_stall", "recv_stall"):
+        if site in _STALLS:
             # block like a real hang: until released or ms elapses
             # (default: effectively forever, the watchdog's job)
             self._release.wait(timeout=(ms / 1e3) if ms else 3600.0)
@@ -155,18 +202,20 @@ class FaultRegistry:
         if site == "slow_step" and ms:
             time.sleep(ms / 1e3)
 
-    def triggered(self, site: str) -> bool:
+    def triggered(self, site: str, key: str | None = None) -> bool:
         """The query form of ``fire()`` for sites whose effect the caller
         performs (``frame_truncate``/``peer_close``: the codec owns the
-        socket and mangles it itself). Consumes one invocation count."""
+        socket and mangles it itself; ``worker_exit``/``kvx_exit``: the
+        process exits). Consumes one invocation count, with fire()'s key
+        filter."""
         with self._lock:
             a = self._armed.get(site)
-            if a is None:
+            if a is None or (a.key is not None and key != a.key):
                 return False
             fire = a.should_fire()
             fired = a.fired
         if fire and TRACER.enabled:
-            TRACER.event("fault", 0, site=site, key=None, n=fired)
+            TRACER.event("fault", 0, site=site, key=key, n=fired)
         return fire
 
     def load_env(self, env=None) -> None:
@@ -180,10 +229,11 @@ class FaultRegistry:
             kw: dict = {}
             for opt in filter(None, (o.strip() for o in opts.split(";"))):
                 name, _, val = opt.partition("=")
-                if name not in ("after", "times", "ms"):
+                if name not in ("after", "times", "ms", "key"):
                     raise ValueError(
                         f"bad DLLAMA_FAULTS option {opt!r} in {part!r}")
-                kw[name] = float(val) if name == "ms" else int(val)
+                kw[name] = (float(val) if name == "ms"
+                            else val if name == "key" else int(val))
             self.arm(site, **kw)
 
 

@@ -18,12 +18,14 @@ benchmark mode — src/apps/dllama/dllama.cpp:74-91). Here:
 Ring-algorithm cost model: an all-reduce moves 2*(n-1)/n * payload per
 device, an all-gather / all-to-all (n-1)/n * payload.
 
-The serving, prefix-reuse and block-transfer estimates and the trace
-readers come with the fleet (ROADMAP item 16). The T column is the
-microbench estimate: the port's `--profile DIR` trace does not tell one
-decode step's collectives from another's, so the JAX CLI's per-step trace
-reading (its fallback is this estimate, apps/dllama.py:1011-1013) has no
-counterpart here.
+The fleet's part (the JAX names): `estimate_serve_wire` (per emitted token
+under the slot scheduler's occupancy), `estimate_prefix_reuse` and
+`estimate_block_transfer` (a KV block transfer against the re-prefill it
+replaces, frame-exact), and the trace readers `per_step_op_ms`,
+`per_trace_attribution` and `per_module_ms`, which read a torch.profiler
+Chrome trace (`--profile DIR`, `/admin/profile`) where the JAX ones read an
+xplane: a step is one replayed CUDA graph, a module one kernel name. The T
+column stays the microbench estimate.
 """
 
 from __future__ import annotations
@@ -129,6 +131,147 @@ def estimate_decode_wire(
                         {k: v / 1024.0 for k, v in bd.items()})
 
 
+def estimate_serve_wire(
+    spec: ModelSpec,
+    mesh,
+    *,
+    batch: int = 1,
+    occupancy: float | None = None,
+    q80: bool = False,
+    act_bytes: int = 4,
+) -> WireEstimate:
+    """Per-EMITTED-token wire under the continuous-batching scheduler
+    (runtime/scheduler.py): a slot-scheduler decode step moves the full
+    batch-B collective payload no matter how many slots are live (gated
+    rows ride through every collective with the rest of the batch), so
+    the per-emitted-token cost is the batch-B step estimate divided by
+    the mean slot occupancy. occupancy == batch reproduces the static
+    batched estimate; occupancy -> 1 degrades to B× the per-token wire —
+    the quantitative reason queue pressure, not slot count, sets serving
+    efficiency."""
+    step = estimate_decode_wire(spec, mesh, q80=q80, act_bytes=act_bytes,
+                                batch=batch)
+    # `is not None`, not truthiness: a measured occupancy of 0.0 (idle
+    # window) must clamp to the degenerate worst case below, not silently
+    # take the full-batch best case
+    occ = float(occupancy) if occupancy is not None else float(batch)
+    occ = max(min(occ, float(batch)), 1e-6)
+    return WireEstimate(step.sent_kb_per_token / occ,
+                        {k: v / occ for k, v in step.breakdown.items()})
+
+
+def estimate_prefix_reuse(
+    spec: ModelSpec,
+    mesh,
+    *,
+    tokens_saved: int,
+    tokens_copied: int | None = None,
+    cache_bytes: float = 2.0,
+    q80: bool = False,
+    act_bytes: int = 4,
+    batch: int = 1,
+) -> dict:
+    """Modeled cost/benefit of serving `tokens_saved` prompt tokens from
+    the radix prefix cache (runtime/prefix_cache.py) instead of
+    prefilling them.
+
+    A seeded token SKIPS its prefill forward entirely, so it saves the
+    full per-token collective payload of a forward — the same per-layer
+    reduces estimate_decode_wire models (prefill segments move the same
+    per-token bytes as decode; only the segment width batches them).
+    What it pays instead is a pure-HBM block copy that rides NO
+    collective: 2 (K and V) * layers * kv_heads * head_size *
+    cache_bytes per token COPIED. `tokens_copied` is the caller's figure
+    of what the seeds really copied (the JAX engine's seed gathers a
+    fixed width, the port's the matched blocks); it defaults to
+    tokens_saved, the lower bound.
+
+    The wire side is why prefix reuse is a near-strict win over ranks:
+    the copy rides no collective, and on one card it replaces whole
+    forwards' weight reads and FLOPs.
+
+    Returns {"wire_saved_kb", "hbm_copy_kb", "kb_saved_per_token"}."""
+    per_tok_kb = estimate_decode_wire(spec, mesh, q80=q80,
+                                      act_bytes=act_bytes,
+                                      batch=batch).sent_kb_per_token
+    copy_b = (2 * spec.n_layers * spec.n_kv_heads * spec.head_size
+              * cache_bytes)
+    copied = tokens_saved if tokens_copied is None else tokens_copied
+    return {
+        "wire_saved_kb": round(per_tok_kb * tokens_saved, 3),
+        "hbm_copy_kb": round(copy_b * copied / 1024.0, 3),
+        "kb_saved_per_token": round(per_tok_kb, 4),
+    }
+
+
+def estimate_block_transfer(
+    spec: ModelSpec,
+    *,
+    tokens: int,
+    block_len: int,
+    cache_bytes: float = 2.0,
+    link_gbps: float | None = None,
+    prefill_tok_per_s: float | None = None,
+    mesh=None,
+    q80: bool = False,
+    batch: int = 1,
+) -> dict:
+    """Model one cross-replica KV block transfer (runtime/kv_transfer.py)
+    against the re-prefill it replaces — the "when does a fill pay"
+    arithmetic.
+
+    The WIRE side is exact: ``tokens`` rounds down to whole blocks, each
+    block ships one RMSG_BLOCK_DATA frame of 2 (K and V) * layers *
+    kv_heads * block_len * head_size * cache_bytes payload plus the
+    framed-codec overhead (parallel/multihost.frame_bytes — the same
+    arithmetic the wire ledger is held against), bracketed by the HELLO/QUERY/ACK/FETCH/END frames. The
+    REPLACED side is the prefill forward those tokens would have run:
+    per-token collective bytes (estimate_decode_wire — prefill moves the
+    same per-token reduces as decode, batched by segment width) and, when
+    a measured ``prefill_tok_per_s`` is given, the wall time. With a
+    ``link_gbps`` both sides resolve to milliseconds and ``pays`` says
+    whether the transfer wins; without them the byte model stands alone
+    (``pays`` = None — never fabricated).
+
+    ``modeled_data_bytes`` is the exact figure ``reconcile_wire`` closes
+    against the measured BLOCK_DATA ledger entry at the 25% bar."""
+    from ..parallel.multihost import frame_bytes
+
+    bl = int(block_len)
+    n_blocks = max(int(tokens), 0) // bl
+    per_block = int(2 * spec.n_layers * spec.n_kv_heads * bl
+                    * spec.head_size * cache_bytes)
+    data_bytes = n_blocks * frame_bytes(1, per_block)
+    # HELLO [v] + QUERY [requester, n_have, *tokens] + FETCH [s, e] tx;
+    # HELLO_ACK [5] + ACK [7] + END [1] rx — tiny next to the payload,
+    # counted so the model reconciles frame-exactly
+    overhead = (frame_bytes(1, 0) + frame_bytes(2 + int(tokens), 0)
+                + frame_bytes(2, 0) + frame_bytes(5, 0)
+                + frame_bytes(7, 0) + frame_bytes(1, 0))
+    out = {
+        "tokens": n_blocks * bl,
+        "n_blocks": n_blocks,
+        "block_payload_bytes": per_block,
+        "modeled_data_bytes": data_bytes,
+        "overhead_bytes": overhead,
+        "transfer_bytes": data_bytes + overhead,
+        "reprefill_wire_kb": round(
+            estimate_decode_wire(spec, mesh, q80=q80,
+                                 batch=batch).sent_kb_per_token
+            * n_blocks * bl, 3),
+        "transfer_ms": None, "reprefill_ms": None, "pays": None,
+    }
+    if link_gbps:
+        out["transfer_ms"] = round(
+            (data_bytes + overhead) * 8 / (link_gbps * 1e9) * 1e3, 3)
+    if prefill_tok_per_s:
+        out["reprefill_ms"] = round(
+            n_blocks * bl / prefill_tok_per_s * 1e3, 3)
+    if out["transfer_ms"] is not None and out["reprefill_ms"] is not None:
+        out["pays"] = out["transfer_ms"] < out["reprefill_ms"]
+    return out
+
+
 # measured-vs-modeled movement worth flagging, the same 25% bar the
 # autotune knee-drift check uses (tools/dlprof.py mirrors both — it must
 # run with no repo on the path; tests pin the mirrors against each other)
@@ -165,6 +308,108 @@ def reconcile_wire(measured: float, modeled: float, *,
         out["note"] = ("no model to reconcile against (modeled == 0) — "
                        "measured traffic stands alone")
     return out
+
+
+# the collective kernels of a torch.profiler trace: NCCL names its device
+# kernels ncclDevKernel_<Op>_... / ncclKernel_<Op>_...
+COLLECTIVE_MARKERS = ("AllReduce", "AllGather", "ReduceScatter", "AllToAll",
+                      "SendRecv", "Broadcast")
+# the device-side event categories of a torch.profiler Chrome trace
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _trace_events(trace_dir: str) -> list:
+    """The newest Chrome trace under trace_dir (torch.profiler's
+    export_chrome_trace: `--profile DIR`, `/admin/profile`), its
+    traceEvents; [] when there is none."""
+    import glob
+    import json
+    import os
+
+    files = sorted(glob.glob(os.path.join(trace_dir, "**", "*.json"),
+                             recursive=True), key=os.path.getmtime)
+    for path in reversed(files):
+        try:
+            with open(path) as f:
+                data = json.load(f)
+        except (OSError, ValueError):
+            continue
+        events = data.get("traceEvents") if isinstance(data, dict) else data
+        if isinstance(events, list):
+            return events
+    return []
+
+
+def _stem(name: str) -> str:
+    """A kernel's name without its return type, template arguments and
+    parameter list: "void q40_gemv1_kernel<...>(...)" -> "q40_gemv1_kernel"."""
+    name = name.split("(")[0]
+    if name.startswith("void "):
+        name = name[5:]
+    return name.split("<")[0].strip()
+
+
+def _device_events(events: list) -> list:
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS]
+
+
+def per_step_op_ms(trace_dir: str, markers: tuple = COLLECTIVE_MARKERS,
+                   module_hint: str | None = None) -> list:
+    """PER-STEP summed device time (ms) of the kernels whose name holds
+    any marker, from a torch.profiler trace — the port's reading of the
+    JAX function (there, one step is one executed XLA module). Here one
+    step is one replayed CUDA graph: each ``cudaGraphLaunch`` runtime
+    event, with the device kernels that carry its correlation id, in
+    timeline order (``module_hint``, when given, keeps the steps that
+    launched a kernel whose name holds it). Returns [] when the trace
+    has no graph replay on a device (CPU runs, eager steps): the caller
+    falls back to the microbench."""
+    events = _trace_events(trace_dir)
+    launches = sorted((e.get("ts", 0.0), e.get("args", {}).get("correlation"))
+                      for e in events
+                      if e.get("ph") == "X" and e.get("name") == "cudaGraphLaunch")
+    if not launches:
+        return []
+    index = {corr: i for i, (_, corr) in enumerate(launches)}
+    total = [0.0] * len(launches)
+    hinted = [module_hint is None] * len(launches)
+    for e in _device_events(events):
+        i = index.get(e.get("args", {}).get("correlation"))
+        if i is None:
+            continue
+        name = e.get("name", "")
+        if module_hint is not None and module_hint in name:
+            hinted[i] = True
+        if any(m in name for m in markers):
+            total[i] += float(e.get("dur", 0.0)) / 1e3
+    return [t for t, h in zip(total, hinted) if h]
+
+
+def per_trace_attribution(trace_dir: str) -> tuple[dict, float]:
+    """ONE walk of a trace giving both halves of a sampled step's
+    attribution: ({kernel name: total device ms}, total collective device
+    ms). ({}, 0.0) when the trace has no device events (CPU runs)."""
+    mods: dict[str, float] = {}
+    sync_ms = 0.0
+    for e in _device_events(_trace_events(trace_dir)):
+        ms = float(e.get("dur", 0.0)) / 1e3
+        name = e.get("name", "")
+        stem = _stem(name)
+        mods[stem] = mods.get(stem, 0.0) + ms
+        if any(m in name for m in COLLECTIVE_MARKERS):
+            sync_ms += ms
+    return ({k: round(v, 4) for k, v in mods.items()}, round(sync_ms, 4))
+
+
+def per_module_ms(trace_dir: str) -> dict:
+    """PER-KERNEL summed device time from a torch.profiler trace: {kernel
+    name: total ms over its launches} (the JAX function keys by executed
+    XLA module; a replayed CUDA graph has no such name, so the port keys
+    by the kernels it replays: q40_gemv1_kernel, flash_attention's, the
+    copies). {} when the trace has no device events."""
+    return per_trace_attribution(trace_dir)[0]
+
 
 
 def _axis_name(axes: tuple):

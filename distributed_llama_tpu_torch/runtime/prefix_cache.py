@@ -37,9 +37,12 @@ Invariants:
     the scheduler calls it on abort, and a supervisor rebuild mints a fresh
     engine, arena and tree (runtime/resilience.py).
 
-The cross-replica transfer half of the JAX module (``export_pin``,
-``export_block_host``, ``import_path``, ``transfer=True``) belongs to the
-fleet, ROADMAP item 16, and is not ported.
+The cross-replica transfer half (runtime/kv_transfer.py): ``export_pin``
+pins a path for a donor, ``export_block_host`` copies one block to the
+host (``Engine.block_export``), ``import_path`` attaches fetched blocks
+under their token path (``Engine.slot_import_block``). ``transfer=True``
+marks a cache that takes part; both copies are eager and in place, so
+nothing is captured for them.
 
 Thread model: every method runs in the scheduler's step under its mutex,
 except ``match_len`` (a read-only peek); the counters in ``stats`` are plain
@@ -78,14 +81,12 @@ class _Node:
 class PrefixCache:
     def __init__(self, engine, *, num_blocks: int, block_len: int,
                  transfer: bool = False):
-        if transfer:
-            raise ValueError("transfer=True is not ported yet: the KV "
-                             "transfer plane comes with the fleet (ROADMAP "
-                             "item 16)")
         if num_blocks < 1 or not 1 <= block_len <= engine.seq_len:
             raise ValueError(f"prefix cache of {num_blocks} blocks of "
                              f"{block_len} tokens (context {engine.seq_len})")
         self.engine = engine
+        # a member of the block-transfer plane (runtime/kv_transfer.py)
+        self.transfer = bool(transfer)
         self.block_len = int(block_len)
         self.num_blocks = int(num_blocks)
         # the most blocks a seed or a publish covers
@@ -228,6 +229,80 @@ class PrefixCache:
                 n.refs = max(n.refs - 1, 0)
             if path:
                 self._push_candidate(path[-1])  # the walk's deepest leaf
+
+    # -- cross-replica block transfer (runtime/kv_transfer.py) ---------------
+
+    def export_pin(self, tokens: list[int]):
+        """Donor side of a fill: the whole-block matched path of `tokens`,
+        PINNED until the caller unpins (eviction never frees a block
+        mid-transfer). No len - 1 cap: an exported block only reaches a
+        sibling's tree, whose admission applies the cap; no hit stats (a
+        transfer is not an admission). Returns (n_tokens, block_ids,
+        pins)."""
+        self._tick += 1
+        path = self._walk(tokens, min(len(tokens) // self.block_len,
+                                      self.max_seed_blocks))
+        for node in path:
+            node.refs += 1
+            node.last_use = self._tick
+        return (len(path) * self.block_len,
+                [node.block for node in path], tuple(path))
+
+    def export_block_host(self, block_id: int):
+        """One arena block's (K, V) on the host, each (layers, kv_heads,
+        block_len, head_size) in the cache dtype: the bytes a BLOCK_DATA
+        frame ships. Runs under the scheduler's step mutex like every
+        arena access."""
+        return self.engine.block_export(self.arena_k, self.arena_v,
+                                        block_id)
+
+    def import_path(self, tokens: list[int], start_block: int,
+                    blocks: list) -> int:
+        """Importer side of a fill: attach the fetched (K, V) pairs
+        `blocks` (whole blocks start_block.. of `tokens`) under their
+        token path, each NEW block copied into a freshly allocated arena
+        block (Engine.slot_import_block). Existing nodes are walked for
+        free (a racing local publish wins); it stops at the first block
+        the pool cannot serve (dropping the tail keeps the tree
+        prefix-closed). If the chain below start_block broke since the
+        caller measured its match (a local eviction), nothing attaches
+        and it returns 0: the admission prefills. The walk path is
+        pinned while importing, as in publish. Returns tokens
+        imported."""
+        bl = self.block_len
+        self._tick += 1
+        node = self._root
+        imported = 0
+        end = min(start_block + len(blocks), self.max_seed_blocks,
+                  len(tokens) // bl)
+        path: list[_Node] = []
+        try:
+            for i in range(end):
+                key = tuple(tokens[i * bl: (i + 1) * bl])
+                child = node.children.get(key)
+                if child is None:
+                    if i < start_block:
+                        return 0  # broken parent chain: unattachable
+                    block = self._alloc()
+                    if block is None:
+                        break  # pool full of pinned blocks: drop the tail
+                    k_blk, v_blk = blocks[i - start_block]
+                    self.engine.slot_import_block(self.arena_k, self.arena_v,
+                                                  k_blk, v_blk, block)
+                    child = _Node(key, block, node, epoch=self._epoch)
+                    node.children[key] = child
+                    self.stats.blocks_in_use += 1
+                    imported += 1
+                child.refs += 1
+                path.append(child)
+                child.last_use = self._tick
+                node = child
+        finally:
+            for n in path:
+                n.refs = max(n.refs - 1, 0)
+            if path:
+                self._push_candidate(path[-1])
+        return imported * bl
 
     # -- the pool -------------------------------------------------------------
 

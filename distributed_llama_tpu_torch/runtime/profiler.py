@@ -550,12 +550,6 @@ class Profiler:
         self.active: list | None = None
         self._lock = threading.Lock()
         self._busy = False  # guarded by self._lock
-        # held around every graph replay (runtime/graphs.py) and around
-        # torch.profiler's start and stop in `capture`, so that no replay
-        # is in flight on another thread while CUPTI turns on or off: a
-        # capture's stop beside a scheduler thread's cudaGraphLaunch hung
-        # a serving process on the H100 (ROADMAP S1)
-        self.launch_gate = threading.RLock()
 
     # -- the /admin/profile body ----------------------------------------
 
@@ -579,11 +573,16 @@ class Profiler:
         activities) of the next `ms` milliseconds to
         `directory`/trace.json (created). Synchronous: the caller's thread
         sleeps out the window while the other threads keep launching, so
-        a return means the trace is on disk; the start and the stop wait
-        out a graph replay in flight (`launch_gate`). Raises
+        a return means the trace is on disk; the start and the stop hold
+        the device gate exclusively (runtime/graphs.DEVICE_GATE), so no
+        graph replay is in flight on another thread while CUPTI turns on
+        or off: a stop beside a scheduler thread's cudaGraphLaunch hung a
+        serving process on the H100 (ROADMAP S1). Raises
         RuntimeError("capture busy") while a capture or a sampled step
         owns the profiler."""
         from torch.profiler import ProfilerActivity, profile
+
+        from .graphs import DEVICE_GATE  # graphs imports this module
 
         with self._lock:
             if self._busy:
@@ -597,12 +596,12 @@ class Profiler:
             if torch.cuda.is_available():
                 acts.append(ProfilerActivity.CUDA)
             prof = profile(activities=acts)
-            with self.launch_gate:
+            with DEVICE_GATE.exclusive():
                 prof.start()
             try:
                 time.sleep(max(float(ms), 0.0) / 1e3)
             finally:
-                with self.launch_gate:
+                with DEVICE_GATE.exclusive():
                     prof.stop()
             path = os.path.join(directory, "trace.json")
             prof.export_chrome_trace(path)

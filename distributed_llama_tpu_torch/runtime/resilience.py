@@ -6,7 +6,8 @@ the port of the JAX package's runtime/resilience.py for one GPU.
   * it runs the scheduler's step loop on its own thread and catches step
     exceptions;
   * a WATCHDOG thread reads the scheduler's in-step heartbeat
-    (``Scheduler._step_t0``) and declares a stall when one step exceeds
+    (``Scheduler.step_age``: a wait at the device gate is left out) and
+    declares a stall when one step exceeds
     ``stall_timeout`` (a hang raises nothing; the wedged thread cannot be
     interrupted, so its generation is abandoned);
   * RECOVERY fails the in-flight and queued requests with structured
@@ -101,8 +102,21 @@ class EngineSupervisor:
                  slo_ttft_ms: float | None = None,
                  slo_itl_ms: float | None = None,
                  draft: str | None = None, draft_len: int = 0,
-                 draft_vocab: int | None = None):
+                 draft_vocab: int | None = None,
+                 kv_transfer: bool = False, fault_key: str | None = None,
+                 fair_queue_factory=None):
         self._factory = engine_factory
+        # this replica at the key-filtered fault sites: every generation's
+        # scheduler carries it, so an armed kill follows the replica
+        # across rebuilds
+        self._fault_key = fault_key
+        # the block-transfer plane (runtime/kv_transfer.py): every
+        # generation's prefix cache is built with transfer on
+        self._kv_transfer = bool(kv_transfer)
+        # weighted-fair admission (runtime/fleet.py): a zero-argument
+        # callable minting a fresh WFQueue a generation; the TenantLedger
+        # behind it is the caller's, so budgets survive rebuilds
+        self._fair_queue_factory = fair_queue_factory
         self._chunk = chunk
         # prefix_blocks > 0: a radix prefix cache of that many blocks of
         # prefix_block_len tokens, minted fresh with every generation
@@ -184,14 +198,16 @@ class EngineSupervisor:
         return not self.max_queue or len(sched._queue) < self.max_queue
 
     def submit(self, prompt, max_tokens, sampler, eos_id=None,
-               deadline=None):
+               deadline=None, trace_id=None, tenant=None,
+               priority="normal"):
         with self._state_lock:
             if self._state != READY:
                 self.sup_stats.rejected_unready += 1
                 raise EngineUnready(self._state, self._retry_after())
             sched = self._sched
         req = sched.submit(prompt, max_tokens, sampler, eos_id=eos_id,
-                           deadline=deadline)
+                           deadline=deadline, trace_id=trace_id,
+                           tenant=tenant, priority=priority)
         if sched._stop and not req.finished.is_set():
             # the generation died between the state check and the
             # enqueue: its abort may have drained the queue already
@@ -316,7 +332,8 @@ class EngineSupervisor:
         pc = None
         if self._prefix_blocks > 0:
             pc = PrefixCache(engine, num_blocks=self._prefix_blocks,
-                             block_len=self._prefix_block_len)
+                             block_len=self._prefix_block_len,
+                             transfer=self._kv_transfer)
         draft_factory = None
         if self._draft:
             from .draft import build_draft
@@ -330,7 +347,10 @@ class EngineSupervisor:
                          slo_itl_ms=self._slo_itl_ms,
                          draft_factory=draft_factory,
                          draft_len=self._draft_len,
-                         draft_vocab=self._draft_vocab)
+                         draft_vocab=self._draft_vocab,
+                         fault_key=self._fault_key,
+                         fair_queue=(self._fair_queue_factory()
+                                     if self._fair_queue_factory else None))
 
     def _start_loop(self, sched: Scheduler, gen: int) -> None:
         for g in [g for g, t in self._loop_threads.items()
@@ -369,8 +389,8 @@ class EngineSupervisor:
                 if self._state != READY:
                     continue
                 sched, gen = self._sched, self._gen
-            t0 = sched._step_t0
-            if t0 is not None and time.perf_counter() - t0 > self.stall_timeout:
+            age = sched.step_age()
+            if age is not None and age > self.stall_timeout:
                 self.sup_stats.watchdog_trips += 1
                 self._on_failure(
                     gen, f"step stalled > {self.stall_timeout:.1f}s "

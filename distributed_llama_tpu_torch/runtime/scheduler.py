@@ -82,8 +82,14 @@ wall, and turns speculation off while the ITL EWMA endangers the SLO.
 ``warmup()`` runs every rung, so an adaptive run captures no graph after
 warmup.
 
-Not ported: the weighted-fair queue and the KV-transfer methods (the
-lock-free ``kv_match_len`` peek excepted); the constructor refuses them.
+Replicas and the fleet (runtime/router.py, runtime/fleet.py):
+``fault_key`` names this scheduler at the key-filtered fault sites (the
+router's replica i is ``r{i}``); ``fair_queue`` (a ``fleet.WFQueue``)
+replaces the FIFO admission deque with weighted-fair queueing over the
+requests' ``tenant`` and ``priority``; ``spec_degraded`` is the fleet's
+"no speculation" actuator; the ``kv_*`` methods are the block-transfer
+plane's doors into the radix tree (runtime/kv_transfer.py), each under the
+step mutex except the ``kv_match_len`` peek.
 """
 
 from __future__ import annotations
@@ -97,20 +103,14 @@ from typing import Iterator
 
 import numpy as np
 
+from ..ops import launch_scope
 from .faults import FAULTS
+from .graphs import DEVICE_GATE
 from .profiler import PROFILER
 from .sampling import FullLogitsView
 from .speculative import count_accepted
 from .stats import RequestStats, ServeStats, SpecStats
 from .trace import TRACER
-
-# constructor options of the JAX Scheduler that the port does not have yet,
-# with the ROADMAP item that brings each
-UNPORTED = {
-    "fair_queue": "the weighted-fair queue (ROADMAP item 16)",
-    "fault_key": "replica fault keys (ROADMAP item 16)",
-}
-
 
 class PromptTooLong(ValueError):
     """Prompt does not fit the engine's context window."""
@@ -154,8 +154,14 @@ class ServeRequest:
 
     def __init__(self, rid: int, prompt: list[int], max_tokens: int,
                  sampler, stop_ids: set[int],
-                 deadline: float | None = None, trace_id: int = 0):
+                 deadline: float | None = None, trace_id: int = 0,
+                 tenant: str | None = None, priority: str = "normal"):
         self.id = rid
+        # the fleet's fairness tags (runtime/fleet.py): the tenant whose
+        # weighted share and token budget this request rides, and its
+        # priority band
+        self.tenant = tenant
+        self.priority = priority
         # flight-recorder span id (runtime/trace.py), minted once a
         # request at the scheduler door; 0 = untraced
         self.trace_id = trace_id
@@ -374,15 +380,12 @@ class Scheduler:
                  slo_ttft_ms: float | None = None,
                  slo_itl_ms: float | None = None,
                  draft_factory=None, draft_len: int = 0,
-                 draft_vocab: int | None = None, **unported):
-        asked = {k: v for k, v in unported.items() if v}
-        unknown = set(asked) - set(UNPORTED)
-        if unknown:
-            raise TypeError(f"Scheduler got unexpected options {sorted(unknown)}")
-        if asked:
-            raise ValueError("not ported yet: " + "; ".join(
-                f"{k} ({UNPORTED[k]})" for k in sorted(asked)))
+                 draft_vocab: int | None = None,
+                 fault_key: str | None = None, fair_queue=None):
         self.engine = engine
+        # this scheduler at the replica-level fault sites (replica_raise,
+        # replica_stall): the router names replica i's scheduler "r{i}"
+        self.fault_key = fault_key
         self.chunk = int(chunk or min(engine.prefill_chunk, engine.seq_len))
         if not 1 <= self.chunk <= engine.seq_len:
             raise ValueError(f"chunk {self.chunk} outside 1..{engine.seq_len}")
@@ -421,8 +424,21 @@ class Scheduler:
         self.queue_timeout = queue_timeout
         self.request_deadline = request_deadline
         # deque.append/popleft are atomic under the GIL, so submit() never
-        # waits for the step mutex (an in-flight forward)
-        self._queue: deque = deque()
+        # waits for the step mutex (an in-flight forward). fair_queue
+        # (runtime/fleet.WFQueue) duck-types this slice of the deque
+        # (append, popleft, len, bool): weighted-fair admission when
+        # tenant budgets are armed; its own lock is never held across a
+        # forward
+        self._queue = fair_queue if fair_queue is not None else deque()
+        # the fleet ladder's "no_spec" rung (runtime/fleet.ShedLadder):
+        # ORs with the admission policy's spec gate. Written by the fleet
+        # controller's thread, read by the stepping thread (a bool store
+        # is atomic under the GIL)
+        self.spec_degraded = False
+        # this scheduler's kernel launches by counter name, its steps' and
+        # warmup's (ops/launch_scope.py): thread replicas share the
+        # process-wide counters, and these sum to them
+        self.launches: dict[str, int] = {}
         self._mutex = threading.RLock()  # step()/exclusive() mutual excl.
         self._wake = threading.Event()
         self.stats = ServeStats()
@@ -442,6 +458,7 @@ class Scheduler:
         # entered, None between steps. Written by the stepping thread,
         # read lock-free by the supervisor's watchdog
         self._step_t0: float | None = None
+        self._step_gate0 = (0, 0.0)  # the stepping thread, its gate wait
         self._rid = 0  # guarded by self._rid_lock
         self._rid_lock = threading.Lock()
 
@@ -450,7 +467,8 @@ class Scheduler:
     def submit(self, prompt: list[int], max_tokens: int, sampler,
                eos_id: int | set[int] | None = None,
                deadline: float | None = None,
-               trace_id: int | None = None) -> ServeRequest:
+               trace_id: int | None = None, tenant: str | None = None,
+               priority: str = "normal") -> ServeRequest:
         """Enqueue a request; it joins the running batch when a slot frees.
         `sampler` is the request's own (its RNG stream is the slot's
         sampling state). max_tokens <= 0 prefills and emits nothing.
@@ -483,12 +501,13 @@ class Scheduler:
         if trace_id is None:
             trace_id = TRACER.new_id() if TRACER.enabled else 0
         req = ServeRequest(rid, prompt, max_tokens, sampler, stop_ids,
-                           deadline=deadline, trace_id=trace_id)
+                           deadline=deadline, trace_id=trace_id,
+                           tenant=tenant, priority=priority)
         req.stats.t_submit = now
         if TRACER.enabled:
             TRACER.event("enqueue", trace_id, rid=rid,
                          n_prompt=len(prompt), max_tokens=max_tokens,
-                         key=None)
+                         key=self.fault_key)
         with self._rid_lock:
             self.stats.requests_submitted += 1
         self.stats.requests.append(req.stats)
@@ -522,6 +541,8 @@ class Scheduler:
         if PROFILER.sample_every and (
                 self._queue or any(s.req is not None for s in self.slots)):
             prof = PROFILER.step_begin()
+        me = threading.get_ident()
+        self._step_gate0 = (me, DEVICE_GATE.waited_s(me))
         self._step_t0 = time.perf_counter()  # watchdog heartbeat: in-step
         try:
             return self._step_body()
@@ -530,6 +551,15 @@ class Scheduler:
             self._step_t0 = None
             if prof is not None:
                 PROFILER.step_end(prof, wall_ms)
+
+    def step_age(self) -> float | None:
+        """Seconds the step in flight has run, None between steps. Its
+        waits at the device gate (a sibling's capture, itself held off by
+        a borrow) are left out: a step that waits there is not stalled."""
+        t0, (ident, w0) = self._step_t0, self._step_gate0
+        if t0 is None:
+            return None
+        return time.perf_counter() - t0 - (DEVICE_GATE.waited_s(ident) - w0)
 
     def _step_body(self) -> bool:
         if not self._queue and all(s.req is None for s in self.slots):
@@ -540,6 +570,17 @@ class Scheduler:
         FAULTS.fire("step_raise")
         FAULTS.fire("step_stall")
         FAULTS.fire("slow_step")
+        # the replica-level sites: an armed key=rK spec counts and fires
+        # on replica K's working steps only
+        FAULTS.fire("replica_raise", key=self.fault_key)
+        FAULTS.fire("replica_stall", key=self.fault_key)
+        # the device work, beside sibling replicas' steps and never
+        # beside a capture (runtime/graphs.py), its launches counted to
+        # this scheduler
+        with DEVICE_GATE.shared(), launch_scope.scope(self.launches):
+            return self._step_work()
+
+    def _step_work(self) -> bool:
         now = time.perf_counter()
         # reap cancellations and expired deadlines first, so a dead
         # client's request never costs another forward
@@ -571,8 +612,9 @@ class Scheduler:
         # the policy's "no speculation" actuator gates every draft
         # launch: while the ITL EWMA endangers the SLO, decode rows take
         # plain (B, 1) steps
-        spec_ok = self.draft is not None and (
-            self.admission is None or self.admission.spec_allowed)
+        spec_ok = (self.draft is not None and not self.spec_degraded
+                   and (self.admission is None
+                        or self.admission.spec_allowed))
         if self.draft is not None and dec and not spec_ok:
             self._spec_stats.degraded_steps += 1
         if spec_ok:
@@ -593,7 +635,7 @@ class Scheduler:
             TRACER.step(decode_rows=len(dec), prefill_rows=len(pre),
                         chunk=cw, queue_depth=len(self._queue),
                         wall_ms=(time.perf_counter() - self._step_t0) * 1e3,
-                        key=None)
+                        key=self.fault_key)
         if self.admission is not None:
             # the wall the timeline records is the policy's signal; it
             # sets the NEXT iteration's width
@@ -638,7 +680,7 @@ class Scheduler:
                 TRACER.event("admit", req.trace_id, slot=s.idx,
                              queue_ms=round(
                                  (now - req.stats.t_submit) * 1e3, 3),
-                             key=None)
+                             key=self.fault_key)
             if self.prefix_cache is not None:
                 # seed the longest cached prefix (whole blocks, capped at
                 # len - 1) and prefill only the suffix; the path stays
@@ -906,7 +948,7 @@ class Scheduler:
                 TRACER.event("spec", req.trace_id,
                              forwards=req.stats.spec_forwards,
                              drafted=req.stats.spec_drafted,
-                             accepted=req.stats.spec_accepted, key=None)
+                             accepted=req.stats.spec_accepted, key=self.fault_key)
             TRACER.event("finish", req.trace_id, reason=reason,
                          n_out=req.stats.n_out)
         req.events.put(("done", reason))
@@ -926,7 +968,8 @@ class Scheduler:
         too: the seed really writes row 0, so the scheduler must be
         idle."""
         eng = self.engine
-        with self._mutex:
+        with self._mutex, DEVICE_GATE.shared(), \
+                launch_scope.scope(self.launches):
             gate = np.full((eng.batch,), eng.seq_len, np.int32)
             widths = (self.admission.ladder if self.admission is not None
                       else [self.chunk])
@@ -991,7 +1034,7 @@ class Scheduler:
             TRACER.event("error", req.trace_id,
                          code=frame.get("code", "error"),
                          retryable=bool(frame.get("retryable", True)),
-                         n_out=req.stats.n_out, key=None)
+                         n_out=req.stats.n_out, key=self.fault_key)
         req.events.put(("error", dict(frame)))
         req.finished.set()
         return True
@@ -1036,6 +1079,43 @@ class Scheduler:
         pc = self.prefix_cache
         return pc.match_len(tokens) if pc is not None else 0
 
+    # -- cross-replica KV block transfer (runtime/kv_transfer.py) ----------
+    # A fill publishes the fetched blocks into this scheduler's tree
+    # before submit, and _admit's ordinary lookup_pin seeds them: the
+    # shipped bytes are a sibling's prefill writes, so greedy tokens stay
+    # those of a cold prefill in the same chunk shapes.
+
+    def kv_export_pin(self, tokens: list[int]):
+        """Donor: pin and describe the exportable path (under the step
+        mutex): (n_tokens, block_ids, pins), (0, [], ()) with the cache
+        off."""
+        if self.prefix_cache is None:
+            return 0, [], ()
+        with self._mutex:
+            return self.prefix_cache.export_pin(tokens)
+
+    def kv_export_block(self, block_id: int):
+        """Donor: one pinned block's host K/V pair (under the step
+        mutex: the copy must not overlap a step's arena writes)."""
+        with self._mutex:
+            return self.prefix_cache.export_block_host(block_id)
+
+    def kv_unpin(self, pins) -> None:
+        with self._mutex:
+            if self.prefix_cache is not None:
+                self.prefix_cache.unpin(pins)
+
+    def kv_import_prefix(self, tokens: list[int], start_block: int,
+                         blocks: list) -> int:
+        """Importer: publish fetched blocks into this scheduler's tree
+        (under the step mutex); tokens imported, 0 when nothing attaches
+        (the admission then prefills)."""
+        if self.prefix_cache is None:
+            return 0
+        with self._mutex:
+            return self.prefix_cache.import_path(tokens, start_block,
+                                                 blocks)
+
     @contextlib.contextmanager
     def exclusive(self):
         """Lend the batched engine to a caller: blocks the step loop,
@@ -1044,4 +1124,5 @@ class Scheduler:
         with self._mutex:
             while self._step_locked():
                 pass
-            yield self.engine
+            with DEVICE_GATE.shared(), launch_scope.scope(self.launches):
+                yield self.engine

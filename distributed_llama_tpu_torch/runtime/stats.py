@@ -10,9 +10,10 @@ cache and speculative decoding (RequestStats, ServeStats, SupervisorStats,
 PrefixCacheStats, SpecStats, percentile), and the flight recorder's step
 timeline (StepTimelineStats, owned by runtime/trace.Tracer), and the
 multi-node control star's records (WireStats, the measured wire ledger,
-and ClusterStats, owned by parallel/multihost's links). The router,
-transfer and fleet records are not ported: the port serves none of those
-yet.
+and ClusterStats, owned by parallel/multihost's links), and the fleet's
+records: RouterStats (runtime/router.Router), ProcStats (a process
+replica's supervision), KVTransferStats (the block-transfer plane,
+runtime/kv_transfer.py) and FleetStats (runtime/fleet.FleetController).
 """
 
 from __future__ import annotations
@@ -502,3 +503,255 @@ class ClusterStats:
             "wire": self.wire.summary(),
             "peers_lost": list(self.peers_lost),
         }
+
+
+@dataclasses.dataclass
+class KVTransferStats:
+    """Counters for the cross-replica KV block transfer plane
+    (runtime/kv_transfer.py): cache FILLs on miss (a replica imports a
+    sibling's published arena blocks instead of re-prefilling), the
+    donor-side export serving, and the router's prefill/decode
+    disaggregation handoffs. Owned by the party that does the work —
+    the Router for thread-tier fills + disaggregation decisions, each
+    worker's ReplicaServer for its own wire serving/fills — and surfaced
+    as the ``kv_transfer`` /stats block + the ``dllama_kv_transfer_*``
+    /metrics family in EVERY tier incl. idle (enabled=False, zeros:
+    a tier must never lose a metric family to a launch flag).
+
+    ``wire`` is a :class:`WireStats` ledger accounting the RMSG_BLOCK_*
+    frames per (peer, kind, dir) — the same measured-bytes discipline as
+    the cluster control plane, so ``netstats.reconcile_wire``
+    can close measured-vs-modeled over block transfers too."""
+
+    enabled: bool = False
+    tier: str = "mixed"        # this party's role: prefill|decode|mixed
+    block_len: int = 0
+    block_bytes: int = 0       # one block's K+V payload bytes (exact)
+    # importer side (cache FILL on miss)
+    fills_requested: int = 0   # fill decisions / attempts
+    fills_ok: int = 0          # >= 1 block actually imported
+    fill_fallbacks: int = 0    # error/timeout/donor death -> re-prefill
+    fill_misses: int = 0       # donor answered shorter than expected
+    tokens_filled: int = 0     # prompt tokens imported instead of prefilled
+    blocks_filled: int = 0
+    bytes_rx: int = 0          # block payload bytes received
+    # donor side (export serving)
+    queries_served: int = 0
+    query_misses: int = 0      # QUERY answered with nothing fetchable
+    blocks_exported: int = 0
+    bytes_tx: int = 0          # block payload bytes sent
+    donor_aborts: int = 0      # exports cut short (peer death, error)
+    # prefill/decode disaggregation (router-side)
+    prefill_passes: int = 0          # prefill-tier passes completed
+    prefill_pass_fallbacks: int = 0  # no prefill worker / pass failed ->
+    #                                  unified mixed path
+    shadow_truncates: int = 0        # stale shadow entries cleared by a
+    #                                  QUERY miss answer (donor eviction)
+
+    def __post_init__(self):
+        import threading
+        from collections import deque
+
+        # whole-fill wall ms (connect -> last block imported)
+        self.transfer_ms = deque(maxlen=1000)  # guarded by self.lock
+        self.wire = WireStats()
+        # counter mutations ride this lock (concurrent fills/donor
+        # connections all write here; += on a dataclass int is a
+        # read-modify-write that can drop counts under contention —
+        # the same discipline RouterStats keeps via the router lock)
+        self.lock = threading.Lock()
+
+    def note_transfer_ms(self, ms: float) -> None:
+        with self.lock:
+            self.transfer_ms.append(float(ms))
+
+    def summary(self) -> dict:
+        rnd = lambda v: None if v is None else round(v, 3)  # noqa: E731
+        xs = list(self.transfer_ms)
+        out = {
+            "enabled": self.enabled,
+            "tier": self.tier,
+            "block_len": self.block_len,
+            "block_bytes": self.block_bytes,
+            "fills_requested": self.fills_requested,
+            "fills_ok": self.fills_ok,
+            "fill_fallbacks": self.fill_fallbacks,
+            "fill_misses": self.fill_misses,
+            "tokens_filled": self.tokens_filled,
+            "blocks_filled": self.blocks_filled,
+            "bytes_rx": self.bytes_rx,
+            "queries_served": self.queries_served,
+            "query_misses": self.query_misses,
+            "blocks_exported": self.blocks_exported,
+            "bytes_tx": self.bytes_tx,
+            "donor_aborts": self.donor_aborts,
+            "prefill_passes": self.prefill_passes,
+            "prefill_pass_fallbacks": self.prefill_pass_fallbacks,
+            "shadow_truncates": self.shadow_truncates,
+            "transfer_p50_ms": rnd(percentile(xs, 50)),
+            "transfer_p99_ms": rnd(percentile(xs, 99)),
+        }
+        wire = self.wire.summary()
+        if wire.get("tx_bytes") or wire.get("rx_bytes"):
+            out["wire"] = wire
+        return out
+
+    @staticmethod
+    def merge(blocks: list) -> dict:
+        """Sum a list of summary() dicts into one aggregate (the router's
+        top-level block over its own counters + every worker's). Counters
+        add; enabled/tier describe the aggregate; percentiles are not
+        mergeable and report None unless exactly one side has them."""
+        keys = ("fills_requested", "fills_ok", "fill_fallbacks",
+                "fill_misses", "tokens_filled", "blocks_filled",
+                "bytes_rx", "queries_served", "query_misses",
+                "blocks_exported", "bytes_tx", "donor_aborts",
+                "prefill_passes", "prefill_pass_fallbacks",
+                "shadow_truncates")
+        blocks = [b for b in blocks if isinstance(b, dict)]
+        out = {k: sum(int(b.get(k) or 0) for b in blocks) for k in keys}
+        out["enabled"] = any(b.get("enabled") for b in blocks)
+        out["tier"] = "aggregate"
+        out["block_len"] = max((int(b.get("block_len") or 0)
+                                for b in blocks), default=0)
+        out["block_bytes"] = max((int(b.get("block_bytes") or 0)
+                                  for b in blocks), default=0)
+        with_ms = [b for b in blocks
+                   if b.get("transfer_p50_ms") is not None]
+        out["transfer_p50_ms"] = (with_ms[0]["transfer_p50_ms"]
+                                  if len(with_ms) == 1 else None)
+        out["transfer_p99_ms"] = (with_ms[0].get("transfer_p99_ms")
+                                  if len(with_ms) == 1 else None)
+        return out
+
+
+@dataclasses.dataclass
+class FleetStats:
+    """Counters owned by runtime/fleet.FleetController — the
+    measurement→decision loop over the serving fleet: autoscale
+    decisions (spawns, reaps, HBM-blocked refusals, spawn failures +
+    backoff), the overload ladder's position, and door-level sheds by
+    reason. Surfaced as the ``fleet`` /stats block + the
+    ``dllama_fleet_*`` /metrics family in EVERY tier incl. idle
+    (enabled=False, zeros: a tier must never lose a metric family to a
+    launch flag); the per-tenant admitted/shed/budget ledger rides the
+    same block from the controller's TenantLedger."""
+
+    enabled: bool = False
+    ticks: int = 0             # controller observation rounds
+    pressure: float = 0.0      # last observed serve-tier pressure
+    rung: int = 0              # overload ladder position (0 = healthy)
+    target_replicas: int = 0   # what the controller wants
+    scale_ups: int = 0         # replicas spawned into rotation
+    scale_downs: int = 0       # replicas drained + reaped
+    scale_blocked_hbm: int = 0  # spawns refused by the HBM ceiling
+    spawn_failures: int = 0    # scale-up spawns that died (→ backoff)
+    warm_fills: int = 0        # sibling KV fills into fresh replicas
+    sheds: int = 0             # door rejections by the ladder
+    clamped: int = 0           # admissions with max_tokens clamped
+
+    def __post_init__(self):
+        import threading
+
+        # shed rejections keyed by ladder reason ("shed"/"prefix_only")
+        self.sheds_by_reason: dict[str, int] = {}
+        # counter mutations ride this lock (the controller thread, its
+        # spawn/reap worker threads, and the API door all write here)
+        self.lock = threading.Lock()
+
+    def summary(self) -> dict:
+        return {
+            "enabled": self.enabled,
+            "ticks": self.ticks,
+            "pressure": self.pressure,
+            "rung": self.rung,
+            "target_replicas": self.target_replicas,
+            "scale_ups": self.scale_ups,
+            "scale_downs": self.scale_downs,
+            "scale_blocked_hbm": self.scale_blocked_hbm,
+            "spawn_failures": self.spawn_failures,
+            "warm_fills": self.warm_fills,
+            "sheds": self.sheds,
+            "clamped": self.clamped,
+            "sheds_by_reason": dict(self.sheds_by_reason),
+        }
+
+
+@dataclasses.dataclass
+class RouterStats:
+    """Counters owned by runtime/router.Router — placement decisions,
+    failover retries, and per-replica breaker events, surfaced as the
+    ``router`` block of GET /stats (the per-replica supervisor summaries
+    ride the same payload as a ``replicas`` list)."""
+
+    replicas: int = 0
+    policy: str = ""
+    routed: int = 0             # successful placements (incl. retries)
+    routed_cache_hit: int = 0   # placements won by a radix prefix match
+    routed_affinity: int = 0    # placements won by session stickiness
+    routed_fallback: int = 0    # least-loaded / round-robin placements
+    retries: int = 0            # failover resubmits (pre-first-token)
+    failovers_ok: int = 0       # retried requests that then completed
+    midstream_failures: int = 0  # streams killed after >= 1 token: the
+    # structured NON-retryable frame the client saw (the router never
+    # silently replays a partially-delivered stream)
+    breaker_trips: int = 0      # router-level circuit opens
+    breaker_probes: int = 0     # half-open probe placements
+    drains: int = 0             # per-replica drains (rolling restart)
+    restarts: int = 0           # per-replica supervisor rebuilds
+    no_replica_rejections: int = 0  # submits with NO routable replica
+
+    def summary(self) -> dict:
+        return {k: getattr(self, k) for k in (
+            "replicas", "policy", "routed", "routed_cache_hit",
+            "routed_affinity", "routed_fallback", "retries",
+            "failovers_ok", "midstream_failures", "breaker_trips",
+            "breaker_probes", "drains", "restarts",
+            "no_replica_rejections")}
+
+
+@dataclasses.dataclass
+class ProcStats:
+    """Process-supervision counters owned by
+    runtime/router.RemoteReplicaHandle (local-spawn mode): every worker
+    exit is CLASSIFIED (``classify_exit`` — ``signal:SIGKILL``,
+    ``config_error``, ``fault_exit``, ...) and the respawn-to-routable
+    latency distribution is what the process-kill chaos tests assert their
+    bound against. Surfaced
+    as the ``proc`` block of each replica's /stats summary."""
+
+    respawns: int = 0         # successful respawn-to-routable cycles
+    spawn_failures: int = 0   # spawn attempts that died/hung pre-ready
+    exits: int = 0            # deaths of READY (post-handshake) workers
+
+    def __post_init__(self):
+        from collections import deque
+
+        # death-detected -> port-handshake-complete (warmed) latency
+        self.respawn_ms = deque(maxlen=1000)
+        # classes of ALL process deaths — ready-worker exits AND failed
+        # spawn attempts (a crash-looping `config_error` shows up here
+        # even though it never got far enough to count as an `exit`)
+        self.exit_classes: dict[str, int] = {}
+
+    def note_exit(self, cls: str) -> None:
+        self.exits += 1
+        self.exit_classes[cls] = self.exit_classes.get(cls, 0) + 1
+
+    def note_spawn_failure(self, cls: str | None) -> None:
+        self.spawn_failures += 1
+        if cls is not None:
+            self.exit_classes[cls] = self.exit_classes.get(cls, 0) + 1
+
+    def summary(self) -> dict:
+        rnd = lambda v: None if v is None else round(v, 3)  # noqa: E731
+        return {
+            "exits": self.exits,
+            "exit_classes": dict(self.exit_classes),
+            "respawns": self.respawns,
+            "spawn_failures": self.spawn_failures,
+            "respawn_p50_ms": rnd(percentile(list(self.respawn_ms), 50)),
+            "respawn_p99_ms": rnd(percentile(list(self.respawn_ms), 99)),
+        }
+
+

@@ -33,9 +33,11 @@ records ``cluster_tick``, ``cluster_lost``, ``handshake`` and ``bcast``,
 and its cross-process span methods are here: a worker ``reserve``s the
 root's trace ids and ships ``export_span`` in MSG_TRACE frames, which the
 root ``ingest``s onto its timeline, rebased by the heartbeat's clock-offset
-estimate. The router, KV transfer and fleet kinds (``route``, ``kv_fill``,
-``failover``, ``worker_exit``, ``respawn``, ``scale_*``, ``shed``,
-``degrade``) come with those layers (ROADMAP item 16).
+estimate. The router, the KV transfer and the fleet record ``route``,
+``kv_fill``, ``failover``, ``circuit``, ``worker_exit``, ``respawn``,
+``scale_up``/``scale_down``, ``shed`` and ``degrade`` (runtime/router.py,
+runtime/kv_transfer.py, runtime/fleet.py), and a replica worker process
+ships its spans in RMSG_TRACE frames (runtime/replica_worker.py).
 """
 
 from __future__ import annotations
@@ -368,7 +370,9 @@ TRACER = Tracer()
 
 # -- Prometheus text exposition ---------------------------------------------
 
-# /stats summary counters -> Prometheus counters
+# /stats summary counters -> Prometheus counters (same payload every tier
+# already emits, so the three serving tiers export identically by
+# construction)
 _COUNTERS = (
     ("requests_submitted", "dllama_requests_submitted_total",
      "Requests accepted at the serving door"),
@@ -397,6 +401,27 @@ _GAUGES = (
      "Max admission-queue depth (window)"),
 )
 
+_RESILIENCE = (
+    ("crashes", "dllama_supervisor_crashes_total"),
+    ("watchdog_trips", "dllama_supervisor_watchdog_trips_total"),
+    ("recoveries", "dllama_supervisor_recoveries_total"),
+    ("rejected_unready", "dllama_supervisor_rejected_unready_total"),
+    ("cluster_losses", "dllama_supervisor_cluster_losses_total"),
+)
+
+_ROUTER = (
+    ("routed", "dllama_router_routed_total"),
+    ("routed_cache_hit", "dllama_router_routed_cache_hit_total"),
+    ("routed_affinity", "dllama_router_routed_affinity_total"),
+    ("routed_fallback", "dllama_router_routed_fallback_total"),
+    ("retries", "dllama_router_retries_total"),
+    ("failovers_ok", "dllama_router_failovers_ok_total"),
+    ("midstream_failures", "dllama_router_midstream_failures_total"),
+    ("breaker_trips", "dllama_router_breaker_trips_total"),
+    ("breaker_probes", "dllama_router_breaker_probes_total"),
+    ("no_replica_rejections", "dllama_router_no_replica_rejections_total"),
+)
+
 _PREFIX = (
     ("lookups", "dllama_prefix_cache_lookups_total"),
     ("hits", "dllama_prefix_cache_hits_total"),
@@ -406,18 +431,11 @@ _PREFIX = (
     ("evictions", "dllama_prefix_cache_evictions_total"),
     ("publish_drops", "dllama_prefix_cache_publish_drops_total"),
 )
-# blocks_in_use is a level (it drops as blocks free or evict): a gauge,
-# never a counter, which rate() would read as a reset at every drop
+# blocks_in_use is a LEVEL (drops when blocks free/evict) — emitted as a
+# gauge, never through the counter table: rate() over a shrinking
+# "counter" reads every drop as a counter reset
 _PREFIX_GAUGES = (
     ("blocks_in_use", "dllama_prefix_cache_blocks_in_use"),
-)
-
-_RESILIENCE = (
-    ("crashes", "dllama_supervisor_crashes_total"),
-    ("watchdog_trips", "dllama_supervisor_watchdog_trips_total"),
-    ("recoveries", "dllama_supervisor_recoveries_total"),
-    ("rejected_unready", "dllama_supervisor_rejected_unready_total"),
-    ("cluster_losses", "dllama_supervisor_cluster_losses_total"),
 )
 
 
@@ -427,7 +445,9 @@ def _esc(v) -> str:
 
 
 class _Prom:
-    """Exposition-format builder: one # HELP/# TYPE header a name."""
+    """Tiny exposition-format writer: groups samples per metric name so
+    each name gets exactly one # HELP/# TYPE header (the format
+    requirement scrapers enforce)."""
 
     def __init__(self):
         self._meta: dict[str, tuple[str, str]] = {}
@@ -455,66 +475,30 @@ class _Prom:
         return "\n".join(out) + "\n"
 
 
-def _add_block(p: _Prom, block: dict | None, table, *, type_: str) -> None:
+def _add_block(p: _Prom, block: dict | None, table, *, type_: str,
+               labels: dict | None = None) -> None:
     if not block:
         return
-    for key, name in table:
-        p.add(name, block.get(key), type_=type_)
+    for row in table:
+        key, name = row[0], row[1]
+        p.add(name, block.get(key), labels=labels, type_=type_)
 
 
-_SPEC_COUNTERS = (
-    ("verify_forwards", "spec_verify_forwards_total",
-     "Fixed-width speculative verify forwards dispatched"),
-    ("draft_forwards", "spec_draft_forwards_total",
-     "Draft dispatches (one k-token scan or prefill chunk == one)"),
-    ("drafted", "spec_drafted_tokens_total",
-     "Draft tokens proposed to the verifier"),
-    ("accepted", "spec_accepted_tokens_total",
-     "Draft tokens the verify forward confirmed"),
-    ("emitted_spec", "spec_emitted_tokens_total",
-     "Tokens emitted by speculating rows"),
-    ("degraded_steps", "spec_degraded_steps_total",
-     "Iterations the SLO admission policy ran with drafting disabled"),
-)
-
-
-def _add_spec(p: _Prom, spec: dict | None, *, labels: dict | None = None,
-              prefix: str = "dllama_") -> None:
-    """The speculative-decoding family (the SpecStats summary), attached
-    even with drafting off (mode "off", zeros), so the family never
-    vanishes off a launch flag. `labels` and `prefix` serve a per-replica
-    block (dllama_replica_spec_*), as the JAX renderer's do."""
-    if not spec:
-        return
-    per = " (per replica)" if prefix != "dllama_" else ""
-    p.add(f"{prefix}spec_mode", 1,
-          {**(labels or {}), "mode": _esc(spec.get("mode", "off")),
-           "draft_len": str(spec.get("draft_len", 0))},
-          help_=f"Draft mode in effect (info-style: constant 1){per}")
-    for key, name, help_ in _SPEC_COUNTERS:
-        p.add(f"{prefix}{name}", spec.get(key), labels, type_="counter",
-              help_=help_ + per)
-    p.add(f"{prefix}spec_accept_rate", spec.get("accept_rate"), labels,
-          help_="Accepted / drafted over the scheduler generation — the "
-                "number that says whether speculation pays on this "
-                f"traffic (docs/operations.md){per}")
-    p.add(f"{prefix}spec_tokens_per_verify", spec.get("tokens_per_verify"),
-          labels,
-          help_=f"Mean tokens emitted per verify forward{per}")
-
-
-def _add_device_blocks(p: _Prom, summary: dict) -> None:
-    """The device-tier families (runtime/profiler.py): the ledger of
-    captured graphs, the memory ledger, the sampled step device time."""
-    pre = "dllama_"
+def _add_device_blocks(p: _Prom, summary: dict,
+                       labels: dict | None = None) -> None:
+    """The device-tier families (runtime/profiler.py): compile ledger,
+    HBM ledger, sampled device-time attribution — rendered from the
+    same /stats blocks every tier already carries, top-level AND
+    per-replica (labelled)."""
+    pre = "dllama_replica_" if labels else "dllama_"
     comp = summary.get("compiles")
     if comp:
         p.add(pre + "compiles_after_warmup_total",
-              comp.get("after_warmup"), type_="counter",
+              comp.get("after_warmup"), labels, type_="counter",
               help_="Compiles minted after the serving set was warm "
                     "(the recompile sentinel)")
         for key, rec in (comp.get("by_key") or {}).items():
-            lab = {"key": _esc(key)}
+            lab = {**(labels or {}), "key": _esc(key)}
             p.add(pre + "compiles_total", rec.get("count"), lab,
                   type_="counter", help_="Executable mints by compile key")
             p.add(pre + "compile_ms", rec.get("ms"), lab,
@@ -527,25 +511,26 @@ def _add_device_blocks(p: _Prom, summary: dict) -> None:
                            ("kv_slots", "kv_slot_bytes"),
                            ("prefix_arena", "prefix_arena_bytes"),
                            ("logits_workspace", "logits_workspace_bytes")):
-            p.add(pre + "hbm_bytes", hbm.get(field), {"category": cat},
+            p.add(pre + "hbm_bytes", hbm.get(field),
+                  {**(labels or {}), "category": cat},
                   help_="Live HBM bytes by category (known array shapes)")
         p.add(pre + "hbm_device_bytes", hbm.get("device_bytes_in_use"),
-              {"kind": "in_use"},
+              {**(labels or {}), "kind": "in_use"},
               help_="Backend allocator stats, where provided")
         p.add(pre + "hbm_device_bytes", hbm.get("device_bytes_limit"),
-              {"kind": "limit"})
-        p.add(pre + "hbm_slots_addable", hbm.get("slots_addable"),
+              {**(labels or {}), "kind": "limit"})
+        p.add(pre + "hbm_slots_addable", hbm.get("slots_addable"), labels,
               help_="KV slots that still fit free HBM (headroom)")
         p.add(pre + "hbm_prefix_blocks_addable",
-              hbm.get("prefix_blocks_addable"),
+              hbm.get("prefix_blocks_addable"), labels,
               help_="Prefix-arena blocks that still fit free HBM")
     dev = summary.get("device_time")
     if dev:
         p.add(pre + "profile_sampled_steps_total",
-              dev.get("sampled_steps"), type_="counter",
+              dev.get("sampled_steps"), labels, type_="counter",
               help_="Scheduler steps captured for device-time attribution")
         for entry, rec in (dev.get("by_entry") or {}).items():
-            lab = {"entry": _esc(entry)}
+            lab = {**(labels or {}), "entry": _esc(entry)}
             p.add(pre + "device_ms", rec.get("p50_ms"),
                   {**lab, "quantile": "0.5"},
                   help_="Sampled per-step device ms by entry point")
@@ -553,35 +538,18 @@ def _add_device_blocks(p: _Prom, summary: dict) -> None:
                   type_="counter")
         sync = dev.get("sync")
         if sync and sync.get("n"):
-            # per sampled step, device collective (sync) ms against total
-            # device ms: 0 on one GPU, where no collective runs
+            # the reference's I/T/S split reborn: per sampled step,
+            # device collective (sync) ms vs total device ms
             p.add(pre + "step_sync_ms", sync.get("sync_p50_ms"),
-                  {"quantile": "0.5"},
+                  {**(labels or {}), "quantile": "0.5"},
                   help_="Sampled per-step device collective ms (the "
                         "sync half of the sync/compute split)")
             p.add(pre + "step_sync_ms", sync.get("sync_p99_ms"),
-                  {"quantile": "0.99"})
+                  {**(labels or {}), "quantile": "0.99"})
             p.add(pre + "step_sync_share", sync.get("sync_share"),
+                  labels,
                   help_="Collective share of sampled device step time "
                         "(window mean)")
-
-
-def _add_admission(p: _Prom, adm: dict | None) -> None:
-    """The SLO admission family (runtime/scheduler.AdmissionPolicy's
-    summary): the live chunk width and the EWMAs the policy steers on."""
-    if not adm:
-        return
-    p.add("dllama_admission_chunk_width", adm.get("chunk_width"),
-          help_="Current adaptive chunked-prefill width (tokens)")
-    p.add("dllama_admission_chunk_changes_total", adm.get("shrinks"),
-          {"direction": "shrink"}, type_="counter",
-          help_="Adaptive chunk-width rung transitions")
-    p.add("dllama_admission_chunk_changes_total", adm.get("widens"),
-          {"direction": "widen"}, type_="counter")
-    p.add("dllama_admission_itl_ewma_ms", adm.get("itl_ewma_ms"),
-          help_="Live inter-token-latency EWMA the policy steers on")
-    p.add("dllama_admission_ttft_ewma_ms", adm.get("ttft_ewma_ms"),
-          help_="Live time-to-first-token EWMA")
 
 
 _CLUSTER_COUNTERS = (
@@ -595,10 +563,12 @@ _CLUSTER_COUNTERS = (
 
 
 def _add_cluster(p: _Prom, cluster: dict | None) -> None:
-    """The cluster-plane families (parallel/multihost ClusterStats and
-    its wire ledger): every counter the /stats block carries, the phase
-    label, the startup broadcast timings, and the measured wire ledger
-    (JAX runtime/trace.py _add_cluster)."""
+    """The cluster-plane families (parallel/multihost ClusterStats +
+    its wire ledger): every counter the /stats block carries, the
+    phase label, the startup broadcast timings, and the measured wire
+    ledger — tier-invariant like every other family (the api server
+    attaches the cluster block in every tier, so a launch flag can
+    never drop these from a scrape)."""
     if not cluster:
         return
     p.add("dllama_cluster_peers_lost_total",
@@ -647,21 +617,237 @@ def _add_cluster(p: _Prom, cluster: dict | None) -> None:
                     "minus local wall, at the best-RTT sample)")
 
 
+_SPEC_COUNTERS = (
+    ("verify_forwards", "spec_verify_forwards_total",
+     "Fixed-width speculative verify forwards dispatched"),
+    ("draft_forwards", "spec_draft_forwards_total",
+     "Draft dispatches (one k-token scan or prefill chunk == one)"),
+    ("drafted", "spec_drafted_tokens_total",
+     "Draft tokens proposed to the verifier"),
+    ("accepted", "spec_accepted_tokens_total",
+     "Draft tokens the verify forward confirmed"),
+    ("emitted_spec", "spec_emitted_tokens_total",
+     "Tokens emitted by speculating rows"),
+    ("degraded_steps", "spec_degraded_steps_total",
+     "Iterations the SLO admission policy ran with drafting disabled"),
+)
+
+
+def _add_spec(p: _Prom, spec: dict | None, *, labels: dict | None = None,
+              prefix: str = "dllama_") -> None:
+    """The speculative-decoding family (runtime/draft.py accept record,
+    stats.SpecStats summary): honest accept-rate observability in every
+    tier — the block is attached even with drafting off (mode "off",
+    zeros), so the family can never vanish off a launch flag. One
+    renderer for the top-level summary and each replica's block
+    (`dllama_replica_spec_*`, replica-labelled)."""
+    if not spec:
+        return
+    per = " (per replica)" if prefix != "dllama_" else ""
+    p.add(f"{prefix}spec_mode", 1,
+          {**(labels or {}), "mode": _esc(spec.get("mode", "off")),
+           "draft_len": str(spec.get("draft_len", 0))},
+          help_=f"Draft mode in effect (info-style: constant 1){per}")
+    for key, name, help_ in _SPEC_COUNTERS:
+        p.add(f"{prefix}{name}", spec.get(key), labels, type_="counter",
+              help_=help_ + per)
+    p.add(f"{prefix}spec_accept_rate", spec.get("accept_rate"), labels,
+          help_="Accepted / drafted over the scheduler generation — the "
+                "number that says whether speculation pays on this "
+                f"traffic (docs/operations.md){per}")
+    p.add(f"{prefix}spec_tokens_per_verify", spec.get("tokens_per_verify"),
+          labels,
+          help_=f"Mean tokens emitted per verify forward{per}")
+
+
+_KVX_COUNTERS = (
+    ("fills_requested", "kv_transfer_fills_requested_total",
+     "Cache-fill attempts (a sibling's cache led the placed replica's)"),
+    ("fills_ok", "kv_transfer_fills_total",
+     "Fills that imported >= 1 block (the re-prefill actually avoided)"),
+    ("fill_fallbacks", "kv_transfer_fallbacks_total",
+     "Fills degraded to a plain local re-prefill (donor death, torn "
+     "frame, deadline — never a request failure)"),
+    ("fill_misses", "kv_transfer_fill_misses_total",
+     "Donor answered shorter than the shadow promised (eviction)"),
+    ("tokens_filled", "kv_transfer_tokens_filled_total",
+     "Prompt tokens imported instead of re-prefilled"),
+    ("blocks_filled", "kv_transfer_blocks_filled_total",
+     "Arena blocks imported"),
+    ("blocks_exported", "kv_transfer_blocks_exported_total",
+     "Arena blocks served to siblings (donor side)"),
+    ("queries_served", "kv_transfer_queries_total",
+     "RMSG_BLOCK_QUERY connections served (donor side)"),
+    ("prefill_passes", "kv_transfer_prefill_passes_total",
+     "Disaggregated prefill-tier passes completed"),
+    ("prefill_pass_fallbacks", "kv_transfer_prefill_fallbacks_total",
+     "Requests that fell back to the unified mixed path"),
+    ("shadow_truncates", "kv_transfer_shadow_truncates_total",
+     "Stale shadow-index paths cleared by a QUERY miss answer"),
+)
+
+
+def _add_kv_transfer(p: _Prom, kvx: dict | None, *,
+                     labels: dict | None = None,
+                     prefix: str = "dllama_") -> None:
+    """The KV block transfer family (runtime/kv_transfer.py,
+    stats.KVTransferStats summary): fills, fallbacks, bytes, and
+    transfer-time tails in every tier incl. idle — the block is attached
+    even with transfer off (enabled=False, zeros), so the family can
+    never vanish off a launch flag. One renderer for the top-level
+    aggregate and each replica's block (`dllama_replica_kv_transfer_*`,
+    replica-labelled)."""
+    if not kvx:
+        return
+    per = " (per replica)" if prefix != "dllama_" else ""
+    p.add(f"{prefix}kv_transfer_info", 1,
+          {**(labels or {}), "enabled": str(bool(kvx.get("enabled"))),
+           "tier": _esc(kvx.get("tier", "mixed"))},
+          help_=f"Transfer plane identity (constant 1){per}")
+    for key, name, help_ in _KVX_COUNTERS:
+        p.add(f"{prefix}{name}", kvx.get(key), labels, type_="counter",
+              help_=help_ + per)
+    for key, dirn in (("bytes_rx", "rx"), ("bytes_tx", "tx")):
+        p.add(f"{prefix}kv_transfer_bytes_total", kvx.get(key),
+              {**(labels or {}), "dir": dirn}, type_="counter",
+              help_=f"Block K/V payload bytes moved{per} (frame-exact "
+                    "wire bytes live in the per-replica wire ledger)")
+    p.add(f"{prefix}kv_transfer_ms", kvx.get("transfer_p50_ms"),
+          {**(labels or {}), "quantile": "0.5"},
+          help_=f"Whole-fill wall ms (connect to last import){per}")
+    p.add(f"{prefix}kv_transfer_ms", kvx.get("transfer_p99_ms"),
+          {**(labels or {}), "quantile": "0.99"})
+
+
+def _add_admission(p: _Prom, adm: dict | None, *,
+                   labels: dict | None = None,
+                   prefix: str = "dllama_") -> None:
+    """The SLO-aware admission family (runtime/scheduler.AdmissionPolicy
+    summary): live chunk width + the EWMAs the policy steers on. One
+    renderer for both homes — the top-level supervisor summary and each
+    replica's block (`dllama_replica_admission_*`, replica-labelled)."""
+    if not adm:
+        return
+    per = " (per replica)" if prefix != "dllama_" else ""
+    p.add(f"{prefix}admission_chunk_width", adm.get("chunk_width"),
+          labels,
+          help_=f"Current adaptive chunked-prefill width (tokens){per}")
+    p.add(f"{prefix}admission_chunk_changes_total", adm.get("shrinks"),
+          {**(labels or {}), "direction": "shrink"}, type_="counter",
+          help_=f"Adaptive chunk-width rung transitions{per}")
+    p.add(f"{prefix}admission_chunk_changes_total", adm.get("widens"),
+          {**(labels or {}), "direction": "widen"}, type_="counter")
+    p.add(f"{prefix}admission_itl_ewma_ms", adm.get("itl_ewma_ms"),
+          labels,
+          help_=f"Live inter-token-latency EWMA the policy steers on{per}")
+    p.add(f"{prefix}admission_ttft_ewma_ms", adm.get("ttft_ewma_ms"),
+          labels, help_=f"Live time-to-first-token EWMA{per}")
+
+
+_FLEET_COUNTERS = (
+    ("scale_ups", "fleet_scale_ups_total",
+     "Replicas added by the autoscaler"),
+    ("scale_downs", "fleet_scale_downs_total",
+     "Replicas drained and reaped by the autoscaler"),
+    ("scale_blocked_hbm", "fleet_scale_blocked_hbm_total",
+     "Scale-ups refused by the HBM ledger's slots_addable ceiling"),
+    ("spawn_failures", "fleet_spawn_failures_total",
+     "Scale-up spawns that failed (controller backs off)"),
+    ("warm_fills", "fleet_warm_fills_total",
+     "KV warm-fills replayed into fresh replicas from siblings"),
+    ("sheds", "fleet_sheds_total",
+     "Requests refused by the overload ladder"),
+    ("clamped", "fleet_clamped_total",
+     "Requests admitted with max_tokens clamped by the ladder"),
+)
+
+
+def _add_fleet(p: _Prom, fleet: dict | None, *,
+               labels: dict | None = None,
+               prefix: str = "dllama_") -> None:
+    """The fleet-brain family (runtime/fleet.py, stats.FleetStats +
+    FleetController summary): autoscale decisions, ladder rung, and
+    per-tenant fairness in every tier incl. idle — like kv_transfer,
+    the block is attached even with the controller off (enabled=False,
+    zeros), so the family can never vanish off a launch flag."""
+    if not fleet:
+        return
+    p.add(f"{prefix}fleet_info", 1,
+          {**(labels or {}), "enabled": str(bool(fleet.get("enabled"))),
+           "autoscaling": str(bool(fleet.get("autoscaling")))},
+          help_="Fleet controller identity (constant 1)")
+    p.add(f"{prefix}fleet_ticks_total", fleet.get("ticks"), labels,
+          type_="counter", help_="Controller decision ticks")
+    p.add(f"{prefix}fleet_pressure", fleet.get("pressure"), labels,
+          help_="Smoothed occupancy pressure the scaler steers on (0-1)")
+    p.add(f"{prefix}fleet_replicas", fleet.get("actual_replicas"),
+          {**(labels or {}), "kind": "actual"},
+          help_="Replica counts as the controller sees them")
+    p.add(f"{prefix}fleet_replicas", fleet.get("target_replicas"),
+          {**(labels or {}), "kind": "target"})
+    p.add(f"{prefix}fleet_replicas", fleet.get("min_replicas"),
+          {**(labels or {}), "kind": "min"})
+    p.add(f"{prefix}fleet_replicas", fleet.get("max_replicas"),
+          {**(labels or {}), "kind": "max"})
+    for key, name, help_ in _FLEET_COUNTERS:
+        p.add(f"{prefix}{name}", fleet.get(key), labels, type_="counter",
+              help_=help_)
+    for reason, n in (fleet.get("sheds_by_reason") or {}).items():
+        p.add(f"{prefix}fleet_sheds_by_reason_total", n,
+              {**(labels or {}), "reason": _esc(reason)}, type_="counter",
+              help_="Ladder refusals by rung reason")
+    ladder = fleet.get("ladder")
+    if ladder:
+        p.add(f"{prefix}fleet_ladder_rung", ladder.get("rung"),
+              {**(labels or {}), "name": _esc(ladder.get("name"))},
+              help_="Current shed-ladder rung (0 = healthy)")
+        p.add(f"{prefix}fleet_ladder_moves_total",
+              ladder.get("escalations"),
+              {**(labels or {}), "direction": "escalate"},
+              type_="counter", help_="Ladder rung transitions")
+        p.add(f"{prefix}fleet_ladder_moves_total", ladder.get("recoveries"),
+              {**(labels or {}), "direction": "recover"}, type_="counter")
+        p.add(f"{prefix}fleet_retry_after_seconds",
+              ladder.get("retry_after_s"), labels,
+              help_="Live drain-rate-derived Retry-After hint")
+    for name, row in (fleet.get("tenants") or {}).items():
+        lab = {**(labels or {}), "tenant": _esc(name)}
+        p.add(f"{prefix}fleet_tenant_weight", row.get("weight"), lab,
+              help_="Configured weighted-fair share")
+        p.add(f"{prefix}fleet_tenant_admitted_total", row.get("admitted"),
+              lab, type_="counter", help_="Requests admitted per tenant")
+        p.add(f"{prefix}fleet_tenant_shed_total", row.get("shed"), lab,
+              type_="counter", help_="Requests shed per tenant")
+        p.add(f"{prefix}fleet_tenant_tokens_charged_total",
+              row.get("tokens_charged"), lab, type_="counter",
+              help_="Token cost charged against the tenant budget")
+        if row.get("budget_remaining") is not None:
+            p.add(f"{prefix}fleet_tenant_budget_remaining",
+                  row.get("budget_remaining"), lab,
+                  help_="Token-bucket balance (absent = unlimited)")
+
+
 def render_prometheus(summary: dict | None, *, tracer: Tracer | None = None,
                       model: str = "dllama", mode: str = "scheduler",
                       state: str | None = None,
                       build: dict | None = None) -> str:
-    """The GET /metrics body: the /stats summary dict (None while the
-    legacy mode) and, with tracing on, the tracer's step-timeline windows,
-    as Prometheus text exposition format."""
+    """The GET /metrics body: the /stats summary dict (supervisor- or
+    router-shaped; None while the front door is unbuilt or in legacy
+    mode) + the tracer's step-timeline histograms, as Prometheus text
+    exposition format. Every serving tier hands its EXISTING summary
+    here, so the metric names are tier-invariant and a replica's
+    counters appear both aggregated and per-replica (labelled)."""
     p = _Prom()
     p.add("dllama_up", 1, {"model": model, "mode": mode},
           help_="The serving process is up", type_="gauge")
     if build:
+        # the build-info idiom: constant 1, identity in the labels —
+        # join on it to annotate every other series with version/backend
         p.add("dllama_build_info", 1,
               {k: _esc(v) for k, v in build.items()},
               help_="Build identity (constant 1; info in the labels)")
-    states = ("ready", "recovering", "broken", "draining", "closed", "off")
+    states = ("ready", "recovering", "broken", "draining", "closed",
+              "degraded", "off", "idle")
     st = state or (summary or {}).get("state")
     if st is not None:
         for s in states:
@@ -685,10 +871,13 @@ def render_prometheus(summary: dict | None, *, tracer: Tracer | None = None,
               help_="Failure-detected to ready-again latency")
         p.add("dllama_supervisor_recovery_ms", res.get("recovery_p99_ms"),
               {"quantile": "0.99"})
+        _add_block(p, summary.get("router"), _ROUTER, type_="counter")
         auto = summary.get("autosize")
         if auto:
             # the startup auto-sizing decision (runtime/profiler.
-            # resolve_auto_shape): what was chosen and why
+            # resolve_auto_shape): what was chosen and why, as gauges an
+            # operator can alert on (a knee drifting under live load
+            # shows up as dllama_step_ms disagreeing with these)
             p.add("dllama_autosize_serve_batch", auto.get("serve_batch"),
                   {"basis": _esc(auto.get("serve_batch_basis"))},
                   help_="Auto-resolved --serve-batch (KV slots)")
@@ -704,7 +893,59 @@ def render_prometheus(summary: dict | None, *, tracer: Tracer | None = None,
                   help_="Batch knee that capped the auto-sizing")
         _add_admission(p, summary.get("admission"))
         _add_spec(p, summary.get("spec"))
+        _add_kv_transfer(p, summary.get("kv_transfer"))
+        _add_fleet(p, summary.get("fleet"))
         _add_device_blocks(p, summary)
+        for rep in summary.get("replicas") or ():
+            lab = {"replica": str(rep.get("replica"))}
+            p.add("dllama_replica_up",
+                  int(rep.get("state") == "ready"
+                      and not rep.get("draining")
+                      and not rep.get("breaker_open")), lab,
+                  help_="Replica is routable")
+            for key, name, help_ in _COUNTERS:
+                p.add(name.replace("dllama_", "dllama_replica_"),
+                      rep.get(key), lab, type_="counter",
+                      help_=help_ and f"{help_} (per replica)")
+            _add_block(p, rep.get("prefix_cache"), tuple(
+                (k, n.replace("dllama_", "dllama_replica_"))
+                for k, n in _PREFIX), type_="counter", labels=lab)
+            _add_block(p, rep.get("prefix_cache"), tuple(
+                (k, n.replace("dllama_", "dllama_replica_"))
+                for k, n in _PREFIX_GAUGES), type_="gauge", labels=lab)
+            # per-replica admission policy state (the router's aggregate
+            # summary carries none — each replica's scheduler owns its
+            # own policy, so the family must ride the replica label or a
+            # multi-replica tier would lose it entirely)
+            _add_admission(p, rep.get("admission"), labels=lab,
+                           prefix="dllama_replica_")
+            # per-replica accept record (each replica's scheduler owns
+            # its own SpecStats — on router tiers the family rides the
+            # replica label, same rule as admission)
+            _add_spec(p, rep.get("spec"), labels=lab,
+                      prefix="dllama_replica_")
+            # per-replica transfer record (a worker's donor serving +
+            # its own fills — the aggregate block sums these)
+            _add_kv_transfer(p, rep.get("kv_transfer"), labels=lab,
+                             prefix="dllama_replica_")
+            _add_device_blocks(p, rep, labels=lab)
+            proc = rep.get("proc")
+            if proc:
+                p.add("dllama_replica_proc_exits_total", proc.get("exits"),
+                      lab, type_="counter",
+                      help_="Deaths of ready worker processes")
+                p.add("dllama_replica_proc_respawns_total",
+                      proc.get("respawns"), lab, type_="counter")
+                p.add("dllama_replica_proc_spawn_failures_total",
+                      proc.get("spawn_failures"), lab, type_="counter")
+                for cls, n in (proc.get("exit_classes") or {}).items():
+                    p.add("dllama_replica_proc_exit_class_total", n,
+                          {**lab, "class": _esc(cls)}, type_="counter",
+                          help_="Classified worker exits")
+                p.add("dllama_replica_proc_respawn_ms",
+                      proc.get("respawn_p50_ms"),
+                      {**lab, "quantile": "0.5"},
+                      help_="Death-detected to routable-again latency")
         _add_cluster(p, summary.get("cluster"))
     if tracer is not None and tracer.enabled:
         t = tracer.summary()

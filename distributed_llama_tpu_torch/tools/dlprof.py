@@ -30,9 +30,9 @@ knee with the measured one and flags a drift of 25% or more. With
 frames, heartbeat RTT tails and clock offsets from the rows' ``wire``
 blocks (a cluster root's /stats, the chaos harness's ``complete`` stats),
 the sampled device sync-vs-compute share from ``sync`` trace events, and
-every measured-vs-modeled reconciliation, drift flagged at 25%. The
-repo's KV-transfer part of that section comes with the fleet (ROADMAP
-item 16).
+every measured-vs-modeled reconciliation, drift flagged at 25%, and the
+"KV transfer" part: fills, bytes moved, transfer tails and the prefill
+tier's passes from the rows' ``kv_transfer`` blocks.
 
 Pure host-side file crunching: it imports nothing of the package, so it
 runs with the file alone. ``--selftest`` synthesizes a tiny trace and
@@ -428,12 +428,13 @@ WIRE_DRIFT_FRAC = 0.25
 
 
 def wire_report(events: list[dict], bench_rows: list[dict]) -> dict | None:
-    """The comms section (the repo's tools/dlprof.py wire_report, less its
-    KV-transfer blocks): per-peer measured bytes/frames and RTT tails from
-    the rows' ``wire`` blocks, the sampled device sync-vs-compute share
-    from ``sync`` trace events, and every measured-vs-modeled
-    reconciliation found, drift re-flagged at >= 25%. None when no input
-    carries wire data."""
+    """The comms section (the repo's tools/dlprof.py wire_report):
+    per-peer measured bytes/frames and RTT tails from the rows' ``wire``
+    blocks, the KV block transfer record from their ``kv_transfer``
+    blocks (a /stats dump of a replica tier, runtime/kv_transfer.py), the
+    sampled device sync-vs-compute share from ``sync`` trace events, and
+    every measured-vs-modeled reconciliation found, drift re-flagged at
+    >= 25%. None when no input carries wire data."""
     peers: dict[str, dict] = {}
     reconciles: list[dict] = []
 
@@ -458,6 +459,7 @@ def wire_report(events: list[dict], bench_rows: list[dict]) -> dict | None:
             if rec.get("clock_offset_ms") is not None:
                 out["clock_offset_ms"] = rec["clock_offset_ms"]
 
+    kvx_blocks: list[dict] = []
     for row in bench_rows:
         w = row.get("wire")
         if isinstance(w, dict) and w:
@@ -468,9 +470,20 @@ def wire_report(events: list[dict], bench_rows: list[dict]) -> dict | None:
                     if isinstance(sub, dict) and "peers" in sub:
                         eat_summary(side, sub)
             if isinstance(w.get("reconcile"), dict):
-                # a copy: the drift flag is re-derived below, and the
-                # caller's rows are never changed
+                # COPY: the drift flag is re-derived below, and the
+                # report must never mutate the caller's loaded rows
                 reconciles.append(dict(w["reconcile"]))
+        # KV block transfer blocks (runtime/kv_transfer.py): a bench
+        # row's (or /stats dump's) kv_transfer summary, incl. its own
+        # measured-vs-modeled reconcile entry
+        kvx = row.get("kv_transfer")
+        if isinstance(kvx, dict) and kvx:
+            kvx_blocks.append(kvx)
+            if isinstance(kvx.get("reconcile"), dict):
+                reconciles.append(dict(kvx["reconcile"]))
+            sub = kvx.get("wire")
+            if isinstance(sub, dict) and "peers" in sub:
+                eat_summary("kvx", sub)
 
     syncs = [e for e in events if e.get("kind") == "sync"]
     sync = None
@@ -483,18 +496,43 @@ def wire_report(events: list[dict], bench_rows: list[dict]) -> dict | None:
             "sync_p50_ms": _rnd(percentile(sync_ms, 50), 4),
             "sync_p99_ms": _rnd(percentile(sync_ms, 99), 4),
             "device_p50_ms": _rnd(percentile(dev_ms, 50), 4),
-            # window sums, not a mean of ratios (an idle step's ratio must
-            # not swamp the loaded steps)
+            # window sums, not mean-of-ratios (an idle step's ratio must
+            # not swamp the loaded steps) — same rule as SyncStats
             "sync_share": (_rnd(sum(sync_ms) / total_dev, 4)
                            if total_dev else None),
         }
 
-    if not peers and sync is None and not reconciles:
+    kvx = None
+    if kvx_blocks:
+        # sum the counters across blocks (a disaggregated bench row may
+        # carry one block per party); transfer tails only report when
+        # exactly one block has them (percentiles do not merge)
+        keys = ("fills_requested", "fills_ok", "fill_fallbacks",
+                "fill_misses", "tokens_filled", "blocks_filled",
+                "bytes_rx", "bytes_tx", "blocks_exported",
+                "queries_served", "query_misses", "prefill_passes",
+                "prefill_pass_fallbacks", "shadow_truncates")
+        kvx = {k: sum(int(b.get(k) or 0) for b in kvx_blocks)
+               for k in keys}
+        with_ms = [b for b in kvx_blocks
+                   if b.get("transfer_p50_ms") is not None]
+        kvx["transfer_p50_ms"] = (with_ms[0]["transfer_p50_ms"]
+                                  if len(with_ms) == 1 else None)
+        kvx["transfer_p99_ms"] = (with_ms[0].get("transfer_p99_ms")
+                                  if len(with_ms) == 1 else None)
+        req = kvx["fills_requested"]
+        kvx["fill_hit_rate"] = (_rnd(kvx["fills_ok"] / req, 4)
+                                if req else None)
+
+    if not peers and sync is None and not reconciles and kvx is None:
         return None
+    # re-derive the drift flag locally: committed artifacts may predate
+    # the producer's threshold, and the report must flag consistently
     for rec in reconciles:
         if rec.get("drift_frac") is not None:
             rec["drift"] = rec["drift_frac"] >= WIRE_DRIFT_FRAC
-    return {"peers": peers, "sync": sync, "reconcile": reconciles,
+    return {"peers": peers, "sync": sync, "kv_transfer": kvx,
+            "reconcile": reconciles,
             "drift": any(r.get("drift") for r in reconciles)}
 
 
@@ -634,6 +672,24 @@ def render_markdown(report: dict) -> str:
                       f"{sync['sync_p50_ms']} ms of device p50 "
                       f"{sync['device_p50_ms']} ms — **share "
                       f"{sync['sync_share']}**.", ""]
+        kvx = w.get("kv_transfer")
+        if kvx:
+            lines += ["### KV transfer", "",
+                      f"Fills: {kvx['fills_ok']}/"
+                      f"{kvx['fills_requested']} ok "
+                      f"(hit rate {kvx.get('fill_hit_rate')}), "
+                      f"{kvx['fill_fallbacks']} degraded to re-prefill, "
+                      f"{kvx['fill_misses']} donor misses.",
+                      f"Moved: {kvx['tokens_filled']} tokens / "
+                      f"{kvx['blocks_filled']} blocks "
+                      f"({kvx['bytes_rx']} B rx, {kvx['bytes_tx']} B "
+                      f"tx); transfer p50/p99 "
+                      f"{kvx.get('transfer_p50_ms')}/"
+                      f"{kvx.get('transfer_p99_ms')} ms.",
+                      f"Disaggregation: {kvx['prefill_passes']} prefill "
+                      f"passes, {kvx['prefill_pass_fallbacks']} mixed-"
+                      f"path fallbacks; {kvx['shadow_truncates']} stale "
+                      f"shadow paths cleared.", ""]
         for rec in w.get("reconcile") or ():
             flag = " ⚠️ **DRIFTED**" if rec.get("drift") else " (ok)"
             lines.append(
@@ -771,8 +827,43 @@ def _selftest() -> int:
     # without --wire the report is unchanged (no section, no key)
     assert "wire" not in analyze(events, [wire_row]), "wire leaked"
 
+    # the KV transfer section (runtime/kv_transfer.py): a bench row's
+    # kv_transfer block -> fills/bytes/disagg lines + its reconcile
+    # entry folded into the wire report (exact reads clean; drift flags)
+    kvx_row = {"metric": "kvx-selftest", "kv_transfer": {
+        "enabled": True, "tier": "aggregate",
+        "fills_requested": 4, "fills_ok": 3, "fill_fallbacks": 1,
+        "fill_misses": 1, "tokens_filled": 96, "blocks_filled": 6,
+        "bytes_rx": 6144, "bytes_tx": 6144, "blocks_exported": 6,
+        "queries_served": 4, "query_misses": 1, "prefill_passes": 2,
+        "prefill_pass_fallbacks": 1, "shadow_truncates": 1,
+        "transfer_p50_ms": 2.5, "transfer_p99_ms": 4.0,
+        "reconcile": {"measured": 6144.0, "modeled": 6144.0,
+                      "unit": "bytes", "drift_frac": 0.0,
+                      "drift": False}}}
+    rk = analyze(events, [kvx_row], wire=True)["wire"]
+    assert rk is not None and rk["kv_transfer"] is not None, rk
+    assert rk["kv_transfer"]["fills_ok"] == 3, rk["kv_transfer"]
+    assert rk["kv_transfer"]["fill_hit_rate"] == 0.75
+    assert rk["kv_transfer"]["transfer_p50_ms"] == 2.5
+    assert not rk["drift"], rk
+    md_k = render_markdown({**rw, "wire": rk})
+    assert "KV transfer" in md_k and "3/4 ok" in md_k, md_k
+    kvx_drift = {"metric": "kvx2", "kv_transfer": {
+        "fills_requested": 1, "fills_ok": 1, "fill_fallbacks": 0,
+        "fill_misses": 0, "tokens_filled": 16, "blocks_filled": 1,
+        "bytes_rx": 1300, "bytes_tx": 1300, "blocks_exported": 1,
+        "queries_served": 1, "query_misses": 0, "prefill_passes": 0,
+        "prefill_pass_fallbacks": 0, "shadow_truncates": 0,
+        "reconcile": {"measured": 1300.0, "modeled": 1000.0,
+                      "unit": "bytes", "drift_frac": 0.3,
+                      "drift": True}}}
+    rkd = analyze(events, [kvx_drift], wire=True)["wire"]
+    assert rkd["drift"], rkd
+
     print("dlprof selftest: OK (knee=4, 3 spans, autotune drift check, "
-          "wire section + sync share + drift flag, report renders)")
+          "wire section + sync share + drift flag, KV transfer section, "
+          "report renders)")
     return 0
 
 

@@ -191,13 +191,13 @@ def test_readyz_scheduler_states_and_stats(files):
 
 
 def test_legacy_stats_and_metrics(servers):
-    """The legacy tier answers /stats with the scheduler off and its
-    speculative accept record (mode "off" here), as the JAX server does
-    (whose legacy /stats also carries the fleet blocks the port lacks)."""
+    """The legacy tier answers /stats with the scheduler off, its
+    speculative accept record (mode "off" here) and the transfer and fleet
+    blocks (enabled=False), as the JAX server does."""
     addr = servers[("port", "legacy")][0]
     stats = json.loads(_get(addr, "/stats").read())
     jstats = json.loads(_get(servers[("jax", "legacy")][0], "/stats").read())
-    assert set(stats) == {"scheduler", "spec"}
+    assert set(stats) == {"scheduler", "spec", "kv_transfer", "fleet"}
     assert stats == {k: jstats[k] for k in stats}
     assert stats["scheduler"] == "off" and stats["spec"]["mode"] == "off"
     metrics = _get(addr, "/metrics").read().decode()
@@ -221,17 +221,19 @@ def test_bad_json_and_unported_routes(servers):
     conn = http.client.HTTPConnection(*addr, timeout=60)
     conn.request("POST", "/v1/completions", "{not json", {"Content-Type": "application/json"})
     assert conn.getresponse().status == 400
-    # the breaker reset is ported: on a healthy supervisor it is a no-op
-    # that answers the state; the replica verbs stay refused
+    # the breaker reset on a healthy supervisor is a no-op that answers
+    # the state; a replica verb on a single supervisor is the JAX
+    # server's 400 (JAX apps/api_server.py:1351)
     for path, code in (("/admin/reset_breaker", 200),
-                       ("/admin/drain_replica", 501)):
+                       ("/admin/drain_replica", 400)):
         conn = http.client.HTTPConnection(*addr, timeout=60)
         conn.request("POST", path, "{}")
         resp = conn.getresponse()
         assert resp.status == code, path
         body = json.loads(resp.read())
-        if code == 501:
-            assert "ROADMAP item 16" in body["error"]
+        if code == 400:
+            assert body == {"error": "replica operations need --replicas N > 1 "
+                                     "and a replica index"}
         else:
             assert body == {"status": "ok", "state": "ready"}
     assert _get(addr, "/no/such/route").status == 404
@@ -503,7 +505,8 @@ def test_session_save_skipped_without_a_completed_request(files, tmp_path):
      "--prefix-blocks must be >= 0"),
     (["--serve-batch", "2", "--prefix-blocks", "auto"], "have no effect without --prefix-cache"),
     (["--serve-batch", "2", "--session", "s.npz"], "does not compose with --session"),
-    (["--serve-batch", "2", "--kv-transfer"], "ROADMAP item 16"),
+    (["--serve-batch", "2", "--kv-transfer"],
+     "--kv-transfer moves published prefix-cache blocks and requires --prefix-cache"),
 ], ids=["cache-needs-batch", "blocks-need-cache", "len-needs-cache", "negative-blocks",
         "auto-blocks", "session-with-batch", "kv-transfer"])
 def test_prefix_and_session_refusals(argv, needle):

@@ -226,11 +226,15 @@ def test_parse_time_refusals_match_jax(name):
     ["--serve-batch", "2", "--replica-hosts", "h1:9001,h2:9001", "--slo-itl-ms", "80"]])
 def test_replica_tier_combinations_get_the_ports_refusal(argv):
     """The JAX server refuses auto sizes with the process tier and SLOs
-    with remote workers; the port has no replica tier, so the tier's own
-    flag is refused as not ported."""
+    with remote workers; the port's replica tier refuses both in its
+    words."""
     with pytest.raises(SystemExit) as mine:
         dllama.main(BASE + argv)
-    assert "not ported" in str(mine.value) and "ROADMAP item 16" in str(mine.value)
+    with pytest.raises(SystemExit) as theirs:
+        jax_dllama.main(BASE + argv)
+    assert str(mine.value) == str(theirs.value)
+    assert ("'auto' need a ledger-capable local engine" in str(mine.value)
+            or "do not reach --replica-hosts workers" in str(mine.value))
 
 
 def test_bad_artifact_refused_before_engine_work(tmp_path):

@@ -336,3 +336,34 @@ def _streamed_text(raw: str) -> str:
     return "".join(json.loads(line[6:])["choices"][0]["text"]
                    for line in raw.splitlines()
                    if line.startswith("data: ") and line != "data: [DONE]")
+
+
+def test_streamed_lookup_batch_captures_beside_its_borrow(servers, monkeypatch):
+    """A streamed greedy batch with --lookup-decode collects on a helper
+    thread while the borrow holds the device gate. On the card the helper
+    captures a verify width at its first use, which takes the gate
+    exclusively (runtime/graphs.py); the borrow hands its hold to the
+    helper, so that capture does not wait on the HTTP thread that waits
+    for the helper. Here the helper takes the gate exclusively as that
+    capture would, and the stream answers as the JAX server's."""
+    from distributed_llama_tpu_torch.runtime import graphs
+
+    addr, state = servers[("port", 4)]
+    engine = state._scheduler.engine
+    plain = engine.generate_batch_lookup
+    took = []
+
+    def capturing(*a, **kw):
+        with graphs.DEVICE_GATE.exclusive():
+            took.append(threading.get_ident())
+        return plain(*a, **kw)
+    monkeypatch.setattr(engine, "generate_batch_lookup", capturing)
+    req = {"prompts": ["abab", "ba"], "max_tokens": 8, "temperature": 0, "stream": True}
+    res = {}
+    t = threading.Thread(target=lambda: res.setdefault("got", _post(addr, req)),
+                         daemon=True)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive(), "the streamed lookup batch deadlocked on the device gate"
+    assert _shape(*res["got"], True) == _shape(*_post(servers[("jax", 4)][0], req), True)
+    assert len(took) == 1 and took[0] != threading.get_ident()

@@ -129,4 +129,5 @@ def test_cli_refuses_unported_flags(flags, needle):
     assert ("not ported" in msg or "assert self.batch == 1" in msg
             or "(no --dp/--sp/--ep/--pp; --tp composes)" in msg
             or "(single-host multi-device runs need no workers: use --tp N)"
-            in msg or msg == "error: " + needle)
+            in msg or msg == "error: " + needle
+            or "requires --serve-batch N" in msg or "are api-mode flags" in msg)

@@ -555,6 +555,40 @@ def test_import_guards_cover_the_kv_reuse_path():
             "apps/api_server.py"} <= files
 
 
+def test_import_guards_cover_the_fleet(tmp_path):
+    """The fleet's modules are in the package the blocked-jax import test
+    and the per-file import scan walk, and the worker entry point runs as
+    `python -m` in a process where `import jax` (and the JAX package)
+    fails: a config with no model exits 2 (config_error) from its main."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"runtime/router.py", "runtime/fleet.py", "runtime/replica_worker.py",
+            "runtime/kv_transfer.py", "runtime/netstats.py",
+            "ops/launch_scope.py"} <= files
+    cfg = tmp_path / "bad.json"
+    cfg.write_text("{}")
+    code = (
+        "import sys, runpy\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', "
+        "'distributed_llama_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"sys.argv = ['replica_worker', '--config', {str(cfg)!r}]\n"
+        "try:\n"
+        "    runpy.run_module('distributed_llama_tpu_torch.runtime.replica_worker',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not any(k.split('.')[0] == 'jax' for k in sys.modules)\n"
+        "    print('exit', e.code)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("exit 2") and "config_error" in res.stdout
+
+
 def test_kv_reuse_paths_run_with_jax_blocked(tmp_path):
     """In a process where `import jax` (and the JAX package) fails: `dllama
     chat --session` runs two turns and resumes a third on the CPU, and the
@@ -699,7 +733,7 @@ def test_cli_refuses_unported_serving_flags(capsys):
             (["api", "--prefix-cache"], "--prefix-cache requires --serve-batch N"),
             (["api", "--draft", "self:1", "--lookup-decode", "2"],
              "both pick the draft source"),
-            (["api", "--replicas", "2"], "ROADMAP item 16"),
+            (["api", "--replicas", "2"], "require --serve-batch N"),
             (["api", "--slo-ttft-ms", "5"], "require --serve-batch N|auto"),
             (["api", "--serve-batch", "2", "--session", "s.bin"],
              "does not compose with --session"),

@@ -475,8 +475,9 @@ def test_kv_match_len_peeks_without_side_effects(tiny):
 
 def test_prefix_cache_refuses_transfer_and_foreign_engines(tiny):
     pk = tiny["port"]
-    with pytest.raises(ValueError, match="ROADMAP item 16"):
-        pk.PrefixCache(pk.two, num_blocks=4, block_len=4, transfer=True)
+    # transfer=True is ported: the cache takes part in the block-transfer
+    # plane (runtime/kv_transfer.py)
+    assert pk.PrefixCache(pk.two, num_blocks=4, block_len=4, transfer=True).transfer
     pc = pk.PrefixCache(pk.engine(2), num_blocks=4, block_len=4)
     with pytest.raises(ValueError, match="different engine"):
         pk.Scheduler(pk.two, chunk=4, prefix_cache=pc)

@@ -156,8 +156,8 @@ def test_admin_profile_writes_a_trace(servers, tmp_path):
     --profile-dir, the profile event, the captures count; 400 on a bad
     window (as the JAX server), 409 while the profiler is owned;
     /admin/reset_breaker answers as the JAX server's (200 on a healthy
-    supervisor, 400 on a bad body); the replica verbs answer 501 with
-    their ROADMAP item."""
+    supervisor, 400 on a bad body); a replica verb on a single supervisor
+    answers the JAX server's 400."""
     addr, state = servers["port"]
     jaddr, _ = servers["jax"]
     state.profile_dir = str(tmp_path)
@@ -183,7 +183,8 @@ def test_admin_profile_writes_a_trace(servers, tmp_path):
         assert _req(addr, "POST", "/admin/reset_breaker", body)[0] == \
             _req(jaddr, "POST", "/admin/reset_breaker", body)[0] == code, body
     status, raw = _req(addr, "POST", "/admin/drain_replica", {})
-    assert status == 501 and "ROADMAP item 16" in json.loads(raw)["error"]
+    assert (status, raw) == _req(jaddr, "POST", "/admin/drain_replica", {})
+    assert status == 400 and "replica operations need" in json.loads(raw)["error"]
     assert _req(addr, "POST", "/admin/nope", {})[0] == 404
 
 
@@ -343,29 +344,30 @@ def test_sampled_steps_attribute_every_entry(monkeypatch):
 
 
 def test_capture_starts_and_stops_with_no_graph_replay_in_flight(monkeypatch, tmp_path):
-    """The launch gate: torch.profiler's start and stop in a capture run
-    with Profiler.launch_gate held, and every graph replay runs under it,
-    so a replay on another thread waits out a start or a stop (the stall
-    of ROADMAP S1); the window itself leaves the gate free."""
+    """The device gate: torch.profiler's start and stop in a capture run
+    with runtime/graphs.DEVICE_GATE held exclusively, and every graph
+    replay holds it shared, so a replay on another thread waits out a
+    start or a stop (the stall of ROADMAP S1); the window itself leaves
+    the gate free."""
     import torch.profiler
 
     from distributed_llama_tpu_torch.runtime import graphs
 
     prof = profiler.PROFILER
+    probes = []
 
     def free() -> bool:
-        """Whether another thread can take the gate now."""
-        box = []
+        """Whether another thread can take the gate exclusively now (a
+        probe that cannot waits on, and gets in once the gate is free)."""
+        got = threading.Event()
 
         def probe():
-            got = prof.launch_gate.acquire(blocking=False)
-            if got:
-                prof.launch_gate.release()
-            box.append(got)
-        t = threading.Thread(target=probe)
+            with graphs.DEVICE_GATE.exclusive():
+                got.set()
+        t = threading.Thread(target=probe, daemon=True)
         t.start()
-        t.join()
-        return box[0]
+        probes.append(t)
+        return got.wait(0.2)
 
     seen = []
 
@@ -393,3 +395,6 @@ def test_capture_starts_and_stops_with_no_graph_replay_in_flight(monkeypatch, tm
         None, (0,) * len(graphs.LAUNCH_COUNTERS), 0.0, 0)
     step.replay()
     assert replays == [False] and free()
+    for t in probes:
+        t.join(5.0)
+    assert not any(t.is_alive() for t in probes)

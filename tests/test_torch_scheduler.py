@@ -206,10 +206,21 @@ def test_exclusive_drains_then_lends_engine(tiny):
 
 
 def test_scheduler_refuses_unported_options(tiny):
+    """Every option of the JAX Scheduler is ported now: fault_key names the
+    scheduler at the replica fault sites and fair_queue takes the FIFO
+    deque's place; an unknown option is still refused."""
+    from distributed_llama_tpu_torch.runtime.fleet import WFQueue
+
     eng = _engine(tiny, 2)
-    for opt in ("fault_key", "fair_queue"):
-        with pytest.raises(ValueError, match="not ported"):
-            Scheduler(eng, **{opt: object()})
+    q = WFQueue()
+    sched = Scheduler(eng, fault_key="r3", fair_queue=q)
+    assert sched.fault_key == "r3" and sched._queue is q
+    r = sched.submit([1, 9, 23], 3, _greedy(tiny[0].vocab_size),
+                     tenant="acme", priority="high")
+    assert (r.tenant, r.priority) == ("acme", "high") and len(q) == 1
+    while sched.step():
+        pass
+    assert len(q) == 0 and _drain(r) == _oracle(tiny, [1, 9, 23], 3)
     # the SLOs are ported: either one arms the admission policy
     assert Scheduler(eng, slo_ttft_ms=500.0).admission is not None
     assert Scheduler(eng).admission is None

@@ -72,9 +72,10 @@ def _summary():
                 "scheduler_step": {"n": 2, "p50_ms": 1.5}}}}
 
 
-# the one-hot states of the JAX renderer that the port never enters (no
-# fleet; the supervisor is built before the server binds, so never idle)
-_JAX_ONLY_STATES = ('dllama_state{state="degraded"} 0', 'dllama_state{state="idle"} 0')
+# the one-hot states of the JAX renderer that the port's renderer lacks:
+# none since the fleet (a router's "degraded"; "idle" is rendered though
+# the port builds its supervisor before the server binds)
+_JAX_ONLY_STATES = ()
 
 
 @pytest.mark.parametrize("kw", [dict(mode="scheduler"), dict(mode="legacy", state="off"),
@@ -93,18 +94,23 @@ def test_render_prometheus_matches_jax(kw):
 
 
 def test_render_prometheus_has_no_unported_families():
-    """Without a tracer the renderer renders no step family, and it
-    renders no fleet family: the router, replica and transfer blocks of a
-    summary render nothing. The prefix cache's families render as the JAX
-    renderer's (ported with the prefix cache), and so does the autosize
-    block (ported with auto-sizing)."""
+    """Without a tracer the renderer renders no step family. Every family
+    is ported now: the router, replica, transfer and fleet blocks of a
+    summary render as the JAX renderer's, and so do the prefix cache's
+    and the autosize block."""
     summary = _summary()
     summary["hbm"] = {**summary["hbm"], "prefix_arena_bytes": 6, "prefix_blocks_addable": 3}
     summary["prefix_cache"] = {"lookups": 4, "hits": 3, "blocks_in_use": 2}
     fleet = {"router": {"routed": 5}, "replicas": [{"replica": 0, "tokens_out": 1}],
-             "kv_transfer": {"fills": 1}}
+             "kv_transfer": {"fills_ok": 1, "enabled": True},
+             "fleet": {"enabled": True, "ticks": 3, "sheds_by_reason": {"shed": 1}}}
     text = trace.render_prometheus({**summary, **fleet})
-    assert text == trace.render_prometheus(summary)
+    assert text == jax_trace.render_prometheus({**summary, **fleet})
+    assert "dllama_router_routed_total 5" in text
+    assert 'dllama_replica_tokens_out_total{replica="0"} 1' in text
+    assert "dllama_kv_transfer_fills_total 1" in text
+    assert 'dllama_fleet_sheds_by_reason_total{reason="shed"} 1' in text
+    text = trace.render_prometheus(summary)
     auto = {"serve_batch": 4, "serve_batch_basis": "autotune", "prefix_blocks": 0,
             "prefix_blocks_basis": "static",
             "inputs": {"knee_rows": 4, "knee_basis": "autotune"}}
