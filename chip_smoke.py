@@ -383,6 +383,22 @@ result line):
     worker SIGKILLed mid-stream: zero unstreamed failures, the exit
     classified signal:SIGKILL, the worker back in rotation, totals
     carried.
+17. The tools (`[tools]`, `[rehearse]`, `[lint]` lines). 17a, after the
+    rank pool of phases 12-14 closes, on phase 5's Llama-2-7B weights:
+    tools/microbench.py's five rows (dense GEMV, the dequantize path, K1
+    at t = 1, K3 decode at S 2048, the cache write), profile_decode.py's
+    three modes at 16 tokens (K1 with the fused Q80, the dequantize
+    route, dense bf16), profile_prefill.py's split of a 256-token chunk,
+    exp_prefill_chunk.py's ladder at chunks 128-2048 with the logits
+    after the prompt agreeing within LOGITS_TOL, and
+    exp_decode_profile.py's kernel time by group; every tool's K1, K3
+    and Q80 launches counted; then K1, K3 and Q80 at the tools' shapes
+    against their plain versions. 17b, after phase 16d:
+    tools/rehearse_70b.py on a Llama-2-70B-width file of REHEARSE_LAYERS
+    layers, one pool of 16 gloo ranks on the card, tp = 16 (the 8 kv
+    heads replicated) and tp = 8 x pp = 2: identical greedy tokens, each
+    rank's bytes and peak host bytes in bounds, the file deleted. 17c:
+    `python -m distributed_llama_tpu_torch.analysis --check` exits 0.
 
 Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
@@ -1798,23 +1814,15 @@ def probe_attrs() -> dict:
 
 
 def _spec(name: str):
-    from distributed_llama_tpu_torch.models.spec import ArchType, HiddenAct, ModelSpec
+    import dataclasses
 
-    if name == "llama2_7b":      # bench.py:101 LLAMA2_7B
-        return ModelSpec(arch=ArchType.LLAMA, dim=4096, hidden_dim=11008,
-                         n_layers=32, n_heads=32, n_kv_heads=32, vocab_size=32000,
-                         seq_len=2048, hidden_act=HiddenAct.SILU)
+    from distributed_llama_tpu_torch.models import bench_specs
+
+    if name == "llama2_7b":
+        return bench_specs.LLAMA2_7B
     if name == "mixtral_8x7b":   # mistralai/Mixtral-8x7B-v0.1, all 32 layers
-        return ModelSpec(arch=ArchType.MIXTRAL, dim=4096, hidden_dim=14336,
-                         n_layers=32, n_heads=32, n_kv_heads=8, vocab_size=32000,
-                         seq_len=2048, hidden_act=HiddenAct.SILU,
-                         rope_theta=1000000.0, n_experts=N_EXPERTS,
-                         n_active_experts=N_ACTIVE)
-    # Grok-1 widths cut to 2 of 64 layers (bench.py:139 GROK1_TRUNC)
-    return ModelSpec(arch=ArchType.GROK1, dim=6144, hidden_dim=32768,
-                     n_layers=2, n_heads=48, n_kv_heads=8, vocab_size=131072,
-                     seq_len=2048, hidden_act=HiddenAct.GELU, rope_theta=10000.0,
-                     n_experts=N_EXPERTS, n_active_experts=N_ACTIVE)
+        return dataclasses.replace(bench_specs.MIXTRAL_MOE, n_layers=32)
+    return bench_specs.GROK1_TRUNC    # Grok-1 widths cut to 2 of 64 layers
 
 
 def _counters() -> dict:
@@ -6161,9 +6169,9 @@ def phase_cluster(card: str) -> dict:
     K1/K3/Q80 launches equal the single-host run's rank 0 launches (its
     tp = 2 share at that depth); the weight push's bytes and ms and the
     heartbeat RTT p50 from the root's ClusterStats."""
+    import dataclasses
     import types
 
-    from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
     from distributed_llama_tpu_torch.parallel.sharding import vocab_splits
     from distributed_llama_tpu_torch.quants import FloatType
     from distributed_llama_tpu_torch.runtime.netstats import estimate_decode_wire
@@ -6171,10 +6179,8 @@ def phase_cluster(card: str) -> dict:
     from distributed_llama_tpu_torch.io import TokenizerData, write_tokenizer_file
 
     t_phase = time.perf_counter()
-    spec = ModelSpec(arch=ArchType.LLAMA, dim=4096, hidden_dim=11008,
-                     n_layers=CLUSTER_LAYERS, n_heads=32, n_kv_heads=32,
-                     vocab_size=32000, seq_len=2048,
-                     weights_float_type=FloatType.Q40)
+    spec = dataclasses.replace(_spec("llama2_7b"), n_layers=CLUSTER_LAYERS,
+                               weights_float_type=FloatType.Q40)
     # 299 bytes of text: with BOS, 300 tokens of the byte tokenizer (the
     # main paths' prompt length: one 256-token chunk and a 44-token tail)
     rng = np.random.default_rng(5)
@@ -7129,9 +7135,9 @@ def phase_fleet_procs(card: str) -> dict:
     it reported just before the kill, and the requests the kill took out
     of the /stats totals printed."""
     import os
+    import dataclasses
     import signal as _signal
 
-    from distributed_llama_tpu_torch.models.spec import ArchType, ModelSpec
     from distributed_llama_tpu_torch.quants import FloatType
     from distributed_llama_tpu_torch.runtime.kv_transfer import block_payload_bytes
     from distributed_llama_tpu_torch.runtime.netstats import estimate_block_transfer
@@ -7140,9 +7146,8 @@ def phase_fleet_procs(card: str) -> dict:
     from distributed_llama_tpu_torch.sampler import Sampler
 
     t_phase = time.perf_counter()
-    spec = ModelSpec(arch=ArchType.LLAMA, dim=4096, hidden_dim=11008,
-                     n_layers=CLUSTER_LAYERS, n_heads=32, n_kv_heads=32,
-                     vocab_size=32000, seq_len=2048, weights_float_type=FloatType.Q40)
+    spec = dataclasses.replace(_spec("llama2_7b"), n_layers=CLUSTER_LAYERS,
+                               weights_float_type=FloatType.Q40)
     vocab = spec.vocab_size
     rng = np.random.default_rng(71)
     prompt = [1] + rng.integers(3, vocab, 299).tolist()
@@ -7423,6 +7428,213 @@ def fleet_entries(k1: dict, fleet: dict) -> list[dict]:
     ]
 
 
+TOOLS_DECODE_TOKENS = 16
+REHEARSE_LAYERS, REHEARSE_TOKENS = 4, 4
+REHEARSE_TIMEOUT_S = 300.0
+# f32 both meshes: their logits differ by the partial sums' rounding (and a
+# Q80 code that rounding moves), far below this share of max |logit|
+REHEARSE_LOGITS_TOL = 1e-3
+
+
+def tools_kernels(gen) -> dict:
+    """K1, K3 and Q80 at the tools' shapes, each against its plain version
+    and timed beside its plain version, library call and bound (phases
+    2-4's rows): K1 at microbench's 11008x4096 weight, t = 1, bf16 (the
+    GEMV); K3 at its decode (S 2048, 32/32 heads, pos 2047); Q80 at a
+    prefill chunk's (256, 4096) input."""
+    bf16 = torch.bfloat16
+    d, n = 11008, 4096
+    ws = rotating(lambda: random_q40(gen, d, n), d * n // 2 + d * n // 32 * 2)
+    w0 = ws()
+    k1 = k1_row(gen, "[tools] [K1] microbench ", "11008x4096", d, n, 1, bf16, ws, w0)
+    del ws, w0
+    k3 = k3_row(gen, "[tools] [K3] microbench ", bf16, bf16,
+                (1, 32, 32, 1, [2047], 128, 2048))
+    q80 = q80_row(gen, "[tools] [Q80] prefill chunk ", 256, 4096, bf16, bf16)
+    torch.cuda.empty_cache()
+    return dict(k1=k1, k3=k3, q80=q80)
+
+
+def phase_tools(card: str, params_7b, gen) -> dict:
+    """Phase 17a (`[tools]` lines): the chip-time tools in this process over
+    phase 5's 7B weights, every K1, K3 and Q80 launch counted."""
+    from distributed_llama_tpu_torch.tools import (exp_decode_profile, exp_prefill_chunk,
+                                                   microbench, profile_decode,
+                                                   profile_prefill)
+
+    t0 = time.perf_counter()
+    spec = _spec("llama2_7b")
+    zero_counts()
+    mb = microbench.run(card=card)
+    decode = {m: profile_decode.run(m, spec=spec, params=params_7b,
+                                    n_tokens=TOOLS_DECODE_TOKENS, card=card)
+              for m in profile_decode.MODES}
+    prefill = profile_prefill.run(spec=spec, params=params_7b, card=card)
+    ladder = exp_prefill_chunk.run(spec=spec, params=params_7b, card=card)
+    dprof = exp_decode_profile.run(spec=spec, params=params_7b, card=card)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for r in mb:
+        if not (r["ms"] and math.isfinite(r["ms"])):
+            fail(f"[tools] microbench {r['name']}: no time")
+    for m, r in decode.items():
+        if not (r["ms_per_token"] > 0 and math.isfinite(r["ms_per_token"])):
+            fail(f"[tools] profile_decode {m}: ms/token {r['ms_per_token']}")
+        print(f"[tools] profile_decode {m}: {r['ms_per_token']:.4f} ms/token, "
+              f"{r['eff_bw_gbps']} GB/s = {r['hbm_share']:.3f} of 3.35 TB/s, bound "
+              f"{r['bound_ms_per_token']:.4f} ms/token [{card}]")
+    rel = ladder["logits_max_rel_diff"]
+    if not (math.isfinite(rel) and rel <= LOGITS_TOL):
+        fail(f"[tools] prefill ladder: logits differ across chunks by {rel:.3g} of "
+             f"max |logit| > {LOGITS_TOL}")
+    for k in ("K1", "K3", "Q80", "Q80F"):
+        if not counts[k]:
+            fail(f"[tools] no {k} launch in the tools' run: {counts}")
+    ladder.pop("logits")
+    seconds = time.perf_counter() - t0
+    print(f"[tools] launches: {json.dumps(counts)}; 17a in {seconds:.1f} s [{card}]")
+    return dict(microbench=mb, profile_decode=decode, profile_prefill=prefill,
+                prefill_ladder=ladder, decode_profile=dprof, counts=counts,
+                seconds=seconds, kernels=tools_kernels(gen))
+
+
+def rehearse_start() -> dict:
+    """Phase 17b's slow set-up, started before phase 6 so that it runs
+    beside phases 6-16d: the 70B-width file, written by a process of its
+    own into a temporary directory, and the pool of 16 ranks (spawned;
+    they wait idle on the card until 17b). `cleanup` stops both and
+    deletes the file; it also runs at exit, so a failing phase leaves no
+    file behind."""
+    import atexit
+
+    from distributed_llama_tpu_torch.parallel.launch import RankPool
+
+    path = Path(tempfile.mkdtemp(prefix="rehearse70b-")) / "llama70b_width.m"
+    writer = subprocess.Popen(
+        [sys.executable, "-c", "from distributed_llama_tpu_torch.tools import rehearse_70b "
+         f"as r; r.write_file({str(path)!r}, r.spec70({REHEARSE_LAYERS}))"],
+        cwd=str(Path(__file__).resolve().parent))
+    pool = RankPool(16, device_type="cuda", timeout_s=REHEARSE_TIMEOUT_S)
+    done = []
+
+    def cleanup() -> None:
+        if done:
+            return
+        done.append(True)
+        if writer.poll() is None:
+            writer.kill()
+        writer.wait()
+        pool.close()
+        path.unlink(missing_ok=True)
+        path.parent.rmdir()
+    atexit.register(cleanup)
+    return dict(path=path, writer=writer, pool=pool, cleanup=cleanup,
+                t0=time.perf_counter())
+
+
+def phase_rehearse(card: str, prep: dict) -> dict:
+    """Phase 17b (`[rehearse]` lines): tools/rehearse_70b.py on the card over
+    rehearse_start's file and pool of 16 gloo ranks sharing it; the file is
+    deleted at the end, whether the phase passed or failed."""
+    from distributed_llama_tpu_torch.tools import rehearse_70b
+
+    t0 = time.perf_counter()
+    prompt = [1] + np.random.default_rng(17).integers(3, 32000, 15).tolist()
+    try:
+        rc = prep["writer"].wait(timeout=REHEARSE_TIMEOUT_S)
+        if rc != 0:
+            fail(f"[rehearse] writing the 70B-width file exited {rc}")
+        print(f"[rehearse] the file and the 16 ranks ready {t0 - prep['t0']:.1f} s after "
+              f"their start, {time.perf_counter() - t0:.1f} s of it waited here")
+        art = rehearse_70b.rehearse(device="cuda", n_layers=REHEARSE_LAYERS,
+                                    n_tokens=REHEARSE_TOKENS, prompt=prompt,
+                                    model_path=str(prep["path"]), pool=prep["pool"],
+                                    out_path=str(OUT_DIR / "MULTICHIP_70B.json"),
+                                    timeout_s=REHEARSE_TIMEOUT_S)
+    finally:
+        prep["cleanup"]()
+    if prep["path"].exists():
+        fail("[rehearse] the 70B-width file was not deleted")
+    tp16, tp8pp2 = art["configs"]
+    if tp16["greedy_tokens"] != tp8pp2["greedy_tokens"]:
+        fail(f"[rehearse] tp=16 {tp16['greedy_tokens']} != tp=8,pp=2 "
+             f"{tp8pp2['greedy_tokens']}")
+    rel = art["cross_mesh_logits_max_rel_diff"]
+    print(f"[rehearse] the meshes' logits (f32, every step) differ by {rel:.3g} of max "
+          f"|logit| [{card}]")
+    if not rel <= REHEARSE_LOGITS_TOL:
+        fail(f"[rehearse] the meshes' logits differ by {rel:.3g} > {REHEARSE_LOGITS_TOL}")
+    biggest = 32000 * 8192 * 4 + (1 << 20)
+    for cfg in (tp16, tp8pp2):
+        for r in cfg["ranks"]:
+            if not 0 < r["peak_host_bytes"] <= 2 * biggest:
+                fail(f"[rehearse] {cfg['config']} rank {r['rank']}: peak host bytes "
+                     f"{r['peak_host_bytes']}")
+            if r["counts"]["K1"] <= 0 or r["counts"]["K3"] <= 0:
+                fail(f"[rehearse] {cfg['config']} rank {r['rank']}: launches {r['counts']}")
+        print(f"[rehearse] {cfg['config']}: tokens {cfg['greedy_tokens']}; params a rank "
+              f"{cfg['per_device_param_mb']} MB (layers {cfg['per_device_layer_mb']}, vocab "
+              f"{cfg['per_device_vocab_mb']}), 80 layers "
+              f"{cfg['per_device_param_gb_extrapolated_80_layers']} GB a rank of "
+              f"{cfg['card_memory_gb']} GB; peak host {cfg['peak_host_mb_during_load']} MB; "
+              f"{cfg['collectives_decode_step']} collectives a decode step; decode "
+              f"{cfg['decode_tokens_per_s']} tokens/s; load {cfg['load_seconds']} s; "
+              f"{cfg['seconds']} s [{card}]")
+    if {r["layers_held"] for r in tp16["ranks"]} != {REHEARSE_LAYERS}:
+        fail("[rehearse] tp=16: a rank holds other than every layer")
+    art["seconds"] = time.perf_counter() - t0
+    print(f"[rehearse] 17b in {art['seconds']:.1f} s [{card}]")
+    for cfg in art["configs"]:
+        cfg["rank0"] = cfg.pop("ranks")[0]
+    return art
+
+
+def phase_lint() -> dict:
+    """Phase 17c (`[lint]` line): the port's analysis gate as a subprocess."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "distributed_llama_tpu_torch.analysis",
+                          "--check"], capture_output=True, text=True, timeout=120,
+                         cwd=str(Path(__file__).resolve().parent))
+    last = (res.stdout.strip().splitlines() or [""])[-1]
+    print(f"[lint] python -m distributed_llama_tpu_torch.analysis --check: exit "
+          f"{res.returncode} ({last}) in {time.perf_counter() - t0:.1f} s")
+    if res.returncode != 0:
+        fail(f"[lint] the analysis gate exits {res.returncode}:\n{res.stdout}{res.stderr}")
+    return dict(rc=res.returncode, summary=last)
+
+
+def tools_entries(t17: dict, r17: dict) -> list[dict]:
+    """K1, K3 and Q80 at the tools' shapes (one launch each); launches:
+    the tools' run in this process (17a) and the rehearsal's rank 0 over
+    both meshes (17b)."""
+    kr, run = t17["kernels"], t17["counts"]
+    ranks = [cfg["rank0"]["counts"] for cfg in r17["configs"]]
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return [
+        dict(name="q40_matmul_tools", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:258",
+             launches=run["K1"] + sum(c["K1"] for c in ranks),
+             **{k: kr["k1"][k] for k in keys},
+             at="microbench's 11008x4096 weight at t=1, bf16 (the GEMV); launches: the "
+                "tools (17a) and the 70B rehearsal's rank 0 (17b, f32)"),
+        dict(name="flash_attention_tools", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/flash_attention.cu",
+             replaces="distributed_llama_tpu/ops/pallas_attention.py:233",
+             launches=run["K3"] + sum(c["K3"] for c in ranks),
+             **{k: kr["k3"][k] for k in keys},
+             at="microbench's decode: S 2048, 32/32 heads of 128, pos 2047, bf16; "
+                "launches: the tools (17a) and the 70B rehearsal's rank 0 (17b, f32)"),
+        dict(name="q80_roundtrip_tools", route="cuda",
+             source="distributed_llama_tpu_torch/csrc/q80_roundtrip.cu",
+             replaces="distributed_llama_tpu/ops/matmul.py:93 (XLA-fused)",
+             launches=run["Q80"] + sum(c["Q80"] for c in ranks),
+             **{k: kr["q80"][k] for k in keys},
+             at="a prefill chunk's (256, 4096) input, bf16; launches: the tools (17a) "
+                "and the 70B rehearsal's rank 0 (17b)"),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7480,8 +7692,11 @@ def main() -> int:
         mark("phase 13 (serving over ranks)")
         axes14 = phase_axes(card, params_7b, pool2)
         mark("phase 14 (pp, sp, ep)")
+    t17 = phase_tools(card, params_7b, gen)
+    mark("phase 17a (tools)")
     del params_7b
     torch.cuda.empty_cache()
+    prep17 = rehearse_start()
     phase_file_path()
     mark("phase 6 (file path)")
     chat = phase_chat()
@@ -7492,6 +7707,14 @@ def main() -> int:
     mark("phase 16c (process replicas)")
     fleet16["lookup_stream"] = fleet_lookup_stream(card)
     mark("phase 16d (streamed lookup batch)")
+    t_b = time.perf_counter()
+    r17 = phase_rehearse(card, prep17)
+    mark("phase 17b (70B rehearsal)")
+    lint17 = phase_lint()
+    mark("phase 17c (lint)")
+    t17["seconds_17bc"] = time.perf_counter() - t_b
+    print(f"[tools] phase 17: {t17['seconds'] + t17['seconds_17bc']:.1f} s (17a "
+          f"{t17['seconds']:.1f} s, 17b-c {t17['seconds_17bc']:.1f} s) [{card}]")
     kernels = summarize(k1, q80, fused, k2, k3, probes, probes2, main_paths)
     kernels["kernels"] += serving_entries(k1, q80, k3, serving)
     kernels["kernels"] += spec_entries(k1, q80, k3, spec9)
@@ -7499,6 +7722,7 @@ def main() -> int:
     kernels["kernels"] += serve_tp_entries(serve13)
     kernels["kernels"] += axes_entries(axes14)
     kernels["kernels"] += fleet_entries(k1, fleet16)
+    kernels["kernels"] += tools_entries(t17, r17)
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
                             ("K2", "q40_expert_matmul", "one Mixtral 8x7B decode step, t = 1, bf16")):
         e = next(k for k in kernels["kernels"] if k["name"] == name)
@@ -7555,6 +7779,7 @@ def main() -> int:
         probes=probes, probes2=probes2, main_paths=main_paths, main_paths_s=main_s,
         serving=serving, chat=chat, spec=spec9, trace=trace10, admission=admission11,
         tp=tp12, serve_tp=serve13, axes=axes14, cluster=cluster15, fleet=fleet16,
+        tools=t17, rehearse=r17, lint=lint17,
         kernels=kernels["kernels"], total_s=time.perf_counter() - t_start), indent=1))
     watchdog.stdin.close()
     watchdog.wait(timeout=10)

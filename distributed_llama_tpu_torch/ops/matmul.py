@@ -39,6 +39,7 @@ collectives with pp, as the JAX engine asserts).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -48,6 +49,24 @@ from ..quants.torch_codec import QuantizedTensor, dequantize_q40_torch
 from . import cuda_q40, cuda_q80
 
 WeightFormat = Union[torch.Tensor, QuantizedTensor]
+# set inside dequantize_route(): every Q40 product dequantizes, then
+# multiplies (the JAX Engine's use_pallas=False)
+_DEQUANTIZE = False
+
+
+@contextlib.contextmanager
+def dequantize_route():
+    """Every Q40 product inside takes the dequantize-then-matmul path, K1's
+    shapes included: the route that tools/profile_decode.py's q40_xla mode
+    times against K1 (the JAX Engine's use_pallas=False). A CUDA graph
+    captured inside keeps the route on its replays. Only asked for
+    explicitly: nothing takes it by default."""
+    global _DEQUANTIZE
+    prev, _DEQUANTIZE = _DEQUANTIZE, True
+    try:
+        yield
+    finally:
+        _DEQUANTIZE = prev
 
 
 def _input(x: torch.Tensor, compute_dtype, activation_q80: bool):
@@ -82,7 +101,7 @@ def local_matmul(x: torch.Tensor, w: WeightFormat, *,
     otherwise (the JAX package's local_matmul)."""
     if isinstance(w, QuantizedTensor):
         t = x.numel() // x.shape[-1]
-        if cuda_q40.supports_kernel(w, t):
+        if cuda_q40.supports_kernel(w, t) and not _DEQUANTIZE:
             fused = activation_q80 and cuda_q40.fuses_q80(w, t)
             if not fused:
                 x = _input(x, compute_dtype, activation_q80)

@@ -343,7 +343,7 @@ class _LinkBase:
         # driver — harness root / _announce_run); a ClusterPeerLost
         # casualty span links under it
         self.trace_tid = 0
-        self.lost: dict[int, ClusterPeerLost] = {}  # guarded by self._lock
+        self.lost: dict[int, ClusterPeerLost] = {}  # dlrace: guarded-by(self._lock)
         # callback invoked ONCE per lost peer, from the detecting thread
         # (receiver/heartbeat — the main thread may be wedged in a
         # collective and uninterruptible, so the callback is where a
@@ -351,7 +351,7 @@ class _LinkBase:
         # send/recv raises.
         self.on_peer_lost = None
         self._lock = threading.Lock()
-        self._closing = False  # guarded by self._lock
+        self._closing = False  # dlrace: guarded-by(self._lock)
         self.stats = None  # runtime.stats.ClusterStats, set in _init_stats
 
     def _init_stats(self, connect_retries: int = 0) -> None:

@@ -135,7 +135,7 @@ class FaultRegistry:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._armed: dict[str, _Armed] = {}  # guarded by self._lock
+        self._armed: dict[str, _Armed] = {}  # dlrace: guarded-by(self._lock)
         # a stalled site blocks on this event, so tests can release a
         # "hung" thread instead of leaking it for the stall duration
         self._release = threading.Event()

@@ -79,15 +79,16 @@ class DeviceGate:
 
     def __init__(self):
         self._cond = threading.Condition(threading.Lock())
-        self._readers: dict[int, int] = {}  # guarded by self._cond
-        self._writer: int | None = None  # guarded by self._cond
-        self._depth = 0  # guarded by self._cond
-        self._waiting = 0  # guarded by self._cond
-        self._waited: dict[int, float] = {}  # guarded by self._cond
-        self._since: dict[int, float] = {}  # guarded by self._cond
+        self._readers: dict[int, int] = {}  # dlrace: guarded-by(self._cond)
+        self._writer: int | None = None  # dlrace: guarded-by(self._cond)
+        self._depth = 0  # dlrace: guarded-by(self._cond)
+        self._waiting = 0  # dlrace: guarded-by(self._cond)
+        self._waited: dict[int, float] = {}  # dlrace: guarded-by(self._cond)
+        self._since: dict[int, float] = {}  # dlrace: guarded-by(self._cond)
         self.exclusive_waits = 0  # exclusive entries that had to wait
 
-    def _wait_while(self, me: int, blocked: Callable[[], bool]) -> None:
+    def _wait_while(self, me: int,  # dlrace: holds(self._cond)
+                    blocked: Callable[[], bool]) -> None:
         """Wait (self._cond held) until blocked() is false, timing it."""
         if not blocked():
             return
@@ -208,7 +209,7 @@ def capture(fn: Callable[[], object]) -> CapturedStep:
         return _capture(fn)
 
 
-def _capture(fn: Callable[[], object]) -> CapturedStep:
+def _capture(fn: Callable[[], object]) -> CapturedStep:  # dlrace: holds(DEVICE_GATE)
     t0 = time.perf_counter()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

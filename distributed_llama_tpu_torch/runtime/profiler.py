@@ -93,7 +93,7 @@ class CompileLedger:
         self.total_ms = 0.0
         self.after_warmup = 0      # captures on an already-warm engine
         self.key_overflow = 0
-        self.by_key: dict[str, dict] = {}  # guarded by self._lock
+        self.by_key: dict[str, dict] = {}  # dlrace: guarded-by(self._lock)
 
     def pre_compile(self, engine, key) -> None:
         """The recompile sentinel, before a capture on a WARM engine: a
@@ -449,7 +449,7 @@ class DeviceTimeStats:
         self.window = int(window)
         self.max_keys = int(max_keys)
         self._lock = threading.Lock()
-        self._hist: dict[str, deque] = {}  # guarded by self._lock
+        self._hist: dict[str, deque] = {}  # dlrace: guarded-by(self._lock)
         self.overflow = 0
 
     def record(self, name: str, ms: float) -> None:
@@ -483,9 +483,9 @@ class SyncStats:
     def __init__(self, window: int = 512):
         self.window = int(window)
         self._lock = threading.Lock()
-        self._sync = deque(maxlen=self.window)  # guarded by self._lock
-        self._device = deque(maxlen=self.window)
-        self._wall = deque(maxlen=self.window)
+        self._sync = deque(maxlen=self.window)  # dlrace: guarded-by(self._lock)
+        self._device = deque(maxlen=self.window)  # dlrace: guarded-by(self._lock)
+        self._wall = deque(maxlen=self.window)  # dlrace: guarded-by(self._lock)
 
     def record(self, sync_ms: float, device_ms: float,
                wall_ms: float | None = None) -> None:
@@ -549,7 +549,7 @@ class Profiler:
         # the sampled step's entries while it runs (scheduler thread only)
         self.active: list | None = None
         self._lock = threading.Lock()
-        self._busy = False  # guarded by self._lock
+        self._busy = False  # dlrace: guarded-by(self._lock)
 
     # -- the /admin/profile body ----------------------------------------
 

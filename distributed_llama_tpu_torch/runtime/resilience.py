@@ -146,19 +146,19 @@ class EngineSupervisor:
         # dead generations' ServeStats stay live here (a straggler may
         # still count into one after the swap); generations past the cap
         # fold into the _carry totals
-        self._dead_stats: list = []  # guarded by self._state_lock
-        self._carry = {k: 0 for k in _COUNTER_KEYS}  # guarded by self._state_lock
+        self._dead_stats: list = []  # dlrace: guarded-by(self._state_lock)
+        self._carry = {k: 0 for k in _COUNTER_KEYS}  # dlrace: guarded-by(self._state_lock)
         self._stop = False
         # why the ranks were lost (LOST), None while they are in step
         self.lost: str | None = None
-        self._gen = 0  # guarded by self._state_lock
-        self._state = READY  # guarded by self._state_lock
-        self._sched = self._make_sched(engine_factory())
+        self._gen = 0  # dlrace: guarded-by(self._state_lock)
+        self._state = READY  # dlrace: guarded-by(self._state_lock)
+        self._sched = self._make_sched(engine_factory())  # dlrace: guarded-by(self._state_lock)
         # capture before the watchdog exists: a first step's capture must
         # never read as a stall, and /readyz means "will serve promptly"
         self._sched.warmup()
         self._loop_threads: dict[int, threading.Thread] = {}
-        self._rebuild_thread: threading.Thread | None = None
+        self._rebuild_thread: threading.Thread | None = None  # dlrace: guarded-by(self._state_lock)
         self._start_loop(self._sched, self._gen)
         self._watchdog_thread = threading.Thread(
             target=self._watchdog, name="dllama-watchdog", daemon=True)

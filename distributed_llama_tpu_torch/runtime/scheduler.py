@@ -429,7 +429,8 @@ class Scheduler:
         # (append, popleft, len, bool): weighted-fair admission when
         # tenant budgets are armed; its own lock is never held across a
         # forward
-        self._queue = fair_queue if fair_queue is not None else deque()
+        self._queue = (fair_queue if fair_queue is not None
+                       else deque())  # dlrace: guarded-by(self._mutex)
         # the fleet ladder's "no_spec" rung (runtime/fleet.ShedLadder):
         # ORs with the admission policy's spec gate. Written by the fleet
         # controller's thread, read by the stepping thread (a bool store
@@ -453,13 +454,13 @@ class Scheduler:
         self.stats.spec = self._spec_stats
         self._thread: threading.Thread | None = None
         self._stop = False
-        self._closed = False
+        self._closed = False  # dlrace: guarded-by(self._mutex)
         # watchdog heartbeat: perf_counter when the current step body
         # entered, None between steps. Written by the stepping thread,
         # read lock-free by the supervisor's watchdog
-        self._step_t0: float | None = None
+        self._step_t0: float | None = None  # dlrace: guarded-by(self._mutex)
         self._step_gate0 = (0, 0.0)  # the stepping thread, its gate wait
-        self._rid = 0  # guarded by self._rid_lock
+        self._rid = 0  # dlrace: guarded-by(self._rid_lock)
         self._rid_lock = threading.Lock()
 
     # -- submission --------------------------------------------------------
@@ -651,7 +652,7 @@ class Scheduler:
                                 "retryable": code != "deadline"}):
             self.stats.requests_expired += 1
 
-    def _admit(self) -> None:
+    def _admit(self) -> None:  # dlrace: holds(self._mutex)
         now = time.perf_counter()
         free = [s for s in self.slots if s.req is None]
         while free and self._queue:

@@ -145,7 +145,7 @@ class StepTimelineStats:
         self.window = int(window)
         self.max_keys = int(max_keys)
         self._lock = threading.Lock()
-        self._hist: dict[tuple, deque] = {}  # guarded by self._lock
+        self._hist: dict[tuple, deque] = {}  # dlrace: guarded-by(self._lock)
         self.overflow = 0  # samples dropped past max_keys
 
     def record(self, decode_rows: int, prefill_rows: int, chunk: int,
@@ -347,10 +347,10 @@ class WireStats:
         self.recent = int(recent)
         self._lock = threading.Lock()
         # peer -> {"tx"|"rx" -> {kind_name -> [frames, bytes]}}
-        self._counts: dict[int, dict] = {}  # guarded by self._lock
-        self._rtt: dict[int, object] = {}  # guarded by self._lock
-        self._offset: dict[int, float] = {}  # guarded by self._lock
-        self._best_rtt: dict[int, float] = {}  # guarded by self._lock
+        self._counts: dict[int, dict] = {}  # dlrace: guarded-by(self._lock)
+        self._rtt: dict[int, object] = {}  # dlrace: guarded-by(self._lock)
+        self._offset: dict[int, float] = {}  # dlrace: guarded-by(self._lock)
+        self._best_rtt: dict[int, float] = {}  # dlrace: guarded-by(self._lock)
         self.key_overflow = 0
 
     def account(self, peer: int, kind: str, direction: str,
@@ -553,7 +553,7 @@ class KVTransferStats:
         from collections import deque
 
         # whole-fill wall ms (connect -> last block imported)
-        self.transfer_ms = deque(maxlen=1000)  # guarded by self.lock
+        self.transfer_ms = deque(maxlen=1000)  # dlrace: guarded-by(self.lock)
         self.wire = WireStats()
         # counter mutations ride this lock (concurrent fills/donor
         # connections all write here; += on a dataclass int is a

@@ -113,12 +113,12 @@ class TraceSink:
         self.max_bytes = int(max_bytes)
         self.max_files = int(max_files)
         self._lock = threading.Lock()
-        self._fh = None  # guarded by self._lock
-        self._n = 0
-        self._seq = 0
+        self._fh = None  # dlrace: guarded-by(self._lock)
+        self._n = 0  # dlrace: guarded-by(self._lock)
+        self._seq = 0  # dlrace: guarded-by(self._lock)
         os.makedirs(directory, exist_ok=True)
 
-    def _open_next(self) -> None:  # holds self._lock
+    def _open_next(self) -> None:  # dlrace: holds(self._lock)
         if self._fh is not None:
             try:
                 self._fh.close()
@@ -165,15 +165,15 @@ class Tracer:
         self.decode_every = 8     # decode progress event cadence (tokens)
         self.sample = 1.0         # sink sampling rate (the ring keeps all)
         self._capacity = 8192
-        self._ring: deque = deque(maxlen=self._capacity)
+        self._ring: deque = deque(maxlen=self._capacity)  # dlrace: guarded-by(self._lock)
         self._lock = threading.Lock()
-        self._next_id = 0  # guarded by self._lock
+        self._next_id = 0  # dlrace: guarded-by(self._lock)
         self._sink: TraceSink | None = None
         self.steps = StepTimelineStats()
         self.dropped = 0          # sink write failures (disk full ...)
         # per-tid span index: by_id is O(span), not O(ring)
-        self._spans: dict[int, list] = {}  # guarded by self._span_lock
-        self._span_order: deque = deque()
+        self._spans: dict[int, list] = {}  # dlrace: guarded-by(self._span_lock)
+        self._span_order: deque = deque()  # dlrace: guarded-by(self._span_lock)
         self._span_lock = threading.Lock()
         self._anchor()
 

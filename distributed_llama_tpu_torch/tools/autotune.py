@@ -55,26 +55,15 @@ DEFAULT_BATCHES = (2, 4, 8, 16, 32, 64, 128)
 
 
 def model_spec(model: str):
-    """The calibration's model table (the JAX bench.py's TINY, LLAMA2_7B
-    and MIXTRAL_MOE)."""
-    from ..models.spec import ArchType, HiddenAct, ModelSpec
+    """The calibration's model table (models/bench_specs.py: TINY,
+    LLAMA2_7B and MIXTRAL_MOE)."""
+    from ..models import bench_specs
 
-    if model == "7b":
-        return ModelSpec(arch=ArchType.LLAMA, dim=4096, hidden_dim=11008,
-                         n_layers=32, n_heads=32, n_kv_heads=32,
-                         vocab_size=32000, seq_len=2048,
-                         hidden_act=HiddenAct.SILU)
-    if model == "moe":   # Mixtral 8x7B widths, 4 of 32 layers
-        return ModelSpec(arch=ArchType.MIXTRAL, dim=4096, hidden_dim=14336,
-                         n_layers=4, n_heads=32, n_kv_heads=8,
-                         vocab_size=32000, seq_len=2048,
-                         hidden_act=HiddenAct.SILU, rope_theta=1000000.0,
-                         n_experts=8, n_active_experts=2)
-    if model == "tiny":
-        return ModelSpec(arch=ArchType.LLAMA, dim=256, hidden_dim=704,
-                         n_layers=4, n_heads=8, n_kv_heads=8, vocab_size=512,
-                         seq_len=256, hidden_act=HiddenAct.SILU)
-    raise ValueError(f"unknown model {model!r} (tiny, 7b, moe)")
+    table = {"7b": bench_specs.LLAMA2_7B, "moe": bench_specs.MIXTRAL_MOE,
+             "tiny": bench_specs.TINY}
+    if model not in table:
+        raise ValueError(f"unknown model {model!r} (tiny, 7b, moe)")
+    return table[model]
 
 
 def device_info(device) -> dict:

@@ -42,8 +42,8 @@ import torch
 
 from ..apps import api_server
 from ..io import TokenizerData
+from ..models.bench_specs import LLAMA2_7B
 from ..models.params import synthetic_q40_params
-from ..models.spec import ArchType, HiddenAct, ModelSpec
 from ..ops import cuda_build
 from ..runtime.engine import Engine
 from ..sampler import Sampler
@@ -72,9 +72,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("exp_profile_race needs a CUDA device")
     cuda_build.build_all()
-    spec = ModelSpec(arch=ArchType.LLAMA, dim=4096, hidden_dim=11008, n_layers=32,
-                     n_heads=32, n_kv_heads=32, vocab_size=32000, seq_len=2048,
-                     hidden_act=HiddenAct.SILU)
+    spec = LLAMA2_7B
     vocab = spec.vocab_size
     tokenizer = Tokenizer(TokenizerData(vocab=byte_fallback_vocab(vocab),
                                         scores=[0.0] * vocab, bos_id=1, eos_id=2))

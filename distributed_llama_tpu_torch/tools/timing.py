@@ -92,3 +92,46 @@ def pass_rows(passes, dev: torch.device) -> list[dict]:
         print(line, flush=True)
         rows.append(row)
     return rows
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Best device ms of `reps` calls of fn, each between two CUDA events on
+    the current stream (one warm-up call first): for work a graph cannot
+    hold (host syncs, graph replays of its own). On the CPU, the host clock
+    (a call returns when its work is done)."""
+    import time
+
+    fn()
+    best = None
+    for _ in range(reps):
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def card_label(device=None) -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them, for every printed
+    number; "cpu" off the card."""
+    import subprocess
+
+    if device is not None and torch.device(device).type != "cuda":
+        return "cpu"
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=30)
+        return res.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(0) + ", power limit not read"

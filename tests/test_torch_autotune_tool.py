@@ -101,7 +101,19 @@ def test_autotune_comparison_and_recommendation_match_jax(seed):
 def test_tiny_calibration_on_the_cpu(tmp_path):
     """`calibrate(model="tiny", batches=(2, 4))` on the CPU: a curve point a
     batch, the ladder's widths timed, and an artifact every validator and
-    both loaders accept; main() writes it."""
+    both loaders accept; main() writes it. On one intra-op thread: the
+    tiny model's ~1000 small products take ~2 s so, while all of torch's
+    threads, on a host that other test processes share, waited for each
+    other for minutes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _tiny_calibration(tmp_path)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _tiny_calibration(tmp_path):
     art = autotune.calibrate(model="tiny", batches=(2, 4), steps=8, device="cpu",
                              log=lambda *a, **k: None)
     assert [p["rows"] for p in art["decode_curve"]] == [2, 4]
