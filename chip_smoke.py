@@ -10,16 +10,31 @@ result line):
  1. print the card (nvidia-smi name and power limit); build the kernels
     from csrc/ with nvcc for sm_90a, one process per source, in parallel.
  2. K1, the Q40 matmul, against its plain PyTorch version at the Llama-2-7B
-    projection shapes (wqkv, wo, w13, w2, wcls) for t in {1, 16, 256} in
-    bf16 and t = 1 in f32, and at Mixtral's dense-expert prefill shapes
-    (14336x4096, 4096x14336) for t in {44, 256}: error against tolerance,
-    kernel / plain / library (dequantized weight through torch.matmul)
-    times and the bound. The tensor-core path's plan of each shape (tokens
-    a CTA, split of n, CTAs), from the kernel's own plan export, must equal
-    cuda_q40.tc_plan. Then K1's two bf16 paths, GEMV and tensor-core
-    (wgmma), each checked and timed at t from 4 to 256 (44 a ragged chunk)
-    on the per-layer shapes, beside plain, library and bound: where their
-    times cross is where cuda_q40.TC_MIN_T belongs.
+    projection shapes (wqkv, wo, w13, w2, wcls) for t in {1, 2, 4, 8, 16,
+    256} in bf16 and t = 1 in f32, at Mixtral's dense-expert shapes
+    (14336x4096, 4096x14336) for t in {4, 44, 256}, and at the tp shards
+    whose width is no multiple of 256 (w2 at tp = 2 and 4: 4096x5504,
+    4096x2752) for t in {2, 8, 44, 256} (`[K1-shard]`): error against
+    tolerance, kernel / plain / library (dequantized weight through
+    torch.matmul) times and the bound. The tensor-core path's plan of each
+    shape (tokens a CTA, split of n, CTAs) and the small-batch GEMV's
+    (rows a CTA), from the kernel's own plan exports, must equal
+    cuda_q40.tc_plan and cuda_q40.mma_rows. Then K1's three bf16 paths,
+    the older GEMV, the small-batch GEMV on the tensor cores (mma.sync, t
+    <= 8) and the tensor-core path (wgmma), each forced, checked and timed
+    at t from 2 to 256 (44 a ragged chunk) on the per-layer shapes, beside
+    plain, library and bound: the first t where the tensor-core path is no
+    slower than the small-batch GEMV must be cuda_q40.TC_MIN_T (the
+    small-batch GEMV takes t <= 8 only, so the crossing is at most 9 by
+    construction: it is measured at t <= 8). Then the
+    small-batch GEMV at every t from 2 to 8 at every 7B and Mixtral K1
+    shape (`[K1-mma]`), and it and the tensor-core path at the t = 1
+    GEMV's edges (`[K1-edge]`: t 2-8 and t 9, 44; ragged d, n of 1-3
+    blocks, n no multiple of 256; a NaN in one token's x must reach that
+    token's outputs and no other's), each launched twice bit-identical;
+    and scales 2 bytes past a 16-byte boundary at t 2 and 8, which must
+    take the older GEMV and agree with the plain version.
+    Phase 2's seconds are printed.
  2b. The Q80 round trip (csrc/q80_roundtrip.cu) against its plain version,
     bit for bit, at the 7B and Mixtral matmul input shapes (t 1 and 256;
     n 4096, 11008, 14336; and a 7B batch step's t = 4 and verify forward's
@@ -160,8 +175,9 @@ result line):
  7. Serving (`[serve]` lines; run after phase 5, over its Llama-2-7B
     weights, full width and depth): (a) an Engine of B = 4 slots with Q80
     activations and a bf16 cache; the scheduler's warmup captures the
-    slot decode graph, whose tally must be 129 K1 (the tensor-core path at
-    t = 4), 32 K3 and 129 standalone Q80; three batch steps eager and
+    slot decode graph, whose tally must be 129 K1 (all 129 on the
+    small-batch GEMV at t = 4: the q40_gemv_mma counter), 32 K3 and 129
+    standalone Q80; three batch steps eager and
     replayed on the same cache state, tokens and positions moved between
     replays and a row gated in one, logits and caches bit-identical; a
     batch step and a chunk on the kernels against the plain versions on
@@ -227,8 +243,8 @@ result line):
     Llama-2-7B weights, full width and depth, bf16 cache, Q80 on): a plain
     graph generate of 39 greedy tokens after a 300-token prompt, its
     logits recorded. Each verify width T = 2..8: the graph ("lookup", T)
-    after the prompt, its tally exactly 129 K1 (the tensor-core path),
-    32 K3, 129 standalone Q80; each position's logits held (LOGITS_TOL,
+    after the prompt, its tally exactly 129 K1 (all on the small-batch
+    GEMV), 32 K3, 129 standalone Q80; each position's logits held (LOGITS_TOL,
     LOGITS_REL_L2_TOL) to the plain decode step's at that position, whose
     largest difference e gives the near-tie bound 2e; the forward on the
     kernels against the plain versions on the eager twin; ms a forward by
@@ -404,8 +420,10 @@ Before the per-kernel JSON, the [K1] and [K2] step sums (one 7B step of K1,
 one Mixtral step of K2, t = 1, bf16) print beside their bound and the share
 of it, the serving phase's three step sums at B = 4, phase 9's three sums
 of one 7B verify forward at T = 8, and the [GEMV1-Q80] step sums (fused,
-GEMV alone, GEMV + standalone Q80) of a 7B and a Mixtral step. The line before the last holds the
-per-kernel JSON; the last line is
+GEMV alone, GEMV + standalone Q80) of a 7B and a Mixtral step, and the
+[K1-mma] step sums of the small-batch GEMV (one 7B step at t = 2, 4, 8;
+a Mixtral dense-expert layer at t = 4) with its launches by phase. The
+line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}. Library calls are timed as yardsticks only:
 the port never calls them.
 """
@@ -455,10 +473,13 @@ TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2e-5}
 LOGITS_TOL = 5e-2
 # and their relative L2 distance (observed ~1e-3 on the prompt's logits)
 LOGITS_REL_L2_TOL = 1e-2
-# token counts at which K1's two bf16 paths (GEMV, tensor-core) are timed
-# side by side to place cuda_q40.TC_MIN_T; the GEMV path's cost steps every
-# 4 then 8 tokens, the tensor-core path's every 64
+# token counts at which K1's three bf16 paths (the older GEMV, the
+# small-batch GEMV on the tensor cores up to 8 tokens, the tensor-core path)
+# are timed side by side to place cuda_q40.TC_MIN_T; the older GEMV's cost
+# steps every 4 then 8 tokens, the tensor-core path's every 64
 K1_PATH_TS = (2, 4, 8, 9, 12, 16, 24, 32, 44, 48, 64, 128, 256)
+# the tp shards whose widths are no multiple of 256: w2 at tp = 2 and 4
+K1_SHARD_SHAPES = {"w2_tp2": (4096, 5504), "w2_tp4": (4096, 2752)}
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
@@ -507,6 +528,11 @@ def phase_build() -> float:
         if "q40_gemv1_kernel" in line:
             args = line.split("q40_gemv1_kernelI", 1)[1].split("EEv", 1)[0]
             print(f"[build] q40_gemv1_kernel<{args}>: {lines[i + 1].strip()}")
+        elif "q40_gemv_mma_kernel" in line:   # the small-batch GEMV
+            print(f"[build] q40_gemv_mma_kernel: {lines[i + 1].strip()}")
+        elif "q40_matmul_wgmma_kernel" in line:   # (ILi64ELb1E: 64 tokens a CTA, n % 256 == 0)
+            args = line.split("q40_matmul_wgmma_kernelI", 1)[-1].split("EEv", 1)[0]
+            print(f"[build] q40_matmul_wgmma_kernel<{args}>: {lines[i + 1].strip()}")
     return dt
 
 
@@ -538,10 +564,10 @@ def k1_row(gen, tag: str, name: str, d: int, n: int, t: int, dt, ws, w0,
     del wd
     nbytes = wbytes + t * n * x.element_size() + t * d * x.element_size()
     bms, by = bound_ms(nbytes, 2.0 * t * d * n, dt)
-    tc = cuda_q40.uses_tc_path(dt, dt, t, n)
-    row = dict(shape=name, d=d, n=n, t=t, dtype=str(dt).split(".")[-1],
-               path="tc" if tc else "gemv",
-               plan=cuda_q40.tc_plan(t, n, d) if tc else None,
+    path = cuda_q40.k1_path(dt, dt, t, n)
+    row = dict(shape=name, d=d, n=n, t=t, dtype=str(dt).split(".")[-1], path=path,
+               plan=(cuda_q40.tc_plan(t, n, d) if path == "tc" else
+                     cuda_q40.mma_rows(d) if path == "mma" else None),
                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
                library_ms=lib, bound_ms=bms, bound_by=by)
     if q80:
@@ -555,31 +581,52 @@ def k1_row(gen, tag: str, name: str, d: int, n: int, t: int, dt, ws, w0,
 def phase_k1(gen) -> dict:
     from distributed_llama_tpu_torch.ops import cuda_q40
 
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
     rows, paths = [], []
-    for name, (d, n) in {**K1_SHAPES, **K1_MOE_SHAPES}.items():
+    for name, (d, n) in {**K1_SHAPES, **K1_MOE_SHAPES, **K1_SHARD_SHAPES}.items():
         wbytes = d * n // 2 + d * n // 32 * 2
         ws = rotating(lambda: random_q40(gen, d, n), wbytes)
         w0 = ws()
-        runs = (((44, torch.bfloat16), (256, torch.bfloat16)) if name in K1_MOE_SHAPES else
-                ((1, torch.bfloat16), (16, torch.bfloat16), (256, torch.bfloat16),
+        runs = (((4, bf16), (44, bf16), (256, bf16)) if name in K1_MOE_SHAPES else
+                ((2, bf16), (8, bf16), (44, bf16), (256, bf16)) if name in K1_SHARD_SHAPES else
+                ((1, bf16), (2, bf16), (4, bf16), (8, bf16), (16, bf16), (256, bf16),
                  (1, torch.float32)))
         for t, dt in runs:
-            rows.append(k1_row(gen, "[K1] ", name, d, n, t, dt, ws, w0))
+            rows.append(k1_row(gen, "[K1-shard] " if name in K1_SHARD_SHAPES else "[K1] ",
+                               name, d, n, t, dt, ws, w0))
         if name in K1_PER_STEP and name != "wcls":   # wcls runs at t = 1 only
             paths += k1_paths(gen, name, d, n, ws, w0)
         del ws, w0
         torch.cuda.empty_cache()
     plans = tc_plans()
+    mplans = mma_plans()
+    held_mma = mma_shape_checks(gen)
     # per layer: wqkv + wo + w13 + w2, each path's time summed at each t
-    per_layer = {t: {p: sum(r[p + "_ms"] for r in paths if r["t"] == t)
-                     for p in ("gemv", "tc")} for t in K1_PATH_TS}
-    cross = next((t for t in K1_PATH_TS
-                  if per_layer[t]["tc"] <= per_layer[t]["gemv"]), None)
-    print("[K1-path] per-layer ms (gemv / tc): " + ", ".join(
-        f"t={t}: {v['gemv']:.4f} / {v['tc']:.4f}" for t, v in per_layer.items()))
-    print(f"[K1-path] first t where the tensor-core path is no slower: {cross}; "
+    # (the small-batch GEMV's up to MMA_MAX_T tokens)
+    per_layer = {t: {p: (sum(r[p + "_ms"] for r in paths if r["t"] == t)
+                         if not p.startswith("mma") or t <= cuda_q40.MMA_MAX_T else None)
+                     for p in ("gemv", "mma", "tc")} for t in K1_PATH_TS}
+    # the crossing: the first t from which the tensor-core path is no slower
+    # than the small-batch GEMV; it stops at MMA_MAX_T, so the crossing is
+    # at most MMA_MAX_T + 1 by construction
+    cross = next((t for t in K1_PATH_TS if per_layer[t]["mma"] is None
+                  or per_layer[t]["tc"] <= per_layer[t]["mma"]), None)
+
+    def ms(v):
+        return "-" if v is None else f"{v:.4f}"
+    print("[K1-path] per-layer ms (older GEMV / small-batch mma GEMV / tensor cores): "
+          + ", ".join(f"t={t}: {ms(v['gemv'])} / {ms(v['mma'])} / {ms(v['tc'])}"
+                      for t, v in per_layer.items()))
+    print(f"[K1-path] first t where the tensor-core path is no slower than the small-batch "
+          f"GEMV: {cross} (the GEMV is timed at t <= {cuda_q40.MMA_MAX_T} only); "
           f"TC_MIN_T = {cuda_q40.TC_MIN_T}")
-    return {"rows": rows, "paths": paths, "tc_from": cross, "plans": plans}
+    if cross != cuda_q40.TC_MIN_T:
+        fail(f"K1: the measured crossing {cross} is not TC_MIN_T = {cuda_q40.TC_MIN_T}")
+    seconds = time.perf_counter() - t_phase
+    return {"rows": rows, "paths": paths, "tc_from": cross, "plans": plans,
+            "mma_plans": mplans, "mma_checks": held_mma, "per_layer": per_layer,
+            "seconds": seconds}
 
 
 def tc_plans() -> dict:
@@ -593,7 +640,7 @@ def tc_plans() -> dict:
     fn = cuda_build.load("q40_matmul").q40_matmul_tc_plan
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
     out = {}
-    for name, (d, n) in {**K1_SHAPES, **K1_MOE_SHAPES}.items():
+    for name, (d, n) in {**K1_SHAPES, **K1_MOE_SHAPES, **K1_SHARD_SHAPES}.items():
         if name == "wcls":
             continue
         for t in K1_PATH_TS:
@@ -610,15 +657,76 @@ def tc_plans() -> dict:
     return out
 
 
+def mma_plans() -> dict:
+    """The small-batch GEMV's plan (rows a CTA) of every K1 shape, the tp
+    shards and the edges, from csrc/q40_matmul.cu's own plan export (with
+    this card's SM count); it must equal ops/cuda_q40.py mma_rows at this
+    card's SMs, the rule the CPU tests pin at 132."""
+    import ctypes
+
+    from distributed_llama_tpu_torch.ops import cuda_build, cuda_q40
+
+    fn = cuda_build.load("q40_matmul").q40_matmul_mma_rows
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = {**K1_SHAPES, **K1_MOE_SHAPES, **K1_SHARD_SHAPES,
+              **{f"{k}_tp{tp}": _shard_shape(k, tp) for tp in (2, 4) for k in K1_SHAPES},
+              **{f"edge {d}x{n}": (d, n) for d, n in GEMV1_EDGES}}
+    out = {}
+    for name, (d, n) in shapes.items():
+        got = fn(d)
+        if got != cuda_q40.mma_rows(d, sms):
+            fail(f"small-batch GEMV plan {name}: C {got} != python {cuda_q40.mma_rows(d, sms)}")
+        out[name] = dict(rows=got, ctas=cuda_q40.mma_ctas(d, sms))
+    print(f"[K1-mma-plan] {sms} SMs, {cuda_q40.MMA_CHUNK} values an item; rows a CTA / CTAs: "
+          + ", ".join(f"{k}: {v['rows']}/{v['ctas']}" for k, v in out.items()))
+    return out
+
+
+# Mixtral 8x7B's K1 shapes beside 7B's (its wqkv: 32 heads, 8 KV heads)
+K1_MMA_SHAPES = {**K1_SHAPES, "mixtral_wqkv": (6144, 4096), **K1_MOE_SHAPES}
+
+
+def mma_shape_checks(gen) -> dict:
+    """The small-batch GEMV at every t from 2 to MMA_MAX_T at every 7B
+    and Mixtral K1 shape: within TOL of the plain version, a second launch
+    bit-identical, one small-batch launch counted per call. Untimed (the
+    K1 rows time t = 2, 4, 8)."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    dt, worst, cases = torch.bfloat16, 0.0, 0
+    for name, (d, n) in K1_MMA_SHAPES.items():
+        w = random_q40(gen, d, n)
+        for t in range(2, cuda_q40.MMA_MAX_T + 1):
+            x = torch.randn((t, n), generator=gen, device="cuda").to(dt)
+            before = cuda_q40.q40_gemv_mma.launches
+            row = held(f"small-batch GEMV {name} t={t}", lambda: cuda_q40.q40_matmul(x, w, dt),
+                       cuda_q40.q40_matmul_reference(x, w, dt), dt)
+            if cuda_q40.q40_gemv_mma.launches - before != 2:
+                fail(f"small-batch GEMV {name} t={t}: the launches did not take it")
+            worst = max(worst, row["max_abs_err"] / row["tol"])
+            cases += 1
+        del w
+        torch.cuda.empty_cache()
+    print(f"[K1-mma] {cases} cases (t 2-{cuda_q40.MMA_MAX_T} at {list(K1_MMA_SHAPES)}): each "
+          f"within TOL and bit-identical on a second launch; max err share {worst:.3f} of TOL")
+    return dict(cases=cases, worst_share=worst)
+
+
 def k1_paths(gen, name: str, d: int, n: int, ws, w0) -> list[dict]:
-    """K1's GEMV and tensor-core paths side by side in bf16: each checked
-    against the plain version and timed, at every t of K1_PATH_TS."""
+    """K1's three bf16 paths side by side: the older GEMV, the small-batch
+    GEMV on the tensor cores (t <= MMA_MAX_T) and the tensor-core path, each
+    forced through _launch's private arguments, checked against the plain
+    version and timed, at every t of K1_PATH_TS."""
     from distributed_llama_tpu_torch.ops import cuda_q40
 
     from distributed_llama_tpu_torch.quants.torch_codec import dequantize_q40_torch
 
     dt = torch.bfloat16
-    force = {"gemv": cuda_q40.MAX_T + 1, "tc": 1}   # tc_min_t per path
+    off = cuda_q40.MAX_T + 1
+    force = {"gemv": dict(tc_min_t=off, mma_max_t=0), "mma": dict(tc_min_t=off),
+             "tc": dict(tc_min_t=1)}
     rows = []
     wd = rotating(lambda: dequantize_q40_torch(random_q40(gen, d, n), dt), d * n * 2)
     for t in K1_PATH_TS:
@@ -632,13 +740,16 @@ def k1_paths(gen, name: str, d: int, n: int, ws, w0) -> list[dict]:
                    tc_ctas=cuda_q40.tc_ctas(t, n, d), bound_ms=bms, bound_by=by,
                    plain_ms=time_ms(lambda: cuda_q40.q40_matmul_reference(x, ws(), dt)),
                    library_ms=time_ms(lambda: torch.matmul(x, wd().t())))
-        for path, tc_min_t in force.items():
-            got = cuda_q40._launch(x, w0, dt, tc_min_t=tc_min_t).float()
+        for path, kw in force.items():
+            if path == "mma" and t > cuda_q40.MMA_MAX_T:
+                row["mma_ms"] = row["mma_err"] = None
+                continue
+            got = cuda_q40._launch(x, w0, dt, **kw).float()
             err = (got - want).abs().max().item()
             if not (err <= tol and bool(torch.isfinite(got).all())):
                 fail(f"K1 {path} path {name} t={t}: max err {err:.3g} > tol {tol:.3g}")
             row[path + "_ms"] = time_ms(
-                lambda: cuda_q40._launch(x, ws(), dt, tc_min_t=tc_min_t), budget_ms=20.0)
+                lambda: cuda_q40._launch(x, ws(), dt, **kw), budget_ms=20.0)
             row[path + "_err"] = err
         rows.append(row)
         print("[K1-path] " + json.dumps(row))
@@ -728,6 +839,70 @@ def gemv1_edges(gen, q80: bool = False) -> list[dict]:
           f"n {[e[1] for e in GEMV1_EDGES]}; 4 dtype pairs; NaN in x, clamped expert index), "
           f"each within TOL and bit-identical on a second launch"
           f"{', and bit-equal to the unfused pair' if q80 else ''}; max err share "
+          f"{max(r['max_abs_err'] / r['tol'] if r['tol'] else 0.0 for r in rows):.3f} of TOL")
+    return rows
+
+
+def small_t_edges(gen) -> list[dict]:
+    """The small-batch GEMV at the t = 1 GEMV's edges (GEMV1_EDGES:
+    ragged d, n of 1-3 blocks, n no multiple of a 256-value chunk) at
+    every t from 2 to MMA_MAX_T, and the tensor-core path at the same
+    edges at t = 9 and 44 (n no multiple of 256: a partial last group, a
+    stage partly or wholly past n), each forced through _launch's private
+    arguments, bf16: within TOL of the plain version, a NaN in one token's
+    x reaching that token's outputs and no other token's, every case
+    launched twice bit-identical."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    dt, off, rows = torch.bfloat16, cuda_q40.MAX_T + 1, []
+    routes = (("mma", range(2, cuda_q40.MMA_MAX_T + 1), dict(tc_min_t=off)),
+              ("tc", (9, 44), dict(tc_min_t=1)))
+    for d, n in GEMV1_EDGES:
+        w = random_q40(gen, d, n)
+        for path, ts, kw in routes:
+            for t in ts:
+                x = torch.randn((t, n), generator=gen, device="cuda").to(dt)
+                xn = x.clone()
+                xn[t // 2, n // 2 + 1] = math.nan
+                for label, xx in (("", x), (" NaN in x", xn)):
+                    if cuda_q40.k1_path(dt, dt, t, n, **kw) != path:
+                        fail(f"small-t edge d={d} n={n} t={t}: not routed to {path}")
+                    before = cuda_q40.q40_gemv_mma.launches
+                    row = held(f"{path} d={d} n={n} t={t}{label}",
+                               lambda: cuda_q40._launch(xx, w, dt, **kw),
+                               cuda_q40.q40_matmul_reference(xx, w, dt), dt)
+                    if cuda_q40.q40_gemv_mma.launches - before != (2 if path == "mma" else 0):
+                        fail(f"small-t edge d={d} n={n} t={t}: launches off the {path} path")
+                    row.update(path=path, t=t)
+                    rows.append(row)
+        del w
+    # scales 2 bytes past a 16-byte boundary (a view into a larger tensor):
+    # the small-batch GEMV copies a row's scales in 16-byte pieces, so the
+    # rule sends such a launch to the older GEMV
+    d, n = 130, 1056
+    w = random_q40(gen, d, n)
+    store = torch.empty(d * n // 32 + 1, dtype=torch.float16, device="cuda")
+    store[1:] = w.scales.reshape(-1)
+    w = type(w)(w.packed, store[1:].view(d, n // 32))
+    if w.scales.data_ptr() % 16 != 2 or not w.scales.is_contiguous():
+        fail("small-t edge: the scales view is not 2 bytes past a 16-byte boundary")
+    for t in (2, cuda_q40.MMA_MAX_T):
+        x = torch.randn((t, n), generator=gen, device="cuda").to(dt)
+        if cuda_q40.k1_path(dt, dt, t, n, aligned=False) != "gemv":
+            fail(f"small-t edge, unaligned scales, t={t}: not routed to the older GEMV")
+        before = cuda_q40.q40_gemv_mma.launches
+        row = held(f"gemv d={d} n={n} t={t} scales 2 bytes past 16",
+                   lambda: cuda_q40.q40_matmul(x, w, dt), cuda_q40.q40_matmul_reference(x, w, dt), dt)
+        if cuda_q40.q40_gemv_mma.launches != before:
+            fail(f"small-t edge, unaligned scales, t={t}: launched the small-batch GEMV")
+        row.update(path="gemv", t=t)
+        rows.append(row)
+    print(f"[K1-edge] small-batch GEMV (t 2-{cuda_q40.MMA_MAX_T}) and tensor-core path (t 9, "
+          f"44): {len(rows)} cases (d {[e[0] for e in GEMV1_EDGES]}, "
+          f"n {[e[1] for e in GEMV1_EDGES]}, "
+          f"bf16; a NaN in one token's x; scales not 16-byte aligned at t 2 and "
+          f"{cuda_q40.MMA_MAX_T}, on the older GEMV), each within TOL, NaN in that token's "
+          f"outputs only, bit-identical on a second launch; max err share "
           f"{max(r['max_abs_err'] / r['tol'] if r['tol'] else 0.0 for r in rows):.3f} of TOL")
     return rows
 
@@ -1843,12 +2018,31 @@ def _probe_counters() -> dict:
 
 
 def zero_counts() -> None:
-    for f in (*_counters().values(), *_probe_counters().values()):
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    for f in (*_counters().values(), *_probe_counters().values(), cuda_q40.q40_gemv_mma):
         f.launches = 0
 
 
 def read_counts() -> dict:
     return {k: f.launches for k, f in _counters().items()}
+
+
+def mma_launches() -> int:
+    """K1's launches that took the small-batch GEMV on the tensor cores
+    (a share of read_counts()'s K1, kept out of it: the launch tallies
+    pinned below count K1 whole)."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    return cuda_q40.q40_gemv_mma.launches
+
+
+def mma_tally(graph) -> int:
+    """A captured graph's small-batch GEMV launches a replay."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+    from distributed_llama_tpu_torch.runtime.graphs import LAUNCH_COUNTERS
+
+    return next(n for c, n in zip(LAUNCH_COUNTERS, graph.tally) if c is cuda_q40.q40_gemv_mma)
 
 
 def decode_weight_bytes(spec, params) -> int:
@@ -2247,7 +2441,7 @@ def graph_phase(label: str, engine, eager, prompt: list[int], weight_bytes: int,
         return {str(k): dict(capture_s=g.capture_s, pool_mib=g.pool_bytes / 2 ** 20,
                              tally=list(g.tally)) for k, g in engine.graphs.items()}
     g1 = engine.graphs[1]
-    names = ("K1", "K2", "Q80F", "K3", "Q80")
+    names = ("K1", "K2", "Q80F", "K3", "Q80", "K1_mma")
     print(f"[graph] {label}: decode step captured in {g1.capture_s:.3f} s (eager warm-up "
           f"included), its pool {g1.pool_bytes / 2 ** 20:.1f} MiB; launches a replay "
           f"{dict(zip(names, g1.tally))}")
@@ -2593,7 +2787,12 @@ SERVE_B, SERVE_C = 4, 256
 # dequantize path (t = B*C > MAX_T), its wcls at t = B
 SLOT_STEP = {"K1": 129, "K2": 0, "K3": 32, "Q80": 129, "Q80F": 0}
 SLOT_CHUNK = {"K1": 1, "K2": 0, "K3": 32, "Q80": 129, "Q80F": 0}
-COUNTER_NAMES = ("K1", "K2", "Q80F", "K3", "Q80")     # graphs.LAUNCH_COUNTERS order
+# of those K1 launches, the ones on the small-batch GEMV (bf16 at t = B =
+# 4): every one of a batch step's, and a chunk's wcls at its B logit rows
+SLOT_STEP_MMA, SLOT_CHUNK_MMA = 129, 1
+# graphs.LAUNCH_COUNTERS order, its first five (the sixth, the small-batch
+# GEMV's share of K1, is read by mma_tally)
+COUNTER_NAMES = ("K1", "K2", "Q80F", "K3", "Q80")
 
 
 def _tokenizer(vocab: int):
@@ -2664,6 +2863,11 @@ def serving_slot_engine(spec, one, eng, eager) -> tuple[dict, object]:
           f"s, pool {out['pool_mib']:.1f} MiB, launches a replay {tally}")
     if tally != SLOT_STEP:
         fail(f"slot decode tally {tally}, wanted {SLOT_STEP}")
+    out["tally_mma"] = mma_tally(g)
+    print(f"[serve] slot_decode: {out['tally_mma']} of its {tally['K1']} K1 launches a replay "
+          f"on the small-batch GEMV")
+    if out["tally_mma"] != SLOT_STEP_MMA:
+        fail(f"slot decode: {out['tally_mma']} small-batch GEMV launches, wanted {SLOT_STEP_MMA}")
 
     rng = np.random.default_rng(11)
     lens = (256, 180, 256, 90)
@@ -2714,13 +2918,15 @@ def serving_slot_engine(spec, one, eng, eager) -> tuple[dict, object]:
     lg = eng.slot_prefill_chunk(*_chunk({0: (a_tok, 0), 2: (b_tok, 0)}, b, c, s))
     torch.cuda.synchronize()
     chunk_counts = read_counts()
+    chunk_mma = mma_launches()
     untouched = all(torch.equal(x, t[[1, 3]]) for x, t in zip(before, (*eng.cache.k,
                                                                        *eng.cache.v)))
     del before
     if not untouched:
         fail("a (B, C) chunk changed the cache of a row gated at pos S")
-    if chunk_counts != SLOT_CHUNK:
-        fail(f"a (B, C) chunk launched {chunk_counts}, wanted {SLOT_CHUNK}")
+    if chunk_counts != SLOT_CHUNK or chunk_mma != SLOT_CHUNK_MMA:
+        fail(f"a (B, C) chunk launched {chunk_counts} ({chunk_mma} small-batch GEMV), wanted "
+             f"{SLOT_CHUNK} ({SLOT_CHUNK_MMA})")
     live = {}
     for r, t in ((0, a_tok), (2, b_tok)):
         one.reset()
@@ -2733,10 +2939,13 @@ def serving_slot_engine(spec, one, eng, eager) -> tuple[dict, object]:
     eng.slot_decode_step(tok, p + 1)
     torch.cuda.synchronize()
     step_counts = read_counts()
-    print(f"[serve] one batch step (replay) launches {step_counts}")
-    if step_counts != SLOT_STEP:
-        fail(f"a batch step launched {step_counts}, wanted {SLOT_STEP}")
-    out["step_launches"] = step_counts
+    step_mma = mma_launches()
+    print(f"[serve] one batch step (replay) launches {step_counts}, {step_mma} of the K1 on the "
+          f"small-batch GEMV")
+    if step_counts != SLOT_STEP or step_mma != SLOT_STEP_MMA:
+        fail(f"a batch step launched {step_counts} ({step_mma} small-batch GEMV), wanted "
+             f"{SLOT_STEP} ({SLOT_STEP_MMA})")
+    out["step_launches"] = dict(step_counts, K1_mma=step_mma)
 
     ms = []
     args = _chunk({r: (t, 0) for r, t in enumerate(prompts)}, b, c, s)
@@ -2795,11 +3004,15 @@ def serving_scheduler(spec, one, eng, sched) -> dict:
         del eng.slot_prefill_chunk, eng.slot_decode_step
     wall = time.perf_counter() - t0
     counts = read_counts()
+    mma = mma_launches()
     want = {k: calls["chunk"] * SLOT_CHUNK[k] + calls["step"] * SLOT_STEP[k] for k in counts}
+    want_mma = calls["chunk"] * SLOT_CHUNK_MMA + calls["step"] * SLOT_STEP_MMA
     print(f"[serve] scheduler: 8 requests x 32 tokens in {wall:.3f} s, {calls['chunk']} chunks "
-          f"+ {calls['step']} batch steps, launches {counts}")
-    if counts != want:
-        fail(f"scheduler run launched {counts}, wanted {want}")
+          f"+ {calls['step']} batch steps, launches {counts}, {mma} of the K1 on the "
+          f"small-batch GEMV")
+    if counts != want or mma != want_mma:
+        fail(f"scheduler run launched {counts} ({mma} small-batch GEMV), wanted {want} "
+             f"({want_mma})")
     got = [list(r.tokens(timeout=5.0)) for r in reqs]
 
     # every live row of 4 batch steps against the batch-1 step at the same
@@ -2830,7 +3043,8 @@ def serving_scheduler(spec, one, eng, sched) -> dict:
 
     parity = batch1_parity(one, prompts, got, near_tie, "[serve] request")
     return dict(wall_s=wall, chunks=calls["chunk"], steps=calls["step"], launches=counts,
-                parity=parity, step_rows_worst=worst, near_tie_bound=near_tie)
+                mma_launches=mma, parity=parity, step_rows_worst=worst,
+                near_tie_bound=near_tie)
 
 
 def batch1_parity(one, prompts: list, got: list, near_tie: float, tag: str,
@@ -3682,9 +3896,10 @@ SPEC_K = 7          # the CLI's default draft length: a verify forward of 8 toke
 SPEC_DEPTH = 4      # the self-draft's layers, of 32
 SPEC_N = 32         # tokens of each exactness run, after the 300-token prompt
 # a verify forward at 2 <= T <= 8 tokens: every projection on K1's
-# tensor-core path with the standalone Q80 round trip before it, wcls
+# small-batch GEMV with the standalone Q80 round trip before it, wcls
 # included (the logits of every position), one K3 a layer
 VERIFY_TALLY = {"K1": 129, "K2": 0, "K3": 32, "Q80": 129, "Q80F": 0}
+VERIFY_TALLY_MMA = 129
 
 
 def _tally(graph) -> dict:
@@ -3751,8 +3966,10 @@ def spec_verify_widths(one, eager, prompt: list[int], want: list[int], seen: lis
         lg = torch.from_numpy(one._verify_logits(seg, pos0))
         g = one.graphs[("lookup", t)]
         tally = _tally(g)
-        if tally != VERIFY_TALLY:
-            fail(f"verify graph T={t}: tally {tally}, wanted {VERIFY_TALLY}")
+        if tally != VERIFY_TALLY or mma_tally(g) != VERIFY_TALLY_MMA:
+            fail(f"verify graph T={t}: tally {tally} ({mma_tally(g)} small-batch GEMV), "
+                 f"wanted {VERIFY_TALLY} ({VERIFY_TALLY_MMA})")
+        tally = dict(tally, K1_mma=mma_tally(g))
         dec = [_held_logits(f"verify T={t} position {i} vs the decode step", lg[i],
                             torch.from_numpy(seen[i + 1][0])) for i in range(t)]
         worst = max([worst] + [d["max_abs_err"] for d in dec])
@@ -3812,6 +4029,7 @@ def spec_streams(one, prompt: list[int], want: list[int], gaps: list[float],
                                                                oracle(1), st),
     }
     out, total = {}, {k: 0 for k in _counters()}
+    total_mma = 0
     for name, run in modes.items():
         one.reset()
         run(RunStats())
@@ -3821,10 +4039,14 @@ def spec_streams(one, prompt: list[int], want: list[int], gaps: list[float],
         toks = run(st)
         torch.cuda.synchronize()
         counts = read_counts()
-        if not all(counts[k] for k in ("K1", "K3", "Q80", "Q80F")):
-            fail(f"{name}: a kernel of the path did not launch: {counts}")
+        mma = mma_launches()
+        if not all(counts[k] for k in ("K1", "K3", "Q80", "Q80F")) or not mma:
+            fail(f"{name}: a kernel of the path did not launch: {counts}, {mma} small-batch "
+                 f"GEMV")
         for k in counts:
             total[k] += counts[k]
+        total_mma += mma
+        counts = dict(counts, K1_mma=mma)
         fwd, n = one.last_accept_stats
         held = _held_to_plain(name, toks, want[:SPEC_N], gaps, near_tie)
         tm = _spec_timing(st, n, fwd)
@@ -3845,7 +4067,8 @@ def spec_streams(one, prompt: list[int], want: list[int], gaps: list[float],
                                           n_vocab=vocab), reps=10)
     print(f"[spec] self-draft proposal: {SPEC_K} steps of {SPEC_DEPTH} layers in "
           f"{prop['median']:.3f} ms ({prop['median'] / SPEC_K:.3f} ms a step) [{card}]")
-    return dict(plain=plain, modes=out, launches=total, draft=draft, proposal_ms=prop)
+    return dict(plain=plain, modes=out, launches=total, mma_launches=total_mma, draft=draft,
+                proposal_ms=prop)
 
 
 def spec_sampled(one, prompt: list[int], want: list[int], draft, card: str) -> dict:
@@ -5285,6 +5508,10 @@ def tp_kernels(gen) -> dict:
                 k1.append(row)
             del ws, w0
             torch.cuda.empty_cache()
+        chunk = {r["shape"]: r["path"] for r in k1 if r["tp"] == tp and r["t"] == 256}
+        print(f"[tp] [K1] tp={tp}: a rank's 256-token chunk runs every shard on {chunk}")
+        if set(chunk.values()) != {"tc"}:
+            fail(f"[tp] tp={tp}: a chunk's shard left the tensor-core path: {chunk}")
         for name in TP_COL:
             n = _shard_shape(name, tp)[1]
             row = q80_row(gen, f"[tp] [Q80] tp={tp} {name} input ", 256, n, bf16, bf16)
@@ -5497,7 +5724,8 @@ def serve_tp_job(requests: list) -> dict | None:
             draft_len=SERVE_TP_K)
         torch.cuda.synchronize()
         out.update(wall_s=time.perf_counter() - t0, counts=read_counts(),
-                   mesh=dict(mesh.stats), control=dict(ctl.stats))
+                   mma_launches=mma_launches(), mesh=dict(mesh.stats),
+                   control=dict(ctl.stats))
         # the slot steps alone: every row live at its own position
         slots = eng.spawn(SERVE_TP_B)
         pos = np.asarray([48, 56][:SERVE_TP_B], np.int32)
@@ -5733,14 +5961,18 @@ def phase_serve_tp(card: str, params_7b, pool, tp12: dict, serving_bound: float)
           f"equal to one GPU's scheduler {equal}; near-tie bound {near_tie:.4g}; sampled row "
           f"{len(sampled)} tokens; vocab sampler {vs}; prefix hits {pc['hits']} of "
           f"{pc['lookups']}; drafted {sp['drafted']} accepted {sp['accepted']}; rank 0 launches "
-          f"{c}; {got['control']['ops']} ops, control {got['control']['control_s']:.3f} s of "
+          f"{c}, {got['mma_launches']} of the K1 on the small-batch GEMV (slot steps at t = "
+          f"{SERVE_TP_B}, verify steps at {SERVE_TP_B}x{1 + SERVE_TP_K}); "
+          f"{got['control']['ops']} ops, control {got['control']['control_s']:.3f} s of "
           f"{got['control']['op_s']:.3f} s; {got['mesh']['collectives']} collectives "
           f"{got['mesh']['collective_s']:.3f} s, staging {got['mesh']['staging_s']:.3f} s "
           f"[{card}]")
     if len(sampled) != SERVE_TP_NEW or not all(0 <= t < spec.vocab_size for t in sampled):
         fail(f"[serve-tp] sampled row {sampled}")
-    if vs["sharded"] <= 0 or pc["hits"] < 1 or not (c["K1"] and c["K3"] and c["Q80"]):
-        fail(f"[serve-tp] vocab sampler {vs}, prefix {pc}, launches {c}")
+    if vs["sharded"] <= 0 or pc["hits"] < 1 or not (c["K1"] and c["K3"] and c["Q80"]
+                                                     and got["mma_launches"]):
+        fail(f"[serve-tp] vocab sampler {vs}, prefix {pc}, launches {c}, "
+             f"{got['mma_launches']} small-batch GEMV")
     tm = {k: _ms_stats(v) for k, v in got["timed"].items()}
     print(f"[serve-tp] gloo step ms at tp = 2, B = {SERVE_TP_B} (eager, graphs "
           f"{got['graphs']}): slot decode {tm['decode']['median']:.1f} [{tm['decode']['min']:.1f}, "
@@ -6342,6 +6574,52 @@ def _wait_for(p: subprocess.Popen, needle: str) -> float:
     fail(f"[cluster] {needle!r} never appeared: {seen[-2000:]!r}")
 
 
+def _routed(row: dict, key: str):
+    """A K1 path row's value (ms, err) on the path K1's rule routes its
+    bf16 launch to."""
+    from distributed_llama_tpu_torch.ops import cuda_q40
+
+    path = cuda_q40.k1_path(torch.bfloat16, torch.bfloat16, row["t"], row["n"])
+    return row[f"{path}_{key}"]
+
+
+def mma_entries(k1: dict, serving: dict, spec: dict, fleet: dict, serve13: dict) -> list[dict]:
+    """The small-batch GEMV on the tensor cores as a kernel of its own: its
+    time, plain and library times and bound for ONE 7B batch step at t = 4
+    (32 x (wqkv, wo, w13, w2) + wcls: phase 2's K1 rows, which the rule
+    sends to it), the same at t = 2 and 8 and one Mixtral dense-expert
+    layer at t = 4 beside it. Launches: the K1 launches that took it in
+    phases 7 (the scheduler run), 9 (the batch-1 speculative streams), 13
+    (rank 0's scheduler run) and 16a (the thread replicas)."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    rows = {(r["shape"], r["t"]): r for r in k1["rows"] if r["path"] == "mma"}
+    layer = ("wqkv", "wo", "w13", "w2")
+
+    def step(t):
+        return {key: 32 * sum(rows[(sh, t)][key] for sh in layer) + rows[("wcls", t)][key]
+                for key in keys}
+    moe = {key: 8 * (2 * rows[("moe_gate_up", 4)][key] + rows[("moe_down", 4)][key])
+           for key in keys}
+    by_phase = {"7": serving["scheduler"]["mma_launches"],
+                "9": spec["streams"]["mma_launches"],
+                "13": serve13["scheduler"]["mma_launches"],
+                "16a": fleet["launches"]["K1_mma"]}
+    errs = ([r["max_abs_err"] for r in rows.values()]
+            + [r["max_abs_err"] for r in k1["edges"] if r["path"] == "mma"])
+    return [dict(
+        name="q40_gemv_mma", route="cuda",
+        source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
+        replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (bf16 at 2 <= t <= 8: mma.sync "
+                 "with the weight dequantized exactly into registers)",
+        launches=sum(by_phase.values()), launches_by_phase=by_phase,
+        max_abs_err=max(errs), **step(4), bound_by="bytes",
+        t2={**step(2), "bound_by": "bytes"}, t8={**step(8), "bound_by": "bytes"},
+        mixtral_layer=dict(**moe, bound_by="bytes",
+                           at="one Mixtral dense-expert layer: 8x(gate, up, down) at t=4"),
+        at="one 7B batch step: 32x(wqkv,wo,w13,w2)+wcls at t=4, bf16 (t2, t8: the same at "
+           "t=2 and 8); launches: phases 7, 9, 13 (rank 0) and 16a")]
+
+
 def _bound_by(rows) -> str:
     """What bounds a sum of rows: the label whose rows hold the larger
     share of the summed bound."""
@@ -6517,16 +6795,16 @@ def tp_entries(tp: dict) -> list[dict]:
 
 def spec_entries(k1: dict, q80: dict, k3: dict, spec: dict) -> list[dict]:
     """The kernels of one 7B verify forward at T = 8 (draft_len 7): K1 on
-    its tensor-core path (phase 2's path rows at t = 8 for the layers, wcls
-    timed in phase 9), the 129 standalone Q80 round trips
+    the path its rule takes (phase 2's path rows at t = 8 for the layers,
+    wcls timed in phase 9), the 129 standalone Q80 round trips
     (phase 2b's t = 8 rows), K3 over 8 query rows at fill 308 (phase 4).
     Launches: counted over phase 9's batch-1 speculative streams."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     kp = {r["shape"]: r for r in k1["paths"] if r["t"] == 1 + SPEC_K}
     w = spec["k1_wcls"]
     layer = ("wqkv", "wo", "w13", "w2")
-    k1s = {key: 32 * sum(kp[sh]["tc_ms" if key == "ms" else key] for sh in layer) + w[key]
-           for key in keys}
+    k1s = {key: 32 * sum(_routed(kp[sh], "ms") if key == "ms" else kp[sh][key]
+                         for sh in layer) + w[key] for key in keys}
     qr = {(r["t"], r["n"]): r for r in q80["rows"]
           if r["dtype"] == "bfloat16" and r["out"] == "bfloat16"}
     t = 1 + SPEC_K
@@ -6538,10 +6816,10 @@ def spec_entries(k1: dict, q80: dict, k3: dict, spec: dict) -> list[dict]:
     return [
         dict(name="q40_matmul_verify", route="cuda",
              source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
-             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t = 1 + k = 8: wgmma with "
-                      "the weight dequantized into registers, one 64-token tile)",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t = 1 + k = 8: the "
+                      "small-batch GEMV on the tensor cores)",
              launches=counts["K1"],
-             max_abs_err=max([kp[sh]["tc_err"] for sh in layer] + [w["max_abs_err"]]),
+             max_abs_err=max([_routed(kp[sh], "err") for sh in layer] + [w["max_abs_err"]]),
              **k1s, bound_by="bytes",
              at="one 7B verify forward: 32x(wqkv,wo,w13,w2)+wcls at t=8, bf16; launches: "
                 "phase 9's batch-1 speculative streams"),
@@ -6567,8 +6845,8 @@ def spec_entries(k1: dict, q80: dict, k3: dict, spec: dict) -> list[dict]:
 
 def serving_entries(k1: dict, q80: dict, k3: dict, serving: dict) -> list[dict]:
     """The kernels at the serving phase's shapes, each for ONE 7B batch
-    step (B = 4, t = 4): K1 on its tensor-core path (phase 2's path rows
-    at t = 4 for the layers, wcls timed in phase 7), the 129 standalone
+    step (B = 4, t = 4): K1 on the path its rule takes (phase 2's path
+    rows at t = 4 for the layers, wcls timed in phase 7), the 129 standalone
     Q80 round trips (phase 2b's t = 4 rows), K3 over 4 rows (phase 4).
     Launches: counted over phase 7's scheduler run (its batch steps and
     chunks; a chunk's K1 is its wcls at t = 4, its Q80 128 inputs at
@@ -6577,8 +6855,8 @@ def serving_entries(k1: dict, q80: dict, k3: dict, serving: dict) -> list[dict]:
     kp = {r["shape"]: r for r in k1["paths"] if r["t"] == SERVE_B}
     w = serving["k1_wcls_t4"]
     layer = ("wqkv", "wo", "w13", "w2")
-    k1s = {key: 32 * sum(kp[sh]["tc_ms" if key == "ms" else key] for sh in layer) + w[key]
-           for key in keys}
+    k1s = {key: 32 * sum(_routed(kp[sh], "ms") if key == "ms" else kp[sh][key]
+                         for sh in layer) + w[key] for key in keys}
     qr = {(r["t"], r["n"]): r for r in q80["rows"]
           if r["dtype"] == "bfloat16" and r["out"] == "bfloat16"}
     q80s = {key: 97 * qr[(SERVE_B, 4096)][key] + 32 * qr[(SERVE_B, 11008)][key]
@@ -6589,10 +6867,10 @@ def serving_entries(k1: dict, q80: dict, k3: dict, serving: dict) -> list[dict]:
     return [
         dict(name="q40_matmul_slot_step", route="cuda",
              source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
-             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t = B = 4: wgmma with the "
-                      "weight dequantized into registers, one 64-token tile)",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t = B = 4: the "
+                      "small-batch GEMV on the tensor cores)",
              launches=counts["K1"],
-             max_abs_err=max([kp[sh]["tc_err"] for sh in layer] + [w["max_abs_err"]]),
+             max_abs_err=max([_routed(kp[sh], "err") for sh in layer] + [w["max_abs_err"]]),
              **k1s, bound_by="bytes",
              at="one 7B batch step: 32x(wqkv,wo,w13,w2)+wcls at t=4, bf16; launches: phase "
                 "7's scheduler run"),
@@ -6879,7 +7157,7 @@ FLEET_B = 2                 # each replica's slots (the K1 step rows at t = 2)
 FLEET_BLOCKS, FLEET_BL = 32, 32   # each replica's prefix arena: 32 blocks of 32
 FLEET_TOKENS = 16           # greedy tokens a request
 LAUNCH_NAMES = {"q40_matmul": "K1", "q40_expert_matmul": "K2", "q80_fused": "Q80F",
-                "flash_attention": "K3", "q80_roundtrip": "Q80"}
+                "flash_attention": "K3", "q80_roundtrip": "Q80", "q40_gemv_mma": "K1_mma"}
 
 
 def _fleet_prompts(vocab: int) -> tuple[list, list]:
@@ -6945,7 +7223,7 @@ def phase_fleet_threads(card: str, params, k1: dict, near_tie: float, gen) -> di
     mints replica 2 while replicas 0-1 serve the trace again, its graph
     captures beside their replays (runtime/graphs.DEVICE_GATE): no CUDA
     error, the tokens as in 16a, the replica's bytes and captures
-    printed. Then K1 (the tensor-core path), K3 and the standalone Q80 of
+    printed. Then K1 (the small-batch GEMV), K3 and the standalone Q80 of
     one 7B batch step at t = B = 2, each against its plain version and
     timed beside it, its library call and its bound."""
     from distributed_llama_tpu_torch.runtime.engine import Engine
@@ -6996,14 +7274,17 @@ def phase_fleet_threads(card: str, params, k1: dict, near_tie: float, gen) -> di
     got = _fleet_trace(door, prompts, vocab)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = dict(read_counts(), K1_mma=mma_launches())
     per = [{LAUNCH_NAMES[k]: v for k, v in h.sup._sched.launches.items()}
            for h in door.replicas]
     summed = {k: sum(p.get(k, 0) for p in per) for k in counts}
     print(f"[fleet] 8 requests x {FLEET_TOKENS} tokens over 2 replicas in {wall:.3f} s; "
-          f"launches {counts}, by replica {per}")
+          f"launches {counts} (K1_mma: the K1 on the small-batch GEMV at t = "
+          f"{FLEET_B}), by replica {per}")
     if summed != counts:
         fail(f"fleet: per-replica launches {per} sum to {summed}, not the run's {counts}")
+    if not counts["K1_mma"]:
+        fail(f"fleet: no batch step of a replica took the small-batch GEMV: {counts}")
     if any(t is None for t, *_ in got):
         fail(f"fleet: the thread tier failed a request: {got}")
     warm = got[sharing[0]][1]
@@ -7383,16 +7664,16 @@ def fleet_lookup_stream(card: str) -> dict:
 
 def fleet_entries(k1: dict, fleet: dict) -> list[dict]:
     """The kernels at phase 16's shapes, each for ONE 7B batch step of a
-    thread replica (B = 2, t = 2): K1 on its tensor-core path (phase 2's
-    path rows at t = 2 for the layers, wcls timed in phase 16), the 129
+    thread replica (B = 2, t = 2): K1 on the path its rule takes (phase
+    2's path rows at t = 2 for the layers, wcls timed in phase 16), the 129
     standalone Q80 round trips and K3 over 2 rows, timed in phase 16.
     Launches: phase 16a's run over the two replicas."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     kp = {r["shape"]: r for r in k1["paths"] if r["t"] == FLEET_B}
     w = fleet["k1_wcls_t2"]
     layer = ("wqkv", "wo", "w13", "w2")
-    k1s = {key: 32 * sum(kp[sh]["tc_ms" if key == "ms" else key] for sh in layer) + w[key]
-           for key in keys}
+    k1s = {key: 32 * sum(_routed(kp[sh], "ms") if key == "ms" else kp[sh][key]
+                         for sh in layer) + w[key] for key in keys}
     qr = {r["n"]: r for r in fleet["q80_rows"]}
     q80s = {key: 97 * qr[4096][key] + 32 * qr[11008][key]
             for key in ("ms", "plain_ms", "bound_ms")}
@@ -7401,10 +7682,10 @@ def fleet_entries(k1: dict, fleet: dict) -> list[dict]:
     return [
         dict(name="q40_matmul_fleet_step", route="cuda",
              source="distributed_llama_tpu_torch/csrc/q40_matmul.cu",
-             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t = B = 2: wgmma with the "
-                      "weight dequantized into registers)",
+             replaces="distributed_llama_tpu/ops/pallas_q40.py:258 (t = B = 2: the "
+                      "small-batch GEMV on the tensor cores)",
              launches=counts["K1"],
-             max_abs_err=max([kp[sh]["tc_err"] for sh in layer] + [w["max_abs_err"]]),
+             max_abs_err=max([_routed(kp[sh], "err") for sh in layer] + [w["max_abs_err"]]),
              **k1s, bound_by="bytes",
              at="one 7B batch step of a thread replica: 32x(wqkv,wo,w13,w2)+wcls at t=2, "
                 "bf16; launches: phase 16a's run over 2 replicas"),
@@ -7655,6 +7936,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     k1 = phase_k1(gen)
+    t_edge = time.perf_counter()
+    k1["edges"] = small_t_edges(gen)
+    k1["seconds"] += time.perf_counter() - t_edge
+    print(f"[K1] phase 2 (K1: rows, paths, plans, small-t checks and edges) in "
+          f"{k1['seconds']:.1f} s [{card}]")
     q80 = phase_q80(gen)
     k2 = phase_k2(gen)
     edges = gemv1_edges(gen)
@@ -7723,6 +8009,17 @@ def main() -> int:
     kernels["kernels"] += axes_entries(axes14)
     kernels["kernels"] += fleet_entries(k1, fleet16)
     kernels["kernels"] += tools_entries(t17, r17)
+    kernels["kernels"] += mma_entries(k1, serving, spec9, fleet16, serve13)
+    e = next(k for k in kernels["kernels"] if k["name"] == "q40_gemv_mma")
+    for t, a in ((2, e["t2"]), (4, e), (8, e["t8"])):
+        print(f"[K1-mma] step sum, one 7B step at t = {t}, bf16, the small-batch GEMV: "
+              f"{a['ms']:.4f} ms against a bound of {a['bound_ms']:.4f} ms = "
+              f"{a['bound_ms'] / a['ms']:.3f} of the bound; plain {a['plain_ms']:.3f} ms, "
+              f"library {a['library_ms']:.4f} ms [{card}]")
+    m = e["mixtral_layer"]
+    print(f"[K1-mma] one Mixtral dense-expert layer at t = 4: {m['ms']:.4f} ms, bound "
+          f"{m['bound_ms']:.4f}, library {m['library_ms']:.4f}; launches {e['launches_by_phase']} "
+          f"[{card}]")
     for tag, name, what in (("K1", "q40_matmul", "one 7B decode step, t = 1, bf16"),
                             ("K2", "q40_expert_matmul", "one Mixtral 8x7B decode step, t = 1, bf16")):
         e = next(k for k in kernels["kernels"] if k["name"] == name)
@@ -7730,7 +8027,7 @@ def main() -> int:
               f"{e['bound_ms']:.4f} ms = {e['bound_ms'] / e['ms']:.3f} of the bound; plain "
               f"{e['plain_ms']:.3f} ms, library {e['library_ms']:.4f} ms [{card}]")
     for tag, name, what in (("K1", "q40_matmul_slot_step", "one 7B batch step, t = 4, bf16, "
-                                                          "the tensor-core path"),
+                                                          "the small-batch GEMV"),
                             ("Q80", "q80_roundtrip_slot_step", "one 7B batch step's 129 "
                                                                "standalone launches, t = 4"),
                             ("K3", "flash_attention_slot_step", "one 7B batch step, 4 rows "
@@ -7741,7 +8038,7 @@ def main() -> int:
               f"ms ({e['bound_by']}) = {e['bound_ms'] / e['ms']:.3f} of the bound; plain "
               f"{e['plain_ms']:.3f} ms, library {lib} [{card}]")
     for tag, name, what in (("K1", "q40_matmul_verify", "one 7B verify forward, t = 8, bf16, "
-                                                        "the tensor-core path"),
+                                                        "the small-batch GEMV"),
                             ("Q80", "q80_roundtrip_verify", "one 7B verify forward's 129 "
                                                             "standalone launches, t = 8"),
                             ("K3", "flash_attention_verify", "one 7B verify forward, 8 query "

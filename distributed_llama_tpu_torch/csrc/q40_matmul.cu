@@ -11,7 +11,7 @@
 // prefill chunk (t = 256) the operations: 2*t*d*n multiply-adds, 3.38 TFLOP
 // per 7B chunk, 3.4 ms at the tensor cores' 989 TFLOP/s in bf16.
 //
-// Three kernels, chosen per launch like the TPU kernel's operand rule:
+// Four kernels, chosen per launch like the TPU kernel's operand rule:
 //
 // GEMV at t = 1 (q40_gemv1_kernel), the whole decode path of K1 and K2.
 // What bounds it on the H100: the weight bytes (1.11 ms a 7B step), and
@@ -20,7 +20,7 @@
 // instructions/s (132 SMs x 128 lanes x the 1.98 GHz boost clock), so 4
 // instructions a value already take 80% of the memory time. The
 // design, against the three things that held the earlier GEMV (below, kept
-// for 2 <= t <= 8) at ~45% of the bound:
+// for f32 at 2 <= t <= 8) at ~45% of the bound:
 //  * x is read once a warp-chunk, not staged per 8-row CTA. A chunk is
 //    1024 values of n, one 32-value Q40 block a lane; the lane holds its
 //    32 x values in registers as f32 (bf16 widened by a shift) for every
@@ -82,7 +82,13 @@
 //    chunk change raised the loop's register pressure and slowed every
 //    dot, whether or not a chunk changed at run time.
 //
-// GEMV for 2 <= t <= 8, and f32 operands at any t > 1 (q40_matmul_kernel):
+// The small-batch GEMV on the tensor cores, bf16 at 2 <= t <= 8, 16-byte
+// aligned operands (q40_gemv_mma_kernel): mma.sync with the weight
+// dequantized exactly into A's registers from a cp.async ring a warp; see
+// its section below.
+//
+// GEMV for f32 operands at any t > 1, and K2 at 2 <= t <= 8
+// (q40_matmul_kernel):
 //  * The weight stays packed in device memory in the file's block-major
 //    order (quants/torch_codec.py): one lane loads one whole 32-value block
 //    with a single 16-byte load plus its 2-byte f16 scale, and a warp's 32
@@ -101,13 +107,16 @@
 //    fastest-varying block index, so the groups that re-read one row block
 //    run close together and find it in the 50 MB L2.
 //
-// Tensor-core path (bf16 in and out, t >= tc_min_t, n % 256 == 0, 16-byte
-// aligned operands), for prefill chunks: see q40_matmul_wgmma_kernel below
-// — warp-specialised wgmma with the weight dequantized into registers, fed
-// by a TMA ring. The caller passes tc_min_t, the token count from which
-// this path beats the GEMV path on the card (ops/cuda_q40.py TC_MIN_T,
-// measured by chip_smoke.py); a shape that misses the other preconditions
-// takes the GEMV path by the same rule as ops/cuda_q40.py uses_tc_path.
+// Tensor-core path (bf16 in and out, t >= tc_min_t, 16-byte aligned
+// operands, any n % 32 == 0), for prefill chunks: see
+// q40_matmul_wgmma_kernel below — warp-specialised wgmma with the weight
+// dequantized into registers, fed by a TMA ring. The caller passes
+// tc_min_t, the token count from which this path runs (ops/cuda_q40.py
+// TC_MIN_T: where the small-batch mma GEMV stops, slower than it at every
+// t it takes, as chip_smoke.py times them), and mma_max_t, the most tokens
+// that GEMV takes; a shape
+// that misses the other preconditions takes a GEMV path by the same rule
+// as ops/cuda_q40.py k1_path.
 //
 // The TPU kernel's x_lo/x_hi pre-split, lane-tile scale repeat, -8 fold and
 // sub-tiling exist for Mosaic's tiling and VPU; none of them carries over.
@@ -598,7 +607,7 @@ q40_gemv1_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
 
 // ---------------------------------------------------------------------------
 // Tensor-core path for multi-token chunks (bf16 x and out, t >= tc_min_t,
-// n % 256 == 0, x / packed / scales 16-byte aligned): wgmma with the weight
+// n % 32 == 0, x / packed / scales 16-byte aligned): wgmma with the weight
 // dequantized into registers, fed by a TMA ring.
 //
 // A CTA computes a 128-row x BN-token output tile (BN 64, 128 or 256) over
@@ -625,8 +634,13 @@ q40_gemv1_kernel(const TI* __restrict__ x, const uint8_t* __restrict__ packed,
 //    kernel round their dequantized tiles. Block b + 1
 //    is dequantized while block b's wgmmas run (two register sets,
 //    wgmma.wait_group 1). The f16 scales come straight from device memory,
-//    8 blocks (16 bytes) a row at a time, one group of 256 values ahead
+//    8 blocks (16 bytes) a row at a time where n % 256 == 0, else in the
+//    widest pieces a row's alignment allows, one group of 256 values ahead
 //    (a TMA box needs 16 bytes a row; the stage's 4 do not make one).
+//  * n not a multiple of 256: the last group is partial. A stage partly
+//    past n arrives zero-filled by TMA and its blocks past n get zero
+//    scales (a zero byte is the weight -8 * s); a stage wholly past n is
+//    never loaded or consumed.
 //  * split K (deterministic, no atomics): for weights with few row tiles a
 //    2-CTA cluster splits the n axis; rank 1 pushes its f32 partial sums
 //    into rank 0's shared memory (distributed shared memory), rank 0 adds
@@ -676,7 +690,7 @@ __host__ __device__ inline long long tc_group_cost(int bn) { return 86 + bn * 3 
 // the plan: tokens a CTA and the split of the n axis, from the shapes
 // alone (ops/cuda_q40.py tc_plan is the same rule)
 __host__ __device__ inline void tc_plan(int t, int n, int d, int* bn_out, int* split_out) {
-  const int groups = n / kTcGroup, row_tiles = (d + 127) / 128;
+  const int groups = (n + kTcGroup - 1) / kTcGroup, row_tiles = (d + 127) / 128;
   long long best = -1;
   int best_bn = 256, best_split = 1;
   for (int split = 1; split <= 2; ++split) {
@@ -822,7 +836,7 @@ __device__ __forceinline__ uint32_t dq2(uint32_t lo, uint32_t hi, uint32_t mask,
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int BN>
+template <int BN, bool FULL>
 __global__ void __launch_bounds__(kTcThreads, 1)
 q40_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                         const __grid_constant__ CUtensorMap w_map,
@@ -840,9 +854,12 @@ q40_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   const uint8_t* ws_gen = smem + C::STAGES * C::XBYTES;
 
   const int tok0 = blockIdx.x * BN, row0 = blockIdx.y * C::BM, rank = blockIdx.z;
-  const int groups = n / kTcGroup, per = (groups + split - 1) / split;
+  // the last group may be partial (FULL: n % 256 == 0, it never is); a
+  // stage wholly past n is never loaded, one partly past it arrives
+  // zero-filled by TMA
+  const int groups = (n + kTcGroup - 1) / kTcGroup, per = (groups + split - 1) / split;
   const int g0 = rank * per, g1 = min(groups, g0 + per);
-  const int n_stages = (g1 > g0 ? g1 - g0 : 0) * (kTcGroup / kTcK);
+  const int n_stages = g1 > g0 ? (min(g1 * kTcGroup, n) - g0 * kTcGroup + kTcK - 1) / kTcK : 0;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
@@ -887,14 +904,45 @@ q40_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
-  // f16 scales of a group's 8 blocks for rows rl and rl + 8, one group ahead
+  // f16 scales of a group's 8 blocks for rows rl and rl + 8, one group
+  // ahead. A row's scales start at row * n / 16 bytes: 16-byte aligned
+  // where n % 256 == 0 (FULL: one 16-byte load), else in pieces as wide as
+  // n allows (8 bytes for n % 128 == 0, 4 for n % 64, 2 for n % 32). A
+  // block past n must load a zero scale: its zero-filled byte is the
+  // weight -8 * s, and a zero scale keeps it 0 (the next row's scale or
+  // bytes past the allocation are never read).
+  [[maybe_unused]] const int sc_piece = nb % 4 == 0 ? 4 : nb % 2 == 0 ? 2 : 1;   // blocks a load
   auto load_scales = [&](int grp, uint4 (&sc)[2]) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + rl + 8 * r;
-      sc[r] = (grp < g1 && row < d)
-                  ? __ldg(reinterpret_cast<const uint4*>(scales + (size_t)row * nb + (size_t)grp * 8))
-                  : make_uint4(0u, 0u, 0u, 0u);
+      const bool live = grp < g1 && row < d;
+      const __half* p = scales + (size_t)row * nb + (size_t)grp * 8;
+      if constexpr (FULL) {
+        sc[r] = live ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        const int left = live ? nb - grp * 8 : 0;   // this group's blocks inside the row
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (sc_piece == 4) {
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            if (4 * k < left) {
+              const uint2 v = __ldg(reinterpret_cast<const uint2*>(p) + k);
+              w[2 * k] = v.x;
+              w[2 * k + 1] = v.y;
+            }
+        } else if (sc_piece == 2) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (2 * k < left) w[k] = __ldg(reinterpret_cast<const unsigned int*>(p) + k);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (k < left)
+              w[k / 2] |= (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p) + k) << (16 * (k & 1));
+        }
+        sc[r] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
     }
   };
   uint4 sc_next[2];
@@ -907,6 +955,7 @@ q40_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     load_scales(grp + 1, sc_next);
 #pragma unroll
     for (int st = 0; st < kTcGroup / kTcK; ++st, ++it) {
+      if (!FULL && grp * kTcGroup + st * kTcK >= n) break;   // past n: never loaded
       const int s = it % C::STAGES;
       mbar_wait(full0 + 8 * s, (it / C::STAGES) & 1);
       const uint8_t* wrow = ws_gen + s * C::WBYTES + rl * (kTcK / 2);
@@ -1016,6 +1065,333 @@ q40_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The small-batch GEMV on the tensor cores (q40_gemv_mma_kernel): bf16 x
+// and out, 2 <= t <= kMmaT tokens, every width K1 takes (n % 32 == 0).
+// Serving's batch step (t = B), speculation's verify forward (t = 1 + k)
+// and the thread replicas' step run here.
+//
+// What bounds it on the H100: the weight bytes, as at t = 1 (a 7B step
+// reads 3.72 GB, 1.11 ms at 3.35 TB/s); a 7B step's 2 x 8 x 6.7e9
+// multiply-adds (the 8 columns of mma's n, t of them used) are 0.11 ms at
+// the bf16 peak. So each weight byte is read once for all t tokens, and
+// the instructions that turn it into products stay under the bytes' time
+// (measured on the H100: 0.47-0.53 of the bound a 7B step; the 4096-row
+// weights, one row tile a CTA, lower, since every item reloads its x
+// chunk: PERF.md). The tensor-core path (above) pays a 64-token tile for
+// 2-8 tokens and runs 64 CTAs at wo and w2; the t <= 8 GEMV
+// (q40_matmul_kernel) re-reads staged x from shared memory for every
+// token at every block.
+//  * mma.sync.m16n8k16 (f32 += bf16 x bf16), the weight as A (16 rows x 16
+//    values of n), x as B (16 values x 8 tokens; tokens past t are zero
+//    columns, never written). One Q40 block is two k16 steps.
+//  * The weight exact, as the TPU kernel keeps it (pallas_q40.py:104-133
+//    contracts integer nibbles and folds the -8 and the scale in after):
+//    a nibble pair becomes the bf16 pair (nib - 8) by one LOP3 into the
+//    bf16 pattern of 128 (0x4300 | nib is 128 + nib) and one packed bf16
+//    FMA that subtracts 136, two values at a time, no int-to-float
+//    convert. Each block's two mmas start from a zeroed fragment; one f32
+//    FMA a row and token then adds scale x fragment into the sum. The
+//    products are exact, so the only differences from the plain version
+//    are the order of the sums and the final bf16 rounding.
+//  * The k order inside a block is free as long as A and B share it. A
+//    thread (group g = lane / 4, q = lane % 4) holds k = 2q, 2q+1, 2q+8,
+//    2q+9 of each step; here they are the 8 nibbles of the block's 32-bit
+//    word q (bytes 4q..4q+3): step 1 takes the low nibbles of bytes 4q,
+//    4q+2 (k 2q, 2q+1) and 4q+1, 4q+3 (k 2q+8, 2q+9), step 2 their high
+//    nibbles, so the word shifted by 0, 8, 4 and 12 gives the four bf16
+//    pairs: 11 instructions for 8 values. x follows the same order: a
+//    token's 4 values 4q..4q+3 (8 bytes) are permuted into the pairs
+//    (4q, 4q+2) and (4q+1, 4q+3), once a chunk, and kept in registers
+//    for every row tile of the warp's run in that chunk.
+//  * Weight loads in flight: a ring of kMmaStages items a warp in shared
+//    memory, filled by cp.async 16 bytes a lane (a row's 8 blocks, 128
+//    contiguous bytes, from 8 lanes), read back by ldmatrix.x4: word q of
+//    rows g and g + 8 of two blocks in one instruction (a row of a stage
+//    padded to 144 bytes: the 8 rows of a matrix hit distinct banks). The
+//    item's f16 scales ride in the same stage, copied in the widest
+//    pieces a row's alignment allows (16, 8 or 4 bytes; the rare odd
+//    number of blocks a half at a time; the scales' base 16-byte aligned,
+//    as the route requires). Two stages (one item in flight beside the one
+//    consumed) timed faster than three or four, items of 16 blocks slower
+//    than 8, and whole blocks loaded into registers an item ahead and
+//    brought into fragment layout by quad shuffles slower than the ring
+//    (tools/k1_mma_ablations.py holds each as a variant of this source).
+//  * The grid, as the t = 1 GEMV's: one wave of equal CTAs, 2 an SM (8
+//    warps, 128 registers a thread); a CTA owns R rows (mma_rows: a
+//    multiple of 16, at most kMmaMaxRows), cut into items of 16 rows x
+//    one chunk of 256 values of n, dealt chunk-major to the 8 warps in
+//    contiguous runs. Each warp adds its items into its own partial sums
+//    in shared memory (part[warp][row][token]: a row tile's chunks reach a
+//    warp in chunk order, and warp w's chunks all come before warp w+1's);
+//    after one barrier the CTA adds each row's 8 partials in warp order
+//    and rounds once to bf16. No atomics, no global workspace: two
+//    launches give the same bits, and a captured graph (the batch step's,
+//    the verify forward's) replays it with nothing read from the host.
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaT = 8;                               // tokens: mma's n
+constexpr int kMmaRows = 16;                           // rows an item: mma's m
+constexpr int kMmaChunk = 8;                           // Q40 blocks an item: 256 values of n
+constexpr int kMmaStages = 2;                          // ring stages a warp
+constexpr int kMmaRowBytes = kMmaChunk * 16 + 16;      // a row of a stage, padded (banks)
+constexpr int kMmaWBytes = kMmaRows * kMmaRowBytes;    // a stage's weights
+constexpr int kMmaStage = kMmaWBytes + kMmaRows * kMmaChunk * 2;   // + its f16 scales [row][block]
+constexpr int kMmaRing = kMmaWarps * kMmaStages * kMmaStage;
+constexpr int kMmaMaxRows = 128;
+
+// dynamic shared memory of a CTA of R rows: the warps' rings and the partials
+__host__ __device__ constexpr int mma_smem(int rows) { return kMmaRing + kMmaWarps * rows * kMmaT * 4; }
+
+// The plan: rows a CTA, from d and the card's SMs alone, so that one launch
+// is one wave of equal CTAs at 2 an SM: R = d / (2 x sms) rounded up to 16,
+// at most kMmaMaxRows (ops/cuda_q40.py mma_rows is the same rule). The
+// chunk is always kMmaChunk blocks.
+__host__ __device__ inline int mma_rows(int d, int sms) {
+  const int resident = 2 * (sms > 0 ? sms : 1);
+  const int r = ((d + resident - 1) / resident + kMmaRows - 1) / kMmaRows * kMmaRows;
+  return r < kMmaRows ? kMmaRows : r > kMmaMaxRows ? kMmaMaxRows : r;
+}
+
+// cp.async of `bytes` (4, 8 or 16); src_bytes 0 reads nothing and writes zeros
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_bytes) {
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" :: "r"(dst), "l"(src), "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" :: "r"(dst), "l"(src), "n"(BYTES),
+                 "r"(src_bytes) : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four 8 x 8 b16 matrices from shared memory in mma fragment layout: lanes
+// 8m..8m+7 give the 16-byte rows of matrix m, r[m] holds row lane / 4,
+// elements 2 (lane % 4) and 2 (lane % 4) + 1
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d = A (16 x 16, bf16, registers) x B (16 x 8, bf16) + c, in f32
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1,
+                                          const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// the nibbles at bits 0-3 and 16-19 of v as the bf16 pair (nib - 8),
+// exactly: (v & 0x000F000F) | 0x43004300 is the pair 128 + nib (one LOP3,
+// its operands in registers), and fma(p, 1, -136) subtracts 136 from both
+__device__ __forceinline__ uint32_t nib2_bf16(uint32_t v, uint32_t mask, uint32_t magic, uint32_t one,
+                                              uint32_t m136) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(r) : "r"(v), "r"(mask), "r"(magic));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(r) : "r"(r), "r"(one), "r"(m136));
+  return r;
+}
+
+// One block's two k16 steps for rows g (word a) and g + 8 (word b), x's B
+// fragments xb, then the scales (rows g, g + 8) into the sums
+__device__ __forceinline__ void mma_block(float (&acc)[4], uint32_t a, uint32_t b, const uint32_t (&xb)[4],
+                                          float sg, float sg8, uint32_t mask, uint32_t magic, uint32_t one,
+                                          uint32_t m136) {
+  const uint32_t A1[4] = {nib2_bf16(a, mask, magic, one, m136), nib2_bf16(b, mask, magic, one, m136),
+                          nib2_bf16(a >> 8, mask, magic, one, m136), nib2_bf16(b >> 8, mask, magic, one, m136)};
+  const uint32_t A2[4] = {nib2_bf16(a >> 4, mask, magic, one, m136), nib2_bf16(b >> 4, mask, magic, one, m136),
+                          nib2_bf16(a >> 12, mask, magic, one, m136),
+                          nib2_bf16(b >> 12, mask, magic, one, m136)};
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  float f[4];
+  mma_16816(f, A1, xb[0], xb[1], zero);
+  mma_16816(f, A2, xb[2], xb[3], f);
+  acc[0] = fmaf(sg, f[0], acc[0]);
+  acc[1] = fmaf(sg, f[1], acc[1]);
+  acc[2] = fmaf(sg8, f[2], acc[2]);
+  acc[3] = fmaf(sg8, f[3], acc[3]);
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 2)
+q40_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
+                    const __half* __restrict__ scales, __nv_bfloat16* __restrict__ out, int t, int n,
+                    int d, int R) {
+  extern __shared__ __align__(16) uint8_t msmem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int nb = n / 32;
+  const int C = (nb + kMmaChunk - 1) / kMmaChunk, G = R / kMmaRows;
+  const int row0 = blockIdx.x * R;
+  const int items = C * G;
+  const int i0 = (int)((long long)warp * items / kMmaWarps);
+  const int i1 = (int)((long long)(warp + 1) * items / kMmaWarps);
+  uint8_t* ring = msmem + warp * (kMmaStages * kMmaStage);
+  const uint32_t ring_s = smem_u32(ring);
+  float* part = reinterpret_cast<float*>(msmem + kMmaRing);   // [warp][R][kMmaT]
+  float* mine = part + warp * R * kMmaT;
+  for (int i = lane; i < R * kMmaT; i += 32) mine[i] = 0.f;
+  // the LOP3's and the packed FMA's operands, kept in registers
+  uint32_t mask = 0x000F000Fu, magic = 0x43004300u, one = 0x3F803F80u, m136 = 0xC308C308u;
+  asm volatile("" : "+r"(mask), "+r"(magic), "+r"(one), "+r"(m136));
+  // a row's scales start at row * nb halves: copied in the widest pieces
+  // its alignment allows (16 bytes where n % 256 == 0, then 8, 4); an odd
+  // nb (n % 64 == 32) is copied a half at a time through registers
+  const int sc_bytes = nb % 8 == 0 ? 16 : nb % 4 == 0 ? 8 : nb % 2 == 0 ? 4 : 2;
+
+  // item i: 16 rows of row tile i % G x blocks [8c, 8c + 8) of chunk c =
+  // i / G; a row past d reads row d - 1 (never written), a block past n
+  // reads the row's last block and a zero scale (never used)
+  const uint4* pw = reinterpret_cast<const uint4*>(packed);
+  const unsigned short* ps = reinterpret_cast<const unsigned short*>(scales);
+  auto issue = [&](int i) {   // the item's weights and scales into its stage
+    const int c = i / G, rt = i - c * G;
+    const uint32_t st = ring_s + (uint32_t)((i % kMmaStages) * kMmaStage);
+    const int rbase = row0 + rt * kMmaRows;
+#pragma unroll
+    for (int k = 0; k < kMmaRows * kMmaChunk / 32; ++k) {
+      const int p = k * 32 + lane, r = p / kMmaChunk, j = p % kMmaChunk;
+      const int row = min(rbase + r, d - 1);
+      const int blk = min(c * kMmaChunk + j, nb - 1);
+      cp_async<16>(st + r * kMmaRowBytes + j * 16, pw + (size_t)row * nb + blk, 16);
+    }
+    const uint32_t ss = st + kMmaWBytes;   // [row][block]
+    const int b0 = c * kMmaChunk;
+    // pieces of `per` blocks; a piece past n reads nothing (the row's
+    // start stands in for its address)
+    auto scale_pieces = [&](auto bytes) {
+      constexpr int B = decltype(bytes)::value, per = B / 2, pieces = kMmaRows * kMmaChunk / per;
+#pragma unroll
+      for (int p = lane; p < pieces; p += 32) {
+        const int r = p / (kMmaChunk / per), j = p % (kMmaChunk / per) * per;
+        const int row = min(rbase + r, d - 1);
+        const bool in = b0 + j < nb;
+        cp_async<B>(ss + (r * kMmaChunk + j) * 2, ps + (size_t)row * nb + (in ? b0 + j : 0), in ? B : 0);
+      }
+    };
+    if (sc_bytes == 16) {
+      scale_pieces(std::integral_constant<int, 16>());
+    } else if (sc_bytes == 8) {
+      scale_pieces(std::integral_constant<int, 8>());
+    } else if (sc_bytes == 4) {
+      scale_pieces(std::integral_constant<int, 4>());
+    } else {   // a half at a time, through registers
+      unsigned short* sg = reinterpret_cast<unsigned short*>(ring + (i % kMmaStages) * kMmaStage + kMmaWBytes);
+#pragma unroll
+      for (int p = lane; p < kMmaRows * kMmaChunk; p += 32) {
+        const int r = p / kMmaChunk, j = p % kMmaChunk, row = min(rbase + r, d - 1);
+        sg[p] = b0 + j < nb ? __ldg(ps + (size_t)row * nb + b0 + j) : (unsigned short)0;
+      }
+    }
+  };
+
+  // x of a chunk as B fragments: token g (0 past t), for each block j the
+  // pairs (4q, 4q+2), (4q+1, 4q+3) of values 4q..4q+3 (step 1) and of
+  // 16+4q..16+4q+3 (step 2)
+  uint32_t xf[kMmaChunk][4];
+  int cx = -1;
+  auto load_x = [&](int c) {
+    const bool live = g < t;
+    const __nv_bfloat16* xr = x + (size_t)(live ? g : 0) * n + (size_t)c * kMmaChunk * 32 + 4 * q;
+#pragma unroll
+    for (int j = 0; j < kMmaChunk; ++j) {
+      const bool in = live && c * kMmaChunk + j < nb;
+      const uint2 lo = in ? __ldg(reinterpret_cast<const uint2*>(xr + j * 32)) : make_uint2(0u, 0u);
+      const uint2 hi = in ? __ldg(reinterpret_cast<const uint2*>(xr + j * 32 + 16)) : make_uint2(0u, 0u);
+      xf[j][0] = __byte_perm(lo.x, lo.y, 0x5410);
+      xf[j][1] = __byte_perm(lo.x, lo.y, 0x7632);
+      xf[j][2] = __byte_perm(hi.x, hi.y, 0x5410);
+      xf[j][3] = __byte_perm(hi.x, hi.y, 0x7632);
+    }
+  };
+
+  // item i's products into this warp's partials, from word q of rows g and
+  // g + 8 of its 8 blocks and their f16 scales (a pair of blocks a word)
+  auto consume = [&](int i, const uint32_t (&wg)[kMmaChunk], const uint32_t (&w8)[kMmaChunk],
+                     const uint32_t (&sg)[kMmaChunk / 2], const uint32_t (&s8)[kMmaChunk / 2]) {
+    const int c = i / G, rt = i - c * G;
+    const int jn = nb - c * kMmaChunk;   // blocks of this chunk inside n
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kMmaChunk; j += 2) {
+      if (j >= jn) break;
+      const float2 f0 = __half22float2(*reinterpret_cast<const __half2*>(&sg[j / 2]));
+      const float2 f8 = __half22float2(*reinterpret_cast<const __half2*>(&s8[j / 2]));
+      mma_block(acc, wg[j], w8[j], xf[j], f0.x, f8.x, mask, magic, one, m136);
+      if (j + 1 >= jn) break;
+      mma_block(acc, wg[j + 1], w8[j + 1], xf[j + 1], f0.y, f8.y, mask, magic, one, m136);
+    }
+    // rows g and g + 8 of the row tile, tokens 2q and 2q + 1
+    float2* p0 = reinterpret_cast<float2*>(mine + (rt * kMmaRows + g) * kMmaT + 2 * q);
+    float2* p8 = reinterpret_cast<float2*>(mine + (rt * kMmaRows + g + 8) * kMmaT + 2 * q);
+    float2 v = *p0;
+    v.x += acc[0];
+    v.y += acc[1];
+    *p0 = v;
+    v = *p8;
+    v.x += acc[2];
+    v.y += acc[3];
+    *p8 = v;
+  };
+  auto chunk_x = [&](int i) {
+    const int c = i / G;
+    if (c != cx) {
+      load_x(c);
+      cx = c;
+    }
+  };
+
+  // the first kMmaStages - 1 items in flight; a group committed every
+  // step, empty or not, keeps the wait's count
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (i0 + s < i1) issue(i0 + s);
+    cp_async_commit();
+  }
+  // this lane's ldmatrix row: matrices (rows 0-7, rows 8-15) x (block j, j + 1)
+  const uint32_t lm_off = (uint32_t)(((lane & 7) + ((lane >> 3) & 1) * 8) * kMmaRowBytes + (lane >> 4) * 16);
+  for (int i = i0; i < i1; ++i) {
+    // item i + kMmaStages - 1 into the stage that item i - 1 used
+    if (i + kMmaStages - 1 < i1) issue(i + kMmaStages - 1);
+    cp_async_commit();
+    chunk_x(i);
+    cp_async_wait<kMmaStages - 1>();
+    __syncwarp();   // every lane's copies of item i have landed
+    const uint32_t st = ring_s + (uint32_t)((i % kMmaStages) * kMmaStage);
+    const uint32_t* sp = reinterpret_cast<const uint32_t*>(ring + (i % kMmaStages) * kMmaStage + kMmaWBytes);
+    uint32_t wg[kMmaChunk], w8[kMmaChunk], sg[kMmaChunk / 2], s8[kMmaChunk / 2];
+#pragma unroll
+    for (int j = 0; j < kMmaChunk; j += 2) {
+      uint32_t w[4];   // word q of rows g, g + 8 of blocks j, j + 1
+      ldmatrix_x4(w, st + lm_off + j * 16);
+      wg[j] = w[0];
+      w8[j] = w[1];
+      wg[j + 1] = w[2];
+      w8[j + 1] = w[3];
+      sg[j / 2] = sp[g * (kMmaChunk / 2) + j / 2];
+      s8[j / 2] = sp[(g + 8) * (kMmaChunk / 2) + j / 2];
+    }
+    consume(i, wg, w8, sg, s8);
+    __syncwarp();   // item i's stage is read: the next step refills it
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < R * t; o += kMmaThreads) {
+    const int tk = o / R, j = o - tk * R, row = row0 + j;
+    if (row >= d) continue;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) a += part[(w * R + j) * kMmaT + tk];
+    out[(size_t)tk * d + row] = __float2bfloat16_rn(a);
+  }
+}
+
 // cuTensorMapEncodeTiled, libcuda's entry point, fetched once through the
 // runtime (no -lcuda at link time)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -1055,13 +1431,13 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* 
              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
+template <int BN, bool FULL>
 cudaError_t launch_wgmma_tile(const __nv_bfloat16* x, const uint8_t* packed, const __half* scales,
                               __nv_bfloat16* out, int t, int n, int d, int split, cudaStream_t stream) {
   using C = TcCfg<BN>;
   static bool attr = false;
   if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(q40_matmul_wgmma_kernel<BN>,
+    const cudaError_t e = cudaFuncSetAttribute(q40_matmul_wgmma_kernel<BN, FULL>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return e;
     attr = true;
@@ -1083,23 +1459,38 @@ cudaError_t launch_wgmma_tile(const __nv_bfloat16* x, const uint8_t* packed, con
   at[0].val.clusterDim.z = (unsigned)split;
   cfg.attrs = at;
   cfg.numAttrs = split > 1 ? 1 : 0;   // a split runs as one 2-CTA cluster
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, q40_matmul_wgmma_kernel<BN>, xm, wm, scales, out, t, n, d, split);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, q40_matmul_wgmma_kernel<BN, FULL>, xm, wm, scales, out, t, n, d, split);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// the tensor-core path's preconditions; anything else takes the GEMV path
+// x, packed and scales 16-byte aligned: the TMA maps' bases, and the base
+// of the cp.async copies of both tensor-core kernels (a row's scales in
+// 16-, 8- or 4-byte pieces, chosen from n alone)
+bool aligned16(const void* x, const void* packed, const void* scales) {
+  return ((uintptr_t)x | (uintptr_t)packed | (uintptr_t)scales) % 16 == 0;
+}
+
+// the tensor-core path's preconditions: every width K1 takes (n % 32 ==
+// 0: the TMA maps' 16-byte row strides), aligned operands; anything else
+// takes a GEMV path
 bool tc_eligible(const void* x, const void* packed, const void* scales, int t, int n, int tc_min_t) {
-  return t >= tc_min_t && n % kTcGroup == 0 && ((uintptr_t)x | (uintptr_t)packed | (uintptr_t)scales) % 16 == 0;
+  return t >= tc_min_t && n % 32 == 0 && aligned16(x, packed, scales);
 }
 
 cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint8_t* packed, const __half* scales,
                          __nv_bfloat16* out, int t, int n, int d, cudaStream_t stream, int bn = 0,
                          int split = 0) {
   if (bn == 0) tc_plan(t, n, d, &bn, &split);
-  if (split < 1 || split > 2 || split > n / kTcGroup) return cudaErrorInvalidValue;
-  if (bn == 64) return launch_wgmma_tile<64>(x, packed, scales, out, t, n, d, split, stream);
-  if (bn == 128) return launch_wgmma_tile<128>(x, packed, scales, out, t, n, d, split, stream);
-  if (bn == 256) return launch_wgmma_tile<256>(x, packed, scales, out, t, n, d, split, stream);
+  if (split < 1 || split > 2 || split > (n + kTcGroup - 1) / kTcGroup) return cudaErrorInvalidValue;
+  if (n % kTcGroup == 0) {   // 16-byte scale loads, no partial group
+    if (bn == 64) return launch_wgmma_tile<64, true>(x, packed, scales, out, t, n, d, split, stream);
+    if (bn == 128) return launch_wgmma_tile<128, true>(x, packed, scales, out, t, n, d, split, stream);
+    if (bn == 256) return launch_wgmma_tile<256, true>(x, packed, scales, out, t, n, d, split, stream);
+  } else {
+    if (bn == 64) return launch_wgmma_tile<64, false>(x, packed, scales, out, t, n, d, split, stream);
+    if (bn == 128) return launch_wgmma_tile<128, false>(x, packed, scales, out, t, n, d, split, stream);
+    if (bn == 256) return launch_wgmma_tile<256, false>(x, packed, scales, out, t, n, d, split, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -1155,6 +1546,34 @@ cudaError_t launch_gemv1(const TI* xp, const uint8_t* pp, const __half* sp, TO* 
   return cudaGetLastError();
 }
 
+// the card's SMs, asked once (the same card every launch)
+int card_sms() {
+  static const int sms = [] {
+    int dev = 0, s = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    return s;
+  }();
+  return sms;
+}
+
+// The small-batch GEMV on the tensor cores: bf16, 2 <= t <= kMmaT.
+cudaError_t launch_gemv_mma(const __nv_bfloat16* x, const uint8_t* packed, const __half* scales,
+                            __nv_bfloat16* out, int t, int n, int d, cudaStream_t stream) {
+  if (t < 2 || t > kMmaT || n % 32 != 0 || d < 1) return cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(q40_gemv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               mma_smem(kMmaMaxRows));
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  const int rows = mma_rows(d, card_sms());
+  q40_gemv_mma_kernel<<<(unsigned)((d + rows - 1) / rows), kMmaThreads, mma_smem(rows), stream>>>(
+      x, packed, scales, out, t, n, d, rows);
+  return cudaGetLastError();
+}
+
 // The GEMV path: k experts along gridDim.z (k = 1 and idx = nullptr for K1);
 // t = 1 takes the decode GEMV above, with the Q80 round trip fused in if
 // q80 is set. q80 at t > 1 is refused: only the t = 1 GEMV has it.
@@ -1185,16 +1604,23 @@ cudaError_t launch_gemv(const TI* xp, const uint8_t* pp, const __half* sp, TO* o
   return cudaGetLastError();
 }
 
+// K1's rule (ops/cuda_q40.py k1_path is the same): bf16 in and out takes
+// the tensor-core path from tc_min_t tokens on (with its preconditions),
+// else the small-batch mma GEMV at 2 <= t <= min(mma_max_t, kMmaT) with
+// aligned operands; everything else a GEMV path (t = 1: the decode GEMV).
 template <typename TI, typename TO>
 cudaError_t launch(const void* x, const void* packed, const void* scales, void* out,
-                   int t, int n, int d, int tc_min_t, bool q80, cudaStream_t stream) {
+                   int t, int n, int d, int tc_min_t, int mma_max_t, bool q80, cudaStream_t stream) {
   const TI* xp = static_cast<const TI*>(x);
   const uint8_t* pp = static_cast<const uint8_t*>(packed);
   const __half* sp = static_cast<const __half*>(scales);
   TO* op = static_cast<TO*>(out);
   if constexpr (std::is_same<TI, __nv_bfloat16>::value && std::is_same<TO, __nv_bfloat16>::value) {
-    if (tc_eligible(x, packed, scales, t, n, tc_min_t))   // the tensor-core path has no round trip
+    // neither path has the round trip (q80 is refused at t != 1 before this)
+    if (tc_eligible(x, packed, scales, t, n, tc_min_t))
       return q80 ? cudaErrorInvalidValue : launch_wgmma(xp, pp, sp, op, t, n, d, stream);
+    if (t >= 2 && t <= std::min(mma_max_t, kMmaT) && aligned16(x, packed, scales))
+      return q80 ? cudaErrorInvalidValue : launch_gemv_mma(xp, pp, sp, op, t, n, d, stream);
   }
   return launch_gemv<TI, TO>(xp, pp, sp, op, t, n, d, nullptr, 1, 0, 1, q80, stream);
 }
@@ -1212,22 +1638,25 @@ cudaError_t launch_experts(const void* x, long long x_kstride, const int* idx, i
 
 // x: (t, n) f32 (x_dtype 0) or bf16 (1); packed: (d, n/2) u8 block-major;
 // scales: (d, n/32) f16; out: (t, d) f32 (out_dtype 0) or bf16 (1).
-// bf16 in and out with t >= tc_min_t, n % 256 == 0 and 16-byte aligned x,
-// packed and scales takes the tensor-core path. q80 = 1: x is raw and the
+// bf16 in and out with 16-byte aligned x, packed and scales takes the
+// tensor-core path at t >= tc_min_t, the small-batch mma GEMV at 2 <= t <=
+// min(mma_max_t, 8). q80 = 1: x is raw and the
 // kernel applies the Q80 round trip to it first, rounded to the output type
 // (the caller's compute type); t = 1 only, the t = 1 GEMV's path: anything
 // else returns cudaErrorInvalidValue, never a launch without the round
 // trip. Returns the launch's cudaError_t.
 extern "C" int q40_matmul_launch(const void* x, int x_dtype, const void* packed,
                                  const void* scales, void* out, int out_dtype,
-                                 int t, int n, int d, int tc_min_t, int q80, void* stream) {
+                                 int t, int n, int d, int tc_min_t, int mma_max_t, int q80,
+                                 void* stream) {
   if (q80 != 0 && t != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool f = q80 != 0;
-  if (x_dtype == 0 && out_dtype == 0) return launch<float, float>(x, packed, scales, out, t, n, d, tc_min_t, f, s);
-  if (x_dtype == 0 && out_dtype == 1) return launch<float, __nv_bfloat16>(x, packed, scales, out, t, n, d, tc_min_t, f, s);
-  if (x_dtype == 1 && out_dtype == 0) return launch<__nv_bfloat16, float>(x, packed, scales, out, t, n, d, tc_min_t, f, s);
-  if (x_dtype == 1 && out_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(x, packed, scales, out, t, n, d, tc_min_t, f, s);
+  const int m = mma_max_t;
+  if (x_dtype == 0 && out_dtype == 0) return launch<float, float>(x, packed, scales, out, t, n, d, tc_min_t, m, f, s);
+  if (x_dtype == 0 && out_dtype == 1) return launch<float, __nv_bfloat16>(x, packed, scales, out, t, n, d, tc_min_t, m, f, s);
+  if (x_dtype == 1 && out_dtype == 0) return launch<__nv_bfloat16, float>(x, packed, scales, out, t, n, d, tc_min_t, m, f, s);
+  if (x_dtype == 1 && out_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(x, packed, scales, out, t, n, d, tc_min_t, m, f, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1263,6 +1692,10 @@ extern "C" int q40_matmul_tc_plan(int t, int n, int d, int* bn, int* split) {
   tc_plan(t, n, d, bn, split);
   return 0;
 }
+
+// The small-batch mma GEMV's rows a CTA for d on this card (its plan: the
+// chunk of n an item takes is always 256 values).
+extern "C" int q40_matmul_mma_rows(int d) { return mma_rows(d, card_sms()); }
 
 // The tensor-core path at a given plan, for timing the plans against each
 // other; bf16 x and out, the same preconditions as the planned path.

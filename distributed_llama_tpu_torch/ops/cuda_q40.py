@@ -12,6 +12,12 @@ version.
 
 `q40_matmul.launches` counts kernel launches (plain-version calls do not
 count), so a run can show that its main path went through the kernel.
+K1 takes one of four kernels by a stated rule (`k1_path`): the t = 1
+GEMV, the small-batch GEMV on the tensor cores (bf16, 2 <= t <= 8), the
+tensor-core path (bf16 chunks) or the older GEMV (f32, or operands
+that are not 16-byte aligned, at t >= 2);
+`q40_gemv_mma.launches` counts the launches that took the small-batch
+GEMV (each also counts in `q40_matmul.launches`).
 
 `q40_expert_matmul(x, w, idx, out_dtype)` is kernel K2, the counterpart of
 the JAX package's q40_expert_matmul: the same product against the K experts
@@ -48,14 +54,17 @@ from .cuda_q80 import q80_roundtrip_reference
 # the JAX package's MAX_T (pallas_q40.py:72): larger token counts are
 # FLOP-amortized and take the dequantize-then-matmul path (ops/matmul.py)
 MAX_T = 256
-# bf16 launches with at least this many tokens take the kernel's tensor-core
-# path, fewer its GEMV path: where the two paths' times, summed over one
-# Llama-2-7B layer's projections, cross on an H100 (chip_smoke.py times
-# both; PERF.md). The wgmma path costs the same from t = 2 to 64 (one
-# 64-token tile), the GEMV path a weight pass per 1-8 tokens: at t = 2 the
-# layer's sum already favours the tensor cores (wqkv and w13 gain more
-# than wo and w2 lose).
-TC_MIN_T = 2
+# bf16 launches of 2 <= t <= MMA_MAX_T tokens take the small-batch GEMV on
+# the tensor cores (mma.sync, one weight pass for all t tokens), more
+# tokens the tensor-core path (wgmma, 64-token tiles)
+MMA_MAX_T = 8
+# bf16 launches with at least this many tokens take the tensor-core path:
+# MMA_MAX_T + 1, where the small-batch GEMV stops. chip_smoke.py times the
+# small-batch GEMV, the tensor-core path and the older GEMV side by side
+# (PERF.md): the wgmma path costs the same from t = 2 to 64 (one 64-token
+# tile) and the small-batch GEMV, reading the weight once for up to 8
+# tokens, is faster at every t it takes; at 9-16 tokens it is untried
+TC_MIN_T = 9
 # the tensor-core path's geometry (csrc/q40_matmul.cu): 128 weight rows a
 # CTA, 64, 128 or 256 tokens, the n axis in groups of 256 values, one wave
 # = 132 CTAs (one a streaming multiprocessor); the plan's cost model, in
@@ -63,6 +72,10 @@ TC_MIN_T = 2
 # with the tile (fitted to the timing of every plan on the H100, PERF.md)
 TC_ROWS, TC_TOKENS, TC_GROUP, TC_SMS = 128, (64, 128, 256), 256, 132
 TC_WAVE_FIXED = 1360
+# the small-batch GEMV's geometry (csrc/q40_matmul.cu): items of 16 rows x
+# 256 values of n, a CTA's rows a multiple of 16 and at most 128, two CTAs
+# a streaming multiprocessor
+MMA_ROWS, MMA_CHUNK, MMA_MAX_ROWS = 16, 256, 128
 # K2 has only the GEMV path: the MoE decode step calls it at t = 1 (the JAX
 # package's fused expert path runs at t = b = 1 alone)
 EXPERT_MAX_T = 8
@@ -96,9 +109,10 @@ def tc_plan(t: int, n: int, d: int) -> tuple[int, int]:
     """The tensor-core path's plan, from the shapes alone: (BN, split),
     the tokens a CTA and the 2-CTA cluster split of the n axis (1 or 2).
     The least modelled time: waves of TC_SMS CTAs, each a fixed cost plus
-    its groups' cost; ties to fewer splits, then to the narrower tile.
-    csrc/q40_matmul.cu tc_plan is the same rule."""
-    groups, row_tiles = n // TC_GROUP, -(-d // TC_ROWS)
+    its groups' cost (a partial last group counts whole); ties to fewer
+    splits, then to the narrower tile. csrc/q40_matmul.cu tc_plan is the
+    same rule."""
+    groups, row_tiles = -(-n // TC_GROUP), -(-d // TC_ROWS)
     best = None
     for split in (1, 2):
         if split > groups:
@@ -121,13 +135,47 @@ def tc_ctas(t: int, n: int, d: int) -> int:
 def uses_tc_path(x_dtype, out_dtype, t: int, n: int, aligned: bool = True,
                  tc_min_t: int = TC_MIN_T) -> bool:
     """The rule that sends a launch to the tensor-core path, as the C entry
-    point applies it: bf16 in and out, t >= tc_min_t, n a multiple of
-    TC_GROUP (the scale loads and the TMA maps' 16-byte strides), x,
-    packed and scales 16-byte aligned (the wrapper aligns x; every model
-    width and expert slab keeps the weight aligned). Anything else takes
-    the GEMV path."""
+    point applies it: bf16 in and out, t >= tc_min_t, n a multiple of 32
+    (every width K1 takes: the TMA maps' 16-byte row strides; a partial
+    last group of 256 values is loaded zero-filled), x, packed and scales
+    16-byte aligned (the wrapper aligns x; every model width and expert
+    slab keeps the weight aligned). Anything else takes a GEMV path."""
     return (x_dtype == out_dtype == torch.bfloat16 and t >= tc_min_t
-            and n % TC_GROUP == 0 and aligned)
+            and n % 32 == 0 and aligned)
+
+
+def k1_path(x_dtype, out_dtype, t: int, n: int, aligned: bool = True,
+            tc_min_t: int = TC_MIN_T, mma_max_t: int = MMA_MAX_T) -> str:
+    """The kernel a K1 launch takes, as the C entry point routes it:
+    "tc" (uses_tc_path), else "mma" (the small-batch GEMV on the tensor
+    cores: bf16 in and out, 2 <= t <= min(mma_max_t, MMA_MAX_T), operands
+    16-byte aligned as for "tc": it copies a row's scales in pieces of up
+    to 16 bytes), else "gemv1" at t = 1 and "gemv" (the older GEMV: f32
+    operands, or unaligned ones) above.
+    tc_min_t and mma_max_t are the private arguments chip_smoke.py forces
+    a path with."""
+    if uses_tc_path(x_dtype, out_dtype, t, n, aligned, tc_min_t):
+        return "tc"
+    if (x_dtype == out_dtype == torch.bfloat16 and 2 <= t <= min(mma_max_t, MMA_MAX_T)
+            and aligned):
+        return "mma"
+    return "gemv1" if t == 1 else "gemv"
+
+
+def mma_rows(d: int, sms: int = TC_SMS) -> int:
+    """The small-batch GEMV's plan, rows a CTA (every n is cut into items
+    of MMA_CHUNK values): one wave of equal CTAs at two a streaming
+    multiprocessor, d / (2 x sms) rounded up to MMA_ROWS, at most
+    MMA_MAX_ROWS. csrc/q40_matmul.cu mma_rows is the same rule (exported
+    as q40_matmul_mma_rows, with the card's own SM count)."""
+    per = -(-d // (2 * max(sms, 1)))   # rows a CTA over one wave
+    rows = -(-per // MMA_ROWS) * MMA_ROWS
+    return min(max(rows, MMA_ROWS), MMA_MAX_ROWS)
+
+
+def mma_ctas(d: int, sms: int = TC_SMS) -> int:
+    """CTAs of one small-batch GEMV launch under mma_rows."""
+    return -(-d // mma_rows(d, sms))
 
 
 def q40_matmul_reference(x: torch.Tensor, w: QuantizedTensor,
@@ -150,7 +198,7 @@ def _lib():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -196,20 +244,24 @@ def _checked_x(name: str, x: torch.Tensor, w: QuantizedTensor,
 
 
 def _launch(x2: torch.Tensor, w: QuantizedTensor, out_dtype,
-            tc_min_t: int = TC_MIN_T, activation_q80: bool = False) -> torch.Tensor:
+            tc_min_t: int = TC_MIN_T, activation_q80: bool = False,
+            mma_max_t: int = MMA_MAX_T) -> torch.Tensor:
     t = x2.shape[0]
     _refuse_unfused("q40_matmul", t, activation_q80)
     x2 = _checked_x("q40_matmul", x2, w, out_dtype)
     n, d = x2.shape[1], w.packed.shape[0]
     out = torch.empty((t, d), dtype=out_dtype, device=x2.device)
+    aligned = (x2.data_ptr() | w.packed.data_ptr() | w.scales.data_ptr()) % 16 == 0
+    path = k1_path(x2.dtype, out_dtype, t, n, aligned, tc_min_t, mma_max_t)
     fn = _lib()
     rc = fn(x2.data_ptr(), _DTYPE_CODE[x2.dtype], w.packed.data_ptr(),
             w.scales.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
-            t, n, d, tc_min_t, int(activation_q80),
+            t, n, d, tc_min_t, mma_max_t, int(activation_q80),
             torch.cuda.current_stream(x2.device).cuda_stream)
     cuda_build.check(rc, "q40_matmul")
     launch_scope.count(q40_matmul, "q40_matmul")
     launch_scope.count(q80_fused, "q80_fused", int(activation_q80))
+    launch_scope.count(q40_gemv_mma, "q40_gemv_mma", int(path == "mma"))
     return out
 
 
@@ -236,6 +288,8 @@ def q40_matmul(x: torch.Tensor, w: QuantizedTensor,
 q40_matmul.launches = 0
 # launches of K1 and K2 with the Q80 round trip fused in
 q80_fused = types.SimpleNamespace(launches=0)
+# launches of K1 that took the small-batch GEMV on the tensor cores
+q40_gemv_mma = types.SimpleNamespace(launches=0)
 
 
 def q40_expert_matmul_reference(x: torch.Tensor, w: QuantizedTensor,

@@ -48,18 +48,20 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops.cuda_attention import flash_attention
-from ..ops.cuda_q40 import q40_expert_matmul, q40_matmul, q80_fused
+from ..ops.cuda_q40 import q40_expert_matmul, q40_gemv_mma, q40_matmul, q80_fused
 from ..ops.cuda_q80 import q80_roundtrip
 from ..ops import launch_scope
 from .profiler import PROFILER
 
 # the wrappers themselves, taken at import: a test that patches a module's
-# attribute with a plain version leaves these counters in place
+# attribute with a plain version leaves these counters in place (q80_fused
+# and q40_gemv_mma count a share of K1's and K2's launches: the fused
+# round trip, the small-batch GEMV)
 LAUNCH_COUNTERS = (q40_matmul, q40_expert_matmul, q80_fused, flash_attention,
-                   q80_roundtrip)
+                   q80_roundtrip, q40_gemv_mma)
 # their names in a launch scope (ops/launch_scope.py)
 LAUNCH_NAMES = ("q40_matmul", "q40_expert_matmul", "q80_fused",
-                "flash_attention", "q80_roundtrip")
+                "flash_attention", "q80_roundtrip", "q40_gemv_mma")
 
 
 class DeviceGate:

@@ -6,7 +6,7 @@ a replay of the captured decode graph, then its logits read as generate
 reads them) run under torch.profiler, and the device time of every kernel
 is summed by group (`group`, rewritten for CUDA kernel names):
 
-  K1        the Q40 matmul (q40_gemv1_kernel, q40_matmul_wgmma_kernel,
+  K1        the Q40 matmul (q40_gemv1_kernel, q40_gemv_mma_kernel, q40_matmul_wgmma_kernel,
             q40_matmul_kernel)
   K3        flash attention (flash_mma_kernel, flash_f32_kernel and the
             split's flash_merge_kernel)

@@ -333,10 +333,15 @@ def test_q80_and_wgmma_sources_export_c_entries():
     assert "cudaGetLastError()" in src and "__float2int_rn" in src
     k1 = (cuda_build.CSRC / "q40_matmul.cu").read_text()
     assert 'extern "C" int q40_matmul_tc_plan(' in k1
+    assert 'extern "C" int q40_matmul_mma_rows(' in k1
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor.2d", "setmaxnreg",
                    "mbarrier.try_wait", "barrier.cluster"):
         assert needle in k1
-    assert "mma.sync" not in k1
+    # the prefill path is wgmma only; mma.sync is the small-batch GEMV's
+    wgmma_kernel = k1.split("q40_matmul_wgmma_kernel(const", 1)[1].split(
+        "// The small-batch GEMV on the tensor cores (q40_gemv_mma_kernel):", 1)[0]
+    assert "mma.sync" not in wgmma_kernel
+    assert "mma.sync.aligned.m16n8k16" in k1
 
 
 class _FakeKernel:
@@ -379,10 +384,10 @@ def test_fused_q80_wrappers_launch_at_t1_and_raise_above(monkeypatch):
     cuda_q40._launch(meta((1, 64)), w, torch.bfloat16, activation_q80=True)
     cuda_q40._expert_launch(meta((2, 1, 64)), stack, idx, torch.float32,
                             activation_q80=True)
-    assert k1.calls[-1][10] == 1 and k2.calls[-1][13] == 1   # the q80 argument
+    assert k1.calls[-1][11] == 1 and k2.calls[-1][13] == 1   # the q80 argument
     assert counts() == (before[0] + 1, before[1] + 1, before[2] + 2)
     cuda_q40._launch(meta((2, 64)), w, torch.bfloat16)           # unfused: q80 = 0
-    assert k1.calls[-1][10] == 0 and counts()[2] == before[2] + 2
+    assert k1.calls[-1][11] == 0 and counts()[2] == before[2] + 2
 
     before, n1, n2 = counts(), len(k1.calls), len(k2.calls)
     for call in (lambda: cuda_q40._launch(meta((2, 64)), w, torch.float32, activation_q80=True),
@@ -516,15 +521,15 @@ def test_capture_tallies_launches_and_replays_count_them(monkeypatch):
     before = [c.launches for c in graphs.LAUNCH_COUNTERS]
     g = graphs.capture(step)
     warm = [c.launches - b for c, b in zip(graphs.LAUNCH_COUNTERS, before)]
-    assert warm == [3, 0, 3, 2, 0] and g.tally == (3, 0, 3, 2, 0) and g.out == "logits"
+    assert warm == [3, 0, 3, 2, 0, 0] and g.tally == (3, 0, 3, 2, 0, 0) and g.out == "logits"
     for _ in range(5):
         g.replay()
     assert len(replays) == 5
     assert [c.launches - b for c, b in zip(graphs.LAUNCH_COUNTERS, before)] == \
-        [3 + 5 * 3, 0, 3 + 5 * 3, 2 + 5 * 2, 0]
+        [3 + 5 * 3, 0, 3 + 5 * 3, 2 + 5 * 2, 0, 0]
     assert graphs.LAUNCH_COUNTERS == (cuda_q40.q40_matmul, cuda_q40.q40_expert_matmul,
                                       cuda_q40.q80_fused, cuda_attention.flash_attention,
-                                      cuda_q80.q80_roundtrip)
+                                      cuda_q80.q80_roundtrip, cuda_q40.q40_gemv_mma)
 
 
 def test_import_guards_cover_the_serving_path():
@@ -866,7 +871,7 @@ def test_speculative_graph_keys_and_launch_tallies(monkeypatch):
             lg = eng._verify_logits(np.zeros((1, t), np.int32), 4)
             assert lg.shape == (t, v)
         assert set(eng.graphs) == {("lookup", 3), ("lookup", 2)}
-        assert all(g.tally == (2, 0, 0, 1, 0) for g in eng.graphs.values())
+        assert all(g.tally == (2, 0, 0, 1, 0, 0) for g in eng.graphs.values())
         assert k1.launches - n0 == 2 * 2 + 3 * 2   # two warm-ups, three replays
         d = DraftModel.self_draft(eng, 1)
         n0 = k1.launches
@@ -876,7 +881,7 @@ def test_speculative_graph_keys_and_launch_tallies(monkeypatch):
         assert k1.launches - n0 == 2 + 5 * 2       # warm-up, five replays
         d.step_logits(d.cache, np.asarray([[3]], np.int32), np.asarray([4], np.int32))
         assert set(d.graphs) == {("sdraft_scan", "self1", 5, v), ("sdraft_step", "self1")}
-        assert d.graphs[("sdraft_scan", "self1", 5, v)].tally == (2, 0, 0, 1, 0)
+        assert d.graphs[("sdraft_scan", "self1", 5, v)].tally == (2, 0, 0, 1, 0, 0)
         b = _cpu_engine(batch=2)
         b.cuda_graphs = True
         greedy, logits0 = b.slot_verify_step(np.zeros((2, 4), np.int32),

@@ -180,24 +180,26 @@ def test_tc_plan_covers_every_token(t):
     (11008, 44, "bf16", True, True),       # w2's n, a ragged last chunk
     (4096, cuda_q40.TC_MIN_T - 1, "bf16", True, False),  # below the crossing
     (4096, 256, "f32", True, False),       # f32 operands: the GEMV path
-    (64, 256, "bf16", True, False),        # the tiny fixtures' widths
-    (128, 256, "bf16", True, False),
-    (4096 + 32, 256, "bf16", True, False),  # n not a multiple of 256
+    (64, 256, "bf16", True, True),         # the tiny fixtures' widths
+    (128, 256, "bf16", True, True),
+    (4096 + 32, 256, "bf16", True, True),  # n not a multiple of 256
     (4096, 256, "bf16", False, False),     # an unaligned operand
 ])
 def test_tc_path_rule(n, t, dtypes, aligned, want):
     """The stated rule that routes a launch: bf16 in and out, t >=
-    TC_MIN_T, n % 256 == 0 and aligned operands take the tensor-core path;
-    every other launch takes the GEMV path, never a fallback on failure."""
+    TC_MIN_T, any width K1 takes (n % 32 == 0: a partial last group of 256
+    values is zero-filled) and aligned operands take the tensor-core path;
+    every other launch takes a GEMV path, never a fallback on failure."""
     dt = torch.bfloat16 if dtypes == "bf16" else torch.float32
     assert cuda_q40.uses_tc_path(dt, dt, t, n, aligned) is want
 
 
 def test_model_widths_pass_the_tc_rule():
-    """Every 7B, Mixtral and Grok-1 input width is a multiple of 256, so
-    their prefill chunks reach the tensor-core path; the tiny fixtures'
-    (64, 128) do not, and take the GEMV path on the card."""
-    for n in (4096, 11008, 14336, 6144, 32768):
+    """Every 7B, Mixtral and Grok-1 input width, the tp shards' (5504,
+    2752) and the tiny fixtures' (64, 128) reach the tensor-core path in a
+    prefill chunk; a width that is no multiple of 32 is no Q40 width."""
+    for n in (4096, 11008, 14336, 6144, 32768, 5504, 2752):
         assert cuda_q40.uses_tc_path(torch.bfloat16, torch.bfloat16, 256, n)
     for n in (64, 128):
-        assert not cuda_q40.uses_tc_path(torch.bfloat16, torch.bfloat16, 256, n)
+        assert cuda_q40.uses_tc_path(torch.bfloat16, torch.bfloat16, 256, n)
+    assert not cuda_q40.uses_tc_path(torch.bfloat16, torch.bfloat16, 256, 48)
